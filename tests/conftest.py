@@ -18,6 +18,11 @@ from predictionio_tpu.analysis import pytest_plugin as _tsan_plugin  # noqa: E40
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's hand-written "
+        "kernels); skips where none is present",
+    )
     _tsan_plugin.pytest_configure(config)
 
 
