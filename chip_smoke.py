@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card.
+"""Drive the PyTorch port's train and serve paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,8 @@ Phases, in order; any failure prints what failed and exits non-zero:
 1. device   needs CUDA; prints the card's name and power limit
             (nvidia-smi) and turns TF32 off.
 2. build    compiles every ``predictionio_tpu_torch/ops/csrc/*.cu`` into
-            ``build/kernels/`` and loads the library.
+            ``build/kernels/`` (one nvcc per source, all started
+            together) and loads the libraries.
 3. sweep    the fused score+top-k kernel against its plain PyTorch
             version on the card, at the ML-20M item slab: f32/bf16/int8,
             no mask / packed bits / row list, unscaled and scaled,
@@ -17,17 +18,35 @@ Phases, in order; any failure prints what failed and exits non-zero:
             factors, and B=1 vs B=64 bit-identity. Indices must be equal;
             values within rtol 1e-5 (the kernel and the plain version do
             the same rounded operations, so they are in fact equal).
-4. serve    ML-20M-sized factors from a seed (138,493 users x 26,744
-            items, rank 10) written as a JAX-format npz blob, loaded
-            through ``convert.load_jax_als_blob`` and served by the
-            port's ``QueryServer`` on the card; 16 client threads send
-            500 ``POST /queries.json`` (some with blacklists or
-            whitelists). Every answer must equal the plain version's on
-            the CPU; kernel launches must equal device batches.
-5. times    CUDA-event medians at B in {1, 64}, k=128, per dtype: the
-            kernel, the plain version, ``torch.topk(q @ itf.T)`` as a
-            yardstick the port never calls, and the card's bound.
-6. report   one ``{"kernels": [...]}`` line, then the device line last.
+4. data     ML-20M-width ratings from SEED with numpy: 138,493 users x
+            26,744 items, 20,000,263 unique pairs, half-star ratings
+            0.5-5.0 (so staging picks int8 storage with scale 2).
+5. dense    the dense ALS row/col pass kernels against their plain
+            versions on the card: implicit and explicit, signed ratings,
+            scale in {1, 2, 10}, K in {1, 8, 10, 32} at 2048 x 256, and
+            the full ML-20M slab (139,264 x 26,880 int8, K = 10,
+            implicit). Per element |kernel - plain| <= 1e-5 * S, S the
+            same pass over the absolute terms; a second launch must give
+            the same bits.
+6. train    the main path: ``ALSAlgorithm.train`` on the phase-4 data at
+            the template defaults with 5 iterations. Both pass kernels
+            must launch once per iteration, every factor must be finite,
+            and the same train through the plain passes on the card, from
+            the same seeded init, must correlate > 0.9999 (users and
+            items). Prints staging, densify and per-iteration seconds.
+7. serve    the trained factors, through ``to_bytes`` and
+            ``convert.load_jax_als_blob`` (as ``console train`` then
+            ``console deploy`` would), served by the port's
+            ``QueryServer`` on the card; 16 client threads send 500
+            ``POST /queries.json`` (some with blacklists or whitelists).
+            Every answer must equal the plain version's on the CPU;
+            kernel launches must equal device batches.
+8. times    CUDA-event medians: top-k at B in {1, 64}, k=128, per dtype
+            (kernel, plain, ``torch.topk(q @ itf.T)`` as a yardstick the
+            port never calls, bound); the dense passes at the ML-20M slab,
+            K = 10 (kernel, plain, the port's two-matmul ``ops.dense``
+            pass on the same R in bf16 storage as the yardstick, bound).
+9. report   one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -49,12 +68,17 @@ import torch
 
 try:
     from predictionio_tpu_torch import convert
+    from predictionio_tpu_torch.data.store.bimap import BiMap
     from predictionio_tpu_torch.engines.recommendation.engine import (
         ALSAlgorithm,
         ALSAlgorithmParams,
         ALSModel,
+        RuntimeContext,
+        TrainingData,
     )
-    from predictionio_tpu_torch.ops import _build
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import _build, dense
+    from predictionio_tpu_torch.ops import dense_fused as df
     from predictionio_tpu_torch.ops import recommend as rec
     from predictionio_tpu_torch.workflow.server import (
         QueryServer,
@@ -68,6 +92,8 @@ else:
 
 SEED = 20
 N_USERS, N_ITEMS, RANK = 138_493, 26_744, 10  # ML-20M
+N_EDGES = 20_000_263  # ML-20M's unique (user, item) ratings
+TRAIN_ITERATIONS = 5
 K_LADDER = (1, 10, 128, 1024, N_ITEMS)
 N_QUERIES, N_CLIENTS = 500, 16
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
@@ -77,6 +103,9 @@ PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 SOURCE = "predictionio_tpu_torch/ops/csrc/recommend_topk.cu"
 REPLACES = "predictionio_tpu/ops/recommend_pallas.py:412"
+DENSE_SOURCE = "predictionio_tpu_torch/ops/csrc/dense_pass.cu"
+DENSE_REPLACES = {"row": "predictionio_tpu/ops/dense_pallas.py:122",
+                  "col": "predictionio_tpu/ops/dense_pallas.py:175"}
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
@@ -94,7 +123,7 @@ def check(cond, msg):
 # ---------------------------------------------------------------------------
 
 
-def phase_device(report):
+def phase_device(report, shared):
     check(torch.cuda.is_available(), "no CUDA device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -111,10 +140,11 @@ def phase_device(report):
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
 
-def phase_build(report):
+def phase_build(report, shared):
     t0 = time.perf_counter()
     paths = _build.build()
     rec._kernel_lib()
+    df._kernel_lib()
     report["build_s"] = time.perf_counter() - t0
     report["build_log"] = {
         n: [ln for ln in log.splitlines() if "ptxas" in ln]
@@ -186,7 +216,7 @@ def _compare(args, k, exact, tally, label):
     return kv, ki
 
 
-def phase_sweep(report):
+def phase_sweep(report, shared):
     rng = np.random.default_rng(SEED)
     i_p = rec.pad_items(N_ITEMS)
     tally = {"cases": 0, "bit_equal": 0, "max_abs_err": 0.0}
@@ -251,7 +281,210 @@ def phase_sweep(report):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path, served
+# phase 4: ML-20M-width ratings
+# ---------------------------------------------------------------------------
+
+
+def phase_data(report, shared):
+    """N_EDGES unique (user, item) pairs drawn uniformly from SEED, with
+    half-star ratings 0.5-5.0."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    total = N_USERS * N_ITEMS
+    keys = np.unique(rng.integers(0, total, N_EDGES + N_EDGES // 64))
+    check(len(keys) >= N_EDGES, f"only {len(keys)} unique pairs drawn")
+    keys = np.delete(keys, rng.choice(len(keys), len(keys) - N_EDGES, replace=False))
+    rows = (keys // N_ITEMS).astype(np.int32)
+    cols = (keys % N_ITEMS).astype(np.int32)
+    vals = (rng.integers(1, 11, N_EDGES) / 2.0).astype(np.float32)
+    check(dense.int8_scale(vals) == 2.0, "half-star ratings must stage as int8, s=2")
+    shared["coo"] = (rows, cols, vals)
+    report["data"] = {"users": N_USERS, "items": N_ITEMS, "edges": N_EDGES,
+                      "seconds": time.perf_counter() - t0}
+    print(f"[data] {N_USERS} users x {N_ITEMS} items, {N_EDGES} unique "
+          f"ratings, {report['data']['seconds']:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: dense pass kernels vs plain versions on the card
+# ---------------------------------------------------------------------------
+
+
+def _dense_compare(r, x, ascale, implicit, which, tally, label):
+    fn = df.fused_row_pass if which == "row" else df.fused_col_pass
+    plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
+    kb, kc = fn(r, x, ascale, implicit=implicit)
+    kb2, kc2 = fn(r, x, ascale, implicit=implicit)
+    pb, pc = plain(r, x, ascale, implicit=implicit)
+    sb, sc = plain(r, x, ascale, implicit=implicit, magnitude=True)
+    torch.cuda.synchronize()
+    check(torch.equal(kb, kb2) and torch.equal(kc, kc2),
+          f"{label}: a second launch gave other bits")
+    for got, want, mag, what in ((kb, pb, sb, "b"), (kc, pc, sc, "corr")):
+        check(bool(torch.isfinite(got).all()), f"{label} {what}: not finite")
+        err = (got - want).abs()
+        ratio = float((err / (1e-5 * mag).clamp_min(1e-30)).max())
+        check(bool((err <= 1e-5 * mag).all()),
+              f"{label} {what}: |kernel - plain| beyond 1e-5*S "
+              f"(ratio {ratio:.3g})")
+        t = tally[which]
+        t["max_abs_err"] = max(t["max_abs_err"], float(err.max()))
+        t["max_ratio"] = max(t["max_ratio"], ratio)
+    tally[which]["cases"] += 1
+
+
+def _small_ratings(rng, scale, n_rows=2048, n_cols=256, density=0.05):
+    """Signed ratings on the scale's grid (integers, halves, tenths in
+    [-5, 5], no zeros), densified on the card as int8 round(r * s)."""
+    mask = rng.random((n_rows, n_cols)) < density
+    rows, cols = np.nonzero(mask)
+    steps = rng.integers(1, int(5 * scale) + 1, len(rows))
+    vals = (steps / scale * rng.choice([-1.0, 1.0], len(rows))).astype(np.float32)
+    return dense.densify(
+        torch.from_numpy(rows).cuda(), torch.from_numpy(cols).cuda(),
+        torch.from_numpy(vals).cuda(), n_rows_p=n_rows, n_cols_p=n_cols,
+        dense_dtype="int8", scale=scale)
+
+
+def phase_dense(report, shared):
+    rng = np.random.default_rng(SEED + 2)
+    t0 = time.perf_counter()
+    tally = {w: {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0}
+             for w in ("row", "col")}
+    for scale in (1.0, 2.0, 10.0):
+        r = _small_ratings(rng, scale)
+        for implicit in (True, False):
+            # alpha 1.7: 1 + a*q exercises the weights' bf16 rounding
+            ascale = float(np.float32(1.7 / scale if implicit else 1.0 / scale))
+            for k in (1, 8, 10, 32):
+                for which in ("row", "col"):
+                    n_side = r.shape[1] if which == "row" else r.shape[0]
+                    x = torch.from_numpy((rng.standard_normal((n_side, k))
+                                          / np.sqrt(k)).astype(np.float32)).cuda()
+                    _dense_compare(r, x, ascale, implicit, which, tally,
+                                   f"{which} implicit={implicit} s={scale} K={k}")
+    # the full ML-20M slab, as staging lays it out
+    rows, cols, vals = shared["coo"]
+    n_u_p = -(-N_USERS // dense.ROW_BLOCK) * dense.ROW_BLOCK
+    n_i_p = -(-N_ITEMS // dense.COL_PAD) * dense.COL_PAD
+    r = dense.densify(
+        torch.from_numpy(rows).cuda().long(), torch.from_numpy(cols).cuda().long(),
+        torch.from_numpy(vals).cuda(), n_rows_p=n_u_p, n_cols_p=n_i_p,
+        dense_dtype="int8", scale=2.0)
+    shared["slab"] = r
+    ascale = float(np.float32(1.0 / 2.0))  # alpha 1.0 / s 2
+    for which, n_side in (("row", n_i_p), ("col", n_u_p)):
+        x = torch.from_numpy((rng.standard_normal((n_side, RANK))
+                              / np.sqrt(RANK)).astype(np.float32)).cuda()
+        _dense_compare(r, x, ascale, True, which, tally,
+                       f"ML-20M slab {n_u_p}x{n_i_p} {which}")
+    report["dense_sweep"] = dict(tally, seconds=time.perf_counter() - t0)
+    for w in ("row", "col"):
+        t = tally[w]
+        print(f"[dense] {w} pass: {t['cases']} cases within 1e-5*S, second "
+              f"launch bit-equal in all; max |kernel - plain| "
+              f"{t['max_abs_err']:.3g}, largest |kernel - plain| / (1e-5*S) "
+              f"{t['max_ratio']:.3g}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the main path, trained
+# ---------------------------------------------------------------------------
+
+
+class _PlainPasses:
+    """Route the dense half-step through the plain pass versions (on the
+    card) for the comparison train; restores the wrappers on exit."""
+
+    def __enter__(self):
+        self.saved = (df.fused_row_pass, df.fused_col_pass)
+        df.fused_row_pass = df.fused_row_pass_plain
+        df.fused_col_pass = df.fused_col_pass_plain
+
+    def __exit__(self, *exc):
+        df.fused_row_pass, df.fused_col_pass = self.saved
+
+
+def _corr(a, b):
+    return float(np.corrcoef(np.ravel(a), np.ravel(b))[0, 1])
+
+
+def phase_train(report, shared):
+    rows, cols, vals = shared["coo"]
+    td = TrainingData(
+        rows=rows, cols=cols, vals=vals, n_users=N_USERS, n_items=N_ITEMS,
+        user_vocab=BiMap({f"u{n}": n for n in range(N_USERS)}),
+        item_vocab=BiMap({f"i{n}": n for n in range(N_ITEMS)}),
+    )
+    td.sanity_check()
+    params = ALSAlgorithmParams(num_iterations=TRAIN_ITERATIONS)  # template defaults
+    df.LAUNCHES = 0  # every count to 0 just before the main path
+    df.PASS_LAUNCHES.update(row=0, col=0)
+    t0 = time.perf_counter()
+    model = ALSAlgorithm(params).train(RuntimeContext(), td)
+    train_s = time.perf_counter() - t0
+    launches = dict(df.PASS_LAUNCHES, total=df.LAUNCHES)
+    f = model.factors
+    check(launches["total"] == 2 * TRAIN_ITERATIONS
+          and launches["row"] == launches["col"] == TRAIN_ITERATIONS,
+          f"pass kernel launches {launches} != one row and one col pass "
+          f"per iteration ({TRAIN_ITERATIONS})")
+    check(f.user_factors.shape == (N_USERS, RANK)
+          and f.item_factors.shape == (N_ITEMS, RANK), "factor shapes")
+    check(bool(np.isfinite(f.user_factors).all()
+               and np.isfinite(f.item_factors).all()), "non-finite factors")
+    shared["factors"] = f
+    del model
+
+    # breakdown and the plain comparison, from the same seeded init
+    als_params = als.ALSParams(iterations=TRAIN_ITERATIONS)
+    t0 = time.perf_counter()
+    check(als.dense_eligible(rows, cols, vals, N_USERS, N_ITEMS, als_params),
+          "the dense gate refused ML-20M-width data")
+    gate_s = time.perf_counter() - t0
+    staged = als.stage_dense(rows, cols, vals, N_USERS, N_ITEMS, als_params)
+    check(staged.static_kwargs["dense_dtype"] == "int8"
+          and staged.static_kwargs["scale"] == 2.0, "staging did not pick int8, s=2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uf, itf = staged.factors(*staged.run())
+    run_s = time.perf_counter() - t0
+    check(np.array_equal(uf, f.user_factors) and np.array_equal(itf, f.item_factors),
+          "a second kernel train from the same seed gave other factors")
+    with _PlainPasses():
+        t0 = time.perf_counter()
+        puf, pitf = staged.factors(*staged.run())
+        plain_s = time.perf_counter() - t0
+    cu, ci = _corr(f.user_factors, puf), _corr(f.item_factors, pitf)
+    du = float(np.abs(f.user_factors - puf).max())
+    di = float(np.abs(f.item_factors - pitf).max())
+    check(cu > 0.9999 and ci > 0.9999,
+          f"kernel vs plain train: corrcoef users {cu}, items {ci}")
+    report["train"] = {
+        "iterations": TRAIN_ITERATIONS, "rank": RANK, "edges": N_EDGES,
+        "main_path_s": train_s, "launches": launches, "gate_s": gate_s,
+        "staging_s": staged.host_prep_sec + staged.transfer_sec,
+        "host_prep_s": staged.host_prep_sec, "densify_s": staged.transfer_sec,
+        "per_iteration_s": run_s / TRAIN_ITERATIONS,
+        "plain_per_iteration_s": plain_s / TRAIN_ITERATIONS,
+        "corr_users": cu, "corr_items": ci,
+        "max_abs_diff_users": du, "max_abs_diff_items": di,
+    }
+    t = report["train"]
+    print(f"[train] ALSAlgorithm.train at ML-20M width ({N_EDGES} ratings, rank "
+          f"{RANK}, {TRAIN_ITERATIONS} iterations, int8 s=2): {train_s:.2f} s "
+          f"end to end; pass kernel launches row {launches['row']} col "
+          f"{launches['col']}; gate (dense_eligible) {gate_s:.2f} s, staging "
+          f"{t['staging_s']:.2f} s (host prep "
+          f"{t['host_prep_s']:.2f} s, copy + densify {t['densify_s']:.3f} s), "
+          f"{t['per_iteration_s']:.4f} s per iteration (plain passes "
+          f"{t['plain_per_iteration_s']:.4f} s); vs the plain-pass train: "
+          f"corrcoef users {cu:.8f} items {ci:.8f}, max |diff| users "
+          f"{du:.3g} items {di:.3g}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the trained factors, served
 # ---------------------------------------------------------------------------
 
 
@@ -295,17 +528,17 @@ def _status(port):
         conn.close()
 
 
-def phase_serve(report):
+def phase_serve(report, shared):
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    uf = (rng.standard_normal((N_USERS, RANK)) / np.sqrt(RANK)).astype(np.float32)
-    itf = (rng.standard_normal((N_ITEMS, RANK)) / np.sqrt(RANK)).astype(np.float32)
-    blob = convert.als_factors_from_numpy(
-        uf, itf, [f"u{n}" for n in range(N_USERS)],
-        [f"i{n}" for n in range(N_ITEMS)], {"rank": RANK},
-    ).to_bytes()
-    factors = convert.load_jax_als_blob(blob)
-    check(np.array_equal(factors.item_factors, itf), "blob round trip")
+    trained = shared["factors"]  # phase 6's ALSFactors
+    blob = trained.to_bytes()  # what ``console train`` writes
+    factors = convert.load_jax_als_blob(blob)  # what ``console deploy`` reads
+    check(np.array_equal(factors.item_factors, trained.item_factors)
+          and np.array_equal(factors.user_factors, trained.user_factors),
+          "blob round trip")
+    check(factors.user_vocab.to_dict() == trained.user_vocab.to_dict(),
+          "blob round trip: user ids")
     setup_s = time.perf_counter() - t0
     params = ALSAlgorithmParams(rank=RANK)
     server = QueryServer(
@@ -377,7 +610,7 @@ def phase_serve(report):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times
+# phase 8: times
 # ---------------------------------------------------------------------------
 
 
@@ -410,7 +643,7 @@ def _bound(dtype, b, i_p, k, scaled):
     return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
 
 
-def phase_times(report):
+def phase_times(report, shared):
     rng = np.random.default_rng(SEED + 1)
     i_p = rec.pad_items(N_ITEMS)
     rows = []
@@ -439,6 +672,56 @@ def phase_times(report):
     report["times"] = rows
 
 
+def _dense_bound(n_rows, n_cols, k, which):
+    """Least time for one pass: R read once, the factor input read once,
+    both outputs written once, over HBM; or the dense-equivalent
+    2*n_r*n_c*(K+K^2) operations at the bf16 tensor-core peak."""
+    n_in, n_out = (n_cols, n_rows) if which == "row" else (n_rows, n_cols)
+    nbytes = n_rows * n_cols + n_in * k * 4 + n_out * (k + k * k) * 4
+    ops = 2.0 * n_rows * n_cols * (k + k * k)
+    bytes_s, ops_s = nbytes / HBM_BPS, ops / PEAK_OPS["bf16"]
+    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
+
+
+def phase_dense_times(report, shared):
+    rng = np.random.default_rng(SEED + 3)
+    r = shared.pop("slab")
+    n_rows, n_cols = r.shape
+    # the yardstick's storage: the same ratings as bf16 (r = q / 2, exact)
+    r16 = torch.empty((n_rows, n_cols), dtype=torch.bfloat16, device=r.device)
+    for s in range(0, n_rows, dense.ROW_BLOCK):
+        r16[s : s + dense.ROW_BLOCK] = (r[s : s + dense.ROW_BLOCK].float() / 2.0
+                                        ).to(torch.bfloat16)
+    r0 = torch.zeros_like(r)
+    ascale = float(np.float32(1.0 / 2.0))
+    rows = []
+    for which, n_side in (("row", n_cols), ("col", n_rows)):
+        x = torch.from_numpy((rng.standard_normal((n_side, RANK))
+                              / np.sqrt(RANK)).astype(np.float32)).cuda()
+        fn = df.fused_row_pass if which == "row" else df.fused_col_pass
+        plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
+        lib = dense.dense_row_pass if which == "row" else dense.dense_col_pass
+        kernel = _time_ms(lambda: fn(r, x, ascale, implicit=True), 5, repeats=5)
+        # the same pass over an all-zero R: the tile stream and the scan
+        # alone, no per-rating work (a diagnostic, not a yardstick)
+        zero = _time_ms(lambda: fn(r0, x, ascale, implicit=True), 5, repeats=5)
+        plain_ms = _time_ms(lambda: plain(r, x, ascale, implicit=True), 1, repeats=3)
+        library = _time_ms(lambda: lib(r16, x, implicit=True, alpha=1.0,
+                                       dense_dtype="bf16"), 1, repeats=3)
+        bound, by = _dense_bound(n_rows, n_cols, RANK, which)
+        rows.append({"pass": which, "n_rows": n_rows, "n_cols": n_cols, "K": RANK,
+                     "ms": kernel, "zero_r_ms": zero, "plain_ms": plain_ms,
+                     "library_ms": library,
+                     "bound_ms": bound, "bound_by": by})
+        print(f"[times] dense {which} pass {n_rows}x{n_cols} int8, K={RANK}: "
+              f"kernel {kernel:.4f} ms (all-zero R {zero:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, ops.dense "
+              f"two-matmul on bf16 R {library:.4f} ms, bound {bound:.4f} ms "
+              f"({by})", flush=True)
+    del r16, r, r0
+    report["dense_times"] = rows
+
+
 def main() -> int:
     if _IMPORT_ERROR is not None:
         print(f"chip_smoke: the port is not importable here ({_IMPORT_ERROR}); "
@@ -448,29 +731,46 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     report: dict = {}
+    shared: dict = {}
+    t_start = time.perf_counter()
     for name, phase in (("device", phase_device), ("build", phase_build),
-                        ("sweep", phase_sweep), ("serve", phase_serve),
-                        ("times", phase_times)):
+                        ("sweep", phase_sweep), ("data", phase_data),
+                        ("dense", phase_dense), ("train", phase_train),
+                        ("serve", phase_serve), ("times", phase_times),
+                        ("dense times", phase_dense_times)):
         try:
-            phase(report)
+            phase(report, shared)
         except Exception:  # noqa: BLE001 — report the phase, then fail
             traceback.print_exc()
             print(f"FAILED phase {name}", flush=True)
             return 1
+    report["seconds"] = time.perf_counter() - t_start
     main_row = next(r for r in report["times"]
                     if r["dtype"] == "f32" and r["B"] == 64)
-    kernels = {"kernels": [{
+    kernels = [{
         "name": "fused_recommend_topk", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": report["serve"]["launches"],
         "max_abs_err": report["sweep"]["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-    }]}
+    }]
+    for row in report["dense_times"]:
+        which = row["pass"]
+        kernels.append({
+            "name": f"fused_{which}_pass", "route": "cuda",
+            "source": DENSE_SOURCE, "replaces": DENSE_REPLACES[which],
+            "launches": report["train"]["launches"][which],
+            "max_abs_err": report["dense_sweep"][which]["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(f"[done] {report['seconds']:.1f} s", flush=True)
     print(report["nvidia_smi"])
-    print(json.dumps(kernels))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,13 @@
-"""Recommendation engine template, serving half: ALS factors → top-N
-items per query.
+"""Recommendation engine template: ratings → ALS factors → top-N items
+per query.
 
 Counterpart of the JAX package's ``engines/recommendation/engine.py``.
-The model keeps its factor matrices resident on the device, so serving
-is one fused score+top-k call per query batch. Training is not part of
-this package yet: a model comes from a factor blob (``convert.py``).
+``ALSAlgorithm.train`` trains on the dense-W path of ``models/als.py``
+(checkpointed segments and warm starts are not ported yet); the
+file-backed ``FileRatingsDataSource`` reads ``user::item::rating``
+lines. The model keeps its factor matrices resident on the device, so
+serving is one fused score+top-k call per query batch. A model also
+comes from a factor blob (``convert.py``).
 """
 
 from __future__ import annotations
@@ -15,11 +18,90 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from predictionio_tpu_torch.data.store.bimap import BiMap
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models import als
 from predictionio_tpu_torch.ops.recommend import ROWLIST_MAX, rowlist_np
 from predictionio_tpu_torch.ops.topk import NEG_INF
 from predictionio_tpu_torch.utils.bucket import batch_bucket, topk_bucket
+
+
+# -- context and training data -----------------------------------------------
+
+
+@dataclass
+class RuntimeContext:
+    """What a DASE stage gets from its caller. The port's counterpart of
+    the JAX package's ``core.base.RuntimeContext`` carries only the
+    device to train and serve on: None means the first CUDA device."""
+
+    device: Optional[str] = None
+
+
+@dataclass
+class TrainingData:
+    rows: np.ndarray  # user idx per interaction
+    cols: np.ndarray  # item idx
+    vals: np.ndarray  # rating / implicit weight
+    n_users: int
+    n_items: int
+    user_vocab: BiMap  # str → int
+    item_vocab: BiMap
+    # item row → category set, from item $set properties
+    item_categories: Optional[list[frozenset]] = None
+
+    def sanity_check(self) -> None:
+        if len(self.rows) == 0:
+            raise ValueError(
+                "no interaction events found (check appName/eventNames)"
+            )
+        if not np.isfinite(self.vals).all():
+            raise ValueError("non-finite interaction values")
+
+
+@dataclass
+class FileDataSourceParams:
+    filepath: str
+    delimiter: str = "::"  # MovieLens ratings.dat convention
+
+
+class FileRatingsDataSource:
+    """``user::item::rating`` lines from a delimited text file, no event
+    store involved (the JAX package's file-backed DataSource; reference
+    examples/experimental/scala-parallel-recommendation-custom-datasource
+    /DataSource.scala:24-33)."""
+
+    def __init__(self, params: FileDataSourceParams):
+        self.params = params
+
+    def read_training(self, ctx: Optional[RuntimeContext] = None) -> TrainingData:
+        users: dict[str, int] = {}
+        items: dict[str, int] = {}
+        rows, cols, vals = [], [], []
+        with open(self.params.filepath) as fh:
+            for line in fh:
+                line = line.strip()
+                if not line:
+                    continue
+                parts = line.split(self.params.delimiter)
+                if len(parts) < 3:
+                    raise ValueError(
+                        f"bad ratings line (want user{self.params.delimiter}"
+                        f"item{self.params.delimiter}rating): {line!r}"
+                    )
+                u, i, r = parts[0], parts[1], float(parts[2])
+                rows.append(users.setdefault(u, len(users)))
+                cols.append(items.setdefault(i, len(items)))
+                vals.append(r)
+        return TrainingData(
+            rows=np.asarray(rows, np.int32),
+            cols=np.asarray(cols, np.int32),
+            vals=np.asarray(vals, np.float32),
+            n_users=len(users),
+            n_items=len(items),
+            user_vocab=BiMap(users),
+            item_vocab=BiMap(items),
+        )
 
 
 # -- query/result ------------------------------------------------------------
@@ -109,6 +191,31 @@ class ALSModel:
 class ALSAlgorithm:
     def __init__(self, params: ALSAlgorithmParams):
         self.params = params
+
+    def train(self, ctx: Optional[RuntimeContext], pd: TrainingData) -> ALSModel:
+        """Train ALS factors on the context's device (the first CUDA
+        device by default) and return the model, resident there."""
+        device = ctx.device if ctx is not None else None
+        als_params = als.ALSParams(
+            rank=self.params.rank,
+            iterations=self.params.num_iterations,
+            lambda_=self.params.lambda_,
+            alpha=self.params.alpha,
+            implicit_prefs=self.params.implicit_prefs,
+            cg_iterations=self.params.cg_iterations,
+            seed=self.params.seed,
+        )
+        factors = als.train(
+            pd.rows, pd.cols, pd.vals, pd.n_users, pd.n_items, als_params,
+            user_vocab=pd.user_vocab, item_vocab=pd.item_vocab,
+            device=device,
+        )
+        return ALSModel(
+            factors,
+            item_categories=pd.item_categories,
+            serve_dtype=self.params.serve_dtype,
+            device=device,
+        )
 
     def warmup(self, model: ALSModel) -> None:
         """Stage the factors on the device and run the serving ladder's

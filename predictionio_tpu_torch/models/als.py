@@ -1,19 +1,31 @@
-"""ALS serving: factor persistence, staged serving state and the serving
-verbs.
+"""ALS: training on the dense-W path, factor persistence, staged serving
+state and the serving verbs.
 
-Serving half of the JAX package's ``models/als.py``. Factors persist in
+Counterpart of the JAX package's ``models/als.py``. Factors persist in
 the same npz format, so a blob written by the JAX package's
-``ALSFactors.to_bytes`` loads here. Staging puts the factor matrices on
-a device once (padded to ``ITEM_PAD`` rows, quantized for int8); every
-verb then sends only the row ids and, when filters apply, the packed
-exclusion words or row list, and runs ``ops.recommend.
-fused_recommend_topk``.
+``ALSFactors.to_bytes`` loads here and one written here loads there.
+
+Training takes the dense-W path (``dense_eligible`` → ``stage_dense`` →
+the alternating loop of ``_dense_half_step``): the rating matrix lives
+dense on the device and each half-step is one edge pass over it plus
+the batched CG solve. int8 storage runs the edge pass through
+``ops.dense_fused`` (a hand-written kernel on the card); f32 and bf16
+storage through ``ops.dense``. Input that the JAX package would send to
+its windowed or scatter path raises NotImplementedError.
+
+Serving stages the factor matrices on a device once (padded to
+``ITEM_PAD`` rows, quantized for int8); every verb then sends only the
+row ids and, when filters apply, the packed exclusion words or row
+list, and runs ``ops.recommend.fused_recommend_topk``.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import logging
+import math
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -22,7 +34,16 @@ import torch
 
 from predictionio_tpu_torch.data.store.bimap import BiMap
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.ops import dense, dense_fused
 from predictionio_tpu_torch.ops import recommend as _rp
+from predictionio_tpu_torch.ops.segment import batched_cg, f32_gram
+from predictionio_tpu_torch.ops.windowed import flat_gram_matvec
+from predictionio_tpu_torch.utils.env import env_int, env_str
+
+# ranks up to this solve via explicitly built per-row K×K operators (one
+# edge pass per half-step); beyond it the JAX package's matrix-free CG
+# scatter path takes over, which the port does not have yet
+GRAM_SOLVER_MAX_RANK = 32
 
 
 @dataclass(frozen=True)
@@ -83,6 +104,334 @@ class ALSFactors:
                 item_vocab=item_vocab,
                 params=params,
             )
+
+
+# -- training: the dense-W path ----------------------------------------------
+
+# auto-dispatch bound for the dense rating matrix; PIO_DENSE_ALS=0
+# disables, =1 forces where it fits, PIO_DENSE_ALS_BYTES overrides the
+# budget
+DENSE_DEFAULT_BYTES = 9_000_000_000
+# below this edge count the JAX package keeps the windowed path unless
+# PIO_DENSE_ALS=1 opts in
+DENSE_AUTO_MIN_EDGES = 1_000_000
+
+_NOT_PORTED = (
+    "this input takes the JAX package's {what} train path, which the "
+    "port does not have yet (ROADMAP Queue 1 item 5); PIO_DENSE_ALS=1 "
+    "forces the dense path where the data allows it"
+)
+
+
+def _dense_half_step(
+    r: torch.Tensor,
+    fixed: torch.Tensor,  # factors of the side NOT being solved
+    degree: torch.Tensor,  # (n_solved_p,) — -1 marks padding rows
+    x0: torch.Tensor,
+    *,
+    solve_rows: bool,  # True: solve R's row side; False: its column side
+    implicit: bool,
+    lam: float,
+    alpha: float,
+    cg_iterations: int,
+    dense_dtype: str,
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """One ALS half-step with b/gram built by one edge pass over R.
+
+    int8 storage runs the one-R-read pass of ``ops.dense_fused`` (the
+    kernel on the card, its plain version on the CPU); f32 and bf16
+    storage run ``ops.dense``. Operator assembly and CG are the JAX
+    package's. Padding rows have all-zero R and b=0, x0=0, so CG keeps
+    them at zero."""
+    k = x0.shape[1]
+    if r.dtype == torch.int8:
+        # α/s in Python double, then rounded to f32 once
+        ascale = float(np.float32(alpha / scale if implicit else 1.0 / scale))
+        fused = (
+            dense_fused.fused_row_pass if solve_rows
+            else dense_fused.fused_col_pass
+        )
+        b, corr_flat = fused(r, fixed, ascale, implicit=implicit)
+    else:
+        edge_pass = dense.dense_row_pass if solve_rows else dense.dense_col_pass
+        b, corr_flat = edge_pass(
+            r, fixed, implicit=implicit, alpha=alpha, dense_dtype=dense_dtype,
+        )
+    eye = torch.eye(k, dtype=torch.float32, device=r.device)
+    if implicit:
+        base = f32_gram(fixed) + lam * eye
+        a_flat = corr_flat + base.reshape(1, k * k)
+    else:
+        reg = lam * torch.clamp(degree, min=1.0)
+        a_flat = corr_flat + reg[:, None] * eye.reshape(1, k * k)
+    return batched_cg(lambda v: flat_gram_matvec(a_flat, v), b, x0,
+                      cg_iterations)
+
+
+def _init_factors(n_p: int, rank: int, deg: torch.Tensor, gen) -> torch.Tensor:
+    return (
+        torch.randn((n_p, rank), generator=gen, dtype=torch.float32,
+                    device=deg.device)
+        / math.sqrt(rank)
+    ) * (deg >= 0)[:, None]
+
+
+def _train_loop_dense(
+    r, user_deg, item_deg, uf0=None, itf0=None, *, rank, iterations,
+    implicit, lam, alpha, cg_iterations, seed, dense_dtype="bf16",
+    scale=1.0,
+):
+    """The whole alternating loop on the dense-W path (counterpart of the
+    JAX package's ``_train_jit_dense``). Without init factors both start
+    from ``normal / sqrt(rank)`` drawn by a ``torch.Generator`` on R's
+    device seeded with `seed` (users first), masked to zero on padding
+    rows; this cannot equal the JAX package's threefry draw, so tests
+    that compare the two pass init factors to both."""
+    n_users_p, n_items_p = r.shape
+    if uf0 is not None and itf0 is not None:
+        uf, itf = uf0, itf0
+    else:
+        gen = torch.Generator(device=r.device)
+        gen.manual_seed(int(seed))
+        uf = _init_factors(n_users_p, rank, user_deg, gen)
+        itf = _init_factors(n_items_p, rank, item_deg, gen)
+    step = dict(implicit=implicit, lam=lam, alpha=alpha,
+                cg_iterations=cg_iterations, dense_dtype=dense_dtype,
+                scale=scale)
+    for _ in range(iterations):
+        uf = _dense_half_step(r, itf, user_deg, uf, solve_rows=True, **step)
+        itf = _dense_half_step(r, uf, item_deg, itf, solve_rows=False, **step)
+    return uf, itf
+
+
+@dataclass
+class StagedDenseTrain:
+    """A dense-path train with the rating matrix resident on the device.
+
+    Built once per training set by `stage_dense`; `run()` re-runs the
+    alternating loop with no further host→device traffic.
+    `transfer_sec` is the host→device copy of the edges plus the
+    densify, to the device's completion."""
+
+    device_args: tuple  # (r, user_deg, item_deg, uf0 | None, itf0 | None)
+    static_kwargs: dict
+    n_users: int
+    n_items: int
+    host_prep_sec: float
+    transfer_sec: float
+
+    def run(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return _train_loop_dense(*self.device_args, **self.static_kwargs)
+
+    def factors(self, uf, itf) -> tuple[np.ndarray, np.ndarray]:
+        return (
+            uf[: self.n_users].cpu().numpy(),
+            itf[: self.n_items].cpu().numpy(),
+        )
+
+
+def dense_matrix_bytes(
+    n_users: int, n_items: int, dense_dtype: str = "bf16"
+) -> int:
+    """Padded dense-R footprint — the auto-dispatch gate's input."""
+    n_u_p = -(-n_users // dense.ROW_BLOCK) * dense.ROW_BLOCK
+    n_i_p = -(-n_items // dense.COL_PAD) * dense.COL_PAD
+    return n_u_p * n_i_p * dense.BYTES_PER_CELL.get(dense_dtype, 2)
+
+
+def dense_eligible(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_users: int,
+    n_items: int,
+    params: ALSParams,
+    dense_dtype: str = "bf16",
+) -> bool:
+    """Gate for the dense-W path, the JAX package's on one device.
+
+    Requires: env not opting out, rank within the gram-solver bound, the
+    padded matrix within the byte budget, unique (user, item) pairs (a
+    dense cell holds one rating; the windowed path sums duplicates), and
+    — explicit mode only — no zero-valued ratings (a dense zero must
+    mean "unobserved"). Auto mode also requires DENSE_AUTO_MIN_EDGES
+    unless PIO_DENSE_ALS=1 opts in."""
+    env = env_str("PIO_DENSE_ALS").strip()
+    if env == "0":
+        return False
+    if params.rank > GRAM_SOLVER_MAX_RANK:
+        return False
+    if env != "1" and len(rows) < DENSE_AUTO_MIN_EDGES:
+        return False
+    budget = env_int("PIO_DENSE_ALS_BYTES", DENSE_DEFAULT_BYTES)
+    if dense_dtype == "bf16":  # the default: predict what auto picks
+        if dense.int8_scale(vals) is not None:
+            dense_dtype = "int8"
+    if dense_matrix_bytes(n_users, n_items, dense_dtype) > budget:
+        return False
+    if not params.implicit_prefs and np.any(vals == 0.0):
+        return False
+    key = rows.astype(np.int64) * np.int64(n_items) + cols.astype(np.int64)
+    if np.unique(key).size != len(key):
+        logging.getLogger(__name__).info(
+            "dense ALS path skipped: duplicate (user, item) pairs"
+        )
+        return False
+    return True
+
+
+def _degrees(idx: np.ndarray, n: int) -> np.ndarray:
+    return np.bincount(idx, minlength=n).astype(np.float32)
+
+
+def stage_dense(
+    rows, cols, vals, n_users, n_items, params,
+    user_deg=None, item_deg=None, init_factors=None,
+    dense_dtype: str = "auto",
+    device=None,
+) -> StagedDenseTrain:
+    """Stage the dense-path train on the card (or `device`): pad dims to
+    the block quanta, copy the COO arrays once, densify on the device,
+    and keep the matrix resident.
+
+    dense_dtype "auto" prefers int8 storage when every rating is exactly
+    round(r·s) for a small scale s (ML-style ratings are); otherwise
+    bf16. "f32" is the exactness mode."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    rows = np.asarray(rows, dtype=np.int32)
+    cols = np.asarray(cols, dtype=np.int32)
+    vals = np.asarray(vals, dtype=np.float32)
+    scale = 1.0
+    if dense_dtype in ("auto", "int8"):
+        s_q = dense.int8_scale(vals)
+        if s_q is not None:
+            dense_dtype, scale = "int8", s_q
+        elif dense_dtype == "int8":
+            raise ValueError(
+                "dense_dtype='int8' but ratings are not exactly int8-"
+                "quantizable; use 'bf16' or 'auto'"
+            )
+        else:
+            dense_dtype = "bf16"
+    n_u_p = -(-n_users // dense.ROW_BLOCK) * dense.ROW_BLOCK
+    n_i_p = -(-n_items // dense.COL_PAD) * dense.COL_PAD
+    if user_deg is None:
+        user_deg = _degrees(rows, n_users)
+    if item_deg is None:
+        item_deg = _degrees(cols, n_items)
+
+    def pad_deg(deg, n_padded):
+        out = np.full(n_padded, -1.0, np.float32)  # -1 marks padding
+        out[: len(deg)] = deg
+        return out
+
+    uf0 = itf0 = None
+    if init_factors is not None:
+        uf_in = np.asarray(init_factors[0], np.float32)
+        itf_in = np.asarray(init_factors[1], np.float32)
+        if uf_in.shape != (n_users, params.rank) or itf_in.shape != (
+            n_items, params.rank,
+        ):
+            raise ValueError(
+                "init_factors shapes do not match (n_users/n_items, rank)"
+            )
+        uf0 = np.zeros((n_u_p, params.rank), np.float32)
+        uf0[:n_users] = uf_in
+        itf0 = np.zeros((n_i_p, params.rank), np.float32)
+        itf0[:n_items] = itf_in
+    host_prep = time.perf_counter() - t0
+
+    def put(a):
+        return None if a is None else torch.from_numpy(a).to(dev)
+
+    t0 = time.perf_counter()
+    r = dense.densify(
+        put(rows).long(), put(cols).long(), put(vals),
+        n_rows_p=n_u_p, n_cols_p=n_i_p, dense_dtype=dense_dtype,
+        scale=scale,
+    )
+    device_args = (
+        r, put(pad_deg(user_deg, n_u_p)), put(pad_deg(item_deg, n_i_p)),
+        put(uf0), put(itf0),
+    )
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    transfer = time.perf_counter() - t0
+    return StagedDenseTrain(
+        device_args=device_args,
+        static_kwargs=dict(
+            rank=params.rank,
+            iterations=params.iterations,
+            implicit=params.implicit_prefs,
+            lam=params.lambda_,
+            alpha=params.alpha,
+            cg_iterations=params.cg_iterations,
+            seed=params.seed,
+            dense_dtype=dense_dtype,
+            scale=scale,
+        ),
+        n_users=n_users,
+        n_items=n_items,
+        host_prep_sec=host_prep,
+        transfer_sec=transfer,
+    )
+
+
+def _train_dense(
+    rows, cols, vals, n_users, n_items, params,
+    user_deg, item_deg, user_vocab, item_vocab, init_factors,
+    dense_dtype: str = "auto",
+    device=None,
+) -> ALSFactors:
+    staged = stage_dense(
+        rows, cols, vals, n_users, n_items, params,
+        user_deg=user_deg, item_deg=item_deg, init_factors=init_factors,
+        dense_dtype=dense_dtype, device=device,
+    )
+    uf, itf = staged.factors(*staged.run())
+    return ALSFactors(
+        user_factors=uf,
+        item_factors=itf,
+        user_vocab=user_vocab or BiMap({}),
+        item_vocab=item_vocab or BiMap({}),
+        params=params,
+    )
+
+
+def train(
+    rows: np.ndarray,  # (E,) user indices
+    cols: np.ndarray,  # (E,) item indices
+    vals: np.ndarray,  # (E,) ratings / interaction weights
+    n_users: int,
+    n_items: int,
+    params: ALSParams = ALSParams(),
+    user_vocab: Optional[BiMap] = None,
+    item_vocab: Optional[BiMap] = None,
+    init_factors: Optional[tuple[np.ndarray, np.ndarray]] = None,
+    device=None,
+) -> ALSFactors:
+    """Train factors from a COO interaction list, on the card unless
+    `device` says otherwise.
+
+    `init_factors=(uf, itf)` (numpy) warm-starts the alternating loop.
+    Input the JAX package's gate sends to the dense-W path trains here;
+    input it sends to the windowed or scatter path raises
+    NotImplementedError — the port never silently picks another path."""
+    rows = np.asarray(rows, dtype=np.int32)
+    cols = np.asarray(cols, dtype=np.int32)
+    vals = np.asarray(vals, dtype=np.float32)
+    user_deg = _degrees(rows, n_users)
+    item_deg = _degrees(cols, n_items)
+    if dense_eligible(rows, cols, vals, n_users, n_items, params):
+        return _train_dense(
+            rows, cols, vals, n_users, n_items, params,
+            user_deg, item_deg, user_vocab, item_vocab, init_factors,
+            device=device,
+        )
+    what = "windowed" if params.rank <= GRAM_SOLVER_MAX_RANK else "scatter"
+    raise NotImplementedError(_NOT_PORTED.format(what=what))
 
 
 # -- staged serving state ----------------------------------------------------

@@ -101,3 +101,56 @@ def test_kernel_rejects_noncontiguous(card):
     q = torch.zeros((8, 8), device=card)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         rec.fused_recommend_topk(q, itf, k=3, n_items=200)
+
+
+# ---------------------------------------------------------------------------
+# the dense ALS edge passes (csrc/dense_pass.cu)
+# ---------------------------------------------------------------------------
+
+
+def _dense_case(rng, n_rows, n_cols, kdim, signed, dev, density=0.05):
+    q = rng.integers(-10 if signed else 1, 11, (n_rows, n_cols)).astype(np.int8)
+    q[rng.random((n_rows, n_cols)) > density] = 0
+    return torch.from_numpy(q).to(dev)
+
+
+@pytest.mark.parametrize("which", ["row", "col"])
+@pytest.mark.parametrize("implicit,signed", [(True, False), (True, True),
+                                             (False, True)])
+def test_dense_pass_kernel_equals_plain(card, which, implicit, signed):
+    """Kernel vs plain version: they differ only in the order of f32
+    sums of exact bf16 products, so |Δ| ≤ 1e-5·S, S the pass over the
+    absolute terms; a second launch gives the same bits."""
+    from predictionio_tpu_torch.ops import dense_fused as df
+
+    rng = np.random.default_rng(3)
+    fn = df.fused_row_pass if which == "row" else df.fused_col_pass
+    plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
+    # ragged dims (bounds checks, unaligned rows) and the padded ones
+    for n_rows, n_cols, kdim in ((2048, 256, 10), (300, 77, 1), (1000, 1003, 8),
+                                 (2048, 256, 32), (64, 4096, 16)):
+        r = _dense_case(rng, n_rows, n_cols, kdim, signed, card)
+        n_side = n_cols if which == "row" else n_rows
+        x = torch.from_numpy(
+            rng.standard_normal((n_side, kdim)).astype(np.float32)).to(card)
+        for ascale in (0.5, 0.85, 0.1):
+            before = df.LAUNCHES
+            kb, kc = fn(r, x, ascale, implicit=implicit)
+            kb2, kc2 = fn(r, x, ascale, implicit=implicit)
+            pb, pc = plain(r, x, ascale, implicit=implicit)
+            sb, sc = plain(r, x, ascale, implicit=implicit, magnitude=True)
+            torch.cuda.synchronize()
+            assert df.LAUNCHES == before + 2
+            assert torch.equal(kb, kb2) and torch.equal(kc, kc2)
+            for got, want, mag in ((kb, pb, sb), (kc, pc, sc)):
+                excess = ((got - want).abs() - 1e-5 * mag).max()
+                assert float(excess) <= 0.0, (n_rows, n_cols, kdim, ascale)
+
+
+def test_dense_pass_kernel_rejects_noncontiguous(card):
+    from predictionio_tpu_torch.ops import dense_fused as df
+
+    r = torch.zeros((64, 128), dtype=torch.int8, device=card)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        df.fused_row_pass(r, torch.zeros((64, 4), device=card), 1.0,
+                          implicit=True)
