@@ -18,9 +18,11 @@ Phases, in order; any failure prints what failed and exits non-zero:
             factors, and B=1 vs B=64 bit-identity. Indices must be equal;
             values within rtol 1e-5 (the kernel and the plain version do
             the same rounded operations, so they are in fact equal).
-4. data     ML-20M-width ratings from SEED with numpy: 138,493 users x
-            26,744 items, 20,000,263 unique pairs, half-star ratings
-            0.5-5.0 (so staging picks int8 storage with scale 2).
+4. data     ML-20M-shaped ratings from SEED with numpy: 138,493 users x
+            26,744 items, 20,000,263 unique pairs with skewed degrees
+            anchored on ML-20M's published counts (users 20 to 9,254
+            ratings, items up to 67,310), half-star ratings 0.5-5.0 (so
+            staging picks int8 storage with scale 2).
 5. dense    the dense ALS row/col pass kernels against their plain
             versions on the card: implicit and explicit, signed ratings,
             scale in {1, 2, 10}, K in {1, 8, 10, 32} at 2048 x 256, and
@@ -33,7 +35,8 @@ Phases, in order; any failure prints what failed and exits non-zero:
             must launch once per iteration, every factor must be finite,
             and the same train through the plain passes on the card, from
             the same seeded init, must correlate > 0.9999 (users and
-            items). Prints staging, densify and per-iteration seconds.
+            items). Prints gate, staging, densify and per-iteration
+            seconds, all from the one main-path call.
 7. serve    the trained factors, through ``to_bytes`` and
             ``convert.load_jax_als_blob`` (as ``console train`` then
             ``console deploy`` would), served by the port's
@@ -45,7 +48,8 @@ Phases, in order; any failure prints what failed and exits non-zero:
             (kernel, plain, ``torch.topk(q @ itf.T)`` as a yardstick the
             port never calls, bound); the dense passes at the ML-20M slab,
             K = 10 (kernel, plain, the port's two-matmul ``ops.dense``
-            pass on the same R in bf16 storage as the yardstick, bound).
+            pass on the same R in bf16 storage as the yardstick, bound),
+            and the kernel again on a uniform R with as many ratings.
 9. report   one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -93,6 +97,8 @@ else:
 SEED = 20
 N_USERS, N_ITEMS, RANK = 138_493, 26_744, 10  # ML-20M
 N_EDGES = 20_000_263  # ML-20M's unique (user, item) ratings
+# fewest and most ratings of a user and of an item in ML-20M
+USER_DEGREES, ITEM_DEGREES = (20, 9_254), (1, 67_310)
 TRAIN_ITERATIONS = 5
 K_LADDER = (1, 10, 128, 1024, N_ITEMS)
 N_QUERIES, N_CLIENTS = 500, 16
@@ -285,24 +291,134 @@ def phase_sweep(report, shared):
 # ---------------------------------------------------------------------------
 
 
+def _degree_targets(n, total, lo, hi):
+    """n integer degrees summing to `total`, each in [lo, hi]: lo plus
+    the lognormal quantiles exp(mu + sigma * z_k), z_k the normal
+    quantile of (k + 1/2) / n, with mu and sigma set so that the largest
+    is hi and the sum is total."""
+    inv = statistics.NormalDist().inv_cdf
+    z = np.array([inv((k + 0.5) / n) for k in range(n)])
+    span, target = hi - lo, (total - n * lo) / n  # the lognormal part's max, mean
+    low, high = 0.0, 20.0  # sigma: the mean falls as sigma grows
+    for _ in range(100):
+        sigma = (low + high) / 2
+        if span * np.exp(sigma * (z - z[-1])).mean() > target:
+            low = sigma
+        else:
+            high = sigma
+    d = lo + span * np.exp(sigma * (z - z[-1]))
+    base = np.floor(d).astype(np.int64)
+    extra = total - int(base.sum())  # largest remainders take one more
+    base[np.argsort(base - d)[:extra]] += 1
+    return base
+
+
+def _pairs_with_degrees(rng, d_user, d_item, max_rounds=500):
+    """Unique (user, item) pairs, as keys user * n_items + item, in which
+    user u has exactly d_user[u] items and item i exactly d_item[i]
+    users: the configuration model (item stubs shuffled against user
+    stubs), then each repeated pair swaps items with a random other pair
+    where both new pairs are new, which keeps every degree."""
+    n_users, n_items = len(d_user), len(d_item)
+    u = np.repeat(np.arange(n_users, dtype=np.int64), d_user)
+    it = rng.permutation(np.repeat(np.arange(n_items, dtype=np.int64), d_item))
+    key = u * n_items + it
+    order = np.argsort(key, kind="stable")
+    repeat = np.zeros(len(key), bool)
+    repeat[order[1:]] = key[order[1:]] == key[order[:-1]]
+    pending = np.flatnonzero(repeat)  # edges whose pair an earlier edge holds
+    present = np.unique(key)  # sorted: the pairs held
+    del order, repeat
+
+    def held(keys, table):
+        pos = np.searchsorted(table, keys)
+        return table[np.minimum(pos, len(table) - 1)] == keys
+
+    for rounds in range(1, max_rounds + 1):
+        if not len(pending):
+            return np.sort(u * n_items + it), rounds - 1
+        partner = rng.integers(0, len(key), len(pending))
+        p_key = u[partner] * n_items + it[partner]
+        new_a = u[pending] * n_items + it[partner]  # the repeated pair's user
+        new_b = u[partner] * n_items + it[pending]  # the partner's user
+        ok = ~held(new_a, present) & ~held(new_b, present) & (new_a != new_b)
+        # a partner must hold its pair alone and take part in one swap
+        ok &= ~held(p_key, np.sort(u[pending] * n_items + it[pending]))
+        _, first, count = np.unique(partner, return_index=True, return_counts=True)
+        once = np.zeros(len(pending), bool)
+        once[first[count == 1]] = True
+        ok &= once
+        new = np.concatenate([new_a[ok], new_b[ok]])
+        _, inv, count = np.unique(new, return_inverse=True, return_counts=True)
+        clash = (count[inv] > 1).reshape(2, -1).any(axis=0)
+        idx = np.flatnonzero(ok)[~clash]
+        a, b = pending[idx], partner[idx]
+        gone = p_key[idx]
+        present = np.delete(present, np.searchsorted(present, gone))
+        added = np.sort(np.concatenate([new_a[idx], new_b[idx]]))
+        present = np.insert(present, np.searchsorted(present, added), added)
+        it[a], it[b] = it[b], it[a].copy()
+        keep = np.ones(len(pending), bool)
+        keep[idx] = False
+        pending = pending[keep]
+    raise PhaseError(f"{len(pending)} repeated pairs left after {max_rounds} rounds")
+
+
+def _tile_load(deg, tile):
+    """Largest and mean ratings per tile of `tile` consecutive ids."""
+    per = np.add.reduceat(deg, np.arange(0, len(deg), tile))
+    return int(per.max()), float(per.mean())
+
+
 def phase_data(report, shared):
-    """N_EDGES unique (user, item) pairs drawn uniformly from SEED, with
-    half-star ratings 0.5-5.0."""
+    """ML-20M's shape from SEED: N_EDGES unique (user, item) pairs with
+    ML-20M's skewed degrees, half-star ratings 0.5-5.0 drawn uniformly.
+
+    Degrees are lognormal quantiles anchored on ML-20M's published
+    counts (GroupLens ML-20M README: 138,493 users, 20,000,263 ratings,
+    every user has at least 20; the most-rated movie, Pulp Fiction, has
+    67,310 ratings and the most active user 9,254): users 20 + a
+    lognormal part with mean 144.4 and top 9,254, items 1 + a lognormal
+    part with mean 747.8 and top 67,310. Both sequences are shuffled
+    over the ids, as ML-20M's ids are not in order of activity, and the
+    pairs hold both exactly."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    total = N_USERS * N_ITEMS
-    keys = np.unique(rng.integers(0, total, N_EDGES + N_EDGES // 64))
-    check(len(keys) >= N_EDGES, f"only {len(keys)} unique pairs drawn")
-    keys = np.delete(keys, rng.choice(len(keys), len(keys) - N_EDGES, replace=False))
+    d_user = rng.permutation(_degree_targets(N_USERS, N_EDGES, *USER_DEGREES))
+    d_item = rng.permutation(_degree_targets(N_ITEMS, N_EDGES, *ITEM_DEGREES))
+    keys, rounds = _pairs_with_degrees(rng, d_user, d_item)
+    check(len(keys) == N_EDGES, f"{len(keys)} unique pairs drawn, not {N_EDGES}")
     rows = (keys // N_ITEMS).astype(np.int32)
     cols = (keys % N_ITEMS).astype(np.int32)
+    del keys
     vals = (rng.integers(1, 11, N_EDGES) / 2.0).astype(np.float32)
     check(dense.int8_scale(vals) == 2.0, "half-star ratings must stage as int8, s=2")
     shared["coo"] = (rows, cols, vals)
-    report["data"] = {"users": N_USERS, "items": N_ITEMS, "edges": N_EDGES,
-                      "seconds": time.perf_counter() - t0}
+    u_deg = np.bincount(rows, minlength=N_USERS)
+    i_deg = np.bincount(cols, minlength=N_ITEMS)
+    check(np.array_equal(u_deg, d_user) and np.array_equal(i_deg, d_item),
+          "degrees differ from their targets")
+    row_tile, col_tile = _tile_load(u_deg, 64), _tile_load(i_deg, 32)
+    report["data"] = {
+        "users": N_USERS, "items": N_ITEMS, "edges": N_EDGES,
+        "user_degree": {"min": int(u_deg.min()), "median": float(np.median(u_deg)),
+                        "max": int(u_deg.max())},
+        "item_degree": {"min": int(i_deg.min()), "median": float(np.median(i_deg)),
+                        "max": int(i_deg.max())},
+        # ratings per CTA of the row pass (64 users) and col pass (32 items)
+        "row_tile_max_mean": row_tile, "col_tile_max_mean": col_tile,
+        "swap_rounds": rounds, "seconds": time.perf_counter() - t0,
+    }
+    d = report["data"]
     print(f"[data] {N_USERS} users x {N_ITEMS} items, {N_EDGES} unique "
-          f"ratings, {report['data']['seconds']:.1f} s", flush=True)
+          f"ratings, ML-20M-skewed degrees: users min/median/max "
+          f"{d['user_degree']['min']}/{d['user_degree']['median']:.0f}/"
+          f"{d['user_degree']['max']}, items min/median/max "
+          f"{d['item_degree']['min']}/{d['item_degree']['median']:.0f}/"
+          f"{d['item_degree']['max']}; ratings per "
+          f"64-user tile max {row_tile[0]} mean {row_tile[1]:.0f}, per 32-item "
+          f"tile max {col_tile[0]} mean {col_tile[1]:.0f}; {rounds} swap "
+          f"rounds, {d['seconds']:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +521,32 @@ class _PlainPasses:
         df.fused_row_pass, df.fused_col_pass = self.saved
 
 
+class _Observed:
+    """Around the main-path train: time the dense gate and keep the
+    StagedDenseTrain it builds, so that neither runs a second time for
+    the breakdown and the plain comparison."""
+
+    def __enter__(self):
+        self.saved = (als.dense_eligible, als.stage_dense)
+        gate, stage = self.saved
+
+        def timed_gate(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = gate(*args, **kwargs)
+            self.gate_s = time.perf_counter() - t0
+            return out
+
+        def kept_stage(*args, **kwargs):
+            self.staged = stage(*args, **kwargs)
+            return self.staged
+
+        als.dense_eligible, als.stage_dense = timed_gate, kept_stage
+        return self
+
+    def __exit__(self, *exc):
+        als.dense_eligible, als.stage_dense = self.saved
+
+
 def _corr(a, b):
     return float(np.corrcoef(np.ravel(a), np.ravel(b))[0, 1])
 
@@ -418,15 +560,14 @@ def phase_train(report, shared):
     )
     td.sanity_check()
     params = ALSAlgorithmParams(num_iterations=TRAIN_ITERATIONS)  # template defaults
-    df.LAUNCHES = 0  # every count to 0 just before the main path
-    df.PASS_LAUNCHES.update(row=0, col=0)
-    t0 = time.perf_counter()
-    model = ALSAlgorithm(params).train(RuntimeContext(), td)
-    train_s = time.perf_counter() - t0
-    launches = dict(df.PASS_LAUNCHES, total=df.LAUNCHES)
+    df.PASS_LAUNCHES.update(row=0, col=0)  # every count to 0 just before the main path
+    with _Observed() as seen:
+        t0 = time.perf_counter()
+        model = ALSAlgorithm(params).train(RuntimeContext(), td)
+        train_s = time.perf_counter() - t0
+    launches = dict(df.PASS_LAUNCHES)
     f = model.factors
-    check(launches["total"] == 2 * TRAIN_ITERATIONS
-          and launches["row"] == launches["col"] == TRAIN_ITERATIONS,
+    check(launches["row"] == launches["col"] == TRAIN_ITERATIONS,
           f"pass kernel launches {launches} != one row and one col pass "
           f"per iteration ({TRAIN_ITERATIONS})")
     check(f.user_factors.shape == (N_USERS, RANK)
@@ -436,15 +577,10 @@ def phase_train(report, shared):
     shared["factors"] = f
     del model
 
-    # breakdown and the plain comparison, from the same seeded init
-    als_params = als.ALSParams(iterations=TRAIN_ITERATIONS)
-    t0 = time.perf_counter()
-    check(als.dense_eligible(rows, cols, vals, N_USERS, N_ITEMS, als_params),
-          "the dense gate refused ML-20M-width data")
-    gate_s = time.perf_counter() - t0
-    staged = als.stage_dense(rows, cols, vals, N_USERS, N_ITEMS, als_params)
-    check(staged.static_kwargs["dense_dtype"] == "int8"
-          and staged.static_kwargs["scale"] == 2.0, "staging did not pick int8, s=2")
+    # breakdown and the plain comparison, from the main path's staging
+    staged, gate_s = seen.staged, seen.gate_s
+    check(staged.dense_dtype == "int8" and staged.static_kwargs["scale"] == 2.0,
+          "staging did not pick int8, s=2")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     uf, itf = staged.factors(*staged.run())
@@ -455,6 +591,8 @@ def phase_train(report, shared):
         t0 = time.perf_counter()
         puf, pitf = staged.factors(*staged.run())
         plain_s = time.perf_counter() - t0
+    host_prep_s, densify_s = staged.host_prep_sec, staged.transfer_sec
+    del staged, seen
     cu, ci = _corr(f.user_factors, puf), _corr(f.item_factors, pitf)
     du = float(np.abs(f.user_factors - puf).max())
     di = float(np.abs(f.item_factors - pitf).max())
@@ -463,8 +601,8 @@ def phase_train(report, shared):
     report["train"] = {
         "iterations": TRAIN_ITERATIONS, "rank": RANK, "edges": N_EDGES,
         "main_path_s": train_s, "launches": launches, "gate_s": gate_s,
-        "staging_s": staged.host_prep_sec + staged.transfer_sec,
-        "host_prep_s": staged.host_prep_sec, "densify_s": staged.transfer_sec,
+        "staging_s": host_prep_s + densify_s,
+        "host_prep_s": host_prep_s, "densify_s": densify_s,
         "per_iteration_s": run_s / TRAIN_ITERATIONS,
         "plain_per_iteration_s": plain_s / TRAIN_ITERATIONS,
         "corr_users": cu, "corr_items": ci,
@@ -683,10 +821,30 @@ def _dense_bound(n_rows, n_cols, k, which):
     return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
 
 
+def _uniform_slab(like):
+    """R of the main path's shape, on its device, with the same expected
+    number of ratings (half-stars, stored x2) at one density everywhere:
+    the load the skewed data is compared with."""
+    dev = like.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    density = N_EDGES / (N_USERS * N_ITEMS)
+    r = torch.zeros_like(like)
+    for s in range(0, N_USERS, dense.ROW_BLOCK):
+        e = min(s + dense.ROW_BLOCK, N_USERS)
+        live = torch.rand((e - s, N_ITEMS), generator=gen, device=dev) < density
+        q = torch.randint(1, 11, (e - s, N_ITEMS), generator=gen, device=dev,
+                          dtype=torch.int8)
+        r[s:e, :N_ITEMS] = q * live
+    return r
+
+
 def phase_dense_times(report, shared):
     rng = np.random.default_rng(SEED + 3)
-    r = shared.pop("slab")
+    r = shared.pop("slab")  # the main path's ratings
     n_rows, n_cols = r.shape
+    ru = _uniform_slab(r)
+    report["uniform_slab_ratings"] = int(torch.count_nonzero(ru))
     # the yardstick's storage: the same ratings as bf16 (r = q / 2, exact)
     r16 = torch.empty((n_rows, n_cols), dtype=torch.bfloat16, device=r.device)
     for s in range(0, n_rows, dense.ROW_BLOCK):
@@ -702,23 +860,26 @@ def phase_dense_times(report, shared):
         plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
         lib = dense.dense_row_pass if which == "row" else dense.dense_col_pass
         kernel = _time_ms(lambda: fn(r, x, ascale, implicit=True), 5, repeats=5)
+        uniform = _time_ms(lambda: fn(ru, x, ascale, implicit=True), 5, repeats=5)
         # the same pass over an all-zero R: the tile stream and the scan
         # alone, no per-rating work (a diagnostic, not a yardstick)
         zero = _time_ms(lambda: fn(r0, x, ascale, implicit=True), 5, repeats=5)
         plain_ms = _time_ms(lambda: plain(r, x, ascale, implicit=True), 1, repeats=3)
-        library = _time_ms(lambda: lib(r16, x, implicit=True, alpha=1.0,
-                                       dense_dtype="bf16"), 1, repeats=3)
+        library = _time_ms(lambda: lib(r16, x, implicit=True, alpha=1.0),
+                           1, repeats=3)
         bound, by = _dense_bound(n_rows, n_cols, RANK, which)
         rows.append({"pass": which, "n_rows": n_rows, "n_cols": n_cols, "K": RANK,
-                     "ms": kernel, "zero_r_ms": zero, "plain_ms": plain_ms,
+                     "ms": kernel, "uniform_ms": uniform, "zero_r_ms": zero,
+                     "plain_ms": plain_ms,
                      "library_ms": library,
                      "bound_ms": bound, "bound_by": by})
         print(f"[times] dense {which} pass {n_rows}x{n_cols} int8, K={RANK}: "
-              f"kernel {kernel:.4f} ms (all-zero R {zero:.4f} ms), plain "
+              f"kernel {kernel:.4f} ms on the main path's skewed R (uniform R "
+              f"{uniform:.4f} ms, all-zero R {zero:.4f} ms), plain "
               f"{plain_ms:.4f} ms, ops.dense "
               f"two-matmul on bf16 R {library:.4f} ms, bound {bound:.4f} ms "
               f"({by})", flush=True)
-    del r16, r, r0
+    del r16, r, r0, ru
     report["dense_times"] = rows
 
 

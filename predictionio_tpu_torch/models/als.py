@@ -134,7 +134,6 @@ def _dense_half_step(
     lam: float,
     alpha: float,
     cg_iterations: int,
-    dense_dtype: str,
     scale: float = 1.0,
 ) -> torch.Tensor:
     """One ALS half-step with b/gram built by one edge pass over R.
@@ -155,9 +154,7 @@ def _dense_half_step(
         b, corr_flat = fused(r, fixed, ascale, implicit=implicit)
     else:
         edge_pass = dense.dense_row_pass if solve_rows else dense.dense_col_pass
-        b, corr_flat = edge_pass(
-            r, fixed, implicit=implicit, alpha=alpha, dense_dtype=dense_dtype,
-        )
+        b, corr_flat = edge_pass(r, fixed, implicit=implicit, alpha=alpha)
     eye = torch.eye(k, dtype=torch.float32, device=r.device)
     if implicit:
         base = f32_gram(fixed) + lam * eye
@@ -179,8 +176,7 @@ def _init_factors(n_p: int, rank: int, deg: torch.Tensor, gen) -> torch.Tensor:
 
 def _train_loop_dense(
     r, user_deg, item_deg, uf0=None, itf0=None, *, rank, iterations,
-    implicit, lam, alpha, cg_iterations, seed, dense_dtype="bf16",
-    scale=1.0,
+    implicit, lam, alpha, cg_iterations, seed, scale=1.0,
 ):
     """The whole alternating loop on the dense-W path (counterpart of the
     JAX package's ``_train_jit_dense``). Without init factors both start
@@ -197,8 +193,7 @@ def _train_loop_dense(
         uf = _init_factors(n_users_p, rank, user_deg, gen)
         itf = _init_factors(n_items_p, rank, item_deg, gen)
     step = dict(implicit=implicit, lam=lam, alpha=alpha,
-                cg_iterations=cg_iterations, dense_dtype=dense_dtype,
-                scale=scale)
+                cg_iterations=cg_iterations, scale=scale)
     for _ in range(iterations):
         uf = _dense_half_step(r, itf, user_deg, uf, solve_rows=True, **step)
         itf = _dense_half_step(r, uf, item_deg, itf, solve_rows=False, **step)
@@ -220,6 +215,12 @@ class StagedDenseTrain:
     n_items: int
     host_prep_sec: float
     transfer_sec: float
+
+    @property
+    def dense_dtype(self) -> str:
+        """R's storage mode: "f32", "bf16" or "int8"."""
+        return {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.int8: "int8"}[self.device_args[0].dtype]
 
     def run(self) -> tuple[torch.Tensor, torch.Tensor]:
         return _train_loop_dense(*self.device_args, **self.static_kwargs)
@@ -369,7 +370,6 @@ def stage_dense(
             alpha=params.alpha,
             cg_iterations=params.cg_iterations,
             seed=params.seed,
-            dense_dtype=dense_dtype,
             scale=scale,
         ),
         n_users=n_users,

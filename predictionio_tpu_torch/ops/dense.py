@@ -85,12 +85,12 @@ def _weights(r_blk: torch.Tensor, implicit: bool, alpha):
     return w1, wg
 
 
-def _storage(r: torch.Tensor, dense_dtype: str) -> torch.dtype:
-    """R's dtype, checked against the mode: f32 or bf16 storage only."""
-    if dense_dtype == "int8" or r.dtype != storage_dtype(dense_dtype):
+def _storage(r: torch.Tensor) -> torch.dtype:
+    """R's dtype: f32 or bf16 storage only."""
+    if r.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(
-            f"these passes take f32 or bf16 storage, got {r.dtype} for "
-            f"{dense_dtype!r} (int8 storage runs ops.dense_fused)"
+            f"these passes take f32 or bf16 storage, got {r.dtype} "
+            "(int8 storage runs ops.dense_fused)"
         )
     return r.dtype
 
@@ -110,22 +110,20 @@ def dense_row_pass(
     *,
     implicit: bool,
     alpha: float,
-    dense_dtype: str = "bf16",
-    row_block: int = ROW_BLOCK,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(b (n_rows_p, K), gram_corr_flat (n_rows_p, K²)) for R's rows."""
     n_rows = r.shape[0]
     k = fixed.shape[1]
-    dt = _storage(r, dense_dtype)
+    dt = _storage(r)
     y, z = _yz(fixed, dt)
     y, z = y.float(), z.float()  # exact widening
     b = torch.empty((n_rows, k), dtype=torch.float32, device=r.device)
     corr = torch.empty((n_rows, k * k), dtype=torch.float32, device=r.device)
     with full_f32():
-        for s in range(0, n_rows, row_block):
-            w1, wg = _weights(r[s : s + row_block], implicit, alpha)
-            b[s : s + row_block] = w1.float() @ y
-            corr[s : s + row_block] = wg.float() @ z
+        for s in range(0, n_rows, ROW_BLOCK):
+            w1, wg = _weights(r[s : s + ROW_BLOCK], implicit, alpha)
+            b[s : s + ROW_BLOCK] = w1.float() @ y
+            corr[s : s + ROW_BLOCK] = wg.float() @ z
     return b, corr
 
 
@@ -135,24 +133,22 @@ def dense_col_pass(
     *,
     implicit: bool,
     alpha: float,
-    dense_dtype: str = "bf16",
-    row_block: int = ROW_BLOCK,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(b (n_cols_p, K), gram_corr_flat (n_cols_p, K²)) for R's columns:
     contracts the same row blocks the row pass streams and accumulates
     over them in block order."""
     n_rows, n_cols = r.shape
     k = fixed.shape[1]
-    dt = _storage(r, dense_dtype)
+    dt = _storage(r)
     y, z = _yz(fixed, dt)
     y, z = y.float(), z.float()
     b = torch.zeros((n_cols, k), dtype=torch.float32, device=r.device)
     corr = torch.zeros((n_cols, k * k), dtype=torch.float32, device=r.device)
     with full_f32():
-        for s in range(0, n_rows, row_block):
-            w1, wg = _weights(r[s : s + row_block], implicit, alpha)
-            b = b + w1.float().T @ y[s : s + row_block]
-            corr = corr + wg.float().T @ z[s : s + row_block]
+        for s in range(0, n_rows, ROW_BLOCK):
+            w1, wg = _weights(r[s : s + ROW_BLOCK], implicit, alpha)
+            b = b + w1.float().T @ y[s : s + ROW_BLOCK]
+            corr = corr + wg.float().T @ z[s : s + ROW_BLOCK]
     return b, corr
 
 

@@ -19,7 +19,9 @@ versions below. There is no fallback from one to the other.
 
 A bf16 × bf16 product is exact in f32, so the kernel and the plain
 version differ only in the order of the f32 sums: the kernel adds
-each row's (or column's) terms in index order and skips zero cells
+each row's (or column's) terms in index order in blocks of 512, then
+the block sums in order (the col pass per row chunk, then the chunks
+in order), and skips zero cells
 (whose terms are exactly zero for finite factors), the plain version
 sums through f32 matrix products. The bound on that difference is
 relative to the sum of the absolute terms, which the plain versions
@@ -40,9 +42,7 @@ from predictionio_tpu_torch.ops.segment import full_f32
 #: widest rank the kernel takes (models/als.py GRAM_SOLVER_MAX_RANK)
 MAX_RANK = 32
 
-#: kernel launches through the wrappers in this process, in all and by
-#: pass
-LAUNCHES = 0
+#: kernel launches through the wrappers in this process, by pass
 PASS_LAUNCHES = {"row": 0, "col": 0}
 _launch_lock = threading.Lock()
 
@@ -163,15 +163,18 @@ def _kernel_lib():
 
         lib = _build.load("dense_pass")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in (lib.dense_row_pass, lib.dense_col_pass):
-            fn.argtypes = [i, p, p, ctypes.c_float, ll, ll, i, p, p, i, p]
-            fn.restype = i
+        lib.dense_row_pass.argtypes = [i, p, p, ctypes.c_float, ll, ll, i,
+                                       p, p, i, p]
+        lib.dense_col_pass.argtypes = [i, p, p, ctypes.c_float, ll, ll, i,
+                                       p, p, p, i, p]
+        lib.dense_row_pass.restype = lib.dense_col_pass.restype = i
+        lib.dense_col_pass_scratch.argtypes = [ll, ll, i]
+        lib.dense_col_pass_scratch.restype = ll
         _lib = lib
     return _lib
 
 
 def _launch(which, r, x, ascale, implicit):
-    global LAUNCHES
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
     if not (r.is_contiguous() and x.is_contiguous()):
@@ -182,11 +185,18 @@ def _launch(which, r, x, ascale, implicit):
     lib = _kernel_lib()
     b = torch.empty((n_out, k), dtype=torch.float32, device=r.device)
     corr = torch.empty((n_out, k * k), dtype=torch.float32, device=r.device)
-    fn = lib.dense_row_pass if which == "row" else lib.dense_col_pass
+    args = [int(implicit), r.data_ptr(), x.data_ptr(),
+            float(np.float32(ascale)), n_rows, n_cols, k,
+            b.data_ptr(), corr.data_ptr()]
+    if which == "row":
+        fn = lib.dense_row_pass
+    else:  # the col pass sums row chunks apart, then in order
+        fn = lib.dense_col_pass
+        scratch = torch.empty(lib.dense_col_pass_scratch(n_rows, n_cols, k),
+                              dtype=torch.float32, device=r.device)
+        args.append(scratch.data_ptr())
     err = fn(
-        int(implicit), r.data_ptr(), x.data_ptr(),
-        float(np.float32(ascale)), n_rows, n_cols, k,
-        b.data_ptr(), corr.data_ptr(),
+        *args,
         r.device.index if r.device.index is not None
         else torch.cuda.current_device(),
         torch.cuda.current_stream(r.device).cuda_stream,
@@ -196,6 +206,5 @@ def _launch(which, r, x, ascale, implicit):
             f"dense {which} pass kernel launch failed: CUDA error {err}"
         )
     with _launch_lock:
-        LAUNCHES += 1
         PASS_LAUNCHES[which] += 1
     return b, corr

@@ -1,84 +1,30 @@
-"""Environment knobs the port reads, with typed parsers.
+"""Environment knobs the port reads.
 
-The port's own copy of the parts of the JAX package's
-``utils/env.py`` that it needs: each ``PIO_*`` variable is declared once
-(name, type, default, doc line) and read only through ``env_str`` /
-``env_int``. Reading an undeclared name raises; a missing or empty
-value gives the default; a malformed one gives the default with a
-warning, as in the JAX package.
+The port's own copy of the two readers of the JAX package's
+``utils/env.py`` that the dense-ALS gate needs (``PIO_DENSE_ALS`` and
+``PIO_DENSE_ALS_BYTES``). A missing or empty value gives the caller's
+default; a malformed integer gives the default with a warning, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from dataclasses import dataclass
-from typing import Any, Optional
 
 log = logging.getLogger(__name__)
 
 
-@dataclass(frozen=True)
-class Knob:
-    """One declared environment knob."""
-
-    name: str
-    type: str  # flag | int
-    default: Any
-    doc: str
+def env_str(name: str, default: str = "") -> str:
+    return os.environ.get(name) or default
 
 
-KNOBS: dict[str, Knob] = {}
-
-
-def _k(name: str, type_: str, default: Any, doc: str) -> None:
-    KNOBS[name] = Knob(name, type_, default, doc)
-
-
-_k("PIO_DENSE_ALS", "flag", "",
-   "Dense ALS solver: 1 forces on, 0 forces off, empty = auto.")
-_k("PIO_DENSE_ALS_BYTES", "int", 2 * 1024**3,
-   "Densified-matrix byte budget the dense-ALS auto mode respects.")
-
-
-def _require(name: str) -> Knob:
-    knob = KNOBS.get(name)
-    if knob is None:
-        raise ValueError(
-            f"env knob {name!r} is not declared in the registry "
-            "(predictionio_tpu_torch/utils/env.py) — declare it with a "
-            "type, default, and doc line before reading it"
-        )
-    return knob
-
-
-def _get(name: str) -> Optional[str]:
-    _require(name)
+def env_int(name: str, default: int) -> int:
     raw = os.environ.get(name)
-    if raw is None or raw == "":
-        return None
-    return raw
-
-
-def env_str(name: str, default: Optional[str] = None) -> str:
-    raw = _get(name)
-    if raw is not None:
-        return raw
-    if default is not None:
+    if not raw:
         return default
-    knob_default = _require(name).default
-    return "" if knob_default is None else str(knob_default)
-
-
-def env_int(name: str, default: Optional[int] = None) -> int:
-    if default is None:
-        d = _require(name).default
-        default = 0 if d is None else int(d)
-    raw = _get(name)
-    if raw is None:
-        return int(default)
     try:
         return int(float(raw))
     except (ValueError, OverflowError):  # OverflowError: "inf"
         log.warning("ignoring malformed %s=%r", name, raw)
-        return int(default)
+        return default

@@ -119,7 +119,7 @@ def test_f32_storage_matches_jax(implicit):
                           dense_dtype="f32")
     ts = tals.stage_dense(rows, cols, vals, NU, NI, tp, init_factors=init,
                           dense_dtype="f32", device="cpu")
-    assert ts.static_kwargs["dense_dtype"] == "f32"
+    assert ts.dense_dtype == "f32"
     juf, jitf = js.factors(*js.run())
     tuf, titf = ts.factors(*ts.run())
     tol = 2e-3 if implicit else 5e-2
@@ -146,7 +146,8 @@ def test_stage_dense_picks_int8_like_jax():
     jp, tp = _params()
     js = jals.stage_dense(rows, cols, vals, NU, NI, jp)
     ts = tals.stage_dense(rows, cols, vals, NU, NI, tp, device="cpu")
-    for key in ("dense_dtype", "scale", "rank", "iterations", "lam", "alpha"):
+    assert ts.dense_dtype == js.static_kwargs["dense_dtype"] == "int8"
+    for key in ("scale", "rank", "iterations", "lam", "alpha"):
         assert ts.static_kwargs[key] == js.static_kwargs[key], key
     r = ts.device_args[0]
     assert r.dtype == torch.int8 and tuple(r.shape) == (2048, 256)

@@ -101,13 +101,13 @@ def test_fused_wrapper_runs_plain_on_cpu(which):
     n_side = 77 if which == "row" else 300
     for k in (1, 5):
         x = torch.from_numpy(rng.standard_normal((n_side, k)).astype(np.float32))
-        before = tdf.LAUNCHES
+        before = dict(tdf.PASS_LAUNCHES)
         fn = tdf.fused_row_pass if which == "row" else tdf.fused_col_pass
         plain = (tdf.fused_row_pass_plain if which == "row"
                  else tdf.fused_col_pass_plain)
         got = fn(q, x, 0.5, implicit=True)
         want = plain(q, x, 0.5, implicit=True)
-        assert tdf.LAUNCHES == before
+        assert tdf.PASS_LAUNCHES == before
         assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
@@ -175,10 +175,10 @@ def test_f32_passes_match_jax(implicit, signed):
     y[:ni] = rng.randn(ni, k)
     x = np.zeros((nup, k), np.float32)
     x[:nu] = rng.randn(nu, k)
-    kw = dict(implicit=implicit, alpha=2.0, dense_dtype="f32")
+    kw = dict(implicit=implicit, alpha=2.0)
     for jfn, tfn, f in ((jdense.dense_row_pass, tdense.dense_row_pass, y),
                         (jdense.dense_col_pass, tdense.dense_col_pass, x)):
-        jb, jc = jfn(jr, jnp.asarray(f), **kw)
+        jb, jc = jfn(jr, jnp.asarray(f), dense_dtype="f32", **kw)
         tb, tc = tfn(tr, torch.from_numpy(f), **kw)
         np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4, atol=1e-4)
@@ -198,10 +198,10 @@ def test_bf16_passes_match_jax(implicit):
     y[:ni] = rng.randn(ni, k)
     x = np.zeros((nup, k), np.float32)
     x[:nu] = rng.randn(nu, k)
-    kw = dict(implicit=implicit, alpha=1.5, dense_dtype="bf16")
+    kw = dict(implicit=implicit, alpha=1.5)
     for jfn, tfn, f in ((jdense.dense_row_pass, tdense.dense_row_pass, y),
                         (jdense.dense_col_pass, tdense.dense_col_pass, x)):
-        jb, jc = jfn(jr, jnp.asarray(f), **kw)
+        jb, jc = jfn(jr, jnp.asarray(f), dense_dtype="bf16", **kw)
         tb, tc = tfn(tr, torch.from_numpy(f), **kw)
         np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4, atol=1e-4)
@@ -245,10 +245,10 @@ def test_dense_passes_refuse_other_storage():
     r = torch.zeros((8, 16), dtype=torch.int8)
     y = torch.zeros((16, 3))
     with pytest.raises(ValueError, match="dense_fused"):
-        tdense.dense_row_pass(r, y, implicit=True, alpha=1.0, dense_dtype="int8")
+        tdense.dense_row_pass(r, y, implicit=True, alpha=1.0)
     with pytest.raises(ValueError, match="bf16"):
-        tdense.dense_col_pass(r.float(), torch.zeros((8, 3)), implicit=True,
-                              alpha=1.0, dense_dtype="bf16")
+        tdense.dense_col_pass(r.half(), torch.zeros((8, 3)), implicit=True,
+                              alpha=1.0)
 
 
 def test_bytes_per_cell_and_storage_dtype():

@@ -134,17 +134,47 @@ def test_dense_pass_kernel_equals_plain(card, which, implicit, signed):
         x = torch.from_numpy(
             rng.standard_normal((n_side, kdim)).astype(np.float32)).to(card)
         for ascale in (0.5, 0.85, 0.1):
-            before = df.LAUNCHES
+            before = df.PASS_LAUNCHES[which]
             kb, kc = fn(r, x, ascale, implicit=implicit)
             kb2, kc2 = fn(r, x, ascale, implicit=implicit)
             pb, pc = plain(r, x, ascale, implicit=implicit)
             sb, sc = plain(r, x, ascale, implicit=implicit, magnitude=True)
             torch.cuda.synchronize()
-            assert df.LAUNCHES == before + 2
+            assert df.PASS_LAUNCHES[which] == before + 2
             assert torch.equal(kb, kb2) and torch.equal(kc, kc2)
             for got, want, mag in ((kb, pb, sb), (kc, pc, sc)):
                 excess = ((got - want).abs() - 1e-5 * mag).max()
                 assert float(excess) <= 0.0, (n_rows, n_cols, kdim, ascale)
+
+
+@pytest.mark.parametrize("which", ["row", "col"])
+def test_dense_pass_kernel_long_sums(card, which):
+    """A line of R rated in every cell (a most-rated item: tens of
+    thousands of positive terms in one sum) stays within 1e-5 * S of
+    the plain version: the kernel sums in blocks of 512, not serially."""
+    from predictionio_tpu_torch.ops import dense_fused as df
+
+    rng = np.random.default_rng(5)
+    long_side, short_side = (30_000, 40) if which == "row" else (70_000, 48)
+    q = rng.integers(1, 11, (long_side, short_side)).astype(np.int8)
+    q[rng.random((long_side, short_side)) > 0.05] = 0
+    q[:, 3] = rng.integers(1, 11, long_side)  # line 3: every cell rated
+    if which == "row":
+        q = np.ascontiguousarray(q.T)  # row 3 of (40, 30,000)
+    r = torch.from_numpy(q).to(card)
+    fn = df.fused_row_pass if which == "row" else df.fused_col_pass
+    plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
+    x = torch.from_numpy((rng.standard_normal((long_side, 10)) / np.sqrt(10))
+                         .astype(np.float32)).to(card)
+    for implicit in (True, False):
+        kb, kc = fn(r, x, 0.5, implicit=implicit)
+        kb2, kc2 = fn(r, x, 0.5, implicit=implicit)
+        pb, pc = plain(r, x, 0.5, implicit=implicit)
+        sb, sc = plain(r, x, 0.5, implicit=implicit, magnitude=True)
+        torch.cuda.synchronize()
+        assert torch.equal(kb, kb2) and torch.equal(kc, kc2)
+        for got, want, mag in ((kb, pb, sb), (kc, pc, sc)):
+            assert float(((got - want).abs() - 1e-5 * mag).max()) <= 0.0
 
 
 def test_dense_pass_kernel_rejects_noncontiguous(card):
