@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's train and serve paths on one CUDA card.
+"""Drive the PyTorch port's train (dense, windowed, scatter) and serve
+paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -50,7 +51,34 @@ Phases, in order; any failure prints what failed and exits non-zero:
             K = 10 (kernel, plain, the port's two-matmul ``ops.dense``
             pass on the same R in bf16 storage as the yardstick, bound),
             and the kernel again on a uniform R with as many ratings.
-9. report   one ``{"kernels": [...]}`` line, then the device line last.
+10. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
+            users x 59,047 items, 25,000,095 unique pairs (users 20 to
+            32,202 ratings, items up to 81,491); the dense gate must refuse
+            them for the byte budget alone (int8 R 9,688,842,240 B > 9e9).
+            Builds both windowed plans and prints their block counts.
+11. windowed the windowed pass kernels (block_partials and the combine,
+            through ``ops.windowed.windowed_gram_b``) against their plain
+            versions on the card: K in {1, 8, 10, 32}, implicit and
+            explicit weights, signed ratings, padding slots with local ids
+            past both ends of [0, S), a block of 1,024 slots on one row,
+            unsorted ids, an all-padding plan, and both full ML-25M plans
+            at K = 10. Per element within 1e-5 * S, bit-equal on relaunch.
+12. windowed train  ``ALSAlgorithm.train`` on the phase-10 data at the
+            template defaults with 5 iterations: the staging must be
+            StagedWindowedTrain, each kernel must launch once per
+            half-step, factors finite, a second run from the same staging
+            bit-equal, and the train through the plain windowed pass on
+            the card must correlate > 0.9999. Then the factors go through
+            the npz blob to ``recommend_serving``: 16 queries, each equal
+            to the plain top-k.
+13. scatter a rank-48 train (100,000 ratings, 2 iterations) through
+            ``ALSAlgorithm.train`` on the card and on the CPU from the same
+            seed: within rtol = atol = 1e-4 (no kernel of its own).
+14. windowed times  CUDA-event medians per ML-25M side, K = 10: the
+            block_partials kernel, its plain version, a gather + outer
+            product + ``index_add_`` yardstick the port never calls, the
+            bound; the combine kernel, its plain version, its bound.
+15. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -84,6 +112,8 @@ try:
     from predictionio_tpu_torch.ops import _build, dense
     from predictionio_tpu_torch.ops import dense_fused as df
     from predictionio_tpu_torch.ops import recommend as rec
+    from predictionio_tpu_torch.ops import windowed as win
+    from predictionio_tpu_torch.ops import windowed_fused as wf
     from predictionio_tpu_torch.workflow.server import (
         QueryServer,
         QueryServerConfig,
@@ -112,6 +142,13 @@ REPLACES = "predictionio_tpu/ops/recommend_pallas.py:412"
 DENSE_SOURCE = "predictionio_tpu_torch/ops/csrc/dense_pass.cu"
 DENSE_REPLACES = {"row": "predictionio_tpu/ops/dense_pallas.py:122",
                   "col": "predictionio_tpu/ops/dense_pallas.py:175"}
+SEED25 = 25
+N25_USERS, N25_ITEMS = 162_541, 59_047  # ML-25M's users and rated movies
+N25_EDGES = 25_000_095  # ML-25M's ratings
+USER25_DEGREES, ITEM25_DEGREES = (20, 32_202), (1, 81_491)
+WINDOWED_SOURCE = "predictionio_tpu_torch/ops/csrc/windowed_pass.cu"
+WINDOWED_REPLACES = "predictionio_tpu/ops/windowed_pallas.py:68"
+SCATTER_USERS, SCATTER_ITEMS, SCATTER_EDGES, SCATTER_RANK = 3_000, 2_000, 100_000, 48
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
@@ -151,6 +188,7 @@ def phase_build(report, shared):
     paths = _build.build()
     rec._kernel_lib()
     df._kernel_lib()
+    wf._kernel_lib()
     report["build_s"] = time.perf_counter() - t0
     report["build_log"] = {
         n: [ln for ln in log.splitlines() if "ptxas" in ln]
@@ -327,12 +365,27 @@ def _pairs_with_degrees(rng, d_user, d_item, max_rounds=500):
     repeat = np.zeros(len(key), bool)
     repeat[order[1:]] = key[order[1:]] == key[order[:-1]]
     pending = np.flatnonzero(repeat)  # edges whose pair an earlier edge holds
-    present = np.unique(key)  # sorted: the pairs held
+    # the pairs held: the sorted initial set, less `removed`, plus `added`
+    # (both sorted, disjoint from it and small), so that a round costs
+    # O(pending) and not a rewrite of the whole set
+    base = np.unique(key)
+    added = removed = np.zeros(0, np.int64)
     del order, repeat
 
     def held(keys, table):
+        if not len(table):
+            return np.zeros(len(keys), bool)
         pos = np.searchsorted(table, keys)
         return table[np.minimum(pos, len(table) - 1)] == keys
+
+    def present(keys):
+        return (held(keys, base) & ~held(keys, removed)) | held(keys, added)
+
+    def put(table, keys):  # sorted union with sorted keys not in table
+        return np.insert(table, np.searchsorted(table, keys), keys)
+
+    def drop(table, keys):  # table less keys, all in it
+        return np.delete(table, np.searchsorted(table, keys))
 
     for rounds in range(1, max_rounds + 1):
         if not len(pending):
@@ -341,7 +394,7 @@ def _pairs_with_degrees(rng, d_user, d_item, max_rounds=500):
         p_key = u[partner] * n_items + it[partner]
         new_a = u[pending] * n_items + it[partner]  # the repeated pair's user
         new_b = u[partner] * n_items + it[pending]  # the partner's user
-        ok = ~held(new_a, present) & ~held(new_b, present) & (new_a != new_b)
+        ok = ~present(new_a) & ~present(new_b) & (new_a != new_b)
         # a partner must hold its pair alone and take part in one swap
         ok &= ~held(p_key, np.sort(u[pending] * n_items + it[pending]))
         _, first, count = np.unique(partner, return_index=True, return_counts=True)
@@ -353,10 +406,14 @@ def _pairs_with_degrees(rng, d_user, d_item, max_rounds=500):
         clash = (count[inv] > 1).reshape(2, -1).any(axis=0)
         idx = np.flatnonzero(ok)[~clash]
         a, b = pending[idx], partner[idx]
-        gone = p_key[idx]
-        present = np.delete(present, np.searchsorted(present, gone))
-        added = np.sort(np.concatenate([new_a[idx], new_b[idx]]))
-        present = np.insert(present, np.searchsorted(present, added), added)
+        gone = np.sort(p_key[idx])
+        was_added = held(gone, added)
+        added = drop(added, gone[was_added])
+        removed = put(removed, gone[~was_added])
+        new = np.sort(np.concatenate([new_a[idx], new_b[idx]]))
+        was_removed = held(new, removed)
+        removed = drop(removed, new[was_removed])
+        added = put(added, new[~was_removed])
         it[a], it[b] = it[b], it[a].copy()
         keep = np.ones(len(pending), bool)
         keep[idx] = False
@@ -426,6 +483,19 @@ def phase_data(report, shared):
 # ---------------------------------------------------------------------------
 
 
+def _within(got, want, mag, label, tally, prefix=""):
+    """A kernel output against its plain version: finite, and per element
+    within 1e-5 * S (S the same sums over the absolute terms); keeps the
+    largest error and error / bar in `tally`."""
+    check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+    err = (got - want).abs()
+    ratio = float((err / (1e-5 * mag).clamp_min(1e-30)).max())
+    check(bool((err <= 1e-5 * mag).all()),
+          f"{label}: |kernel - plain| beyond 1e-5*S (ratio {ratio:.3g})")
+    tally[prefix + "max_abs_err"] = max(tally[prefix + "max_abs_err"], float(err.max()))
+    tally[prefix + "max_ratio"] = max(tally[prefix + "max_ratio"], ratio)
+
+
 def _dense_compare(r, x, ascale, implicit, which, tally, label):
     fn = df.fused_row_pass if which == "row" else df.fused_col_pass
     plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
@@ -437,15 +507,7 @@ def _dense_compare(r, x, ascale, implicit, which, tally, label):
     check(torch.equal(kb, kb2) and torch.equal(kc, kc2),
           f"{label}: a second launch gave other bits")
     for got, want, mag, what in ((kb, pb, sb, "b"), (kc, pc, sc, "corr")):
-        check(bool(torch.isfinite(got).all()), f"{label} {what}: not finite")
-        err = (got - want).abs()
-        ratio = float((err / (1e-5 * mag).clamp_min(1e-30)).max())
-        check(bool((err <= 1e-5 * mag).all()),
-              f"{label} {what}: |kernel - plain| beyond 1e-5*S "
-              f"(ratio {ratio:.3g})")
-        t = tally[which]
-        t["max_abs_err"] = max(t["max_abs_err"], float(err.max()))
-        t["max_ratio"] = max(t["max_ratio"], ratio)
+        _within(got, want, mag, f"{label} {what}", tally[which])
     tally[which]["cases"] += 1
 
 
@@ -522,13 +584,17 @@ class _PlainPasses:
 
 
 class _Observed:
-    """Around the main-path train: time the dense gate and keep the
-    StagedDenseTrain it builds, so that neither runs a second time for
-    the breakdown and the plain comparison."""
+    """Around a main-path train: time the dense gate and keep the staged
+    train that `als.<stage>` builds, so that neither runs a second time
+    for the breakdown and the plain comparison."""
+
+    def __init__(self, stage="stage_dense"):
+        self.stage = stage
 
     def __enter__(self):
-        self.saved = (als.dense_eligible, als.stage_dense)
+        self.saved = (als.dense_eligible, getattr(als, self.stage))
         gate, stage = self.saved
+        self.staged = None
 
         def timed_gate(*args, **kwargs):
             t0 = time.perf_counter()
@@ -540,11 +606,13 @@ class _Observed:
             self.staged = stage(*args, **kwargs)
             return self.staged
 
-        als.dense_eligible, als.stage_dense = timed_gate, kept_stage
+        als.dense_eligible = timed_gate
+        setattr(als, self.stage, kept_stage)
         return self
 
     def __exit__(self, *exc):
-        als.dense_eligible, als.stage_dense = self.saved
+        als.dense_eligible = self.saved[0]
+        setattr(als, self.stage, self.saved[1])
 
 
 def _corr(a, b):
@@ -881,6 +949,457 @@ def phase_dense_times(report, shared):
               f"({by})", flush=True)
     del r16, r, r0, ru
     report["dense_times"] = rows
+    shared.pop("coo")  # the ML-20M ratings are done with
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 10: ML-25M-width ratings, the windowed path's configuration
+# ---------------------------------------------------------------------------
+
+
+def _plan_side(dst, src, vals, n_dst):
+    """The per-slot arrays of one side's windowed plan, as staging lays
+    them out: (src, vals, ok, local) as (n_blocks_p, B_E), block_window."""
+    order = np.argsort(dst, kind="stable")
+    plan = win.plan_windows(dst[order], n_dst)
+
+    def flat(a):
+        return a.reshape(plan.n_blocks_p, -1)
+
+    return plan, (flat(plan.take(src[order])), flat(plan.take(vals[order])),
+                  flat(plan.chunked_valid()), flat(plan.chunked_local()),
+                  plan.block_window)
+
+
+def phase_data25(report, shared):
+    """MovieLens-25M's shape from SEED25: N25_EDGES unique (user, item)
+    pairs with its skewed degrees, half-star ratings 0.5-5.0 drawn
+    uniformly, as in phase 4.
+
+    Anchors: 162,541 users, 59,047 rated movies and 25,000,095 ratings,
+    every user with at least 20 (GroupLens ML-25M README); the most
+    active user's 32,202 ratings and the most-rated movie's 81,491
+    (Forrest Gump) are counts of ``ratings.csv`` as commonly reported,
+    not figures of the README. Its dense int8 R (163,840 x 59,136 =
+    9,688,842,240 bytes) is over the dense budget, so the gate sends it
+    to the windowed path."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED25)
+    d_user = rng.permutation(_degree_targets(N25_USERS, N25_EDGES, *USER25_DEGREES))
+    d_item = rng.permutation(_degree_targets(N25_ITEMS, N25_EDGES, *ITEM25_DEGREES))
+    keys, rounds = _pairs_with_degrees(rng, d_user, d_item)
+    check(len(keys) == N25_EDGES, f"{len(keys)} unique pairs drawn, not {N25_EDGES}")
+    rows = (keys // N25_ITEMS).astype(np.int32)
+    cols = (keys % N25_ITEMS).astype(np.int32)
+    del keys
+    vals = (rng.integers(1, 11, N25_EDGES) / 2.0).astype(np.float32)
+    u_deg = np.bincount(rows, minlength=N25_USERS)
+    i_deg = np.bincount(cols, minlength=N25_ITEMS)
+    check(np.array_equal(u_deg, d_user) and np.array_equal(i_deg, d_item),
+          "degrees differ from their targets")
+    gen_s = time.perf_counter() - t0
+    # the gate: every condition before the byte budget holds, the budget
+    # does not, so dense_eligible is False because of the budget
+    params = als.ALSParams(rank=RANK)
+    nbytes = als.dense_matrix_bytes(N25_USERS, N25_ITEMS, "int8")
+    check(nbytes > als.DENSE_DEFAULT_BYTES,
+          f"dense int8 R of {nbytes} bytes is not over the budget")
+    check(len(rows) >= als.DENSE_AUTO_MIN_EDGES and RANK <= als.GRAM_SOLVER_MAX_RANK
+          and dense.int8_scale(vals) == 2.0, "a gate condition before the budget fails")
+    t0 = time.perf_counter()
+    eligible = als.dense_eligible(rows, cols, vals, N25_USERS, N25_ITEMS, params)
+    gate_s = time.perf_counter() - t0
+    check(not eligible, "the dense gate accepted ML-25M's width")
+    t0 = time.perf_counter()
+    plans = {"users": _plan_side(rows, cols, vals, N25_USERS),
+             "items": _plan_side(cols, rows, vals, N25_ITEMS)}
+    plan_s = time.perf_counter() - t0
+    shared["coo25"] = (rows, cols, vals)
+    shared["plans25"] = plans
+    report["data25"] = {
+        "users": N25_USERS, "items": N25_ITEMS, "edges": N25_EDGES,
+        "user_degree": {"min": int(u_deg.min()), "median": float(np.median(u_deg)),
+                        "max": int(u_deg.max())},
+        "item_degree": {"min": int(i_deg.min()), "median": float(np.median(i_deg)),
+                        "max": int(i_deg.max())},
+        "dense_int8_bytes": nbytes, "gate_s": gate_s,
+        "plans": {side: {"n_blocks": p.n_blocks, "n_blocks_p": p.n_blocks_p,
+                         "n_windows": p.n_windows, "slots": p.n_blocks_p * win.BLOCK_EDGES}
+                  for side, (p, _) in plans.items()},
+        "swap_rounds": rounds, "generate_s": gen_s, "plan_s": plan_s,
+    }
+    d = report["data25"]
+    pu, pi = d["plans"]["users"], d["plans"]["items"]
+    print(f"[data25] {N25_USERS} users x {N25_ITEMS} items, {N25_EDGES} unique "
+          f"ratings, ML-25M-skewed degrees: users min/median/max "
+          f"{d['user_degree']['min']}/{d['user_degree']['median']:.0f}/"
+          f"{d['user_degree']['max']}, items min/median/max "
+          f"{d['item_degree']['min']}/{d['item_degree']['median']:.0f}/"
+          f"{d['item_degree']['max']}; {rounds} swap rounds, {gen_s:.1f} s; dense "
+          f"int8 R {nbytes} B > budget {als.DENSE_DEFAULT_BYTES} B, so "
+          f"dense_eligible False ({gate_s:.3f} s); plans: users {pu['n_blocks']} "
+          f"blocks ({pu['n_blocks_p']} padded, {pu['n_windows']} windows), items "
+          f"{pi['n_blocks']} ({pi['n_blocks_p']}, {pi['n_windows']}), "
+          f"{plan_s:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the windowed pass kernels vs their plain versions on the card
+# ---------------------------------------------------------------------------
+
+
+def _implicit_weights(v, ok, alpha=1.0):
+    conf = 1.0 + alpha * torch.abs(v)
+    return conf * (v > 0).float() * ok, (conf - 1.0) * ok
+
+
+def _windowed_compare(args, bwin, n_windows, tally, label):
+    """block_partials, then the whole windowed_gram_b (with the combine),
+    kernel vs plain on the card: within 1e-5*S elementwise, S the same
+    pass over the absolute terms; a second launch gives the same bits."""
+    kb, kg = wf.block_partials(*args)
+    kb2, kg2 = wf.block_partials(*args)
+    pb, pg = wf.block_partials_plain(*args)
+    sb, sg = wf.block_partials_plain(*args, magnitude=True)
+    torch.cuda.synchronize()
+    check(torch.equal(kb, kb2) and torch.equal(kg, kg2),
+          f"{label}: a second block_partials launch gave other bits")
+    _within(kb, pb, sb, f"{label} partials b", tally)
+    _within(kg, pg, sg, f"{label} partials gram", tally)
+    del kb, kg, kb2, kg2
+    b1, g1 = win.windowed_gram_b(*args, bwin, n_windows)
+    b2, g2 = win.windowed_gram_b(*args, bwin, n_windows)
+    cb, cg = wf.combine_windows_plain(pb, pg, bwin, n_windows)
+    del pb, pg
+    mb, mg = wf.combine_windows_plain(sb, sg, bwin, n_windows)
+    del sb, sg
+    torch.cuda.synchronize()
+    check(torch.equal(b1, b2) and torch.equal(g1, g2),
+          f"{label}: a second windowed_gram_b gave other bits")
+    _within(b1, cb, mb, f"{label} gram_b b", tally, "combined_")
+    _within(g1, cg, mg, f"{label} gram_b gram", tally, "combined_")
+    tally["cases"] += 1
+
+
+def _synthetic_plan(rng, k, implicit, n_src=2000, n_dst=5000, n_edges=200_000):
+    """A planned random edge list with signed half-star ratings, on the
+    card; half the padding slots get a local id past S."""
+    dst = np.sort(rng.integers(0, n_dst, n_edges)).astype(np.int32)
+    src = rng.integers(0, n_src, n_edges).astype(np.int32)
+    vals = (rng.integers(1, 11, n_edges) / 2.0
+            * rng.choice([-1.0, 1.0], n_edges)).astype(np.float32)
+    plan, (s, v, ok, loc, bwin) = _plan_side(dst, src, vals, n_dst)
+    loc = loc.copy()
+    loc[(ok == 0) & (np.arange(loc.shape[1]) % 2 == 0)] = win.WINDOW_ROWS + 3
+    return _side_on_card(rng, (s, v, ok, loc, bwin), n_src, k, implicit) + (
+        plan.n_windows,)
+
+
+def _side_on_card(rng, side, n_src, k, implicit):
+    """(factors, src, w_b, w_g, local), block_window on the card, for one
+    plan side with the half-step's weights (alpha 1.0)."""
+    s, v, ok, loc, bwin = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                           for a in side)
+    if implicit:
+        w_b, w_g = _implicit_weights(v, ok)
+    else:
+        w_b, w_g = v * ok, ok.clone()
+    f = torch.from_numpy((rng.standard_normal((n_src, k)) / np.sqrt(k))
+                         .astype(np.float32)).cuda()
+    return (f, s, w_b.contiguous(), w_g.contiguous(), loc), bwin
+
+
+def phase_windowed(report, shared):
+    rng = np.random.default_rng(SEED + 4)
+    t0 = time.perf_counter()
+    tally = {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
+             "combined_max_abs_err": 0.0, "combined_max_ratio": 0.0}
+    for k in (1, 8, 10, 32):
+        for implicit in (True, False):
+            args, bwin, n_windows = _synthetic_plan(rng, k, implicit)
+            _windowed_compare(args, bwin, n_windows, tally,
+                              f"K={k} implicit={implicit}")
+    # one block whose 1,024 slots all go to one row, beside a sorted one
+    # and one whose ids run backwards (the flush adds into written rows)
+    f = torch.from_numpy(rng.standard_normal((300, RANK)).astype(np.float32)).cuda()
+    src = torch.from_numpy(rng.integers(0, 300, (3, 1024)).astype(np.int32)).cuda()
+    w = torch.from_numpy(rng.uniform(0.5, 5.0, (3, 1024)).astype(np.float32)).cuda()
+    local = np.stack([np.full(1024, 42), np.sort(rng.integers(0, 128, 1024)),
+                      127 - np.arange(1024) % 128]).astype(np.int32)
+    _windowed_compare((f, src, w, w, torch.from_numpy(local).cuda()),
+                      torch.tensor([0, 0, 1], dtype=torch.int32).cuda(), 2,
+                      tally, "one-row block")
+    # an all-padding plan: every output is zero
+    plan = win.plan_windows(np.zeros(0, np.int32), 1000)
+    side = (plan.take(np.zeros(0, np.int32)).reshape(plan.n_blocks_p, -1),
+            plan.take(np.zeros(0, np.float32)).reshape(plan.n_blocks_p, -1),
+            plan.chunked_valid().reshape(plan.n_blocks_p, -1),
+            plan.chunked_local().reshape(plan.n_blocks_p, -1), plan.block_window)
+    args, bwin = _side_on_card(rng, side, 50, RANK, True)
+    _windowed_compare(args, bwin, plan.n_windows, tally, "all-padding plan")
+    b, g = win.windowed_gram_b(*args, bwin, plan.n_windows)
+    check(not b.any() and not g.any(), "all-padding plan: nonzero output")
+    # both full ML-25M plans at K = 10, as the train stages them
+    for name, (p, side) in shared["plans25"].items():
+        n_src = N25_ITEMS if name == "users" else N25_USERS
+        args, bwin = _side_on_card(rng, side, n_src, RANK, True)
+        _windowed_compare(args, bwin, p.n_windows, tally, f"ML-25M {name} plan")
+        del args, bwin
+    torch.cuda.empty_cache()
+    report["windowed_sweep"] = dict(tally, seconds=time.perf_counter() - t0)
+    print(f"[windowed] {tally['cases']} cases within 1e-5*S and bit-equal on "
+          f"relaunch (block_partials and the whole windowed_gram_b): max "
+          f"|kernel - plain| partials {tally['max_abs_err']:.3g} (ratio "
+          f"{tally['max_ratio']:.3g}), combined {tally['combined_max_abs_err']:.3g} "
+          f"(ratio {tally['combined_max_ratio']:.3g}); "
+          f"{report['windowed_sweep']['seconds']:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the windowed path, trained through ALSAlgorithm.train
+# ---------------------------------------------------------------------------
+
+
+class _PlainWindowed:
+    """Route the windowed pass through the plain versions (on the card)
+    for the comparison train; restores the wrappers on exit."""
+
+    def __enter__(self):
+        self.saved = (wf.block_partials, wf.combine_windows)
+        wf.block_partials = wf.block_partials_plain
+        wf.combine_windows = wf.combine_windows_plain
+
+    def __exit__(self, *exc):
+        wf.block_partials, wf.combine_windows = self.saved
+
+
+def phase_windowed_train(report, shared):
+    rows, cols, vals = shared["coo25"]
+    td = TrainingData(
+        rows=rows, cols=cols, vals=vals, n_users=N25_USERS, n_items=N25_ITEMS,
+        user_vocab=BiMap({f"u{n}": n for n in range(N25_USERS)}),
+        item_vocab=BiMap({f"i{n}": n for n in range(N25_ITEMS)}),
+    )
+    td.sanity_check()
+    params = ALSAlgorithmParams(num_iterations=TRAIN_ITERATIONS)  # template defaults
+    wf.BLOCK_LAUNCHES.update(partials=0, combine=0)  # counts to 0 just before
+    df.PASS_LAUNCHES.update(row=0, col=0)
+    with _Observed("stage_windowed") as seen:
+        t0 = time.perf_counter()
+        model = ALSAlgorithm(params).train(RuntimeContext(), td)
+        train_s = time.perf_counter() - t0
+    launches = dict(wf.BLOCK_LAUNCHES)
+    dense_launches = dict(df.PASS_LAUNCHES)
+    f = model.factors
+    del model
+    staged = seen.staged
+    check(isinstance(staged, als.StagedWindowedTrain),
+          f"the train staged {type(staged).__name__}, not StagedWindowedTrain")
+    want = 2 * TRAIN_ITERATIONS  # one pass and one combine per half-step
+    check(launches == {"partials": want, "combine": want},
+          f"windowed kernel launches {launches} != {want} each (one per half-step)")
+    check(dense_launches == {"row": 0, "col": 0}, "a dense pass kernel launched")
+    check(f.user_factors.shape == (N25_USERS, RANK)
+          and f.item_factors.shape == (N25_ITEMS, RANK), "factor shapes")
+    check(bool(np.isfinite(f.user_factors).all()
+               and np.isfinite(f.item_factors).all()), "non-finite factors")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uf, itf = staged.factors(*staged.run())
+    run_s = time.perf_counter() - t0
+    check(np.array_equal(uf, f.user_factors) and np.array_equal(itf, f.item_factors),
+          "a second kernel train from the same staging gave other bits")
+    with _PlainWindowed():
+        t0 = time.perf_counter()
+        puf, pitf = staged.factors(*staged.run())
+        plain_s = time.perf_counter() - t0
+    cu, ci = _corr(f.user_factors, puf), _corr(f.item_factors, pitf)
+    du = float(np.abs(f.user_factors - puf).max())
+    di = float(np.abs(f.item_factors - pitf).max())
+    check(cu > 0.9999 and ci > 0.9999,
+          f"kernel vs plain train: corrcoef users {cu}, items {ci}")
+    host_prep_s, transfer_s = staged.host_prep_sec, staged.transfer_sec
+    gate_s = seen.gate_s
+    del staged, seen
+    torch.cuda.empty_cache()
+
+    # train → deploy: the blob ``console train`` writes, loaded as
+    # ``console deploy`` loads it, served; each answer equals the plain top-k
+    factors = convert.load_jax_als_blob(f.to_bytes())
+    check(np.array_equal(factors.user_factors, f.user_factors)
+          and np.array_equal(factors.item_factors, f.item_factors), "blob round trip")
+    sv = als.stage_serving(factors)
+    users = np.random.default_rng(SEED25).integers(0, N25_USERS, 16)
+    scores, idx = als.recommend_serving(sv, users, 20)
+    q = sv.users[torch.from_numpy(users).cuda()]
+    pv, pi = rec.fused_recommend_topk_plain(q, sv.items, None, None, None, None,
+                                            k=20, n_items=sv.n_items)
+    check(np.array_equal(idx, pi.cpu().numpy()) and np.array_equal(scores, pv.cpu().numpy()),
+          "served top-k differs from the plain top-k")
+    del sv
+    report["windowed_train"] = {
+        "iterations": TRAIN_ITERATIONS, "rank": RANK, "edges": N25_EDGES,
+        "main_path_s": train_s, "launches": launches, "gate_s": gate_s,
+        "host_prep_s": host_prep_s, "transfer_s": transfer_s,
+        "per_iteration_s": run_s / TRAIN_ITERATIONS,
+        "plain_per_iteration_s": plain_s / TRAIN_ITERATIONS,
+        "corr_users": cu, "corr_items": ci,
+        "max_abs_diff_users": du, "max_abs_diff_items": di,
+        "served_queries": len(users),
+    }
+    t = report["windowed_train"]
+    print(f"[windowed train] ALSAlgorithm.train at ML-25M width ({N25_EDGES} "
+          f"ratings, rank {RANK}, {TRAIN_ITERATIONS} iterations): {train_s:.2f} s "
+          f"end to end on StagedWindowedTrain; launches block_partials "
+          f"{launches['partials']} combine {launches['combine']}; gate "
+          f"{t['gate_s']:.3f} s, host prep (argsorts, plans) {host_prep_s:.2f} s, "
+          f"transfer {transfer_s:.3f} s, {t['per_iteration_s']:.4f} s per "
+          f"iteration (plain pass {t['plain_per_iteration_s']:.4f} s); second run "
+          f"bit-equal; vs the plain-pass train: corrcoef users {cu:.8f} items "
+          f"{ci:.8f}, max |diff| users {du:.3g} items {di:.3g}; {len(users)} "
+          f"served queries equal the plain top-k", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the rank > 32 scatter path on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_scatter(report, shared):
+    """A small train at rank 48 through ALSAlgorithm.train, on the card
+    and on the CPU from the same seeded start: the scatter path has no
+    kernel of its own (gathers and index_add_), so this shows that it
+    runs on cuda and agrees with the CPU to the CPU tests' bar."""
+    rng = np.random.default_rng(SEED + 5)
+    rows = rng.integers(0, SCATTER_USERS, SCATTER_EDGES).astype(np.int32)
+    cols = rng.integers(0, SCATTER_ITEMS, SCATTER_EDGES).astype(np.int32)
+    vals = (rng.integers(1, 11, SCATTER_EDGES) / 2.0).astype(np.float32)
+    td = TrainingData(
+        rows=rows, cols=cols, vals=vals, n_users=SCATTER_USERS,
+        n_items=SCATTER_ITEMS,
+        user_vocab=BiMap({f"u{n}": n for n in range(SCATTER_USERS)}),
+        item_vocab=BiMap({f"i{n}": n for n in range(SCATTER_ITEMS)}),
+    )
+    params = ALSAlgorithmParams(rank=SCATTER_RANK, num_iterations=2)
+    taken = []
+    scatter = als._train_scatter
+
+    def spy(*args, **kwargs):
+        taken.append(kwargs.get("device"))
+        return scatter(*args, **kwargs)
+
+    before = (dict(wf.BLOCK_LAUNCHES), dict(df.PASS_LAUNCHES))
+    als._train_scatter = spy
+    try:
+        t0 = time.perf_counter()
+        card = ALSAlgorithm(params).train(RuntimeContext(), td)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = ALSAlgorithm(params).train(RuntimeContext(device="cpu"), td)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        als._train_scatter = scatter
+    check(taken == [None, "cpu"], f"the scatter path ran {len(taken)} of 2 trains")
+    check(before == (dict(wf.BLOCK_LAUNCHES), dict(df.PASS_LAUNCHES)),
+          "a pass kernel launched on the scatter path")
+    diffs = {}
+    for side in ("user_factors", "item_factors"):
+        got, want = getattr(card.factors, side), getattr(host.factors, side)
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"scatter {side}: shape or finiteness")
+        check(np.allclose(got, want, rtol=1e-4, atol=1e-4),
+              f"scatter {side}: card vs CPU beyond rtol = atol = 1e-4 (max "
+              f"|diff| {float(np.abs(got - want).max()):.3g})")
+        diffs[side] = float(np.abs(got - want).max())
+    check(card.device.type == "cuda", f"the model is on {card.device}")
+    report["scatter"] = {"users": SCATTER_USERS, "items": SCATTER_ITEMS,
+                         "edges": SCATTER_EDGES, "rank": SCATTER_RANK,
+                         "iterations": 2, "card_s": card_s, "cpu_s": cpu_s,
+                         "max_abs_diff": diffs}
+    print(f"[scatter] rank {SCATTER_RANK}, {SCATTER_EDGES} ratings, 2 iterations "
+          f"through ALSAlgorithm.train on cuda ({card_s:.2f} s) and on the CPU "
+          f"({cpu_s:.2f} s) from the same seed: max |diff| users "
+          f"{diffs['user_factors']:.3g} items {diffs['item_factors']:.3g}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: windowed pass times
+# ---------------------------------------------------------------------------
+
+
+def _windowed_bound(slots, n_src, n_blocks_p, n_windows, edges, k):
+    """Least time for block_partials: the four per-slot arrays and the
+    factors read once, the partials written once, over HBM; or 2 f32
+    operations per term, 2*E*(K+K^2), at the f32 peak. Returns it with
+    the bytes-bound of the combine: the partials and block ids read
+    once, the window sums written once (its adds are far fewer)."""
+    d = k + k * k
+    parts = n_blocks_p * win.WINDOW_ROWS * d * 4
+    nbytes = slots * 16 + n_src * k * 4 + parts
+    ops = 2.0 * edges * d
+    bytes_s, ops_s = nbytes / HBM_BPS, ops / PEAK_OPS["f32"]
+    combine = parts + n_blocks_p * 4 + n_windows * win.WINDOW_ROWS * d * 4
+    return (1e3 * max(bytes_s, ops_s), "bytes" if bytes_s >= ops_s else "operations",
+            1e3 * combine / HBM_BPS)
+
+
+def phase_windowed_times(report, shared):
+    rng = np.random.default_rng(SEED + 6)
+    rows_out = []
+    for name, (p, side) in shared.pop("plans25").items():
+        n_src = N25_ITEMS if name == "users" else N25_USERS
+        n_dst = N25_USERS if name == "users" else N25_ITEMS
+        args, bwin = _side_on_card(rng, side, n_src, RANK, True)
+        f, src, w_b, w_g, loc = args
+        kernel = _time_ms(lambda: wf.block_partials(*args), 5)
+        pb, pg = wf.block_partials(*args)
+        combine = _time_ms(lambda: wf.combine_windows(pb, pg, bwin, p.n_windows), 5)
+        plain = _time_ms(lambda: wf.block_partials_plain(*args), 1, repeats=3)
+        combine_plain = _time_ms(
+            lambda: wf.combine_windows_plain(pb, pg, bwin, p.n_windows), 1, repeats=3)
+        del pb, pg
+        # the yardstick: one gather, the outer products, and index_add_
+        # into the (N, K + K^2) sums, over the real edges only
+        keep = side[2].reshape(-1) > 0
+        dst_e = torch.from_numpy(
+            (np.repeat(side[4], win.BLOCK_EDGES) * win.WINDOW_ROWS
+             + side[3].reshape(-1))[keep].astype(np.int64)).cuda()
+        src_e = src.reshape(-1)[torch.from_numpy(keep).cuda()].long()
+        wb_e = w_b.reshape(-1)[torch.from_numpy(keep).cuda()]
+        wg_e = w_g.reshape(-1)[torch.from_numpy(keep).cuda()]
+        edges = int(keep.sum())
+
+        def library():
+            y = f[src_e]
+            payload = torch.cat(
+                [y * wb_e[:, None],
+                 (y[:, :, None] * y[:, None, :]).reshape(edges, RANK * RANK)
+                 * wg_e[:, None]], dim=1)
+            return torch.zeros((p.n_rows_padded, RANK + RANK * RANK),
+                               device=f.device).index_add_(0, dst_e, payload)
+
+        library_ms = _time_ms(library, 1, repeats=3)
+        del dst_e, src_e, wb_e, wg_e, args, f, src, w_b, w_g, loc
+        torch.cuda.empty_cache()
+        bound, by, combine_bound = _windowed_bound(
+            p.n_blocks_p * win.BLOCK_EDGES, n_src, p.n_blocks_p, p.n_windows,
+            edges, RANK)
+        rows_out.append({
+            "side": name, "n_dst": n_dst, "n_blocks": p.n_blocks,
+            "n_blocks_p": p.n_blocks_p, "n_windows": p.n_windows, "edges": edges,
+            "K": RANK, "ms": kernel, "plain_ms": plain, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by, "combine_ms": combine,
+            "combine_plain_ms": combine_plain, "combine_bound_ms": combine_bound,
+        })
+        print(f"[times] windowed {name} side ({p.n_blocks_p} blocks, {edges} "
+              f"ratings, K={RANK}): block_partials kernel {kernel:.4f} ms, plain "
+              f"{plain:.4f} ms, gather + outer + index_add_ {library_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}); combine kernel {combine:.4f} ms, plain "
+              f"{combine_plain:.4f} ms, bound {combine_bound:.4f} ms (bytes)",
+              flush=True)
+    report["windowed_times"] = rows_out
 
 
 def main() -> int:
@@ -898,7 +1417,11 @@ def main() -> int:
                         ("sweep", phase_sweep), ("data", phase_data),
                         ("dense", phase_dense), ("train", phase_train),
                         ("serve", phase_serve), ("times", phase_times),
-                        ("dense times", phase_dense_times)):
+                        ("dense times", phase_dense_times),
+                        ("data25", phase_data25), ("windowed", phase_windowed),
+                        ("windowed train", phase_windowed_train),
+                        ("scatter", phase_scatter),
+                        ("windowed times", phase_windowed_times)):
         try:
             phase(report, shared)
         except Exception:  # noqa: BLE001 — report the phase, then fail
@@ -927,6 +1450,18 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    users_side = report["windowed_times"][0]  # the users half-step's call
+    kernels.append({
+        "name": "block_partials", "route": "cuda", "source": WINDOWED_SOURCE,
+        "replaces": WINDOWED_REPLACES,
+        "launches": report["windowed_train"]["launches"]["partials"],
+        "max_abs_err": report["windowed_sweep"]["max_abs_err"],
+        "ms": users_side["ms"], "plain_ms": users_side["plain_ms"],
+        "bound_ms": users_side["bound_ms"], "bound_by": users_side["bound_by"],
+        "library_ms": users_side["library_ms"],
+        "combine_ms": users_side["combine_ms"],
+        "combine_launches": report["windowed_train"]["launches"]["combine"],
+    })
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"[done] {report['seconds']:.1f} s", flush=True)

@@ -1,17 +1,27 @@
-"""ALS: training on the dense-W path, factor persistence, staged serving
-state and the serving verbs.
+"""ALS: training, factor persistence, staged serving state and the
+serving verbs.
 
 Counterpart of the JAX package's ``models/als.py``. Factors persist in
 the same npz format, so a blob written by the JAX package's
 ``ALSFactors.to_bytes`` loads here and one written here loads there.
 
-Training takes the dense-W path (``dense_eligible`` → ``stage_dense`` →
-the alternating loop of ``_dense_half_step``): the rating matrix lives
-dense on the device and each half-step is one edge pass over it plus
-the batched CG solve. int8 storage runs the edge pass through
-``ops.dense_fused`` (a hand-written kernel on the card); f32 and bf16
-storage through ``ops.dense``. Input that the JAX package would send to
-its windowed or scatter path raises NotImplementedError.
+``train`` takes the path the JAX package's gate picks for the same
+input:
+
+- dense-W (``dense_eligible`` → ``stage_dense`` → the alternating loop
+  of ``_dense_half_step``): the rating matrix lives dense on the device
+  and each half-step is one edge pass over it plus the batched CG
+  solve. int8 storage runs the edge pass through ``ops.dense_fused`` (a
+  hand-written kernel on the card); f32 and bf16 storage through
+  ``ops.dense``.
+- windowed, rank ≤ 32 (``stage_windowed`` → the loop of
+  ``_half_step_windowed``): the edges, blocked by ``ops.windowed.
+  plan_windows``, live on the device; each half-step is one windowed
+  edge pass (``ops.windowed_fused``, hand-written kernels on the card)
+  plus the batched CG solve. It sums repeated (user, item) pairs.
+- scatter, rank > 32 (the loop of ``_half_step_implicit`` /
+  ``_half_step_explicit``): matrix-free CG over the dst-sorted edge
+  list with ``ops.segment``'s gather and ``index_add_`` sums.
 
 Serving stages the factor matrices on a device once (padded to
 ``ITEM_PAD`` rows, quantized for int8); every verb then sends only the
@@ -36,13 +46,25 @@ from predictionio_tpu_torch.data.store.bimap import BiMap
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops import dense, dense_fused
 from predictionio_tpu_torch.ops import recommend as _rp
-from predictionio_tpu_torch.ops.segment import batched_cg, f32_gram
-from predictionio_tpu_torch.ops.windowed import flat_gram_matvec
+from predictionio_tpu_torch.ops.segment import (
+    batched_cg,
+    chunked_edge_matvec,
+    chunked_gram_edge_sum,
+    chunked_weighted_edge_sum,
+    f32_gram,
+    full_f32,
+)
+from predictionio_tpu_torch.ops.windowed import (
+    WINDOW_ROWS,
+    flat_gram_matvec,
+    plan_windows,
+    windowed_gram_b,
+)
 from predictionio_tpu_torch.utils.env import env_int, env_str
 
 # ranks up to this solve via explicitly built per-row K×K operators (one
-# edge pass per half-step); beyond it the JAX package's matrix-free CG
-# scatter path takes over, which the port does not have yet
+# edge pass per half-step); beyond it the matrix-free CG scatter path
+# takes over
 GRAM_SOLVER_MAX_RANK = 32
 
 
@@ -112,15 +134,9 @@ class ALSFactors:
 # disables, =1 forces where it fits, PIO_DENSE_ALS_BYTES overrides the
 # budget
 DENSE_DEFAULT_BYTES = 9_000_000_000
-# below this edge count the JAX package keeps the windowed path unless
+# below this edge count auto mode keeps the windowed path unless
 # PIO_DENSE_ALS=1 opts in
 DENSE_AUTO_MIN_EDGES = 1_000_000
-
-_NOT_PORTED = (
-    "this input takes the JAX package's {what} train path, which the "
-    "port does not have yet (ROADMAP Queue 1 item 5); PIO_DENSE_ALS=1 "
-    "forces the dense path where the data allows it"
-)
 
 
 def _dense_half_step(
@@ -166,12 +182,21 @@ def _dense_half_step(
                       cg_iterations)
 
 
-def _init_factors(n_p: int, rank: int, deg: torch.Tensor, gen) -> torch.Tensor:
-    return (
-        torch.randn((n_p, rank), generator=gen, dtype=torch.float32,
-                    device=deg.device)
-        / math.sqrt(rank)
-    ) * (deg >= 0)[:, None]
+def _seeded_init(n_users_p, n_items_p, rank, user_deg, item_deg, seed):
+    """Both factor matrices' start: ``normal / sqrt(rank)`` drawn on the
+    CPU by a ``torch.Generator`` seeded with `seed` (users first), moved
+    to the degrees' device, zero on padding rows (degree -1). Drawn on
+    the CPU so that a seed starts the card and the CPU from the same
+    factors. This cannot equal the JAX package's threefry draw, so tests
+    that compare the two pass init factors to both."""
+    gen = torch.Generator()
+    gen.manual_seed(int(seed))
+
+    def draw(n_p, deg):
+        x = torch.randn((n_p, rank), generator=gen, dtype=torch.float32)
+        return (x / math.sqrt(rank)).to(deg.device) * (deg >= 0)[:, None]
+
+    return draw(n_users_p, user_deg), draw(n_items_p, item_deg)
 
 
 def _train_loop_dense(
@@ -179,19 +204,14 @@ def _train_loop_dense(
     implicit, lam, alpha, cg_iterations, seed, scale=1.0,
 ):
     """The whole alternating loop on the dense-W path (counterpart of the
-    JAX package's ``_train_jit_dense``). Without init factors both start
-    from ``normal / sqrt(rank)`` drawn by a ``torch.Generator`` on R's
-    device seeded with `seed` (users first), masked to zero on padding
-    rows; this cannot equal the JAX package's threefry draw, so tests
-    that compare the two pass init factors to both."""
+    JAX package's ``_train_jit_dense``); without init factors it starts
+    from `_seeded_init`."""
     n_users_p, n_items_p = r.shape
     if uf0 is not None and itf0 is not None:
         uf, itf = uf0, itf0
     else:
-        gen = torch.Generator(device=r.device)
-        gen.manual_seed(int(seed))
-        uf = _init_factors(n_users_p, rank, user_deg, gen)
-        itf = _init_factors(n_items_p, rank, item_deg, gen)
+        uf, itf = _seeded_init(n_users_p, n_items_p, rank, user_deg,
+                               item_deg, seed)
     step = dict(implicit=implicit, lam=lam, alpha=alpha,
                 cg_iterations=cg_iterations, scale=scale)
     for _ in range(iterations):
@@ -201,20 +221,31 @@ def _train_loop_dense(
 
 
 @dataclass
-class StagedDenseTrain:
-    """A dense-path train with the rating matrix resident on the device.
+class _StagedTrain:
+    """A train with its data resident on the device, built once per
+    training set; `run()` re-runs the alternating loop with no further
+    host→device traffic and returns the padded device factors."""
 
-    Built once per training set by `stage_dense`; `run()` re-runs the
-    alternating loop with no further host→device traffic.
-    `transfer_sec` is the host→device copy of the edges plus the
-    densify, to the device's completion."""
-
-    device_args: tuple  # (r, user_deg, item_deg, uf0 | None, itf0 | None)
+    device_args: tuple
     static_kwargs: dict
     n_users: int
     n_items: int
     host_prep_sec: float
     transfer_sec: float
+
+    def factors(self, uf, itf) -> tuple[np.ndarray, np.ndarray]:
+        return (
+            uf[: self.n_users].cpu().numpy(),
+            itf[: self.n_items].cpu().numpy(),
+        )
+
+
+@dataclass
+class StagedDenseTrain(_StagedTrain):
+    """A dense-path train, built by `stage_dense`: `device_args` are (r,
+    user_deg, item_deg, uf0 | None, itf0 | None). `transfer_sec` is the
+    host→device copy of the edges plus the densify, to the device's
+    completion."""
 
     @property
     def dense_dtype(self) -> str:
@@ -224,12 +255,6 @@ class StagedDenseTrain:
 
     def run(self) -> tuple[torch.Tensor, torch.Tensor]:
         return _train_loop_dense(*self.device_args, **self.static_kwargs)
-
-    def factors(self, uf, itf) -> tuple[np.ndarray, np.ndarray]:
-        return (
-            uf[: self.n_users].cpu().numpy(),
-            itf[: self.n_items].cpu().numpy(),
-        )
 
 
 def dense_matrix_bytes(
@@ -286,6 +311,30 @@ def _degrees(idx: np.ndarray, n: int) -> np.ndarray:
     return np.bincount(idx, minlength=n).astype(np.float32)
 
 
+def _pad_deg(deg: np.ndarray, n_padded: int) -> np.ndarray:
+    out = np.full(n_padded, -1.0, np.float32)  # -1 marks padding
+    out[: len(deg)] = deg
+    return out
+
+
+def _padded_init(init_factors, n_users, n_items, rank, n_u_p, n_i_p):
+    """`init_factors` (uf, itf) zero-padded to (n_u_p, K) and (n_i_p, K),
+    or (None, None) without them."""
+    if init_factors is None:
+        return None, None
+    uf_in = np.asarray(init_factors[0], np.float32)
+    itf_in = np.asarray(init_factors[1], np.float32)
+    if uf_in.shape != (n_users, rank) or itf_in.shape != (n_items, rank):
+        raise ValueError(
+            "init_factors shapes do not match (n_users/n_items, rank)"
+        )
+    uf0 = np.zeros((n_u_p, rank), np.float32)
+    uf0[:n_users] = uf_in
+    itf0 = np.zeros((n_i_p, rank), np.float32)
+    itf0[:n_items] = itf_in
+    return uf0, itf0
+
+
 def stage_dense(
     rows, cols, vals, n_users, n_items, params,
     user_deg=None, item_deg=None, init_factors=None,
@@ -322,26 +371,8 @@ def stage_dense(
         user_deg = _degrees(rows, n_users)
     if item_deg is None:
         item_deg = _degrees(cols, n_items)
-
-    def pad_deg(deg, n_padded):
-        out = np.full(n_padded, -1.0, np.float32)  # -1 marks padding
-        out[: len(deg)] = deg
-        return out
-
-    uf0 = itf0 = None
-    if init_factors is not None:
-        uf_in = np.asarray(init_factors[0], np.float32)
-        itf_in = np.asarray(init_factors[1], np.float32)
-        if uf_in.shape != (n_users, params.rank) or itf_in.shape != (
-            n_items, params.rank,
-        ):
-            raise ValueError(
-                "init_factors shapes do not match (n_users/n_items, rank)"
-            )
-        uf0 = np.zeros((n_u_p, params.rank), np.float32)
-        uf0[:n_users] = uf_in
-        itf0 = np.zeros((n_i_p, params.rank), np.float32)
-        itf0[:n_items] = itf_in
+    uf0, itf0 = _padded_init(init_factors, n_users, n_items, params.rank,
+                             n_u_p, n_i_p)
     host_prep = time.perf_counter() - t0
 
     def put(a):
@@ -354,7 +385,7 @@ def stage_dense(
         scale=scale,
     )
     device_args = (
-        r, put(pad_deg(user_deg, n_u_p)), put(pad_deg(item_deg, n_i_p)),
+        r, put(_pad_deg(user_deg, n_u_p)), put(_pad_deg(item_deg, n_i_p)),
         put(uf0), put(itf0),
     )
     if dev.type == "cuda":
@@ -390,7 +421,11 @@ def _train_dense(
         user_deg=user_deg, item_deg=item_deg, init_factors=init_factors,
         dense_dtype=dense_dtype, device=device,
     )
-    uf, itf = staged.factors(*staged.run())
+    return _als_factors(*staged.factors(*staged.run()), params, user_vocab,
+                        item_vocab)
+
+
+def _als_factors(uf, itf, params, user_vocab, item_vocab) -> ALSFactors:
     return ALSFactors(
         user_factors=uf,
         item_factors=itf,
@@ -398,6 +433,331 @@ def _train_dense(
         item_vocab=item_vocab or BiMap({}),
         params=params,
     )
+
+
+# -- training: the windowed path ---------------------------------------------
+
+
+def _half_step_windowed(
+    fixed: torch.Tensor,  # (N_fixed_padded, K) — pad rows are exactly zero
+    src: torch.Tensor,  # (n_blocks_p, B_E) int32 — rows into `fixed`
+    val: torch.Tensor,  # (n_blocks_p, B_E) — ratings (0 on pads)
+    ok: torch.Tensor,  # (n_blocks_p, B_E) — 1.0 real edge / 0.0 padding
+    loc: torch.Tensor,  # (n_blocks_p, B_E) int32 — dst % WINDOW_ROWS
+    bwin: torch.Tensor,  # (n_blocks_p,) int32 — output window per block
+    degree: torch.Tensor,  # (N_dst_padded,) — ALS-WR reg (explicit only)
+    x0: torch.Tensor,  # (N_dst_padded, K) warm start
+    *,
+    n_windows: int,
+    implicit: bool,
+    lam: float,
+    alpha: float,
+    cg_iterations: int,
+) -> torch.Tensor:
+    """One ALS half-step with the windowed reduction: one edge pass
+    (`ops.windowed.windowed_gram_b`) builds b and every row's gram
+    correction, then CG runs on the flat (N, K²) operators. Weights and
+    operators are the JAX package's:
+
+        implicit: w_b = c·1[v>0]·ok, w_g = (c − 1)·ok, c = 1 + α|v|;
+                  A = YᵀY + λI + Σ w_g y yᵀ
+        explicit: w_b = v·ok, w_g = ok;  A = Σ_obs y yᵀ + λ·max(deg, 1)·I
+    """
+    k = x0.shape[1]
+    eye = torch.eye(k, dtype=torch.float32, device=x0.device)
+    if implicit:
+        conf = 1.0 + alpha * torch.abs(val)
+        pref = (val > 0).to(torch.float32)
+        b, corr_flat = windowed_gram_b(
+            fixed, src, conf * pref * ok, (conf - 1.0) * ok, loc, bwin,
+            n_windows,
+        )
+        base = f32_gram(fixed) + lam * eye
+        a_flat = corr_flat + base.reshape(1, k * k)
+    else:
+        b, corr_flat = windowed_gram_b(
+            fixed, src, val * ok, ok, loc, bwin, n_windows,
+        )
+        reg = lam * torch.clamp(degree, min=1.0)
+        a_flat = corr_flat + reg[:, None] * eye.reshape(1, k * k)
+    return batched_cg(lambda v: flat_gram_matvec(a_flat, v), b, x0,
+                      cg_iterations)
+
+
+def _train_loop_windowed(
+    u_src, u_val, u_ok, u_loc, u_bwin,  # user-side plan (solving users)
+    i_src, i_val, i_ok, i_loc, i_bwin,  # item-side plan (solving items)
+    user_deg, item_deg, uf0=None, itf0=None, *,
+    n_user_windows, n_item_windows, rank, iterations, implicit, lam,
+    alpha, cg_iterations, seed,
+):
+    """The whole alternating loop on the windowed path (counterpart of
+    the JAX package's ``_train_jit_windowed`` on one device). Factor
+    matrices are window-padded; without init factors they start from
+    `_seeded_init`, whose padding rows are zero, and CG keeps them at
+    zero (b = 0, x0 = 0), so they never reach the fixed-side gram."""
+    if uf0 is not None and itf0 is not None:
+        uf, itf = uf0, itf0
+    else:
+        uf, itf = _seeded_init(n_user_windows * WINDOW_ROWS,
+                               n_item_windows * WINDOW_ROWS, rank, user_deg,
+                               item_deg, seed)
+    step = dict(implicit=implicit, lam=lam, alpha=alpha,
+                cg_iterations=cg_iterations)
+    for _ in range(iterations):
+        uf = _half_step_windowed(itf, u_src, u_val, u_ok, u_loc, u_bwin,
+                                 user_deg, uf, n_windows=n_user_windows,
+                                 **step)
+        itf = _half_step_windowed(uf, i_src, i_val, i_ok, i_loc, i_bwin,
+                                  item_deg, itf, n_windows=n_item_windows,
+                                  **step)
+    return uf, itf
+
+
+@dataclass
+class StagedWindowedTrain(_StagedTrain):
+    """A windowed-path train, built by `stage_windowed`: `device_args`
+    are both sides' plans (src, val, ok, local, block_window), the
+    padded degrees and the init factors (or None). `host_prep_sec` is the
+    argsorts, the two plans and the re-indexing through them;
+    `transfer_sec` the host→device copies, to the device's completion."""
+
+    def run(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return _train_loop_windowed(*self.device_args, **self.static_kwargs)
+
+
+def stage_windowed(
+    rows, cols, vals, n_users, n_items, params,
+    user_deg=None, item_deg=None, init_factors=None, device=None,
+) -> StagedWindowedTrain:
+    """Host plans and device staging for the windowed path, on the card
+    unless `device` says otherwise: the edges sorted by user and by item,
+    each order blocked by `plan_windows` (one part), every per-slot array
+    laid out (n_blocks_p, B_E) and copied to the device once."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    rows = np.asarray(rows, dtype=np.int32)
+    cols = np.asarray(cols, dtype=np.int32)
+    vals = np.asarray(vals, dtype=np.float32)
+    if user_deg is None:
+        user_deg = _degrees(rows, n_users)
+    if item_deg is None:
+        item_deg = _degrees(cols, n_items)
+    by_user = np.argsort(rows, kind="stable")
+    by_item = np.argsort(cols, kind="stable")
+    plan_u = plan_windows(rows[by_user], n_users)
+    plan_i = plan_windows(cols[by_item], n_items)
+    uf0, itf0 = _padded_init(init_factors, n_users, n_items, params.rank,
+                             plan_u.n_rows_padded, plan_i.n_rows_padded)
+
+    def side(plan, src, val):
+        def flat(a):
+            return a.reshape(plan.n_blocks_p, -1)
+
+        return (flat(plan.take(src)), flat(plan.take(val)),
+                flat(plan.chunked_valid()), flat(plan.chunked_local()),
+                plan.block_window)
+
+    host_args = (
+        *side(plan_u, cols[by_user], vals[by_user]),
+        *side(plan_i, rows[by_item], vals[by_item]),
+        _pad_deg(user_deg, plan_u.n_rows_padded),
+        _pad_deg(item_deg, plan_i.n_rows_padded),
+        uf0, itf0,
+    )
+    host_prep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    device_args = tuple(
+        None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in host_args
+    )
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    transfer = time.perf_counter() - t0
+    return StagedWindowedTrain(
+        device_args=device_args,
+        static_kwargs=dict(
+            n_user_windows=plan_u.n_windows,
+            n_item_windows=plan_i.n_windows,
+            rank=params.rank,
+            iterations=params.iterations,
+            implicit=params.implicit_prefs,
+            lam=params.lambda_,
+            alpha=params.alpha,
+            cg_iterations=params.cg_iterations,
+            seed=params.seed,
+        ),
+        n_users=n_users,
+        n_items=n_items,
+        host_prep_sec=host_prep,
+        transfer_sec=transfer,
+    )
+
+
+def _train_windowed(
+    rows, cols, vals, n_users, n_items, params,
+    user_deg, item_deg, user_vocab, item_vocab, init_factors, device=None,
+) -> ALSFactors:
+    staged = stage_windowed(
+        rows, cols, vals, n_users, n_items, params,
+        user_deg=user_deg, item_deg=item_deg, init_factors=init_factors,
+        device=device,
+    )
+    return _als_factors(*staged.factors(*staged.run()), params, user_vocab,
+                        item_vocab)
+
+
+# -- training: the scatter path (rank > 32) ----------------------------------
+
+
+def _half_step_implicit(
+    fixed: torch.Tensor,  # (N_fixed, K)
+    src_idx: torch.Tensor,  # (E,) int64 — edge rows into `fixed`
+    dst_idx: torch.Tensor,  # (E,) int64 — edge rows being solved (sorted)
+    conf: torch.Tensor,  # (E,) confidence c = 1 + α|r|
+    pref: torch.Tensor,  # (E,) preference p = 1[r > 0]
+    valid: torch.Tensor,  # (E,) 1.0 real edge / 0.0 padding
+    x0: torch.Tensor,  # (N_dst, K) warm start
+    lam: float,
+    cg_iterations: int,
+    n_chunks: int = 1,
+) -> torch.Tensor:
+    """Implicit half-step (MLlib trainImplicit semantics). Up to
+    GRAM_SOLVER_MAX_RANK one edge pass builds every row's operator;
+    beyond it CG runs matrix-free, one edge pass per matvec."""
+    n_dst, k = x0.shape
+    gram = f32_gram(fixed)
+    b = chunked_weighted_edge_sum(
+        fixed, src_idx, dst_idx, conf * pref * valid, n_dst, n_chunks
+    )
+    w_g = (conf - 1.0) * valid
+    if k <= GRAM_SOLVER_MAX_RANK:
+        corr = chunked_gram_edge_sum(fixed, src_idx, dst_idx, w_g, n_dst,
+                                     n_chunks)
+        eye = torch.eye(k, dtype=torch.float32, device=x0.device)
+        a_flat = corr + (gram + lam * eye).reshape(1, k * k)
+        return batched_cg(lambda v: flat_gram_matvec(a_flat, v), b, x0,
+                          cg_iterations)
+
+    def matvec(v):
+        with full_f32():
+            base = v @ gram + lam * v
+        return base + chunked_edge_matvec(fixed, v, src_idx, dst_idx, w_g,
+                                          n_dst, n_chunks)
+
+    return batched_cg(matvec, b, x0, cg_iterations)
+
+
+def _half_step_explicit(
+    fixed: torch.Tensor,
+    src_idx: torch.Tensor,
+    dst_idx: torch.Tensor,
+    ratings: torch.Tensor,
+    valid: torch.Tensor,  # (E,) 1.0 real edge / 0.0 padding
+    degree: torch.Tensor,  # (N_dst,) observation counts for ALS-WR
+    x0: torch.Tensor,
+    lam: float,
+    cg_iterations: int,
+    n_chunks: int = 1,
+) -> torch.Tensor:
+    """Explicit (ALS-WR) half-step: A = Σ_obs y yᵀ + λ·max(deg, 1)·I,
+    built once up to GRAM_SOLVER_MAX_RANK, matrix-free beyond it."""
+    n_dst, k = x0.shape
+    b = chunked_weighted_edge_sum(
+        fixed, src_idx, dst_idx, ratings * valid, n_dst, n_chunks
+    )
+    reg = lam * torch.clamp(degree, min=1.0)
+    if k <= GRAM_SOLVER_MAX_RANK:
+        obs = chunked_gram_edge_sum(fixed, src_idx, dst_idx, valid, n_dst,
+                                    n_chunks)
+        eye_flat = torch.eye(k, dtype=torch.float32,
+                             device=x0.device).reshape(1, k * k)
+        a_flat = obs + reg[:, None] * eye_flat
+        return batched_cg(lambda v: flat_gram_matvec(a_flat, v), b, x0,
+                          cg_iterations)
+
+    def matvec(v):
+        return reg[:, None] * v + chunked_edge_matvec(
+            fixed, v, src_idx, dst_idx, valid, n_dst, n_chunks)
+
+    return batched_cg(matvec, b, x0, cg_iterations)
+
+
+def _train_loop_scatter(
+    u_src, u_dst, u_val, u_ok,  # edges sorted by user (solving users)
+    i_src, i_dst, i_val, i_ok,  # edges sorted by item (solving items)
+    user_deg, item_deg, uf0=None, itf0=None, *,
+    n_users, n_items, rank, iterations, implicit, lam, alpha,
+    cg_iterations, seed, n_chunks,
+):
+    """The whole alternating loop on the scatter path (counterpart of the
+    JAX package's ``_train_jit`` without a mesh); without init factors
+    it starts from `_seeded_init` (no padding rows here)."""
+    if uf0 is not None and itf0 is not None:
+        uf, itf = uf0, itf0
+    else:
+        uf, itf = _seeded_init(n_users, n_items, rank, user_deg, item_deg,
+                               seed)
+    if implicit:
+        # confidence from |r| (a dislike still raises it), preference
+        # only for r > 0: the operator stays SPD for CG
+        u_w, i_w = 1.0 + alpha * torch.abs(u_val), 1.0 + alpha * torch.abs(i_val)
+        u_p, i_p = (u_val > 0).to(torch.float32), (i_val > 0).to(torch.float32)
+        for _ in range(iterations):
+            uf = _half_step_implicit(itf, u_src, u_dst, u_w, u_p, u_ok, uf,
+                                     lam, cg_iterations, n_chunks)
+            itf = _half_step_implicit(uf, i_src, i_dst, i_w, i_p, i_ok, itf,
+                                      lam, cg_iterations, n_chunks)
+    else:
+        for _ in range(iterations):
+            uf = _half_step_explicit(itf, u_src, u_dst, u_val, u_ok, user_deg,
+                                     uf, lam, cg_iterations, n_chunks)
+            itf = _half_step_explicit(uf, i_src, i_dst, i_val, i_ok, item_deg,
+                                      itf, lam, cg_iterations, n_chunks)
+    return uf, itf
+
+
+def _train_scatter(
+    rows, cols, vals, n_users, n_items, params,
+    user_deg, item_deg, user_vocab, item_vocab, init_factors, device=None,
+) -> ALSFactors:
+    """Stage the edge list sorted by user and by item (padded with
+    weight-0 edges to a multiple of the chunk count) and run the scatter
+    loop, on the card unless `device` says otherwise."""
+    dev = resolve_device(device)
+    valid = np.ones(len(rows), np.float32)
+    n_chunks = max(1, -(-len(rows) // max(1, params.edge_chunk_size)))
+    pad = (-len(rows)) % n_chunks
+    if pad:
+        rows = np.concatenate([rows, np.zeros(pad, np.int32)])
+        cols = np.concatenate([cols, np.zeros(pad, np.int32)])
+        vals = np.concatenate([vals, np.zeros(pad, np.float32)])
+        valid = np.concatenate([valid, np.zeros(pad, np.float32)])
+    by_user = np.argsort(rows, kind="stable")
+    by_item = np.argsort(cols, kind="stable")
+    uf0, itf0 = _padded_init(init_factors, n_users, n_items, params.rank,
+                             n_users, n_items)
+
+    def idx(a):
+        return torch.from_numpy(a.astype(np.int64)).to(dev)
+
+    def put(a):
+        return None if a is None else torch.from_numpy(a).to(dev)
+
+    uf, itf = _train_loop_scatter(
+        idx(cols[by_user]), idx(rows[by_user]), put(vals[by_user]),
+        put(valid[by_user]),
+        idx(rows[by_item]), idx(cols[by_item]), put(vals[by_item]),
+        put(valid[by_item]),
+        put(user_deg), put(item_deg), put(uf0), put(itf0),
+        n_users=n_users, n_items=n_items, rank=params.rank,
+        iterations=params.iterations, implicit=params.implicit_prefs,
+        lam=params.lambda_, alpha=params.alpha,
+        cg_iterations=params.cg_iterations, seed=params.seed,
+        n_chunks=n_chunks,
+    )
+    return _als_factors(uf.cpu().numpy(), itf.cpu().numpy(), params,
+                        user_vocab, item_vocab)
 
 
 def train(
@@ -416,22 +776,25 @@ def train(
     `device` says otherwise.
 
     `init_factors=(uf, itf)` (numpy) warm-starts the alternating loop.
-    Input the JAX package's gate sends to the dense-W path trains here;
-    input it sends to the windowed or scatter path raises
-    NotImplementedError — the port never silently picks another path."""
+    The path is the one the JAX package's gate picks on one device:
+    dense-W where `dense_eligible` holds, else windowed up to
+    GRAM_SOLVER_MAX_RANK, else scatter."""
     rows = np.asarray(rows, dtype=np.int32)
     cols = np.asarray(cols, dtype=np.int32)
     vals = np.asarray(vals, dtype=np.float32)
     user_deg = _degrees(rows, n_users)
     item_deg = _degrees(cols, n_items)
     if dense_eligible(rows, cols, vals, n_users, n_items, params):
-        return _train_dense(
-            rows, cols, vals, n_users, n_items, params,
-            user_deg, item_deg, user_vocab, item_vocab, init_factors,
-            device=device,
-        )
-    what = "windowed" if params.rank <= GRAM_SOLVER_MAX_RANK else "scatter"
-    raise NotImplementedError(_NOT_PORTED.format(what=what))
+        path = _train_dense
+    elif params.rank <= GRAM_SOLVER_MAX_RANK:
+        path = _train_windowed
+    else:
+        path = _train_scatter
+    return path(
+        rows, cols, vals, n_users, n_items, params,
+        user_deg, item_deg, user_vocab, item_vocab, init_factors,
+        device=device,
+    )
 
 
 # -- staged serving state ----------------------------------------------------

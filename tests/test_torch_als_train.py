@@ -1,4 +1,6 @@
-"""Port parity for ALS training on the dense-W path.
+"""Port parity for ALS training on the dense-W path, and the gate that
+sends the rest to the windowed and scatter paths
+(tests/test_torch_als_windowed.py).
 
 The same COO ratings and init factors, made with numpy from a seed,
 train through the JAX package's ``models/als.py`` and the port's on the
@@ -263,24 +265,40 @@ def test_gate_constants_match_jax():
     assert tals.dense_matrix_bytes(138_493, 26_744, "int8") == 139_264 * 26_880
 
 
-def test_train_refuses_the_paths_not_ported(monkeypatch):
-    """Input the JAX gate sends to the windowed or scatter path raises,
-    naming the queue item — never a silent switch of path."""
+@pytest.mark.parametrize("case,path", [
+    ("under 1 M ratings", "_train_windowed"),
+    ("rank 40", "_train_scatter"),
+    ("repeated pairs", "_train_windowed"),
+])
+def test_train_routes_like_the_jax_gate(monkeypatch, case, path):
+    """Input the JAX gate sends past the dense path trains on the path
+    it picks — windowed up to rank 32, scatter beyond — and matches the
+    JAX train from the same init to rtol = atol = 1e-4."""
     rows, cols, vals = _coo(n_edges=800, seed=4)
-    _, tp = _params(rank=6, iterations=2)
-    monkeypatch.delenv("PIO_DENSE_ALS", raising=False)
-    assert not jals.dense_eligible(rows, cols, vals, NU, NI,
-                                   jals.ALSParams(rank=6))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tals.train(rows, cols, vals, NU, NI, tp, device="cpu")
-    monkeypatch.setenv("PIO_DENSE_ALS", "1")
-    _, big = _params(rank=40, iterations=1)
-    with pytest.raises(NotImplementedError, match="scatter"):
-        tals.train(rows, cols, vals, NU, NI, big, device="cpu")
-    dup = (np.concatenate([rows, rows[:1]]), np.concatenate([cols, cols[:1]]),
-           np.concatenate([vals, vals[:1]]))
-    with pytest.raises(NotImplementedError, match="windowed"):
-        tals.train(*dup, NU, NI, tp, device="cpu")
+    rank = 40 if case == "rank 40" else 6
+    jp, tp = _params(rank=rank, iterations=2)
+    if case == "under 1 M ratings":
+        monkeypatch.delenv("PIO_DENSE_ALS", raising=False)
+    else:
+        monkeypatch.setenv("PIO_DENSE_ALS", "1")
+    if case == "repeated pairs":
+        rows, cols, vals = (np.concatenate([a, a[:1]]) for a in (rows, cols, vals))
+    assert not jals.dense_eligible(rows, cols, vals, NU, NI, jp)
+    taken = []
+    for name in ("_train_dense", "_train_windowed", "_train_scatter"):
+        def spy(*a, _name=name, _fn=getattr(tals, name), **kw):
+            taken.append(_name)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tals, name, spy)
+    init = _init(rank, seed=5)
+    ref = jals.train(rows, cols, vals, NU, NI, jp, init_factors=init)
+    got = tals.train(rows, cols, vals, NU, NI, tp, init_factors=init,
+                     device="cpu")
+    assert taken == [path]
+    np.testing.assert_allclose(got.user_factors, ref.user_factors,
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.item_factors, ref.item_factors,
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_train_without_device_needs_the_card(monkeypatch):

@@ -106,5 +106,5 @@ def test_chip_smoke_refuses_without_a_card():
 def test_kernel_build_needs_no_nvcc_to_import():
     from predictionio_tpu_torch.ops import _build
 
-    assert _build.sources() == ["dense_pass", "recommend_topk"]
+    assert _build.sources() == ["dense_pass", "recommend_topk", "windowed_pass"]
     assert _build.BUILD_DIR == ROOT / "build" / "kernels"

@@ -5,8 +5,11 @@ only the port is installed:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
-The kernel and the plain version do the same rounded operations, so
-indices AND values must be equal, for every k up to the padded width.
+The top-k kernel and its plain version do the same rounded operations,
+so indices AND values must be equal, for every k up to the padded
+width. The ALS edge-pass kernels differ from their plain versions only
+in the order of f32 sums, so they are held to 1e-5 times the sum of
+the absolute terms, and to equal bits on a second launch.
 """
 
 import numpy as np
@@ -184,3 +187,139 @@ def test_dense_pass_kernel_rejects_noncontiguous(card):
     with pytest.raises(ValueError, match="contiguous"):
         df.fused_row_pass(r, torch.zeros((64, 4), device=card), 1.0,
                           implicit=True)
+
+
+# ---------------------------------------------------------------------------
+# the windowed edge pass (csrc/windowed_pass.cu)
+# ---------------------------------------------------------------------------
+
+
+def _windowed_case(rng, k, implicit, dev, n_src=500, n_dst=3000,
+                   n_edges=60_000):
+    """A real plan's per-slot arrays (signed ratings, the implicit or
+    explicit half-step's weights) with extra out-of-range local ids on
+    padding slots, on the card."""
+    from predictionio_tpu_torch.ops import windowed as win
+
+    dst = np.sort(rng.integers(0, n_dst, n_edges))
+    src = rng.integers(0, n_src, n_edges).astype(np.int32)
+    vals = (rng.integers(1, 11, n_edges) / 2.0
+            * rng.choice([-1.0, 1.0], n_edges)).astype(np.float32)
+    plan = win.plan_windows(dst, n_dst)
+    flat = (plan.n_blocks_p, win.BLOCK_EDGES)
+    v = plan.take(vals).reshape(flat)
+    ok = plan.chunked_valid().reshape(flat)
+    if implicit:
+        conf = (1.0 + np.float32(1.7) * np.abs(v)).astype(np.float32)
+        w_b, w_g = conf * (v > 0) * ok, (conf - 1.0) * ok
+    else:
+        w_b, w_g = v * ok, ok.copy()
+    local = plan.chunked_local().reshape(flat).copy()
+    pad = ok == 0
+    local[pad & (np.arange(flat[1]) % 2 == 0)] = win.WINDOW_ROWS + 3
+    factors = (rng.standard_normal((n_src, k)) / np.sqrt(k)).astype(np.float32)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (put(factors), put(plan.take(src).reshape(flat)),
+            put(w_b.astype(np.float32)), put(w_g.astype(np.float32)),
+            put(local), put(plan.block_window), plan.n_windows)
+
+
+def _assert_partials_close(args, magnitude_args=None):
+    """Kernel vs plain: |Δ| <= 1e-5 * S elementwise, S the pass over the
+    absolute terms; a second launch gives the same bits."""
+    from predictionio_tpu_torch.ops import windowed_fused as wf
+
+    before = wf.BLOCK_LAUNCHES["partials"]
+    kb, kg = wf.block_partials(*args)
+    kb2, kg2 = wf.block_partials(*args)
+    pb, pg = wf.block_partials_plain(*args)
+    sb, sg = wf.block_partials_plain(*args, magnitude=True)
+    torch.cuda.synchronize()
+    assert wf.BLOCK_LAUNCHES["partials"] == before + 2
+    assert torch.equal(kb, kb2) and torch.equal(kg, kg2)
+    for got, want, mag in ((kb, pb, sb), (kg, pg, sg)):
+        assert bool(torch.isfinite(got).all())
+        assert float(((got - want).abs() - 1e-5 * mag).max()) <= 0.0
+    return kb, kg
+
+
+@pytest.mark.parametrize("implicit", [True, False])
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_block_partials_kernel_equals_plain(card, k, implicit):
+    rng = np.random.default_rng(k + 100 * implicit)
+    *args, bwin, n_windows = _windowed_case(rng, k, implicit, card)
+    _assert_partials_close(args)
+
+
+def test_block_partials_kernel_one_row_block(card):
+    """All 1,024 slots of a block on one row (a most-rated item's block),
+    and a block whose ids run backwards (unsorted: the flush adds into
+    rows already written)."""
+    rng = np.random.default_rng(7)
+    factors = torch.from_numpy(rng.standard_normal((50, 10)).astype(np.float32)).to(card)
+    src = torch.from_numpy(rng.integers(0, 50, (3, 1024)).astype(np.int32)).to(card)
+    w = torch.from_numpy(rng.uniform(0.1, 3.0, (3, 1024)).astype(np.float32)).to(card)
+    local = np.full((3, 1024), 77, np.int32)
+    local[1] = np.arange(1024) % 128  # every row, eight times, in rounds
+    local[2] = (1023 - np.arange(1024)) % 128
+    kb, _ = _assert_partials_close((factors, src, w, w,
+                                    torch.from_numpy(local).to(card)))
+    assert not kb[0, :77].any() and not kb[0, 78:].any()
+
+
+def test_block_partials_kernel_out_of_range_rows(card):
+    """Slots with ids outside [0, S) add nothing, whatever their weight;
+    rows no slot reaches read 0."""
+    from predictionio_tpu_torch.ops import windowed_fused as wf
+
+    rng = np.random.default_rng(8)
+    factors = torch.from_numpy(rng.standard_normal((20, 8)).astype(np.float32)).to(card)
+    src = torch.from_numpy(rng.integers(0, 20, (2, 1024)).astype(np.int32)).to(card)
+    w = torch.ones((2, 1024), device=card)
+    local = torch.full((2, 1024), -5, dtype=torch.int32, device=card)
+    local[0, 100:200] = 9
+    local[0, 300:] = 128
+    kb, kg = wf.block_partials(factors, src, w, w, local)
+    torch.cuda.synchronize()
+    assert not kb[1].any() and not kg[1].any()
+    assert not kb[0, :9].any() and not kb[0, 10:].any()
+    want = factors[src[0, 100:200].long()].sum(0)
+    assert torch.allclose(kb[0, 9], want, rtol=1e-5, atol=1e-5)
+
+
+def test_windowed_gram_b_kernels_relaunch_bit_equal(card):
+    from predictionio_tpu_torch.ops import windowed as win
+    from predictionio_tpu_torch.ops import windowed_fused as wf
+
+    rng = np.random.default_rng(9)
+    *args, bwin, n_windows = _windowed_case(rng, 10, True, card)
+    before = wf.BLOCK_LAUNCHES["combine"]
+    b1, g1 = win.windowed_gram_b(*args, bwin, n_windows)
+    b2, g2 = win.windowed_gram_b(*args, bwin, n_windows)
+    pb, pg = wf.combine_windows_plain(*wf.block_partials_plain(*args), bwin,
+                                      n_windows)
+    sb, sg = wf.combine_windows_plain(
+        *wf.block_partials_plain(*args, magnitude=True), bwin, n_windows)
+    torch.cuda.synchronize()
+    assert wf.BLOCK_LAUNCHES["combine"] == before + 2
+    assert torch.equal(b1, b2) and torch.equal(g1, g2)
+    for got, want, mag in ((b1, pb, sb), (g1, pg, sg)):
+        assert float(((got - want).abs() - 1e-5 * mag).max()) <= 0.0
+
+
+def test_windowed_kernels_reject_noncontiguous(card):
+    from predictionio_tpu_torch.ops import windowed_fused as wf
+
+    f = torch.zeros((10, 8), device=card)[:, ::2]
+    src = torch.zeros((2, 64), dtype=torch.int32, device=card)
+    w = torch.zeros((2, 64), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        wf.block_partials(f, src, w, w, src)
+    pb = torch.zeros((2, 128, 8), device=card)[:, :, ::2]
+    pg = torch.zeros((2, 128, 16), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        wf.combine_windows(pb, pg, torch.zeros(2, dtype=torch.int32,
+                                               device=card), 1)

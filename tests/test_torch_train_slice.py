@@ -2,7 +2,7 @@
 
 A small ``user::item::rating`` file trains through ``console train
 --device cpu`` (the dense-W path, forced on with PIO_DENSE_ALS=1 at this
-size) into an npz factor blob; ``console deploy --device cpu`` serves
+size, or without it the windowed path) into an npz factor blob; ``console deploy --device cpu`` serves
 it and answers ``POST /queries.json``. The blob loads in the JAX
 package with equal arrays and vocabularies, and the served top-k equals
 the JAX package's ``recommend`` on the same factors: item ids equal,
@@ -81,6 +81,67 @@ def test_console_train_then_deploy_matches_jax_recommend(tmp_path, monkeypatch):
     assert status == 200
     row = jf.user_vocab(user)
     scores, idx = jals.recommend(jf, np.array([row]), 7)
+    inv = jf.item_vocab.inverse()
+    assert [s["item"] for s in body["item_scores"]] == [inv(int(i)) for i in idx[0]]
+    np.testing.assert_allclose([s["score"] for s in body["item_scores"]],
+                               scores[0], rtol=1e-5)
+
+
+def test_console_train_repeated_lines_takes_the_windowed_path(tmp_path,
+                                                              monkeypatch):
+    """Without PIO_DENSE_ALS a small file with repeated user::item lines
+    takes the windowed path, as the JAX gate would (under 1 M ratings,
+    and the repeats must sum). The blob's factors equal the JAX
+    package's train on the same file from the port's seeded start
+    (rtol = atol = 1e-4, tests/test_torch_als_windowed.py), and the
+    deployed server answers as the JAX package's recommend on them."""
+    import torch
+
+    from predictionio_tpu_torch.models import als as tals
+
+    monkeypatch.delenv("PIO_DENSE_ALS", raising=False)
+    ratings = tmp_path / "ratings.dat"
+    lines = _ratings_file(ratings, seed=2)
+    lines = lines + lines[::7]  # every seventh pair rated again
+    ratings.write_text("\n".join(lines) + "\n")
+    blob = tmp_path / "factors.npz"
+    rc = console.main(["train", "--ratings", str(ratings), "--out", str(blob),
+                       "--rank", str(RANK), "--iterations", str(ITERS),
+                       "--device", "cpu"])
+    assert rc == 0
+    jf = jals.ALSFactors.from_bytes(blob.read_bytes())
+
+    td = jeng.FileRatingsDataSource(
+        jeng.FileDataSourceParams(str(ratings))).read_training(None)
+    assert len(td.rows) == len(lines)
+    p = teng.ALSAlgorithmParams(rank=RANK, num_iterations=ITERS)
+    jp = jals.ALSParams(rank=RANK, iterations=ITERS, lambda_=p.lambda_,
+                        alpha=p.alpha, cg_iterations=p.cg_iterations)
+    assert not jals.dense_eligible(td.rows, td.cols, td.vals, td.n_users,
+                                   td.n_items, jp)
+    n_u_p, n_i_p = (-(-n // 128) * 128 for n in (td.n_users, td.n_items))
+    uf0, itf0 = tals._seeded_init(n_u_p, n_i_p, RANK, torch.zeros(n_u_p),
+                                  torch.zeros(n_i_p), p.seed)
+    ref = jals.train(td.rows, td.cols, td.vals, td.n_users, td.n_items, jp,
+                     init_factors=(uf0[: td.n_users].numpy(),
+                                   itf0[: td.n_items].numpy()))
+    np.testing.assert_allclose(jf.user_factors, ref.user_factors,
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(jf.item_factors, ref.item_factors,
+                               rtol=1e-4, atol=1e-4)
+
+    args = console._parser().parse_args(
+        ["deploy", "--model", str(blob), "--ip", "127.0.0.1", "--port", "0",
+         "--device", "cpu"])
+    server = console.build_server(args)
+    port = server.start()
+    try:
+        user = lines[5].split("::")[0]
+        status, body = _post(port, {"user": user, "num": 9})
+    finally:
+        server.stop()
+    assert status == 200
+    scores, idx = jals.recommend(jf, np.array([jf.user_vocab(user)]), 9)
     inv = jf.item_vocab.inverse()
     assert [s["item"] for s in body["item_scores"]] == [inv(int(i)) for i in idx[0]]
     np.testing.assert_allclose([s["score"] for s in body["item_scores"]],
