@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's train (dense, windowed, scatter) and serve
-paths on one CUDA card.
+"""Drive the PyTorch port's ALS train (dense, windowed, scatter) and
+serve paths, and the Universal Recommender's train and serve path, on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -78,13 +79,42 @@ Phases, in order; any failure prints what failed and exits non-zero:
             block_partials kernel, its plain version, a gather + outer
             product + ``index_add_`` yardstick the port never calls, the
             bound; the combine kernel, its plain version, its bound.
-15. report  one ``{"kernels": [...]}`` line, then the device line last.
+15. ur sweep  the precomputed-score selector (``fused_masked_topk``)
+            against its plain version on the card: I_p in {1,024, 100,096}
+            with dead pads, B in {1, 8, 64}, k in {1, 64, 1,024, 1,500,
+            n_items}, no mask / bit words / row lists of 8 and 64, a fully
+            masked row, an all-zero row, equal maxima on both sides of
+            every chunk boundary. Indices and values must be equal.
+16. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
+            at full size) from UR_SEED: 3,000 users, 100,000 items, one buy
+            per item plus 30 buys per user on zipf(1.3) items, and 30
+            views per user from their own stream, into the port's
+            ``MemoryEventStore``.
+17. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
+            the card at the template defaults (50 correlators, 100 query
+            events): every table finite, and equal to the same block train
+            on the CPU for three blocks of 1,024 items per indicator
+            within the LLR tolerance (atol = 16 eps N ln N; indices equal
+            outside tie groups). Prints read, indicator build, counts and
+            LLR + top-n seconds.
+18. ur serve the card-trained model behind the port's ``QueryServer``;
+            16 client threads send 500 UR queries (mostly exclude_seen,
+            20 % blacklists, unknown users, view-only users added after
+            the train). Every answer must equal ``_predict_batch`` on a
+            CPU copy of the model; masked kernel launches must equal
+            device batches.
+19. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
+            {1, 64}: the kernel, its plain version, ``torch.topk`` over
+            ``torch.where(mask, NEG_INF, scores)`` as a yardstick the port
+            never calls, the bound, and the history scoring outside it.
+20. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import datetime
 import http.client
 import json
 import statistics
@@ -100,15 +130,26 @@ import torch
 
 try:
     from predictionio_tpu_torch import convert
+    from predictionio_tpu_torch.core.base import RuntimeContext
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.data.store.bimap import BiMap
     from predictionio_tpu_torch.engines.recommendation.engine import (
         ALSAlgorithm,
         ALSAlgorithmParams,
         ALSModel,
-        RuntimeContext,
         TrainingData,
     )
-    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.engines.universal.engine import (
+        DataSourceParams as URDataSourceParams,
+        Query as URQuery,
+        URAlgorithm,
+        URAlgorithmParams,
+        URDataSource,
+        URModel,
+    )
+    from predictionio_tpu_torch.models import als, cco
     from predictionio_tpu_torch.ops import _build, dense
     from predictionio_tpu_torch.ops import dense_fused as df
     from predictionio_tpu_torch.ops import recommend as rec
@@ -149,6 +190,18 @@ USER25_DEGREES, ITEM25_DEGREES = (20, 32_202), (1, 81_491)
 WINDOWED_SOURCE = "predictionio_tpu_torch/ops/csrc/windowed_pass.cu"
 WINDOWED_REPLACES = "predictionio_tpu/ops/windowed_pallas.py:68"
 SCATTER_USERS, SCATTER_ITEMS, SCATTER_EDGES, SCATTER_RANK = 3_000, 2_000, 100_000, 48
+UR_SEED = 13
+UR_APP = "urbench"
+UR_USERS, UR_ITEMS = 3_000, 100_000  # bench.py:bench_ur_framework at full size
+UR_PER_USER, UR_ZIPF = 30, 1.3  # buys (and views) per user on zipf(1.3) items
+UR_CORRELATORS, UR_QUERY_EVENTS = 50, 100  # template defaults
+UR_T0 = datetime.datetime(2024, 1, 1, tzinfo=datetime.timezone.utc)
+UR_NEW_USERS = 50  # view-only users added after the train
+UR_SWEEP_WIDTHS = ((1_024, 1_000), (100_096, 100_000))  # (I_p, n_items)
+UR_K_LADDER = (1, 64, 1_024, 1_500)
+UR_CPU_BLOCKS, UR_CPU_BLOCK_ROWS = (0, 49_920, 98_976), 1_024
+UR_TIMES_K = 64
+MASKED_REPLACES = "predictionio_tpu/ops/recommend_pallas.py:468"
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
@@ -1402,6 +1455,452 @@ def phase_windowed_times(report, shared):
     report["windowed_times"] = rows_out
 
 
+# ---------------------------------------------------------------------------
+# phases 15-19: the Universal Recommender (CCO train, history scoring,
+# the masked top-k kernel)
+# ---------------------------------------------------------------------------
+
+
+def _ur_scores(rng, b, i_p, n_items):
+    """(B, I_p) f32 scores shaped like UR history sums: most items 0,
+    the rest LLR sums; half the rows on a quarter-step grid (exact ties
+    everywhere), equal maxima on both sides of every 1,024-column chunk
+    boundary, an all-zero last row, dead pads past n_items."""
+    s = np.where(rng.random((b, i_p)) < 0.7, 0.0,
+                 rng.gamma(2.0, 8.0, (b, i_p))).astype(np.float32)
+    s[::2] = np.round(s[::2] * 4) / 4
+    edges = np.arange(rec._CHUNK, n_items, rec._CHUNK)
+    s[:, edges - 1] = s[:, edges] = 1e4
+    s[-1, :n_items] = 0.0
+    s[:, n_items:] = rng.standard_normal((b, i_p - n_items))
+    return torch.from_numpy(s).cuda()
+
+
+def _ur_masks(rng, b, i_p, n_items):
+    mask = rng.random((b, n_items)) < 0.2
+    mask[0] = True  # a fully masked row
+    out = {None: (None, None),
+           "bits": (torch.from_numpy(rec.pack_mask_np(mask, i_p)).cuda(), None)}
+    for width in (8, 64):
+        rows = np.full((b, width), -1, np.int32)
+        rows[:, : width - 2] = rng.integers(0, n_items, (b, width - 2))
+        rows[:, 0] = rec._CHUNK - 1  # a crafted maximum
+        rows[0, -1] = i_p + 9  # out of range: inert
+        out[f"rows{width}"] = (None, torch.from_numpy(rows).cuda())
+    return out
+
+
+def phase_ur_sweep(report, shared):
+    rng = np.random.default_rng(UR_SEED)
+    tally = {"cases": 0, "max_abs_err": 0.0}
+    t0 = time.perf_counter()
+    for i_p, n_items in UR_SWEEP_WIDTHS:
+        check(rec.pad_items(n_items) == i_p, f"pad_items({n_items}) != {i_p}")
+        for b in (1, 8, 64):
+            scores = _ur_scores(rng, b, i_p, n_items)
+            for kind, (bits, rows) in _ur_masks(rng, b, i_p, n_items).items():
+                for k in sorted({kk for kk in UR_K_LADDER + (n_items,) if kk <= i_p}):
+                    label = f"masked I_p={i_p} B={b} mask={kind} k={k}"
+                    kv, ki = rec.fused_masked_topk(scores, bits, rows, k=k,
+                                                   n_items=n_items)
+                    pv, pi = rec.fused_masked_topk_plain(scores, bits, rows, k=k,
+                                                         n_items=n_items)
+                    torch.cuda.synchronize()
+                    check(torch.equal(ki, pi), f"{label}: indices differ")
+                    check(torch.equal(kv, pv), f"{label}: values differ")
+                    tally["max_abs_err"] = max(tally["max_abs_err"],
+                                               float((kv - pv).abs().max()))
+                    if kind == "bits":  # row 0 is fully masked
+                        n = min(k, n_items)
+                        check(bool((kv[0, :n] == rec.NEG_INF).all()),
+                              f"{label}: fully masked row")
+                    tally["cases"] += 1
+    report["ur_sweep"] = dict(tally, seconds=time.perf_counter() - t0)
+    print(f"[ur sweep] {tally['cases']} cases of fused_masked_topk (I_p "
+          f"{', '.join(str(w) for w, _ in UR_SWEEP_WIDTHS)}; B 1/8/64; no mask, "
+          f"bit words, row lists of 8 and 64; k up to n_items): indices and "
+          f"values equal to the plain version in all, "
+          f"{report['ur_sweep']['seconds']:.1f} s", flush=True)
+
+
+def phase_ur_data(report, shared):
+    """The repo's UR configuration (bench.py:bench_ur_framework at full
+    size): 3,000 users, a 100,000-item catalog, one buy per item (full
+    coverage) and 30 buys per user on item zipf(1.3) % 100,000; plus a
+    secondary view indicator, 30 views per user drawn the same way from
+    its own stream. Loaded into the port's MemoryEventStore."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(UR_SEED)
+    buy_users = np.concatenate([rng.integers(0, UR_USERS, UR_ITEMS),
+                                np.repeat(np.arange(UR_USERS), UR_PER_USER)])
+    buy_items = np.concatenate([np.arange(UR_ITEMS),
+                                rng.zipf(UR_ZIPF, UR_USERS * UR_PER_USER) % UR_ITEMS])
+    vrng = np.random.default_rng(UR_SEED + 1)
+    view_users = np.repeat(np.arange(UR_USERS), UR_PER_USER)
+    view_items = vrng.zipf(UR_ZIPF, UR_USERS * UR_PER_USER) % UR_ITEMS
+    rows = ([("buy", u, i) for u, i in zip(buy_users.tolist(), buy_items.tolist())]
+            + [("view", u, i) for u, i in zip(view_users.tolist(), view_items.tolist())])
+    storage = Storage()
+    app_id = storage.get_meta_data_apps().insert(App(0, UR_APP))
+    storage.get_events().init_app(app_id)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _ur_insert(storage, app_id, [(e, f"u{u}", f"i{i}") for e, u, i in rows], 0)
+    load_s = time.perf_counter() - t0
+    shared["ur"] = {"storage": storage, "app_id": app_id, "n_events": len(rows)}
+    report["ur_data"] = {
+        "users": UR_USERS, "items": UR_ITEMS, "buys": int(len(buy_users)),
+        "views": int(len(view_users)),
+        "distinct_bought": int(len(np.unique(buy_items))),
+        "distinct_viewed": int(len(np.unique(view_items))),
+        "generate_s": gen_s, "load_s": load_s,
+    }
+    d = report["ur_data"]
+    print(f"[ur data] {UR_USERS} users, {UR_ITEMS} items: {d['buys']} buys "
+          f"({d['distinct_bought']} items), {d['views']} views "
+          f"({d['distinct_viewed']} items), zipf({UR_ZIPF}); generated in "
+          f"{gen_s:.2f} s, {len(rows)} events into MemoryEventStore in "
+          f"{load_s:.2f} s", flush=True)
+
+
+def _ur_insert(storage, app_id, rows, first):
+    """(event, user, item) rows as events with explicit times and ids."""
+    t0 = UR_T0
+    storage.get_events().insert_batch([
+        Event(event=e, entity_type="user", entity_id=u,
+              target_entity_type="item", target_entity_id=t,
+              event_time=t0 + datetime.timedelta(milliseconds=first + n),
+              event_id=f"e{first + n:08d}")
+        for n, (e, u, t) in enumerate(rows)
+    ], app_id)
+
+
+class _TimedCco:
+    """Around the main-path train: time cco's indicator build, count
+    products and LLR + top-n (each call synchronised), restored on exit."""
+
+    NAMES = ("edges_to_indicator", "cooccurrence_counts", "llr_topn")
+
+    def __enter__(self):
+        self.saved = {n: getattr(cco, n) for n in self.NAMES}
+        self.seconds = dict.fromkeys(self.NAMES, 0.0)
+        self.calls = dict.fromkeys(self.NAMES, 0)
+
+        def timed(name, fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds[name] += time.perf_counter() - t0
+                self.calls[name] += 1
+                return out
+            return run
+
+        for n, fn in self.saved.items():
+            setattr(cco, n, timed(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(cco, n, fn)
+
+
+def _correlators_close(ref, got, n_users):
+    """(max |dv|, index mismatches outside tie groups, atol, the worst
+    (row, position)) of two CCO tables under the LLR tolerance atol =
+    16 eps N ln N: values position by position; indices exactly except
+    in runs of values within atol of each other or of 0, and in the run
+    reaching the list's end."""
+    (rv, ri), (gv, gi) = ref, got
+    atol = 16 * float(np.finfo(np.float32).eps) * n_users * np.log(n_users)
+    diff = np.abs(rv - gv)
+    dv = float(diff.max())
+    worst = np.unravel_index(int(diff.argmax()), diff.shape)
+    bad = 0
+    n = rv.shape[1]
+    for row in range(rv.shape[0]):
+        v = rv[row]
+        start = 0
+        while start < n:
+            end = start + 1
+            while end < n and abs(v[end] - v[end - 1]) <= atol:
+                end += 1
+            if v[start] > atol and end < n:
+                bad += sorted(ri[row, start:end]) != sorted(gi[row, start:end])
+            start = end
+    return dv, bad, atol, worst
+
+
+def _llr_f64(p, s, item, thing, n_users):
+    """The LLR of one (item, thing) pair in float64 from the 0/1 CPU
+    matrices: the reference a card/CPU disagreement is judged by."""
+    k11 = float((p[:, item] * s[:, thing]).sum())
+    k12 = float(p[:, item].sum()) - k11
+    k21 = float(s[:, thing].sum()) - k11
+    k22 = n_users - k11 - k12 - k21
+
+    def xl(x):
+        return x * np.log(x) if x > 0 else 0.0
+
+    llr = 2 * (xl(k11) + xl(k12) + xl(k21) + xl(k22) - xl(k11 + k12)
+               - xl(k21 + k22) - xl(k11 + k21) - xl(k12 + k22) + xl(n_users))
+    return max(llr, 0.0), (k11, k12, k21, k22)
+
+
+def phase_ur_train(report, shared):
+    ur = shared["ur"]
+    ctx = RuntimeContext(storage=ur["storage"])  # the first CUDA device
+    t0 = time.perf_counter()
+    td = URDataSource(URDataSourceParams(UR_APP, ("buy", "view"))).read_training(ctx)
+    read_s = time.perf_counter() - t0
+    td.sanity_check()
+    params = URAlgorithmParams(app_name=UR_APP)  # template defaults
+    check(params.max_correlators_per_item == UR_CORRELATORS
+          and params.max_query_events == UR_QUERY_EVENTS, "template defaults")
+    torch.cuda.reset_peak_memory_stats()
+    with _TimedCco() as timed:
+        t0 = time.perf_counter()
+        model = URAlgorithm(params).train(ctx, td)
+        train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(model.device.type == "cuda", f"the model is on {model.device}")
+    n_items = len(model.item_vocab)
+    check(n_items == UR_ITEMS, f"{n_items} items in the model, not {UR_ITEMS}")
+    tables = {}
+    for m in model.indicator_models:
+        check(m.correlator_scores.shape == (n_items, UR_CORRELATORS)
+              and m.correlator_idx.shape == (n_items, UR_CORRELATORS),
+              f"{m.name}: table shape")
+        check(bool(np.isfinite(m.correlator_scores).all()), f"{m.name}: not finite")
+        live = m.correlator_idx >= 0
+        check(bool((m.correlator_scores[live] > 0).all())
+              and int(m.correlator_idx.max()) < len(m.target_vocab),
+              f"{m.name}: a live correlator with LLR <= 0 or out of range")
+        tables[m.name] = {"targets": len(m.target_vocab),
+                          "items_with_correlators": int(live.any(axis=1).sum()),
+                          "correlators": int(live.sum())}
+    # the same train on the CPU, for UR_CPU_BLOCKS item blocks of each
+    # indicator (a whole CPU train of 2 x 6e13 operations would not fit
+    # the run's time), through the same block function at the same offsets
+    t0 = time.perf_counter()
+    primary = td.indicators[0]
+    p_cpu = cco.edges_to_indicator(primary.rows, primary.cols, td.n_users,
+                                   n_items, device="cpu")
+    compare = {}
+    for ind, m in zip(td.indicators, model.indicator_models):
+        s_cpu = (p_cpu if ind.name == primary.name else cco.edges_to_indicator(
+            ind.rows, ind.cols, td.n_users, len(ind.target_vocab), device="cpu"))
+        worst = {"max_abs_diff": 0.0, "index_mismatches": 0, "rows": 0}
+        for lo in UR_CPU_BLOCKS:
+            hi = lo + UR_CPU_BLOCK_ROWS
+            v, i = cco._cco_topn(p_cpu[:, lo:hi], s_cpu, td.n_users, lo,
+                                 top_n=UR_CORRELATORS,
+                                 exclude_diagonal=ind.name == primary.name)
+            cpu_v, cpu_i = v.numpy(), i.numpy()
+            dv, bad, atol, (r, t) = _correlators_close(
+                (cpu_v, cpu_i),
+                (m.correlator_scores[lo:hi], m.correlator_idx[lo:hi]), td.n_users)
+            if dv > worst["max_abs_diff"]:
+                card_j = int(m.correlator_idx[lo + r, t])
+                cpu_j = int(cpu_i[r, t])
+                worst["worst"] = {
+                    "item": lo + int(r), "position": int(t),
+                    "card": [float(m.correlator_scores[lo + r, t]), card_j],
+                    "cpu": [float(cpu_v[r, t]), cpu_j],
+                    "f64_card_pair": _llr_f64(p_cpu, s_cpu, lo + int(r), card_j,
+                                              td.n_users) if card_j >= 0 else None,
+                    "f64_cpu_pair": _llr_f64(p_cpu, s_cpu, lo + int(r), cpu_j,
+                                             td.n_users) if cpu_j >= 0 else None,
+                }
+            worst["max_abs_diff"] = max(worst["max_abs_diff"], dv)
+            worst["index_mismatches"] += bad
+            worst["rows"] += hi - lo
+        check(worst["max_abs_diff"] <= atol and worst["index_mismatches"] == 0,
+              f"{ind.name}: card vs CPU beyond the LLR tolerance ({worst}, atol "
+              f"{atol:.4g})")
+        compare[ind.name] = worst
+    cpu_s = time.perf_counter() - t0
+    del p_cpu, s_cpu
+    ur["model"] = model
+    report["ur_train"] = {
+        "read_s": read_s, "train_s": train_s,
+        "indicator_build_s": timed.seconds["edges_to_indicator"],
+        "counts_s": timed.seconds["cooccurrence_counts"],
+        "llr_topn_s": timed.seconds["llr_topn"], "calls": timed.calls,
+        "peak_device_bytes": peak, "tables": tables, "cpu_check": compare,
+        "cpu_check_s": cpu_s, "llr_atol": atol,
+    }
+    t = report["ur_train"]
+    print(f"[ur train] URDataSource.read_training {read_s:.2f} s, "
+          f"URAlgorithm.train on cuda {train_s:.2f} s (indicator build "
+          f"{t['indicator_build_s']:.3f} s, counts {t['counts_s']:.3f} s in "
+          f"{timed.calls['cooccurrence_counts']} block products, LLR + top-n "
+          f"{t['llr_topn_s']:.3f} s), peak {peak / 2**30:.2f} GiB; tables "
+          f"{tables}; vs the CPU on {len(UR_CPU_BLOCKS)} blocks of "
+          f"{UR_CPU_BLOCK_ROWS} items each: {compare} (atol {atol:.4g}), "
+          f"{cpu_s:.1f} s", flush=True)
+
+
+def _ur_queries(rng, new_users):
+    qs = []
+    for _ in range(N_QUERIES):
+        r = rng.random()
+        if r < 0.1:
+            user = f"ghost{int(rng.integers(1000))}"  # unknown to the store
+        elif r < 0.2:
+            user = new_users[int(rng.integers(len(new_users)))]
+        else:
+            user = f"u{int(rng.integers(UR_USERS))}"
+        q = {"user": user, "num": int(rng.choice([5, 10, 20, 50])),
+             "exclude_seen": bool(rng.random() < 0.9)}
+        if rng.random() < 0.2:
+            q["blacklist"] = [f"i{int(x)}" for x in
+                              rng.zipf(UR_ZIPF, int(rng.integers(3, 11))) % UR_ITEMS]
+        qs.append(q)
+    return qs
+
+
+def phase_ur_serve(report, shared):
+    ur = shared["ur"]
+    storage, model = ur["storage"], ur["model"]
+    rng = np.random.default_rng(UR_SEED + 2)
+    # view-only users, added after the train
+    new_users = [f"new{n}" for n in range(UR_NEW_USERS)]
+    view_targets = list(model.indicator_models[1].target_vocab)
+    rows = [("view", u, view_targets[int(j)]) for u in new_users
+            for j in rng.integers(0, len(view_targets), 10)]
+    _ur_insert(storage, ur["app_id"], rows, ur["n_events"])
+    params = URAlgorithmParams(app_name=UR_APP)
+    algo = URAlgorithm(params)
+    algo.set_serving_context(RuntimeContext(storage=storage, mode="serve"))
+    server = QueryServer(algo, model, QueryServerConfig(ip="127.0.0.1", port=0))
+    t0 = time.perf_counter()
+    port = server.start()  # warms up: stages the tables, runs the ladder
+    warm_s = time.perf_counter() - t0
+    try:
+        queries = _ur_queries(rng, new_users)
+        before = _status(port)
+        out: dict = {}
+        lock = threading.Lock()
+        work = list(enumerate(queries))
+        threads = [threading.Thread(target=_client,
+                                    args=(port, work[c::N_CLIENTS], out, lock))
+                   for c in range(N_CLIENTS)]
+        als_before = rec.LAUNCHES
+        rec.MASKED_LAUNCHES = 0  # every count to 0 just before the main path
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = rec.MASKED_LAUNCHES
+        check(not any(t.is_alive() for t in threads), "clients hung")
+        after = _status(port)
+        batches = after["batches"] - before["batches"]
+        batch_s = after["batch_predict_seconds"] - before["batch_predict_seconds"]
+    finally:
+        server.stop()
+    check(server._thread is None, "server thread not joined")
+    check(len(out) == N_QUERIES, f"{len(out)} of {N_QUERIES} answered")
+    check(rec.LAUNCHES == als_before, "the ALS top-k kernel launched on the UR path")
+    # the plain versions on the CPU, from the same tables and store
+    t0 = time.perf_counter()
+    cpu_model = URModel(model.item_vocab, model.indicator_models,
+                        model.primary_indicator, device="cpu")
+    cpu_ctx = RuntimeContext(storage=storage, mode="serve", device="cpu")
+    expected = []
+    for lo in range(0, N_QUERIES, 64):
+        chunk = [URQuery(**q) for q in queries[lo:lo + 64]]
+        expected.extend(_to_jsonable(p) for p in algo._predict_batch(
+            cpu_ctx, cpu_model, chunk))
+    cpu_s = time.perf_counter() - t0
+    empty = 0
+    for n, q in enumerate(queries):
+        status, body, _ = out[n]
+        check(status == 200, f"query {n}: HTTP {status} {body}")
+        check(body == expected[n], f"query {n} ({q}) differs from the CPU plain version")
+        empty += not body["item_scores"]
+        if q["user"].startswith("ghost"):
+            check(not body["item_scores"], f"query {n}: an unknown user got items")
+    check(empty < N_QUERIES // 2, f"{empty} of {N_QUERIES} answers are empty")
+    check(launches > 0, "the UR path launched no masked top-k kernel")
+    check(launches == batches,
+          f"masked kernel launches {launches} != device batches {batches}")
+    lat = sorted(v[2] for v in out.values())
+    report["ur_serve"] = {
+        "warmup_s": warm_s, "wall_s": wall, "qps": N_QUERIES / wall,
+        "p50_ms": 1e3 * lat[len(lat) // 2],
+        "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "batches": batches, "launches": launches,
+        "mean_batch": N_QUERIES / batches,
+        "batch_predict_ms": 1e3 * batch_s / batches,
+        "empty_answers": empty, "cpu_check_s": cpu_s,
+    }
+    s = report["ur_serve"]
+    print(f"[ur serve] {N_QUERIES} UR queries from {N_CLIENTS} clients ("
+          f"{UR_NEW_USERS} view-only users added after the train, unknown users, "
+          f"blacklists), all equal to the CPU plain version: p50 "
+          f"{s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms, {s['qps']:.1f} qps, "
+          f"{batches} batches (mean {s['mean_batch']:.2f} queries, "
+          f"{s['batch_predict_ms']:.3f} ms of batch_predict each), masked kernel "
+          f"launches {launches}; {empty} empty answers; warmup {warm_s:.2f} s, "
+          f"CPU check {cpu_s:.1f} s", flush=True)
+
+
+def phase_ur_times(report, shared):
+    ur = shared.pop("ur")
+    model = ur["model"]
+    rng = np.random.default_rng(UR_SEED + 3)
+    n_items = len(model.item_vocab)
+    i_p = rec.pad_items(n_items)
+    tables = model.device_tables()
+    idx_t = tuple(t[0] for t in tables)
+    sc_t = tuple(t[1] for t in tables)
+    j_sizes = tuple(t[2] for t in tables)
+    rows = []
+    for b in (1, 64):
+        # histories of real users, read as the engine reads them
+        users = [f"u{int(u)}" for u in rng.integers(0, UR_USERS, b)]
+        algo = URAlgorithm(URAlgorithmParams(app_name=UR_APP))
+        ctx = RuntimeContext(storage=ur["storage"], mode="serve")
+        hists = []
+        for m in model.indicator_models:
+            h = np.full((b, UR_QUERY_EVENTS), -1, np.int32)
+            for qi, hist in enumerate(algo._user_histories(ctx, users, m.name,
+                                                           m.target_vocab)):
+                h[qi, : len(hist)] = hist[:UR_QUERY_EVENTS]
+            hists.append(torch.from_numpy(h).cuda())
+        hists = tuple(hists)
+        scores = cco.history_scores(idx_t, sc_t, hists, j_sizes, i_p)
+        mask = rng.random((b, n_items)) < 0.001
+        bits = torch.from_numpy(rec.pack_mask_np(mask, i_p)).cuda()
+        dense_mask = rec.unpack_mask(bits, i_p)
+        k = UR_TIMES_K
+        kernel = _time_ms(lambda: rec.fused_masked_topk(scores, bits, k=k,
+                                                        n_items=n_items), 50)
+        plain = _time_ms(lambda: rec.fused_masked_topk_plain(
+            scores, bits, None, k=k, n_items=n_items), 10)
+        library = _time_ms(lambda: torch.topk(
+            torch.where(dense_mask, rec.NEG_INF, scores), k, dim=1), 50)
+        scoring = _time_ms(lambda: cco.history_scores(idx_t, sc_t, hists, j_sizes,
+                                                      i_p), 10)
+        nbytes = b * i_p * 4 + b * (i_p // 32) * 4 + b * k * 8
+        bound = 1e3 * nbytes / HBM_BPS
+        rows.append({"B": b, "I_p": i_p, "k": k, "mask": "bits", "ms": kernel,
+                     "plain_ms": plain, "library_ms": library, "bound_ms": bound,
+                     "bound_by": "bytes", "history_scoring_ms": scoring})
+        print(f"[ur times] fused_masked_topk B={b} I_p={i_p} k={k} bit words: "
+              f"kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
+              f"torch.topk(where(mask)) {library:.4f} ms, bound {bound:.5f} ms "
+              f"(bytes); history scoring (gather + chain, outside the kernel) "
+              f"{scoring:.4f} ms", flush=True)
+    report["ur_times"] = rows
+    del model, tables
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if _IMPORT_ERROR is not None:
         print(f"chip_smoke: the port is not importable here ({_IMPORT_ERROR}); "
@@ -1421,7 +1920,10 @@ def main() -> int:
                         ("data25", phase_data25), ("windowed", phase_windowed),
                         ("windowed train", phase_windowed_train),
                         ("scatter", phase_scatter),
-                        ("windowed times", phase_windowed_times)):
+                        ("windowed times", phase_windowed_times),
+                        ("ur sweep", phase_ur_sweep), ("ur data", phase_ur_data),
+                        ("ur train", phase_ur_train), ("ur serve", phase_ur_serve),
+                        ("ur times", phase_ur_times)):
         try:
             phase(report, shared)
         except Exception:  # noqa: BLE001 — report the phase, then fail
@@ -1461,6 +1963,15 @@ def main() -> int:
         "library_ms": users_side["library_ms"],
         "combine_ms": users_side["combine_ms"],
         "combine_launches": report["windowed_train"]["launches"]["combine"],
+    })
+    ur_row = next(r for r in report["ur_times"] if r["B"] == 64)
+    kernels.append({
+        "name": "fused_masked_topk", "route": "cuda", "source": SOURCE,
+        "replaces": MASKED_REPLACES, "launches": report["ur_serve"]["launches"],
+        "max_abs_err": report["ur_sweep"]["max_abs_err"],
+        "ms": ur_row["ms"], "plain_ms": ur_row["plain_ms"],
+        "bound_ms": ur_row["bound_ms"], "bound_by": ur_row["bound_by"],
+        "library_ms": ur_row["library_ms"],
     })
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

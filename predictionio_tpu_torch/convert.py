@@ -1,10 +1,11 @@
-"""Carry trained ALS weights from the JAX package into the port.
+"""Carry trained models from the JAX package into the port.
 
 The JAX package persists a deployed model as a pickle of its own
 classes; unpickling that would import the JAX package. The carry-across
-format is therefore its npz factor blob (``ALSFactors.to_bytes``),
-which holds only arrays, id vocabularies and the parameters as JSON —
-or the arrays themselves.
+format is therefore arrays and id vocabularies: for ALS its npz factor
+blob (``ALSFactors.to_bytes``, the arrays, the ids and the parameters as
+JSON) or the arrays themselves; for the Universal Recommender the
+correlator tables of each indicator and the item vocabulary.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 
 from predictionio_tpu_torch.data.store.bimap import BiMap
+from predictionio_tpu_torch.engines.universal.engine import IndicatorModel, URModel
 from predictionio_tpu_torch.models.als import ALSFactors, ALSParams
 
 
@@ -48,3 +50,33 @@ def als_factors_from_numpy(
 def load_jax_als_blob(data: bytes) -> ALSFactors:
     """Read the bytes of the JAX package's ``ALSFactors.to_bytes()``."""
     return ALSFactors.from_bytes(data)
+
+
+def ur_model_from_numpy(item_vocab, primary: str, indicators, device=None) -> URModel:
+    """A JAX ``URModel``'s arrays → the port's ``URModel`` on `device`
+    (the first CUDA device by default). `item_vocab` maps item id →
+    row (``item_vocab.to_dict()``); `indicators` holds one `(name,
+    correlator_scores (I, T) f32, correlator_idx (I, T) int32,
+    target_vocab dict)` per indicator model, in the model's order."""
+    items = BiMap(dict(item_vocab))
+    models = []
+    for name, scores, idx, target_vocab in indicators:
+        scores = np.ascontiguousarray(scores, np.float32)
+        idx = np.ascontiguousarray(idx, np.int32)
+        if scores.shape != idx.shape or scores.ndim != 2:
+            raise ValueError(
+                f"indicator {name!r}: need (I, T) scores and indices, got "
+                f"{scores.shape} and {idx.shape}"
+            )
+        if scores.shape[0] != len(items):
+            raise ValueError(
+                f"indicator {name!r}: {scores.shape[0]} rows for "
+                f"{len(items)} items"
+            )
+        vocab = BiMap(dict(target_vocab))
+        if idx.size and int(idx.max()) >= len(vocab):
+            raise ValueError(f"indicator {name!r}: index past its target vocabulary")
+        models.append(IndicatorModel(name, scores, idx, vocab))
+    if not models:
+        raise ValueError("a model needs at least one indicator")
+    return URModel(items, models, primary, device=device)

@@ -1,0 +1,54 @@
+"""App-name-based event store facade for engine code.
+
+Counterpart of the JAX package's ``data/store/event_store.py``
+(reference PEventStore.scala:32, LEventStore.scala:30): ``find_frame``
+for training reads and ``find_by_entities`` for serving-time history
+reads, over a `Storage`. Channels are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from predictionio_tpu_torch.data.storage.base import EventQuery, StorageError
+from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.data.store.columnar import EventFrame
+
+
+class EventStoreFacade:
+    def __init__(self, storage: Storage):
+        self.storage = storage
+
+    def app_name_to_id(self, app_name: str) -> int:
+        app = self.storage.get_meta_data_apps().get_by_name(app_name)
+        if app is None:
+            raise StorageError(f"Invalid app name {app_name!r}")
+        return app.id
+
+    def find_frame(
+        self,
+        app_name: str,
+        event_names: Optional[Sequence[str]] = None,
+        entity_type: Optional[str] = None,
+    ) -> EventFrame:
+        """The app's events as columns, in (event_time, event_id) order."""
+        query = EventQuery(
+            app_id=self.app_name_to_id(app_name), entity_type=entity_type,
+            event_names=event_names,
+        )
+        return EventFrame.from_events(self.storage.get_events().find(query))
+
+    def find_by_entities(
+        self,
+        app_name: str,
+        entity_type: str,
+        entity_ids,
+        event_names: Optional[Sequence[str]] = None,
+        limit_per_entity: Optional[int] = None,
+    ) -> dict:
+        """{entity_id: [events]}, newest first, in one store call — the
+        serving micro-batch's history read."""
+        return self.storage.get_events().find_entities_batch(
+            self.app_name_to_id(app_name), entity_type, entity_ids,
+            event_names=event_names, limit_per_entity=limit_per_entity,
+        )

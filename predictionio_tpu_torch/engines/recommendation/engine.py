@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from predictionio_tpu_torch.core.base import RuntimeContext
 from predictionio_tpu_torch.data.store.bimap import BiMap
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models import als
@@ -26,16 +27,7 @@ from predictionio_tpu_torch.ops.topk import NEG_INF
 from predictionio_tpu_torch.utils.bucket import batch_bucket, topk_bucket
 
 
-# -- context and training data -----------------------------------------------
-
-
-@dataclass
-class RuntimeContext:
-    """What a DASE stage gets from its caller. The port's counterpart of
-    the JAX package's ``core.base.RuntimeContext`` carries only the
-    device to train and serve on: None means the first CUDA device."""
-
-    device: Optional[str] = None
+# -- training data ------------------------------------------------------------
 
 
 @dataclass

@@ -1,16 +1,21 @@
 // Fused score + exclusion + top-k over a padded item-factor slab, for
 // Hopper (sm_90a). Never writes the (B, I_p) score matrix to memory.
 //
-// Replaces the TPU kernel predictionio_tpu/ops/recommend_pallas.py:
-// fused_recommend_topk (assembly _fused_call, body _make_kernel). The TPU
-// kernel walks item tiles in order and merges each into one running list
-// in VMEM; blocks here run in parallel with no carry, so the work splits
-// into passes, all launched on the caller's stream:
+// Replaces two TPU kernels of predictionio_tpu/ops/recommend_pallas.py,
+// which share one assembly (_fused_call) and one body (_make_kernel):
+// fused_recommend_topk (entry recommend_topk below) and fused_masked_topk
+// (entry masked_topk below), the same exclusion and top-k over a
+// PRECOMPUTED (B, I_p) score matrix, the tail of the Universal
+// Recommender's batched history scoring. The TPU kernel walks item tiles
+// in order and merges each into one running list in VMEM; blocks here run
+// in parallel with no carry, so the work splits into passes, all launched
+// on the caller's stream:
 //
 //   pass 1  one block per (chunk of CHUNK item columns, query row): score
-//           every column of the chunk in registers, apply the masks, sort
-//           the chunk's (score, column) keys in shared memory (bitonic),
-//           write the top min(k, CHUNK) keys.
+//           every column of the chunk in registers (recommend_topk) or
+//           read its precomputed score (masked_topk), apply the masks,
+//           sort the chunk's (score, column) keys in shared memory
+//           (bitonic), write the top min(k, CHUNK) keys.
 //   merge   a tree of launches; each block merges two neighbouring sorted
 //           lists of one row into the top min(k, a + b) by rank (every
 //           key's output slot = its index in its own list + the count of
@@ -40,6 +45,12 @@
 // selection-bound (a full bitonic sort of every chunk per row, and
 // log2(chunks) merge launches). No wgmma or TMA: at K = 10 tensor cores
 // do not pay. Making it fast is later work.
+//
+// masked_topk at the UR catalog (I_p = 100,096, k = 64, bit words) is
+// bytes-bound: the scores, the words and the outputs once, 25.7 MB at
+// B = 64, ~7.7 us at 3.35 TB/s. The same chunk sort and merge tree make
+// it selection- and launch-bound as well: 98 chunks per row, 7 merge
+// levels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,6 +79,47 @@ __device__ __forceinline__ float key_value(uint64_t key) {
 
 __device__ __forceinline__ int key_column(uint64_t key) {
   return static_cast<int>(0xffffffffu - static_cast<uint32_t>(key));
+}
+
+// the key of one column after exclusion (bit words, else the row list)
+// and the dead-pad sentinel
+__device__ __forceinline__ uint64_t column_key(
+    float s, int b, int col, int I_p, int n_items,
+    const int32_t* __restrict__ mask_bits, const int* ex, int n_excl) {
+  bool masked = false;
+  if (mask_bits != nullptr) {
+    const uint32_t w = static_cast<uint32_t>(
+        mask_bits[static_cast<size_t>(b) * (I_p / 32) + (col >> 5)]);
+    masked = (w >> (col & 31)) & 1u;
+  } else {
+    for (int e = 0; e < n_excl; ++e) masked |= (ex[e] == col);
+  }
+  if (masked) s = NEG_INF_F;
+  if (col >= n_items) s = SENTINEL_F;
+  return make_key(s, static_cast<uint32_t>(col));
+}
+
+// bitonic sort of a chunk's keys in shared memory, descending, then the
+// top kc to dst; every thread of the block calls it
+__device__ __forceinline__ void sort_chunk_and_write(uint64_t* keys,
+                                                     uint64_t* dst, int kc) {
+  for (int size = 2; size <= CHUNK; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < CHUNK / 2; t += blockDim.x) {
+        const int i = 2 * t - (t & (stride - 1));
+        const int j = i + stride;
+        const uint64_t a = keys[i];
+        const uint64_t c = keys[j];
+        const bool desc = (i & size) == 0;
+        if (desc ? (a < c) : (a > c)) {
+          keys[i] = c;
+          keys[j] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int t = threadIdx.x; t < kc; t += blockDim.x) dst[t] = keys[t];
 }
 
 // DT: 0 f32, 1 bf16, 2 int8 (q and itf share it)
@@ -125,40 +177,43 @@ __global__ void __launch_bounds__(THREADS) score_chunk_kernel(
       for (int j = 1; j < K; ++j) s = __fadd_rn(s, __fmul_rn(qf[j], x[j]));
     }
     if (q_scale != nullptr) s = __fmul_rn(__fmul_rn(s, qs), item_scale[col]);
-    bool masked = false;
-    if (mask_bits != nullptr) {
-      const uint32_t w = static_cast<uint32_t>(
-          mask_bits[static_cast<size_t>(b) * (I_p / 32) + (col >> 5)]);
-      masked = (w >> (col & 31)) & 1u;
-    } else {
-      for (int e = 0; e < n_excl; ++e) masked |= (ex[e] == col);
-    }
-    if (masked) s = NEG_INF_F;
-    if (col >= n_items) s = SENTINEL_F;
-    keys[t] = make_key(s, static_cast<uint32_t>(col));
+    keys[t] = column_key(s, b, col, I_p, n_items, mask_bits, ex, n_excl);
   }
   __syncthreads();
+  sort_chunk_and_write(
+      keys, out + (static_cast<size_t>(b) * gridDim.x + chunk) * kc, kc);
+}
 
-  // bitonic sort, descending
-  for (int size = 2; size <= CHUNK; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < CHUNK / 2; t += blockDim.x) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const uint64_t a = keys[i];
-        const uint64_t c = keys[j];
-        const bool desc = (i & size) == 0;
-        if (desc ? (a < c) : (a > c)) {
-          keys[i] = c;
-          keys[j] = a;
-        }
-      }
-      __syncthreads();
+// pass 1 over a precomputed (B, I_p) f32 score matrix: the same masks,
+// keys and chunk sort as score_chunk_kernel, with the score read in
+// place of the dot product
+__global__ void __launch_bounds__(THREADS) masked_chunk_kernel(
+    const float* __restrict__ scores, const int32_t* __restrict__ mask_bits,
+    const int32_t* __restrict__ excl, int n_excl, int I_p, int n_items,
+    int kc, uint64_t* __restrict__ out) {
+  extern __shared__ uint64_t smem[];
+  uint64_t* keys = smem;                              // CHUNK
+  int* ex = reinterpret_cast<int*>(keys + CHUNK);     // n_excl
+
+  const int chunk = blockIdx.x;
+  const int b = blockIdx.y;
+  for (int e = threadIdx.x; e < n_excl; e += blockDim.x)
+    ex[e] = excl[static_cast<size_t>(b) * n_excl + e];
+  __syncthreads();
+
+  const float* row = scores + static_cast<size_t>(b) * I_p;
+  for (int t = threadIdx.x; t < CHUNK; t += blockDim.x) {
+    const int col = chunk * CHUNK + t;
+    if (col >= I_p) {  // past the matrix: below every real column
+      keys[t] = 0xffffffffu - static_cast<uint32_t>(col);
+      continue;
     }
+    keys[t] = column_key(row[col], b, col, I_p, n_items, mask_bits, ex,
+                         n_excl);
   }
-
-  uint64_t* dst = out + (static_cast<size_t>(b) * gridDim.x + chunk) * kc;
-  for (int t = threadIdx.x; t < kc; t += blockDim.x) dst[t] = keys[t];
+  __syncthreads();
+  sort_chunk_and_write(
+      keys, out + (static_cast<size_t>(b) * gridDim.x + chunk) * kc, kc);
 }
 
 // keys in a (descending, unique) list of n above `key`
@@ -215,6 +270,32 @@ __global__ void __launch_bounds__(THREADS) emit_kernel(
   }
 }
 
+// The merge tree over pass 1's n0 lists per row (in a), then the emit;
+// returns the CUDA error code, 0 on success.
+int merge_and_emit(uint64_t* a, uint64_t* bb, int n0, int kc, int B, int k,
+                   cudaStream_t st, float* vals, int32_t* idx) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int n = n0, level = 0, stride = kc;
+  while (n > 1) {
+    const int n_out = (n + 1) / 2;
+    const long long cap = static_cast<long long>(CHUNK) << (level + 1);
+    const int stride_out = static_cast<int>(cap < k ? cap : k);
+    merge_kernel<<<dim3(n_out, B), THREADS, 0, st>>>(
+        a, bb, level, n, stride, stride_out, n0, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    uint64_t* t = a;
+    a = bb;
+    bb = t;
+    n = n_out;
+    stride = stride_out;
+    ++level;
+  }
+  emit_kernel<<<B, THREADS, 0, st>>>(a, stride, k, vals, idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches pass 1, the merge tree and the emit on `stream`; allocates
@@ -240,7 +321,6 @@ extern "C" int recommend_topk(
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n0, B);
   auto* a = static_cast<uint64_t*>(scratch_a);
-  auto* bb = static_cast<uint64_t*>(scratch_b);
   const auto* qs = static_cast<const float*>(q_scale);
   const auto* isc = static_cast<const float*>(item_scale);
   const auto* bits = static_cast<const int32_t*>(mask_bits);
@@ -259,26 +339,34 @@ extern "C" int recommend_topk(
           q, itf, qs, isc, bits, ex, n_excl, K, I_p, n_items, kc, a);
       break;
   }
-  err = cudaGetLastError();
+  return merge_and_emit(a, static_cast<uint64_t*>(scratch_b), n0, kc, B, k,
+                        st, static_cast<float*>(vals),
+                        static_cast<int32_t*>(idx));
+}
+
+// The same selection over a precomputed (B, I_p) f32 score matrix
+// (fused_masked_topk): pass 1 reads each score instead of computing it;
+// the merge tree, the emit and the scratch sizes are recommend_topk's.
+extern "C" int masked_topk(
+    const void* scores, const void* mask_bits, const void* excl, int n_excl,
+    int B, int I_p, int n_items, int k, int chunk, void* scratch_a,
+    void* scratch_b, void* vals, void* idx, int device, void* stream) {
+  if (chunk != CHUNK || B <= 0 || B > 65535 || I_p <= 0 || I_p % 32 != 0 ||
+      k <= 0 || k > I_p || n_excl < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int n = n0, level = 0, stride = kc;
-  while (n > 1) {
-    const int n_out = (n + 1) / 2;
-    const long long cap = static_cast<long long>(CHUNK) << (level + 1);
-    const int stride_out = static_cast<int>(cap < k ? cap : k);
-    merge_kernel<<<dim3(n_out, B), THREADS, 0, st>>>(
-        a, bb, level, n, stride, stride_out, n0, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    uint64_t* t = a;
-    a = bb;
-    bb = t;
-    n = n_out;
-    stride = stride_out;
-    ++level;
-  }
-  emit_kernel<<<B, THREADS, 0, st>>>(a, stride, k,
-                                     static_cast<float*>(vals),
-                                     static_cast<int32_t*>(idx));
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n0 = (I_p + CHUNK - 1) / CHUNK;
+  const int kc = k < CHUNK ? k : CHUNK;
+  const size_t smem = CHUNK * sizeof(uint64_t) + n_excl * sizeof(int);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  auto* a = static_cast<uint64_t*>(scratch_a);
+  masked_chunk_kernel<<<dim3(n0, B), THREADS, smem, st>>>(
+      static_cast<const float*>(scores),
+      static_cast<const int32_t*>(mask_bits),
+      static_cast<const int32_t*>(excl), n_excl, I_p, n_items, kc, a);
+  return merge_and_emit(a, static_cast<uint64_t*>(scratch_b), n0, kc, B, k,
+                        st, static_cast<float*>(vals),
+                        static_cast<int32_t*>(idx));
 }

@@ -2,15 +2,18 @@
 select without writing the (B, I_p) score matrix to device memory.
 
 Counterpart of the JAX package's ``ops/recommend_pallas.py``. Every
-serving verb routes through ``fused_recommend_topk``: dot-product
+ALS serving verb routes through ``fused_recommend_topk``: dot-product
 recommend and cosine similar (inverse norms ride the scale inputs), in
 f32, bf16 (f32 products and sum) or int8 (int32 sum, scale-product
 dequantization), with exclusion as bit-packed words or a short row list.
+``fused_masked_topk`` is the same exclusion and selection over a
+precomputed (B, I_p) score matrix: the tail of the Universal
+Recommender's batched history scoring (``models/cco.py``).
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/recommend_topk.cu``; on a CPU tensor it runs
-``fused_recommend_topk_plain``, the plain PyTorch version of the same
-function. There is no fallback from one to the other.
+On a CUDA tensor each wrapper launches its hand-written kernel in
+``csrc/recommend_topk.cu``; on a CPU tensor it runs its ``*_plain``
+version, the plain PyTorch version of the same function. There is no
+fallback from one to the other.
 
 Both compute each score as ONE fixed-order chain over K — multiply,
 then add, each rounded on its own — so the kernel and the plain
@@ -50,6 +53,8 @@ _CHUNK = 1024
 
 #: kernel launches through ``fused_recommend_topk`` in this process
 LAUNCHES = 0
+#: kernel launches through ``fused_masked_topk`` in this process
+MASKED_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -185,7 +190,19 @@ def fused_recommend_topk_plain(
     stable descending top-k. Returns (values (B, k) f32, indices (B, k)
     int32)."""
     s = plain_scores(q, itf, q_scale, item_scale)
-    i_p = int(itf.shape[0])
+    return fused_masked_topk_plain(
+        s, mask_bits, exclude_rows, k=k, n_items=n_items
+    )
+
+
+def fused_masked_topk_plain(
+    scores, mask_bits, exclude_rows, *, k, n_items
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the precomputed-score selector: masked
+    columns to NEG_INF, dead pad columns to _SENTINEL, then a stable
+    descending top-k. Returns (values (B, k) f32, indices (B, k) int32)."""
+    s = scores
+    i_p = int(s.shape[1])
     if mask_bits is not None:
         s = torch.where(unpack_mask(mask_bits, i_p), NEG_INF, s)
     elif exclude_rows is not None and exclude_rows.shape[1]:
@@ -272,6 +289,19 @@ def fused_recommend_topk(
     if scaled:
         _check(q_scale, "q_scale", (b, 1), torch.float32, dev)
         _check(item_scale, "item_scale", (1, i_p), torch.float32, dev)
+    bits, rows = _checked_masks(mask_bits, exclude_rows, b, i_p, dev)
+    if dev.type == "cpu":
+        return fused_recommend_topk_plain(
+            q, itf, q_scale, item_scale, bits, rows, k=k, n_items=n_items
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _launch(q, itf, q_scale, item_scale, bits, rows, k, n_items)
+
+
+def _checked_masks(mask_bits, exclude_rows, b, i_p, dev):
+    """(bits, rows) with at most one set, each checked against the batch
+    and the padded width."""
     kind = _mask_kind(mask_bits, exclude_rows)
     if kind == "bits":
         _check(mask_bits, "mask_bits", (b, i_p // 32), torch.int32, dev)
@@ -280,15 +310,50 @@ def fused_recommend_topk(
             exclude_rows, "exclude_rows", (b, exclude_rows.shape[1]),
             torch.int32, dev,
         )
-    bits = mask_bits if kind == "bits" else None
-    rows = exclude_rows if kind == "rows" else None
+    return (mask_bits if kind == "bits" else None,
+            exclude_rows if kind == "rows" else None)
+
+
+def fused_masked_topk(
+    scores: torch.Tensor,  # (B, I_p) f32 precomputed scores, I_p % ITEM_PAD == 0
+    mask_bits=None,  # (B, I_p/32) int32 packed exclusion words
+    exclude_rows=None,  # (B, E) int32 exclusion row list, -1 padded
+    *,
+    k: int,
+    n_items,  # live item count: columns at or above it are dead pad
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused exclusion + top-k over a precomputed score matrix (the
+    Universal Recommender's ``batch_score_topk`` tail): the scores are
+    read once and masked in registers, with no masked copy and no
+    (B, I_p) mask.
+
+    Returns (values (B, k) f32, indices (B, k) int32), ordered by score
+    descending, ties to the lowest index. Needs 0 < k <= I_p. CPU
+    tensors run the plain version; CUDA tensors launch the kernel."""
+    if scores.dim() != 2:
+        raise ValueError(f"need scores (B, I_p), got {tuple(scores.shape)}")
+    b, i_p = (int(n) for n in scores.shape)
+    dev = scores.device
+    _check(scores, "scores", (b, i_p), torch.float32, dev)
+    if b == 0:
+        raise ValueError("empty score block")
+    if i_p % ITEM_PAD:
+        raise ValueError(
+            f"padded item count {i_p} is not a multiple of {ITEM_PAD} — "
+            f"pad the scores to recommend.pad_items"
+        )
+    k = int(k)
+    if not 0 < k <= i_p:
+        raise ValueError(f"need 0 < k ({k}) <= padded {i_p}")
+    n_items = int(n_items)
+    bits, rows = _checked_masks(mask_bits, exclude_rows, b, i_p, dev)
     if dev.type == "cpu":
-        return fused_recommend_topk_plain(
-            q, itf, q_scale, item_scale, bits, rows, k=k, n_items=n_items
+        return fused_masked_topk_plain(
+            scores, bits, rows, k=k, n_items=n_items
         )
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _launch(q, itf, q_scale, item_scale, bits, rows, k, n_items)
+    return _launch_masked(scores, bits, rows, k, n_items)
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +374,8 @@ def _kernel_lib():
             i, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, i, p,
         ]
         lib.recommend_topk.restype = i
+        lib.masked_topk.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, i, p]
+        lib.masked_topk.restype = i
         _lib = lib
     return _lib
 
@@ -335,31 +402,59 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _scratch_and_outputs(b, i_p, k, device):
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
+    per_row = max(n * stride for n, stride in merge_levels(i_p, k))
+    scratch = torch.empty((2, b, per_row), dtype=torch.int64, device=device)
+    vals = torch.empty((b, k), dtype=torch.float32, device=device)
+    idx = torch.empty((b, k), dtype=torch.int32, device=device)
+    return scratch, vals, idx
+
+
+def _device_index(device):
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 def _launch(q, itf, q_scale, item_scale, bits, rows, k, n_items):
     global LAUNCHES
     for t in (q, itf, q_scale, item_scale, bits, rows):
         _contig(t)
     b, kdim = q.shape
     i_p = int(itf.shape[0])
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
     lib = _kernel_lib()
-    per_row = max(n * stride for n, stride in merge_levels(i_p, k))
-    scratch = torch.empty((2, b, per_row), dtype=torch.int64, device=q.device)
-    vals = torch.empty((b, k), dtype=torch.float32, device=q.device)
-    idx = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    scratch, vals, idx = _scratch_and_outputs(b, i_p, k, q.device)
     n_excl = 0 if rows is None else int(rows.shape[1])
     err = lib.recommend_topk(
         _DTYPE_CODE[itf.dtype], _ptr(q), _ptr(itf), _ptr(q_scale),
         _ptr(item_scale), _ptr(bits), _ptr(rows), n_excl,
         b, kdim, i_p, n_items, k, _CHUNK,
         _ptr(scratch[0]), _ptr(scratch[1]), _ptr(vals), _ptr(idx),
-        q.device.index if q.device.index is not None else
-        torch.cuda.current_device(),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _device_index(q.device), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"recommend_topk kernel launch failed: CUDA error {err}")
     with _launch_lock:
         LAUNCHES += 1
+    return vals, idx
+
+
+def _launch_masked(scores, bits, rows, k, n_items):
+    global MASKED_LAUNCHES
+    for t in (scores, bits, rows):
+        _contig(t)
+    b, i_p = (int(n) for n in scores.shape)
+    lib = _kernel_lib()
+    scratch, vals, idx = _scratch_and_outputs(b, i_p, k, scores.device)
+    n_excl = 0 if rows is None else int(rows.shape[1])
+    err = lib.masked_topk(
+        _ptr(scores), _ptr(bits), _ptr(rows), n_excl, b, i_p, n_items, k,
+        _CHUNK, _ptr(scratch[0]), _ptr(scratch[1]), _ptr(vals), _ptr(idx),
+        _device_index(scores.device),
+        torch.cuda.current_stream(scores.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"masked_topk kernel launch failed: CUDA error {err}")
+    with _launch_lock:
+        MASKED_LAUNCHES += 1
     return vals, idx

@@ -27,3 +27,22 @@ def masked_top_k(
         scores = torch.where(exclude_mask, NEG_INF, scores)
     vals, idx = torch.sort(scores + 0.0, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def top_k_ordered(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`masked_top_k`'s result and order, (value descending, index
+    ascending), without sorting whole rows: each f32 score becomes a
+    unique int64 key, its order-preserving bits above (2^32 - 1 - index),
+    and `torch.topk` selects k keys. Keys are unique, so any exact
+    selection gives the same answer on every device. For rows far wider
+    than k, where a stable sort of every row would cost 8-byte indices
+    per element. Returns (values (..., k) f32, indices (..., k) int64)."""
+    x = scores + 0.0  # -0.0 -> +0.0, as masked_top_k
+    bits = x.view(torch.int32)
+    # negative floats order backwards by their bits: flip their magnitude
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    col = torch.arange(x.shape[-1], dtype=torch.int64, device=x.device)
+    keys = ordered * (1 << 32) + ((1 << 32) - 1 - col)
+    top = torch.topk(keys, k, dim=-1).values
+    idx = ((1 << 32) - 1) - (top & 0xFFFFFFFF)
+    return torch.gather(x, -1, idx), idx

@@ -1,6 +1,8 @@
 """Deploy query server: ``POST /queries.json`` answered by one engine's
 algorithm and model, with concurrent queries coalesced into one
-``batch_predict`` per drain.
+``batch_predict`` per drain. The query class is the one the algorithm's
+``predict`` takes, so the same server serves the ALS and the Universal
+Recommender templates.
 
 Counterpart of the JAX package's ``workflow/server.py``, cut to the main
 route: no continuous batching, tenancy, rollout, online learning,
@@ -20,7 +22,6 @@ from concurrent.futures import Future
 from dataclasses import dataclass
 from typing import Any, Optional
 
-from predictionio_tpu_torch.engines.recommendation.engine import Query
 from predictionio_tpu_torch.ops import recommend as _recommend
 from predictionio_tpu_torch.utils.http import (
     HttpError,
@@ -78,6 +79,18 @@ def _matches(val: Any, ann: Any) -> bool:
     if ann is Any:
         return True
     return isinstance(val, ann)
+
+
+def query_class(algorithm: Any) -> type:
+    """The query dataclass an algorithm serves: the `query` annotation
+    of its `predict` (the JAX package's ``BaseAlgorithm.query_class``)."""
+    ann = typing.get_type_hints(algorithm.predict).get("query")
+    if not (isinstance(ann, type) and dataclasses.is_dataclass(ann)):
+        raise TypeError(
+            f"{type(algorithm).__name__}.predict must annotate `query` "
+            f"with a dataclass, got {ann!r}"
+        )
+    return ann
 
 
 def extract_query(cls: type, obj: Any) -> Any:
@@ -227,7 +240,7 @@ class _Handler(JsonHandler):
                 obj = json.loads(raw.decode() or "null")
             except (UnicodeDecodeError, json.JSONDecodeError) as e:
                 raise HttpError(400, f"invalid query JSON: {e}")
-            query = extract_query(Query, obj)
+            query = extract_query(owner.query_class, obj)
             try:
                 prediction = owner.predict(query)
             except ValueError as e:
@@ -262,6 +275,7 @@ class QueryServer(ServerProcess):
         super().__init__()
         self.algorithm = algorithm
         self.model = model
+        self.query_class = query_class(algorithm)
         self.config = config or QueryServerConfig()
         self._count_lock = threading.Lock()
         self._requests = 0  # guarded-by: _count_lock
@@ -318,6 +332,8 @@ class QueryServer(ServerProcess):
             "requests": requests,
             "batches": batches,
             "batch_predict_seconds": batch_s,
-            "kernel_launches": _recommend.LAUNCHES,
+            "kernel_launches": (
+                _recommend.LAUNCHES + _recommend.MASKED_LAUNCHES
+            ),
             "device": str(getattr(self.model, "device", None)),
         }

@@ -5,9 +5,9 @@ only the port is installed:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
-The top-k kernel and its plain version do the same rounded operations,
-so indices AND values must be equal, for every k up to the padded
-width. The ALS edge-pass kernels differ from their plain versions only
+The top-k kernels (scored and precomputed-score) and their plain
+versions do the same rounded operations, or only select, so indices AND
+values must be equal, for every k up to the padded width. The ALS edge-pass kernels differ from their plain versions only
 in the order of f32 sums, so they are held to 1e-5 times the sum of
 the absolute terms, and to equal bits on a second launch.
 """
@@ -323,3 +323,96 @@ def test_windowed_kernels_reject_noncontiguous(card):
     with pytest.raises(ValueError, match="contiguous"):
         wf.combine_windows(pb, pg, torch.zeros(2, dtype=torch.int32,
                                                device=card), 1)
+
+
+# ---------------------------------------------------------------------------
+# the precomputed-score selector (csrc/recommend_topk.cu, masked_topk)
+# ---------------------------------------------------------------------------
+
+
+def _masked_case(rng, b, n_items, mask_kind, dev, width=64):
+    """Quarter-step scores (exact ties within and across chunks), dead
+    pads, an all-zero row, and exclusions."""
+    i_p = rec.pad_items(n_items)
+    scores = (rng.integers(-8, 9, (b, i_p)) / 4.0).astype(np.float32)
+    scores[:, n_items:] = rng.standard_normal((b, i_p - n_items))
+    scores[-1, :n_items] = 0.0  # no history: every live item scores 0
+    bits = rows = None
+    if mask_kind == "bits":
+        mask = rng.random((b, n_items)) < 0.5
+        mask[0] = True  # a fully masked row
+        bits = torch.from_numpy(rec.pack_mask_np(mask, i_p)).to(dev)
+    elif mask_kind == "rows":
+        r = np.full((b, width), -1, np.int32)
+        r[:, : width - 3] = rng.integers(0, n_items, (b, width - 3))
+        r[0, -1] = i_p + 3  # out of range: inert
+        rows = torch.from_numpy(r).to(dev)
+    return torch.from_numpy(scores).to(dev), bits, rows
+
+
+@pytest.mark.parametrize("mask_kind,width", [(None, 0), ("bits", 0),
+                                             ("rows", 8), ("rows", 64)])
+def test_masked_kernel_equals_plain(card, mask_kind, width):
+    rng = np.random.default_rng(3)
+    for b, n_items in ((1, 100), (3, 1100), (64, 5000), (130, 3000),
+                       (8, 100_000)):
+        scores, bits, rows = _masked_case(rng, b, n_items, mask_kind, card,
+                                          width or 64)
+        i_p = scores.shape[1]
+        for k in sorted({1, 7, 64, min(1024, i_p), min(1500, i_p), n_items, i_p}):
+            before = rec.MASKED_LAUNCHES
+            kv, ki = rec.fused_masked_topk(scores, bits, rows, k=k, n_items=n_items)
+            pv, pi = rec.fused_masked_topk_plain(scores, bits, rows, k=k,
+                                                 n_items=n_items)
+            torch.cuda.synchronize()
+            assert rec.MASKED_LAUNCHES == before + 1
+            assert torch.equal(ki, pi), (b, n_items, k)
+            assert torch.equal(kv, pv), (b, n_items, k)
+            if mask_kind == "bits":
+                n = min(k, n_items)
+                assert bool((kv[0, :n] == rec.NEG_INF).all())
+
+
+def test_masked_kernel_ties_across_chunks(card):
+    """Equal maxima in every 1,024-column chunk, -0.0 beside +0.0: the
+    lowest index wins, the two zeros are one value."""
+    scores = torch.zeros((4, 8192), device=card)
+    scores[:, ::1024] = 5.0
+    scores[:, 1::1024] = 5.0
+    scores[1, :100] = -0.0
+    for k in (3, 16, 17, 2000):
+        kv, ki = rec.fused_masked_topk(scores, k=k, n_items=8000)
+        pv, pi = rec.fused_masked_topk_plain(scores, None, None, k=k, n_items=8000)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    want = torch.tensor([0, 1, 1024, 1025, 2048], dtype=torch.int32, device=card)
+    assert torch.equal(ki[0, :5], want)
+
+
+def test_masked_kernel_rejects_noncontiguous(card):
+    scores = torch.zeros((8, 512), device=card)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        rec.fused_masked_topk(scores, k=3, n_items=200)
+
+
+def test_batch_score_topk_card_equals_cpu(card):
+    """The UR batch on the card (history chain + kernel) gives the same
+    bits as on the CPU (the same chain + the plain version)."""
+    from predictionio_tpu_torch.models import cco
+
+    rng = np.random.default_rng(4)
+    tables = []
+    for j in (3000, 700):
+        idx = rng.integers(-1, j, (20_000, 50)).astype(np.int32)
+        sc = rng.gamma(2.0, 5.0, (20_000, 50)).astype(np.float32)
+        tables.append((idx, sc, j))
+    hists = [rng.integers(-1, j, (64, 100)).astype(np.int32) for _, _, j in tables]
+    for width in (8, 256):
+        ex = np.full((64, width), -1, np.int32)
+        ex[:, : width // 2] = rng.integers(0, 20_000, (64, width // 2))
+        on_card = [(torch.from_numpy(i).to(card), torch.from_numpy(s).to(card), j)
+                   for i, s, j in tables]
+        before = rec.MASKED_LAUNCHES
+        got = cco.batch_score_topk(on_card, hists, ex, 64)
+        assert rec.MASKED_LAUNCHES == before + 1
+        want = cco.batch_score_topk(tables, hists, ex, 64, device="cpu")
+        assert np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0])
