@@ -29,9 +29,9 @@ Phases, in order; any failure prints what failed and exits non-zero:
             versions on the card: implicit and explicit, signed ratings,
             scale in {1, 2, 10}, K in {1, 8, 10, 32} at 2048 x 256, and
             the full ML-20M slab (139,264 x 26,880 int8, K = 10,
-            implicit). Per element |kernel - plain| <= 1e-5 * S, S the
-            same pass over the absolute terms; a second launch must give
-            the same bits.
+            implicit; the row pass also at K = 32). Per element
+            |kernel - plain| <= 1e-5 * S, S the same pass over the
+            absolute terms; a second launch must give the same bits.
 6. train    the main path: ``ALSAlgorithm.train`` on the phase-4 data at
             the template defaults with 5 iterations. Both pass kernels
             must launch once per iteration, every factor must be finite,
@@ -51,7 +51,8 @@ Phases, in order; any failure prints what failed and exits non-zero:
             port never calls, bound); the dense passes at the ML-20M slab,
             K = 10 (kernel, plain, the port's two-matmul ``ops.dense``
             pass on the same R in bf16 storage as the yardstick, bound),
-            and the kernel again on a uniform R with as many ratings.
+            and the kernel again on a uniform R with as many ratings and
+            on an all-zero R; the row pass the same way at K = 32.
 10. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
             users x 59,047 items, 25,000,095 unique pairs (users 20 to
             32,202 ratings, items up to 81,491); the dense gate must refuse
@@ -80,11 +81,14 @@ Phases, in order; any failure prints what failed and exits non-zero:
             product + ``index_add_`` yardstick the port never calls, the
             bound; the combine kernel, its plain version, its bound.
 15. ur sweep  the precomputed-score selector (``fused_masked_topk``)
-            against its plain version on the card: I_p in {1,024, 100,096}
-            with dead pads, B in {1, 8, 64}, k in {1, 64, 1,024, 1,500,
-            n_items}, no mask / bit words / row lists of 8 and 64, a fully
-            masked row, an all-zero row, equal maxima on both sides of
-            every chunk boundary. Indices and values must be equal.
+            against its plain version on the card: I_p in {1,024 (below
+            one 4,096-column select segment), 12,416 (a short last
+            segment), 100,096} with dead pads, B in {1, 8, 64}, k in {1,
+            10, 64, 1,023, 1,024 (the select route's limit), 1,025 (the
+            sort route), n_items}, no mask / bit words / row lists of 8
+            and 64, a fully masked row, an all-zero row, equal maxima on
+            both sides of every chunk and segment boundary. Each call must
+            take the route its k names; indices and values must be equal.
 16. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
             at full size) from UR_SEED: 3,000 users, 100,000 items, one buy
             per item plus 30 buys per user on zipf(1.3) items, and 30
@@ -101,10 +105,12 @@ Phases, in order; any failure prints what failed and exits non-zero:
             16 client threads send 500 UR queries (mostly exclude_seen,
             20 % blacklists, unknown users, view-only users added after
             the train). Every answer must equal ``_predict_batch`` on a
-            CPU copy of the model; masked kernel launches must equal
-            device batches.
+            CPU copy of the model; masked kernel launches, and those of
+            its select route, must equal device batches.
 19. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
-            {1, 64}: the kernel, its plain version, ``torch.topk`` over
+            {1, 64}: the kernel (its launches per call, and its time on
+            the card alone by ``torch.profiler``), its plain version,
+            ``torch.topk`` over
             ``torch.where(mask, NEG_INF, scores)`` as a yardstick the port
             never calls, the bound, and the history scoring outside it.
 20. report  one ``{"kernels": [...]}`` line, then the device line last.
@@ -197,8 +203,11 @@ UR_PER_USER, UR_ZIPF = 30, 1.3  # buys (and views) per user on zipf(1.3) items
 UR_CORRELATORS, UR_QUERY_EVENTS = 50, 100  # template defaults
 UR_T0 = datetime.datetime(2024, 1, 1, tzinfo=datetime.timezone.utc)
 UR_NEW_USERS = 50  # view-only users added after the train
-UR_SWEEP_WIDTHS = ((1_024, 1_000), (100_096, 100_000))  # (I_p, n_items)
-UR_K_LADDER = (1, 64, 1_024, 1_500)
+# (I_p, n_items): below one select segment, a short last segment, the UR
+# catalog (not a multiple of the segment either)
+UR_SWEEP_WIDTHS = ((1_024, 1_000), (12_416, 12_345), (100_096, 100_000))
+# up to the select route's limit, and the first k above it
+UR_K_LADDER = (1, 10, 64, 1_023, 1_024, 1_025)
 UR_CPU_BLOCKS, UR_CPU_BLOCK_ROWS = (0, 49_920, 98_976), 1_024
 UR_TIMES_K = 64
 MASKED_REPLACES = "predictionio_tpu/ops/recommend_pallas.py:468"
@@ -609,6 +618,12 @@ def phase_dense(report, shared):
                               / np.sqrt(RANK)).astype(np.float32)).cuda()
         _dense_compare(r, x, ascale, True, which, tally,
                        f"ML-20M slab {n_u_p}x{n_i_p} {which}")
+    # the row pass at the widest rank: its outputs split over column blocks
+    x = torch.from_numpy((rng.standard_normal((n_i_p, df.MAX_RANK))
+                          / np.sqrt(df.MAX_RANK)).astype(np.float32)).cuda()
+    _dense_compare(r, x, ascale, True, "row", tally,
+                   f"ML-20M slab {n_u_p}x{n_i_p} row K={df.MAX_RANK}")
+    del x
     report["dense_sweep"] = dict(tally, seconds=time.perf_counter() - t0)
     for w in ("row", "col"):
         t = tally[w]
@@ -890,6 +905,22 @@ def _time_ms(fn, iters, repeats=5):
     return statistics.median(per)
 
 
+def _device_ms(fn, calls=20):
+    """Time on the card per call (torch.profiler), without the host's
+    share of `_time_ms`: the sum, and each kernel's by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {e.key.split("::")[-1].split("(")[0]: e.device_time_total / calls / 1e3
+           for e in prof.key_averages() if e.device_time_total}
+    return sum(per.values()), per
+
+
 def _bound(dtype, b, i_p, k, scaled):
     esz = {"f32": 4, "bf16": 2, "int8": 1}[dtype]
     nbytes = (b + i_p) * RANK * esz + b * k * 8
@@ -933,11 +964,13 @@ def phase_times(report, shared):
 
 def _dense_bound(n_rows, n_cols, k, which):
     """Least time for one pass: R read once, the factor input read once,
-    both outputs written once, over HBM; or the dense-equivalent
-    2*n_r*n_c*(K+K^2) operations at the bf16 tensor-core peak."""
+    both outputs (K + K^2 columns) written once, over HBM; or the
+    dense-equivalent products at the bf16 tensor-core peak,
+    2*n_r*n_c*(K + K(K+1)/2) operations: corr is symmetric, so only its
+    pairs i <= j need a product."""
     n_in, n_out = (n_cols, n_rows) if which == "row" else (n_rows, n_cols)
     nbytes = n_rows * n_cols + n_in * k * 4 + n_out * (k + k * k) * 4
-    ops = 2.0 * n_rows * n_cols * (k + k * k)
+    ops = 2.0 * n_rows * n_cols * (k + k * (k + 1) // 2)
     bytes_s, ops_s = nbytes / HBM_BPS, ops / PEAK_OPS["bf16"]
     return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
 
@@ -1000,7 +1033,28 @@ def phase_dense_times(report, shared):
               f"{plain_ms:.4f} ms, ops.dense "
               f"two-matmul on bf16 R {library:.4f} ms, bound {bound:.4f} ms "
               f"({by})", flush=True)
-    del r16, r, r0, ru
+    # the row pass at the widest rank: nine column blocks, R read by each
+    k = df.MAX_RANK
+    x = torch.from_numpy((rng.standard_normal((n_cols, k))
+                          / np.sqrt(k)).astype(np.float32)).cuda()
+    wide = {which: _time_ms(lambda: df.fused_row_pass(rr, x, ascale, implicit=True),
+                            3, repeats=3)
+            for which, rr in (("ms", r), ("uniform_ms", ru), ("zero_r_ms", r0))}
+    plain_ms = _time_ms(lambda: df.fused_row_pass_plain(r, x, ascale, implicit=True),
+                        1, repeats=1)
+    library = _time_ms(lambda: dense.dense_row_pass(r16, x, implicit=True, alpha=1.0),
+                       1, repeats=1)
+    bound, by = _dense_bound(n_rows, n_cols, k, "row")
+    report["dense_times_wide"] = dict(
+        wide, K=k, n_rows=n_rows, n_cols=n_cols, column_blocks=df.row_column_blocks(k),
+        plain_ms=plain_ms, library_ms=library, bound_ms=bound, bound_by=by)
+    print(f"[times] dense row pass {n_rows}x{n_cols} int8, K={k} "
+          f"({df.row_column_blocks(k)} column blocks): kernel {wide['ms']:.4f} ms on "
+          f"the skewed R (uniform R {wide['uniform_ms']:.4f} ms, all-zero R "
+          f"{wide['zero_r_ms']:.4f} ms), plain {plain_ms:.4f} ms, ops.dense "
+          f"two-matmul on bf16 R {library:.4f} ms, bound {bound:.4f} ms ({by})",
+          flush=True)
+    del r16, r, r0, ru, x
     report["dense_times"] = rows
     shared.pop("coo")  # the ML-20M ratings are done with
     torch.cuda.empty_cache()
@@ -1465,11 +1519,13 @@ def _ur_scores(rng, b, i_p, n_items):
     """(B, I_p) f32 scores shaped like UR history sums: most items 0,
     the rest LLR sums; half the rows on a quarter-step grid (exact ties
     everywhere), equal maxima on both sides of every 1,024-column chunk
-    boundary, an all-zero last row, dead pads past n_items."""
+    boundary and every 4,096-column select segment boundary, an all-zero
+    last row, dead pads past n_items."""
     s = np.where(rng.random((b, i_p)) < 0.7, 0.0,
                  rng.gamma(2.0, 8.0, (b, i_p))).astype(np.float32)
     s[::2] = np.round(s[::2] * 4) / 4
-    edges = np.arange(rec._CHUNK, n_items, rec._CHUNK)
+    edges = np.union1d(np.arange(rec._CHUNK, n_items, rec._CHUNK),
+                       np.arange(rec.SELECT_SEGMENT, n_items, rec.SELECT_SEGMENT))
     s[:, edges - 1] = s[:, edges] = 1e4
     s[-1, :n_items] = 0.0
     s[:, n_items:] = rng.standard_normal((b, i_p - n_items))
@@ -1492,7 +1548,7 @@ def _ur_masks(rng, b, i_p, n_items):
 
 def phase_ur_sweep(report, shared):
     rng = np.random.default_rng(UR_SEED)
-    tally = {"cases": 0, "max_abs_err": 0.0}
+    tally = {"cases": 0, "max_abs_err": 0.0, "routes": {"select": 0, "sort": 0}}
     t0 = time.perf_counter()
     for i_p, n_items in UR_SWEEP_WIDTHS:
         check(rec.pad_items(n_items) == i_p, f"pad_items({n_items}) != {i_p}")
@@ -1501,11 +1557,15 @@ def phase_ur_sweep(report, shared):
             for kind, (bits, rows) in _ur_masks(rng, b, i_p, n_items).items():
                 for k in sorted({kk for kk in UR_K_LADDER + (n_items,) if kk <= i_p}):
                     label = f"masked I_p={i_p} B={b} mask={kind} k={k}"
+                    route = rec.masked_route(k)
+                    before = rec.MASKED_ROUTE_LAUNCHES[route]
                     kv, ki = rec.fused_masked_topk(scores, bits, rows, k=k,
                                                    n_items=n_items)
                     pv, pi = rec.fused_masked_topk_plain(scores, bits, rows, k=k,
                                                          n_items=n_items)
                     torch.cuda.synchronize()
+                    check(rec.MASKED_ROUTE_LAUNCHES[route] == before + 1,
+                          f"{label}: not launched on the {route} route")
                     check(torch.equal(ki, pi), f"{label}: indices differ")
                     check(torch.equal(kv, pv), f"{label}: values differ")
                     tally["max_abs_err"] = max(tally["max_abs_err"],
@@ -1515,10 +1575,13 @@ def phase_ur_sweep(report, shared):
                         check(bool((kv[0, :n] == rec.NEG_INF).all()),
                               f"{label}: fully masked row")
                     tally["cases"] += 1
+                    tally["routes"][route] += 1
     report["ur_sweep"] = dict(tally, seconds=time.perf_counter() - t0)
     print(f"[ur sweep] {tally['cases']} cases of fused_masked_topk (I_p "
           f"{', '.join(str(w) for w, _ in UR_SWEEP_WIDTHS)}; B 1/8/64; no mask, "
-          f"bit words, row lists of 8 and 64; k up to n_items): indices and "
+          f"bit words, row lists of 8 and 64; k {', '.join(map(str, UR_K_LADDER))} "
+          f"and n_items; {tally['routes']['select']} on the select route, "
+          f"{tally['routes']['sort']} on the sort route): indices and "
           f"values equal to the plain version in all, "
           f"{report['ur_sweep']['seconds']:.1f} s", flush=True)
 
@@ -1789,6 +1852,7 @@ def phase_ur_serve(report, shared):
                    for c in range(N_CLIENTS)]
         als_before = rec.LAUNCHES
         rec.MASKED_LAUNCHES = 0  # every count to 0 just before the main path
+        rec.MASKED_ROUTE_LAUNCHES.update(select=0, sort=0)
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -1796,6 +1860,7 @@ def phase_ur_serve(report, shared):
             t.join(timeout=600)
         wall = time.perf_counter() - t0
         launches = rec.MASKED_LAUNCHES
+        routes = dict(rec.MASKED_ROUTE_LAUNCHES)
         check(not any(t.is_alive() for t in threads), "clients hung")
         after = _status(port)
         batches = after["batches"] - before["batches"]
@@ -1828,12 +1893,14 @@ def phase_ur_serve(report, shared):
     check(launches > 0, "the UR path launched no masked top-k kernel")
     check(launches == batches,
           f"masked kernel launches {launches} != device batches {batches}")
+    check(routes["select"] == batches,
+          f"select-route launches {routes['select']} != device batches {batches}")
     lat = sorted(v[2] for v in out.values())
     report["ur_serve"] = {
         "warmup_s": warm_s, "wall_s": wall, "qps": N_QUERIES / wall,
         "p50_ms": 1e3 * lat[len(lat) // 2],
         "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
-        "batches": batches, "launches": launches,
+        "batches": batches, "launches": launches, "route_launches": routes,
         "mean_batch": N_QUERIES / batches,
         "batch_predict_ms": 1e3 * batch_s / batches,
         "empty_answers": empty, "cpu_check_s": cpu_s,
@@ -1845,8 +1912,17 @@ def phase_ur_serve(report, shared):
           f"{s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms, {s['qps']:.1f} qps, "
           f"{batches} batches (mean {s['mean_batch']:.2f} queries, "
           f"{s['batch_predict_ms']:.3f} ms of batch_predict each), masked kernel "
-          f"launches {launches}; {empty} empty answers; warmup {warm_s:.2f} s, "
+          f"launches {launches} ({routes['select']} select route, "
+          f"{routes['sort']} sort route); {empty} empty answers; warmup {warm_s:.2f} s, "
           f"CPU check {cpu_s:.1f} s", flush=True)
+
+
+def _masked_launches_per_call(i_p, k):
+    """CUDA launches in one ``fused_masked_topk`` call on the card: the
+    segment and row passes, or pass 1, the merge levels and the emit."""
+    if rec.masked_route(k) == "select":
+        return 2
+    return len(rec.merge_levels(i_p, k)) + 1
 
 
 def phase_ur_times(report, shared):
@@ -1880,6 +1956,8 @@ def phase_ur_times(report, shared):
         k = UR_TIMES_K
         kernel = _time_ms(lambda: rec.fused_masked_topk(scores, bits, k=k,
                                                         n_items=n_items), 50)
+        device, split = _device_ms(lambda: rec.fused_masked_topk(
+            scores, bits, k=k, n_items=n_items))
         plain = _time_ms(lambda: rec.fused_masked_topk_plain(
             scores, bits, None, k=k, n_items=n_items), 10)
         library = _time_ms(lambda: torch.topk(
@@ -1888,11 +1966,17 @@ def phase_ur_times(report, shared):
                                                       i_p), 10)
         nbytes = b * i_p * 4 + b * (i_p // 32) * 4 + b * k * 8
         bound = 1e3 * nbytes / HBM_BPS
+        per_call = _masked_launches_per_call(i_p, k)
         rows.append({"B": b, "I_p": i_p, "k": k, "mask": "bits", "ms": kernel,
+                     "device_ms": device, "device_split_ms": split,
+                     "route": rec.masked_route(k), "launches_per_call": per_call,
                      "plain_ms": plain, "library_ms": library, "bound_ms": bound,
                      "bound_by": "bytes", "history_scoring_ms": scoring})
         print(f"[ur times] fused_masked_topk B={b} I_p={i_p} k={k} bit words: "
-              f"kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
+              f"kernel {kernel:.4f} ms ({rec.masked_route(k)} route, {per_call} "
+              f"launches per call; {device:.4f} ms of it on the card: "
+              f"{', '.join(f'{n} {t:.4f}' for n, t in split.items())}), plain "
+              f"{plain:.4f} ms, "
               f"torch.topk(where(mask)) {library:.4f} ms, bound {bound:.5f} ms "
               f"(bytes); history scoring (gather + chain, outside the kernel) "
               f"{scoring:.4f} ms", flush=True)

@@ -32,9 +32,8 @@ from predictionio_tpu_torch.ops.recommend import (
     fused_masked_topk,
     pack_mask_np,
     pad_items,
-    rowlist_mask,
 )
-from predictionio_tpu_torch.ops.topk import NEG_INF, masked_top_k, top_k_ordered
+from predictionio_tpu_torch.ops.topk import NEG_INF, top_k_ordered
 
 #: f32 elements of one row chunk of a block's count matrix that go
 #: through LLR and top-n at a time; the LLR holds about ten temporaries
@@ -254,25 +253,19 @@ def _batch_score_topk(
     *,
     j_sizes: tuple,
     k: int,
-    fused: bool,  # True: fused_masked_topk; False: where + masked_top_k
     packed: bool = False,  # exclude arrived as bit-packed mask words
 ):
-    """One query batch on the device: `history_scores`, then exclusion
-    and top-k through the fused selector at the padded width, or the
-    two-step where + masked_top_k at width n_items."""
+    """One query batch on the device: `history_scores` at the padded
+    width, then exclusion and top-k through the fused selector."""
     n_items = int(corr_idx[0].shape[0])
-    width = pad_items(n_items) if fused else n_items
-    total = history_scores(corr_idx, corr_scores, histories, j_sizes, width)
-    if fused:
-        return fused_masked_topk(
-            total,
-            mask_bits=exclude if packed else None,
-            exclude_rows=None if packed else exclude,
-            k=k, n_items=n_items,
-        )
-    total = torch.where(rowlist_mask(exclude, n_items), NEG_INF, total)
-    vals, idx = masked_top_k(total, k)
-    return vals, idx.to(torch.int32)
+    total = history_scores(corr_idx, corr_scores, histories, j_sizes,
+                           pad_items(n_items))
+    return fused_masked_topk(
+        total,
+        mask_bits=exclude if packed else None,
+        exclude_rows=None if packed else exclude,
+        k=k, n_items=n_items,
+    )
 
 
 def batch_score_topk(
@@ -280,43 +273,37 @@ def batch_score_topk(
     histories: list,  # per indicator: (B, H) int32 np, -1 padded
     exclude: np.ndarray,  # (B, E) int32, -1 padded (item space)
     k: int,
-    mode: Optional[str] = "auto",
     device=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Batched UR history scoring + exclusion + top-k. Returns (scores
     (B, k), item indices (B, k) int32); entries with score <= 0 carry no
     LLR evidence (callers filter positive-only).
 
-    `mode` picks the tail: "auto" the fused selector
-    (`fused_masked_topk`: the kernel on the card, its plain version on
-    the CPU) at the padded width, "off" (or None) the two-step where +
-    `masked_top_k` at width n_items. Exclusion sets up to ROWLIST_MAX
-    wide ride the fused tail as row lists; wider ones are bit-packed on
-    the host. Tables that are tensors stay on their device; numpy tables
-    go to `device` (the first CUDA device by default)."""
-    if mode not in ("auto", "off", None):
-        raise ValueError(f"unknown mode {mode!r} (auto | off)")
-    fused = mode == "auto"
+    The tail is the fused selector (`fused_masked_topk`: the kernel on
+    the card, its plain version on the CPU) at the padded width.
+    Exclusion sets up to ROWLIST_MAX wide ride it as row lists; wider
+    ones are bit-packed on the host. Tables that are tensors stay on
+    their device; numpy tables go to `device` (the first CUDA device by
+    default)."""
     first = indicator_tables[0][0]
     dev = (first.device if isinstance(first, torch.Tensor)
            else resolve_device(device))
     exclude = np.asarray(exclude, np.int32)
-    packed = False
+    packed = exclude.shape[1] > ROWLIST_MAX
     ex_dev = exclude
-    if fused and exclude.shape[1] > ROWLIST_MAX:
+    if packed:
         n_items = int(first.shape[0])
         i_p = pad_items(n_items)
         mask = np.zeros((exclude.shape[0], i_p), bool)
         live = (exclude >= 0) & (exclude < i_p)
         mask[np.nonzero(live)[0], exclude[live]] = True
         ex_dev = pack_mask_np(mask, i_p)
-        packed = True
     vals, idx = _batch_score_topk(
         tuple(torch.as_tensor(t[0]).to(dev) for t in indicator_tables),
         tuple(torch.as_tensor(t[1]).to(dev) for t in indicator_tables),
         tuple(torch.as_tensor(np.asarray(h)).to(dev) for h in histories),
         torch.from_numpy(np.ascontiguousarray(ex_dev)).to(dev),
         j_sizes=tuple(int(t[2]) for t in indicator_tables),
-        k=k, fused=fused, packed=packed,
+        k=k, packed=packed,
     )
     return vals.cpu().numpy(), idx.cpu().numpy()

@@ -4,12 +4,12 @@
 // Replaces two TPU kernels of predictionio_tpu/ops/recommend_pallas.py,
 // which share one assembly (_fused_call) and one body (_make_kernel):
 // fused_recommend_topk (entry recommend_topk below) and fused_masked_topk
-// (entry masked_topk below), the same exclusion and top-k over a
-// PRECOMPUTED (B, I_p) score matrix, the tail of the Universal
-// Recommender's batched history scoring. The TPU kernel walks item tiles
-// in order and merges each into one running list in VMEM; blocks here run
-// in parallel with no carry, so the work splits into passes, all launched
-// on the caller's stream:
+// (entries masked_select and masked_topk below), the same exclusion and
+// top-k over a PRECOMPUTED (B, I_p) score matrix, the tail of the
+// Universal Recommender's batched history scoring. The TPU kernel walks
+// item tiles in order and merges each into one running list in VMEM;
+// blocks here run in parallel with no carry, so the work splits into
+// passes, all launched on the caller's stream:
 //
 //   pass 1  one block per (chunk of CHUNK item columns, query row): score
 //           every column of the chunk in registers (recommend_topk) or
@@ -46,11 +46,26 @@
 // log2(chunks) merge launches). No wgmma or TMA: at K = 10 tensor cores
 // do not pay. Making it fast is later work.
 //
-// masked_topk at the UR catalog (I_p = 100,096, k = 64, bit words) is
-// bytes-bound: the scores, the words and the outputs once, 25.7 MB at
-// B = 64, ~7.7 us at 3.35 TB/s. The same chunk sort and merge tree make
-// it selection- and launch-bound as well: 98 chunks per row, 7 merge
-// levels.
+// The precomputed-score selector at the UR catalog (I_p = 100,096, k =
+// 64, bit words) is bytes-bound: the scores, the words and the outputs
+// once, 25.7 MB at B = 64, ~7.7 us at 3.35 TB/s. A k = 64 selection needs
+// no sort of the whole row, so for k <= SELECT_MAX_K (entry masked_select)
+// it takes two launches:
+//
+//   segment pass  one block per (segment of SEGMENT = 4,096 columns,
+//                 row): 16-byte score loads, the same keys, and a radix
+//                 select of the segment's top min(k, columns) keys (a
+//                 256-bin histogram of 8 score bits per round, in shared
+//                 memory, narrowing to the bin that holds rank k; bits
+//                 that all remaining keys share cost no round), the
+//                 score it stops at taken by the lowest columns, ranked
+//                 by one scan; at B = 64, 25 x 64 = 1,600 blocks fill
+//                 the 132 SMs ~3 times over.
+//   row pass      one block per row: the same radix select over the
+//                 segments' candidates, then a bitonic sort of the k
+//                 selected keys, and the emit.
+//
+// Larger k takes masked_topk: the chunk sort and merge tree above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +96,15 @@ __device__ __forceinline__ int key_column(uint64_t key) {
   return static_cast<int>(0xffffffffu - static_cast<uint32_t>(key));
 }
 
+// the key of one column: masked columns score NEG_INF, dead pads at or
+// above n_items the sentinel
+__device__ __forceinline__ uint64_t masked_key(float s, bool masked, int col,
+                                               int n_items) {
+  if (masked) s = NEG_INF_F;
+  if (col >= n_items) s = SENTINEL_F;
+  return make_key(s, static_cast<uint32_t>(col));
+}
+
 // the key of one column after exclusion (bit words, else the row list)
 // and the dead-pad sentinel
 __device__ __forceinline__ uint64_t column_key(
@@ -94,18 +118,15 @@ __device__ __forceinline__ uint64_t column_key(
   } else {
     for (int e = 0; e < n_excl; ++e) masked |= (ex[e] == col);
   }
-  if (masked) s = NEG_INF_F;
-  if (col >= n_items) s = SENTINEL_F;
-  return make_key(s, static_cast<uint32_t>(col));
+  return masked_key(s, masked, col, n_items);
 }
 
-// bitonic sort of a chunk's keys in shared memory, descending, then the
-// top kc to dst; every thread of the block calls it
-__device__ __forceinline__ void sort_chunk_and_write(uint64_t* keys,
-                                                     uint64_t* dst, int kc) {
-  for (int size = 2; size <= CHUNK; size <<= 1) {
+// bitonic sort of n (a power of two) keys in shared memory, descending;
+// every thread of the block calls it
+__device__ __forceinline__ void sort_desc(uint64_t* keys, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < CHUNK / 2; t += blockDim.x) {
+      for (int t = threadIdx.x; t < n / 2; t += blockDim.x) {
         const int i = 2 * t - (t & (stride - 1));
         const int j = i + stride;
         const uint64_t a = keys[i];
@@ -119,6 +140,12 @@ __device__ __forceinline__ void sort_chunk_and_write(uint64_t* keys,
       __syncthreads();
     }
   }
+}
+
+// a chunk's keys sorted, then the top kc to dst
+__device__ __forceinline__ void sort_chunk_and_write(uint64_t* keys,
+                                                     uint64_t* dst, int kc) {
+  sort_desc(keys, CHUNK);
   for (int t = threadIdx.x; t < kc; t += blockDim.x) dst[t] = keys[t];
 }
 
@@ -296,6 +323,311 @@ int merge_and_emit(uint64_t* a, uint64_t* bb, int n0, int kc, int B, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// masked_select: the precomputed-score selector by radix select
+// ---------------------------------------------------------------------------
+
+constexpr int SEGMENT = 4096;       // == ops/recommend.py:SELECT_SEGMENT
+constexpr int SELECT_MAX_K = 1024;  // == ops/recommend.py:SELECT_MAX_K
+constexpr int SEL_THREADS = 256;    // the bin scan gives each thread one bin
+constexpr int SEG_VECS = SEGMENT / (4 * SEL_THREADS);  // float4s per thread
+constexpr int SEG_KEYS = 4 * SEG_VECS;
+// copies of the radix histogram: lane l counts into copy l % HIST_COPIES,
+// so the lanes of a warp whose keys share a bin (scores of one magnitude)
+// collide HIST_COPIES times less; 257 words apart, the copies of a bin
+// fall in distinct banks
+constexpr int HIST_COPIES = 8;
+constexpr int HIST_STRIDE = 257;
+// candidate keys the row pass copies into shared memory; more stream
+// from device memory on every round
+constexpr int ROW_SMEM_MAX = 200 * 1024;
+
+struct SelectShared {
+  unsigned hist[HIST_COPIES * HIST_STRIDE];
+  unsigned warp_sum[SEL_THREADS / 32];
+  uint64_t all[SEL_THREADS / 32], any[SEL_THREADS / 32];
+  uint64_t scan[SEL_THREADS / 32];  // the segment pass's tie-rank scan
+  unsigned bin, above, count, fill;
+};
+
+__device__ __forceinline__ uint32_t warp_and(uint32_t v) {
+  return __reduce_and_sync(0xffffffffu, v);
+}
+__device__ __forceinline__ uint32_t warp_or(uint32_t v) {
+  return __reduce_or_sync(0xffffffffu, v);
+}
+__device__ __forceinline__ uint64_t warp_and(uint64_t v) {
+  return static_cast<uint64_t>(warp_and(static_cast<uint32_t>(v >> 32))) << 32 |
+         warp_and(static_cast<uint32_t>(v));
+}
+__device__ __forceinline__ uint64_t warp_or(uint64_t v) {
+  return static_cast<uint64_t>(warp_or(static_cast<uint32_t>(v >> 32))) << 32 |
+         warp_or(static_cast<uint32_t>(v));
+}
+__device__ __forceinline__ int highest_bit(uint32_t v) { return 31 - __clz(v); }
+__device__ __forceinline__ int highest_bit(uint64_t v) {
+  return 63 - __clzll(static_cast<long long>(v));
+}
+
+// What a radix select picks: the keys above t, and, when `exact`, the
+// first `ties` of the keys equal to t (else every key at or above t).
+template <class Key>
+struct Threshold {
+  Key t;
+  bool exact;
+  unsigned ties;
+};
+
+// Radix select of the block's kk largest keys. Each round counts an
+// 8-bit digit of the keys that share the bits fixed so far (shared-memory
+// atomics into HIST_COPIES copies of the histogram), and a suffix scan
+// finds the bin that holds rank `remaining`. When that bin holds
+// exactly the keys still wanted, every key at or above the threshold
+// (its lower bits zero) is selected; when all bits are fixed and more
+// keys than wanted equal the threshold, the caller takes `ties` of them
+// (unique keys never tie). Counts do not depend on the order of the
+// atomics, so the selection is exact. When a bin keeps many keys (every
+// score 0 of a user with little history, say), the next round first ANDs
+// and ORs them: the bits they all share are fixed at once, and the digit
+// starts at the highest bit where they differ, so long common prefixes
+// cost no rounds. Needs kk not above the valid keys. for_each(f) calls
+// f(key, valid) on each of the thread's keys, equally often in every
+// lane. Every thread of the block calls it. It returns with no barrier
+// after its last reads of sh.all, sh.any, sh.bin, sh.above and sh.count,
+// which slower warps may still be making: the caller writes none of them
+// before a __syncthreads().
+template <class Key, class ForEach>
+__device__ Threshold<Key> radix_threshold(ForEach for_each, unsigned kk,
+                                          SelectShared& sh) {
+  constexpr int BITS = 8 * sizeof(Key);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  Key prefix = 0;  // candidates' bits at and above `top` are prefix's
+  int top = BITS;
+  unsigned remaining = kk;
+  bool narrow = false;
+  for (;;) {
+    Key high = top == BITS ? Key(0) : ~Key(0) << top;
+    if (narrow) {
+      Key all = ~Key(0), any = 0;
+      for_each([&](Key key, bool valid) {
+        if (valid && (key & high) == prefix) {
+          all &= key;
+          any |= key;
+        }
+      });
+      all = warp_and(all);
+      any = warp_or(any);
+      if (lane == 0) {
+        sh.all[warp] = all;
+        sh.any[warp] = any;
+      }
+      __syncthreads();
+      for (int w = 0; w < SEL_THREADS / 32; ++w) {
+        all &= static_cast<Key>(sh.all[w]);
+        any |= static_cast<Key>(sh.any[w]);
+      }
+      const Key diff = (all ^ any) & ~high;
+      if (diff == 0) return {all, true, remaining};  // one value is left
+      const int b = highest_bit(diff);
+      prefix |= all & ~high & ~((Key(2) << b) - Key(1));  // shared above b
+      top = b + 1;
+      high = ~Key(0) << top;
+    }
+    const int shift = top > 8 ? top - 8 : 0;
+    for (int c = 0; c < HIST_COPIES; ++c)
+      sh.hist[c * HIST_STRIDE + threadIdx.x] = 0u;
+    __syncthreads();
+    unsigned* hist = sh.hist + (lane % HIST_COPIES) * HIST_STRIDE;
+    for_each([&](Key key, bool valid) {
+      if (valid && (key & high) == prefix)
+        atomicAdd(&hist[static_cast<unsigned>(key >> shift) & 255u], 1u);
+    });
+    __syncthreads();
+    // thread t holds bin 255 - t; its inclusive sum counts the keys in
+    // bins >= 255 - t
+    unsigned h = 0u;
+    for (int c = 0; c < HIST_COPIES; ++c)
+      h += sh.hist[c * HIST_STRIDE + 255 - threadIdx.x];
+    unsigned incl = h;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) sh.warp_sum[warp] = incl;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) incl += sh.warp_sum[w];
+    if (incl - h < remaining && remaining <= incl) {
+      sh.bin = 255u - threadIdx.x;
+      sh.above = incl - h;
+      sh.count = h;
+    }
+    __syncthreads();
+    // the digit's bits at and above `top` are prefix's own: OR is a no-op
+    prefix |= static_cast<Key>(sh.bin) << shift;
+    remaining -= sh.above;
+    if (sh.count == remaining) return {prefix, false, 0u};
+    if (shift == 0) return {prefix, true, remaining};  // all bits fixed
+    narrow = sh.count > 32u;
+    top = shift;
+  }
+}
+
+// Segment pass: block (segment, row) reads the row's scores of SEGMENT
+// columns (16-byte loads) and their exclusion bits, and writes the keys
+// of the segment's top min(k, columns) columns in any order to its k
+// slots of `out`, key 0 (below every column's key) in the rest. The
+// select runs on the keys' 32 score bits; the score it stops at is taken
+// by the lowest columns first, ranked by one scan in column order: thread
+// t holds columns 4 (t + SEL_THREADS v) + e of the segment.
+__global__ void __launch_bounds__(SEL_THREADS) segment_select_kernel(
+    const float* __restrict__ scores, const int32_t* __restrict__ mask_bits,
+    const int32_t* __restrict__ excl, int n_excl, int I_p, int n_items,
+    int k, uint64_t* __restrict__ out) {
+  __shared__ unsigned words[SEGMENT / 32];  // the segment's exclusion bits
+  __shared__ SelectShared sh;
+  const int seg = blockIdx.x;
+  const int b = blockIdx.y;
+  const int c0 = seg * SEGMENT;
+  const int len = min(SEGMENT, I_p - c0);  // a multiple of 32, as I_p
+  for (int w = threadIdx.x; w < SEGMENT / 32; w += SEL_THREADS)
+    words[w] = mask_bits != nullptr && w < len / 32
+                   ? static_cast<unsigned>(
+                         mask_bits[static_cast<size_t>(b) * (I_p / 32) +
+                                   c0 / 32 + w])
+                   : 0u;
+  __syncthreads();
+  if (mask_bits == nullptr) {  // the row list, set as bits (-1 is inert)
+    for (int e = threadIdx.x; e < n_excl; e += SEL_THREADS) {
+      const int c = excl[static_cast<size_t>(b) * n_excl + e] - c0;
+      if (c >= 0 && c < len) atomicOr(&words[c >> 5], 1u << (c & 31));
+    }
+    __syncthreads();
+  }
+  uint32_t u[SEG_KEYS];  // each column's score bits: its key's high word
+  const float* row = scores + static_cast<size_t>(b) * I_p + c0;
+#pragma unroll
+  for (int v = 0; v < SEG_VECS; ++v) {
+    const int j = 4 * (threadIdx.x + SEL_THREADS * v);
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (j < len) s = __ldcs(reinterpret_cast<const float4*>(row + j));
+    const unsigned w = words[j >> 5];
+    const float f[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      u[4 * v + e] = static_cast<uint32_t>(
+          masked_key(f[e], (w >> ((j + e) & 31)) & 1u, c0 + j + e, n_items) >>
+          32);
+  }
+  auto valid = [&](int v) {
+    return 4 * (static_cast<int>(threadIdx.x) + SEL_THREADS * v) < len;
+  };
+  auto for_each = [&](auto f) {
+#pragma unroll
+    for (int i = 0; i < SEG_KEYS; ++i) f(u[i], valid(i / 4));
+  };
+  const unsigned kk = min(k, len);
+  const Threshold<uint32_t> th = radix_threshold<uint32_t>(for_each, kk, sh);
+  // ranks of the keys equal to the threshold, in column order: a scan of
+  // each thread's counts per float4 slice, 16 bits a slice
+  uint64_t before = 0, total = 0;
+  if (th.exact) {
+    uint64_t mine = 0;
+#pragma unroll
+    for (int i = 0; i < SEG_KEYS; ++i)
+      if (valid(i / 4) && u[i] == th.t) mine += 1ull << (16 * (i / 4));
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    uint64_t incl = mine;
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint64_t x = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += x;
+    }
+    if (lane == 31) sh.scan[warp] = incl;
+    __syncthreads();
+    before = incl - mine;
+    for (int w = 0; w < SEL_THREADS / 32; ++w) {
+      if (w < warp) before += sh.scan[w];
+      total += sh.scan[w];
+    }
+  }
+  if (threadIdx.x == 0) sh.fill = 0u;
+  __syncthreads();
+  uint64_t* dst = out + (static_cast<size_t>(b) * gridDim.x + seg) * k;
+  unsigned rank = 0;  // ties of earlier slices, then earlier threads, keys
+#pragma unroll
+  for (int v = 0; v < SEG_VECS; ++v) {
+    rank = 0;
+    for (int w = 0; w < v; ++w)
+      rank += static_cast<unsigned>(total >> (16 * w)) & 0xffffu;
+    rank += static_cast<unsigned>(before >> (16 * v)) & 0xffffu;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t x = u[4 * v + e];
+      bool take = false;
+      if (valid(v)) {
+        if (!th.exact) {
+          take = x >= th.t;
+        } else if (x == th.t) {
+          take = rank < th.ties;
+          ++rank;
+        } else {
+          take = x > th.t;
+        }
+      }
+      if (take) {
+        const uint32_t col = c0 + 4 * (threadIdx.x + SEL_THREADS * v) + e;
+        dst[atomicAdd(&sh.fill, 1u)] =
+            static_cast<uint64_t>(x) << 32 | (0xffffffffu - col);
+      }
+    }
+  }
+  for (int p = kk + threadIdx.x; p < k; p += SEL_THREADS) dst[p] = 0ull;
+}
+
+// Row pass: block b selects the top k of its row's n_cand segment keys
+// the same way (from shared memory when they fit), sorts them (bitonic)
+// and emits (values, indices).
+__global__ void __launch_bounds__(SEL_THREADS) row_select_kernel(
+    const uint64_t* __restrict__ cand, int n_cand, int k, bool staged,
+    float* __restrict__ vals, int32_t* __restrict__ idx) {
+  extern __shared__ uint64_t staged_keys[];  // n_cand when `staged`
+  __shared__ uint64_t top[SELECT_MAX_K];
+  __shared__ SelectShared sh;
+  const int b = blockIdx.x;
+  const uint64_t* src = cand + static_cast<size_t>(b) * n_cand;
+  if (staged) {
+#pragma unroll 8
+    for (int i = threadIdx.x; i < n_cand; i += SEL_THREADS)
+      staged_keys[i] = src[i];
+    __syncthreads();
+    src = staged_keys;
+  }
+  const int per = (n_cand + SEL_THREADS - 1) / SEL_THREADS;
+  auto for_each = [&](auto f) {
+    for (int n = 0, i = threadIdx.x; n < per; ++n, i += SEL_THREADS) {
+      const uint64_t key = i < n_cand ? src[i] : 0ull;
+      f(key, key != 0ull);
+    }
+  };
+  // the candidates are unique keys: the threshold never ties
+  const uint64_t t = radix_threshold<uint64_t>(for_each, k, sh).t;
+  int n = 1;
+  while (n < k) n <<= 1;
+  if (threadIdx.x == 0) sh.fill = 0u;
+  for (int p = k + threadIdx.x; p < n; p += SEL_THREADS) top[p] = 0ull;
+  __syncthreads();
+  for_each([&](uint64_t key, bool valid) {
+    if (valid && key >= t) top[atomicAdd(&sh.fill, 1u)] = key;
+  });
+  __syncthreads();
+  sort_desc(top, n);
+  for (int p = threadIdx.x; p < k; p += SEL_THREADS) {
+    vals[static_cast<size_t>(b) * k + p] = key_value(top[p]);
+    idx[static_cast<size_t>(b) * k + p] = key_column(top[p]);
+  }
+}
+
 }  // namespace
 
 // Launches pass 1, the merge tree and the emit on `stream`; allocates
@@ -369,4 +701,43 @@ extern "C" int masked_topk(
   return merge_and_emit(a, static_cast<uint64_t*>(scratch_b), n0, kc, B, k,
                         st, static_cast<float*>(vals),
                         static_cast<int32_t*>(idx));
+}
+
+// The same selection over a precomputed (B, I_p) f32 score matrix in two
+// launches, for k <= SELECT_MAX_K: the segment pass, then the row pass.
+// `scores` must be 16-byte aligned. scratch holds B x ceil(I_p /
+// SEGMENT) x k keys (ops/recommend.py:select_scratch_keys). Launches on
+// `stream`, allocates nothing. Returns the CUDA error code, 0 on success.
+extern "C" int masked_select(
+    const void* scores, const void* mask_bits, const void* excl, int n_excl,
+    int B, int I_p, int n_items, int k, void* scratch, void* vals,
+    void* idx, int device, void* stream) {
+  if (B <= 0 || B > 65535 || I_p <= 0 ||
+      I_p % 32 != 0 || k <= 0 || k > I_p || k > SELECT_MAX_K ||
+      n_excl < 0 || reinterpret_cast<uintptr_t>(scores) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_seg = (I_p + SEGMENT - 1) / SEGMENT;
+  auto* cand = static_cast<uint64_t*>(scratch);
+  segment_select_kernel<<<dim3(n_seg, B), SEL_THREADS, 0, st>>>(
+      static_cast<const float*>(scores),
+      static_cast<const int32_t*>(mask_bits),
+      static_cast<const int32_t*>(excl), n_excl, I_p, n_items, k, cand);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_cand = n_seg * k;
+  const bool staged = static_cast<size_t>(n_cand) * 8 <= ROW_SMEM_MAX;
+  const size_t smem = staged ? static_cast<size_t>(n_cand) * 8 : 0;
+  if (staged) {  // with the static shared memory, past the 48 KB default
+    err = cudaFuncSetAttribute(row_select_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  row_select_kernel<<<B, SEL_THREADS, smem, st>>>(
+      cand, n_cand, k, staged, static_cast<float*>(vals),
+      static_cast<int32_t*>(idx));
+  return static_cast<int>(cudaGetLastError());
 }

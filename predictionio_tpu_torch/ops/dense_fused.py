@@ -17,14 +17,15 @@ On a CUDA tensor the wrappers launch the hand-written kernel in
 ``csrc/dense_pass.cu``; on a CPU tensor they run the plain PyTorch
 versions below. There is no fallback from one to the other.
 
-A bf16 × bf16 product is exact in f32, so the kernel and the plain
-version differ only in the order of the f32 sums: the kernel adds
-each row's (or column's) terms in index order in blocks of 512, then
-the block sums in order (the col pass per row chunk, then the chunks
-in order), and skips zero cells
-(whose terms are exactly zero for finite factors), the plain version
-sums through f32 matrix products. The bound on that difference is
-relative to the sum of the absolute terms, which the plain versions
+A bf16 × bf16 product is exact in f32, so the kernels and the plain
+versions differ only in how the f32 sums are taken. The row pass kernel
+multiplies every cell on the tensor cores (zero cells add exact zeros
+for finite factors; each symmetric pair of corr once), sums blocks of
+128 columns in the mma accumulators and adds the block sums in order;
+the col pass kernel adds each column's nonzero terms in row order in
+blocks of 512, then the block sums in order (per row chunk, then the
+chunks in order); the plain versions sum through f32 matrix products. The bound on that difference
+is relative to the sum of the absolute terms, which the plain versions
 compute when called with ``magnitude=True``.
 """
 
@@ -41,6 +42,17 @@ from predictionio_tpu_torch.ops.segment import full_f32
 
 #: widest rank the kernel takes (models/als.py GRAM_SOLVER_MAX_RANK)
 MAX_RANK = 32
+
+#: operand columns of one CTA of the row pass kernel (a column block of
+#: the outputs); must equal TC_W in csrc/dense_pass.cu
+ROW_BLOCK_COLS = 72
+
+#: R rows of one CTA of the row pass kernel (a strip); must equal TC_ROWS
+#: in csrc/dense_pass.cu
+ROW_STRIP = 128
+
+#: CTAs one launch may have on its 1-D grid
+_MAX_GRID = 2**31 - 1
 
 #: kernel launches through the wrappers in this process, by pass
 PASS_LAUNCHES = {"row": 0, "col": 0}
@@ -102,6 +114,44 @@ def fused_col_pass_plain(r, x, ascale, *, implicit, magnitude=False):
     """Plain PyTorch version of the column pass (see
     `fused_row_pass_plain`)."""
     return _plain_pass(r, x, ascale, implicit, False, magnitude)
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def row_operand(y: torch.Tensor) -> torch.Tensor:
+    """The row pass's tensor-core B operand ``[Y16 | Z16]`` (n_cols,
+    `row_column_blocks` · ROW_BLOCK_COLS) bf16, formed once per call as
+    the JAX wrapper forms its ``y16``/``z16``: bf16(y) in columns [0, K),
+    then from K rounded up to 8, bf16(y_i · y_j formed in f32) for the
+    K(K+1)/2 pairs i ≤ j in row-major order (corr is symmetric: the
+    kernel writes each pair's sum to (i, j) and (j, i)), zeros elsewhere."""
+    n, k = y.shape
+    i, j = torch.triu_indices(k, k, device=y.device)
+    pad_y = torch.zeros((n, _pad8(k) - k), dtype=y.dtype, device=y.device)
+    pad_z = torch.zeros((n, row_column_blocks(k) * ROW_BLOCK_COLS
+                         - _pad8(k) - len(i)), dtype=y.dtype, device=y.device)
+    return torch.cat([y, pad_y, y[:, i] * y[:, j], pad_z], 1).to(torch.bfloat16)
+
+
+def row_column_blocks(k: int) -> int:
+    """Column blocks of ROW_BLOCK_COLS outputs the row pass kernel splits
+    rank k into: b rounded up to 8 columns, then the K(K+1)/2 pairs of
+    corr rounded up to 8 (one block up to K = 10, eight at K = 32)."""
+    return -(-(_pad8(k) + _pad8(k * (k + 1) // 2)) // ROW_BLOCK_COLS)
+
+
+def row_pass_ctas(n_rows: int, k: int) -> int:
+    """CTAs of one row pass launch: one per strip of ROW_STRIP rows and
+    column block, on a 1-D grid (the column blocks of a strip side by
+    side). Raises if the grid cannot hold them (past 2^31 - 1, about 3.4e10
+    rows at K = 32)."""
+    ctas = -(-n_rows // ROW_STRIP) * row_column_blocks(k)
+    if ctas > _MAX_GRID:
+        raise ValueError(f"{n_rows} rows at rank {k} need {ctas} CTAs, past "
+                         f"the grid's {_MAX_GRID}")
+    return ctas
 
 
 def _check(r, x, side, n_side):
@@ -185,16 +235,19 @@ def _launch(which, r, x, ascale, implicit):
     lib = _kernel_lib()
     b = torch.empty((n_out, k), dtype=torch.float32, device=r.device)
     corr = torch.empty((n_out, k * k), dtype=torch.float32, device=r.device)
-    args = [int(implicit), r.data_ptr(), x.data_ptr(),
-            float(np.float32(ascale)), n_rows, n_cols, k,
-            b.data_ptr(), corr.data_ptr()]
-    if which == "row":
+    dims = [float(np.float32(ascale)), n_rows, n_cols, k]
+    if which == "row":  # the tensor-core B operand, formed once per call
+        row_pass_ctas(n_rows, k)
+        op = row_operand(x)
         fn = lib.dense_row_pass
+        args = [int(implicit), r.data_ptr(), op.data_ptr(), *dims,
+                b.data_ptr(), corr.data_ptr()]
     else:  # the col pass sums row chunks apart, then in order
-        fn = lib.dense_col_pass
         scratch = torch.empty(lib.dense_col_pass_scratch(n_rows, n_cols, k),
                               dtype=torch.float32, device=r.device)
-        args.append(scratch.data_ptr())
+        fn = lib.dense_col_pass
+        args = [int(implicit), r.data_ptr(), x.data_ptr(), *dims,
+                b.data_ptr(), corr.data_ptr(), scratch.data_ptr()]
     err = fn(
         *args,
         r.device.index if r.device.index is not None

@@ -55,7 +55,18 @@ _CHUNK = 1024
 LAUNCHES = 0
 #: kernel launches through ``fused_masked_topk`` in this process
 MASKED_LAUNCHES = 0
+#: the same calls by route: "select" (the segment and row passes, k up to
+#: SELECT_MAX_K) or "sort" (the chunk sort and merge tree, larger k)
+MASKED_ROUTE_LAUNCHES = {"select": 0, "sort": 0}
 _launch_lock = threading.Lock()
+
+#: largest k the precomputed-score selector's select route takes; must
+#: equal SELECT_MAX_K in csrc/recommend_topk.cu
+SELECT_MAX_K = 1024
+
+#: score columns one block of the select route's segment pass reads; must
+#: equal SEGMENT in csrc/recommend_topk.cu
+SELECT_SEGMENT = 4096
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -329,7 +340,9 @@ def fused_masked_topk(
 
     Returns (values (B, k) f32, indices (B, k) int32), ordered by score
     descending, ties to the lowest index. Needs 0 < k <= I_p. CPU
-    tensors run the plain version; CUDA tensors launch the kernel."""
+    tensors run the plain version; CUDA tensors launch the kernel, by
+    the route `masked_route(k)` names: a radix select in two launches up
+    to SELECT_MAX_K, the chunk sort and merge tree above it."""
     if scores.dim() != 2:
         raise ValueError(f"need scores (B, I_p), got {tuple(scores.shape)}")
     b, i_p = (int(n) for n in scores.shape)
@@ -376,6 +389,8 @@ def _kernel_lib():
         lib.recommend_topk.restype = i
         lib.masked_topk.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, i, p]
         lib.masked_topk.restype = i
+        lib.masked_select.argtypes = [p, p, p, i, i, i, i, i, p, p, p, i, p]
+        lib.masked_select.restype = i
         _lib = lib
     return _lib
 
@@ -392,6 +407,18 @@ def merge_levels(i_p: int, k: int) -> list[tuple[int, int]]:
     return levels
 
 
+def masked_route(k: int) -> str:
+    """The precomputed-score selector's route for this k: "select" (two
+    launches) up to SELECT_MAX_K, "sort" above it."""
+    return "select" if k <= SELECT_MAX_K else "sort"
+
+
+def select_scratch_keys(i_p: int, k: int) -> int:
+    """int64 keys per row of the select route's scratch: k slots for each
+    SELECT_SEGMENT-column segment of the row."""
+    return -(-i_p // SELECT_SEGMENT) * k
+
+
 def _contig(t):
     if t is not None and not t.is_contiguous():
         raise ValueError("the CUDA kernel takes contiguous tensors only")
@@ -402,9 +429,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _scratch_and_outputs(b, i_p, k, device):
+def _scratch_and_outputs(b, i_p, k, device, route="sort"):
+    """int64 scratch for the route, then the outputs (values (b, k) f32,
+    indices (b, k) int32): the sort route's two merge-tree buffers, or
+    the select route's segment candidates and one allocation for both
+    outputs (allocations are much of a small call's host time)."""
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
+    if route == "select":
+        scratch = torch.empty(b * select_scratch_keys(i_p, k),
+                              dtype=torch.int64, device=device)
+        out = torch.empty((2, b, k), dtype=torch.int32, device=device)
+        return scratch, out[0].view(torch.float32), out[1]
     per_row = max(n * stride for n, stride in merge_levels(i_p, k))
     scratch = torch.empty((2, b, per_row), dtype=torch.int64, device=device)
     vals = torch.empty((b, k), dtype=torch.float32, device=device)
@@ -445,16 +481,26 @@ def _launch_masked(scores, bits, rows, k, n_items):
         _contig(t)
     b, i_p = (int(n) for n in scores.shape)
     lib = _kernel_lib()
-    scratch, vals, idx = _scratch_and_outputs(b, i_p, k, scores.device)
     n_excl = 0 if rows is None else int(rows.shape[1])
-    err = lib.masked_topk(
-        _ptr(scores), _ptr(bits), _ptr(rows), n_excl, b, i_p, n_items, k,
-        _CHUNK, _ptr(scratch[0]), _ptr(scratch[1]), _ptr(vals), _ptr(idx),
-        _device_index(scores.device),
-        torch.cuda.current_stream(scores.device).cuda_stream,
-    )
+    route = masked_route(k)
+    if route == "select" and scores.data_ptr() % 16:
+        raise ValueError("the CUDA kernel takes 16-byte aligned scores only")
+    scratch, vals, idx = _scratch_and_outputs(b, i_p, k, scores.device, route)
+    common = (_ptr(scores), _ptr(bits), _ptr(rows), n_excl, b, i_p, n_items, k)
+    index = _device_index(scores.device)
+    # the raw handle: a torch.cuda.Stream object per call is a visible
+    # share of the host time of a call, which at B = 1 exceeds the card's
+    tail = (index, torch._C._cuda_getCurrentRawStream(index))
+    if route == "select":
+        err = lib.masked_select(*common, _ptr(scratch), _ptr(vals),
+                                _ptr(idx), *tail)
+    else:
+        err = lib.masked_topk(*common, _CHUNK, _ptr(scratch[0]),
+                              _ptr(scratch[1]), _ptr(vals), _ptr(idx), *tail)
     if err:
-        raise RuntimeError(f"masked_topk kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"masked top-k kernel launch ({route} route) failed: CUDA error {err}")
     with _launch_lock:
         MASKED_LAUNCHES += 1
+        MASKED_ROUTE_LAUNCHES[route] += 1
     return vals, idx

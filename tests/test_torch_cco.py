@@ -173,38 +173,36 @@ def _assert_same(ref, got):
     np.testing.assert_allclose(got[0], ref[0], rtol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["auto", "off"])
+@pytest.mark.parametrize("jmode", ["off", "interpret"])
 @pytest.mark.parametrize("width", [32, 128])
-def test_batch_score_topk_matches_jax(width, mode):
-    """Row-list (narrow) and host-packed (wide) exclusions, both tails,
-    against the JAX package's XLA tail and its kernel in interpret mode
-    (tests/test_fused_serving.py:176)."""
+def test_batch_score_topk_matches_jax(width, jmode):
+    """Row-list (narrow) and host-packed (wide) exclusions against each
+    of the JAX package's tails: XLA (``off``) and its kernel in interpret
+    mode (tests/test_fused_serving.py:176)."""
     rng = np.random.RandomState(25)
     tables, hists = _cco_tables(rng)
     ex = np.full((8, width), -1, np.int32)
     for b in range(8):
         ex[b, :12] = rng.choice(500, 12, replace=False)
-    got = tcco.batch_score_topk(tables, hists, ex, 17, mode=mode, device="cpu")
-    for jmode in ("off", "interpret"):
-        _assert_same(jcco.batch_score_topk(tables, hists, ex, 17, mode=jmode), got)
+    got = tcco.batch_score_topk(tables, hists, ex, 17, device="cpu")
+    _assert_same(jcco.batch_score_topk(tables, hists, ex, 17, mode=jmode), got)
 
 
-@pytest.mark.parametrize("mode", ["auto", "off"])
-def test_batch_score_topk_ties_and_k_edge(mode):
+@pytest.mark.parametrize("jmode", ["off", "interpret"])
+def test_batch_score_topk_ties_and_k_edge(jmode):
     """Every item row carries the same correlators (global ties) and
-    k == n_items: lax.top_k's lowest-index order on both tails."""
+    k == n_items: lax.top_k's lowest-index order, as each of the JAX
+    package's tails gives it."""
     rng = np.random.RandomState(26)
     I, J = 256, 40
     idx = np.tile(rng.randint(0, J, (1, 6)), (I, 1)).astype(np.int32)
     sc = np.tile(np.abs(rng.standard_normal((1, 6))), (I, 1)).astype(np.float32)
     hist = rng.randint(-1, J, (4, 8)).astype(np.int32)
     ex = np.full((4, 8), -1, np.int32)
-    got = tcco.batch_score_topk([(idx, sc, J)], [hist], ex, I, mode=mode,
-                                device="cpu")
-    for jmode in ("off", "interpret"):
-        _assert_same(
-            jcco.batch_score_topk([(idx, sc, J)], [hist], ex, I, mode=jmode), got
-        )
+    got = tcco.batch_score_topk([(idx, sc, J)], [hist], ex, I, device="cpu")
+    _assert_same(
+        jcco.batch_score_topk([(idx, sc, J)], [hist], ex, I, mode=jmode), got
+    )
 
 
 def test_batch_score_topk_matches_score_history():
@@ -256,9 +254,10 @@ def test_batch_score_topk_batch_invariant():
 
 
 def test_batch_score_topk_rejects_unknown_mode():
+    """The port has one tail: a tail mode is not an argument."""
     rng = np.random.RandomState(9)
     tables, hists = _cco_tables(rng, I=50, js=(10,))
-    with pytest.raises(ValueError, match="mode"):
+    with pytest.raises(TypeError, match="mode"):
         tcco.batch_score_topk(tables, hists, np.full((8, 8), -1, np.int32), 5,
                               mode="interpret", device="cpu")
 

@@ -122,14 +122,87 @@ def test_fused_wrapper_rejects_bad_inputs():
 
 
 def test_zero_cells_contribute_nothing():
-    """The kernel skips zero cells; the plain version sums them. With
-    finite factors their terms are exactly zero, so an all-zero matrix
-    gives exact zeros."""
+    """The col pass kernel skips zero cells; the row pass kernel and the
+    plain versions multiply them. With finite factors their terms are
+    exactly zero, so an all-zero matrix gives exact zeros."""
     x = torch.randn((64, 6))
     for implicit in (True, False):
         b, c = tdf.fused_col_pass_plain(
             torch.zeros((64, 40), dtype=torch.int8), x, 0.5, implicit=implicit)
         assert not b.any() and not c.any()
+
+
+def _csrc_constant(name):
+    import re
+    from pathlib import Path
+
+    src = (Path(tdf.__file__).parent / "csrc" / "dense_pass.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_row_operand_constants_match_the_kernel_source():
+    assert tdf.ROW_BLOCK_COLS == 8 * _csrc_constant("TC_TILES")
+    assert tdf.ROW_STRIP == 16 * _csrc_constant("TC_WARPS")
+    assert tdf.MAX_RANK == _csrc_constant("MAX_K")
+
+
+@pytest.mark.parametrize("n_rows,k,ctas", [
+    (139_264, 10, 1_088),              # the ML-20M slab: one column block
+    (139_264, 32, 8_704),              # eight column blocks
+    (8_388_608, 32, 524_288),          # past 65,535 strips (8,388,480 rows)
+    (35_000_000, 32, 2_187_504),       # the dense gate's widest user count
+    ((2**31 - 1) * 128, 1, 2**31 - 1),  # one column block: the grid's limit
+])
+def test_row_pass_ctas(n_rows, k, ctas):
+    """The row pass kernel's 1-D grid (strips x column blocks) holds any
+    user count the dense gate admits: no cap at 65,535 strips."""
+    assert tdf.row_pass_ctas(n_rows, k) == ctas
+
+
+def test_row_pass_ctas_refuses_past_the_grid():
+    with pytest.raises(ValueError, match="CTAs"):
+        tdf.row_pass_ctas((2**31 - 1) // 8 * 128 + 128, 32)
+
+
+def _pad8(n):
+    return -(-n // 8) * 8
+
+
+@pytest.mark.parametrize("k", [1, 8, 10, 32])
+def test_row_operand_matches_jax_y16_z16(k):
+    """The row pass kernel's B operand [Y16 | Z16], formed by the
+    wrapper, holds the JAX package's kernel operands bit for bit: y16 =
+    bf16(y) (dense_pallas.fused_row_pass) and z16 = bf16(y_i · y_j
+    formed in f32) (als._dense_half_step's z32), at the pairs i ≤ j in
+    row-major order (corr is symmetric), zeros in the pads up to whole
+    column blocks."""
+    rng = np.random.default_rng(200 + k)
+    n = 300
+    y = rng.standard_normal((n, k)).astype(np.float32)
+    jy = jnp.asarray(y)
+    y16 = np.asarray(jy.astype(jnp.bfloat16)).view(np.int16)
+    z32 = (jy[:, :, None] * jy[:, None, :]).reshape(n, k * k).astype(jnp.float32)
+    z16 = np.asarray(z32.astype(jnp.bfloat16)).view(np.int16)
+    iu, ju = np.triu_indices(k)
+    # the symmetric half is the same bits
+    assert np.array_equal(z16[:, iu * k + ju], z16[:, ju * k + iu])
+    op = tdf.row_operand(torch.from_numpy(y))
+    kp, pairs = _pad8(k), len(iu)
+    width = tdf.row_column_blocks(k) * tdf.ROW_BLOCK_COLS
+    assert op.dtype == torch.bfloat16 and tuple(op.shape) == (n, width)
+    assert width - tdf.ROW_BLOCK_COLS < kp + _pad8(pairs) <= width
+    assert op.is_contiguous()
+    bits = op.view(torch.int16).numpy()
+    assert np.array_equal(bits[:, :k], y16)
+    assert np.array_equal(bits[:, kp:kp + pairs], z16[:, iu * k + ju])
+    assert not bits[:, k:kp].any() and not bits[:, kp + pairs:].any()
+
+
+@pytest.mark.parametrize("k,blocks", [(1, 1), (10, 1), (11, 2), (16, 3), (32, 8)])
+def test_row_column_blocks(k, blocks):
+    """One column block (one read of R) up to K = 10: 16 + 56 = 72
+    columns; K = 32 needs 32 + 528 = 560 columns, eight blocks."""
+    assert tdf.row_column_blocks(k) == blocks
 
 
 # ---------------------------------------------------------------------------

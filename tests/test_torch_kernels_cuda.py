@@ -3,13 +3,15 @@ versions, on the card. Needs a CUDA device and nvcc; skips without a
 card (a CUDA kernel has no CPU mode). Imports no jax, so it runs where
 only the port is installed:
 
-    python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
+    python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest
 
-The top-k kernels (scored and precomputed-score) and their plain
-versions do the same rounded operations, or only select, so indices AND
-values must be equal, for every k up to the padded width. The ALS edge-pass kernels differ from their plain versions only
-in the order of f32 sums, so they are held to 1e-5 times the sum of
-the absolute terms, and to equal bits on a second launch.
+The top-k kernels (scored and precomputed-score, on both of the
+latter's routes) and their plain versions do the same rounded
+operations, or only select, so indices AND values must be equal, for
+every k up to the padded width. The ALS edge-pass kernels differ from
+their plain versions only in how the f32 sums are taken (the row pass
+on the tensor cores), so they are held to 1e-5 times the sum of the
+absolute terms, and to equal bits on a second launch.
 """
 
 import numpy as np
@@ -178,6 +180,68 @@ def test_dense_pass_kernel_long_sums(card, which):
         assert torch.equal(kb, kb2) and torch.equal(kc, kc2)
         for got, want, mag in ((kb, pb, sb), (kc, pc, sc)):
             assert float(((got - want).abs() - 1e-5 * mag).max()) <= 0.0
+
+
+@pytest.mark.parametrize("k", [16, 32])
+def test_row_pass_kernel_split_columns(card, k):
+    """Ranks whose K + K(K+1)/2 outputs exceed one CTA's columns split
+    them over column blocks (three at K = 16, eight at K = 32), each
+    reading R once; ragged rows and columns (not multiples of the strip
+    or stage)."""
+    from predictionio_tpu_torch.ops import dense_fused as df
+
+    assert df.row_column_blocks(k) > 1
+    rng = np.random.default_rng(11 + k)
+    r = _dense_case(rng, 700, 1_040, k, True, card, density=0.2)
+    y = torch.from_numpy(rng.standard_normal((1_040, k)).astype(np.float32)).to(card)
+    for implicit in (True, False):
+        kb, kc = df.fused_row_pass(r, y, 0.85, implicit=implicit)
+        kb2, kc2 = df.fused_row_pass(r, y, 0.85, implicit=implicit)
+        pb, pc = df.fused_row_pass_plain(r, y, 0.85, implicit=implicit)
+        sb, sc = df.fused_row_pass_plain(r, y, 0.85, implicit=implicit,
+                                         magnitude=True)
+        torch.cuda.synchronize()
+        assert torch.equal(kb, kb2) and torch.equal(kc, kc2)
+        for got, want, mag in ((kb, pb, sb), (kc, pc, sc)):
+            assert float(((got - want).abs() - 1e-5 * mag).max()) <= 0.0
+
+
+@pytest.mark.parametrize("which", ["row", "col"])
+def test_dense_pass_kernel_all_zero_r(card, which):
+    """An all-zero R gives exact zeros: the row pass multiplies every
+    cell, the col pass skips them."""
+    from predictionio_tpu_torch.ops import dense_fused as df
+
+    fn = df.fused_row_pass if which == "row" else df.fused_col_pass
+    r = torch.zeros((600, 1_024), dtype=torch.int8, device=card)
+    n_side = 1_024 if which == "row" else 600
+    x = torch.randn((n_side, 10), device=card)
+    for implicit in (True, False):
+        kb, kc = fn(r, x, 0.5, implicit=implicit)
+        torch.cuda.synchronize()
+        assert not kb.any() and not kc.any()
+
+
+def test_row_pass_kernel_past_65535_strips(card):
+    """8,400,000 users (65,625 strips of 128 rows, past a 2-D grid's
+    65,535) at two column blocks: every strip is computed, as in the
+    plain version, and a relaunch gives the same bits."""
+    from predictionio_tpu_torch.ops import dense_fused as df
+
+    rng = np.random.default_rng(17)
+    n_rows, n_cols, k = 8_400_000, 16, 11
+    assert -(-n_rows // df.ROW_STRIP) > 65_535 and df.row_column_blocks(k) == 2
+    r = torch.randint(-3, 4, (n_rows, n_cols), dtype=torch.int8, device=card,
+                      generator=torch.Generator(card).manual_seed(17))
+    y = torch.from_numpy(rng.standard_normal((n_cols, k)).astype(np.float32)).to(card)
+    kb, kc = df.fused_row_pass(r, y, 0.5, implicit=True)
+    kb2, kc2 = df.fused_row_pass(r, y, 0.5, implicit=True)
+    pb, pc = df.fused_row_pass_plain(r, y, 0.5, implicit=True)
+    sb, sc = df.fused_row_pass_plain(r, y, 0.5, implicit=True, magnitude=True)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, kb2) and torch.equal(kc, kc2)
+    for got, want, mag in ((kb, pb, sb), (kc, pc, sc)):
+        assert float(((got - want).abs() - 1e-5 * mag).max()) <= 0.0
 
 
 def test_dense_pass_kernel_rejects_noncontiguous(card):
@@ -354,8 +418,9 @@ def _masked_case(rng, b, n_items, mask_kind, dev, width=64):
                                              ("rows", 8), ("rows", 64)])
 def test_masked_kernel_equals_plain(card, mask_kind, width):
     rng = np.random.default_rng(3)
+    # 12,345 items: 4 segments of candidates, 32 KB of them at k = 1,024
     for b, n_items in ((1, 100), (3, 1100), (64, 5000), (130, 3000),
-                       (8, 100_000)):
+                       (2, 12_345), (8, 100_000)):
         scores, bits, rows = _masked_case(rng, b, n_items, mask_kind, card,
                                           width or 64)
         i_p = scores.shape[1]
@@ -388,6 +453,69 @@ def test_masked_kernel_ties_across_chunks(card):
     assert torch.equal(ki[0, :5], want)
 
 
+@pytest.mark.parametrize("k", [1023, 1024, 1025])
+def test_masked_kernel_routes_by_k(card, k):
+    """k up to SELECT_MAX_K takes the select route (segment and row
+    passes), larger k the chunk sort and merge tree; both equal the plain
+    version."""
+    rng = np.random.default_rng(6)
+    scores, bits, rows = _masked_case(rng, 16, 30_000, "bits", card)
+    route = rec.masked_route(k)
+    before = dict(rec.MASKED_ROUTE_LAUNCHES)
+    kv, ki = rec.fused_masked_topk(scores, bits, rows, k=k, n_items=30_000)
+    pv, pi = rec.fused_masked_topk_plain(scores, bits, rows, k=k, n_items=30_000)
+    torch.cuda.synchronize()
+    assert route == ("select" if k <= rec.SELECT_MAX_K else "sort")
+    assert rec.MASKED_ROUTE_LAUNCHES[route] == before[route] + 1
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("n_items", [1_000, 12_345, 40_000])
+def test_masked_kernel_ties_across_segments(card, n_items):
+    """Equal maxima on both sides of every segment boundary (and every
+    chunk boundary), -0.0 beside +0.0, I_p below one segment and not a
+    multiple of it: the lowest index wins, on both routes."""
+    i_p = rec.pad_items(n_items)
+    scores = torch.zeros((3, i_p), device=card)
+    edges = torch.tensor(range(rec._CHUNK, n_items, rec._CHUNK),
+                         dtype=torch.long, device=card)
+    scores[:, edges - 1] = 7.0
+    scores[:, edges] = 7.0
+    scores[1, :300] = -0.0
+    scores[2, ::3] = 7.0
+    for k in (1, 2, 10, 64, 1_000, 1_024, 1_500, n_items):
+        if k > i_p:
+            continue
+        kv, ki = rec.fused_masked_topk(scores, k=k, n_items=n_items)
+        pv, pi = rec.fused_masked_topk_plain(scores, None, None, k=k,
+                                             n_items=n_items)
+        torch.cuda.synchronize()
+        assert torch.equal(ki, pi) and torch.equal(kv, pv), (n_items, k)
+
+
+def test_masked_kernel_mostly_zero_segments_relaunched(card):
+    """Rows of users with little history: whole segments of equal
+    scores (one value is left after the radix select's first narrowing,
+    then the tie ranks are scanned), launched many times, each equal to
+    the plain version: no launch may take more or fewer than k keys."""
+    rng = np.random.default_rng(21)
+    n_items, b = 100_000, 64
+    i_p = rec.pad_items(n_items)
+    scores = np.zeros((b, i_p), np.float32)
+    for row in range(1, b):  # a few scored items, the rest 0 (row 0: all 0)
+        cols = rng.integers(0, n_items, rng.integers(1, 40))
+        scores[row, cols] = rng.integers(1, 5, len(cols)) / 2.0
+    scores[:, n_items:] = 1.0  # pads sink below every live item
+    mask = rng.random((b, n_items)) < 0.01
+    bits = torch.from_numpy(rec.pack_mask_np(mask, i_p)).to(card)
+    s = torch.from_numpy(scores).to(card)
+    for k in (10, 64, 1_024):
+        pv, pi = rec.fused_masked_topk_plain(s, bits, None, k=k, n_items=n_items)
+        for _ in range(50):
+            kv, ki = rec.fused_masked_topk(s, bits, k=k, n_items=n_items)
+            assert torch.equal(ki, pi) and torch.equal(kv, pv), k
+
+
 def test_masked_kernel_rejects_noncontiguous(card):
     scores = torch.zeros((8, 512), device=card)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
@@ -412,7 +540,9 @@ def test_batch_score_topk_card_equals_cpu(card):
         on_card = [(torch.from_numpy(i).to(card), torch.from_numpy(s).to(card), j)
                    for i, s, j in tables]
         before = rec.MASKED_LAUNCHES
+        select = rec.MASKED_ROUTE_LAUNCHES["select"]
         got = cco.batch_score_topk(on_card, hists, ex, 64)
         assert rec.MASKED_LAUNCHES == before + 1
+        assert rec.MASKED_ROUTE_LAUNCHES["select"] == select + 1
         want = cco.batch_score_topk(tables, hists, ex, 64, device="cpu")
         assert np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0])

@@ -136,3 +136,60 @@ def test_masked_topk_empty_row_list_excludes_nothing():
                               exclude_rows=torch.zeros((B, 0), dtype=torch.int32),
                               k=9, n_items=N_ITEMS)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# ---------------------------------------------------------------------------
+# the card's routes and scratch (sizing only: the kernels run on the card)
+# ---------------------------------------------------------------------------
+
+
+def _csrc_constant(name):
+    import re
+    from pathlib import Path
+
+    src = (Path(trp.__file__).parent / "csrc" / "recommend_topk.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_select_constants_match_the_kernel_source():
+    assert trp.SELECT_SEGMENT == _csrc_constant("SEGMENT")
+    assert trp.SELECT_MAX_K == _csrc_constant("SELECT_MAX_K")
+    assert trp._CHUNK == _csrc_constant("CHUNK")
+
+
+@pytest.mark.parametrize("k,route", [(1, "select"), (64, "select"),
+                                     (1023, "select"), (1024, "select"),
+                                     (1025, "sort"), (100_000, "sort")])
+def test_masked_route_by_k(k, route):
+    """k up to SELECT_MAX_K takes the two-launch select route, larger k
+    the chunk sort and merge tree (pass 1, merge levels, emit)."""
+    assert trp.masked_route(k) == route
+    if route == "sort":
+        # the sort route's pass 1 and merge levels at the UR catalog's I_p
+        levels = trp.merge_levels(100_096, k)
+        assert levels[0] == (98, min(k, trp._CHUNK)) and levels[-1][0] == 1
+        if k == 100_000:
+            assert len(levels) == 8  # 98 chunks: 7 merge levels
+
+
+@pytest.mark.parametrize("b,i_p,k", [(1, 128, 1), (64, 100_096, 64),
+                                     (8, 4096, 1024), (3, 4224, 1000),
+                                     (2, 12_416, 7), (1, 1024, 1024)])
+def test_select_scratch_holds_k_slots_per_segment(b, i_p, k):
+    """One row of k key slots per SELECT_SEGMENT columns, the last
+    segment short (4224 = 4096 + 128) or the only one (I_p below a
+    segment); every segment's top min(k, its columns) fits its slots."""
+    n_seg = -(-i_p // trp.SELECT_SEGMENT)
+    assert trp.select_scratch_keys(i_p, k) == n_seg * k
+    widths = [min(trp.SELECT_SEGMENT, i_p - s * trp.SELECT_SEGMENT)
+              for s in range(n_seg)]
+    assert sum(widths) == i_p and min(widths) > 0
+    # the row pass selects k of the candidates: there are at least k
+    assert sum(min(k, w) for w in widths) >= k
+
+
+def test_cpu_path_counts_no_masked_launch():
+    before = (trp.MASKED_LAUNCHES, dict(trp.MASKED_ROUTE_LAUNCHES))
+    scores, bits, _ = _case(7, "bits")
+    trp.fused_masked_topk(_torch(scores), _torch(bits), k=5, n_items=N_ITEMS)
+    assert (trp.MASKED_LAUNCHES, trp.MASKED_ROUTE_LAUNCHES) == before
