@@ -28,8 +28,8 @@ Phases, in order; any failure prints what failed and exits non-zero:
 5. dense    the dense ALS row/col pass kernels against their plain
             versions on the card: implicit and explicit, signed ratings,
             scale in {1, 2, 10}, K in {1, 8, 10, 32} at 2048 x 256, and
-            the full ML-20M slab (139,264 x 26,880 int8, K = 10,
-            implicit; the row pass also at K = 32). Per element
+            the full ML-20M slab (139,264 x 26,880 int8, K = 10 and 32,
+            implicit). Per element
             |kernel - plain| <= 1e-5 * S, S the same pass over the
             absolute terms; a second launch must give the same bits.
 6. train    the main path: ``ALSAlgorithm.train`` on the phase-4 data at
@@ -52,7 +52,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             K = 10 (kernel, plain, the port's two-matmul ``ops.dense``
             pass on the same R in bf16 storage as the yardstick, bound),
             and the kernel again on a uniform R with as many ratings and
-            on an all-zero R; the row pass the same way at K = 32.
+            on an all-zero R; both passes the same way at K = 32.
 10. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
             users x 59,047 items, 25,000,095 unique pairs (users 20 to
             32,202 ratings, items up to 81,491); the dense gate must refuse
@@ -483,12 +483,6 @@ def _pairs_with_degrees(rng, d_user, d_item, max_rounds=500):
     raise PhaseError(f"{len(pending)} repeated pairs left after {max_rounds} rounds")
 
 
-def _tile_load(deg, tile):
-    """Largest and mean ratings per tile of `tile` consecutive ids."""
-    per = np.add.reduceat(deg, np.arange(0, len(deg), tile))
-    return int(per.max()), float(per.mean())
-
-
 def phase_data(report, shared):
     """ML-20M's shape from SEED: N_EDGES unique (user, item) pairs with
     ML-20M's skewed degrees, half-star ratings 0.5-5.0 drawn uniformly.
@@ -517,15 +511,12 @@ def phase_data(report, shared):
     i_deg = np.bincount(cols, minlength=N_ITEMS)
     check(np.array_equal(u_deg, d_user) and np.array_equal(i_deg, d_item),
           "degrees differ from their targets")
-    row_tile, col_tile = _tile_load(u_deg, 64), _tile_load(i_deg, 32)
     report["data"] = {
         "users": N_USERS, "items": N_ITEMS, "edges": N_EDGES,
         "user_degree": {"min": int(u_deg.min()), "median": float(np.median(u_deg)),
                         "max": int(u_deg.max())},
         "item_degree": {"min": int(i_deg.min()), "median": float(np.median(i_deg)),
                         "max": int(i_deg.max())},
-        # ratings per CTA of the row pass (64 users) and col pass (32 items)
-        "row_tile_max_mean": row_tile, "col_tile_max_mean": col_tile,
         "swap_rounds": rounds, "seconds": time.perf_counter() - t0,
     }
     d = report["data"]
@@ -534,10 +525,8 @@ def phase_data(report, shared):
           f"{d['user_degree']['min']}/{d['user_degree']['median']:.0f}/"
           f"{d['user_degree']['max']}, items min/median/max "
           f"{d['item_degree']['min']}/{d['item_degree']['median']:.0f}/"
-          f"{d['item_degree']['max']}; ratings per "
-          f"64-user tile max {row_tile[0]} mean {row_tile[1]:.0f}, per 32-item "
-          f"tile max {col_tile[0]} mean {col_tile[1]:.0f}; {rounds} swap "
-          f"rounds, {d['seconds']:.1f} s", flush=True)
+          f"{d['item_degree']['max']}; {rounds} swap rounds, "
+          f"{d['seconds']:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -558,7 +547,7 @@ def _within(got, want, mag, label, tally, prefix=""):
     tally[prefix + "max_ratio"] = max(tally[prefix + "max_ratio"], ratio)
 
 
-def _dense_compare(r, x, ascale, implicit, which, tally, label):
+def _dense_compare(r, x, ascale, implicit, which, tally, label, prefix=""):
     fn = df.fused_row_pass if which == "row" else df.fused_col_pass
     plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
     kb, kc = fn(r, x, ascale, implicit=implicit)
@@ -570,6 +559,8 @@ def _dense_compare(r, x, ascale, implicit, which, tally, label):
           f"{label}: a second launch gave other bits")
     for got, want, mag, what in ((kb, pb, sb, "b"), (kc, pc, sc, "corr")):
         _within(got, want, mag, f"{label} {what}", tally[which])
+        if prefix:
+            _within(got, want, mag, f"{label} {what}", tally[which], prefix)
     tally[which]["cases"] += 1
 
 
@@ -589,7 +580,8 @@ def _small_ratings(rng, scale, n_rows=2048, n_cols=256, density=0.05):
 def phase_dense(report, shared):
     rng = np.random.default_rng(SEED + 2)
     t0 = time.perf_counter()
-    tally = {w: {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0}
+    tally = {w: {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
+                 "slab_max_abs_err": 0.0, "slab_max_ratio": 0.0}
              for w in ("row", "col")}
     for scale in (1.0, 2.0, 10.0):
         r = _small_ratings(rng, scale)
@@ -617,12 +609,14 @@ def phase_dense(report, shared):
         x = torch.from_numpy((rng.standard_normal((n_side, RANK))
                               / np.sqrt(RANK)).astype(np.float32)).cuda()
         _dense_compare(r, x, ascale, True, which, tally,
-                       f"ML-20M slab {n_u_p}x{n_i_p} {which}")
-    # the row pass at the widest rank: its outputs split over column blocks
-    x = torch.from_numpy((rng.standard_normal((n_i_p, df.MAX_RANK))
-                          / np.sqrt(df.MAX_RANK)).astype(np.float32)).cuda()
-    _dense_compare(r, x, ascale, True, "row", tally,
-                   f"ML-20M slab {n_u_p}x{n_i_p} row K={df.MAX_RANK}")
+                       f"ML-20M slab {n_u_p}x{n_i_p} {which}", "slab_")
+    # both passes at the widest rank: their outputs split over column blocks
+    for which, n_side in (("row", n_i_p), ("col", n_u_p)):
+        x = torch.from_numpy((rng.standard_normal((n_side, df.MAX_RANK))
+                              / np.sqrt(df.MAX_RANK)).astype(np.float32)).cuda()
+        _dense_compare(r, x, ascale, True, which, tally,
+                       f"ML-20M slab {n_u_p}x{n_i_p} {which} K={df.MAX_RANK}",
+                       "slab_")
     del x
     report["dense_sweep"] = dict(tally, seconds=time.perf_counter() - t0)
     for w in ("row", "col"):
@@ -630,7 +624,8 @@ def phase_dense(report, shared):
         print(f"[dense] {w} pass: {t['cases']} cases within 1e-5*S, second "
               f"launch bit-equal in all; max |kernel - plain| "
               f"{t['max_abs_err']:.3g}, largest |kernel - plain| / (1e-5*S) "
-              f"{t['max_ratio']:.3g}", flush=True)
+              f"{t['max_ratio']:.3g} (on the ML-20M slab at K = {RANK} and "
+              f"{df.MAX_RANK}: {t['slab_max_ratio']:.3g})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1015,8 +1010,8 @@ def phase_dense_times(report, shared):
         lib = dense.dense_row_pass if which == "row" else dense.dense_col_pass
         kernel = _time_ms(lambda: fn(r, x, ascale, implicit=True), 5, repeats=5)
         uniform = _time_ms(lambda: fn(ru, x, ascale, implicit=True), 5, repeats=5)
-        # the same pass over an all-zero R: the tile stream and the scan
-        # alone, no per-rating work (a diagnostic, not a yardstick)
+        # the same pass over an all-zero R: every cell is multiplied all
+        # the same, so it times like the others (a diagnostic, not a yardstick)
         zero = _time_ms(lambda: fn(r0, x, ascale, implicit=True), 5, repeats=5)
         plain_ms = _time_ms(lambda: plain(r, x, ascale, implicit=True), 1, repeats=3)
         library = _time_ms(lambda: lib(r16, x, implicit=True, alpha=1.0),
@@ -1033,27 +1028,31 @@ def phase_dense_times(report, shared):
               f"{plain_ms:.4f} ms, ops.dense "
               f"two-matmul on bf16 R {library:.4f} ms, bound {bound:.4f} ms "
               f"({by})", flush=True)
-    # the row pass at the widest rank: nine column blocks, R read by each
+    # both passes at the widest rank: eight column blocks, R read by each
     k = df.MAX_RANK
-    x = torch.from_numpy((rng.standard_normal((n_cols, k))
-                          / np.sqrt(k)).astype(np.float32)).cuda()
-    wide = {which: _time_ms(lambda: df.fused_row_pass(rr, x, ascale, implicit=True),
-                            3, repeats=3)
-            for which, rr in (("ms", r), ("uniform_ms", ru), ("zero_r_ms", r0))}
-    plain_ms = _time_ms(lambda: df.fused_row_pass_plain(r, x, ascale, implicit=True),
-                        1, repeats=1)
-    library = _time_ms(lambda: dense.dense_row_pass(r16, x, implicit=True, alpha=1.0),
-                       1, repeats=1)
-    bound, by = _dense_bound(n_rows, n_cols, k, "row")
-    report["dense_times_wide"] = dict(
-        wide, K=k, n_rows=n_rows, n_cols=n_cols, column_blocks=df.row_column_blocks(k),
-        plain_ms=plain_ms, library_ms=library, bound_ms=bound, bound_by=by)
-    print(f"[times] dense row pass {n_rows}x{n_cols} int8, K={k} "
-          f"({df.row_column_blocks(k)} column blocks): kernel {wide['ms']:.4f} ms on "
-          f"the skewed R (uniform R {wide['uniform_ms']:.4f} ms, all-zero R "
-          f"{wide['zero_r_ms']:.4f} ms), plain {plain_ms:.4f} ms, ops.dense "
-          f"two-matmul on bf16 R {library:.4f} ms, bound {bound:.4f} ms ({by})",
-          flush=True)
+    wide_rows = []
+    for which, n_side in (("row", n_cols), ("col", n_rows)):
+        x = torch.from_numpy((rng.standard_normal((n_side, k))
+                              / np.sqrt(k)).astype(np.float32)).cuda()
+        fn = df.fused_row_pass if which == "row" else df.fused_col_pass
+        plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
+        lib = dense.dense_row_pass if which == "row" else dense.dense_col_pass
+        wide = {name: _time_ms(lambda: fn(rr, x, ascale, implicit=True), 3, repeats=3)
+                for name, rr in (("ms", r), ("uniform_ms", ru), ("zero_r_ms", r0))}
+        plain_ms = _time_ms(lambda: plain(r, x, ascale, implicit=True), 1, repeats=1)
+        library = _time_ms(lambda: lib(r16, x, implicit=True, alpha=1.0), 1, repeats=1)
+        bound, by = _dense_bound(n_rows, n_cols, k, which)
+        wide_rows.append({
+            "pass": which, **wide, "K": k, "n_rows": n_rows, "n_cols": n_cols,
+            "column_blocks": df.operand_column_blocks(k), "plain_ms": plain_ms,
+            "library_ms": library, "bound_ms": bound, "bound_by": by})
+        print(f"[times] dense {which} pass {n_rows}x{n_cols} int8, K={k} "
+              f"({df.operand_column_blocks(k)} column blocks): kernel {wide['ms']:.4f} ms "
+              f"on the skewed R (uniform R {wide['uniform_ms']:.4f} ms, all-zero R "
+              f"{wide['zero_r_ms']:.4f} ms), plain {plain_ms:.4f} ms, ops.dense "
+              f"two-matmul on bf16 R {library:.4f} ms, bound {bound:.4f} ms ({by})",
+              flush=True)
+    report["dense_times_wide"] = wide_rows
     del r16, r, r0, ru, x
     report["dense_times"] = rows
     shared.pop("coo")  # the ML-20M ratings are done with

@@ -14,9 +14,9 @@
 // each operation rounded on its own (__fmul_rn / __fadd_rn: nvcc's default
 // -fmad=true would contract 1 + a*relu(q) into an FMA, which can flip the
 // bf16 rounding), then rounded to bf16 (nearest, ties to even). y is the
-// f32 factor matrix; z = y (x) y is formed in f32 and rounded to bf16:
-// by the row pass's wrapper once per call, as the JAX wrapper forms its
-// y16/z16, and by the col pass per term in registers.
+// f32 factor matrix; z = y (x) y is formed in f32 and rounded to bf16,
+// once per call by the wrappers (ops/dense_fused.py: pass_operand), as the
+// JAX wrapper forms its y16/z16.
 //
 // Bound at the main-path shape (ML-20M: R 139,264 x 26,880 int8 = 3.74 GB,
 // K = 10): reading R once is 1.12 ms at 3.35 TB/s; y, x and the outputs
@@ -25,34 +25,32 @@
 // is bytes-bound at ~1.14 ms. PERF.md holds the times chip_smoke.py
 // measures.
 //
-// Row pass (row_pass_tc_kernel): as the TPU kernel, two matrix products
-// per R tile, b = w1 @ bf16(Y) and corr = wg @ bf16(Z), on the tensor
-// cores (mma.sync bf16 -> f32), over every cell, zero or not: its cost no
-// longer depends on how the ratings spread. corr is symmetric, so only
-// the K (K + 1) / 2 pairs i <= j are multiplied, each written twice. Each
-// CTA streams a strip of 128 rows of R once (two CTAs an SM), through a
-// cp.async pipeline that overlaps the copy of the next stages with the
-// products. 72 accumulator columns fit one CTA at K <= 10 (b padded to
-// 16, 55 pairs to 56); larger ranks split the output columns over
-// CTAs, and R is read once per column block (8 times at K = 32:
-// 32 + 528 columns). The products: 2 * n_r * n_c * 72 = 0.54 TFLOP at
-// the main-path shape.
+// Both passes, as the TPU kernel, take two matrix products per R tile,
+// b = w1 @ bf16(Y) and corr = wg @ bf16(Z), on the tensor cores
+// (mma.sync bf16 -> f32), over every cell, zero or not: their cost does
+// not depend on how the ratings spread. corr is symmetric, so only the
+// K (K + 1) / 2 pairs i <= j are multiplied, each written twice. 72
+// accumulator columns fit one CTA at K <= 10 (b padded to 16, 55 pairs to
+// 56); larger ranks split the output columns over CTAs, and R is read once
+// per column block (8 times at K = 32: 32 + 528 columns). The products:
+// 2 * n_r * n_c * 72 = 0.54 TFLOP at the main-path shape. Each CTA
+// streams its R tile through a cp.async pipeline that overlaps the copy
+// of the next stages with the products.
 //
-// Col pass (col_pass_kernel): a CTA owns a tile of output columns and
-// walks R's rows in order: each R tile is copied into shared memory
-// once, with the matching slice of x, and the CTA's f32 accumulators
-// (K + K^2 per output) stay in shared memory for the whole walk. A warp
-// owns each group of 4 output columns; lane l owns accumulator entries
-// l, l + 32, ... So every sum is taken by one thread in row order (in
-// blocks of 512 rows, per row chunk): no atomics, and two launches give
-// the same bits. A bf16 x bf16 product is exact in f32, so __fmaf_rn of
-// it is the rounded sum alone. Zero cells give w1 = wg = 0 exactly, so
-// their terms are +-0 for finite factors and leave every sum unchanged:
-// the warp finds the nonzero 32-bit words of its tile rows with one
-// ballot and visits only those (0.54 % of ML-20M's cells are set). It is
-// simple, not fast: the cost is per-rating work (K + K^2 shared-memory
-// sums per rating), tile copies are synchronous, and under a skewed item
-// degree the most-rated item's walk sets the pass's time.
+// Row pass (row_pass_tc_kernel): a CTA owns a strip of 128 rows of R (two
+// CTAs an SM) and walks R's columns; the mma's M axis is R's rows, its K
+// axis R's columns, so the A tiles are R's rows as they lie in memory.
+//
+// Col pass (col_pass_tc_kernel): the contraction runs over R's rows, so
+// the A tiles are R transposed. A CTA owns a tile of 128 columns of R
+// (two CTAs an SM) and walks a chunk of R's rows; each warp owns 32
+// columns as two m tiles and reads one 32-bit word (4 neighbouring
+// columns) from each of 4 rows per 16-row step, which gives both m tiles'
+// A fragments (see col_pass_tc_kernel). Each operand tile read by
+// ldmatrix feeds two mma, twice the row pass's reuse. R's rows split into
+// chunks that fill the card (col_plan: 210 column tiles for 264 CTA slots
+// at ML-20M width, K = 10); each chunk's sums go to scratch and
+// col_reduce_kernel adds them in chunk order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,16 +58,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int MAX_K = 32;
-constexpr int COL_TR = 64;   // col pass: R rows per tile
-constexpr int COL_TC_MAX = 32;  // col pass: R columns per CTA, at most
-constexpr int COL_CHUNKS = 32;  // col pass: row chunks (CTAs) per column tile
-// tiles per block of the two-level sums: 512 of the walked axis
-constexpr int SUM_BLOCK = 512;
-constexpr int COL_BLOCK_TILES = SUM_BLOCK / COL_TR;
-constexpr int ACC_BUDGET = 112 * 1024;  // shared bytes for both sum levels
 // row pass, on the tensor cores (row_pass_tc_kernel)
 constexpr int TC_WARPS = 8;  // two CTAs an SM
 constexpr int TC_THREADS = 32 * TC_WARPS;
@@ -82,6 +71,19 @@ constexpr int TC_W = 8 * TC_TILES;  // operand columns per column block: 72
 // an odd number of 16-byte units per shared operand row: the 8 rows of
 // an ldmatrix matrix fall in 8 distinct bank groups
 static_assert(TC_TILES % 2 == 1, "operand rows must span an odd number of 16 B");
+// col pass, on the tensor cores (col_pass_tc_kernel)
+constexpr int CP_WARPS = 4;  // two CTAs an SM
+constexpr int CP_THREADS = 32 * CP_WARPS;
+constexpr int CP_COLS = 32 * CP_WARPS;  // R columns per CTA (a tile), 32 a warp
+constexpr int CP_ROWS = 128;  // R rows per pipeline stage, one mma sum block
+// shared bytes per R row: 36 words, so the 4 rows 2t (t = 0..3) a warp
+// reads at once start 8 banks apart and its 8 words per row fill them
+constexpr int CP_RSTRIDE = CP_COLS + 16;
+static_assert(CP_RSTRIDE / 4 % 16 == 4, "the R words a warp reads must hit 32 banks");
+constexpr int CP_STAGES = 3;  // stages in flight (cp.async)
+constexpr int CP_CTAS_PER_SM = 2;  // col_pass_tc_kernel's launch bounds
+constexpr int CP_WAVES = 4;  // waves of CTAs the row chunks aim to fill
+constexpr int REDUCE_THREADS = 256;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -103,38 +105,6 @@ __device__ __forceinline__ Weights weights(int q, float a) {
     wg = qf != 0.0f ? 1.0f : 0.0f;
   }
   return {bf16_round(w1), bf16_round(wg)};
-}
-
-// acc[o] += w * v(o) for this lane's entries o = lane, lane + 32, ...:
-// o < K takes w1 * bf16(y[o]); o >= K is (i, j) = divmod(o - K, K) and
-// takes wg * bf16(y[i] * y[j]).
-__device__ __forceinline__ void accumulate(float* acc, const float* y,
-                                           Weights w, int K, int nout,
-                                           int lane) {
-  for (int o = lane; o < nout; o += 32) {
-    float v, wt;
-    if (o < K) {
-      v = bf16_round(y[o]);
-      wt = w.w1;
-    } else {
-      const int t = o - K;
-      const int i = t / K;
-      const int j = t - i * K;
-      v = bf16_round(__fmul_rn(y[i], y[j]));
-      wt = w.wg;
-    }
-    acc[o] = __fmaf_rn(wt, v, acc[o]);
-  }
-}
-
-// Adds one output's block sums to its running sums and clears them, each
-// entry by the lane that summed it (see accumulate): no sync needed.
-__device__ __forceinline__ void flush(float* acc, float* part, int nout,
-                                      int lane) {
-  for (int o = lane; o < nout; o += 32) {
-    acc[o] = __fadd_rn(acc[o], part[o]);
-    part[o] = 0.0f;
-  }
 }
 
 // Copies rows [r0, r0 + tr) x columns [c0, c0 + tc) of R (n_r x n_c int8,
@@ -177,7 +147,7 @@ __device__ __forceinline__ void load_tile(const int8_t* __restrict__ R,
 }
 
 // Row pass on the tensor cores. The wrapper (ops/dense_fused.py:
-// row_operand) forms the B operand once per call, (n_c, n_cb * TC_W)
+// pass_operand) forms the B operand once per call, (n_c, n_cb * TC_W)
 // bf16: bf16(y) in kp = K rounded up to 8 columns, then bf16(y_i * y_j)
 // for the K (K + 1) / 2 pairs i <= j in row-major order (corr is
 // symmetric: each pair's sum is written to (i, j) and (j, i)), zeros to
@@ -203,9 +173,9 @@ __device__ __forceinline__ void load_tile(const int8_t* __restrict__ R,
 // added, each by its lane, to running f32 sums in registers with
 // __fadd_rn, in column order: tensor-core accumulation rounds
 // differently from __fadd_rn, so no mma sum spans more than 128 columns
-// (within SUM_BLOCK). No atomics, no split over CTAs: a relaunch gives
-// the same bits. Zero cells give w1 = wg = 0, so their products are exact
-// zeros for finite factors, as in the plain version.
+// (see col_pass_tc_kernel for the bar). No atomics, no split over CTAs: a
+// relaunch gives the same bits. Zero cells give w1 = wg = 0, so their
+// products are exact zeros for finite factors, as in the plain version.
 __device__ __forceinline__ int stage_column(int p) {
   const int s = p & 15;
   return (TC_COLS / 4) * ((s & 7) >> 1) + 4 * (p >> 4) + 2 * (s >> 3) +
@@ -427,115 +397,285 @@ __global__ void __launch_bounds__(TC_THREADS, 2) row_pass_tc_kernel(
   }
 }
 
-// Both passes sum in two levels (the row pass as row_pass_tc_kernel
-// says). A sum runs over the whole walked axis, up to n_r = 139,264
-// terms in the col pass (67,310 of them nonzero for ML-20M's most-rated
-// item). One serial f32 sum of n positive terms
-// drifts by ~eps * sqrt(n / 3) of their total, past 1e-5 of it at n ~
-// 67,000. So the terms of each block of 512 along the walked axis go into
-// `part`, which is added to `acc` and cleared at the block's end, in block
-// order: the drift falls to ~eps * (sqrt(512 / 3) + sqrt(n / 1536)). In
-// the col pass a warp only flushes an output that got terms in the block
-// (`dirty`).
-
-// Col pass: CTA (blockIdx.x, blockIdx.y) owns R columns [c0, c0 + tc) and
-// walks the row tiles of row chunk blockIdx.y in order. Warp w owns the
-// 4-column groups w, w + WARPS, ... and reads one 32-bit word per row, 32
-// rows per ballot. The chunks split a column's walk over up to COL_CHUNKS
-// CTAs: under skewed item degrees one most-rated item would otherwise
-// hold its warp for its whole walk while the rest of the card idles. Each
-// CTA writes its chunk's sums to `S` (n_chunks x n_c x nout), and
-// col_reduce_kernel adds the chunks in order.
-template <bool IMPLICIT>
-__global__ void __launch_bounds__(THREADS)
-    col_pass_kernel(const int8_t* __restrict__ R, const float* __restrict__ X,
-                    float a, long long n_r, long long n_c, int K, int tc,
-                    long long chunk_rows, bool vec, float* __restrict__ S) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nout = K + K * K;
-  const int stride = tc + 4;  // odd word stride: a column read hits 32 banks
-  float* acc = reinterpret_cast<float*>(smem);  // tc x nout
-  float* part = acc + tc * nout;                // tc x nout
-  float* xs = part + tc * nout;                 // COL_TR x K
-  int8_t* tile = reinterpret_cast<int8_t*>(xs + COL_TR * K);  // COL_TR x stride
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int groups = tc / 4;
-  const long long c0 = static_cast<long long>(blockIdx.x) * tc;
-  // chunk_rows is a multiple of SUM_BLOCK: tiles and blocks never straddle
-  const long long r_begin = blockIdx.y * chunk_rows;
+// Col pass on the tensor cores: the row pass's two products with the
+// contraction over R's rows. The mma computes D[m, n] += A[m, k] B[k, n]
+// with m an R column, k an R row and n an operand column: B is the
+// operand of pass_operand (the row-side factors x, (n_r, n_cb * TC_W)
+// bf16), its rows in R's row order, so ldmatrix.trans reads a stage's
+// operand rows as they were copied; A is w1 or wg of R transposed.
+//
+// CTA x = (chunk * n_tiles + tile) * n_cb + cb (a 1-D grid; the column
+// blocks of a tile run side by side, so R's re-reads at larger ranks come
+// from L2) owns R columns [c0, c0 + CP_COLS) of tile `tile`, column block
+// cb of the outputs, and R rows [r_begin, r_begin + chunk_rows) of chunk
+// `chunk`, and walks them in stages of CP_ROWS with cp.async, CP_STAGES - 1
+// stages ahead, as the row pass does. Warp w owns tile columns 32w ..
+// 32w + 31 as two m tiles. In each 16-row step lane (g, t) reads one
+// 32-bit word, columns 32w + 4g .. 32w + 4g + 3, from each of the step's
+// rows 2t, 2t + 1, 2t + 8, 2t + 9: exactly its A fragments' k slots, so
+// the k order is R's row order. The word's 4 columns take m slots g
+// (columns 4g and 4g + 2) and g + 8 (4g + 1 and 4g + 3) of m tiles 0 and
+// 1: the 16 bytes go through the 256-entry weight table to (w1 | wg << 16)
+// pairs, and __byte_perm packs the two rows' halves of each register.
+// So 4 shared loads and 16 table lookups give the A fragments (w1 and
+// wg) of both m tiles, and each B fragment feeds two mma. The output
+// column of a D entry follows from its m slot in the same way.
+//
+// Sums: as in the row pass, the mma accumulators sum one stage (128 rows)
+// and are then added to running f32 sums in registers with __fadd_rn, in
+// row order. A chunk's sums go to `S` (n_chunks x n_c x n_cb * TC_W),
+// and col_reduce_kernel adds them in chunk order. No atomics: a relaunch
+// gives the same bits. The bar: a serial f32 sum of n positive terms
+// drifts by ~eps * sqrt(n / 3) of their total; the terms here are the
+// n_r / 128 stage sums (1,088 at ML-20M width, ~1.1e-6 of the total in
+// one chunk; per chunk fewer), each with the mma's own rounding of 128
+// exact products, well inside 1e-5 of the sum of the absolute terms.
+//
+// One CTA of the col pass (see above). NY, the CTA's b tiles (w1), is a
+// template argument: a run-time choice per output tile splits every 16-row
+// step into basic blocks the compiler cannot schedule across (a first
+// version did so: slower, and it spilled registers).
+template <bool IMPLICIT, int NY>
+__device__ __forceinline__ void col_pass_cta(
+    const int8_t* __restrict__ R, const __nv_bfloat16* __restrict__ X,
+    float a, long long n_r, long long n_c, int n_cb, long long chunk_rows,
+    bool vec, float* __restrict__ S, unsigned char* smem) {
+  uint32_t* table = reinterpret_cast<uint32_t*>(smem);  // 256
+  int8_t* rs = reinterpret_cast<int8_t*>(table + 256);  // stages
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
+      rs + CP_STAGES * CP_ROWS * CP_RSTRIDE);  // stages
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const long long n_tiles = (n_c + CP_COLS - 1) / CP_COLS;
+  const int cb = static_cast<int>(blockIdx.x % n_cb);
+  const long long tile_chunk = blockIdx.x / n_cb;
+  const long long chunk = tile_chunk / n_tiles;
+  const long long c0 = (tile_chunk - chunk * n_tiles) * CP_COLS;
+  const long long r_begin = chunk * chunk_rows;
+  // chunk_rows is a multiple of CP_ROWS: stages never straddle chunks
   const long long r_end =
       r_begin + chunk_rows < n_r ? r_begin + chunk_rows : n_r;
-  for (int i = threadIdx.x; i < 2 * tc * nout; i += blockDim.x) acc[i] = 0.0f;
-  uint32_t dirty = 0u;  // bit n: this warp's n-th group has terms in `part`
-  for (long long r0 = r_begin, t = 0; r0 < r_end; r0 += COL_TR, ++t) {
-    __syncthreads();
-    load_tile(R, n_r, n_c, r0, c0, COL_TR, tc, tile, stride, vec);
-    for (int i = threadIdx.x; i < COL_TR * K; i += blockDim.x)
-      xs[i] = r0 + i / K < n_r ? X[r0 * K + i] : 0.0f;
-    __syncthreads();
-    const bool block_end =
-        t % COL_BLOCK_TILES == COL_BLOCK_TILES - 1 || r0 + COL_TR >= r_end;
-    for (int g = warp, n = 0; g < groups; g += WARPS, ++n) {
-      for (int m = 0; m < COL_TR; m += 32) {
-        const uint32_t word = *reinterpret_cast<const uint32_t*>(
-            tile + (m + lane) * stride + g * 4);
-        uint32_t live = __ballot_sync(0xffffffffu, word != 0u);
-        if (live) dirty |= 1u << n;
-        while (live) {
-          const int src = __ffs(live) - 1;
-          live &= live - 1;
-          const uint32_t wd = __shfl_sync(0xffffffffu, word, src);
-          const float* xrow = xs + (m + src) * K;
-          for (int b = 0; b < 4; ++b) {
-            const int q = static_cast<int8_t>(wd >> (8 * b));
-            if (q == 0) continue;
-            accumulate(part + (g * 4 + b) * nout, xrow,
-                       weights<IMPLICIT>(q, a), K, nout, lane);
-          }
+  const long long ld = static_cast<long long>(n_cb) * TC_W;  // operand row
+  for (int i = tid; i < 256; i += CP_THREADS)
+    table[i] = weight_bits<IMPLICIT>(static_cast<int8_t>(i), a);
+  const int n_stages = static_cast<int>((r_end - r_begin + CP_ROWS - 1) / CP_ROWS);
+
+  auto load_stage = [&](int s) {
+    const int buf = s % CP_STAGES;
+    int8_t* rt = rs + buf * (CP_ROWS * CP_RSTRIDE);
+    const long long r0 = r_begin + static_cast<long long>(s) * CP_ROWS;
+    if (vec) {
+      for (int i = tid; i < CP_ROWS * (CP_COLS / 16); i += CP_THREADS) {
+        const int lr = i / (CP_COLS / 16);
+        const int ch = i % (CP_COLS / 16);
+        const long long gr = r0 + lr;
+        const long long gc = c0 + 16 * ch;
+        const bool in = gr < n_r && gc < n_c;  // chunks lie wholly in or out
+        cp_async16(rt + lr * CP_RSTRIDE + 16 * ch,
+                   in ? R + gr * n_c + gc : R, in ? 16 : 0);
+      }
+    } else {
+      load_tile(R, n_r, n_c, r0, c0, CP_ROWS, CP_COLS, rt, CP_RSTRIDE, false);
+    }
+    __nv_bfloat16* xt = xs + buf * (CP_ROWS * TC_W);
+    for (int i = tid; i < CP_ROWS * TC_TILES; i += CP_THREADS) {
+      const int row = i / TC_TILES;
+      const int ch = i % TC_TILES;
+      const long long gr = r0 + row;
+      const bool in = gr < n_r;
+      cp_async16(xt + row * TC_W + 8 * ch,
+                 in ? X + gr * ld + cb * TC_W + 8 * ch : X, in ? 16 : 0);
+    }
+  };
+
+  float acc[2][TC_TILES][4];  // this stage's mma sums, per m tile
+  float run[2][TC_TILES][4];  // the running sums, stage by stage
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int t = 0; t < TC_TILES; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][t][e] = run[m][t][e] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < CP_STAGES - 1; ++s) {
+    if (s < n_stages) load_stage(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<CP_STAGES - 2>();
+    __syncthreads();  // stage s is in; stage s - 1's buffers are free
+    if (s + CP_STAGES - 1 < n_stages) load_stage(s + CP_STAGES - 1);
+    cp_async_commit();
+    const int buf = s % CP_STAGES;
+    // this lane's words: rows 2t, 2t + 1, 2t + 8, 2t + 9 of each step
+    const int8_t* rt = rs + buf * (CP_ROWS * CP_RSTRIDE) +
+                       2 * tig * CP_RSTRIDE + 32 * warp + 4 * g;
+    const __nv_bfloat16* xt = xs + buf * (CP_ROWS * TC_W);
+#pragma unroll
+    for (int j = 0; j < CP_ROWS / 16; ++j) {
+      const int8_t* p = rt + 16 * j * CP_RSTRIDE;
+      const uint32_t q[4] = {
+          *reinterpret_cast<const uint32_t*>(p),
+          *reinterpret_cast<const uint32_t*>(p + CP_RSTRIDE),
+          *reinterpret_cast<const uint32_t*>(p + 8 * CP_RSTRIDE),
+          *reinterpret_cast<const uint32_t*>(p + 9 * CP_RSTRIDE)};
+      // e[r][c]: (w1 | wg << 16) of row r's column 4g + c
+      uint32_t e[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) e[r][c] = table[(q[r] >> (8 * c)) & 255u];
+      // m tile m: slot g is column 4g + 2m, slot g + 8 column 4g + 2m + 1
+      uint32_t a1[2][4], ag[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int c = 2 * m;
+        a1[m][0] = __byte_perm(e[0][c], e[1][c], 0x5410);
+        a1[m][1] = __byte_perm(e[0][c + 1], e[1][c + 1], 0x5410);
+        a1[m][2] = __byte_perm(e[2][c], e[3][c], 0x5410);
+        a1[m][3] = __byte_perm(e[2][c + 1], e[3][c + 1], 0x5410);
+        ag[m][0] = __byte_perm(e[0][c], e[1][c], 0x7632);
+        ag[m][1] = __byte_perm(e[0][c + 1], e[1][c + 1], 0x7632);
+        ag[m][2] = __byte_perm(e[2][c], e[3][c], 0x7632);
+        ag[m][3] = __byte_perm(e[2][c + 1], e[3][c + 1], 0x7632);
+      }
+      // ldmatrix: lanes 8m .. 8m + 7 address matrix m's rows, matrix m
+      // holding k rows (m & 1) * 8 .. + 7 of tile t + (m >> 1)
+      const __nv_bfloat16* brow =
+          xt + (16 * j + ((lane >> 3) & 1) * 8 + (lane & 7)) * TC_W;
+      uint32_t bf[4];
+#pragma unroll
+      for (int t = 0; t < TC_TILES; ++t) {
+        if ((t & 1) == 0)  // the last, odd tile reads itself twice
+          ldmatrix_x4_trans(bf, brow + 8 * min(t + (lane >> 4), TC_TILES - 1));
+        const uint32_t b0 = bf[2 * (t & 1)], b1 = bf[2 * (t & 1) + 1];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          if (t < NY)  // known at compile time: no branch
+            mma_bf16(acc[m][t], a1[m], b0, b1);
+          else
+            mma_bf16(acc[m][t], ag[m], b0, b1);
         }
       }
-      if (block_end && (dirty >> n & 1u)) {
-        for (int b = 0; b < 4; ++b)
-          flush(acc + (g * 4 + b) * nout, part + (g * 4 + b) * nout, nout,
-                lane);
-        dirty &= ~(1u << n);
-      }
     }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int t = 0; t < TC_TILES; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          run[m][t][e] = __fadd_rn(run[m][t][e], acc[m][t][e]);
+          acc[m][t][e] = 0.0f;
+        }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the stage buffers are free: stage the sums there
+  float* out = reinterpret_cast<float*>(rs);  // CP_COLS x TC_W
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int t = 0; t < TC_TILES; ++t) {
+      // d0, d1: m slot g (column 4g + 2m); d2, d3: slot g + 8 (next column)
+      float* oa = out + (32 * warp + 4 * g + 2 * m) * TC_W + 8 * t + 2 * tig;
+      oa[0] = run[m][t][0];
+      oa[1] = run[m][t][1];
+      oa[TC_W] = run[m][t][2];
+      oa[TC_W + 1] = run[m][t][3];
+    }
   __syncthreads();
-  float* out = S + (blockIdx.y * n_c + c0) * nout;
-  for (int i = threadIdx.x; i < tc * nout; i += blockDim.x)
-    if (c0 + i / nout < n_c) out[i] = acc[i];
+  for (int i = tid; i < CP_COLS * TC_W; i += CP_THREADS) {
+    const int lc = i / TC_W;
+    const long long gc = c0 + lc;
+    if (gc >= n_c) continue;
+    S[(chunk * n_c + gc) * ld + cb * TC_W + (i - lc * TC_W)] = out[i];
+  }
 }
 
-// b and corr of the col pass: for each (column, entry), the chunk sums
-// of S added in chunk order.
-__global__ void col_reduce_kernel(const float* __restrict__ S, int n_chunks,
-                                  long long n_c, int K, float* __restrict__ B,
+// b's tiles in a column block: kp / 8 <= 4 in the first, none after
+static_assert((MAX_K + 7) / 8 <= 4 && (MAX_K + 7) / 8 < TC_TILES,
+              "b must fit the first column block's first 4 tiles");
+
+template <bool IMPLICIT>
+__global__ void __launch_bounds__(CP_THREADS, CP_CTAS_PER_SM) col_pass_tc_kernel(
+    const int8_t* __restrict__ R, const __nv_bfloat16* __restrict__ X,
+    float a, long long n_r, long long n_c, int kp, int n_cb,
+    long long chunk_rows, bool vec, float* __restrict__ S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cb = static_cast<int>(blockIdx.x % n_cb);
+#define COL_PASS_CTA(ny)                                                    \
+  col_pass_cta<IMPLICIT, ny>(R, X, a, n_r, n_c, n_cb, chunk_rows, vec, S, \
+                             smem)
+  switch (cb == 0 ? kp / 8 : 0) {
+    case 0: COL_PASS_CTA(0); break;
+    case 1: COL_PASS_CTA(1); break;
+    case 2: COL_PASS_CTA(2); break;
+    case 3: COL_PASS_CTA(3); break;
+    default: COL_PASS_CTA(4); break;
+  }
+#undef COL_PASS_CTA
+}
+
+// b and corr of the col pass from its chunk sums: for each (column,
+// operand column), the chunks added in chunk order, then stored as
+// store_output expands them (a grid-stride loop).
+__global__ void col_reduce_kernel(const float* __restrict__ S,
+                                  long long n_chunks, long long n_c, int K,
+                                  int kp, long long ld, float* __restrict__ B,
                                   float* __restrict__ C) {
-  const long long nout = K + K * K;
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (i >= n_c * nout) return;
-  float v = S[i];
-  for (int ch = 1; ch < n_chunks; ++ch)
-    v = __fadd_rn(v, S[ch * n_c * nout + i]);
-  const long long gc = i / nout;
-  const long long o = i - gc * nout;
-  if (o < K)
-    B[gc * K + o] = v;
-  else
-    C[gc * K * K + (o - K)] = v;
+  const long long n = n_c * ld;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float v = S[i];
+    for (long long ch = 1; ch < n_chunks; ++ch) v = __fadd_rn(v, S[ch * n + i]);
+    const long long gc = i / ld;
+    store_output(v, gc, static_cast<int>(i - gc * ld), K, kp, B, C);
+  }
 }
 
-long long col_chunk_rows(long long n_r) {
-  const long long per = (n_r + COL_CHUNKS - 1) / COL_CHUNKS;
-  return (per + SUM_BLOCK - 1) / SUM_BLOCK * SUM_BLOCK;
+// Column blocks of TC_W operand columns for rank K: b padded to 8, then
+// the K(K+1)/2 pairs of corr padded to 8.
+int column_blocks(int K) {
+  const int width = (K + 7) / 8 * 8 + (K * (K + 1) / 2 + 7) / 8 * 8;
+  return (width + TC_W - 1) / TC_W;
 }
 
-int col_chunks(long long n_r) {
-  return static_cast<int>((n_r + col_chunk_rows(n_r) - 1) / col_chunk_rows(n_r));
+// One col pass launch on a card of `sms` SMs. A CTA owns CP_COLS columns
+// of R in one column block; R's rows split into chunks of whole CP_ROWS
+// stages, as many as make about CP_WAVES waves of CTAs (five at ML-20M
+// width and K = 10, one at K = 32), at most one per stage. `scratch`
+// floats hold each chunk's sums of the operand columns. False where the
+// 1-D grid cannot hold the CTAs.
+struct ColPlan {
+  long long chunk_rows, chunks, ctas, scratch;
+};
+
+bool col_plan(long long n_r, long long n_c, int K, int sms, ColPlan* p) {
+  const int n_cb = column_blocks(K);
+  const long long tiles = (n_c + CP_COLS - 1) / CP_COLS * n_cb;
+  const long long stages = (n_r + CP_ROWS - 1) / CP_ROWS;
+  const long long slots = static_cast<long long>(CP_WAVES) * CP_CTAS_PER_SM * sms;
+  long long want = (2 * slots + tiles) / (2 * tiles);  // to the nearest
+  want = want < 1 ? 1 : want > stages ? stages : want;
+  p->chunk_rows = (stages + want - 1) / want * CP_ROWS;
+  p->chunks = (n_r + p->chunk_rows - 1) / p->chunk_rows;
+  p->ctas = p->chunks * tiles;
+  p->scratch = p->chunks * n_c * n_cb * TC_W;
+  return p->ctas <= 0x7fffffffLL;
+}
+
+// col_plan for `device`, from its SM count.
+cudaError_t col_plan_on(long long n_r, long long n_c, int K, int device,
+                        ColPlan* p) {
+  if (n_r <= 0 || n_c <= 0 || K < 1 || K > MAX_K) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  return col_plan(n_r, n_c, K, sms, p) ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 bool valid(const void* r, const void* x, long long n_r, long long n_c, int K,
@@ -552,7 +692,7 @@ bool aligned16(const void* r, long long n_c) {
 
 // Row pass: b (n_r, K) and corr (n_r, K^2) f32 from R (n_r, n_c) int8 and
 // the operand y_op, (n_c, n_cb * TC_W) bf16 (ops/dense_fused.py:
-// row_operand). Launches on `stream`, allocates nothing. Returns the
+// pass_operand). Launches on `stream`, allocates nothing. Returns the
 // CUDA error code, 0 on success.
 extern "C" int dense_row_pass(int implicit, const void* r, const void* y_op,
                               float ascale, long long n_r, long long n_c,
@@ -582,51 +722,59 @@ extern "C" int dense_row_pass(int implicit, const void* r, const void* y_op,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Floats of scratch the col pass needs for these dims: the chunk sums.
-extern "C" long long dense_col_pass_scratch(long long n_r, long long n_c,
-                                            int K) {
-  if (n_r <= 0 || n_c <= 0 || K < 1 || K > MAX_K) return -1;
-  return col_chunks(n_r) * n_c * (K + K * K);
+// The col pass's row chunks and scratch on `device` (see col_plan):
+// *chunk_rows R rows a chunk, *scratch floats for dense_col_pass. Returns
+// the CUDA error code, cudaErrorInvalidValue past the grid.
+extern "C" int dense_col_pass_plan(long long n_r, long long n_c, int K,
+                                   int device, long long* chunk_rows,
+                                   long long* scratch) {
+  ColPlan p;
+  const cudaError_t err = col_plan_on(n_r, n_c, K, device, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *chunk_rows = p.chunk_rows;
+  *scratch = p.scratch;
+  return 0;
 }
 
 // Col pass: b (n_c, K) and corr (n_c, K^2) f32 from R (n_r, n_c) int8 and
-// x (n_r, K) f32, through `scratch` (dense_col_pass_scratch floats). Same
-// contract as dense_row_pass otherwise.
-extern "C" int dense_col_pass(int implicit, const void* r, const void* x,
+// the operand x_op, (n_r, n_cb * TC_W) bf16 (ops/dense_fused.py:
+// pass_operand of the row-side factors), through `scratch` (the floats
+// dense_col_pass_plan gives). Same contract as dense_row_pass otherwise.
+extern "C" int dense_col_pass(int implicit, const void* r, const void* x_op,
                               float ascale, long long n_r, long long n_c,
                               int K, void* b, void* corr, void* scratch,
                               int device, void* stream) {
-  if (!valid(r, x, n_r, n_c, K, b, corr) || scratch == nullptr)
+  if (!valid(r, x_op, n_r, n_c, K, b, corr) || scratch == nullptr ||
+      reinterpret_cast<uintptr_t>(x_op) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nout = K + K * K;
-  int tc = COL_TC_MAX;  // columns per CTA: halved until the sums fit
-  while (tc > 16 && 2 * tc * nout * 4 > ACC_BUDGET) tc /= 2;
-  const long long grid_x = (n_c + tc - 1) / tc;
-  const long long chunk_rows = col_chunk_rows(n_r);
-  const int chunks = col_chunks(n_r);
-  if (grid_x > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(2 * tc) * nout * 4 +
-                      static_cast<size_t>(COL_TR) * K * 4 +
-                      static_cast<size_t>(COL_TR) * (tc + 4);
+  ColPlan p;
+  err = col_plan_on(n_r, n_c, K, device, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int kp = (K + 7) / 8 * 8;
+  const int n_cb = column_blocks(K);
+  const long long ld = static_cast<long long>(n_cb) * TC_W;
+  const long long reduce_blocks =
+      (n_c * ld + REDUCE_THREADS - 1) / REDUCE_THREADS;
+  const size_t smem = 256 * 4 + static_cast<size_t>(CP_STAGES) *
+                                    (CP_ROWS * CP_RSTRIDE + CP_ROWS * TC_W * 2);
   auto st = static_cast<cudaStream_t>(stream);
-  const auto* rp = static_cast<const int8_t*>(r);
-  const auto* xp = static_cast<const float*>(x);
   auto* sp = static_cast<float*>(scratch);
-  const bool vec = aligned16(r, n_c);
-  auto kern = implicit ? &col_pass_kernel<true> : &col_pass_kernel<false>;
+  auto kern = implicit ? &col_pass_tc_kernel<true> : &col_pass_tc_kernel<false>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(static_cast<unsigned>(grid_x), chunks), THREADS, smem, st>>>(
-      rp, xp, ascale, n_r, n_c, K, tc, chunk_rows, vec, sp);
+  kern<<<static_cast<unsigned>(p.ctas), CP_THREADS, smem, st>>>(
+      static_cast<const int8_t*>(r), static_cast<const __nv_bfloat16*>(x_op),
+      ascale, n_r, n_c, kp, n_cb, p.chunk_rows, aligned16(r, n_c), sp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = n_c * nout;
-  col_reduce_kernel<<<static_cast<unsigned>((total + THREADS - 1) / THREADS),
-                      THREADS, 0, st>>>(sp, chunks, n_c, K,
-                                        static_cast<float*>(b),
-                                        static_cast<float*>(corr));
+  col_reduce_kernel<<<static_cast<unsigned>(reduce_blocks < 0x7fffffffLL
+                                                ? reduce_blocks
+                                                : 0x7fffffffLL),
+                      REDUCE_THREADS, 0, st>>>(sp, p.chunks, n_c, K, kp, ld,
+                                               static_cast<float*>(b),
+                                               static_cast<float*>(corr));
   return static_cast<int>(cudaGetLastError());
 }

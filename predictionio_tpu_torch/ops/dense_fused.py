@@ -18,15 +18,17 @@ On a CUDA tensor the wrappers launch the hand-written kernel in
 versions below. There is no fallback from one to the other.
 
 A bf16 × bf16 product is exact in f32, so the kernels and the plain
-versions differ only in how the f32 sums are taken. The row pass kernel
-multiplies every cell on the tensor cores (zero cells add exact zeros
-for finite factors; each symmetric pair of corr once), sums blocks of
-128 columns in the mma accumulators and adds the block sums in order;
-the col pass kernel adds each column's nonzero terms in row order in
-blocks of 512, then the block sums in order (per row chunk, then the
-chunks in order); the plain versions sum through f32 matrix products. The bound on that difference
-is relative to the sum of the absolute terms, which the plain versions
-compute when called with ``magnitude=True``.
+versions differ only in how the f32 sums are taken. Both kernels
+multiply every cell on the tensor cores (zero cells add exact zeros for
+finite factors; each symmetric pair of corr once) against the bf16
+operand ``[Y16 | Z16]`` that `pass_operand` forms from the factors on
+the contracted side, sum blocks of 128 along the contracted axis in the
+mma accumulators and add the block sums in order; the col pass does so
+per row chunk (the kernel's own choice, `col_pass_plan`) and then adds
+the chunks in order.
+The plain versions sum through f32 matrix products. The bound on that
+difference is relative to the sum of the absolute terms, which the
+plain versions compute when called with ``magnitude=True``.
 """
 
 from __future__ import annotations
@@ -43,9 +45,9 @@ from predictionio_tpu_torch.ops.segment import full_f32
 #: widest rank the kernel takes (models/als.py GRAM_SOLVER_MAX_RANK)
 MAX_RANK = 32
 
-#: operand columns of one CTA of the row pass kernel (a column block of
+#: operand columns of one CTA of either pass kernel (a column block of
 #: the outputs); must equal TC_W in csrc/dense_pass.cu
-ROW_BLOCK_COLS = 72
+OPERAND_BLOCK_COLS = 72
 
 #: R rows of one CTA of the row pass kernel (a strip); must equal TC_ROWS
 #: in csrc/dense_pass.cu
@@ -120,26 +122,28 @@ def _pad8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def row_operand(y: torch.Tensor) -> torch.Tensor:
-    """The row pass's tensor-core B operand ``[Y16 | Z16]`` (n_cols,
-    `row_column_blocks` · ROW_BLOCK_COLS) bf16, formed once per call as
-    the JAX wrapper forms its ``y16``/``z16``: bf16(y) in columns [0, K),
-    then from K rounded up to 8, bf16(y_i · y_j formed in f32) for the
-    K(K+1)/2 pairs i ≤ j in row-major order (corr is symmetric: the
-    kernel writes each pair's sum to (i, j) and (j, i)), zeros elsewhere."""
+def pass_operand(y: torch.Tensor) -> torch.Tensor:
+    """Both kernels' tensor-core B operand ``[Y16 | Z16]`` (n,
+    `operand_column_blocks` · OPERAND_BLOCK_COLS) bf16 of the factors y
+    (n, K) on the contracted side (column-side for the row pass, row-side
+    for the col pass), formed once per call as the JAX wrapper forms its
+    ``y16``/``z16``: bf16(y) in columns [0, K), then from K rounded up to
+    8, bf16(y_i · y_j formed in f32) for the K(K+1)/2 pairs i ≤ j in
+    row-major order (corr is symmetric: the kernels write each pair's sum
+    to (i, j) and (j, i)), zeros elsewhere."""
     n, k = y.shape
     i, j = torch.triu_indices(k, k, device=y.device)
     pad_y = torch.zeros((n, _pad8(k) - k), dtype=y.dtype, device=y.device)
-    pad_z = torch.zeros((n, row_column_blocks(k) * ROW_BLOCK_COLS
+    pad_z = torch.zeros((n, operand_column_blocks(k) * OPERAND_BLOCK_COLS
                          - _pad8(k) - len(i)), dtype=y.dtype, device=y.device)
     return torch.cat([y, pad_y, y[:, i] * y[:, j], pad_z], 1).to(torch.bfloat16)
 
 
-def row_column_blocks(k: int) -> int:
-    """Column blocks of ROW_BLOCK_COLS outputs the row pass kernel splits
+def operand_column_blocks(k: int) -> int:
+    """Column blocks of OPERAND_BLOCK_COLS outputs the pass kernels split
     rank k into: b rounded up to 8 columns, then the K(K+1)/2 pairs of
     corr rounded up to 8 (one block up to K = 10, eight at K = 32)."""
-    return -(-(_pad8(k) + _pad8(k * (k + 1) // 2)) // ROW_BLOCK_COLS)
+    return -(-(_pad8(k) + _pad8(k * (k + 1) // 2)) // OPERAND_BLOCK_COLS)
 
 
 def row_pass_ctas(n_rows: int, k: int) -> int:
@@ -147,11 +151,28 @@ def row_pass_ctas(n_rows: int, k: int) -> int:
     column block, on a 1-D grid (the column blocks of a strip side by
     side). Raises if the grid cannot hold them (past 2^31 - 1, about 3.4e10
     rows at K = 32)."""
-    ctas = -(-n_rows // ROW_STRIP) * row_column_blocks(k)
+    ctas = -(-n_rows // ROW_STRIP) * operand_column_blocks(k)
     if ctas > _MAX_GRID:
         raise ValueError(f"{n_rows} rows at rank {k} need {ctas} CTAs, past "
                          f"the grid's {_MAX_GRID}")
     return ctas
+
+
+def col_pass_plan(n_rows: int, n_cols: int, k: int,
+                  device: torch.device) -> tuple[int, int]:
+    """(chunk_rows, scratch floats) of one col pass launch on `device`,
+    as the kernel chooses them (``dense_col_pass_plan``): R's rows split
+    into chunks of whole 128-row stages that fill about four waves of
+    CTAs, each chunk's sums of the operand columns held in scratch.
+    Raises if the 1-D grid cannot hold the CTAs."""
+    chunk_rows, floats = ctypes.c_longlong(), ctypes.c_longlong()
+    err = _kernel_lib().dense_col_pass_plan(
+        n_rows, n_cols, k, _device_index(device), ctypes.byref(chunk_rows),
+        ctypes.byref(floats))
+    if err:
+        raise ValueError(f"no col pass launch for {n_rows} x {n_cols} at "
+                         f"rank {k}: CUDA error {err}")
+    return chunk_rows.value, floats.value
 
 
 def _check(r, x, side, n_side):
@@ -217,11 +238,16 @@ def _kernel_lib():
                                        p, p, i, p]
         lib.dense_col_pass.argtypes = [i, p, p, ctypes.c_float, ll, ll, i,
                                        p, p, p, i, p]
+        lib.dense_col_pass_plan.argtypes = [ll, ll, i, i, p, p]
         lib.dense_row_pass.restype = lib.dense_col_pass.restype = i
-        lib.dense_col_pass_scratch.argtypes = [ll, ll, i]
-        lib.dense_col_pass_scratch.restype = ll
+        lib.dense_col_pass_plan.restype = i
         _lib = lib
     return _lib
+
+
+def _device_index(device: torch.device) -> int:
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
 
 
 def _launch(which, r, x, ascale, implicit):
@@ -236,24 +262,20 @@ def _launch(which, r, x, ascale, implicit):
     b = torch.empty((n_out, k), dtype=torch.float32, device=r.device)
     corr = torch.empty((n_out, k * k), dtype=torch.float32, device=r.device)
     dims = [float(np.float32(ascale)), n_rows, n_cols, k]
-    if which == "row":  # the tensor-core B operand, formed once per call
+    if which == "row":
         row_pass_ctas(n_rows, k)
-        op = row_operand(x)
         fn = lib.dense_row_pass
-        args = [int(implicit), r.data_ptr(), op.data_ptr(), *dims,
-                b.data_ptr(), corr.data_ptr()]
+        tail = []
     else:  # the col pass sums row chunks apart, then in order
-        scratch = torch.empty(lib.dense_col_pass_scratch(n_rows, n_cols, k),
-                              dtype=torch.float32, device=r.device)
+        _, size = col_pass_plan(n_rows, n_cols, k, r.device)
+        scratch = torch.empty(size, dtype=torch.float32, device=r.device)
         fn = lib.dense_col_pass
-        args = [int(implicit), r.data_ptr(), x.data_ptr(), *dims,
-                b.data_ptr(), corr.data_ptr(), scratch.data_ptr()]
-    err = fn(
-        *args,
-        r.device.index if r.device.index is not None
-        else torch.cuda.current_device(),
-        torch.cuda.current_stream(r.device).cuda_stream,
-    )
+        tail = [scratch.data_ptr()]
+    op = pass_operand(x)  # the tensor-core B operand, formed once per call
+    args = [int(implicit), r.data_ptr(), op.data_ptr(), *dims, b.data_ptr(),
+            corr.data_ptr(), *tail]
+    err = fn(*args, _device_index(r.device),
+             torch.cuda.current_stream(r.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"dense {which} pass kernel launch failed: CUDA error {err}"

@@ -17,6 +17,8 @@ Tolerances:
 - primitives: rtol 1e-5, atol 1e-6 (f32 sums in another order).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -122,9 +124,9 @@ def test_fused_wrapper_rejects_bad_inputs():
 
 
 def test_zero_cells_contribute_nothing():
-    """The col pass kernel skips zero cells; the row pass kernel and the
-    plain versions multiply them. With finite factors their terms are
-    exactly zero, so an all-zero matrix gives exact zeros."""
+    """Both kernels and the plain versions multiply zero cells. With
+    finite factors their terms are exactly zero, so an all-zero matrix
+    gives exact zeros."""
     x = torch.randn((64, 6))
     for implicit in (True, False):
         b, c = tdf.fused_col_pass_plain(
@@ -134,14 +136,13 @@ def test_zero_cells_contribute_nothing():
 
 def _csrc_constant(name):
     import re
-    from pathlib import Path
 
     src = (Path(tdf.__file__).parent / "csrc" / "dense_pass.cu").read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
 def test_row_operand_constants_match_the_kernel_source():
-    assert tdf.ROW_BLOCK_COLS == 8 * _csrc_constant("TC_TILES")
+    assert tdf.OPERAND_BLOCK_COLS == 8 * _csrc_constant("TC_TILES")
     assert tdf.ROW_STRIP == 16 * _csrc_constant("TC_WARPS")
     assert tdf.MAX_RANK == _csrc_constant("MAX_K")
 
@@ -168,9 +169,9 @@ def _pad8(n):
     return -(-n // 8) * 8
 
 
-@pytest.mark.parametrize("k", [1, 8, 10, 32])
+@pytest.mark.parametrize("k", [1, 8, 10, 11, 16, 32])
 def test_row_operand_matches_jax_y16_z16(k):
-    """The row pass kernel's B operand [Y16 | Z16], formed by the
+    """The pass kernels' B operand [Y16 | Z16], formed by the
     wrapper, holds the JAX package's kernel operands bit for bit: y16 =
     bf16(y) (dense_pallas.fused_row_pass) and z16 = bf16(y_i · y_j
     formed in f32) (als._dense_half_step's z32), at the pairs i ≤ j in
@@ -186,11 +187,11 @@ def test_row_operand_matches_jax_y16_z16(k):
     iu, ju = np.triu_indices(k)
     # the symmetric half is the same bits
     assert np.array_equal(z16[:, iu * k + ju], z16[:, ju * k + iu])
-    op = tdf.row_operand(torch.from_numpy(y))
+    op = tdf.pass_operand(torch.from_numpy(y))
     kp, pairs = _pad8(k), len(iu)
-    width = tdf.row_column_blocks(k) * tdf.ROW_BLOCK_COLS
+    width = tdf.operand_column_blocks(k) * tdf.OPERAND_BLOCK_COLS
     assert op.dtype == torch.bfloat16 and tuple(op.shape) == (n, width)
-    assert width - tdf.ROW_BLOCK_COLS < kp + _pad8(pairs) <= width
+    assert width - tdf.OPERAND_BLOCK_COLS < kp + _pad8(pairs) <= width
     assert op.is_contiguous()
     bits = op.view(torch.int16).numpy()
     assert np.array_equal(bits[:, :k], y16)
@@ -198,11 +199,56 @@ def test_row_operand_matches_jax_y16_z16(k):
     assert not bits[:, k:kp].any() and not bits[:, kp + pairs:].any()
 
 
+def _operand_col_pass(q, x, ascale, implicit):
+    """The col pass kernel's layout in plain torch: w1 and wg of R
+    transposed times the operand [X16 | Z16] over R's rows, b from its
+    first K columns, each pair i <= j of corr (from column K rounded up
+    to 8, row-major) stored to (i, j) and (j, i)."""
+    k = x.shape[1]
+    op = tdf.pass_operand(x).float()
+    w1, wg = tdf._fused_weights(q.float(), torch.tensor(ascale), implicit)
+    kp = _pad8(k)
+    iu, ju = torch.triu_indices(k, k)
+    b = w1.T @ op[:, :k]
+    pairs = wg.T @ op[:, kp:kp + len(iu)]
+    corr = torch.empty((q.shape[1], k, k))
+    corr[:, iu, ju] = pairs
+    corr[:, ju, iu] = pairs
+    return b, corr.reshape(q.shape[1], k * k)
+
+
+@pytest.mark.parametrize("implicit", [True, False])
+@pytest.mark.parametrize("k", [1, 10, 11, 16, 32])
+def test_col_pass_operand_layout_matches_plain_and_pallas(k, implicit):
+    """The contraction the col pass kernel does (the operand's rows in
+    R's row order, the pairs expanded as it stores them) equals the
+    plain col pass and the JAX kernel in interpret mode within 1e-5·S."""
+    rng = np.random.default_rng(300 + k + implicit)
+    n_rows, n_cols = 384, 256
+    q = _ratings(rng, n_rows, n_cols, signed=True, density=0.2)
+    x = rng.standard_normal((n_rows, k)).astype(np.float32)
+    asc = _ascale(implicit)
+    rt, xt = torch.from_numpy(q), torch.from_numpy(x)
+    ob, oc = _operand_col_pass(rt, xt, asc, implicit)
+    pb, pc = tdf.fused_col_pass_plain(rt, xt, asc, implicit=implicit)
+    sb, sc = tdf.fused_col_pass_plain(rt, xt, asc, implicit=implicit,
+                                      magnitude=True)
+    jb, jc = jdp.fused_col_pass(
+        jnp.asarray(q), jnp.asarray(x), jnp.asarray(_outer(x)),
+        jnp.asarray([asc], jnp.float32), implicit=implicit,
+        interpret=True, row_tile=128, col_tile=128,
+    )
+    for want, what in (((pb, pc), "plain"), ((jb, jc), "pallas")):
+        _within_order_bound(ob, want[0], sb, f"operand b vs {what}")
+        _within_order_bound(oc, want[1], sc, f"operand corr vs {what}")
+    assert float(sc.max()) > 0.0
+
+
 @pytest.mark.parametrize("k,blocks", [(1, 1), (10, 1), (11, 2), (16, 3), (32, 8)])
 def test_row_column_blocks(k, blocks):
     """One column block (one read of R) up to K = 10: 16 + 56 = 72
     columns; K = 32 needs 32 + 528 = 560 columns, eight blocks."""
-    assert tdf.row_column_blocks(k) == blocks
+    assert tdf.operand_column_blocks(k) == blocks
 
 
 # ---------------------------------------------------------------------------

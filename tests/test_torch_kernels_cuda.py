@@ -9,9 +9,12 @@ The top-k kernels (scored and precomputed-score, on both of the
 latter's routes) and their plain versions do the same rounded
 operations, or only select, so indices AND values must be equal, for
 every k up to the padded width. The ALS edge-pass kernels differ from
-their plain versions only in how the f32 sums are taken (the row pass
+their plain versions only in how the f32 sums are taken (both passes
 on the tensor cores), so they are held to 1e-5 times the sum of the
-absolute terms, and to equal bits on a second launch.
+absolute terms, and to equal bits on a second launch. The col pass
+alone:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest -k "dense and col"
 """
 
 import numpy as np
@@ -119,46 +122,58 @@ def _dense_case(rng, n_rows, n_cols, kdim, signed, dev, density=0.05):
     return torch.from_numpy(q).to(dev)
 
 
+def _assert_pass_close(which, r, x, implicit, ascale=0.85):
+    """Kernel vs plain version: they differ only in the order of f32
+    sums of exact bf16 products, so |Δ| ≤ 1e-5·S elementwise, S the pass
+    over the absolute terms; finite; one launch per call, and a second
+    launch gives the same bits."""
+    from predictionio_tpu_torch.ops import dense_fused as df
+
+    fn = df.fused_row_pass if which == "row" else df.fused_col_pass
+    plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
+    before = df.PASS_LAUNCHES[which]
+    kb, kc = fn(r, x, ascale, implicit=implicit)
+    kb2, kc2 = fn(r, x, ascale, implicit=implicit)
+    pb, pc = plain(r, x, ascale, implicit=implicit)
+    sb, sc = plain(r, x, ascale, implicit=implicit, magnitude=True)
+    torch.cuda.synchronize()
+    assert df.PASS_LAUNCHES[which] == before + 2
+    assert torch.equal(kb, kb2) and torch.equal(kc, kc2)
+    for got, want, mag in ((kb, pb, sb), (kc, pc, sc)):
+        assert bool(torch.isfinite(got).all())
+        assert float(((got - want).abs() - 1e-5 * mag).max()) <= 0.0
+
+
 @pytest.mark.parametrize("which", ["row", "col"])
 @pytest.mark.parametrize("implicit,signed", [(True, False), (True, True),
                                              (False, True)])
 def test_dense_pass_kernel_equals_plain(card, which, implicit, signed):
-    """Kernel vs plain version: they differ only in the order of f32
-    sums of exact bf16 products, so |Δ| ≤ 1e-5·S, S the pass over the
-    absolute terms; a second launch gives the same bits."""
-    from predictionio_tpu_torch.ops import dense_fused as df
-
+    """Kernel vs plain version (`_assert_pass_close`) on ragged dims
+    (bounds checks, unaligned rows) and padded ones. For the col pass:
+    row chunks with a short last one (5,037 rows in 20 chunks of 256 on
+    132 SMs), column tiles not a multiple of 128, 313 tiles (more than a
+    wave of CTAs, 3 chunks), and one chunk (K = 32 at ML-20M width);
+    `test_dense_col_pass_plan` pins those chunks."""
     rng = np.random.default_rng(3)
-    fn = df.fused_row_pass if which == "row" else df.fused_col_pass
-    plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
-    # ragged dims (bounds checks, unaligned rows) and the padded ones
     for n_rows, n_cols, kdim in ((2048, 256, 10), (300, 77, 1), (1000, 1003, 8),
-                                 (2048, 256, 32), (64, 4096, 16)):
+                                 (2048, 256, 32), (64, 4096, 16),
+                                 (5_037, 1_040, 10), (600, 40_000, 10),
+                                 (139, 26_880, 32)):
         r = _dense_case(rng, n_rows, n_cols, kdim, signed, card)
         n_side = n_cols if which == "row" else n_rows
         x = torch.from_numpy(
             rng.standard_normal((n_side, kdim)).astype(np.float32)).to(card)
         for ascale in (0.5, 0.85, 0.1):
-            before = df.PASS_LAUNCHES[which]
-            kb, kc = fn(r, x, ascale, implicit=implicit)
-            kb2, kc2 = fn(r, x, ascale, implicit=implicit)
-            pb, pc = plain(r, x, ascale, implicit=implicit)
-            sb, sc = plain(r, x, ascale, implicit=implicit, magnitude=True)
-            torch.cuda.synchronize()
-            assert df.PASS_LAUNCHES[which] == before + 2
-            assert torch.equal(kb, kb2) and torch.equal(kc, kc2)
-            for got, want, mag in ((kb, pb, sb), (kc, pc, sc)):
-                excess = ((got - want).abs() - 1e-5 * mag).max()
-                assert float(excess) <= 0.0, (n_rows, n_cols, kdim, ascale)
+            _assert_pass_close(which, r, x, implicit, ascale)
 
 
 @pytest.mark.parametrize("which", ["row", "col"])
 def test_dense_pass_kernel_long_sums(card, which):
     """A line of R rated in every cell (a most-rated item: tens of
     thousands of positive terms in one sum) stays within 1e-5 * S of
-    the plain version: the kernel sums in blocks of 512, not serially."""
-    from predictionio_tpu_torch.ops import dense_fused as df
-
+    the plain version: the kernels sum 128-long blocks on the tensor
+    cores and add the block sums in order (the col pass per row chunk,
+    here 547 chunks of one block, then the chunks in order)."""
     rng = np.random.default_rng(5)
     long_side, short_side = (30_000, 40) if which == "row" else (70_000, 48)
     q = rng.integers(1, 11, (long_side, short_side)).astype(np.int8)
@@ -167,49 +182,34 @@ def test_dense_pass_kernel_long_sums(card, which):
     if which == "row":
         q = np.ascontiguousarray(q.T)  # row 3 of (40, 30,000)
     r = torch.from_numpy(q).to(card)
-    fn = df.fused_row_pass if which == "row" else df.fused_col_pass
-    plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
     x = torch.from_numpy((rng.standard_normal((long_side, 10)) / np.sqrt(10))
                          .astype(np.float32)).to(card)
     for implicit in (True, False):
-        kb, kc = fn(r, x, 0.5, implicit=implicit)
-        kb2, kc2 = fn(r, x, 0.5, implicit=implicit)
-        pb, pc = plain(r, x, 0.5, implicit=implicit)
-        sb, sc = plain(r, x, 0.5, implicit=implicit, magnitude=True)
-        torch.cuda.synchronize()
-        assert torch.equal(kb, kb2) and torch.equal(kc, kc2)
-        for got, want, mag in ((kb, pb, sb), (kc, pc, sc)):
-            assert float(((got - want).abs() - 1e-5 * mag).max()) <= 0.0
+        _assert_pass_close(which, r, x, implicit, 0.5)
 
 
+@pytest.mark.parametrize("which", ["row", "col"])
 @pytest.mark.parametrize("k", [16, 32])
-def test_row_pass_kernel_split_columns(card, k):
+def test_dense_pass_kernel_split_columns(card, k, which):
     """Ranks whose K + K(K+1)/2 outputs exceed one CTA's columns split
     them over column blocks (three at K = 16, eight at K = 32), each
-    reading R once; ragged rows and columns (not multiples of the strip
-    or stage)."""
+    reading R once, in both passes; ragged rows and columns (not
+    multiples of the strip, stage, chunk or column tile)."""
     from predictionio_tpu_torch.ops import dense_fused as df
 
-    assert df.row_column_blocks(k) > 1
+    assert df.operand_column_blocks(k) > 1
     rng = np.random.default_rng(11 + k)
     r = _dense_case(rng, 700, 1_040, k, True, card, density=0.2)
-    y = torch.from_numpy(rng.standard_normal((1_040, k)).astype(np.float32)).to(card)
+    n_side = 1_040 if which == "row" else 700
+    x = torch.from_numpy(rng.standard_normal((n_side, k)).astype(np.float32)).to(card)
     for implicit in (True, False):
-        kb, kc = df.fused_row_pass(r, y, 0.85, implicit=implicit)
-        kb2, kc2 = df.fused_row_pass(r, y, 0.85, implicit=implicit)
-        pb, pc = df.fused_row_pass_plain(r, y, 0.85, implicit=implicit)
-        sb, sc = df.fused_row_pass_plain(r, y, 0.85, implicit=implicit,
-                                         magnitude=True)
-        torch.cuda.synchronize()
-        assert torch.equal(kb, kb2) and torch.equal(kc, kc2)
-        for got, want, mag in ((kb, pb, sb), (kc, pc, sc)):
-            assert float(((got - want).abs() - 1e-5 * mag).max()) <= 0.0
+        _assert_pass_close(which, r, x, implicit)
 
 
 @pytest.mark.parametrize("which", ["row", "col"])
 def test_dense_pass_kernel_all_zero_r(card, which):
-    """An all-zero R gives exact zeros: the row pass multiplies every
-    cell, the col pass skips them."""
+    """An all-zero R gives exact zeros: both passes multiply every cell,
+    and zero weights times finite factors are exact zeros."""
     from predictionio_tpu_torch.ops import dense_fused as df
 
     fn = df.fused_row_pass if which == "row" else df.fused_col_pass
@@ -222,6 +222,48 @@ def test_dense_pass_kernel_all_zero_r(card, which):
         assert not kb.any() and not kc.any()
 
 
+@pytest.mark.parametrize("n_rows,n_cols,k,chunk_rows,chunks", [
+    # the ML-20M slab at K = 10: 210 tiles, 5 chunks, 1,050 CTAs (3.98
+    # waves of 264); at K = 32 eight column blocks fill the card alone
+    (139_264, 26_880, 10, 27_904, 5),
+    (139_264, 26_880, 32, 139_264, 1),
+    (139_264, 26_880, 11, 46_464, 3),    # two column blocks
+    # a long, narrow R: one tile, one chunk per 128-row stage
+    (70_000, 48, 10, 128, 547),
+    # ragged: three stages, the last one short
+    (300, 77, 1, 128, 3),
+    (5_037, 1_040, 16, 256, 20),
+    # more tiles than one wave: 313 tiles, 3 chunks of 2 stages
+    (600, 40_000, 10, 256, 3),
+    (1, 1, 1, 128, 1),
+])
+def test_dense_col_pass_plan(card, n_rows, n_cols, k, chunk_rows, chunks):
+    """The col pass kernel's row chunks: whole 128-row stages, together
+    covering every row once, about four waves of CTAs where R allows (the
+    counts are for an H100's 132 SMs); scratch for each chunk's operand
+    columns."""
+    from predictionio_tpu_torch.ops import dense_fused as df
+
+    got_rows, floats = df.col_pass_plan(n_rows, n_cols, k, card)
+    n_chunks = -(-n_rows // got_rows)
+    assert got_rows % 128 == 0
+    assert (n_chunks - 1) * got_rows < n_rows <= n_chunks * got_rows
+    assert floats == n_chunks * n_cols * df.operand_column_blocks(k) * 72
+    if torch.cuda.get_device_properties(card).multi_processor_count == 132:
+        assert (got_rows, n_chunks) == (chunk_rows, chunks)
+
+
+def test_dense_col_pass_plan_refuses_past_the_grid(card):
+    """2^28 column tiles of eight column blocks are 2^31 CTAs, one past
+    the 1-D grid: refused before launch; one tile fewer is planned."""
+    from predictionio_tpu_torch.ops import dense_fused as df
+
+    n_cols = 2**28 * 128
+    with pytest.raises(ValueError, match="no col pass launch"):
+        df.col_pass_plan(128, n_cols, 32, card)
+    assert df.col_pass_plan(128, n_cols - 128, 32, card)[0] == 128
+
+
 def test_row_pass_kernel_past_65535_strips(card):
     """8,400,000 users (65,625 strips of 128 rows, past a 2-D grid's
     65,535) at two column blocks: every strip is computed, as in the
@@ -230,18 +272,11 @@ def test_row_pass_kernel_past_65535_strips(card):
 
     rng = np.random.default_rng(17)
     n_rows, n_cols, k = 8_400_000, 16, 11
-    assert -(-n_rows // df.ROW_STRIP) > 65_535 and df.row_column_blocks(k) == 2
+    assert -(-n_rows // df.ROW_STRIP) > 65_535 and df.operand_column_blocks(k) == 2
     r = torch.randint(-3, 4, (n_rows, n_cols), dtype=torch.int8, device=card,
                       generator=torch.Generator(card).manual_seed(17))
     y = torch.from_numpy(rng.standard_normal((n_cols, k)).astype(np.float32)).to(card)
-    kb, kc = df.fused_row_pass(r, y, 0.5, implicit=True)
-    kb2, kc2 = df.fused_row_pass(r, y, 0.5, implicit=True)
-    pb, pc = df.fused_row_pass_plain(r, y, 0.5, implicit=True)
-    sb, sc = df.fused_row_pass_plain(r, y, 0.5, implicit=True, magnitude=True)
-    torch.cuda.synchronize()
-    assert torch.equal(kb, kb2) and torch.equal(kc, kc2)
-    for got, want, mag in ((kb, pb, sb), (kc, pc, sc)):
-        assert float(((got - want).abs() - 1e-5 * mag).max()) <= 0.0
+    _assert_pass_close("row", r, y, True, 0.5)
 
 
 def test_dense_pass_kernel_rejects_noncontiguous(card):
