@@ -79,7 +79,10 @@ Phases, in order; any failure prints what failed and exits non-zero:
 14. windowed times  CUDA-event medians per ML-25M side, K = 10: the
             block_partials kernel, its plain version, a gather + outer
             product + ``index_add_`` yardstick the port never calls, the
-            bound; the combine kernel, its plain version, its bound.
+            bound; the combine kernel, its plain version, its bound; then
+            block_partials at K = 32 on the users plan (kernel, plain,
+            bound; no yardstick), and the partials kernel's ptxas
+            registers, shared memory and CTAs an SM at K = 10 and 32.
 15. ur sweep  the precomputed-score selector (``fused_masked_topk``)
             against its plain version on the card: I_p in {1,024 (below
             one 4,096-column select segment), 12,416 (a short last
@@ -1505,7 +1508,46 @@ def phase_windowed_times(report, shared):
               f"bound {bound:.4f} ms ({by}); combine kernel {combine:.4f} ms, plain "
               f"{combine_plain:.4f} ms, bound {combine_bound:.4f} ms (bytes)",
               flush=True)
+        if name == "users":
+            rows_out.append(_partials_at_max_rank(rng, p, side, n_src, edges))
     report["windowed_times"] = rows_out
+    dev = torch.device("cuda:0")
+    report["partials_launch"] = {
+        "ptxas": _ptxas_registers("windowed_pass", "partials_kernel"),
+        **{f"K={k}": wf.partials_plan(k, win.WINDOW_ROWS, dev)
+           for k in (RANK, wf.MAX_RANK)}}
+    for key, val in report["partials_launch"].items():
+        print(f"[times] partials_kernel {key}: {val}", flush=True)
+
+
+def _ptxas_registers(source, kernel):
+    """The `ptxas -v` register lines of `kernel`'s instantiations in
+    `source`'s build (empty where this process did not build it)."""
+    lines = _build.BUILD_LOGS.get(source, "").splitlines()
+    return [next((x.strip() for x in lines[n + 1:] if "registers" in x), "")
+            for n, ln in enumerate(lines)
+            if "Compiling entry" in ln and kernel in ln]
+
+
+def _partials_at_max_rank(rng, p, side, n_src, edges):
+    """block_partials at K = wf.MAX_RANK on one plan (five warps of
+    tiles, a block's rows cut into groups): kernel, plain, bound. No
+    yardstick: its (E, K + K^2) payload would take ~106 GB."""
+    k = wf.MAX_RANK
+    args, _ = _side_on_card(rng, side, n_src, k, True)
+    kernel = _time_ms(lambda: wf.block_partials(*args), 3)
+    plain = _time_ms(lambda: wf.block_partials_plain(*args), 1, repeats=3)
+    del args
+    torch.cuda.empty_cache()
+    bound, by, _ = _windowed_bound(p.n_blocks_p * win.BLOCK_EDGES, n_src,
+                                   p.n_blocks_p, p.n_windows, edges, k)
+    row = {"side": "users", "K": k, "n_blocks_p": p.n_blocks_p, "edges": edges,
+           "ms": kernel, "plain_ms": plain, "library_ms": None,
+           "bound_ms": bound, "bound_by": by}
+    print(f"[times] windowed users side, K={k}: block_partials kernel "
+          f"{kernel:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}); "
+          f"no yardstick (its payload would take ~106 GB)", flush=True)
+    return row
 
 
 # ---------------------------------------------------------------------------

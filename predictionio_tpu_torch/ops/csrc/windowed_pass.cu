@@ -17,39 +17,58 @@
 // CUDA cores, as the TPU kernel's Precision.HIGHEST: y_i * y_j is rounded
 // on its own (__fmul_rn), each term is fused into its sum (__fmaf_rn).
 //
-// Design. The TPU kernel builds an (S, B_E) one-hot in VMEM per block and
-// contracts it on the MXU. Here one CTA owns one block, and thread t owns
-// the output components d = t, t + T, ... of the D = K + K^2 per row
-// (T = 128 threads at K = 10, one component each). The CTA stages a tile
-// of 256 slots in shared memory (src, weights, local id and the gathered
-// factor row: the gather happens here, y_t is never materialized), and
-// each thread walks the slots in order, keeping a register sum while the
-// local id repeats and flushing it to the row when the id changes. So each
-// output cell has one writer, summing in slot order: no atomics, and two
-// launches give the same bits. A block's valid slots are sorted by row,
-// so rows are flushed in increasing order: rows skipped on the way are
-// written 0, each cell is written once and never read back. Should an id
-// come again after a larger one (block_partials permits unsorted ids), the
-// flush adds into the row already written, by the same thread. Every
-// block's whole (S, D) output is written, 0 where no slot lands, so the
-// output needs no clearing. Skew does not pile onto one CTA: a block holds
-// at most B_E slots, and a most-rated row spans many blocks.
+// Why not the tensor cores. The TPU kernel builds an (S, B_E) one-hot in
+// VMEM per block and contracts it on the MXU. On Hopper that product is
+// 128 times the real arithmetic (S one-hot rows for each slot's one), and
+// f32 accuracy would need three TF32 products: over 4 ms at ML-25M's
+// shape, against a bound of 0.55 ms set by the bytes. So the design is
+// about shared-memory instructions per term, overlapped staging and one
+// streaming store, not about mma.
+//
+// partials_kernel. Read the sums as the augmented outer product of
+// z = (y_0 .. y_{K-1}, 1): gram pairs (i, j) with i <= j < K weigh
+// z_i z_j by w_g, the b entries (d, K) weigh z_d * 1 by w_b, and only
+// pairs a <= b are summed, K + K(K+1)/2 of them (65 at K = 10, not 110).
+// One thread owns a 2 x 2 register tile of that upper triangle, rows a0,
+// a0+1 by columns b0, b0+1 (20 tiles, one warp, at K = 10; 152 tiles,
+// five warps, at K = 32): a slot costs a warp two 8-byte loads of its
+// staged factor row for four terms a thread, and every 4 slots three
+// 16-byte broadcast loads of their local ids and weights. One CTA owns
+// one block and one group of its output rows (all 128 at K = 10, 26 at
+// K = 32, so that a group's tile fits TILE_BYTES); the group's sums live
+// in a shared-memory tile, zeroed first, and the CTA skips the slots of
+// other groups. Each thread keeps its four sums in registers while the
+// local id repeats and adds them into its own cells of the tile when the
+// id changes: one writer per cell, in slot order, so unsorted and
+// recurring ids are summed right with no atomics, and a relaunch gives
+// the same bits. A batch of 16 slots that all continue the current row
+// (the common case: the planner sorts the ids) is summed with no check
+// between slots. At the end the CTA stores its rows of pb and pg,
+// contiguous spans, in one pass (16-byte streaming stores where a row is
+// a multiple of 4 floats), each gram pair to both (i, j) and (j, i): the
+// two cells hold the same bits, as y_i * y_j = y_j * y_i exactly. Rows no
+// slot reaches are stored as the tile's zeros, so the output needs no
+// clearing.
+//
+// Staging, in stages of STAGE slots: each stage's four per-slot arrays
+// are copied to shared memory with cp.async four stages ahead, and the
+// factor rows of the CTA's slots gathered from L2 with cp.async (16, 8
+// or 4 bytes a copy, as K's alignment allows) two stages ahead, so the
+// CTA sums one stage while later ones arrive. A src outside the factors
+// reads a zero row, never past them.
+//
+// Bound at the main path's shape (ML-25M's users side: 25,088 blocks of
+// 1,024 slots, K = 10): reading the slots (src, w_b, w_g, local: 16 B
+// each, 0.41 GB) and the factors once, and writing the partials (S * D *
+// 4 B per block, D = K + K^2, 1.41 GB) once, is 0.545 ms at 3.35 TB/s.
+// The operations, 2 per term (5.5 GFLOP), are 0.08 ms at 67 TFLOP/s f32.
+// So the pass is bytes-bound; the combine reads the partials once more
+// (0.44 ms). Times against the bound: PERF.md.
 //
 // The combine: one thread per output element walks its window's blocks
 // (contiguous, as block_window is sorted) in order. Windows without blocks
 // read 0; padding blocks carry zero weights, so their partials are +-0 and
 // add exactly nothing.
-//
-// Bound at the main path's shape (ML-25M's users side: 25,088 blocks of
-// 1,024 slots, K = 10): reading the slots (src, w_b, w_g, local: 16 B
-// each, 0.41 GB) and the factors once, and writing the partials (S * D *
-// 4 B per block, 1.41 GB) once, is 0.545 ms at 3.35 TB/s. The operations,
-// 2 per term (5.5 GFLOP), are 0.08 ms at 67 TFLOP/s f32. So the pass is
-// bytes-bound; the combine reads the partials once more (0.44 ms). This
-// kernel is simple, not fast (5.3 ms on an H100, PERF.md): every slot
-// costs every thread of the CTA a few shared-memory reads and a compare,
-// and the partials make a round trip through device memory that a fused
-// combine would avoid.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,142 +76,363 @@
 namespace {
 
 constexpr int MAX_K = 32;
-constexpr int MAX_THREADS = 256;
-constexpr int EDGE_TILE = 256;  // slots staged in shared memory per step
-constexpr int MAX_PER_THREAD = (MAX_K + MAX_K * MAX_K + MAX_THREADS - 1) /
-                               MAX_THREADS;  // components per thread, at most
+constexpr int MAX_THREADS = 256;  // the combine's CTA
+constexpr int WARP = 32;
+constexpr int STAGE = 64;         // slots a stage
+constexpr int SLOT_BUFS = 5;      // stages of slot arrays: read 4 ahead
+constexpr int ROW_BUFS = 3;       // stages of factor rows: gathered 2 ahead
+constexpr int UNROLL = 16;        // slots whose loads are issued together
+constexpr int TILE_BYTES = 64 * 1024;  // most output tile a CTA holds
 
-// This thread's components c: pointer to row 0 of its output column and
-// the row stride, and the factor entries (yi, yj) of its term (yj < 0: a
-// b component, w_b * y[yi]). yi < 0 marks a component past D.
-template <int C>
-struct Columns {
-  float* col[C];
-  int stride[C];
-  int yi[C];
-  int yj[C];
+// One partials launch. The 2 x 2 tiles cover the upper triangle of the
+// augmented outer product z z^T (rows of the first K entries only), one
+// thread each; a block's S output rows are cut into groups of `rows`,
+// one CTA per block and group, so that a group's tile fits TILE_BYTES.
+struct PartialsPlan {
+  int kp;       // staged entries a slot: K, the 1, zeros to 4-aligned
+  int nb;       // tile columns: ceil((K + 1) / 2)
+  int tiles;    // tiles, and threads that sum
+  int threads;  // a CTA: whole warps
+  int rows;     // output rows a CTA (the last group may hold fewer)
+  int groups;   // CTAs a block
+  size_t smem;
 };
 
-template <int C>
-__device__ __forceinline__ void write_zero_rows(const Columns<C>& cols,
-                                                int from, int to) {
-  for (int q = from; q < to; ++q) {
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (cols.yi[c] >= 0) cols.col[c][static_cast<long long>(q) * cols.stride[c]] = 0.0f;
-  }
+bool partials_plan(int K, int s_rows, PartialsPlan* p) {
+  if (K < 1 || K > MAX_K || s_rows < 1) return false;
+  p->kp = (K + 1 + 3) / 4 * 4;
+  p->nb = (K + 2) / 2;
+  const int na = (K + 1) / 2;  // tile rows
+  p->tiles = 0;
+  for (int bi = 0; bi < na; ++bi) p->tiles += p->nb - bi;
+  p->threads = (p->tiles + WARP - 1) / WARP * WARP;
+  const int fit = max(1, TILE_BYTES / (16 * p->tiles));
+  p->groups = (s_rows + fit - 1) / fit;
+  p->rows = (s_rows + p->groups - 1) / p->groups;
+  const size_t map = (static_cast<size_t>(K) + K * K) * 2;
+  p->smem = static_cast<size_t>(p->rows) * p->tiles * 16 +  // output tile
+            SLOT_BUFS * STAGE * 16 +                          // slot arrays
+            ROW_BUFS * STAGE * static_cast<size_t>(p->kp) * 4 +  // rows
+            (map + 15) / 16 * 16;
+  return p->groups <= 65535;
 }
 
-// Writes this thread's running sums to row r and clears them; rows below
-// `hi` were written before, rows from `hi` on were not.
-template <int C>
-__device__ __forceinline__ void flush(const Columns<C>& cols, float (&acc)[C],
-                                      int r, int& hi) {
-  if (r >= hi) {
-    write_zero_rows(cols, hi, r);
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (cols.yi[c] >= 0) cols.col[c][static_cast<long long>(r) * cols.stride[c]] = acc[c];
-    hi = r + 1;
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (cols.yi[c] < 0) continue;
-      float* p = cols.col[c] + static_cast<long long>(r) * cols.stride[c];
-      *p = __fadd_rn(*p, acc[c]);
+// The linear index of tile (bi, bj), bi <= bj, row-major over the
+// triangle of `nb` tile columns.
+__device__ __forceinline__ int tile_index(int bi, int bj, int nb) {
+  return bi * nb - bi * (bi - 1) / 2 + (bj - bi);
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most the N groups committed last are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One stage's slot arrays in shared memory: local ids, w_b, w_g, src.
+struct Slots {
+  int* loc;
+  float* wb;
+  float* wg;
+  int* src;
+  __device__ __forceinline__ explicit Slots(unsigned char* at)
+      : loc(reinterpret_cast<int*>(at)),
+        wb(reinterpret_cast<float*>(at) + STAGE),
+        wg(reinterpret_cast<float*>(at) + 2 * STAGE),
+        src(reinterpret_cast<int*>(at) + 3 * STAGE) {}
+};
+
+// Starts the copies of the four slot arrays of the stage at e0 (n slots
+// of the block at `base`) into `s`: 16 bytes a copy where `vec` (a whole
+// stage, 16-byte aligned); slots past n become padding (local id -1).
+__device__ __forceinline__ void copy_slots(
+    Slots s, const int* __restrict__ SRC, const float* __restrict__ WB,
+    const float* __restrict__ WG, const int* __restrict__ LOC, long long base,
+    int e0, int n, bool vec) {
+  const int tid = static_cast<int>(threadIdx.x);
+  const int nt = static_cast<int>(blockDim.x);
+  if (vec && n == STAGE) {
+    constexpr int PER = STAGE / 4;  // 16-byte copies an array
+    for (int q = tid; q < 4 * PER; q += nt) {
+      const int a = q / PER, e = (q - a * PER) * 4;
+      const long long g = base + e0 + e;
+      if (a == 0) cp_async(s.loc + e, LOC + g, 16);
+      else if (a == 1) cp_async(s.wb + e, WB + g, 16);
+      else if (a == 2) cp_async(s.wg + e, WG + g, 16);
+      else cp_async(s.src + e, SRC + g, 16);
+    }
+    return;
+  }
+  for (int e = tid; e < STAGE; e += nt) {
+    if (e < n) {
+      const long long g = base + e0 + e;
+      cp_async(s.loc + e, LOC + g, 4);
+      cp_async(s.wb + e, WB + g, 4);
+      cp_async(s.wg + e, WG + g, 4);
+      cp_async(s.src + e, SRC + g, 4);
+    } else {
+      s.loc[e] = -1;
     }
   }
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
 }
 
-template <int C>
-__global__ void __launch_bounds__(MAX_THREADS)
-    partials_kernel(const float* __restrict__ Y, long long n_src, int K,
-                    const int* __restrict__ SRC, const float* __restrict__ WB,
-                    const float* __restrict__ WG, const int* __restrict__ LOC,
-                    int b_e, int s_rows, float* __restrict__ PB,
-                    float* __restrict__ PG) {
+// Starts the copies of the factor rows of a stage's slots (landed in
+// `s`) into `ys`, `chunk` floats a copy, for the slots of the CTA's
+// output rows [g0, g0 + nr) only; a src outside the factors reads a zero
+// row. The entries from K on (the 1, then zeros) are written once, at
+// the start.
+__device__ __forceinline__ void gather_rows(Slots s, float* ys,
+                                            const float* __restrict__ Y,
+                                            long long n_src, int K, int kp,
+                                            int g0, int nr, int chunk) {
+  for (int e = static_cast<int>(threadIdx.x); e < STAGE;
+       e += static_cast<int>(blockDim.x)) {
+    if (static_cast<unsigned>(s.loc[e] - g0) >= static_cast<unsigned>(nr))
+      continue;
+    float* row = ys + e * kp;
+    const int src = s.src[e];
+    if (src >= 0 && src < n_src) {
+      const float* g = Y + static_cast<long long>(src) * K;
+      for (int c = 0; c < K; c += chunk) cp_async(row + c, g + c, chunk * 4);
+    } else {
+      for (int c = 0; c < K; ++c) row[c] = 0.0f;
+    }
+  }
+}
+
+// Adds a thread's run sums into its four cells of a tile row.
+__device__ __forceinline__ void add_run(float4& cells, const float (&acc)[4]) {
+  float4 v = cells;
+  v.x = __fadd_rn(v.x, acc[0]);
+  v.y = __fadd_rn(v.y, acc[1]);
+  v.z = __fadd_rn(v.z, acc[2]);
+  v.w = __fadd_rn(v.w, acc[3]);
+  cells = v;
+}
+
+// One slot's four terms into a thread's sums: rows a0, a0 + 1 (ya) by
+// columns b0, b0 + 1 (yb) of z z^T, each column weighed by w0 or w1.
+__device__ __forceinline__ void add_terms(float (&acc)[4], float w0, float w1,
+                                          float2 ya, float2 yb) {
+  acc[0] = __fmaf_rn(w0, __fmul_rn(ya.x, yb.x), acc[0]);
+  acc[1] = __fmaf_rn(w1, __fmul_rn(ya.x, yb.y), acc[1]);
+  acc[2] = __fmaf_rn(w0, __fmul_rn(ya.y, yb.x), acc[2]);
+  acc[3] = __fmaf_rn(w1, __fmul_rn(ya.y, yb.y), acc[3]);
+}
+
+// Stores nr rows of `width` cells, contiguous at `out`, from the tile:
+// cell m of row r is tile word r * row_words + map[m]. A thread keeps its
+// cells' places for all rows, and consecutive threads take consecutive
+// cells of a row: 16 bytes a thread where a row is a multiple of 4 floats.
+__device__ __forceinline__ void store_rows(float* __restrict__ out, int width,
+                                           int nr, const short* map,
+                                           const float* tile, int row_words) {
+  const int tid = static_cast<int>(threadIdx.x);
+  const int nt = static_cast<int>(blockDim.x);
+  if (width % 4 == 0) {
+    float4* out4 = reinterpret_cast<float4*>(out);
+    const int w4 = width / 4;
+    for (int c = tid; c < w4; c += nt) {
+      const int p0 = map[4 * c], p1 = map[4 * c + 1], p2 = map[4 * c + 2],
+                p3 = map[4 * c + 3];
+#pragma unroll 4
+      for (int r = 0; r < nr; ++r) {
+        const float* row = tile + r * row_words;
+        __stcs(out4 + r * w4 + c,
+               make_float4(row[p0], row[p1], row[p2], row[p3]));
+      }
+    }
+    return;
+  }
+  for (int m = tid; m < width; m += nt) {
+    const int p = map[m];
+#pragma unroll 4
+    for (int r = 0; r < nr; ++r)
+      __stcs(out + r * width + m, tile[r * row_words + p]);
+  }
+}
+
+// GROUPS: the block's rows are cut into several groups, so a CTA checks
+// a batch of slots for its rows before it loads their weights and rows;
+// with one group every slot but padding is the CTA's, and the loads go
+// first.
+template <bool GROUPS>
+__global__ void partials_kernel(
+    const float* __restrict__ Y, long long n_src, int K,
+    const int* __restrict__ SRC, const float* __restrict__ WB,
+    const float* __restrict__ WG, const int* __restrict__ LOC, int b_e,
+    int s_rows, PartialsPlan plan, int chunk, bool vec_slots,
+    float* __restrict__ PB, float* __restrict__ PG) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* ys = reinterpret_cast<float*>(smem);         // EDGE_TILE x K
-  float* wbs = ys + EDGE_TILE * K;                     // EDGE_TILE
-  float* wgs = wbs + EDGE_TILE;                        // EDGE_TILE
-  int* ls = reinterpret_cast<int*>(wgs + EDGE_TILE);   // EDGE_TILE
-  int* ss = ls + EDGE_TILE;                            // EDGE_TILE
-  const int D = K + K * K;
+  const int kp = plan.kp, nb = plan.nb, tiles = plan.tiles;
+  const int g0 = static_cast<int>(blockIdx.y) * plan.rows;  // first row
+  const int nr = min(plan.rows, s_rows - g0);               // rows here
+  float4* tile = reinterpret_cast<float4*>(smem);  // nr x tiles
+  unsigned char* slots = reinterpret_cast<unsigned char*>(
+      tile + static_cast<size_t>(plan.rows) * tiles);  // SLOT_BUFS stages
+  float* ys = reinterpret_cast<float*>(slots + SLOT_BUFS * STAGE * 16);
+  short* map = reinterpret_cast<short*>(ys + ROW_BUFS * STAGE * kp);
+  const int tid = static_cast<int>(threadIdx.x);
+  const int nt = static_cast<int>(blockDim.x);
   const long long blk = blockIdx.x;
   const long long base = blk * b_e;
-
-  Columns<C> cols;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int d = threadIdx.x + c * blockDim.x;
-    if (d < K) {
-      cols.col[c] = PB + blk * s_rows * K + d;
-      cols.stride[c] = K;
-      cols.yi[c] = d;
-      cols.yj[c] = -1;
-    } else if (d < D) {
-      const int t = d - K;
-      cols.col[c] = PG + blk * s_rows * K * K + t;
-      cols.stride[c] = K * K;
-      cols.yi[c] = t / K;
-      cols.yj[c] = t - (t / K) * K;
-    } else {
-      cols.col[c] = PB;
-      cols.stride[c] = 0;
-      cols.yi[c] = -1;
-      cols.yj[c] = -1;
-    }
+  const int n_stages = (b_e + STAGE - 1) / STAGE;
+  auto slots_of = [&](int st) {
+    return Slots(slots + (st % SLOT_BUFS) * STAGE * 16);
+  };
+  auto rows_of = [&](int st) { return ys + (st % ROW_BUFS) * STAGE * kp; };
+  // one cp.async group a stage: the stage's own slot arrays in the
+  // prologue, then those of the stage 4 ahead with the rows 2 ahead
+  auto copy_stage = [&](int st) {
+    if (st < n_stages)
+      copy_slots(slots_of(st), SRC, WB, WG, LOC, base, st * STAGE,
+                 min(STAGE, b_e - st * STAGE), vec_slots);
+  };
+  auto gather_stage = [&](int st) {
+    if (st < n_stages)
+      gather_rows(slots_of(st), rows_of(st), Y, n_src, K, kp, g0, nr, chunk);
+  };
+  for (int st = 0; st < 4; ++st) {
+    copy_stage(st);
+    cp_async_commit();
   }
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
 
+  // where each output cell's value sits in a tile row: pb's cell d is the
+  // entry (d, K) of z z^T, pg's cell (i, j) the pair (min, max)
+  for (int d = tid; d < K + K * K; d += nt) {
+    int a = d, b = K;
+    if (d >= K) {
+      const int i = (d - K) / K, j = (d - K) - i * K;
+      a = min(i, j);
+      b = max(i, j);
+    }
+    map[d] = static_cast<short>(tile_index(a >> 1, b >> 1, nb) * 4 +
+                                (a & 1) * 2 + (b & 1));
+  }
+  for (int i = tid; i < nr * tiles; i += nt)
+    tile[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = tid; i < ROW_BUFS * STAGE; i += nt)
+    for (int c = K; c < kp; ++c) ys[i * kp + c] = c == K ? 1.0f : 0.0f;
+
+  // this thread's tile: rows a0, a0 + 1, columns b0, b0 + 1 of z z^T
+  int bi = 0, g = tid;
+  while (bi < nb && g >= nb - bi) {
+    g -= nb - bi;
+    ++bi;
+  }
+  const int a0 = 2 * bi, b0 = 2 * (bi + g);
+  const bool col0_b = b0 == K, col1_b = b0 + 1 == K;  // weighed by w_b
+  const bool owner = tid < tiles;
+
+  cp_async_wait<3>();  // stage 0's slot arrays are in
+  __syncthreads();
+  gather_stage(0);
+  cp_async_commit();
+  cp_async_wait<3>();  // stage 1's
+  __syncthreads();
+  gather_stage(1);
+  cp_async_commit();
+
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   int cur = -1;  // the row whose terms `acc` holds; -1 before the first
-  int hi = 0;    // rows [0, hi) of this block's output are written
-  for (int e0 = 0; e0 < b_e; e0 += EDGE_TILE) {
-    const int n = b_e - e0 < EDGE_TILE ? b_e - e0 : EDGE_TILE;
-    __syncthreads();  // the previous tile is consumed
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      wbs[t] = WB[base + e0 + t];
-      wgs[t] = WG[base + e0 + t];
-      ls[t] = LOC[base + e0 + t];
-      ss[t] = SRC[base + e0 + t];
-    }
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<1>();  // this stage's rows, and the slots 2 ahead, are in
     __syncthreads();
-    for (int t = threadIdx.x; t < n * K; t += blockDim.x) {
-      const int e = t / K;
-      const int s = ss[e];
-      // an index outside the factors reads a zero row, never past them
-      ys[t] = s >= 0 && s < n_src
-                  ? Y[static_cast<long long>(s) * K + (t - e * K)]
-                  : 0.0f;
-    }
-    __syncthreads();
-    for (int e = 0; e < n; ++e) {
-      const int l = ls[e];  // the same for every thread: no divergence
-      if (l < 0 || l >= s_rows) continue;  // a padding slot
-      if (l != cur) {
-        if (cur >= 0) flush(cols, acc, cur, hi);
-        cur = l;
-      }
-      const float* y = ys + e * K;
-      const float wb = wbs[e];
-      const float wg = wgs[e];
+    gather_stage(st + 2);
+    copy_stage(st + 4);
+    cp_async_commit();  // possibly empty: one group a stage
+    if (owner) {
+      const Slots s = slots_of(st);
+      const float* y = rows_of(st);
+      for (int e = 0; e < STAGE; e += UNROLL) {
+        // the ids are the same for every thread: the branches below do
+        // not diverge
+        int l[UNROLL];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        if (cols.yi[c] < 0) continue;
-        if (cols.yj[c] < 0)
-          acc[c] = __fmaf_rn(wb, y[cols.yi[c]], acc[c]);
-        else
-          acc[c] = __fmaf_rn(wg, __fmul_rn(y[cols.yi[c]], y[cols.yj[c]]),
-                             acc[c]);
+        for (int u = 0; u < UNROLL; u += 4) {
+          const int4 l4 = *reinterpret_cast<const int4*>(s.loc + e + u);
+          l[u] = l4.x, l[u + 1] = l4.y, l[u + 2] = l4.z, l[u + 3] = l4.w;
+        }
+        if (GROUPS) {  // skip a batch with no slot on this CTA's rows
+          unsigned off = ~0u;
+#pragma unroll
+          for (int u = 0; u < UNROLL; u += 4)
+            off = min(off, min(min(static_cast<unsigned>(l[u] - g0),
+                                   static_cast<unsigned>(l[u + 1] - g0)),
+                               min(static_cast<unsigned>(l[u + 2] - g0),
+                                   static_cast<unsigned>(l[u + 3] - g0))));
+          if (off >= static_cast<unsigned>(nr)) continue;
+        }
+        float wb[UNROLL], wg[UNROLL];
+        float2 ya[UNROLL], yb[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; u += 4) {
+          const float4 b4 = *reinterpret_cast<const float4*>(s.wb + e + u);
+          const float4 g4 = *reinterpret_cast<const float4*>(s.wg + e + u);
+          wb[u] = b4.x, wb[u + 1] = b4.y, wb[u + 2] = b4.z, wb[u + 3] = b4.w;
+          wg[u] = g4.x, wg[u + 1] = g4.y, wg[u + 2] = g4.z, wg[u + 3] = g4.w;
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          ya[u] = *reinterpret_cast<const float2*>(y + (e + u) * kp + a0);
+          yb[u] = *reinterpret_cast<const float2*>(y + (e + u) * kp + b0);
+        }
+        // every slot on row `cur`: reduced four slots at a time, not as
+        // one chain of compares
+        int diff = 0;
+#pragma unroll
+        for (int u = 0; u < UNROLL; u += 4)
+          diff |= ((l[u] ^ cur) | (l[u + 1] ^ cur)) |
+                  ((l[u + 2] ^ cur) | (l[u + 3] ^ cur));
+        const bool run = diff == 0;
+        if (run) {
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u)
+            add_terms(acc, col0_b ? wb[u] : wg[u], col1_b ? wb[u] : wg[u],
+                      ya[u], yb[u]);
+          continue;
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          if (static_cast<unsigned>(l[u] - g0) >= static_cast<unsigned>(nr))
+            continue;  // padding, or another group's row
+          if (l[u] != cur) {
+            if (cur >= 0) add_run(tile[(cur - g0) * tiles + tid], acc);
+            acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;
+            cur = l[u];
+          }
+          add_terms(acc, col0_b ? wb[u] : wg[u], col1_b ? wb[u] : wg[u],
+                    ya[u], yb[u]);
+        }
       }
     }
+    __syncthreads();  // this stage's buffers are consumed before refills
   }
-  if (cur >= 0) flush(cols, acc, cur, hi);
-  write_zero_rows(cols, hi, s_rows);  // rows no slot reached
+  if (owner && cur >= 0) add_run(tile[(cur - g0) * tiles + tid], acc);
+  __syncthreads();
+
+  const float* words = reinterpret_cast<const float*>(tile);
+  const long long row0 = blk * s_rows + g0;
+  store_rows(PB + row0 * K, K, nr, map, words, tiles * 4);
+  store_rows(PG + row0 * K * K, K * K, nr, map + K, words, tiles * 4);
 }
 
 // out[w * width + m] = sum over the blocks c of window w, in order, of
@@ -220,18 +460,39 @@ __global__ void combine_kernel(const float* __restrict__ P,
   O[i] = v;
 }
 
-template <int C>
-cudaError_t launch_partials(unsigned grid, int threads, size_t smem,
-                            cudaStream_t st, const float* y, long long n_src,
-                            int K, const int* src, const float* wb,
-                            const float* wg, const int* local, int b_e,
-                            int s_rows, float* pb, float* pg) {
-  partials_kernel<C><<<grid, threads, smem, st>>>(y, n_src, K, src, wb, wg,
-                                                  local, b_e, s_rows, pb, pg);
-  return cudaGetLastError();
+auto partials_kernel_for(const PartialsPlan& p) {
+  return p.groups > 1 ? &partials_kernel<true> : &partials_kernel<false>;
 }
 
 }  // namespace
+
+// The partials launch at rank K and s_rows window rows on `device`:
+// out[0] tiles (threads that sum), out[1] threads a CTA, out[2] output
+// rows a CTA, out[3] CTAs a block, out[4] dynamic shared memory bytes a
+// CTA, out[5] CTAs an SM can hold. Returns the CUDA error code, 0 on
+// success.
+extern "C" int block_partials_plan(int K, int s_rows, int device, int* out) {
+  PartialsPlan p;
+  if (out == nullptr || !partials_plan(K, s_rows, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto kern = partials_kernel_for(p);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(p.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      p.threads, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = p.tiles;
+  out[1] = p.threads;
+  out[2] = p.rows;
+  out[3] = p.groups;
+  out[4] = static_cast<int>(p.smem);
+  out[5] = per_sm;
+  return 0;
+}
 
 // Per-block partials: pb (n_blocks, s_rows, K) and pg (n_blocks, s_rows,
 // K^2) f32 from the factors y (n_src, K) f32 and the per-slot src, w_b, w_g,
@@ -242,53 +503,38 @@ extern "C" int block_partials(const void* y, long long n_src, int K,
                               const void* local, long long n_blocks, int b_e,
                               int s_rows, void* pb, void* pg, int device,
                               void* stream) {
+  PartialsPlan p;
   if (y == nullptr || src == nullptr || wb == nullptr || wg == nullptr ||
       local == nullptr || pb == nullptr || pg == nullptr || n_src <= 0 ||
-      K < 1 || K > MAX_K || n_blocks < 0 || n_blocks > 0x7fffffffLL ||
-      b_e < 1 || s_rows < 1)
+      n_blocks < 0 || n_blocks > 0x7fffffffLL || b_e < 1 ||
+      !partials_plan(K, s_rows, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_blocks == 0) return 0;
-  const int D = K + K * K;
-  const int threads = D < MAX_THREADS ? (D + 31) / 32 * 32 : MAX_THREADS;
-  const int per = (D + threads - 1) / threads;
-  const size_t smem = static_cast<size_t>(EDGE_TILE) * (K + 4) * 4;
-  auto st = static_cast<cudaStream_t>(stream);
-  const auto grid = static_cast<unsigned>(n_blocks);
-  const auto* yp = static_cast<const float*>(y);
-  const auto* sp = static_cast<const int*>(src);
-  const auto* bp = static_cast<const float*>(wb);
-  const auto* gp = static_cast<const float*>(wg);
-  const auto* lp = static_cast<const int*>(local);
-  auto* ob = static_cast<float*>(pb);
-  auto* og = static_cast<float*>(pg);
-  static_assert(MAX_PER_THREAD == 5, "the dispatch below covers 1..5");
-  switch (per) {
-    case 1:
-      err = launch_partials<1>(grid, threads, smem, st, yp, n_src, K, sp, bp,
-                               gp, lp, b_e, s_rows, ob, og);
-      break;
-    case 2:
-      err = launch_partials<2>(grid, threads, smem, st, yp, n_src, K, sp, bp,
-                               gp, lp, b_e, s_rows, ob, og);
-      break;
-    case 3:
-      err = launch_partials<3>(grid, threads, smem, st, yp, n_src, K, sp, bp,
-                               gp, lp, b_e, s_rows, ob, og);
-      break;
-    case 4:
-      err = launch_partials<4>(grid, threads, smem, st, yp, n_src, K, sp, bp,
-                               gp, lp, b_e, s_rows, ob, og);
-      break;
-    case 5:
-      err = launch_partials<5>(grid, threads, smem, st, yp, n_src, K, sp, bp,
-                               gp, lp, b_e, s_rows, ob, og);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  const auto kern = partials_kernel_for(p);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(p.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the slot arrays in 16-byte copies where every stage is so aligned
+  const bool vec_slots =
+      b_e % 4 == 0 && (reinterpret_cast<uintptr_t>(src) |
+                       reinterpret_cast<uintptr_t>(wb) |
+                       reinterpret_cast<uintptr_t>(wg) |
+                       reinterpret_cast<uintptr_t>(local)) % 16 == 0;
+  // floats a gathered copy: 4 or 2 where every factor row is so aligned
+  const auto at = reinterpret_cast<uintptr_t>(y);
+  const int chunk = K % 4 == 0 && at % 16 == 0   ? 4
+                    : K % 2 == 0 && at % 8 == 0 ? 2
+                                                : 1;
+  const dim3 grid(static_cast<unsigned>(n_blocks),
+                  static_cast<unsigned>(p.groups));
+  kern<<<grid, p.threads, p.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y), n_src, K, static_cast<const int*>(src),
+      static_cast<const float*>(wb), static_cast<const float*>(wg),
+      static_cast<const int*>(local), b_e, s_rows, p, chunk, vec_slots,
+      static_cast<float*>(pb), static_cast<float*>(pg));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Combine: ob (n_windows * s_rows, K) and og (n_windows * s_rows, K^2) f32,

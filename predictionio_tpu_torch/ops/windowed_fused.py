@@ -21,9 +21,14 @@ On a CUDA tensor the wrappers launch the hand-written kernels in
 ``csrc/windowed_pass.cu``; on a CPU tensor they run the plain PyTorch
 versions below. There is no fallback from one to the other.
 
-The kernel and the plain version differ only in the order of the f32
-sums (and the kernel fuses each product into its sum): the bound on
-that difference is relative to the sum of the absolute terms, which
+The partials kernel sums only the K(K+1)/2 gram pairs i <= j (and the K
+b entries) and stores each pair to both (i, j) and (j, i), so the two
+mirrored cells hold the same bits. The products are the plain
+version's (y_i·y_j rounded on its own; a b term's y_d·1 is exact), but
+the kernel fuses each weight into its sum with one rounding (fma) and
+sums in slot order, one run of equal local ids at a time, where the
+plain version's matrix products take their own order: the bound on that
+difference is relative to the sum of the absolute terms, which
 `block_partials_plain` computes when called with ``magnitude=True``.
 Both combines add a window's blocks in block order.
 """
@@ -178,6 +183,8 @@ def _kernel_lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.block_partials.argtypes = [p, ll, i, p, p, p, p, ll, i, i, p, p,
                                        i, p]
+        lib.block_partials_plan.argtypes = [i, i, i, p]
+        lib.block_partials_plan.restype = i
         lib.combine_windows.argtypes = [p, p, p, ll, i, i, ll, p, p, i, p]
         lib.block_partials.restype = lib.combine_windows.restype = i
         _lib = lib
@@ -188,6 +195,24 @@ def _device_and_stream(t):
     dev = t.device.index if t.device.index is not None \
         else torch.cuda.current_device()
     return dev, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def partials_plan(k: int, s_rows: int, device: torch.device) -> dict:
+    """The partials kernel's launch at rank k on `device`, as the kernel
+    chooses it (``block_partials_plan``): the 2 x 2 tiles of the summed
+    pairs (one thread each), threads a CTA, output rows a CTA and the
+    row groups a block is cut into (one CTA each), shared memory bytes a
+    CTA and CTAs an SM holds. Raises where the kernel takes no such
+    launch."""
+    out = (ctypes.c_int * 6)()
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    err = _kernel_lib().block_partials_plan(k, s_rows, dev, out)
+    if err:
+        raise ValueError(f"no partials launch at rank {k}, {s_rows} rows: "
+                         f"CUDA error {err}")
+    return dict(zip(("tiles", "threads", "rows", "groups", "smem_bytes",
+                     "ctas_per_sm"), out))
 
 
 def _launch_partials(factors, src, w_b, w_g, local, s_rows):

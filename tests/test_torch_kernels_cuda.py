@@ -15,6 +15,10 @@ absolute terms, and to equal bits on a second launch. The col pass
 alone:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest -k "dense and col"
+
+The windowed pass alone:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest -k "block_partials or windowed"
 """
 
 import numpy as np
@@ -342,14 +346,86 @@ def _assert_partials_close(args, magnitude_args=None):
     for got, want, mag in ((kb, pb, sb), (kg, pg, sg)):
         assert bool(torch.isfinite(got).all())
         assert float(((got - want).abs() - 1e-5 * mag).max()) <= 0.0
+    k = kb.shape[2]  # each gram pair is stored to (i, j) and (j, i)
+    square = kg.reshape(*kg.shape[:2], k, k)
+    assert torch.equal(square, square.transpose(2, 3))
     return kb, kg
 
 
 @pytest.mark.parametrize("implicit", [True, False])
-@pytest.mark.parametrize("k", [1, 10, 32])
+@pytest.mark.parametrize("k", [1, 10, 11, 16, 23, 32])
 def test_block_partials_kernel_equals_plain(card, k, implicit):
+    """K = 1 to 32: one to several warps of tiles and of row groups, odd
+    and even K (the b column alone in its tile or beside a gram
+    column)."""
     rng = np.random.default_rng(k + 100 * implicit)
     *args, bwin, n_windows = _windowed_case(rng, k, implicit, card)
+    _assert_partials_close(args)
+
+
+def test_block_partials_plan(card):
+    """The kernel's own launch plan: one thread for each 2 x 2 tile of
+    the pairs a <= b of (y, 1)(y, 1)ᵀ with a < K, and the block's rows
+    cut into groups whose shared memory fits an SM."""
+    from predictionio_tpu_torch.ops import windowed_fused as wf
+
+    for s_rows in (128, 1, 1000):
+        for k in range(1, wf.MAX_RANK + 1):
+            p = wf.partials_plan(k, s_rows, card)
+            nb, na = (k + 2) // 2, (k + 1) // 2
+            assert p["tiles"] == sum(nb - bi for bi in range(na))
+            assert p["threads"] % 32 == 0
+            assert p["tiles"] <= p["threads"] < p["tiles"] + 32
+            assert p["groups"] * p["rows"] >= s_rows
+            assert (p["groups"] - 1) * p["rows"] < s_rows
+            assert p["smem_bytes"] <= 227 * 1024 and p["ctas_per_sm"] >= 1
+    for bad in ((0, 128), (33, 128), (10, 0)):
+        with pytest.raises(ValueError, match="no partials launch"):
+            wf.partials_plan(*bad, card)
+
+
+@pytest.mark.parametrize("b_e", [1000, 64, 100, 1])
+def test_block_partials_kernel_short_blocks(card, b_e):
+    """Blocks of b_e slots, not a multiple of the kernel's 64-slot
+    stage, or one stage, or one slot."""
+    rng = np.random.default_rng(b_e)
+    *args, bwin, n_windows = _windowed_case(rng, 10, True, card)
+    _assert_partials_close([args[0]] + [a[:, :b_e].contiguous()
+                                        for a in args[1:]])
+
+
+def test_block_partials_kernel_padding_repeats_a_row(card):
+    """A plan's own padding, untouched: the padding slots of window 0's
+    last block carry edge 0's local id, in range and repeating a row
+    summed earlier in the block, with zero weights."""
+    from predictionio_tpu_torch.ops import windowed as win
+
+    rng = np.random.default_rng(12)
+    dst = np.sort(rng.integers(0, 300, 1500))
+    plan = win.plan_windows(dst, 300)
+    flat = (plan.n_blocks_p, win.BLOCK_EDGES)
+    ok = plan.chunked_valid().reshape(flat)
+    local = plan.chunked_local().reshape(flat)
+    assert (ok[0] == 0).any() and (local[0][ok[0] == 0] == dst[0]).all()
+    src = rng.integers(0, 40, len(dst)).astype(np.int32)
+    w = (rng.uniform(0.5, 5.0, len(dst)).astype(np.float32))
+    factors = rng.standard_normal((40, 10)).astype(np.float32)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    wt = plan.take(w).reshape(flat)
+    kb, _ = _assert_partials_close((put(factors), put(plan.take(src).reshape(flat)),
+                                    put(wt), put(wt), put(local)))
+    assert kb[0, dst[0]].any()
+
+
+def test_block_partials_kernel_many_waves(card):
+    """About 2,000 blocks: several waves of CTAs on the card."""
+    rng = np.random.default_rng(13)
+    *args, bwin, n_windows = _windowed_case(rng, 10, True, card,
+                                            n_edges=2_000_000)
+    assert args[1].shape[0] >= 1_900
     _assert_partials_close(args)
 
 

@@ -143,6 +143,55 @@ def test_block_partials_skips_out_of_range_rows_and_zero_fills():
     assert not pg[1].any()
 
 
+def _pair_partials(factors, src, w_b, w_g, local):
+    """The sums as the CUDA kernel lays them out, in plain torch: with
+    z = (y, 1), only the entries a <= b of z zᵀ with a < K are summed,
+    the K(K+1)/2 gram pairs (i, j) weighed by w_g and the K entries
+    (d, K) by w_b; each gram pair is then stored to both (i, j) and
+    (j, i)."""
+    k = factors.shape[1]
+    z = torch.cat([factors, torch.ones((factors.shape[0], 1))], 1)[src.long()]
+    ii, jj = torch.triu_indices(k, k)
+    pair = torch.empty((k, k), dtype=torch.long)
+    pair[ii, jj] = pair[jj, ii] = torch.arange(len(ii))
+    onehot = (local[:, None, :]
+              == torch.arange(S, dtype=torch.int32)[None, :, None]).float()
+    pb = torch.bmm(onehot * w_b[:, None, :], z[..., :k] * z[..., k:])
+    pairs = torch.bmm(onehot * w_g[:, None, :], z[..., ii] * z[..., jj])
+    return pb, pairs[..., pair.reshape(-1)]
+
+
+@pytest.mark.parametrize("k", [1, 10, 11, 32])
+def test_pair_layout_equals_block_partials_plain(k):
+    """The kernel's layout (pairs a <= b, mirrored at the store) gives
+    the plain version's bits: y_d * 1 = y_d and y_i * y_j = y_j * y_i
+    exactly, so only which cells are summed changes."""
+    rng = np.random.default_rng(40 + k)
+    args = _torch(*_chunk(rng, k, True))
+    kb, kg = _pair_partials(*args)
+    pb, pg = twf.block_partials_plain(*args)
+    assert torch.equal(kb, pb) and torch.equal(kg, pg)
+    mirror = kg.reshape(CB, S, k, k)
+    assert torch.equal(mirror, mirror.transpose(2, 3))
+
+
+@pytest.mark.parametrize("k", [1, 10, 11, 32])
+def test_pair_layout_matches_pallas_interpret(k):
+    rng = np.random.default_rng(50 + k)
+    factors, src, w_b, w_g, local = _chunk(rng, k, False)
+    y_t = np.ascontiguousarray(factors[src].transpose(0, 2, 1))
+    jb, jg = jwp.block_partials(jnp.asarray(y_t), jnp.asarray(w_b),
+                                jnp.asarray(w_g), jnp.asarray(local),
+                                s_rows=S, interpret=True)
+    args = _torch(factors, src, w_b, w_g, local)
+    kb, kg = _pair_partials(*args)
+    sb, sg = twf.block_partials_plain(*args, magnitude=True)
+    for got, want, mag in ((kb, jb, sb), (kg, jg, sg)):
+        err = np.abs(got.numpy() - np.asarray(want))
+        assert np.all(err <= 1e-5 * mag.numpy()), float(err.max())
+    assert float(sg.sum()) > 0
+
+
 def test_combine_windows_adds_blocks_in_order_and_drops_nothing():
     rng = np.random.default_rng(5)
     pb = torch.from_numpy(rng.standard_normal((6, S, 2)).astype(np.float32))
