@@ -17,9 +17,11 @@ Phases, in order; any failure prints what failed and exits non-zero:
             no mask / packed bits / row list, unscaled and scaled,
             B in {1, 8, 64}, k in {1, 10, 128, 1024, n_items}, a fully
             masked row, crafted cross-chunk ties on integer-valued
-            factors, and B=1 vs B=64 bit-identity. Indices must be equal;
-            values within rtol 1e-5 (the kernel and the plain version do
-            the same rounded operations, so they are in fact equal).
+            factors, and B=1 vs B=64 bit-identity. Each call must take
+            the route its k names (the two-launch select route up to
+            k = 1,024, the chunk sort above); indices and values must be
+            equal (the kernel and the plain version do the same rounded
+            operations).
 4. data     ML-20M-shaped ratings from SEED with numpy: 138,493 users x
             26,744 items, 20,000,263 unique pairs with skewed degrees
             anchored on ML-20M's published counts (users 20 to 9,254
@@ -45,10 +47,14 @@ Phases, in order; any failure prints what failed and exits non-zero:
             ``QueryServer`` on the card; 16 client threads send 500
             ``POST /queries.json`` (some with blacklists or whitelists).
             Every answer must equal the plain version's on the CPU;
-            kernel launches must equal device batches.
+            kernel launches, and those of its select route, must equal
+            device batches.
 8. times    CUDA-event medians: top-k at B in {1, 64}, k=128, per dtype
-            (kernel, plain, ``torch.topk(q @ itf.T)`` as a yardstick the
-            port never calls, bound); the dense passes at the ML-20M slab,
+            (kernel, its route, its launches per call as the profiler
+            counts them, which must equal the route's, and its time on
+            the card by kernel, plain,
+            ``torch.topk(q @ itf.T)`` as a yardstick the port never
+            calls, bound); the dense passes at the ML-20M slab,
             K = 10 (kernel, plain, the port's two-matmul ``ops.dense``
             pass on the same R in bf16 storage as the yardstick, bound),
             and the kernel again on a uniform R with as many ratings and
@@ -111,8 +117,9 @@ Phases, in order; any failure prints what failed and exits non-zero:
             CPU copy of the model; masked kernel launches, and those of
             its select route, must equal device batches.
 19. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
-            {1, 64}: the kernel (its launches per call, and its time on
-            the card alone by ``torch.profiler``), its plain version,
+            {1, 64}: the kernel (its launches per call, which must equal
+            its route's, and its time on the card alone, both by
+            ``torch.profiler``), its plain version,
             ``torch.topk`` over
             ``torch.where(mask, NEG_INF, scores)`` as a yardstick the port
             never calls, the bound, and the history scoring outside it.
@@ -308,27 +315,27 @@ def _masks(rng, b, i_p):
             "rows": (None, torch.from_numpy(rows).cuda())}
 
 
-def _compare(args, k, exact, tally, label):
+def _compare(args, k, tally, label):
+    route = rec.topk_route(k)
+    before = rec.ROUTE_LAUNCHES[route]
     kv, ki = rec.fused_recommend_topk(*args, k=k, n_items=N_ITEMS)
     pv, pi = rec.fused_recommend_topk_plain(*args, k=k, n_items=N_ITEMS)
     torch.cuda.synchronize()
+    check(rec.ROUTE_LAUNCHES[route] == before + 1,
+          f"{label}: not launched on the {route} route")
     check(torch.equal(ki, pi), f"{label}: indices differ from the plain version")
-    if exact:
-        check(torch.equal(kv, pv), f"{label}: values differ (exact inputs)")
-    else:
-        check(torch.allclose(kv, pv, rtol=1e-5, atol=0.0),
-              f"{label}: values beyond rtol 1e-5")
+    check(torch.equal(kv, pv), f"{label}: values differ from the plain version")
     tally["max_abs_err"] = max(tally["max_abs_err"],
                                float((kv - pv).abs().max()))
-    tally["bit_equal"] += int(torch.equal(kv, pv))
     tally["cases"] += 1
+    tally["routes"][route] += 1
     return kv, ki
 
 
 def phase_sweep(report, shared):
     rng = np.random.default_rng(SEED)
     i_p = rec.pad_items(N_ITEMS)
-    tally = {"cases": 0, "bit_equal": 0, "max_abs_err": 0.0}
+    tally = {"cases": 0, "max_abs_err": 0.0, "routes": {"select": 0, "sort": 0}}
     t0 = time.perf_counter()
     for dtype in ("f32", "bf16", "int8"):
         q64, itf, qs8, isc8 = _slab(rng, dtype)
@@ -356,7 +363,7 @@ def phase_sweep(report, shared):
                     for k in K_LADDER:
                         label = (f"{dtype} scaled={qs is not None} mask={kind} "
                                  f"B={b} k={k}")
-                        kv, ki = _compare(args, k, dtype == "int8", tally, label)
+                        kv, ki = _compare(args, k, tally, label)
                         if kind == "bits":  # row 0 is fully masked
                             n = min(k, N_ITEMS)
                             check(bool((kv[0, :n] == rec.NEG_INF).all())
@@ -380,11 +387,12 @@ def phase_sweep(report, shared):
     for dtype in ("f32", "bf16"):
         q64, itf, _, _ = _slab(rng, dtype, integer=True)
         for k in (128, 1024, N_ITEMS):
-            _compare((q64, itf, None, None, None, None), k, True, tally,
+            _compare((q64, itf, None, None, None, None), k, tally,
                      f"ties {dtype} k={k}")
     report["sweep"] = dict(tally, seconds=time.perf_counter() - t0)
-    print(f"[sweep] {tally['cases']} cases, indices equal in all, values "
-          f"bit-equal in {tally['bit_equal']}, max |kernel - plain| "
+    print(f"[sweep] {tally['cases']} cases ({tally['routes']['select']} on the "
+          f"select route, {tally['routes']['sort']} on the sort route), indices "
+          f"and values equal in all, max |kernel - plain| "
           f"{tally['max_abs_err']:.3g}, {report['sweep']['seconds']:.1f} s",
           flush=True)
 
@@ -830,6 +838,7 @@ def phase_serve(report, shared):
                                     args=(port, work[c::N_CLIENTS], out, lock))
                    for c in range(N_CLIENTS)]
         rec.LAUNCHES = 0  # every count to 0 just before the main path
+        rec.ROUTE_LAUNCHES.update(select=0, sort=0)
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -837,6 +846,7 @@ def phase_serve(report, shared):
             t.join(timeout=600)
         wall = time.perf_counter() - t0
         launches = rec.LAUNCHES
+        routes = dict(rec.ROUTE_LAUNCHES)
         check(not any(t.is_alive() for t in threads), "clients hung")
         after = _status(port)
         batches = after["batches"] - before["batches"]
@@ -862,12 +872,14 @@ def phase_serve(report, shared):
     check(launches > 0, "the main path launched no kernel")
     check(launches == batches,
           f"kernel launches {launches} != device batches {batches}")
+    check(routes["select"] == batches,
+          f"select-route launches {routes['select']} != device batches {batches}")
     report["serve"] = {
         "setup_s": setup_s, "warmup_s": warm_s, "wall_s": wall,
         "qps": N_QUERIES / wall,
         "p50_ms": 1e3 * lat[len(lat) // 2],
         "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
-        "batches": batches, "launches": launches,
+        "batches": batches, "launches": launches, "route_launches": routes,
         "mean_batch": N_QUERIES / batches,
         "batch_predict_ms": 1e3 * batch_s / batches,
         "requests": after["requests"] - before["requests"],
@@ -877,8 +889,9 @@ def phase_serve(report, shared):
           f"the CPU plain version: p50 {s['p50_ms']:.3f} ms, p99 "
           f"{s['p99_ms']:.3f} ms, {s['qps']:.1f} qps, {batches} batches "
           f"(mean {s['mean_batch']:.2f} queries, {s['batch_predict_ms']:.3f} "
-          f"ms of batch_predict each), kernel launches {launches}; warmup "
-          f"{warm_s:.2f} s", flush=True)
+          f"ms of batch_predict each), kernel launches {launches} "
+          f"({routes['select']} select route, {routes['sort']} sort route); "
+          f"warmup {warm_s:.2f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -903,20 +916,40 @@ def _time_ms(fn, iters, repeats=5):
     return statistics.median(per)
 
 
-def _device_ms(fn, calls=20):
+def _device_ms(fn, launches, calls=20):
     """Time on the card per call (torch.profiler), without the host's
-    share of `_time_ms`: the sum, and each kernel's by name."""
+    share of `_time_ms`: the sum, each kernel's by name, the kernels the
+    profiler saw launched per call, and the sessions taken. Late in a
+    long process a session now and then loses device records (none, or
+    27 of 40 seen), so one that saw other than `launches` a call is taken
+    again, up to five sessions; the caller holds the last one's count to
+    `launches`."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    per = {e.key.split("::")[-1].split("(")[0]: e.device_time_total / calls / 1e3
-           for e in prof.key_averages() if e.device_time_total}
-    return sum(per.values()), per
+    for sessions in range(1, 6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_time_total]
+        if sum(e.count for e in events) == launches * calls:
+            break
+    per: dict = {}
+    for e in events:  # the name alone: no namespace, template or parameters
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.split("<")[0].split()[-1].split("::")[-1]
+        per[name] = per.get(name, 0.0) + e.device_time_total / calls / 1e3
+    return sum(per.values()), per, sum(e.count for e in events) / calls, sessions
+
+
+def _launches_per_call(i_p, k):
+    """CUDA launches in one call of either top-k selector on the card: the
+    segment and row passes, or pass 1, the merge levels and the emit."""
+    if rec.topk_route(k) == "select":
+        return 2
+    return len(rec.merge_levels(i_p, k)) + 1
 
 
 def _bound(dtype, b, i_p, k, scaled):
@@ -945,6 +978,13 @@ def phase_times(report, shared):
             lib_q = q.float() if dtype == "int8" else q
             kernel = _time_ms(
                 lambda: rec.fused_recommend_topk(*args, k=128, n_items=N_ITEMS), 50)
+            device, split, seen, sessions = _device_ms(
+                lambda: rec.fused_recommend_topk(*args, k=128, n_items=N_ITEMS),
+                _launches_per_call(i_p, 128))
+            check(seen == _launches_per_call(i_p, 128),
+                  f"{dtype} B={b}: the profiler saw {seen:g} launches a call, "
+                  f"the {rec.topk_route(128)} route makes "
+                  f"{_launches_per_call(i_p, 128)}")
             plain = _time_ms(
                 lambda: rec.fused_recommend_topk_plain(
                     *args, None, None, k=128, n_items=N_ITEMS), 10)
@@ -952,11 +992,18 @@ def phase_times(report, shared):
                 lambda: torch.topk(lib_q @ lib_it.T, 128, dim=1), 50)
             bound, by = _bound(dtype, b, i_p, 128, dtype == "int8")
             rows.append({"dtype": dtype, "B": b, "k": 128, "ms": kernel,
+                         "device_ms": device, "device_split_ms": split,
+                         "route": rec.topk_route(128),
+                         "launches_per_call": seen, "profiler_sessions": sessions,
                          "plain_ms": plain, "library_ms": library,
                          "bound_ms": bound, "bound_by": by})
-            print(f"[times] {dtype} B={b} k=128: kernel {kernel:.4f} ms, plain "
-                  f"{plain:.4f} ms, torch.topk(q@itf.T) {library:.4f} ms, bound "
-                  f"{bound:.5f} ms ({by})", flush=True)
+            print(f"[times] {dtype} B={b} k=128: kernel {kernel:.4f} ms "
+                  f"({rec.topk_route(128)} route, {seen:g} launches per call "
+                  f"in profiler session {sessions}; "
+                  f"{device:.4f} ms of it on the "
+                  f"card: {', '.join(f'{n} {t:.4f}' for n, t in split.items())}), "
+                  f"plain {plain:.4f} ms, torch.topk(q@itf.T) {library:.4f} ms, "
+                  f"bound {bound:.5f} ms ({by})", flush=True)
     report["times"] = rows
 
 
@@ -1598,7 +1645,7 @@ def phase_ur_sweep(report, shared):
             for kind, (bits, rows) in _ur_masks(rng, b, i_p, n_items).items():
                 for k in sorted({kk for kk in UR_K_LADDER + (n_items,) if kk <= i_p}):
                     label = f"masked I_p={i_p} B={b} mask={kind} k={k}"
-                    route = rec.masked_route(k)
+                    route = rec.topk_route(k)
                     before = rec.MASKED_ROUTE_LAUNCHES[route]
                     kv, ki = rec.fused_masked_topk(scores, bits, rows, k=k,
                                                    n_items=n_items)
@@ -1958,14 +2005,6 @@ def phase_ur_serve(report, shared):
           f"CPU check {cpu_s:.1f} s", flush=True)
 
 
-def _masked_launches_per_call(i_p, k):
-    """CUDA launches in one ``fused_masked_topk`` call on the card: the
-    segment and row passes, or pass 1, the merge levels and the emit."""
-    if rec.masked_route(k) == "select":
-        return 2
-    return len(rec.merge_levels(i_p, k)) + 1
-
-
 def phase_ur_times(report, shared):
     ur = shared.pop("ur")
     model = ur["model"]
@@ -1997,8 +2036,11 @@ def phase_ur_times(report, shared):
         k = UR_TIMES_K
         kernel = _time_ms(lambda: rec.fused_masked_topk(scores, bits, k=k,
                                                         n_items=n_items), 50)
-        device, split = _device_ms(lambda: rec.fused_masked_topk(
-            scores, bits, k=k, n_items=n_items))
+        device, split, seen, sessions = _device_ms(lambda: rec.fused_masked_topk(
+            scores, bits, k=k, n_items=n_items), _launches_per_call(i_p, k))
+        check(seen == _launches_per_call(i_p, k),
+              f"B={b}: the profiler saw {seen:g} launches a call, the "
+              f"{rec.topk_route(k)} route makes {_launches_per_call(i_p, k)}")
         plain = _time_ms(lambda: rec.fused_masked_topk_plain(
             scores, bits, None, k=k, n_items=n_items), 10)
         library = _time_ms(lambda: torch.topk(
@@ -2007,15 +2049,15 @@ def phase_ur_times(report, shared):
                                                       i_p), 10)
         nbytes = b * i_p * 4 + b * (i_p // 32) * 4 + b * k * 8
         bound = 1e3 * nbytes / HBM_BPS
-        per_call = _masked_launches_per_call(i_p, k)
         rows.append({"B": b, "I_p": i_p, "k": k, "mask": "bits", "ms": kernel,
                      "device_ms": device, "device_split_ms": split,
-                     "route": rec.masked_route(k), "launches_per_call": per_call,
+                     "route": rec.topk_route(k), "launches_per_call": seen,
+                     "profiler_sessions": sessions,
                      "plain_ms": plain, "library_ms": library, "bound_ms": bound,
                      "bound_by": "bytes", "history_scoring_ms": scoring})
         print(f"[ur times] fused_masked_topk B={b} I_p={i_p} k={k} bit words: "
-              f"kernel {kernel:.4f} ms ({rec.masked_route(k)} route, {per_call} "
-              f"launches per call; {device:.4f} ms of it on the card: "
+              f"kernel {kernel:.4f} ms ({rec.topk_route(k)} route, {seen:g} "
+              f"launches per call in profiler session {sessions}; {device:.4f} ms of it on the card: "
               f"{', '.join(f'{n} {t:.4f}' for n, t in split.items())}), plain "
               f"{plain:.4f} ms, "
               f"torch.topk(where(mask)) {library:.4f} ms, bound {bound:.5f} ms "
@@ -2064,7 +2106,9 @@ def main() -> int:
         "max_abs_err": report["sweep"]["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
+        "library_ms": main_row["library_ms"], "device_ms": main_row["device_ms"],
+        "topk_route": main_row["route"],
+        "launches_per_call": main_row["launches_per_call"],
     }]
     for row in report["dense_times"]:
         which = row["pass"]

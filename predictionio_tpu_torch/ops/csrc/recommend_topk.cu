@@ -3,19 +3,37 @@
 //
 // Replaces two TPU kernels of predictionio_tpu/ops/recommend_pallas.py,
 // which share one assembly (_fused_call) and one body (_make_kernel):
-// fused_recommend_topk (entry recommend_topk below) and fused_masked_topk
-// (entries masked_select and masked_topk below), the same exclusion and
-// top-k over a PRECOMPUTED (B, I_p) score matrix, the tail of the
-// Universal Recommender's batched history scoring. The TPU kernel walks
-// item tiles in order and merges each into one running list in VMEM;
-// blocks here run in parallel with no carry, so the work splits into
-// passes, all launched on the caller's stream:
+// fused_recommend_topk (entries recommend_select and recommend_topk
+// below) and fused_masked_topk (entries masked_select and masked_topk),
+// the same exclusion and top-k over a PRECOMPUTED (B, I_p) score matrix,
+// the tail of the Universal Recommender's batched history scoring. The
+// TPU kernel walks item tiles in order and merges each into one running
+// list in VMEM; blocks here run in parallel with no carry, so the work
+// splits into passes, all launched on the caller's stream. Each selector
+// has two routes, chosen by k alone (ops/recommend.py:topk_route):
 //
+// k <= SELECT_MAX_K (1,024), the select route, two launches
+// (recommend_select, masked_select):
+//   segment pass  one block per (segment of SEGMENT = 4,096 columns,
+//                 row): each column's score computed from the slab rows,
+//                 staged in shared memory (ScoredSlab), or read with
+//                 16-byte loads (ScoreMatrix), the masks, the keys below,
+//                 and a radix
+//                 select of the segment's top min(k, columns) keys (a
+//                 256-bin histogram of 8 score bits per round, in shared
+//                 memory, narrowing to the bin that holds rank k; bits
+//                 that all remaining keys share cost no round), the
+//                 score it stops at taken by the lowest columns, ranked
+//                 by one scan.
+//   row pass      one block per row: the same radix select over the
+//                 segments' k candidates each, a bitonic sort of the k
+//                 selected keys, and the emit.
+//
+// k > SELECT_MAX_K, the sort route (recommend_topk, masked_topk):
 //   pass 1  one block per (chunk of CHUNK item columns, query row): score
-//           every column of the chunk in registers (recommend_topk) or
-//           read its precomputed score (masked_topk), apply the masks,
-//           sort the chunk's (score, column) keys in shared memory
-//           (bitonic), write the top min(k, CHUNK) keys.
+//           or read every column of the chunk, apply the masks, sort the
+//           chunk's keys in shared memory (bitonic), write the top
+//           min(k, CHUNK).
 //   merge   a tree of launches; each block merges two neighbouring sorted
 //           lists of one row into the top min(k, a + b) by rank (every
 //           key's output slot = its index in its own list + the count of
@@ -27,7 +45,7 @@
 // and any exact selection reproduces lax.top_k bit for bit, ties
 // included. Masked columns score NEG_INF (-1e30); pad columns at or above
 // n_items score -FLT_MAX, below NEG_INF; columns past I_p in the last
-// chunk get keys below every real column and never reach the output.
+// chunk or segment never reach the output.
 //
 // Scores: one chain over K in index order per (query, column), each
 // multiply and add rounded on its own (__fmul_rn/__fadd_rn are never
@@ -35,37 +53,30 @@
 // widened to f32. The plain PyTorch version (ops/recommend.py:
 // plain_scores) does the same operations, so the two agree bit for bit,
 // and no score depends on the batch it rides in. Optional scales then
-// multiply as (s * q_scale[b]) * item_scale[col].
+// multiply as (s * q_scale[b]) * item_scale[col]. That chain is why
+// there are no tensor cores (wgmma, mma.sync) here: they sum in their own
+// order and at their own precision, and a row's answer would then depend
+// on the kernel's tiling and differ from the plain version's. Nor would
+// they pay: at the main-path shape the whole product is 34 MFLOP at
+// B = 64, ~0.5 us on the CUDA cores.
 //
 // Bound at the main-path shape (ML-20M: I_p = 26,752, K = 10, k = 128,
 // f32): B = 64 moves ~1.14 MB (1.07 MB of item factors, outputs 65 KB),
 // 0.34 us at 3.35 TB/s, and does 34 MFLOP, 0.51 us at 67 TFLOP/s of f32
 // CUDA-core peak: operations-bound at ~0.5 us. B = 1 is bytes-bound at
-// ~0.32 us. The kernel is far from either: it is launch- and
-// selection-bound (a full bitonic sort of every chunk per row, and
-// log2(chunks) merge launches). No wgmma or TMA: at K = 10 tensor cores
-// do not pay. Making it fast is later work.
+// ~0.32 us. Neither rate bounds the kernel: its time goes to launches,
+// to selecting, and to the latency of the chains (one dependent add a
+// factor). The select route needs no sort of the whole row and two
+// launches where the sort route takes 2 + log2(chunks) (seven at this
+// shape). At B = 64 each of the 7 x 64 segment blocks copies its
+// segment's slab rows from L2 into shared memory (~68 MB in all at f32);
+// one block for several rows of a segment would share the copies, but
+// they are a small share of the segment pass (PERF.md §6).
 //
 // The precomputed-score selector at the UR catalog (I_p = 100,096, k =
 // 64, bit words) is bytes-bound: the scores, the words and the outputs
-// once, 25.7 MB at B = 64, ~7.7 us at 3.35 TB/s. A k = 64 selection needs
-// no sort of the whole row, so for k <= SELECT_MAX_K (entry masked_select)
-// it takes two launches:
-//
-//   segment pass  one block per (segment of SEGMENT = 4,096 columns,
-//                 row): 16-byte score loads, the same keys, and a radix
-//                 select of the segment's top min(k, columns) keys (a
-//                 256-bin histogram of 8 score bits per round, in shared
-//                 memory, narrowing to the bin that holds rank k; bits
-//                 that all remaining keys share cost no round), the
-//                 score it stops at taken by the lowest columns, ranked
-//                 by one scan; at B = 64, 25 x 64 = 1,600 blocks fill
-//                 the 132 SMs ~3 times over.
-//   row pass      one block per row: the same radix select over the
-//                 segments' candidates, then a bitonic sort of the k
-//                 selected keys, and the emit.
-//
-// Larger k takes masked_topk: the chunk sort and merge tree above.
+// once, 25.7 MB at B = 64, ~7.7 us at 3.35 TB/s; at B = 64, 25 x 64 =
+// 1,600 segment blocks fill the 132 SMs ~3 times over.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -473,23 +484,161 @@ __device__ Threshold<Key> radix_threshold(ForEach for_each, unsigned kk,
   }
 }
 
-// Segment pass: block (segment, row) reads the row's scores of SEGMENT
-// columns (16-byte loads) and their exclusion bits, and writes the keys
+// Where the segment pass's scores come from. prepare(b, smem) runs on
+// every thread before the kernel's first barrier; load4(b, col, smem)
+// gives the scores of columns col..col+3 of row b (col a multiple of 4,
+// below I_p), called by all lanes of a warp together.
+//
+// ScoreMatrix: a precomputed (B, I_p) f32 matrix, one 16-byte load.
+struct ScoreMatrix {
+  const float* scores;
+  int I_p;
+  __device__ __forceinline__ void prepare(int, float*) const {}
+  __device__ __forceinline__ float4 load4(int b, int col, const float*) const {
+    return __ldcs(reinterpret_cast<const float4*>(
+        scores + static_cast<size_t>(b) * I_p + col));
+  }
+};
+
+// ScoredSlab: each column's score from the row's query factors (put in
+// shared memory by prepare) and its slab row; DT as in
+// score_chunk_kernel. A warp's threads hold the keys of 128 consecutive
+// columns, four each, but score them lane + 32 e (e < 4): four chains a
+// lane, each over K in index order, side by side, with a lane's rows K
+// elements apart; the scores then trade places through shared memory.
+// STAGED first copies the warp's 128 slab rows (128 K esz contiguous
+// bytes) into shared memory with 16-byte loads, all lanes on neighbouring
+// addresses; else each factor is read from the slab where it lies. The
+// dynamic shared memory holds XCH_FLOATS exchange floats, the K query
+// factors (rounded up to 4) and, STAGED, each warp's rows. Needs a warp's
+// 128 columns all below I_p (I_p a multiple of 128).
+constexpr int XCH_FLOATS = SEL_THREADS * 4;  // 128 scores a warp
+// the most shared memory the STAGED rows of a block may take: two blocks
+// an SM (f32 up to K = 24, bf16 48, int8 96); wider rows are read where
+// they lie
+constexpr int STAGE_MAX_BYTES = 96 * 1024;
+
+template <int DT, bool STAGED>
+struct ScoredSlab {
+  static constexpr int ESZ = DT == 0 ? 4 : (DT == 1 ? 2 : 1);
+  const void* q;
+  const void* itf;
+  const float* q_scale;
+  const float* item_scale;
+  int K;
+  __device__ __forceinline__ void prepare(int b, float* smem) const {
+    float* qf = smem + XCH_FLOATS;
+    for (int j = threadIdx.x; j < K; j += blockDim.x) {
+      const size_t o = static_cast<size_t>(b) * K + j;
+      if constexpr (DT == 2) {
+        reinterpret_cast<int*>(qf)[j] = static_cast<const int8_t*>(q)[o];
+      } else if constexpr (DT == 1) {
+        qf[j] = __bfloat162float(static_cast<const __nv_bfloat16*>(q)[o]);
+      } else {
+        qf[j] = static_cast<const float*>(q)[o];
+      }
+    }
+  }
+  // element m of the rows, widened (int8 as int)
+  __device__ __forceinline__ auto at(const char* rows, size_t m) const {
+    if constexpr (DT == 0) {
+      const float* p = reinterpret_cast<const float*>(rows) + m;
+      if constexpr (STAGED) return *p; else return __ldg(p);
+    } else if constexpr (DT == 1) {  // a bf16 is an f32's high half
+      const unsigned short* p =
+          reinterpret_cast<const unsigned short*>(rows) + m;
+      const unsigned short h = STAGED ? *p : __ldg(p);
+      return __uint_as_float(static_cast<uint32_t>(h) << 16);
+    } else {
+      const signed char* p = reinterpret_cast<const signed char*>(rows) + m;
+      return static_cast<int>(STAGED ? *p : __ldg(p));
+    }
+  }
+  __device__ __forceinline__ float4 load4(int b, int col, float* smem) const {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int first = col - 4 * lane;  // the warp's first column
+    const char* rows = static_cast<const char*>(itf) +
+                       static_cast<size_t>(first) * K * ESZ;
+    if constexpr (STAGED) {
+      char* stage =
+          reinterpret_cast<char*>(smem + XCH_FLOATS + ((K + 3) & ~3)) +
+          static_cast<size_t>(warp) * 128 * K * ESZ;
+      const uint4* src = reinterpret_cast<const uint4*>(rows);
+      uint4* dst = reinterpret_cast<uint4*>(stage);
+#pragma unroll 4
+      for (int i = lane; i < 8 * K * ESZ; i += 32) dst[i] = __ldg(src + i);
+      __syncwarp();
+      rows = stage;
+    }
+    // -0.0 adds exactly to every value (+0.0 too): the chain's first sum
+    // is its first product, as in the plain version
+    using Acc = decltype(at(rows, 0));
+    Acc acc[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] = DT == 2 ? Acc(0) : Acc(-0.0f);
+    const float* qf = smem + XCH_FLOATS;
+#pragma unroll 2
+    for (int j = 0; j < K; ++j) {
+      if constexpr (DT == 2) {
+        const int qj = reinterpret_cast<const int*>(qf)[j];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[e] += qj * at(rows, static_cast<size_t>(lane + 32 * e) * K + j);
+      } else {
+        const float qj = qf[j];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[e] = __fadd_rn(
+              acc[e],
+              __fmul_rn(qj, at(rows, static_cast<size_t>(lane + 32 * e) * K + j)));
+      }
+    }
+    float s[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (DT == 2) {
+        s[e] = __int2float_rn(acc[e]);
+      } else {
+        s[e] = acc[e];
+      }
+    }
+    if (q_scale != nullptr) {
+      const float qs = q_scale[b];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[e] = __fmul_rn(__fmul_rn(s[e], qs), item_scale[first + lane + 32 * e]);
+    }
+    float* xch = smem + warp * 128;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) xch[lane + 32 * e] = s[e];
+    __syncwarp();
+    const float4 mine = reinterpret_cast<const float4*>(xch)[lane];
+    __syncwarp();  // the next call writes xch (and the staged rows) again
+    return mine;
+  }
+};
+
+// Segment pass: block (segment, row) takes the row's scores of SEGMENT
+// columns from its Source and their exclusion bits, and writes the keys
 // of the segment's top min(k, columns) columns in any order to its k
 // slots of `out`, key 0 (below every column's key) in the rest. The
 // select runs on the keys' 32 score bits; the score it stops at is taken
 // by the lowest columns first, ranked by one scan in column order: thread
 // t holds columns 4 (t + SEL_THREADS v) + e of the segment.
+template <class Source>
 __global__ void __launch_bounds__(SEL_THREADS) segment_select_kernel(
-    const float* __restrict__ scores, const int32_t* __restrict__ mask_bits,
+    Source src, const int32_t* __restrict__ mask_bits,
     const int32_t* __restrict__ excl, int n_excl, int I_p, int n_items,
     int k, uint64_t* __restrict__ out) {
+  extern __shared__ float src_smem[];  // the Source's own (see ScoredSlab)
   __shared__ unsigned words[SEGMENT / 32];  // the segment's exclusion bits
   __shared__ SelectShared sh;
   const int seg = blockIdx.x;
   const int b = blockIdx.y;
   const int c0 = seg * SEGMENT;
   const int len = min(SEGMENT, I_p - c0);  // a multiple of 32, as I_p
+  src.prepare(b, src_smem);
   for (int w = threadIdx.x; w < SEGMENT / 32; w += SEL_THREADS)
     words[w] = mask_bits != nullptr && w < len / 32
                    ? static_cast<unsigned>(
@@ -505,12 +654,11 @@ __global__ void __launch_bounds__(SEL_THREADS) segment_select_kernel(
     __syncthreads();
   }
   uint32_t u[SEG_KEYS];  // each column's score bits: its key's high word
-  const float* row = scores + static_cast<size_t>(b) * I_p + c0;
 #pragma unroll
   for (int v = 0; v < SEG_VECS; ++v) {
     const int j = 4 * (threadIdx.x + SEL_THREADS * v);
     float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (j < len) s = __ldcs(reinterpret_cast<const float4*>(row + j));
+    if (j < len) s = src.load4(b, c0 + j, src_smem);
     const unsigned w = words[j >> 5];
     const float f[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
@@ -628,6 +776,54 @@ __global__ void __launch_bounds__(SEL_THREADS) row_select_kernel(
   }
 }
 
+// The row pass over the segment pass's candidates (n_seg x k keys a row
+// in cand), on `st`; returns the CUDA error code, 0 on success.
+int row_pass(const uint64_t* cand, int n_seg, int B, int k, float* vals,
+             int32_t* idx, cudaStream_t st) {
+  cudaError_t err = cudaGetLastError();  // the segment pass's launch
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_cand = n_seg * k;
+  const bool staged = static_cast<size_t>(n_cand) * 8 <= ROW_SMEM_MAX;
+  const size_t smem = staged ? static_cast<size_t>(n_cand) * 8 : 0;
+  if (staged) {  // with the static shared memory, past the 48 KB default
+    err = cudaFuncSetAttribute(row_select_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  row_select_kernel<<<B, SEL_THREADS, smem, st>>>(cand, n_cand, k, staged,
+                                                  vals, idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scored segment pass at one dtype, STAGED when the slab is 16-byte
+// aligned and a block's rows fit STAGE_MAX_BYTES; returns the CUDA error
+// code of the set-up, 0 on success.
+template <int DT>
+int scored_segments(dim3 grid, cudaStream_t st, const void* q,
+                    const void* itf, const float* qs, const float* isc, int K,
+                    const int32_t* bits, const int32_t* ex, int n_excl,
+                    int I_p, int n_items, int k, uint64_t* cand) {
+  constexpr int ESZ = ScoredSlab<DT, true>::ESZ;
+  const size_t base = (XCH_FLOATS + ((K + 3) & ~3)) * sizeof(float);
+  const size_t rows = static_cast<size_t>(SEL_THREADS / 32) * 128 * K * ESZ;
+  if (reinterpret_cast<uintptr_t>(itf) % 16 == 0 && rows <= STAGE_MAX_BYTES) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        segment_select_kernel<ScoredSlab<DT, true>>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(base + rows));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    segment_select_kernel<<<grid, SEL_THREADS, base + rows, st>>>(
+        ScoredSlab<DT, true>{q, itf, qs, isc, K}, bits, ex, n_excl, I_p,
+        n_items, k, cand);
+  } else {
+    segment_select_kernel<<<grid, SEL_THREADS, base, st>>>(
+        ScoredSlab<DT, false>{q, itf, qs, isc, K}, bits, ex, n_excl, I_p,
+        n_items, k, cand);
+  }
+  return 0;
+}
+
 }  // namespace
 
 // Launches pass 1, the merge tree and the emit on `stream`; allocates
@@ -722,22 +918,55 @@ extern "C" int masked_select(
   const int n_seg = (I_p + SEGMENT - 1) / SEGMENT;
   auto* cand = static_cast<uint64_t*>(scratch);
   segment_select_kernel<<<dim3(n_seg, B), SEL_THREADS, 0, st>>>(
-      static_cast<const float*>(scores),
+      ScoreMatrix{static_cast<const float*>(scores), I_p},
       static_cast<const int32_t*>(mask_bits),
       static_cast<const int32_t*>(excl), n_excl, I_p, n_items, k, cand);
-  err = cudaGetLastError();
+  return row_pass(cand, n_seg, B, k, static_cast<float*>(vals),
+                  static_cast<int32_t*>(idx), st);
+}
+
+// recommend_topk's selection in two launches, for k <= SELECT_MAX_K: the
+// segment pass scoring each column (ScoredSlab), then the row pass. I_p
+// must be a multiple of 128 (ops/recommend.py:ITEM_PAD). scratch holds B x ceil(I_p / SEGMENT) x k keys
+// (ops/recommend.py:select_scratch_keys). Launches on `stream`, allocates
+// nothing. Returns the CUDA error code, 0 on success.
+extern "C" int recommend_select(
+    int dtype, const void* q, const void* itf, const void* q_scale,
+    const void* item_scale, const void* mask_bits, const void* excl,
+    int n_excl, int B, int K, int I_p, int n_items, int k, void* scratch,
+    void* vals, void* idx, int device, void* stream) {
+  // the exchange and the query factors: the unstaged dynamic shared memory
+  const size_t smem = (XCH_FLOATS + ((K + 3) & ~3)) * sizeof(float);
+  if (dtype < 0 || dtype > 2 || B <= 0 || B > 65535 || K <= 0 ||
+      smem > 48 * 1024 || I_p <= 0 || I_p % 128 != 0 || k <= 0 || k > I_p ||
+      k > SELECT_MAX_K || n_excl < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_cand = n_seg * k;
-  const bool staged = static_cast<size_t>(n_cand) * 8 <= ROW_SMEM_MAX;
-  const size_t smem = staged ? static_cast<size_t>(n_cand) * 8 : 0;
-  if (staged) {  // with the static shared memory, past the 48 KB default
-    err = cudaFuncSetAttribute(row_select_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_seg = (I_p + SEGMENT - 1) / SEGMENT;
+  const dim3 grid(n_seg, B);
+  auto* cand = static_cast<uint64_t*>(scratch);
+  const auto* qs = static_cast<const float*>(q_scale);
+  const auto* isc = static_cast<const float*>(item_scale);
+  const auto* bits = static_cast<const int32_t*>(mask_bits);
+  const auto* ex = static_cast<const int32_t*>(excl);
+  int code;
+  switch (dtype) {
+    case 0:
+      code = scored_segments<0>(grid, st, q, itf, qs, isc, K, bits, ex, n_excl,
+                                I_p, n_items, k, cand);
+      break;
+    case 1:
+      code = scored_segments<1>(grid, st, q, itf, qs, isc, K, bits, ex, n_excl,
+                                I_p, n_items, k, cand);
+      break;
+    default:
+      code = scored_segments<2>(grid, st, q, itf, qs, isc, K, bits, ex, n_excl,
+                                I_p, n_items, k, cand);
+      break;
   }
-  row_select_kernel<<<B, SEL_THREADS, smem, st>>>(
-      cand, n_cand, k, staged, static_cast<float*>(vals),
-      static_cast<int32_t*>(idx));
-  return static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  return row_pass(cand, n_seg, B, k, static_cast<float*>(vals),
+                  static_cast<int32_t*>(idx), st);
 }

@@ -47,25 +47,27 @@ ROWLIST_MAX = 64
 #: value, so dead pad columns never collide with masked real items
 _SENTINEL = float(np.finfo(np.float32).min)
 
-#: item columns one pass-1 block of the kernel scores and sorts; must
-#: equal CHUNK in csrc/recommend_topk.cu
+#: item columns one pass-1 block of the sort route scores (or reads) and
+#: sorts; must equal CHUNK in csrc/recommend_topk.cu
 _CHUNK = 1024
 
-#: kernel launches through ``fused_recommend_topk`` in this process
+#: calls of ``fused_recommend_topk`` that launched the kernel in this
+#: process (one per call, whatever the route's launch count)
 LAUNCHES = 0
-#: kernel launches through ``fused_masked_topk`` in this process
+#: the same calls by route (see `topk_route`)
+ROUTE_LAUNCHES = {"select": 0, "sort": 0}
+#: calls of ``fused_masked_topk`` that launched the kernel in this process
 MASKED_LAUNCHES = 0
-#: the same calls by route: "select" (the segment and row passes, k up to
-#: SELECT_MAX_K) or "sort" (the chunk sort and merge tree, larger k)
+#: the same calls by route
 MASKED_ROUTE_LAUNCHES = {"select": 0, "sort": 0}
 _launch_lock = threading.Lock()
 
-#: largest k the precomputed-score selector's select route takes; must
-#: equal SELECT_MAX_K in csrc/recommend_topk.cu
+#: largest k either selector's select route takes; must equal
+#: SELECT_MAX_K in csrc/recommend_topk.cu
 SELECT_MAX_K = 1024
 
-#: score columns one block of the select route's segment pass reads; must
-#: equal SEGMENT in csrc/recommend_topk.cu
+#: item columns one block of the select route's segment pass scores (or
+#: reads); must equal SEGMENT in csrc/recommend_topk.cu
 SELECT_SEGMENT = 4096
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -268,7 +270,9 @@ def fused_recommend_topk(
 
     Returns (values (B, k) f32, global indices (B, k) int32), ordered
     by score descending, ties to the lowest index. Needs 0 < k <= I_p.
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel, by
+    the route `topk_route(k)` names: a radix select in two launches up
+    to SELECT_MAX_K, the chunk sort and merge tree above it."""
     if q.dim() != 2 or itf.dim() != 2 or q.shape[1] != itf.shape[1]:
         raise ValueError(
             f"need q (B, K) and itf (I_p, K), got {tuple(q.shape)} and "
@@ -341,7 +345,7 @@ def fused_masked_topk(
     Returns (values (B, k) f32, indices (B, k) int32), ordered by score
     descending, ties to the lowest index. Needs 0 < k <= I_p. CPU
     tensors run the plain version; CUDA tensors launch the kernel, by
-    the route `masked_route(k)` names: a radix select in two launches up
+    the route `topk_route(k)` names: a radix select in two launches up
     to SELECT_MAX_K, the chunk sort and merge tree above it."""
     if scores.dim() != 2:
         raise ValueError(f"need scores (B, I_p), got {tuple(scores.shape)}")
@@ -387,6 +391,10 @@ def _kernel_lib():
             i, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, i, p,
         ]
         lib.recommend_topk.restype = i
+        lib.recommend_select.argtypes = [
+            i, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p,
+        ]
+        lib.recommend_select.restype = i
         lib.masked_topk.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, i, p]
         lib.masked_topk.restype = i
         lib.masked_select.argtypes = [p, p, p, i, i, i, i, i, p, p, p, i, p]
@@ -407,9 +415,10 @@ def merge_levels(i_p: int, k: int) -> list[tuple[int, int]]:
     return levels
 
 
-def masked_route(k: int) -> str:
-    """The precomputed-score selector's route for this k: "select" (two
-    launches) up to SELECT_MAX_K, "sort" above it."""
+def topk_route(k: int) -> str:
+    """Either selector's route for this k: "select" (two launches: the
+    segment and row passes) up to SELECT_MAX_K, "sort" (pass 1, the merge
+    levels and the emit) above it."""
     return "select" if k <= SELECT_MAX_K else "sort"
 
 
@@ -429,7 +438,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _scratch_and_outputs(b, i_p, k, device, route="sort"):
+def _scratch_and_outputs(b, i_p, k, device, route):
     """int64 scratch for the route, then the outputs (values (b, k) f32,
     indices (b, k) int32): the sort route's two merge-tree buffers, or
     the select route's segment candidates and one allocation for both
@@ -452,6 +461,27 @@ def _device_index(device):
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
+def _run_route(route, select, sort, common, b, i_p, k, device, what):
+    """Allocate the route's scratch and outputs and launch its entry
+    (`select` or `sort`, which take the same leading arguments `common`)
+    on the current stream; raise if the launch failed. Returns (values,
+    indices)."""
+    scratch, vals, idx = _scratch_and_outputs(b, i_p, k, device, route)
+    index = _device_index(device)
+    # the raw handle: a torch.cuda.Stream object per call is a visible
+    # share of the host time of a call, which at B = 1 exceeds the card's
+    tail = (index, torch._C._cuda_getCurrentRawStream(index))
+    if route == "select":
+        err = select(*common, _ptr(scratch), _ptr(vals), _ptr(idx), *tail)
+    else:
+        err = sort(*common, _CHUNK, _ptr(scratch[0]), _ptr(scratch[1]),
+                   _ptr(vals), _ptr(idx), *tail)
+    if err:
+        raise RuntimeError(
+            f"{what} kernel launch ({route} route) failed: CUDA error {err}")
+    return vals, idx
+
+
 def _launch(q, itf, q_scale, item_scale, bits, rows, k, n_items):
     global LAUNCHES
     for t in (q, itf, q_scale, item_scale, bits, rows):
@@ -459,20 +489,17 @@ def _launch(q, itf, q_scale, item_scale, bits, rows, k, n_items):
     b, kdim = q.shape
     i_p = int(itf.shape[0])
     lib = _kernel_lib()
-    scratch, vals, idx = _scratch_and_outputs(b, i_p, k, q.device)
+    route = topk_route(k)
     n_excl = 0 if rows is None else int(rows.shape[1])
-    err = lib.recommend_topk(
-        _DTYPE_CODE[itf.dtype], _ptr(q), _ptr(itf), _ptr(q_scale),
-        _ptr(item_scale), _ptr(bits), _ptr(rows), n_excl,
-        b, kdim, i_p, n_items, k, _CHUNK,
-        _ptr(scratch[0]), _ptr(scratch[1]), _ptr(vals), _ptr(idx),
-        _device_index(q.device), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"recommend_topk kernel launch failed: CUDA error {err}")
+    common = (_DTYPE_CODE[itf.dtype], _ptr(q), _ptr(itf), _ptr(q_scale),
+              _ptr(item_scale), _ptr(bits), _ptr(rows), n_excl,
+              b, kdim, i_p, n_items, k)
+    out = _run_route(route, lib.recommend_select, lib.recommend_topk, common,
+                     b, i_p, k, q.device, "recommend_topk")
     with _launch_lock:
         LAUNCHES += 1
-    return vals, idx
+        ROUTE_LAUNCHES[route] += 1
+    return out
 
 
 def _launch_masked(scores, bits, rows, k, n_items):
@@ -482,25 +509,13 @@ def _launch_masked(scores, bits, rows, k, n_items):
     b, i_p = (int(n) for n in scores.shape)
     lib = _kernel_lib()
     n_excl = 0 if rows is None else int(rows.shape[1])
-    route = masked_route(k)
+    route = topk_route(k)
     if route == "select" and scores.data_ptr() % 16:
         raise ValueError("the CUDA kernel takes 16-byte aligned scores only")
-    scratch, vals, idx = _scratch_and_outputs(b, i_p, k, scores.device, route)
     common = (_ptr(scores), _ptr(bits), _ptr(rows), n_excl, b, i_p, n_items, k)
-    index = _device_index(scores.device)
-    # the raw handle: a torch.cuda.Stream object per call is a visible
-    # share of the host time of a call, which at B = 1 exceeds the card's
-    tail = (index, torch._C._cuda_getCurrentRawStream(index))
-    if route == "select":
-        err = lib.masked_select(*common, _ptr(scratch), _ptr(vals),
-                                _ptr(idx), *tail)
-    else:
-        err = lib.masked_topk(*common, _CHUNK, _ptr(scratch[0]),
-                              _ptr(scratch[1]), _ptr(vals), _ptr(idx), *tail)
-    if err:
-        raise RuntimeError(
-            f"masked top-k kernel launch ({route} route) failed: CUDA error {err}")
+    out = _run_route(route, lib.masked_select, lib.masked_topk, common,
+                     b, i_p, k, scores.device, "masked top-k")
     with _launch_lock:
         MASKED_LAUNCHES += 1
         MASKED_ROUTE_LAUNCHES[route] += 1
-    return vals, idx
+    return out

@@ -5,8 +5,8 @@ only the port is installed:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest
 
-The top-k kernels (scored and precomputed-score, on both of the
-latter's routes) and their plain versions do the same rounded
+The top-k kernels (scored and precomputed-score, each on both of its
+routes) and their plain versions do the same rounded
 operations, or only select, so indices AND values must be equal, for
 every k up to the padded width. The ALS edge-pass kernels differ from
 their plain versions only in how the f32 sums are taken (both passes
@@ -19,6 +19,10 @@ alone:
 The windowed pass alone:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest -k "block_partials or windowed"
+
+The scored top-k alone:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest -k "test_kernel_ or recommend"
 """
 
 import numpy as np
@@ -75,24 +79,111 @@ def _inputs(rng, dtype, b, n_items, kdim, scaled, mask_kind, dev):
             put(isc), put(bits), put(rows))
 
 
+# (B, n_items, K): I_p below one 4,096-column segment (128, 1,152), not a
+# multiple of it (3,072, 5,120), a short last segment (9,088 = 4,096 +
+# 4,096 + 896), the ML-20M slab (26,752); K = 1, 3, 10, 16 (a row of
+# 1 to 64 bytes; the segment pass stages these slabs in shared memory)
+SCORED_SHAPES = ((1, 100, 3), (3, 1100, 10), (64, 5000, 10), (130, 3000, 16),
+                 (4, 9000, 1), (2, 9000, 3), (130, 9000, 10), (64, 26_744, 10))
+
+
 @pytest.mark.parametrize("mask_kind", [None, "bits", "rows"])
 @pytest.mark.parametrize("dtype,scaled", [("f32", False), ("f32", True),
                                           ("bf16", False), ("bf16", True),
                                           ("int8", True)])
 def test_kernel_equals_plain(card, dtype, scaled, mask_kind):
     rng = np.random.default_rng(0)
-    for b, n_items, kdim in ((1, 100, 3), (3, 1100, 10), (64, 5000, 10),
-                             (130, 3000, 16)):
+    for b, n_items, kdim in SCORED_SHAPES:
         args = _inputs(rng, dtype, b, n_items, kdim, scaled, mask_kind, card)
         i_p = rec.pad_items(n_items)
-        for k in sorted({1, 7, min(128, i_p), min(1024, i_p), n_items, i_p}):
-            before = rec.LAUNCHES
+        for k in sorted({1, 7, min(128, i_p), min(1024, i_p), min(1025, i_p),
+                         n_items, i_p}):
+            route = rec.topk_route(k)
+            before = (rec.LAUNCHES, dict(rec.ROUTE_LAUNCHES))
             kv, ki = rec.fused_recommend_topk(*args, k=k, n_items=n_items)
             pv, pi = rec.fused_recommend_topk_plain(*args, k=k, n_items=n_items)
             torch.cuda.synchronize()
-            assert rec.LAUNCHES == before + 1
-            assert torch.equal(ki, pi), (b, n_items, k)
-            assert torch.equal(kv, pv), (b, n_items, k)
+            assert rec.LAUNCHES == before[0] + 1
+            assert route == ("select" if k <= rec.SELECT_MAX_K else "sort")
+            assert rec.ROUTE_LAUNCHES[route] == before[1][route] + 1
+            assert sum(rec.ROUTE_LAUNCHES.values()) == sum(before[1].values()) + 1
+            assert torch.equal(ki, pi), (b, n_items, kdim, k)
+            assert torch.equal(kv, pv), (b, n_items, kdim, k)
+
+
+@pytest.mark.parametrize("dtype,kdim", [("f32", 4), ("bf16", 4), ("bf16", 3),
+                                        ("int8", 4), ("int8", 3)])
+def test_kernel_ties_across_segments(card, dtype, kdim):
+    """Integer factors make every score exact: equal row maxima on both
+    sides of the 4,095/4,096 and 8,191/8,192 segment boundaries, and the
+    k-th score a tie group over all three segments of I_p = 9,088, on
+    both routes; B = 1 equals row 0 of the batch."""
+    rng = np.random.default_rng(8)
+    n_items = 9_000
+    i_p = rec.pad_items(n_items)
+    maxima = [10, 4_095, 4_096, 8_191, 8_192, 8_999]
+    q = rng.integers(1, 3, (5, kdim)).astype(np.float32)
+    itf = np.zeros((i_p, kdim), np.float32)
+    itf[:n_items] = rng.integers(-1, 2, (n_items, kdim))
+    itf[maxima] = 2.0
+    itf[n_items:] = 2.0  # dead pads still sink
+    qs = isc = None
+    if dtype == "int8":
+        qs = torch.ones((5, 1), device=card)
+        isc = torch.ones((1, i_p), device=card)
+    qt = torch.from_numpy(q).to(card).to(TORCH_DT[dtype])
+    it = torch.from_numpy(itf).to(card).to(TORCH_DT[dtype])
+    for k in (1, 128, 1_024, 1_025, n_items):
+        kv, ki = rec.fused_recommend_topk(qt, it, qs, isc, k=k, n_items=n_items)
+        pv, pi = rec.fused_recommend_topk_plain(qt, it, qs, isc, None, None,
+                                                k=k, n_items=n_items)
+        torch.cuda.synchronize()
+        assert torch.equal(ki, pi) and torch.equal(kv, pv), k
+        n = min(k, len(maxima))
+        want = torch.tensor(maxima[:n], dtype=torch.int32, device=card)
+        assert all(torch.equal(ki[r, :n], want) for r in range(5)), k
+        one = rec.fused_recommend_topk(
+            qt[:1].contiguous(), it, None if qs is None else qs[:1], isc,
+            k=k, n_items=n_items)
+        assert torch.equal(one[0][0], kv[0]) and torch.equal(one[1][0], ki[0])
+
+
+@pytest.mark.parametrize("dtype,kdim,offset", [
+    ("f32", 32, 0), ("bf16", 64, 0), ("int8", 128, 0),  # rows too wide to stage
+    ("f32", 3, 1), ("bf16", 10, 1), ("int8", 10, 1),  # a slab not 16-byte aligned
+])
+def test_kernel_unstaged_slab(card, dtype, kdim, offset):
+    """The segment pass reads the slab where it lies when a block's rows
+    would take more shared memory than it stages, or the slab does not
+    start on 16 bytes (a view one row into a larger tensor)."""
+    rng = np.random.default_rng(10)
+    q, itf, qs, isc, bits, _ = _inputs(rng, dtype, 64, 9_000, kdim,
+                                       dtype == "int8", "bits", card)
+    if offset:
+        wider = torch.empty((itf.shape[0] + offset, kdim), dtype=itf.dtype,
+                            device=card)
+        wider[offset:] = itf
+        itf = wider[offset:]
+        assert itf.is_contiguous() and itf.data_ptr() % 16
+    for k in (1, 128, 1_024):
+        kv, ki = rec.fused_recommend_topk(q, itf, qs, isc, bits, k=k, n_items=9_000)
+        pv, pi = rec.fused_recommend_topk_plain(q, itf, qs, isc, bits, None,
+                                                k=k, n_items=9_000)
+        torch.cuda.synchronize()
+        assert torch.equal(ki, pi) and torch.equal(kv, pv), k
+
+
+def test_kernel_relaunch_bit_equal(card):
+    """The main path's shape (ML-20M slab, B = 64, k = 128, bit words),
+    launched 50 times: every launch gives the first one's bits, which
+    equal the plain version's."""
+    rng = np.random.default_rng(9)
+    for dtype, scaled in (("f32", False), ("bf16", True), ("int8", True)):
+        args = _inputs(rng, dtype, 64, 26_744, 10, scaled, "bits", card)
+        pv, pi = rec.fused_recommend_topk_plain(*args, k=128, n_items=26_744)
+        for _ in range(50):
+            kv, ki = rec.fused_recommend_topk(*args, k=128, n_items=26_744)
+            assert torch.equal(ki, pi) and torch.equal(kv, pv), dtype
 
 
 def test_kernel_ties_and_batch_invariance(card):
@@ -571,7 +662,7 @@ def test_masked_kernel_routes_by_k(card, k):
     version."""
     rng = np.random.default_rng(6)
     scores, bits, rows = _masked_case(rng, 16, 30_000, "bits", card)
-    route = rec.masked_route(k)
+    route = rec.topk_route(k)
     before = dict(rec.MASKED_ROUTE_LAUNCHES)
     kv, ki = rec.fused_masked_topk(scores, bits, rows, k=k, n_items=30_000)
     pv, pi = rec.fused_masked_topk_plain(scores, bits, rows, k=k, n_items=30_000)

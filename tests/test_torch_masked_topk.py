@@ -163,7 +163,7 @@ def test_select_constants_match_the_kernel_source():
 def test_masked_route_by_k(k, route):
     """k up to SELECT_MAX_K takes the two-launch select route, larger k
     the chunk sort and merge tree (pass 1, merge levels, emit)."""
-    assert trp.masked_route(k) == route
+    assert trp.topk_route(k) == route
     if route == "sort":
         # the sort route's pass 1 and merge levels at the UR catalog's I_p
         levels = trp.merge_levels(100_096, k)

@@ -317,10 +317,83 @@ def test_fused_validation_raises(what):
 
 
 def test_cpu_path_counts_no_launch():
-    before = trp.LAUNCHES
+    before = (trp.LAUNCHES, dict(trp.ROUTE_LAUNCHES))
     case = _case(15, "f32", "rows", False)
-    _port(case, "f32", 4)
-    assert trp.LAUNCHES == before
+    _port(case, "f32", 4)  # a select-route k
+    trp.fused_recommend_topk(_torch(case[0]), torch.zeros((2048, K)),
+                             k=trp.SELECT_MAX_K + 1, n_items=2000)  # sort route
+    assert (trp.LAUNCHES, trp.ROUTE_LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# ties across the card's 4,096-column segments: the order the select
+# route must reproduce, pinned on the CPU against the JAX kernel
+# ---------------------------------------------------------------------------
+
+SEG_ITEMS = 9_000  # I_p 9,088 = 4,096 + 4,096 + 896: a short last segment
+SEG_MAXIMA = (10, 4_095, 4_096, 8_191, 8_192, 8_999)
+
+
+def _segment_case(dtype):
+    """Integer factors (every score exact): the row maxima sit on both
+    sides of both segment boundaries, and the lower scores are a few
+    integers, so the k-th score is a tie group spanning all segments."""
+    rng = np.random.default_rng(16)
+    i_p = trp.pad_items(SEG_ITEMS)
+    q = rng.integers(1, 3, (3, 4)).astype(np.float32)
+    itf = np.zeros((i_p, 4), np.float32)
+    itf[:SEG_ITEMS] = rng.integers(-1, 2, (SEG_ITEMS, 4))
+    itf[list(SEG_MAXIMA)] = 2.0
+    itf[SEG_ITEMS:] = 2.0  # dead pads must sink anyway
+    qs = isc = None
+    if dtype == "int8":
+        q, itf = q.astype(np.int8), itf.astype(np.int8)
+        qs, isc = np.ones((3, 1), np.float32), np.ones((1, i_p), np.float32)
+    return q, itf, qs, isc
+
+
+@pytest.mark.parametrize("k", [128, 1024, 1025])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_plain_matches_jax_across_segments(dtype, k):
+    q, itf, qs, isc = _segment_case(dtype)
+    jdt = jnp.bfloat16 if dtype == "bf16" else None
+    tdt = torch.bfloat16 if dtype == "bf16" else None
+    v, i = trp.fused_recommend_topk(
+        _torch(q, tdt), _torch(itf, tdt), _torch(qs), _torch(isc),
+        k=k, n_items=SEG_ITEMS)
+    kv, ki = jrp.fused_recommend_topk(
+        _jnp(q, jdt), _jnp(itf, jdt), _jnp(qs), _jnp(isc), k=k,
+        n_items=SEG_ITEMS, interpret=True)
+    v, i, kv, ki = v.numpy(), i.numpy(), np.asarray(kv), np.asarray(ki)
+    assert np.array_equal(v, kv)
+    assert np.array_equal(i, ki)  # k < SEG_ITEMS: every slot is live
+    for r in range(3):  # the maxima lead, lowest column first
+        assert list(i[r, : len(SEG_MAXIMA)]) == list(SEG_MAXIMA)
+        assert len(set(v[r, : len(SEG_MAXIMA)])) == 1
+
+
+@pytest.mark.parametrize("k,route", [(1, "select"), (128, "select"),
+                                     (1024, "select"), (1025, "sort"),
+                                     (26_744, "sort")])
+def test_scored_route_by_k(k, route):
+    """The scored selector routes by k as the precomputed-score one: the
+    two-launch select route up to SELECT_MAX_K (at the ML-20M slab, 7
+    segments), the chunk sort and merge tree above it."""
+    i_p = trp.pad_items(26_744)
+    assert trp.topk_route(k) == route
+    if route == "sort":
+        levels = trp.merge_levels(i_p, k)
+        assert levels[0] == (27, min(k, trp._CHUNK)) and levels[-1][0] == 1
+        assert len(levels) == 6  # 27 chunks: 5 merge levels, then the emit
+
+
+def test_select_scratch_at_the_ml20m_slab():
+    """k = 128 slots for each of the ML-20M slab's 7 segments (the last
+    2,176 columns wide); a B = 64 call's scratch is 64 x 896 keys."""
+    i_p = trp.pad_items(26_744)
+    assert i_p == 26_752 and -(-i_p // trp.SELECT_SEGMENT) == 7
+    assert trp.select_scratch_keys(i_p, 128) == 7 * 128
+    assert i_p - 6 * trp.SELECT_SEGMENT == 2_176
 
 
 def test_merge_levels_cover_every_list():
