@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ALS train (dense, windowed, scatter) and
-serve paths, and the Universal Recommender's train and serve path, on
-one CUDA card.
+serve paths, the storage-backed train → deploy → query loop, and the
+Universal Recommender's train and serve path, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -59,6 +59,31 @@ Phases, in order; any failure prints what failed and exits non-zero:
             pass on the same R in bf16 storage as the yardstick, bound),
             and the kernel again on a uniform R with as many ratings and
             on an all-zero R; both passes the same way at K = 32.
+9. loop     the zero-to-aha loop at ML-1M's width, over storage under
+            ``build/loop/`` (sqlite events and metadata, model files, named
+            by ``PIO_FS_BASEDIR`` and the ``PIO_STORAGE_*`` variables):
+            1,000,209 ``rate`` events from LOOP_SEED (6,040 users x 3,706
+            movies, unique pairs with degrees anchored on ML-1M's counts,
+            integer ratings 1-5, distinct times) as JSON lines; ``console
+            app new``, ``import`` and ``train --engine-json`` (the
+            recommendation template's defaults: rank 10, 20 iterations,
+            implicit, f32 serving) in this process; then ``console deploy
+            --engine-json`` in a process of its own on the card, and 16
+            client threads send 500 ``POST /queries.json`` (20 % with
+            blacklists, 10 % with whitelists), then 20 queries for
+            unknown users go one at a time. The
+            instance must be COMPLETED with an ALSModel in its MODELDATA
+            blob; the frame read back must hold exactly the generated
+            triples; the train must stage StagedDenseTrain and launch each
+            pass kernel once per iteration; the factors must be finite and
+            correlate > 0.9999 with a direct ``ALSAlgorithm.train`` on the
+            generated arrays on the card; every answer must equal the plain
+            top-k on the CPU over the blob's factors; the deploy's
+            ``GET /`` kernel launches must equal its batches over the 500,
+            and the unknown users' queries must launch none. Prints the
+            import, read, prepare, train and persist seconds (the
+            instance's stage timings), deploy to ready, p50/p99 and qps,
+            each line with the card's name and power limit.
 10. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
             users x 59,047 items, 25,000,095 unique pairs (users 20 to
             32,202 ratings, items up to 81,491); the dense gate must refuse
@@ -133,6 +158,9 @@ from __future__ import annotations
 import datetime
 import http.client
 import json
+import os
+import queue
+import shutil
 import statistics
 import subprocess
 import sys
@@ -149,12 +177,14 @@ try:
     from predictionio_tpu_torch.core.base import RuntimeContext
     from predictionio_tpu_torch.data.event import Event
     from predictionio_tpu_torch.data.storage.base import App
-    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.controller import deserialize_models
+    from predictionio_tpu_torch.data.storage.registry import Storage, StorageConfig
     from predictionio_tpu_torch.data.store.bimap import BiMap
     from predictionio_tpu_torch.engines.recommendation.engine import (
         ALSAlgorithm,
         ALSAlgorithmParams,
         ALSModel,
+        RecommendationDataSource,
         TrainingData,
     )
     from predictionio_tpu_torch.engines.universal.engine import (
@@ -171,6 +201,8 @@ try:
     from predictionio_tpu_torch.ops import recommend as rec
     from predictionio_tpu_torch.ops import windowed as win
     from predictionio_tpu_torch.ops import windowed_fused as wf
+    from predictionio_tpu_torch.tools import console
+    from predictionio_tpu_torch.workflow.core import stage_timings
     from predictionio_tpu_torch.workflow.server import (
         QueryServer,
         QueryServerConfig,
@@ -221,7 +253,16 @@ UR_K_LADDER = (1, 10, 64, 1_023, 1_024, 1_025)
 UR_CPU_BLOCKS, UR_CPU_BLOCK_ROWS = (0, 49_920, 98_976), 1_024
 UR_TIMES_K = 64
 MASKED_REPLACES = "predictionio_tpu/ops/recommend_pallas.py:468"
+LOOP_SEED = 1
+LOOP_USERS, LOOP_ITEMS = 6_040, 3_706  # ML-1M's users and rated movies
+LOOP_EDGES = 1_000_209  # ML-1M's ratings
+# fewest and most ratings of a user and of a movie in ML-1M
+LOOP_USER_DEGREES, LOOP_ITEM_DEGREES = (20, 2_314), (1, 3_428)
+LOOP_APP = "ml1m"
+LOOP_T0_MS = 956_703_932_000  # ML-1M's first rating time, epoch ms
+LOOP_UNKNOWN_USERS = 20  # queries for users with no events, after the 500
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+LOOP_DIR = Path(__file__).resolve().parent / "build" / "loop"
 
 
 class PhaseError(RuntimeError):
@@ -1110,6 +1151,302 @@ def phase_dense_times(report, shared):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the storage-backed loop, app new -> import -> train -> deploy
+# ---------------------------------------------------------------------------
+
+
+def _loop_data(rng):
+    """ML-1M's shape: LOOP_EDGES unique (user, item) pairs with degrees
+    anchored on ML-1M's published counts (GroupLens ML-1M README: 6,040
+    users, 3,706 rated movies, 1,000,209 ratings, every user with at
+    least 20; the most active user has 2,314 ratings and the most rated
+    movie 3,428), integer ratings 1-5, distinct event times."""
+    d_user = rng.permutation(_degree_targets(LOOP_USERS, LOOP_EDGES, *LOOP_USER_DEGREES))
+    d_item = rng.permutation(_degree_targets(LOOP_ITEMS, LOOP_EDGES, *LOOP_ITEM_DEGREES))
+    keys, _ = _pairs_with_degrees(rng, d_user, d_item)
+    check(len(keys) == LOOP_EDGES, f"{len(keys)} unique pairs drawn, not {LOOP_EDGES}")
+    users = (keys // LOOP_ITEMS).astype(np.int64)
+    items = (keys % LOOP_ITEMS).astype(np.int64)
+    ratings = rng.integers(1, 6, LOOP_EDGES)
+    times = LOOP_T0_MS + 1000 * rng.permutation(LOOP_EDGES).astype(np.int64)
+    return users, items, ratings, times
+
+
+def _write_events(path, users, items, ratings, times):
+    """The ratings as `pio import` JSON lines, in a shuffled order."""
+    stamps = np.datetime_as_string(times.astype("datetime64[ms]"), unit="ms")
+    with open(path, "w") as f:
+        for n in np.random.default_rng(LOOP_SEED + 1).permutation(len(users)):
+            f.write(
+                f'{{"event":"rate","entityType":"user","entityId":"u{users[n]}",'
+                f'"targetEntityType":"item","targetEntityId":"i{items[n]}",'
+                f'"properties":{{"rating":{ratings[n]}}},"eventTime":"{stamps[n]}Z"}}\n'
+            )
+
+
+def _ids(vocab, prefix):
+    """A vocabulary of ids prefix + n as an array: index → n."""
+    out = np.empty(len(vocab), np.int64)
+    for key, idx in vocab.items():
+        out[idx] = int(key[len(prefix):])
+    return out
+
+
+def _loop_queries(rng):
+    """N_QUERIES for known users (20 % with blacklists, 10 % with
+    whitelists), then LOOP_UNKNOWN_USERS for users with no events."""
+    qs = []
+    for _ in range(N_QUERIES):
+        q = {"user": f"u{int(rng.integers(LOOP_USERS))}",
+             "num": int(rng.choice([5, 10, 20, 50, 200]))}
+        r = rng.random()
+        if r < 0.2:
+            q["blacklist"] = [f"i{int(x)}" for x in
+                              rng.integers(0, LOOP_ITEMS, int(rng.integers(3, 11)))]
+        elif r < 0.3:
+            q["whitelist"] = [f"i{int(x)}" for x in rng.integers(0, LOOP_ITEMS, 50)]
+        qs.append(q)
+    return qs + [{"user": f"u{LOOP_USERS + n}", "num": 10}
+                 for n in range(LOOP_UNKNOWN_USERS)]
+
+
+class _Deploy:
+    """`console deploy --engine-json` in a process of its own, as an
+    operator starts it; stopped (and killed if it must be) on exit."""
+
+    def __init__(self, engine_json, log_path):
+        self.log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.tools.console", "deploy",
+             "--engine-json", str(engine_json), "--ip", "127.0.0.1", "--port", "0"],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=self.log, text=True,
+        )
+        self.lines: queue.Queue = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+
+    def port(self, timeout):
+        """The port from the serving banner, once the server is up."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            try:
+                line = self.lines.get(timeout=1.0)
+            except queue.Empty:
+                check(self.proc.poll() is None,
+                      f"deploy exited with {self.proc.returncode}; see {self.log.name}")
+                continue
+            if line.startswith("serving "):
+                return int(line.split(" on ")[1].split()[0].rsplit(":", 1)[1])
+        raise PhaseError(f"deploy not serving after {timeout} s; see {self.log.name}")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.log.close()
+
+
+def phase_loop(report, shared):
+    """The zero-to-aha loop at ML-1M's width: `console app new`, `import`
+    and `train --engine-json` in this process, then `deploy
+    --engine-json` in its own process on the card, and 500 queries."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(LOOP_SEED)
+    t0 = time.perf_counter()
+    users, items, ratings, times = _loop_data(rng)
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    LOOP_DIR.mkdir(parents=True)
+    events_path = LOOP_DIR / "events.jsonl"
+    _write_events(events_path, users, items, ratings, times)
+    data_s = time.perf_counter() - t0
+    store = LOOP_DIR / "store"
+    env = {"PIO_FS_BASEDIR": str(store),
+           "PIO_STORAGE_SOURCES_LOOPDB_TYPE": "sqlite",
+           "PIO_STORAGE_SOURCES_LOOPDB_PATH": str(store / "pio.db"),
+           "PIO_STORAGE_SOURCES_LOOPFS_TYPE": "localfs",
+           "PIO_STORAGE_SOURCES_LOOPFS_PATH": str(store),
+           "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "LOOPDB",
+           "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOOPDB",
+           "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "LOOPFS"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    store.mkdir()
+    try:
+        _loop_run(report, users, items, ratings, events_path, data_s)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    report["loop"]["phase_s"] = time.perf_counter() - t_phase
+    loop = report["loop"]
+    smi = report["nvidia_smi"]
+    print(f"[loop] {smi} | ML-1M-shaped {LOOP_EDGES} ratings: import "
+          f"{loop['import_s']:.2f} s, read {loop['stages']['read']:.2f} s, prepare "
+          f"{loop['stages']['prepare']:.4f} s, train {loop['stages']['train']:.2f} s, "
+          f"persist {loop['stages']['persist']:.4f} s", flush=True)
+    print(f"[loop] {smi} | deploy to ready {loop['deploy_ready_s']:.2f} s; "
+          f"{N_QUERIES} queries from {N_CLIENTS} clients: p50 {loop['p50_ms']:.3f} ms, "
+          f"p99 {loop['p99_ms']:.3f} ms, {loop['qps']:.1f} qps; phase "
+          f"{loop['phase_s']:.1f} s", flush=True)
+
+
+def _loop_run(report, users, items, ratings, events_path, data_s):
+    check(console.main(["app", "new", LOOP_APP]) == 0, "app new")
+    t0 = time.perf_counter()
+    check(console.main(["import", "--app", LOOP_APP, "--input", str(events_path)]) == 0,
+          "import")
+    import_s = time.perf_counter() - t0
+    engine_json = LOOP_DIR / "engine.json"
+    engine_json.write_text(json.dumps({
+        "id": "ml1m-als",
+        "engineFactory": "predictionio_tpu_torch.engines.recommendation.RecommendationEngine",
+        "datasource": {"params": {"app_name": LOOP_APP, "event_names": ["rate"]}},
+        "algorithms": [{"name": "als", "params": {}}],  # the template's defaults
+    }))
+    frames = []
+    frame_of = RecommendationDataSource._frame
+
+    def kept_frame(self, ctx):
+        frames.append(frame_of(self, ctx))
+        return frames[-1]
+
+    RecommendationDataSource._frame = kept_frame
+    df.PASS_LAUNCHES.update(row=0, col=0)  # every count to 0 just before the main path
+    try:
+        with _Observed() as seen:
+            t0 = time.perf_counter()
+            rc = console.main(["train", "--engine-json", str(engine_json)])
+            train_wall_s = time.perf_counter() - t0
+    finally:
+        RecommendationDataSource._frame = frame_of
+    launches = dict(df.PASS_LAUNCHES)
+    check(rc == 0, "train --engine-json")
+    storage = Storage()
+    [inst] = storage.get_meta_data_engine_instances().get_all()
+    check(inst.status == "COMPLETED", f"instance {inst.status}")
+    stages = stage_timings(inst)
+    params = ALSAlgorithmParams()
+    check(launches["row"] == launches["col"] == params.num_iterations,
+          f"pass kernel launches {launches} != one row and one col pass per "
+          f"iteration ({params.num_iterations})")
+    check(isinstance(seen.staged, als.StagedDenseTrain),
+          f"the train staged {type(seen.staged).__name__}, not StagedDenseTrain")
+    staged_dtype = seen.staged.dense_dtype
+    del seen
+    [model] = deserialize_models(storage.get_model_data_models().get(inst.id).models)
+    check(type(model) is ALSModel, f"MODELDATA holds {type(model).__name__}")
+    f = model.factors
+    check(f.user_factors.shape == (LOOP_USERS, RANK)
+          and f.item_factors.shape == (LOOP_ITEMS, RANK), "factor shapes")
+    check(bool(np.isfinite(f.user_factors).all() and np.isfinite(f.item_factors).all()),
+          "non-finite factors")
+
+    # the frame read back holds exactly the generated triples
+    [frame] = frames
+    check(len(frame) == LOOP_EDGES, f"{len(frame)} events read back")
+    uid, iid = _ids(frame.entity_vocab, "u"), _ids(frame.target_vocab, "i")
+    key = uid[frame.entity_idx] * LOOP_ITEMS + iid[frame.target_idx]
+    order, want = np.argsort(key), np.argsort(users * LOOP_ITEMS + items)
+    check(np.array_equal(key[order], (users * LOOP_ITEMS + items)[want])
+          and np.array_equal(frame.value[order], ratings[want].astype(np.float32)),
+          "the frame read back differs from the generated (user, item, rating) triples")
+    del frames, frame
+
+    # a direct ALSAlgorithm.train on the generated arrays, in the same
+    # vocabularies, on the card
+    urow = np.empty(LOOP_USERS, np.int64)
+    urow[uid] = np.arange(len(uid))
+    irow = np.empty(LOOP_ITEMS, np.int64)
+    irow[iid] = np.arange(len(iid))
+    td = TrainingData(rows=urow[users].astype(np.int32), cols=irow[items].astype(np.int32),
+                      vals=ratings.astype(np.float32), n_users=LOOP_USERS,
+                      n_items=LOOP_ITEMS, user_vocab=f.user_vocab, item_vocab=f.item_vocab)
+    direct = ALSAlgorithm(params).train(RuntimeContext(), td).factors
+    cu = _corr(f.user_factors, direct.user_factors)
+    ci = _corr(f.item_factors, direct.item_factors)
+    diff = max(float(np.abs(f.user_factors - direct.user_factors).max()),
+               float(np.abs(f.item_factors - direct.item_factors).max()))
+    check(cu > 0.9999 and ci > 0.9999,
+          f"the loop's factors vs a direct train: corrcoef users {cu}, items {ci}")
+    del direct, td
+
+    # deploy in its own process, then 500 queries from 16 threads and,
+    # one at a time, the unknown users' (a batch with no known user makes
+    # no device call, so they go alone, after the launch count is read)
+    rng = np.random.default_rng(LOOP_SEED + 2)
+    queries = _loop_queries(rng)
+    t0 = time.perf_counter()
+    with _Deploy(engine_json, LOOP_DIR / "deploy.log") as dep:
+        port = dep.port(timeout=300)
+        before = _status(port)
+        ready_s = time.perf_counter() - t0
+        out: dict = {}
+        lock = threading.Lock()
+        work = list(enumerate(queries[:N_QUERIES]))
+        threads = [threading.Thread(target=_client, args=(port, work[c::N_CLIENTS], out, lock))
+                   for c in range(N_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "clients hung")
+        after = _status(port)
+        _client(port, list(enumerate(queries))[N_QUERIES:], out, lock)
+        last = _status(port)
+    check(dep.proc.returncode is not None, "deploy still running")
+    check(before["engine_instance"] == inst.id, "deploy serves another instance")
+    check(after["device"] == "cuda:0", f"deploy serves on {after['device']}")
+    check(len(out) == len(queries), f"{len(out)} of {len(queries)} answered")
+    batches = after["batches"] - before["batches"]
+    served_launches = after["kernel_launches"] - before["kernel_launches"]
+    check(batches > 0 and served_launches == batches,
+          f"deploy kernel launches {served_launches} != its batches {batches}")
+    check(last["kernel_launches"] == after["kernel_launches"]
+          and last["batches"] - after["batches"] == LOOP_UNKNOWN_USERS,
+          "an unknown user's query launched a kernel")
+    # the plain top-k on the CPU over the blob's factors
+    model.bind_device("cpu")
+    cpu_alg = ALSAlgorithm(params)
+    from predictionio_tpu_torch.engines.recommendation.engine import Query
+
+    for n, q in enumerate(queries):
+        status, body, _ = out[n]
+        check(status == 200, f"query {n}: HTTP {status} {body}")
+        expected = _to_jsonable(cpu_alg.predict(model, Query(**q)))
+        check(body == expected, f"query {n} ({q}) differs from the CPU plain top-k")
+    lat = sorted(out[n][2] for n in range(N_QUERIES))
+    report["loop"] = {
+        "users": LOOP_USERS, "items": LOOP_ITEMS, "events": LOOP_EDGES,
+        "data_s": data_s, "import_s": import_s, "train_wall_s": train_wall_s,
+        "stages": stages, "staging": "StagedDenseTrain", "dense_dtype": staged_dtype,
+        "launches": {**launches, "serve_topk": served_launches},
+        "corr_users": cu, "corr_items": ci, "max_abs_diff_direct": diff,
+        "deploy_ready_s": ready_s,
+        "wall_s": wall, "qps": N_QUERIES / wall,
+        "p50_ms": 1e3 * lat[len(lat) // 2],
+        "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "batches": batches, "mean_batch": N_QUERIES / batches,
+        "batch_predict_ms": 1e3 * (after["batch_predict_seconds"]
+                                   - before["batch_predict_seconds"]) / batches,
+        "nvidia_smi": report["nvidia_smi"],
+    }
+
+
+# ---------------------------------------------------------------------------
 # phase 10: ML-25M-width ratings, the windowed path's configuration
 # ---------------------------------------------------------------------------
 
@@ -1691,7 +2028,7 @@ def phase_ur_data(report, shared):
     view_items = vrng.zipf(UR_ZIPF, UR_USERS * UR_PER_USER) % UR_ITEMS
     rows = ([("buy", u, i) for u, i in zip(buy_users.tolist(), buy_items.tolist())]
             + [("view", u, i) for u, i in zip(view_users.tolist(), view_items.tolist())])
-    storage = Storage()
+    storage = Storage(StorageConfig.memory())
     app_id = storage.get_meta_data_apps().insert(App(0, UR_APP))
     storage.get_events().init_app(app_id)
     gen_s = time.perf_counter() - t0
@@ -2084,6 +2421,7 @@ def main() -> int:
                         ("dense", phase_dense), ("train", phase_train),
                         ("serve", phase_serve), ("times", phase_times),
                         ("dense times", phase_dense_times),
+                        ("loop", phase_loop),
                         ("data25", phase_data25), ("windowed", phase_windowed),
                         ("windowed train", phase_windowed_train),
                         ("scatter", phase_scatter),

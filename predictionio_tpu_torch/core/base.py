@@ -1,15 +1,43 @@
-"""The runtime handle every DASE stage gets from its caller.
+"""Typeless DASE runtime base: the layer every engine builds on.
 
-Counterpart of the JAX package's ``core.base.RuntimeContext``. The port's
-carries the storage to read events from, the mode, and the device to
-train and serve on (None means the first CUDA device); the JAX mesh, the
-workflow parameters and the stage timings are not ported.
+Counterpart of the JAX package's ``core/base.py`` (reference
+BaseDataSource.scala:31, BasePreparator.scala:30, BaseAlgorithm.scala:55,
+BaseServing.scala:28, BaseEngine.scala:35, AbstractDoer.scala:32).
+
+The ambient handle every stage gets is a ``RuntimeContext``: the storage
+to read events from, the mode, and the device to train and serve on
+(None means the first CUDA device, ``device.resolve_device``). The JAX
+mesh, evaluators, the eval half of ``BaseEngine`` and the query
+serializer hook are not ported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Optional
+import inspect
+import typing
+from dataclasses import dataclass, field
+from typing import Any, Generic, Optional, Sequence, TypeVar
+
+TD = TypeVar("TD")  # training data
+EI = TypeVar("EI")  # eval info
+PD = TypeVar("PD")  # prepared data
+M = TypeVar("M")  # model
+Q = TypeVar("Q")  # query
+P = TypeVar("P")  # predicted result
+A = TypeVar("A")  # actual result
+
+
+@dataclass
+class WorkflowParams:
+    """Reference WorkflowParams.scala:29. The JAX package's profiler
+    directory is not ported."""
+
+    batch: str = ""
+    verbose: int = 2
+    save_model: bool = True
+    skip_sanity_check: bool = False
+    stop_after_read: bool = False
+    stop_after_prepare: bool = False
 
 
 @dataclass
@@ -17,3 +45,152 @@ class RuntimeContext:
     storage: Any = None  # data.storage.registry.Storage
     mode: str = "train"  # train | eval | serve
     device: Optional[str] = None
+    workflow_params: WorkflowParams = field(default_factory=WorkflowParams)
+    # the EngineInstance id of the current train run ("" outside train
+    # workflows)
+    instance_id: str = ""
+    # per-stage wall-clock seconds (read/prepare/train/persist), filled
+    # by Engine.train and run_train, recorded on the EngineInstance row
+    stage_timings: dict = field(default_factory=dict)
+
+    @property
+    def is_serving(self) -> bool:
+        return self.mode == "serve"
+
+
+class SanityCheck:
+    """Opt-in data validation hook the train workflow calls on training
+    data, prepared data and models (reference SanityCheck.scala)."""
+
+    def sanity_check(self) -> None:
+        raise NotImplementedError
+
+
+class StopAfterReadInterruption(Exception):
+    """Debug stop-point: --stop-after-read (reference Engine.scala:663)."""
+
+
+class StopAfterPrepareInterruption(Exception):
+    """Debug stop-point: --stop-after-prepare (reference Engine.scala:684)."""
+
+
+@dataclass(frozen=True)
+class PersistentModelManifest:
+    """Marker stored in the serialized model list for models persisted by
+    the user's own PersistentModel.save."""
+
+    class_name: str
+
+
+def doer(cls: type, params: Any) -> Any:
+    """Instantiate a controller class: with its params when the
+    constructor declares one, else zero-arg (reference Doer.apply,
+    AbstractDoer.scala:32-66). A first positional parameter annotated as
+    a params dataclass, or any required positional, receives the params
+    object."""
+    from predictionio_tpu_torch.controller.params import params_class_of
+
+    if params_class_of(cls) is not None:
+        return cls(params)
+    try:
+        sig = inspect.signature(cls.__init__)
+    except (TypeError, ValueError):
+        return cls()
+    n_required = sum(
+        1
+        for name, p in sig.parameters.items()
+        if name != "self"
+        and p.kind in (p.POSITIONAL_OR_KEYWORD, p.POSITIONAL_ONLY)
+        and p.default is p.empty
+    )
+    return cls(params) if n_required >= 1 else cls()
+
+
+class BaseDataSource(Generic[TD, EI, Q, A]):
+    """Reference BaseDataSource.scala:31-52."""
+
+    def read_training(self, ctx: RuntimeContext) -> TD:
+        raise NotImplementedError
+
+    def read_eval(self, ctx: RuntimeContext) -> list:
+        """Eval sets: (training data, eval info, [(query, actual)])."""
+        return []
+
+
+class BasePreparator(Generic[TD, PD]):
+    """Reference BasePreparator.scala:30-42."""
+
+    def prepare(self, ctx: RuntimeContext, td: TD) -> PD:
+        raise NotImplementedError
+
+
+class BaseAlgorithm(Generic[PD, M, Q, P]):
+    """Reference BaseAlgorithm.scala:55-123."""
+
+    # serving-time context set by the deploy runtime so predict() can
+    # read the event store live and knows its device
+    _serving_ctx: Optional[RuntimeContext] = None
+
+    def set_serving_context(self, ctx: RuntimeContext) -> None:
+        self._serving_ctx = ctx
+
+    @property
+    def serving_context(self) -> RuntimeContext:
+        return (self._serving_ctx if self._serving_ctx is not None
+                else RuntimeContext(mode="serve"))
+
+    def train(self, ctx: RuntimeContext, pd: PD) -> M:
+        raise NotImplementedError
+
+    def predict(self, model: M, query: Q) -> P:
+        raise NotImplementedError
+
+    def batch_predict(
+        self, ctx: RuntimeContext, model: M, queries: list[tuple[int, Q]]
+    ) -> list[tuple[int, P]]:
+        """Default: `predict` per query; algorithms override to batch
+        queries into one device call."""
+        return [(qx, self.predict(model, q)) for qx, q in queries]
+
+    def query_class(self) -> Optional[type]:
+        """The query type for JSON extraction: the `query` annotation of
+        `predict` (reference BaseAlgorithm.queryClass)."""
+        try:
+            ann = typing.get_type_hints(self.predict).get("query")
+        except (TypeError, ValueError, NameError):
+            return None
+        return ann if isinstance(ann, type) else None
+
+    def make_persistent_model(self, model_id: str, model: M, params: Any) -> Any:
+        """The persistence mode of a trained model (reference
+        BaseAlgorithm.makePersistentModel:96-112): a model that saves
+        itself stores a manifest; any other model is pickled into
+        MODELDATA as it is (``controller.persistent.serialize_models``)."""
+        save = getattr(model, "save", None)
+        if callable(save) and getattr(model, "PERSISTENT", False):
+            if save(model_id, params):
+                return PersistentModelManifest(
+                    class_name=type(model).__module__ + "."
+                    + type(model).__qualname__
+                )
+        return model
+
+
+class BaseServing(Generic[Q, P]):
+    """Reference BaseServing.scala:28-51."""
+
+    def supplement(self, query: Q) -> Q:
+        return query
+
+    def serve(self, query: Q, predictions: Sequence[P]) -> P:
+        raise NotImplementedError
+
+
+class BaseEngine(Generic[EI, Q, P, A]):
+    """Reference BaseEngine.scala:35-100, without eval."""
+
+    def train(self, ctx: RuntimeContext, engine_params: Any) -> list[Any]:
+        raise NotImplementedError
+
+    def params_from_variant_json(self, variant: dict) -> Any:
+        raise NotImplementedError

@@ -1,27 +1,37 @@
-"""In-memory event store and app registry.
+"""In-memory event store, app registry, engine instances and models.
 
 Counterpart of the JAX package's ``data/storage/memory.py``, cut to what
-the UR path calls: ``init_app``, ``insert``, ``insert_batch``, ``find``
-and ``find_entities_batch``. One RLock per store; events are kept per
-app with a per-entity index for serving-time history reads. Channels
+the port calls: the event store's ``init_app``, ``insert``,
+``insert_batch``, ``find`` and ``find_entities_batch``, the apps, the
+engine-instance rows and the model blobs. One RLock per store; events
+are kept per app with a per-entity index for serving-time history
+reads. Channels, access keys, evaluation instances and engine manifests
 are not ported.
 """
 
 from __future__ import annotations
 
+import secrets
 import threading
+from dataclasses import replace
 from typing import Iterator, Optional, Sequence
 
 from predictionio_tpu_torch.data.event import Event, new_event_id
-from predictionio_tpu_torch.data.storage.base import App, EventQuery
+from predictionio_tpu_torch.data.storage import base
+from predictionio_tpu_torch.data.storage.base import (
+    App,
+    EngineInstance,
+    EventQuery,
+    Model,
+)
 
 
 def _order_key(e: Event):
     return (e.event_time, e.event_id or "")
 
 
-class MemoryEventStore:
-    def __init__(self):
+class MemoryEventStore(base.EventStore):
+    def __init__(self, config: Optional[dict] = None):
         self._lock = threading.RLock()
         # app_id → {event_id: Event}
         self._ns: dict[int, dict[str, Event]] = {}
@@ -95,8 +105,8 @@ class MemoryEventStore:
         return iter(events)
 
 
-class MemoryApps:
-    def __init__(self):
+class MemoryApps(base.Apps):
+    def __init__(self, config: Optional[dict] = None):
         self._lock = threading.RLock()
         self._apps: dict[int, App] = {}
         self._next = 1
@@ -112,8 +122,70 @@ class MemoryApps:
             self._apps[app_id] = App(app_id, app.name, app.description)
             return app_id
 
+    def get(self, app_id: int) -> Optional[App]:
+        return self._apps.get(app_id)
+
     def get_by_name(self, name: str) -> Optional[App]:
         for a in list(self._apps.values()):
             if a.name == name:
                 return a
         return None
+
+    def get_all(self) -> list[App]:
+        return list(self._apps.values())
+
+
+class MemoryEngineInstances(base.EngineInstances):
+    def __init__(self, config: Optional[dict] = None):
+        self._lock = threading.RLock()
+        self._instances: dict[str, EngineInstance] = {}
+        self._counter = 0
+
+    def insert(self, i: EngineInstance) -> str:
+        with self._lock:
+            self._counter += 1
+            iid = i.id or f"ei_{self._counter:08d}_{secrets.token_hex(4)}"
+            self._instances[iid] = replace(i, id=iid)
+            return iid
+
+    def get(self, iid: str) -> Optional[EngineInstance]:
+        return self._instances.get(iid)
+
+    def get_all(self) -> list[EngineInstance]:
+        return list(self._instances.values())
+
+    def get_completed(
+        self, engine_id: str, engine_version: str, engine_variant: str
+    ) -> list[EngineInstance]:
+        out = [
+            i for i in list(self._instances.values())
+            if i.status == "COMPLETED" and i.engine_id == engine_id
+            and i.engine_version == engine_version
+            and i.engine_variant == engine_variant
+        ]
+        out.sort(key=lambda i: i.start_time, reverse=True)
+        return out
+
+    def update(self, i: EngineInstance) -> bool:
+        with self._lock:
+            if i.id not in self._instances:
+                return False
+            self._instances[i.id] = i
+            return True
+
+
+class MemoryModels(base.Models):
+    def __init__(self, config: Optional[dict] = None):
+        self._lock = threading.RLock()
+        self._models: dict[str, Model] = {}
+
+    def insert(self, m: Model) -> None:
+        with self._lock:
+            self._models[m.id] = m
+
+    def get(self, mid: str) -> Optional[Model]:
+        return self._models.get(mid)
+
+    def delete(self, mid: str) -> None:
+        with self._lock:
+            self._models.pop(mid, None)

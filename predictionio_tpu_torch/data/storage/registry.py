@@ -1,22 +1,174 @@
-"""Storage: the repositories a DASE stage reads through.
+"""Storage: the repositories a DASE stage reads and writes through.
 
-Counterpart of the JAX package's ``data/storage/registry.py``, cut to the
-in-memory source: events and app metadata. The configured backends
-(sqlite, localfs, segment files, the storage daemon) are not ported.
+Counterpart of the JAX package's ``data/storage/registry.py`` (reference
+Storage.scala:114-403): sources come from ``PIO_STORAGE_SOURCES_<NAME>_TYPE``
+(and ``PIO_STORAGE_SOURCES_<NAME>_<KEY>`` settings), repositories from
+``PIO_STORAGE_REPOSITORIES_<REPO>_SOURCE`` for METADATA, EVENTDATA and
+MODELDATA, the same variables as the JAX package's. With none set, the
+development wiring: sqlite metadata and events in
+``$PIO_FS_BASEDIR/pio.db`` and model files under ``$PIO_FS_BASEDIR``
+(default ``~/.pio_store``). The port's backends are memory, sqlite and
+localfs; a repository resolves to the backend's DAO, one client per
+sqlite source. The process singleton and the storage self-check are not
+ported.
 """
 
 from __future__ import annotations
 
-from predictionio_tpu_torch.data.storage.memory import MemoryApps, MemoryEventStore
+import importlib
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+from predictionio_tpu_torch.data.storage import base
+from predictionio_tpu_torch.data.storage.base import StorageError
+from predictionio_tpu_torch.utils.env import env_path
+
+REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
+
+# backend type → (module, DAO class prefix)
+BACKENDS: dict[str, tuple[str, str]] = {
+    "memory": ("predictionio_tpu_torch.data.storage.memory", "Memory"),
+    "sqlite": ("predictionio_tpu_torch.data.storage.sqlite", "Sqlite"),
+    "localfs": ("predictionio_tpu_torch.data.storage.localfs", "LocalFS"),
+}
+
+# DAO → class suffix
+_DAO_SUFFIXES = {
+    "events": "EventStore",
+    "apps": "Apps",
+    "engine_instances": "EngineInstances",
+    "models": "Models",
+}
+
+
+@dataclass
+class SourceConfig:
+    name: str
+    type: str
+    settings: dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class StorageConfig:
+    """Named sources and the repository → source mapping."""
+
+    sources: dict[str, SourceConfig] = field(default_factory=dict)
+    repositories: dict[str, str] = field(default_factory=dict)
+
+    @staticmethod
+    def from_env(env: Optional[dict[str, str]] = None) -> "StorageConfig":
+        """Parse the PIO_STORAGE_* variables (reference Storage.scala:124-193)."""
+        env = dict(env if env is not None else os.environ)
+        cfg = StorageConfig()
+        src_prefix = "PIO_STORAGE_SOURCES_"
+        for key, val in env.items():
+            if key.startswith(src_prefix) and key.endswith("_TYPE"):
+                name = key[len(src_prefix):-len("_TYPE")]
+                cfg.sources.setdefault(name, SourceConfig(name, val)).type = val
+        for key, val in env.items():
+            if not key.startswith(src_prefix):
+                continue
+            rest = key[len(src_prefix):]
+            for name in cfg.sources:
+                if rest.startswith(name + "_") and not rest.endswith("_TYPE"):
+                    cfg.sources[name].settings[rest[len(name) + 1:]] = val
+        for repo in REPOSITORIES:
+            source = env.get(f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE")
+            if source:
+                cfg.repositories[repo] = source
+        return cfg
+
+    @staticmethod
+    def default_dev(basedir: Optional[str] = None) -> "StorageConfig":
+        """sqlite metadata and events plus localfs models under the base
+        directory (the reference's pio-env.sh.template defaults)."""
+        base_dir = basedir or env_path("PIO_FS_BASEDIR", "~/.pio_store")
+        os.makedirs(base_dir, exist_ok=True)
+        return StorageConfig(
+            sources={
+                "PIOSQLITE": SourceConfig(
+                    "PIOSQLITE", "sqlite", {"PATH": os.path.join(base_dir, "pio.db")}
+                ),
+                "PIOFS": SourceConfig("PIOFS", "localfs", {"PATH": base_dir}),
+            },
+            repositories={"METADATA": "PIOSQLITE", "EVENTDATA": "PIOSQLITE",
+                          "MODELDATA": "PIOFS"},
+        )
+
+    @staticmethod
+    def memory() -> "StorageConfig":
+        """Every repository in this process's memory."""
+        return StorageConfig(
+            sources={"MEM": SourceConfig("MEM", "memory")},
+            repositories={repo: "MEM" for repo in REPOSITORIES},
+        )
 
 
 class Storage:
-    def __init__(self):
-        self._events = MemoryEventStore()
-        self._apps = MemoryApps()
+    """DAO factory bound to a StorageConfig: the environment's, else the
+    development wiring."""
 
-    def get_events(self) -> MemoryEventStore:
-        return self._events
+    def __init__(self, config: Optional[StorageConfig] = None):
+        if config is None:
+            config = StorageConfig.from_env()
+            if not config.repositories:
+                config = StorageConfig.default_dev()
+        self.config = config
+        self._clients: dict[str, Any] = {}
+        self._daos: dict[tuple[str, str], Any] = {}
+        self._lock = threading.RLock()
 
-    def get_meta_data_apps(self) -> MemoryApps:
-        return self._apps
+    def _source_for_repo(self, repo: str) -> SourceConfig:
+        src_name = self.config.repositories.get(repo)
+        if src_name is None:
+            raise StorageError(
+                f"repository {repo} is not configured "
+                f"(set PIO_STORAGE_REPOSITORIES_{repo}_SOURCE)"
+            )
+        src = self.config.sources.get(src_name)
+        if src is None:
+            raise StorageError(f"storage source {src_name} is not configured")
+        return src
+
+    def _get_dao(self, repo: str, dao: str) -> Any:
+        src = self._source_for_repo(repo)
+        key = (src.name, dao)
+        with self._lock:
+            if key in self._daos:
+                return self._daos[key]
+            backend = BACKENDS.get(src.type)
+            if backend is None:
+                raise StorageError(
+                    f"storage backend type {src.type!r} is not in the port "
+                    f"(available: {sorted(BACKENDS)})"
+                )
+            module = importlib.import_module(backend[0])
+            cls = getattr(module, backend[1] + _DAO_SUFFIXES[dao], None)
+            if cls is None:
+                raise StorageError(
+                    f"backend {src.type!r} does not implement "
+                    f"{_DAO_SUFFIXES[dao]} in the port"
+                )
+            kwargs: dict[str, Any] = {"config": dict(src.settings)}
+            client_factory = getattr(module, "SqliteClient", None)
+            if client_factory is not None:
+                if src.name not in self._clients:
+                    self._clients[src.name] = client_factory(dict(src.settings))
+                kwargs["client"] = self._clients[src.name]
+            self._daos[key] = cls(**kwargs)
+            return self._daos[key]
+
+    # -- repository getters (reference Storage.scala:360-391) --------------
+    def get_events(self) -> base.EventStore:
+        return self._get_dao("EVENTDATA", "events")
+
+    def get_meta_data_apps(self) -> base.Apps:
+        return self._get_dao("METADATA", "apps")
+
+    def get_meta_data_engine_instances(self) -> base.EngineInstances:
+        return self._get_dao("METADATA", "engine_instances")
+
+    def get_model_data_models(self) -> base.Models:
+        return self._get_dao("MODELDATA", "models")

@@ -1,0 +1,421 @@
+"""SQLite storage: events, apps and engine instances.
+
+Counterpart of the JAX package's ``data/storage/sqlite.py`` (reference
+jdbc/JDBCLEvents.scala, JDBCPEvents.scala, JDBCApps,
+JDBCEngineInstances), cut to what the port's train → deploy workflow
+calls. The tables, their columns and the revision bookkeeping are the
+JAX package's, so a ``pio.db`` written by either package reads in the
+other: one events table per app, ``events_<appId>`` (reference
+JDBCUtils.eventTableName), and the ``apps`` and ``engineinstances``
+tables. Channels, access keys, evaluation instances, engine manifests,
+model blobs, deletes, tail reads and shard filters are not ported.
+"""
+
+from __future__ import annotations
+
+import datetime as _dt
+import json
+import secrets
+import sqlite3
+import threading
+from typing import Iterable, Iterator, Optional, Sequence
+
+import numpy as np
+
+from predictionio_tpu_torch.data.event import Event, new_event_id
+from predictionio_tpu_torch.data.storage import base
+from predictionio_tpu_torch.data.storage.base import App, EngineInstance, EventQuery
+
+
+# the properties column's encoding (the JAX package's json.dumps with
+# these separators), one encoder for every row
+_encode = json.JSONEncoder(separators=(",", ":")).encode
+
+
+def _ms(dt: _dt.datetime) -> int:
+    return int(dt.timestamp() * 1000)
+
+
+def _from_ms(ms: int) -> _dt.datetime:
+    return _dt.datetime.fromtimestamp(ms / 1000.0, tz=_dt.timezone.utc)
+
+
+class SqliteClient:
+    """One connection per source, shared by its DAOs; writers are
+    serialized by `lock`. Journal and sync modes are the JAX package's;
+    the page cache may grow to 256 MiB and sorts stay in memory, so that
+    a million-event table's indexes and a training read's ORDER BY are
+    not paged through the disk a few pages at a time."""
+
+    def __init__(self, config: Optional[dict] = None):
+        config = config or {}
+        self.path = config.get("PATH", config.get("URL", ":memory:"))
+        self.conn = sqlite3.connect(self.path, check_same_thread=False)
+        self.conn.execute("PRAGMA journal_mode=WAL")
+        self.conn.execute("PRAGMA synchronous=NORMAL")
+        self.conn.execute("PRAGMA cache_size=-262144")  # KiB
+        self.conn.execute("PRAGMA temp_store=MEMORY")
+        self.lock = threading.RLock()
+
+
+class SqliteEventStore(base.EventStore):
+    def __init__(self, config: Optional[dict] = None,
+                 client: Optional[SqliteClient] = None):
+        self._client = client or SqliteClient(config)
+        self._known_tables: set[str] = set()
+
+    @staticmethod
+    def _table_name(app_id: int) -> str:
+        return f"events_{app_id}"
+
+    # the JAX package's write-version and insert-revision bookkeeping:
+    # one row per events table in each
+    _VERSIONS_DDL = (
+        "CREATE TABLE IF NOT EXISTS pio_data_versions "
+        "(tbl TEXT PRIMARY KEY, ver INTEGER NOT NULL)"
+    )
+    _REVISIONS_DDL = (
+        "CREATE TABLE IF NOT EXISTS pio_insert_revisions "
+        "(tbl TEXT PRIMARY KEY, rev INTEGER NOT NULL)"
+    )
+
+    def _next_revisions(self, name: str, n: int) -> int:
+        """Advance the table's revision counter by `n`; returns the first
+        assigned revision. The caller holds the client lock."""
+        conn = self._client.conn
+        conn.execute(
+            "INSERT INTO pio_insert_revisions VALUES (?, ?) "
+            "ON CONFLICT(tbl) DO UPDATE SET rev = rev + ?", (name, n, n),
+        )
+        (last,) = conn.execute(
+            "SELECT rev FROM pio_insert_revisions WHERE tbl = ?", (name,)
+        ).fetchone()
+        return last - n + 1
+
+    def _bump(self, name: str) -> None:
+        self._client.conn.execute(
+            "INSERT INTO pio_data_versions VALUES (?, 1) "
+            "ON CONFLICT(tbl) DO UPDATE SET ver = ver + 1", (name,),
+        )
+
+    def _ensure_table(self, app_id: int) -> str:
+        name = self._table_name(app_id)
+        if name in self._known_tables:
+            return name
+        with self._client.lock:
+            conn = self._client.conn
+            conn.execute(self._VERSIONS_DDL)
+            conn.execute(self._REVISIONS_DDL)
+            conn.execute(
+                f"""CREATE TABLE IF NOT EXISTS {name} (
+                    id TEXT PRIMARY KEY,
+                    event TEXT NOT NULL,
+                    entityType TEXT NOT NULL,
+                    entityId TEXT NOT NULL,
+                    targetEntityType TEXT,
+                    targetEntityId TEXT,
+                    properties TEXT,
+                    eventTime INTEGER NOT NULL,
+                    tags TEXT,
+                    prId TEXT,
+                    creationTime INTEGER NOT NULL,
+                    revision INTEGER
+                )"""
+            )
+            try:  # tables from before the revision column
+                conn.execute(f"ALTER TABLE {name} ADD COLUMN revision INTEGER")
+            except sqlite3.OperationalError:
+                pass  # the column exists
+            for sql in self._index_ddl(name):
+                conn.execute(sql)
+            conn.execute(
+                "INSERT INTO pio_insert_revisions VALUES (?, "
+                f"COALESCE((SELECT MAX(revision) FROM {name}), 0)) "
+                "ON CONFLICT(tbl) DO NOTHING", (name,),
+            )
+            conn.commit()
+        self._known_tables.add(name)
+        return name
+
+    @staticmethod
+    def _index_ddl(name: str) -> list[str]:
+        return [
+            f"CREATE INDEX IF NOT EXISTS idx_{name}_time ON {name} (eventTime)",
+            f"CREATE INDEX IF NOT EXISTS idx_{name}_entity ON {name} (entityType, entityId)",
+            f"CREATE INDEX IF NOT EXISTS idx_{name}_rev ON {name} (revision)",
+        ]
+
+    def init_app(self, app_id: int) -> bool:
+        self._ensure_table(app_id)
+        return True
+
+    @staticmethod
+    def _row(event: Event, eid: str, revision: int) -> tuple:
+        return (
+            eid, event.event, event.entity_type, event.entity_id,
+            event.target_entity_type, event.target_entity_id,
+            _encode(event.properties),
+            _ms(event.event_time),
+            json.dumps(list(event.tags)) if event.tags else None,
+            event.pr_id, _ms(event.creation_time), revision,
+        )
+
+    def insert(self, event: Event, app_id: int) -> str:
+        return self.insert_batch([event], app_id)[0]
+
+    def insert_batch(self, events: Sequence[Event], app_id: int) -> list[str]:
+        name = self._ensure_table(app_id)
+        ids = [e.event_id or new_event_id() for e in events]
+        with self._client.lock:
+            rev0 = self._next_revisions(name, len(events)) if events else 0
+            self._client.conn.executemany(
+                f"INSERT OR REPLACE INTO {name} VALUES (?,?,?,?,?,?,?,?,?,?,?,?)",
+                [self._row(e, eid, rev0 + i)
+                 for i, (e, eid) in enumerate(zip(events, ids))],
+            )
+            self._bump(name)
+            self._client.conn.commit()
+        return ids
+
+    # events per insert_batch (and commit) of a bulk write
+    WRITE_CHUNK = 50_000
+
+    def write(self, events: Iterable[Event], app_id: int) -> int:
+        """The bulk write (reference PEvents.write:167): `insert_batch`es
+        of WRITE_CHUNK events, each committed. Into an empty table the three
+        secondary indexes are dropped first and built once at the end,
+        which sorts the keys once instead of inserting a million random
+        keys one by one; the table ends with the same indexes, and a
+        write that fails rebuilds them too. Returns the events written."""
+        name = self._ensure_table(app_id)
+        n = 0
+        with self._client.lock:
+            conn = self._client.conn
+            bulk = conn.execute(f"SELECT 1 FROM {name} LIMIT 1").fetchone() is None
+            if bulk:
+                for suffix in ("time", "entity", "rev"):
+                    conn.execute(f"DROP INDEX IF EXISTS idx_{name}_{suffix}")
+            try:
+                batch: list[Event] = []
+                for e in events:
+                    batch.append(e)
+                    if len(batch) == self.WRITE_CHUNK:
+                        n += len(self.insert_batch(batch, app_id))
+                        batch = []
+                if batch:
+                    n += len(self.insert_batch(batch, app_id))
+            finally:
+                if bulk:
+                    for sql in self._index_ddl(name):
+                        conn.execute(sql)
+                    conn.commit()
+        return n
+
+    @staticmethod
+    def _to_event(row: tuple) -> Event:
+        (eid, event, etype, entity_id, tetype, teid, props, etime, tags,
+         pr_id, ctime, *rest) = row
+        return Event(
+            event=event, entity_type=etype, entity_id=entity_id,
+            target_entity_type=tetype, target_entity_id=teid,
+            properties=json.loads(props) if props else {},
+            event_time=_from_ms(etime),
+            tags=tuple(json.loads(tags)) if tags else (),
+            pr_id=pr_id, creation_time=_from_ms(ctime), event_id=eid,
+            revision=rest[0] if rest and rest[0] is not None else None,
+        )
+
+    @staticmethod
+    def _where(query: EventQuery) -> tuple[str, list]:
+        clauses, params = [], []
+        if query.entity_type is not None:
+            clauses.append("entityType = ?")
+            params.append(query.entity_type)
+        if query.event_names is not None:
+            clauses.append(f"event IN ({','.join('?' for _ in query.event_names)})")
+            params.extend(query.event_names)
+        if query.target_entity_type is not None:
+            clauses.append("targetEntityType = ?")
+            params.append(query.target_entity_type)
+        return ("WHERE " + " AND ".join(clauses)) if clauses else "", params
+
+    def find(self, query: EventQuery) -> Iterator[Event]:
+        name = self._ensure_table(query.app_id)
+        where, params = self._where(query)
+        sql = f"SELECT * FROM {name} {where} ORDER BY eventTime ASC, id ASC"
+        with self._client.lock:
+            rows = self._client.conn.execute(sql, params).fetchall()
+        return (self._to_event(r) for r in rows)
+
+    def find_entities_batch(
+        self,
+        app_id: int,
+        entity_type: str,
+        entity_ids: Sequence[str],
+        event_names: Optional[Sequence[str]] = None,
+        limit_per_entity: Optional[int] = None,
+    ) -> dict[str, list[Event]]:
+        """One indexed SELECT per entity, newest first (the JAX package's
+        per-entity `find_single_entity` loop)."""
+        name = self._ensure_table(app_id)
+        clause, extra = "", []
+        if event_names is not None:
+            clause = f" AND event IN ({','.join('?' for _ in event_names)})"
+            extra = list(event_names)
+        limit = (f" LIMIT {int(limit_per_entity)}"
+                 if limit_per_entity is not None and limit_per_entity >= 0 else "")
+        sql = (f"SELECT * FROM {name} WHERE entityType = ? AND entityId = ?"
+               f"{clause} ORDER BY eventTime DESC, id DESC{limit}")
+        out: dict[str, list[Event]] = {}
+        with self._client.lock:
+            for eid in dict.fromkeys(entity_ids):
+                rows = self._client.conn.execute(
+                    sql, [entity_type, eid, *extra]).fetchall()
+                out[eid] = [self._to_event(r) for r in rows]
+        return out
+
+    def find_frame(
+        self,
+        query: EventQuery,
+        value_prop: Optional[str] = None,
+        default_value: float = 1.0,
+    ):
+        """The columnar read: only the training columns, straight into
+        arrays, with the numeric payload pulled out of the JSON
+        properties by sqlite's json_extract; no Event is built (reference
+        JDBCPEvents.scala:66-99). A training read takes most of the
+        table, so it scans the table (NOT INDEXED) rather than look rows
+        up one by one through the entity index, which sqlite otherwise
+        picks for the entity-type filter."""
+        from predictionio_tpu_torch.data.store.columnar import EventFrame
+
+        name = self._ensure_table(query.app_id)
+        where, params = self._where(query)
+        value_sel = (
+            f"COALESCE(json_extract(properties, '$.\"{value_prop}\"'), ?)"
+            if value_prop is not None else "?"
+        )
+        sql = (f"SELECT event, entityId, targetEntityId, eventTime, {value_sel} "
+               f"FROM {name} NOT INDEXED {where} ORDER BY eventTime ASC, id ASC")
+        with self._client.lock:
+            rows = self._client.conn.execute(sql, [default_value] + params).fetchall()
+        if not rows:
+            return EventFrame.from_columns(
+                [], [], [], np.zeros(0, np.int64), np.zeros(0, np.float32)
+            )
+        ev_names, entity_ids, target_ids, times, values = zip(*rows)
+        return EventFrame.from_columns(
+            ev_names, entity_ids, target_ids,
+            np.asarray(times, dtype=np.int64),
+            np.asarray(values, dtype=np.float32),
+            entity_type=query.entity_type,
+            target_entity_type=query.target_entity_type,
+        )
+
+
+class _MetaBase:
+    """Table bootstrap shared by the metadata DAOs."""
+
+    DDL: str = ""
+
+    def __init__(self, config: Optional[dict] = None,
+                 client: Optional[SqliteClient] = None):
+        self._client = client or SqliteClient(config)
+        with self._client.lock:
+            self._client.conn.execute(self.DDL)
+            self._client.conn.commit()
+
+    def _exec(self, sql: str, params=()):
+        with self._client.lock:
+            try:
+                cur = self._client.conn.execute(sql, params)
+            except sqlite3.Error:
+                # a failed statement must not leave its transaction holding
+                # the database's write lock against other connections
+                self._client.conn.rollback()
+                raise
+            self._client.conn.commit()
+            return cur
+
+    def _query(self, sql: str, params=()):
+        with self._client.lock:
+            return self._client.conn.execute(sql, params).fetchall()
+
+
+class SqliteApps(_MetaBase, base.Apps):
+    DDL = """CREATE TABLE IF NOT EXISTS apps (
+        id INTEGER PRIMARY KEY AUTOINCREMENT, name TEXT UNIQUE NOT NULL,
+        description TEXT)"""
+
+    def insert(self, app: App) -> Optional[int]:
+        try:
+            if app.id > 0:
+                self._exec("INSERT INTO apps (id, name, description) VALUES (?,?,?)",
+                           (app.id, app.name, app.description))
+                return app.id
+            return self._exec("INSERT INTO apps (name, description) VALUES (?,?)",
+                              (app.name, app.description)).lastrowid
+        except sqlite3.IntegrityError:
+            return None
+
+    def get(self, app_id: int) -> Optional[App]:
+        rows = self._query("SELECT id, name, description FROM apps WHERE id=?", (app_id,))
+        return App(*rows[0]) if rows else None
+
+    def get_by_name(self, name: str) -> Optional[App]:
+        rows = self._query("SELECT id, name, description FROM apps WHERE name=?", (name,))
+        return App(*rows[0]) if rows else None
+
+    def get_all(self) -> list[App]:
+        return [App(*r) for r in self._query("SELECT id, name, description FROM apps")]
+
+
+class SqliteEngineInstances(_MetaBase, base.EngineInstances):
+    DDL = """CREATE TABLE IF NOT EXISTS engineinstances (
+        id TEXT PRIMARY KEY, status TEXT, startTime INTEGER, endTime INTEGER,
+        engineId TEXT, engineVersion TEXT, engineVariant TEXT, engineFactory TEXT,
+        batch TEXT, env TEXT, meshConf TEXT, dataSourceParams TEXT,
+        preparatorParams TEXT, algorithmsParams TEXT, servingParams TEXT)"""
+
+    def insert(self, i: EngineInstance) -> str:
+        iid = i.id or f"ei_{secrets.token_hex(8)}"
+        self._exec(
+            "INSERT OR REPLACE INTO engineinstances VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?,?,?)",
+            (iid, i.status, _ms(i.start_time), _ms(i.end_time), i.engine_id,
+             i.engine_version, i.engine_variant, i.engine_factory, i.batch,
+             json.dumps(i.env), json.dumps(i.mesh_conf), i.data_source_params,
+             i.preparator_params, i.algorithms_params, i.serving_params),
+        )
+        return iid
+
+    @staticmethod
+    def _to_instance(r) -> EngineInstance:
+        return EngineInstance(
+            id=r[0], status=r[1], start_time=_from_ms(r[2]), end_time=_from_ms(r[3]),
+            engine_id=r[4], engine_version=r[5], engine_variant=r[6],
+            engine_factory=r[7], batch=r[8], env=json.loads(r[9] or "{}"),
+            mesh_conf=json.loads(r[10] or "{}"), data_source_params=r[11],
+            preparator_params=r[12], algorithms_params=r[13], serving_params=r[14],
+        )
+
+    def get(self, iid: str) -> Optional[EngineInstance]:
+        rows = self._query("SELECT * FROM engineinstances WHERE id=?", (iid,))
+        return self._to_instance(rows[0]) if rows else None
+
+    def get_all(self) -> list[EngineInstance]:
+        return [self._to_instance(r) for r in self._query("SELECT * FROM engineinstances")]
+
+    def get_completed(self, engine_id, engine_version, engine_variant):
+        rows = self._query(
+            """SELECT * FROM engineinstances WHERE status='COMPLETED'
+               AND engineId=? AND engineVersion=? AND engineVariant=?
+               ORDER BY startTime DESC""",
+            (engine_id, engine_version, engine_variant),
+        )
+        return [self._to_instance(r) for r in rows]
+
+    def update(self, i: EngineInstance) -> bool:
+        if self.get(i.id) is None:
+            return False
+        self.insert(i)
+        return True

@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``data/store/event_store.py``
 (reference PEventStore.scala:32, LEventStore.scala:30): ``find_frame``
 for training reads and ``find_by_entities`` for serving-time history
-reads, over a `Storage`. Channels are not ported.
+reads, over a `Storage`. ``find_frame`` takes the store's columnar
+read where it has one (sqlite), else packs ``find``'s events. Channels
+and time ranges are not ported.
 """
 
 from __future__ import annotations
@@ -30,13 +32,24 @@ class EventStoreFacade:
         app_name: str,
         event_names: Optional[Sequence[str]] = None,
         entity_type: Optional[str] = None,
+        target_entity_type: Optional[str] = None,
+        value_prop: Optional[str] = None,
+        default_value: float = 1.0,
     ) -> EventFrame:
-        """The app's events as columns, in (event_time, event_id) order."""
+        """The app's events as columns, in (event_time, event_id) order
+        (reference PEventStore.find), with `value_prop` as the value
+        column (`default_value` where it is missing)."""
         query = EventQuery(
             app_id=self.app_name_to_id(app_name), entity_type=entity_type,
-            event_names=event_names,
+            event_names=event_names, target_entity_type=target_entity_type,
         )
-        return EventFrame.from_events(self.storage.get_events().find(query))
+        store = self.storage.get_events()
+        fast = getattr(store, "find_frame", None)
+        if fast is not None:
+            return fast(query, value_prop=value_prop, default_value=default_value)
+        return EventFrame.from_events(
+            store.find(query), value_prop=value_prop, default_value=default_value
+        )
 
     def find_by_entities(
         self,

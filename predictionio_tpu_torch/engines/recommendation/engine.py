@@ -1,13 +1,19 @@
 """Recommendation engine template: ratings → ALS factors → top-N items
 per query.
 
-Counterpart of the JAX package's ``engines/recommendation/engine.py``.
-``ALSAlgorithm.train`` trains on the dense-W path of ``models/als.py``
-(checkpointed segments and warm starts are not ported yet); the
-file-backed ``FileRatingsDataSource`` reads ``user::item::rating``
-lines. The model keeps its factor matrices resident on the device, so
-serving is one fused score+top-k call per query batch. A model also
-comes from a factor blob (``convert.py``).
+Counterpart of the JAX package's ``engines/recommendation/engine.py``
+(reference examples/scala-parallel-recommendation).
+``RecommendationDataSource`` reads "rate"/"buy" events from the event
+store as one columnar frame; the file-backed ``FileRatingsDataSource``
+reads ``user::item::rating`` lines. ``ALSAlgorithm.train`` trains
+through ``models/als.py``'s routing (checkpointed segments, warm starts,
+sharded serving, eval and item categories are not ported yet, and a
+variant that asks for one is refused). The model keeps its factor
+matrices resident on its device, so serving is one fused score+top-k
+call per query batch; it pickles without them, and deploy binds it to
+the deploy's device. A model also comes from a factor blob
+(``convert.py``). ``RecommendationEngine`` and
+``FileRecommendationEngine`` are the factories engine.json names.
 """
 
 from __future__ import annotations
@@ -18,8 +24,19 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from predictionio_tpu_torch.controller import (
+    Algorithm,
+    DataSource,
+    Engine,
+    EngineFactory,
+    FirstServing,
+    IdentityPreparator,
+    ParamsError,
+    SanityCheck,
+)
 from predictionio_tpu_torch.core.base import RuntimeContext
 from predictionio_tpu_torch.data.store.bimap import BiMap
+from predictionio_tpu_torch.data.store.event_store import EventStoreFacade
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models import als
 from predictionio_tpu_torch.ops.recommend import ROWLIST_MAX, rowlist_np
@@ -31,7 +48,7 @@ from predictionio_tpu_torch.utils.bucket import batch_bucket, topk_bucket
 
 
 @dataclass
-class TrainingData:
+class TrainingData(SanityCheck):
     rows: np.ndarray  # user idx per interaction
     cols: np.ndarray  # item idx
     vals: np.ndarray  # rating / implicit weight
@@ -52,12 +69,79 @@ class TrainingData:
 
 
 @dataclass
+class DataSourceParams:
+    """All of the JAX package's fields, so that a variant's JSON reads the
+    same; the eval fields are refused at `read_eval`, and the item
+    categories and the data view when they are on."""
+
+    app_name: str
+    event_names: tuple[str, ...] = ("rate", "buy")
+    rate_event: str = "rate"  # carries a "rating" property; others weigh 1.0
+    eval_k: int = 0  # > 0 enables read_eval with k folds (not ported)
+    goal_threshold: float = 4.0
+    eval_num: int = 20
+    read_item_categories: bool = False  # not ported
+    use_data_view: bool = False  # not ported
+    data_view_dir: Optional[str] = None
+
+    def __post_init__(self):
+        for name in ("read_item_categories", "use_data_view"):
+            if getattr(self, name):
+                raise ParamsError(
+                    f"DataSourceParams.{name} is not ported yet to the "
+                    f"PyTorch port; leave it false"
+                )
+
+
+class RecommendationDataSource(DataSource):
+    """The app's interaction events → TrainingData (reference template
+    DataSource.scala:24-80)."""
+
+    def __init__(self, params: DataSourceParams):
+        self.params = params
+
+    def _frame(self, ctx: RuntimeContext):
+        frame = EventStoreFacade(ctx.storage).find_frame(
+            app_name=self.params.app_name,
+            entity_type="user",
+            target_entity_type="item",
+            event_names=list(self.params.event_names),
+            value_prop="rating",
+            default_value=1.0,
+        )
+        # only the rate event carries a rating; every other interaction
+        # type weighs 1.0, even with a "rating" property
+        rate_code = frame.event_vocab.get(self.params.rate_event, -2)
+        frame.value = np.where(
+            frame.event_code == rate_code, frame.value, 1.0
+        ).astype(np.float32)
+        return frame
+
+    def read_training(self, ctx: RuntimeContext) -> TrainingData:
+        frame = self._frame(ctx)
+        rows, cols, vals = frame.interactions(dedupe="sum")
+        return TrainingData(
+            rows=rows, cols=cols, vals=vals,
+            n_users=frame.n_entities, n_items=frame.n_targets,
+            user_vocab=frame.entity_vocab, item_vocab=frame.target_vocab,
+        )
+
+    def read_eval(self, ctx: RuntimeContext):
+        if self.params.eval_k <= 0:
+            raise ValueError("eval requires datasource params eval_k > 0")
+        raise ParamsError(
+            "evaluation (DataSourceParams.eval_k > 0) is not ported yet to "
+            "the PyTorch port"
+        )
+
+
+@dataclass
 class FileDataSourceParams:
     filepath: str
     delimiter: str = "::"  # MovieLens ratings.dat convention
 
 
-class FileRatingsDataSource:
+class FileRatingsDataSource(DataSource):
     """``user::item::rating`` lines from a delimited text file, no event
     store involved (the JAX package's file-backed DataSource; reference
     examples/experimental/scala-parallel-recommendation-custom-datasource
@@ -139,9 +223,17 @@ class ALSAlgorithmParams:
     # explicit opt-ins
     serve_dtype: str = "f32"
 
+    # the JAX package's fields the port does not have yet: a variant that
+    # names one is refused (controller.params.extract_params)
+    NOT_PORTED = ("checkpoint_every", "warm_start", "shard_serving")
+
 
 class ALSModel:
-    """Trained factors + device-resident factor matrices for serving."""
+    """Trained factors + device-resident factor matrices for serving.
+
+    Pickles its factors (numpy), categories and serving dtype, never its
+    device or staged state; an unpickled model has no device until
+    `bind_device` gives it the deploy's."""
 
     def __init__(
         self,
@@ -157,10 +249,37 @@ class ALSModel:
         self._serving_state: Optional[als.ServingFactors] = None
         self._stage_lock = threading.Lock()
 
+    def __getstate__(self):
+        return {
+            "factors": self.factors,
+            "item_categories": self.item_categories,
+            "serve_dtype": self.serve_dtype,
+        }
+
+    def __setstate__(self, state):
+        self.factors = state["factors"]
+        self.item_categories = state.get("item_categories")
+        self.serve_dtype = state.get("serve_dtype", "f32")
+        self.device = None  # bound by the deploy (bind_device)
+        self._serving_state = None
+        self._stage_lock = threading.Lock()
+
+    def bind_device(self, device=None) -> None:
+        """Serve on `device` (the first CUDA device when None), dropping
+        any state staged elsewhere."""
+        with self._stage_lock:
+            self.device = resolve_device(device)
+            self._serving_state = None
+
     def serving_state(self) -> als.ServingFactors:
         """The staged serving-side factor state, staged lazily under the
         stage lock (concurrent batches must not double-stage)."""
         with self._stage_lock:
+            if self.device is None:
+                raise RuntimeError(
+                    "the model has no device: an unpickled model is bound "
+                    "by prepare_deploy (ALSModel.bind_device)"
+                )
             if self._serving_state is None:
                 self._serving_state = als.stage_serving(
                     self.factors, serve_dtype=self.serve_dtype,
@@ -180,7 +299,7 @@ class ALSModel:
         )
 
 
-class ALSAlgorithm:
+class ALSAlgorithm(Algorithm):
     def __init__(self, params: ALSAlgorithmParams):
         self.params = params
 
@@ -352,3 +471,28 @@ class ALSAlgorithm:
     def batch_predict(self, ctx, model: ALSModel, queries):
         preds = self._predict_batch(model, [q for _, q in queries])
         return [(qx, p) for (qx, _q), p in zip(queries, preds)]
+
+
+# -- engine factories ----------------------------------------------------------
+
+
+class RecommendationEngine(EngineFactory):
+    def apply(self) -> Engine:
+        return Engine(
+            RecommendationDataSource,
+            IdentityPreparator,
+            {"als": ALSAlgorithm},
+            FirstServing,
+        )
+
+
+class FileRecommendationEngine(EngineFactory):
+    """The recommendation engine with the file-backed DataSource."""
+
+    def apply(self) -> Engine:
+        return Engine(
+            FileRatingsDataSource,
+            IdentityPreparator,
+            {"als": ALSAlgorithm},
+            FirstServing,
+        )

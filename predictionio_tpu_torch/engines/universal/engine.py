@@ -15,8 +15,10 @@ actionml/template-scala-parallel-universal-recommendation).
   in one device dispatch per query batch: the history scoring and then
   the hand-written masked top-k kernel.
 
-Not ported: self-cleaning (``event_window``), the engine factory and
-the storage-backed train/deploy workflow.
+``UniversalRecommenderEngine`` is the factory an engine.json names, so
+the UR trains and deploys by variant too. A model pickles without its
+device; deploy binds it to the deploy's device. Not ported:
+self-cleaning (``event_window``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.controller import (
+    Algorithm,
+    DataSource,
+    Engine,
+    EngineFactory,
+    FirstServing,
+    IdentityPreparator,
+    SanityCheck,
+)
 from predictionio_tpu_torch.core.base import RuntimeContext
 from predictionio_tpu_torch.data.store.bimap import BiMap
 from predictionio_tpu_torch.data.store.event_store import EventStoreFacade
@@ -77,7 +88,7 @@ class IndicatorData:
 
 
 @dataclass
-class TrainingData:
+class TrainingData(SanityCheck):
     indicators: list[IndicatorData]
     n_users: int
     user_vocab: BiMap
@@ -87,7 +98,7 @@ class TrainingData:
             raise ValueError("no primary indicator events found")
 
 
-class URDataSource:
+class URDataSource(DataSource):
     def __init__(self, params: DataSourceParams):
         if params.event_window is not None:
             raise NotImplementedError(
@@ -160,28 +171,40 @@ class URModel:
         self._device_tables = None
         self._stage_lock = threading.Lock()
 
-    # the staged tables and the lock are serving state, not the model
+    # the device, the staged tables and the lock are serving state, not
+    # the model: an unpickled model has no device until bind_device
     def __getstate__(self):
         return {
             "item_vocab": self.item_vocab,
             "indicator_models": self.indicator_models,
             "primary_indicator": self.primary_indicator,
-            "device": str(self.device),
         }
 
     def __setstate__(self, state):
-        self.__init__(
-            state["item_vocab"],
-            state["indicator_models"],
-            state["primary_indicator"],
-            state["device"],
-        )
+        self.item_vocab = state["item_vocab"]
+        self.indicator_models = state["indicator_models"]
+        self.primary_indicator = state["primary_indicator"]
+        self.device = None
+        self._device_tables = None
+        self._stage_lock = threading.Lock()
+
+    def bind_device(self, device=None) -> None:
+        """Serve on `device` (the first CUDA device when None), dropping
+        any tables staged elsewhere."""
+        with self._stage_lock:
+            self.device = resolve_device(device)
+            self._device_tables = None
 
     def device_tables(self) -> list:
         """The correlator tables on the model's device, [(idx int32,
         scores f32, J), ...]: staged once, under the lock, so concurrent
         batches never stage twice."""
         with self._stage_lock:
+            if self.device is None:
+                raise RuntimeError(
+                    "the model has no device: an unpickled model is bound "
+                    "by prepare_deploy (URModel.bind_device)"
+                )
             if self._device_tables is None:
                 self._device_tables = [
                     (
@@ -196,18 +219,9 @@ class URModel:
             return self._device_tables
 
 
-class URAlgorithm:
+class URAlgorithm(Algorithm):
     def __init__(self, params: URAlgorithmParams):
         self.params = params
-        self._serving_ctx: Optional[RuntimeContext] = None
-
-    def set_serving_context(self, ctx: RuntimeContext) -> None:
-        self._serving_ctx = ctx
-
-    @property
-    def serving_context(self) -> RuntimeContext:
-        return (self._serving_ctx if self._serving_ctx is not None
-                else RuntimeContext(mode="serve"))
 
     def train(self, ctx: RuntimeContext, pd: TrainingData) -> URModel:
         """CCO + LLR per kept indicator on the context's device (the
@@ -402,3 +416,13 @@ class URAlgorithm:
             ctx or self.serving_context, model, [q for _, q in queries]
         )
         return [(qx, p) for (qx, _q), p in zip(queries, preds)]
+
+
+class UniversalRecommenderEngine(EngineFactory):
+    def apply(self) -> Engine:
+        return Engine(
+            URDataSource,
+            IdentityPreparator,
+            {"ur": URAlgorithm},
+            FirstServing,
+        )

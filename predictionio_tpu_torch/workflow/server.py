@@ -1,12 +1,18 @@
-"""Deploy query server: ``POST /queries.json`` answered by one engine's
-algorithm and model, with concurrent queries coalesced into one
-``batch_predict`` per drain. The query class is the one the algorithm's
-``predict`` takes, so the same server serves the ALS and the Universal
-Recommender templates.
+"""Deploy query server: ``POST /queries.json`` answered by an engine's
+algorithms and models through its Serving stage (supplement, each
+algorithm's prediction, serve), with concurrent queries coalesced into
+one ``batch_predict`` per algorithm per drain. The query class is the
+one the first algorithm's ``predict`` takes, so the same server serves
+the ALS and the Universal Recommender templates.
+
+A server is built from an ``EngineRuntime`` (``build_runtime`` rehydrates
+a trained engine instance from storage, as ``console deploy
+--engine-json`` does) or from one algorithm and its model, served
+through ``FirstServing``.
 
 Counterpart of the JAX package's ``workflow/server.py``, cut to the main
-route: no continuous batching, tenancy, rollout, online learning,
-deadlines or feedback.
+route: no reload, continuous batching, tenancy, rollout, online
+learning, deadlines or feedback.
 """
 
 from __future__ import annotations
@@ -22,6 +28,10 @@ from concurrent.futures import Future
 from dataclasses import dataclass
 from typing import Any, Optional
 
+from predictionio_tpu_torch.controller.dase import FirstServing
+from predictionio_tpu_torch.core.base import RuntimeContext
+from predictionio_tpu_torch.data.storage.base import EngineInstance
+from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops import recommend as _recommend
 from predictionio_tpu_torch.utils.http import (
     HttpError,
@@ -29,6 +39,7 @@ from predictionio_tpu_torch.utils.http import (
     ServerProcess,
     ThreadedServer,
 )
+from predictionio_tpu_torch.workflow.core import prepare_deploy_models
 
 log = logging.getLogger(__name__)
 
@@ -46,6 +57,65 @@ class QueryServerConfig:
     batch_window_ms: float = 2.0
     max_window_ms: float = 60.0
     max_batch: int = 64
+
+
+@dataclass
+class EngineRuntime:
+    """Everything needed to answer queries (the JAX package's
+    ``EngineRuntime``)."""
+
+    instance: Optional[EngineInstance]
+    engine: Any
+    engine_params: Any
+    algorithms: list[Any]
+    models: list[Any]
+    serving: Any
+    query_class: type
+
+
+def build_runtime(storage, instance: EngineInstance, device=None) -> EngineRuntime:
+    """Rehydrate a COMPLETED instance into a servable runtime on `device`
+    (the first CUDA device when None): models loaded from its MODELDATA
+    blob and bound to the device, each algorithm given the serving
+    context (the event store, for live history reads), then warmed up
+    (reference CreateServer.scala:206). A failed warmup raises."""
+    dev = str(resolve_device(device))
+    engine, engine_params, models = prepare_deploy_models(
+        storage, instance, device=dev
+    )
+    algorithms = engine.make_algorithms(engine_params)
+    serving = engine.make_serving(engine_params)
+    ctx = RuntimeContext(storage=storage, mode="serve", device=dev)
+    for algo in algorithms:
+        algo.set_serving_context(ctx)
+    _warmup(algorithms, models)
+    return EngineRuntime(
+        instance=instance, engine=engine, engine_params=engine_params,
+        algorithms=algorithms, models=models, serving=serving,
+        query_class=query_class(algorithms[0]),
+    )
+
+
+def latest_completed_runtime(
+    storage, engine_id: str, engine_version: str, variant_id: str, device=None
+) -> EngineRuntime:
+    """The runtime of the variant's newest COMPLETED train."""
+    instance = storage.get_meta_data_engine_instances().get_latest_completed(
+        engine_id, engine_version, variant_id
+    )
+    if instance is None:
+        raise RuntimeError(
+            f"no COMPLETED engine instance for {engine_id}/{engine_version}/"
+            f"{variant_id}: run train first"
+        )
+    return build_runtime(storage, instance, device=device)
+
+
+def _warmup(algorithms, models) -> None:
+    for algo, model in zip(algorithms, models):
+        warmup = getattr(algo, "warmup", None)
+        if callable(warmup):
+            warmup(model)
 
 
 def _to_jsonable(obj: Any) -> Any:
@@ -197,23 +267,21 @@ class _BatchDispatcher:
         owner = self.owner
         t0 = time.perf_counter()
         try:
-            preds = dict(owner.algorithm.batch_predict(
-                None, owner.model, [(i, p.query) for i, p in enumerate(batch)]
-            ))
+            preds = owner.predict_batch([p.query for p in batch])
         except Exception:  # noqa: BLE001 — retried per query below
             log.exception("batch predict failed; retrying query by query")
             for p in batch:
                 t0 = time.perf_counter()
                 try:
-                    result = owner.algorithm.predict(owner.model, p.query)
+                    result = owner.predict_batch([p.query])[0]
                     owner.count_batch(time.perf_counter() - t0)
                     p.fut.set_result(result)
                 except Exception as e:  # noqa: BLE001 — the waiter's error
                     p.fut.set_exception(e)
             return
         owner.count_batch(time.perf_counter() - t0)
-        for i, p in enumerate(batch):
-            p.fut.set_result(preds[i])
+        for p, result in zip(batch, preds):
+            p.fut.set_result(result)
 
 
 class _Handler(JsonHandler):
@@ -260,33 +328,53 @@ class _Server(ThreadedServer):
 
 
 class QueryServer(ServerProcess):
-    """Deploy-server process: serves one algorithm over one model.
-    `start()` warms the algorithm up (staging the model on its device)
-    before it accepts queries."""
+    """Deploy-server process: serves an EngineRuntime, or one algorithm
+    over one model (through FirstServing). `start()` warms each algorithm
+    up (staging its model on its device) before it accepts queries,
+    unless the runtime came warmed from `build_runtime`."""
 
     _name = "query-server"
 
     def __init__(
         self,
-        algorithm: Any,
-        model: Any,
+        algorithm: Any = None,
+        model: Any = None,
         config: Optional[QueryServerConfig] = None,
+        runtime: Optional[EngineRuntime] = None,
     ):
         super().__init__()
-        self.algorithm = algorithm
-        self.model = model
-        self.query_class = query_class(algorithm)
+        if (runtime is None) == (algorithm is None):
+            raise TypeError("QueryServer takes a runtime or an algorithm and its model")
+        self._warm = runtime is not None
+        if runtime is None:
+            runtime = EngineRuntime(
+                instance=None, engine=None, engine_params=None,
+                algorithms=[algorithm], models=[model], serving=FirstServing(),
+                query_class=query_class(algorithm),
+            )
+        self.runtime = runtime
+        self.query_class = runtime.query_class
         self.config = config or QueryServerConfig()
         self._count_lock = threading.Lock()
         self._requests = 0  # guarded-by: _count_lock
         self._batches = 0  # guarded-by: _count_lock
         self._batch_s = 0.0  # guarded-by: _count_lock
+        self._launch_base = 0
         self.dispatcher: Optional[_BatchDispatcher] = None
 
+    @property
+    def algorithm(self) -> Any:
+        return self.runtime.algorithms[0]
+
+    @property
+    def model(self) -> Any:
+        return self.runtime.models[0]
+
     def start(self) -> int:
-        warmup = getattr(self.algorithm, "warmup", None)
-        if callable(warmup):
-            warmup(self.model)
+        if not self._warm:
+            _warmup(self.runtime.algorithms, self.runtime.models)
+            self._warm = True
+        self._launch_base = _launches()
         if self.config.micro_batch:
             self.dispatcher = _BatchDispatcher(
                 self, self.config.batch_window_ms, self.config.max_batch,
@@ -305,13 +393,28 @@ class QueryServer(ServerProcess):
         server.owner = self
         return server
 
+    def predict_batch(self, queries: list) -> list:
+        """The engine's answers to `queries`: supplemented by the Serving
+        stage, one `batch_predict` per algorithm, combined by `serve`."""
+        rt = self.runtime
+        supplemented = [rt.serving.supplement(q) for q in queries]
+        indexed = list(enumerate(supplemented))
+        per_algo = [
+            dict(algo.batch_predict(None, model, indexed))
+            for algo, model in zip(rt.algorithms, rt.models)
+        ]
+        return [
+            rt.serving.serve(q, [preds[i] for preds in per_algo])
+            for i, q in indexed
+        ]
+
     def predict(self, query: Any) -> Any:
         with self._count_lock:
             self._requests += 1
         if self.dispatcher is not None:
             return self.dispatcher.submit(query)
         t0 = time.perf_counter()
-        result = self.algorithm.predict(self.model, query)
+        result = self.predict_batch([query])[0]
         self.count_batch(time.perf_counter() - t0)
         return result
 
@@ -323,17 +426,23 @@ class QueryServer(ServerProcess):
             self._batch_s += seconds
 
     def status(self) -> dict:
+        """Counts since the server started serving (warmup excluded):
+        `kernel_launches` is the top-k kernels' launches in this process."""
         with self._count_lock:
             requests, batches, batch_s = (
                 self._requests, self._batches, self._batch_s
             )
+        instance = self.runtime.instance
         return {
             "status": "alive",
+            "engine_instance": instance.id if instance is not None else None,
             "requests": requests,
             "batches": batches,
             "batch_predict_seconds": batch_s,
-            "kernel_launches": (
-                _recommend.LAUNCHES + _recommend.MASKED_LAUNCHES
-            ),
+            "kernel_launches": _launches() - self._launch_base,
             "device": str(getattr(self.model, "device", None)),
         }
+
+
+def _launches() -> int:
+    return _recommend.LAUNCHES + _recommend.MASKED_LAUNCHES

@@ -32,7 +32,7 @@ from predictionio_tpu_torch import convert  # noqa: E402
 from predictionio_tpu_torch.core.base import RuntimeContext  # noqa: E402
 from predictionio_tpu_torch.data.event import Event  # noqa: E402
 from predictionio_tpu_torch.data.storage.base import App  # noqa: E402
-from predictionio_tpu_torch.data.storage.registry import Storage  # noqa: E402
+from predictionio_tpu_torch.data.storage.registry import Storage, StorageConfig as TStorageConfig  # noqa: E402
 from predictionio_tpu_torch.engines.universal import engine as teng  # noqa: E402
 from predictionio_tpu_torch.workflow import server as tserver  # noqa: E402
 from test_torch_cco import assert_correlators_close  # noqa: E402
@@ -78,7 +78,7 @@ class _Pair:
             repositories={"METADATA": "MEM", "EVENTDATA": "MEM",
                           "MODELDATA": "MEM"},
         ))
-        self.tstorage = Storage()
+        self.tstorage = Storage(TStorageConfig.memory())
         self.japp = self.jstorage.get_meta_data_apps().insert(JApp(0, APP))
         self.tapp = self.tstorage.get_meta_data_apps().insert(App(0, APP))
         self.jstorage.get_events().init_app(self.japp)
@@ -236,8 +236,14 @@ def test_query_server_round_trip(pair):
 def test_model_pickles_without_device_state(pair):
     pair.tmodel.device_tables()
     clone = pickle.loads(pickle.dumps(pair.tmodel))
-    assert clone._device_tables is None and clone.device == torch.device("cpu")
+    # the device is the deploy's, bound after unpickling, never the pickled one
+    assert clone._device_tables is None and clone.device is None
     assert "_device_tables" not in pair.tmodel.__getstate__()
+    assert "device" not in pair.tmodel.__getstate__()
+    with pytest.raises(RuntimeError, match="no device"):
+        clone.device_tables()
+    clone.bind_device("cpu")
+    assert clone.device == torch.device("cpu")
 
 
 def test_self_cleaning_is_not_ported():
