@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ALS train (dense, windowed, scatter) and
-serve paths, the storage-backed train → deploy → query loop, and the
-Universal Recommender's train and serve path, on one CUDA card.
+serve paths, the storage-backed train → deploy → query loop, the grid
+evaluation over the same storage, and the Universal Recommender's train
+and serve path, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -84,19 +85,52 @@ Phases, in order; any failure prints what failed and exits non-zero:
             import, read, prepare, train and persist seconds (the
             instance's stage timings), deploy to ready, p50/p99 and qps,
             each line with the card's name and power limit.
-10. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
+10. eval    ``pio eval`` over the loop's storage and app, in this process
+            on the card: ``console eval run`` of EvalML1M over EvalGrid,
+            the recommendation template's tuning example (5 folds,
+            eval_num 10, goal threshold 4.0, Precision@10; rank {10, 20}
+            x iterations {20, 40} x lambda {0.01, 0.1}, implicit, f32
+            serving; best.json under ``build/loop/``). Each fold trains
+            ~800,000 edges, so the gate takes the windowed path. The
+            instance must be EVALCOMPLETED in sqlite with the one-liner,
+            HTML, JSON of 8 scores, ``grid_points`` 8, and best.json
+            written; ``train_grid`` must run once a fold and stage
+            StagedWindowedTrain once a fold, no serial train; the
+            block_partials and combine kernels must launch 2 x the
+            iterations of every point of every fold (2,400 each), the
+            scored top-k once a (fold, point) on its select route (40);
+            every factor finite; on fold 0 each point's factors bit-equal
+            to a serial ``ALSAlgorithm.train`` of its params on the card,
+            the answers of points 0 and 4 (rank 10 and 20) equal to the
+            plain top-k on the CPU over their factors, and every point's
+            Precision@10 equal to the metric recomputed on the host from
+            its answers. Then, with ``PIO_DENSE_ALS=1``, the engine's
+            ``batch_eval`` of the same grid on fold 0 (``fold_indices``,
+            counts from 0 around it) must stage StagedDenseTrain (int8)
+            once, launch each dense pass kernel 240 times and the scored
+            top-k 8, no windowed pass, and give each point's factors
+            bit-equal to a serial forced-dense ``ALSAlgorithm.train``.
+            Last, at each rank of the grid (10, 20), block_partials with
+            the combine on fold 0's two staged windowed plans and the row
+            and col passes on the staged int8 R are held to their plain
+            versions as phases 5 and 12 hold them. Prints read_eval,
+            staging and ``train_grid`` seconds per fold,
+            ``batch_predict`` seconds per model, metric seconds,
+            eval_wall_sec, each point's score and the best point, each
+            line with the card's name and power limit.
+11. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
             users x 59,047 items, 25,000,095 unique pairs (users 20 to
             32,202 ratings, items up to 81,491); the dense gate must refuse
             them for the byte budget alone (int8 R 9,688,842,240 B > 9e9).
             Builds both windowed plans and prints their block counts.
-11. windowed the windowed pass kernels (block_partials and the combine,
+12. windowed the windowed pass kernels (block_partials and the combine,
             through ``ops.windowed.windowed_gram_b``) against their plain
             versions on the card: K in {1, 8, 10, 32}, implicit and
             explicit weights, signed ratings, padding slots with local ids
             past both ends of [0, S), a block of 1,024 slots on one row,
             unsorted ids, an all-padding plan, and both full ML-25M plans
             at K = 10. Per element within 1e-5 * S, bit-equal on relaunch.
-12. windowed train  ``ALSAlgorithm.train`` on the phase-10 data at the
+13. windowed train  ``ALSAlgorithm.train`` on the phase-11 data at the
             template defaults with 5 iterations: the staging must be
             StagedWindowedTrain, each kernel must launch once per
             half-step, factors finite, a second run from the same staging
@@ -104,17 +138,17 @@ Phases, in order; any failure prints what failed and exits non-zero:
             the card must correlate > 0.9999. Then the factors go through
             the npz blob to ``recommend_serving``: 16 queries, each equal
             to the plain top-k.
-13. scatter a rank-48 train (100,000 ratings, 2 iterations) through
+14. scatter a rank-48 train (100,000 ratings, 2 iterations) through
             ``ALSAlgorithm.train`` on the card and on the CPU from the same
             seed: within rtol = atol = 1e-4 (no kernel of its own).
-14. windowed times  CUDA-event medians per ML-25M side, K = 10: the
+15. windowed times  CUDA-event medians per ML-25M side, K = 10: the
             block_partials kernel, its plain version, a gather + outer
             product + ``index_add_`` yardstick the port never calls, the
             bound; the combine kernel, its plain version, its bound; then
             block_partials at K = 32 on the users plan (kernel, plain,
             bound; no yardstick), and the partials kernel's ptxas
             registers, shared memory and CTAs an SM at K = 10 and 32.
-15. ur sweep  the precomputed-score selector (``fused_masked_topk``)
+16. ur sweep  the precomputed-score selector (``fused_masked_topk``)
             against its plain version on the card: I_p in {1,024 (below
             one 4,096-column select segment), 12,416 (a short last
             segment), 100,096} with dead pads, B in {1, 8, 64}, k in {1,
@@ -123,38 +157,39 @@ Phases, in order; any failure prints what failed and exits non-zero:
             and 64, a fully masked row, an all-zero row, equal maxima on
             both sides of every chunk and segment boundary. Each call must
             take the route its k names; indices and values must be equal.
-16. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
+17. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
             at full size) from UR_SEED: 3,000 users, 100,000 items, one buy
             per item plus 30 buys per user on zipf(1.3) items, and 30
             views per user from their own stream, into the port's
             ``MemoryEventStore``.
-17. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
+18. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
             the card at the template defaults (50 correlators, 100 query
             events): every table finite, and equal to the same block train
             on the CPU for three blocks of 1,024 items per indicator
             within the LLR tolerance (atol = 16 eps N ln N; indices equal
             outside tie groups). Prints read, indicator build, counts and
             LLR + top-n seconds.
-18. ur serve the card-trained model behind the port's ``QueryServer``;
+19. ur serve the card-trained model behind the port's ``QueryServer``;
             16 client threads send 500 UR queries (mostly exclude_seen,
             20 % blacklists, unknown users, view-only users added after
             the train). Every answer must equal ``_predict_batch`` on a
             CPU copy of the model; masked kernel launches, and those of
             its select route, must equal device batches.
-19. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
+20. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
             {1, 64}: the kernel (its launches per call, which must equal
             its route's, and its time on the card alone, both by
             ``torch.profiler``), its plain version,
             ``torch.topk`` over
             ``torch.where(mask, NEG_INF, scores)`` as a yardstick the port
             never calls, the bound, and the history scoring outside it.
-20. report  one ``{"kernels": [...]}`` line, then the device line last.
+21. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import http.client
 import json
@@ -177,14 +212,23 @@ try:
     from predictionio_tpu_torch.core.base import RuntimeContext
     from predictionio_tpu_torch.data.event import Event
     from predictionio_tpu_torch.data.storage.base import App
-    from predictionio_tpu_torch.controller import deserialize_models
+    from predictionio_tpu_torch.controller import (
+        EngineParams,
+        EngineParamsGenerator,
+        Evaluation,
+        MetricEvaluator,
+        deserialize_models,
+    )
     from predictionio_tpu_torch.data.storage.registry import Storage, StorageConfig
     from predictionio_tpu_torch.data.store.bimap import BiMap
     from predictionio_tpu_torch.engines.recommendation.engine import (
         ALSAlgorithm,
         ALSAlgorithmParams,
         ALSModel,
+        DataSourceParams,
+        PrecisionAtK,
         RecommendationDataSource,
+        RecommendationEngine,
         TrainingData,
     )
     from predictionio_tpu_torch.engines.universal.engine import (
@@ -261,6 +305,11 @@ LOOP_USER_DEGREES, LOOP_ITEM_DEGREES = (20, 2_314), (1, 3_428)
 LOOP_APP = "ml1m"
 LOOP_T0_MS = 956_703_932_000  # ML-1M's first rating time, epoch ms
 LOOP_UNKNOWN_USERS = 20  # queries for users with no events, after the 500
+# the recommendation template's tuning example over the loop's app
+EVAL_FOLDS, EVAL_NUM, EVAL_THRESHOLD, EVAL_PRECISION_K = 5, 10, 4.0, 10
+EVAL_GRID = tuple((rank, iterations, lam) for rank in (10, 20)
+                  for iterations in (20, 40) for lam in (0.01, 0.1))
+EVAL_HELD_POINTS = (0, 4)  # rank 10 and rank 20: answers held to the CPU's
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 LOOP_DIR = Path(__file__).resolve().parent / "build" / "loop"
 
@@ -698,36 +747,30 @@ class _PlainPasses:
         df.fused_row_pass, df.fused_col_pass = self.saved
 
 
-class _Observed:
-    """Around a main-path train: time the dense gate and keep the staged
-    train that `als.<stage>` builds, so that neither runs a second time
-    for the breakdown and the plain comparison."""
+class _Spy:
+    """`owner.name` wrapped while the block runs: each call's seconds,
+    positional arguments and result, in call order. Around a main-path
+    run it times a step (the dense gate) and keeps what a step built (the
+    staged train), so that neither runs a second time for the breakdown
+    and the plain comparison."""
 
-    def __init__(self, stage="stage_dense"):
-        self.stage = stage
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, []
 
     def __enter__(self):
-        self.saved = (als.dense_eligible, getattr(als, self.stage))
-        gate, stage = self.saved
-        self.staged = None
+        self.fn = getattr(self.owner, self.name)
 
-        def timed_gate(*args, **kwargs):
+        def spy(*args, **kwargs):
             t0 = time.perf_counter()
-            out = gate(*args, **kwargs)
-            self.gate_s = time.perf_counter() - t0
+            out = self.fn(*args, **kwargs)
+            self.calls.append((time.perf_counter() - t0, args, out))
             return out
 
-        def kept_stage(*args, **kwargs):
-            self.staged = stage(*args, **kwargs)
-            return self.staged
-
-        als.dense_eligible = timed_gate
-        setattr(als, self.stage, kept_stage)
+        setattr(self.owner, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        als.dense_eligible = self.saved[0]
-        setattr(als, self.stage, self.saved[1])
+        setattr(self.owner, self.name, self.fn)
 
 
 def _corr(a, b):
@@ -744,7 +787,7 @@ def phase_train(report, shared):
     td.sanity_check()
     params = ALSAlgorithmParams(num_iterations=TRAIN_ITERATIONS)  # template defaults
     df.PASS_LAUNCHES.update(row=0, col=0)  # every count to 0 just before the main path
-    with _Observed() as seen:
+    with _Spy(als, "dense_eligible") as gate, _Spy(als, "stage_dense") as stage:
         t0 = time.perf_counter()
         model = ALSAlgorithm(params).train(RuntimeContext(), td)
         train_s = time.perf_counter() - t0
@@ -761,7 +804,8 @@ def phase_train(report, shared):
     del model
 
     # breakdown and the plain comparison, from the main path's staging
-    staged, gate_s = seen.staged, seen.gate_s
+    [(gate_s, _, _)], [(_, _, staged)] = gate.calls, stage.calls
+    del gate, stage
     check(staged.dense_dtype == "int8" and staged.static_kwargs["scale"] == 2.0,
           "staging did not pick int8, s=2")
     torch.cuda.synchronize()
@@ -775,7 +819,7 @@ def phase_train(report, shared):
         puf, pitf = staged.factors(*staged.run())
         plain_s = time.perf_counter() - t0
     host_prep_s, densify_s = staged.host_prep_sec, staged.transfer_sec
-    del staged, seen
+    del staged
     cu, ci = _corr(f.user_factors, puf), _corr(f.item_factors, pitf)
     du = float(np.abs(f.user_factors - puf).max())
     di = float(np.abs(f.item_factors - pitf).max())
@@ -1256,6 +1300,33 @@ class _Deploy:
         self.log.close()
 
 
+class _loop_storage:
+    """The loop's storage under ``build/loop/store`` (sqlite events and
+    metadata, model files), named by PIO_FS_BASEDIR and the
+    PIO_STORAGE_* variables while the block runs."""
+
+    def __enter__(self):
+        store = LOOP_DIR / "store"
+        env = {"PIO_FS_BASEDIR": str(store),
+               "PIO_STORAGE_SOURCES_LOOPDB_TYPE": "sqlite",
+               "PIO_STORAGE_SOURCES_LOOPDB_PATH": str(store / "pio.db"),
+               "PIO_STORAGE_SOURCES_LOOPFS_TYPE": "localfs",
+               "PIO_STORAGE_SOURCES_LOOPFS_PATH": str(store),
+               "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "LOOPDB",
+               "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOOPDB",
+               "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "LOOPFS"}
+        self.saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def phase_loop(report, shared):
     """The zero-to-aha loop at ML-1M's width: `console app new`, `import`
     and `train --engine-json` in this process, then `deploy
@@ -1269,26 +1340,9 @@ def phase_loop(report, shared):
     events_path = LOOP_DIR / "events.jsonl"
     _write_events(events_path, users, items, ratings, times)
     data_s = time.perf_counter() - t0
-    store = LOOP_DIR / "store"
-    env = {"PIO_FS_BASEDIR": str(store),
-           "PIO_STORAGE_SOURCES_LOOPDB_TYPE": "sqlite",
-           "PIO_STORAGE_SOURCES_LOOPDB_PATH": str(store / "pio.db"),
-           "PIO_STORAGE_SOURCES_LOOPFS_TYPE": "localfs",
-           "PIO_STORAGE_SOURCES_LOOPFS_PATH": str(store),
-           "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "LOOPDB",
-           "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOOPDB",
-           "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "LOOPFS"}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    store.mkdir()
-    try:
+    (LOOP_DIR / "store").mkdir()
+    with _loop_storage():
         _loop_run(report, users, items, ratings, events_path, data_s)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     report["loop"]["phase_s"] = time.perf_counter() - t_phase
     loop = report["loop"]
     smi = report["nvidia_smi"]
@@ -1325,7 +1379,7 @@ def _loop_run(report, users, items, ratings, events_path, data_s):
     RecommendationDataSource._frame = kept_frame
     df.PASS_LAUNCHES.update(row=0, col=0)  # every count to 0 just before the main path
     try:
-        with _Observed() as seen:
+        with _Spy(als, "stage_dense") as stage:
             t0 = time.perf_counter()
             rc = console.main(["train", "--engine-json", str(engine_json)])
             train_wall_s = time.perf_counter() - t0
@@ -1341,10 +1395,10 @@ def _loop_run(report, users, items, ratings, events_path, data_s):
     check(launches["row"] == launches["col"] == params.num_iterations,
           f"pass kernel launches {launches} != one row and one col pass per "
           f"iteration ({params.num_iterations})")
-    check(isinstance(seen.staged, als.StagedDenseTrain),
-          f"the train staged {type(seen.staged).__name__}, not StagedDenseTrain")
-    staged_dtype = seen.staged.dense_dtype
-    del seen
+    staged = [out for *_, out in stage.calls]
+    check(len(staged) == 1, f"the train staged a dense train {len(staged)} times")
+    staged_dtype = staged[0].dense_dtype
+    del stage, staged
     [model] = deserialize_models(storage.get_model_data_models().get(inst.id).models)
     check(type(model) is ALSModel, f"MODELDATA holds {type(model).__name__}")
     f = model.factors
@@ -1447,7 +1501,268 @@ def _loop_run(report, users, items, ratings, events_path, data_s):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: ML-25M-width ratings, the windowed path's configuration
+# phase 10: pio eval over the loop's storage
+# ---------------------------------------------------------------------------
+
+
+def _eval_params():
+    """The tuning grid's EngineParams, in EVAL_GRID's order."""
+    ds = ("", DataSourceParams(app_name=LOOP_APP, event_names=("rate",),
+                               eval_k=EVAL_FOLDS, goal_threshold=EVAL_THRESHOLD,
+                               eval_num=EVAL_NUM))
+    return [EngineParams(data_source_params=ds, algorithm_params_list=(("als", ALSAlgorithmParams(
+        rank=rank, num_iterations=iterations, lambda_=lam)),))
+        for rank, iterations, lam in EVAL_GRID]
+
+
+if _IMPORT_ERROR is None:
+    class EvalML1M(Evaluation):
+        """What `console eval run` loads by its import path."""
+
+        engine = RecommendationEngine().apply()
+        metric = PrecisionAtK(k=EVAL_PRECISION_K)
+        output_path = str(LOOP_DIR / "best.json")
+
+    class EvalGrid(EngineParamsGenerator):
+        engine_params_list = _eval_params()
+
+
+def _bit_equal(a, b):
+    return (np.array_equal(a.user_factors, b.user_factors)
+            and np.array_equal(a.item_factors, b.item_factors))
+
+
+def _finite(f):
+    return bool(np.isfinite(f.user_factors).all() and np.isfinite(f.item_factors).all())
+
+
+def phase_eval(report, shared):
+    """`console eval run` over the loop's storage on the card, then the
+    checks on fold 0 and the forced-dense grid."""
+    t_phase = time.perf_counter()
+    n_points = len(EVAL_GRID)
+    spies = [_Spy(RecommendationDataSource, "read_eval"), _Spy(als, "stage_windowed"),
+             _Spy(als, "stage_dense"), _Spy(als, "train_grid"), _Spy(als, "train"),
+             _Spy(ALSAlgorithm, "batch_predict"), _Spy(MetricEvaluator, "evaluate")]
+    reads, staged_w, staged_d, grids, serial, predicts, metrics = spies
+    with _loop_storage():
+        with contextlib.ExitStack() as stack:
+            for spy in spies:
+                stack.enter_context(spy)
+            rec.LAUNCHES = 0  # every count to 0 just before the main path
+            rec.ROUTE_LAUNCHES.update(select=0, sort=0)
+            wf.BLOCK_LAUNCHES.update(partials=0, combine=0)
+            df.PASS_LAUNCHES.update(row=0, col=0)
+            rc = console.main(["eval", "run", f"{__name__}.EvalML1M", f"{__name__}.EvalGrid"])
+            launches = {"topk": rec.LAUNCHES, "topk_select": rec.ROUTE_LAUNCHES["select"],
+                        **wf.BLOCK_LAUNCHES, **df.PASS_LAUNCHES}
+        check(rc == 0, f"eval run exited {rc}")
+        [row] = Storage().get_meta_data_evaluation_instances().get_all()
+    check(row.status == "EVALCOMPLETED", f"evaluation instance {row.status}")
+    check(bool(row.evaluator_results and row.evaluator_results_html),
+          "the instance lacks the one-liner or the HTML")
+    result = json.loads(row.evaluator_results_json)
+    scores = [s["score"] for s in result["scores"]]
+    check(len(scores) == n_points and row.env.get("grid_points") == str(n_points),
+          f"{len(scores)} scores, grid_points {row.env.get('grid_points')}")
+    best_path = Path(EvalML1M.output_path)
+    check(best_path.is_file()
+          and json.loads(best_path.read_text()) == result["bestEngineParams"],
+          "best.json missing or not the instance's best engine params")
+
+    # the grid path: one train_grid and one windowed staging a fold
+    check(len(grids.calls) == EVAL_FOLDS, f"train_grid ran {len(grids.calls)} times")
+    check(len(staged_w.calls) == EVAL_FOLDS and not staged_d.calls
+          and all(isinstance(out, als.StagedWindowedTrain) for *_, out in staged_w.calls),
+          f"stagings: {len(staged_w.calls)} windowed, {len(staged_d.calls)} dense")
+    check(not serial.calls, f"{len(serial.calls)} grid points trained serially")
+    iterations = sum(it for _, it, _ in EVAL_GRID)
+    want = EVAL_FOLDS * 2 * iterations
+    check(launches["partials"] == launches["combine"] == want,
+          f"windowed launches {launches} != 2 x iterations x folds ({want})")
+    check(launches["topk"] == launches["topk_select"] == EVAL_FOLDS * n_points,
+          f"top-k launches {launches} != one select a (fold, point)")
+    check(launches["row"] == launches["col"] == 0, "a dense pass ran on the windowed route")
+    check(all(_finite(f) for *_, out in grids.calls for f in out), "non-finite factors")
+    [(read_s, _, folds)] = reads.calls
+    answers = [out for *_, out in predicts.calls]  # fold-major, point-minor
+    check(len(answers) == EVAL_FOLDS * n_points, f"{len(answers)} batch predicts")
+    check(all(args[2].device == torch.device("cuda:0") for _, args, _ in predicts.calls),
+          "a grid model is not on the card")
+
+    # every point's Precision@k, recomputed on the host from its answers
+    for i in range(n_points):
+        per = []
+        for f, (_, _, qa) in enumerate(folds):
+            preds = dict(answers[f * n_points + i])
+            for qx, (_, actual) in enumerate(qa):
+                if actual.items:
+                    top = {s.item for s in preds[qx].item_scores[:EVAL_PRECISION_K]}
+                    per.append(len(top & set(actual.items)) / EVAL_PRECISION_K)
+        check(float(np.mean(per)) == scores[i],
+              f"point {i}: Precision@{EVAL_PRECISION_K} {scores[i]} != {np.mean(per)} "
+              "recomputed from its answers")
+
+    # fold 0: each point bit-equal to a serial train; the answers of
+    # point 0 (rank 10) and point 4 (rank 20) equal to the plain top-k
+    # on the CPU over the same factors
+    td0 = folds[0][0]
+    grid0 = grids.calls[0][2]
+    ctx = RuntimeContext()
+    for n, ((rank, it, lam), got) in enumerate(zip(EVAL_GRID, grid0)):
+        ref = ALSAlgorithm(ALSAlgorithmParams(rank=rank, num_iterations=it, lambda_=lam)
+                           ).train(ctx, td0).factors
+        check(_bit_equal(got, ref), f"fold 0 point {n}: train_grid != a serial train")
+    queries0 = predicts.calls[0][1][3]
+    for n in EVAL_HELD_POINTS:
+        cpu = ALSAlgorithm(ALSAlgorithmParams(rank=EVAL_GRID[n][0])).batch_predict(
+            None, ALSModel(grid0[n], device="cpu"), queries0)
+        check(cpu == answers[n],
+              f"fold 0 point {n}: answers differ from the plain top-k on the CPU")
+
+    dense_run = _eval_dense(td0)
+    held = _eval_kernels_held(staged_w.calls[0][2], dense_run["staged"])
+
+    smi = report["nvidia_smi"]
+    staging_s = [t for t, *_ in staged_w.calls]
+    grid_s = [t for t, *_ in grids.calls]
+    predict_s = [t for t, *_ in predicts.calls]
+    ev = report["eval"] = {
+        "folds": EVAL_FOLDS, "grid": EVAL_GRID, "precision_k": EVAL_PRECISION_K,
+        "train_edges": [len(td.rows) for td, _, _ in folds],
+        "queries": [len(qa) for _, _, qa in folds],
+        "read_eval_s": read_s, "staging_s": staging_s,
+        "staging_host_prep_s": [out.host_prep_sec for *_, out in staged_w.calls],
+        "train_grid_s": grid_s, "batch_predict_s": predict_s,
+        "metric_s": metrics.calls[0][0], "eval_wall_sec": float(row.env["eval_wall_sec"]),
+        "scores": scores, "best_index": result["bestIndex"], "best_score": result["bestScore"],
+        "instance": row.id, "launches": launches,
+        "dense": {k: v for k, v in dense_run.items() if k != "staged"},
+        "held": held,
+        "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi,
+    }
+    print(f"[eval] {smi} | {EVAL_FOLDS} folds of ~{ev['train_edges'][0]} training edges, "
+          f"{min(ev['queries'])}-{max(ev['queries'])} queries a fold: read_eval "
+          f"{read_s:.2f} s", flush=True)
+    print(f"[eval] {smi} | staging s per fold "
+          f"{', '.join(f'{t:.3f}' for t in staging_s)}; train_grid s per fold (staging "
+          f"included) {', '.join(f'{t:.3f}' for t in grid_s)}", flush=True)
+    print(f"[eval] {smi} | batch_predict s per model: min {min(predict_s):.4f}, median "
+          f"{statistics.median(predict_s):.4f}, max {max(predict_s):.4f} "
+          f"({len(predict_s)} models); metric {ev['metric_s']:.3f} s; eval_wall_sec "
+          f"{ev['eval_wall_sec']:.3f}", flush=True)
+    for (rank, it, lam), score in zip(EVAL_GRID, scores):
+        print(f"[eval] {smi} | rank {rank}, iterations {it}, lambda {lam}: "
+              f"Precision@{EVAL_PRECISION_K} {score}", flush=True)
+    rank, it, lam = EVAL_GRID[ev["best_index"]]
+    dn = ev["dense"]
+    print(f"[eval] {smi} | best: point {ev['best_index']} (rank {rank}, iterations {it}, "
+          f"lambda {lam}), {ev['best_score']}; forced-dense batch_eval of fold 0 "
+          f"{dn['batch_eval_s']:.2f} s (read_eval {dn['read_eval_s']:.2f} s, train_grid "
+          f"{dn['train_grid_s']:.2f} s, staging {dn['staging_s']:.3f} s); phase "
+          f"{ev['phase_s']:.1f} s", flush=True)
+    w, d = held["windowed"], held["dense"]
+    print(f"[eval] at the eval's shapes (fold 0, K = {held['ranks']}): block_partials + "
+          f"combine {w['cases']} cases, largest |kernel - plain| / (1e-5*S) "
+          f"{w['max_ratio']:.3g} / combined {w['combined_max_ratio']:.3g}; row pass "
+          f"{d['row']['cases']} and col pass {d['col']['cases']} cases on the staged int8 "
+          f"R {held['dense_r']}, {d['row']['max_ratio']:.3g} / {d['col']['max_ratio']:.3g}; "
+          f"scored top-k answers of points {list(EVAL_HELD_POINTS)} equal to the CPU's",
+          flush=True)
+
+
+def _eval_dense(td0):
+    """The forced-dense grid through the engine: `batch_eval` of the
+    tuning grid on fold 0 (`fold_indices`) with PIO_DENSE_ALS=1, counts
+    from 0 around it; then the checks on its staging, launches, factors
+    (each bit-equal to a serial forced-dense `ALSAlgorithm.train`) and
+    answers."""
+    n_points = len(EVAL_GRID)
+    saved = os.environ.get("PIO_DENSE_ALS")
+    os.environ["PIO_DENSE_ALS"] = "1"
+    try:
+        with _loop_storage(), contextlib.ExitStack() as stack:
+            sd, sw, grids, reads = (stack.enter_context(_Spy(owner, name)) for owner, name in (
+                (als, "stage_dense"), (als, "stage_windowed"), (als, "train_grid"),
+                (RecommendationDataSource, "read_eval")))
+            ctx = RuntimeContext(storage=Storage(), mode="eval")
+            rec.LAUNCHES = 0  # every count to 0 just before the main path
+            rec.ROUTE_LAUNCHES.update(select=0, sort=0)
+            wf.BLOCK_LAUNCHES.update(partials=0, combine=0)
+            df.PASS_LAUNCHES.update(row=0, col=0)
+            t0 = time.perf_counter()
+            out = EvalML1M.engine.batch_eval(ctx, EvalGrid.engine_params_list,
+                                             fold_indices=[0])
+            batch_s = time.perf_counter() - t0
+            launches = {"topk": rec.LAUNCHES, "topk_select": rec.ROUTE_LAUNCHES["select"],
+                        **wf.BLOCK_LAUNCHES, **df.PASS_LAUNCHES}
+        check(len(sd.calls) == 1 and not sw.calls and sd.calls[0][2].dense_dtype == "int8",
+              f"dense grid stagings: {len(sd.calls)} dense, {len(sw.calls)} windowed")
+        check(len(grids.calls) == 1, f"dense train_grid ran {len(grids.calls)} times")
+        iterations = sum(it for _, it, _ in EVAL_GRID)
+        check(launches["row"] == launches["col"] == iterations,
+              f"dense pass launches {launches} != {iterations}")
+        check(launches["partials"] == launches["combine"] == 0,
+              "a windowed pass ran on the dense route")
+        check(launches["topk"] == launches["topk_select"] == n_points,
+              f"dense top-k launches {launches} != one select a point")
+        check([ep for ep, _ in out] == list(EvalGrid.engine_params_list)
+              and all([ei.fold for ei, _ in sets] == [0] for _, sets in out),
+              "the dense batch_eval did not answer fold 0 for every point")
+        td = reads.calls[0][2][0][0]
+        check(all(np.array_equal(getattr(td, a), getattr(td0, a))
+                  for a in ("rows", "cols", "vals")), "fold 0 read twice differs")
+        check(all(np.isfinite(s.score) for _, sets in out for _, qpa in sets
+                  for _, p, _ in qpa for s in p.item_scores), "non-finite dense scores")
+        ctx = RuntimeContext()
+        for n, ((rank, it, lam), got) in enumerate(zip(EVAL_GRID, grids.calls[0][2])):
+            check(_finite(got), f"dense point {n}: non-finite factors")
+            ref = ALSAlgorithm(ALSAlgorithmParams(rank=rank, num_iterations=it, lambda_=lam)
+                               ).train(ctx, td0).factors
+            check(_bit_equal(got, ref), f"dense point {n}: train_grid != a serial train")
+    finally:
+        if saved is None:
+            os.environ.pop("PIO_DENSE_ALS", None)
+        else:
+            os.environ["PIO_DENSE_ALS"] = saved
+    return {"staged": sd.calls[0][2], "staging_s": sd.calls[0][0],
+            "read_eval_s": reads.calls[0][0], "train_grid_s": grids.calls[0][0],
+            "batch_eval_s": batch_s, "launches": launches}
+
+
+def _eval_kernels_held(staged_w, staged_d):
+    """block_partials with the combine on fold 0's two windowed plans, and
+    the row and col passes on the forced-dense grid's staged int8 R, at
+    each rank of the grid, held to their plain versions on the card as
+    phases 5 and 12 hold them (the scored top-k is held by the answers)."""
+    rng = np.random.default_rng(SEED + 10)
+    ranks = sorted({rank for rank, _, _ in EVAL_GRID})
+    w_tally = {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
+               "combined_max_abs_err": 0.0, "combined_max_ratio": 0.0}
+    d_tally = {w: {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0} for w in ("row", "col")}
+    args, kw = staged_w.device_args, staged_w.static_kwargs
+    sides = (("users", args[0:5], kw["n_item_windows"], kw["n_user_windows"]),
+             ("items", args[5:10], kw["n_user_windows"], kw["n_item_windows"]))
+    r, dkw = staged_d.device_args[0], staged_d.static_kwargs
+    ascale = float(np.float32(dkw["alpha"] / dkw["scale"]))
+    for k in ranks:
+        for name, (src, val, ok, loc, bwin), src_windows, n_windows in sides:
+            w_b, w_g = _implicit_weights(val, ok, kw["alpha"])
+            f = torch.from_numpy((rng.standard_normal((src_windows * win.WINDOW_ROWS, k))
+                                  / np.sqrt(k)).astype(np.float32)).cuda()
+            _windowed_compare((f, src, w_b.contiguous(), w_g.contiguous(), loc), bwin,
+                              n_windows, w_tally, f"eval fold 0 {name} plan K={k}")
+        for which, n_side in (("row", r.shape[1]), ("col", r.shape[0])):
+            x = torch.from_numpy((rng.standard_normal((n_side, k))
+                                  / np.sqrt(k)).astype(np.float32)).cuda()
+            _dense_compare(r, x, ascale, True, which, d_tally,
+                           f"eval fold 0 int8 R {tuple(r.shape)} {which} K={k}")
+    return {"ranks": ranks, "windowed": w_tally, "dense": d_tally,
+            "dense_r": list(r.shape)}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: ML-25M-width ratings, the windowed path's configuration
 # ---------------------------------------------------------------------------
 
 
@@ -1538,7 +1853,7 @@ def phase_data25(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the windowed pass kernels vs their plain versions on the card
+# phase 12: the windowed pass kernels vs their plain versions on the card
 # ---------------------------------------------------------------------------
 
 
@@ -1650,7 +1965,7 @@ def phase_windowed(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the windowed path, trained through ALSAlgorithm.train
+# phase 13: the windowed path, trained through ALSAlgorithm.train
 # ---------------------------------------------------------------------------
 
 
@@ -1678,7 +1993,7 @@ def phase_windowed_train(report, shared):
     params = ALSAlgorithmParams(num_iterations=TRAIN_ITERATIONS)  # template defaults
     wf.BLOCK_LAUNCHES.update(partials=0, combine=0)  # counts to 0 just before
     df.PASS_LAUNCHES.update(row=0, col=0)
-    with _Observed("stage_windowed") as seen:
+    with _Spy(als, "dense_eligible") as gate, _Spy(als, "stage_windowed") as stage:
         t0 = time.perf_counter()
         model = ALSAlgorithm(params).train(RuntimeContext(), td)
         train_s = time.perf_counter() - t0
@@ -1686,7 +2001,8 @@ def phase_windowed_train(report, shared):
     dense_launches = dict(df.PASS_LAUNCHES)
     f = model.factors
     del model
-    staged = seen.staged
+    [(gate_s, _, _)], [(_, _, staged)] = gate.calls, stage.calls
+    del gate, stage
     check(isinstance(staged, als.StagedWindowedTrain),
           f"the train staged {type(staged).__name__}, not StagedWindowedTrain")
     want = 2 * TRAIN_ITERATIONS  # one pass and one combine per half-step
@@ -1713,8 +2029,7 @@ def phase_windowed_train(report, shared):
     check(cu > 0.9999 and ci > 0.9999,
           f"kernel vs plain train: corrcoef users {cu}, items {ci}")
     host_prep_s, transfer_s = staged.host_prep_sec, staged.transfer_sec
-    gate_s = seen.gate_s
-    del staged, seen
+    del staged
     torch.cuda.empty_cache()
 
     # train → deploy: the blob ``console train`` writes, loaded as
@@ -1755,7 +2070,7 @@ def phase_windowed_train(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the rank > 32 scatter path on the card
+# phase 14: the rank > 32 scatter path on the card
 # ---------------------------------------------------------------------------
 
 
@@ -1818,7 +2133,7 @@ def phase_scatter(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: windowed pass times
+# phase 15: windowed pass times
 # ---------------------------------------------------------------------------
 
 
@@ -1935,7 +2250,7 @@ def _partials_at_max_rank(rng, p, side, n_src, edges):
 
 
 # ---------------------------------------------------------------------------
-# phases 15-19: the Universal Recommender (CCO train, history scoring,
+# phases 16-20: the Universal Recommender (CCO train, history scoring,
 # the masked top-k kernel)
 # ---------------------------------------------------------------------------
 
@@ -2421,7 +2736,7 @@ def main() -> int:
                         ("dense", phase_dense), ("train", phase_train),
                         ("serve", phase_serve), ("times", phase_times),
                         ("dense times", phase_dense_times),
-                        ("loop", phase_loop),
+                        ("loop", phase_loop), ("eval", phase_eval),
                         ("data25", phase_data25), ("windowed", phase_windowed),
                         ("windowed train", phase_windowed_train),
                         ("scatter", phase_scatter),
@@ -2438,9 +2753,29 @@ def main() -> int:
     report["seconds"] = time.perf_counter() - t_start
     main_row = next(r for r in report["times"]
                     if r["dtype"] == "f32" and r["B"] == 64)
+    ev = report["eval"]["launches"]  # console eval run
+    evd = report["eval"]["dense"]["launches"]  # Engine.batch_eval, forced dense
+    held = report["eval"]["held"]  # the eval's shapes against the plain versions
+    paths = {  # each main path's launches, counted from 0 around it
+        "fused_recommend_topk": {"serve": report["serve"]["launches"],
+                                 "loop": report["loop"]["launches"]["serve_topk"],
+                                 "eval": ev["topk"], "eval dense": evd["topk"]},
+        "row": {"train": report["train"]["launches"]["row"],
+                "loop": report["loop"]["launches"]["row"],
+                "eval dense": evd["row"]},
+        "col": {"train": report["train"]["launches"]["col"],
+                "loop": report["loop"]["launches"]["col"],
+                "eval dense": evd["col"]},
+        "block_partials": {"windowed train": report["windowed_train"]["launches"]["partials"],
+                           "eval": ev["partials"]},
+        "combine": {"windowed train": report["windowed_train"]["launches"]["combine"],
+                    "eval": ev["combine"]},
+        "fused_masked_topk": {"ur serve": report["ur_serve"]["launches"]},
+    }
     kernels = [{
         "name": "fused_recommend_topk", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": report["serve"]["launches"],
+        "replaces": REPLACES, "launches": sum(paths["fused_recommend_topk"].values()),
+        "launches_by_path": paths["fused_recommend_topk"],
         "max_abs_err": report["sweep"]["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2453,8 +2788,9 @@ def main() -> int:
         kernels.append({
             "name": f"fused_{which}_pass", "route": "cuda",
             "source": DENSE_SOURCE, "replaces": DENSE_REPLACES[which],
-            "launches": report["train"]["launches"][which],
-            "max_abs_err": report["dense_sweep"][which]["max_abs_err"],
+            "launches": sum(paths[which].values()), "launches_by_path": paths[which],
+            "max_abs_err": max(report["dense_sweep"][which]["max_abs_err"],
+                               held["dense"][which]["max_abs_err"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
@@ -2463,18 +2799,21 @@ def main() -> int:
     kernels.append({
         "name": "block_partials", "route": "cuda", "source": WINDOWED_SOURCE,
         "replaces": WINDOWED_REPLACES,
-        "launches": report["windowed_train"]["launches"]["partials"],
-        "max_abs_err": report["windowed_sweep"]["max_abs_err"],
+        "launches": sum(paths["block_partials"].values()),
+        "launches_by_path": paths["block_partials"],
+        "max_abs_err": max(report["windowed_sweep"]["max_abs_err"],
+                           held["windowed"]["max_abs_err"]),
         "ms": users_side["ms"], "plain_ms": users_side["plain_ms"],
         "bound_ms": users_side["bound_ms"], "bound_by": users_side["bound_by"],
         "library_ms": users_side["library_ms"],
         "combine_ms": users_side["combine_ms"],
-        "combine_launches": report["windowed_train"]["launches"]["combine"],
+        "combine_launches": sum(paths["combine"].values()),
     })
     ur_row = next(r for r in report["ur_times"] if r["B"] == 64)
     kernels.append({
         "name": "fused_masked_topk", "route": "cuda", "source": SOURCE,
-        "replaces": MASKED_REPLACES, "launches": report["ur_serve"]["launches"],
+        "replaces": MASKED_REPLACES, "launches": sum(paths["fused_masked_topk"].values()),
+        "launches_by_path": paths["fused_masked_topk"],
         "max_abs_err": report["ur_sweep"]["max_abs_err"],
         "ms": ur_row["ms"], "plain_ms": ur_row["plain_ms"],
         "bound_ms": ur_row["bound_ms"], "bound_by": ur_row["bound_by"],

@@ -1,5 +1,6 @@
 """The user-facing DASE SDK of the port (the JAX package's
-``controller``, without evaluation, metrics and fast eval)."""
+``controller``: stages, engines, params, persistence, evaluation,
+metrics and fast eval)."""
 
 from predictionio_tpu_torch.controller.dase import (
     Algorithm,
@@ -16,6 +17,23 @@ from predictionio_tpu_torch.controller.engine import (
     EngineParams,
     SimpleEngine,
     resolve_engine,
+)
+from predictionio_tpu_torch.controller.evaluation import (
+    EngineParamsGenerator,
+    Evaluation,
+    MetricEvaluator,
+    MetricEvaluatorResult,
+)
+from predictionio_tpu_torch.controller.fast_eval import FastEvalEngine
+from predictionio_tpu_torch.controller.metrics import (
+    AverageMetric,
+    Metric,
+    OptionAverageMetric,
+    OptionStdevMetric,
+    QPAMetric,
+    StdevMetric,
+    SumMetric,
+    ZeroMetric,
 )
 from predictionio_tpu_torch.controller.params import (
     EmptyParams,
@@ -43,26 +61,39 @@ from predictionio_tpu_torch.core.base import (
 
 __all__ = [
     "Algorithm",
+    "AverageMetric",
     "AverageServing",
     "DataSource",
     "EmptyParams",
     "Engine",
     "EngineFactory",
     "EngineParams",
+    "EngineParamsGenerator",
+    "Evaluation",
+    "FastEvalEngine",
     "FirstServing",
     "IdentityPreparator",
+    "Metric",
+    "MetricEvaluator",
+    "MetricEvaluatorResult",
+    "OptionAverageMetric",
+    "OptionStdevMetric",
     "ParamsError",
     "PersistentModel",
     "PersistentModelManifest",
     "Preparator",
+    "QPAMetric",
     "RetrainOnDeploy",
     "RuntimeContext",
     "SanityCheck",
     "Serving",
     "SimpleEngine",
+    "StdevMetric",
     "StopAfterPrepareInterruption",
     "StopAfterReadInterruption",
+    "SumMetric",
     "WorkflowParams",
+    "ZeroMetric",
     "deserialize_models",
     "extract_params",
     "load_persistent_model",

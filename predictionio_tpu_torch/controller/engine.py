@@ -1,12 +1,16 @@
-"""Engine: binds the DASE class maps, trains, and rehydrates for deploy.
+"""Engine: binds the DASE class maps, trains, evaluates, and rehydrates
+for deploy.
 
 Counterpart of the JAX package's ``controller/engine.py`` (reference
 Engine.scala: class:80, train:154, prepareDeploy:196,
-makeSerializableModels:283, jValueToEngineParams:354; EngineParams.scala
-:32, SimpleEngine:127; EngineFactory.scala:28), without eval and grid
-tuning. Stage timings are `time.perf_counter` seconds in
-``ctx.stage_timings``; the JAX package's spans and histograms are not
-ported.
+makeSerializableModels:283, eval:312, jValueToEngineParams:354;
+EngineParams.scala:32, SimpleEngine:127; EngineFactory.scala:28).
+Stage timings are `time.perf_counter` seconds in ``ctx.stage_timings``;
+the JAX package's spans and histograms are not ported.
+
+``batch_eval`` trains a tuning grid through the algorithm's
+``train_grid`` (one staging per fold) when the grid varies only one
+algorithm's params; otherwise it evaluates the points one by one.
 
 Deploy binds every loaded model to the deploy context's device: a model
 serves where it is deployed, never where it was trained.
@@ -17,13 +21,14 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass, replace
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Mapping, Optional, Sequence, Union
 
 from predictionio_tpu_torch.controller.params import (
     EmptyParams,
     ParamsError,
     extract_params,
     params_class_of,
+    params_to_json,
 )
 from predictionio_tpu_torch.controller.persistent import (
     RetrainOnDeploy,
@@ -58,6 +63,22 @@ class EngineParams:
 
     def copy(self, **kw) -> "EngineParams":
         return replace(self, **kw)
+
+
+def _select_folds(eval_sets, fold_indices: Optional[Sequence[int]]):
+    """The eval sets at `fold_indices` (all of them when None). A fold
+    out of range is an error, not an empty evaluation."""
+    if fold_indices is None:
+        return eval_sets
+    sets = list(eval_sets)
+    want = sorted({int(i) for i in fold_indices})
+    bad = [i for i in want if i < 0 or i >= len(sets)]
+    if bad:
+        raise ValueError(
+            f"fold_indices {bad} out of range: datasource yields "
+            f"{len(sets)} eval set(s)"
+        )
+    return [sets[i] for i in want]
 
 
 def _as_classmap(cm: ClassMap) -> Mapping[str, type]:
@@ -194,6 +215,112 @@ class Engine(BaseEngine):
                 bind(ctx.device)
             out.append(m)
         return out
+
+    # -- eval (reference Engine.eval:312, object Engine.eval:727) ---------
+    def eval(
+        self,
+        ctx: RuntimeContext,
+        engine_params: EngineParams,
+        fold_indices: Optional[Sequence[int]] = None,
+    ) -> list[Any]:
+        """Per eval set: prepare, train every algorithm, batch-predict the
+        set's queries per algorithm, and serve each query from the
+        algorithms' predictions (reference Engine.scala:770-811)."""
+        data_source = self.make_data_source(engine_params)
+        preparator = self.make_preparator(engine_params)
+        algorithms = self.make_algorithms(engine_params)
+        serving = self.make_serving(engine_params)
+        eval_sets = _select_folds(data_source.read_eval(ctx), fold_indices)
+        results = []
+        for td, ei, qa in eval_sets:
+            pd = preparator.prepare(ctx, td)
+            models = [algo.train(ctx, pd) for algo in algorithms]
+            supplemented = [
+                (qx, serving.supplement(q)) for qx, (q, _a) in enumerate(qa)
+            ]
+            per_algo = [
+                dict(algo.batch_predict(ctx, model, supplemented))
+                for algo, model in zip(algorithms, models)
+            ]
+            qpa = [
+                (q, serving.serve(q, [pa[qx] for pa in per_algo]), a)
+                for qx, (q, a) in enumerate(qa)
+            ]
+            results.append((ei, qpa))
+        return results
+
+    # -- grid tuning: one staging per fold (the reference's grid is
+    # serial, Engine.scala:758-764) -----------------------------------------
+    def batch_eval(
+        self,
+        ctx: RuntimeContext,
+        engine_params_list,
+        fold_indices: Optional[Sequence[int]] = None,
+    ):
+        eps = list(engine_params_list)
+        if self._grid_batchable(ctx, eps):
+            return self._batch_eval_grid(ctx, eps, fold_indices=fold_indices)
+        return super().batch_eval(ctx, eps, fold_indices=fold_indices)
+
+    def _grid_batchable(self, ctx: RuntimeContext, eps: list) -> bool:
+        """True when the grid has two or more points that differ only in
+        the params of one algorithm, under one name, that has
+        `train_grid`: then each fold trains every point over one staging.
+        (The JAX package also keeps mesh evals serial; the port has no
+        mesh.)"""
+        if len(eps) < 2:
+            return False
+        if any(len(ep.algorithm_params_list) != 1 for ep in eps):
+            return False
+        if len({ep.algorithm_params_list[0][0] for ep in eps}) != 1:
+            return False
+        algo = self.make_algorithms(eps[0])[0]
+        if not callable(getattr(algo, "train_grid", None)):
+            return False
+
+        def shared_key(ep):
+            return tuple(
+                (name, params_to_json(p))
+                for name, p in (
+                    ep.data_source_params,
+                    ep.preparator_params,
+                    ep.serving_params,
+                )
+            )
+
+        key0 = shared_key(eps[0])
+        return all(shared_key(ep) == key0 for ep in eps[1:])
+
+    def _batch_eval_grid(
+        self,
+        ctx: RuntimeContext,
+        eps: list,
+        fold_indices: Optional[Sequence[int]] = None,
+    ):
+        ep0 = eps[0]
+        data_source = self.make_data_source(ep0)
+        preparator = self.make_preparator(ep0)
+        serving = self.make_serving(ep0)
+        algos = [self.make_algorithms(ep)[0] for ep in eps]
+        params_list = [ep.algorithm_params_list[0][1] for ep in eps]
+        eval_sets = _select_folds(list(data_source.read_eval(ctx)), fold_indices)
+        per_ep: list[list] = [[] for _ in eps]
+        for td, ei, qa in eval_sets:
+            pd = preparator.prepare(ctx, td)
+            models = algos[0].train_grid(ctx, pd, params_list)
+            supplemented = [
+                (qx, serving.supplement(q)) for qx, (q, _a) in enumerate(qa)
+            ]
+            for i, model in enumerate(models):
+                preds = dict(algos[i].batch_predict(ctx, model, supplemented))
+                qpa = [
+                    (q, serving.serve(q, [preds[qx]]), a)
+                    for qx, (q, a) in enumerate(qa)
+                ]
+                per_ep[i].append((ei, qpa))
+        log.info("grid eval: %d points x %d folds, one train_grid per fold",
+                 len(eps), len(eval_sets))
+        return list(zip(eps, per_ep))
 
     # -- engine.json → EngineParams (reference jValueToEngineParams:354) ---
     @staticmethod

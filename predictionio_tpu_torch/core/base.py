@@ -6,9 +6,10 @@ BaseServing.scala:28, BaseEngine.scala:35, AbstractDoer.scala:32).
 
 The ambient handle every stage gets is a ``RuntimeContext``: the storage
 to read events from, the mode, and the device to train and serve on
-(None means the first CUDA device, ``device.resolve_device``). The JAX
-mesh, evaluators, the eval half of ``BaseEngine`` and the query
-serializer hook are not ported.
+(None means the first CUDA device, ``device.resolve_device``). The
+evaluator bases and ``BaseEngine``'s eval half (reference
+BaseEvaluator.scala:36, BaseEngine.scala:62-81) are here; the JAX mesh
+and the query serializer hook are not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ M = TypeVar("M")  # model
 Q = TypeVar("Q")  # query
 P = TypeVar("P")  # predicted result
 A = TypeVar("A")  # actual result
+R = TypeVar("R")  # evaluator result
 
 
 @dataclass
@@ -186,11 +188,65 @@ class BaseServing(Generic[Q, P]):
         raise NotImplementedError
 
 
+class BaseEvaluatorResult:
+    """Reference BaseEvaluator.scala:55-72."""
+
+    no_save: bool = False
+
+    def to_one_liner(self) -> str:
+        return ""
+
+    def to_html(self) -> str:
+        return ""
+
+    def to_json(self) -> str:
+        return ""
+
+
+class BaseEvaluator(Generic[EI, Q, P, A, R]):
+    """Reference BaseEvaluator.scala:36-53."""
+
+    def evaluate(
+        self,
+        ctx: RuntimeContext,
+        evaluation: Any,
+        engine_eval_data_set: list[
+            tuple[Any, list[tuple[EI, list[tuple[Q, P, A]]]]]
+        ],
+        params: WorkflowParams,
+    ) -> R:
+        raise NotImplementedError
+
+
 class BaseEngine(Generic[EI, Q, P, A]):
-    """Reference BaseEngine.scala:35-100, without eval."""
+    """Reference BaseEngine.scala:35-100."""
 
     def train(self, ctx: RuntimeContext, engine_params: Any) -> list[Any]:
         raise NotImplementedError
+
+    def eval(
+        self, ctx: RuntimeContext, engine_params: Any
+    ) -> list[tuple[EI, list[tuple[Q, P, A]]]]:
+        """[(eval info, [(query, predicted, actual)])] per eval set; the
+        workflow settings come from ctx.workflow_params."""
+        raise NotImplementedError
+
+    def batch_eval(
+        self,
+        ctx: RuntimeContext,
+        engine_params_list: Sequence[Any],
+        fold_indices: Optional[Sequence[int]] = None,
+    ) -> list[tuple[Any, list[tuple[EI, list[tuple[Q, P, A]]]]]]:
+        """`eval` over the params grid (reference BaseEngine.batchEval:81).
+        `fold_indices` restricts the evaluation to a subset of the data
+        source's eval sets; it is forwarded only when set, so an `eval`
+        override without the parameter keeps working."""
+        if fold_indices is None:
+            return [(ep, self.eval(ctx, ep)) for ep in engine_params_list]
+        return [
+            (ep, self.eval(ctx, ep, fold_indices=fold_indices))
+            for ep in engine_params_list
+        ]
 
     def params_from_variant_json(self, variant: dict) -> Any:
         raise NotImplementedError

@@ -1,13 +1,14 @@
 """Event-store query filter, metadata records and the DAO interfaces.
 
 Counterpart of the JAX package's ``data/storage/base.py``, cut to what
-the port's train → deploy workflow calls: the ``EventQuery`` filters by
-app, entity type, event names and target entity type (no channel, entity
-id, time range, target id, limit, order, keyset cursor or shards); the
-records ``App``, ``EngineInstance``, ``EngineManifest`` and ``Model``
-are the JAX package's field for field; the DAO interfaces are those of
-events, apps, engine instances and models. Access keys, channels,
-evaluation instances and property aggregation are not ported.
+the port's train → deploy and eval workflows call: the ``EventQuery``
+filters by app, entity type, event names and target entity type (no
+channel, entity id, time range, target id, limit, order, keyset cursor
+or shards); the records ``App``, ``EngineInstance``,
+``EvaluationInstance``, ``EngineManifest`` and ``Model`` are the JAX
+package's field for field; the DAO interfaces are those of events,
+apps, engine instances, evaluation instances and models. Access keys,
+channels and property aggregation are not ported.
 """
 
 from __future__ import annotations
@@ -116,6 +117,24 @@ class EngineInstance:
 
 
 @dataclass
+class EvaluationInstance:
+    """One evaluation run's record (reference EvaluationInstances.scala:39):
+    INIT → EVALRUNNING → EVALCOMPLETED, or EVALABORTED."""
+
+    id: str
+    status: str
+    start_time: _dt.datetime
+    end_time: _dt.datetime
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: dict[str, str] = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+
+@dataclass
 class EngineManifest:
     """Reference EngineManifests.scala:34: a registered engine build."""
 
@@ -176,6 +195,21 @@ class EngineInstances(abc.ABC):
 
     @abc.abstractmethod
     def update(self, i: EngineInstance) -> bool: ...
+
+
+class EvaluationInstances(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, i: EvaluationInstance) -> str:
+        """Insert; returns the assigned id."""
+
+    @abc.abstractmethod
+    def get(self, iid: str) -> Optional[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, i: EvaluationInstance) -> bool: ...
 
 
 class Models(abc.ABC):

@@ -1,12 +1,13 @@
-"""In-memory event store, app registry, engine instances and models.
+"""In-memory event store, app registry, engine and evaluation instances
+and models.
 
 Counterpart of the JAX package's ``data/storage/memory.py``, cut to what
 the port calls: the event store's ``init_app``, ``insert``,
 ``insert_batch``, ``find`` and ``find_entities_batch``, the apps, the
-engine-instance rows and the model blobs. One RLock per store; events
-are kept per app with a per-entity index for serving-time history
-reads. Channels, access keys, evaluation instances and engine manifests
-are not ported.
+engine- and evaluation-instance rows and the model blobs. One RLock per
+store; events are kept per app with a per-entity index for serving-time
+history reads. Channels, access keys and engine manifests are not
+ported.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (
     App,
     EngineInstance,
+    EvaluationInstance,
     EventQuery,
     Model,
 )
@@ -167,6 +169,33 @@ class MemoryEngineInstances(base.EngineInstances):
         return out
 
     def update(self, i: EngineInstance) -> bool:
+        with self._lock:
+            if i.id not in self._instances:
+                return False
+            self._instances[i.id] = i
+            return True
+
+
+class MemoryEvaluationInstances(base.EvaluationInstances):
+    def __init__(self, config: Optional[dict] = None):
+        self._lock = threading.RLock()
+        self._instances: dict[str, EvaluationInstance] = {}
+        self._counter = 0
+
+    def insert(self, i: EvaluationInstance) -> str:
+        with self._lock:
+            self._counter += 1
+            iid = i.id or f"evi_{self._counter:08d}_{secrets.token_hex(4)}"
+            self._instances[iid] = replace(i, id=iid)
+            return iid
+
+    def get(self, iid: str) -> Optional[EvaluationInstance]:
+        return self._instances.get(iid)
+
+    def get_all(self) -> list[EvaluationInstance]:
+        return list(self._instances.values())
+
+    def update(self, i: EvaluationInstance) -> bool:
         with self._lock:
             if i.id not in self._instances:
                 return False

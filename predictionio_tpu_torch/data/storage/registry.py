@@ -39,6 +39,7 @@ _DAO_SUFFIXES = {
     "events": "EventStore",
     "apps": "Apps",
     "engine_instances": "EngineInstances",
+    "evaluation_instances": "EvaluationInstances",
     "models": "Models",
 }
 
@@ -169,6 +170,9 @@ class Storage:
 
     def get_meta_data_engine_instances(self) -> base.EngineInstances:
         return self._get_dao("METADATA", "engine_instances")
+
+    def get_meta_data_evaluation_instances(self) -> base.EvaluationInstances:
+        return self._get_dao("METADATA", "evaluation_instances")
 
     def get_model_data_models(self) -> base.Models:
         return self._get_dao("MODELDATA", "models")

@@ -1,14 +1,15 @@
-"""SQLite storage: events, apps and engine instances.
+"""SQLite storage: events, apps, engine and evaluation instances.
 
 Counterpart of the JAX package's ``data/storage/sqlite.py`` (reference
 jdbc/JDBCLEvents.scala, JDBCPEvents.scala, JDBCApps,
-JDBCEngineInstances), cut to what the port's train → deploy workflow
-calls. The tables, their columns and the revision bookkeeping are the
+JDBCEngineInstances, JDBCEvaluationInstances), cut to what the port's
+train → deploy and eval workflows call. The tables, their columns and the revision bookkeeping are the
 JAX package's, so a ``pio.db`` written by either package reads in the
 other: one events table per app, ``events_<appId>`` (reference
-JDBCUtils.eventTableName), and the ``apps`` and ``engineinstances``
-tables. Channels, access keys, evaluation instances, engine manifests,
-model blobs, deletes, tail reads and shard filters are not ported.
+JDBCUtils.eventTableName), and the ``apps``, ``engineinstances`` and
+``evaluationinstances`` tables. Channels, access keys, engine
+manifests, model blobs, event deletes, tail reads and shard filters are
+not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +25,12 @@ import numpy as np
 
 from predictionio_tpu_torch.data.event import Event, new_event_id
 from predictionio_tpu_torch.data.storage import base
-from predictionio_tpu_torch.data.storage.base import App, EngineInstance, EventQuery
+from predictionio_tpu_torch.data.storage.base import (
+    App,
+    EngineInstance,
+    EvaluationInstance,
+    EventQuery,
+)
 
 
 # the properties column's encoding (the JAX package's json.dumps with
@@ -415,6 +421,47 @@ class SqliteEngineInstances(_MetaBase, base.EngineInstances):
         return [self._to_instance(r) for r in rows]
 
     def update(self, i: EngineInstance) -> bool:
+        if self.get(i.id) is None:
+            return False
+        self.insert(i)
+        return True
+
+
+class SqliteEvaluationInstances(_MetaBase, base.EvaluationInstances):
+    DDL = """CREATE TABLE IF NOT EXISTS evaluationinstances (
+        id TEXT PRIMARY KEY, status TEXT, startTime INTEGER, endTime INTEGER,
+        evaluationClass TEXT, engineParamsGeneratorClass TEXT, batch TEXT,
+        env TEXT, evaluatorResults TEXT, evaluatorResultsHTML TEXT,
+        evaluatorResultsJSON TEXT)"""
+
+    def insert(self, i: EvaluationInstance) -> str:
+        iid = i.id or f"evi_{secrets.token_hex(8)}"
+        self._exec(
+            "INSERT OR REPLACE INTO evaluationinstances VALUES (?,?,?,?,?,?,?,?,?,?,?)",
+            (iid, i.status, _ms(i.start_time), _ms(i.end_time), i.evaluation_class,
+             i.engine_params_generator_class, i.batch, json.dumps(i.env),
+             i.evaluator_results, i.evaluator_results_html, i.evaluator_results_json),
+        )
+        return iid
+
+    @staticmethod
+    def _to_instance(r) -> EvaluationInstance:
+        return EvaluationInstance(
+            id=r[0], status=r[1], start_time=_from_ms(r[2]), end_time=_from_ms(r[3]),
+            evaluation_class=r[4], engine_params_generator_class=r[5], batch=r[6],
+            env=json.loads(r[7] or "{}"), evaluator_results=r[8],
+            evaluator_results_html=r[9], evaluator_results_json=r[10],
+        )
+
+    def get(self, iid: str) -> Optional[EvaluationInstance]:
+        rows = self._query("SELECT * FROM evaluationinstances WHERE id=?", (iid,))
+        return self._to_instance(rows[0]) if rows else None
+
+    def get_all(self) -> list[EvaluationInstance]:
+        return [self._to_instance(r)
+                for r in self._query("SELECT * FROM evaluationinstances")]
+
+    def update(self, i: EvaluationInstance) -> bool:
         if self.get(i.id) is None:
             return False
         self.insert(i)

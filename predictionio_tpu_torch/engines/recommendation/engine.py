@@ -7,8 +7,13 @@ Counterpart of the JAX package's ``engines/recommendation/engine.py``
 store as one columnar frame; the file-backed ``FileRatingsDataSource``
 reads ``user::item::rating`` lines. ``ALSAlgorithm.train`` trains
 through ``models/als.py``'s routing (checkpointed segments, warm starts,
-sharded serving, eval and item categories are not ported yet, and a
-variant that asks for one is refused). The model keeps its factor
+sharded serving and item categories are not ported yet, and a variant
+that asks for one is refused). Evaluation follows the template's
+query/actual protocol: ``read_eval`` makes k folds by interaction
+index, each fold's queries ask for the held-out users' top N, and the
+actual result is the held-out items rated at or above the goal
+threshold; ``ALSAlgorithm.train_grid`` trains a tuning grid over one
+staging per fold, and ``PrecisionAtK`` scores it. The model keeps its factor
 matrices resident on its device, so serving is one fused score+top-k
 call per query batch; it pickles without them, and deploy binds it to
 the deploy's device. A model also comes from a factor blob
@@ -34,6 +39,7 @@ from predictionio_tpu_torch.controller import (
     ParamsError,
     SanityCheck,
 )
+from predictionio_tpu_torch.controller.metrics import OptionAverageMetric
 from predictionio_tpu_torch.core.base import RuntimeContext
 from predictionio_tpu_torch.data.store.bimap import BiMap
 from predictionio_tpu_torch.data.store.event_store import EventStoreFacade
@@ -71,15 +77,15 @@ class TrainingData(SanityCheck):
 @dataclass
 class DataSourceParams:
     """All of the JAX package's fields, so that a variant's JSON reads the
-    same; the eval fields are refused at `read_eval`, and the item
-    categories and the data view when they are on."""
+    same; the item categories and the data view are refused when they
+    are on."""
 
     app_name: str
     event_names: tuple[str, ...] = ("rate", "buy")
     rate_event: str = "rate"  # carries a "rating" property; others weigh 1.0
-    eval_k: int = 0  # > 0 enables read_eval with k folds (not ported)
-    goal_threshold: float = 4.0
-    eval_num: int = 20
+    eval_k: int = 0  # > 0 enables read_eval with k folds
+    goal_threshold: float = 4.0  # a rating >= threshold counts as relevant
+    eval_num: int = 20  # top N asked per eval query (>= the metric's k)
     read_item_categories: bool = False  # not ported
     use_data_view: bool = False  # not ported
     data_view_dir: Optional[str] = None
@@ -127,12 +133,43 @@ class RecommendationDataSource(DataSource):
         )
 
     def read_eval(self, ctx: RuntimeContext):
-        if self.params.eval_k <= 0:
+        """k folds by interaction index (fold = idx mod k; reference e2
+        CrossValidation.splitData:21) over `interactions(dedupe="sum")`.
+        Each fold trains on the other folds' interactions; its queries go
+        to the held-out users in ascending user index, each with the
+        held-out items rated at or above `goal_threshold`, in held-out
+        order, as the actual result. A user with no such item gets no
+        query. One stable sort by user groups each fold's held-out
+        edges."""
+        k = self.params.eval_k
+        if k <= 0:
             raise ValueError("eval requires datasource params eval_k > 0")
-        raise ParamsError(
-            "evaluation (DataSourceParams.eval_k > 0) is not ported yet to "
-            "the PyTorch port"
-        )
+        frame = self._frame(ctx)
+        rows, cols, vals = frame.interactions(dedupe="sum")
+        fold_of = np.arange(len(rows)) % k
+        inv_user = frame.entity_vocab.inverse()
+        inv_item = frame.target_vocab.inverse()
+        out = []
+        for fold in range(k):
+            test = fold_of == fold
+            td = TrainingData(
+                rows=rows[~test], cols=cols[~test], vals=vals[~test],
+                n_users=frame.n_entities, n_items=frame.n_targets,
+                user_vocab=frame.entity_vocab, item_vocab=frame.target_vocab,
+            )
+            keep = test & (vals >= self.params.goal_threshold)
+            t_rows, t_cols = rows[keep], cols[keep]
+            order = np.argsort(t_rows, kind="stable")
+            t_rows, t_cols = t_rows[order], t_cols[order]
+            users, starts = np.unique(t_rows, return_index=True)
+            ends = np.append(starts[1:], len(t_rows))
+            qa = [
+                (Query(user=inv_user(int(u)), num=self.params.eval_num),
+                 ActualResult([inv_item(int(c)) for c in t_cols[a:b]]))
+                for u, a, b in zip(users, starts, ends)
+            ]
+            out.append((td, EvalInfo(fold=fold), qa))
+        return out
 
 
 @dataclass
@@ -202,6 +239,18 @@ class ItemScore:
 @dataclass
 class PredictedResult:
     item_scores: list[ItemScore] = field(default_factory=list)
+
+
+@dataclass
+class ActualResult:
+    """Held-out relevant items of an eval query."""
+
+    items: list[str] = field(default_factory=list)
+
+
+@dataclass
+class EvalInfo:
+    fold: int
 
 
 # -- algorithm ----------------------------------------------------------------
@@ -327,6 +376,40 @@ class ALSAlgorithm(Algorithm):
             serve_dtype=self.params.serve_dtype,
             device=device,
         )
+
+    def train_grid(
+        self, ctx: Optional[RuntimeContext], pd: TrainingData, params_list
+    ) -> list[ALSModel]:
+        """A tuning grid trained over one staging (`als.train_grid`) on
+        the context's device, each model bound there with its own
+        point's serving dtype; a grid that `als.train_grid` refuses (a
+        rank above its bound, implicit and explicit points mixed) trains
+        point by point."""
+        device = ctx.device if ctx is not None else None
+        als_list = [
+            als.ALSParams(
+                rank=p.rank,
+                iterations=p.num_iterations,
+                lambda_=p.lambda_,
+                alpha=p.alpha,
+                implicit_prefs=p.implicit_prefs,
+                cg_iterations=p.cg_iterations,
+                seed=p.seed,
+            )
+            for p in params_list
+        ]
+        data = (pd.rows, pd.cols, pd.vals, pd.n_users, pd.n_items)
+        vocabs = dict(user_vocab=pd.user_vocab, item_vocab=pd.item_vocab)
+        try:
+            grid = als.train_grid(*data, als_list, **vocabs, device=device)
+        except ValueError:
+            grid = [als.train(*data, p, **vocabs, device=device)
+                    for p in als_list]
+        return [
+            ALSModel(f, item_categories=pd.item_categories,
+                     serve_dtype=p.serve_dtype, device=device)
+            for p, f in zip(params_list, grid)
+        ]
 
     def warmup(self, model: ALSModel) -> None:
         """Stage the factors on the device and run the serving ladder's
@@ -471,6 +554,26 @@ class ALSAlgorithm(Algorithm):
     def batch_predict(self, ctx, model: ALSModel, queries):
         preds = self._predict_batch(model, [q for _, q in queries])
         return [(qx, p) for (qx, _q), p in zip(queries, preds)]
+
+
+# -- evaluation ---------------------------------------------------------------
+
+
+class PrecisionAtK(OptionAverageMetric):
+    """|top-k ∩ relevant| / k, averaged over the queries with relevant
+    items (the recommendation template's tuning metric)."""
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    def header(self) -> str:
+        return f"Precision@{self.k}"
+
+    def calculate_one(self, q: Query, p: PredictedResult, a: ActualResult):
+        if not a.items:
+            return None
+        top = {s.item for s in p.item_scores[: self.k]}
+        return len(top & set(a.items)) / self.k
 
 
 # -- engine factories ----------------------------------------------------------

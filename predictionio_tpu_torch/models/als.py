@@ -23,6 +23,10 @@ input:
   ``_half_step_explicit``): matrix-free CG over the dst-sorted edge
   list with ``ops.segment``'s gather and ``index_add_`` sums.
 
+``train_grid`` trains a tuning grid over one staging of the data (the
+evaluation workflow's grid path): each point runs the staged loop with
+its own params and equals a serial ``train`` of them bit for bit.
+
 Serving stages the factor matrices on a device once (padded to
 ``ITEM_PAD`` rows, quantized for int8); every verb then sends only the
 row ids and, when filters apply, the packed exclusion words or row
@@ -37,7 +41,7 @@ import logging
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -795,6 +799,59 @@ def train(
         user_deg, item_deg, user_vocab, item_vocab, init_factors,
         device=device,
     )
+
+
+def train_grid(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_users: int,
+    n_items: int,
+    params_list: Sequence[ALSParams],
+    user_vocab: Optional[BiMap] = None,
+    item_vocab: Optional[BiMap] = None,
+    device=None,
+) -> list[ALSFactors]:
+    """Train an ALS hyperparameter grid over one staging of the data, on
+    the card unless `device` says otherwise (counterpart of the JAX
+    package's ``train_grid``).
+
+    The gate runs once, on the first point, and one `stage_dense` or
+    `stage_windowed` serves every point: neither staged form depends on
+    the rank, λ or α. Each point then runs the alternating loop over the
+    shared device arguments with its own params, so its factors equal a
+    serial `train` of the same params on the same device bit for bit.
+    Results come back in input order. ValueError (the caller trains
+    point by point) for ranks above GRAM_SOLVER_MAX_RANK, and for a grid
+    that mixes implicit and explicit points: the gate depends on
+    `implicit_prefs`, so their serial trains may take different paths."""
+    for p in params_list:
+        if p.rank > GRAM_SOLVER_MAX_RANK:
+            raise ValueError(
+                f"train_grid supports rank <= {GRAM_SOLVER_MAX_RANK}"
+            )
+    if len({p.implicit_prefs for p in params_list}) > 1:
+        raise ValueError("train_grid needs one implicit_prefs for the grid")
+    rows = np.asarray(rows, dtype=np.int32)
+    cols = np.asarray(cols, dtype=np.int32)
+    vals = np.asarray(vals, dtype=np.float32)
+    base = params_list[0]
+    use_dense = dense_eligible(rows, cols, vals, n_users, n_items, base)
+    stage = stage_dense if use_dense else stage_windowed
+    staged = stage(rows, cols, vals, n_users, n_items, base, device=device)
+    run = _train_loop_dense if use_dense else _train_loop_windowed
+    out = []
+    for p in params_list:
+        kwargs = dict(staged.static_kwargs)  # keeps the staged int8 scale
+        kwargs.update(
+            rank=p.rank, iterations=p.iterations,
+            cg_iterations=p.cg_iterations, implicit=p.implicit_prefs,
+            seed=p.seed, lam=p.lambda_, alpha=p.alpha,
+        )
+        uf, itf = run(*staged.device_args, **kwargs)
+        out.append(_als_factors(*staged.factors(uf, itf), p, user_vocab,
+                                item_vocab))
+    return out
 
 
 # -- staged serving state ----------------------------------------------------

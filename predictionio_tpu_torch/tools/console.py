@@ -8,6 +8,9 @@
     python -m predictionio_tpu_torch.tools.console deploy --engine-json F \\
         [--engine-version V] [--ip ADDR] [--port N] [--device cpu]
 
+    python -m predictionio_tpu_torch.tools.console eval run EVALUATION \\
+        [GENERATOR] [--device cpu]
+
     python -m predictionio_tpu_torch.tools.console train --ratings FILE \\
         --out blob.npz [--rank 10] [--iterations 20] [--lambda 0.01] \\
         [--alpha 1.0] [--explicit] [--device cpu]
@@ -21,7 +24,14 @@ app, ``import`` writes its events from JSON lines (one event object a
 line, as ``pio import`` reads them), ``train --engine-json`` trains the
 engine variant into an engine instance and its MODELDATA blob, and
 ``deploy --engine-json`` serves the variant's newest completed instance
-until interrupted. Access keys and channels are not ported.
+until interrupted. ``eval run`` evaluates an ``Evaluation`` named by its
+import path (``module.Class``) over the grid of an
+``EngineParamsGenerator`` (or the evaluation's own
+``engine_params_list``) and stores an evaluation instance; it exits 0
+only when that instance is EVALCOMPLETED. Access keys, channels, the
+fleet evaluation (an EvalSpec file as the target, ``eval
+list/show/status/gc``) and ``tune`` are not ported: they exit 1 saying
+so.
 
 ``train --ratings`` reads ``user::item::rating`` lines and writes the
 npz factor blob (``ALSFactors.to_bytes()``, the JAX package's format);
@@ -33,9 +43,12 @@ device unless ``--device`` names another.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 
+from predictionio_tpu_torch.controller.evaluation import Evaluation
+from predictionio_tpu_torch.controller.params import ParamsError, load_symbol
 from predictionio_tpu_torch.convert import load_jax_als_blob
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage.base import App
@@ -50,11 +63,16 @@ from predictionio_tpu_torch.engines.recommendation.engine import (
 )
 from predictionio_tpu_torch.models.als import SERVE_DTYPES
 from predictionio_tpu_torch.workflow.core import load_variant, run_train, stage_timings
+from predictionio_tpu_torch.workflow.evaluation import run_evaluation
 from predictionio_tpu_torch.workflow.server import (
     QueryServer,
     QueryServerConfig,
     latest_completed_runtime,
 )
+
+
+# the JAX package's fleet-evaluation commands, which the port refuses
+NOT_PORTED_EVAL = ("list", "show", "status", "gc")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -102,6 +120,20 @@ def _parser() -> argparse.ArgumentParser:
                      help="with --model: the serving dtype")
     dep.add_argument("--device", default=None,
                      help="torch device (default: the first CUDA device)")
+
+    ev = sub.add_parser("eval", help="run an evaluation").add_subparsers(
+        dest="eval_cmd", required=True)
+    run = ev.add_parser("run", help="evaluate an Evaluation over a params grid")
+    run.add_argument("target", help="import path of the Evaluation")
+    run.add_argument("params_generator", nargs="?",
+                     help="import path of an EngineParamsGenerator")
+    run.add_argument("--device", default=None,
+                     help="torch device (default: the first CUDA device)")
+    for name in NOT_PORTED_EVAL:
+        ev.add_parser(name, help="not ported").add_argument(
+            "rest", nargs=argparse.REMAINDER)
+    sub.add_parser("tune", help="not ported").add_argument(
+        "rest", nargs=argparse.REMAINDER)
     return ap
 
 
@@ -169,6 +201,37 @@ def train(args: argparse.Namespace) -> ALSModel:
     return model
 
 
+def _instance(obj):
+    return obj() if isinstance(obj, type) else obj
+
+
+def eval_run(args: argparse.Namespace) -> int:
+    """`eval run`: the single-process evaluation of an Evaluation import
+    path over the generator's grid, on `--device`."""
+    if os.path.isfile(args.target):
+        print(f"[ERROR] {args.target} is a file: an EvalSpec runs on the fleet "
+              f"evaluation, which is not ported yet to the PyTorch port; name "
+              f"an Evaluation import path", file=sys.stderr)
+        return 1
+    try:
+        evaluation = _instance(load_symbol(args.target))
+        params_list = None
+        if args.params_generator:
+            params_list = list(
+                _instance(load_symbol(args.params_generator)).engine_params_list)
+    except ParamsError as e:
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
+    if not isinstance(evaluation, Evaluation):
+        print(f"[ERROR] {args.target} is not an Evaluation", file=sys.stderr)
+        return 1
+    inst, result = run_evaluation(Storage(), evaluation, params_list,
+                                  device=args.device)
+    print(f"[INFO] Evaluation {inst.status}: {result.to_one_liner()} "
+          f"(instance {inst.id})", flush=True)
+    return 0 if inst.status == "EVALCOMPLETED" else 1
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.cmd == "app":
@@ -179,6 +242,13 @@ def main(argv=None) -> int:
         n = import_events(args)
         print(f"[INFO] Imported {n} events into {args.app}", flush=True)
         return 0
+    if args.cmd == "tune" or (args.cmd == "eval" and args.eval_cmd != "run"):
+        what = "tune" if args.cmd == "tune" else f"eval {args.eval_cmd}"
+        print(f"[ERROR] {what} (the fleet evaluation) is not ported yet to "
+              f"the PyTorch port", file=sys.stderr)
+        return 1
+    if args.cmd == "eval":
+        return eval_run(args)
     if args.cmd == "train" and args.engine_json is not None:
         inst = run_train(
             Storage(), load_variant(str(args.engine_json)),

@@ -170,12 +170,29 @@ def test_unported_datasource_options_are_refused(field):
         extract_params(teng.DataSourceParams, {"app_name": "a", field: True})
 
 
-def test_eval_is_refused_at_read_eval():
+@pytest.mark.parametrize("eval_k", [0, -1])
+def test_eval_is_refused_at_read_eval(eval_k):
+    """Evaluation is ported: `read_eval` refuses only what the JAX
+    package's refuses, a data source without folds (eval_k <= 0), before
+    it reads anything."""
+    for eng in (teng, jeng):
+        ds = eng.RecommendationDataSource(eng.DataSourceParams("a", eval_k=eval_k))
+        with pytest.raises(ValueError, match="eval_k > 0"):
+            ds.read_eval(None)
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.registry import Storage, StorageConfig
+
+    storage = Storage(StorageConfig.memory())
+    app_id = storage.get_meta_data_apps().insert(App(0, "a"))
+    storage.get_events().insert_batch([
+        Event(event="rate", entity_type="user", entity_id=f"u{n % 4}",
+              target_entity_type="item", target_entity_id=f"i{n}",
+              properties={"rating": 5.0}) for n in range(9)], app_id)
     ds = teng.RecommendationDataSource(teng.DataSourceParams("a", eval_k=3))
-    with pytest.raises(ParamsError, match="not ported"):
-        ds.read_eval(RuntimeContext(device="cpu"))
-    with pytest.raises(ValueError, match="eval_k > 0"):
-        teng.RecommendationDataSource(teng.DataSourceParams("a")).read_eval(None)
+    folds = ds.read_eval(RuntimeContext(storage=storage, device="cpu"))
+    assert [ei.fold for _, ei, _ in folds] == [0, 1, 2]
+    assert sum(len(td.rows) for td, _, _ in folds) == 2 * 9
 
 
 @pytest.mark.parametrize("path", [

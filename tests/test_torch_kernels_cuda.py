@@ -199,6 +199,52 @@ def test_kernel_ties_and_batch_invariance(card):
         assert torch.equal(one[0][0], kv[0]) and torch.equal(one[1][0], ki[0])
 
 
+EVAL_USERS, EVAL_ITEMS, EVAL_QUERIES = 6_040, 3_706, 6_001  # ML-1M, one fold
+
+
+@pytest.mark.parametrize("kdim", [10, 20])
+def test_kernel_eval_batch(card, kdim):
+    """An evaluation fold's one top-k call: B = 8,192 (6,001 queries
+    bucketed), I_p = 3,712, k = 128 on the select route, equal to the
+    plain version bit for bit, rows past the queries included."""
+    rng = np.random.default_rng(20 + kdim)
+    args = _inputs(rng, "f32", 8_192, EVAL_ITEMS, kdim, False, None, card)
+    assert args[1].shape[0] == 3_712 and rec.topk_route(128) == "select"
+    before = dict(rec.ROUTE_LAUNCHES)
+    kv, ki = rec.fused_recommend_topk(*args, k=128, n_items=EVAL_ITEMS)
+    pv, pi = rec.fused_recommend_topk_plain(*args, k=128, n_items=EVAL_ITEMS)
+    torch.cuda.synchronize()
+    assert rec.ROUTE_LAUNCHES["select"] == before["select"] + 1
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert int(ki.max()) < EVAL_ITEMS  # no dead pad column is returned
+
+
+@pytest.mark.parametrize("kdim", [10, 20])
+def test_eval_batch_predict_returns_no_pad_rows(card, kdim):
+    """`batch_predict` of a fold's 6,001 queries: one launch at B = 8,192,
+    one answer per query, each equal to the plain top-k on the CPU over
+    the same factors (the 2,191 pad rows are cut before the answers)."""
+    from predictionio_tpu_torch.data.store.bimap import BiMap
+    from predictionio_tpu_torch.engines.recommendation import engine as teng
+    from predictionio_tpu_torch.models import als
+
+    rng = np.random.default_rng(30 + kdim)
+    factors = als.ALSFactors(
+        user_factors=rng.standard_normal((EVAL_USERS, kdim)).astype(np.float32),
+        item_factors=rng.standard_normal((EVAL_ITEMS, kdim)).astype(np.float32),
+        user_vocab=BiMap({f"u{n}": n for n in range(EVAL_USERS)}),
+        item_vocab=BiMap({f"i{n}": n for n in range(EVAL_ITEMS)}))
+    users = rng.choice(EVAL_USERS, EVAL_QUERIES, replace=False)
+    queries = [(n, teng.Query(user=f"u{u}", num=10)) for n, u in enumerate(users)]
+    algo = teng.ALSAlgorithm(teng.ALSAlgorithmParams(rank=kdim))
+    before = rec.LAUNCHES
+    got = algo.batch_predict(None, teng.ALSModel(factors, device=card), queries)
+    assert rec.LAUNCHES == before + 1
+    want = algo.batch_predict(None, teng.ALSModel(factors, device="cpu"), queries)
+    assert len(got) == EVAL_QUERIES and got == want
+    assert all(len(p.item_scores) == 10 for _, p in got)
+
+
 def test_kernel_rejects_noncontiguous(card):
     itf = torch.zeros((256, 4), device=card)
     q = torch.zeros((8, 8), device=card)[:, ::2]
