@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ALS train (dense, windowed, scatter) and
 serve paths, the storage-backed train → deploy → query loop, the grid
-evaluation over the same storage, and the Universal Recommender's train
-and serve path, on one CUDA card.
+evaluation over the same storage, the Event Server feeding train →
+deploy, and the Universal Recommender's train and serve path, on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -113,24 +114,53 @@ Phases, in order; any failure prints what failed and exits non-zero:
             Last, at each rank of the grid (10, 20), block_partials with
             the combine on fold 0's two staged windowed plans and the row
             and col passes on the staged int8 R are held to their plain
-            versions as phases 5 and 12 hold them. Prints read_eval,
+            versions as phases 5 and 13 hold them. Prints read_eval,
             staging and ``train_grid`` seconds per fold,
             ``batch_predict`` seconds per model, metric seconds,
             eval_wall_sec, each point's score and the best point, each
             line with the card's name and power limit.
-11. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
+11. ingest  the reference's quick start through the Event Server, over
+            the loop's storage, at ML-100K's shape: 100,000 ``rate``
+            events from INGEST_SEED (943 users x 1,682 movies, unique
+            pairs with degrees anchored on ML-100K's counts, integer
+            ratings 1-5, distinct times). ``console app new ml100k`` must
+            print an access key; ``accesskey new --events rate`` and
+            ``channel new ml100k holdout`` follow. ``console eventserver``
+            runs in a process of its own; four writer threads POST 99,800
+            events as 1,996 ``/batch/events.json`` requests of 50 and the
+            last 200 one by one (timed: events/s, p50/p99 of each kind).
+            Then 50 events to the holdout channel, 10 POSTed and deleted
+            (``DELETE /events/<id>.json``, then a 404), 5 ``buy`` events
+            with the rate-only key (403 each in the batch's 200), a wrong
+            key (401) and a batch of 51 (400); 100 sampled events read
+            back by id, 20 sampled users' events read back in time order,
+            the holdout channel read back whole. ``train --engine-json``
+            (template defaults) here: its frame must hold exactly the
+            100,000 generated triples, one StagedWindowedTrain staged,
+            block_partials and the combine each launched 2 x 20 times, no
+            dense pass, the factors finite and correlated > 0.9999 with a
+            direct ``ALSAlgorithm.train`` on the generated arrays, and
+            block_partials with the combine held to their plain versions
+            on the train's two plans. ``deploy --engine-json`` in its own
+            process on the card then takes 500 queries from 16 threads:
+            scored top-k launches equal its batches, all on the select
+            route, and every answer equals the plain top-k on the CPU.
+            Prints events/s, the POST latencies, the train's stages,
+            deploy to ready and query p50/p99/qps, each line with the
+            card's name and power limit.
+12. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
             users x 59,047 items, 25,000,095 unique pairs (users 20 to
             32,202 ratings, items up to 81,491); the dense gate must refuse
             them for the byte budget alone (int8 R 9,688,842,240 B > 9e9).
             Builds both windowed plans and prints their block counts.
-12. windowed the windowed pass kernels (block_partials and the combine,
+13. windowed the windowed pass kernels (block_partials and the combine,
             through ``ops.windowed.windowed_gram_b``) against their plain
             versions on the card: K in {1, 8, 10, 32}, implicit and
             explicit weights, signed ratings, padding slots with local ids
             past both ends of [0, S), a block of 1,024 slots on one row,
             unsorted ids, an all-padding plan, and both full ML-25M plans
             at K = 10. Per element within 1e-5 * S, bit-equal on relaunch.
-13. windowed train  ``ALSAlgorithm.train`` on the phase-11 data at the
+14. windowed train  ``ALSAlgorithm.train`` on the phase-12 data at the
             template defaults with 5 iterations: the staging must be
             StagedWindowedTrain, each kernel must launch once per
             half-step, factors finite, a second run from the same staging
@@ -138,17 +168,17 @@ Phases, in order; any failure prints what failed and exits non-zero:
             the card must correlate > 0.9999. Then the factors go through
             the npz blob to ``recommend_serving``: 16 queries, each equal
             to the plain top-k.
-14. scatter a rank-48 train (100,000 ratings, 2 iterations) through
+15. scatter a rank-48 train (100,000 ratings, 2 iterations) through
             ``ALSAlgorithm.train`` on the card and on the CPU from the same
             seed: within rtol = atol = 1e-4 (no kernel of its own).
-15. windowed times  CUDA-event medians per ML-25M side, K = 10: the
+16. windowed times  CUDA-event medians per ML-25M side, K = 10: the
             block_partials kernel, its plain version, a gather + outer
             product + ``index_add_`` yardstick the port never calls, the
             bound; the combine kernel, its plain version, its bound; then
             block_partials at K = 32 on the users plan (kernel, plain,
             bound; no yardstick), and the partials kernel's ptxas
             registers, shared memory and CTAs an SM at K = 10 and 32.
-16. ur sweep  the precomputed-score selector (``fused_masked_topk``)
+17. ur sweep  the precomputed-score selector (``fused_masked_topk``)
             against its plain version on the card: I_p in {1,024 (below
             one 4,096-column select segment), 12,416 (a short last
             segment), 100,096} with dead pads, B in {1, 8, 64}, k in {1,
@@ -157,32 +187,32 @@ Phases, in order; any failure prints what failed and exits non-zero:
             and 64, a fully masked row, an all-zero row, equal maxima on
             both sides of every chunk and segment boundary. Each call must
             take the route its k names; indices and values must be equal.
-17. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
+18. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
             at full size) from UR_SEED: 3,000 users, 100,000 items, one buy
             per item plus 30 buys per user on zipf(1.3) items, and 30
             views per user from their own stream, into the port's
             ``MemoryEventStore``.
-18. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
+19. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
             the card at the template defaults (50 correlators, 100 query
             events): every table finite, and equal to the same block train
             on the CPU for three blocks of 1,024 items per indicator
             within the LLR tolerance (atol = 16 eps N ln N; indices equal
             outside tie groups). Prints read, indicator build, counts and
             LLR + top-n seconds.
-19. ur serve the card-trained model behind the port's ``QueryServer``;
+20. ur serve the card-trained model behind the port's ``QueryServer``;
             16 client threads send 500 UR queries (mostly exclude_seen,
             20 % blacklists, unknown users, view-only users added after
             the train). Every answer must equal ``_predict_batch`` on a
             CPU copy of the model; masked kernel launches, and those of
             its select route, must equal device batches.
-20. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
+21. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
             {1, 64}: the kernel (its launches per call, which must equal
             its route's, and its time on the card alone, both by
             ``torch.profiler``), its plain version,
             ``torch.topk`` over
             ``torch.where(mask, NEG_INF, scores)`` as a yardstick the port
             never calls, the bound, and the history scoring outside it.
-21. report  one ``{"kernels": [...]}`` line, then the device line last.
+22. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -192,9 +222,11 @@ from __future__ import annotations
 import contextlib
 import datetime
 import http.client
+import io
 import json
 import os
 import queue
+import re
 import shutil
 import statistics
 import subprocess
@@ -227,6 +259,7 @@ try:
         ALSModel,
         DataSourceParams,
         PrecisionAtK,
+        Query,
         RecommendationDataSource,
         RecommendationEngine,
         TrainingData,
@@ -310,6 +343,16 @@ EVAL_FOLDS, EVAL_NUM, EVAL_THRESHOLD, EVAL_PRECISION_K = 5, 10, 4.0, 10
 EVAL_GRID = tuple((rank, iterations, lam) for rank in (10, 20)
                   for iterations in (20, 40) for lam in (0.01, 0.1))
 EVAL_HELD_POINTS = (0, 4)  # rank 10 and rank 20: answers held to the CPU's
+INGEST_SEED = 100
+INGEST_USERS, INGEST_ITEMS = 943, 1_682  # ML-100K's users and movies
+INGEST_EDGES = 100_000  # ML-100K's ratings
+# fewest and most ratings of a user and of a movie in ML-100K
+INGEST_USER_DEGREES, INGEST_ITEM_DEGREES = (20, 737), (1, 583)
+INGEST_APP = "ml100k"
+INGEST_T0_MS = 874_724_710_000  # ML-100K's first rating time, epoch ms
+INGEST_WRITERS, INGEST_BATCH, INGEST_SINGLES = 4, 50, 200
+INGEST_HOLDOUT, INGEST_DELETED, INGEST_REFUSED = 50, 10, 5
+INGEST_READ_IDS, INGEST_READ_USERS = 100, 20
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 LOOP_DIR = Path(__file__).resolve().parent / "build" / "loop"
 
@@ -944,8 +987,6 @@ def phase_serve(report, shared):
     # the plain version on the CPU from the same factors
     cpu_model = ALSModel(factors, device="cpu")
     cpu_alg = ALSAlgorithm(params)
-    from predictionio_tpu_torch.engines.recommendation.engine import Query
-
     for n, q in enumerate(queries):
         status, body, _ = out[n]
         check(status == 200, f"query {n}: HTTP {status} {body}")
@@ -1199,21 +1240,29 @@ def phase_dense_times(report, shared):
 # ---------------------------------------------------------------------------
 
 
-def _loop_data(rng):
-    """ML-1M's shape: LOOP_EDGES unique (user, item) pairs with degrees
-    anchored on ML-1M's published counts (GroupLens ML-1M README: 6,040
-    users, 3,706 rated movies, 1,000,209 ratings, every user with at
-    least 20; the most active user has 2,314 ratings and the most rated
-    movie 3,428), integer ratings 1-5, distinct event times."""
-    d_user = rng.permutation(_degree_targets(LOOP_USERS, LOOP_EDGES, *LOOP_USER_DEGREES))
-    d_item = rng.permutation(_degree_targets(LOOP_ITEMS, LOOP_EDGES, *LOOP_ITEM_DEGREES))
+def _ratings_data(rng, n_users, n_items, n_edges, user_degrees, item_degrees, t0_ms):
+    """`n_edges` unique (user, item) pairs whose degrees are lognormal
+    quantiles anchored on a MovieLens set's published counts (fewest and
+    most ratings of a user and of an item), shuffled over the ids;
+    integer ratings 1-5; distinct event times a second apart from
+    `t0_ms`, in a random order."""
+    d_user = rng.permutation(_degree_targets(n_users, n_edges, *user_degrees))
+    d_item = rng.permutation(_degree_targets(n_items, n_edges, *item_degrees))
     keys, _ = _pairs_with_degrees(rng, d_user, d_item)
-    check(len(keys) == LOOP_EDGES, f"{len(keys)} unique pairs drawn, not {LOOP_EDGES}")
-    users = (keys // LOOP_ITEMS).astype(np.int64)
-    items = (keys % LOOP_ITEMS).astype(np.int64)
-    ratings = rng.integers(1, 6, LOOP_EDGES)
-    times = LOOP_T0_MS + 1000 * rng.permutation(LOOP_EDGES).astype(np.int64)
+    check(len(keys) == n_edges, f"{len(keys)} unique pairs drawn, not {n_edges}")
+    users = (keys // n_items).astype(np.int64)
+    items = (keys % n_items).astype(np.int64)
+    ratings = rng.integers(1, 6, n_edges)
+    times = t0_ms + 1000 * rng.permutation(n_edges).astype(np.int64)
     return users, items, ratings, times
+
+
+def _loop_data(rng):
+    """ML-1M's shape (GroupLens ML-1M README: 6,040 users, 3,706 rated
+    movies, 1,000,209 ratings, every user with at least 20; the most
+    active user has 2,314 ratings and the most rated movie 3,428)."""
+    return _ratings_data(rng, LOOP_USERS, LOOP_ITEMS, LOOP_EDGES, LOOP_USER_DEGREES,
+                         LOOP_ITEM_DEGREES, LOOP_T0_MS)
 
 
 def _write_events(path, users, items, ratings, times):
@@ -1236,33 +1285,35 @@ def _ids(vocab, prefix):
     return out
 
 
-def _loop_queries(rng):
+def _loop_queries(rng, n_users=LOOP_USERS, n_items=LOOP_ITEMS, unknown=LOOP_UNKNOWN_USERS):
     """N_QUERIES for known users (20 % with blacklists, 10 % with
-    whitelists), then LOOP_UNKNOWN_USERS for users with no events."""
+    whitelists), then `unknown` for users with no events."""
     qs = []
     for _ in range(N_QUERIES):
-        q = {"user": f"u{int(rng.integers(LOOP_USERS))}",
+        q = {"user": f"u{int(rng.integers(n_users))}",
              "num": int(rng.choice([5, 10, 20, 50, 200]))}
         r = rng.random()
         if r < 0.2:
             q["blacklist"] = [f"i{int(x)}" for x in
-                              rng.integers(0, LOOP_ITEMS, int(rng.integers(3, 11)))]
+                              rng.integers(0, n_items, int(rng.integers(3, 11)))]
         elif r < 0.3:
-            q["whitelist"] = [f"i{int(x)}" for x in rng.integers(0, LOOP_ITEMS, 50)]
+            q["whitelist"] = [f"i{int(x)}" for x in rng.integers(0, n_items, 50)]
         qs.append(q)
-    return qs + [{"user": f"u{LOOP_USERS + n}", "num": 10}
-                 for n in range(LOOP_UNKNOWN_USERS)]
+    return qs + [{"user": f"u{n_users + n}", "num": 10} for n in range(unknown)]
 
 
-class _Deploy:
-    """`console deploy --engine-json` in a process of its own, as an
-    operator starts it; stopped (and killed if it must be) on exit."""
+class _Console:
+    """A console command that serves (`deploy`, `eventserver`) in a
+    process of its own, as an operator starts it; stopped (and killed if
+    it must be) on exit."""
 
-    def __init__(self, engine_json, log_path):
+    BANNER = re.compile(r"(?:^serving .* on |Event Server is listening at http://)"
+                        r"[^\s:]+:(\d+)")
+
+    def __init__(self, args, log_path):
         self.log = open(log_path, "w")
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "predictionio_tpu_torch.tools.console", "deploy",
-             "--engine-json", str(engine_json), "--ip", "127.0.0.1", "--port", "0"],
+            [sys.executable, "-m", "predictionio_tpu_torch.tools.console", *args],
             cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
             stderr=self.log, text=True,
         )
@@ -1281,11 +1332,14 @@ class _Deploy:
                 line = self.lines.get(timeout=1.0)
             except queue.Empty:
                 check(self.proc.poll() is None,
-                      f"deploy exited with {self.proc.returncode}; see {self.log.name}")
+                      f"{self.proc.args[3]} exited with {self.proc.returncode}; "
+                      f"see {self.log.name}")
                 continue
-            if line.startswith("serving "):
-                return int(line.split(" on ")[1].split()[0].rsplit(":", 1)[1])
-        raise PhaseError(f"deploy not serving after {timeout} s; see {self.log.name}")
+            m = self.BANNER.search(line)
+            if m:
+                return int(m.group(1))
+        raise PhaseError(f"{self.proc.args[3]} not serving after {timeout} s; "
+                         f"see {self.log.name}")
 
     def __enter__(self):
         return self
@@ -1442,7 +1496,8 @@ def _loop_run(report, users, items, ratings, events_path, data_s):
     rng = np.random.default_rng(LOOP_SEED + 2)
     queries = _loop_queries(rng)
     t0 = time.perf_counter()
-    with _Deploy(engine_json, LOOP_DIR / "deploy.log") as dep:
+    with _Console(["deploy", "--engine-json", str(engine_json), "--ip", "127.0.0.1",
+                   "--port", "0"], LOOP_DIR / "deploy.log") as dep:
         port = dep.port(timeout=300)
         before = _status(port)
         ready_s = time.perf_counter() - t0
@@ -1475,8 +1530,6 @@ def _loop_run(report, users, items, ratings, events_path, data_s):
     # the plain top-k on the CPU over the blob's factors
     model.bind_device("cpu")
     cpu_alg = ALSAlgorithm(params)
-    from predictionio_tpu_torch.engines.recommendation.engine import Query
-
     for n, q in enumerate(queries):
         status, body, _ = out[n]
         check(status == 200, f"query {n}: HTTP {status} {body}")
@@ -1734,24 +1787,16 @@ def _eval_kernels_held(staged_w, staged_d):
     """block_partials with the combine on fold 0's two windowed plans, and
     the row and col passes on the forced-dense grid's staged int8 R, at
     each rank of the grid, held to their plain versions on the card as
-    phases 5 and 12 hold them (the scored top-k is held by the answers)."""
+    phases 5 and 13 hold them (the scored top-k is held by the answers)."""
     rng = np.random.default_rng(SEED + 10)
     ranks = sorted({rank for rank, _, _ in EVAL_GRID})
     w_tally = {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
                "combined_max_abs_err": 0.0, "combined_max_ratio": 0.0}
     d_tally = {w: {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0} for w in ("row", "col")}
-    args, kw = staged_w.device_args, staged_w.static_kwargs
-    sides = (("users", args[0:5], kw["n_item_windows"], kw["n_user_windows"]),
-             ("items", args[5:10], kw["n_user_windows"], kw["n_item_windows"]))
     r, dkw = staged_d.device_args[0], staged_d.static_kwargs
     ascale = float(np.float32(dkw["alpha"] / dkw["scale"]))
     for k in ranks:
-        for name, (src, val, ok, loc, bwin), src_windows, n_windows in sides:
-            w_b, w_g = _implicit_weights(val, ok, kw["alpha"])
-            f = torch.from_numpy((rng.standard_normal((src_windows * win.WINDOW_ROWS, k))
-                                  / np.sqrt(k)).astype(np.float32)).cuda()
-            _windowed_compare((f, src, w_b.contiguous(), w_g.contiguous(), loc), bwin,
-                              n_windows, w_tally, f"eval fold 0 {name} plan K={k}")
+        _windowed_held(staged_w, k, rng, w_tally, "eval fold 0")
         for which, n_side in (("row", r.shape[1]), ("col", r.shape[0])):
             x = torch.from_numpy((rng.standard_normal((n_side, k))
                                   / np.sqrt(k)).astype(np.float32)).cuda()
@@ -1761,8 +1806,381 @@ def _eval_kernels_held(staged_w, staged_d):
             "dense_r": list(r.shape)}
 
 
+def _windowed_held(staged_w, k, rng, tally, label):
+    """block_partials with the combine on a staged windowed train's two
+    plans, with random factors of rank `k`, held to their plain versions
+    on the card (`_windowed_compare`)."""
+    args, kw = staged_w.device_args, staged_w.static_kwargs
+    sides = (("users", args[0:5], kw["n_item_windows"], kw["n_user_windows"]),
+             ("items", args[5:10], kw["n_user_windows"], kw["n_item_windows"]))
+    for name, (src, val, ok, loc, bwin), src_windows, n_windows in sides:
+        w_b, w_g = _implicit_weights(val, ok, kw["alpha"])
+        f = torch.from_numpy((rng.standard_normal((src_windows * win.WINDOW_ROWS, k))
+                              / np.sqrt(k)).astype(np.float32)).cuda()
+        _windowed_compare((f, src, w_b.contiguous(), w_g.contiguous(), loc), bwin,
+                          n_windows, tally, f"{label} {name} plan K={k}")
+
+
 # ---------------------------------------------------------------------------
-# phase 11: ML-25M-width ratings, the windowed path's configuration
+# phase 11: the Event Server feeding train -> deploy at ML-100K's shape
+# ---------------------------------------------------------------------------
+
+
+def _rate_json(users, items, ratings, times):
+    """The ratings as the Event Server's JSON objects, in array order."""
+    stamps = np.datetime_as_string(times.astype("datetime64[ms]"), unit="ms")
+    return [{"event": "rate", "entityType": "user", "entityId": f"u{u}",
+             "targetEntityType": "item", "targetEntityId": f"i{i}",
+             "properties": {"rating": int(r)}, "eventTime": f"{t}Z"}
+            for u, i, r, t in zip(users.tolist(), items.tolist(), ratings.tolist(), stamps)]
+
+
+def _post_work(port, work, out, lock):
+    """POST each (n, path, body text) of `work` on one keep-alive
+    connection; out[n] = (status, parsed body, seconds)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        for n, path, body in work:
+            t0 = time.perf_counter()
+            conn.request("POST", path, body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            payload = resp.read()
+            dt = time.perf_counter() - t0
+            with lock:
+                out[n] = (resp.status, json.loads(payload), dt)
+    finally:
+        conn.close()
+
+
+def _call(port, method, path, body=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _pct(seconds, q):
+    s = sorted(seconds)
+    return 1e3 * s[min(len(s) - 1, int(q * len(s)))]
+
+
+def _console_out(argv):
+    """console.main(argv)'s exit code and what it printed (echoed); an
+    exit by SystemExit (an operator error, a bad argument) fails the
+    phase with its message."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = console.main(argv)
+    except SystemExit as e:
+        raise PhaseError(f"console {' '.join(argv)}: {e.code}") from None
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    return rc, buf.getvalue()
+
+
+def phase_ingest(report, shared):
+    """The reference's quick start over the loop's storage: `console app
+    new`, a second key and a channel, `console eventserver` in a process
+    of its own, ML-100K's events POSTed by four writers, the checks and
+    read-backs, then `train --engine-json` here and `deploy
+    --engine-json` in its own process on the card, and 500 queries."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(INGEST_SEED)
+    users, items, ratings, times = _ratings_data(
+        rng, INGEST_USERS, INGEST_ITEMS, INGEST_EDGES, INGEST_USER_DEGREES,
+        INGEST_ITEM_DEGREES, INGEST_T0_MS)
+    events = _rate_json(users, items, ratings, times)
+    with _loop_storage():
+        rc, out = _console_out(["app", "new", INGEST_APP])
+        key = re.search(r"^\[INFO\] Access key: (\S+)$", out, re.M)
+        check(rc == 0 and key is not None, "app new printed no access key")
+        key = key.group(1)
+        rc, out = _console_out(["accesskey", "new", INGEST_APP, "--events", "rate"])
+        rate_key = re.search(r"Access key created: (\S+)", out)
+        check(rc == 0 and rate_key is not None, "accesskey new --events rate")
+        rate_key = rate_key.group(1)
+        check(_console_out(["channel", "new", INGEST_APP, "holdout"])[0] == 0,
+              "channel new")
+        with _Console(["eventserver", "--ip", "127.0.0.1", "--port", "0"],
+                      LOOP_DIR / "eventserver.log") as es:
+            port = es.port(timeout=120)
+            ingest = _ingest_posts(port, key, events, rng)
+            ids = ingest.pop("ids")
+            checks = _ingest_checks(port, key, rate_key, events, ids, users, times, rng)
+        check(es.proc.returncode is not None, "eventserver still running")
+        report["ingest"] = {**ingest, "checks": checks}
+        _ingest_train_deploy(report, users, items, ratings)
+    ing = report["ingest"]
+    ing["phase_s"] = time.perf_counter() - t_phase
+    smi = report["nvidia_smi"]
+    print(f"[ingest] {smi} | {INGEST_EDGES} ML-100K-shaped events from {INGEST_WRITERS} "
+          f"writers ({ing['batch_posts']} batch POSTs of {INGEST_BATCH}, "
+          f"{INGEST_SINGLES} single POSTs): {ing['ingest_s']:.2f} s, "
+          f"{ing['events_per_s']:.1f} events/s", flush=True)
+    print(f"[ingest] {smi} | batch POST p50 {ing['batch_p50_ms']:.3f} ms, p99 "
+          f"{ing['batch_p99_ms']:.3f} ms; single POST p50 {ing['single_p50_ms']:.3f} ms, "
+          f"p99 {ing['single_p99_ms']:.3f} ms", flush=True)
+    st = ing["stages"]
+    print(f"[ingest] {smi} | train: read {st['read']:.3f} s, prepare {st['prepare']:.4f} s, "
+          f"train {st['train']:.3f} s, persist {st['persist']:.4f} s; launches "
+          f"block_partials {ing['launches']['partials']}, combine "
+          f"{ing['launches']['combine']}; corrcoef vs a direct train users "
+          f"{ing['corr_users']:.8f} items {ing['corr_items']:.8f}", flush=True)
+    print(f"[ingest] {smi} | deploy to ready {ing['deploy_ready_s']:.2f} s; {N_QUERIES} "
+          f"queries from {N_CLIENTS} clients: p50 {ing['p50_ms']:.3f} ms, p99 "
+          f"{ing['p99_ms']:.3f} ms, {ing['qps']:.1f} qps, scored top-k launches "
+          f"{ing['launches']['serve_topk']} in {ing['batches']} batches (select "
+          f"{ing['launches']['serve_select']}); phase {ing['phase_s']:.1f} s", flush=True)
+
+
+def _ingest_posts(port, key, events, rng):
+    """The timed ingest: the events in a shuffled order, all but the last
+    INGEST_SINGLES as /batch/events.json POSTs of INGEST_BATCH, those one
+    by one, dealt round-robin to INGEST_WRITERS threads (batches first);
+    every event must come back 201. Returns the times and each event's
+    id."""
+    order = rng.permutation(len(events))
+    n_batched = len(events) - INGEST_SINGLES
+    work = []
+    for b in range(0, n_batched, INGEST_BATCH):
+        chunk = order[b:b + INGEST_BATCH]
+        work.append((chunk, f"/batch/events.json?accessKey={key}",
+                     json.dumps([events[n] for n in chunk])))
+    n_batches = len(work)
+    work += [([n], f"/events.json?accessKey={key}", json.dumps(events[n]))
+             for n in order[n_batched:]]
+    jobs = [(j, path, body) for j, (_, path, body) in enumerate(work)]
+    deal = [jobs[w:n_batches:INGEST_WRITERS] + jobs[n_batches + w::INGEST_WRITERS]
+            for w in range(INGEST_WRITERS)]
+    out: dict = {}
+    lock = threading.Lock()
+    threads = [threading.Thread(target=_post_work, args=(port, d, out, lock)) for d in deal]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "ingest writers hung")
+    check(len(out) == len(work), f"{len(out)} of {len(work)} POSTs answered")
+    ids = np.empty(len(events), object)
+    for j, (chunk, _, _) in enumerate(work):
+        status, body, _ = out[j]
+        if j < n_batches:
+            check(status == 200 and [r["status"] for r in body] == [201] * len(chunk),
+                  f"batch POST {j}: HTTP {status} {str(body)[:200]}")
+            ids[chunk] = [r["eventId"] for r in body]
+        else:
+            check(status == 201, f"single POST {j}: HTTP {status} {body}")
+            ids[chunk[0]] = body["eventId"]
+    check(len(set(ids)) == len(events), "event ids are not unique")
+    batch_s = [out[j][2] for j in range(n_batches)]
+    single_s = [out[j][2] for j in range(n_batches, len(work))]
+    return {"events": len(events), "writers": INGEST_WRITERS, "batch_posts": n_batches,
+            "single_posts": len(single_s), "ingest_s": wall,
+            "events_per_s": len(events) / wall,
+            "batch_p50_ms": _pct(batch_s, 0.5), "batch_p99_ms": _pct(batch_s, 0.99),
+            "single_p50_ms": _pct(single_s, 0.5), "single_p99_ms": _pct(single_s, 0.99),
+            "ids": ids}
+
+
+def _ingest_checks(port, key, rate_key, events, ids, users, times, rng):
+    """After the timed ingest: a channel's events, deleted events, refused
+    events and requests, then the read-backs; none of the extra events
+    may reach the train's read of the default channel."""
+    t0 = time.perf_counter()
+    k = f"accessKey={key}"
+    first = INGEST_T0_MS - 10_000_000  # before every generated event
+    extra = [{**events[n], "eventTime": _ms_iso(first + 1000 * j)}
+             for j, n in enumerate(rng.choice(len(events), INGEST_HOLDOUT + INGEST_DELETED,
+                                              replace=False))]
+    holdout, doomed = extra[:INGEST_HOLDOUT], extra[INGEST_HOLDOUT:]
+    status, body = _call(port, "POST", f"/batch/events.json?{k}&channel=holdout", holdout)
+    check(status == 200 and [r["status"] for r in body] == [201] * INGEST_HOLDOUT,
+          f"holdout batch: HTTP {status} {str(body)[:200]}")
+    holdout_ids = {r["eventId"] for r in body}
+    for ev in doomed:
+        status, body = _call(port, "POST", f"/events.json?{k}", ev)
+        check(status == 201, f"POST of an event to delete: HTTP {status} {body}")
+        eid = body["eventId"]
+        check(_call(port, "DELETE", f"/events/{eid}.json?{k}") == (200, {"message": "Found"}),
+              f"DELETE /events/{eid}.json")
+        check(_call(port, "GET", f"/events/{eid}.json?{k}")[0] == 404,
+              f"GET /events/{eid}.json after its delete")
+    buys = [{**events[n], "event": "buy", "properties": {}} for n in range(INGEST_REFUSED)]
+    status, body = _call(port, "POST", f"/batch/events.json?accessKey={rate_key}", buys)
+    check(status == 200 and [r["status"] for r in body] == [403] * INGEST_REFUSED,
+          f"buy events with the rate-only key: HTTP {status} {body}")
+    check(_call(port, "POST", "/events.json?accessKey=wrong", events[0])[0] == 401,
+          "a wrong key was not refused 401")
+    status, body = _call(port, "POST", f"/batch/events.json?{k}", events[:INGEST_BATCH + 1])
+    check(status == 400, f"a batch of {INGEST_BATCH + 1}: HTTP {status}")
+
+    # read-backs: sampled ids, sampled users' histories, the channel
+    for n in rng.choice(len(events), INGEST_READ_IDS, replace=False).tolist():
+        status, body = _call(port, "GET", f"/events/{ids[n]}.json?{k}")
+        got = {a: v for a, v in body.items() if a not in ("creationTime", "revision")}
+        check(status == 200 and got == {**events[n], "eventId": ids[n]},
+              f"GET /events/{ids[n]}.json: {status} {body}")
+    for u in rng.choice(INGEST_USERS, INGEST_READ_USERS, replace=False).tolist():
+        status, body = _call(port, "GET", f"/events.json?{k}&entityType=user"
+                                          f"&entityId=u{u}&limit=-1")
+        mine = np.flatnonzero(users == u)
+        mine = mine[np.argsort(times[mine])]
+        want = [{**events[n], "eventId": ids[n]} for n in mine.tolist()]
+        got = [{a: v for a, v in e.items() if a not in ("creationTime", "revision")}
+               for e in body] if status == 200 else body
+        check(got == want, f"user u{u}'s events read back differ from the posted ones")
+    status, body = _call(port, "GET", f"/events.json?{k}&channel=holdout&limit=-1")
+    check(status == 200 and len(body) == INGEST_HOLDOUT
+          and {e["eventId"] for e in body} == holdout_ids,
+          f"the holdout channel holds {len(body) if status == 200 else status}")
+    return {"holdout": INGEST_HOLDOUT, "deleted": INGEST_DELETED,
+            "refused_403": INGEST_REFUSED, "read_ids": INGEST_READ_IDS,
+            "read_users": INGEST_READ_USERS, "seconds": time.perf_counter() - t0}
+
+
+def _ms_iso(ms):
+    return f"{np.datetime_as_string(np.datetime64(int(ms), 'ms'), unit='ms')}Z"
+
+
+def _ingest_train_deploy(report, users, items, ratings):
+    """`train --engine-json` over the ingested app, the checks of its
+    frame, staging, launches and factors, the kernels held at its plans'
+    shapes; then the deploy and its 500 queries."""
+    engine_json = LOOP_DIR / "engine_ml100k.json"
+    engine_json.write_text(json.dumps({
+        "id": "ml100k-als",
+        "engineFactory": "predictionio_tpu_torch.engines.recommendation.RecommendationEngine",
+        "datasource": {"params": {"app_name": INGEST_APP, "event_names": ["rate"]}},
+        "algorithms": [{"name": "als", "params": {}}],  # the template's defaults
+    }))
+    frames = []
+    frame_of = RecommendationDataSource._frame
+
+    def kept_frame(self, ctx):
+        frames.append(frame_of(self, ctx))
+        return frames[-1]
+
+    RecommendationDataSource._frame = kept_frame
+    wf.BLOCK_LAUNCHES.update(partials=0, combine=0)  # every count to 0 just before
+    df.PASS_LAUNCHES.update(row=0, col=0)
+    try:
+        with _Spy(als, "stage_windowed") as stage:
+            rc = console.main(["train", "--engine-json", str(engine_json)])
+    finally:
+        RecommendationDataSource._frame = frame_of
+    launches = {**wf.BLOCK_LAUNCHES, **df.PASS_LAUNCHES}
+    check(rc == 0, "train --engine-json")
+    storage = Storage()
+    [inst] = [i for i in storage.get_meta_data_engine_instances().get_all()
+              if i.engine_id == "ml100k-als"]
+    check(inst.status == "COMPLETED", f"instance {inst.status}")
+    params = ALSAlgorithmParams()
+    want = 2 * params.num_iterations
+    check(launches["partials"] == launches["combine"] == want,
+          f"windowed launches {launches} != 2 x iterations ({want})")
+    check(launches["row"] == launches["col"] == 0, "a dense pass ran")
+    staged = [out for *_, out in stage.calls]
+    check(len(staged) == 1 and isinstance(staged[0], als.StagedWindowedTrain),
+          f"the train staged {len(staged)} windowed trains")
+    [model] = deserialize_models(storage.get_model_data_models().get(inst.id).models)
+    check(type(model) is ALSModel, f"MODELDATA holds {type(model).__name__}")
+    f = model.factors
+    check(f.user_factors.shape == (INGEST_USERS, RANK)
+          and f.item_factors.shape == (INGEST_ITEMS, RANK), "factor shapes")
+    check(_finite(f), "non-finite factors")
+
+    # the frame holds exactly the generated triples: no holdout, deleted
+    # or refused event
+    [frame] = frames
+    check(len(frame) == INGEST_EDGES, f"{len(frame)} events read back")
+    uid, iid = _ids(frame.entity_vocab, "u"), _ids(frame.target_vocab, "i")
+    key = uid[frame.entity_idx] * INGEST_ITEMS + iid[frame.target_idx]
+    order, gen = np.argsort(key), np.argsort(users * INGEST_ITEMS + items)
+    check(np.array_equal(key[order], (users * INGEST_ITEMS + items)[gen])
+          and np.array_equal(frame.value[order], ratings[gen].astype(np.float32)),
+          "the frame read back differs from the generated (user, item, rating) triples")
+    del frames, frame
+
+    urow = np.empty(INGEST_USERS, np.int64)
+    urow[uid] = np.arange(len(uid))
+    irow = np.empty(INGEST_ITEMS, np.int64)
+    irow[iid] = np.arange(len(iid))
+    td = TrainingData(rows=urow[users].astype(np.int32), cols=irow[items].astype(np.int32),
+                      vals=ratings.astype(np.float32), n_users=INGEST_USERS,
+                      n_items=INGEST_ITEMS, user_vocab=f.user_vocab, item_vocab=f.item_vocab)
+    direct = ALSAlgorithm(params).train(RuntimeContext(), td).factors
+    cu = _corr(f.user_factors, direct.user_factors)
+    ci = _corr(f.item_factors, direct.item_factors)
+    check(cu > 0.9999 and ci > 0.9999,
+          f"the ingested app's factors vs a direct train: corrcoef users {cu}, items {ci}")
+    del direct, td
+    held = {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
+            "combined_max_abs_err": 0.0, "combined_max_ratio": 0.0}
+    _windowed_held(staged[0], RANK, np.random.default_rng(INGEST_SEED + 1), held,
+                   "ingest plan")
+    del staged, stage
+
+    rng = np.random.default_rng(INGEST_SEED + 2)
+    queries = _loop_queries(rng, INGEST_USERS, INGEST_ITEMS, unknown=0)
+    t0 = time.perf_counter()
+    with _Console(["deploy", "--engine-json", str(engine_json), "--ip", "127.0.0.1",
+                   "--port", "0"], LOOP_DIR / "deploy_ml100k.log") as dep:
+        port = dep.port(timeout=300)
+        before = _status(port)
+        ready_s = time.perf_counter() - t0
+        out: dict = {}
+        lock = threading.Lock()
+        work = list(enumerate(queries))
+        threads = [threading.Thread(target=_client, args=(port, work[c::N_CLIENTS], out, lock))
+                   for c in range(N_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "clients hung")
+        after = _status(port)
+    check(dep.proc.returncode is not None, "deploy still running")
+    check(before["engine_instance"] == inst.id, "deploy serves another instance")
+    check(after["device"] == "cuda:0", f"deploy serves on {after['device']}")
+    check(len(out) == len(queries), f"{len(out)} of {len(queries)} answered")
+    batches = after["batches"] - before["batches"]
+    served = after["kernel_launches"] - before["kernel_launches"]
+    select = after["select_launches"] - before["select_launches"]
+    check(batches > 0 and served == select == batches,
+          f"deploy top-k launches {served} (select {select}) != its batches {batches}")
+    model.bind_device("cpu")
+    cpu_alg = ALSAlgorithm(params)
+    for n, q in enumerate(queries):
+        status, body, _ = out[n]
+        check(status == 200, f"query {n}: HTTP {status} {body}")
+        check(body == _to_jsonable(cpu_alg.predict(model, Query(**q))),
+              f"query {n} ({q}) differs from the CPU plain top-k")
+    lat = [out[n][2] for n in range(len(queries))]
+    report["ingest"].update({
+        "stages": stage_timings(inst), "staging": "StagedWindowedTrain",
+        "launches": {**launches, "serve_topk": served, "serve_select": select},
+        "corr_users": cu, "corr_items": ci, "held": held,
+        "deploy_ready_s": ready_s, "wall_s": wall, "qps": len(queries) / wall,
+        "p50_ms": _pct(lat, 0.5), "p99_ms": _pct(lat, 0.99),
+        "batches": batches, "mean_batch": len(queries) / batches,
+        "batch_predict_ms": 1e3 * (after["batch_predict_seconds"]
+                                   - before["batch_predict_seconds"]) / batches,
+        "nvidia_smi": report["nvidia_smi"],
+    })
+
+
+# ---------------------------------------------------------------------------
+# phase 12: ML-25M-width ratings, the windowed path's configuration
 # ---------------------------------------------------------------------------
 
 
@@ -1853,7 +2271,7 @@ def phase_data25(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the windowed pass kernels vs their plain versions on the card
+# phase 13: the windowed pass kernels vs their plain versions on the card
 # ---------------------------------------------------------------------------
 
 
@@ -1965,7 +2383,7 @@ def phase_windowed(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the windowed path, trained through ALSAlgorithm.train
+# phase 14: the windowed path, trained through ALSAlgorithm.train
 # ---------------------------------------------------------------------------
 
 
@@ -2070,7 +2488,7 @@ def phase_windowed_train(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the rank > 32 scatter path on the card
+# phase 15: the rank > 32 scatter path on the card
 # ---------------------------------------------------------------------------
 
 
@@ -2133,7 +2551,7 @@ def phase_scatter(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 15: windowed pass times
+# phase 16: windowed pass times
 # ---------------------------------------------------------------------------
 
 
@@ -2250,7 +2668,7 @@ def _partials_at_max_rank(rng, p, side, n_src, edges):
 
 
 # ---------------------------------------------------------------------------
-# phases 16-20: the Universal Recommender (CCO train, history scoring,
+# phases 17-21: the Universal Recommender (CCO train, history scoring,
 # the masked top-k kernel)
 # ---------------------------------------------------------------------------
 
@@ -2737,7 +3155,7 @@ def main() -> int:
                         ("serve", phase_serve), ("times", phase_times),
                         ("dense times", phase_dense_times),
                         ("loop", phase_loop), ("eval", phase_eval),
-                        ("data25", phase_data25), ("windowed", phase_windowed),
+                        ("ingest", phase_ingest), ("data25", phase_data25), ("windowed", phase_windowed),
                         ("windowed train", phase_windowed_train),
                         ("scatter", phase_scatter),
                         ("windowed times", phase_windowed_times),
@@ -2756,10 +3174,12 @@ def main() -> int:
     ev = report["eval"]["launches"]  # console eval run
     evd = report["eval"]["dense"]["launches"]  # Engine.batch_eval, forced dense
     held = report["eval"]["held"]  # the eval's shapes against the plain versions
+    ing = report["ingest"]["launches"]  # the Event Server's app: train, deploy
     paths = {  # each main path's launches, counted from 0 around it
         "fused_recommend_topk": {"serve": report["serve"]["launches"],
                                  "loop": report["loop"]["launches"]["serve_topk"],
-                                 "eval": ev["topk"], "eval dense": evd["topk"]},
+                                 "eval": ev["topk"], "eval dense": evd["topk"],
+                                 "ingest": ing["serve_topk"]},
         "row": {"train": report["train"]["launches"]["row"],
                 "loop": report["loop"]["launches"]["row"],
                 "eval dense": evd["row"]},
@@ -2767,9 +3187,9 @@ def main() -> int:
                 "loop": report["loop"]["launches"]["col"],
                 "eval dense": evd["col"]},
         "block_partials": {"windowed train": report["windowed_train"]["launches"]["partials"],
-                           "eval": ev["partials"]},
+                           "eval": ev["partials"], "ingest": ing["partials"]},
         "combine": {"windowed train": report["windowed_train"]["launches"]["combine"],
-                    "eval": ev["combine"]},
+                    "eval": ev["combine"], "ingest": ing["combine"]},
         "fused_masked_topk": {"ur serve": report["ur_serve"]["launches"]},
     }
     kernels = [{
@@ -2802,7 +3222,8 @@ def main() -> int:
         "launches": sum(paths["block_partials"].values()),
         "launches_by_path": paths["block_partials"],
         "max_abs_err": max(report["windowed_sweep"]["max_abs_err"],
-                           held["windowed"]["max_abs_err"]),
+                           held["windowed"]["max_abs_err"],
+                           report["ingest"]["held"]["max_abs_err"]),
         "ms": users_side["ms"], "plain_ms": users_side["plain_ms"],
         "bound_ms": users_side["bound_ms"], "bound_by": users_side["bound_by"],
         "library_ms": users_side["library_ms"],

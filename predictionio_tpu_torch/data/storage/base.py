@@ -1,14 +1,16 @@
 """Event-store query filter, metadata records and the DAO interfaces.
 
 Counterpart of the JAX package's ``data/storage/base.py``, cut to what
-the port's train → deploy and eval workflows call: the ``EventQuery``
-filters by app, entity type, event names and target entity type (no
-channel, entity id, time range, target id, limit, order, keyset cursor
-or shards); the records ``App``, ``EngineInstance``,
+the port's train → deploy, eval and event-server paths call: the
+``EventQuery`` filters by app, channel, time range, entity type and id,
+event names, target entity type and id, with a limit, the reversed
+order and the absent-target filter (no keyset cursor or shards); the
+records ``App``, ``AccessKey``, ``Channel``, ``EngineInstance``,
 ``EvaluationInstance``, ``EngineManifest`` and ``Model`` are the JAX
-package's field for field; the DAO interfaces are those of events,
-apps, engine instances, evaluation instances and models. Access keys,
-channels and property aggregation are not ported.
+package's field for field; the DAO interfaces are those of events
+(one namespace per app and channel), apps, access keys, channels,
+engine instances, evaluation instances and models. Tail reads by
+revision and property aggregation are not ported.
 """
 
 from __future__ import annotations
@@ -27,46 +29,89 @@ class StorageError(RuntimeError):
 
 @dataclass(frozen=True)
 class EventQuery:
-    """Filter set of a find (reference LEvents.futureFind:164)."""
+    """Filter set of a find (reference LEvents.futureFind:164): events of
+    the (app, channel) namespace with event time in [start_time,
+    until_time), ordered by (event_time, event_id), descending when
+    `reversed`, cut to `limit` (None or negative: all)."""
 
     app_id: int
+    channel_id: Optional[int] = None
+    start_time: Optional[_dt.datetime] = None
+    until_time: Optional[_dt.datetime] = None
     entity_type: Optional[str] = None
+    entity_id: Optional[str] = None
     event_names: Optional[Sequence[str]] = None
     target_entity_type: Optional[str] = None
+    target_entity_id: Optional[str] = None
+    limit: Optional[int] = None
+    reversed: bool = False
+    # True: only events with neither target field (the target filters
+    # are then ignored)
+    filter_target_absent: bool = False
 
     def matches(self, e: Event) -> bool:
+        if self.start_time is not None and e.event_time < self.start_time:
+            return False
+        if self.until_time is not None and e.event_time >= self.until_time:
+            return False
         if self.entity_type is not None and e.entity_type != self.entity_type:
+            return False
+        if self.entity_id is not None and e.entity_id != self.entity_id:
             return False
         if self.event_names is not None and e.event not in self.event_names:
             return False
+        if self.filter_target_absent:
+            return e.target_entity_type is None and e.target_entity_id is None
         if (self.target_entity_type is not None
                 and e.target_entity_type != self.target_entity_type):
+            return False
+        if (self.target_entity_id is not None
+                and e.target_entity_id != self.target_entity_id):
             return False
         return True
 
 
 class EventStore(abc.ABC):
-    """Event DAO: one instance serves every app's namespace."""
+    """Event DAO: one instance serves every (app, channel) namespace; a
+    channel id of None or 0 is the app's default channel."""
 
     @abc.abstractmethod
-    def init_app(self, app_id: int) -> bool:
-        """Create the app's namespace (idempotent)."""
+    def init_app(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        """Create the namespace (idempotent)."""
 
     @abc.abstractmethod
-    def insert(self, event: Event, app_id: int) -> str:
+    def remove_app(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        """Drop every event of the namespace."""
+
+    @abc.abstractmethod
+    def insert(self, event: Event, app_id: int,
+               channel_id: Optional[int] = None) -> str:
         """Insert one event; returns its event id."""
 
-    def insert_batch(self, events: Sequence[Event], app_id: int) -> list[str]:
-        return [self.insert(e, app_id) for e in events]
+    def insert_batch(self, events: Sequence[Event], app_id: int,
+                     channel_id: Optional[int] = None) -> list[str]:
+        return [self.insert(e, app_id, channel_id) for e in events]
 
-    def write(self, events: Iterable[Event], app_id: int) -> int:
+    def write(self, events: Iterable[Event], app_id: int,
+              channel_id: Optional[int] = None) -> int:
         """Bulk write path (reference PEvents.write:167); returns the
         events written."""
-        return len(self.insert_batch(list(events), app_id))
+        return len(self.insert_batch(list(events), app_id, channel_id))
+
+    @abc.abstractmethod
+    def get(self, event_id: str, app_id: int,
+            channel_id: Optional[int] = None) -> Optional[Event]:
+        """The event of that id, or None."""
+
+    @abc.abstractmethod
+    def delete(self, event_id: str, app_id: int,
+               channel_id: Optional[int] = None) -> bool:
+        """Delete by id; returns whether it existed."""
 
     @abc.abstractmethod
     def find(self, query: EventQuery) -> Iterator[Event]:
-        """Events matching the filter, in (event_time, event_id) order."""
+        """Events matching the filter, in (event_time, event_id) order,
+        reversed when the query says so."""
 
     @abc.abstractmethod
     def find_entities_batch(
@@ -93,6 +138,31 @@ class App:
     id: int
     name: str
     description: Optional[str] = None
+
+
+@dataclass
+class AccessKey:
+    """Reference AccessKeys.scala:31: a key, its app and the event names
+    it may write (empty: all)."""
+
+    key: str
+    app_id: int
+    events: tuple[str, ...] = ()
+
+
+@dataclass
+class Channel:
+    """Reference Channels.scala:29."""
+
+    id: int
+    name: str
+    app_id: int
+
+    NAME_CONSTRAINT = "must be non-empty, alphanumeric/-/_ only"
+
+    @staticmethod
+    def is_valid_name(s: str) -> bool:
+        return bool(s) and all(c.isalnum() or c in "-_" for c in s)
 
 
 @dataclass
@@ -168,6 +238,50 @@ class Apps(abc.ABC):
 
     @abc.abstractmethod
     def get_all(self) -> list[App]: ...
+
+    @abc.abstractmethod
+    def update(self, app: App) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, app_id: int) -> bool: ...
+
+
+class AccessKeys(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, k: AccessKey) -> Optional[str]:
+        """Insert (an empty key: a generated one); returns the key, None
+        when it is taken."""
+
+    @abc.abstractmethod
+    def get(self, key: str) -> Optional[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> list[AccessKey]: ...
+
+    @abc.abstractmethod
+    def update(self, k: AccessKey) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, key: str) -> bool: ...
+
+
+class Channels(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, c: Channel) -> Optional[int]:
+        """Insert; returns the assigned id, None for an invalid name or
+        one the app already has."""
+
+    @abc.abstractmethod
+    def get(self, channel_id: int) -> Optional[Channel]: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> list[Channel]: ...
+
+    @abc.abstractmethod
+    def delete(self, channel_id: int) -> bool: ...
 
 
 class EngineInstances(abc.ABC):

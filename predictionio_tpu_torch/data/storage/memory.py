@@ -1,13 +1,13 @@
-"""In-memory event store, app registry, engine and evaluation instances
-and models.
+"""In-memory event store, app registry, access keys, channels, engine
+and evaluation instances and models.
 
 Counterpart of the JAX package's ``data/storage/memory.py``, cut to what
-the port calls: the event store's ``init_app``, ``insert``,
-``insert_batch``, ``find`` and ``find_entities_batch``, the apps, the
-engine- and evaluation-instance rows and the model blobs. One RLock per
-store; events are kept per app with a per-entity index for serving-time
-history reads. Channels, access keys and engine manifests are not
-ported.
+the port calls: the event store's namespaces per app and channel with
+``insert``, ``insert_batch``, ``get``, ``delete``, ``remove_app``,
+``find`` and ``find_entities_batch``, and the metadata rows. One RLock
+per store; events are kept per namespace with a per-entity index for
+history reads. A channel id of 0 is the default channel, as in the
+sqlite store. Engine manifests and tail reads are not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ from typing import Iterator, Optional, Sequence
 from predictionio_tpu_torch.data.event import Event, new_event_id
 from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (
+    AccessKey,
     App,
+    Channel,
     EngineInstance,
     EvaluationInstance,
     EventQuery,
@@ -32,38 +34,65 @@ def _order_key(e: Event):
     return (e.event_time, e.event_id or "")
 
 
+def _ns(app_id: int, channel_id: Optional[int]) -> tuple[int, Optional[int]]:
+    return (app_id, channel_id or None)
+
+
 class MemoryEventStore(base.EventStore):
     def __init__(self, config: Optional[dict] = None):
         self._lock = threading.RLock()
-        # app_id → {event_id: Event}
-        self._ns: dict[int, dict[str, Event]] = {}
-        # app_id → last store-assigned insert revision
-        self._revisions: dict[int, int] = {}
-        # app_id → {entity_id: {event_id}}
-        self._by_entity: dict[int, dict[str, set]] = {}
+        # (app_id, channel_id) → {event_id: Event}
+        self._ns: dict[tuple, dict[str, Event]] = {}
+        # (app_id, channel_id) → last store-assigned insert revision
+        self._revisions: dict[tuple, int] = {}
+        # (app_id, channel_id) → {entity_id: {event_id}}
+        self._by_entity: dict[tuple, dict[str, set]] = {}
 
-    def init_app(self, app_id: int) -> bool:
+    def init_app(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         with self._lock:
-            self._ns.setdefault(app_id, {})
+            self._ns.setdefault(_ns(app_id, channel_id), {})
         return True
 
-    def insert(self, event: Event, app_id: int) -> str:
+    def remove_app(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         with self._lock:
-            table = self._ns.setdefault(app_id, {})
-            index = self._by_entity.setdefault(app_id, {})
+            self._ns.pop(_ns(app_id, channel_id), None)
+            self._by_entity.pop(_ns(app_id, channel_id), None)
+        return True
+
+    def insert(self, event: Event, app_id: int,
+               channel_id: Optional[int] = None) -> str:
+        key = _ns(app_id, channel_id)
+        with self._lock:
+            table = self._ns.setdefault(key, {})
+            index = self._by_entity.setdefault(key, {})
             eid = event.event_id or new_event_id()
             prev = table.get(eid)
             if prev is not None:  # overwrite: re-home the entity index
                 index.get(prev.entity_id, set()).discard(eid)
-            rev = self._revisions.get(app_id, 0) + 1
-            self._revisions[app_id] = rev
+            rev = self._revisions.get(key, 0) + 1
+            self._revisions[key] = rev
             table[eid] = event.with_id(eid).with_revision(rev)
             index.setdefault(event.entity_id, set()).add(eid)
             return eid
 
-    def insert_batch(self, events: Sequence[Event], app_id: int) -> list[str]:
+    def insert_batch(self, events: Sequence[Event], app_id: int,
+                     channel_id: Optional[int] = None) -> list[str]:
         with self._lock:
-            return [self.insert(e, app_id) for e in events]
+            return [self.insert(e, app_id, channel_id) for e in events]
+
+    def get(self, event_id: str, app_id: int,
+            channel_id: Optional[int] = None) -> Optional[Event]:
+        with self._lock:
+            return self._ns.get(_ns(app_id, channel_id), {}).get(event_id)
+
+    def delete(self, event_id: str, app_id: int,
+               channel_id: Optional[int] = None) -> bool:
+        key = _ns(app_id, channel_id)
+        with self._lock:
+            prev = self._ns.get(key, {}).pop(event_id, None)
+            if prev is not None:
+                self._by_entity[key].get(prev.entity_id, set()).discard(event_id)
+            return prev is not None
 
     def find_entities_batch(
         self,
@@ -78,8 +107,8 @@ class MemoryEventStore(base.EventStore):
         `limit_per_entity`."""
         ev_set = set(event_names) if event_names is not None else None
         with self._lock:
-            table = self._ns.get(app_id, {})
-            index = self._by_entity.get(app_id, {})
+            table = self._ns.get(_ns(app_id, None), {})
+            index = self._by_entity.get(_ns(app_id, None), {})
             raw = {
                 eid: [table[i] for i in index.get(eid, ()) if i in table]
                 for eid in dict.fromkeys(entity_ids)
@@ -99,11 +128,21 @@ class MemoryEventStore(base.EventStore):
         return out
 
     def find(self, query: EventQuery) -> Iterator[Event]:
-        """Events matching the filter, ordered by (event_time, event_id)."""
+        """Events matching the filter, ordered by (event_time, event_id),
+        reversed and cut to the limit as the query says; an entity id
+        reads that entity's events only."""
+        key = _ns(query.app_id, query.channel_id)
         with self._lock:
-            events = list(self._ns.get(query.app_id, {}).values())
+            table = self._ns.get(key, {})
+            if query.entity_id is not None:
+                ids = self._by_entity.get(key, {}).get(query.entity_id, ())
+                events = [table[i] for i in ids if i in table]
+            else:
+                events = list(table.values())
         events = [e for e in events if query.matches(e)]
-        events.sort(key=_order_key)
+        events.sort(key=_order_key, reverse=query.reversed)
+        if query.limit is not None and query.limit >= 0:
+            events = events[:query.limit]
         return iter(events)
 
 
@@ -135,6 +174,80 @@ class MemoryApps(base.Apps):
 
     def get_all(self) -> list[App]:
         return list(self._apps.values())
+
+    def update(self, app: App) -> bool:
+        with self._lock:
+            if app.id not in self._apps:
+                return False
+            self._apps[app.id] = app
+            return True
+
+    def delete(self, app_id: int) -> bool:
+        with self._lock:
+            return self._apps.pop(app_id, None) is not None
+
+
+class MemoryAccessKeys(base.AccessKeys):
+    def __init__(self, config: Optional[dict] = None):
+        self._lock = threading.RLock()
+        self._keys: dict[str, AccessKey] = {}
+
+    def insert(self, k: AccessKey) -> Optional[str]:
+        with self._lock:
+            key = k.key or secrets.token_urlsafe(32)
+            if key in self._keys:
+                return None
+            self._keys[key] = AccessKey(key, k.app_id, tuple(k.events))
+            return key
+
+    def get(self, key: str) -> Optional[AccessKey]:
+        return self._keys.get(key)
+
+    def get_all(self) -> list[AccessKey]:
+        return list(self._keys.values())
+
+    def get_by_app_id(self, app_id: int) -> list[AccessKey]:
+        return [k for k in list(self._keys.values()) if k.app_id == app_id]
+
+    def update(self, k: AccessKey) -> bool:
+        with self._lock:
+            if k.key not in self._keys:
+                return False
+            self._keys[k.key] = k
+            return True
+
+    def delete(self, key: str) -> bool:
+        with self._lock:
+            return self._keys.pop(key, None) is not None
+
+
+class MemoryChannels(base.Channels):
+    def __init__(self, config: Optional[dict] = None):
+        self._lock = threading.RLock()
+        self._channels: dict[int, Channel] = {}
+        self._next = 1
+
+    def insert(self, c: Channel) -> Optional[int]:
+        if not Channel.is_valid_name(c.name):
+            return None
+        with self._lock:
+            if any(x.app_id == c.app_id and x.name == c.name
+                   for x in self._channels.values()):
+                return None
+            cid = c.id if c.id > 0 else self._next
+            self._next = max(self._next, cid) + 1
+            self._channels[cid] = Channel(cid, c.name, c.app_id)
+            return cid
+
+    def get(self, channel_id: int) -> Optional[Channel]:
+        return self._channels.get(channel_id)
+
+    def get_by_app_id(self, app_id: int) -> list[Channel]:
+        return [c for c in list(self._channels.values()) if c.app_id == app_id]
+
+    def delete(self, channel_id: int) -> bool:
+        with self._lock:
+            return self._channels.pop(channel_id, None) is not None
 
 
 class MemoryEngineInstances(base.EngineInstances):

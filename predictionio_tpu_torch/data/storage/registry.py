@@ -38,6 +38,8 @@ BACKENDS: dict[str, tuple[str, str]] = {
 _DAO_SUFFIXES = {
     "events": "EventStore",
     "apps": "Apps",
+    "access_keys": "AccessKeys",
+    "channels": "Channels",
     "engine_instances": "EngineInstances",
     "evaluation_instances": "EvaluationInstances",
     "models": "Models",
@@ -167,6 +169,12 @@ class Storage:
 
     def get_meta_data_apps(self) -> base.Apps:
         return self._get_dao("METADATA", "apps")
+
+    def get_meta_data_access_keys(self) -> base.AccessKeys:
+        return self._get_dao("METADATA", "access_keys")
+
+    def get_meta_data_channels(self) -> base.Channels:
+        return self._get_dao("METADATA", "channels")
 
     def get_meta_data_engine_instances(self) -> base.EngineInstances:
         return self._get_dao("METADATA", "engine_instances")

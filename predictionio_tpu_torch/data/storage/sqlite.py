@@ -1,15 +1,17 @@
-"""SQLite storage: events, apps, engine and evaluation instances.
+"""SQLite storage: events, apps, access keys, channels, engine and
+evaluation instances.
 
 Counterpart of the JAX package's ``data/storage/sqlite.py`` (reference
-jdbc/JDBCLEvents.scala, JDBCPEvents.scala, JDBCApps,
-JDBCEngineInstances, JDBCEvaluationInstances), cut to what the port's
-train → deploy and eval workflows call. The tables, their columns and the revision bookkeeping are the
-JAX package's, so a ``pio.db`` written by either package reads in the
-other: one events table per app, ``events_<appId>`` (reference
-JDBCUtils.eventTableName), and the ``apps``, ``engineinstances`` and
-``evaluationinstances`` tables. Channels, access keys, engine
-manifests, model blobs, event deletes, tail reads and shard filters are
-not ported.
+jdbc/JDBCLEvents.scala, JDBCPEvents.scala, JDBCApps, JDBCAccessKeys,
+JDBCChannels, JDBCEngineInstances, JDBCEvaluationInstances), cut to
+what the port's train → deploy, eval and event-server paths call. The
+tables, their columns and the revision bookkeeping are the JAX
+package's, so a ``pio.db`` written by either package reads in the
+other: one events table per app and channel,
+``events_<appId>[_<channelId>]`` (reference JDBCUtils.eventTableName),
+and the ``apps``, ``accesskeys``, ``channels``, ``engineinstances`` and
+``evaluationinstances`` tables. Engine manifests, model blobs, tail
+reads and shard filters are not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ import numpy as np
 from predictionio_tpu_torch.data.event import Event, new_event_id
 from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (
+    AccessKey,
     App,
+    Channel,
     EngineInstance,
     EvaluationInstance,
     EventQuery,
@@ -71,8 +75,9 @@ class SqliteEventStore(base.EventStore):
         self._known_tables: set[str] = set()
 
     @staticmethod
-    def _table_name(app_id: int) -> str:
-        return f"events_{app_id}"
+    def _table_name(app_id: int, channel_id: Optional[int] = None) -> str:
+        # channel 0 and None are the default table, as the JAX package's
+        return f"events_{app_id}" + (f"_{channel_id}" if channel_id else "")
 
     # the JAX package's write-version and insert-revision bookkeeping:
     # one row per events table in each
@@ -104,8 +109,8 @@ class SqliteEventStore(base.EventStore):
             "ON CONFLICT(tbl) DO UPDATE SET ver = ver + 1", (name,),
         )
 
-    def _ensure_table(self, app_id: int) -> str:
-        name = self._table_name(app_id)
+    def _ensure_table(self, app_id: int, channel_id: Optional[int] = None) -> str:
+        name = self._table_name(app_id, channel_id)
         if name in self._known_tables:
             return name
         with self._client.lock:
@@ -151,8 +156,16 @@ class SqliteEventStore(base.EventStore):
             f"CREATE INDEX IF NOT EXISTS idx_{name}_rev ON {name} (revision)",
         ]
 
-    def init_app(self, app_id: int) -> bool:
-        self._ensure_table(app_id)
+    def init_app(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        self._ensure_table(app_id, channel_id)
+        return True
+
+    def remove_app(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        name = self._table_name(app_id, channel_id)
+        with self._client.lock:
+            self._client.conn.execute(f"DROP TABLE IF EXISTS {name}")
+            self._client.conn.commit()
+        self._known_tables.discard(name)
         return True
 
     @staticmethod
@@ -166,11 +179,13 @@ class SqliteEventStore(base.EventStore):
             event.pr_id, _ms(event.creation_time), revision,
         )
 
-    def insert(self, event: Event, app_id: int) -> str:
-        return self.insert_batch([event], app_id)[0]
+    def insert(self, event: Event, app_id: int,
+               channel_id: Optional[int] = None) -> str:
+        return self.insert_batch([event], app_id, channel_id)[0]
 
-    def insert_batch(self, events: Sequence[Event], app_id: int) -> list[str]:
-        name = self._ensure_table(app_id)
+    def insert_batch(self, events: Sequence[Event], app_id: int,
+                     channel_id: Optional[int] = None) -> list[str]:
+        name = self._ensure_table(app_id, channel_id)
         ids = [e.event_id or new_event_id() for e in events]
         with self._client.lock:
             rev0 = self._next_revisions(name, len(events)) if events else 0
@@ -186,14 +201,15 @@ class SqliteEventStore(base.EventStore):
     # events per insert_batch (and commit) of a bulk write
     WRITE_CHUNK = 50_000
 
-    def write(self, events: Iterable[Event], app_id: int) -> int:
+    def write(self, events: Iterable[Event], app_id: int,
+              channel_id: Optional[int] = None) -> int:
         """The bulk write (reference PEvents.write:167): `insert_batch`es
         of WRITE_CHUNK events, each committed. Into an empty table the three
         secondary indexes are dropped first and built once at the end,
         which sorts the keys once instead of inserting a million random
         keys one by one; the table ends with the same indexes, and a
         write that fails rebuilds them too. Returns the events written."""
-        name = self._ensure_table(app_id)
+        name = self._ensure_table(app_id, channel_id)
         n = 0
         with self._client.lock:
             conn = self._client.conn
@@ -206,10 +222,10 @@ class SqliteEventStore(base.EventStore):
                 for e in events:
                     batch.append(e)
                     if len(batch) == self.WRITE_CHUNK:
-                        n += len(self.insert_batch(batch, app_id))
+                        n += len(self.insert_batch(batch, app_id, channel_id))
                         batch = []
                 if batch:
-                    n += len(self.insert_batch(batch, app_id))
+                    n += len(self.insert_batch(batch, app_id, channel_id))
             finally:
                 if bulk:
                     for sql in self._index_ddl(name):
@@ -234,24 +250,62 @@ class SqliteEventStore(base.EventStore):
     @staticmethod
     def _where(query: EventQuery) -> tuple[str, list]:
         clauses, params = [], []
+        if query.start_time is not None:
+            clauses.append("eventTime >= ?")
+            params.append(_ms(query.start_time))
+        if query.until_time is not None:
+            clauses.append("eventTime < ?")
+            params.append(_ms(query.until_time))
         if query.entity_type is not None:
             clauses.append("entityType = ?")
             params.append(query.entity_type)
+        if query.entity_id is not None:
+            clauses.append("entityId = ?")
+            params.append(query.entity_id)
         if query.event_names is not None:
             clauses.append(f"event IN ({','.join('?' for _ in query.event_names)})")
             params.extend(query.event_names)
-        if query.target_entity_type is not None:
-            clauses.append("targetEntityType = ?")
-            params.append(query.target_entity_type)
+        if query.filter_target_absent:
+            clauses.append("targetEntityType IS NULL AND targetEntityId IS NULL")
+        else:
+            if query.target_entity_type is not None:
+                clauses.append("targetEntityType = ?")
+                params.append(query.target_entity_type)
+            if query.target_entity_id is not None:
+                clauses.append("targetEntityId = ?")
+                params.append(query.target_entity_id)
         return ("WHERE " + " AND ".join(clauses)) if clauses else "", params
 
     def find(self, query: EventQuery) -> Iterator[Event]:
-        name = self._ensure_table(query.app_id)
+        name = self._ensure_table(query.app_id, query.channel_id)
         where, params = self._where(query)
-        sql = f"SELECT * FROM {name} {where} ORDER BY eventTime ASC, id ASC"
+        order = "DESC" if query.reversed else "ASC"
+        limit = (f" LIMIT {int(query.limit)}"
+                 if query.limit is not None and query.limit >= 0 else "")
+        sql = (f"SELECT * FROM {name} {where} "
+               f"ORDER BY eventTime {order}, id {order}{limit}")
         with self._client.lock:
             rows = self._client.conn.execute(sql, params).fetchall()
         return (self._to_event(r) for r in rows)
+
+    def get(self, event_id: str, app_id: int,
+            channel_id: Optional[int] = None) -> Optional[Event]:
+        name = self._ensure_table(app_id, channel_id)
+        with self._client.lock:
+            row = self._client.conn.execute(
+                f"SELECT * FROM {name} WHERE id = ?", (event_id,)).fetchone()
+        return self._to_event(row) if row else None
+
+    def delete(self, event_id: str, app_id: int,
+               channel_id: Optional[int] = None) -> bool:
+        name = self._ensure_table(app_id, channel_id)
+        with self._client.lock:
+            cur = self._client.conn.execute(
+                f"DELETE FROM {name} WHERE id = ?", (event_id,))
+            if cur.rowcount > 0:
+                self._bump(name)
+            self._client.conn.commit()
+            return cur.rowcount > 0
 
     def find_entities_batch(
         self,
@@ -295,7 +349,7 @@ class SqliteEventStore(base.EventStore):
         picks for the entity-type filter."""
         from predictionio_tpu_torch.data.store.columnar import EventFrame
 
-        name = self._ensure_table(query.app_id)
+        name = self._ensure_table(query.app_id, query.channel_id)
         where, params = self._where(query)
         value_sel = (
             f"COALESCE(json_extract(properties, '$.\"{value_prop}\"'), ?)"
@@ -374,6 +428,77 @@ class SqliteApps(_MetaBase, base.Apps):
 
     def get_all(self) -> list[App]:
         return [App(*r) for r in self._query("SELECT id, name, description FROM apps")]
+
+    def update(self, app: App) -> bool:
+        return self._exec("UPDATE apps SET name=?, description=? WHERE id=?",
+                          (app.name, app.description, app.id)).rowcount > 0
+
+    def delete(self, app_id: int) -> bool:
+        return self._exec("DELETE FROM apps WHERE id=?", (app_id,)).rowcount > 0
+
+
+class SqliteAccessKeys(_MetaBase, base.AccessKeys):
+    DDL = """CREATE TABLE IF NOT EXISTS accesskeys (
+        accesskey TEXT PRIMARY KEY, appid INTEGER NOT NULL, events TEXT)"""
+
+    def insert(self, k: AccessKey) -> Optional[str]:
+        key = k.key or secrets.token_urlsafe(32)
+        try:
+            self._exec("INSERT INTO accesskeys VALUES (?,?,?)",
+                       (key, k.app_id, json.dumps(list(k.events))))
+        except sqlite3.IntegrityError:
+            return None
+        return key
+
+    @staticmethod
+    def _to_key(row) -> AccessKey:
+        return AccessKey(row[0], row[1], tuple(json.loads(row[2]) if row[2] else ()))
+
+    def get(self, key: str) -> Optional[AccessKey]:
+        rows = self._query("SELECT * FROM accesskeys WHERE accesskey=?", (key,))
+        return self._to_key(rows[0]) if rows else None
+
+    def get_all(self) -> list[AccessKey]:
+        return [self._to_key(r) for r in self._query("SELECT * FROM accesskeys")]
+
+    def get_by_app_id(self, app_id: int) -> list[AccessKey]:
+        return [self._to_key(r) for r in
+                self._query("SELECT * FROM accesskeys WHERE appid=?", (app_id,))]
+
+    def update(self, k: AccessKey) -> bool:
+        return self._exec("UPDATE accesskeys SET appid=?, events=? WHERE accesskey=?",
+                          (k.app_id, json.dumps(list(k.events)), k.key)).rowcount > 0
+
+    def delete(self, key: str) -> bool:
+        return self._exec("DELETE FROM accesskeys WHERE accesskey=?",
+                          (key,)).rowcount > 0
+
+
+class SqliteChannels(_MetaBase, base.Channels):
+    DDL = """CREATE TABLE IF NOT EXISTS channels (
+        id INTEGER PRIMARY KEY AUTOINCREMENT, name TEXT NOT NULL,
+        appid INTEGER NOT NULL, UNIQUE(name, appid))"""
+
+    def insert(self, c: Channel) -> Optional[int]:
+        if not Channel.is_valid_name(c.name):
+            return None
+        try:
+            return self._exec("INSERT INTO channels (name, appid) VALUES (?,?)",
+                              (c.name, c.app_id)).lastrowid
+        except sqlite3.IntegrityError:
+            return None
+
+    def get(self, channel_id: int) -> Optional[Channel]:
+        rows = self._query("SELECT id, name, appid FROM channels WHERE id=?",
+                           (channel_id,))
+        return Channel(*rows[0]) if rows else None
+
+    def get_by_app_id(self, app_id: int) -> list[Channel]:
+        return [Channel(*r) for r in self._query(
+            "SELECT id, name, appid FROM channels WHERE appid=?", (app_id,))]
+
+    def delete(self, channel_id: int) -> bool:
+        return self._exec("DELETE FROM channels WHERE id=?", (channel_id,)).rowcount > 0
 
 
 class SqliteEngineInstances(_MetaBase, base.EngineInstances):

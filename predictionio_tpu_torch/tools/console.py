@@ -1,8 +1,23 @@
 """Command line of the port.
 
-    python -m predictionio_tpu_torch.tools.console app new NAME
+    python -m predictionio_tpu_torch.tools.console app new NAME \\
+        [--description D] [--access-key K]
+    python -m predictionio_tpu_torch.tools.console app list|show NAME
+    python -m predictionio_tpu_torch.tools.console app delete NAME [-f]
+    python -m predictionio_tpu_torch.tools.console app data-delete NAME \\
+        [--channel C] [-f]
+    python -m predictionio_tpu_torch.tools.console channel new|delete APP C
+    python -m predictionio_tpu_torch.tools.console accesskey new APP \\
+        [--key K] [--events a,b]
+    python -m predictionio_tpu_torch.tools.console accesskey list [APP]
+    python -m predictionio_tpu_torch.tools.console accesskey delete KEY
+    python -m predictionio_tpu_torch.tools.console eventserver [--ip ADDR] \\
+        [--port 7070] [--stats]
     python -m predictionio_tpu_torch.tools.console import --app NAME \\
-        --input events.jsonl
+        [--channel C] --input events.jsonl
+    python -m predictionio_tpu_torch.tools.console export --app NAME \\
+        [--channel C] --output events.jsonl
+    python -m predictionio_tpu_torch.tools.console status
     python -m predictionio_tpu_torch.tools.console train --engine-json F \\
         [--engine-version V] [--device cpu]
     python -m predictionio_tpu_torch.tools.console deploy --engine-json F \\
@@ -17,21 +32,28 @@
     python -m predictionio_tpu_torch.tools.console deploy --model PATH \\
         --port N [--ip ADDR] [--serve-dtype f32|bf16|int8] [--device cpu]
 
-The first four are the JAX package's ``pio`` loop over the configured
-storage (``PIO_STORAGE_*``, else sqlite and model files under
-``PIO_FS_BASEDIR``, default ``~/.pio_store``): ``app new`` registers an
-app, ``import`` writes its events from JSON lines (one event object a
-line, as ``pio import`` reads them), ``train --engine-json`` trains the
-engine variant into an engine instance and its MODELDATA blob, and
-``deploy --engine-json`` serves the variant's newest completed instance
-until interrupted. ``eval run`` evaluates an ``Evaluation`` named by its
+These are the JAX package's ``pio`` commands over the configured storage
+(``PIO_STORAGE_*``, else sqlite and model files under
+``PIO_FS_BASEDIR``, default ``~/.pio_store``). ``app new`` registers an
+app and prints its default access key; ``app``, ``channel`` and
+``accesskey`` list, show and delete what the JAX package's verbs do.
+``eventserver`` serves the Event Server (``data/api/server.py``) until
+interrupted; it makes no device call, and neither imports the model and
+kernel modules nor touches CUDA. ``import`` writes events from JSON
+lines (one event object a line, as ``pio import`` reads them) and
+``export`` writes them so. ``train --engine-json`` trains the engine
+variant into an engine instance and its MODELDATA blob, and ``deploy
+--engine-json`` serves the variant's newest completed instance until
+interrupted. ``eval run`` evaluates an ``Evaluation`` named by its
 import path (``module.Class``) over the grid of an
 ``EngineParamsGenerator`` (or the evaluation's own
 ``engine_params_list``) and stores an evaluation instance; it exits 0
-only when that instance is EVALCOMPLETED. Access keys, channels, the
-fleet evaluation (an EvalSpec file as the target, ``eval
-list/show/status/gc``) and ``tune`` are not ported: they exit 1 saying
-so.
+only when that instance is EVALCOMPLETED. Not ported, and refused with
+exit code 1: the fleet evaluation (an EvalSpec file as the target,
+``eval list/show/status/gc``), ``tune``, ``eventserver --log-url`` and
+the parquet format of ``import`` and ``export``. An operator error (an
+app, channel or key that does not exist or is taken) exits 1 with
+``[ERROR]`` and the reason.
 
 ``train --ratings`` reads ``user::item::rating`` lines and writes the
 npz factor blob (``ALSFactors.to_bytes()``, the JAX package's format);
@@ -45,48 +67,75 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import threading
 from pathlib import Path
+from typing import Optional
 
-from predictionio_tpu_torch.controller.evaluation import Evaluation
-from predictionio_tpu_torch.controller.params import ParamsError, load_symbol
-from predictionio_tpu_torch.convert import load_jax_als_blob
 from predictionio_tpu_torch.data.event import Event
-from predictionio_tpu_torch.data.storage.base import App
+from predictionio_tpu_torch.data.storage.base import App, Channel, EventQuery
 from predictionio_tpu_torch.data.storage.registry import Storage
-from predictionio_tpu_torch.engines.recommendation.engine import (
-    ALSAlgorithm,
-    ALSAlgorithmParams,
-    ALSModel,
-    FileDataSourceParams,
-    FileRatingsDataSource,
-    RuntimeContext,
-)
-from predictionio_tpu_torch.models.als import SERVE_DTYPES
-from predictionio_tpu_torch.workflow.core import load_variant, run_train, stage_timings
-from predictionio_tpu_torch.workflow.evaluation import run_evaluation
-from predictionio_tpu_torch.workflow.server import (
-    QueryServer,
-    QueryServerConfig,
-    latest_completed_runtime,
-)
+from predictionio_tpu_torch.tools import common
+from predictionio_tpu_torch.tools.common import CommandError
 
+# The model, kernel and workflow modules are imported inside the
+# commands that train, serve or evaluate, so that the others (the event
+# server above all) start without torch.
 
 # the JAX package's fleet-evaluation commands, which the port refuses
 NOT_PORTED_EVAL = ("list", "show", "status", "gc")
 
 
+def _not_ported(what: str) -> int:
+    print(f"[ERROR] {what} is not ported yet to the PyTorch port", file=sys.stderr)
+    return 1
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="predictionio_tpu_torch.tools.console")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    defaults = ALSAlgorithmParams()
     app = sub.add_parser("app", help="manage apps").add_subparsers(
         dest="app_cmd", required=True)
-    new = app.add_parser("new", help="register an app")
+    new = app.add_parser("new", help="register an app and its default access key")
     new.add_argument("name")
     new.add_argument("--description")
-    imp = sub.add_parser("import", help="write an app's events from JSON lines")
-    imp.add_argument("--app", required=True)
-    imp.add_argument("--input", required=True, type=Path)
+    new.add_argument("--access-key")
+    app.add_parser("list", help="list apps and their access keys")
+    app.add_parser("show", help="an app, its channels and keys").add_argument("name")
+    s = app.add_parser("delete", help="delete an app with its channels, events and keys")
+    s.add_argument("name")
+    s.add_argument("-f", "--force", action="store_true")
+    s = app.add_parser("data-delete", help="delete an app's events in one channel")
+    s.add_argument("name")
+    s.add_argument("--channel")
+    s.add_argument("-f", "--force", action="store_true")
+    ch = sub.add_parser("channel", help="manage channels").add_subparsers(
+        dest="channel_cmd", required=True)
+    for name in ("new", "delete"):
+        s = ch.add_parser(name)
+        s.add_argument("app")
+        s.add_argument("channel")
+    ak = sub.add_parser("accesskey", help="manage access keys").add_subparsers(
+        dest="accesskey_cmd", required=True)
+    s = ak.add_parser("new")
+    s.add_argument("app")
+    s.add_argument("--key")
+    s.add_argument("--events", help="comma-separated event names the key may write")
+    ak.add_parser("list").add_argument("app", nargs="?")
+    ak.add_parser("delete").add_argument("key")
+    es = sub.add_parser("eventserver", help="serve the Event Server")
+    es.add_argument("--ip", default="0.0.0.0")
+    es.add_argument("--port", type=int, default=7070)
+    es.add_argument("--stats", action="store_true")
+    es.add_argument("--log-url", help="not ported")
+    sub.add_parser("status", help="the storage and the device")
+    for name, what, io in (("import", "write an app's events from JSON lines", "--input"),
+                           ("export", "write an app's events as JSON lines", "--output")):
+        s = sub.add_parser(name, help=what)
+        s.add_argument("--app", required=True)
+        s.add_argument("--channel")
+        s.add_argument(io, required=True, type=Path)
+        s.add_argument("--format", choices=("json", "parquet"), default="json",
+                       help="parquet is not ported")
 
     tr = sub.add_parser("train", help="train an engine variant, or ALS factors "
                                       "from a ratings file")
@@ -97,11 +146,11 @@ def _parser() -> argparse.ArgumentParser:
     tr.add_argument("--delimiter", default="::")
     tr.add_argument("--out", type=Path,
                     help="with --ratings: where to write the factor blob (npz)")
-    tr.add_argument("--rank", type=int, default=defaults.rank)
-    tr.add_argument("--iterations", type=int, default=defaults.num_iterations)
-    tr.add_argument("--lambda", dest="lambda_", type=float,
-                    default=defaults.lambda_)
-    tr.add_argument("--alpha", type=float, default=defaults.alpha)
+    # with --ratings; unset ones take ALSAlgorithmParams' defaults
+    tr.add_argument("--rank", type=int)
+    tr.add_argument("--iterations", type=int)
+    tr.add_argument("--lambda", dest="lambda_", type=float)
+    tr.add_argument("--alpha", type=float)
     tr.add_argument("--explicit", action="store_true",
                     help="explicit ratings (ALS-WR) instead of implicit")
     tr.add_argument("--device", default=None,
@@ -116,8 +165,8 @@ def _parser() -> argparse.ArgumentParser:
     dep.add_argument("--engine-version", default="0")
     dep.add_argument("--ip", default="0.0.0.0")
     dep.add_argument("--port", type=int, default=8000)
-    dep.add_argument("--serve-dtype", choices=SERVE_DTYPES, default="f32",
-                     help="with --model: the serving dtype")
+    dep.add_argument("--serve-dtype", default="f32",
+                     help="with --model: the serving dtype (f32, bf16 or int8)")
     dep.add_argument("--device", default=None,
                      help="torch device (default: the first CUDA device)")
 
@@ -137,13 +186,154 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def app_new(args: argparse.Namespace) -> App:
+def _get_app(storage: Storage, name: str) -> App:
+    app = storage.get_meta_data_apps().get_by_name(name)
+    if app is None:
+        raise CommandError(f"App '{name}' does not exist.")
+    return app
+
+
+def _channel_id(storage: Storage, app: App, name: Optional[str]) -> Optional[int]:
+    return common.resolve_channel(storage, app, name) if name else None
+
+
+def _confirm(question: str) -> bool:
+    if input(f"{question} (YES to confirm): ") == "YES":
+        return True
+    print("[INFO] Aborted.")
+    return False
+
+
+def app_cmd(args: argparse.Namespace) -> int:
+    """`app new|list|show|delete|data-delete`, printing what the JAX
+    package's verbs print."""
     storage = Storage()
-    app_id = storage.get_meta_data_apps().insert(App(0, args.name, args.description))
-    if app_id is None:
-        raise SystemExit(f"[ERROR] app {args.name!r} already exists")
-    storage.get_events().init_app(app_id)
-    return App(app_id, args.name, args.description)
+    if args.app_cmd == "new":
+        app, key = common.create_app(storage, args.name, description=args.description,
+                                     access_key=args.access_key)
+        print(f"[INFO] App created: ID={app.id} Name={app.name}")
+        print(f"[INFO] Access key: {key}", flush=True)
+        return 0
+    keys = storage.get_meta_data_access_keys()
+    if args.app_cmd == "list":
+        print(f"{'ID':>4}  {'Name':<24} Access key(s)")
+        for app in sorted(storage.get_meta_data_apps().get_all(), key=lambda a: a.id):
+            ks = ", ".join(k.key for k in keys.get_by_app_id(app.id)) or "-"
+            print(f"{app.id:>4}  {app.name:<24} {ks}")
+        return 0
+    app = _get_app(storage, args.name)
+    if args.app_cmd == "show":
+        print(f"[INFO] App: ID={app.id} Name={app.name} "
+              f"Description={app.description or ''}")
+        for ch in storage.get_meta_data_channels().get_by_app_id(app.id):
+            print(f"[INFO] Channel: ID={ch.id} Name={ch.name}")
+        for k in keys.get_by_app_id(app.id):
+            print(f"[INFO] Access key: {k.key} events={','.join(k.events) or '(all)'}")
+        return 0
+    if args.app_cmd == "delete":
+        if not args.force and not _confirm(
+                f"Delete app '{app.name}' and ALL its data?"):
+            return 1
+        common.delete_app(storage, app)
+        print(f"[INFO] App '{app.name}' deleted.")
+        return 0
+    channel_id = _channel_id(storage, app, args.channel)
+    scope = f"channel '{args.channel}'" if args.channel else "default channel"
+    if not args.force and not _confirm(
+            f"Delete all event data of app '{app.name}' ({scope})?"):
+        return 1
+    common.delete_app_data(storage, app, channel_id)
+    print(f"[INFO] Event data of app '{app.name}' deleted.")
+    return 0
+
+
+def channel_cmd(args: argparse.Namespace) -> int:
+    storage = Storage()
+    app = _get_app(storage, args.app)
+    if args.channel_cmd == "delete":
+        channel_id = common.resolve_channel(storage, app, args.channel)
+        storage.get_events().remove_app(app.id, channel_id)
+        storage.get_meta_data_channels().delete(channel_id)
+        print(f"[INFO] Channel '{args.channel}' deleted.")
+        return 0
+    if not Channel.is_valid_name(args.channel):
+        raise CommandError(f"Channel name {args.channel!r}: {Channel.NAME_CONSTRAINT}")
+    channels = storage.get_meta_data_channels()
+    if any(c.name == args.channel for c in channels.get_by_app_id(app.id)):
+        raise CommandError(f"Channel '{args.channel}' already exists.")
+    channel_id = channels.insert(Channel(id=0, name=args.channel, app_id=app.id))
+    storage.get_events().init_app(app.id, channel_id)
+    print(f"[INFO] Channel created: ID={channel_id} Name={args.channel}")
+    return 0
+
+
+def accesskey_cmd(args: argparse.Namespace) -> int:
+    storage = Storage()
+    keys = storage.get_meta_data_access_keys()
+    if args.accesskey_cmd == "new":
+        app = _get_app(storage, args.app)
+        events = tuple(e for e in (args.events or "").split(",") if e)
+        print(f"[INFO] Access key created: "
+              f"{common.create_access_key(storage, app, args.key, events)}")
+        return 0
+    if args.accesskey_cmd == "list":
+        rows = (keys.get_by_app_id(_get_app(storage, args.app).id) if args.app
+                else keys.get_all())
+        print(f"{'App':>4}  {'Access key':<48} Allowed events")
+        for k in rows:
+            print(f"{k.app_id:>4}  {k.key:<48} {','.join(k.events) or '(all)'}")
+        return 0
+    if not keys.delete(args.key):
+        raise CommandError(f"Access key not found: {args.key}")
+    print(f"[INFO] Access key deleted: {args.key}")
+    return 0
+
+
+def eventserver(args: argparse.Namespace) -> int:
+    """Serve the Event Server until interrupted; the banner names the
+    bound port (with --port 0, a free one)."""
+    from predictionio_tpu_torch.data.api.server import EventServer, EventServerConfig
+
+    if args.log_url:
+        return _not_ported("eventserver --log-url (log shipping)")
+    server = EventServer(Storage(), EventServerConfig(ip=args.ip, port=args.port,
+                                                      stats=args.stats))
+    port = server.start()
+    print(f"[INFO] Event Server is listening at http://{args.ip}:{port}.", flush=True)
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    return 0
+
+
+def status(args: argparse.Namespace) -> int:
+    """The storage each repository resolves to, every metadata DAO and the
+    event store touched, and the device the trains and deploys take."""
+    import torch
+
+    storage = Storage()
+    print(f"[INFO] predictionio_tpu_torch: torch {torch.__version__}")
+    if torch.cuda.is_available():
+        print(f"[INFO] device: cuda:0 {torch.cuda.get_device_name(0)} "
+              f"({torch.cuda.device_count()} CUDA device(s))")
+    else:
+        print("[INFO] device: no CUDA device; train and deploy need --device cpu")
+    for repo, name in sorted(storage.config.repositories.items()):
+        src = storage.config.sources[name]
+        where = src.settings.get("PATH", "")
+        print(f"[INFO] {repo}: source {name} ({src.type}) {where}".rstrip())
+    for getter in (storage.get_meta_data_apps, storage.get_meta_data_access_keys,
+                   storage.get_meta_data_channels,
+                   storage.get_meta_data_engine_instances,
+                   storage.get_meta_data_evaluation_instances,
+                   storage.get_model_data_models, storage.get_events):
+        print(f"[INFO]   OK {type(getter()).__name__}")
+    print(f"[INFO] {len(storage.get_meta_data_apps().get_all())} app(s). "
+          "Your system is all ready to go.", flush=True)
+    return 0
 
 
 def _read_events(path: Path):
@@ -160,16 +350,42 @@ def _read_events(path: Path):
 
 def import_events(args: argparse.Namespace) -> int:
     """Validate every line's event and write them through the store's
-    bulk write; a malformed line is an error naming its line, and
-    nothing after it is written."""
+    bulk write into the app's default channel or `--channel`; a
+    malformed line is an error naming its line, and nothing after it is
+    written."""
     storage = Storage()
-    app = storage.get_meta_data_apps().get_by_name(args.app)
-    if app is None:
-        raise SystemExit(f"[ERROR] app {args.app!r} does not exist")
-    return storage.get_events().write(_read_events(args.input), app.id)
+    app = _get_app(storage, args.app)
+    return storage.get_events().write(
+        _read_events(args.input), app.id, _channel_id(storage, app, args.channel))
 
 
-def build_server(args: argparse.Namespace) -> QueryServer:
+def export_events(args: argparse.Namespace) -> int:
+    """The channel's events as JSON lines, in (event time, id) order."""
+    storage = Storage()
+    app = _get_app(storage, args.app)
+    events = storage.get_events().find(
+        EventQuery(app_id=app.id, channel_id=_channel_id(storage, app, args.channel)))
+    n = 0
+    with open(args.output, "w") as f:
+        for e in events:
+            f.write(e.to_json() + "\n")
+            n += 1
+    return n
+
+
+def build_server(args: argparse.Namespace):
+    """The QueryServer of `deploy`."""
+    from predictionio_tpu_torch.convert import load_jax_als_blob
+    from predictionio_tpu_torch.engines.recommendation.engine import (
+        ALSAlgorithm, ALSAlgorithmParams, ALSModel)
+    from predictionio_tpu_torch.models.als import SERVE_DTYPES
+    from predictionio_tpu_torch.workflow.core import load_variant
+    from predictionio_tpu_torch.workflow.server import (
+        QueryServer, QueryServerConfig, latest_completed_runtime)
+
+    if args.serve_dtype not in SERVE_DTYPES:
+        raise SystemExit(f"[ERROR] --serve-dtype {args.serve_dtype!r}: "
+                         f"one of {', '.join(SERVE_DTYPES)}")
     config = QueryServerConfig(ip=args.ip, port=args.port)
     if args.engine_json is not None:
         variant = load_variant(str(args.engine_json))
@@ -184,18 +400,22 @@ def build_server(args: argparse.Namespace) -> QueryServer:
     return QueryServer(ALSAlgorithm(params), model, config)
 
 
-def train(args: argparse.Namespace) -> ALSModel:
-    """Read the ratings file, train, and write the factor blob."""
+def train(args: argparse.Namespace):
+    """Read the ratings file, train, and write the factor blob; returns
+    the ALSModel."""
+    from predictionio_tpu_torch.engines.recommendation.engine import (
+        ALSAlgorithm, ALSAlgorithmParams, FileDataSourceParams,
+        FileRatingsDataSource, RuntimeContext)
+
     ctx = RuntimeContext(device=args.device)
     td = FileRatingsDataSource(
         FileDataSourceParams(str(args.ratings), delimiter=args.delimiter)
     ).read_training(ctx)
     td.sanity_check()
-    params = ALSAlgorithmParams(
-        rank=args.rank, num_iterations=args.iterations,
-        lambda_=args.lambda_, alpha=args.alpha,
-        implicit_prefs=not args.explicit,
-    )
+    given = {"rank": args.rank, "num_iterations": args.iterations,
+             "lambda_": args.lambda_, "alpha": args.alpha}
+    params = ALSAlgorithmParams(implicit_prefs=not args.explicit,
+                                **{k: v for k, v in given.items() if v is not None})
     model = ALSAlgorithm(params).train(ctx, td)
     args.out.write_bytes(model.factors.to_bytes())
     return model
@@ -208,6 +428,10 @@ def _instance(obj):
 def eval_run(args: argparse.Namespace) -> int:
     """`eval run`: the single-process evaluation of an Evaluation import
     path over the generator's grid, on `--device`."""
+    from predictionio_tpu_torch.controller.evaluation import Evaluation
+    from predictionio_tpu_torch.controller.params import ParamsError, load_symbol
+    from predictionio_tpu_torch.workflow.evaluation import run_evaluation
+
     if os.path.isfile(args.target):
         print(f"[ERROR] {args.target} is a file: an EvalSpec runs on the fleet "
               f"evaluation, which is not ported yet to the PyTorch port; name "
@@ -234,22 +458,36 @@ def eval_run(args: argparse.Namespace) -> int:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.cmd == "app":
-        app = app_new(args)
-        print(f"[INFO] App created: ID={app.id} Name={app.name}", flush=True)
-        return 0
+    try:
+        return _run(args)
+    except CommandError as e:
+        raise SystemExit(f"[ERROR] {e}")
+
+
+def _run(args: argparse.Namespace) -> int:
+    commands = {"app": app_cmd, "channel": channel_cmd, "accesskey": accesskey_cmd,
+                "eventserver": eventserver, "status": status}
+    if args.cmd in commands:
+        return commands[args.cmd](args)
+    if args.cmd in ("import", "export") and args.format == "parquet":
+        return _not_ported(f"{args.cmd} --format parquet")
     if args.cmd == "import":
         n = import_events(args)
         print(f"[INFO] Imported {n} events into {args.app}", flush=True)
         return 0
+    if args.cmd == "export":
+        n = export_events(args)
+        print(f"[INFO] Exported {n} events to {args.output}", flush=True)
+        return 0
     if args.cmd == "tune" or (args.cmd == "eval" and args.eval_cmd != "run"):
         what = "tune" if args.cmd == "tune" else f"eval {args.eval_cmd}"
-        print(f"[ERROR] {what} (the fleet evaluation) is not ported yet to "
-              f"the PyTorch port", file=sys.stderr)
-        return 1
+        return _not_ported(f"{what} (the fleet evaluation)")
     if args.cmd == "eval":
         return eval_run(args)
     if args.cmd == "train" and args.engine_json is not None:
+        from predictionio_tpu_torch.workflow.core import (
+            load_variant, run_train, stage_timings)
+
         inst = run_train(
             Storage(), load_variant(str(args.engine_json)),
             engine_version=args.engine_version, device=args.device,
@@ -263,7 +501,8 @@ def main(argv=None) -> int:
         model = train(args)
         print(f"trained {model.factors.user_factors.shape[0]} users x "
               f"{model.factors.item_factors.shape[0]} items, rank "
-              f"{args.rank}, on {model.device}; wrote {args.out}", flush=True)
+              f"{model.factors.params.rank}, on {model.device}; wrote {args.out}",
+              flush=True)
         return 0
     server = build_server(args)
     try:

@@ -1,6 +1,7 @@
 """Threaded-HTTP plumbing for the port's server processes: JSON
 responses, eager body drain (an unread POST body desyncs HTTP/1.1
-keep-alive), and a start/stop/port lifecycle. Standard library only."""
+keep-alive), the body's JSON parse (malformed JSON answers 400), and a
+start/stop/port lifecycle. Standard library only."""
 
 from __future__ import annotations
 
@@ -32,8 +33,19 @@ class JsonHandler(BaseHTTPRequestHandler):
         log.debug("%s " + fmt, self.address_string(), *args)
 
     def _drain_body(self) -> bytes:
+        """Read the whole request body, whatever the route does with it,
+        and keep it as `_raw_body`."""
         length = int(self.headers.get("Content-Length") or 0)
-        return self.rfile.read(length) if length else b""
+        self._raw_body = self.rfile.read(length) if length else b""
+        return self._raw_body
+
+    def _json_body(self) -> Any:
+        """The drained body as JSON (empty: None); malformed JSON is a
+        400."""
+        try:
+            return json.loads(self._raw_body.decode() or "null")
+        except json.JSONDecodeError as e:
+            raise HttpError(400, f"invalid JSON: {e}")
 
     def _respond(
         self, status: int, body: Any, content_type: str = "application/json"

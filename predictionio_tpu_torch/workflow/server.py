@@ -359,7 +359,7 @@ class QueryServer(ServerProcess):
         self._requests = 0  # guarded-by: _count_lock
         self._batches = 0  # guarded-by: _count_lock
         self._batch_s = 0.0  # guarded-by: _count_lock
-        self._launch_base = 0
+        self._launch_base = self._select_base = 0
         self.dispatcher: Optional[_BatchDispatcher] = None
 
     @property
@@ -374,7 +374,7 @@ class QueryServer(ServerProcess):
         if not self._warm:
             _warmup(self.runtime.algorithms, self.runtime.models)
             self._warm = True
-        self._launch_base = _launches()
+        self._launch_base, self._select_base = _launches(), _select_launches()
         if self.config.micro_batch:
             self.dispatcher = _BatchDispatcher(
                 self, self.config.batch_window_ms, self.config.max_batch,
@@ -427,7 +427,8 @@ class QueryServer(ServerProcess):
 
     def status(self) -> dict:
         """Counts since the server started serving (warmup excluded):
-        `kernel_launches` is the top-k kernels' launches in this process."""
+        `kernel_launches` is the top-k kernels' launches in this process,
+        `select_launches` those of them on the select route."""
         with self._count_lock:
             requests, batches, batch_s = (
                 self._requests, self._batches, self._batch_s
@@ -440,9 +441,15 @@ class QueryServer(ServerProcess):
             "batches": batches,
             "batch_predict_seconds": batch_s,
             "kernel_launches": _launches() - self._launch_base,
+            "select_launches": _select_launches() - self._select_base,
             "device": str(getattr(self.model, "device", None)),
         }
 
 
 def _launches() -> int:
     return _recommend.LAUNCHES + _recommend.MASKED_LAUNCHES
+
+
+def _select_launches() -> int:
+    return (_recommend.ROUTE_LAUNCHES["select"]
+            + _recommend.MASKED_ROUTE_LAUNCHES["select"])

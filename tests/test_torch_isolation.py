@@ -4,6 +4,7 @@ silently on the CPU."""
 
 import ast
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -108,3 +109,28 @@ def test_kernel_build_needs_no_nvcc_to_import():
 
     assert _build.sources() == ["dense_pass", "recommend_topk", "windowed_pass"]
     assert _build.BUILD_DIR == ROOT / "build" / "kernels"
+
+
+def test_event_server_starts_without_torch_or_the_models(tmp_path):
+    """`console eventserver` makes no device call: the process that runs
+    it loads neither torch nor the model, kernel, engine or workflow
+    modules, so it starts in seconds and never touches CUDA."""
+    code = (
+        "import json, sys, types\n"
+        "from predictionio_tpu_torch.tools import console\n"
+        "class Stop:\n"
+        "    def wait(self):\n"
+        "        raise KeyboardInterrupt\n"
+        "console.threading = types.SimpleNamespace(Event=Stop)\n"
+        "rc = console.main(['eventserver', '--ip', '127.0.0.1', '--port', '0'])\n"
+        "heavy = ('predictionio_tpu_torch.models', 'predictionio_tpu_torch.ops',\n"
+        "         'predictionio_tpu_torch.engines', 'predictionio_tpu_torch.workflow')\n"
+        "print(json.dumps([rc, sorted(m for m in sys.modules\n"
+        "                  if m.split('.')[0] == 'torch' or m.startswith(heavy))]))\n"
+    )
+    env = {**os.environ, "PIO_FS_BASEDIR": str(tmp_path)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "Event Server is listening" in out.stdout
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [0, []]

@@ -794,3 +794,65 @@ def test_batch_score_topk_card_equals_cpu(card):
         assert rec.MASKED_ROUTE_LAUNCHES["select"] == select + 1
         want = cco.batch_score_topk(tables, hists, ex, 64, device="cpu")
         assert np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0])
+
+
+def test_train_from_event_server_posts_equals_plain_pass_train(card):
+    """Events POSTed through the port's Event Server (memory storage,
+    50-event batches), read by the recommendation template's data source
+    and trained on the card: the windowed path's kernels launch twice an
+    iteration each, a second train gives the same bits, and the train
+    through the plain windowed passes on the card correlates > 0.9999
+    (chip_smoke.py's windowed-train bar)."""
+    import json
+    import urllib.request
+
+    from predictionio_tpu_torch.core.base import RuntimeContext
+    from predictionio_tpu_torch.data.api.server import EventServer, EventServerConfig
+    from predictionio_tpu_torch.data.storage.base import AccessKey, App
+    from predictionio_tpu_torch.data.storage.registry import Storage, StorageConfig
+    from predictionio_tpu_torch.engines.recommendation.engine import (
+        ALSAlgorithm, ALSAlgorithmParams, DataSourceParams, RecommendationDataSource)
+    from predictionio_tpu_torch.ops import windowed_fused as wf
+
+    storage = Storage(StorageConfig.memory())
+    app_id = storage.get_meta_data_apps().insert(App(0, "cardapp"))
+    storage.get_meta_data_access_keys().insert(AccessKey("K", app_id))
+    rng = np.random.default_rng(41)
+    n_users, n_items, n = 1_000, 600, 20_000
+    cells = rng.choice(n_users * n_items, n, replace=False)
+    events = [{"event": "rate", "entityType": "user", "entityId": f"u{c // n_items}",
+               "targetEntityType": "item", "targetEntityId": f"i{c % n_items}",
+               "properties": {"rating": int(rng.integers(1, 6))},
+               "eventTime": f"2024-01-01T00:00:00.{k % 1000:03d}Z"}
+              for k, c in enumerate(cells)]
+    server = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0))
+    port = server.start()
+    try:
+        for b in range(0, n, 50):
+            r = urllib.request.Request(
+                f"http://127.0.0.1:{port}/batch/events.json?accessKey=K",
+                data=json.dumps(events[b:b + 50]).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(r, timeout=30) as resp:
+                assert [x["status"] for x in json.loads(resp.read())] == [201] * 50
+    finally:
+        server.stop()
+    ctx = RuntimeContext(storage=storage, device="cuda:0")
+    td = RecommendationDataSource(DataSourceParams("cardapp")).read_training(ctx)
+    assert len(td.rows) == n
+    params = ALSAlgorithmParams(num_iterations=5)
+    wf.BLOCK_LAUNCHES.update(partials=0, combine=0)
+    f = ALSAlgorithm(params).train(ctx, td).factors
+    assert wf.BLOCK_LAUNCHES == {"partials": 10, "combine": 10}
+    again = ALSAlgorithm(params).train(ctx, td).factors
+    assert np.array_equal(f.user_factors, again.user_factors)
+    saved = (wf.block_partials, wf.combine_windows)
+    wf.block_partials, wf.combine_windows = wf.block_partials_plain, wf.combine_windows_plain
+    try:
+        plain = ALSAlgorithm(params).train(ctx, td).factors
+    finally:
+        wf.block_partials, wf.combine_windows = saved
+    for side in ("user_factors", "item_factors"):
+        got, want = getattr(f, side), getattr(plain, side)
+        assert np.isfinite(got).all()
+        assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.9999, side

@@ -367,3 +367,216 @@ def test_bulk_write_builds_the_same_indexes(tmp_path, monkeypatch):
         store.write(failing(), 1)
     assert dump("failed.db", schema) == dump("jax.db", schema)
     assert len(dump("failed.db", rows)) == 8  # the two full chunks were written
+
+
+# -- channels, the full filter set, get / delete / remove_app, access keys ---
+
+def _stores(kind, tmp_path):
+    """(JAX, port) event stores and metadata DAOs of one backend kind."""
+    def make(reg, sub):
+        settings = {}
+        if kind == "sqlite":
+            (tmp_path / sub).mkdir(exist_ok=True)
+            settings = {"PATH": str(tmp_path / sub / "pio.db")}
+        return reg.Storage(reg.StorageConfig(
+            sources={"S": reg.SourceConfig("S", kind, settings)},
+            repositories={"METADATA": "S", "EVENTDATA": "S", "MODELDATA": "S"}))
+
+    return make(jreg, "jax"), make(treg, "port")
+
+
+def _channel_events(mod, channel):
+    """Seeded events with distinct times but for deliberate ties, some
+    without a target, for one channel."""
+    rng = np.random.default_rng(30 + channel)
+    out = []
+    for n in range(120):
+        target = rng.random() > 0.15
+        out.append(mod.Event(
+            event=str(rng.choice(["rate", "buy", "view"])),
+            entity_type=str(rng.choice(["user", "user", "shop"])),
+            entity_id=f"u{rng.integers(8)}",
+            target_entity_type="item" if target else None,
+            target_entity_id=f"i{rng.integers(6)}" if target else None,
+            properties={"rating": int(rng.integers(1, 6))},
+            event_time=T0 + dt.timedelta(seconds=int(rng.integers(0, 90))),
+            creation_time=T0, event_id=f"c{channel}e{n:04d}"))
+    return out
+
+
+FILTERS = {
+    "all": {},
+    "channel": {"channel_id": 1},
+    "channel_zero_is_default": {"channel_id": 0},
+    "time_range": {"start_time": T0 + dt.timedelta(seconds=20),
+                   "until_time": T0 + dt.timedelta(seconds=50)},
+    "entity": {"entity_type": "user", "entity_id": "u3"},
+    "events": {"event_names": ["rate", "view"]},
+    "target": {"target_entity_type": "item", "target_entity_id": "i2"},
+    "target_absent": {"filter_target_absent": True},
+    "limit": {"limit": 7},
+    "limit_all": {"limit": -1},
+    "reversed": {"reversed": True},
+    "reversed_limit_channel": {"reversed": True, "limit": 5, "channel_id": 1,
+                               "event_names": ["buy"]},
+    "everything": {"start_time": T0 + dt.timedelta(seconds=5), "entity_type": "user",
+                   "event_names": ["rate"], "target_entity_type": "item",
+                   "limit": 10, "reversed": True},
+}
+
+
+@pytest.mark.parametrize("case", sorted(FILTERS))
+@pytest.mark.parametrize("kind", ["memory", "sqlite"])
+def test_event_query_filters_match_jax(tmp_path, kind, case):
+    js, ts = _stores(kind, tmp_path)
+    for storage, mod in ((js, jevent), (ts, tevent)):
+        storage.get_events().insert_batch(_channel_events(mod, 0), 1)
+        storage.get_events().insert_batch(_channel_events(mod, 1), 1, 1)
+    kw = FILTERS[case]
+    jkw = dict(kw)
+    if kind == "memory" and case == "channel_zero_is_default":
+        # the JAX memory store keeps a channel 0 apart from the default
+        # one; its sqlite store and both of the port's stores do not
+        jkw["channel_id"] = None
+    want = [e.to_json_dict() for e in js.get_events().find(jbase.EventQuery(app_id=1, **jkw))]
+    got = [e.to_json_dict() for e in ts.get_events().find(tbase.EventQuery(app_id=1, **kw))]
+    assert got == want and (got or case == "target_absent")
+    # the port's own matches() agrees with its store
+    every = list(ts.get_events().find(tbase.EventQuery(
+        app_id=1, channel_id=kw.get("channel_id"), limit=-1)))
+    if "limit" not in kw and not kw.get("reversed"):
+        q = tbase.EventQuery(app_id=1, **kw)
+        assert [e.event_id for e in every if q.matches(e)] == [g["eventId"] for g in got]
+
+
+@pytest.mark.parametrize("kind", ["memory", "sqlite"])
+def test_get_delete_remove_app_match_jax(tmp_path, kind):
+    js, ts = _stores(kind, tmp_path)
+    outcomes = []
+    for storage, mod in ((js, jevent), (ts, tevent)):
+        events = storage.get_events()
+        events.insert_batch(_channel_events(mod, 0)[:20], 1)
+        events.insert_batch(_channel_events(mod, 1)[:20], 1, 2)
+        got = [events.get("c0e0003", 1), events.get("c0e0003", 1, 2),
+               events.get("c1e0004", 1, 2), events.get("nope", 1)]
+        steps = [
+            [None if e is None else e.to_json_dict() for e in got],
+            events.delete("c0e0003", 1), events.delete("c0e0003", 1),
+            events.delete("c1e0004", 1), events.delete("c1e0004", 1, 2),
+            events.get("c0e0003", 1) is None,
+            len(list(events.find(EVENTQ[mod](app_id=1)))),
+            len(list(events.find(EVENTQ[mod](app_id=1, channel_id=2)))),
+            events.remove_app(1, 2),
+            len(list(events.find(EVENTQ[mod](app_id=1, channel_id=2)))),
+            len(list(events.find(EVENTQ[mod](app_id=1)))),
+            events.remove_app(1),
+            len(list(events.find(EVENTQ[mod](app_id=1)))),
+        ]
+        events.init_app(1)
+        steps.append(events.insert(_channel_events(mod, 0)[0], 1))
+        outcomes.append(steps)
+    assert outcomes[1] == outcomes[0]
+    assert outcomes[1][6:8] == [19, 19] and outcomes[1][9:11] == [0, 19]
+
+
+EVENTQ = {jevent: jbase.EventQuery, tevent: tbase.EventQuery}
+
+
+@pytest.mark.parametrize("kind", ["memory", "sqlite"])
+def test_access_keys_and_channels_match_jax(tmp_path, kind):
+    js, ts = _stores(kind, tmp_path)
+    outcomes = []
+    for storage, base in ((js, jbase), (ts, tbase)):
+        keys, chans = storage.get_meta_data_access_keys(), storage.get_meta_data_channels()
+        apps = storage.get_meta_data_apps()
+        generated = keys.insert(base.AccessKey("", 1))
+        steps = [
+            len(generated), keys.get(generated).app_id,
+            keys.insert(base.AccessKey("K1", 1, ("rate", "buy"))),
+            keys.insert(base.AccessKey("K1", 2)),  # taken
+            keys.insert(base.AccessKey("K2", 2)),
+            vars(keys.get("K1")), keys.get("nope"),
+            sorted(k.key for k in keys.get_by_app_id(1) if k.key != generated),
+            len(keys.get_all()),
+            keys.update(base.AccessKey("K2", 2, ("view",))), vars(keys.get("K2")),
+            keys.update(base.AccessKey("K9", 2)),
+            keys.delete("K1"), keys.delete("K1"), keys.get("K1"),
+            chans.insert(base.Channel(0, "ch-1_a", 1)),
+            chans.insert(base.Channel(0, "ch-1_a", 1)),  # taken in app 1
+            chans.insert(base.Channel(0, "ch-1_a", 2)),
+            chans.insert(base.Channel(0, "bad name", 1)),
+            chans.insert(base.Channel(0, "", 1)),
+            vars(chans.get(1)), chans.get(99),
+            [vars(c) for c in chans.get_by_app_id(1)],
+            chans.delete(1), chans.delete(1), chans.get_by_app_id(1),
+            apps.insert(base.App(0, "a", "d")), apps.update(base.App(1, "b", "e")),
+            vars(apps.get(1)), apps.update(base.App(7, "x")),
+            apps.delete(1), apps.delete(1), apps.get_all(),
+            [base.Channel.is_valid_name(n) for n in ("a", "A-b_9", "", "a.b", "é")],
+        ]
+        outcomes.append(steps)
+    assert outcomes[1] == outcomes[0]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_sqlite_keys_channels_and_channel_tables_read_across(tmp_path, writer):
+    """A pio.db written by one package: the other reads its access keys,
+    channels and the channel's events_<app>_<channel> table, and its
+    DDL is the same."""
+    db = tmp_path / "pio.db"
+    mods = {"jax": (jreg, jbase, jevent), "port": (treg, tbase, tevent)}
+    wreg, wbase, wevent = mods[writer]
+    w = wreg.Storage(wreg.StorageConfig(
+        sources={"S": wreg.SourceConfig("S", "sqlite", {"PATH": str(db)})},
+        repositories={"METADATA": "S", "EVENTDATA": "S", "MODELDATA": "S"}))
+    app_id = w.get_meta_data_apps().insert(wbase.App(0, "app"))
+    w.get_meta_data_access_keys().insert(wbase.AccessKey("KEY", app_id, ("rate",)))
+    ch = w.get_meta_data_channels().insert(wbase.Channel(0, "hold", app_id))
+    w.get_events().insert_batch(_channel_events(wevent, 1), app_id, ch)
+    w.get_events().insert_batch(_channel_events(wevent, 0)[:10], app_id)
+    rreg, rbase, _ = mods["port" if writer == "jax" else "jax"]
+    r = rreg.Storage(rreg.StorageConfig(
+        sources={"S": rreg.SourceConfig("S", "sqlite", {"PATH": str(db)})},
+        repositories={"METADATA": "S", "EVENTDATA": "S", "MODELDATA": "S"}))
+    assert vars(r.get_meta_data_access_keys().get("KEY")) == {
+        "key": "KEY", "app_id": app_id, "events": ("rate",)}
+    assert [vars(c) for c in r.get_meta_data_channels().get_by_app_id(app_id)] == [
+        {"id": ch, "name": "hold", "app_id": app_id}]
+    for channel_id, n in ((ch, 120), (None, 10)):
+        q = dict(app_id=app_id, channel_id=channel_id)
+        got = [e.to_json_dict() for e in r.get_events().find(rbase.EventQuery(**q))]
+        want = [e.to_json_dict() for e in w.get_events().find(wbase.EventQuery(**q))]
+        assert got == want and len(got) == n
+    with sqlite3.connect(db) as conn:
+        names = {n for (n,) in conn.execute("SELECT name FROM sqlite_master WHERE type='table'")}
+    assert {"accesskeys", "channels", f"events_{app_id}_{ch}", f"events_{app_id}"} <= names
+    # the two packages create the same DDL for these tables
+    for name, make in (("jax", _jax_sqlite), ("port", _port_sqlite)):
+        store, *_ = make(tmp_path / f"ddl_{name}.db")
+        store.init_app(3, 4)
+        client = store._client
+        mod = jsqlite if name == "jax" else tsqlite
+        mod.SqliteAccessKeys(client=client)
+        mod.SqliteChannels(client=client)
+    ddl = {}
+    for name in ("jax", "port"):
+        with sqlite3.connect(tmp_path / f"ddl_{name}.db") as conn:
+            ddl[name] = sorted(conn.execute("SELECT type, name, sql FROM sqlite_master"))
+    assert ddl["port"] == ddl["jax"]
+
+
+def test_facade_resolves_channel_names_as_jax(tmp_path):
+    js, ts = _stores("sqlite", tmp_path)
+    for storage, base, mod in ((js, jbase, jevent), (ts, tbase, tevent)):
+        app_id = storage.get_meta_data_apps().insert(base.App(0, "app"))
+        ch = storage.get_meta_data_channels().insert(base.Channel(0, "hold", app_id))
+        storage.get_events().insert_batch(_channel_events(mod, 1)[:30], app_id, ch)
+    kw = dict(channel_name="hold", value_prop="rating", entity_type="user")
+    _frame_equal(EventStoreFacade(ts).find_frame("app", **kw),
+                 JFacade(js).find_frame("app", **kw))
+    assert EventStoreFacade(ts).app_name_to_id("app", "hold") == \
+        JFacade(js).app_name_to_id("app", "hold")
+    for facade, err in ((EventStoreFacade(ts), tbase.StorageError),
+                        (JFacade(js), jbase.StorageError)):
+        with pytest.raises(err, match="Invalid channel name 'nope' for app 'app'"):
+            facade.find_frame("app", channel_name="nope")
