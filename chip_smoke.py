@@ -2,8 +2,8 @@
 """Drive the PyTorch port's ALS train (dense, windowed, scatter) and
 serve paths, the storage-backed train → deploy → query loop, the grid
 evaluation over the same storage, the Event Server feeding train →
-deploy, and the Universal Recommender's train and serve path, on one
-CUDA card.
+deploy, the online fold-in of live events into the served model, and
+the Universal Recommender's train and serve path, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -114,7 +114,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             Last, at each rank of the grid (10, 20), block_partials with
             the combine on fold 0's two staged windowed plans and the row
             and col passes on the staged int8 R are held to their plain
-            versions as phases 5 and 13 hold them. Prints read_eval,
+            versions as phases 5 and 14 hold them. Prints read_eval,
             staging and ``train_grid`` seconds per fold,
             ``batch_predict`` seconds per model, metric seconds,
             eval_wall_sec, each point's score and the best point, each
@@ -148,19 +148,53 @@ Phases, in order; any failure prints what failed and exits non-zero:
             Prints events/s, the POST latencies, the train's stages,
             deploy to ready and query p50/p99/qps, each line with the
             card's name and power limit.
-12. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
+12. online the online fold-in over phase 11's app and instance: the
+            variant's newest COMPLETED runtime built here on the card
+            (``latest_completed_runtime``) behind a ``QueryServer`` in this
+            process, a consumer attached (``attach_online``, ticks of 0.2
+            s, from the latest revision), ``console eventserver`` again.
+            From ONLINE_SEED, 4 writers POST 7,800 events in batches of 50
+            in a random order: 200 new users x 20 ``rate`` events on
+            existing movies, 300 users x 5 movies they had not rated, 200
+            new movies x 10 raters (I_p grows from 1,792 to 1,920, past the
+            pad headroom, and the item solves carry over ticks of 64) and
+            300 ``$set`` user events, while 4 threads query known users (a
+            query every 50 ms each) and one the 20 sampled new users
+            (one every 20 ms). The cursor must reach the
+            store's latest revision with no pending item within 60 s;
+            ``events_consumed`` must equal the events POSTed,
+            ``events_folded`` the relevant ones, ``users_folded`` and
+            ``items_folded`` cover the 500 users and 200 movies, and every
+            new row be non-zero. Events POSTed after ``POST
+            /online/pause`` stay unfolded until ``/online/resume``. Then
+            500 queries from 16 threads (the 200 new users among them):
+            scored top-k launches equal batches, all on the select route,
+            every answer equal to the plain top-k on the CPU over the
+            served factors, every new user's non-empty. A fresh consumer
+            resumes at the persisted cursor with an idle first tick and
+            the counters unchanged. Every ``fold_in_rows`` call is re-run
+            on the CPU (rtol = atol = 1e-4); ``stage_serving`` must not run
+            during the ticks; the served f32 state, and an int8 staging of
+            the trained factors replayed through the same row publishes,
+            must be bit-equal to a restage of the served factors;
+            ``recommend_select`` on both slabs equals its plain version at
+            B in {1, 64}, k in {10, 128}. Prints tick seconds, the fold's
+            ms on the card a call, publish ms a tick, event-to-served
+            seconds and query p50/p99/qps while folding and after, each
+            line with the card's name and power limit.
+13. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
             users x 59,047 items, 25,000,095 unique pairs (users 20 to
             32,202 ratings, items up to 81,491); the dense gate must refuse
             them for the byte budget alone (int8 R 9,688,842,240 B > 9e9).
             Builds both windowed plans and prints their block counts.
-13. windowed the windowed pass kernels (block_partials and the combine,
+14. windowed the windowed pass kernels (block_partials and the combine,
             through ``ops.windowed.windowed_gram_b``) against their plain
             versions on the card: K in {1, 8, 10, 32}, implicit and
             explicit weights, signed ratings, padding slots with local ids
             past both ends of [0, S), a block of 1,024 slots on one row,
             unsorted ids, an all-padding plan, and both full ML-25M plans
             at K = 10. Per element within 1e-5 * S, bit-equal on relaunch.
-14. windowed train  ``ALSAlgorithm.train`` on the phase-12 data at the
+15. windowed train  ``ALSAlgorithm.train`` on the phase-13 data at the
             template defaults with 5 iterations: the staging must be
             StagedWindowedTrain, each kernel must launch once per
             half-step, factors finite, a second run from the same staging
@@ -168,17 +202,17 @@ Phases, in order; any failure prints what failed and exits non-zero:
             the card must correlate > 0.9999. Then the factors go through
             the npz blob to ``recommend_serving``: 16 queries, each equal
             to the plain top-k.
-15. scatter a rank-48 train (100,000 ratings, 2 iterations) through
+16. scatter a rank-48 train (100,000 ratings, 2 iterations) through
             ``ALSAlgorithm.train`` on the card and on the CPU from the same
             seed: within rtol = atol = 1e-4 (no kernel of its own).
-16. windowed times  CUDA-event medians per ML-25M side, K = 10: the
+17. windowed times  CUDA-event medians per ML-25M side, K = 10: the
             block_partials kernel, its plain version, a gather + outer
             product + ``index_add_`` yardstick the port never calls, the
             bound; the combine kernel, its plain version, its bound; then
             block_partials at K = 32 on the users plan (kernel, plain,
             bound; no yardstick), and the partials kernel's ptxas
             registers, shared memory and CTAs an SM at K = 10 and 32.
-17. ur sweep  the precomputed-score selector (``fused_masked_topk``)
+18. ur sweep  the precomputed-score selector (``fused_masked_topk``)
             against its plain version on the card: I_p in {1,024 (below
             one 4,096-column select segment), 12,416 (a short last
             segment), 100,096} with dead pads, B in {1, 8, 64}, k in {1,
@@ -187,32 +221,32 @@ Phases, in order; any failure prints what failed and exits non-zero:
             and 64, a fully masked row, an all-zero row, equal maxima on
             both sides of every chunk and segment boundary. Each call must
             take the route its k names; indices and values must be equal.
-18. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
+19. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
             at full size) from UR_SEED: 3,000 users, 100,000 items, one buy
             per item plus 30 buys per user on zipf(1.3) items, and 30
             views per user from their own stream, into the port's
             ``MemoryEventStore``.
-19. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
+20. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
             the card at the template defaults (50 correlators, 100 query
             events): every table finite, and equal to the same block train
             on the CPU for three blocks of 1,024 items per indicator
             within the LLR tolerance (atol = 16 eps N ln N; indices equal
             outside tie groups). Prints read, indicator build, counts and
             LLR + top-n seconds.
-20. ur serve the card-trained model behind the port's ``QueryServer``;
+21. ur serve the card-trained model behind the port's ``QueryServer``;
             16 client threads send 500 UR queries (mostly exclude_seen,
             20 % blacklists, unknown users, view-only users added after
             the train). Every answer must equal ``_predict_batch`` on a
             CPU copy of the model; masked kernel launches, and those of
             its select route, must equal device batches.
-21. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
+22. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
             {1, 64}: the kernel (its launches per call, which must equal
             its route's, and its time on the card alone, both by
             ``torch.profiler``), its plain version,
             ``torch.topk`` over
             ``torch.where(mask, NEG_INF, scores)`` as a yardstick the port
             never calls, the bound, and the history scoring outside it.
-22. report  one ``{"kernels": [...]}`` line, then the device line last.
+23. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -243,7 +277,7 @@ try:
     from predictionio_tpu_torch import convert
     from predictionio_tpu_torch.core.base import RuntimeContext
     from predictionio_tpu_torch.data.event import Event
-    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.base import App, EventQuery
     from predictionio_tpu_torch.controller import (
         EngineParams,
         EngineParamsGenerator,
@@ -273,6 +307,11 @@ try:
         URModel,
     )
     from predictionio_tpu_torch.models import als, cco
+    from predictionio_tpu_torch.online import (
+        OnlineConsumer,
+        OnlineConsumerConfig,
+        ServerApplyHost,
+    )
     from predictionio_tpu_torch.ops import _build, dense
     from predictionio_tpu_torch.ops import dense_fused as df
     from predictionio_tpu_torch.ops import recommend as rec
@@ -284,6 +323,7 @@ try:
         QueryServer,
         QueryServerConfig,
         _to_jsonable,
+        latest_completed_runtime,
     )
 except ImportError as exc:  # run outside a checkout of the repository
     _IMPORT_ERROR: ImportError | None = exc
@@ -353,6 +393,16 @@ INGEST_T0_MS = 874_724_710_000  # ML-100K's first rating time, epoch ms
 INGEST_WRITERS, INGEST_BATCH, INGEST_SINGLES = 4, 50, 200
 INGEST_HOLDOUT, INGEST_DELETED, INGEST_REFUSED = 50, 10, 5
 INGEST_READ_IDS, INGEST_READ_USERS = 100, 20
+ONLINE_SEED = 14
+ONLINE_NEW_USERS, ONLINE_NEW_USER_EVENTS = 200, 20  # new users x rate events
+ONLINE_OLD_USERS, ONLINE_OLD_USER_EVENTS = 300, 5  # existing users x new ratings
+ONLINE_NEW_ITEMS, ONLINE_NEW_ITEM_EVENTS = 200, 10  # new items x raters
+ONLINE_SETS = 300  # $set user events: irrelevant traffic
+ONLINE_TICK_S, ONLINE_WAIT_S = 0.2, 60.0
+ONLINE_PAUSED, ONLINE_SAMPLED = 50, 20  # events POSTed while paused; users timed
+# the query load while folding is N_CLIENTS clients sending back to back,
+# as every serve phase does; the sampled new users' poll, one query a period
+ONLINE_SAMPLE_PERIOD_S = 0.02
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 LOOP_DIR = Path(__file__).resolve().parent / "build" / "loop"
 
@@ -1787,7 +1837,7 @@ def _eval_kernels_held(staged_w, staged_d):
     """block_partials with the combine on fold 0's two windowed plans, and
     the row and col passes on the forced-dense grid's staged int8 R, at
     each rank of the grid, held to their plain versions on the card as
-    phases 5 and 13 hold them (the scored top-k is held by the answers)."""
+    phases 5 and 14 hold them (the scored top-k is held by the answers)."""
     rng = np.random.default_rng(SEED + 10)
     ranks = sorted({rank for rank, _, _ in EVAL_GRID})
     w_tally = {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
@@ -1837,7 +1887,8 @@ def _rate_json(users, items, ratings, times):
 
 def _post_work(port, work, out, lock):
     """POST each (n, path, body text) of `work` on one keep-alive
-    connection; out[n] = (status, parsed body, seconds)."""
+    connection; out[n] = (status, parsed body, seconds, host time of the
+    answer)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     try:
         for n, path, body in work:
@@ -1846,9 +1897,9 @@ def _post_work(port, work, out, lock):
                          headers={"Content-Type": "application/json"})
             resp = conn.getresponse()
             payload = resp.read()
-            dt = time.perf_counter() - t0
+            t1 = time.perf_counter()
             with lock:
-                out[n] = (resp.status, json.loads(payload), dt)
+                out[n] = (resp.status, json.loads(payload), t1 - t0, t1)
     finally:
         conn.close()
 
@@ -1896,6 +1947,7 @@ def phase_ingest(report, shared):
         rng, INGEST_USERS, INGEST_ITEMS, INGEST_EDGES, INGEST_USER_DEGREES,
         INGEST_ITEM_DEGREES, INGEST_T0_MS)
     events = _rate_json(users, items, ratings, times)
+    shared["ingest"] = (users, items, ratings)  # the online phase's base
     with _loop_storage():
         rc, out = _console_out(["app", "new", INGEST_APP])
         key = re.search(r"^\[INFO\] Access key: (\S+)$", out, re.M)
@@ -1971,7 +2023,7 @@ def _ingest_posts(port, key, events, rng):
     check(len(out) == len(work), f"{len(out)} of {len(work)} POSTs answered")
     ids = np.empty(len(events), object)
     for j, (chunk, _, _) in enumerate(work):
-        status, body, _ = out[j]
+        status, body, *_ = out[j]
         if j < n_batches:
             check(status == 200 and [r["status"] for r in body] == [201] * len(chunk),
                   f"batch POST {j}: HTTP {status} {str(body)[:200]}")
@@ -2180,7 +2232,570 @@ def _ingest_train_deploy(report, users, items, ratings):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: ML-25M-width ratings, the windowed path's configuration
+# phase 12: online fold-in over the ingested app
+# ---------------------------------------------------------------------------
+
+
+def _online_traffic(rng, users, items):
+    """The online phase's events as the Event Server's JSON objects, in a
+    random order a second apart after every phase-11 time, and which
+    users and items they touch: ONLINE_NEW_USERS new users rating
+    existing items, ONLINE_OLD_USERS users rating items they had not
+    rated, ONLINE_NEW_ITEMS new items rated by existing users, and
+    ONLINE_SETS `$set` user events (irrelevant to the fold)."""
+    rated = set((users * INGEST_ITEMS + items).tolist())
+    rows = []  # (user, item, rating) or (user, None, None) for a $set
+    new_users = INGEST_USERS + np.arange(ONLINE_NEW_USERS)
+    for u in new_users.tolist():
+        for i in rng.choice(INGEST_ITEMS, ONLINE_NEW_USER_EVENTS, replace=False).tolist():
+            rows.append((u, i, int(rng.integers(1, 6))))
+    old_users = rng.choice(INGEST_USERS, ONLINE_OLD_USERS, replace=False)
+    for u in old_users.tolist():
+        fresh = [i for i in rng.permutation(INGEST_ITEMS).tolist()
+                 if u * INGEST_ITEMS + i not in rated][:ONLINE_OLD_USER_EVENTS]
+        rows += [(u, i, int(rng.integers(1, 6))) for i in fresh]
+    new_items = INGEST_ITEMS + np.arange(ONLINE_NEW_ITEMS)
+    for i in new_items.tolist():
+        for u in rng.choice(INGEST_USERS, ONLINE_NEW_ITEM_EVENTS, replace=False).tolist():
+            rows.append((u, i, int(rng.integers(1, 6))))
+    rows += [(int(u), None, None) for u in rng.integers(0, INGEST_USERS, ONLINE_SETS)]
+    order = rng.permutation(len(rows))
+    t0 = INGEST_T0_MS + 1000 * (INGEST_EDGES + 10_000)
+    events = []
+    for n, j in enumerate(order.tolist()):
+        u, i, r = rows[j]
+        if i is None:
+            ev = {"event": "$set", "entityType": "user", "entityId": f"u{u}",
+                  "properties": {"plan": "pro"}}
+        else:
+            ev = {"event": "rate", "entityType": "user", "entityId": f"u{u}",
+                  "targetEntityType": "item", "targetEntityId": f"i{i}",
+                  "properties": {"rating": r}}
+        events.append({**ev, "eventTime": _ms_iso(t0 + 1000 * n)})
+    return events, new_users, old_users, new_items
+
+
+class _OnlineSpies:
+    """While the block runs: every `als.fold_in_rows` call recorded (its
+    inputs, output, host wall ms, and the CUDA-event ms of its solve
+    `als._fold_in` alone), every `als.serving_publish_rows` call recorded
+    (its rows, input and output states, host ms to a synchronize), and
+    `als.stage_serving` calls counted."""
+
+    def __init__(self):
+        self.folds, self.publishes, self.stagings = [], [], 0
+        self.fold_of, self.publish_of = als.fold_in_rows, als.serving_publish_rows
+        self.stage_of, self.solve_of = als.stage_serving, als._fold_in
+        self.solve_events: list = []
+
+    def solve(self, *args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.solve_of(*args, **kw)
+        end.record()
+        self.solve_events.append((start, end))
+        return out
+
+    def fold(self, fixed, edges, params, device=None):
+        fixed_in = np.array(fixed, np.float32, copy=True)
+        edges_in = [list(r) for r in edges]
+        self.solve_events.clear()
+        t0 = time.perf_counter()
+        out = self.fold_of(fixed, edges, params, device=device)  # returns on the host
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        [(start, end)] = self.solve_events
+        end.synchronize()
+        self.folds.append((fixed_in, edges_in, params, out.copy(), host_ms,
+                           start.elapsed_time(end)))
+        return out
+
+    def publish(self, serving, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.publish_of(serving, *args, **kw)
+        torch.cuda.synchronize()
+        self.publishes.append((serving, out, args, kw, time.perf_counter() - t0))
+        return out
+
+    def stage(self, *args, **kw):
+        self.stagings += 1
+        return self.stage_of(*args, **kw)
+
+    def __enter__(self):
+        als.fold_in_rows, als.serving_publish_rows = self.fold, self.publish
+        als.stage_serving, als._fold_in = self.stage, self.solve
+        return self
+
+    def __exit__(self, *exc):
+        als.fold_in_rows, als.serving_publish_rows = self.fold_of, self.publish_of
+        als.stage_serving, als._fold_in = self.stage_of, self.solve_of
+
+
+class _TimedTicks:
+    """The consumer's ticks: each one's seconds and the cursor it left,
+    with the host time it ended."""
+
+    def __init__(self, consumer):
+        self.ticks, self.tick_of = [], consumer.tick
+        consumer.tick = self
+
+    def __call__(self):
+        t0 = time.perf_counter()
+        out = self.tick_of()
+        t1 = time.perf_counter()
+        self.ticks.append((t1 - t0, t1, dict(out), self.tick_of.__self__.cursor.get("0", 0)))
+        return out
+
+
+def _post_batches(port, key, events, t_out):
+    """`events` as /batch/events.json POSTs of INGEST_BATCH, dealt
+    round-robin to INGEST_WRITERS threads; every event must come back
+    201. t_out[b] = the host time batch b was acknowledged."""
+    batches = [events[b:b + INGEST_BATCH] for b in range(0, len(events), INGEST_BATCH)]
+    work = [(b, f"/batch/events.json?accessKey={key}", json.dumps(body))
+            for b, body in enumerate(batches)]
+    out: dict = {}
+    lock = threading.Lock()
+    threads = [threading.Thread(target=_post_work, args=(port, work[w::INGEST_WRITERS], out, lock))
+               for w in range(INGEST_WRITERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads), "online writers hung")
+    check(len(out) == len(batches), f"{len(out)} of {len(batches)} POSTs answered")
+    for b, body in enumerate(batches):
+        status, res, *_ = out[b]
+        check(status == 200 and [r["status"] for r in res] == [201] * len(body),
+              f"online batch POST {b}: HTTP {status} {str(res)[:200]}")
+    t_out.update({b: out[b][3] for b in out})
+    return batches
+
+
+class _QueryLoad:
+    """N_CLIENTS threads, each sending POST /queries.json for a random
+    known user as soon as its last answer came, until stopped; each
+    latency kept."""
+
+    def __init__(self, port, rng, n_threads=N_CLIENTS):
+        self.port, self.stop_event, self.lat = port, threading.Event(), []
+        self.errors: list = []
+        self.lock = threading.Lock()
+        seeds = rng.integers(0, 2**31, n_threads)
+        self.threads = [threading.Thread(target=self._run, args=(int(s),)) for s in seeds]
+
+    def _run(self, seed):
+        rng = np.random.default_rng(seed)
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
+        try:
+            while not self.stop_event.is_set():
+                body = json.dumps({"user": f"u{int(rng.integers(INGEST_USERS))}", "num": 10})
+                t0 = time.perf_counter()
+                conn.request("POST", "/queries.json", body=body,
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                payload = resp.read()
+                with self.lock:
+                    self.lat.append(time.perf_counter() - t0)
+                    if resp.status != 200:
+                        self.errors.append((resp.status, payload[:200]))
+        finally:
+            conn.close()
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        for t in self.threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop_event.set()
+        for t in self.threads:
+            t.join(timeout=60)
+        self.wall = time.perf_counter() - self.t0
+        check(not any(t.is_alive() for t in self.threads), "query load hung")
+
+
+class _Sampler(threading.Thread):
+    """Queries the sampled new users one after another, one every
+    ONLINE_SAMPLE_PERIOD_S, until stopped: (user, consumer cursor read
+    before the query, receipt time, answer non-empty) for each."""
+
+    def __init__(self, port, consumer, users):
+        super().__init__(daemon=True)
+        self.port, self.consumer, self.users = port, consumer, users
+        self.stop_event, self.seen, self.rounds = threading.Event(), [], 0
+
+    def run(self):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
+        try:
+            while not self.stop_event.is_set():
+                for u in self.users:
+                    time.sleep(ONLINE_SAMPLE_PERIOD_S)
+                    cursor = self.consumer.cursor.get("0", 0)
+                    conn.request("POST", "/queries.json",
+                                 body=json.dumps({"user": f"u{u}", "num": 10}),
+                                 headers={"Content-Type": "application/json"})
+                    body = json.loads(conn.getresponse().read())
+                    self.seen.append((u, cursor, time.perf_counter(),
+                                      bool(body.get("item_scores"))))
+                self.rounds += 1
+        finally:
+            conn.close()
+
+
+def _wait_caught_up(consumer, store, app_id, ticks, what, timeout=ONLINE_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        latest = store.latest_revision(app_id)
+        if consumer.cursor.get("0", 0) == latest and not consumer.foldin.pending_items:
+            return latest
+        time.sleep(0.02)
+    secs = [round(t[0], 3) for t in ticks.ticks]
+    raise PhaseError(f"{what}: the consumer's cursor {consumer.cursor} did not reach "
+                     f"revision {store.latest_revision(app_id)} with no pending item "
+                     f"({len(consumer.foldin.pending_items)}) within {timeout} s; "
+                     f"{len(secs)} ticks, seconds {secs[-30:]}, last "
+                     f"{ticks.ticks[-1][2] if ticks.ticks else None}")
+
+
+def _select_held(sv, rng, tally, label):
+    """recommend_select on the staged slab against its plain version at
+    B in {1, 64} and k in {10, 128}: indices and values equal."""
+    int8 = sv.dtype == "int8"
+    for b in (1, 64):
+        rows = torch.from_numpy(rng.choice(sv.n_users, b, replace=False)).to(sv.device)
+        args = (sv.users[rows].contiguous(), sv.items,
+                sv.user_scale[rows].contiguous() if int8 else None,
+                sv.item_scale if int8 else None, None, None)
+        for k in (10, 128):
+            before = rec.ROUTE_LAUNCHES["select"]
+            kv, ki = rec.fused_recommend_topk(*args, k=k, n_items=sv.n_items)
+            pv, pi = rec.fused_recommend_topk_plain(*args, k=k, n_items=sv.n_items)
+            torch.cuda.synchronize()
+            case = f"{label} B={b} k={k}"
+            check(rec.ROUTE_LAUNCHES["select"] == before + 1, f"{case}: not on the select route")
+            check(torch.equal(ki, pi) and torch.equal(kv, pv),
+                  f"{case}: differs from the plain version")
+            tally["cases"] += 1
+            tally["max_abs_err"] = max(tally["max_abs_err"], float((kv - pv).abs().max()))
+
+
+def _states_equal(a, b):
+    return a.n_items == b.n_items and a.dtype == b.dtype and all(
+        (x is None and y is None) or (x is not None and y is not None and x.dtype == y.dtype
+                                      and x.shape == y.shape and torch.equal(x, y))
+        for x, y in ((a.users, b.users), (a.items, b.items), (a.user_scale, b.user_scale),
+                     (a.item_scale, b.item_scale), (a.item_inv_norm, b.item_inv_norm)))
+
+
+def phase_online(report, shared):
+    """Phase 12: the online fold-in over phase 11's app and instance: a
+    QueryServer in this process on its newest COMPLETED runtime, a
+    consumer attached, the Event Server again, the traffic, the checks."""
+    t_phase = time.perf_counter()
+    users, items, _ratings = shared["ingest"]
+    rng = np.random.default_rng(ONLINE_SEED)
+    events, new_users, old_users, new_items = _online_traffic(rng, users, items)
+    n_relevant = sum(e["event"] == "rate" for e in events)
+    with _loop_storage():
+        storage = Storage()
+        store = storage.get_events()
+        app = storage.get_meta_data_apps().get_by_name(INGEST_APP)
+        [key] = [k.key for k in storage.get_meta_data_access_keys().get_by_app_id(app.id)
+                 if not k.events]
+        [inst] = [i for i in storage.get_meta_data_engine_instances().get_all()
+                  if i.engine_id == "ml100k-als"]
+        t0 = time.perf_counter()
+        runtime = latest_completed_runtime(storage, inst.engine_id, inst.engine_version,
+                                           inst.engine_variant)
+        runtime_s = time.perf_counter() - t0
+        check(runtime.instance.id == inst.id, "the runtime serves another instance")
+        base = runtime.models[0].factors
+        with _Console(["eventserver", "--ip", "127.0.0.1", "--port", "0"],
+                      LOOP_DIR / "eventserver_online.log") as es, _OnlineSpies() as spies:
+            es_port = es.port(timeout=120)
+            rec.LAUNCHES = 0  # every count to 0 just before the main path
+            rec.ROUTE_LAUNCHES.update(select=0, sort=0)
+            srv = QueryServer(runtime=runtime, storage=storage,
+                              config=QueryServerConfig(ip="127.0.0.1", port=0))
+            port = srv.start()
+            try:
+                consumer = OnlineConsumer(storage, ServerApplyHost(srv), app.id,
+                                          OnlineConsumerConfig(tick_s=ONLINE_TICK_S,
+                                                               from_latest=True))
+                ticks = _TimedTicks(consumer)
+                srv.attach_online(app.id, consumer=consumer)
+                out = _online_run(srv, port, es_port, key, app.id, store, consumer, ticks,
+                                  events, new_users, old_users, new_items, n_relevant,
+                                  base, rng)
+            finally:
+                srv.stop()
+            launches = {"topk": rec.LAUNCHES, "select": rec.ROUTE_LAUNCHES["select"]}
+            stagings = spies.stagings
+        check(es.proc.returncode is not None, "eventserver still running")
+    check(launches["topk"] > 0 and launches["topk"] == launches["select"],
+          f"online top-k launches {launches}: not all on the select route")
+    check(stagings == 0, f"stage_serving ran {stagings} times during the ticks")
+    model = out.pop("model")
+    report["online"] = {**out, "launches": launches, "runtime_s": runtime_s,
+                        "nvidia_smi": report["nvidia_smi"]}
+    _online_held(report["online"], spies, base, model, rng)
+    on = report["online"]
+    on["phase_s"] = time.perf_counter() - t_phase
+    smi = report["nvidia_smi"]
+    tk, fo, pu = on["tick_s"], on["fold_ms"], on["publish_ms"]
+    print(f"[online] {smi} | {on['events']} events ({n_relevant} relevant) from "
+          f"{INGEST_WRITERS} writers, {on['ticks']} folding ticks of {ONLINE_TICK_S} s: tick "
+          f"p50 {tk['p50']:.4f} s, p99 {tk['p99']:.4f} s, max {tk['max']:.4f} s", flush=True)
+    busy = ("not measured (no device records)" if fo["device_busy_ms"] is None else
+            f"{fo['device_busy_ms']:.4f} ms in {fo['device_activities']:.0f} activities")
+    print(f"[online] {smi} | fold_in_rows: {fo['calls']} calls, host wall (packing, copies, "
+          f"solve, fetch) p50 {fo['host_p50']:.3f} ms, max {fo['host_max']:.3f} ms; its solve "
+          f"_fold_in (CUDA events, first launch to last kernel's end) p50 "
+          f"{fo['solve_p50']:.3f} ms, max {fo['solve_max']:.3f} ms; the largest fold "
+          f"({fo['device_rows']} rows, {fo['device_edges']} edges) busies the card {busy} "
+          f"(torch.profiler, kernels and copies); publish a tick p50 {pu['p50']:.3f} ms, "
+          f"max {pu['max']:.3f} ms; CPU re-run max |card - cpu| {on['fold_max_abs_err']:.3g}",
+          flush=True)
+    print(f"[online] {smi} | event to served: last POST acknowledged to cursor at the "
+          f"latest revision {on['caught_up_s']:.3f} s; {ONLINE_SAMPLED} sampled new users, "
+          f"POST acknowledged to their own answer p50 {on['user_served_s']['p50']:.3f} s, "
+          f"max {on['user_served_s']['max']:.3f} s", flush=True)
+    print(f"[online] {smi} | queries while folding ({N_CLIENTS} clients back to back): p50 {on['folding']['p50_ms']:.3f} ms, p99 "
+          f"{on['folding']['p99_ms']:.3f} ms, {on['folding']['qps']:.1f} qps; after: p50 "
+          f"{on['after']['p50_ms']:.3f} ms, p99 {on['after']['p99_ms']:.3f} ms, "
+          f"{on['after']['qps']:.1f} qps; top-k launches {launches['topk']} (select "
+          f"{launches['select']}); phase {on['phase_s']:.1f} s", flush=True)
+
+
+def _pctl(xs, q):
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def _online_run(srv, port, es_port, key, app_id, store, consumer, ticks, events,
+                new_users, old_users, new_items, n_relevant, base, rng):
+    """The traffic under a query load, the catch-up, the pause, the 500
+    queries and the restart; returns the phase's figures and the model
+    served at the end."""
+    sampled = rng.choice(new_users, ONLINE_SAMPLED, replace=False).tolist()
+    start_rev = consumer.cursor.get("0", 0)
+    acks: dict = {}
+    sampler = _Sampler(port, consumer, sampled)
+    sampler.start()
+    with _QueryLoad(port, rng) as load:
+        batches = _post_batches(es_port, key, events, acks)
+        t_last_ack = max(acks.values())
+        latest = _wait_caught_up(consumer, store, app_id, ticks, "the traffic")
+    rounds = sampler.rounds  # two more rounds: each user read after the catch-up
+    deadline = time.monotonic() + 30
+    while sampler.rounds < rounds + 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    sampler.stop_event.set()
+    sampler.join(timeout=60)
+    check(not sampler.is_alive(), "sampler hung")
+    check(not load.errors, f"queries failed while folding: {load.errors[:3]}")
+    check(latest - start_rev == len(events), f"{latest - start_rev} revisions for "
+          f"{len(events)} events")
+    c = consumer.counters
+    check(c["events_consumed"] == len(events), f"events_consumed {c['events_consumed']} != "
+          f"{len(events)} POSTed")
+    check(c["events_folded"] == n_relevant, f"events_folded {c['events_folded']} != "
+          f"{n_relevant} relevant")
+    n_users_touched = ONLINE_NEW_USERS + ONLINE_OLD_USERS
+    check(c["users_folded"] >= n_users_touched and c["items_folded"] >= ONLINE_NEW_ITEMS,
+          f"users_folded {c['users_folded']} / items_folded {c['items_folded']} below "
+          f"{n_users_touched} / {ONLINE_NEW_ITEMS}")
+    model = srv.runtime.models[0]
+    f = model.factors
+    check(f.user_factors.shape == (INGEST_USERS + ONLINE_NEW_USERS, RANK)
+          and f.item_factors.shape == (INGEST_ITEMS + ONLINE_NEW_ITEMS, RANK),
+          f"folded factor shapes {f.user_factors.shape} {f.item_factors.shape}")
+    check(_finite(f), "non-finite folded factors")
+    urow = [f.user_vocab(f"u{u}") for u in new_users.tolist()]
+    irow = [f.item_vocab(f"i{i}") for i in new_items.tolist()]
+    check(bool(np.abs(f.user_factors[urow]).sum(axis=1).all())
+          and bool(np.abs(f.item_factors[irow]).sum(axis=1).all()),
+          "a new user or item kept a zero factor row")
+    orow = [f.user_vocab(f"u{u}") for u in old_users.tolist()]
+    check(bool((f.user_factors[orow] != base.user_factors[orow]).any(axis=1).all()),
+          "an existing user's new ratings left its factor row as trained")
+    # per sampled user: its last batch's ack to its first answer read
+    # after the cursor passed its last event
+    last_rev = {u: max(e.revision for e in store.find(EventQuery(
+        app_id=app_id, entity_id=f"u{u}"))) for u in sampled}
+    served_s = []
+    for u in sampled:
+        t_ack = max(acks[b] for b, body in enumerate(batches)
+                    if any(e["entityId"] == f"u{u}" for e in body))
+        hits = [t for v, cur, t, ok in sampler.seen if v == u and ok and cur >= last_rev[u]]
+        check(hits, f"sampled new user u{u} was never served its fold")
+        served_s.append(min(hits) - t_ack)
+    caught = [t for _s, t, _o, cur in ticks.ticks if cur >= latest]
+    fold_ticks = [s for s, _t, o, _c in ticks.ticks if o.get("stats")]
+    figures = {
+        "events": len(events), "relevant": n_relevant, "counters": dict(c),
+        "ticks": len(fold_ticks),
+        "tick_s": {"p50": _pctl(fold_ticks, 0.5), "p99": _pctl(fold_ticks, 0.99),
+                   "max": max(fold_ticks)},
+        "caught_up_s": min(caught) - t_last_ack,
+        "user_served_s": {"p50": _pctl(served_s, 0.5), "max": max(served_s),
+                          "sampler_rounds": len(sampler.seen) / len(sampled)},
+        "folding": {"queries": len(load.lat), "p50_ms": 1e3 * _pctl(load.lat, 0.5),
+                    "p99_ms": 1e3 * _pctl(load.lat, 0.99), "qps": len(load.lat) / load.wall},
+    }
+
+    # pause: POSTed events stay unfolded until the resume
+    status, st = _call(port, "POST", "/online/pause", {"reason": "chip smoke"})
+    check(status == 200 and st["paused"] == "chip smoke", f"/online/pause: {status} {st}")
+    held = _online_paused_events(rng)
+    before = (dict(consumer.counters), dict(consumer.cursor))
+    _post_batches(es_port, key, held, {})
+    time.sleep(5 * ONLINE_TICK_S)
+    check((dict(consumer.counters), dict(consumer.cursor)) == before,
+          "events were folded while paused")
+    status, st = _call(port, "POST", "/online/resume", {})
+    check(status == 200 and st["paused"] is None, f"/online/resume: {status} {st}")
+    _wait_caught_up(consumer, store, app_id, ticks, "the resume")
+    check(consumer.counters["events_consumed"] == before[0]["events_consumed"] + ONLINE_PAUSED
+          and consumer.counters["events_folded"] == before[0]["events_folded"] + ONLINE_PAUSED,
+          f"after the resume: {consumer.counters} (before {before[0]})")
+    model = srv.runtime.models[0]
+
+    # 500 queries, the new users among them
+    queries = ([{"user": f"u{u}", "num": 10} for u in new_users.tolist()]
+               + [{"user": f"u{int(u)}", "num": int(rng.choice([5, 10, 20, 50]))}
+                  for u in rng.integers(0, INGEST_USERS, N_QUERIES - ONLINE_NEW_USERS)])
+    queries = [queries[n] for n in rng.permutation(len(queries)).tolist()]
+    st0 = _status(port)
+    out: dict = {}
+    lock = threading.Lock()
+    work = list(enumerate(queries))
+    threads = [threading.Thread(target=_client, args=(port, work[c::N_CLIENTS], out, lock))
+               for c in range(N_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "clients hung")
+    st1 = _status(port)
+    check(srv.runtime.models[0] is model, "the model changed during the 500 queries")
+    batches_n = st1["batches"] - st0["batches"]
+    served = st1["kernel_launches"] - st0["kernel_launches"]
+    select = st1["select_launches"] - st0["select_launches"]
+    check(batches_n > 0 and served == select == batches_n,
+          f"top-k launches {served} (select {select}) != batches {batches_n}")
+    new_ids = {f"u{u}" for u in new_users.tolist()}
+    for n, q in enumerate(queries):
+        status, body, _ = out[n]
+        check(status == 200, f"query {n}: HTTP {status} {body}")
+        check(q["user"] not in new_ids or body["item_scores"],
+              f"new user {q['user']} got an empty answer")
+    lat = [out[n][2] for n in range(len(queries))]
+    figures["after"] = {"p50_ms": 1e3 * _pctl(lat, 0.5), "p99_ms": 1e3 * _pctl(lat, 0.99),
+                        "qps": len(queries) / wall, "batches": batches_n,
+                        "launches": served}
+    figures["answers"] = [(q, out[n][1]) for n, q in enumerate(queries)]
+
+    # a fresh consumer resumes at the persisted cursor
+    counters, cursor = dict(consumer.counters), dict(consumer.cursor)
+    srv.online.stop()
+    fresh = srv.attach_online(app_id, OnlineConsumerConfig(tick_s=60, from_latest=True))
+    fresh.stop()
+    check(fresh is not consumer and fresh.cursor == cursor,
+          f"a fresh consumer starts at {fresh.cursor}, not {cursor}")
+    check(fresh.tick() == {"idle": "no new events"} and fresh.counters == counters,
+          f"the fresh consumer's first tick was not idle: {fresh.counters}")
+    return {**figures, "model": model}
+
+
+def _fold_device_ms(spies):
+    """The largest recorded fold re-run on the card under torch.profiler:
+    the card's busy ms a call (kernels and copies summed) and the device
+    activities a call; None when no session saw device records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fixed, edges, params, *_ = max(spies.folds, key=lambda f: sum(map(len, f[1])))
+    fx = torch.from_numpy(fixed).cuda()
+    spies.fold_of(fx, edges, params, device="cuda")
+    torch.cuda.synchronize()
+    calls, busy, acts = 5, None, None
+    for _session in range(3):  # a late session may lose its device records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                spies.fold_of(fx, edges, params, device="cuda")
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_time_total]
+        if events:
+            busy = sum(e.device_time_total for e in events) / calls / 1e3
+            acts = sum(e.count for e in events) / calls
+            break
+    return {"device_rows": len(edges), "device_edges": sum(map(len, edges)),
+            "device_busy_ms": busy, "device_activities": acts}
+
+
+def _online_paused_events(rng):
+    """ONLINE_PAUSED new ratings by existing users (after every earlier
+    time), for the pause check."""
+    t0 = INGEST_T0_MS + 1000 * (INGEST_EDGES + 30_000)
+    return [{"event": "rate", "entityType": "user", "entityId": f"u{int(u)}",
+             "targetEntityType": "item", "targetEntityId": f"i{int(i)}",
+             "properties": {"rating": int(r)}, "eventTime": _ms_iso(t0 + 1000 * n)}
+            for n, (u, i, r) in enumerate(zip(rng.integers(0, INGEST_USERS, ONLINE_PAUSED),
+                                              rng.integers(0, INGEST_ITEMS, ONLINE_PAUSED),
+                                              rng.integers(1, 6, ONLINE_PAUSED)))]
+
+
+def _online_held(on, spies, base, model, rng):
+    """After the run: the 500 answers against the plain top-k on the CPU
+    over the served factors, each fold re-run on the CPU, the published
+    f32 slab and an int8 replay of the same publishes bit-equal to a
+    restage, recommend_select held to its plain version on both."""
+    cpu_model = ALSModel(model.factors, device="cpu")
+    cpu_alg = ALSAlgorithm(ALSAlgorithmParams())
+    for n, (q, body) in enumerate(on.pop("answers")):
+        check(body == _to_jsonable(cpu_alg.predict(cpu_model, Query(**q))),
+              f"query {n} ({q}) differs from the CPU plain top-k")
+    err = 0.0
+    for fixed, edges, params, got, *_ms in spies.folds:
+        cpu = spies.fold_of(fixed, edges, params, device="cpu")
+        check(np.allclose(got, cpu, rtol=1e-4, atol=1e-4),
+              f"fold_in_rows on the card vs the CPU: max |diff| {np.abs(got - cpu).max()}")
+        err = max(err, float(np.abs(got - cpu).max()))
+    on["fold_max_abs_err"] = err
+    host_ms = [f[4] for f in spies.folds]
+    solve_ms = [f[5] for f in spies.folds]
+    on["fold_ms"] = {"calls": len(host_ms), "host_p50": _pctl(host_ms, 0.5),
+                     "host_max": max(host_ms), "solve_p50": _pctl(solve_ms, 0.5),
+                     "solve_max": max(solve_ms), **_fold_device_ms(spies)}
+    pub_ms = [1e3 * s for *_, s in spies.publishes]
+    on["publish_ms"] = {"calls": len(pub_ms), "p50": _pctl(pub_ms, 0.5), "max": max(pub_ms)}
+    # the publishes form one chain from the staged baseline to the served state
+    for (_a, prev_out, *_), (nxt_in, *_) in zip(spies.publishes, spies.publishes[1:]):
+        check(nxt_in is prev_out, "a publish started off a state that never served")
+    check(spies.publishes[-1][1] is model._serving_state, "the served state is not the "
+          "last publish's")
+    sv = model._serving_state
+    check(_states_equal(sv, spies.stage_of(model.factors, "f32", device=sv.device)),
+          "the published f32 state differs from a restage of its factors")
+    sv8 = spies.stage_of(base, "int8", device=sv.device)
+    for _in, _out, args, kw, _s in spies.publishes:
+        sv8 = spies.publish_of(sv8, *args, **kw)
+    check(_states_equal(sv8, spies.stage_of(model.factors, "int8", device=sv.device)),
+          "the int8 replay of the publishes differs from a restage")
+    check(sv.items.shape[0] == rec.pad_items(INGEST_ITEMS + ONLINE_NEW_ITEMS)
+          and rec.pad_items(INGEST_ITEMS) < sv.items.shape[0],
+          f"the slab did not grow past its pad headroom: {sv.items.shape}")
+    tally = {"cases": 0, "max_abs_err": 0.0}
+    _select_held(sv, rng, tally, "online f32 slab")
+    _select_held(sv8, rng, tally, "online int8 slab")
+    on["held"] = tally
+
+
+# ---------------------------------------------------------------------------
+# phase 13: ML-25M-width ratings, the windowed path's configuration
 # ---------------------------------------------------------------------------
 
 
@@ -2271,7 +2886,7 @@ def phase_data25(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the windowed pass kernels vs their plain versions on the card
+# phase 14: the windowed pass kernels vs their plain versions on the card
 # ---------------------------------------------------------------------------
 
 
@@ -2383,7 +2998,7 @@ def phase_windowed(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the windowed path, trained through ALSAlgorithm.train
+# phase 15: the windowed path, trained through ALSAlgorithm.train
 # ---------------------------------------------------------------------------
 
 
@@ -2488,7 +3103,7 @@ def phase_windowed_train(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the rank > 32 scatter path on the card
+# phase 16: the rank > 32 scatter path on the card
 # ---------------------------------------------------------------------------
 
 
@@ -2551,7 +3166,7 @@ def phase_scatter(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 16: windowed pass times
+# phase 17: windowed pass times
 # ---------------------------------------------------------------------------
 
 
@@ -2668,7 +3283,7 @@ def _partials_at_max_rank(rng, p, side, n_src, edges):
 
 
 # ---------------------------------------------------------------------------
-# phases 17-21: the Universal Recommender (CCO train, history scoring,
+# phases 18-22: the Universal Recommender (CCO train, history scoring,
 # the masked top-k kernel)
 # ---------------------------------------------------------------------------
 
@@ -3155,7 +3770,8 @@ def main() -> int:
                         ("serve", phase_serve), ("times", phase_times),
                         ("dense times", phase_dense_times),
                         ("loop", phase_loop), ("eval", phase_eval),
-                        ("ingest", phase_ingest), ("data25", phase_data25), ("windowed", phase_windowed),
+                        ("ingest", phase_ingest), ("online", phase_online),
+                        ("data25", phase_data25), ("windowed", phase_windowed),
                         ("windowed train", phase_windowed_train),
                         ("scatter", phase_scatter),
                         ("windowed times", phase_windowed_times),
@@ -3179,7 +3795,8 @@ def main() -> int:
         "fused_recommend_topk": {"serve": report["serve"]["launches"],
                                  "loop": report["loop"]["launches"]["serve_topk"],
                                  "eval": ev["topk"], "eval dense": evd["topk"],
-                                 "ingest": ing["serve_topk"]},
+                                 "ingest": ing["serve_topk"],
+                                 "online": report["online"]["launches"]["topk"]},
         "row": {"train": report["train"]["launches"]["row"],
                 "loop": report["loop"]["launches"]["row"],
                 "eval dense": evd["row"]},

@@ -9,8 +9,11 @@ records ``App``, ``AccessKey``, ``Channel``, ``EngineInstance``,
 ``EvaluationInstance``, ``EngineManifest`` and ``Model`` are the JAX
 package's field for field; the DAO interfaces are those of events
 (one namespace per app and channel), apps, access keys, channels,
-engine instances, evaluation instances and models. Tail reads by
-revision and property aggregation are not ported.
+engine instances, evaluation instances and models. The event store
+tails by insert revision (``latest_revision``, ``find_since``,
+``revision_streams``: the online consumer's read) over one stream a
+store, since no ported store shards. Property aggregation and data
+signatures are not ported.
 """
 
 from __future__ import annotations
@@ -113,6 +116,11 @@ class EventStore(abc.ABC):
         """Events matching the filter, in (event_time, event_id) order,
         reversed when the query says so."""
 
+    def delete_batch(self, event_ids: Sequence[str], app_id: int,
+                     channel_id: Optional[int] = None) -> int:
+        """Delete each id; returns how many existed."""
+        return sum(self.delete(eid, app_id, channel_id) for eid in event_ids)
+
     @abc.abstractmethod
     def find_entities_batch(
         self,
@@ -124,6 +132,80 @@ class EventStore(abc.ABC):
     ) -> dict[str, list[Event]]:
         """{entity_id: [events]} newest first, cut to `limit_per_entity`:
         a serving micro-batch's history read in one store call."""
+
+    def find_edges(
+        self,
+        app_id: int,
+        entity_type: str,
+        target_entity_type: str,
+        event_names: Sequence[str],
+        entity_ids: Optional[Sequence[str]] = None,
+        target_ids: Optional[Sequence[str]] = None,
+        channel_id: Optional[int] = None,
+    ) -> list[tuple[str, str, str, dict]]:
+        """(entity id, target id, event, properties) of every `event_names`
+        event from an `entity_type` entity to a `target_entity_type`
+        target, for the entities in `entity_ids` or the targets in
+        `target_ids` (exactly one of the two): grouped by that id in the
+        order given, each group oldest first by (event_time, event_id).
+        The online fold's history read, one store call a side. Default:
+        one `find` an id."""
+        by_target = target_ids is not None
+        if by_target == (entity_ids is not None):
+            raise ValueError("find_edges takes entity_ids or target_ids")
+        out = []
+        for i in dict.fromkeys(target_ids if by_target else entity_ids):
+            out.extend(
+                (e.entity_id, e.target_entity_id, e.event, e.properties)
+                for e in self.find(EventQuery(
+                    app_id=app_id, channel_id=channel_id,
+                    event_names=list(event_names), entity_type=entity_type,
+                    target_entity_type=target_entity_type,
+                    **({"target_entity_id": i} if by_target else {"entity_id": i})))
+                if e.target_entity_id is not None)
+        return out
+
+    # -- insert-revision tailing (the online consumer's read) ---------------
+    def latest_revision(self, app_id: int,
+                        channel_id: Optional[int] = None) -> int:
+        """Highest store-assigned insert revision of the namespace (0 when
+        empty). Default: a scan; the ported stores override it."""
+        return max((e.revision for e in self.find(
+            EventQuery(app_id=app_id, channel_id=channel_id))
+            if e.revision is not None), default=0)
+
+    def find_since(
+        self,
+        app_id: int,
+        after_revision: int,
+        channel_id: Optional[int] = None,
+        limit: Optional[int] = None,
+        shard: Optional[tuple[int, int]] = None,
+    ) -> list[Event]:
+        """Events with revision strictly above `after_revision`, in
+        revision order, cut to `limit` (None or negative: all). Revisions
+        are assigned at insert, so no client-supplied event time can
+        reorder the tail. `shard` must be None: no ported store shards.
+        Default: a scan and a sort; the ported stores override it."""
+        _no_shard(shard)
+        out = sorted(
+            (e for e in self.find(EventQuery(app_id=app_id, channel_id=channel_id))
+             if e.revision is not None and e.revision > after_revision),
+            key=lambda e: e.revision)
+        return out[:limit] if limit is not None and limit >= 0 else out
+
+    def revision_streams(
+        self,
+    ) -> list[tuple[str, "EventStore", Optional[tuple[int, int]]]]:
+        """The independently tailable revision streams as (key, store,
+        shard filter) rows: one for every ported store, so a consumer's
+        cursor is {"0": revision}."""
+        return [("0", self, None)]
+
+
+def _no_shard(shard) -> None:
+    if shard is not None:
+        raise ValueError("no ported event store shards: shard must be None")
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,11 @@ and evaluation instances and models.
 Counterpart of the JAX package's ``data/storage/memory.py``, cut to what
 the port calls: the event store's namespaces per app and channel with
 ``insert``, ``insert_batch``, ``get``, ``delete``, ``remove_app``,
-``find`` and ``find_entities_batch``, and the metadata rows. One RLock
+``find``, ``find_entities_batch`` and the tail read by insert revision
+(``latest_revision``, ``find_since``), and the metadata rows. One RLock
 per store; events are kept per namespace with a per-entity index for
 history reads. A channel id of 0 is the default channel, as in the
-sqlite store. Engine manifests and tail reads are not ported.
+sqlite store. Engine manifests are not ported.
 """
 
 from __future__ import annotations
@@ -126,6 +127,25 @@ class MemoryEventStore(base.EventStore):
                 if limit_per_entity is not None else events
             )
         return out
+
+    def latest_revision(self, app_id: int,
+                        channel_id: Optional[int] = None) -> int:
+        with self._lock:
+            return self._revisions.get(_ns(app_id, channel_id), 0)
+
+    def find_since(self, app_id: int, after_revision: int,
+                   channel_id: Optional[int] = None,
+                   limit: Optional[int] = None,
+                   shard: Optional[tuple[int, int]] = None) -> list[Event]:
+        """The namespace's events above the cursor in revision order: an
+        overwritten event carries its newest revision, a deleted one
+        none."""
+        base._no_shard(shard)
+        with self._lock:
+            out = [e for e in self._ns.get(_ns(app_id, channel_id), {}).values()
+                   if e.revision > after_revision]
+        out.sort(key=lambda e: e.revision)
+        return out[:limit] if limit is not None and limit >= 0 else out
 
     def find(self, query: EventQuery) -> Iterator[Event]:
         """Events matching the filter, ordered by (event_time, event_id),

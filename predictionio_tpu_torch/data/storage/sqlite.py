@@ -10,8 +10,10 @@ package's, so a ``pio.db`` written by either package reads in the
 other: one events table per app and channel,
 ``events_<appId>[_<channelId>]`` (reference JDBCUtils.eventTableName),
 and the ``apps``, ``accesskeys``, ``channels``, ``engineinstances`` and
-``evaluationinstances`` tables. Engine manifests, model blobs, tail
-reads and shard filters are not ported.
+``evaluationinstances`` tables. The tail read by insert revision
+(``find_since``, ``latest_revision``) goes through the table's
+``idx_<table>_rev`` index and the ``pio_insert_revisions`` counter.
+Engine manifests, model blobs and shard filters are not ported.
 """
 
 from __future__ import annotations
@@ -233,6 +235,11 @@ class SqliteEventStore(base.EventStore):
                     conn.commit()
         return n
 
+    # the table's columns in `_to_event`'s order
+    _COLUMNS = ("id, event, entityType, entityId, targetEntityType, "
+                "targetEntityId, properties, eventTime, tags, prId, "
+                "creationTime, revision")
+
     @staticmethod
     def _to_event(row: tuple) -> Event:
         (eid, event, etype, entity_id, tetype, teid, props, etime, tags,
@@ -333,6 +340,85 @@ class SqliteEventStore(base.EventStore):
                     sql, [entity_type, eid, *extra]).fetchall()
                 out[eid] = [self._to_event(r) for r in rows]
         return out
+
+    def _one_step(self, sql: str, params) -> list:
+        """The rows of `sql`, which selects ONE json_group_array, decoded:
+        the statement steps once however many events it folds. A
+        row-by-row fetch releases and retakes the interpreter lock at
+        every row, and behind a server's busy threads each retake waits
+        out a switch interval: a tick's 30,000 history rows then take
+        minutes (the online consumer's reads)."""
+        with self._client.lock:
+            (blob,) = self._client.conn.execute(sql, params).fetchone()
+        return json.loads(blob)
+
+    def find_edges(
+        self,
+        app_id: int,
+        entity_type: str,
+        target_entity_type: str,
+        event_names: Sequence[str],
+        entity_ids: Optional[Sequence[str]] = None,
+        target_ids: Optional[Sequence[str]] = None,
+        channel_id: Optional[int] = None,
+    ) -> list[tuple[str, str, str, dict]]:
+        """One SELECT a side, folded into one row (`_one_step`). The
+        entity side looks its ids up through idx_<table>_entity; the
+        target side has no index (the JAX tables have none), so it scans
+        the table once (NOT INDEXED: the entity-type filter would
+        otherwise walk the whole entity index row by row)."""
+        by_target = target_ids is not None
+        if by_target == (entity_ids is not None):
+            raise ValueError("find_edges takes entity_ids or target_ids")
+        ids = list(dict.fromkeys(target_ids if by_target else entity_ids))
+        name = self._ensure_table(app_id, channel_id)
+        col = "targetEntityId" if by_target else "entityId"
+        # the properties go in as JSON, so the one decode builds their
+        # dicts too (json() keeps each number's text as written)
+        rows = self._one_step(
+            "SELECT json_group_array(json_array(entityId, targetEntityId, "
+            "event, json(COALESCE(NULLIF(properties, ''), '{}')), eventTime, "
+            f"id)) FROM {name}"
+            f"{' NOT INDEXED' if by_target else ''} WHERE entityType = ? "
+            "AND targetEntityType = ? AND targetEntityId IS NOT NULL "
+            "AND event IN (SELECT value FROM json_each(?)) "
+            f"AND {col} IN (SELECT value FROM json_each(?))",
+            (entity_type, target_entity_type, json.dumps(list(event_names)),
+             json.dumps(ids)))
+        pos = {i: n for n, i in enumerate(ids)}
+        k = 1 if by_target else 0
+        rows.sort(key=lambda r: (pos[r[k]], r[4], r[5]))
+        return [(r[0], r[1], r[2], r[3]) for r in rows]
+
+    def latest_revision(self, app_id: int,
+                        channel_id: Optional[int] = None) -> int:
+        name = self._ensure_table(app_id, channel_id)
+        with self._client.lock:
+            row = self._client.conn.execute(
+                "SELECT rev FROM pio_insert_revisions WHERE tbl = ?", (name,)
+            ).fetchone()
+        return int(row[0]) if row else 0
+
+    def find_since(
+        self,
+        app_id: int,
+        after_revision: int,
+        channel_id: Optional[int] = None,
+        limit: Optional[int] = None,
+        shard: Optional[tuple[int, int]] = None,
+    ) -> list[Event]:
+        """Indexed tail read: revision above the cursor, in revision
+        order, one page through idx_<table>_rev, folded into one row
+        (`_one_step`)."""
+        base._no_shard(shard)
+        name = self._ensure_table(app_id, channel_id)
+        lim = f" LIMIT {int(limit)}" if limit is not None and limit >= 0 else ""
+        rows = self._one_step(
+            f"SELECT json_group_array(json_array({self._COLUMNS})) FROM "
+            f"(SELECT {self._COLUMNS} FROM {name} WHERE revision > ? "
+            f"ORDER BY revision ASC{lim})", (int(after_revision),))
+        rows.sort(key=lambda r: r[-1])
+        return [self._to_event(r) for r in rows]
 
     def find_frame(
         self,

@@ -16,13 +16,16 @@ threshold; ``ALSAlgorithm.train_grid`` trains a tuning grid over one
 staging per fold, and ``PrecisionAtK`` scores it. The model keeps its factor
 matrices resident on its device, so serving is one fused score+top-k
 call per query batch; it pickles without them, and deploy binds it to
-the deploy's device. A model also comes from a factor blob
+the deploy's device. An online fold's successor model takes over the
+staged state through ``ALSModel.adopt_serving`` (only the dirty rows
+written). A model also comes from a factor blob
 (``convert.py``). ``RecommendationEngine`` and
 ``FileRecommendationEngine`` are the factories engine.json names.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -48,6 +51,8 @@ from predictionio_tpu_torch.models import als
 from predictionio_tpu_torch.ops.recommend import ROWLIST_MAX, rowlist_np
 from predictionio_tpu_torch.ops.topk import NEG_INF
 from predictionio_tpu_torch.utils.bucket import batch_bucket, topk_bucket
+
+log = logging.getLogger(__name__)
 
 
 # -- training data ------------------------------------------------------------
@@ -335,6 +340,35 @@ class ALSModel:
                     device=self.device,
                 )
             return self._serving_state
+
+    def adopt_serving(self, old_state, dirty_users=None, dirty_items=None):
+        """The online fold's publish hook (`online/foldin.py:
+        _clone_model`): carry the predecessor's staged state by
+        publishing only the tick's dirty rows (`als.serving_publish_rows`,
+        copy-on-write off its shared tables) instead of restaging a
+        factor matrix. A side that changed without row attribution, or a
+        failed publish (logged), leaves the state unstaged: the next
+        query stages it from the factors."""
+        if old_state is None:
+            return
+        with self._stage_lock:
+            n_users = self.factors.user_factors.shape[0]
+            n_items = self.factors.item_factors.shape[0]
+            if dirty_users is None and n_users != old_state.n_users:
+                return
+            if dirty_items is None and n_items != old_state.n_items:
+                return
+            ur, uv = dirty_users if dirty_users is not None else (None, None)
+            ir, iv = dirty_items if dirty_items is not None else (None, None)
+            try:
+                self._serving_state = als.serving_publish_rows(
+                    old_state, user_rows=ur, user_vals=uv, item_rows=ir,
+                    item_vals=iv, n_users=n_users, n_items=n_items,
+                )
+            except Exception:  # noqa: BLE001 — the next query restages
+                log.exception("dirty-row publish failed; the model "
+                              "restages on its next query")
+                self._serving_state = None
 
     def resident_device_bytes(self) -> float:
         """Device footprint: the staged (possibly int8) state when staged,

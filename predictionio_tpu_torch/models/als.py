@@ -31,6 +31,12 @@ Serving stages the factor matrices on a device once (padded to
 ``ITEM_PAD`` rows, quantized for int8); every verb then sends only the
 row ids and, when filters apply, the packed exclusion words or row
 list, and runs ``ops.recommend.fused_recommend_topk``.
+
+The online fold-in re-solves a tick's dirty rows against the fixed
+opposite side (``fold_in_rows``, torch einsums and the batched CG: the
+JAX package leaves it to XLA, so no kernel of its own) and publishes
+them into the staged state row by row (``serving_publish_rows``,
+copy-on-write off shared tables).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import logging
 import math
 import time
 from dataclasses import dataclass, field
+from itertools import chain
 from typing import Optional, Sequence
 
 import numpy as np
@@ -1143,3 +1150,198 @@ def similar_vectors_serving(
     )
     v = torch.from_numpy(np.ascontiguousarray(vecs)).to(serving.device)
     return _host(*_serve_similar_vecs(v, serving, bits, ex, k=k))
+
+
+# -- fold-in publish: dirty rows into the staged serving state -----------------
+#
+# A published ServingFactors is shared: the query dispatcher may still be
+# serving a batch against it when the next state is built. Its tensors are
+# never written after publish. A row write off a shared table clones it
+# first (copy-on-write); only a table this publish grew itself, which no
+# reader has seen, is written in place. The consumer thread and the
+# dispatcher both launch their work on the device's default stream, so a
+# query launched after the swap is ordered after every write of the
+# publish, and the caching allocator reuses an old table's memory only
+# behind the kernels that read it.
+
+
+def _set_rows(table: torch.Tensor, rows: torch.Tensor, values: torch.Tensor,
+              private: bool) -> torch.Tensor:
+    """table[rows] = values, in place only into a `private` table."""
+    out = table if private else table.clone()
+    out[rows] = values.to(out.dtype)
+    return out
+
+
+def _set_cols(table: torch.Tensor, cols: torch.Tensor, values: torch.Tensor,
+              private: bool) -> torch.Tensor:
+    """table[0, cols] = values for the (1, N) scale rows."""
+    out = table if private else table.clone()
+    out[0, cols] = values
+    return out
+
+
+def _grow_table(table: torch.Tensor, n: int, fill: float = 0.0,
+                axis: int = 0) -> torch.Tensor:
+    """`table` extended to `n` along `axis` with `fill`: a new tensor,
+    private to the caller."""
+    extra = n - int(table.shape[axis])
+    if extra <= 0:
+        return table
+    shape = list(table.shape)
+    shape[axis] = extra
+    return torch.cat(
+        [table, torch.full(shape, fill, dtype=table.dtype, device=table.device)],
+        dim=axis,
+    )
+
+
+def serving_publish_rows(
+    serving: ServingFactors,
+    user_rows: Optional[np.ndarray] = None,
+    user_vals: Optional[np.ndarray] = None,  # (Ru, K) f32 solved rows
+    item_rows: Optional[np.ndarray] = None,
+    item_vals: Optional[np.ndarray] = None,  # (Ri, K) f32 solved rows
+    n_users: Optional[int] = None,
+    n_items: Optional[int] = None,
+) -> ServingFactors:
+    """A fold tick's dirty rows published into a new staged state
+    without restaging a factor matrix (the JAX package's
+    ``serving_publish_rows``): only the dirty rows are quantized (int8)
+    or cast (bf16) and written. Tables written off `serving` are copies;
+    `serving`'s tensors stay as they were. Growth fills with
+    `_stage_arrays`' values (zero factor rows, user and item scale 1.0,
+    inverse norm 0.0), and the item slab grows to `pad_items(n_items)`
+    rows, so once every live row has been published the state is
+    bit-equal to `stage_serving` of the same factors."""
+    n_users = max(serving.n_users, 0 if n_users is None else int(n_users))
+    n_items_new = max(serving.n_items, 0 if n_items is None else int(n_items))
+    users, uscale = serving.users, serving.user_scale
+    items, iscale = serving.items, serving.item_scale
+    inv = serving.item_inv_norm
+    int8 = serving.dtype == "int8"
+    dev = serving.device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    grown = n_users > serving.n_users
+    if grown:
+        users = _grow_table(users, n_users)
+        if int8:
+            uscale = _grow_table(uscale, n_users, 1.0)
+    if user_rows is not None and len(user_rows) > 0:
+        ur = put(np.asarray(user_rows, np.int64))
+        uv = np.asarray(user_vals, np.float32)
+        if int8:
+            q, s = _rp.quantize_rows_np(uv)
+            users = _set_rows(users, ur, put(q), grown)
+            uscale = _set_rows(uscale, ur, put(s[:, None]), grown)
+        else:
+            users = _set_rows(users, ur, put(uv), grown)
+
+    i_p_new = _rp.pad_items(n_items_new)
+    grown = i_p_new > int(items.shape[0])  # past the staged pad headroom
+    if grown:
+        items = _grow_table(items, i_p_new)
+        inv = _grow_table(inv, i_p_new, 0.0, axis=1)
+        if int8:
+            iscale = _grow_table(iscale, i_p_new, 1.0, axis=1)
+    if item_rows is not None and len(item_rows) > 0:
+        ir = put(np.asarray(item_rows, np.int64))
+        iv = np.asarray(item_vals, np.float32)
+        if int8:
+            q, s = _rp.quantize_rows_np(iv)
+            items = _set_rows(items, ir, put(q), grown)
+            iscale = _set_cols(iscale, ir, put(s), grown)
+        else:
+            items = _set_rows(items, ir, put(iv), grown)
+        # the cosine verbs' inverse norms follow the rows' new f32 values
+        inv = _set_cols(inv, ir, put(_rp.inv_norms_np(iv)[0]), grown)
+
+    return ServingFactors(
+        users=users, items=items, user_scale=uscale, item_scale=iscale,
+        n_items=n_items_new, dtype=serving.dtype, item_inv_norm=inv,
+    )
+
+
+# -- online fold-in: one side's rows re-solved against the other ---------------
+
+
+def _fold_in(fixed, edge_idx, edge_val, edge_ok, lam, alpha, *, implicit,
+             cg_iterations):
+    """Solve R dirty rows' K×K regularized normal equations against the
+    fixed opposite factor matrix: one ALS half-step restricted to those
+    rows, over a dense (R, E) edge block (the JAX package's
+    ``_fold_in_jit``, the same operator assembly as the half-steps).
+    Padded slots carry edge_ok = 0 and add nothing."""
+    k = fixed.shape[1]
+    y = fixed[edge_idx]  # (R, E, K)
+    eye = torch.eye(k, dtype=torch.float32, device=fixed.device)
+    with full_f32():
+        if implicit:
+            conf = 1.0 + alpha * torch.abs(edge_val)
+            pref = (edge_val > 0).to(torch.float32)
+            w_b = conf * pref * edge_ok
+            w_g = (conf - 1.0) * edge_ok
+            gram = f32_gram(fixed)
+            b = torch.einsum("re,rek->rk", w_b, y)
+            a = (torch.einsum("rek,rel->rkl", w_g[:, :, None] * y, y)
+                 + gram[None, :, :] + lam * eye)
+        else:
+            b = torch.einsum("re,rek->rk", edge_val * edge_ok, y)
+            reg = lam * torch.clamp(torch.sum(edge_ok, dim=1), min=1.0)
+            a = (torch.einsum("rek,rel->rkl", edge_ok[:, :, None] * y, y)
+                 + reg[:, None, None] * eye)
+        return batched_cg(lambda v: torch.einsum("rkl,rl->rk", a, v), b,
+                          torch.zeros_like(b), cg_iterations)
+
+
+def _fold_edge_bucket(n: int) -> int:
+    """Pow2 ladder with a floor of 8 for the per-row edge axis: a few
+    distinct shapes for the stream of ticks."""
+    return max(8, 1 << (max(n, 1) - 1).bit_length())
+
+
+def fold_in_rows(
+    fixed,  # (N, K) opposite-side factors, numpy or a tensor
+    edges: Sequence[Sequence[tuple[int, float]]],  # per row: (fixed row, value)
+    params: ALSParams,
+    device=None,
+) -> np.ndarray:
+    """Re-solve each dirty row's regularized least squares against the
+    FIXED opposite factor matrix and return the (R, K) solved factors,
+    on the card unless `device` says otherwise (the JAX package's
+    ``fold_in_rows``). Rows pad to `batch_bucket`, edges to
+    `_fold_edge_bucket`; padded rows and slots carry edge_ok = 0. A row
+    with no edges solves to exactly zero."""
+    from predictionio_tpu_torch.utils.bucket import batch_bucket
+
+    if not edges:
+        return np.zeros((0, params.rank), np.float32)
+    dev = resolve_device(device)
+    r_pad = batch_bucket(len(edges))
+    e_pad = _fold_edge_bucket(max(len(e) for e in edges))
+    idx = np.zeros((r_pad, e_pad), np.int64)
+    val = np.zeros((r_pad, e_pad), np.float32)
+    ok = np.zeros((r_pad, e_pad), np.float32)
+    # packed without a Python loop over the edges: the consumer packs up
+    # to ~30,000 a tick while the query threads want the interpreter
+    lens = np.fromiter(map(len, edges), np.int64, len(edges))
+    flat = np.fromiter(chain.from_iterable(chain.from_iterable(edges)),
+                       np.float64, 2 * int(lens.sum())).reshape(-1, 2)
+    rows = np.repeat(np.arange(len(edges)), lens)
+    slots = np.arange(len(flat)) - np.repeat(np.cumsum(lens) - lens, lens)
+    idx[rows, slots] = flat[:, 0].astype(np.int64)
+    val[rows, slots] = flat[:, 1]
+    ok[rows, slots] = 1.0
+    fx = (fixed.to(dev, torch.float32) if isinstance(fixed, torch.Tensor)
+          else torch.from_numpy(np.ascontiguousarray(fixed, np.float32)).to(dev))
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    solved = _fold_in(fx, put(idx), put(val), put(ok), params.lambda_,
+                      params.alpha, implicit=params.implicit_prefs,
+                      cg_iterations=params.cg_iterations)
+    return solved[:len(edges)].cpu().numpy()

@@ -25,6 +25,9 @@
 
     python -m predictionio_tpu_torch.tools.console eval run EVALUATION \\
         [GENERATOR] [--device cpu]
+    python -m predictionio_tpu_torch.tools.console online \\
+        status|pause|resume [--url http://localhost:8000] [--reason R]
+    python -m predictionio_tpu_torch.tools.console online cursors
 
     python -m predictionio_tpu_torch.tools.console train --ratings FILE \\
         --out blob.npz [--rank 10] [--iterations 20] [--lambda 0.01] \\
@@ -48,7 +51,10 @@ interrupted. ``eval run`` evaluates an ``Evaluation`` named by its
 import path (``module.Class``) over the grid of an
 ``EngineParamsGenerator`` (or the evaluation's own
 ``engine_params_list``) and stores an evaluation instance; it exits 0
-only when that instance is EVALCOMPLETED. Not ported, and refused with
+only when that instance is EVALCOMPLETED. ``online status|pause|resume``
+ask a running query server (``--url``) for its fold-in consumer's state,
+or pause or resume it; ``online cursors`` prints the consumers' durable
+cursor records from storage. Not ported, and refused with
 exit code 1: the fleet evaluation (an EvalSpec file as the target,
 ``eval list/show/status/gc``), ``tune``, ``eventserver --log-url`` and
 the parquet format of ``import`` and ``export``. An operator error (an
@@ -183,6 +189,18 @@ def _parser() -> argparse.ArgumentParser:
             "rest", nargs=argparse.REMAINDER)
     sub.add_parser("tune", help="not ported").add_argument(
         "rest", nargs=argparse.REMAINDER)
+
+    on = sub.add_parser("online", help="the streaming fold-in consumer"
+                        ).add_subparsers(dest="online_action", required=True)
+    for name, what in (("status", "consumer status"),
+                       ("pause", "pause fold-in (the last-good model serves)"),
+                       ("resume", "resume fold-in from the durable cursor")):
+        s = on.add_parser(name, help=what)
+        s.add_argument("--url", default="http://localhost:8000",
+                       help="query server base URL")
+        if name == "pause":
+            s.add_argument("--reason", default=None)
+    on.add_parser("cursors", help="durable consumer cursor records in storage")
     return ap
 
 
@@ -393,7 +411,7 @@ def build_server(args: argparse.Namespace):
             Storage(), variant["id"], args.engine_version, variant["id"],
             device=args.device,
         )
-        return QueryServer(runtime=runtime, config=config)
+        return QueryServer(runtime=runtime, config=config, storage=Storage())
     factors = load_jax_als_blob(args.model.read_bytes())
     params = ALSAlgorithmParams(rank=factors.params.rank, serve_dtype=args.serve_dtype)
     model = ALSModel(factors, serve_dtype=args.serve_dtype, device=args.device)
@@ -456,6 +474,71 @@ def eval_run(args: argparse.Namespace) -> int:
     return 0 if inst.status == "EVALCOMPLETED" else 1
 
 
+def _server_call(base: str, path: str, body: Optional[dict] = None) -> dict:
+    """POST (with a JSON body) or GET `base+path` on a running query
+    server; HTTP and transport failures become CommandError."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base.rstrip("/") + path,
+        data=json.dumps(body).encode() if body is not None else None,
+        headers={"Content-Type": "application/json"},
+        method="POST" if body is not None else "GET",
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        detail = e.read().decode(errors="replace")
+        try:
+            detail = json.loads(detail).get("message", detail)
+        except ValueError:
+            pass
+        raise CommandError(f"query server refused ({e.code}): {detail}")
+    except OSError as e:
+        raise CommandError(f"query server unreachable at {base}: {e}")
+
+
+def online(args: argparse.Namespace) -> int:
+    """`online status|pause|resume`: a running query server's fold-in
+    consumer (--url); `online cursors`: the durable cursor records."""
+    counters = ("events_consumed", "events_folded", "users_folded",
+                "items_folded", "ticks")
+    if args.online_action == "cursors":
+        from predictionio_tpu_torch.deploy.registry import LifecycleRecordStore
+        from predictionio_tpu_torch.online.consumer import CURSOR_ENTITY
+
+        records = LifecycleRecordStore(Storage()).fold(CURSOR_ENTITY)
+        if not records:
+            print("[INFO] no online consumer cursors recorded")
+            return 0
+        for cid, rec in sorted(records.items()):
+            print(f"[INFO] {cid}:")
+            print(f"[INFO]   cursor: {rec.get('cursor')}")
+            for k in counters:
+                print(f"[INFO]   {k}: {rec.get(k, 0)}")
+        return 0
+    if args.online_action == "status":
+        st = _server_call(args.url, "/online/status")
+    elif args.online_action == "pause":
+        st = _server_call(args.url, "/online/pause",
+                          {"reason": args.reason or "operator pause"})
+    else:
+        st = _server_call(args.url, "/online/resume", {})
+    print(f"[INFO] online consumer: {st.get('state')}")
+    if st.get("state") != "attached":
+        return 0
+    print(f"[INFO]   paused: {st.get('paused') or 'no'}")
+    print(f"[INFO]   cursor {st.get('cursor_id')}: {st.get('cursor')}")
+    print(f"[INFO]   drift: {st.get('drift')} "
+          f"(threshold {st.get('drift_threshold')})")
+    for k, v in (st.get("counters") or {}).items():
+        print(f"[INFO]   {k}: {v}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     try:
@@ -466,7 +549,7 @@ def main(argv=None) -> int:
 
 def _run(args: argparse.Namespace) -> int:
     commands = {"app": app_cmd, "channel": channel_cmd, "accesskey": accesskey_cmd,
-                "eventserver": eventserver, "status": status}
+                "eventserver": eventserver, "status": status, "online": online}
     if args.cmd in commands:
         return commands[args.cmd](args)
     if args.cmd in ("import", "export") and args.format == "parquet":

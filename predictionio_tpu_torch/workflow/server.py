@@ -10,9 +10,18 @@ a trained engine instance from storage, as ``console deploy
 --engine-json`` does) or from one algorithm and its model, served
 through ``FirstServing``.
 
-Counterpart of the JAX package's ``workflow/server.py``, cut to the main
-route: no reload, continuous batching, tenancy, rollout, online
-learning, deadlines or feedback.
+A server over storage swaps its runtime in place: ``reload()`` (``GET``
+or ``POST /reload``) builds the variant's newest COMPLETED instance and
+swaps it in under the swap lock, and an online consumer
+(``attach_online``; ``GET /online/status``, ``POST
+/online/pause|resume``) swaps in each fold under the same lock. Queries
+carry the runtime they were read against, and the dispatcher serves
+each group of a drain with its own, so a query that spans a swap is
+answered by one runtime.
+
+Counterpart of the JAX package's ``workflow/server.py``, cut to these
+routes: no continuous batching, tenancy, rollout, replicas, deadlines
+or feedback.
 """
 
 from __future__ import annotations
@@ -192,10 +201,11 @@ def extract_query(cls: type, obj: Any) -> Any:
 
 
 class _Pending:
-    __slots__ = ("query", "fut")
+    __slots__ = ("query", "runtime", "fut")
 
-    def __init__(self, query, fut):
+    def __init__(self, query, runtime, fut):
         self.query = query
+        self.runtime = runtime  # the runtime the query was read against
         self.fut = fut
 
 
@@ -224,9 +234,10 @@ class _BatchDispatcher:
         )
         self._thread.start()
 
-    def submit(self, query: Any, timeout: float = 30.0) -> Any:
+    def submit(self, query: Any, runtime: "EngineRuntime",
+               timeout: float = 30.0) -> Any:
         fut: Future = Future()
-        self._queue.put(_Pending(query, fut))
+        self._queue.put(_Pending(query, runtime, fut))
         return fut.result(timeout=timeout)
 
     def stop(self) -> None:
@@ -261,19 +272,25 @@ class _BatchDispatcher:
                 self.window_s = min(self.max_window_s, self.window_s * 2)
             else:
                 self.window_s = max(self.min_window_s, self.window_s / 2)
-            self._run(batch)
+            # group by runtime: queries that span a swap are served by the
+            # runtime they were read against
+            groups: dict[int, tuple[Any, list]] = {}
+            for p in batch:
+                groups.setdefault(id(p.runtime), (p.runtime, []))[1].append(p)
+            for runtime, group in groups.values():
+                self._run(runtime, group)
 
-    def _run(self, batch: list) -> None:
+    def _run(self, runtime: "EngineRuntime", batch: list) -> None:
         owner = self.owner
         t0 = time.perf_counter()
         try:
-            preds = owner.predict_batch([p.query for p in batch])
+            preds = owner.predict_batch([p.query for p in batch], runtime)
         except Exception:  # noqa: BLE001 — retried per query below
             log.exception("batch predict failed; retrying query by query")
             for p in batch:
                 t0 = time.perf_counter()
                 try:
-                    result = owner.predict_batch([p.query])[0]
+                    result = owner.predict_batch([p.query], runtime)[0]
                     owner.count_batch(time.perf_counter() - t0)
                     p.fut.set_result(result)
                 except Exception as e:  # noqa: BLE001 — the waiter's error
@@ -292,15 +309,54 @@ class _Handler(JsonHandler):
 
     def do_GET(self):
         self._drain_body()
-        if self._path() == "/":
-            self._respond(200, self.server.owner.status())
+        path, owner = self._path(), self.server.owner
+        if path == "/":
+            self._respond(200, owner.status())
+        elif path == "/online/status":
+            self._respond(200, owner.online_status())
+        elif path == "/reload":
+            self._reload()
         else:
-            self._respond(404, {"message": f"no route {self._path()}"})
+            self._respond(404, {"message": f"no route {path}"})
+
+    def _reload(self) -> None:
+        try:
+            self.server.owner.reload()
+        except Exception as e:  # noqa: BLE001 — the old runtime serves on
+            log.exception("reload failed")
+            self._respond(500, {"message": str(e)})
+        else:
+            self._respond(200, {"message": "Reload successful"})
+
+    def _online(self, path: str) -> None:
+        owner = self.server.owner
+        if owner.online is None:
+            self._respond(404, {"message": "no online consumer attached"})
+        elif path == "/online/pause":
+            try:
+                body = self._json_body()
+            except HttpError as e:
+                self._respond(e.status, {"message": e.message})
+                return
+            reason = (body.get("reason") if isinstance(body, dict) else None
+                      ) or "operator pause"
+            owner.online.pause(reason)
+            self._respond(200, owner.online_status())
+        else:
+            owner.online.resume()
+            self._respond(200, owner.online_status())
 
     def do_POST(self):
         raw = self._drain_body()
-        if self._path() != "/queries.json":
-            self._respond(404, {"message": f"no route {self._path()}"})
+        path = self._path()
+        if path == "/reload":
+            self._reload()
+            return
+        if path in ("/online/pause", "/online/resume"):
+            self._online(path)
+            return
+        if path != "/queries.json":
+            self._respond(404, {"message": f"no route {path}"})
             return
         owner = self.server.owner
         try:
@@ -331,7 +387,8 @@ class QueryServer(ServerProcess):
     """Deploy-server process: serves an EngineRuntime, or one algorithm
     over one model (through FirstServing). `start()` warms each algorithm
     up (staging its model on its device) before it accepts queries,
-    unless the runtime came warmed from `build_runtime`."""
+    unless the runtime came warmed from `build_runtime`. `reload` and
+    `attach_online` need the `storage` the runtime came from."""
 
     _name = "query-server"
 
@@ -341,6 +398,7 @@ class QueryServer(ServerProcess):
         model: Any = None,
         config: Optional[QueryServerConfig] = None,
         runtime: Optional[EngineRuntime] = None,
+        storage: Any = None,
     ):
         super().__init__()
         if (runtime is None) == (algorithm is None):
@@ -353,8 +411,13 @@ class QueryServer(ServerProcess):
                 query_class=query_class(algorithm),
             )
         self.runtime = runtime
+        self.storage = storage
         self.query_class = runtime.query_class
         self.config = config or QueryServerConfig()
+        # serializes the writers of `runtime` (reload, the online
+        # consumer's publish); queries read it without the lock
+        self._swap_lock = threading.RLock()
+        self.online = None  # Optional[OnlineConsumer]
         self._count_lock = threading.Lock()
         self._requests = 0  # guarded-by: _count_lock
         self._batches = 0  # guarded-by: _count_lock
@@ -383,6 +446,8 @@ class QueryServer(ServerProcess):
         return super().start()
 
     def stop(self) -> None:
+        if self.online is not None:
+            self.online.stop()  # the consumer thread joins with the server
         super().stop()
         if self.dispatcher is not None:
             self.dispatcher.stop()
@@ -393,10 +458,10 @@ class QueryServer(ServerProcess):
         server.owner = self
         return server
 
-    def predict_batch(self, queries: list) -> list:
-        """The engine's answers to `queries`: supplemented by the Serving
-        stage, one `batch_predict` per algorithm, combined by `serve`."""
-        rt = self.runtime
+    def predict_batch(self, queries: list, rt: EngineRuntime) -> list:
+        """The answers of runtime `rt` to `queries`: supplemented by the
+        Serving stage, one `batch_predict` per algorithm, combined by
+        `serve`."""
         supplemented = [rt.serving.supplement(q) for q in queries]
         indexed = list(enumerate(supplemented))
         per_algo = [
@@ -411,10 +476,11 @@ class QueryServer(ServerProcess):
     def predict(self, query: Any) -> Any:
         with self._count_lock:
             self._requests += 1
+        runtime = self.runtime  # one snapshot per query
         if self.dispatcher is not None:
-            return self.dispatcher.submit(query)
+            return self.dispatcher.submit(query, runtime)
         t0 = time.perf_counter()
-        result = self.predict_batch([query])[0]
+        result = self.predict_batch([query], runtime)[0]
         self.count_batch(time.perf_counter() - t0)
         return result
 
@@ -424,6 +490,53 @@ class QueryServer(ServerProcess):
         with self._count_lock:
             self._batches += 1
             self._batch_s += seconds
+
+    def reload(self) -> None:
+        """Swap in the variant's newest COMPLETED instance, built on the
+        current model's device; queries in flight keep the runtime they
+        were read against. Serialized under the swap lock."""
+        with self._swap_lock:
+            inst = self.runtime.instance
+            if self.storage is None or inst is None:
+                raise RuntimeError("reload needs a server built over "
+                                   "storage from an engine instance")
+            self.runtime = latest_completed_runtime(
+                self.storage, inst.engine_id, inst.engine_version,
+                inst.engine_variant,
+                device=getattr(self.model, "device", None),
+            )
+
+    def attach_online(self, app_id: int, config=None, consumer=None):
+        """Attach and start a fold-in consumer: the events of `app_id`'s
+        default channel tail into this server's runtime between
+        retrains. A `consumer` passed
+        in replaces the default wiring."""
+        from predictionio_tpu_torch.online import (
+            OnlineConsumer,
+            ServerApplyHost,
+        )
+
+        if self.online is not None:
+            self.online.stop()
+            if not self.online.stopped():
+                # a wedged tick: a replacement would be a second writer
+                # of the same cursor record
+                raise RuntimeError("the previous online consumer did not "
+                                   "stop; refusing a second writer")
+        if consumer is None:
+            if self.storage is None:
+                raise RuntimeError("attach_online needs a server built "
+                                   "over storage")
+            consumer = OnlineConsumer(self.storage, ServerApplyHost(self),
+                                      app_id, config=config)
+        self.online = consumer
+        self.online.start()
+        return self.online
+
+    def online_status(self) -> dict:
+        if self.online is None:
+            return {"state": "detached"}
+        return dict(self.online.status(), state="attached")
 
     def status(self) -> dict:
         """Counts since the server started serving (warmup excluded):

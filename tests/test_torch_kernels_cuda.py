@@ -856,3 +856,57 @@ def test_train_from_event_server_posts_equals_plain_pass_train(card):
         got, want = getattr(f, side), getattr(plain, side)
         assert np.isfinite(got).all()
         assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.9999, side
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_select_on_a_slab_grown_by_row_publish(card, dtype):
+    """recommend_select on a slab that serving_publish_rows grew from
+    1,792 to 1,920 rows (ML-100K's 1,682 items plus 200 new ones, past
+    the pad headroom) and rewrote row by row: indices and values equal to
+    the plain version, and the slab equal to a restage of the same
+    factors."""
+    import dataclasses
+
+    from predictionio_tpu_torch.data.store.bimap import BiMap
+    from predictionio_tpu_torch.models import als
+
+    rng = np.random.default_rng(42)
+    k, n_users, n_items, new_users, new_items = 10, 943, 1_682, 200, 200
+    base = als.ALSFactors(
+        user_factors=rng.standard_normal((n_users, k)).astype(np.float32),
+        item_factors=rng.standard_normal((n_items, k)).astype(np.float32),
+        user_vocab=BiMap({f"u{i}": i for i in range(n_users)}),
+        item_vocab=BiMap({f"i{i}": i for i in range(n_items)}))
+    sv = als.stage_serving(base, dtype, device=card)
+    assert sv.items.shape[0] == 1_792
+    uf, itf = base.user_factors.copy(), base.item_factors.copy()
+    for tick in range(4):  # new rows in four publishes, old rows rewritten
+        urows = np.concatenate([rng.choice(len(uf), 30, replace=False),
+                                len(uf) + np.arange(new_users // 4)])
+        irows = np.concatenate([rng.choice(len(itf), 20, replace=False),
+                                len(itf) + np.arange(new_items // 4)])
+        uf = np.concatenate([uf, np.zeros((new_users // 4, k), np.float32)])
+        itf = np.concatenate([itf, np.zeros((new_items // 4, k), np.float32)])
+        uf[urows] = rng.standard_normal((len(urows), k))
+        itf[irows] = rng.standard_normal((len(irows), k))
+        sv = als.serving_publish_rows(sv, urows, uf[urows], irows, itf[irows],
+                                      n_users=len(uf), n_items=len(itf))
+    assert sv.items.shape[0] == 1_920 and sv.n_items == 1_882
+    want = als.stage_serving(dataclasses.replace(base, user_factors=uf, item_factors=itf),
+                             dtype, device=card)
+    for f in ("users", "items", "user_scale", "item_scale", "item_inv_norm"):
+        a, b = getattr(sv, f), getattr(want, f)
+        assert (a is None and b is None) or torch.equal(a, b), f
+    int8 = dtype == "int8"
+    for b in (1, 64):
+        rows = torch.from_numpy(rng.choice(len(uf), b, replace=False)).to(card)
+        args = (sv.users[rows].contiguous(), sv.items,
+                sv.user_scale[rows].contiguous() if int8 else None,
+                sv.item_scale if int8 else None, None, None)
+        for kk in (10, 128):
+            before = rec.ROUTE_LAUNCHES["select"]
+            kv, ki = rec.fused_recommend_topk(*args, k=kk, n_items=sv.n_items)
+            pv, pi = rec.fused_recommend_topk_plain(*args, k=kk, n_items=sv.n_items)
+            torch.cuda.synchronize()
+            assert rec.ROUTE_LAUNCHES["select"] == before + 1
+            assert torch.equal(ki, pi) and torch.equal(kv, pv)
