@@ -3,7 +3,8 @@
 serve paths, the storage-backed train → deploy → query loop, the grid
 evaluation over the same storage, the Event Server feeding train →
 deploy, the online fold-in of live events into the served model, and
-the Universal Recommender's train and serve path, on one CUDA card.
+the model lifecycle (train jobs, checkpoints, warm starts, versions),
+and the Universal Recommender's train and serve path, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -114,12 +115,49 @@ Phases, in order; any failure prints what failed and exits non-zero:
             Last, at each rank of the grid (10, 20), block_partials with
             the combine on fold 0's two staged windowed plans and the row
             and col passes on the staged int8 R are held to their plain
-            versions as phases 5 and 14 hold them. Prints read_eval,
+            versions as phases 5 and 15 hold them. Prints read_eval,
             staging and ``train_grid`` seconds per fold,
             ``batch_predict`` seconds per model, metric seconds,
             eval_wall_sec, each point's score and the best point, each
             line with the card's name and power limit.
-11. ingest  the reference's quick start through the Event Server, over
+11. lifecycle the model lifecycle over the loop's storage and app, with
+            the train job's child on the card: ``jobs submit`` of the
+            template's variant with checkpoint_every 5 and ``jobs worker
+            --once`` (job 1): completed at attempt 1, its instance
+            COMPLETED with no ``ckpt:`` blob left, version v1 ``trained``
+            with the job's id, the child's log showing 4 segments each
+            staged StagedDenseTrain (int8) and 20 + 20 dense pass
+            launches, v1's factors bit-equal to an uninterrupted
+            ``ALSAlgorithm.train`` of the same data in this process.
+            ``train_als_checkpointed`` killed after 2 segments, then
+            resumed: a checkpoint at iteration 10, 10 + 10 launches of
+            each pass a run, factors bit-equal, the checkpoint cleared.
+            ``models promote`` v1; ``console import`` of 10,000 new
+            ``rate`` events from LIFECYCLE_SEED (200 new users x 20
+            movies, 100 new movies x 30 users, 300 users x 10 movies they
+            had not rated); job 2 with warm_start: v2's parent v1, ``models
+            show`` its lineage, the log's warm start from v1, its factors
+            bit-equal to a train from ``warm_start_factors`` of v1 and
+            unequal to a cold one. Job 3 under an in-process
+            ``TrainScheduler``: its child (found by its spec path in
+            /proc, as ``pgrep -f`` finds it) SIGKILLed once its first
+            checkpoint is saved; completed at attempt 2 with one version,
+            the killed attempt's instance not COMPLETED and its checkpoint
+            left (the JAX package's retry does not resume either). The
+            row and col passes on the R after the delta, at rank 10,
+            held to their plain versions. Job 3's instance served in
+            this process (``latest_completed_runtime``): 200 queries
+            from 8 threads (new users and movies among them), each equal
+            to the plain top-k on the CPU, top-k launches equal to
+            batches, all on the select route. ``models gc --keep 1``
+            keeps v1 and v3, ``jobs gc --keep 2`` jobs 2 and 3. The
+            children import this checkout through PYTHONPATH. Prints
+            each job's queue wait, worker and stage seconds and
+            segments, from its log the child's start and each segment's
+            set-up and run seconds, the kill to the retry's claim, the
+            kill/resume seconds, query p50/p99/qps, each line with the
+            card's name and power limit.
+12. ingest  the reference's quick start through the Event Server, over
             the loop's storage, at ML-100K's shape: 100,000 ``rate``
             events from INGEST_SEED (943 users x 1,682 movies, unique
             pairs with degrees anchored on ML-100K's counts, integer
@@ -148,7 +186,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             Prints events/s, the POST latencies, the train's stages,
             deploy to ready and query p50/p99/qps, each line with the
             card's name and power limit.
-12. online the online fold-in over phase 11's app and instance: the
+13. online the online fold-in over phase 12's app and instance: the
             variant's newest COMPLETED runtime built here on the card
             (``latest_completed_runtime``) behind a ``QueryServer`` in this
             process, a consumer attached (``attach_online``, ticks of 0.2
@@ -182,19 +220,19 @@ Phases, in order; any failure prints what failed and exits non-zero:
             ms on the card a call, publish ms a tick, event-to-served
             seconds and query p50/p99/qps while folding and after, each
             line with the card's name and power limit.
-13. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
+14. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
             users x 59,047 items, 25,000,095 unique pairs (users 20 to
             32,202 ratings, items up to 81,491); the dense gate must refuse
             them for the byte budget alone (int8 R 9,688,842,240 B > 9e9).
             Builds both windowed plans and prints their block counts.
-14. windowed the windowed pass kernels (block_partials and the combine,
+15. windowed the windowed pass kernels (block_partials and the combine,
             through ``ops.windowed.windowed_gram_b``) against their plain
             versions on the card: K in {1, 8, 10, 32}, implicit and
             explicit weights, signed ratings, padding slots with local ids
             past both ends of [0, S), a block of 1,024 slots on one row,
             unsorted ids, an all-padding plan, and both full ML-25M plans
             at K = 10. Per element within 1e-5 * S, bit-equal on relaunch.
-15. windowed train  ``ALSAlgorithm.train`` on the phase-13 data at the
+16. windowed train  ``ALSAlgorithm.train`` on the phase-14 data at the
             template defaults with 5 iterations: the staging must be
             StagedWindowedTrain, each kernel must launch once per
             half-step, factors finite, a second run from the same staging
@@ -202,17 +240,17 @@ Phases, in order; any failure prints what failed and exits non-zero:
             the card must correlate > 0.9999. Then the factors go through
             the npz blob to ``recommend_serving``: 16 queries, each equal
             to the plain top-k.
-16. scatter a rank-48 train (100,000 ratings, 2 iterations) through
+17. scatter a rank-48 train (100,000 ratings, 2 iterations) through
             ``ALSAlgorithm.train`` on the card and on the CPU from the same
             seed: within rtol = atol = 1e-4 (no kernel of its own).
-17. windowed times  CUDA-event medians per ML-25M side, K = 10: the
+18. windowed times  CUDA-event medians per ML-25M side, K = 10: the
             block_partials kernel, its plain version, a gather + outer
             product + ``index_add_`` yardstick the port never calls, the
             bound; the combine kernel, its plain version, its bound; then
             block_partials at K = 32 on the users plan (kernel, plain,
             bound; no yardstick), and the partials kernel's ptxas
             registers, shared memory and CTAs an SM at K = 10 and 32.
-18. ur sweep  the precomputed-score selector (``fused_masked_topk``)
+19. ur sweep  the precomputed-score selector (``fused_masked_topk``)
             against its plain version on the card: I_p in {1,024 (below
             one 4,096-column select segment), 12,416 (a short last
             segment), 100,096} with dead pads, B in {1, 8, 64}, k in {1,
@@ -221,32 +259,32 @@ Phases, in order; any failure prints what failed and exits non-zero:
             and 64, a fully masked row, an all-zero row, equal maxima on
             both sides of every chunk and segment boundary. Each call must
             take the route its k names; indices and values must be equal.
-19. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
+20. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
             at full size) from UR_SEED: 3,000 users, 100,000 items, one buy
             per item plus 30 buys per user on zipf(1.3) items, and 30
             views per user from their own stream, into the port's
             ``MemoryEventStore``.
-20. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
+21. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
             the card at the template defaults (50 correlators, 100 query
             events): every table finite, and equal to the same block train
             on the CPU for three blocks of 1,024 items per indicator
             within the LLR tolerance (atol = 16 eps N ln N; indices equal
             outside tie groups). Prints read, indicator build, counts and
             LLR + top-n seconds.
-21. ur serve the card-trained model behind the port's ``QueryServer``;
+22. ur serve the card-trained model behind the port's ``QueryServer``;
             16 client threads send 500 UR queries (mostly exclude_seen,
             20 % blacklists, unknown users, view-only users added after
             the train). Every answer must equal ``_predict_batch`` on a
             CPU copy of the model; masked kernel launches, and those of
             its select route, must equal device batches.
-22. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
+23. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
             {1, 64}: the kernel (its launches per call, which must equal
             its route's, and its time on the card alone, both by
             ``torch.profiler``), its plain version,
             ``torch.topk`` over
             ``torch.where(mask, NEG_INF, scores)`` as a yardstick the port
             never calls, the bound, and the history scoring outside it.
-23. report  one ``{"kernels": [...]}`` line, then the device line last.
+24. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -262,6 +300,7 @@ import os
 import queue
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -312,12 +351,22 @@ try:
         OnlineConsumerConfig,
         ServerApplyHost,
     )
+    from predictionio_tpu_torch.deploy.registry import ModelRegistry
+    from predictionio_tpu_torch.deploy.scheduler import (
+        JobQueue,
+        SchedulerConfig,
+        TrainScheduler,
+    )
     from predictionio_tpu_torch.ops import _build, dense
     from predictionio_tpu_torch.ops import dense_fused as df
     from predictionio_tpu_torch.ops import recommend as rec
     from predictionio_tpu_torch.ops import windowed as win
     from predictionio_tpu_torch.ops import windowed_fused as wf
     from predictionio_tpu_torch.tools import console
+    from predictionio_tpu_torch.workflow.checkpoint import (
+        CheckpointManager,
+        train_als_checkpointed,
+    )
     from predictionio_tpu_torch.workflow.core import stage_timings
     from predictionio_tpu_torch.workflow.server import (
         QueryServer,
@@ -403,6 +452,13 @@ ONLINE_PAUSED, ONLINE_SAMPLED = 50, 20  # events POSTed while paused; users time
 # the query load while folding is N_CLIENTS clients sending back to back,
 # as every serve phase does; the sampled new users' poll, one query a period
 ONLINE_SAMPLE_PERIOD_S = 0.02
+LIFECYCLE_SEED = 15
+LIFECYCLE_ENGINE = "ml1m-lc"
+LIFECYCLE_CHECKPOINT_EVERY = 5
+LIFECYCLE_NEW_USERS, LIFECYCLE_NEW_USER_RATINGS = 200, 20  # on existing movies
+LIFECYCLE_NEW_ITEMS, LIFECYCLE_NEW_ITEM_RATINGS = 100, 30  # by existing users
+LIFECYCLE_OLD_USERS, LIFECYCLE_OLD_USER_RATINGS = 300, 10  # new pairs
+LIFECYCLE_QUERIES, LIFECYCLE_CLIENTS = 200, 8
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 LOOP_DIR = Path(__file__).resolve().parent / "build" / "loop"
 
@@ -1447,6 +1503,7 @@ def phase_loop(report, shared):
     (LOOP_DIR / "store").mkdir()
     with _loop_storage():
         _loop_run(report, users, items, ratings, events_path, data_s)
+    shared["loop"] = (users, items, ratings)  # the lifecycle phase's base
     report["loop"]["phase_s"] = time.perf_counter() - t_phase
     loop = report["loop"]
     smi = report["nvidia_smi"]
@@ -1837,23 +1894,31 @@ def _eval_kernels_held(staged_w, staged_d):
     """block_partials with the combine on fold 0's two windowed plans, and
     the row and col passes on the forced-dense grid's staged int8 R, at
     each rank of the grid, held to their plain versions on the card as
-    phases 5 and 14 hold them (the scored top-k is held by the answers)."""
+    phases 5 and 15 hold them (the scored top-k is held by the answers)."""
     rng = np.random.default_rng(SEED + 10)
     ranks = sorted({rank for rank, _, _ in EVAL_GRID})
     w_tally = {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
                "combined_max_abs_err": 0.0, "combined_max_ratio": 0.0}
     d_tally = {w: {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0} for w in ("row", "col")}
-    r, dkw = staged_d.device_args[0], staged_d.static_kwargs
-    ascale = float(np.float32(dkw["alpha"] / dkw["scale"]))
     for k in ranks:
         _windowed_held(staged_w, k, rng, w_tally, "eval fold 0")
-        for which, n_side in (("row", r.shape[1]), ("col", r.shape[0])):
-            x = torch.from_numpy((rng.standard_normal((n_side, k))
-                                  / np.sqrt(k)).astype(np.float32)).cuda()
-            _dense_compare(r, x, ascale, True, which, d_tally,
-                           f"eval fold 0 int8 R {tuple(r.shape)} {which} K={k}")
+        _dense_held(staged_d, k, rng, d_tally, "eval fold 0")
     return {"ranks": ranks, "windowed": w_tally, "dense": d_tally,
-            "dense_r": list(r.shape)}
+            "dense_r": list(staged_d.device_args[0].shape)}
+
+
+def _dense_held(staged_d, k, rng, tally, label):
+    """The row and col passes on a staged dense train's R, with random
+    factors of rank `k` and the train's own weights, held to their plain
+    versions on the card (`_dense_compare`)."""
+    r, kw = staged_d.device_args[0], staged_d.static_kwargs
+    ascale = float(np.float32(kw["alpha"] / kw["scale"] if kw["implicit"]
+                              else 1.0 / kw["scale"]))
+    for which, n_side in (("row", r.shape[1]), ("col", r.shape[0])):
+        x = torch.from_numpy((rng.standard_normal((n_side, k))
+                              / np.sqrt(k)).astype(np.float32)).cuda()
+        _dense_compare(r, x, ascale, kw["implicit"], which, tally,
+                       f"{label} {staged_d.dense_dtype} R {tuple(r.shape)} {which} K={k}")
 
 
 def _windowed_held(staged_w, k, rng, tally, label):
@@ -1872,7 +1937,500 @@ def _windowed_held(staged_w, k, rng, tally, label):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the Event Server feeding train -> deploy at ML-100K's shape
+# phase 11: the model lifecycle over the loop's storage
+# ---------------------------------------------------------------------------
+
+
+def _lifecycle_variant(**als_params):
+    return {"id": LIFECYCLE_ENGINE,
+            "engineFactory": "predictionio_tpu_torch.engines.recommendation."
+                             "RecommendationEngine",
+            "datasource": {"params": {"app_name": LOOP_APP, "event_names": ["rate"]}},
+            "algorithms": [{"name": "als", "params": {
+                "checkpoint_every": LIFECYCLE_CHECKPOINT_EVERY, **als_params}}]}
+
+
+def _lifecycle_delta(rng, users, items):
+    """The new `rate` events as (user ids, item ids, ratings, times): new
+    users on existing movies, new movies by existing users, and existing
+    users on movies they had not rated; no pair repeats one in the app."""
+    have = set((users * LOOP_ITEMS + items).tolist())
+    du, di = [], []
+    for n in range(LIFECYCLE_NEW_USERS):
+        for i in rng.choice(LOOP_ITEMS, LIFECYCLE_NEW_USER_RATINGS, replace=False):
+            du.append(f"u{LOOP_USERS + n}")
+            di.append(f"i{i}")
+    for n in range(LIFECYCLE_NEW_ITEMS):
+        for u in rng.choice(LOOP_USERS, LIFECYCLE_NEW_ITEM_RATINGS, replace=False):
+            du.append(f"u{u}")
+            di.append(f"i{LOOP_ITEMS + n}")
+    for u in rng.choice(LOOP_USERS, LIFECYCLE_OLD_USERS, replace=False):
+        fresh = [i for i in rng.permutation(LOOP_ITEMS) if u * LOOP_ITEMS + i not in have]
+        for i in fresh[:LIFECYCLE_OLD_USER_RATINGS]:
+            du.append(f"u{u}")
+            di.append(f"i{i}")
+    n = len(du)
+    t0 = LOOP_T0_MS + 1000 * (LOOP_EDGES + 1)  # after every loop rating
+    return du, di, rng.integers(1, 6, n), t0 + 1000 * rng.permutation(n)
+
+
+def _job_sections(job):
+    """A job's log by attempt: {attempt: (spawned at, its text)}; the
+    supervisor writes each attempt's header, with the UTC time, just
+    before it spawns the child."""
+    text = Path(job.log_path).read_text(errors="replace")
+    parts = re.split(r"^--- attempt (\d+) \((\S+)\) ---$", text, flags=re.M)
+    return {int(a): (datetime.datetime.fromisoformat(t), body)
+            for a, t, body in zip(parts[1::3], parts[2::3], parts[3::3])}
+
+
+def _job_log(job, attempt):
+    """One attempt's section of a job's log."""
+    sections = _job_sections(job)
+    check(attempt in sections, f"job {job.id}: no attempt {attempt} in its log")
+    return sections[attempt][1]
+
+
+def _log_lines(section):
+    """The child's logging lines of a log section as (UTC time, message);
+    the child stamps them in local time to the millisecond."""
+    out = []
+    for m in re.finditer(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) \w+ \S+: (.*)$",
+                         section, flags=re.M):
+        local = datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f")
+        out.append((local.astimezone(datetime.timezone.utc), m.group(2)))
+    return out
+
+
+def _log_figures(job, attempt, inst):
+    """From one attempt's log, on the host's clock: the child's start
+    (its spawn to its first log line, which follows the read, less the
+    instance's read seconds), and for each segment its set-up (the log
+    line before its `staged` line to that line: the dense gate and the
+    staging) and its run (the `staged` line to the next line: the
+    segment's iterations and its checkpoint save)."""
+    spawned, section = _job_sections(job)[attempt]
+    lines = _log_lines(section)
+    check(bool(lines), f"job {job.id}: no timed lines in attempt {attempt}'s log")
+    first = (lines[0][0] - spawned).total_seconds()
+    setup, run = [], []
+    for n, (t, msg) in enumerate(lines):
+        if msg.startswith("ALS train staged") and 0 < n < len(lines) - 1:
+            setup.append((t - lines[n - 1][0]).total_seconds())
+            run.append((lines[n + 1][0] - t).total_seconds())
+    return {"spawn_to_first_line_s": first,
+            "child_start_s": first - stage_timings(inst)["read"],
+            "segment_setup_s": setup, "segment_run_s": run}
+
+
+def _job_launches(job, attempt):
+    """(row, col, partials, combine) launches the attempt's child wrote,
+    and how many segments it staged, each a StagedDenseTrain."""
+    section = _job_log(job, attempt)
+    m = re.search(r"kernel launches: dense row (\d+), col (\d+); windowed partials "
+                  r"(\d+), combine (\d+)", section)
+    check(m is not None, f"job {job.id}: no launch line in its log")
+    staged = re.findall(r"ALS train staged (\w+) \((\w+) R\)", section)
+    check(bool(staged) and all(c == "StagedDenseTrain" for c, _ in staged),
+          f"job {job.id}: staged {staged}, not StagedDenseTrain")
+    return tuple(int(x) for x in m.groups()), len(staged), staged[0][1]
+
+
+def _job_times(job, inst):
+    wait = (datetime.datetime.fromisoformat(job.started_at)
+            - datetime.datetime.fromisoformat(job.created_at)).total_seconds()
+    wall = (datetime.datetime.fromisoformat(job.finished_at)
+            - datetime.datetime.fromisoformat(job.started_at)).total_seconds()
+    return {"queue_wait_s": wait, "started_to_finished_s": wall,
+            "stages": stage_timings(inst)}
+
+
+def _pids_naming(marker):
+    """The pids of the processes whose command line names `marker`, as
+    an operator would find a job's child (`pgrep -f`)."""
+    pids = []
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                cmdline = (d / "cmdline").read_bytes()
+            except OSError:
+                continue  # ended meanwhile
+            if marker.encode() in cmdline:
+                pids.append(int(d.name))
+    return pids
+
+
+def _blob_factors(storage, instance_id):
+    [model] = deserialize_models(storage.get_model_data_models().get(instance_id).models)
+    check(type(model) is ALSModel, f"MODELDATA {instance_id} holds {type(model).__name__}")
+    return model
+
+
+def _run_job(storage, variant_path, attempts=1):
+    """`jobs submit` then `jobs worker --once` (the child on the card):
+    the finished job, its instance and version, and the worker's seconds."""
+    rc, out = _console_out(["jobs", "submit", "--variant", str(variant_path)])
+    check(rc == 0, f"jobs submit exited {rc}")
+    job_id = re.search(r"job-[0-9a-f]{12}", out).group()
+    t0 = time.perf_counter()
+    rc, out = _console_out(["jobs", "worker", "--once", "--log-dir",
+                            str(LOOP_DIR / "jobs")])
+    worker_s = time.perf_counter() - t0
+    check(rc == 0 and "ran 1 pending job(s)" in out, f"jobs worker exited {rc}: {out}")
+    return _finished_job(storage, job_id, attempts) + (worker_s,)
+
+
+def _finished_job(storage, job_id, attempts):
+    job = JobQueue(storage).get(job_id)
+    check(job.status == "completed" and job.attempt == attempts,
+          f"job {job_id}: {job.status} at attempt {job.attempt} ({job.last_error})")
+    inst = storage.get_meta_data_engine_instances().get(job.instance_id)
+    check(inst is not None and inst.status == "COMPLETED",
+          f"job {job_id}: instance {inst and inst.status}")
+    check(storage.get_model_data_models().get(f"ckpt:{inst.id}") is None,
+          f"job {job_id}: checkpoint ckpt:{inst.id} left behind")
+    version = ModelRegistry(storage).get(job.model_version)
+    check(version is not None and version.status == "trained"
+          and version.job_id == job_id and version.instance_id == inst.id,
+          f"job {job_id}: version {version}")
+    return job, inst, version
+
+
+def _als_params(p):
+    return als.ALSParams(rank=p.rank, iterations=p.num_iterations, lambda_=p.lambda_,
+                         alpha=p.alpha, implicit_prefs=p.implicit_prefs,
+                         cg_iterations=p.cg_iterations, seed=p.seed)
+
+
+def _train_arrays(td):
+    return (td.rows, td.cols, td.vals, td.n_users, td.n_items)
+
+
+def phase_lifecycle(report, shared):
+    """Phase 11: train jobs through the queue and its worker (the child on
+    the card), checkpointed and warm-started, a kill and resume, a worker
+    crash, promotion, serving of the newest instance and GC."""
+    t_phase = time.perf_counter()
+    # the job children run `python -m predictionio_tpu_torch.deploy.worker`:
+    # they import this checkout wherever the script was started from
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        filter(None, (str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH"))))
+    users, items, _ratings = shared["loop"]
+    params = ALSAlgorithmParams()
+    ap = _als_params(params)
+    jobs_dir = LOOP_DIR / "jobs"
+    v1_path, v2_path = LOOP_DIR / "lifecycle.json", LOOP_DIR / "lifecycle_warm.json"
+    v1_path.write_text(json.dumps(_lifecycle_variant()))
+    v2_path.write_text(json.dumps(_lifecycle_variant(warm_start=True)))
+    ds = RecommendationDataSource(DataSourceParams(app_name=LOOP_APP, event_names=("rate",)))
+    lc: dict = {"checkpoint_every": LIFECYCLE_CHECKPOINT_EVERY}
+    with _loop_storage():
+        storage = Storage()
+        registry = ModelRegistry(storage)
+
+        # 1. a checkpointed cold train through the queue
+        job1, inst1, v1, worker1_s = _run_job(storage, v1_path)
+        launches1, segments1, dtype1 = _job_launches(job1, 1)
+        it = params.num_iterations
+        check(launches1[:2] == (it, it) and launches1[2:] == (0, 0),
+              f"job 1 launches {launches1} != one row and col pass an iteration ({it})")
+        check(segments1 == it // LIFECYCLE_CHECKPOINT_EVERY,
+              f"job 1 staged {segments1} segments")
+        check("checkpoint saved at iteration 15" in _job_log(job1, 1),
+              "job 1 saved no checkpoint at iteration 15")
+        f1 = _blob_factors(storage, inst1.id).factors
+        t0 = time.perf_counter()
+        td1 = ds.read_training(RuntimeContext(storage=storage))
+        read_s = time.perf_counter() - t0
+        with _Spy(als, "stage_dense") as dense_spy, _Spy(als, "stage_windowed") as win_spy:
+            full = ALSAlgorithm(params).train(RuntimeContext(), td1).factors
+            check(_bit_equal(f1, full), "job 1's checkpointed factors differ from an "
+                  "uninterrupted ALSAlgorithm.train of the same data on the card")
+
+            # 2. kill after two segments, resume from the checkpoint
+            manager = CheckpointManager(storage, "lifecycle-kill-resume")
+
+            class Killed(RuntimeError):
+                pass
+
+            def kill_after_two(done):
+                if done == 2 * LIFECYCLE_CHECKPOINT_EVERY:
+                    raise Killed(done)
+
+            vocabs = dict(user_vocab=td1.user_vocab, item_vocab=td1.item_vocab)
+            df.PASS_LAUNCHES.update(row=0, col=0)
+            t0 = time.perf_counter()
+            try:
+                train_als_checkpointed(*_train_arrays(td1), ap, manager,
+                                       LIFECYCLE_CHECKPOINT_EVERY, on_segment=kill_after_two,
+                                       **vocabs)
+                raise PhaseError("the killed train ran to its end")
+            except Killed:
+                pass
+            killed_s = time.perf_counter() - t0
+            killed_launches = dict(df.PASS_LAUNCHES)
+            saved = manager.load()
+            check(saved is not None and saved[0] == 2 * LIFECYCLE_CHECKPOINT_EVERY,
+                  f"checkpoint after the kill: {saved and saved[0]}")
+            df.PASS_LAUNCHES.update(row=0, col=0)
+            t0 = time.perf_counter()
+            resumed = train_als_checkpointed(*_train_arrays(td1), ap, manager,
+                                             LIFECYCLE_CHECKPOINT_EVERY, **vocabs)
+            resume_s = time.perf_counter() - t0
+            resume_launches = dict(df.PASS_LAUNCHES)
+            half = it - 2 * LIFECYCLE_CHECKPOINT_EVERY
+            check(killed_launches == {"row": it - half, "col": it - half}
+                  and resume_launches == {"row": half, "col": half},
+                  f"kill/resume launches {killed_launches}, {resume_launches}")
+            check(_bit_equal(resumed, full), "the resumed factors differ from the "
+                  "uninterrupted train's")
+            check(manager.load() is None, "the resumed train left its checkpoint")
+            del td1, full, resumed
+
+            # 3. promote v1
+            rc, out = _console_out(["models", "promote", v1.id])
+            check(rc == 0 and registry.get(v1.id).status == "live", f"promote: {out}")
+            rc, out = _console_out(["models", "list"])
+            check(f"{v1.id} [live]" in out, "models list does not show v1 live")
+
+            # 4. the delta through console import
+            rng = np.random.default_rng(LIFECYCLE_SEED)
+            du, di, dr, dt_ms = _lifecycle_delta(rng, users, items)
+            stamps = np.datetime_as_string(dt_ms.astype("datetime64[ms]"), unit="ms")
+            delta_path = LOOP_DIR / "lifecycle_delta.jsonl"
+            with open(delta_path, "w") as f:
+                for n in range(len(du)):
+                    f.write(json.dumps({
+                        "event": "rate", "entityType": "user", "entityId": du[n],
+                        "targetEntityType": "item", "targetEntityId": di[n],
+                        "properties": {"rating": int(dr[n])},
+                        "eventTime": f"{stamps[n]}Z"}) + "\n")
+            t0 = time.perf_counter()
+            rc, _ = _console_out(["import", "--app", LOOP_APP, "--input", str(delta_path)])
+            import_s = time.perf_counter() - t0
+            check(rc == 0, "import of the delta")
+
+            # 5. a warm-started checkpointed train
+            job2, inst2, v2, worker2_s = _run_job(storage, v2_path)
+            launches2, segments2, dtype2 = _job_launches(job2, 1)
+            check(launches2 == (it, it, 0, 0) and segments2 == segments1,
+                  f"job 2 launches {launches2}, {segments2} segments")
+            check(f"warm-starting train from live version {v1.id}" in _job_log(job2, 1),
+                  "job 2's log shows no warm start from v1")
+            check(v2.parent_version == v1.id, f"v2's parent {v2.parent_version}")
+            rc, out = _console_out(["models", "show", v2.id])
+            check(f"lineage: {v2.id} <- {v1.id}" in out, "models show v2: no lineage")
+            td2 = ds.read_training(RuntimeContext(storage=storage))
+            check(len(td2.rows) == LOOP_EDGES + len(du), f"{len(td2.rows)} edges after "
+                  "the delta: a pair repeated")
+            f2 = _blob_factors(storage, inst2.id).factors
+            init = als.warm_start_factors(f1, td2.user_vocab, td2.item_vocab, ap)
+            vocabs = dict(user_vocab=td2.user_vocab, item_vocab=td2.item_vocab)
+            warm = als.train(*_train_arrays(td2), ap, init_factors=init, **vocabs)
+            cold = als.train(*_train_arrays(td2), ap, **vocabs)
+            check(_bit_equal(f2, warm), "job 2's factors differ from an in-process "
+                  "train from warm_start_factors(v1)")
+            check(not np.array_equal(f2.user_factors, cold.user_factors)
+                  and not np.array_equal(f2.item_factors, cold.item_factors),
+                  "job 2's factors equal a cold train's: no warm start")
+            warm_vs_cold = max(float(np.abs(f2.user_factors - cold.user_factors).max()),
+                               float(np.abs(f2.item_factors - cold.item_factors).max()))
+            del td2, warm, cold, init
+        check(not win_spy.calls and all(isinstance(out, als.StagedDenseTrain)
+                                        for *_, out in dense_spy.calls)
+              and len(dense_spy.calls) == 1 + segments1 + 2,
+              f"in-process stagings: {len(dense_spy.calls)} dense, "
+              f"{len(win_spy.calls)} windowed")
+        # the passes on the R after the delta (the cold train's staging),
+        # at the path's rank, held to their plain versions
+        held = {w: {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0} for w in ("row", "col")}
+        staged_post = dense_spy.calls[-1][2]
+        _dense_held(staged_post, ap.rank, np.random.default_rng(LIFECYCLE_SEED + 1), held,
+                    "lifecycle after the delta")
+        lc["held"] = {"dense": held, "dense_r": list(staged_post.device_args[0].shape),
+                      "dense_dtype": staged_post.dense_dtype, "rank": ap.rank}
+        del dense_spy, staged_post
+
+        # 6. a worker crash: the child killed once the train started
+        rc, out = _console_out(["jobs", "submit", "--variant", str(v2_path)])
+        job3_id = re.search(r"job-[0-9a-f]{12}", out).group()
+        sched = TrainScheduler(storage, SchedulerConfig(log_dir=str(jobs_dir)))
+        queue = JobQueue(storage)
+        t0 = time.perf_counter()
+        sched.start()
+        try:
+            killed_pid = None
+            deadline = time.monotonic() + 300
+            while killed_pid is None and time.monotonic() < deadline:
+                job3 = queue.get(job3_id)
+                # killed once its first segment's checkpoint is saved
+                if (job3.status == "running" and job3.log_path
+                        and "checkpoint saved at iteration" in Path(
+                            job3.log_path).read_text(errors="replace")):
+                    [killed_pid] = _pids_naming(f"{job3_id}.spec.json")
+                    os.kill(killed_pid, signal.SIGKILL)
+                    killed_at = datetime.datetime.now(datetime.timezone.utc)
+                time.sleep(0.02)
+            check(killed_pid is not None, "job 3's train never started")
+            while time.monotonic() < deadline:
+                if queue.get(job3_id).status in ("completed", "failed"):
+                    break
+                time.sleep(0.2)
+        finally:
+            sched.stop()
+        crash_s = time.perf_counter() - t0
+        job3, inst3, v3 = _finished_job(storage, job3_id, attempts=2)
+        kill_to_claim = (datetime.datetime.fromisoformat(job3.started_at)
+                         - killed_at).total_seconds()
+        launches3, segments3, _ = _job_launches(job3, 2)
+        check(launches3 == (it, it, 0, 0), f"job 3 launches {launches3}")
+        mine = [v.id for v in registry.list() if v.job_id == job3_id]
+        check(mine == [v3.id], f"job 3 registered {mine}")
+        lc_insts = [i for i in storage.get_meta_data_engine_instances().get_all()
+                    if i.engine_id == LIFECYCLE_ENGINE]
+        killed = [i for i in lc_insts if i.id not in (inst1.id, inst2.id, inst3.id)]
+        check(len(killed) == 1 and killed[0].status != "COMPLETED",
+              f"the killed attempt's instances: {[(i.id, i.status) for i in killed]}")
+        # a reference quirk, kept: the retry trained afresh under a new
+        # instance, and nothing clears the killed attempt's checkpoint
+        check(storage.get_model_data_models().get(f"ckpt:{killed[0].id}") is not None,
+              "the killed attempt's checkpoint is gone")
+
+        # 7. serve the newest COMPLETED instance
+        runtime = latest_completed_runtime(storage, LIFECYCLE_ENGINE, "0", LIFECYCLE_ENGINE)
+        check(runtime.instance.id == inst3.id, "the runtime serves another instance")
+        serve = _lifecycle_serve(runtime, storage, inst3.id, rng)
+
+        # 8. GC
+        rc, out = _console_out(["models", "gc", "--keep", "1"])
+        check(rc == 0 and {v.id for v in registry.list()} == {v1.id, v3.id},
+              f"models gc --keep 1 left {[v.id for v in registry.list()]}")
+        rc, out = _console_out(["jobs", "gc", "--keep", "2"])
+        check(rc == 0 and {j.id for j in queue.list()} == {job2.id, job3.id},
+              f"jobs gc --keep 2 left {[j.id for j in queue.list()]}")
+
+    smi = report["nvidia_smi"]
+    jobs = {"job1": (job1, inst1, worker1_s, launches1, segments1),
+            "job2": (job2, inst2, worker2_s, launches2, segments2),
+            "job3": (job3, inst3, crash_s, launches3, segments3)}
+    lc.update({
+        "delta_events": len(du), "import_s": import_s, "read_training_s": read_s,
+        "dense_dtype": [dtype1, dtype2],
+        "jobs": {k: {**_job_times(j, i), **_log_figures(j, j.attempt, i), "worker_s": w,
+                     "launches": list(la), "segments": sg, "attempt": j.attempt}
+                 for k, (j, i, w, la, sg) in jobs.items()},
+        "kill_to_retry_claim_s": kill_to_claim,
+        "kill_s": killed_s, "resume_s": resume_s,
+        "kill_resume_launches": {"row": killed_launches["row"] + resume_launches["row"],
+                                 "col": killed_launches["col"] + resume_launches["col"]},
+        "warm_vs_cold_max_abs": warm_vs_cold, "killed_instance": killed[0].status,
+        "versions": [v1.id, v2.id, v3.id], "serve": serve,
+        "launches": {"row": sum(j[3][0] for j in jobs.values()),
+                     "col": sum(j[3][1] for j in jobs.values()),
+                     "serve_topk": serve["launches"]},
+        "nvidia_smi": smi,
+    })
+    lc["phase_s"] = time.perf_counter() - t_phase
+    report["lifecycle"] = lc
+    for name, j in lc["jobs"].items():
+        st = j["stages"]
+        print(f"[lifecycle] {smi} | {name} (attempt {j['attempt']}): queue wait "
+              f"{j['queue_wait_s']:.3f} s, worker {j['worker_s']:.2f} s (started to "
+              f"finished {j['started_to_finished_s']:.2f} s), read {st['read']:.2f} s, "
+              f"train {st['train']:.3f} s, persist {st['persist']:.4f} s; "
+              f"{j['segments']} segments, dense launches row/col "
+              f"{j['launches'][0]}/{j['launches'][1]}; from its log: child start "
+              f"{j['child_start_s']:.3f} s (spawn to first line {j['spawn_to_first_line_s']:.3f}"
+              f" s, less the read), segment set-up (gate + staging) s "
+              f"{[round(x, 3) for x in j['segment_setup_s']]}, segment run (iterations + "
+              f"checkpoint) s {[round(x, 3) for x in j['segment_run_s']]}", flush=True)
+    print(f"[lifecycle] {smi} | in-process kill after 2 segments {killed_s:.3f} s, resume "
+          f"{resume_s:.3f} s (bit-equal to the uninterrupted train); warm vs cold max "
+          f"|diff| {warm_vs_cold:.4g}; delta {len(du)} events imported in {import_s:.2f} s; "
+          f"job 3's killed attempt left its instance {killed[0].status} and its "
+          f"checkpoint; kill to the retry's claim {kill_to_claim:.3f} s", flush=True)
+    h = lc["held"]
+    print(f"[lifecycle] {smi} | dense passes on the post-delta {h['dense_dtype']} R "
+          f"{h['dense_r']} at K={h['rank']} vs plain: max |kernel - plain| row "
+          f"{h['dense']['row']['max_abs_err']:.3g} (ratio {h['dense']['row']['max_ratio']:.3g}), "
+          f"col {h['dense']['col']['max_abs_err']:.3g} "
+          f"(ratio {h['dense']['col']['max_ratio']:.3g})", flush=True)
+    print(f"[lifecycle] {smi} | {LIFECYCLE_QUERIES} queries from {LIFECYCLE_CLIENTS} "
+          f"clients on job 3's instance: p50 {serve['p50_ms']:.3f} ms, p99 "
+          f"{serve['p99_ms']:.3f} ms, {serve['qps']:.1f} qps, top-k launches "
+          f"{serve['launches']} in {serve['batches']} batches; phase {lc['phase_s']:.1f} s",
+          flush=True)
+
+
+def _lifecycle_queries(rng):
+    qs = []
+    for _ in range(LIFECYCLE_QUERIES):
+        r = rng.random()
+        user = (f"u{LOOP_USERS + int(rng.integers(LIFECYCLE_NEW_USERS))}" if r < 0.3
+                else f"u{int(rng.integers(LOOP_USERS))}")
+        q = {"user": user, "num": int(rng.choice([5, 10, 20, 50]))}
+        r = rng.random()
+        pool = LOOP_ITEMS + LIFECYCLE_NEW_ITEMS
+        if r < 0.15:
+            q["blacklist"] = [f"i{int(x)}" for x in rng.integers(0, pool, 8)]
+        elif r < 0.3:
+            q["whitelist"] = ([f"i{LOOP_ITEMS + int(x)}" for x in
+                               rng.integers(0, LIFECYCLE_NEW_ITEMS, 10)]
+                              + [f"i{int(x)}" for x in rng.integers(0, LOOP_ITEMS, 20)])
+        qs.append(q)
+    return qs
+
+
+def _lifecycle_serve(runtime, storage, instance_id, rng):
+    """The runtime behind a QueryServer in this process; the queries from
+    LIFECYCLE_CLIENTS threads; every answer held to the plain top-k on
+    the CPU over the blob's factors."""
+    queries = _lifecycle_queries(rng)
+    srv = QueryServer(runtime=runtime, storage=storage,
+                      config=QueryServerConfig(ip="127.0.0.1", port=0))
+    port = srv.start()
+    try:
+        before = _status(port)
+        select0 = rec.ROUTE_LAUNCHES["select"]
+        out: dict = {}
+        lock = threading.Lock()
+        work = list(enumerate(queries))
+        threads = [threading.Thread(target=_client, args=(port, work[c::LIFECYCLE_CLIENTS],
+                                                          out, lock))
+                   for c in range(LIFECYCLE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "clients hung")
+        after = _status(port)
+        select = rec.ROUTE_LAUNCHES["select"] - select0
+    finally:
+        srv.stop()
+    check(after["device"] == "cuda:0", f"serves on {after['device']}")
+    batches = after["batches"] - before["batches"]
+    launches = after["kernel_launches"] - before["kernel_launches"]
+    check(batches > 0 and launches == batches == select,
+          f"top-k launches {launches} (select {select}) != batches {batches}")
+    model = _blob_factors(storage, instance_id)
+    model.bind_device("cpu")
+    cpu_alg = ALSAlgorithm(ALSAlgorithmParams())
+    for n, q in enumerate(queries):
+        status, body, _ = out[n]
+        check(status == 200, f"query {n}: HTTP {status} {body}")
+        check(body == _to_jsonable(cpu_alg.predict(model, Query(**q))),
+              f"query {n} ({q}) differs from the CPU plain top-k")
+    lat = sorted(out[n][2] for n in range(len(queries)))
+    return {"queries": len(queries), "batches": batches, "launches": launches,
+            "wall_s": wall, "qps": len(queries) / wall,
+            "p50_ms": 1e3 * lat[len(lat) // 2],
+            "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the Event Server feeding train -> deploy at ML-100K's shape
 # ---------------------------------------------------------------------------
 
 
@@ -2232,13 +2790,13 @@ def _ingest_train_deploy(report, users, items, ratings):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: online fold-in over the ingested app
+# phase 13: online fold-in over the ingested app
 # ---------------------------------------------------------------------------
 
 
 def _online_traffic(rng, users, items):
     """The online phase's events as the Event Server's JSON objects, in a
-    random order a second apart after every phase-11 time, and which
+    random order a second apart after every phase-12 time, and which
     users and items they touch: ONLINE_NEW_USERS new users rating
     existing items, ONLINE_OLD_USERS users rating items they had not
     rated, ONLINE_NEW_ITEMS new items rated by existing users, and
@@ -2489,7 +3047,7 @@ def _states_equal(a, b):
 
 
 def phase_online(report, shared):
-    """Phase 12: the online fold-in over phase 11's app and instance: a
+    """Phase 13: the online fold-in over phase 12's app and instance: a
     QueryServer in this process on its newest COMPLETED runtime, a
     consumer attached, the Event Server again, the traffic, the checks."""
     t_phase = time.perf_counter()
@@ -2795,7 +3353,7 @@ def _online_held(on, spies, base, model, rng):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: ML-25M-width ratings, the windowed path's configuration
+# phase 14: ML-25M-width ratings, the windowed path's configuration
 # ---------------------------------------------------------------------------
 
 
@@ -2886,7 +3444,7 @@ def phase_data25(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the windowed pass kernels vs their plain versions on the card
+# phase 15: the windowed pass kernels vs their plain versions on the card
 # ---------------------------------------------------------------------------
 
 
@@ -2998,7 +3556,7 @@ def phase_windowed(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the windowed path, trained through ALSAlgorithm.train
+# phase 16: the windowed path, trained through ALSAlgorithm.train
 # ---------------------------------------------------------------------------
 
 
@@ -3103,7 +3661,7 @@ def phase_windowed_train(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the rank > 32 scatter path on the card
+# phase 17: the rank > 32 scatter path on the card
 # ---------------------------------------------------------------------------
 
 
@@ -3166,7 +3724,7 @@ def phase_scatter(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 17: windowed pass times
+# phase 18: windowed pass times
 # ---------------------------------------------------------------------------
 
 
@@ -3283,7 +3841,7 @@ def _partials_at_max_rank(rng, p, side, n_src, edges):
 
 
 # ---------------------------------------------------------------------------
-# phases 18-22: the Universal Recommender (CCO train, history scoring,
+# phases 19-23: the Universal Recommender (CCO train, history scoring,
 # the masked top-k kernel)
 # ---------------------------------------------------------------------------
 
@@ -3770,6 +4328,7 @@ def main() -> int:
                         ("serve", phase_serve), ("times", phase_times),
                         ("dense times", phase_dense_times),
                         ("loop", phase_loop), ("eval", phase_eval),
+                        ("lifecycle", phase_lifecycle),
                         ("ingest", phase_ingest), ("online", phase_online),
                         ("data25", phase_data25), ("windowed", phase_windowed),
                         ("windowed train", phase_windowed_train),
@@ -3791,18 +4350,23 @@ def main() -> int:
     evd = report["eval"]["dense"]["launches"]  # Engine.batch_eval, forced dense
     held = report["eval"]["held"]  # the eval's shapes against the plain versions
     ing = report["ingest"]["launches"]  # the Event Server's app: train, deploy
+    lc = report["lifecycle"]["launches"]  # the train jobs' children and the deploy
+    lckr = report["lifecycle"]["kill_resume_launches"]  # in process, both runs
     paths = {  # each main path's launches, counted from 0 around it
         "fused_recommend_topk": {"serve": report["serve"]["launches"],
                                  "loop": report["loop"]["launches"]["serve_topk"],
                                  "eval": ev["topk"], "eval dense": evd["topk"],
                                  "ingest": ing["serve_topk"],
+                                 "lifecycle": lc["serve_topk"],
                                  "online": report["online"]["launches"]["topk"]},
         "row": {"train": report["train"]["launches"]["row"],
                 "loop": report["loop"]["launches"]["row"],
-                "eval dense": evd["row"]},
+                "eval dense": evd["row"], "lifecycle jobs": lc["row"],
+                "lifecycle kill/resume": lckr["row"]},
         "col": {"train": report["train"]["launches"]["col"],
                 "loop": report["loop"]["launches"]["col"],
-                "eval dense": evd["col"]},
+                "eval dense": evd["col"], "lifecycle jobs": lc["col"],
+                "lifecycle kill/resume": lckr["col"]},
         "block_partials": {"windowed train": report["windowed_train"]["launches"]["partials"],
                            "eval": ev["partials"], "ingest": ing["partials"]},
         "combine": {"windowed train": report["windowed_train"]["launches"]["combine"],
@@ -3827,7 +4391,8 @@ def main() -> int:
             "source": DENSE_SOURCE, "replaces": DENSE_REPLACES[which],
             "launches": sum(paths[which].values()), "launches_by_path": paths[which],
             "max_abs_err": max(report["dense_sweep"][which]["max_abs_err"],
-                               held["dense"][which]["max_abs_err"]),
+                               held["dense"][which]["max_abs_err"],
+                               report["lifecycle"]["held"]["dense"][which]["max_abs_err"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],

@@ -6,9 +6,11 @@ Counterpart of the JAX package's ``engines/recommendation/engine.py``
 ``RecommendationDataSource`` reads "rate"/"buy" events from the event
 store as one columnar frame; the file-backed ``FileRatingsDataSource``
 reads ``user::item::rating`` lines. ``ALSAlgorithm.train`` trains
-through ``models/als.py``'s routing (checkpointed segments, warm starts,
-sharded serving and item categories are not ported yet, and a variant
-that asks for one is refused). Evaluation follows the template's
+through ``models/als.py``'s routing, in checkpointed segments when the
+variant asks (``workflow/checkpoint.py``), warm-started from the live
+registry version with ``warm_start`` (sharded serving and item
+categories are not ported yet, and a variant that asks for one is
+refused). Evaluation follows the template's
 query/actual protocol: ``read_eval`` makes k folds by interaction
 index, each fold's queries ask for the held-out users' top N, and the
 actual result is the held-out items rated at or above the goal
@@ -51,6 +53,10 @@ from predictionio_tpu_torch.models import als
 from predictionio_tpu_torch.ops.recommend import ROWLIST_MAX, rowlist_np
 from predictionio_tpu_torch.ops.topk import NEG_INF
 from predictionio_tpu_torch.utils.bucket import batch_bucket, topk_bucket
+from predictionio_tpu_torch.workflow.checkpoint import (
+    CheckpointManager,
+    train_als_checkpointed,
+)
 
 log = logging.getLogger(__name__)
 
@@ -276,10 +282,16 @@ class ALSAlgorithmParams:
     # Scores shift by the quantization/rounding error, so both are
     # explicit opt-ins
     serve_dtype: str = "f32"
+    # > 0: save the factors into MODELDATA every N iterations, so that an
+    # interrupted train resumes (workflow/checkpoint.py); 0 disables
+    checkpoint_every: int = 0
+    # start the train from the variant's live registry version, its
+    # factors mapped onto the new vocabularies (als.warm_start_factors)
+    warm_start: bool = False
 
     # the JAX package's fields the port does not have yet: a variant that
     # names one is refused (controller.params.extract_params)
-    NOT_PORTED = ("checkpoint_every", "warm_start", "shard_serving")
+    NOT_PORTED = ("shard_serving",)
 
 
 class ALSModel:
@@ -388,7 +400,10 @@ class ALSAlgorithm(Algorithm):
 
     def train(self, ctx: Optional[RuntimeContext], pd: TrainingData) -> ALSModel:
         """Train ALS factors on the context's device (the first CUDA
-        device by default) and return the model, resident there."""
+        device by default) and return the model, resident there. With
+        `checkpoint_every` and a train run's storage and instance id the
+        train runs in checkpointed segments; with `warm_start` it starts
+        from the live version's factors (`_warm_start_init`)."""
         device = ctx.device if ctx is not None else None
         als_params = als.ALSParams(
             rank=self.params.rank,
@@ -399,10 +414,16 @@ class ALSAlgorithm(Algorithm):
             cg_iterations=self.params.cg_iterations,
             seed=self.params.seed,
         )
-        factors = als.train(
+        manager = None
+        if (self.params.checkpoint_every > 0 and ctx is not None
+                and ctx.storage is not None and ctx.instance_id):
+            manager = CheckpointManager(ctx.storage, ctx.instance_id)
+        factors = train_als_checkpointed(
             pd.rows, pd.cols, pd.vals, pd.n_users, pd.n_items, als_params,
+            manager, self.params.checkpoint_every,
             user_vocab=pd.user_vocab, item_vocab=pd.item_vocab,
             device=device,
+            init_factors=self._warm_start_init(ctx, pd, als_params),
         )
         return ALSModel(
             factors,
@@ -410,6 +431,48 @@ class ALSAlgorithm(Algorithm):
             serve_dtype=self.params.serve_dtype,
             device=device,
         )
+
+    def _warm_start_init(self, ctx: Optional[RuntimeContext], pd: TrainingData,
+                         als_params: als.ALSParams):
+        """The variant's live version's factors mapped onto this train's
+        vocabularies (`als.warm_start_factors`), or None for a cold
+        start: without `warm_start`, a train run's storage and instance,
+        a live version, its blob, or a parent of this rank. The live
+        version is the one this train's version will name as its parent.
+        Best-effort, as in the JAX package: a failure is logged and the
+        train starts cold."""
+        if not self.params.warm_start or ctx is None or ctx.storage is None:
+            return None
+        try:
+            if not ctx.instance_id:
+                return None
+            inst = ctx.storage.get_meta_data_engine_instances().get(
+                ctx.instance_id)
+            if inst is None:
+                return None
+            from predictionio_tpu_torch.controller.persistent import (
+                deserialize_models,
+            )
+            from predictionio_tpu_torch.deploy.registry import ModelRegistry
+
+            live = ModelRegistry(ctx.storage).live_version(
+                inst.engine_id, inst.engine_variant)
+            if live is None:
+                return None
+            blob = ctx.storage.get_model_data_models().get(live.instance_id)
+            if blob is None:
+                return None
+            parent = next((m.factors for m in deserialize_models(blob.models)
+                           if hasattr(m, "factors")), None)
+            if parent is None or parent.params.rank != als_params.rank:
+                return None
+            log.info("warm-starting train from live version %s", live.id)
+            return als.warm_start_factors(parent, pd.user_vocab,
+                                          pd.item_vocab, als_params)
+        except Exception:  # noqa: BLE001 — a cold start, logged
+            log.warning("warm start unavailable; using cold init",
+                        exc_info=True)
+            return None
 
     def train_grid(
         self, ctx: Optional[RuntimeContext], pd: TrainingData, params_list

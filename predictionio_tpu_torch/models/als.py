@@ -27,6 +27,10 @@ input:
 evaluation workflow's grid path): each point runs the staged loop with
 its own params and equals a serial ``train`` of them bit for bit.
 
+``warm_start_factors`` maps a parent model's factors onto a new
+training vocabulary (a retrain's warm start, the JAX package's function
+bit for bit); ``train`` takes them as ``init_factors``.
+
 Serving stages the factor matrices on a device once (padded to
 ``ITEM_PAD`` rows, quantized for int8); every verb then sends only the
 row ids and, when filters apply, the packed exclusion words or row
@@ -72,6 +76,8 @@ from predictionio_tpu_torch.ops.windowed import (
     windowed_gram_b,
 )
 from predictionio_tpu_torch.utils.env import env_int, env_str
+
+log = logging.getLogger(__name__)
 
 # ranks up to this solve via explicitly built per-row K×K operators (one
 # edge pass per half-step); beyond it the matrix-free CG scatter path
@@ -432,6 +438,16 @@ def _train_dense(
         user_deg=user_deg, item_deg=item_deg, init_factors=init_factors,
         dense_dtype=dense_dtype, device=device,
     )
+    return _run_staged(staged, params, user_vocab, item_vocab,
+                       f"{staged.dense_dtype} R")
+
+
+def _run_staged(staged, params, user_vocab, item_vocab, what) -> ALSFactors:
+    """Run a staged train's loop; one log line names the staging (the
+    train job's log shows which path a job took)."""
+    log.info("ALS train staged %s (%s): %d users x %d items, rank %d, "
+             "%d iterations", type(staged).__name__, what, staged.n_users,
+             staged.n_items, params.rank, params.iterations)
     return _als_factors(*staged.factors(*staged.run()), params, user_vocab,
                         item_vocab)
 
@@ -614,8 +630,7 @@ def _train_windowed(
         user_deg=user_deg, item_deg=item_deg, init_factors=init_factors,
         device=device,
     )
-    return _als_factors(*staged.factors(*staged.run()), params, user_vocab,
-                        item_vocab)
+    return _run_staged(staged, params, user_vocab, item_vocab, "edge blocks")
 
 
 # -- training: the scatter path (rank > 32) ----------------------------------
@@ -859,6 +874,38 @@ def train_grid(
         out.append(_als_factors(*staged.factors(uf, itf), p, user_vocab,
                                 item_vocab))
     return out
+
+
+def warm_start_factors(
+    parent: ALSFactors,
+    user_vocab: BiMap,
+    item_vocab: BiMap,
+    params: ALSParams,
+) -> tuple[np.ndarray, np.ndarray]:
+    """A parent version's factors mapped onto a new training vocabulary
+    (the JAX package's function, bit for bit): a row whose id survives
+    copies the parent's first min(rank, parent rank) columns; every other
+    entry keeps the scaled gaussian init of ``np.random.RandomState(
+    params.seed)``, drawn for the users first. ALS is memoryless in its
+    factor state, so a warm start changes the trajectory, not the fixed
+    point."""
+    rng = np.random.RandomState(params.seed)
+
+    def align(old_vocab: BiMap, new_vocab: BiMap, old: np.ndarray, n: int):
+        out = (rng.standard_normal((n, params.rank)).astype(np.float32)
+               / np.sqrt(params.rank))
+        k = min(params.rank, old.shape[1]) if old.size else 0
+        for ident, new_row in new_vocab.items():
+            old_row = old_vocab.get(ident)
+            if old_row is not None and old_row < old.shape[0] and k:
+                out[new_row, :k] = old[old_row, :k]
+        return out
+
+    uf0 = align(parent.user_vocab, user_vocab, parent.user_factors,
+                len(user_vocab))
+    itf0 = align(parent.item_vocab, item_vocab, parent.item_factors,
+                 len(item_vocab))
+    return uf0, itf0
 
 
 # -- staged serving state ----------------------------------------------------

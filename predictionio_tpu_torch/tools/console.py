@@ -28,6 +28,20 @@
     python -m predictionio_tpu_torch.tools.console online \\
         status|pause|resume [--url http://localhost:8000] [--reason R]
     python -m predictionio_tpu_torch.tools.console online cursors
+    python -m predictionio_tpu_torch.tools.console jobs submit \
+        [--variant engine.json] [--timeout S] [--period S] [--max-attempts N]
+    python -m predictionio_tpu_torch.tools.console jobs list [--status S]
+    python -m predictionio_tpu_torch.tools.console jobs show|logs JOB
+    python -m predictionio_tpu_torch.tools.console jobs gc [--keep N]
+    python -m predictionio_tpu_torch.tools.console jobs worker [--once] \
+        [--log-dir D] [--device cpu]
+    python -m predictionio_tpu_torch.tools.console models list \
+        [--engine E] [--status S]
+    python -m predictionio_tpu_torch.tools.console models show|promote VERSION
+    python -m predictionio_tpu_torch.tools.console models rollback VERSION \
+        [--reason R]
+    python -m predictionio_tpu_torch.tools.console models gc [--keep N] \
+        [--delete-blobs]
 
     python -m predictionio_tpu_torch.tools.console train --ratings FILE \\
         --out blob.npz [--rank 10] [--iterations 20] [--lambda 0.01] \\
@@ -54,7 +68,13 @@ import path (``module.Class``) over the grid of an
 only when that instance is EVALCOMPLETED. ``online status|pause|resume``
 ask a running query server (``--url``) for its fold-in consumer's state,
 or pause or resume it; ``online cursors`` prints the consumers' durable
-cursor records from storage. Not ported, and refused with
+cursor records from storage. ``jobs submit`` queues a train job of
+an engine variant; ``jobs worker`` claims queued jobs and runs each in a
+supervised subprocess on ``--device`` (``--once``: the jobs queued now,
+then exit); ``jobs list|show|logs|gc`` read and prune the queue.
+``models list|show|promote|rollback|gc`` read the model versions that
+train jobs register, make one live, roll one back and collect old ones.
+Not ported, and refused with
 exit code 1: the fleet evaluation (an EvalSpec file as the target,
 ``eval list/show/status/gc``), ``tune``, ``eventserver --log-url`` and
 the parquet format of ``import`` and ``export``. An operator error (an
@@ -201,6 +221,49 @@ def _parser() -> argparse.ArgumentParser:
         if name == "pause":
             s.add_argument("--reason", default=None)
     on.add_parser("cursors", help="durable consumer cursor records in storage")
+
+    jobs = sub.add_parser("jobs", help="the train-job queue").add_subparsers(
+        dest="jobs_action", required=True)
+    s = jobs.add_parser("submit", help="queue a train job")
+    s.add_argument("--variant", default="engine.json",
+                   help="engine variant JSON path (default engine.json)")
+    s.add_argument("--timeout", type=float, default=None,
+                   help="wall-clock train timeout in seconds")
+    s.add_argument("--period", type=float, default=None,
+                   help="periodic retrain interval in seconds")
+    s.add_argument("--max-attempts", type=int, default=3,
+                   help="infrastructure-failure retries before the job fails")
+    jobs.add_parser("list", help="list train jobs").add_argument(
+        "--status", choices=("queued", "running", "completed", "failed"))
+    jobs.add_parser("show", help="one job's record").add_argument("job_id")
+    jobs.add_parser("logs", help="print a job's train log").add_argument("job_id")
+    jobs.add_parser("gc", help="purge old completed and failed jobs").add_argument(
+        "--keep", type=int, default=200, help="terminal job records to keep")
+    s = jobs.add_parser("worker", help="run the train scheduler's worker loop")
+    s.add_argument("--log-dir", default=None, help="per-job log directory")
+    s.add_argument("--once", action="store_true",
+                   help="run the jobs queued now, then exit")
+    s.add_argument("--device", default=None,
+                   help="the jobs' torch device (default: the first CUDA device)")
+
+    models = sub.add_parser("models", help="the model version registry"
+                            ).add_subparsers(dest="models_action", required=True)
+    s = models.add_parser("list", help="list model versions")
+    s.add_argument("--engine", help="only this engine id")
+    s.add_argument("--status", choices=("trained", "canary", "live",
+                                        "rolled_back", "archived"))
+    models.add_parser("show", help="one version and its lineage").add_argument(
+        "version_id")
+    models.add_parser("promote", help="make a version live").add_argument(
+        "version_id")
+    s = models.add_parser("rollback", help="mark a version rolled_back")
+    s.add_argument("version_id")
+    s.add_argument("--reason", default=None)
+    s = models.add_parser("gc", help="retention GC over old versions")
+    s.add_argument("--keep", type=int, default=5,
+                   help="versions kept per engine variant besides live/canary")
+    s.add_argument("--delete-blobs", action="store_true",
+                   help="also delete the collected versions' MODELDATA blobs")
     return ap
 
 
@@ -539,6 +602,127 @@ def online(args: argparse.Namespace) -> int:
     return 0
 
 
+def jobs_cmd(args: argparse.Namespace) -> int:
+    """`jobs submit|list|show|logs|gc|worker`: the train-job queue."""
+    import json
+    import time
+
+    from predictionio_tpu_torch.deploy.scheduler import (
+        JobQueue, SchedulerConfig, TrainScheduler)
+
+    storage = Storage()
+    queue = JobQueue(storage)
+    action = args.jobs_action
+    if action == "submit":
+        from predictionio_tpu_torch.workflow.core import load_variant
+
+        try:
+            job = queue.submit(load_variant(args.variant), timeout_s=args.timeout,
+                               period_s=args.period,
+                               max_attempts=args.max_attempts)
+        except (OSError, ValueError) as e:
+            raise CommandError(str(e))
+        print(f"[INFO] submitted train job {job.id} (engine {job.engine_id})")
+        if job.period_s:
+            print(f"[INFO] periodic retrain every {job.period_s:.0f}s")
+        return 0
+    if action == "list":
+        jobs = queue.list(status=args.status)
+        if not jobs:
+            print("[INFO] no train jobs")
+            return 0
+        print(f"[INFO] {len(jobs)} train job(s):")
+        for j in jobs:
+            extra = f" attempt={j.attempt}/{j.max_attempts}"
+            if j.model_version:
+                extra += f" version={j.model_version}"
+            if j.last_error:
+                extra += f" error={j.last_error!r}"
+            print(f"[INFO]   {j.id} [{j.status}] engine={j.engine_id}"
+                  f" created={j.created_at}{extra}")
+        return 0
+    if action == "gc":
+        purged = queue.gc(keep=args.keep)
+        print(f"[INFO] purged {len(purged)} terminal job record(s)"
+              + (f": {', '.join(purged)}" if purged else ""))
+        return 0
+    if action in ("show", "logs"):
+        job = queue.get(args.job_id)
+        if job is None:
+            raise CommandError(f"no job {args.job_id!r}")
+        if action == "show":
+            print(json.dumps(job.to_dict(), indent=2))
+            return 0
+        if not job.log_path:
+            raise CommandError(f"job {job.id} has no log yet")
+        try:
+            with open(job.log_path, errors="replace") as f:
+                sys.stdout.write(f.read())
+        except OSError as e:
+            raise CommandError(f"job log unreadable: {e}")
+        return 0
+    config = SchedulerConfig(device=args.device)
+    if args.log_dir:
+        config.log_dir = args.log_dir
+    scheduler = TrainScheduler(storage, config)
+    if args.once:
+        n = scheduler.run_pending_once()
+        print(f"[INFO] ran {n} pending job(s)")
+        return 0
+    scheduler.start()
+    print(f"[INFO] train scheduler running as {scheduler.worker_id} "
+          "(Ctrl-C to stop)", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        print("[INFO] stopping scheduler (in-flight train finishes)")
+        scheduler.stop()
+        return 0
+
+
+def models_cmd(args: argparse.Namespace) -> int:
+    """`models list|show|promote|rollback|gc`: the version registry."""
+    import json
+
+    from predictionio_tpu_torch.deploy.registry import ModelRegistry
+
+    registry = ModelRegistry(Storage())
+    action = args.models_action
+    if action == "list":
+        versions = registry.list(engine_id=args.engine, status=args.status)
+        if not versions:
+            print("[INFO] no registered model versions")
+            return 0
+        print(f"[INFO] {len(versions)} model version(s):")
+        for v in versions:
+            note = f" ({v.reason})" if v.reason else ""
+            print(f"[INFO]   {v.id} [{v.status}] {v.engine_id}/{v.engine_variant} "
+                  f"instance={v.instance_id} params={v.params_hash}"
+                  f" created={v.created_at}{note}")
+        return 0
+    if action == "gc":
+        collected = registry.gc(keep=args.keep, delete_blobs=args.delete_blobs)
+        print(f"[INFO] collected {len(collected)} version(s)"
+              + (f": {', '.join(v.id for v in collected)}" if collected else ""))
+        return 0
+    version = registry.get(args.version_id)
+    if version is None:
+        raise CommandError(f"no model version {args.version_id!r}")
+    if action == "show":
+        print(json.dumps(version.to_dict(), indent=2))
+        lineage = registry.lineage(version.id)
+        if len(lineage) > 1:
+            print("[INFO] lineage: " + " <- ".join(v.id for v in lineage))
+        return 0
+    if action == "promote":
+        print(f"[INFO] {registry.promote(version.id).id} is now live")
+        return 0
+    v = registry.rollback(version.id, args.reason or "operator rollback")
+    print(f"[INFO] {v.id} marked rolled_back")
+    return 0
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     try:
@@ -549,7 +733,8 @@ def main(argv=None) -> int:
 
 def _run(args: argparse.Namespace) -> int:
     commands = {"app": app_cmd, "channel": channel_cmd, "accesskey": accesskey_cmd,
-                "eventserver": eventserver, "status": status, "online": online}
+                "eventserver": eventserver, "status": status, "online": online,
+                "jobs": jobs_cmd, "models": models_cmd}
     if args.cmd in commands:
         return commands[args.cmd](args)
     if args.cmd in ("import", "export") and args.format == "parquet":

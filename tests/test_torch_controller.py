@@ -97,7 +97,7 @@ CLASSES = {
     "EmptyParams": (jparams.EmptyParams, EmptyParams),
 }
 
-_JAX_ONLY_ALS = {"checkpoint_every": 0, "warm_start": False, "shard_serving": False}
+_JAX_ONLY_ALS = {"shard_serving": False}
 
 
 def _outcome(extract, to_json, err, cls, obj):
@@ -111,8 +111,9 @@ def _outcome(extract, to_json, err, cls, obj):
 @pytest.mark.parametrize("case", sorted(PARAMS_CASES))
 def test_extract_params_matches_jax(case):
     """Both packages accept the params with the same JSON, or both refuse
-    them. The JAX ALS params JSON also carries its three fields the port
-    has not ported, at their defaults; they are dropped before comparing."""
+    them. The JAX ALS params JSON also carries its field the port has
+    not ported (`shard_serving`), at its default; it is dropped before
+    comparing."""
     name, obj = PARAMS_CASES[case]
     jcls, tcls = CLASSES[name]
     want = _outcome(jparams.extract_params, jparams.params_to_json,

@@ -29,8 +29,8 @@ both trains from the same seeded start factors.
   bar). Blacklists, whitelists, an unknown user and ``batch_predict``
   equal the lone predict's answers exactly.
 - The instance rows' stage-params JSON: equal (the JAX ALS params also
-  carry its three fields the port has not ported, at their defaults;
-  they are dropped before comparing).
+  carry its one field the port has not ported, at its default; it is
+  dropped before comparing).
 
 The Universal Recommender trains and deploys by variant the same way
 (tables within the LLR tolerance of tests/test_torch_cco.py, answers
@@ -92,7 +92,7 @@ VARIANT = {
 }
 J_VARIANT = {**VARIANT, "engineFactory":
              "predictionio_tpu.engines.recommendation.RecommendationEngine"}
-_JAX_ONLY_ALS = {"checkpoint_every": 0, "warm_start": False, "shard_serving": False}
+_JAX_ONLY_ALS = {"shard_serving": False}
 _PORT_TRAIN = tals.train  # before any test wraps it
 
 
@@ -157,7 +157,7 @@ def _same_start(mp):
     """Both packages' ALS trains start from `_init`'s factors."""
     paths = []
 
-    def port_train(rows, cols, vals, n_users, n_items, params, **kw):
+    def port_train(rows, cols, vals, n_users, n_items, params, init_factors=None, **kw):
         return _PORT_TRAIN(rows, cols, vals, n_users, n_items, params,
                     init_factors=_init(n_users, n_items, params.rank), **kw)
 
@@ -517,7 +517,7 @@ def test_unported_variant_options_are_refused(tmp_path, params):
         tcore.run_train(ts, {**VARIANT, "datasource": {"params": params}}, device="cpu")
     with pytest.raises(ParamsError, match="not ported"):
         tcore.run_train(ts, {**VARIANT, "algorithms": [
-            {"name": "als", "params": {"warm_start": True}}]}, device="cpu")
+            {"name": "als", "params": {"shard_serving": True}}]}, device="cpu")
     assert ts.get_meta_data_engine_instances().get_all() == []
 
 
