@@ -4,7 +4,8 @@ serve paths, the storage-backed train → deploy → query loop, the grid
 evaluation over the same storage, the Event Server feeding train →
 deploy, the online fold-in of live events into the served model, and
 the model lifecycle (train jobs, checkpoints, warm starts, versions),
-and the Universal Recommender's train and serve path, on one CUDA card.
+item properties with the similar-product and e-commerce templates, and
+the Universal Recommender's train and serve path, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -115,7 +116,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             Last, at each rank of the grid (10, 20), block_partials with
             the combine on fold 0's two staged windowed plans and the row
             and col passes on the staged int8 R are held to their plain
-            versions as phases 5 and 15 hold them. Prints read_eval,
+            versions as phases 5 and 16 hold them. Prints read_eval,
             staging and ``train_grid`` seconds per fold,
             ``batch_predict`` seconds per model, metric seconds,
             eval_wall_sec, each point's score and the best point, each
@@ -220,19 +221,62 @@ Phases, in order; any failure prints what failed and exits non-zero:
             ms on the card a call, publish ms a tick, event-to-served
             seconds and query p50/p99/qps while folding and after, each
             line with the card's name and power limit.
-14. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
+14. templates  item properties and two more templates over phase 9's
+            app (1,010,209 ``rate`` events after phase 11's delta), from
+            TEMPLATES_SEED, through one ``console import``: a ``$set`` of
+            1-3 of ML-1M's 18 genres as ``categories`` for each of the
+            3,806 movies, later ``$unset`` on 200 and ``$delete`` on 50,
+            like/dislike on 150,000 sampled rated pairs (>= 4 stars a
+            like, <= 2 a dislike), and an ``unavailableItems`` list of
+            100 movies; ``aggregate_properties`` must give back exactly
+            those categories. The similar-product ``multi`` variant (the
+            rate events as views, ``als`` and ``like`` at the template
+            defaults, ``sum`` serving): ``train --engine-json`` here must
+            launch the dense passes 20 + 20 (``als``, 1 M edges) and
+            block_partials and the combine 40 + 40 (``like``, windowed),
+            block_partials held to its plain version on the like plans;
+            ``deploy`` in its own process on the card takes 500 baskets
+            from 16 threads (1-5 movies, 20 % blacklists, 10 %
+            whitelists, 20 of unknown ids only): top-k launches, all on
+            the select route, equal 2 x the baskets with a known movie;
+            every answer equals the plain selector on the CPU over the
+            same factors, per algorithm and summed, its scores within
+            1e-5 of ``normed @ mean(normed[known])``; unknown baskets
+            answer empty. The e-commerce template (``unseen_only``, seen
+            events rate and view): the dense passes 20 + 20, the model's
+            categories those imported; then 5 ``view`` events for each of
+            20 users the model does not know; ``deploy`` on the card
+            takes 500 queries (30 % categories, 10 % whitelists, 20 %
+            blacklists, the 20 viewers, 5 users with no events), then a
+            second ``unavailableItems`` list of 100 other movies and 50
+            more queries: every answer equals a brute force here over the
+            persisted factors and the store's events (a stable sort of
+            the user's scores or of the view basis's cosine over the
+            allowed items; scores within 1e-6 relative, items as sets
+            inside tie groups), holds no seen, unavailable (the list
+            current at the query), blacklisted or basis movie, and only
+            movies of a wanted category; no top-k kernel launches (the
+            JAX package ranks on the host here too). The recommendation
+            template with ``read_item_categories`` and ``use_data_view``:
+            ``train`` twice, the second read a DataView hit with the
+            factors bit-equal; 100 category queries through the deployed
+            runtime on the card, one select launch each, each equal to
+            the plain top-k on the CPU. Prints each template's read,
+            train and persist seconds, deploy to ready, query p50/p99/qps
+            and launches, each line with the card's name and power limit.
+15. data25  MovieLens-25M-shaped ratings from SEED25, as phase 4: 162,541
             users x 59,047 items, 25,000,095 unique pairs (users 20 to
             32,202 ratings, items up to 81,491); the dense gate must refuse
             them for the byte budget alone (int8 R 9,688,842,240 B > 9e9).
             Builds both windowed plans and prints their block counts.
-15. windowed the windowed pass kernels (block_partials and the combine,
+16. windowed the windowed pass kernels (block_partials and the combine,
             through ``ops.windowed.windowed_gram_b``) against their plain
             versions on the card: K in {1, 8, 10, 32}, implicit and
             explicit weights, signed ratings, padding slots with local ids
             past both ends of [0, S), a block of 1,024 slots on one row,
             unsorted ids, an all-padding plan, and both full ML-25M plans
             at K = 10. Per element within 1e-5 * S, bit-equal on relaunch.
-16. windowed train  ``ALSAlgorithm.train`` on the phase-14 data at the
+17. windowed train  ``ALSAlgorithm.train`` on the phase-15 data at the
             template defaults with 5 iterations: the staging must be
             StagedWindowedTrain, each kernel must launch once per
             half-step, factors finite, a second run from the same staging
@@ -240,17 +284,17 @@ Phases, in order; any failure prints what failed and exits non-zero:
             the card must correlate > 0.9999. Then the factors go through
             the npz blob to ``recommend_serving``: 16 queries, each equal
             to the plain top-k.
-17. scatter a rank-48 train (100,000 ratings, 2 iterations) through
+18. scatter a rank-48 train (100,000 ratings, 2 iterations) through
             ``ALSAlgorithm.train`` on the card and on the CPU from the same
             seed: within rtol = atol = 1e-4 (no kernel of its own).
-18. windowed times  CUDA-event medians per ML-25M side, K = 10: the
+19. windowed times  CUDA-event medians per ML-25M side, K = 10: the
             block_partials kernel, its plain version, a gather + outer
             product + ``index_add_`` yardstick the port never calls, the
             bound; the combine kernel, its plain version, its bound; then
             block_partials at K = 32 on the users plan (kernel, plain,
             bound; no yardstick), and the partials kernel's ptxas
             registers, shared memory and CTAs an SM at K = 10 and 32.
-19. ur sweep  the precomputed-score selector (``fused_masked_topk``)
+20. ur sweep  the precomputed-score selector (``fused_masked_topk``)
             against its plain version on the card: I_p in {1,024 (below
             one 4,096-column select segment), 12,416 (a short last
             segment), 100,096} with dead pads, B in {1, 8, 64}, k in {1,
@@ -259,32 +303,32 @@ Phases, in order; any failure prints what failed and exits non-zero:
             and 64, a fully masked row, an all-zero row, equal maxima on
             both sides of every chunk and segment boundary. Each call must
             take the route its k names; indices and values must be equal.
-20. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
+21. ur data the repo's UR configuration (``bench.py:bench_ur_framework``
             at full size) from UR_SEED: 3,000 users, 100,000 items, one buy
             per item plus 30 buys per user on zipf(1.3) items, and 30
             views per user from their own stream, into the port's
             ``MemoryEventStore``.
-21. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
+22. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
             the card at the template defaults (50 correlators, 100 query
             events): every table finite, and equal to the same block train
             on the CPU for three blocks of 1,024 items per indicator
             within the LLR tolerance (atol = 16 eps N ln N; indices equal
             outside tie groups). Prints read, indicator build, counts and
             LLR + top-n seconds.
-22. ur serve the card-trained model behind the port's ``QueryServer``;
+23. ur serve the card-trained model behind the port's ``QueryServer``;
             16 client threads send 500 UR queries (mostly exclude_seen,
             20 % blacklists, unknown users, view-only users added after
             the train). Every answer must equal ``_predict_batch`` on a
             CPU copy of the model; masked kernel launches, and those of
             its select route, must equal device batches.
-23. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
+24. ur times CUDA-event medians at I_p = 100,096, k = 64, bit words, B in
             {1, 64}: the kernel (its launches per call, which must equal
             its route's, and its time on the card alone, both by
             ``torch.profiler``), its plain version,
             ``torch.topk`` over
             ``torch.where(mask, NEG_INF, scores)`` as a yardstick the port
             never calls, the bound, and the history scoring outside it.
-24. report  one ``{"kernels": [...]}`` line, then the device line last.
+25. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -326,6 +370,11 @@ try:
     )
     from predictionio_tpu_torch.data.storage.registry import Storage, StorageConfig
     from predictionio_tpu_torch.data.store.bimap import BiMap
+    from predictionio_tpu_torch.data.store.event_store import EventStoreFacade
+    from predictionio_tpu_torch.data.view import DataView
+    from predictionio_tpu_torch.engines.ecommerce.engine import (
+        ECommAlgorithmParams as ECommParams,
+    )
     from predictionio_tpu_torch.engines.recommendation.engine import (
         ALSAlgorithm,
         ALSAlgorithmParams,
@@ -336,6 +385,13 @@ try:
         RecommendationDataSource,
         RecommendationEngine,
         TrainingData,
+    )
+    from predictionio_tpu_torch.engines.similarproduct.engine import (
+        ALSSimilarAlgorithm as SimilarAlgorithm,
+        ALSSimilarParams as SimilarParams,
+        LikeAlgorithm,
+        Query as SimilarQuery,
+        SumScoreServing,
     )
     from predictionio_tpu_torch.engines.universal.engine import (
         DataSourceParams as URDataSourceParams,
@@ -459,6 +515,20 @@ LIFECYCLE_NEW_USERS, LIFECYCLE_NEW_USER_RATINGS = 200, 20  # on existing movies
 LIFECYCLE_NEW_ITEMS, LIFECYCLE_NEW_ITEM_RATINGS = 100, 30  # by existing users
 LIFECYCLE_OLD_USERS, LIFECYCLE_OLD_USER_RATINGS = 300, 10  # new pairs
 LIFECYCLE_QUERIES, LIFECYCLE_CLIENTS = 200, 8
+TEMPLATES_SEED = 16
+# ML-1M's 18 genres (its README); each movie gets 1-3 as "categories"
+ML1M_GENRES = ("Action", "Adventure", "Animation", "Children's", "Comedy", "Crime",
+               "Documentary", "Drama", "Fantasy", "Film-Noir", "Horror", "Musical",
+               "Mystery", "Romance", "Sci-Fi", "Thriller", "War", "Western")
+TEMPLATES_UNSET, TEMPLATES_DELETE = 200, 50  # movies whose categories go
+TEMPLATES_LIKES = 150_000  # rated pairs sampled: >= 4 stars a like, <= 2 a dislike
+TEMPLATES_UNAVAILABLE = 100  # movies in each unavailableItems list
+TEMPLATES_UNKNOWN_BASKETS = 20  # baskets of unknown ids only, among the 500
+TEMPLATES_NEW_VIEWERS, TEMPLATES_NEW_VIEWS = 20, 5  # users only the store knows
+TEMPLATES_NO_EVENT_USERS = 5
+TEMPLATES_AFTER_QUERIES = 50  # e-commerce queries after the second list
+TEMPLATES_CATEGORY_QUERIES = 100  # the recommendation template's
+TEMPLATES_T0_MS = LOOP_T0_MS + 1000 * (LOOP_EDGES + 100_000)  # after phase 11's delta
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 LOOP_DIR = Path(__file__).resolve().parent / "build" / "loop"
 
@@ -1894,7 +1964,7 @@ def _eval_kernels_held(staged_w, staged_d):
     """block_partials with the combine on fold 0's two windowed plans, and
     the row and col passes on the forced-dense grid's staged int8 R, at
     each rank of the grid, held to their plain versions on the card as
-    phases 5 and 15 hold them (the scored top-k is held by the answers)."""
+    phases 5 and 16 hold them (the scored top-k is held by the answers)."""
     rng = np.random.default_rng(SEED + 10)
     ranks = sorted({rank for rank, _, _ in EVAL_GRID})
     w_tally = {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
@@ -3353,7 +3423,520 @@ def _online_held(on, spies, base, model, rng):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: ML-25M-width ratings, the windowed path's configuration
+# phase 14: item properties, the similar-product and e-commerce templates
+# ---------------------------------------------------------------------------
+
+
+def _templates_data(rng, users, items, ratings):
+    """The phase's events as JSON lines and its ground truth: a `$set` of
+    1-3 genres for every movie, later `$unset`s and `$delete`s, like /
+    dislike events on a sample of phase 9's rated pairs (>= 4 stars a
+    like, <= 2 a dislike), and the first `unavailableItems` list."""
+    n_movies = LOOP_ITEMS + LIFECYCLE_NEW_ITEMS
+    cats = {f"i{m}": sorted(ML1M_GENRES[g] for g in rng.choice(
+        len(ML1M_GENRES), int(rng.integers(1, 4)), replace=False)) for m in range(n_movies)}
+    gone = rng.choice(n_movies, TEMPLATES_UNSET + TEMPLATES_DELETE, replace=False)
+    unset, deleted = gone[:TEMPLATES_UNSET], gone[TEMPLATES_UNSET:]
+    pick = rng.choice(len(users), TEMPLATES_LIKES, replace=False)
+    stars = ratings[pick]
+    keep = stars != 3
+    likes = [("like" if s >= 4 else "dislike", f"u{u}", f"i{i}")
+             for u, i, s in zip(users[pick][keep], items[pick][keep], stars[keep])]
+    lists = rng.choice(n_movies, 2 * TEMPLATES_UNAVAILABLE, replace=False)
+    first = [f"i{m}" for m in lists[:TEMPLATES_UNAVAILABLE]]
+    second = [f"i{m}" for m in lists[TEMPLATES_UNAVAILABLE:]]
+    lines, t = [], TEMPLATES_T0_MS
+
+    def add(ev, etype, eid, props, target=None):
+        nonlocal t
+        d = {"event": ev, "entityType": etype, "entityId": eid, "properties": props,
+             "eventTime": _ms_iso(t)}
+        if target is not None:
+            d.update(targetEntityType="item", targetEntityId=target)
+        lines.append(json.dumps(d))
+        t += 1000
+
+    for m, c in cats.items():
+        add("$set", "item", m, {"categories": c})
+    for m in unset:
+        add("$unset", "item", f"i{m}", {"categories": None})
+    for m in deleted:
+        add("$delete", "item", f"i{m}", {})
+    for ev, u, i in likes:
+        add(ev, "user", u, {}, target=i)
+    add("$set", "constraint", "unavailableItems", {"items": first})
+    truth = {m: frozenset(c) for m, c in cats.items()}
+    for m in gone:
+        truth[f"i{m}"] = frozenset()
+    return lines, t, truth, likes, first, second
+
+
+def _engine_json(name, body):
+    path = LOOP_DIR / f"engine_{name}.json"
+    path.write_text(json.dumps({"id": name, **body}))
+    return path
+
+
+def _instance(storage, engine_id):
+    """The engine's newest instance, which must be COMPLETED."""
+    insts = [i for i in storage.get_meta_data_engine_instances().get_all()
+             if i.engine_id == engine_id]
+    inst = max(insts, key=lambda i: i.start_time)
+    check(inst.status == "COMPLETED", f"{engine_id}: instance {inst.status}")
+    return inst
+
+
+def _serve_load(port, queries):
+    """The queries from N_CLIENTS threads: {n: (status, body, seconds)} and
+    the wall seconds."""
+    out: dict = {}
+    lock = threading.Lock()
+    work = list(enumerate(queries))
+    threads = [threading.Thread(target=_client, args=(port, work[c::N_CLIENTS], out, lock))
+               for c in range(N_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "clients hung")
+    check(len(out) == len(queries), f"{len(out)} of {len(queries)} answered")
+    for n in range(len(queries)):
+        check(out[n][0] == 200, f"query {n}: HTTP {out[n][0]} {out[n][1]}")
+    return out, wall
+
+
+def _latency(out, wall, n):
+    lat = [out[k][2] for k in range(n)]
+    return {"queries": n, "wall_s": wall, "qps": n / wall,
+            "p50_ms": _pct(lat, 0.5), "p99_ms": _pct(lat, 0.99)}
+
+
+def phase_templates(report, shared):
+    """Item properties and the two templates over the loop's ML-1M app:
+    the properties and likes imported, the similar-product `multi`
+    variant and the e-commerce template trained by `console train` and
+    served by `console deploy` on the card, then the recommendation
+    template with item categories through the data view."""
+    t_phase = time.perf_counter()
+    users, items, ratings = shared["loop"]
+    rng = np.random.default_rng(TEMPLATES_SEED)
+    lines, t_end, truth, likes, first, second = _templates_data(rng, users, items, ratings)
+    events_path = LOOP_DIR / "templates.jsonl"
+    events_path.write_text("\n".join(lines) + "\n")
+    out = report["templates"] = {"nvidia_smi": report["nvidia_smi"], "likes": len(likes)}
+    with _loop_storage():
+        t0 = time.perf_counter()
+        check(console.main(["import", "--app", LOOP_APP, "--input", str(events_path)]) == 0,
+              "import of the properties and likes")
+        out["import_s"] = time.perf_counter() - t0
+        storage = Storage()
+        app_id = storage.get_meta_data_apps().get_by_name(LOOP_APP).id
+        events = storage.get_events()
+        props = events.aggregate_properties(app_id, "item")
+        got = {m: frozenset(p.get_opt("categories", list) or []) for m, p in props.items()}
+        check(len(props) == len(truth) - TEMPLATES_DELETE
+              and all(got.get(m, frozenset()) == c for m, c in truth.items()),
+              "aggregate_properties differs from the imported $set/$unset/$delete")
+        out["similar"] = _similar_run(storage, rng)
+        out["ecommerce"] = _ecommerce_run(storage, rng, truth, first, second, t_end)
+        out["recommendation"] = _categories_run(storage, rng, truth)
+    out["phase_s"] = time.perf_counter() - t_phase
+    smi = report["nvidia_smi"]
+    for name in ("similar", "ecommerce", "recommendation"):
+        r = out[name]
+        st = r["stages"]
+        print(f"[templates] {smi} | {name}: read {st['read']:.2f} s, train "
+              f"{st['train']:.2f} s, persist {st['persist']:.4f} s; launches "
+              f"{r['launches']}", flush=True)
+        if "p50_ms" in r:
+            print(f"[templates] {smi} | {name}: deploy to ready {r['deploy_ready_s']:.2f} s; "
+                  f"{r['queries']} queries from {N_CLIENTS} clients: p50 {r['p50_ms']:.3f} ms, "
+                  f"p99 {r['p99_ms']:.3f} ms, {r['qps']:.1f} qps", flush=True)
+    rr = out["recommendation"]
+    print(f"[templates] {smi} | recommendation with categories and the data view: read "
+          f"{rr['reads'][0]:.2f} s (miss), then {rr['reads'][1]:.2f} s (hit), "
+          f"{rr['queries']} category queries on the card in {rr['serve_s']:.3f} s; "
+          f"import {out['import_s']:.2f} s; phase {out['phase_s']:.1f} s", flush=True)
+
+
+def _similar_queries(rng):
+    """N_QUERIES baskets of 1-5 movies (20 % with blacklists, 10 % with
+    whitelists), TEMPLATES_UNKNOWN_BASKETS of them of unknown ids only."""
+    qs = []
+    n_movies = LOOP_ITEMS + LIFECYCLE_NEW_ITEMS
+    unknown = set(rng.choice(N_QUERIES, min(N_QUERIES, TEMPLATES_UNKNOWN_BASKETS),
+                             replace=False).tolist())
+    for n in range(N_QUERIES):
+        if n in unknown:
+            qs.append({"items": [f"x{n}", "nope"], "num": 10})
+            continue
+        q = {"items": [f"i{int(m)}" for m in rng.integers(0, n_movies, int(rng.integers(1, 6)))],
+             "num": int(rng.choice([5, 10, 20, 50]))}
+        r = rng.random()
+        if r < 0.2:
+            q["blacklist"] = [f"i{int(x)}" for x in
+                              rng.integers(0, n_movies, int(rng.integers(3, 11)))]
+        elif r < 0.3:
+            q["whitelist"] = [f"i{int(x)}" for x in rng.integers(0, n_movies, 50)]
+        qs.append(q)
+    return qs
+
+
+def _similar_run(storage, rng):
+    """The `multi` variant (`als` on the rate events as views, `like` on
+    the likes, `sum` serving): trained here, deployed in a process of
+    its own, 500 baskets; each answer held to the plain selector on the
+    CPU over the same factors, per algorithm and summed."""
+    engine_json = _engine_json("ml1m-sim", {
+        "engineFactory": "predictionio_tpu_torch.engines.similarproduct.SimilarProductEngine",
+        "datasource": {"params": {"app_name": LOOP_APP, "view_event": "rate"}},
+        "algorithms": [{"name": "als", "params": {}}, {"name": "like", "params": {}}],
+        "serving": {"name": "sum"},
+    })
+    df.PASS_LAUNCHES.update(row=0, col=0)  # every count to 0 just before the main path
+    wf.BLOCK_LAUNCHES.update(partials=0, combine=0)
+    with _Spy(als, "stage_windowed") as stage:
+        rc = console.main(["train", "--engine-json", str(engine_json)])
+    launches = {**df.PASS_LAUNCHES, **wf.BLOCK_LAUNCHES}
+    check(rc == 0, "similar-product train --engine-json")
+    inst = _instance(storage, "ml1m-sim")
+    iters = SimilarParams().num_iterations
+    check(launches == {"row": iters, "col": iters, "partials": 2 * iters,
+                       "combine": 2 * iters},
+          f"similar-product train launches {launches}: want the dense passes once an "
+          f"iteration (als) and the windowed pass twice (like)")
+    staged = [o for *_, o in stage.calls]
+    check(len(staged) == 1, f"{len(staged)} windowed stagings, want the like train's one")
+    held = {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
+            "combined_max_abs_err": 0.0, "combined_max_ratio": 0.0}
+    _windowed_held(staged[0], RANK, np.random.default_rng(TEMPLATES_SEED + 1), held,
+                   "like plan")
+    del staged, stage
+    models = deserialize_models(storage.get_model_data_models().get(inst.id).models)
+    check([type(m).__name__ for m in models] == ["SimilarModel", "SimilarModel"],
+          f"MODELDATA holds {[type(m).__name__ for m in models]}")
+    for m in models:
+        check(_finite(m.factors), "non-finite factors")
+        check(m.factors.item_factors.shape == (LOOP_ITEMS + LIFECYCLE_NEW_ITEMS, RANK),
+              f"item factors {m.factors.item_factors.shape}")
+
+    queries = _similar_queries(rng)
+    t0 = time.perf_counter()
+    with _Console(["deploy", "--engine-json", str(engine_json), "--ip", "127.0.0.1",
+                   "--port", "0"], LOOP_DIR / "deploy_sim.log") as dep:
+        port = dep.port(timeout=300)
+        before = _status(port)
+        ready_s = time.perf_counter() - t0
+        answers, wall = _serve_load(port, queries)
+        after = _status(port)
+    check(before["engine_instance"] == inst.id, "deploy serves another instance")
+    check(after["device"] == "cuda:0", f"deploy serves on {after['device']}")
+    vocab = models[0].factors.item_vocab
+    known = sum(any(vocab.get(i) is not None for i in q["items"]) for q in queries)
+    served = after["kernel_launches"] - before["kernel_launches"]
+    select = after["select_launches"] - before["select_launches"]
+    check(served == select == 2 * known,
+          f"deploy top-k launches {served} (select {select}) != 2 x {known} baskets "
+          f"with a known movie")
+
+    # the plain selector on the CPU over the same item slabs
+    algs = [SimilarAlgorithm(SimilarParams()), LikeAlgorithm(SimilarParams())]
+    for m in models:
+        m.bind_device("cpu")
+        m.host_ranked = lambda: False  # the card's route, through the plain version
+    max_host = 0.0
+    for n, q in enumerate(queries):
+        sq = SimilarQuery(**q)
+        preds = [a.predict(m, sq) for a, m in zip(algs, models)]
+        want = _to_jsonable(SumScoreServing().serve(sq, preds))
+        check(answers[n][1] == want, f"basket {n} ({q}) differs from the plain top-k on the CPU")
+        rows = [vocab.get(i) for i in q["items"] if vocab.get(i) is not None]
+        if not rows:
+            check(answers[n][1] == {"item_scores": []}, f"basket {n} of unknown ids answered")
+            continue
+        for m, p in zip(models, preds):
+            normed = m.normed_item_factors()
+            host = normed @ normed[rows].mean(axis=0)
+            for s in p.item_scores:
+                max_host = max(max_host, abs(s.score - float(host[vocab.get(s.item)])))
+    check(max_host <= 1e-5, f"scores {max_host} from the host formula normed @ mean")
+    return {"stages": stage_timings(inst), "launches": {**launches, "serve_topk": served,
+                                                         "serve_select": select},
+            "baskets_known": known, "held": held, "max_abs_from_host_formula": max_host,
+            "deploy_ready_s": ready_s, "batches": after["batches"] - before["batches"],
+            **_latency(answers, wall, len(queries))}
+
+
+def _seen_by_user(storage):
+    """user id → the item ids of their rate and view events, from one
+    columnar read of the store."""
+    frame = EventStoreFacade(storage).find_frame(
+        LOOP_APP, entity_type="user", target_entity_type="item",
+        event_names=["rate", "view"])
+    inv_u, inv_i = frame.entity_vocab.inverse(), frame.target_vocab.inverse()
+    order = np.argsort(frame.entity_idx, kind="stable")
+    ent, tgt = frame.entity_idx[order], frame.target_idx[order]
+    starts = np.flatnonzero(np.r_[True, ent[1:] != ent[:-1]])
+    ends = np.r_[starts[1:], len(ent)]
+    return {inv_u(int(ent[a])): {inv_i(int(x)) for x in tgt[a:b]}
+            for a, b in zip(starts, ends)}
+
+
+def _ecommerce_queries(rng, n, viewers):
+    """`n` queries in a random order: one for each of `viewers`, one for
+    each of TEMPLATES_NO_EVENT_USERS users with no events, the rest for
+    users the model knows; 30 % with categories, 10 % with whitelists,
+    20 % with blacklists, drawn apart."""
+    n_movies = LOOP_ITEMS + LIFECYCLE_NEW_ITEMS
+    qs = []
+    for k in range(n):
+        if k < len(viewers):
+            user = viewers[k]
+        elif k < len(viewers) + TEMPLATES_NO_EVENT_USERS:
+            user = f"nobody{k}"
+        else:
+            user = f"u{int(rng.integers(LOOP_USERS + LIFECYCLE_NEW_USERS))}"
+        q = {"user": user, "num": int(rng.choice([5, 10, 20, 50]))}
+        if rng.random() < 0.3:
+            q["categories"] = [str(g) for g in rng.choice(ML1M_GENRES, int(rng.integers(1, 3)),
+                                                         replace=False)]
+        if rng.random() < 0.1:
+            q["whitelist"] = [f"i{int(x)}" for x in rng.integers(0, n_movies, 50)]
+        if rng.random() < 0.2:
+            q["blacklist"] = [f"i{int(x)}" for x in
+                              rng.integers(0, n_movies, int(rng.integers(3, 11)))]
+        qs.append(q)
+    order = rng.permutation(n)
+    return [qs[k] for k in order]
+
+
+def _ecommerce_expected(q, f, normed, truth, seen, basis, unavailable):
+    """The brute force: the scores of every item for the query's user
+    (its factor row, or the cosine to its view basis), a full stable sort
+    over the items every filter allows. (scores, ordered item rows)."""
+    vocab, n_items = f.item_vocab, f.item_factors.shape[0]
+    inv = vocab.inverse()
+    allowed = np.ones(n_items, bool)
+    if q.get("categories"):
+        wanted = set(q["categories"])
+        allowed &= np.array([bool(truth[inv(r)] & wanted) for r in range(n_items)])
+    if "whitelist" in q:
+        listed = np.zeros(n_items, bool)
+        listed[[vocab.get(i) for i in q["whitelist"] if vocab.get(i) is not None]] = True
+        allowed &= listed
+    for it in list(q.get("blacklist", [])) + list(unavailable) + list(seen):
+        if vocab.get(it) is not None:
+            allowed[vocab.get(it)] = False
+    row = f.user_vocab.get(q["user"])
+    if row is not None:
+        scores = f.item_factors @ f.user_factors[row]
+    elif basis:
+        rows = [vocab.get(i) for i in basis]
+        scores = normed @ normed[rows].mean(axis=0)
+        allowed[rows] = False
+    else:
+        return None, np.zeros(0, np.int64)
+    cand = np.flatnonzero(allowed)
+    return scores, cand[np.argsort(-scores[cand], kind="stable")][:q["num"]]
+
+
+def _same_topn(body, scores, want, vocab, label, rtol=1e-6):
+    """The answer's items and scores against the brute force: scores
+    within `rtol` (of the largest), items equal outside groups of scores
+    within it and as sets inside them."""
+    got = [(s["item"], s["score"]) for s in body["item_scores"]]
+    check(len(got) == len(want), f"{label}: {len(got)} items, want {len(want)}")
+    if not got:
+        return
+    tol = rtol * max(1e-30, float(np.abs(scores[want]).max()))
+    ws = scores[want]
+    gs = np.array([s for _, s in got])
+    check(np.all(np.abs(gs - ws) <= tol), f"{label}: scores off by "
+          f"{float(np.abs(gs - ws).max())}")
+    for (item, s) in got:
+        check(abs(float(scores[vocab.get(item)]) - s) <= tol,
+              f"{label}: {item} scored {s}, brute force {scores[vocab.get(item)]}")
+    inv = vocab.inverse()
+    cut = float(ws[-1])
+    g_set = {i for i, s in got if s > cut + tol}
+    w_set = {inv(int(r)) for r, s in zip(want, ws) if s > cut + tol}
+    check(g_set == w_set, f"{label}: items above the cut differ")
+    for n in range(1, len(got)):
+        check(gs[n] <= gs[n - 1] + tol, f"{label}: not sorted")
+
+
+def _ecommerce_run(storage, rng, truth, first, second, t_end):
+    """The e-commerce template: trained here, then view events of users
+    the model does not know, a deploy in a process of its own, 500
+    queries, a second unavailable list and 50 more; each answer held to
+    the brute force over the persisted factors and the store's events."""
+    engine_json = _engine_json("ml1m-ec", {
+        "engineFactory": "predictionio_tpu_torch.engines.ecommerce.ECommerceEngine",
+        "datasource": {"params": {"app_name": LOOP_APP}},
+        "algorithms": [{"name": "ecomm", "params": {
+            "app_name": LOOP_APP, "unseen_only": True, "seen_events": ["rate", "view"]}}],
+    })
+    df.PASS_LAUNCHES.update(row=0, col=0)
+    wf.BLOCK_LAUNCHES.update(partials=0, combine=0)
+    rc = console.main(["train", "--engine-json", str(engine_json)])
+    launches = {**df.PASS_LAUNCHES, **wf.BLOCK_LAUNCHES}
+    check(rc == 0, "e-commerce train --engine-json")
+    inst = _instance(storage, "ml1m-ec")
+    iters = ECommParams(app_name=LOOP_APP).num_iterations
+    check(launches == {"row": iters, "col": iters, "partials": 0, "combine": 0},
+          f"e-commerce train launches {launches}: want the dense passes once an iteration")
+    [model] = deserialize_models(storage.get_model_data_models().get(inst.id).models)
+    check(type(model).__name__ == "ECommModel", f"MODELDATA holds {type(model).__name__}")
+    f = model.factors
+    check(_finite(f), "non-finite factors")
+    inv = f.item_vocab.inverse()
+    check(all(model.item_categories[r] == truth[inv(r)] for r in range(len(f.item_vocab))),
+          "the model's item categories differ from the imported properties")
+
+    # users the model does not know, with views in the store
+    viewers = [f"v{n}" for n in range(TEMPLATES_NEW_VIEWERS)]
+    n_movies = LOOP_ITEMS + LIFECYCLE_NEW_ITEMS
+    views, lines, t = {}, [], t_end
+    for v in viewers:
+        views[v] = [f"i{int(m)}" for m in rng.choice(n_movies, TEMPLATES_NEW_VIEWS,
+                                                      replace=False)]
+        for it in views[v]:
+            lines.append(json.dumps({"event": "view", "entityType": "user", "entityId": v,
+                                     "targetEntityType": "item", "targetEntityId": it,
+                                     "eventTime": _ms_iso(t)}))
+            t += 1000
+    views_path = LOOP_DIR / "templates_views.jsonl"
+    views_path.write_text("\n".join(lines) + "\n")
+    check(console.main(["import", "--app", LOOP_APP, "--input", str(views_path)]) == 0,
+          "import of the new users' views")
+    seen = _seen_by_user(storage)
+    check(all(seen[v] == set(views[v]) for v in viewers), "the new users' views read back")
+
+    queries = _ecommerce_queries(rng, N_QUERIES, viewers)
+    later = _ecommerce_queries(rng, TEMPLATES_AFTER_QUERIES, [])
+    app_id = storage.get_meta_data_apps().get_by_name(LOOP_APP).id
+    t0 = time.perf_counter()
+    with _Console(["deploy", "--engine-json", str(engine_json), "--ip", "127.0.0.1",
+                   "--port", "0"], LOOP_DIR / "deploy_ec.log") as dep:
+        port = dep.port(timeout=300)
+        before = _status(port)
+        ready_s = time.perf_counter() - t0
+        answers, wall = _serve_load(port, queries)
+        mid = _status(port)
+        storage.get_events().insert(Event(
+            event="$set", entity_type="constraint", entity_id="unavailableItems",
+            properties={"items": second},
+            event_time=datetime.datetime.fromtimestamp(t / 1000, datetime.timezone.utc)),
+            app_id)
+        after_answers, _ = _serve_load(port, later)
+        after = _status(port)
+    check(before["engine_instance"] == inst.id, "deploy serves another instance")
+    check(after["device"] == "cuda:0", f"deploy serves on {after['device']}")
+    check(after["kernel_launches"] == before["kernel_launches"],
+          "an e-commerce query launched a top-k kernel (its ranking is the host's)")
+
+    normed = f.item_factors / (np.linalg.norm(f.item_factors, axis=-1, keepdims=True) + 1e-9)
+    filtered = {"categories": 0, "seen": 0, "basis": 0, "empty": 0}
+    for batch, unavailable, qs in ((answers, first, queries), (after_answers, second, later)):
+        for n, q in enumerate(qs):
+            body = batch[n][1]
+            user_seen = seen.get(q["user"], set())
+            basis = views.get(q["user"], [])
+            scores, want = _ecommerce_expected(q, f, normed, truth, user_seen, basis,
+                                               unavailable)
+            label = f"e-commerce query {n} ({q['user']})"
+            if scores is None:
+                check(body == {"item_scores": []}, f"{label}: answered with no events")
+                filtered["empty"] += 1
+                continue
+            _same_topn(body, scores, want, f.item_vocab, label)
+            items = {s["item"] for s in body["item_scores"]}
+            check(not items & (set(unavailable) | set(q.get("blacklist", [])) | user_seen
+                               | set(basis)), f"{label}: a filtered item answered")
+            if q.get("categories"):
+                check(all(truth[i] & set(q["categories"]) for i in items),
+                      f"{label}: an item without a wanted category")
+                filtered["categories"] += 1
+            filtered["seen"] += bool(user_seen)
+            filtered["basis"] += bool(basis) and f.user_vocab.get(q["user"]) is None
+    check(filtered["basis"] == TEMPLATES_NEW_VIEWERS
+          and filtered["empty"] == 2 * TEMPLATES_NO_EVENT_USERS,
+          f"query kinds served: {filtered}")
+    return {"stages": stage_timings(inst), "launches": {**launches, "serve_topk": 0},
+            "filtered": filtered, "deploy_ready_s": ready_s,
+            "batches": mid["batches"] - before["batches"],
+            "batch_predict_ms": 1e3 * (mid["batch_predict_seconds"]
+                                       - before["batch_predict_seconds"])
+            / max(1, mid["batches"] - before["batches"]),
+            **_latency(answers, wall, len(queries))}
+
+
+def _categories_run(storage, rng, truth):
+    """The recommendation template with item categories through the data
+    view: `console train` twice (the second read a DataView hit, the
+    factors bit-equal), then category queries through the deployed
+    runtime on the card, each equal to the plain top-k on the CPU."""
+    engine_json = _engine_json("ml1m-cat", {
+        "engineFactory": "predictionio_tpu_torch.engines.recommendation.RecommendationEngine",
+        "datasource": {"params": {"app_name": LOOP_APP, "event_names": ["rate"],
+                                  "read_item_categories": True, "use_data_view": True}},
+        "algorithms": [{"name": "als", "params": {}}],
+    })
+    df.PASS_LAUNCHES.update(row=0, col=0)
+    wf.BLOCK_LAUNCHES.update(partials=0, combine=0)
+    DataView.stats.update(hits=0, misses=0)
+    insts, stats = [], []
+    for _ in range(2):
+        check(console.main(["train", "--engine-json", str(engine_json)]) == 0,
+              "recommendation train --engine-json")
+        insts.append(_instance(storage, "ml1m-cat"))
+        stats.append(dict(DataView.stats))
+    launches = {**df.PASS_LAUNCHES, **wf.BLOCK_LAUNCHES}
+    check(stats == [{"hits": 0, "misses": 1}, {"hits": 1, "misses": 1}],
+          f"DataView {stats}: the second read must be a hit")
+    iters = ALSAlgorithmParams().num_iterations
+    check(launches == {"row": 2 * iters, "col": 2 * iters, "partials": 0, "combine": 0},
+          f"recommendation trains' launches {launches}")
+    a, b = (_blob_factors(storage, i.id) for i in insts)
+    check(_bit_equal(a.factors, b.factors),
+          "the train from the cached frame differs from the first")
+    inv = a.factors.item_vocab.inverse()
+    check(all(a.item_categories[r] == truth[inv(r)] for r in range(len(a.factors.item_vocab))),
+          "the model's item categories differ from the imported properties")
+    runtime = latest_completed_runtime(storage, "ml1m-cat", "0", "ml1m-cat")
+    alg, model = runtime.algorithms[0], runtime.models[0]
+    check(str(model.device) == "cuda:0", f"the runtime serves on {model.device}")
+    queries = []
+    for _ in range(TEMPLATES_CATEGORY_QUERIES):
+        q = {"user": f"u{int(rng.integers(LOOP_USERS))}", "num": int(rng.choice([5, 10, 50])),
+             "categories": [str(g) for g in rng.choice(ML1M_GENRES, int(rng.integers(1, 3)),
+                                                       replace=False)]}
+        queries.append(q)
+    launches0, select0 = rec.LAUNCHES, rec.ROUTE_LAUNCHES["select"]
+    t0 = time.perf_counter()
+    served = [_to_jsonable(alg.predict(model, Query(**q))) for q in queries]
+    serve_s = time.perf_counter() - t0
+    topk = rec.LAUNCHES - launches0
+    select = rec.ROUTE_LAUNCHES["select"] - select0
+    check(topk == select == len(queries), f"category queries launched {topk} (select "
+          f"{select}), want one each")
+    b.bind_device("cpu")
+    cpu_alg = ALSAlgorithm(ALSAlgorithmParams())
+    for n, q in enumerate(queries):
+        check(served[n] == _to_jsonable(cpu_alg.predict(b, Query(**q))),
+              f"category query {n} ({q}) differs from the CPU plain top-k")
+        check(all(truth[s["item"]] & set(q["categories"]) for s in served[n]["item_scores"]),
+              f"category query {n}: an item without a wanted category")
+    return {"stages": stage_timings(insts[1]),
+            "reads": [stage_timings(i)["read"] for i in insts],
+            "data_view": stats[-1], "launches": {**launches, "serve_topk": topk},
+            "queries": len(queries), "serve_s": serve_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: ML-25M-width ratings, the windowed path's configuration
 # ---------------------------------------------------------------------------
 
 
@@ -3444,7 +4027,7 @@ def phase_data25(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the windowed pass kernels vs their plain versions on the card
+# phase 16: the windowed pass kernels vs their plain versions on the card
 # ---------------------------------------------------------------------------
 
 
@@ -3556,7 +4139,7 @@ def phase_windowed(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the windowed path, trained through ALSAlgorithm.train
+# phase 17: the windowed path, trained through ALSAlgorithm.train
 # ---------------------------------------------------------------------------
 
 
@@ -3661,7 +4244,7 @@ def phase_windowed_train(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the rank > 32 scatter path on the card
+# phase 18: the rank > 32 scatter path on the card
 # ---------------------------------------------------------------------------
 
 
@@ -3724,7 +4307,7 @@ def phase_scatter(report, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 18: windowed pass times
+# phase 19: windowed pass times
 # ---------------------------------------------------------------------------
 
 
@@ -3841,7 +4424,7 @@ def _partials_at_max_rank(rng, p, side, n_src, edges):
 
 
 # ---------------------------------------------------------------------------
-# phases 19-23: the Universal Recommender (CCO train, history scoring,
+# phases 20-24: the Universal Recommender (CCO train, history scoring,
 # the masked top-k kernel)
 # ---------------------------------------------------------------------------
 
@@ -4330,6 +4913,7 @@ def main() -> int:
                         ("loop", phase_loop), ("eval", phase_eval),
                         ("lifecycle", phase_lifecycle),
                         ("ingest", phase_ingest), ("online", phase_online),
+                        ("templates", phase_templates),
                         ("data25", phase_data25), ("windowed", phase_windowed),
                         ("windowed train", phase_windowed_train),
                         ("scatter", phase_scatter),
@@ -4352,25 +4936,30 @@ def main() -> int:
     ing = report["ingest"]["launches"]  # the Event Server's app: train, deploy
     lc = report["lifecycle"]["launches"]  # the train jobs' children and the deploy
     lckr = report["lifecycle"]["kill_resume_launches"]  # in process, both runs
+    tpl = report["templates"]  # the similar-product deploy; the other templates
+    sim, tml = tpl["similar"]["launches"], [tpl["ecommerce"]["launches"],
+                                          tpl["recommendation"]["launches"]]
     paths = {  # each main path's launches, counted from 0 around it
         "fused_recommend_topk": {"serve": report["serve"]["launches"],
                                  "loop": report["loop"]["launches"]["serve_topk"],
                                  "eval": ev["topk"], "eval dense": evd["topk"],
                                  "ingest": ing["serve_topk"],
                                  "lifecycle": lc["serve_topk"],
-                                 "online": report["online"]["launches"]["topk"]},
-        "row": {"train": report["train"]["launches"]["row"],
-                "loop": report["loop"]["launches"]["row"],
-                "eval dense": evd["row"], "lifecycle jobs": lc["row"],
-                "lifecycle kill/resume": lckr["row"]},
-        "col": {"train": report["train"]["launches"]["col"],
-                "loop": report["loop"]["launches"]["col"],
-                "eval dense": evd["col"], "lifecycle jobs": lc["col"],
-                "lifecycle kill/resume": lckr["col"]},
+                                 "online": report["online"]["launches"]["topk"],
+                                 "similar": sim["serve_topk"],
+                                 "templates": tml[1]["serve_topk"]},
+        **{which: {"train": report["train"]["launches"][which],
+                   "loop": report["loop"]["launches"][which],
+                   "eval dense": evd[which], "lifecycle jobs": lc[which],
+                   "lifecycle kill/resume": lckr[which], "similar": sim[which],
+                   "templates": sum(t[which] for t in tml)} for which in ("row", "col")},
         "block_partials": {"windowed train": report["windowed_train"]["launches"]["partials"],
-                           "eval": ev["partials"], "ingest": ing["partials"]},
+                           "eval": ev["partials"], "ingest": ing["partials"],
+                           "similar": sim["partials"],
+                           "templates": sum(t["partials"] for t in tml)},
         "combine": {"windowed train": report["windowed_train"]["launches"]["combine"],
-                    "eval": ev["combine"], "ingest": ing["combine"]},
+                    "eval": ev["combine"], "ingest": ing["combine"],
+                    "similar": sim["combine"], "templates": sum(t["combine"] for t in tml)},
         "fused_masked_topk": {"ur serve": report["ur_serve"]["launches"]},
     }
     kernels = [{
@@ -4405,7 +4994,8 @@ def main() -> int:
         "launches_by_path": paths["block_partials"],
         "max_abs_err": max(report["windowed_sweep"]["max_abs_err"],
                            held["windowed"]["max_abs_err"],
-                           report["ingest"]["held"]["max_abs_err"]),
+                           report["ingest"]["held"]["max_abs_err"],
+                           tpl["similar"]["held"]["max_abs_err"]),
         "ms": users_side["ms"], "plain_ms": users_side["plain_ms"],
         "bound_ms": users_side["bound_ms"], "bound_by": users_side["bound_by"],
         "library_ms": users_side["library_ms"],

@@ -4,17 +4,22 @@ The JAX package persists a deployed model as a pickle of its own
 classes; unpickling that would import the JAX package. The carry-across
 format is therefore arrays and id vocabularies: for ALS its npz factor
 blob (``ALSFactors.to_bytes``, the arrays, the ids and the parameters as
-JSON) or the arrays themselves; for the Universal Recommender the
-correlator tables of each indicator and the item vocabulary.
+JSON) or the arrays themselves, also for the similar-product and
+e-commerce templates' models (their factors, serving dtype or item
+categories); for the Universal Recommender the correlator tables of each
+indicator and the item vocabulary.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
 from predictionio_tpu_torch.data.store.bimap import BiMap
+from predictionio_tpu_torch.engines.ecommerce.engine import ECommModel
+from predictionio_tpu_torch.engines.similarproduct.engine import SimilarModel
 from predictionio_tpu_torch.engines.universal.engine import IndicatorModel, URModel
 from predictionio_tpu_torch.models.als import ALSFactors, ALSParams
 
@@ -45,6 +50,34 @@ def als_factors_from_numpy(
         item_vocab=BiMap({i: n for n, i in enumerate(item_ids)}),
         params=ALSParams(**params),
     )
+
+
+def similar_model_from_numpy(
+    item_factors, user_factors, user_ids, item_ids, params: dict,
+    serve_dtype: str = "f32", device=None,
+) -> SimilarModel:
+    """A JAX ``SimilarModel``'s arrays (its ``factors`` and
+    ``serve_dtype``) → the port's ``SimilarModel`` on `device` (the first
+    CUDA device by default)."""
+    return SimilarModel(
+        als_factors_from_numpy(user_factors, item_factors, user_ids, item_ids, params),
+        serve_dtype=serve_dtype, device=device,
+    )
+
+
+def ecomm_model_from_numpy(
+    item_factors, user_factors, user_ids, item_ids, params: dict,
+    item_categories: Optional[list] = None, device=None,
+) -> ECommModel:
+    """A JAX ``ECommModel``'s arrays and item categories (one collection
+    of category names an item row, or None) → the port's ``ECommModel``
+    on `device` (the first CUDA device by default)."""
+    factors = als_factors_from_numpy(user_factors, item_factors, user_ids, item_ids, params)
+    if item_categories is not None:
+        if len(item_categories) != factors.item_factors.shape[0]:
+            raise ValueError("one category set per item row is required")
+        item_categories = [frozenset(c) for c in item_categories]
+    return ECommModel(factors, item_categories, device=device)
 
 
 def load_jax_als_blob(data: bytes) -> ALSFactors:

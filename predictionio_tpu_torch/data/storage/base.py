@@ -12,8 +12,13 @@ package's field for field; the DAO interfaces are those of events
 engine instances, evaluation instances and models. The event store
 tails by insert revision (``latest_revision``, ``find_since``,
 ``revision_streams``: the online consumer's read) over one stream a
-store, since no ported store shards. Property aggregation and data
-signatures are not ported.
+store, since no ported store shards. The derived reads are the JAX
+package's: ``find_single_entity`` (newest first by default), the
+property folds ``aggregate_properties`` (with ``required``) and
+``aggregate_properties_of_entity`` over ``find``'s (event_time,
+event_id) order, and ``data_signature``, the fingerprint that keys the
+data view's cache (a scan here; the ported stores override it with
+count + write version).
 """
 
 from __future__ import annotations
@@ -23,6 +28,12 @@ import datetime as _dt
 from dataclasses import dataclass, field
 from typing import Any, Iterable, Iterator, Optional, Sequence
 
+from predictionio_tpu_torch.data.aggregator import (
+    SPECIAL_EVENTS,
+    aggregate_properties,
+    aggregate_properties_of_entity,
+)
+from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
 
 
@@ -201,6 +212,87 @@ class EventStore(abc.ABC):
         shard filter) rows: one for every ported store, so a consumer's
         cursor is {"0": revision}."""
         return [("0", self, None)]
+
+    def data_signature(self, app_id: int,
+                       channel_id: Optional[int] = None) -> str:
+        """A fingerprint of the (app, channel) namespace that changes at
+        every insert and delete: it keys the data view's cache
+        (data/view.py). Default: an O(n) scan, the count and the xor of
+        the ids' crc32s; the ported stores override it with count +
+        write version."""
+        import zlib
+
+        n = 0
+        acc = 0
+        for e in self.find(EventQuery(app_id=app_id, channel_id=channel_id)):
+            n += 1
+            acc ^= zlib.crc32((e.event_id or "").encode())
+        return f"{n}:{acc}"
+
+    # -- derived reads --------------------------------------------------------
+    def find_single_entity(
+        self,
+        app_id: int,
+        entity_type: str,
+        entity_id: str,
+        channel_id: Optional[int] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Optional[str] = None,
+        target_entity_id: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        limit: Optional[int] = None,
+        reversed: bool = True,
+    ) -> Iterator[Event]:
+        """One entity's events, newest first by default: the serving-time
+        read (reference LEvents.findSingleEntity:390)."""
+        return self.find(EventQuery(
+            app_id=app_id, channel_id=channel_id, start_time=start_time,
+            until_time=until_time, entity_type=entity_type,
+            entity_id=entity_id, event_names=event_names,
+            target_entity_type=target_entity_type,
+            target_entity_id=target_entity_id, limit=limit, reversed=reversed,
+        ))
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        entity_type: str,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[Sequence[str]] = None,
+    ) -> dict[str, PropertyMap]:
+        """entity_id → PropertyMap of the type's $set/$unset/$delete
+        events, only entities holding every `required` field (reference
+        LEvents.futureAggregateProperties:191)."""
+        result = aggregate_properties(self.find(EventQuery(
+            app_id=app_id, channel_id=channel_id, start_time=start_time,
+            until_time=until_time, entity_type=entity_type,
+            event_names=list(SPECIAL_EVENTS),
+        )))
+        if required:
+            req = set(required)
+            result = {k: v for k, v in result.items() if req.issubset(v.keyset())}
+        return result
+
+    def aggregate_properties_of_entity(
+        self,
+        app_id: int,
+        entity_type: str,
+        entity_id: str,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+    ) -> Optional[PropertyMap]:
+        """One entity's PropertyMap, or None (reference
+        LEvents.futureAggregatePropertiesOfEntity:234)."""
+        return aggregate_properties_of_entity(self.find(EventQuery(
+            app_id=app_id, channel_id=channel_id, start_time=start_time,
+            until_time=until_time, entity_type=entity_type,
+            entity_id=entity_id, event_names=list(SPECIAL_EVENTS),
+        )))
+
 
 
 def _no_shard(shard) -> None:

@@ -4,10 +4,11 @@ and evaluation instances and models.
 Counterpart of the JAX package's ``data/storage/memory.py``, cut to what
 the port calls: the event store's namespaces per app and channel with
 ``insert``, ``insert_batch``, ``get``, ``delete``, ``remove_app``,
-``find``, ``find_entities_batch`` and the tail read by insert revision
-(``latest_revision``, ``find_since``), and the metadata rows. One RLock
-per store; events are kept per namespace with a per-entity index for
-history reads. A channel id of 0 is the default channel, as in the
+``find``, ``find_entities_batch``, the tail read by insert revision
+(``latest_revision``, ``find_since``) and ``data_signature`` (count +
+a write version bumped at every insert and delete), and the metadata
+rows. One RLock per store; events are kept per namespace with a
+per-entity index for history reads. A channel id of 0 is the default channel, as in the
 sqlite store. Engine manifests are not ported.
 """
 
@@ -48,6 +49,8 @@ class MemoryEventStore(base.EventStore):
         self._revisions: dict[tuple, int] = {}
         # (app_id, channel_id) → {entity_id: {event_id}}
         self._by_entity: dict[tuple, dict[str, set]] = {}
+        # (app_id, channel_id) → write version, bumped at every mutation
+        self._versions: dict[tuple, int] = {}
 
     def init_app(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         with self._lock:
@@ -74,6 +77,7 @@ class MemoryEventStore(base.EventStore):
             self._revisions[key] = rev
             table[eid] = event.with_id(eid).with_revision(rev)
             index.setdefault(event.entity_id, set()).add(eid)
+            self._versions[key] = self._versions.get(key, 0) + 1
             return eid
 
     def insert_batch(self, events: Sequence[Event], app_id: int,
@@ -93,7 +97,16 @@ class MemoryEventStore(base.EventStore):
             prev = self._ns.get(key, {}).pop(event_id, None)
             if prev is not None:
                 self._by_entity[key].get(prev.entity_id, set()).discard(event_id)
+                self._versions[key] = self._versions.get(key, 0) + 1
             return prev is not None
+
+    def data_signature(self, app_id: int,
+                       channel_id: Optional[int] = None) -> str:
+        """Count + write version: exact, in O(1) (the JAX memory
+        store's)."""
+        key = _ns(app_id, channel_id)
+        with self._lock:
+            return f"{len(self._ns.get(key, {}))}:{self._versions.get(key, 0)}"
 
     def find_entities_batch(
         self,

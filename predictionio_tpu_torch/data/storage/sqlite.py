@@ -12,8 +12,9 @@ other: one events table per app and channel,
 and the ``apps``, ``accesskeys``, ``channels``, ``engineinstances`` and
 ``evaluationinstances`` tables. The tail read by insert revision
 (``find_since``, ``latest_revision``) goes through the table's
-``idx_<table>_rev`` index and the ``pio_insert_revisions`` counter.
-Engine manifests, model blobs and shard filters are not ported.
+``idx_<table>_rev`` index and the ``pio_insert_revisions`` counter;
+``data_signature`` is the row count with the ``pio_data_versions``
+write version. Engine manifests, model blobs and shard filters are not ported.
 """
 
 from __future__ import annotations
@@ -313,6 +314,20 @@ class SqliteEventStore(base.EventStore):
                 self._bump(name)
             self._client.conn.commit()
             return cur.rowcount > 0
+
+    def data_signature(self, app_id: int,
+                       channel_id: Optional[int] = None) -> str:
+        """Count + the table's write version (``pio_data_versions``,
+        bumped at every insert, replace and delete), as the JAX sqlite
+        store gives it."""
+        name = self._ensure_table(app_id, channel_id)
+        with self._client.lock:
+            (n,) = self._client.conn.execute(
+                f"SELECT COUNT(*) FROM {name}").fetchone()
+            row = self._client.conn.execute(
+                "SELECT ver FROM pio_data_versions WHERE tbl = ?", (name,)
+            ).fetchone()
+        return f"{n}:{row[0] if row else 0}"
 
     def find_entities_batch(
         self,

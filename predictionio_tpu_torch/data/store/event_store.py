@@ -1,17 +1,23 @@
 """App-name-based event store facade for engine code.
 
 Counterpart of the JAX package's ``data/store/event_store.py``
-(reference PEventStore.scala:32, LEventStore.scala:30): ``find_frame``
-for training reads, in the app's default channel or the one named by
-``channel_name``, and ``find_by_entities`` for serving-time history
-reads in the default channel, over a `Storage`. ``find_frame`` takes
-the store's columnar read where it has one (sqlite), else packs the
-store's ``find``.
+(reference PEventStore.scala:32, LEventStore.scala:30), over a
+`Storage`: ``find_frame`` and ``aggregate_properties`` for training
+reads, in the app's default channel or the one named by
+``channel_name``; ``find_by_entity`` and ``find_by_entities`` for
+serving-time reads, newest first. ``find_frame`` takes the store's
+columnar read where it has one (sqlite), else packs the store's
+``find``. ``PEventStore`` and ``LEventStore`` name the same facade, as
+in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import datetime as _dt
+from typing import Iterator, Optional, Sequence
+
+from predictionio_tpu_torch.data.datamap import PropertyMap
+from predictionio_tpu_torch.data.event import Event
 
 from predictionio_tpu_torch.data.storage.base import EventQuery, StorageError
 from predictionio_tpu_torch.data.storage.registry import Storage
@@ -47,15 +53,19 @@ class EventStoreFacade:
         event_names: Optional[Sequence[str]] = None,
         entity_type: Optional[str] = None,
         target_entity_type: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
         value_prop: Optional[str] = None,
         default_value: float = 1.0,
     ) -> EventFrame:
-        """The app's events as columns, in (event_time, event_id) order
-        (reference PEventStore.find), with `value_prop` as the value
-        column (`default_value` where it is missing)."""
+        """The app's events in [start_time, until_time) as columns, in
+        (event_time, event_id) order (reference PEventStore.find), with
+        `value_prop` as the value column (`default_value` where it is
+        missing)."""
         app_id, channel_id = self.app_name_to_id(app_name, channel_name)
         query = EventQuery(
-            app_id=app_id, channel_id=channel_id, entity_type=entity_type,
+            app_id=app_id, channel_id=channel_id, start_time=start_time,
+            until_time=until_time, entity_type=entity_type,
             event_names=event_names, target_entity_type=target_entity_type,
         )
         store = self.storage.get_events()
@@ -64,6 +74,49 @@ class EventStoreFacade:
             return fast(query, value_prop=value_prop, default_value=default_value)
         return EventFrame.from_events(
             store.find(query), value_prop=value_prop, default_value=default_value
+        )
+
+    def aggregate_properties(
+        self,
+        app_name: str,
+        entity_type: str,
+        channel_name: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[Sequence[str]] = None,
+    ) -> dict[str, PropertyMap]:
+        """entity_id → PropertyMap of the type's $set/$unset/$delete
+        events (reference PEventStore.aggregateProperties)."""
+        app_id, channel_id = self.app_name_to_id(app_name, channel_name)
+        return self.storage.get_events().aggregate_properties(
+            app_id, entity_type, channel_id=channel_id, start_time=start_time,
+            until_time=until_time, required=required,
+        )
+
+    def find_by_entity(
+        self,
+        app_name: str,
+        entity_type: str,
+        entity_id: str,
+        channel_name: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Optional[str] = None,
+        target_entity_id: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        limit: Optional[int] = None,
+        latest: bool = True,
+        timeout: float = 10.0,
+    ) -> Iterator[Event]:
+        """One entity's events, newest first unless `latest` is false
+        (reference LEventStore.findByEntity:58). `timeout` is kept for
+        the JAX package's signature; the ported stores read in process."""
+        app_id, channel_id = self.app_name_to_id(app_name, channel_name)
+        return self.storage.get_events().find_single_entity(
+            app_id, entity_type, entity_id, channel_id=channel_id,
+            event_names=event_names, target_entity_type=target_entity_type,
+            target_entity_id=target_entity_id, start_time=start_time,
+            until_time=until_time, limit=limit, reversed=latest,
         )
 
     def find_by_entities(
@@ -81,3 +134,8 @@ class EventStoreFacade:
             app_id, entity_type, entity_ids,
             event_names=event_names, limit_per_entity=limit_per_entity,
         )
+
+
+# the reference's two objects, one facade here as in the JAX package
+PEventStore = EventStoreFacade
+LEventStore = EventStoreFacade

@@ -4,13 +4,15 @@ per query.
 Counterpart of the JAX package's ``engines/recommendation/engine.py``
 (reference examples/scala-parallel-recommendation).
 ``RecommendationDataSource`` reads "rate"/"buy" events from the event
-store as one columnar frame; the file-backed ``FileRatingsDataSource``
+store as one columnar frame, through the data view's cache with
+``use_data_view`` (``data/view.py``), and with ``read_item_categories``
+each item's ``categories`` from its aggregated $set properties (the
+filter-by-category variant); the file-backed ``FileRatingsDataSource``
 reads ``user::item::rating`` lines. ``ALSAlgorithm.train`` trains
 through ``models/als.py``'s routing, in checkpointed segments when the
 variant asks (``workflow/checkpoint.py``), warm-started from the live
-registry version with ``warm_start`` (sharded serving and item
-categories are not ported yet, and a variant that asks for one is
-refused). Evaluation follows the template's
+registry version with ``warm_start`` (sharded serving is not ported
+yet, and a variant that asks for it is refused). Evaluation follows the template's
 query/actual protocol: ``read_eval`` makes k folds by interaction
 index, each fold's queries ask for the held-out users' top N, and the
 actual result is the held-out items rated at or above the goal
@@ -41,13 +43,13 @@ from predictionio_tpu_torch.controller import (
     EngineFactory,
     FirstServing,
     IdentityPreparator,
-    ParamsError,
     SanityCheck,
 )
 from predictionio_tpu_torch.controller.metrics import OptionAverageMetric
 from predictionio_tpu_torch.core.base import RuntimeContext
 from predictionio_tpu_torch.data.store.bimap import BiMap
 from predictionio_tpu_torch.data.store.event_store import EventStoreFacade
+from predictionio_tpu_torch.data.view import DataView
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models import als
 from predictionio_tpu_torch.ops.recommend import ROWLIST_MAX, rowlist_np
@@ -87,9 +89,7 @@ class TrainingData(SanityCheck):
 
 @dataclass
 class DataSourceParams:
-    """All of the JAX package's fields, so that a variant's JSON reads the
-    same; the item categories and the data view are refused when they
-    are on."""
+    """The JAX package's fields, so that a variant's JSON reads the same."""
 
     app_name: str
     event_names: tuple[str, ...] = ("rate", "buy")
@@ -97,17 +97,13 @@ class DataSourceParams:
     eval_k: int = 0  # > 0 enables read_eval with k folds
     goal_threshold: float = 4.0  # a rating >= threshold counts as relevant
     eval_num: int = 20  # top N asked per eval query (>= the metric's k)
-    read_item_categories: bool = False  # not ported
-    use_data_view: bool = False  # not ported
-    data_view_dir: Optional[str] = None
-
-    def __post_init__(self):
-        for name in ("read_item_categories", "use_data_view"):
-            if getattr(self, name):
-                raise ParamsError(
-                    f"DataSourceParams.{name} is not ported yet to the "
-                    f"PyTorch port; leave it false"
-                )
+    # read item $set properties for category filtering (off by default:
+    # the plain variant pays no extra event-store scan)
+    read_item_categories: bool = False
+    # cache the read frame keyed by (query, data signature): a train of
+    # an unchanged app skips the event scan
+    use_data_view: bool = False
+    data_view_dir: Optional[str] = None  # default $PIO_FS_BASEDIR/view
 
 
 class RecommendationDataSource(DataSource):
@@ -118,7 +114,7 @@ class RecommendationDataSource(DataSource):
         self.params = params
 
     def _frame(self, ctx: RuntimeContext):
-        frame = EventStoreFacade(ctx.storage).find_frame(
+        frame_kwargs = dict(
             app_name=self.params.app_name,
             entity_type="user",
             target_entity_type="item",
@@ -126,6 +122,11 @@ class RecommendationDataSource(DataSource):
             value_prop="rating",
             default_value=1.0,
         )
+        if self.params.use_data_view:
+            frame = DataView(self.params.data_view_dir).find_frame(
+                ctx.storage, **frame_kwargs)
+        else:
+            frame = EventStoreFacade(ctx.storage).find_frame(**frame_kwargs)
         # only the rate event carries a rating; every other interaction
         # type weighs 1.0, even with a "rating" property
         rate_code = frame.event_vocab.get(self.params.rate_event, -2)
@@ -134,6 +135,26 @@ class RecommendationDataSource(DataSource):
         ).astype(np.float32)
         return frame
 
+    def _item_categories(
+        self, ctx: RuntimeContext, item_vocab: BiMap
+    ) -> Optional[list[frozenset]]:
+        """Item row → its `categories` property, from the items' folded
+        $set/$unset/$delete events (empty for an item with none); None
+        without `read_item_categories` or when no item has properties."""
+        if not self.params.read_item_categories:
+            return None
+        props = EventStoreFacade(ctx.storage).aggregate_properties(
+            app_name=self.params.app_name, entity_type="item"
+        )
+        if not props:
+            return None
+        out: list[frozenset] = [frozenset()] * len(item_vocab)
+        for item_id, pmap in props.items():
+            row = item_vocab.get(item_id)
+            if row is not None:
+                out[row] = frozenset(pmap.get_opt("categories", list) or [])
+        return out
+
     def read_training(self, ctx: RuntimeContext) -> TrainingData:
         frame = self._frame(ctx)
         rows, cols, vals = frame.interactions(dedupe="sum")
@@ -141,6 +162,7 @@ class RecommendationDataSource(DataSource):
             rows=rows, cols=cols, vals=vals,
             n_users=frame.n_entities, n_items=frame.n_targets,
             user_vocab=frame.entity_vocab, item_vocab=frame.target_vocab,
+            item_categories=self._item_categories(ctx, frame.target_vocab),
         )
 
     def read_eval(self, ctx: RuntimeContext):

@@ -1051,11 +1051,11 @@ def _serve_similar(rows, sv: ServingFactors, bits, ex, *, k):
     )
 
 
-def _serve_similar_vecs(vecs, sv: ServingFactors, bits, ex, *, k):
-    """Cosine top-k against arbitrary f32 query vectors: the query side
-    quantizes per call for int8 slabs; norms fold into the scale
-    product like every other cosine verb."""
-    inv_q = 1.0 / (torch.linalg.vector_norm(vecs, dim=-1, keepdim=True) + 1e-9)
+def _serve_similar_vecs(vecs, inv_q, sv: ServingFactors, bits, ex, *, k):
+    """Cosine top-k against arbitrary f32 query vectors, `inv_q` (B, 1)
+    their inverse norms: the query side quantizes per call for int8
+    slabs; norms fold into the scale product like every other cosine
+    verb."""
     if sv.items.dtype == torch.int8:
         q, qscale = _rp.quantize_rows(vecs)
         qs = qscale * inv_q
@@ -1195,8 +1195,13 @@ def similar_vectors_serving(
     bits, ex = _exclusion_device_args(
         serving, len(vecs), exclude_mask, exclude_rows
     )
+    # the inverse norms on the host: the same bits whichever device
+    # serves, so an answer on the card equals the plain version's on the
+    # CPU
+    inv_q = 1.0 / (np.linalg.norm(vecs, axis=-1, keepdims=True) + np.float32(1e-9))
     v = torch.from_numpy(np.ascontiguousarray(vecs)).to(serving.device)
-    return _host(*_serve_similar_vecs(v, serving, bits, ex, k=k))
+    inv = torch.from_numpy(np.ascontiguousarray(inv_q, np.float32)).to(serving.device)
+    return _host(*_serve_similar_vecs(v, inv, serving, bits, ex, k=k))
 
 
 # -- fold-in publish: dirty rows into the staged serving state -----------------

@@ -460,12 +460,13 @@ class QueryServer(ServerProcess):
 
     def predict_batch(self, queries: list, rt: EngineRuntime) -> list:
         """The answers of runtime `rt` to `queries`: supplemented by the
-        Serving stage, one `batch_predict` per algorithm, combined by
-        `serve`."""
+        Serving stage, one `batch_predict` per algorithm with the
+        algorithm's serving context (the deploy's storage, for live store
+        reads, and its device), combined by `serve`."""
         supplemented = [rt.serving.supplement(q) for q in queries]
         indexed = list(enumerate(supplemented))
         per_algo = [
-            dict(algo.batch_predict(None, model, indexed))
+            dict(algo.batch_predict(algo.serving_context, model, indexed))
             for algo, model in zip(rt.algorithms, rt.models)
         ]
         return [

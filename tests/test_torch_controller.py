@@ -27,7 +27,9 @@ import pytest
 pytest.importorskip("jax")
 
 from predictionio_tpu.controller import params as jparams  # noqa: E402
+from predictionio_tpu.engines.ecommerce import engine as jec  # noqa: E402
 from predictionio_tpu.engines.recommendation import engine as jeng  # noqa: E402
+from predictionio_tpu.engines.similarproduct import engine as jsim  # noqa: E402
 from predictionio_tpu.engines.universal import engine as jur  # noqa: E402
 from predictionio_tpu_torch.controller import (  # noqa: E402
     AverageServing,
@@ -49,7 +51,9 @@ from predictionio_tpu_torch.controller import (  # noqa: E402
 )
 from predictionio_tpu_torch.controller.persistent import ModelSerializationError  # noqa: E402
 from predictionio_tpu_torch.core.base import RuntimeContext, WorkflowParams, doer  # noqa: E402
+from predictionio_tpu_torch.engines.ecommerce import engine as tec  # noqa: E402
 from predictionio_tpu_torch.engines.recommendation import engine as teng  # noqa: E402
+from predictionio_tpu_torch.engines.similarproduct import engine as tsim  # noqa: E402
 from predictionio_tpu_torch.engines.universal import engine as tur  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -85,6 +89,19 @@ PARAMS_CASES = {
                                       "indicators": None}),
     "ur_algo_missing": ("URAlgorithmParams", {"max_query_events": 3}),
     "ur_algo_wrong": ("URAlgorithmParams", {"app_name": "a", "indicators": "buy"}),
+    "sim_defaults": ("ALSSimilarParams", {}),
+    "sim_full": ("ALSSimilarParams", {
+        "rank": 12, "num_iterations": 5, "lambda_": 0.1, "alpha": 2.0, "seed": 4,
+        "shard_serving": False, "serve_dtype": "int8"}),
+    "sim_wrong": ("ALSSimilarParams", {"rank": 1.5}),
+    "sim_ds": ("SimDataSourceParams", {"app_name": "a", "view_event": "rate"}),
+    "sim_ds_missing": ("SimDataSourceParams", {"view_event": "rate"}),
+    "ec_ds": ("ECommDataSourceParams", {"app_name": "a", "event_names": ["rate"]}),
+    "ec_algo": ("ECommAlgorithmParams", {
+        "app_name": "a", "unseen_only": True, "seen_events": ["rate", "view"],
+        "similar_events": ["view"], "rank": 8}),
+    "ec_algo_wrong_list": ("ECommAlgorithmParams", {"app_name": "a", "seen_events": "rate"}),
+    "ec_algo_missing": ("ECommAlgorithmParams", {"unseen_only": True}),
     "empty_params": ("EmptyParams", {}),
     "empty_params_given": ("EmptyParams", {"x": 1}),
 }
@@ -94,6 +111,10 @@ CLASSES = {
     "DataSourceParams": (jeng.DataSourceParams, teng.DataSourceParams),
     "URDataSourceParams": (jur.DataSourceParams, tur.DataSourceParams),
     "URAlgorithmParams": (jur.URAlgorithmParams, tur.URAlgorithmParams),
+    "ALSSimilarParams": (jsim.ALSSimilarParams, tsim.ALSSimilarParams),
+    "SimDataSourceParams": (jsim.DataSourceParams, tsim.DataSourceParams),
+    "ECommDataSourceParams": (jec.DataSourceParams, tec.DataSourceParams),
+    "ECommAlgorithmParams": (jec.ECommAlgorithmParams, tec.ECommAlgorithmParams),
     "EmptyParams": (jparams.EmptyParams, EmptyParams),
 }
 
@@ -166,9 +187,14 @@ def test_unported_als_fields_are_refused(field):
 
 @pytest.mark.parametrize("field", ["read_item_categories", "use_data_view"])
 def test_unported_datasource_options_are_refused(field):
-    extract_params(teng.DataSourceParams, {"app_name": "a", field: False})
-    with pytest.raises(ParamsError, match=f"{field} is not ported"):
-        extract_params(teng.DataSourceParams, {"app_name": "a", field: True})
+    """Both options were refused until item properties and the data view
+    were ported; now each reads as the JAX package reads it, on and off."""
+    for value in (False, True):
+        obj = {"app_name": "a", field: value}
+        got = params_to_json(extract_params(teng.DataSourceParams, obj))
+        want = jparams.params_to_json(jparams.extract_params(jeng.DataSourceParams, obj))
+        assert json.loads(got) == json.loads(want)
+        assert json.loads(got)[field] is value
 
 
 @pytest.mark.parametrize("eval_k", [0, -1])

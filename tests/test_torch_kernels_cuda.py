@@ -910,3 +910,48 @@ def test_select_on_a_slab_grown_by_row_publish(card, dtype):
             torch.cuda.synchronize()
             assert rec.ROUTE_LAUNCHES["select"] == before + 1
             assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("verb", ["similar_vectors_serving", "similar_serving"])
+@pytest.mark.parametrize("mask_kind", [None, "rows", "bits"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_cosine_verbs_equal_plain(card, dtype, mask_kind, verb, monkeypatch):
+    """The cosine verbs the similar-product template serves through: the
+    scored selector with the items' inverse norms (and for int8 the
+    dequant scales) as scales, at ML-1M's 3,706 items (I_p 3,712), K =
+    10, B in {1, 8}, unmasked, with row lists and with bit words. Each
+    call launches the selector once on its select route; the same call
+    through the plain version on the same card tensors gives equal
+    indices and values."""
+    from predictionio_tpu_torch.models import als
+
+    rng = np.random.default_rng(16)
+    n_items, kdim = 3_706, 10
+    itf = rng.standard_normal((n_items, kdim)).astype(np.float32)
+    itf[5] = 0.0  # a zero row: inverse norm 1 / 1e-9 times a zero dot
+    sv = als.stage_item_serving(itf, serve_dtype=dtype, device=card)
+    assert sv.items.shape[0] == 3_712
+    for b in (1, 8):
+        kw = {}
+        if mask_kind == "rows":
+            kw["exclude_rows"] = rng.integers(0, n_items, (b, 5)).astype(np.int32)
+        elif mask_kind == "bits":
+            kw["exclude_mask"] = rng.random((b, n_items)) < 0.9
+        if verb == "similar_vectors_serving":
+            arg = rng.standard_normal((b, kdim)).astype(np.float32)
+        else:
+            arg = rng.integers(0, n_items, b)
+        for k in (1, 10, 50, 1024):
+            before = (rec.LAUNCHES, rec.ROUTE_LAUNCHES["select"])
+            kv, ki = getattr(als, verb)(sv, arg, k, **kw)
+            assert (rec.LAUNCHES, rec.ROUTE_LAUNCHES["select"]) == (
+                before[0] + 1, before[1] + 1)
+            with monkeypatch.context() as m:
+                m.setattr(als._rp, "fused_recommend_topk", rec.fused_recommend_topk_plain)
+                pv, pi = getattr(als, verb)(sv, arg, k, **kw)
+            assert rec.LAUNCHES == before[0] + 1
+            assert np.array_equal(ki, pi), (b, k)
+            assert np.array_equal(kv, pv), (b, k)
+            if verb == "similar_serving":  # the query item only as a masked filler
+                for r, it in enumerate(arg):
+                    assert it not in ki[r][kv[r] > rec.NEG_INF / 2]

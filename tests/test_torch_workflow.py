@@ -512,13 +512,25 @@ def test_jax_factory_and_blob_are_refused(tmp_path):
     {"app_name": APP, "use_data_view": True},
 ])
 def test_unported_variant_options_are_refused(tmp_path, params):
+    """Sharded serving is refused, in the recommendation template and in
+    the similar-product one, before any row is written. The two
+    datasource options in `params` were refused too until item
+    properties and the data view were ported; with either the variant
+    trains."""
     ts = _port_storage(tmp_path)
     with pytest.raises(ParamsError, match="not ported"):
-        tcore.run_train(ts, {**VARIANT, "datasource": {"params": params}}, device="cpu")
-    with pytest.raises(ParamsError, match="not ported"):
-        tcore.run_train(ts, {**VARIANT, "algorithms": [
+        tcore.run_train(ts, {**VARIANT, "datasource": {"params": params}, "algorithms": [
             {"name": "als", "params": {"shard_serving": True}}]}, device="cpu")
+    with pytest.raises(ParamsError, match="not ported"):
+        tcore.run_train(ts, {
+            "id": "sim", "datasource": {"params": {"app_name": APP}},
+            "engineFactory": "predictionio_tpu_torch.engines.similarproduct.SimilarProductEngine",
+            "algorithms": [{"name": "als", "params": {"shard_serving": True}}]}, device="cpu")
     assert ts.get_meta_data_engine_instances().get_all() == []
+    _seed(ts, App, Event, APP, _rows())
+    params = dict(params, data_view_dir=str(tmp_path / "view"))
+    inst = tcore.run_train(ts, {**VARIANT, "datasource": {"params": params}}, device="cpu")
+    assert inst.status == "COMPLETED"
 
 
 def test_failed_train_is_aborted_with_partial_timings(tmp_path):
