@@ -4,8 +4,9 @@ serve paths, the storage-backed train → deploy → query loop, the grid
 evaluation over the same storage, the Event Server feeding train →
 deploy, the online fold-in of live events into the served model, and
 the model lifecycle (train jobs, checkpoints, warm starts, versions),
-item properties with the similar-product and e-commerce templates, and
-the Universal Recommender's train and serve path, on one CUDA card.
+item properties with the similar-product and e-commerce templates, the
+Universal Recommender's train and serve path, and the classification
+and regression templates, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -328,7 +329,49 @@ Phases, in order; any failure prints what failed and exits non-zero:
             ``torch.topk`` over
             ``torch.where(mask, NEG_INF, scores)`` as a yardstick the port
             never calls, the bound, and the history scoring outside it.
-25. report  one ``{"kernels": [...]}`` line, then the device line last.
+25. classify the classification and regression templates (no kernel of
+            the five runs here; their models are torch ops). (a) UCI
+            Covertype's shape from CLASSIFY_SEED: 581,012 cells in the 7
+            published class counts, 10 integer quantitative columns per
+            class within the published ranges (the signed one shifted to
+            be non-negative) and 4 + 40 one-hot columns; 90 / 10 split.
+            Naive Bayes (λ 1), logistic regression (200 steps, lr 0.5, l2
+            1e-4) and the forest (20 trees, depth 6, 32 bins, 7 features
+            a node) on the card, each three times: the same bits on
+            relaunch and with TF32 allowed for the process. NB's arrays
+            within rtol 1e-5 of the same train on the CPU, LR's weights
+            within rtol 1e-4, atol 1e-5·max|w|; the first 2 trees regrown
+            on the CPU from the card's draws equal; every held-out
+            accuracy above the 0.4876 majority rate. (b)
+            YearPredictionMSD's shape from REGRESS_SEED: 515,345 x 90, a
+            year target linear in the features plus noise (1922-2011),
+            the published split (463,715 train). Ridge (l2 1e-6) on the
+            card, three times as in (a); weights within rtol 1e-3 of a
+            float64 numpy ridge, test RMSE within 0.1 % of its; the l2
+            grid {1e-6, 1e-3, 1e-1} equal to its per-point trains (rtol
+            1e-4). (c) Through storage under ``build/classify/``: the
+            first 60,000 cells and 30,000 songs as ``$set`` events
+            (``console import``), read back exactly by the trains'
+            ``aggregate_properties``; the classification variant
+            (``randomforest``, ``logreg``, ``naive``; FirstServing) and
+            ridge trained by ``train --engine-json`` and served by
+            ``deploy`` processes on the card: 500 queries each from 16
+            threads. Every classification answer equals the forest's
+            predict on a CPU copy of the persisted model, and the other
+            two models' ``batch_predict`` on the card equals their CPU
+            copies' (outside top-two score margins of 1e-4); regression
+            queries half bare arrays, half ``{"features": [...]}``, each
+            a bare number within 2 ulp of the persisted model's predict,
+            and 10 malformed ones each a 400. ``run_evaluation`` (5
+            folds) of an NB λ grid {0.5, 1, 2, 4} and an LR grid of 3
+            (lr, l2) points over the cells and an l2 grid over the songs:
+            one ``train_grid`` a fold, no per-point train, each fold's
+            grid models equal to per-point trains at the JAX package's
+            bars. Prints each train's host and CUDA-event seconds and
+            accuracy, import, read, train, persist, deploy to ready,
+            p50/p99/qps and eval_wall_sec, each line with the card's name
+            and power limit.
+26. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -401,7 +444,27 @@ try:
         URDataSource,
         URModel,
     )
-    from predictionio_tpu_torch.models import als, cco
+    from predictionio_tpu_torch.engines.classification.engine import (
+        Accuracy,
+        ClassificationDataSource,
+        ClassificationEngine,
+        DataSourceParams as ClassifyDataSourceParams,
+        LogisticRegressionAlgorithm,
+        LogisticRegressionParams,
+        NaiveBayesAlgorithm,
+        NaiveBayesParams,
+        Query as ClassifyQuery,
+    )
+    from predictionio_tpu_torch.engines.regression.engine import (
+        DataSourceParams as RegressDataSourceParams,
+        MeanSquareError,
+        RegressionDataSource,
+        RegressionEngine,
+        RidgeAlgorithm,
+        RidgeParams,
+    )
+    from predictionio_tpu_torch.models import als, cco, classify, forest, linreg
+    from predictionio_tpu_torch.workflow.evaluation import run_evaluation
     from predictionio_tpu_torch.online import (
         OnlineConsumer,
         OnlineConsumerConfig,
@@ -529,8 +592,52 @@ TEMPLATES_NO_EVENT_USERS = 5
 TEMPLATES_AFTER_QUERIES = 50  # e-commerce queries after the second list
 TEMPLATES_CATEGORY_QUERIES = 100  # the recommendation template's
 TEMPLATES_T0_MS = LOOP_T0_MS + 1000 * (LOOP_EDGES + 100_000)  # after phase 11's delta
+CLASSIFY_SEED, REGRESS_SEED = 17, 18
+# UCI Covertype: 581,012 cells, its 7 cover types' published counts, 10
+# quantitative columns (name, published min and max; the generated
+# data's mean per cover type and spread, chosen here: multinomial naive
+# Bayes reads a row's proportions, so the two distances to roads and to
+# fire points tell the two largest cover types apart), then 4
+# wilderness-area and 40 soil-type one-hot columns
+COVTYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+COVTYPE_LABELS = ("spruce_fir", "lodgepole_pine", "ponderosa_pine", "cottonwood_willow",
+                  "aspen", "douglas_fir", "krummholz")
+COVTYPE_QUANT = (
+    ("elevation", 1859, 3858, (3130, 2920, 2390, 2225, 2790, 2420, 3360), 150),
+    ("aspect", 0, 360, (157, 153, 176, 138, 140, 180, 153), 100),
+    ("slope", 0, 66, (13, 13, 20, 18, 16, 19, 14), 7),
+    ("horizontal_distance_to_hydrology", 0, 1397, (270, 279, 211, 101, 213, 209, 357), 200),
+    ("vertical_distance_to_hydrology", -173, 601, (43, 46, 63, 40, 51, 66, 70), 55),
+    ("horizontal_distance_to_roadways", 0, 7117, (3000, 1600, 900, 700, 1300, 1000, 2800),
+     500),
+    ("hillshade_9am", 0, 254, (211, 213, 201, 223, 223, 193, 217), 25),
+    ("hillshade_noon", 0, 254, (224, 225, 216, 221, 219, 209, 220), 18),
+    ("hillshade_3pm", 0, 254, (143, 142, 140, 111, 121, 148, 134), 37),
+    ("horizontal_distance_to_fire_points", 0, 7173, (1500, 2800, 900, 800, 1600, 1100, 2100),
+     500),
+)
+COVTYPE_ATTRS = (tuple(q[0] for q in COVTYPE_QUANT)
+                 + tuple(f"wilderness_area_{i}" for i in range(1, 5))
+                 + tuple(f"soil_type_{i}" for i in range(1, 41)))
+# the template defaults: naive Bayes' λ, logistic regression's steps, rate
+# and l2, the forest's trees, depth, bins and seed (7 features a node: the
+# "auto" round(sqrt(54)))
+NB_LAMBDA, LR_ITERATIONS, LR_RATE, LR_L2 = 1.0, 200, 0.5, 1e-4
+RF_TREES, RF_DEPTH, RF_BINS, RF_SEED, RF_REGROWN = 20, 6, 32, 42, 2
+# YearPredictionMSD: 515,345 songs x 90 timbre features (12 averages, 78
+# covariances), years 1922-2011, the published split (first 463,715 train)
+YEAR_ROWS, YEAR_TRAIN, YEAR_SPAN = 515_345, 463_715, (1922, 2011)
+YEAR_ATTRS = (tuple(f"timbre_avg_{i}" for i in range(1, 13))
+              + tuple(f"timbre_cov_{i}" for i in range(1, 79)))
+RIDGE_L2, RIDGE_GRID = 1e-6, (1e-6, 1e-3, 1e-1)
+# the store path: entities cut to fit the script's time limit
+CLASSIFY_ENTITIES, REGRESS_ENTITIES, CLASSIFY_FOLDS = 60_000, 30_000, 5
+NB_GRID = (0.5, 1.0, 2.0, 4.0)
+LR_GRID = ((0.5, 1e-4), (0.3, 1e-3), (0.8, 1e-2))  # (lr, l2)
+CLASSIFY_T0_MS = 1_262_304_000_000  # 2010-01-01, epoch ms
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 LOOP_DIR = Path(__file__).resolve().parent / "build" / "loop"
+CLASSIFY_DIR = Path(__file__).resolve().parent / "build" / "classify"
 
 
 class PhaseError(RuntimeError):
@@ -1532,11 +1639,14 @@ class _Console:
 
 class _loop_storage:
     """The loop's storage under ``build/loop/store`` (sqlite events and
-    metadata, model files), named by PIO_FS_BASEDIR and the
-    PIO_STORAGE_* variables while the block runs."""
+    metadata, model files), or under `store`, named by PIO_FS_BASEDIR and
+    the PIO_STORAGE_* variables while the block runs."""
+
+    def __init__(self, store=None):
+        self.store = LOOP_DIR / "store" if store is None else store
 
     def __enter__(self):
-        store = LOOP_DIR / "store"
+        store = self.store
         env = {"PIO_FS_BASEDIR": str(store),
                "PIO_STORAGE_SOURCES_LOOPDB_TYPE": "sqlite",
                "PIO_STORAGE_SOURCES_LOOPDB_PATH": str(store / "pio.db"),
@@ -3471,8 +3581,8 @@ def _templates_data(rng, users, items, ratings):
     return lines, t, truth, likes, first, second
 
 
-def _engine_json(name, body):
-    path = LOOP_DIR / f"engine_{name}.json"
+def _engine_json(name, body, directory=None):
+    path = (LOOP_DIR if directory is None else directory) / f"engine_{name}.json"
     path.write_text(json.dumps({"id": name, **body}))
     return path
 
@@ -4894,6 +5004,452 @@ def phase_ur_times(report, shared):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the classification and regression templates
+# ---------------------------------------------------------------------------
+
+
+def _covtype(rng):
+    """UCI Covertype's shape from `rng`: the 7 cover types in their
+    published counts, shuffled; 10 integer quantitative columns drawn per
+    cover type and clipped to their published ranges (the signed vertical
+    distance shifted by 173 to be non-negative, so that multinomial naive
+    Bayes applies); one wilderness area of 4 and one soil type of 40 per
+    cell, from per-cover-type Dirichlet draws. (N, 54) f32 and (N,) int32."""
+    y = np.repeat(np.arange(len(COVTYPE_COUNTS)), COVTYPE_COUNTS)
+    rng.shuffle(y)
+    n = len(y)
+    x = np.zeros((n, len(COVTYPE_ATTRS)), np.float32)
+    for j, (_name, lo, hi, means, spread) in enumerate(COVTYPE_QUANT):
+        col = np.asarray(means, np.float64)[y] + spread * rng.standard_normal(n)
+        x[:, j] = np.clip(np.round(col), lo, hi)
+    x[:, 4] += 173.0
+    for start, width, conc in ((10, 4, 1.0), (14, 40, 0.3)):
+        cum = np.cumsum(rng.dirichlet(np.full(width, conc), size=len(COVTYPE_COUNTS)), axis=1)
+        pick = np.minimum((rng.random(n)[:, None] > cum[y]).sum(1), width - 1)
+        x[np.arange(n), start + pick] = 1.0
+    return x, y.astype(np.int32)
+
+
+def _year_msd(rng):
+    """YearPredictionMSD's shape from `rng`: 515,345 x 90 features (means
+    and spreads drawn per column) and a year target linear in them plus
+    noise, rounded and clipped to 1922-2011. (N, 90) f32, (N,) f32."""
+    d = len(YEAR_ATTRS)
+    mean = np.r_[rng.uniform(-50, 50, 12), rng.uniform(-200, 200, d - 12)]
+    spread = np.r_[rng.uniform(5, 50, 12), rng.uniform(10, 300, d - 12)]
+    z = rng.standard_normal((YEAR_ROWS, d), dtype=np.float32)
+    x = (mean + spread * z).astype(np.float32)
+    beta = rng.choice([-1.0, 1.0], d) * rng.uniform(0.5, 1.5, d) * 8.0 / np.sqrt(d)
+    year = 1998.0 + z @ beta + 6.0 * rng.standard_normal(YEAR_ROWS)
+    return x, np.clip(np.round(year), *YEAR_SPAN).astype(np.float32)
+
+
+def _ridge_f64(x, y, l2):
+    """Ridge with an intercept in float64 numpy: (weights, intercept)."""
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    mu, ybar = x64.mean(axis=0), y64.mean()
+    xc = x64 - mu
+    w = np.linalg.solve(xc.T @ xc + l2 * len(x) * np.eye(x.shape[1]), xc.T @ (y64 - ybar))
+    return w, ybar - mu @ w
+
+
+def _timed(fn):
+    """fn() on the card: (its result, host seconds, CUDA-event seconds)."""
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, a.elapsed_time(b) / 1e3
+
+
+@contextlib.contextmanager
+def _tf32_allowed():
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _same_bits(name, train, arrays):
+    """`train()` on the card, timed; then again, and again with TF32
+    allowed for the process: each must give the first train's bits (the
+    modules turn TF32 off themselves, and sum in a fixed order)."""
+    model, host_s, card_s = _timed(train)
+    again = train()
+    with _tf32_allowed():
+        tf32 = train()
+    for other, how in ((again, "relaunch"), (tf32, "TF32 allowed")):
+        for key, value in arrays(model).items():
+            check(np.array_equal(value, arrays(other)[key]),
+                  f"{name}: {key} differs on {how}")
+    return model, {"host_s": host_s, "card_s": card_s}
+
+
+def _lr_close(got, want, what):
+    bar = 1e-4 * np.abs(want) + 1e-5 * np.abs(want).max()
+    err = float(np.max(np.abs(got - want) - bar))
+    check(err <= 0, f"{what}: weights past rtol 1e-4, atol 1e-5 max|w| by {err}")
+
+
+def _classify_trains(out, x, y):
+    """(a) The three models at the template defaults on Covertype's shape,
+    on the card: bits on relaunch and with TF32 allowed, the CPU's naive
+    Bayes and logistic regression, two trees regrown on the CPU from the
+    card's draws, and held-out accuracy above the majority rate."""
+    n_tr = int(0.9 * len(x))
+    xtr, ytr, xte, yte = x[:n_tr], y[:n_tr], x[n_tr:], y[n_tr:]
+    majority = max(COVTYPE_COUNTS) / sum(COVTYPE_COUNTS)
+    n_cls = len(COVTYPE_COUNTS)
+    res = out["trains"] = {"train_rows": n_tr, "held_out": len(xte), "majority": majority}
+
+    def nb_train(device=None):
+        return classify.train_naive_bayes(xtr, ytr, n_cls, NB_LAMBDA, device=device)
+
+    nb, res["naive"] = _same_bits("naive Bayes", nb_train, lambda m: {
+        "log_prior": m.log_prior, "log_likelihood": m.log_likelihood})
+    t0 = time.perf_counter()
+    nb_cpu = nb_train("cpu")
+    res["naive"]["cpu_s"] = time.perf_counter() - t0
+    for key in ("log_prior", "log_likelihood"):
+        got, want = getattr(nb, key), getattr(nb_cpu, key)
+        check(np.allclose(got, want, rtol=1e-5, atol=0), f"naive Bayes {key}: card vs CPU")
+        res["naive"][f"{key}_max_rel"] = float(np.max(np.abs(got - want) / np.abs(want)))
+
+    def lr_train(device=None):
+        return classify.train_logistic_regression(
+            xtr, ytr, n_cls, iterations=LR_ITERATIONS, lr=LR_RATE, l2=LR_L2, device=device)
+
+    lr, res["logreg"] = _same_bits("logistic regression", lr_train,
+                                   lambda m: {"weights": m.weights})
+    t0 = time.perf_counter()
+    lr_cpu = lr_train("cpu")
+    res["logreg"]["cpu_s"] = time.perf_counter() - t0
+    _lr_close(lr.weights, lr_cpu.weights, "logistic regression card vs CPU")
+    res["logreg"]["max_abs_diff"] = float(np.abs(lr.weights - lr_cpu.weights).max())
+
+    def rf_train(device=None):
+        return forest.train_random_forest(xtr, ytr, n_cls, n_trees=RF_TREES,
+                                          max_depth=RF_DEPTH, n_bins=RF_BINS, seed=RF_SEED,
+                                          device=device)
+
+    with _Spy(forest, "draw_forest") as draws:
+        rf, res["randomforest"] = _same_bits("random forest", rf_train, lambda m: {
+            "features": m.features, "routes_f": m.routes_f, "routes_t": m.routes_t,
+            "leaf_proba": m.leaf_proba})
+    boot, uniforms = draws.calls[0][2]
+    t0 = time.perf_counter()
+    xbin = torch.from_numpy(forest.binize(xtr, rf.bin_edges).astype(np.int64))
+    regrown = forest.grow_forest(
+        xbin, torch.from_numpy(ytr.astype(np.int64)), boot[:RF_REGROWN].cpu(),
+        [None if u is None else u[:RF_REGROWN].cpu() for u in uniforms], n_classes=n_cls,
+        n_bins=RF_BINS, feat_per_node=forest.feat_per_node_of(x.shape[1], None),
+        min_child_weight=1.0)
+    res["randomforest"]["cpu_regrow_s"] = time.perf_counter() - t0
+    for key, got in zip(("features", "routes_f", "routes_t", "leaf_proba"), regrown):
+        check(np.array_equal(got.numpy(), getattr(rf, key)[:RF_REGROWN]),
+              f"random forest: {key} of the first {RF_REGROWN} trees regrown on the CPU "
+              f"from the card's draws differ")
+    for name, model in (("naive", nb), ("logreg", lr), ("randomforest", rf)):
+        acc = float((model.predict(xte) == yte).mean())
+        res[name]["accuracy"] = acc
+        check(acc > majority, f"{name}: held-out accuracy {acc} <= majority {majority}")
+    res["randomforest"]["internal_nodes"] = int((rf.features >= 0).sum())
+
+
+def _regress_trains(out, x, y):
+    """(b) Ridge at YearPredictionMSD's shape and published split on the
+    card: bits on relaunch and with TF32 allowed, the weights against a
+    float64 ridge, the test RMSE, and the l2 grid against its per-point
+    trains."""
+    xtr, ytr, xte, yte = x[:YEAR_TRAIN], y[:YEAR_TRAIN], x[YEAR_TRAIN:], y[YEAR_TRAIN:]
+    res = out["ridge"] = {"train_rows": len(xtr), "test_rows": len(xte)}
+
+    def train(device=None, l2=RIDGE_L2):
+        return linreg.train_linear_regression(xtr, ytr, l2=l2, device=device)
+
+    model, timing = _same_bits("ridge", train, lambda m: {
+        "weights": m.weights, "intercept": np.float64(m.intercept)})
+    res.update(timing)
+    t0 = time.perf_counter()
+    w64, b64 = _ridge_f64(xtr, ytr, RIDGE_L2)
+    res["f64_s"] = time.perf_counter() - t0
+    rel = np.abs(model.weights - w64) / np.abs(w64)
+    res["weights_max_rel"] = float(rel.max())
+    check(rel.max() <= 1e-3, f"ridge weights {rel.max()} from the float64 ridge")
+    rmse = float(np.sqrt(np.mean((model.predict(xte).astype(np.float64) - yte) ** 2)))
+    rmse64 = float(np.sqrt(np.mean((xte.astype(np.float64) @ w64 + b64 - yte) ** 2)))
+    res.update(rmse=rmse, rmse_f64=rmse64, intercept=model.intercept, intercept_f64=b64)
+    check(abs(rmse / rmse64 - 1) <= 1e-3, f"test RMSE {rmse} against the float64 {rmse64}")
+    grid = linreg.train_linear_regression_grid(xtr, ytr, RIDGE_GRID)
+    for l2, g in zip(RIDGE_GRID, grid):
+        ref = train(l2=l2)
+        check(np.allclose(g.weights, ref.weights, rtol=1e-4, atol=0)
+              and abs(g.intercept - ref.intercept) <= 1e-4 * abs(ref.intercept),
+              f"ridge grid point l2={l2} differs from its own train")
+
+
+def _set_events(path, etype, prefix, attrs, x, target_attr, targets):
+    """One `$set` a row: the row's attributes and its target, as JSON
+    lines."""
+    with open(path, "w") as f:
+        for i, (row, target) in enumerate(zip(x.tolist(), targets)):
+            props = dict(zip(attrs, row))
+            props[target_attr] = target
+            f.write(json.dumps({"event": "$set", "entityType": etype,
+                                "entityId": f"{prefix}{i:06d}", "properties": props,
+                                "eventTime": _ms_iso(CLASSIFY_T0_MS + 1000 * i)}) + "\n")
+
+
+def _import_and_train(app, events_path, engine_json, source_cls):
+    """`app new`, `import` and `train --engine-json` here: the import
+    seconds and the training data the DataSource read."""
+    check(console.main(["app", "new", app]) == 0, f"app new {app}")
+    t0 = time.perf_counter()
+    check(console.main(["import", "--app", app, "--input", str(events_path)]) == 0,
+          f"import into {app}")
+    import_s = time.perf_counter() - t0
+    with _Spy(source_cls, "read_training") as read:
+        check(console.main(["train", "--engine-json", str(engine_json)]) == 0,
+              f"train --engine-json {engine_json.name}")
+    return import_s, read.calls[0][2]
+
+
+def _deploy(engine_json, log_name, queries, malformed=()):
+    """`deploy --engine-json` in a process of its own on the card, the
+    queries from N_CLIENTS threads, then the malformed ones one by one."""
+    t0 = time.perf_counter()
+    with _Console(["deploy", "--engine-json", str(engine_json), "--ip", "127.0.0.1",
+                   "--port", "0"], CLASSIFY_DIR / log_name) as dep:
+        port = dep.port(timeout=300)
+        before = _status(port)
+        ready_s = time.perf_counter() - t0
+        answers, wall = _serve_load(port, queries)
+        refused = [_call(port, "POST", "/queries.json", body) for body in malformed]
+        after = _status(port)
+    return answers, refused, before, after, {"deploy_ready_s": ready_s,
+                                             **_latency(answers, wall, len(queries))}
+
+
+def _grid_eval(storage, evaluation, eps, algo_cls, held):
+    """`run_evaluation` of a grid on the card through `_batch_eval_grid`:
+    one `train_grid` a fold with every point, no per-point train; then
+    each fold's grid models held to per-point trains on the fold's data."""
+    with _Spy(algo_cls, "train_grid") as grid, _Spy(algo_cls, "train") as serial:
+        inst, result = run_evaluation(storage, evaluation, eps)
+    check(inst.status == "EVALCOMPLETED", f"{algo_cls.__name__} evaluation {inst.status}")
+    check(len(grid.calls) == CLASSIFY_FOLDS and not serial.calls,
+          f"{algo_cls.__name__}: {len(grid.calls)} train_grid calls and "
+          f"{len(serial.calls)} trains for {CLASSIFY_FOLDS} folds")
+    for _s, (_self, ctx, pd, params_list), models in grid.calls:
+        check(len(models) == len(eps), "a train_grid call short of the grid")
+        for p, m in zip(params_list, models):
+            held(m.model, algo_cls(p).train(ctx, pd).model, p)
+    return {"eval_wall_sec": float(inst.env["eval_wall_sec"]),
+            "scores": [s.score for s in result.engine_params_scores],
+            "best": result.best_index}
+
+
+def _nb_held(got, want, p):
+    for key in ("log_prior", "log_likelihood"):
+        check(np.allclose(getattr(got, key), getattr(want, key), rtol=1e-5, atol=0),
+              f"NB grid point {p}: {key} differs from its own train")
+
+
+def _lr_held(got, want, p):
+    _lr_close(got.weights, want.weights, f"LR grid point {p} against its own train")
+
+
+def _ridge_held(got, want, p):
+    check(np.allclose(got.weights, want.weights, rtol=1e-4, atol=0)
+          and abs(got.intercept - want.intercept) <= 1e-3 * abs(want.intercept),
+          f"ridge grid point {p} differs from its own train")
+
+
+def _labels_near_ties(model, x):
+    """Rows whose top-two scores (CPU) lie within 1e-4: their label may
+    differ between devices."""
+    s = np.sort(model.predict_scores(x), axis=-1)
+    return s[:, -1] - s[:, -2] <= 1e-4
+
+
+def _classify_store(out, x, y, xq):
+    """(c) Covertype rows as `$set` events through `console import`, the
+    three-algorithm variant trained and deployed, 500 queries, and the
+    NB and LR grids through `pio eval`."""
+    n = CLASSIFY_ENTITIES
+    res = out["store_classify"] = {"entities": n}
+    events = CLASSIFY_DIR / "covtype.jsonl"
+    labels = [COVTYPE_LABELS[c] for c in y[:n]]
+    _set_events(events, "cell", "c", COVTYPE_ATTRS, x[:n], "cover_type", labels)
+    ds = {"app_name": "covtype", "entity_type": "cell", "attrs": list(COVTYPE_ATTRS),
+          "label_attr": "cover_type"}
+    engine_json = _engine_json("covtype", {
+        "engineFactory":
+        "predictionio_tpu_torch.engines.classification.ClassificationEngine",
+        "datasource": {"params": ds},
+        "algorithms": [{"name": "randomforest", "params": {}}, {"name": "logreg", "params": {}},
+                       {"name": "naive", "params": {}}]}, CLASSIFY_DIR)
+    res["import_s"], td = _import_and_train("covtype", events, engine_json,
+                                            ClassificationDataSource)
+    vocab = td.label_vocab
+    check(np.array_equal(td.features, x[:n])
+          and [vocab[c] for c in td.labels] == labels,
+          "aggregate_properties differs from the imported $set events")
+    storage = Storage()
+    inst = _instance(storage, "covtype")
+    res["stages"] = stage_timings(inst)
+    blob = storage.get_model_data_models().get(inst.id).models
+    models = deserialize_models(blob)
+    check([type(m).__name__ for m in models] == ["RFModel", "LRModel", "NBModel"],
+          f"MODELDATA holds {[type(m).__name__ for m in models]}")
+    answers, _, before, after, res["serve"] = _deploy(
+        engine_json, "deploy_covtype.log", [{"features": r} for r in xq.tolist()])
+    check(before["engine_instance"] == inst.id, "deploy serves another instance")
+    check(after["device"] == "cuda:0", f"deploy serves on {after['device']}")
+    rf = models[0]
+    rf.bind_device("cpu")
+    want = [vocab[c] for c in rf.model.predict(xq)]
+    for k, label in enumerate(want):
+        check(answers[k][1] == {"label": label},
+              f"query {k}: {answers[k][1]} != the forest's {label} on the CPU")
+    queries = list(enumerate(ClassifyQuery(r) for r in xq.tolist()))
+    ties = {}
+    for i, algo in ((1, LogisticRegressionAlgorithm(LogisticRegressionParams())),
+                    (2, NaiveBayesAlgorithm(NaiveBayesParams()))):
+        card, cpu = deserialize_models(blob)[i], deserialize_models(blob)[i]
+        card.bind_device("cuda:0")
+        cpu.bind_device("cpu")
+        near = _labels_near_ties(cpu.model, xq)
+        got = [p.label for _, p in algo.batch_predict(None, card, queries)]
+        wanted = [p.label for _, p in algo.batch_predict(None, cpu, queries)]
+        check(all(g == w for g, w, t in zip(got, wanted, near) if not t),
+              f"{type(algo).__name__}: batch_predict on the card differs from its CPU copy")
+        ties[type(algo).__name__] = int(near.sum())
+    res["near_ties"] = ties
+
+    class CovtypeEval(Evaluation):
+        engine = ClassificationEngine().apply()
+        metric = Accuracy()
+
+    dsp = ClassifyDataSourceParams(**{**ds, "attrs": tuple(COVTYPE_ATTRS)},
+                                   eval_k=CLASSIFY_FOLDS)
+    res["eval_nb"] = _grid_eval(storage, CovtypeEval(), [
+        EngineParams(data_source_params=("", dsp),
+                     algorithm_params_list=(("naive", NaiveBayesParams(lambda_=lam)),))
+        for lam in NB_GRID], NaiveBayesAlgorithm, _nb_held)
+    res["eval_lr"] = _grid_eval(storage, CovtypeEval(), [
+        EngineParams(data_source_params=("", dsp), algorithm_params_list=((
+            "logreg", LogisticRegressionParams(lr=lr, l2=l2)),))
+        for lr, l2 in LR_GRID], LogisticRegressionAlgorithm, _lr_held)
+
+
+def _regress_store(out, x, y, xq):
+    """(c) YearPredictionMSD rows as `$set` events, ridge trained and
+    deployed: 500 queries, half bare arrays, and 10 malformed; then the
+    l2 grid through `pio eval`."""
+    n = REGRESS_ENTITIES
+    res = out["store_regress"] = {"entities": n}
+    events = CLASSIFY_DIR / "year.jsonl"
+    _set_events(events, "song", "s", YEAR_ATTRS, x[:n], "year", y[:n].tolist())
+    ds = {"app_name": "year", "entity_type": "song", "attrs": list(YEAR_ATTRS),
+          "target_attr": "year"}
+    engine_json = _engine_json("year", {
+        "engineFactory":
+        "predictionio_tpu_torch.engines.regression.RegressionEngine",
+        "datasource": {"params": ds},
+        "algorithms": [{"name": "ridge", "params": {"l2": RIDGE_L2}}]}, CLASSIFY_DIR)
+    res["import_s"], td = _import_and_train("year", events, engine_json, RegressionDataSource)
+    check(np.array_equal(td.features, x[:n]) and np.array_equal(td.targets, y[:n]),
+          "aggregate_properties differs from the imported $set events")
+    storage = Storage()
+    inst = _instance(storage, "year")
+    res["stages"] = stage_timings(inst)
+    [model] = deserialize_models(storage.get_model_data_models().get(inst.id).models)
+    rows = xq.tolist()
+    bodies = [r if k % 2 else {"features": r} for k, r in enumerate(rows)]
+    malformed = [{"x": rows[0]}, "text", 7, None, [1.0, "a"] + rows[0][2:],
+                 {"features": 3}, [1.0, None] + rows[0][2:], [rows[0]], rows[0][:-1], {}]
+    answers, refused, before, _, res["serve"] = _deploy(
+        engine_json, "deploy_year.log", bodies, malformed)
+    check(before["engine_instance"] == inst.id, "deploy serves another instance")
+    for body, (status, reply) in zip(malformed, refused):
+        check(status == 400, f"malformed query {body!r:.60}: HTTP {status} {reply}")
+    want = model.model.predict(xq)
+    ulps = 0.0
+    for k, w in enumerate(want):
+        got = answers[k][1]
+        check(isinstance(got, float), f"query {k}: {got!r} is not a bare number")
+        ulps = max(ulps, abs(got - float(w)) / float(np.spacing(np.float32(w))))
+    res["max_ulps_from_predict"] = ulps
+    check(ulps <= 2, f"answers {ulps} ulp from the persisted model's predict")
+
+    class YearEval(Evaluation):
+        engine = RegressionEngine().apply()
+        metric = MeanSquareError()
+
+    dsp = RegressDataSourceParams(**{**ds, "attrs": tuple(YEAR_ATTRS)}, eval_k=CLASSIFY_FOLDS)
+    res["eval_ridge"] = _grid_eval(storage, YearEval(), [
+        EngineParams(data_source_params=("", dsp),
+                     algorithm_params_list=(("ridge", RidgeParams(l2=l2)),))
+        for l2 in RIDGE_GRID], RidgeAlgorithm, _ridge_held)
+
+
+def phase_classify(report, shared):
+    """The classification and regression templates: Covertype-shaped and
+    YearPredictionMSD-shaped trains at full width on the card, then both
+    templates through storage, deploy and `pio eval`."""
+    t_phase = time.perf_counter()
+    out = report["classify"] = {"nvidia_smi": report["nvidia_smi"]}
+    t0 = time.perf_counter()
+    x, y = _covtype(np.random.default_rng(CLASSIFY_SEED))
+    xr, yr = _year_msd(np.random.default_rng(REGRESS_SEED))
+    out["data_s"] = time.perf_counter() - t0
+    _classify_trains(out, x, y)
+    _regress_trains(out, xr, yr)
+    shutil.rmtree(CLASSIFY_DIR, ignore_errors=True)
+    (CLASSIFY_DIR / "store").mkdir(parents=True)
+    rng = np.random.default_rng(CLASSIFY_SEED + 1)
+    with _loop_storage(CLASSIFY_DIR / "store"):
+        _classify_store(out, x, y, x[rng.choice(np.arange(int(0.9 * len(x)), len(x)),
+                                                N_QUERIES, replace=False)])
+        _regress_store(out, xr, yr, xr[YEAR_TRAIN + rng.choice(YEAR_ROWS - YEAR_TRAIN,
+                                                               N_QUERIES, replace=False)])
+    out["phase_s"] = time.perf_counter() - t_phase
+    smi = report["nvidia_smi"]
+    tr = out["trains"]
+    for name in ("naive", "logreg", "randomforest"):
+        r = tr[name]
+        print(f"[classify] {smi} | Covertype-shaped {tr['train_rows']} rows, {name}: train "
+              f"{r['host_s']:.3f} s ({r['card_s']:.3f} s by CUDA events), held-out accuracy "
+              f"{r['accuracy']:.4f} (majority {tr['majority']:.4f})", flush=True)
+    rg = out["ridge"]
+    print(f"[classify] {smi} | YearPredictionMSD-shaped {rg['train_rows']} x "
+          f"{len(YEAR_ATTRS)}, ridge: train {rg['host_s']:.3f} s ({rg['card_s']:.3f} s by "
+          f"CUDA events), weights within {rg['weights_max_rel']:.2e} of float64, test RMSE "
+          f"{rg['rmse']:.4f} (float64 {rg['rmse_f64']:.4f})", flush=True)
+    for key in ("store_classify", "store_regress"):
+        r = out[key]
+        st, sv = r["stages"], r["serve"]
+        print(f"[classify] {smi} | {key[6:]}: {r['entities']} entities, import "
+              f"{r['import_s']:.2f} s, read {st['read']:.2f} s, train {st['train']:.2f} s, "
+              f"persist {st['persist']:.4f} s; deploy to ready {sv['deploy_ready_s']:.2f} s; "
+              f"{sv['queries']} queries from {N_CLIENTS} clients: p50 {sv['p50_ms']:.3f} ms, "
+              f"p99 {sv['p99_ms']:.3f} ms, {sv['qps']:.1f} qps", flush=True)
+    for key, name in (("store_classify", "eval_nb"), ("store_classify", "eval_lr"),
+                      ("store_regress", "eval_ridge")):
+        ev = out[key][name]
+        print(f"[classify] {smi} | {name}: {CLASSIFY_FOLDS} folds x {len(ev['scores'])} "
+              f"points, eval_wall_sec {ev['eval_wall_sec']:.3f}, scores "
+              f"{[round(s, 5) for s in ev['scores']]}, best {ev['best']}", flush=True)
+    print(f"[classify] {smi} | phase {out['phase_s']:.1f} s", flush=True)
+
+
 def main() -> int:
     if _IMPORT_ERROR is not None:
         print(f"chip_smoke: the port is not importable here ({_IMPORT_ERROR}); "
@@ -4920,7 +5476,7 @@ def main() -> int:
                         ("windowed times", phase_windowed_times),
                         ("ur sweep", phase_ur_sweep), ("ur data", phase_ur_data),
                         ("ur train", phase_ur_train), ("ur serve", phase_ur_serve),
-                        ("ur times", phase_ur_times)):
+                        ("ur times", phase_ur_times), ("classify", phase_classify)):
         try:
             phase(report, shared)
         except Exception:  # noqa: BLE001 — report the phase, then fail

@@ -7,7 +7,10 @@ blob (``ALSFactors.to_bytes``, the arrays, the ids and the parameters as
 JSON) or the arrays themselves, also for the similar-product and
 e-commerce templates' models (their factors, serving dtype or item
 categories); for the Universal Recommender the correlator tables of each
-indicator and the item vocabulary.
+indicator and the item vocabulary; for the classification and
+regression templates' models their arrays (naive Bayes' log prior and
+log likelihood, logistic regression's weights, a random forest's bin
+edges, trees and leaf distributions, ridge's weights and intercept).
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ from predictionio_tpu_torch.engines.ecommerce.engine import ECommModel
 from predictionio_tpu_torch.engines.similarproduct.engine import SimilarModel
 from predictionio_tpu_torch.engines.universal.engine import IndicatorModel, URModel
 from predictionio_tpu_torch.models.als import ALSFactors, ALSParams
+from predictionio_tpu_torch.models.classify import LogisticRegressionModel, NaiveBayesModel
+from predictionio_tpu_torch.models.forest import RandomForestModel
+from predictionio_tpu_torch.models.linreg import LinearRegressionModel
 
 
 def als_factors_from_numpy(
@@ -113,3 +119,49 @@ def ur_model_from_numpy(item_vocab, primary: str, indicators, device=None) -> UR
     if not models:
         raise ValueError("a model needs at least one indicator")
     return URModel(items, models, primary, device=device)
+
+
+def nb_model_from_numpy(log_prior, log_likelihood, device=None) -> NaiveBayesModel:
+    """A JAX ``NaiveBayesModel``'s (C,) log prior and (C, D) log
+    likelihood → the port's model on `device` (the first CUDA device by
+    default)."""
+    log_prior = np.asarray(log_prior, np.float32)
+    log_likelihood = np.asarray(log_likelihood, np.float32)
+    if log_prior.ndim != 1 or log_likelihood.ndim != 2 or (
+            log_likelihood.shape[0] != log_prior.shape[0]):
+        raise ValueError(f"need (C,) and (C, D), got {log_prior.shape} and "
+                         f"{log_likelihood.shape}")
+    return NaiveBayesModel(log_prior, log_likelihood, device=device)
+
+
+def lr_model_from_numpy(weights, device=None) -> LogisticRegressionModel:
+    """A JAX ``LogisticRegressionModel``'s (D+1, C) weights (the last row
+    the bias) → the port's model on `device`."""
+    weights = np.asarray(weights, np.float32)
+    if weights.ndim != 2 or weights.shape[0] < 2:
+        raise ValueError(f"need (D+1, C) weights, got {weights.shape}")
+    return LogisticRegressionModel(weights, device=device)
+
+
+def rf_model_from_numpy(bin_edges, features, routes_f, routes_t, leaf_proba, depth: int,
+                        device=None) -> RandomForestModel:
+    """A JAX ``RandomForestModel``'s arrays → the port's model on
+    `device`: (D, n_bins-1) bin edges, (T, depth, 2^(depth-1)) features,
+    routing features and thresholds, (T, 2^depth, C) leaf
+    distributions."""
+    t, lv, nodes = np.shape(routes_f)
+    if (lv != depth or nodes != 2 ** (depth - 1) or np.shape(features) != (t, lv, nodes)
+            or np.shape(routes_t) != (t, lv, nodes)
+            or np.shape(leaf_proba)[:2] != (t, 2 ** depth)):
+        raise ValueError("the forest's arrays disagree with its depth or each other")
+    return RandomForestModel(bin_edges, features, routes_f, routes_t, leaf_proba, depth,
+                             device=device)
+
+
+def linreg_model_from_numpy(weights, intercept: float) -> LinearRegressionModel:
+    """A JAX ``LinearRegressionModel``'s (D,) weights and intercept → the
+    port's (a host model: no device)."""
+    weights = np.asarray(weights, np.float32)
+    if weights.ndim != 1:
+        raise ValueError(f"need (D,) weights, got {weights.shape}")
+    return LinearRegressionModel(weights=weights, intercept=float(intercept))

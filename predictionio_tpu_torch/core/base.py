@@ -8,8 +8,8 @@ The ambient handle every stage gets is a ``RuntimeContext``: the storage
 to read events from, the mode, and the device to train and serve on
 (None means the first CUDA device, ``device.resolve_device``). The
 evaluator bases and ``BaseEngine``'s eval half (reference
-BaseEvaluator.scala:36, BaseEngine.scala:62-81) are here; the JAX mesh
-and the query serializer hook are not ported.
+BaseEvaluator.scala:36, BaseEngine.scala:62-81) are here, and the
+algorithm's query serializer hook; the JAX mesh is not ported.
 """
 
 from __future__ import annotations
@@ -153,6 +153,17 @@ class BaseAlgorithm(Generic[PD, M, Q, P]):
         """Default: `predict` per query; algorithms override to batch
         queries into one device call."""
         return [(qx, self.predict(model, q)) for qx, q in queries]
+
+    def query_serializer(self) -> Optional[Any]:
+        """Optional custom query/result serde (reference
+        CustomQuerySerializer.scala: `querySerializer` formats attached to
+        an algorithm, e.g. the regression example's VectorSerializer).
+        Return an object with `query_from_json(parsed_json) -> Q` and/or
+        `result_to_json(prediction) -> jsonable`; either may be absent.
+        When the first algorithm has one, the query server hands it the
+        raw parsed JSON (not necessarily an object) instead of the strict
+        dataclass extraction."""
+        return None
 
     def query_class(self) -> Optional[type]:
         """The query type for JSON extraction: the `query` annotation of

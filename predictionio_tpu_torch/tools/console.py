@@ -776,7 +776,9 @@ def _run(args: argparse.Namespace) -> int:
     try:
         port = server.start()
         what = args.engine_json or args.model
-        print(f"serving {what} on {args.ip}:{port} ({server.model.device})",
+        # a host model (ridge regression) has no device
+        device = getattr(server.model, "device", None)
+        print(f"serving {what} on {args.ip}:{port} ({device or 'host model'})",
               flush=True)
         server.serve_forever()
     except KeyboardInterrupt:

@@ -10,6 +10,13 @@ a trained engine instance from storage, as ``console deploy
 --engine-json`` does) or from one algorithm and its model, served
 through ``FirstServing``.
 
+When the first algorithm has a query serializer
+(``BaseAlgorithm.query_serializer``), a query is the raw parsed JSON,
+which need not be an object, handed to its ``query_from_json`` (a
+ValueError there is a 400), and the answer goes out through its
+``result_to_json``; without one, a query is a JSON object extracted
+strictly into the query dataclass.
+
 A server over storage swaps its runtime in place: ``reload()`` (``GET``
 or ``POST /reload``) builds the variant's newest COMPLETED instance and
 swaps it in under the swap lock, and an online consumer
@@ -80,6 +87,13 @@ class EngineRuntime:
     models: list[Any]
     serving: Any
     query_class: type
+    # the first algorithm's query serializer, or None
+    query_serializer: Any = None
+
+
+def _serializer(algorithm: Any) -> Any:
+    make = getattr(algorithm, "query_serializer", None)
+    return make() if callable(make) else None
 
 
 def build_runtime(storage, instance: EngineInstance, device=None) -> EngineRuntime:
@@ -102,6 +116,7 @@ def build_runtime(storage, instance: EngineInstance, device=None) -> EngineRunti
         instance=instance, engine=engine, engine_params=engine_params,
         algorithms=algorithms, models=models, serving=serving,
         query_class=query_class(algorithms[0]),
+        query_serializer=_serializer(algorithms[0]),
     )
 
 
@@ -364,14 +379,26 @@ class _Handler(JsonHandler):
                 obj = json.loads(raw.decode() or "null")
             except (UnicodeDecodeError, json.JSONDecodeError) as e:
                 raise HttpError(400, f"invalid query JSON: {e}")
-            query = extract_query(owner.query_class, obj)
+            # one runtime reads, answers and renders the query, even if a
+            # swap lands while it is in flight
+            rt = owner.runtime
+            custom_from = getattr(rt.query_serializer, "query_from_json", None)
+            if custom_from is None:
+                query = extract_query(rt.query_class, obj)
+            else:
+                try:
+                    query = custom_from(obj)
+                except ValueError as e:
+                    raise HttpError(400, f"query serializer rejected: {e}")
             try:
-                prediction = owner.predict(query)
+                prediction = owner.predict(query, rt)
             except ValueError as e:
                 # query-level contract violations (e.g. a category
                 # filter without category data)
                 raise HttpError(400, str(e))
-            self._respond(200, _to_jsonable(prediction))
+            custom_to = getattr(rt.query_serializer, "result_to_json", None)
+            self._respond(200, custom_to(prediction) if custom_to is not None
+                          else _to_jsonable(prediction))
         except HttpError as e:
             self._respond(e.status, {"message": e.message})
         except Exception as e:  # noqa: BLE001 — the server keeps serving
@@ -409,6 +436,7 @@ class QueryServer(ServerProcess):
                 instance=None, engine=None, engine_params=None,
                 algorithms=[algorithm], models=[model], serving=FirstServing(),
                 query_class=query_class(algorithm),
+                query_serializer=_serializer(algorithm),
             )
         self.runtime = runtime
         self.storage = storage
@@ -474,10 +502,13 @@ class QueryServer(ServerProcess):
             for i, q in indexed
         ]
 
-    def predict(self, query: Any) -> Any:
+    def predict(self, query: Any, runtime: Optional[EngineRuntime] = None) -> Any:
+        """The answer to `query` of `runtime` (the current runtime when
+        None: one snapshot per query)."""
         with self._count_lock:
             self._requests += 1
-        runtime = self.runtime  # one snapshot per query
+        if runtime is None:
+            runtime = self.runtime
         if self.dispatcher is not None:
             return self.dispatcher.submit(query, runtime)
         t0 = time.perf_counter()

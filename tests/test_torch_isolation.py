@@ -93,6 +93,39 @@ def test_model_without_device_needs_the_card():
             ALSModel(f)
 
 
+def _classify_and_regress_trains():
+    import numpy as np
+
+    from predictionio_tpu_torch.models import classify, forest, linreg
+
+    x = np.abs(np.random.default_rng(0).standard_normal((40, 3))).astype(np.float32)
+    y = np.arange(40) % 2
+    return {
+        "naive_bayes": lambda **kw: classify.train_naive_bayes(x, y, 2, **kw),
+        "naive_bayes_grid": lambda **kw: classify.train_naive_bayes_grid(x, y, 2, [1.0], **kw),
+        "logistic_regression": lambda **kw: classify.train_logistic_regression(
+            x, y, 2, iterations=2, **kw),
+        "random_forest": lambda **kw: forest.train_random_forest(
+            x, y, 2, n_trees=2, max_depth=2, **kw),
+        "linear_regression": lambda **kw: linreg.train_linear_regression(x, y * 1.0, **kw),
+        "nb_model": lambda **kw: classify.NaiveBayesModel(np.zeros(2), np.zeros((2, 3)), **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["naive_bayes", "naive_bayes_grid", "logistic_regression",
+                                  "random_forest", "linear_regression", "nb_model"])
+def test_classify_and_regress_entry_points_need_the_card(name):
+    """The classification and regression trains, and a model built
+    without a device, run on the card unless the caller names the CPU."""
+    entry = _classify_and_regress_trains()[name]
+    entry(device="cpu")
+    if torch.cuda.is_available():
+        entry()
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+
+
 def test_chip_smoke_refuses_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: chip_smoke.py would run")
