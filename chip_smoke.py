@@ -64,6 +64,10 @@ Phases, in order; any failure prints what failed and exits non-zero:
             pass on the same R in bf16 storage as the yardstick, bound),
             and the kernel again on a uniform R with as many ratings and
             on an all-zero R; both passes the same way at K = 32.
+            The dense and windowed times run with the profiler off (as
+            the train loops call the passes: nested, unsynchronized),
+            then the main-path kernel once more through it, its median
+            beside devprof's mean device ms a call (phase 26).
 9. loop     the zero-to-aha loop at ML-1M's width, over storage under
             ``build/loop/`` (sqlite events and metadata, model files, named
             by ``PIO_FS_BASEDIR`` and the ``PIO_STORAGE_*`` variables):
@@ -371,7 +375,38 @@ Phases, in order; any failure prints what failed and exits non-zero:
             accuracy, import, read, train, persist, deploy to ready,
             p50/p99/qps and eval_wall_sec, each line with the card's name
             and power limit.
-26. report  one ``{"kernels": [...]}`` line, then the device line last.
+26. observe the port's observability of the main path, on the earlier
+            phases' state (``PIO_DEVPROF_STRICT=1`` for the whole run: a
+            call the profiler cannot time fails its phase). (a) The
+            device profiler's in-process report: every executable of
+            the dense and windowed trains, the ALS and UR serves and the
+            classify phase present with calls and device seconds > 0,
+            no timing error, raw MFU and raw memory-roof fraction <= 1.05
+            for each (a higher one means a wrong work count), the
+            platform this card; ``als.train_dense``'s flops in phase 6
+            obs.costs' per-iteration count x the iterations; devprof's
+            mean device ms a call beside the dense and windowed times
+            phases' CUDA-event medians, within a factor of 2. (b) Each
+            in-process phase's card-busy share: the profiler's device
+            seconds over the phase's wall. (c) A ``QueryServer`` on
+            phase 6's factors in this process: a 2 s ``POST
+            /debug/profile/capture`` under 4 clients' load must run its
+            window on the dispatcher's thread and write a
+            ``torch.profiler`` trace with ``recommend_select``'s kernels
+            in it; then 8 threads send 200 queries, each with its own
+            ``X-Request-ID``: ``GET /metrics`` parses as Prometheus text,
+            counts the 200 and one ``batch_padding_ratio`` sample a
+            device batch, and its allocated-bytes gauge equals
+            ``torch.cuda.memory_allocated()``; ``GET /debug/profile``
+            lists ``als.recommend_serving`` with one call a device batch
+            and a select-route launch each, against the card's peak
+            table row; ``GET /debug/traces?trace_id=`` returns a query's
+            ``server.request`` span and the ``batch.device_dispatch`` span
+            of the batch that carried it; 20 answers equal the plain
+            version's on the CPU. Then the host ms a
+            ``recommend_serving`` call at B = 1 and 64 with the profiler
+            on and off (200 calls each): the wrapper's cost.
+27. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -464,6 +499,8 @@ try:
         RidgeParams,
     )
     from predictionio_tpu_torch.models import als, cco, classify, forest, linreg
+    from predictionio_tpu_torch.obs import costs, devprof
+    from predictionio_tpu_torch.obs.spans import get_default_recorder
     from predictionio_tpu_torch.workflow.evaluation import run_evaluation
     from predictionio_tpu_torch.online import (
         OnlineConsumer,
@@ -1113,10 +1150,12 @@ def phase_train(report, shared):
     td.sanity_check()
     params = ALSAlgorithmParams(num_iterations=TRAIN_ITERATIONS)  # template defaults
     df.PASS_LAUNCHES.update(row=0, col=0)  # every count to 0 just before the main path
+    prof0 = _exec_totals("als.train_dense")
     with _Spy(als, "dense_eligible") as gate, _Spy(als, "stage_dense") as stage:
         t0 = time.perf_counter()
         model = ALSAlgorithm(params).train(RuntimeContext(), td)
         train_s = time.perf_counter() - t0
+    prof1 = _exec_totals("als.train_dense")
     launches = dict(df.PASS_LAUNCHES)
     f = model.factors
     check(launches["row"] == launches["col"] == TRAIN_ITERATIONS,
@@ -1134,10 +1173,23 @@ def phase_train(report, shared):
     del gate, stage
     check(staged.dense_dtype == "int8" and staged.static_kwargs["scale"] == 2.0,
           "staging did not pick int8, s=2")
+    # the profiler's count of the main path's train: one call, and the
+    # per-iteration work of obs.costs times the iterations
+    kw = staged.static_kwargs
+    per_iter = costs.dense_train_iteration(*staged.device_args[0].shape, kw["rank"],
+                                           kw["cg_iterations"], "int8", kw["implicit"])
+    d_inv, d_sec, d_flops, d_bytes = (b - a for a, b in zip(prof0, prof1))
+    want_flops = per_iter.flops * TRAIN_ITERATIONS
+    check(d_inv == 1 and d_sec > 0, f"als.train_dense: {d_inv} profiled calls, "
+          f"{d_sec} device s in the main path's train")
+    check(abs(d_flops - want_flops) <= 1e-9 * want_flops,
+          f"als.train_dense flops {d_flops} != obs.costs' {per_iter.flops} an "
+          f"iteration x {TRAIN_ITERATIONS}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     uf, itf = staged.factors(*staged.run())
     run_s = time.perf_counter() - t0
+    prof2 = _exec_totals("als.train_dense")
     check(np.array_equal(uf, f.user_factors) and np.array_equal(itf, f.item_factors),
           "a second kernel train from the same seed gave other factors")
     with _PlainPasses():
@@ -1160,6 +1212,9 @@ def phase_train(report, shared):
         "plain_per_iteration_s": plain_s / TRAIN_ITERATIONS,
         "corr_users": cu, "corr_items": ci,
         "max_abs_diff_users": du, "max_abs_diff_items": di,
+        "devprof": {"calls": d_inv, "device_s": d_sec, "flops": d_flops,
+                    "bytes": d_bytes, "flops_per_iteration": per_iter.flops,
+                    "rerun_device_s": prof2[1] - prof1[1]},
     }
     t = report["train"]
     print(f"[train] ALSAlgorithm.train at ML-20M width ({N_EDGES} ratings, rank "
@@ -1171,7 +1226,10 @@ def phase_train(report, shared):
           f"{t['per_iteration_s']:.4f} s per iteration (plain passes "
           f"{t['plain_per_iteration_s']:.4f} s); vs the plain-pass train: "
           f"corrcoef users {cu:.8f} items {ci:.8f}, max |diff| users "
-          f"{du:.3g} items {di:.3g}", flush=True)
+          f"{du:.3g} items {di:.3g}; devprof: als.train_dense {d_sec:.4f} device s "
+          f"({d_sec / train_s:.1%} of the train's wall), {d_flops:.4g} flops = obs.costs "
+          f"x {TRAIN_ITERATIONS}; the rerun {prof2[1] - prof1[1]:.4f} device s against "
+          f"{run_s:.4f} s host", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1308,6 +1366,41 @@ def phase_serve(report, shared):
 # ---------------------------------------------------------------------------
 
 
+def _exec_totals(name):
+    """(invocations, device s, flops, bytes) the profiler has for `name`."""
+    row = devprof.get_profiler().executable(name) or {}
+    return (row.get("invocations", 0), row.get("device_seconds", 0.0),
+            row.get("flops_total", 0.0), row.get("bytes_total", 0.0))
+
+
+@contextlib.contextmanager
+def _devprof_env(flag):
+    """PIO_DEVPROF set to `flag` for the block. The times phases time the
+    kernels with the profiler off, as the train loops run them (nested
+    calls pass through the wrapper), and once more through it."""
+    old = os.environ.get("PIO_DEVPROF")
+    os.environ["PIO_DEVPROF"] = flag
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PIO_DEVPROF", None)
+        else:
+            os.environ["PIO_DEVPROF"] = old
+
+
+def _with_devprof_ms(name, timed):
+    """`timed()`'s result with the profiler on and the profiler's mean
+    device ms a call of `name` over it."""
+    a = _exec_totals(name)
+    with _devprof_env("1"):
+        out = timed()
+    b = _exec_totals(name)
+    calls = b[0] - a[0]
+    check(calls > 0, f"{name}: no profiled call in a times phase")
+    return out, 1e3 * (b[1] - a[1]) / calls
+
+
 def _time_ms(fn, iters, repeats=5):
     for _ in range(3):
         fn()
@@ -1362,15 +1455,11 @@ def _launches_per_call(i_p, k):
 
 
 def _bound(dtype, b, i_p, k, scaled):
-    esz = {"f32": 4, "bf16": 2, "int8": 1}[dtype]
-    nbytes = (b + i_p) * RANK * esz + b * k * 8
-    if scaled:
-        nbytes += (b + i_p) * 4
-    dot_s = 2.0 * b * i_p * RANK / PEAK_OPS[dtype]
-    scale_s = (2.0 * b * i_p / PEAK_OPS["f32"]) if scaled else 0.0
-    bytes_s = nbytes / HBM_BPS
-    ops_s = dot_s + scale_s
-    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
+    """The scored top-k's least time: `obs.costs.topk`'s bytes over HBM
+    against its products at the slab type's peak (the scales' at f32's),
+    the work the device profiler counts for the serving verbs."""
+    secs, by = costs.topk(b, i_p, RANK, k, dtype, scaled).bound(HBM_BPS, PEAK_OPS)
+    return 1e3 * secs, by
 
 
 def phase_times(report, shared):
@@ -1417,16 +1506,14 @@ def phase_times(report, shared):
 
 
 def _dense_bound(n_rows, n_cols, k, which):
-    """Least time for one pass: R read once, the factor input read once,
-    both outputs (K + K^2 columns) written once, over HBM; or the
-    dense-equivalent products at the bf16 tensor-core peak,
-    2*n_r*n_c*(K + K(K+1)/2) operations: corr is symmetric, so only its
-    pairs i <= j need a product."""
-    n_in, n_out = (n_cols, n_rows) if which == "row" else (n_rows, n_cols)
-    nbytes = n_rows * n_cols + n_in * k * 4 + n_out * (k + k * k) * 4
-    ops = 2.0 * n_rows * n_cols * (k + k * (k + 1) // 2)
-    bytes_s, ops_s = nbytes / HBM_BPS, ops / PEAK_OPS["bf16"]
-    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s else "operations")
+    """Least time for one pass (`obs.costs.dense_pass`, the profiler's
+    count): R read once, the factor input read once, both outputs (K +
+    K^2 columns) written once, over HBM; or the dense-equivalent
+    products at the bf16 tensor-core peak, 2*n_r*n_c*(K + K(K+1)/2)
+    operations: corr is symmetric, so only its pairs i <= j need a
+    product."""
+    secs, by = costs.dense_pass(n_rows, n_cols, k, which).bound(HBM_BPS, PEAK_OPS)
+    return 1e3 * secs, by
 
 
 def _uniform_slab(like):
@@ -1448,6 +1535,11 @@ def _uniform_slab(like):
 
 
 def phase_dense_times(report, shared):
+    with _devprof_env("0"):
+        _dense_times(report, shared)
+
+
+def _dense_times(report, shared):
     rng = np.random.default_rng(SEED + 3)
     r = shared.pop("slab")  # the main path's ratings
     n_rows, n_cols = r.shape
@@ -1468,6 +1560,9 @@ def phase_dense_times(report, shared):
         plain = df.fused_row_pass_plain if which == "row" else df.fused_col_pass_plain
         lib = dense.dense_row_pass if which == "row" else dense.dense_col_pass
         kernel = _time_ms(lambda: fn(r, x, ascale, implicit=True), 5, repeats=5)
+        profiled, devprof_ms = _with_devprof_ms(
+            f"ops.dense_{which}_pass",
+            lambda: _time_ms(lambda: fn(r, x, ascale, implicit=True), 5, repeats=5))
         uniform = _time_ms(lambda: fn(ru, x, ascale, implicit=True), 5, repeats=5)
         # the same pass over an all-zero R: every cell is multiplied all
         # the same, so it times like the others (a diagnostic, not a yardstick)
@@ -1477,12 +1572,15 @@ def phase_dense_times(report, shared):
                            1, repeats=3)
         bound, by = _dense_bound(n_rows, n_cols, RANK, which)
         rows.append({"pass": which, "n_rows": n_rows, "n_cols": n_cols, "K": RANK,
-                     "ms": kernel, "uniform_ms": uniform, "zero_r_ms": zero,
+                     "ms": kernel, "profiled_ms": profiled, "devprof_ms": devprof_ms,
+                     "uniform_ms": uniform, "zero_r_ms": zero,
                      "plain_ms": plain_ms,
                      "library_ms": library,
                      "bound_ms": bound, "bound_by": by})
         print(f"[times] dense {which} pass {n_rows}x{n_cols} int8, K={RANK}: "
-              f"kernel {kernel:.4f} ms on the main path's skewed R (uniform R "
+              f"kernel {kernel:.4f} ms (through the profiler {profiled:.4f} ms, devprof's "
+              f"mean a call {devprof_ms:.4f} ms) "
+              f"on the main path's skewed R (uniform R "
               f"{uniform:.4f} ms, all-zero R {zero:.4f} ms), plain "
               f"{plain_ms:.4f} ms, ops.dense "
               f"two-matmul on bf16 R {library:.4f} ms, bound {bound:.4f} ms "
@@ -2481,6 +2579,28 @@ def phase_lifecycle(report, shared):
         check(runtime.instance.id == inst3.id, "the runtime serves another instance")
         serve = _lifecycle_serve(runtime, storage, inst3.id, rng)
 
+        # each version carries its job child's device profile: one
+        # als.train_dense call a segment, on this card
+        lc["devprof"] = {}
+        for name, v, seg in (("job1", v1, segments1), ("job2", v2, segments2),
+                             ("job3", v3, segments3)):
+            prof = registry.get(v.id).devprof or {}
+            rows = {r["name"]: r for r in prof.get("executables", [])}
+            td_row = rows.get("als.train_dense")
+            check(td_row is not None and td_row["invocations"] == seg
+                  and td_row["device_seconds"] > 0,
+                  f"{name}'s version devprof: als.train_dense {td_row and td_row['invocations']}"
+                  f" calls for {seg} segments")
+            kind = (prof.get("platform") or {}).get("device_kind")
+            check(kind == torch.cuda.get_device_name(0),
+                  f"{name}'s version devprof ran on {kind!r}")
+            check(all(r["timing_errors"] == 0 for r in rows.values()),
+                  f"{name}'s version devprof has timing errors")
+            lc["devprof"][name] = {"executables": sorted(rows),
+                                   "train_dense_calls": td_row["invocations"],
+                                   "train_dense_device_s": td_row["device_seconds"],
+                                   "train_dense_mfu_raw": td_row.get("mfu_raw")}
+
         # 8. GC
         rc, out = _console_out(["models", "gc", "--keep", "1"])
         check(rc == 0 and {v.id for v in registry.list()} == {v1.id, v3.id},
@@ -2529,6 +2649,11 @@ def phase_lifecycle(report, shared):
           f"|diff| {warm_vs_cold:.4g}; delta {len(du)} events imported in {import_s:.2f} s; "
           f"job 3's killed attempt left its instance {killed[0].status} and its "
           f"checkpoint; kill to the retry's claim {kill_to_claim:.3f} s", flush=True)
+    for name, d in lc["devprof"].items():
+        print(f"[lifecycle] {smi} | {name}'s version devprof: als.train_dense "
+              f"{d['train_dense_calls']} calls (one a segment), "
+              f"{d['train_dense_device_s']:.4f} device s, raw MFU "
+              f"{d['train_dense_mfu_raw']}; executables {d['executables']}", flush=True)
     h = lc["held"]
     print(f"[lifecycle] {smi} | dense passes on the post-delta {h['dense_dtype']} R "
           f"{h['dense_r']} at K={h['rank']} vs plain: max |kernel - plain| row "
@@ -4422,22 +4547,25 @@ def phase_scatter(report, shared):
 
 
 def _windowed_bound(slots, n_src, n_blocks_p, n_windows, edges, k):
-    """Least time for block_partials: the four per-slot arrays and the
-    factors read once, the partials written once, over HBM; or 2 f32
-    operations per term, 2*E*(K+K^2), at the f32 peak. Returns it with
-    the bytes-bound of the combine: the partials and block ids read
-    once, the window sums written once (its adds are far fewer)."""
-    d = k + k * k
-    parts = n_blocks_p * win.WINDOW_ROWS * d * 4
-    nbytes = slots * 16 + n_src * k * 4 + parts
-    ops = 2.0 * edges * d
-    bytes_s, ops_s = nbytes / HBM_BPS, ops / PEAK_OPS["f32"]
-    combine = parts + n_blocks_p * 4 + n_windows * win.WINDOW_ROWS * d * 4
-    return (1e3 * max(bytes_s, ops_s), "bytes" if bytes_s >= ops_s else "operations",
-            1e3 * combine / HBM_BPS)
+    """Least time for block_partials (`obs.costs.block_partials`): the
+    four per-slot arrays and the factors read once, the partials written
+    once, over HBM; or 2 f32 operations per term, 2*E*(K+K^2), at the
+    f32 peak, E this plan's real edges. Returns it with the bytes-bound
+    of the combine (`obs.costs.combine_windows`): the partials and block
+    ids read once, the window sums written once (its adds are far
+    fewer)."""
+    secs, by = costs.block_partials(slots, n_src, n_blocks_p, win.WINDOW_ROWS, k,
+                                    edges).bound(HBM_BPS, PEAK_OPS)
+    combine = costs.combine_windows(n_blocks_p, win.WINDOW_ROWS, n_windows, k).bytes
+    return 1e3 * secs, by, 1e3 * combine / HBM_BPS
 
 
 def phase_windowed_times(report, shared):
+    with _devprof_env("0"):
+        _windowed_times(report, shared)
+
+
+def _windowed_times(report, shared):
     rng = np.random.default_rng(SEED + 6)
     rows_out = []
     for name, (p, side) in shared.pop("plans25").items():
@@ -4446,6 +4574,8 @@ def phase_windowed_times(report, shared):
         args, bwin = _side_on_card(rng, side, n_src, RANK, True)
         f, src, w_b, w_g, loc = args
         kernel = _time_ms(lambda: wf.block_partials(*args), 5)
+        profiled, devprof_ms = _with_devprof_ms(
+            "ops.windowed_block_partials", lambda: _time_ms(lambda: wf.block_partials(*args), 5))
         pb, pg = wf.block_partials(*args)
         combine = _time_ms(lambda: wf.combine_windows(pb, pg, bwin, p.n_windows), 5)
         plain = _time_ms(lambda: wf.block_partials_plain(*args), 1, repeats=3)
@@ -4481,12 +4611,15 @@ def phase_windowed_times(report, shared):
         rows_out.append({
             "side": name, "n_dst": n_dst, "n_blocks": p.n_blocks,
             "n_blocks_p": p.n_blocks_p, "n_windows": p.n_windows, "edges": edges,
-            "K": RANK, "ms": kernel, "plain_ms": plain, "library_ms": library_ms,
+            "K": RANK, "ms": kernel, "profiled_ms": profiled, "devprof_ms": devprof_ms,
+            "plain_ms": plain,
+            "library_ms": library_ms,
             "bound_ms": bound, "bound_by": by, "combine_ms": combine,
             "combine_plain_ms": combine_plain, "combine_bound_ms": combine_bound,
         })
         print(f"[times] windowed {name} side ({p.n_blocks_p} blocks, {edges} "
-              f"ratings, K={RANK}): block_partials kernel {kernel:.4f} ms, plain "
+              f"ratings, K={RANK}): block_partials kernel {kernel:.4f} ms (through the "
+              f"profiler {profiled:.4f} ms, devprof's mean a call {devprof_ms:.4f} ms), plain "
               f"{plain:.4f} ms, gather + outer + index_add_ {library_ms:.4f} ms, "
               f"bound {bound:.4f} ms ({by}); combine kernel {combine:.4f} ms, plain "
               f"{combine_plain:.4f} ms, bound {combine_bound:.4f} ms (bytes)",
@@ -4983,8 +5116,7 @@ def phase_ur_times(report, shared):
             torch.where(dense_mask, rec.NEG_INF, scores), k, dim=1), 50)
         scoring = _time_ms(lambda: cco.history_scores(idx_t, sc_t, hists, j_sizes,
                                                       i_p), 10)
-        nbytes = b * i_p * 4 + b * (i_p // 32) * 4 + b * k * 8
-        bound = 1e3 * nbytes / HBM_BPS
+        bound = 1e3 * costs.masked_topk(b, i_p, k).bytes / HBM_BPS
         rows.append({"B": b, "I_p": i_p, "k": k, "mask": "bits", "ms": kernel,
                      "device_ms": device, "device_split_ms": split,
                      "route": rec.topk_route(k), "launches_per_call": seen,
@@ -5450,6 +5582,303 @@ def phase_classify(report, shared):
     print(f"[classify] {smi} | phase {out['phase_s']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 26: observe
+# ---------------------------------------------------------------------------
+
+OBSERVE_QUERIES, OBSERVE_CLIENTS = 200, 8
+OBSERVE_CAPTURE_S = 2.0
+OBSERVE_OVERHEAD_CALLS = 200
+OBSERVE_MAX_RATIO = 1.05
+# the in-process device functions of the dense and windowed trains, the
+# ALS and UR serves and the classify phase
+OBSERVE_EXECUTABLES = (
+    "als.train_dense", "ops.densify", "ops.dense_row_pass", "ops.dense_col_pass",
+    "als.train_windowed", "ops.windowed_block_partials", "als.recommend_serving",
+    "cco.topn", "cco.batch_score_topk", "classify.nb_train", "classify.lr_train",
+    "forest.train", "linreg.normal_eq_terms",
+)
+_PROM_LINE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$')
+
+
+def _prometheus(text):
+    """{(name, labels): value} of an exposition document; every line must
+    be a comment or a sample."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = _PROM_LINE.match(line)
+        check(m is not None, f"/metrics line is not Prometheus text: {line!r}")
+        out[(m.group(1), m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def _get(port, path, headers=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", path, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def _observe_load(port, stop, users, out):
+    """One client's back-to-back queries until `stop` is set."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    n = 0
+    try:
+        while not stop.is_set():
+            conn.request("POST", "/queries.json",
+                         body=json.dumps({"user": users[n % len(users)], "num": 10}),
+                         headers={"Content-Type": "application/json"})
+            conn.getresponse().read()
+            n += 1
+    finally:
+        conn.close()
+        out.append(n)
+
+
+def _observe_clients(port, bodies, out, lock):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        for n, rid, body in bodies:
+            conn.request("POST", "/queries.json", body=json.dumps(body),
+                         headers={"Content-Type": "application/json", "X-Request-ID": rid})
+            resp = conn.getresponse()
+            payload = json.loads(resp.read())
+            with lock:
+                out[n] = (resp.status, payload, resp.getheader("X-Request-ID"))
+    finally:
+        conn.close()
+
+
+def _observe_report(report, smi):
+    """(a): the in-process report against the checks above."""
+    rep = devprof.report()
+    rows = {r["name"]: r for r in rep["executables"]}
+    check(rows, "the device profiler's report is empty after the card phases")
+    kind = torch.cuda.get_device_name(0)
+    check(rep["platform"]["device_kind"] == kind and rep["platform"]["peak_source"] == "table",
+          f"the report's platform {rep['platform']} is not this card's table row")
+    key = kind.lower()
+    check(devprof.PEAK_TABLE.get(key) == (PEAK_OPS["bf16"], HBM_BPS)
+          and devprof.PEAK_DTYPE_TABLE[key] == {"f32": PEAK_OPS["f32"],
+                                                "int8": PEAK_OPS["int8"]},
+          "devprof's peak row differs from the bounds' peaks")
+    missing = [n for n in OBSERVE_EXECUTABLES if n not in rows]
+    check(not missing, f"executables missing from the report: {missing}")
+    out = {}
+    for name, r in sorted(rows.items()):
+        check(r["invocations"] > 0 and r["device_seconds"] > 0,
+              f"{name}: {r['invocations']} calls, {r['device_seconds']} device s")
+        check(r["timing_errors"] == 0, f"{name}: {r['timing_errors']} timing errors "
+              f"({r.get('last_error')})")
+        for ratio in ("mfu_raw", "hbm_fraction_of_roof_raw"):
+            check(r.get(ratio, 0.0) <= OBSERVE_MAX_RATIO,
+                  f"{name}: raw {ratio} {r.get(ratio)} > {OBSERVE_MAX_RATIO}: its work "
+                  f"count is wrong")
+        out[name] = {k: r.get(k) for k in (
+            "invocations", "device_seconds", "flops_total", "bytes_total", "dtype",
+            "mfu_raw", "hbm_fraction_of_roof_raw", "compile_seconds", "temp_bytes",
+            "signatures")}
+        print(f"[observe] {smi} | {name}: {r['invocations']} calls, "
+              f"{r['device_seconds']:.4f} device s ({1e3 * r['device_seconds'] / r['invocations']:.4f}"
+              f" ms a call), {r['flops_total']:.4g} flops, {r['bytes_total']:.4g} B, "
+              f"{r.get('dtype', 'bf16')}, raw MFU {r.get('mfu_raw', 0.0):.4g}, raw memory "
+              f"roof {r.get('hbm_fraction_of_roof_raw', 0.0):.4g}", flush=True)
+    tr = report["train"]["devprof"]
+    print(f"[observe] {smi} | phase 6's als.train_dense: {tr['flops']:.6g} flops = "
+          f"{tr['flops_per_iteration']:.6g} (obs.costs, an iteration) x {TRAIN_ITERATIONS}",
+          flush=True)
+    pairs = [(f"dense {r['pass']} pass", r["profiled_ms"], r["devprof_ms"])
+             for r in report["dense_times"]]
+    pairs += [(f"block_partials {r['side']}", r["profiled_ms"], r["devprof_ms"])
+              for r in report["windowed_times"] if "devprof_ms" in r]
+    for what, median, mean in pairs:
+        check(0.5 <= mean / median <= 2.0, f"{what}: devprof's mean {mean:.4f} ms a call "
+              f"against the CUDA-event median {median:.4f} ms")
+        print(f"[observe] {smi} | {what}: devprof mean {mean:.4f} ms a call, CUDA-event "
+              f"median {median:.4f} ms (ratio {mean / median:.3f})", flush=True)
+    return {"executables": out, "times_vs_devprof": pairs, "platform": rep["platform"],
+            "padding": rep["padding"], "totals": rep["totals"]}
+
+
+def _observe_overhead(model, smi):
+    """Host ms a `recommend_serving` call at B = 1 and 64, profiler on and off."""
+    sv = model.serving_state()
+    rng = np.random.default_rng(SEED + 26)
+    out = {}
+    for b in (1, 64):
+        rows = rng.integers(0, N_USERS, b)
+        for flag in ("1", "0"):
+            os.environ["PIO_DEVPROF"] = flag
+            try:
+                for _ in range(5):
+                    als.recommend_serving(sv, rows, 64)
+                t0 = time.perf_counter()
+                for _ in range(OBSERVE_OVERHEAD_CALLS):
+                    als.recommend_serving(sv, rows, 64)
+                out[f"B={b} devprof={flag}"] = (
+                    1e3 * (time.perf_counter() - t0) / OBSERVE_OVERHEAD_CALLS)
+            finally:
+                os.environ["PIO_DEVPROF"] = "1"
+        print(f"[observe] {smi} | recommend_serving B={b} k=64, host ms a call over "
+              f"{OBSERVE_OVERHEAD_CALLS}: profiler on {out[f'B={b} devprof=1']:.4f}, off "
+              f"{out[f'B={b} devprof=0']:.4f} (wrapper "
+              f"{out[f'B={b} devprof=1'] - out[f'B={b} devprof=0']:+.4f})", flush=True)
+    return out
+
+
+def phase_observe(report, shared):
+    t_phase = time.perf_counter()
+    smi = report["nvidia_smi"]
+    ob = {"report": _observe_report(report, smi)}
+    # (b) the card-busy share of each in-process phase so far
+    ob["busy"] = report["busy"]
+    for name, b in report["busy"].items():
+        print(f"[observe] {smi} | phase {name}: {b['device_s']:.3f} card s (this process's "
+              f"profiled calls on the card) of {b['wall_s']:.2f} s wall, busy {b['share']:.1%}",
+              flush=True)
+
+    # (c) a query server on phase 6's factors, in this process
+    factors = shared["factors"]
+    model = ALSModel(factors)
+    recorder = get_default_recorder()
+    sample_rate = recorder.sample_rate
+    recorder.sample_rate = 1.0  # every query's trace is kept
+    capture_dir = Path(__file__).resolve().parent / "build" / "observe_capture"
+    shutil.rmtree(capture_dir, ignore_errors=True)
+    os.environ["PIO_PROFILE_CAPTURE_DIR"] = str(capture_dir)
+    server = QueryServer(ALSAlgorithm(ALSAlgorithmParams(rank=RANK)), model,
+                         QueryServerConfig(ip="127.0.0.1", port=0))
+    port = server.start()
+    try:
+        # the capture first, under load; the server opens and closes its
+        # window on the dispatcher's thread, whose kernel records CUPTI
+        # keeps (another thread's it drops for stretches of a long process)
+        users = [f"u{int(u)}" for u in np.random.default_rng(SEED + 27).integers(0, N_USERS, 512)]
+        stop, counts = threading.Event(), []
+        load = [threading.Thread(target=_observe_load, args=(port, stop, users[c::4], counts))
+                for c in range(4)]
+        for t in load:
+            t.start()
+        time.sleep(0.2)
+        status, body = _call(port, "POST", "/debug/profile/capture",
+                             {"seconds": OBSERVE_CAPTURE_S})
+        stop.set()
+        for t in load:
+            t.join(timeout=120)
+        check(status == 200, f"profile capture: {status} {body}")
+        check(body["thread"] == "query-batcher",
+              f"the capture's window ran on {body['thread']}, not the dispatcher's thread")
+        select = {n: c for n, c in body["kernels"].items() if "select_kernel" in n}
+        check(body["device_events"] > 0 and select,
+              f"the capture's trace holds {body['device_events']} device records, "
+              f"select kernels {select}")
+        ob["capture"] = {"trace": body["trace"], "device_events": body["device_events"],
+                         "select_kernels": select, "load_queries": sum(counts),
+                         "thread": body["thread"]}
+        print(f"[observe] {smi} | {OBSERVE_CAPTURE_S:g} s torch.profiler capture on the "
+              f"{body['thread']} thread under "
+              f"{sum(counts)} queries from 4 clients: {body['device_events']} device "
+              f"records, recommend_select's {select}", flush=True)
+
+        # 200 queries with their own request ids
+        rng = np.random.default_rng(SEED + 28)
+        bodies = [(n, f"observe-{n:04d}", {"user": f"u{int(rng.integers(N_USERS))}",
+                                           "num": int(rng.choice([5, 10, 20]))})
+                  for n in range(OBSERVE_QUERIES)]
+        _, text0 = _get(port, "/metrics")
+        m0 = _prometheus(text0)
+        st0, prof0 = _status(port), _exec_totals("als.recommend_serving")
+        sel0 = rec.ROUTE_LAUNCHES["select"]
+        out, lock = {}, threading.Lock()
+        clients = [threading.Thread(target=_observe_clients,
+                                    args=(port, bodies[c::OBSERVE_CLIENTS], out, lock))
+                   for c in range(OBSERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(len(out) == OBSERVE_QUERIES and all(
+            v[0] == 200 and v[2] == bodies[n][1] for n, v in out.items()),
+            "a query failed or came back without its X-Request-ID")
+        st1, prof1 = _status(port), _exec_totals("als.recommend_serving")
+        batches = st1["batches"] - st0["batches"]
+        selects = rec.ROUTE_LAUNCHES["select"] - sel0
+        a0 = torch.cuda.memory_allocated()
+        status, text1 = _get(port, "/metrics")
+        a1 = torch.cuda.memory_allocated()
+        m1 = _prometheus(text1)
+        req_key = ("http_requests_total",
+                   '{server="query",method="POST",path="/queries.json",status="200"}')
+        served = m1.get(req_key, 0) - m0.get(req_key, 0)
+        pad_key = ("batch_padding_ratio_count", "")
+        pads = m1.get(pad_key, 0) - m0.get(pad_key, 0)
+        gauge = m1.get(("cuda_memory_allocated_bytes", ""))
+        check(status == 200 and served == OBSERVE_QUERIES,
+              f"/metrics counts {served} of the {OBSERVE_QUERIES} queries")
+        check(pads == batches, f"batch_padding_ratio counts {pads} batches, the server "
+              f"{batches}")
+        check(gauge is not None and min(a0, a1) <= gauge <= max(a0, a1),
+              f"cuda_memory_allocated_bytes {gauge} outside [{a0}, {a1}]")
+        status, text = _get(port, "/debug/profile")
+        prof = json.loads(text)
+        rs = next((r for r in prof["executables"] if r["name"] == "als.recommend_serving"), None)
+        calls = prof1[0] - prof0[0]
+        check(status == 200 and rs is not None and calls == batches == selects,
+              f"/debug/profile: recommend_serving {calls} calls, {batches} device batches, "
+              f"{selects} select launches")
+        check(prof["platform"]["peak_source"] == "table"
+              and prof["platform"]["device_kind"] == torch.cuda.get_device_name(0),
+              f"/debug/profile platform {prof['platform']}")
+        traced = {}
+        for n in (0, OBSERVE_QUERIES // 2, OBSERVE_QUERIES - 1):
+            rid = bodies[n][1]
+            status, text = _get(port, f"/debug/traces?trace_id={rid}")
+            check(status == 200, f"/debug/traces?trace_id={rid}: {status}")
+            spans = json.loads(text)["spans"]
+            names = [sp["name"] for sp in spans]
+            dispatch = [sp for sp in spans if sp["name"] == "batch.device_dispatch"]
+            check("server.request" in names and len(dispatch) == 1
+                  and dispatch[0]["attrs"]["batch_size"] >= 1,
+                  f"trace {rid} spans {names}")
+            traced[rid] = names
+        cpu_model, cpu_alg = ALSModel(factors, device="cpu"), ALSAlgorithm(
+            ALSAlgorithmParams(rank=RANK))
+        for n in range(0, OBSERVE_QUERIES, OBSERVE_QUERIES // 20):
+            want = _to_jsonable(cpu_alg.predict(cpu_model, Query(**bodies[n][2])))
+            check(out[n][1] == want, f"observe query {n} differs from the CPU plain version")
+        lat = _exec_totals("als.recommend_serving")
+        ob["server"] = {
+            "queries": OBSERVE_QUERIES, "wall_s": wall, "qps": OBSERVE_QUERIES / wall,
+            "batches": batches, "select_launches": selects, "metrics_requests": served,
+            "padding_samples": pads, "allocated_gauge": gauge, "allocated": [a0, a1],
+            "recommend_serving_device_ms": 1e3 * (prof1[1] - prof0[1]) / max(calls, 1),
+            "traces": traced, "profile_calls_total": lat[0],
+        }
+        print(f"[observe] {smi} | {OBSERVE_QUERIES} queries from {OBSERVE_CLIENTS} clients "
+              f"in {wall:.3f} s: {batches} device batches = {calls} profiled "
+              f"recommend_serving calls = {selects} select launches "
+              f"({ob['server']['recommend_serving_device_ms']:.4f} device ms a call); "
+              f"/metrics: {served:g} requests, {pads:g} padding samples, allocated "
+              f"{gauge:.0f} B (torch {a0}..{a1}); traces of {len(traced)} requests hold "
+              f"server.request and their batch's device span", flush=True)
+    finally:
+        server.stop()
+        recorder.sample_rate = sample_rate
+        os.environ.pop("PIO_PROFILE_CAPTURE_DIR", None)
+    check(server._thread is None, "server thread not joined")
+    ob["overhead_ms"] = _observe_overhead(model, smi)
+    ob["phase_s"] = time.perf_counter() - t_phase
+    report["observe"] = ob
+    print(f"[observe] {smi} | phase {ob['phase_s']:.1f} s", flush=True)
+
+
 def main() -> int:
     if _IMPORT_ERROR is not None:
         print(f"chip_smoke: the port is not importable here ({_IMPORT_ERROR}); "
@@ -5458,8 +5887,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    report: dict = {}
+    report: dict = {"busy": {}}
     shared: dict = {}
+    # a call the device profiler cannot time fails its phase (and this
+    # process's children inherit it)
+    os.environ["PIO_DEVPROF_STRICT"] = "1"
     t_start = time.perf_counter()
     for name, phase in (("device", phase_device), ("build", phase_build),
                         ("sweep", phase_sweep), ("data", phase_data),
@@ -5476,13 +5908,18 @@ def main() -> int:
                         ("windowed times", phase_windowed_times),
                         ("ur sweep", phase_ur_sweep), ("ur data", phase_ur_data),
                         ("ur train", phase_ur_train), ("ur serve", phase_ur_serve),
-                        ("ur times", phase_ur_times), ("classify", phase_classify)):
+                        ("ur times", phase_ur_times), ("classify", phase_classify),
+                        ("observe", phase_observe)):
+        p0, t0 = devprof.snapshot(), time.perf_counter()
         try:
             phase(report, shared)
         except Exception:  # noqa: BLE001 — report the phase, then fail
             traceback.print_exc()
             print(f"FAILED phase {name}", flush=True)
             return 1
+        wall = time.perf_counter() - t0
+        busy_s = devprof.snapshot().card_seconds - p0.card_seconds
+        report["busy"][name] = {"wall_s": wall, "device_s": busy_s, "share": busy_s / wall}
     report["seconds"] = time.perf_counter() - t_start
     main_row = next(r for r in report["times"]
                     if r["dtype"] == "f32" and r["B"] == 64)

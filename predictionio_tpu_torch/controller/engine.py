@@ -5,8 +5,13 @@ Counterpart of the JAX package's ``controller/engine.py`` (reference
 Engine.scala: class:80, train:154, prepareDeploy:196,
 makeSerializableModels:283, eval:312, jValueToEngineParams:354;
 EngineParams.scala:32, SimpleEngine:127; EngineFactory.scala:28).
-Stage timings are `time.perf_counter` seconds in ``ctx.stage_timings``;
-the JAX package's spans and histograms are not ported.
+Each train stage runs under a span (``train.read``, ``train.prepare``,
+``train.train`` with one ``train.algorithm`` a model; ``workflow/core.py``
+adds ``train.persist``): its duration is the stage timing written to
+``ctx.stage_timings``, and the span recorder's bridge feeds it into the
+default registry's ``train_stage_seconds{stage}``. A stage span also
+carries the device profiler's work and seconds over the stage and the
+kernel builds it paid.
 
 ``batch_eval`` trains a tuning grid through the algorithm's
 ``train_grid`` (one staging per fold) when the grid varies only one
@@ -19,7 +24,7 @@ serves where it is deployed, never where it was trained.
 from __future__ import annotations
 
 import logging
-import time
+from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Any, Mapping, Optional, Sequence, Union
 
@@ -44,8 +49,65 @@ from predictionio_tpu_torch.core.base import (
     WorkflowParams,
     doer,
 )
+from predictionio_tpu_torch.obs import cudamon, devprof, get_default_registry
+from predictionio_tpu_torch.obs.spans import get_default_recorder, span
 
 log = logging.getLogger(__name__)
+
+
+def train_stage_histogram():
+    """``train_stage_seconds{stage}`` on the process-default registry."""
+    return get_default_registry().histogram(
+        "train_stage_seconds",
+        "train workflow stage durations (read/prepare/train/persist)",
+        ("stage",),  # label-bound: literal DASE stage names
+    )
+
+
+def _bridge_train_stage_spans() -> None:
+    """The train-stage spans are the one timing source: their durations
+    feed train_stage_seconds{stage} through the recorder's bridge."""
+    recorder = get_default_recorder()
+    for stage in ("read", "prepare", "train", "persist"):
+        recorder.bridge(
+            f"train.{stage}",
+            lambda sp, _s=stage: train_stage_histogram().observe(sp.duration, stage=_s),
+        )
+
+
+_bridge_train_stage_spans()
+
+
+@contextmanager
+def _stage_span(name: str, **attrs):
+    """A span that also diffs the device profiler's totals and the
+    kernel-build counter across the stage, so the stage's device work,
+    seconds and MFU, and the builds it paid, ride on its span."""
+    b0 = cudamon.build_snapshot()
+    p0 = devprof.snapshot()
+    with span(name, **attrs) as sp:
+        try:
+            yield sp
+        finally:
+            b1 = cudamon.build_snapshot()
+            if b1[0] > b0[0]:
+                sp.attrs["kernel_builds"] = b1[0] - b0[0]
+                sp.attrs["kernel_build_sec"] = round(b1[1] - b0[1], 4)
+            p1 = devprof.snapshot()
+            d_flops = p1.flops - p0.flops
+            d_bytes = p1.bytes - p0.bytes
+            d_secs = p1.device_seconds - p0.device_seconds
+            if d_flops > 0 or d_secs > 0:
+                sp.attrs["device_flops"] = d_flops
+                sp.attrs["device_bytes"] = d_bytes
+                sp.attrs["device_seconds"] = round(d_secs, 4)
+                u = devprof.mfu(d_flops, d_secs)
+                if u is not None:
+                    sp.attrs["mfu"] = round(u, 6)
+                h = devprof.hbm_fraction(d_bytes, d_secs)
+                if h is not None:
+                    sp.attrs["hbm_fraction_of_roof"] = round(h, 6)
+
 
 # a stage binding: one class, or a name → class map
 ClassMap = Union[type, Mapping[str, type]]
@@ -137,30 +199,36 @@ class Engine(BaseEngine):
     # -- train (reference Engine.train:154, object Engine.train:622) -------
     def train(self, ctx: RuntimeContext, engine_params: EngineParams) -> list[Any]:
         wp = ctx.workflow_params
-        t0 = time.perf_counter()
-        td = self.make_data_source(engine_params).read_training(ctx)
-        _sanity(td, "training data", wp)
-        ctx.stage_timings["read"] = time.perf_counter() - t0
+        with _stage_span("train.read") as sp:
+            data_source = self.make_data_source(engine_params)
+            sp.attrs["datasource"] = type(data_source).__name__
+            td = data_source.read_training(ctx)
+            _sanity(td, "training data", wp)
+        ctx.stage_timings["read"] = sp.duration
         if wp.stop_after_read:
             raise StopAfterReadInterruption()
 
-        t0 = time.perf_counter()
-        pd = self.make_preparator(engine_params).prepare(ctx, td)
-        _sanity(pd, "prepared data", wp)
-        ctx.stage_timings["prepare"] = time.perf_counter() - t0
+        with _stage_span("train.prepare") as sp:
+            preparator = self.make_preparator(engine_params)
+            sp.attrs["preparator"] = type(preparator).__name__
+            pd = preparator.prepare(ctx, td)
+            _sanity(pd, "prepared data", wp)
+        ctx.stage_timings["prepare"] = sp.duration
         if wp.stop_after_prepare:
             raise StopAfterPrepareInterruption()
 
-        t0 = time.perf_counter()
-        algorithms = self.make_algorithms(engine_params)
-        if not algorithms:
-            raise ParamsError("engine has no algorithms configured")
-        models = []
-        for i, algo in enumerate(algorithms):
-            model = algo.train(ctx, pd)
-            _sanity(model, f"model of algorithm #{i}", wp)
-            models.append(model)
-        ctx.stage_timings["train"] = time.perf_counter() - t0
+        with _stage_span("train.train") as sp:
+            algorithms = self.make_algorithms(engine_params)
+            if not algorithms:
+                raise ParamsError("engine has no algorithms configured")
+            models = []
+            for i, algo in enumerate(algorithms):
+                with _stage_span("train.algorithm", index=i,
+                                 algorithm=type(algo).__name__):
+                    model = algo.train(ctx, pd)
+                _sanity(model, f"model of algorithm #{i}", wp)
+                models.append(model)
+        ctx.stage_timings["train"] = sp.duration
         return models
 
     # -- serializable models (reference makeSerializableModels:283) --------

@@ -13,15 +13,21 @@ data/.../api/EventServer.scala:52-640). Routes:
   GET    /stats.json             → hourly counts (with stats on)
   POST/GET /webhooks/<name>.json → JSON connectors
   POST/GET /webhooks/<name>.form → form connectors
+  GET    /metrics                → Prometheus text (requests, events)
+  GET    /debug/traces           → retained request traces
+  GET    /debug/profile          → the device profile (empty here)
 
 Auth (reference withAccessKey, EventServer.scala:90-128): the
 ``accessKey`` query parameter or the HTTP Basic user name; the
 ``channel`` parameter names one of the key's app's channels. A missing
 or unknown key or channel is a 401, an event name the key does not
-allow a 403. The server makes no device call. The JAX package's WAL
-spill (it serves only backends that can be unreachable, none of them
-ported), deadline shedding, ``/metrics``, ``/debug/*``, ``/segments/*``
-and log shipping are not ported: those routes answer 404 saying so.
+allow a 403. The server makes no device call. Every request is
+counted, traced and access-logged by ``utils/http.py``'s middleware
+into the server's registry (``server_registry``, label ``event``),
+with ``events_ingested_total``. The JAX package's WAL spill (it serves
+only backends that can be unreachable, none of them ported), deadline
+shedding, ``/segments/*``, the other ``/debug/*`` routes and log
+shipping are not ported: those routes answer 404 saying so.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from predictionio_tpu_torch.data.api.webhooks import (
 from predictionio_tpu_torch.data.event import Event, EventValidation, ValidationError
 from predictionio_tpu_torch.data.storage.base import EventQuery
 from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.obs import server_registry
 from predictionio_tpu_torch.utils.http import (
     HttpError,
     JsonHandler,
@@ -129,6 +136,8 @@ class _Handler(JsonHandler):
     def _after_insert(self, auth: AuthData, obj: dict, event: Event) -> None:
         self.server.plugin_context.run_sniffers(
             obj, {"appId": auth.app_id, "channelId": auth.channel_id})
+        self.server.metrics.counter(
+            "events_ingested_total", "events accepted into storage").inc()
         if self.server.stats is not None:
             self.server.stats.update(auth.app_id, 201, event)
 
@@ -177,7 +186,13 @@ class _Handler(JsonHandler):
                 self._respond(200, self.server.stats.get(auth.app_id))
             elif path.startswith("/webhooks/"):
                 self._webhooks(method, path, query)
-            elif path == "/metrics" or path.startswith(("/debug/", "/segments/")):
+            elif path == "/metrics" and method == "GET":
+                self._serve_metrics()
+            elif path == "/debug/traces" and method == "GET":
+                self._serve_debug_traces()
+            elif path == "/debug/profile" and method == "GET":
+                self._serve_debug_profile()
+            elif path.startswith(("/debug/", "/segments/")):
                 raise HttpError(404, f"{path} is not ported yet to the PyTorch port")
             else:
                 raise HttpError(404, "Not Found")
@@ -308,6 +323,8 @@ class _Server(ThreadedServer):
         self.storage = storage
         self.stats = Stats() if config.stats else None
         self.plugin_context = PluginContext(config.plugins)
+        self.metrics = server_registry()
+        self.metrics_label = "event"
 
 
 class EventServer(ServerProcess):

@@ -10,7 +10,9 @@ must be there), registers the COMPLETED instance as a model version
 stamped with the job's id, writes the result receipt and exits 0. A
 retried job whose earlier attempt already registered a version adopts
 it instead of training again. Its log ends with the kernel launches the
-train made.
+train made. The version carries the device profiler's report of the
+train (``devprof``: each executable's invocations, device seconds and
+roofline) when the train ran an instrumented function.
 
 Exit codes, the scheduler's retry contract:
 - 0                  trained and registered (or adopted);
@@ -27,6 +29,8 @@ import json
 import logging
 import sys
 import traceback
+
+log = logging.getLogger(__name__)
 
 
 def _write_result(path: str, instance_id: str, version_id: str) -> None:
@@ -91,7 +95,16 @@ def main(argv: list[str]) -> int:
     if instance.status != "COMPLETED":
         print(f"train ended {instance.status}, not COMPLETED", file=sys.stderr)
         return EXIT_TRAIN_FAILED
-    version = ModelRegistry(storage).register(instance, devprof={},
+    devprof_report: dict = {}
+    try:
+        from predictionio_tpu_torch.obs import devprof
+
+        report = devprof.report()
+        if report.get("executables"):
+            devprof_report = report
+    except Exception:  # noqa: BLE001 — the version record stays valid
+        log.exception("device profile unavailable; registering without it")
+    version = ModelRegistry(storage).register(instance, devprof=devprof_report,
                                               job_id=job_id)
     _write_result(spec["result_path"], instance.id, version.id)
     print(f"trained instance {instance.id} → model version {version.id}")

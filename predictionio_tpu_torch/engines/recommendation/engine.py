@@ -52,6 +52,7 @@ from predictionio_tpu_torch.data.store.event_store import EventStoreFacade
 from predictionio_tpu_torch.data.view import DataView
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models import als
+from predictionio_tpu_torch.obs import devprof
 from predictionio_tpu_torch.ops.recommend import ROWLIST_MAX, rowlist_np
 from predictionio_tpu_torch.ops.topk import NEG_INF
 from predictionio_tpu_torch.utils.bucket import batch_bucket, topk_bucket
@@ -651,10 +652,15 @@ class ALSAlgorithm(Algorithm):
                         (bucket - n_real, sub_rows.shape[1]), -1, np.int32
                     ),
                 ])
+        # padding waste is accounted here, at the pad site: the only
+        # place that knows the live rows and the bucket the call ran at
+        prof0 = devprof.snapshot()
         scores, items = als.recommend_serving(
             model.serving_state(), user_rows, k,
             exclude_mask=sub_mask, exclude_rows=sub_rows,
         )
+        devprof.record_batch_padding(
+            n_real, bucket, flops=devprof.snapshot().flops - prof0.flops)
         scores, items = scores[:n_real], items[:n_real]
         inv = model.factors.item_vocab.inverse()
         for row, (qi, _u) in enumerate(known_ix):

@@ -45,6 +45,7 @@ from predictionio_tpu_torch.data.store.bimap import BiMap
 from predictionio_tpu_torch.data.store.event_store import EventStoreFacade
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models import cco
+from predictionio_tpu_torch.obs import devprof
 from predictionio_tpu_torch.utils.bucket import batch_bucket, topk_bucket
 
 log = logging.getLogger(__name__)
@@ -389,9 +390,14 @@ class URAlgorithm(Algorithm):
         k_req = min(max((q.num for q in queries), default=10), n_items)
         max_over = max((len(s) for s in overflow.values()), default=0)
         k = topk_bucket(min(k_req + max_over, n_items), n_items, floor=64)
+        # padding waste at the pad site: n_real live queries ran in a
+        # bsz-row call
+        prof0 = devprof.snapshot()
         vals, idx = cco.batch_score_topk(
             model.device_tables(), histories, exclude, k
         )
+        devprof.record_batch_padding(
+            n_real, bsz, flops=devprof.snapshot().flops - prof0.flops)
         inv = model.item_vocab.inverse()
         out = []
         for qi, q in enumerate(queries[:n_real]):

@@ -41,6 +41,15 @@ opposite side (``fold_in_rows``, torch einsums and the batched CG: the
 JAX package leaves it to XLA, so no kernel of its own) and publishes
 them into the staged state row by row (``serving_publish_rows``,
 copy-on-write off shared tables).
+
+The device functions are instrumented for ``obs.devprof`` under the JAX
+package's names: the train loops (``als.train_dense``,
+``als.train_windowed``, ``als.train_edge``, per iteration), the grids
+(``als.train_dense_grid``, ``als.train_windowed_grid``), the serving
+verbs (``als.recommend_serving``, ``als.similar_serving``,
+``als.similar_vecs_serving``), the publish's row writes
+(``als.publish_rows_cow``/``_donated``, ``als.publish_cols_cow``/
+``_donated``) and the fold (``als.fold_in``).
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ import torch
 
 from predictionio_tpu_torch.data.store.bimap import BiMap
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs import costs, devprof
 from predictionio_tpu_torch.ops import dense, dense_fused
 from predictionio_tpu_torch.ops import recommend as _rp
 from predictionio_tpu_torch.ops.segment import (
@@ -235,6 +245,19 @@ def _train_loop_dense(
         uf = _dense_half_step(r, itf, user_deg, uf, solve_rows=True, **step)
         itf = _dense_half_step(r, uf, item_deg, itf, solve_rows=False, **step)
     return uf, itf
+
+
+def _dense_iteration(r, rank, cg_iterations, implicit) -> costs.Work:
+    return costs.dense_train_iteration(int(r.shape[0]), int(r.shape[1]), rank,
+                                       cg_iterations, dense.STORAGE_NAMES[r.dtype], implicit)
+
+
+_train_loop_dense = devprof.instrument(
+    "als.train_dense", _train_loop_dense, scale_by="iterations",
+    cost=lambda args, kw: _dense_iteration(args[0], kw["rank"], kw["cg_iterations"],
+                                           kw["implicit"]),
+    dtype_of=lambda args, kw: dense.pass_dtype(args, kw),
+)
 
 
 @dataclass
@@ -541,6 +564,31 @@ def _train_loop_windowed(
     return uf, itf
 
 
+def _windowed_iteration(args, rank, cg_iterations, implicit, n_user_windows,
+                        n_item_windows) -> costs.Work:
+    """One windowed iteration's work; the edges that carry weight are
+    counted on the device (`ok`), the rest from the shapes."""
+    u_src, u_ok, i_src, i_ok = args[0], args[2], args[5], args[7]
+    n_u_p, n_i_p = n_user_windows * WINDOW_ROWS, n_item_windows * WINDOW_ROWS
+    sides = (
+        (int(u_src.numel()), n_i_p, int(u_src.shape[0]), n_user_windows, n_u_p,
+         int(torch.count_nonzero(u_ok))),
+        (int(i_src.numel()), n_u_p, int(i_src.shape[0]), n_item_windows, n_i_p,
+         int(torch.count_nonzero(i_ok))),
+    )
+    return costs.windowed_train_iteration(sides, rank, cg_iterations, WINDOW_ROWS,
+                                          implicit)
+
+
+_train_loop_windowed = devprof.instrument(
+    "als.train_windowed", _train_loop_windowed, scale_by="iterations",
+    cost=lambda args, kw: _windowed_iteration(
+        args, kw["rank"], kw["cg_iterations"], kw["implicit"],
+        kw["n_user_windows"], kw["n_item_windows"]),
+    dtype_of=lambda args, kw: "f32",
+)
+
+
 @dataclass
 class StagedWindowedTrain(_StagedTrain):
     """A windowed-path train, built by `stage_windowed`: `device_args`
@@ -743,6 +791,16 @@ def _train_loop_scatter(
     return uf, itf
 
 
+# the JAX package's name for its scatter-path loop
+_train_loop_scatter = devprof.instrument(
+    "als.train_edge", _train_loop_scatter, scale_by="iterations",
+    cost=lambda args, kw: costs.scatter_train_iteration(
+        int(args[0].numel()), kw["n_users"], kw["n_items"], kw["rank"],
+        kw["cg_iterations"], kw["rank"] <= GRAM_SOLVER_MAX_RANK),
+    dtype_of=lambda args, kw: "f32",
+)
+
+
 def _train_scatter(
     rows, cols, vals, n_users, n_items, params,
     user_deg, item_deg, user_vocab, item_vocab, init_factors, device=None,
@@ -861,7 +919,16 @@ def train_grid(
     use_dense = dense_eligible(rows, cols, vals, n_users, n_items, base)
     stage = stage_dense if use_dense else stage_windowed
     staged = stage(rows, cols, vals, n_users, n_items, base, device=device)
-    run = _train_loop_dense if use_dense else _train_loop_windowed
+    grid = _train_dense_grid if use_dense else _train_windowed_grid
+    return [_als_factors(uf, itf, p, user_vocab, item_vocab)
+            for (uf, itf), p in zip(grid(staged, list(params_list)), params_list)]
+
+
+def _grid_points(staged: _StagedTrain, params_list: list) -> list:
+    """Each point's loop over the staged data, its factors on the host;
+    the loop's own wrapper passes through inside this one."""
+    run = (_train_loop_dense if isinstance(staged, StagedDenseTrain)
+           else _train_loop_windowed)
     out = []
     for p in params_list:
         kwargs = dict(staged.static_kwargs)  # keeps the staged int8 scale
@@ -870,10 +937,32 @@ def train_grid(
             cg_iterations=p.cg_iterations, implicit=p.implicit_prefs,
             seed=p.seed, lam=p.lambda_, alpha=p.alpha,
         )
-        uf, itf = run(*staged.device_args, **kwargs)
-        out.append(_als_factors(*staged.factors(uf, itf), p, user_vocab,
-                                item_vocab))
+        out.append(staged.factors(*run(*staged.device_args, **kwargs)))
     return out
+
+
+def _grid_cost(args, kwargs) -> costs.Work:
+    staged, params_list = args
+    work = costs.NONE
+    for p in params_list:
+        if isinstance(staged, StagedDenseTrain):
+            it = _dense_iteration(staged.device_args[0], p.rank, p.cg_iterations,
+                                  p.implicit_prefs)
+        else:
+            kw = staged.static_kwargs
+            it = _windowed_iteration(staged.device_args, p.rank, p.cg_iterations,
+                                     p.implicit_prefs, kw["n_user_windows"],
+                                     kw["n_item_windows"])
+        work = work + it.scaled(p.iterations)
+    return work
+
+
+_train_dense_grid = devprof.instrument(
+    "als.train_dense_grid", _grid_points, cost=_grid_cost,
+    dtype_of=lambda args, kw: dense.pass_dtype(args[0].device_args, kw))
+_train_windowed_grid = devprof.instrument(
+    "als.train_windowed_grid", _grid_points, cost=_grid_cost,
+    dtype_of=lambda args, kw: "f32")
 
 
 def warm_start_factors(
@@ -1069,6 +1158,29 @@ def _serve_similar_vecs(vecs, inv_q, sv: ServingFactors, bits, ex, *, k):
     )
 
 
+def _serve_cost(b, sv: ServingFactors, k, bits, ex, scaled):
+    mask = sum(float(t.nelement() * t.element_size()) for t in (bits, ex) if t is not None)
+    return costs.topk(int(b), int(sv.items.shape[0]), int(sv.items.shape[1]), int(k),
+                      sv.dtype, scaled, mask)
+
+
+# the serving verbs measure their temp bytes on a signature's first call;
+# each roofs against its slab's type
+_serve_recommend = devprof.instrument(
+    "als.recommend_serving", _serve_recommend, memory=True,
+    cost=lambda a, kw: _serve_cost(a[0].shape[0], a[1], kw["k"], a[2], a[3],
+                                   a[1].dtype == "int8"),
+    dtype_of=lambda a, kw: a[1].dtype)
+_serve_similar = devprof.instrument(
+    "als.similar_serving", _serve_similar, memory=True,
+    cost=lambda a, kw: _serve_cost(a[0].shape[0], a[1], kw["k"], a[2], a[3], True),
+    dtype_of=lambda a, kw: a[1].dtype)
+_serve_similar_vecs = devprof.instrument(
+    "als.similar_vecs_serving", _serve_similar_vecs, memory=True,
+    cost=lambda a, kw: _serve_cost(a[0].shape[0], a[2], kw["k"], a[3], a[4], True),
+    dtype_of=lambda a, kw: a[2].dtype)
+
+
 def _exclusion_device_args(
     serving: ServingFactors,
     batch: int,
@@ -1233,6 +1345,31 @@ def _set_cols(table: torch.Tensor, cols: torch.Tensor, values: torch.Tensor,
     return out
 
 
+def _publish_cost(args, kwargs) -> costs.Work:
+    table, idx, values, private = args
+    row = float(values.nelement() * values.element_size()) / max(1, int(idx.numel()))
+    copied = 0.0 if private else float(table.nelement() * table.element_size())
+    return costs.publish_rows(copied, int(idx.numel()), row)
+
+
+_set_rows_cow = devprof.instrument("als.publish_rows_cow", _set_rows, cost=_publish_cost)
+_set_rows_donated = devprof.instrument("als.publish_rows_donated", _set_rows,
+                                       cost=_publish_cost)
+_set_cols_cow = devprof.instrument("als.publish_cols_cow", _set_cols, cost=_publish_cost)
+_set_cols_donated = devprof.instrument("als.publish_cols_donated", _set_cols,
+                                       cost=_publish_cost)
+
+
+def _write_rows(table, rows, values, private):
+    """`_set_rows` under its publish name: in place into a private
+    table, else copy-on-write."""
+    return (_set_rows_donated if private else _set_rows_cow)(table, rows, values, private)
+
+
+def _write_cols(table, cols, values, private):
+    return (_set_cols_donated if private else _set_cols_cow)(table, cols, values, private)
+
+
 def _grow_table(table: torch.Tensor, n: int, fill: float = 0.0,
                 axis: int = 0) -> torch.Tensor:
     """`table` extended to `n` along `axis` with `fill`: a new tensor,
@@ -1287,10 +1424,10 @@ def serving_publish_rows(
         uv = np.asarray(user_vals, np.float32)
         if int8:
             q, s = _rp.quantize_rows_np(uv)
-            users = _set_rows(users, ur, put(q), grown)
-            uscale = _set_rows(uscale, ur, put(s[:, None]), grown)
+            users = _write_rows(users, ur, put(q), grown)
+            uscale = _write_rows(uscale, ur, put(s[:, None]), grown)
         else:
-            users = _set_rows(users, ur, put(uv), grown)
+            users = _write_rows(users, ur, put(uv), grown)
 
     i_p_new = _rp.pad_items(n_items_new)
     grown = i_p_new > int(items.shape[0])  # past the staged pad headroom
@@ -1304,12 +1441,12 @@ def serving_publish_rows(
         iv = np.asarray(item_vals, np.float32)
         if int8:
             q, s = _rp.quantize_rows_np(iv)
-            items = _set_rows(items, ir, put(q), grown)
-            iscale = _set_cols(iscale, ir, put(s), grown)
+            items = _write_rows(items, ir, put(q), grown)
+            iscale = _write_cols(iscale, ir, put(s), grown)
         else:
-            items = _set_rows(items, ir, put(iv), grown)
+            items = _write_rows(items, ir, put(iv), grown)
         # the cosine verbs' inverse norms follow the rows' new f32 values
-        inv = _set_cols(inv, ir, put(_rp.inv_norms_np(iv)[0]), grown)
+        inv = _write_cols(inv, ir, put(_rp.inv_norms_np(iv)[0]), grown)
 
     return ServingFactors(
         users=users, items=items, user_scale=uscale, item_scale=iscale,
@@ -1347,6 +1484,14 @@ def _fold_in(fixed, edge_idx, edge_val, edge_ok, lam, alpha, *, implicit,
                  + reg[:, None, None] * eye)
         return batched_cg(lambda v: torch.einsum("rkl,rl->rk", a, v), b,
                           torch.zeros_like(b), cg_iterations)
+
+
+_fold_in = devprof.instrument(
+    "als.fold_in", _fold_in, memory=True,
+    cost=lambda a, kw: costs.fold_in(int(a[1].shape[0]), int(a[1].shape[1]),
+                                     int(a[0].shape[0]), int(a[0].shape[1]),
+                                     kw["cg_iterations"]),
+    dtype_of=lambda a, kw: "f32")
 
 
 def _fold_edge_bucket(n: int) -> int:

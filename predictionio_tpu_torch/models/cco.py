@@ -17,6 +17,9 @@ Serving: ``batch_score_topk`` scores a whole query batch against the
 correlator tables on the device (a sum of LLR over the correlators in
 each user's history) and selects through ``ops.recommend.
 fused_masked_topk``, the hand-written exclusion + top-k kernel.
+
+An item block's train step and a query batch's scoring are instrumented
+for ``obs.devprof`` as ``cco.topn`` and ``cco.batch_score_topk``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs import costs, devprof
 from predictionio_tpu_torch.ops.recommend import (
     ROWLIST_MAX,
     fused_masked_topk,
@@ -132,6 +136,13 @@ def _cco_topn(
         counts, prim_totals, sec_totals, n_users, diag_offset,
         top_n=top_n, exclude_diagonal=exclude_diagonal,
     )
+
+
+_cco_topn = devprof.instrument(
+    "cco.topn", _cco_topn,
+    cost=lambda a, kw: costs.cooccurrence_topn(int(a[0].shape[0]), int(a[0].shape[1]),
+                                               int(a[1].shape[1]), kw["top_n"]),
+    dtype_of=lambda a, kw: "f32")
 
 
 def edges_to_indicator(
@@ -266,6 +277,21 @@ def _batch_score_topk(
         exclude_rows=None if packed else exclude,
         k=k, n_items=n_items,
     )
+
+
+def _batch_score_cost(args, kwargs) -> costs.Work:
+    corr_idx, _, histories, exclude = args
+    b, n_items, k = int(histories[0].shape[0]), int(corr_idx[0].shape[0]), kwargs["k"]
+    i_p = pad_items(n_items)
+    correlators = [(int(t.shape[1]), j) for t, j in zip(corr_idx, kwargs["j_sizes"])]
+    return (costs.history_scores(b, n_items, i_p, correlators)
+            + costs.masked_topk(b, i_p, k,
+                                float(exclude.nelement() * exclude.element_size())))
+
+
+_batch_score_topk = devprof.instrument(
+    "cco.batch_score_topk", _batch_score_topk, cost=_batch_score_cost,
+    dtype_of=lambda a, kw: "f32")
 
 
 def batch_score_topk(

@@ -17,6 +17,11 @@ vmaps them).
 
 Models keep numpy arrays, pickle without a device, and score on the
 device `bind_device` gives them (``DeviceModel``).
+
+The trains and the scoring are instrumented for ``obs.devprof`` under
+the JAX package's names: ``classify.nb_train``, ``classify.nb_train_grid``,
+``classify.nb_scores``, ``classify.lr_train``, ``classify.lr_train_grid``
+and ``classify.lr_scores``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs import costs, devprof
 from predictionio_tpu_torch.ops.segment import full_f32
 
 
@@ -114,12 +120,25 @@ class NaiveBayesModel(DeviceModel):
     def predict_scores(self, x: np.ndarray) -> np.ndarray:
         """(B, C) log joint scores."""
         t = self.staged()
-        with full_f32():
-            s = self._rows(x) @ t["log_likelihood"].T + t["log_prior"]
-        return s.cpu().numpy()
+        return _nb_scores(self._rows(x), t["log_likelihood"], t["log_prior"]).cpu().numpy()
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         return self.predict_scores(x).argmax(axis=-1)  # the first maximal class
+
+
+def _scores_cost(args, kwargs) -> costs.Work:
+    x, m = args[0], args[1]  # (B, D) rows; (C, D) or (D+1, C) parameters
+    c = m.shape[0] if m.shape[1] == x.shape[1] else m.shape[1]
+    return costs.matmul(int(x.shape[0]), int(c), int(x.shape[1]))
+
+
+def _nb_scores(x, log_like, log_prior):
+    with full_f32():
+        return x @ log_like.T + log_prior
+
+
+_nb_scores = devprof.instrument("classify.nb_scores", _nb_scores, cost=_scores_cost,
+                                dtype_of=lambda a, kw: "f32")
 
 
 def _label_sums(x, y, w, n_classes):
@@ -137,6 +156,31 @@ def _nb_smooth(class_count, feat_sum, total, lam, d):
         feat_sum.sum(-1, keepdim=True) + lam * d
     )
     return log_prior, log_like
+
+
+def _nb_train(x, y, w, *, n_classes, lam):
+    with full_f32():
+        class_count, feat_sum = _label_sums(x, y, w, n_classes)
+        return _nb_smooth(class_count, feat_sum, w.sum(), lam, x.shape[1])
+
+
+def _nb_train_grid(x, y, w, lam_t, *, n_classes):
+    with full_f32():
+        class_count, feat_sum = _label_sums(x, y, w, n_classes)
+        return _nb_smooth(class_count, feat_sum[None], w.sum(), lam_t, x.shape[1])
+
+
+def _nb_cost(args, kwargs) -> costs.Work:
+    """The one-hot label sums: two (C, N) products."""
+    x, c = args[0], kwargs["n_classes"]
+    n, d = int(x.shape[0]), int(x.shape[1])
+    return costs.matmul(c, d + 1, n) + costs.Work({"f32": float(n * d)}, float(n * 8))
+
+
+_nb_train = devprof.instrument("classify.nb_train", _nb_train, cost=_nb_cost,
+                               dtype_of=lambda a, kw: "f32")
+_nb_train_grid = devprof.instrument("classify.nb_train_grid", _nb_train_grid,
+                                    cost=_nb_cost, dtype_of=lambda a, kw: "f32")
 
 
 def _nb_inputs(x, y, device):
@@ -157,9 +201,7 @@ def train_naive_bayes(
 ) -> NaiveBayesModel:
     """x must be non-negative (multinomial counts / binary indicators)."""
     dev, xt, yt, w = _nb_inputs(x, y, device)
-    with full_f32():
-        class_count, feat_sum = _label_sums(xt, yt, w, n_classes)
-        log_prior, log_like = _nb_smooth(class_count, feat_sum, w.sum(), lam, xt.shape[1])
+    log_prior, log_like = _nb_train(xt, yt, w, n_classes=n_classes, lam=lam)
     return NaiveBayesModel(log_prior.cpu().numpy(), log_like.cpu().numpy(), device=dev)
 
 
@@ -174,10 +216,7 @@ def train_naive_bayes_grid(
     smoothing is batched."""
     dev, xt, yt, w = _nb_inputs(x, y, device)
     lam_t = torch.tensor(list(lams), dtype=torch.float32, device=dev)[:, None, None]
-    with full_f32():
-        class_count, feat_sum = _label_sums(xt, yt, w, n_classes)
-        log_prior, log_like = _nb_smooth(class_count, feat_sum[None], w.sum(), lam_t,
-                                         xt.shape[1])
+    log_prior, log_like = _nb_train_grid(xt, yt, w, lam_t, n_classes=n_classes)
     log_prior, log_like = log_prior.cpu().numpy(), log_like.cpu().numpy()
     return [NaiveBayesModel(log_prior, log_like[g], device=dev) for g in range(len(lams))]
 
@@ -199,13 +238,19 @@ class LogisticRegressionModel(DeviceModel):
         return self.weights.shape[0] - 1
 
     def predict_scores(self, x: np.ndarray) -> np.ndarray:
-        w = self.staged()["weights"]
-        with full_f32():
-            s = self._rows(x) @ w[:-1] + w[-1]
-        return s.cpu().numpy()
+        return _lr_scores(self._rows(x), self.staged()["weights"]).cpu().numpy()
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         return self.predict_scores(x).argmax(axis=-1)  # the first maximal class
+
+
+def _lr_scores(x, w):
+    with full_f32():
+        return x @ w[:-1] + w[-1]
+
+
+_lr_scores = devprof.instrument("classify.lr_scores", _lr_scores, cost=_scores_cost,
+                                dtype_of=lambda a, kw: "f32")
 
 
 def _standardize(x: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -248,6 +293,23 @@ def _lr_train_body(x, y, wt, lrs, l2s, *, n_classes: int, iterations: int):
     return w.permute(1, 0, 2)
 
 
+def _lr_iteration(args, kwargs) -> costs.Work:
+    """One gradient step for G points: the logits' and the gradient's
+    (N, D) x (D, G·C) products, softmax and the update."""
+    x, lrs = args[0], args[3]
+    n, d = int(x.shape[0]), int(x.shape[1])
+    gc = int(lrs.shape[0]) * kwargs["n_classes"]
+    return (costs.matmul(n, gc, d) + costs.matmul(d, gc, n)
+            + costs.Work({"f32": 12.0 * n * gc}, float(4 * n * gc * 4)))
+
+
+_lr_train = devprof.instrument("classify.lr_train", _lr_train_body, scale_by="iterations",
+                               cost=_lr_iteration, dtype_of=lambda a, kw: "f32")
+_lr_train_grid = devprof.instrument("classify.lr_train_grid", _lr_train_body,
+                                    scale_by="iterations", cost=_lr_iteration,
+                                    dtype_of=lambda a, kw: "f32")
+
+
 def _lr_grid(x, y, n_classes, grid, iterations, normalize, device):
     x = np.asarray(x, dtype=np.float32)
     y = np.asarray(y, dtype=np.int64)
@@ -257,8 +319,9 @@ def _lr_grid(x, y, n_classes, grid, iterations, normalize, device):
     wt = torch.ones(len(x), dtype=torch.float32, device=dev)
     lrs = torch.tensor([g[0] for g in grid], dtype=torch.float32, device=dev)
     l2s = torch.tensor([g[1] for g in grid], dtype=torch.float32, device=dev)
-    ws = _lr_train_body(xt, yt, wt, lrs, l2s, n_classes=n_classes,
-                        iterations=iterations).cpu().numpy()
+    train = _lr_train if len(grid) == 1 else _lr_train_grid
+    ws = train(xt, yt, wt, lrs, l2s, n_classes=n_classes,
+               iterations=iterations).cpu().numpy()
     out = []
     for w in ws:
         if normalize:

@@ -32,7 +32,9 @@ below 2^24 in any order of the scatter's atomics; cumulative sums of
 them are integers too; the per-class sums of squares and of leaf counts
 add the C classes one by one. Prediction averages the trees' leaf
 distributions by adding them in tree order, so a model answers with the
-same bits on either device.
+same bits on either device. The grower and the prediction are
+instrumented for ``obs.devprof`` as ``forest.train`` and
+``forest.predict``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch
 
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.classify import DeviceModel
+from predictionio_tpu_torch.obs import costs, devprof
 
 # ---------------------------------------------------------------------------
 # Host-side quantile binning
@@ -212,6 +215,21 @@ def grow_forest(
             proba)
 
 
+def _grow_cost(args, kwargs) -> costs.Work:
+    """Per level, a key and an `index_add_` a (tree, row, feature) into
+    the histograms, the split search over them and the routing."""
+    xbin, boot, levels = args[0], args[2], args[3]
+    (t, n), d, depth = boot.shape, int(xbin.shape[1]), len(levels)
+    cells = t * n * d
+    hist = sum(t * 2 ** lv * d * kwargs["n_bins"] * kwargs["n_classes"] for lv in range(depth))
+    return costs.Work({"f32": 4.0 * cells * depth + 8.0 * hist},
+                      float(n * d * 8 + cells * depth * 20 + hist * 8))
+
+
+grow_forest = devprof.instrument("forest.train", grow_forest, cost=_grow_cost,
+                                 dtype_of=lambda a, kw: "f32")
+
+
 def draw_forest(n_trees: int, n: int, d: int, depth: int, feat_per_node: int, seed: int,
                 device) -> tuple[torch.Tensor, list[Optional[torch.Tensor]]]:
     """The grower's random draws from one ``torch.Generator`` seeded with
@@ -245,6 +263,17 @@ def predict_forest(routes_f, routes_t, proba, xbin, depth: int) -> torch.Tensor:
     for t in range(1, n_trees):
         acc = acc + proba[t][node[t]]
     return acc / n_trees
+
+
+def _predict_cost(args, kwargs) -> costs.Work:
+    routes_f, proba, xbin, depth = args[0], args[2], args[3], args[4]
+    t, b, c = int(routes_f.shape[0]), int(xbin.shape[0]), int(proba.shape[-1])
+    return costs.Work({"f32": 2.0 * t * b * (depth + c)},
+                      float(b * xbin.shape[1] * 8 + t * b * depth * 16 + b * c * 4))
+
+
+predict_forest = devprof.instrument("forest.predict", predict_forest, cost=_predict_cost,
+                                    dtype_of=lambda a, kw: "f32")
 
 
 class RandomForestModel(DeviceModel):

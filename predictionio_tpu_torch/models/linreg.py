@@ -16,7 +16,8 @@ JAX package takes them unshifted, so its float64 centring
 XᵀX − n·μμᵀ, Xᵀy − n·μ·ȳ cancels the f32 rounding of sums about zero,
 which loses digits where a mean is large against its spread (a target
 in years, ȳ ≈ 2,000). The statistics and every step after them are
-the JAX package's.
+the JAX package's. The statistics pass is instrumented for
+``obs.devprof`` as ``linreg.normal_eq_terms``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs import costs, devprof
 from predictionio_tpu_torch.ops.segment import full_f32
 
 
@@ -62,6 +64,17 @@ def _normal_eq_terms(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
     xtx = xtx_s + np.outer(c, sx_s) + np.outer(sx_s, c) + n * np.outer(c, c)
     xty = xty_s + c * sy_s + c_y * sx_s + n * c * c_y
     return xtx, xty, n, sx_s + n * c, sy_s + n * c_y
+
+
+def _terms_cost(args, kwargs) -> costs.Work:
+    """XᵀX and Xᵀy about the means, the means and the shifts."""
+    n, d = int(args[0].shape[0]), int(args[0].shape[1])
+    return (costs.matmul(d, d + 1, n)
+            + costs.Work({"f32": 8.0 * n * d}, float(3 * n * d * 4)))
+
+
+_normal_eq_terms = devprof.instrument("linreg.normal_eq_terms", _normal_eq_terms,
+                                      cost=_terms_cost, dtype_of=lambda a, kw: "f32")
 
 
 def _center_stats(xtx, xty, n, xsum, ysum, fit_intercept):

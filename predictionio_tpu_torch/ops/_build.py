@@ -7,6 +7,8 @@ and an unchanged tree reuses the library. Callers load it with
 ``ctypes`` and declare each function's ``argtypes`` themselves.
 
 Importing this module needs no ``nvcc``; only ``build``/``load`` do.
+Each library ``load`` brings into the process is counted, with the
+seconds its build and load took, by ``obs/cudamon.py``'s build counter.
 """
 
 from __future__ import annotations
@@ -17,7 +19,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from predictionio_tpu_torch.obs import cudamon
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -97,6 +102,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
+            cudamon.record_build(time.perf_counter() - t0)
         return lib

@@ -22,6 +22,10 @@ pass, a hand-written kernel on the card).
 The JAX dots take bf16 operands with f32 results. ``torch.matmul`` on
 bf16 tensors returns bf16, so bf16 operands are widened to f32 (exact)
 and multiplied in f32 with TF32 off.
+
+The passes and ``densify`` are instrumented under the JAX package's
+names (``ops.dense_row_pass``, ``ops.dense_col_pass``, ``ops.densify``);
+``ops/dense_fused.py``'s int8 passes record under the same pass names.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.obs import costs, devprof
 from predictionio_tpu_torch.ops.segment import full_f32
 
 # rows of R processed per block; the weight tiles live in (ROW_BLOCK,
@@ -176,3 +181,38 @@ def densify(
     else:
         r[rows, cols] = vals.to(st)
     return r
+
+
+# -- device profiling ---------------------------------------------------------
+
+STORAGE_NAMES = {torch.int8: "int8", torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def pass_cost(which: str):
+    """The cost function of a dense pass, `which` "row" or "col": the
+    first two arguments are R and the fixed side's factors."""
+
+    def cost(args, kwargs):
+        r, fixed = args[0], args[1]
+        return costs.dense_pass(int(r.shape[0]), int(r.shape[1]), int(fixed.shape[1]),
+                                which, STORAGE_NAMES[r.dtype])
+
+    return cost
+
+
+def pass_dtype(args, kwargs) -> str:
+    """int8 R runs on the bf16 tensor cores; f32 and bf16 storage are
+    f32 products."""
+    return "bf16" if args[0].dtype == torch.int8 else "f32"
+
+
+def _densify_cost(args, kwargs):
+    return costs.densify(int(args[0].shape[0]), kwargs["n_rows_p"], kwargs["n_cols_p"],
+                         kwargs.get("dense_dtype", "bf16"))
+
+
+dense_row_pass = devprof.instrument("ops.dense_row_pass", dense_row_pass,
+                                    cost=pass_cost("row"), dtype_of=pass_dtype)
+dense_col_pass = devprof.instrument("ops.dense_col_pass", dense_col_pass,
+                                    cost=pass_cost("col"), dtype_of=pass_dtype)
+densify = devprof.instrument("ops.densify", densify, cost=_densify_cost)

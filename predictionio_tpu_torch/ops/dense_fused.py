@@ -39,7 +39,8 @@ import threading
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.ops.dense import ROW_BLOCK
+from predictionio_tpu_torch.obs import devprof
+from predictionio_tpu_torch.ops.dense import ROW_BLOCK, pass_cost, pass_dtype
 from predictionio_tpu_torch.ops.segment import full_f32
 
 #: widest rank the kernel takes (models/als.py GRAM_SOLVER_MAX_RANK)
@@ -218,6 +219,14 @@ def fused_col_pass(
     if r.device.type == "cpu":
         return fused_col_pass_plain(r, x, ascale, implicit=implicit)
     return _launch("col", r, x, ascale, implicit)
+
+
+# the JAX package's names for the dense passes (``ops/dense.py``'s f32
+# and bf16 passes record under them too)
+fused_row_pass = devprof.instrument("ops.dense_row_pass", fused_row_pass,
+                                    cost=pass_cost("row"), dtype_of=pass_dtype)
+fused_col_pass = devprof.instrument("ops.dense_col_pass", fused_col_pass,
+                                    cost=pass_cost("col"), dtype_of=pass_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,7 @@ import threading
 
 import torch
 
+from predictionio_tpu_torch.obs import costs, devprof
 from predictionio_tpu_torch.ops.segment import full_f32
 
 #: widest rank the kernel takes (models/als.py GRAM_SOLVER_MAX_RANK)
@@ -136,6 +137,21 @@ def block_partials(
         return block_partials_plain(factors, src, w_b, w_g, local,
                                     s_rows=s_rows)
     return _launch_partials(factors, src, w_b, w_g, local, s_rows)
+
+
+def _partials_cost(args, kwargs):
+    """16 B a slot, the factors and the partials; every slot's
+    operations (the kernel runs the padding slots too)."""
+    factors, src = args[0], args[1]
+    return costs.block_partials(int(src.numel()), int(factors.shape[0]),
+                                int(src.shape[0]), kwargs.get("s_rows", 128),
+                                int(factors.shape[1]))
+
+
+# the JAX package's name; the train loops' calls pass through untimed
+block_partials = devprof.instrument(
+    "ops.windowed_block_partials", block_partials, cost=_partials_cost,
+    dtype_of=lambda args, kwargs: "f32")
 
 
 def combine_windows(

@@ -42,6 +42,12 @@
         [--reason R]
     python -m predictionio_tpu_torch.tools.console models gc [--keep N] \
         [--delete-blobs]
+    python -m predictionio_tpu_torch.tools.console metrics [--url URL] \
+        [--summary]
+    python -m predictionio_tpu_torch.tools.console trace list|show|export \
+        [TRACE] [--url http://localhost:8000] [--limit N] [--output F]
+    python -m predictionio_tpu_torch.tools.console profile list|show|capture \
+        [NAME] [--url http://localhost:8000] [--dir D] [--seconds S]
 
     python -m predictionio_tpu_torch.tools.console train --ratings FILE \\
         --out blob.npz [--rank 10] [--iterations 20] [--lambda 0.01] \\
@@ -74,7 +80,15 @@ supervised subprocess on ``--device`` (``--once``: the jobs queued now,
 then exit); ``jobs list|show|logs|gc`` read and prune the queue.
 ``models list|show|promote|rollback|gc`` read the model versions that
 train jobs register, make one live, roll one back and collect old ones.
-Not ported, and refused with
+``metrics`` prints a server's ``/metrics`` (``--url`` names the whole
+URL) or this process's registry; ``trace list|show|export`` read a
+running server's retained traces (``--url``: its base URL; export
+writes Chrome trace-event JSON for https://ui.perfetto.dev) or this
+process's; ``profile list|show`` print a server's device profile
+(``/debug/profile``) or this process's, and ``profile capture`` asks
+the server for a ``torch.profiler`` window (``POST
+/debug/profile/capture``; the server needs ``PIO_PROFILE_CAPTURE_DIR``)
+or, with ``--dir``, opens one in this process. Not ported, and refused with
 exit code 1: the fleet evaluation (an EvalSpec file as the target,
 ``eval list/show/status/gc``), ``tune``, ``eventserver --log-url`` and
 the parquet format of ``import`` and ``export``. An operator error (an
@@ -264,6 +278,44 @@ def _parser() -> argparse.ArgumentParser:
                    help="versions kept per engine variant besides live/canary")
     s.add_argument("--delete-blobs", action="store_true",
                    help="also delete the collected versions' MODELDATA blobs")
+
+    s = sub.add_parser("metrics", help="print Prometheus metrics: this process's "
+                       "registry, or a running server's /metrics via --url")
+    s.add_argument("--url", default=None, help="scrape this URL (e.g. "
+                   "http://127.0.0.1:8000/metrics) instead of the local registry")
+    s.add_argument("--summary", action="store_true",
+                   help="a readable summary instead of exposition text")
+
+    tr = sub.add_parser("trace", help="tail-sampled request traces (local "
+                        "recorder, or a running server via --url)"
+                        ).add_subparsers(dest="trace_action", required=True)
+    s = tr.add_parser("list", help="list retained trace summaries")
+    s.add_argument("--url", help="server base URL, e.g. http://127.0.0.1:8000")
+    s.add_argument("--limit", type=int, default=20)
+    s = tr.add_parser("show", help="print one trace's span tree")
+    s.add_argument("trace_id")
+    s.add_argument("--url", help="server base URL")
+    s = tr.add_parser("export", help="write Chrome trace-event JSON "
+                      "(open at ui.perfetto.dev)")
+    s.add_argument("trace_id", nargs="?", default=None,
+                   help="one trace (default: all retained)")
+    s.add_argument("--url", help="server base URL")
+    s.add_argument("--output", required=True)
+
+    pr = sub.add_parser("profile", help="per-function device profiling: device "
+                        "seconds, work, MFU/roofline, padding waste (local, or a "
+                        "server via --url)").add_subparsers(
+        dest="profile_action", required=True)
+    s = pr.add_parser("list", help="list profiled executables")
+    s.add_argument("--url", help="server base URL, e.g. http://127.0.0.1:8000")
+    s = pr.add_parser("show", help="one executable's full profile")
+    s.add_argument("name")
+    s.add_argument("--url", help="server base URL")
+    s = pr.add_parser("capture", help="open a torch.profiler window (the server "
+                      "needs PIO_PROFILE_CAPTURE_DIR; or --dir for this process)")
+    s.add_argument("--url", help="server base URL")
+    s.add_argument("--dir", help="local output directory (no --url)")
+    s.add_argument("--seconds", type=float, default=2.0)
     return ap
 
 
@@ -537,7 +589,8 @@ def eval_run(args: argparse.Namespace) -> int:
     return 0 if inst.status == "EVALCOMPLETED" else 1
 
 
-def _server_call(base: str, path: str, body: Optional[dict] = None) -> dict:
+def _server_call(base: str, path: str, body: Optional[dict] = None,
+                 timeout: float = 30.0) -> dict:
     """POST (with a JSON body) or GET `base+path` on a running query
     server; HTTP and transport failures become CommandError."""
     import json
@@ -551,7 +604,7 @@ def _server_call(base: str, path: str, body: Optional[dict] = None) -> dict:
         method="POST" if body is not None else "GET",
     )
     try:
-        with urllib.request.urlopen(req, timeout=30) as r:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
             return json.loads(r.read().decode())
     except urllib.error.HTTPError as e:
         detail = e.read().decode(errors="replace")
@@ -731,10 +784,201 @@ def main(argv=None) -> int:
         raise SystemExit(f"[ERROR] {e}")
 
 
+def _print_registry_summary() -> None:
+    """This process's default registry in console form."""
+    from predictionio_tpu_torch.obs import get_default_registry
+
+    snap = get_default_registry().snapshot()
+    if not snap:
+        return
+    print("[INFO] Process metrics (registry snapshot):")
+    for name, fam in sorted(snap.items()):
+        for row in fam["values"]:
+            labels = ",".join(f"{k}={v}" for k, v in row["labels"].items())
+            where = f"{name}{{{labels}}}" if labels else name
+            if fam["type"] == "histogram":
+                print(f"[INFO]   {where}: count={row['count']} "
+                      f"mean={row['mean'] * 1e3:.1f}ms p50={row['p50'] * 1e3:.1f}ms "
+                      f"p99={row['p99'] * 1e3:.1f}ms")
+            else:
+                print(f"[INFO]   {where}: {row['value']:g}")
+
+
+def metrics_cmd(args: argparse.Namespace) -> int:
+    """`metrics`: a server's /metrics (--url) or this process's registry."""
+    if args.url:
+        import urllib.request
+
+        with urllib.request.urlopen(args.url, timeout=10) as r:
+            print(r.read().decode(), end="")
+        return 0
+    if args.summary:
+        _print_registry_summary()
+        return 0
+    from predictionio_tpu_torch.obs import get_default_registry
+
+    print(get_default_registry().render(), end="")
+    return 0
+
+
+def _print_span_tree(spans: list) -> None:
+    """Spans indented by their parent links; a missing or remote parent
+    roots a subtree."""
+    ids = {s["span_id"] for s in spans}
+    children: dict = {}
+    roots = []
+    for s in sorted(spans, key=lambda s: s["start"]):
+        parent = s.get("parent_span_id")
+        if parent in ids:
+            children.setdefault(parent, []).append(s)
+        else:
+            roots.append(s)
+
+    def walk(s: dict, depth: int) -> None:
+        attrs = s.get("attrs", {})
+        extra = " ".join(f"{k}={v}" for k, v in attrs.items() if k != "server")
+        flag = " ERROR" if s.get("error") else ""
+        server = attrs.get("server")
+        where = f" [{server}]" if server else ""
+        print(f"[INFO] {'  ' * depth}{s['name']}{where} {s['duration_ms']:.3f} ms{flag}"
+              + (f"  ({extra})" if extra else ""))
+        for c in children.get(s["span_id"], ()):
+            walk(c, depth + 1)
+
+    for r in roots:
+        walk(r, 0)
+
+
+def _traces_or_none(url: str, params: str) -> Optional[dict]:
+    """`GET /debug/traces?params`, None when the server has no such
+    trace (its 404); other failures raise."""
+    try:
+        return _server_call(url, f"/debug/traces?{params}")
+    except CommandError as e:
+        if "(404)" in str(e):
+            return None
+        raise
+
+
+def trace_cmd(args: argparse.Namespace) -> int:
+    """`trace list|show|export`: the retained (tail-sampled) traces of a
+    running server (--url) or of this process."""
+    import json
+
+    from predictionio_tpu_torch.obs.spans import get_default_recorder
+
+    url, action = args.url, args.trace_action
+    if action == "list":
+        if url:
+            data = _server_call(url, f"/debug/traces?limit={args.limit}")
+            summaries, cfg = data["traces"], data.get("sampling", {})
+        else:
+            rec = get_default_recorder()
+            summaries, cfg = rec.summaries(limit=args.limit), rec.config()
+        print(f"[INFO] {len(summaries)} retained trace(s) (sampling: {cfg})")
+        for s in summaries:
+            where = f" {s['server']}" if s.get("server") else ""
+            path = f" {s['path']}" if s.get("path") else ""
+            err = " ERROR" if s["error"] else ""
+            print(f"[INFO]   {s['trace_id']}  {s['root']}{where}{path}  "
+                  f"{s['duration_ms']:.1f} ms  {s['spans']} spans  "
+                  f"kept={s['kept']}{err}")
+        return 0
+    if action == "show":
+        if url:
+            spans = _traces_or_none(url, f"trace_id={args.trace_id}")
+            spans = spans["spans"] if spans else []
+        else:
+            spans = [s.to_dict() for s in get_default_recorder().get_trace(args.trace_id)]
+        if not spans:
+            print(f"[ERROR] no retained trace {args.trace_id!r}", file=sys.stderr)
+            return 1
+        print(f"[INFO] Trace {args.trace_id} ({len(spans)} spans):")
+        _print_span_tree(spans)
+        return 0
+    if url:
+        params = "format=perfetto"
+        if args.trace_id:
+            params = f"trace_id={args.trace_id}&" + params
+        export = _traces_or_none(url, params) or {}
+    else:
+        export = get_default_recorder().perfetto_export(args.trace_id)
+    if not export.get("traceEvents"):
+        what = (f"no retained trace {args.trace_id!r}" if args.trace_id
+                else "no retained traces to export")
+        print(f"[ERROR] {what}", file=sys.stderr)
+        return 1
+    with open(args.output, "w") as f:
+        json.dump(export, f)
+    print(f"[INFO] Wrote {len(export['traceEvents'])} trace events to "
+          f"{args.output} — load it at https://ui.perfetto.dev")
+    return 0
+
+
+def profile_cmd(args: argparse.Namespace) -> int:
+    """`profile list|show|capture`: the device profile of a running
+    server (--url) or of this process."""
+    from predictionio_tpu_torch.obs import devprof
+
+    action, url = args.profile_action, args.url
+    if action == "capture":
+        if url:
+            result = _server_call(url, "/debug/profile/capture",
+                                  {"seconds": args.seconds}, timeout=args.seconds + 30)
+            print(f"[INFO] torch.profiler trace captured to {result['trace']} "
+                  f"(on the server host; {result['device_events']} device records)")
+            return 0
+        if not args.dir:
+            print("[ERROR] profile capture needs --url or --dir", file=sys.stderr)
+            return 1
+        import torch  # noqa: F401 — the capture is of this process's torch
+
+        result = devprof.capture_trace(args.dir, args.seconds)
+        print(f"[INFO] torch.profiler trace captured to {result['trace']} "
+              f"({result['device_events']} device records)")
+        return 0
+    rep = _server_call(url, "/debug/profile") if url else devprof.report()
+    plat = rep.get("platform", {})
+    if action == "list":
+        peak = plat.get("peak_flops")
+        peak_s = f"{peak / 1e12:g} TFLOP/s" if peak else "unknown"
+        print(f"[INFO] platform={plat.get('platform')} kind={plat.get('device_kind')} "
+              f"peak={peak_s} (source: {plat.get('peak_source')})")
+        rows = rep.get("executables", [])
+        if not rows:
+            print("[INFO] no profiled executables yet")
+            return 0
+        print(f"[INFO] {'executable':<28} {'calls':>7} {'dev_sec':>9} "
+              f"{'compile_s':>9} {'GFLOP':>10} {'dtype':>6} {'mfu':>9} {'hbm%':>7}")
+        for r in rows:
+            u, h = r.get("mfu"), r.get("hbm_fraction_of_roof")
+            print(f"[INFO] {r['name']:<28} {r['invocations']:>7} "
+                  f"{r['device_seconds']:>9.3f} {r['compile_seconds']:>9.2f} "
+                  f"{r['flops_total'] / 1e9:>10.2f} {r.get('dtype', 'bf16'):>6} "
+                  f"{(f'{u:.5f}' if u is not None else '-'):>9} "
+                  f"{(f'{100 * h:.1f}' if h is not None else '-'):>7}")
+        pad = rep.get("padding", {})
+        if pad.get("batches"):
+            print(f"[INFO] padding: {pad['batches']} batches, mean ratio "
+                  f"{pad['mean_padding_ratio']:.3f}, wasted "
+                  f"{pad['wasted_flops'] / 1e9:.2f} GFLOP")
+        return 0
+    row = next((r for r in rep.get("executables", []) if r["name"] == args.name), None)
+    if row is None:
+        print(f"[ERROR] no profiled executable {args.name!r}", file=sys.stderr)
+        return 1
+    print(f"[INFO] {row['name']}:")
+    for k, v in row.items():
+        if k != "name":
+            print(f"[INFO]   {k}: {v}")
+    return 0
+
+
 def _run(args: argparse.Namespace) -> int:
     commands = {"app": app_cmd, "channel": channel_cmd, "accesskey": accesskey_cmd,
                 "eventserver": eventserver, "status": status, "online": online,
-                "jobs": jobs_cmd, "models": models_cmd}
+                "jobs": jobs_cmd, "models": models_cmd, "metrics": metrics_cmd,
+                "trace": trace_cmd, "profile": profile_cmd}
     if args.cmd in commands:
         return commands[args.cmd](args)
     if args.cmd in ("import", "export") and args.format == "parquet":

@@ -3,7 +3,9 @@
 The port's own copy of the readers of the JAX package's ``utils/env.py``
 that it needs: the dense-ALS gate (``PIO_DENSE_ALS`` and
 ``PIO_DENSE_ALS_BYTES``), the storage base directory
-(``PIO_FS_BASEDIR``) and the online consumer's knobs (``ONLINE_KEYS``).
+(``PIO_FS_BASEDIR``), the online consumer's knobs (``ONLINE_KEYS``) and
+the observability knobs (``PIO_DEVPROF``, the peak overrides, the
+trace sampling).
 A missing or empty value gives the caller's default; a malformed number
 gives the default with a warning, as in the JAX package.
 """
@@ -57,3 +59,34 @@ def env_float(name: str, default: float) -> float:
     except ValueError:
         log.warning("ignoring malformed %s=%r", name, raw)
         return float(default)
+
+
+_TRUTHY = ("1", "true", "yes", "on")
+_FALSY = ("0", "false", "no", "off")
+
+
+def env_bool(name: str, default: bool) -> bool:
+    """1/true/yes/on or 0/false/no/off; missing, empty or malformed: the
+    default (malformed with a warning)."""
+    raw = (os.environ.get(name) or "").strip().lower()
+    if not raw:
+        return default
+    if raw in _TRUTHY:
+        return True
+    if raw in _FALSY:
+        return False
+    log.warning("ignoring malformed %s=%r", name, raw)
+    return default
+
+
+def env_opt_float(name: str):
+    """A float, or None when missing, empty or malformed (the peak
+    overrides' semantics)."""
+    raw = os.environ.get(name)
+    if not raw:
+        return None
+    try:
+        return float(raw)
+    except ValueError:
+        log.warning("ignoring malformed %s=%r", name, raw)
+        return None

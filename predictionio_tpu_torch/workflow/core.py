@@ -6,8 +6,9 @@ CreateWorkflow.scala:133, CoreWorkflow.runTrain:42-99,
 CreateServer.createServerActorWithEngine:206). The JAX mesh becomes a
 device: the train runs on the caller's device (None is the first CUDA
 device), and deploy serves on the device it is given, never the one the
-model was trained on. Metrics, profiler traces
-and engine-manifest registration are not ported.
+model was trained on. The train's root span, its persist stage span
+and ``train_runs_total`` are the JAX package's; the ``profile_dir``
+trace window and engine-manifest registration are not ported.
 """
 
 from __future__ import annotations
@@ -15,11 +16,14 @@ from __future__ import annotations
 import datetime as _dt
 import json
 import logging
-import time
 import uuid
 from typing import Any, Optional
 
-from predictionio_tpu_torch.controller.engine import EngineParams, resolve_engine
+from predictionio_tpu_torch.controller.engine import (
+    EngineParams,
+    _stage_span,
+    resolve_engine,
+)
 from predictionio_tpu_torch.controller.params import load_symbol, params_to_json
 from predictionio_tpu_torch.controller.persistent import (
     deserialize_models,
@@ -34,6 +38,7 @@ from predictionio_tpu_torch.core.base import (
 from predictionio_tpu_torch.data.storage.base import EngineInstance, Model
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs import get_default_registry, span
 
 log = logging.getLogger(__name__)
 
@@ -90,7 +95,12 @@ def run_train(
     """`pio train`: resolve the factory, params from the variant, an
     INIT instance row, TRAINING, engine.train, the models' MODELDATA blob,
     then COMPLETED (INTERRUPTED at a debug stop-point, ABORTED on an
-    error, which is raised again). Returns the final row."""
+    error, which is raised again). Returns the final row.
+
+    The whole train runs under a root ``train`` span (an aborted train
+    marks it errored, so tail sampling keeps it), the persist under a
+    ``train.persist`` stage span, and each run's final status counts in
+    the default registry's ``train_runs_total{status}``."""
     wp = workflow_params or WorkflowParams()
     engine = resolve_engine(load_symbol(variant["engineFactory"]))
     if engine_params is None:
@@ -126,26 +136,32 @@ def run_train(
         instance.env["stage_timings"] = json.dumps(
             {k: round(v, 4) for k, v in ctx.stage_timings.items()}
         )
+        get_default_registry().counter(
+            "train_runs_total", "train workflows by final status",
+            ("status",),  # label-bound: literal status set
+        ).inc(status=status)
         instances.update(instance)
 
     try:
-        instance.status = "TRAINING"
-        instances.update(instance)
-        try:
-            models = engine.train(ctx, engine_params)
-        except (StopAfterReadInterruption, StopAfterPrepareInterruption) as e:
-            log.info("training interrupted by %s", type(e).__name__)
-            finish("INTERRUPTED")
-            return instance
-        if wp.save_model:
-            t0 = time.perf_counter()
-            serializable = engine.make_serializable_models(
-                ctx, models, engine_params, instance.id
-            )
-            storage.get_model_data_models().insert(
-                Model(id=instance.id, models=serialize_models(serializable))
-            )
-            ctx.stage_timings["persist"] = time.perf_counter() - t0
+        with span("train", server="train", instance_id=instance.id,
+                  engine=instance.engine_id, variant=instance.engine_variant):
+            instance.status = "TRAINING"
+            instances.update(instance)
+            try:
+                models = engine.train(ctx, engine_params)
+            except (StopAfterReadInterruption, StopAfterPrepareInterruption) as e:
+                log.info("training interrupted by %s", type(e).__name__)
+                finish("INTERRUPTED")
+                return instance
+            if wp.save_model:
+                with _stage_span("train.persist") as persist_sp:
+                    serializable = engine.make_serializable_models(
+                        ctx, models, engine_params, instance.id
+                    )
+                    storage.get_model_data_models().insert(
+                        Model(id=instance.id, models=serialize_models(serializable))
+                    )
+                ctx.stage_timings["persist"] = persist_sp.duration
         finish("COMPLETED")
         log.info("training completed: instance %s (stages: %s)", instance.id,
                  {k: round(v, 3) for k, v in ctx.stage_timings.items()})

@@ -26,9 +26,25 @@ carry the runtime they were read against, and the dispatcher serves
 each group of a drain with its own, so a query that spans a swap is
 answered by one runtime.
 
+Observability (the JAX package's): the server binds a registry
+(``server_registry``: the CUDA and device-profile gauges) to ``GET
+/metrics`` with ``serve_seconds``, ``predict_seconds``, ``batch_size``,
+``batch_device_seconds`` and ``batch_queue_wait_seconds`` (fed by the
+dispatcher's queue-wait spans through the span recorder's bridge, set
+on start and removed on stop); ``GET /debug/traces`` and ``GET
+/debug/profile`` read the process's span recorder and device profiler;
+``POST /debug/traces/capture`` keeps the next N batches' traces (409
+without a dispatcher) and ``POST /debug/profile/capture`` opens a
+``torch.profiler`` window, on the dispatcher's thread where there is
+one. Each query's trace holds its
+``server.request`` span and, from the dispatcher, ``batch.queue_wait``,
+``batch.assemble`` and the ``batch.device_dispatch`` span of the batch
+that carried it.
+
 Counterpart of the JAX package's ``workflow/server.py``, cut to these
 routes: no continuous batching, tenancy, rollout, replicas, deadlines
-or feedback.
+or feedback; ``/debug/tsdb``, ``/debug/faults`` and ``/alerts`` answer
+404 saying they are not ported.
 """
 
 from __future__ import annotations
@@ -48,6 +64,9 @@ from predictionio_tpu_torch.controller.dase import FirstServing
 from predictionio_tpu_torch.core.base import RuntimeContext
 from predictionio_tpu_torch.data.storage.base import EngineInstance
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs import BATCH_SIZE_BUCKETS, server_registry
+from predictionio_tpu_torch.obs import spans as _spans
+from predictionio_tpu_torch.obs import tracing as _tracing
 from predictionio_tpu_torch.ops import recommend as _recommend
 from predictionio_tpu_torch.utils.http import (
     HttpError,
@@ -216,12 +235,32 @@ def extract_query(cls: type, obj: Any) -> Any:
 
 
 class _Pending:
-    __slots__ = ("query", "runtime", "fut")
+    __slots__ = ("query", "runtime", "fut", "t_submit", "tctx")
 
-    def __init__(self, query, runtime, fut):
+    def __init__(self, query, runtime, fut, t_submit, tctx):
         self.query = query
         self.runtime = runtime  # the runtime the query was read against
         self.fut = fut
+        self.t_submit = t_submit
+        self.tctx = tctx  # (trace id, span id) of the submitting request
+
+
+class _Call:
+    """A function the dispatcher's thread runs between batches."""
+
+    __slots__ = ("fn", "fut")
+
+    def __init__(self, fn, fut):
+        self.fn = fn
+        self.fut = fut
+
+    def run(self) -> None:
+        if not self.fut.set_running_or_notify_cancel():
+            return  # the caller gave up waiting
+        try:
+            self.fut.set_result(self.fn())
+        except Exception as e:  # noqa: BLE001 — the caller's error
+            self.fut.set_exception(e)
 
 
 class _BatchDispatcher:
@@ -252,8 +291,23 @@ class _BatchDispatcher:
     def submit(self, query: Any, runtime: "EngineRuntime",
                timeout: float = 30.0) -> Any:
         fut: Future = Future()
-        self._queue.put(_Pending(query, runtime, fut))
+        tctx = (_tracing.current_trace_id(), _spans.current_span_id())
+        self._queue.put(_Pending(query, runtime, fut, time.perf_counter(), tctx))
         return fut.result(timeout=timeout)
+
+    def call(self, fn, timeout: Optional[float] = 30.0) -> Any:
+        """Run `fn` on the dispatcher's thread, the one that launches the
+        batches' device work, once the batch in hand is served; return
+        its result or raise its error. TimeoutError where the thread did
+        not take it within `timeout` (it then never runs); None waits."""
+        fut: Future = Future()
+        self._queue.put(_Call(fn, fut))
+        try:
+            return fut.result(timeout=timeout)
+        except TimeoutError:
+            if fut.cancel():
+                raise
+            return fut.result()  # already running: its own result
 
     def stop(self) -> None:
         self._stop.set()
@@ -273,16 +327,23 @@ class _BatchDispatcher:
                 first = self._queue.get(timeout=0.2)
             except queue.Empty:
                 continue
-            batch = [first]
+            if isinstance(first, _Call):
+                first.run()
+                continue
+            batch, calls = [first], []
             deadline = time.monotonic() + self.window_s
             while len(batch) < self.max_batch:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     break
                 try:
-                    batch.append(self._queue.get(timeout=remaining))
+                    item = self._queue.get(timeout=remaining)
                 except queue.Empty:
                     break
+                if isinstance(item, _Call):
+                    calls.append(item)  # run once this batch is served
+                else:
+                    batch.append(item)
             if len(batch) >= self.max_batch:
                 self.window_s = min(self.max_window_s, self.window_s * 2)
             else:
@@ -294,24 +355,72 @@ class _BatchDispatcher:
                 groups.setdefault(id(p.runtime), (p.runtime, []))[1].append(p)
             for runtime, group in groups.values():
                 self._run(runtime, group)
+            for call in calls:
+                call.run()
 
     def _run(self, runtime: "EngineRuntime", batch: list) -> None:
         owner = self.owner
+        recorder = _spans.get_default_recorder()
         t0 = time.perf_counter()
-        try:
-            preds = owner.predict_batch([p.query for p in batch], runtime)
-        except Exception:  # noqa: BLE001 — retried per query below
-            log.exception("batch predict failed; retrying query by query")
+        now_wall = time.time()
+        # an armed POST /debug/traces/capture spends one batch credit here
+        # and keeps every trace riding this batch
+        capture_id = recorder.consume_capture()
+        if capture_id is not None:
             for p in batch:
-                t0 = time.perf_counter()
-                try:
-                    result = owner.predict_batch([p.query], runtime)[0]
-                    owner.count_batch(time.perf_counter() - t0)
-                    p.fut.set_result(result)
-                except Exception as e:  # noqa: BLE001 — the waiter's error
-                    p.fut.set_exception(e)
-            return
-        owner.count_batch(time.perf_counter() - t0)
+                if p.tctx[0]:
+                    recorder.force_keep(p.tctx[0], capture_id)
+        first_submit = min(p.t_submit for p in batch)
+        # the per-query device span ids exist before the call, so that the
+        # batch's work runs under the first traced query's device span
+        dev_ids = [_spans.new_span_id() if p.tctx[0] else None for p in batch]
+
+        def child(i: int, name: str, start: float, dur: float,
+                  span_id: Optional[str] = None, error: bool = False) -> None:
+            tid, parent = batch[i].tctx
+            if tid is not None:
+                recorder.record(_spans.Span(
+                    trace_id=tid, span_id=span_id or _spans.new_span_id(),
+                    parent_span_id=parent, name=name, start=start, duration=dur,
+                    attrs={"server": "query", "batch_size": len(batch)}, error=error))
+
+        for i, p in enumerate(batch):
+            # queue wait: submit to the device call; assemble: the drain
+            # window, the batch's first arrival to the call
+            child(i, "batch.queue_wait", now_wall - (t0 - p.t_submit), t0 - p.t_submit)
+            child(i, "batch.assemble", now_wall - (t0 - first_submit), t0 - first_submit)
+        owner.batch_size_hist.observe(len(batch))
+        rep = next((i for i, d in enumerate(dev_ids) if d), None)
+        tok_t = tok_s = None
+        if rep is not None:
+            tok_t = _tracing.set_trace_id(batch[rep].tctx[0])
+            tok_s = _spans.set_current_span(dev_ids[rep])
+        try:
+            try:
+                preds = owner.predict_batch([p.query for p in batch], runtime)
+            except Exception:  # noqa: BLE001 — retried per query below
+                log.exception("batch predict failed; retrying query by query")
+                for i in range(len(batch)):
+                    child(i, "batch.device_dispatch", now_wall,
+                          time.perf_counter() - t0, span_id=dev_ids[i], error=True)
+                for p in batch:
+                    t1 = time.perf_counter()
+                    try:
+                        result = owner.predict_batch([p.query], runtime)[0]
+                        owner.count_batch(time.perf_counter() - t1, 1)
+                        p.fut.set_result(result)
+                    except Exception as e:  # noqa: BLE001 — the waiter's error
+                        p.fut.set_exception(e)
+                return
+        finally:
+            if tok_s is not None:
+                _spans.reset_current_span(tok_s)
+            if tok_t is not None:
+                _tracing.reset_trace_id(tok_t)
+        seconds = time.perf_counter() - t0
+        for i in range(len(batch)):
+            child(i, "batch.device_dispatch", now_wall, seconds, span_id=dev_ids[i])
+        owner.count_batch(seconds, len(batch))
         for p, result in zip(batch, preds):
             p.fut.set_result(result)
 
@@ -331,8 +440,38 @@ class _Handler(JsonHandler):
             self._respond(200, owner.online_status())
         elif path == "/reload":
             self._reload()
+        elif path == "/metrics":
+            self._serve_metrics()
+        elif path == "/debug/traces":
+            self._serve_debug_traces()
+        elif path == "/debug/profile":
+            self._serve_debug_profile()
+        elif path in NOT_PORTED_ROUTES:
+            self._respond(404, {"message": f"{path} is not ported yet to the PyTorch port"})
         else:
             self._respond(404, {"message": f"no route {path}"})
+
+    def _device_thread(self):
+        """The dispatcher's `call`, so that a profiler capture opens and
+        closes its window on the thread that launches the batches'
+        kernels; None without micro-batching."""
+        d = self.server.owner.dispatcher
+        return d.call if d is not None else None
+
+    def _capture(self, path: str) -> None:
+        try:
+            if path == "/debug/profile/capture":
+                self._serve_profile_capture()
+            elif self.server.owner.dispatcher is None:
+                self._respond(409, {"message": "micro-batching is disabled: no "
+                                               "dispatcher to capture batches from"})
+            else:
+                self._serve_traces_capture()
+        except HttpError as e:
+            self._respond(e.status, {"message": e.message})
+        except Exception as e:  # noqa: BLE001 — the server keeps serving
+            log.exception("capture failed")
+            self._respond(500, {"message": str(e)})
 
     def _reload(self) -> None:
         try:
@@ -370,10 +509,17 @@ class _Handler(JsonHandler):
         if path in ("/online/pause", "/online/resume"):
             self._online(path)
             return
+        if path in ("/debug/traces/capture", "/debug/profile/capture"):
+            self._capture(path)
+            return
+        if path in NOT_PORTED_ROUTES:
+            self._respond(404, {"message": f"{path} is not ported yet to the PyTorch port"})
+            return
         if path != "/queries.json":
             self._respond(404, {"message": f"no route {path}"})
             return
         owner = self.server.owner
+        t0 = time.perf_counter()
         try:
             try:
                 obj = json.loads(raw.decode() or "null")
@@ -397,13 +543,19 @@ class _Handler(JsonHandler):
                 # filter without category data)
                 raise HttpError(400, str(e))
             custom_to = getattr(rt.query_serializer, "result_to_json", None)
-            self._respond(200, custom_to(prediction) if custom_to is not None
-                          else _to_jsonable(prediction))
+            body = (custom_to(prediction) if custom_to is not None
+                    else _to_jsonable(prediction))
+            owner.serve_hist.observe(time.perf_counter() - t0)
+            self._respond(200, body)
         except HttpError as e:
             self._respond(e.status, {"message": e.message})
         except Exception as e:  # noqa: BLE001 — the server keeps serving
             log.exception("query failed")
             self._respond(500, {"message": str(e)})
+
+
+# the JAX package's routes that the port does not serve yet
+NOT_PORTED_ROUTES = ("/debug/tsdb", "/debug/faults", "/alerts")
 
 
 class _Server(ThreadedServer):
@@ -452,6 +604,22 @@ class QueryServer(ServerProcess):
         self._batch_s = 0.0  # guarded-by: _count_lock
         self._launch_base = self._select_base = 0
         self.dispatcher: Optional[_BatchDispatcher] = None
+        self.metrics = server_registry()
+        self.serve_hist = self.metrics.histogram(
+            "serve_seconds", "end-to-end query serve time (parse to response JSON built)")
+        self.predict_hist = self.metrics.histogram(
+            "predict_seconds", "device-side predict time per query (model compute + fetch)")
+        self.batch_size_hist = self.metrics.histogram(
+            "batch_size", "queries per coalesced device batch",
+            buckets=BATCH_SIZE_BUCKETS, lower_bound=1)
+        self.batch_device_hist = self.metrics.histogram(
+            "batch_device_seconds", "device time per coalesced batch (dispatch to fetch)")
+        queue_wait = self.metrics.histogram(
+            "batch_queue_wait_seconds", "micro-batch queue wait, submit to device dispatch")
+        # the dispatcher's queue-wait span is the one source of this
+        # histogram: one bridge a span name on the process recorder, the
+        # newest server's winning
+        self._queue_wait_bridge = lambda sp, _h=queue_wait: _h.observe(sp.duration)
 
     @property
     def algorithm(self) -> Any:
@@ -466,6 +634,7 @@ class QueryServer(ServerProcess):
             _warmup(self.runtime.algorithms, self.runtime.models)
             self._warm = True
         self._launch_base, self._select_base = _launches(), _select_launches()
+        _spans.get_default_recorder().bridge("batch.queue_wait", self._queue_wait_bridge)
         if self.config.micro_batch:
             self.dispatcher = _BatchDispatcher(
                 self, self.config.batch_window_ms, self.config.max_batch,
@@ -480,10 +649,13 @@ class QueryServer(ServerProcess):
         if self.dispatcher is not None:
             self.dispatcher.stop()
             self.dispatcher = None
+        _spans.get_default_recorder().unbridge("batch.queue_wait", self._queue_wait_bridge)
 
     def _make_server(self) -> _Server:
         server = _Server((self.config.ip, self.config.port), _Handler)
         server.owner = self
+        server.metrics = self.metrics
+        server.metrics_label = "query"
         return server
 
     def predict_batch(self, queries: list, rt: EngineRuntime) -> list:
@@ -513,15 +685,18 @@ class QueryServer(ServerProcess):
             return self.dispatcher.submit(query, runtime)
         t0 = time.perf_counter()
         result = self.predict_batch([query], runtime)[0]
-        self.count_batch(time.perf_counter() - t0)
+        self.count_batch(time.perf_counter() - t0, 1)
         return result
 
-    def count_batch(self, seconds: float) -> None:
-        """Book one device batch and the host seconds its predict took
-        (staging, the kernel, the copy back, building results)."""
+    def count_batch(self, seconds: float, size: int) -> None:
+        """Book one device batch of `size` queries and the host seconds
+        its predict took (staging, the kernel, the copy back, building
+        results): the status counts and the batch histograms."""
         with self._count_lock:
             self._batches += 1
             self._batch_s += seconds
+        self.batch_device_hist.observe(seconds)
+        self.predict_hist.observe(seconds / max(1, size))
 
     def reload(self) -> None:
         """Swap in the variant's newest COMPLETED instance, built on the

@@ -65,6 +65,36 @@ def test_no_jax_import_in_source(path):
         assert top not in ("jax", "jaxlib", "predictionio_tpu"), (path, name)
 
 
+OBS_MODULES = ["predictionio_tpu_torch.obs", "predictionio_tpu_torch.obs.tracing",
+               "predictionio_tpu_torch.obs.spans", "predictionio_tpu_torch.obs.devprof",
+               "predictionio_tpu_torch.obs.cudamon", "predictionio_tpu_torch.obs.costs",
+               "predictionio_tpu_torch.obs.registry", "predictionio_tpu_torch.utils.http"]
+
+
+@pytest.mark.parametrize("module", OBS_MODULES)
+def test_observability_modules_load_neither_jax_nor_torch(module):
+    """The observability modules, their registries' text and the device
+    profiler's report load no jax, nothing of the JAX package and no
+    torch: the Event Server mounts them without torch."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "from predictionio_tpu_torch import obs\n"
+        "from predictionio_tpu_torch.obs import devprof\n"
+        "text = obs.server_registry().render()\n"
+        "rep = devprof.report()\n"
+        "assert 'cuda_memory_allocated_bytes 0' in text, text\n"
+        "assert rep['platform']['platform'] is None and rep['executables'] == []\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'torch', 'predictionio_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_resolve_device_defaults_to_the_card():
     from predictionio_tpu_torch.device import resolve_device
 

@@ -484,6 +484,22 @@ class TestSchedulerSubprocess:
         assert re.search(r"kernel launches: dense row 0, col 0; windowed partials 0, "
                          r"combine 0", text)  # the CPU runs the plain versions
 
+    def test_job_version_carries_the_device_profile(self, storage, tmp_path):
+        """The worker registers the child's device profile with the
+        version: the windowed train's loop, one call, on the CPU here."""
+        _seed_app(storage)
+        q = JobQueue(storage)
+        job = q.submit(VARIANT)
+        assert TrainScheduler(storage, _scheduler_config(tmp_path)).run_pending_once() == 1
+        version = ModelRegistry(storage).get(q.get(job.id).model_version)
+        prof = version.devprof
+        rows = {r["name"]: r for r in prof["executables"]}
+        assert rows["als.train_windowed"]["invocations"] == 1
+        assert rows["als.train_windowed"]["flops_total"] > 0
+        assert rows["als.train_windowed"]["device_seconds"] > 0
+        assert prof["platform"]["platform"] == "cpu"
+        assert set(prof) == {"platform", "executables", "totals", "padding"}
+
     def test_worker_crash_requeues_and_completes(self, storage, tmp_path):
         _seed_app(storage)
         q = JobQueue(storage)
