@@ -5,8 +5,9 @@ evaluation over the same storage, the Event Server feeding train →
 deploy, the online fold-in of live events into the served model, and
 the model lifecycle (train jobs, checkpoints, warm starts, versions),
 item properties with the similar-product and e-commerce templates, the
-Universal Recommender's train and serve path, and the classification
-and regression templates, on one CUDA card.
+Universal Recommender's train and serve path, the classification
+and regression templates, and the query server's canary rollout,
+deadlines, fault points and pipelined batching, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -406,7 +407,43 @@ Phases, in order; any failure prints what failed and exits non-zero:
             version's on the CPU. Then the host ms a
             ``recommend_serving`` call at B = 1 and 64 with the profiler
             on and off (200 calls each): the wrapper's cost.
-27. report  one ``{"kernels": [...]}`` line, then the device line last.
+27. rollout the query server's canary rollout and resilience at ML-20M
+            width, on phase 6's factors (A) and its plain-pass train's (B),
+            over storage under ``build/rollout/``: instances A, B, C (A's
+            factors) and D (B's) persisted as ``run_train`` persists one (no
+            train), versions registered, A promoted. (a) A's runtime built
+            on the card, served at continuous/4, continuous/1 and
+            windowed/1: the same 500 bodies from 16 clients each time, every
+            answer equal to the plain version's on the CPU, select launches
+            = launches = device batches; p50/p99/qps and devprof's device
+            ms a batch per mode. Then one server (defaults: continuous, depth
+            4; ``PIO_FAULTS_ADMIN=1``) and canaries with window 5 s, interval
+            0.25 s, min_requests 50, bake 4 s, each candidate built before 16
+            clients start querying back to back: (b) a shadow canary of C at
+            0.5 agrees on every one of >= 50 mirrors and is promoted, every
+            client answer 200 and A's; (c) ``dispatch.device@candidate:error:1.0``
+            through ``POST /debug/faults``, a canary of B at 0.1: rolled back,
+            B ``rolled_back``, every live-routed answer 200 and the live
+            factors', then the fault cleared; (d) D at 0.25, promoted:
+            candidate-routed answers D's, live-routed C's, D's after the
+            swap, and ``torch.cuda.memory_allocated()`` after a
+            ``gc.collect()`` back within half a runtime's staged bytes of the
+            pre-canary figure; (e) a canary with bake 600 s survives a
+            restart (same version, same ``started_wall``) and ``console
+            rollout abort`` ends it; (f) 100 queries with ``X-PIO-Deadline:
+            0``: 503 + ``Retry-After``, ``queries_shed_total{reason=
+            "deadline"}`` +100, no launch; a 50 ms deadline under a 200 ms
+            ``dispatch.device`` delay a 503 within 150 ms, the next query 200
+            and D's; (g) an Event Server in this process over the same
+            storage: 50 queries with feedback give 50 ``predict`` events of
+            ``pio_pr`` with their queries and answers, an event POST with
+            ``X-PIO-Deadline: 0`` a 503 and no row; (h) the phase's top-k
+            launches outside the builds = select launches = the device
+            batches the servers booked (live, candidate and shadow). Prints
+            each figure, the verdict times, the shed latency, the phase's
+            wall and card-busy share, each line with the card's name and
+            power limit.
+28. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -414,7 +451,9 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
+import gc
 import http.client
 import io
 import json
@@ -429,6 +468,7 @@ import sys
 import threading
 import time
 import traceback
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -438,14 +478,24 @@ try:
     from predictionio_tpu_torch import convert
     from predictionio_tpu_torch.core.base import RuntimeContext
     from predictionio_tpu_torch.data.event import Event
-    from predictionio_tpu_torch.data.storage.base import App, EventQuery
+    from predictionio_tpu_torch.data.api.server import EventServer, EventServerConfig
+    from predictionio_tpu_torch.data.storage.base import (
+        AccessKey,
+        App,
+        EngineInstance,
+        EventQuery,
+        Model,
+    )
     from predictionio_tpu_torch.controller import (
         EngineParams,
         EngineParamsGenerator,
         Evaluation,
         MetricEvaluator,
         deserialize_models,
+        resolve_engine,
+        serialize_models,
     )
+    from predictionio_tpu_torch.controller.params import params_to_json
     from predictionio_tpu_torch.data.storage.registry import Storage, StorageConfig
     from predictionio_tpu_torch.data.store.bimap import BiMap
     from predictionio_tpu_torch.data.store.event_store import EventStoreFacade
@@ -508,6 +558,8 @@ try:
         ServerApplyHost,
     )
     from predictionio_tpu_torch.deploy.registry import ModelRegistry
+    from predictionio_tpu_torch.deploy.rollout import sticky_candidate
+    from predictionio_tpu_torch.resilience import faults
     from predictionio_tpu_torch.deploy.scheduler import (
         JobQueue,
         SchedulerConfig,
@@ -528,6 +580,7 @@ try:
         QueryServer,
         QueryServerConfig,
         _to_jsonable,
+        build_runtime,
         latest_completed_runtime,
     )
 except ImportError as exc:  # run outside a checkout of the repository
@@ -1198,6 +1251,8 @@ def phase_train(report, shared):
         plain_s = time.perf_counter() - t0
     host_prep_s, densify_s = staged.host_prep_sec, staged.transfer_sec
     del staged
+    # the plain-pass train's factors: phase 27's second model
+    shared["plain_factors"] = dataclasses.replace(f, user_factors=puf, item_factors=pitf)
     cu, ci = _corr(f.user_factors, puf), _corr(f.item_factors, pitf)
     du = float(np.abs(f.user_factors - puf).max())
     di = float(np.abs(f.item_factors - pitf).max())
@@ -5879,6 +5934,599 @@ def phase_observe(report, shared):
     print(f"[observe] {smi} | phase {ob['phase_s']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 27: rollout
+# ---------------------------------------------------------------------------
+
+ROLLOUT_DIR = Path(__file__).resolve().parent / "build" / "rollout"
+ROLLOUT_ENGINE = "ml20m-rollout"
+ROLLOUT_FACTORY = "predictionio_tpu_torch.engines.recommendation.RecommendationEngine"
+ROLLOUT_FEEDBACK_APP = "ml20m-feedback"
+# the verdict knobs of every canary of the phase
+ROLLOUT_KNOBS = {"window_s": 5.0, "interval_s": 0.25, "min_requests": 50, "bake_s": 4.0}
+ROLLOUT_MODES = (("continuous", 4), ("continuous", 1), ("windowed", 1))
+ROLLOUT_SHADOW_FRACTION = 0.5
+ROLLOUT_FAULTED_FRACTION = 0.1
+ROLLOUT_HEALTHY_FRACTION = 0.25
+ROLLOUT_SHED, ROLLOUT_FEEDBACK = 100, 50
+ROLLOUT_SHED_DEADLINE_MS, ROLLOUT_DELAY_S, ROLLOUT_SHED_BAR_S = 50, 0.2, 0.15
+ROLLOUT_POLL_S = 0.05
+
+
+def _rollout_persist(storage, factors):
+    """A COMPLETED instance of the recommendation template at rank 10
+    holding `factors`, persisted as ``run_train`` persists one
+    (``make_serializable_models`` → ``serialize_models`` → the MODELDATA
+    blob); no train runs."""
+    engine = resolve_engine(RecommendationEngine)
+    variant = {"id": ROLLOUT_ENGINE, "engineFactory": ROLLOUT_FACTORY,
+               "datasource": {"params": {"app_name": ROLLOUT_ENGINE}},
+               "algorithms": [{"name": "als", "params": {"rank": RANK}}]}
+    ep = engine.params_from_variant_json(variant)
+
+    def stage(pair):
+        name, params = pair
+        return json.dumps({"name": name, "params": json.loads(params_to_json(params))},
+                          sort_keys=True)
+
+    now = datetime.datetime.now(datetime.timezone.utc)
+    inst = EngineInstance(
+        id=str(uuid.uuid4()), status="COMPLETED", start_time=now, end_time=now,
+        engine_id=ROLLOUT_ENGINE, engine_version="0", engine_variant=ROLLOUT_ENGINE,
+        engine_factory=ROLLOUT_FACTORY, data_source_params=stage(ep.data_source_params),
+        preparator_params=stage(ep.preparator_params),
+        algorithms_params=json.dumps([{"name": n, "params": json.loads(params_to_json(p))}
+                                      for n, p in ep.algorithm_params_list]),
+        serving_params=stage(ep.serving_params))
+    inst.id = storage.get_meta_data_engine_instances().insert(inst)
+    ctx = RuntimeContext(storage=storage, device="cpu")
+    persisted = engine.make_serializable_models(
+        ctx, [ALSModel(factors, device="cpu")], ep, inst.id)
+    storage.get_model_data_models().insert(Model(id=inst.id, models=serialize_models(persisted)))
+    return inst
+
+
+def _rollout_client(port, work, stop, out, lock):
+    """Back-to-back POSTs of (n, body bytes) from `work`, cycling until
+    `stop` is set (once through when it is None), on one keep-alive
+    connection; out gets (n, status, parsed body, t sent, t answered)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        i = 0
+        while True:
+            if stop is None and i == len(work):
+                break
+            if stop is not None and stop.is_set():
+                break
+            n, body = work[i % len(work)]
+            i += 1
+            t0 = time.perf_counter()
+            conn.request("POST", "/queries.json", body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            payload = json.loads(resp.read())
+            with lock:
+                out.append((n, resp.status, payload, t0, time.perf_counter()))
+    finally:
+        conn.close()
+
+
+def _rollout_load(port, bodies, stop=None):
+    """N_CLIENTS clients over `bodies` (each body once when `stop` is
+    None, else cycling until it is set); returns (results, the threads)."""
+    out, lock = [], threading.Lock()
+    work = list(enumerate(bodies))
+    threads = [threading.Thread(target=_rollout_client,
+                                args=(port, work[c::N_CLIENTS], stop, out, lock))
+               for c in range(N_CLIENTS)]
+    for t in threads:
+        t.start()
+    return out, threads
+
+
+def _joined(threads):
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "rollout clients hung")
+
+
+def _launch_counts():
+    return rec.LAUNCHES, rec.ROUTE_LAUNCHES["select"]
+
+
+class _Quiet:
+    """Counts the launches of a block that runs with no client traffic
+    (a runtime's build and its warmup ladder): they are no booked
+    device batch of a server."""
+
+    def __init__(self):
+        self.launches = self.selects = 0
+
+    @contextlib.contextmanager
+    def block(self):
+        a = _launch_counts()
+        yield
+        b = _launch_counts()
+        self.launches += b[0] - a[0]
+        self.selects += b[1] - a[1]
+
+
+def _rollout_start(port, quiet, version, **knobs):
+    """POST /rollout/start with no traffic; returns (status body, the
+    monotonic time it returned)."""
+    with quiet.block():
+        status, body = _call(port, "POST", "/rollout/start",
+                             {"version": version.id, **ROLLOUT_KNOBS, **knobs})
+    check(status == 200 and body["state"] == "canary",
+          f"rollout start of {version.id}: {status} {body}")
+    return body, time.monotonic()
+
+
+def _await_state(port, want, t_start, timeout=60.0):
+    """Poll /rollout/status until its state is `want`; returns (status,
+    seconds from the start to the poll that saw it)."""
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        status, st = _call(port, "GET", "/rollout/status")
+        if st["state"] == want:
+            return st, time.monotonic() - t_start
+        check(st["state"] == "canary", f"rollout ended {st['state']}, not {want}: "
+              f"{st.get('reason')}")
+        time.sleep(ROLLOUT_POLL_S)
+    raise PhaseError(f"rollout did not reach {want} within {timeout} s")
+
+
+def _staged_bytes(model):
+    sv = model.serving_state()
+    return sum(t.numel() * t.element_size() for t in vars(sv).values()
+               if isinstance(t, torch.Tensor))
+
+
+def _lat(results):
+    lat = sorted(r[4] - r[3] for r in results)
+    return 1e3 * lat[len(lat) // 2], 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+
+
+def phase_rollout(report, shared):
+    t_phase, p_phase = time.perf_counter(), devprof.snapshot()
+    smi = report["nvidia_smi"]
+    shutil.rmtree(ROLLOUT_DIR, ignore_errors=True)
+    (ROLLOUT_DIR / "store").mkdir(parents=True)
+    a_f, b_f = shared["factors"], shared["plain_factors"]  # phase 6: kernels, plain passes
+    rng = np.random.default_rng(SEED + 270)
+    queries = _queries(rng, N_USERS)
+    bodies = [json.dumps(q).encode() for q in queries]
+    cpu_alg = ALSAlgorithm(ALSAlgorithmParams(rank=RANK))
+    want = {}
+    for name, f in (("a", a_f), ("b", b_f)):
+        cpu_model = ALSModel(f, device="cpu")
+        want[name] = [_to_jsonable(cpu_alg.predict(cpu_model, Query(**q))) for q in queries]
+    ro = {"queries": len(queries), "clients": N_CLIENTS, "knobs": ROLLOUT_KNOBS}
+    quiet, booked = _Quiet(), {}
+    l0 = _launch_counts()
+    saved_admin = os.environ.get("PIO_FAULTS_ADMIN")
+    os.environ["PIO_FAULTS_ADMIN"] = "1"
+    try:
+        with _loop_storage(ROLLOUT_DIR / "store"):
+            storage = Storage()
+            registry = ModelRegistry(storage)
+            t0 = time.perf_counter()
+            inst = {n: _rollout_persist(storage, f)
+                    for n, f in (("A", a_f), ("B", b_f), ("C", a_f), ("D", b_f))}
+            ro["persist_s"] = time.perf_counter() - t0
+            va, vb, vc = (registry.register(inst[n]) for n in "ABC")
+            registry.promote(va.id)
+            with quiet.block():
+                t0 = time.perf_counter()
+                runtime_a = build_runtime(storage, inst["A"])
+                ro["build_s"] = time.perf_counter() - t0
+            check(str(runtime_a.models[0].device).startswith("cuda"),
+                  f"the live runtime is on {runtime_a.models[0].device}")
+            ro["modes"] = _rollout_modes(runtime_a, storage, bodies, want["a"], booked, smi)
+            del runtime_a
+            with quiet.block():
+                server = QueryServer(runtime=build_runtime(storage, inst["A"]),
+                                     storage=storage,
+                                     config=QueryServerConfig(ip="127.0.0.1", port=0))
+                port = server.start()
+            try:
+                ro["shadow"] = _rollout_shadow(server, port, quiet, vc, bodies, want, smi)
+                ro["faulted"] = _rollout_faulted(server, port, quiet, registry, vb, bodies,
+                                                 want, smi)
+                vd = registry.register(inst["D"])
+                ro["healthy"] = _rollout_healthy(server, port, quiet, registry, vd, bodies,
+                                                 want, smi)
+                ve = registry.register(inst["C"])
+                start, _ = _rollout_start(port, quiet, ve, bake_s=600.0,
+                                          fraction=ROLLOUT_FAULTED_FRACTION)
+            finally:
+                booked["main"] = server.status()["batches"]
+                server.stop()
+            check(server._thread is None, "server thread not joined")
+            del server
+            ro["restart"], restarted = _rollout_restart(storage, inst["D"], quiet, ve,
+                                                        start, registry, smi)
+            try:
+                port = restarted.port
+                ro["shed"] = _rollout_shed(restarted, port, want["b"], queries, smi)
+                ro["feedback"] = _rollout_feedback(storage, restarted, bodies, queries,
+                                                   inst["D"], booked, smi)
+            finally:
+                booked["restarted"] = restarted.status()["batches"]
+                restarted.stop()
+    finally:
+        if saved_admin is None:
+            os.environ.pop("PIO_FAULTS_ADMIN", None)
+        else:
+            os.environ["PIO_FAULTS_ADMIN"] = saved_admin
+        faults.clear()
+    l1 = _launch_counts()
+    launches = l1[0] - l0[0] - quiet.launches
+    selects = l1[1] - l0[1] - quiet.selects
+    batches = sum(booked.values())
+    check(launches > 0 and launches == selects == batches,
+          f"rollout: {launches} top-k launches, {selects} on the select route, outside "
+          f"the builds' {quiet.launches}; the servers booked {batches} device batches "
+          f"({booked})")
+    ro["launches"] = launches
+    ro["select_launches"] = selects
+    ro["booked_batches"] = booked
+    ro["build_launches"] = quiet.launches
+    wall = time.perf_counter() - t_phase
+    busy = devprof.snapshot().card_seconds - p_phase.card_seconds
+    ro["phase_s"], ro["device_s"] = wall, busy
+    report["rollout"] = ro
+    print(f"[rollout] {smi} | {launches} top-k launches = {selects} select launches = "
+          f"{batches} device batches booked by the servers (live, candidate and shadow; "
+          f"{quiet.launches} more in the builds' warmups); phase {wall:.1f} s, "
+          f"{busy:.3f} card s, busy {busy / wall:.1%}", flush=True)
+
+
+def _drained(server, idle_s=0.2, timeout=30.0):
+    """Wait until the server's dispatcher has had no group in flight and
+    nothing queued for `idle_s` (the last shadow mirrors included)."""
+    d, quiet_since = server.dispatcher, None
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        with d._active_cond:
+            busy = d._active or not d._queue.empty()
+        now = time.monotonic()
+        if busy:
+            quiet_since = None
+        elif quiet_since is None:
+            quiet_since = now
+        elif now - quiet_since >= idle_s:
+            return
+        time.sleep(0.01)
+    raise PhaseError("the dispatcher did not drain")
+
+
+def _rollout_modes(runtime, storage, bodies, want, booked, smi):
+    """(a): the same bodies under each batching mode, on one runtime."""
+    out = {}
+    for batching, depth in ROLLOUT_MODES:
+        name = f"{batching}/{depth}"
+        srv = QueryServer(runtime=runtime, storage=storage, config=QueryServerConfig(
+            ip="127.0.0.1", port=0, batching=batching, pipeline_depth=depth))
+        port = srv.start()
+        try:
+            a, prof0 = _launch_counts(), _exec_totals("als.recommend_serving")
+            t0 = time.perf_counter()
+            res, threads = _rollout_load(port, bodies)
+            _joined(threads)
+            wall = time.perf_counter() - t0
+            b, prof1 = _launch_counts(), _exec_totals("als.recommend_serving")
+            batches = srv.status()["batches"]
+        finally:
+            booked[name] = srv.status()["batches"]
+            srv.stop()
+        check(len(res) == len(bodies), f"{name}: {len(res)} of {len(bodies)} answered")
+        for n, status, body, _, _ in res:
+            check(status == 200 and body == want[n],
+                  f"{name}: query {n} answered {status}, not the CPU plain version's")
+        check(b[0] - a[0] == b[1] - a[1] == batches,
+              f"{name}: {b[0] - a[0]} launches, {b[1] - a[1]} select, {batches} batches")
+        calls = prof1[0] - prof0[0]
+        p50, p99 = _lat(res)
+        out[name] = {"p50_ms": p50, "p99_ms": p99, "qps": len(bodies) / wall,
+                     "wall_s": wall, "batches": batches, "mean_batch": len(bodies) / batches,
+                     "devprof_calls": calls,
+                     "devprof_ms_per_batch": 1e3 * (prof1[1] - prof0[1]) / max(calls, 1)}
+        o = out[name]
+        print(f"[rollout] {smi} | (a) {name}: {len(bodies)} queries from {N_CLIENTS} "
+              f"clients, all equal to the CPU plain version: p50 {p50:.3f} ms, p99 "
+              f"{p99:.3f} ms, {o['qps']:.1f} qps, {batches} batches (mean "
+              f"{o['mean_batch']:.2f}) = launches = select launches; devprof "
+              f"{o['devprof_ms_per_batch']:.4f} device ms a batch over {calls} calls",
+              flush=True)
+    ratio = (out["continuous/4"]["devprof_ms_per_batch"]
+             / out["continuous/1"]["devprof_ms_per_batch"])
+    out["devprof_depth4_over_depth1"] = ratio
+    print(f"[rollout] {smi} | (a) devprof device ms a batch, depth 4 over depth 1: "
+          f"{ratio:.3f}", flush=True)
+    return out
+
+
+def _check_answers(results, fraction, bodies, live, cand, what, t_switch=None,
+                   faulted=False):
+    """Each answer against the plain answers of the runtime its body
+    routes to: candidate-routed ones `cand`'s (None: none routes there,
+    as in shadow mode), live-routed ones `live`'s; once `t_switch` passed
+    (a promote seen), live-routed answers may only be `cand`'s. With
+    `faulted`, a candidate-routed query may also answer the injected
+    fault's 500 or, routed after the rollback detached the candidate,
+    live's (one in flight across the detach keeps the runtime it was read
+    against, and answers the candidate's)."""
+    routed = {"live": 0, "candidate": 0, "injected": 0}
+    for n, status, body, t_sent, _ in results:
+        to_cand = cand is not None and sticky_candidate(bodies[n], fraction)
+        if to_cand and faulted and status == 500:
+            check("injected error fault" in body.get("message", ""),
+                  f"{what}: query {n}: 500 {body}")
+            routed["injected"] += 1
+            continue
+        check(status == 200, f"{what}: query {n} answered {status} {body}")
+        if to_cand:
+            check(body == cand[n] or (faulted and body == live[n]),
+                  f"{what}: candidate-routed query {n} is not the candidate's plain answer")
+            routed["candidate"] += 1
+        elif t_switch is not None and t_sent > t_switch:
+            check(body == cand[n], f"{what}: query {n} after the promote is not the "
+                  "new live runtime's plain answer")
+            routed["live"] += 1
+        else:
+            check(body == live[n] or (t_switch is not None and body == cand[n]),
+                  f"{what}: live-routed query {n} is not the live runtime's plain answer")
+            routed["live"] += 1
+    return routed
+
+
+def _rollout_shadow(server, port, quiet, vc, bodies, want, smi):
+    """(b): a shadow canary of C (A's factors) agrees on every mirror and
+    is promoted; every client answer is A's."""
+    st0, t_start = _rollout_start(port, quiet, vc, shadow=True,
+                                  fraction=ROLLOUT_SHADOW_FRACTION)
+    check(str(server.candidate.models[0].device).startswith("cuda"),
+          f"the candidate is on {server.candidate.models[0].device}")
+    stop = threading.Event()
+    res, threads = _rollout_load(port, bodies, stop)
+    try:
+        st, took = _await_state(port, "promoted", t_start)
+    finally:
+        stop.set()
+        _joined(threads)
+    _drained(server)
+    _check_answers(res, ROLLOUT_SHADOW_FRACTION, bodies, want["a"], None, "(b) shadow")
+    cand = st["candidate"]
+    check(cand.get("shadow_count", 0) >= ROLLOUT_KNOBS["min_requests"]
+          and cand.get("agreement") == 1.0,
+          f"(b) shadow: agreement {cand.get('agreement')} over {cand.get('shadow_count')} "
+          "mirrors")
+    check(ModelRegistry(server.storage).get(vc.id).status == "live", "(b) C not live")
+    p50, p99 = _lat(res)
+    out = {"start_to_promote_s": took, "mirrors": cand["shadow_count"],
+           "agreement": cand["agreement"], "answers": len(res), "p50_ms": p50,
+           "p99_ms": p99, "reason": st["reason"]}
+    print(f"[rollout] {smi} | (b) shadow canary of C at {ROLLOUT_SHADOW_FRACTION:g}: "
+          f"agreement {cand['agreement']} over {cand['shadow_count']} mirrors, promoted "
+          f"{took:.2f} s after the start ({st['reason']}); {len(res)} client answers all "
+          f"200 and A's, p50 {p50:.3f} ms p99 {p99:.3f} ms", flush=True)
+    return out
+
+
+def _rollout_faulted(server, port, quiet, registry, vb, bodies, want, smi):
+    """(c): B with dispatch.device@candidate failing: rolled back, live
+    answers all 200 and the live factors' plain answers."""
+    status, body = _call(port, "POST", "/debug/faults",
+                         {"set": "dispatch.device@candidate:error:1.0"})
+    check(status == 200 and body["faults"][0]["scope"] == "candidate",
+          f"(c) POST /debug/faults: {status} {body}")
+    st0, t_start = _rollout_start(port, quiet, vb, fraction=ROLLOUT_FAULTED_FRACTION)
+    stop = threading.Event()
+    res, threads = _rollout_load(port, bodies, stop)
+    try:
+        st, took = _await_state(port, "rolled_back", t_start)
+        time.sleep(0.3)  # traffic across the detach
+    finally:
+        stop.set()
+        _joined(threads)
+    _drained(server)
+    routed = _check_answers(res, ROLLOUT_FAULTED_FRACTION, bodies, want["a"], want["b"],
+                            "(c) faulted", faulted=True)
+    check(routed["injected"] >= ROLLOUT_KNOBS["min_requests"] and "error-rate" in st["reason"],
+          f"(c) faulted: {routed} ({st['reason']})")
+    check(registry.get(vb.id).status == "rolled_back",
+          f"(c) B is {registry.get(vb.id).status}, not rolled_back")
+    status, body = _call(port, "POST", "/debug/faults", {"clear": True})
+    check(status == 200 and body["faults"] == [], f"(c) fault clear: {status} {body}")
+    out = {"start_to_rollback_s": took, "reason": st["reason"], **routed,
+           "candidate_window": st["candidate"]}
+    print(f"[rollout] {smi} | (c) canary of B with dispatch.device@candidate:error:1.0 at "
+          f"{ROLLOUT_FAULTED_FRACTION:g}: rolled back {took:.2f} s after the start "
+          f"({st['reason']}); {routed['live']} live-routed answers all 200 and the live "
+          f"factors', {routed['injected']} candidate-routed 500s, {routed['candidate']} "
+          "candidate-routed 200s (in flight across the detach, or after it)", flush=True)
+    return out
+
+
+def _rollout_healthy(server, port, quiet, registry, vd, bodies, want, smi):
+    """(d): B's factors as D at 0.25, promoted; memory back after it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    staged = _staged_bytes(server.runtime.models[0])
+    st0, t_start = _rollout_start(port, quiet, vd, fraction=ROLLOUT_HEALTHY_FRACTION)
+    check(str(server.candidate.models[0].device).startswith("cuda"),
+          f"the candidate is on {server.candidate.models[0].device}")
+    stop = threading.Event()
+    res, threads = _rollout_load(port, bodies, stop)
+    try:
+        st, took = _await_state(port, "promoted", t_start)
+        t_seen = time.perf_counter()
+        time.sleep(0.3)  # traffic across the swap
+    finally:
+        stop.set()
+        _joined(threads)
+    _drained(server)
+    routed = _check_answers(res, ROLLOUT_HEALTHY_FRACTION, bodies, want["a"], want["b"],
+                            "(d) healthy", t_switch=t_seen)
+    check(registry.get(vd.id).status == "live", f"(d) D is {registry.get(vd.id).status}")
+    check(server.runtime.instance.id == vd.instance_id and server.candidate is None,
+          "(d) the server does not serve D")
+    after_res, threads = _rollout_load(port, bodies[:100])
+    _joined(threads)
+    _drained(server)
+    for n, status, body, _, _ in after_res:
+        check(status == 200 and body == want["b"][n], f"(d) after the promote, query {n}")
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    check(after - before < staged / 2,
+          f"(d) allocated {after} B after the promote, {before} B before the canary: "
+          f"one runtime stages {staged} B, the old runtime leaked")
+    out = {"start_to_promote_s": took, "reason": st["reason"], **routed,
+           "allocated_before": before, "allocated_after": after, "staged_bytes": staged}
+    print(f"[rollout] {smi} | (d) canary of D (B's factors) at {ROLLOUT_HEALTHY_FRACTION:g}: "
+          f"promoted {took:.2f} s after the start ({st['reason']}); {routed['candidate']} "
+          f"candidate-routed answers D's, {routed['live']} live-routed C's (D's after the "
+          f"swap); cuda allocated {before} B before, {after} B after (a runtime stages "
+          f"{staged} B)", flush=True)
+    return out
+
+
+def _rollout_restart(storage, inst_live, quiet, ve, start, registry, smi):
+    """(e): the canary of E survives a restart, then console aborts it."""
+    with quiet.block():
+        t0 = time.perf_counter()
+        srv = QueryServer(runtime=build_runtime(storage, inst_live), storage=storage,
+                          config=QueryServerConfig(ip="127.0.0.1", port=0))
+        port = srv.start()  # re-adopts the canary: builds E
+        restart_s = time.perf_counter() - t0
+    status, st = _call(port, "GET", "/rollout/status")
+    check(st["state"] == "canary" and st["version"]["id"] == ve.id
+          and st["started_wall"] == start["started_wall"],
+          f"(e) after the restart: {st['state']} {st['version']['id']} started "
+          f"{st.get('started_wall')}, not canary {ve.id} started {start['started_wall']}")
+    check(str(srv.candidate.models[0].device).startswith("cuda"),
+          f"the re-adopted candidate is on {srv.candidate.models[0].device}")
+    rc, text = _console_out(["rollout", "abort", "--url", f"http://127.0.0.1:{port}"])
+    check(rc == 0 and "[INFO] rollout state: aborted" in text, f"(e) console abort: {text}")
+    check(registry.get(ve.id).status == "rolled_back" and srv.candidate is None,
+          "(e) the abort left the candidate")
+    out = {"restart_s": restart_s, "started_wall": st["started_wall"],
+           "elapsed_at_restart_s": st["elapsed_s"]}
+    print(f"[rollout] {smi} | (e) restart mid-canary: the new server re-adopted E in "
+          f"canary, started_wall {st['started_wall']:.3f} as before ({st['elapsed_s']} s "
+          f"into a 600 s bake), build + start {restart_s:.2f} s; console rollout abort: "
+          "aborted", flush=True)
+    return out, srv
+
+
+def _rollout_shed(srv, port, want, queries, smi):
+    """(f): expired deadlines shed before the device; a 50 ms budget
+    under a 200 ms device delay is a 503 within 150 ms."""
+    def shed_count():
+        return _prometheus(_get(port, "/metrics")[1]).get(
+            ("queries_shed_total", '{reason="deadline"}'), 0.0)
+
+    c0, a = shed_count(), _launch_counts()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        for n in range(ROLLOUT_SHED):
+            conn.request("POST", "/queries.json", body=json.dumps(queries[n]),
+                         headers={"Content-Type": "application/json",
+                                  "X-PIO-Deadline": "0"})
+            resp = conn.getresponse()
+            resp.read()
+            check(resp.status == 503 and resp.getheader("Retry-After") == "1",
+                  f"(f) deadline 0: {resp.status}")
+    finally:
+        conn.close()
+    c1, b = shed_count(), _launch_counts()
+    check(c1 - c0 == ROLLOUT_SHED and b == a,
+          f"(f) shed counter +{c1 - c0}, launches {a} -> {b}")
+    status, body = _call(port, "POST", "/debug/faults",
+                         {"set": f"dispatch.device:delay:1.0:{ROLLOUT_DELAY_S}"})
+    check(status == 200, f"(f) delay fault: {status} {body}")
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/queries.json", body=json.dumps(queries[0]),
+                     headers={"Content-Type": "application/json",
+                              "X-PIO-Deadline": str(ROLLOUT_SHED_DEADLINE_MS)})
+        resp = conn.getresponse()
+        resp.read()
+        shed_s = time.perf_counter() - t0
+        check(resp.status == 503 and shed_s <= ROLLOUT_SHED_BAR_S,
+              f"(f) {ROLLOUT_SHED_DEADLINE_MS} ms deadline under a {ROLLOUT_DELAY_S} s delay: "
+              f"{resp.status} after {shed_s:.3f} s")
+        conn.request("POST", "/queries.json", body=json.dumps(queries[1]),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        check(resp.status == 200 and body == want[1], f"(f) the next query: {resp.status}")
+    finally:
+        conn.close()
+    status, body = _call(port, "POST", "/debug/faults", {"clear": True})
+    check(status == 200 and body["faults"] == [], "(f) fault clear")
+    out = {"shed": ROLLOUT_SHED, "shed_latency_s": shed_s}
+    print(f"[rollout] {smi} | (f) {ROLLOUT_SHED} queries with X-PIO-Deadline 0: 503 + "
+          f"Retry-After each, queries_shed_total{{reason=\"deadline\"}} +{c1 - c0:g}, no "
+          f"launch; a {ROLLOUT_SHED_DEADLINE_MS} ms deadline under a {ROLLOUT_DELAY_S:g} s "
+          f"dispatch.device delay: 503 in {1e3 * shed_s:.1f} ms; the next query 200",
+          flush=True)
+    return out
+
+
+def _rollout_feedback(storage, live, bodies, queries, inst_live, booked, smi):
+    """(g): feedback events in the port's Event Server over the same
+    storage; an expired event POST is shed and stores nothing."""
+    app_id = storage.get_meta_data_apps().insert(App(id=0, name=ROLLOUT_FEEDBACK_APP))
+    storage.get_events().init_app(app_id)
+    key = storage.get_meta_data_access_keys().insert(AccessKey(key="", app_id=app_id))
+    es = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0))
+    es_port = es.start()
+    try:
+        fb = QueryServer(runtime=live.runtime, storage=storage, config=QueryServerConfig(
+            ip="127.0.0.1", port=0, feedback=True,
+            event_server_url=f"http://127.0.0.1:{es_port}", access_key=key))
+        port = fb.start()
+        try:
+            res, threads = _rollout_load(port, bodies[:ROLLOUT_FEEDBACK])
+            _joined(threads)
+        finally:
+            booked["feedback"] = fb.status()["batches"]
+            fb.stop()  # joins the feedback POSTs
+        events = list(storage.get_events().find(EventQuery(app_id=app_id)))
+        conn = http.client.HTTPConnection("127.0.0.1", es_port, timeout=60)
+        try:
+            conn.request("POST", f"/events.json?accessKey={key}", body=json.dumps(
+                {"event": "view", "entityType": "user", "entityId": "u1"}),
+                headers={"Content-Type": "application/json", "X-PIO-Deadline": "0"})
+            resp = conn.getresponse()
+            resp.read()
+            shed = resp.status
+        finally:
+            conn.close()
+        after = list(storage.get_events().find(EventQuery(app_id=app_id)))
+    finally:
+        es.stop()
+    got = sorted(json.dumps([e.event, e.entity_type, e.entity_id, e.pr_id, e.properties],
+                            sort_keys=True) for e in events)
+    wanted = sorted(json.dumps(["predict", "pio_pr", inst_live.id, inst_live.id,
+                                {"query": queries[n], "prediction": body}], sort_keys=True)
+                    for n, status, body, _, _ in res if status == 200)
+    check(len(res) == ROLLOUT_FEEDBACK and len(wanted) == ROLLOUT_FEEDBACK and got == wanted,
+          f"(g) {len(events)} feedback events for {len(res)} answers")
+    check(shed == 503 and len(after) == len(events),
+          f"(g) the expired event POST: {shed}, {len(after) - len(events)} rows")
+    print(f"[rollout] {smi} | (g) {ROLLOUT_FEEDBACK} queries with feedback: "
+          f"{len(events)} predict events of pio_pr in the Event Server, each with its "
+          f"query and answer; an event POST with X-PIO-Deadline 0: {shed}, no row",
+          flush=True)
+    return {"events": len(events), "shed_status": shed}
+
+
 def main() -> int:
     if _IMPORT_ERROR is not None:
         print(f"chip_smoke: the port is not importable here ({_IMPORT_ERROR}); "
@@ -5909,7 +6557,7 @@ def main() -> int:
                         ("ur sweep", phase_ur_sweep), ("ur data", phase_ur_data),
                         ("ur train", phase_ur_train), ("ur serve", phase_ur_serve),
                         ("ur times", phase_ur_times), ("classify", phase_classify),
-                        ("observe", phase_observe)):
+                        ("observe", phase_observe), ("rollout", phase_rollout)):
         p0, t0 = devprof.snapshot(), time.perf_counter()
         try:
             phase(report, shared)
@@ -5940,7 +6588,8 @@ def main() -> int:
                                  "lifecycle": lc["serve_topk"],
                                  "online": report["online"]["launches"]["topk"],
                                  "similar": sim["serve_topk"],
-                                 "templates": tml[1]["serve_topk"]},
+                                 "templates": tml[1]["serve_topk"],
+                                 "rollout": report["rollout"]["launches"]},
         **{which: {"train": report["train"]["launches"][which],
                    "loop": report["loop"]["launches"][which],
                    "eval dense": evd[which], "lifecycle jobs": lc[which],

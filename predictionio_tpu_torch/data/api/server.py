@@ -16,6 +16,8 @@ data/.../api/EventServer.scala:52-640). Routes:
   GET    /metrics                → Prometheus text (requests, events)
   GET    /debug/traces           → retained request traces
   GET    /debug/profile          → the device profile (empty here)
+  GET/POST /debug/faults         → the fault specs; POST installs or clears
+                                   them (403 without PIO_FAULTS_ADMIN=1)
 
 Auth (reference withAccessKey, EventServer.scala:90-128): the
 ``accessKey`` query parameter or the HTTP Basic user name; the
@@ -24,10 +26,18 @@ or unknown key or channel is a 401, an event name the key does not
 allow a 403. The server makes no device call. Every request is
 counted, traced and access-logged by ``utils/http.py``'s middleware
 into the server's registry (``server_registry``, label ``event``),
-with ``events_ingested_total``. The JAX package's WAL spill (it serves
-only backends that can be unreachable, none of them ported), deadline
-shedding, ``/segments/*``, the other ``/debug/*`` routes and log
-shipping are not ported: those routes answer 404 saying so.
+with ``events_ingested_total``.
+
+An event POST (``/events.json``, ``/batch/events.json``, a webhook) whose
+``X-PIO-Deadline`` already expired is shed before auth and storage: 503
+with ``Retry-After`` and ``events_shed_total{reason="deadline"}``. The
+``event.insert`` fault point fires before each storage write; where the
+JAX package spills a failed write into its write-ahead log and answers
+202, the port has no WAL and answers 503 (per event in a batch), so an
+expired POST is always shed. The WAL spill (it serves only backends that
+can be unreachable, none of them ported), ``/segments/*``, the other
+``/debug/*`` routes and log shipping are not ported: those routes answer
+404 saying so.
 """
 
 from __future__ import annotations
@@ -50,6 +60,8 @@ from predictionio_tpu_torch.data.event import Event, EventValidation, Validation
 from predictionio_tpu_torch.data.storage.base import EventQuery
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.obs import server_registry
+from predictionio_tpu_torch.resilience import deadline as _deadline
+from predictionio_tpu_torch.resilience import faults as _faults
 from predictionio_tpu_torch.utils.http import (
     HttpError,
     JsonHandler,
@@ -143,10 +155,36 @@ class _Handler(JsonHandler):
 
     def _insert_event(self, auth: AuthData, obj: dict) -> None:
         event = self._admit_event(auth, obj)
+        try:
+            _faults.fire("event.insert")
+        except _faults.FaultInjected as e:
+            # no write-ahead log to spill into: the event is not stored
+            raise HttpError(503, f"storage unavailable; event not stored ({e})")
         event_id = self.server.storage.get_events().insert(
             event, auth.app_id, auth.channel_id)
         self._after_insert(auth, obj, event)
         self._respond(201, {"eventId": event_id})
+
+    def _maybe_shed_ingest(self, method: str, path: str) -> bool:
+        """Shed an event POST whose X-PIO-Deadline already expired: 503 +
+        Retry-After before auth, validation and storage are touched. The
+        JAX package keeps such a POST while its WAL holds spilled events;
+        the port has no WAL, so it always sheds."""
+        if method != "POST" or not (
+            path in ("/events.json", "/batch/events.json")
+            or path.startswith("/webhooks/")
+        ):
+            return False
+        if not _deadline.expired():
+            return False
+        self.server.metrics.counter(
+            "events_shed_total",
+            "ingest POSTs refused before storage work, by reason",
+            ("reason",),  # label-bound: literal shed-reason set
+        ).inc(reason="deadline")
+        self._respond(503, {"message": "deadline expired; event shed"},
+                      headers={"Retry-After": "1"})
+        return True
 
     # -- routes ------------------------------------------------------------
     def _route(self, method: str) -> None:
@@ -154,6 +192,8 @@ class _Handler(JsonHandler):
         url = urlsplit(self.path)
         query = dict(parse_qsl(url.query))
         path = url.path.rstrip("/") or "/"
+        if self._maybe_shed_ingest(method, path):
+            return
         try:
             if path == "/" and method == "GET":
                 self._respond(200, {"status": "alive"})
@@ -192,6 +232,10 @@ class _Handler(JsonHandler):
                 self._serve_debug_traces()
             elif path == "/debug/profile" and method == "GET":
                 self._serve_debug_profile()
+            elif path == "/debug/faults" and method == "GET":
+                self._serve_debug_faults()
+            elif path == "/debug/faults" and method == "POST":
+                self._serve_debug_faults_set()
             elif path.startswith(("/debug/", "/segments/")):
                 raise HttpError(404, f"{path} is not ported yet to the PyTorch port")
             else:
@@ -223,6 +267,7 @@ class _Handler(JsonHandler):
                 results[pos] = {"status": e.status, "message": e.message}
         if admitted:
             try:
+                _faults.fire("event.insert")
                 ids = self.server.storage.get_events().insert_batch(
                     [e for _, _, e in admitted], auth.app_id, auth.channel_id)
             except Exception as e:

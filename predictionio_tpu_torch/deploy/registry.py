@@ -41,8 +41,8 @@ LIFECYCLE_APP_ID = 2_000_000_000
 
 VERSION_ENTITY = "pio_model_version"
 
-# the JAX package's canary rollout records; not written here, but
-# compacted with the versions
+# the canary rollout's state records, one per rollout scope
+# (deploy/rollout.py), compacted with the versions
 ROLLOUT_ENTITY = "pio_rollout"
 
 VERSION_STATUSES = ("trained", "canary", "live", "rolled_back", "archived")

@@ -18,8 +18,10 @@ assigns them, so both packages give a new id the same row. Factor
 matrices grow in `grow_chunk`-row chunks. The published model is a new
 object; its staged serving state is the predecessor's with the dirty
 rows written (``ALSModel.adopt_serving``), so no factor matrix is
-restaged. The fault-injection seam and the sharded publish are not
-ported.
+restaged. The ``online.fold`` fault point fires after each row solve:
+``error`` fails the tick (the consumer retries it from its cursor) and
+``corrupt`` scrambles the solved rows, the injected drift the drift
+guard must catch. The sharded publish is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
 import numpy as np
+
+from predictionio_tpu_torch.resilience import faults as _faults
 
 log = logging.getLogger(__name__)
 
@@ -220,6 +224,8 @@ class ALSFoldIn:
             rows.append(user_vocab[uid])
             edge_lists.append(edges)
         solved = als.fold_in_rows(itf, edge_lists, params, device=model.device)
+        if _faults.fire("online.fold", corruptable=True) == "corrupt":
+            solved = solved * 40.0 + 7.0
         uf[np.asarray(rows, np.int64)] = solved
         stats.users_folded = len(rows)
 
@@ -273,6 +279,8 @@ class ALSFoldIn:
         item_rows = [item_vocab[iid] for iid in solve_items]
         item_edge_lists = [list(edges[iid].items()) for iid in solve_items]
         isolved = als.fold_in_rows(uf, item_edge_lists, params, device=device)
+        if _faults.fire("online.fold", corruptable=True) == "corrupt":
+            isolved = isolved * 40.0 + 7.0
         itf[np.asarray(item_rows, np.int64)] = isolved
         stats.items_folded = len(item_rows)
         return item_rows, isolved

@@ -21,7 +21,8 @@
     python -m predictionio_tpu_torch.tools.console train --engine-json F \\
         [--engine-version V] [--device cpu]
     python -m predictionio_tpu_torch.tools.console deploy --engine-json F \\
-        [--engine-version V] [--ip ADDR] [--port N] [--device cpu]
+        [--engine-version V] [--ip ADDR] [--port N] [--device cpu] \\
+        [--feedback --event-server-url URL --access-key KEY]
 
     python -m predictionio_tpu_torch.tools.console eval run EVALUATION \\
         [GENERATOR] [--device cpu]
@@ -48,6 +49,15 @@
         [TRACE] [--url http://localhost:8000] [--limit N] [--output F]
     python -m predictionio_tpu_torch.tools.console profile list|show|capture \
         [NAME] [--url http://localhost:8000] [--dir D] [--seconds S]
+    python -m predictionio_tpu_torch.tools.console rollout start \
+        [--url http://localhost:8000] [--version V] [--fraction F] \
+        [--bake-s S] [--min-requests N] [--shadow]
+    python -m predictionio_tpu_torch.tools.console rollout status|abort \
+        [--url http://localhost:8000] [--reason R]
+    python -m predictionio_tpu_torch.tools.console faults list|clear [POINT] \
+        [--url URL]
+    python -m predictionio_tpu_torch.tools.console faults set SPEC \
+        [--seed N] [--url URL]
 
     python -m predictionio_tpu_torch.tools.console train --ratings FILE \\
         --out blob.npz [--rank 10] [--iterations 20] [--lambda 0.01] \\
@@ -88,7 +98,15 @@ process's; ``profile list|show`` print a server's device profile
 (``/debug/profile``) or this process's, and ``profile capture`` asks
 the server for a ``torch.profiler`` window (``POST
 /debug/profile/capture``; the server needs ``PIO_PROFILE_CAPTURE_DIR``)
-or, with ``--dir``, opens one in this process. Not ported, and refused with
+or, with ``--dir``, opens one in this process. ``rollout start|status|abort``
+drive a canary on a running query server (``--url``): start one of a
+registered version (the newest ``trained`` one by default), print its
+state and verdict windows, or abort it. ``faults list|set|clear`` read
+and change the fault-injection specs of this process, or of a running
+server with ``--url`` (its ``POST /debug/faults`` needs
+``PIO_FAULTS_ADMIN=1`` on the server). ``deploy --feedback`` posts each
+answer to the Event Server at ``--event-server-url`` with
+``--access-key`` as a ``predict`` event. Not ported, and refused with
 exit code 1: the fleet evaluation (an EvalSpec file as the target,
 ``eval list/show/status/gc``), ``tune``, ``eventserver --log-url`` and
 the parquet format of ``import`` and ``export``. An operator error (an
@@ -209,6 +227,10 @@ def _parser() -> argparse.ArgumentParser:
                      help="with --model: the serving dtype (f32, bf16 or int8)")
     dep.add_argument("--device", default=None,
                      help="torch device (default: the first CUDA device)")
+    dep.add_argument("--feedback", action="store_true",
+                     help="post each answer to the Event Server as a predict event")
+    dep.add_argument("--event-server-url", help="with --feedback: the Event Server")
+    dep.add_argument("--access-key", help="with --feedback: the app's access key")
 
     ev = sub.add_parser("eval", help="run an evaluation").add_subparsers(
         dest="eval_cmd", required=True)
@@ -316,6 +338,44 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--url", help="server base URL")
     s.add_argument("--dir", help="local output directory (no --url)")
     s.add_argument("--seconds", type=float, default=2.0)
+
+    ro = sub.add_parser("rollout", help="canary rollout on a running query "
+                        "server").add_subparsers(dest="rollout_action", required=True)
+    s = ro.add_parser("start", help="start a canary")
+    s.add_argument("--url", default="http://localhost:8000",
+                   help="query server base URL")
+    s.add_argument("--version", default=None,
+                   help="model version id (default: newest trained)")
+    s.add_argument("--fraction", type=float, default=None,
+                   help="candidate traffic share (0..1]")
+    s.add_argument("--bake-s", dest="bake_s", type=float, default=None,
+                   help="healthy seconds before auto-promote")
+    s.add_argument("--min-requests", dest="min_requests", type=int, default=None,
+                   help="candidate samples before judging")
+    s.add_argument("--shadow", action="store_true",
+                   help="mirror traffic instead of splitting it")
+    ro.add_parser("status", help="rollout status").add_argument(
+        "--url", default="http://localhost:8000")
+    s = ro.add_parser("abort", help="abort the active canary")
+    s.add_argument("--url", default="http://localhost:8000")
+    s.add_argument("--reason", default=None)
+
+    fa = sub.add_parser("faults", help="fault-injection registry: list/set/clear "
+                        "named fault points (local, or a running server via "
+                        "--url, which needs PIO_FAULTS_ADMIN=1)").add_subparsers(
+        dest="faults_action", required=True)
+    fa.add_parser("list", help="show active fault specs").add_argument(
+        "--url", help="server base URL, e.g. http://127.0.0.1:8000")
+    s = fa.add_parser("set", help="install fault specs: point:mode:prob[:param][,...]")
+    s.add_argument("spec", help="e.g. event.insert:error:0.2 or "
+                                "dispatch.device:delay:1.0:0.05")
+    s.add_argument("--seed", type=int, default=None,
+                   help="deterministic RNG seed for the fault points")
+    s.add_argument("--url", help="server base URL")
+    s = fa.add_parser("clear", help="clear one fault point, or all")
+    s.add_argument("point", nargs="?", default=None,
+                   help="fault point to clear (default: all)")
+    s.add_argument("--url", help="server base URL")
     return ap
 
 
@@ -519,7 +579,10 @@ def build_server(args: argparse.Namespace):
     if args.serve_dtype not in SERVE_DTYPES:
         raise SystemExit(f"[ERROR] --serve-dtype {args.serve_dtype!r}: "
                          f"one of {', '.join(SERVE_DTYPES)}")
-    config = QueryServerConfig(ip=args.ip, port=args.port)
+    config = QueryServerConfig(
+        ip=args.ip, port=args.port, feedback=args.feedback,
+        event_server_url=args.event_server_url, access_key=args.access_key,
+    )
     if args.engine_json is not None:
         variant = load_variant(str(args.engine_json))
         runtime = latest_completed_runtime(
@@ -652,6 +715,109 @@ def online(args: argparse.Namespace) -> int:
           f"(threshold {st.get('drift_threshold')})")
     for k, v in (st.get("counters") or {}).items():
         print(f"[INFO]   {k}: {v}")
+    return 0
+
+
+def rollout_cmd(args: argparse.Namespace) -> int:
+    """`rollout start|status|abort`: a canary on a running query server
+    (--url)."""
+    def show(st: dict) -> None:
+        print(f"[INFO] rollout state: {st.get('state')}")
+        if st.get("state") == "none":
+            return
+        v, cfg = st.get("version") or {}, st.get("config") or {}
+        print(f"[INFO]   version: {v.get('id')} "
+              f"({v.get('engine_id')}/{v.get('engine_variant')})")
+        print(f"[INFO]   traffic: {cfg.get('fraction', 0) * 100:.0f}%"
+              + (" shadow" if cfg.get("shadow") else ""))
+        if st.get("reason"):
+            print(f"[INFO]   verdict: {st.get('last_action')} — {st['reason']}")
+        for variant in ("live", "candidate"):
+            w = st.get(variant) or {}
+            agreement = (f" agreement={w['agreement']:.3f}"
+                         if "agreement" in w else "")
+            print(f"[INFO]   {variant}: n={w.get('count', 0)} "
+                  f"err={w.get('error_rate', 0):.3f} "
+                  f"p99={w.get('p99_ms', 0):.1f}ms{agreement}")
+
+    try:
+        if args.rollout_action == "start":
+            body: dict = {}
+            if args.version:
+                body["version"] = args.version
+            for k in ("fraction", "bake_s", "min_requests"):
+                if getattr(args, k) is not None:
+                    body[k] = getattr(args, k)
+            if args.shadow:
+                body["shadow"] = True
+            show(_server_call(args.url, "/rollout/start", body))
+        elif args.rollout_action == "abort":
+            show(_server_call(args.url, "/rollout/abort",
+                              {"reason": args.reason or "operator abort"}))
+        else:
+            show(_server_call(args.url, "/rollout/status"))
+    except CommandError as e:
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def faults_cmd(args: argparse.Namespace) -> int:
+    """`faults list|set|clear`: the fault-injection registry of this
+    process, or of a running server (--url; its POST /debug/faults needs
+    PIO_FAULTS_ADMIN=1 on the server)."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from predictionio_tpu_torch.resilience import faults
+
+    url = getattr(args, "url", None)
+
+    def remote(method: str, body: Optional[dict] = None) -> list:
+        req = urllib.request.Request(
+            url.rstrip("/") + "/debug/faults",
+            data=json.dumps(body).encode() if body is not None else None,
+            headers={"Content-Type": "application/json"}, method=method)
+        try:
+            with urllib.request.urlopen(req, timeout=10) as r:
+                return json.loads(r.read().decode())["faults"]
+        except urllib.error.HTTPError as e:
+            detail = e.read().decode(errors="replace")
+            raise CommandError(f"fault admin refused ({e.code}): {detail}")
+
+    def show(specs: list) -> None:
+        if not specs:
+            print("[INFO] no active fault specs (registry inert)")
+            return
+        print(f"[INFO] {len(specs)} active fault spec(s):")
+        for s in specs:
+            extra = (f" param={s['param']}" if s["mode"] == "delay" else "") + (
+                f" seed={s['seed']}" if s.get("seed") is not None else "")
+            # the whole key (point@scope): it is what `faults clear` takes
+            name = s["point"] + (f"@{s['scope']}" if s.get("scope") else "")
+            print(f"[INFO]   {name}: {s['mode']} p={s['probability']}{extra}")
+
+    try:
+        if args.faults_action == "list":
+            show(remote("GET") if url else faults.specs())
+        elif args.faults_action == "set" and url:
+            body: dict = {"set": args.spec}
+            if args.seed is not None:
+                body["seed"] = args.seed
+            show(remote("POST", body))
+        elif args.faults_action == "set":
+            for spec in faults.parse_specs(args.spec, args.seed):
+                faults.install(spec)
+            show(faults.specs())
+        elif url:
+            show(remote("POST", {"clear": args.point if args.point else True}))
+        else:
+            faults.clear(args.point)
+            show(faults.specs())
+    except (CommandError, faults.FaultSpecError) as e:
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -978,7 +1144,8 @@ def _run(args: argparse.Namespace) -> int:
     commands = {"app": app_cmd, "channel": channel_cmd, "accesskey": accesskey_cmd,
                 "eventserver": eventserver, "status": status, "online": online,
                 "jobs": jobs_cmd, "models": models_cmd, "metrics": metrics_cmd,
-                "trace": trace_cmd, "profile": profile_cmd}
+                "trace": trace_cmd, "profile": profile_cmd,
+                "rollout": rollout_cmd, "faults": faults_cmd}
     if args.cmd in commands:
         return commands[args.cmd](args)
     if args.cmd in ("import", "export") and args.format == "parquet":

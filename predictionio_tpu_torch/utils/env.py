@@ -3,17 +3,21 @@
 The port's own copy of the readers of the JAX package's ``utils/env.py``
 that it needs: the dense-ALS gate (``PIO_DENSE_ALS`` and
 ``PIO_DENSE_ALS_BYTES``), the storage base directory
-(``PIO_FS_BASEDIR``), the online consumer's knobs (``ONLINE_KEYS``) and
-the observability knobs (``PIO_DEVPROF``, the peak overrides, the
-trace sampling).
+(``PIO_FS_BASEDIR``), the online consumer's knobs (``ONLINE_KEYS``), the
+canary rollout's verdict knobs (``ROLLOUT_KEYS``), fault injection
+(``FAULT_KEYS``) and the observability knobs (``PIO_DEVPROF``, the peak
+overrides, the trace sampling).
 A missing or empty value gives the caller's default; a malformed number
-gives the default with a warning, as in the JAX package.
+gives the default with a warning, as in the JAX package. Every reader
+takes an optional `env` mapping to read instead of the process
+environment.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+from typing import Mapping, Optional
 
 log = logging.getLogger(__name__)
 
@@ -29,18 +33,66 @@ ONLINE_KEYS = {
     "PIO_ONLINE_DRIFT_COOLDOWN_S": 0.0,
 }
 
+# the canary rollout's verdict knobs and their defaults (the JAX
+# package's registry entries; deploy/rollout.py reads them)
+ROLLOUT_KEYS = {
+    # sticky fraction of traffic routed to a canary candidate
+    "PIO_ROLLOUT_FRACTION": 0.1,
+    # sliding stats window (s) the rollout verdict compares over
+    "PIO_ROLLOUT_WINDOW_S": 30.0,
+    # seconds between rollout verdict ticks
+    "PIO_ROLLOUT_INTERVAL_S": 1.0,
+    # candidate samples required before the verdict engages
+    "PIO_ROLLOUT_MIN_REQUESTS": 20,
+    # candidate-minus-live error-rate delta that forces rollback
+    "PIO_ROLLOUT_MAX_ERROR_DELTA": 0.05,
+    # candidate/live p99 latency ratio that forces rollback
+    "PIO_ROLLOUT_MAX_P99_RATIO": 3.0,
+    # healthy bake time (s) before a canary auto-promotes
+    "PIO_ROLLOUT_BAKE_S": 60.0,
+    # shadow mode: mirror live traffic to the candidate and compare
+    "PIO_ROLLOUT_SHADOW": False,
+    # minimum shadow result-agreement fraction (rollback below)
+    "PIO_ROLLOUT_MIN_AGREEMENT": 0.9,
+}
 
-def env_str(name: str, default: str = "") -> str:
-    return os.environ.get(name) or default
+# fault injection (resilience/faults.py) and its defaults
+FAULT_KEYS = {
+    # deterministic fault specs: point[@scope]:mode:prob[:param][,...]
+    "PIO_FAULTS": "",
+    # seed pinning every fault point's RNG across processes
+    "PIO_FAULTS_SEED": None,
+    # set 1 to enable the guarded POST /debug/faults admin endpoint
+    "PIO_FAULTS_ADMIN": "",
+}
 
 
-def env_path(name: str, default: str = "") -> str:
+def _get(name: str, env: Optional[Mapping[str, str]]) -> Optional[str]:
+    """The value as set, or None when missing or empty."""
+    raw = (os.environ if env is None else env).get(name)
+    return raw if raw else None
+
+
+def env_raw(name: str, env: Optional[Mapping[str, str]] = None) -> Optional[str]:
+    """The raw value, or None when missing or empty: for grammars with a
+    parser of their own (the fault specs)."""
+    return _get(name, env)
+
+
+def env_str(name: str, default: str = "",
+            env: Optional[Mapping[str, str]] = None) -> str:
+    return _get(name, env) or default
+
+
+def env_path(name: str, default: str = "",
+             env: Optional[Mapping[str, str]] = None) -> str:
     """Like env_str, with ~ expanded in the value and the default."""
-    return os.path.expanduser(env_str(name, default))
+    return os.path.expanduser(env_str(name, default, env))
 
 
-def env_int(name: str, default: int) -> int:
-    raw = os.environ.get(name)
+def env_int(name: str, default: int,
+            env: Optional[Mapping[str, str]] = None) -> int:
+    raw = _get(name, env)
     if not raw:
         return default
     try:
@@ -50,8 +102,9 @@ def env_int(name: str, default: int) -> int:
         return default
 
 
-def env_float(name: str, default: float) -> float:
-    raw = os.environ.get(name)
+def env_float(name: str, default: float,
+              env: Optional[Mapping[str, str]] = None) -> float:
+    raw = _get(name, env)
     if not raw:
         return float(default)
     try:
@@ -65,10 +118,11 @@ _TRUTHY = ("1", "true", "yes", "on")
 _FALSY = ("0", "false", "no", "off")
 
 
-def env_bool(name: str, default: bool) -> bool:
+def env_bool(name: str, default: bool,
+             env: Optional[Mapping[str, str]] = None) -> bool:
     """1/true/yes/on or 0/false/no/off; missing, empty or malformed: the
     default (malformed with a warning)."""
-    raw = (os.environ.get(name) or "").strip().lower()
+    raw = (_get(name, env) or "").strip().lower()
     if not raw:
         return default
     if raw in _TRUTHY:
@@ -77,6 +131,12 @@ def env_bool(name: str, default: bool) -> bool:
         return False
     log.warning("ignoring malformed %s=%r", name, raw)
     return default
+
+
+def env_flag(name: str, env: Optional[Mapping[str, str]] = None) -> bool:
+    """A presence gate: set to anything but ''/0/false/no/off."""
+    raw = _get(name, env)
+    return raw is not None and raw.strip().lower() not in _FALSY
 
 
 def env_opt_float(name: str):

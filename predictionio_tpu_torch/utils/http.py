@@ -17,7 +17,13 @@ routes every server mounts (the JAX package's ``utils/http.py``):
   ``POST /debug/traces/capture``, ``GET /debug/profile`` (the device
   profiler's report) and ``POST /debug/profile/capture`` (a
   ``torch.profiler`` window written under ``PIO_PROFILE_CAPTURE_DIR``:
-  403 without it, 409 while another runs, seconds in (0, 60]).
+  403 without it, 409 while another runs, seconds in (0, 60]);
+- ``X-PIO-Deadline`` (the caller's remaining budget in ms) becomes the
+  request's ambient deadline (``resilience/deadline.py``), reset before
+  the next request on a kept-alive connection;
+- ``GET /debug/faults`` (the process's fault specs) and ``POST
+  /debug/faults`` (install or clear specs; 403 unless
+  ``PIO_FAULTS_ADMIN=1`` is set on the server).
 
 Servers opt into the counters by setting `metrics` (a MetricsRegistry)
 and `metrics_label` on their ThreadedServer; trace ids and spans
@@ -40,7 +46,9 @@ from predictionio_tpu_torch.obs import devprof as _devprof
 from predictionio_tpu_torch.obs import registry as _obs_registry
 from predictionio_tpu_torch.obs import spans as _obs_spans
 from predictionio_tpu_torch.obs import tracing as _obs_tracing
-from predictionio_tpu_torch.utils.env import env_path
+from predictionio_tpu_torch.resilience import deadline as _deadline
+from predictionio_tpu_torch.resilience import faults as _faults
+from predictionio_tpu_torch.utils.env import env_flag, env_path
 
 log = logging.getLogger(__name__)
 
@@ -71,11 +79,15 @@ class JsonHandler(BaseHTTPRequestHandler):
         self._raw_body = b""
         self._trace_token = None
         self._span_token = None
+        self._deadline_token = None
         try:
             super().handle_one_request()
         finally:
             # keep-alive reuses this thread: the next request must not
-            # inherit this one's trace id or span context
+            # inherit this one's trace id, span context or deadline
+            if self._deadline_token is not None:
+                _deadline.reset(self._deadline_token)
+                self._deadline_token = None
             if self._span_token is not None:
                 _obs_spans.reset_current_span(self._span_token)
                 self._span_token = None
@@ -100,6 +112,11 @@ class JsonHandler(BaseHTTPRequestHandler):
             self._parent_span = psp if self._TRACE_ID_RE.fullmatch(psp) else None
             self._span_id = _obs_spans.new_span_id()
             self._span_token = _obs_spans.set_current_span(self._span_id)
+            # the caller's remaining budget becomes this request's ambient
+            # deadline: the handlers shed work that can no longer finish
+            dl = _deadline.parse_header(self.headers.get(_deadline.HEADER))
+            if dl is not None:
+                self._deadline_token = _deadline.set_deadline(dl)
         return ok
 
     # -- observability middleware ------------------------------------------
@@ -280,6 +297,43 @@ class JsonHandler(BaseHTTPRequestHandler):
         except RuntimeError as e:
             raise HttpError(409, str(e))
         self._respond(200, result)
+
+    def _serve_debug_faults(self) -> None:
+        """GET /debug/faults: the process's active fault specs (read-only,
+        so ungated)."""
+        self._respond(200, {"faults": _faults.specs()})
+
+    def _serve_debug_faults_set(self) -> None:
+        """POST /debug/faults {"set": "point:mode:prob[:param][,...]",
+        "seed": N} and/or {"clear": "point" | true}: install or clear
+        fault specs. 403 unless PIO_FAULTS_ADMIN=1 is set on the server
+        process; the whole request is checked before anything changes,
+        so a malformed `set` is a 400 that cleared nothing."""
+        if not env_flag("PIO_FAULTS_ADMIN"):
+            self._respond(403, {
+                "message": "fault-injection admin is disabled: set "
+                           "PIO_FAULTS_ADMIN=1 on this server to enable it"})
+            return
+        body = self._json_body()
+        if not isinstance(body, dict):
+            raise HttpError(400, "fault admin body must be a JSON object")
+        spec_text = body.get("set")
+        specs = []
+        if spec_text:
+            seed = body.get("seed")
+            try:
+                specs = _faults.parse_specs(
+                    spec_text, int(seed) if seed is not None else None)
+            except (_faults.FaultSpecError, TypeError, ValueError) as e:
+                raise HttpError(400, str(e))
+        clear = body.get("clear")
+        if clear is True:
+            _faults.clear()
+        elif isinstance(clear, str):
+            _faults.clear(clear)
+        for spec in specs:
+            _faults.install(spec)
+        self._respond(200, {"faults": _faults.specs()})
 
     # -- bodies and responses ----------------------------------------------
     def _drain_body(self) -> bytes:

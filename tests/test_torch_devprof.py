@@ -36,8 +36,9 @@ import torch
 pytest.importorskip("jax")
 
 from predictionio_tpu.obs import devprof as jdevprof  # noqa: E402
+from predictionio_tpu.obs import registry as jregistry  # noqa: E402
 from predictionio_tpu.obs.registry import MetricsRegistry as JRegistry  # noqa: E402
-from predictionio_tpu_torch.obs import costs, devprof  # noqa: E402
+from predictionio_tpu_torch.obs import costs, devprof, registry  # noqa: E402
 from predictionio_tpu_torch.obs.registry import MetricsRegistry  # noqa: E402
 
 
@@ -333,6 +334,10 @@ def _train_and_serve(pkg, prof_module, **device):
 
 def test_same_train_and_serve_lists_the_same_executables(monkeypatch):
     monkeypatch.setenv("PIO_DENSE_ALS", "1")
+    # the padding accounting lands in each package's process-default
+    # registry: fresh ones, so that earlier tests' batches do not count
+    monkeypatch.setattr(registry, "_default_registry", registry.MetricsRegistry())
+    monkeypatch.setattr(jregistry, "_default_registry", jregistry.MetricsRegistry())
     got, got_pad = _train_and_serve("predictionio_tpu_torch", devprof, device="cpu")
     want, want_pad = _train_and_serve("predictionio_tpu", jdevprof)
     jdevprof.get_profiler().clear()
@@ -445,6 +450,9 @@ def test_capture_window_runs_on_the_dispatcher_thread(served, monkeypatch, tmp_p
 
 
 def test_dispatcher_call_between_batches():
+    """`call` runs on the dispatcher's thread with no batch in flight; the
+    batches run on the pool's workers, and on the dispatcher's thread
+    while a capture runner's window is open."""
     from predictionio_tpu_torch.workflow.server import _BatchDispatcher
 
     seen = []
@@ -452,16 +460,29 @@ def test_dispatcher_call_between_batches():
     class Owner:
         batch_size_hist = type("H", (), {"observe": lambda self, n: None})()
 
-        def predict_batch(self, queries, runtime):
-            seen.append(("batch", threading.current_thread().name, list(queries)))
-            return [q * 2 for q in queries]
-
         def count_batch(self, seconds, n):
             pass
 
+    class Algo:
+        serving_context = None
+
+        def batch_predict(self, ctx, model, queries):
+            seen.append(("batch", threading.current_thread().name,
+                         [q for _, q in queries]))
+            return [(i, q * 2) for i, q in queries]
+
+    class Serving:
+        def supplement(self, q):
+            return q
+
+        def serve(self, q, preds):
+            return preds[0]
+
+    runtime = type("RT", (), {"algorithms": [Algo()], "models": [None],
+                              "serving": Serving()})()
     d = _BatchDispatcher(Owner(), window_ms=1.0, max_batch=8, max_window_ms=1.0)
     try:
-        assert d.submit(3, runtime=None) == 6
+        assert d.submit(3, runtime) == 6
         assert d.call(lambda: threading.current_thread().name) == "query-batcher"
         with pytest.raises(KeyError):
             d.call(lambda: {}["missing"])
@@ -474,8 +495,17 @@ def test_dispatcher_call_between_batches():
             d.call(lambda: ran.append(1), timeout=0.05)
         gate.set()
         holder.join(timeout=5)
-        assert d.submit(4, runtime=None) == 8 and ran == []
-        assert [s[1] for s in seen] == ["query-batcher", "query-batcher"]
+        assert d.submit(4, runtime) == 8 and ran == []
+        # a capture window: opened and closed on the dispatcher's thread,
+        # which runs the batches in between
+        run_on = d.capture_runner()
+        assert run_on(lambda: threading.current_thread().name) == "query-batcher"
+        assert d.submit(5, runtime) == 10
+        run_on(lambda: None)
+        assert d.submit(6, runtime) == 12
+        threads = [s[1] for s in seen]
+        assert threads[2] == "query-batcher"
+        assert all(t.startswith("query-batch_") for t in threads[:2] + threads[3:])
     finally:
         d.stop()
 

@@ -264,10 +264,11 @@ def test_webhooks_mailchimp_form(server):
 @pytest.mark.parametrize("path", ["/metrics", "/debug/traces", "/segments/stats"])
 def test_left_out_routes_say_not_ported(server, path):
     """The routes still left out answer 404 saying so: /segments/* and
-    the /debug routes beside traces and profile. /metrics and
-    /debug/traces are served now (tests/test_torch_observability.py),
-    so for those the case asks their unported neighbour."""
-    left_out = {"/metrics": "/debug/faults", "/debug/traces": "/debug/tsdb"}.get(path, path)
+    /debug/tsdb. /metrics and /debug/traces are served now
+    (tests/test_torch_observability.py), and so is /debug/faults
+    (tests/test_torch_resilience.py), so for those the case asks the
+    unported neighbour."""
+    left_out = {"/metrics": "/debug/tsdb", "/debug/traces": "/debug/tsdb"}.get(path, path)
     status, body = req(server, left_out + "?accessKey=KEY")
     assert status == 404 and "not ported" in body["message"]
     if path != left_out:

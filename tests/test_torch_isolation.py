@@ -68,14 +68,16 @@ def test_no_jax_import_in_source(path):
 OBS_MODULES = ["predictionio_tpu_torch.obs", "predictionio_tpu_torch.obs.tracing",
                "predictionio_tpu_torch.obs.spans", "predictionio_tpu_torch.obs.devprof",
                "predictionio_tpu_torch.obs.cudamon", "predictionio_tpu_torch.obs.costs",
-               "predictionio_tpu_torch.obs.registry", "predictionio_tpu_torch.utils.http"]
+               "predictionio_tpu_torch.obs.registry", "predictionio_tpu_torch.utils.http",
+               "predictionio_tpu_torch.resilience.deadline",
+               "predictionio_tpu_torch.resilience.faults"]
 
 
 @pytest.mark.parametrize("module", OBS_MODULES)
 def test_observability_modules_load_neither_jax_nor_torch(module):
-    """The observability modules, their registries' text and the device
-    profiler's report load no jax, nothing of the JAX package and no
-    torch: the Event Server mounts them without torch."""
+    """The observability and resilience modules, their registries' text
+    and the device profiler's report load no jax, nothing of the JAX
+    package and no torch: the Event Server mounts them without torch."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"

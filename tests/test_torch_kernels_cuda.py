@@ -955,3 +955,63 @@ def test_cosine_verbs_equal_plain(card, dtype, mask_kind, verb, monkeypatch):
             if verb == "similar_serving":  # the query item only as a masked filler
                 for r, it in enumerate(arg):
                     assert it not in ki[r][kv[r] > rec.NEG_INF / 2]
+
+
+def test_pipelined_server_launches_equal_device_batches(card):
+    """16 client threads against one QueryServer at continuous batching
+    and depth 4: the top-k launches, and those of its select route, equal
+    the device batches the server booked, and every answer equals the
+    plain version's on the CPU."""
+    import json
+    import threading
+    import urllib.request
+
+    from predictionio_tpu_torch import convert
+    from predictionio_tpu_torch.engines.recommendation.engine import (
+        ALSAlgorithm, ALSAlgorithmParams, ALSModel, Query)
+    from predictionio_tpu_torch.workflow.server import (
+        QueryServer, QueryServerConfig, _to_jsonable)
+
+    rng = np.random.default_rng(19)
+    n_users, n_items, kdim = 2_000, 5_000, 10
+    factors = convert.als_factors_from_numpy(
+        rng.standard_normal((n_users, kdim)).astype(np.float32),
+        rng.standard_normal((n_items, kdim)).astype(np.float32),
+        [f"u{i}" for i in range(n_users)], [f"i{i}" for i in range(n_items)], {})
+    params = ALSAlgorithmParams(rank=kdim)
+    server = QueryServer(ALSAlgorithm(params), ALSModel(factors, device=card),
+                         QueryServerConfig(ip="127.0.0.1", port=0, pipeline_depth=4))
+    port = server.start()
+    bodies = [{"user": f"u{int(rng.integers(n_users))}",
+               "num": int(rng.choice([5, 10, 50]))} for _ in range(16 * 40)]
+    out = {}
+    lock = threading.Lock()
+
+    def client(c):
+        for n in range(c, len(bodies), 16):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/queries.json", data=json.dumps(bodies[n]).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                with lock:
+                    out[n] = (r.status, json.loads(r.read()))
+
+    try:
+        before = server.status()
+        base = (rec.LAUNCHES, rec.ROUTE_LAUNCHES["select"])
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        after = server.status()
+        launches = rec.LAUNCHES - base[0]
+        selects = rec.ROUTE_LAUNCHES["select"] - base[1]
+    finally:
+        server.stop()
+    batches = after["batches"] - before["batches"]
+    assert len(out) == len(bodies)
+    assert 0 < batches == launches == selects, (batches, launches, selects)
+    cpu_model, cpu_alg = ALSModel(factors, device="cpu"), ALSAlgorithm(params)
+    for n, q in enumerate(bodies):
+        assert out[n] == (200, _to_jsonable(cpu_alg.predict(cpu_model, Query(**q)))), n

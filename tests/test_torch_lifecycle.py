@@ -320,12 +320,25 @@ class TestFoldCompaction:
 # ---------------------------------------------------------------------------
 
 
+def _next_ms():
+    """Wait until the wall clock's millisecond changes. The stores keep
+    event times in milliseconds, and each package's `_seq` orders only
+    its own writes: a port write and a JAX write in one millisecond fold
+    in either order. After this, the next write lands in a later
+    millisecond than every write before the call."""
+    now = int(time.time() * 1000)
+    while int(time.time() * 1000) == now:
+        time.sleep(0.0002)
+
+
 def test_port_version_is_read_promoted_and_listed_by_jax(tmp_path):
     ts, js = _storage(tmp_path / "s"), _jax_storage(tmp_path / "s")
     reg, jr = ModelRegistry(ts), jreg.ModelRegistry(js)
     v1 = reg.register(_instance("p1"), job_id="job-1")
     assert jr.get(v1.id).to_dict() == v1.to_dict()
+    _next_ms()
     jr.promote(v1.id)
+    _next_ms()
     v2 = reg.register(_instance("p2"))
     assert reg.get(v1.id).status == "live" and v2.parent_version == v1.id
     assert [v.to_dict() for v in jr.list()] == [v.to_dict() for v in reg.list()]
@@ -338,11 +351,14 @@ def test_jax_version_is_read_promoted_and_listed_by_port(tmp_path):
     reg, jr = ModelRegistry(ts), jreg.ModelRegistry(js)
     v1 = jr.register(_instance("j1", cls=JInstance), job_id="job-2")
     assert reg.get(v1.id).to_dict() == v1.to_dict()
+    _next_ms()
     reg.promote(v1.id)
+    _next_ms()
     v2 = jr.register(_instance("j2", cls=JInstance))
     assert jr.get(v1.id).status == "live" and v2.parent_version == v1.id
     assert [v.to_dict() for v in reg.list()] == [v.to_dict() for v in jr.list()]
     assert reg.find_by_job("job-2").id == v1.id
+    _next_ms()
     reg.rollback(v2.id, "port says no")
     assert jr.get(v2.id).reason == "port says no"
 

@@ -171,9 +171,11 @@ def test_event_server_metrics_equal_the_jax_servers(tmp_path):
         assert status == 200 and json.loads(body)["totals"]["invocations"] >= 0
         status, body, _ = _request(ports[1], "/debug/traces")
         assert status == 200 and "sampling" in json.loads(body)
-        for left_out in ("/debug/faults", "/debug/tsdb", "/segments/stats"):
+        for left_out in ("/debug/tsdb", "/segments/stats"):
             status, body, _ = _request(ports[1], left_out)
             assert status == 404 and "not ported" in json.loads(body)["message"]
+        status, body, _ = _request(ports[1], "/debug/faults")
+        assert status == 200 and json.loads(body) == {"faults": []}
     finally:
         jsrv.stop()
         tsrv.stop()
@@ -268,9 +270,11 @@ def test_query_server_routes(query_server):
     status, body, _ = _request(port, "/debug/profile")
     rows = {r["name"]: r for r in json.loads(body)["executables"]}
     assert rows["als.recommend_serving"]["invocations"] >= 6
-    for left_out in ("/debug/tsdb", "/debug/faults", "/alerts"):
+    for left_out in ("/debug/tsdb", "/alerts"):
         status, body, _ = _request(port, left_out)
         assert status == 404 and "not ported" in json.loads(body)["message"]
+    status, body, _ = _request(port, "/debug/faults")
+    assert status == 200 and json.loads(body) == {"faults": []}
 
 
 def test_trace_capture_needs_a_dispatcher(query_server):
