@@ -6,8 +6,9 @@ deploy, the online fold-in of live events into the served model, and
 the model lifecycle (train jobs, checkpoints, warm starts, versions),
 item properties with the similar-product and e-commerce templates, the
 Universal Recommender's train and serve path, the classification
-and regression templates, and the query server's canary rollout,
-deadlines, fault points and pipelined batching, on one CUDA card.
+and regression templates, the query server's canary rollout,
+deadlines, fault points and pipelined batching, and the monitoring
+plane with the operator servers, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -443,7 +444,45 @@ Phases, in order; any failure prints what failed and exits non-zero:
             each figure, the verdict times, the shed latency, the phase's
             wall and card-busy share, each line with the card's name and
             power limit.
-28. report  one ``{"kernels": [...]}`` line, then the device line last.
+28. monitor the monitoring plane and the operator servers at ML-20M width,
+            on phase 6's factors, over storage under ``build/monitor/``.
+            (a) A ``QueryServer`` on the card, an Event Server and an
+            ``AdminServer`` in this process, all three attached to the
+            process monitor, whose sampler and SLO engine run every
+            0.25 s with the latency SLO ``query_p250`` (objective 0.99,
+            250 ms, windows 2 s and 6 s, burn 2, for 0.5 s, resolve 1 s)
+            and an exec notifier appending each alert to a file; ``console
+            dashboard`` in a process of its own scraping the three every
+            0.5 s, collecting their traces, with an ``up`` SLO
+            ``event_up`` on the Event Server. (b) 500 queries from 16
+            clients: 20 answers equal the plain version's on the CPU,
+            nothing firing; ``/debug/tsdb``'s increase of 200s on
+            ``/queries.json`` exactly 500, its latest
+            ``devprof_invocations_total`` devprof's report and its
+            allocated bytes ``torch.cuda.memory_allocated()``; the rate
+            of ``devprof_device_seconds_total`` beside devprof's share.
+            (c) ``dispatch.device:delay:1.0:0.4`` through ``POST
+            /debug/faults`` under 8 clients: ``query_p250`` pending, then
+            firing, one firing notification with the JAX notifier's keys;
+            cleared: resolved, one resolve notification; ``console alerts``
+            prints ``GET /alerts``' states. (e) A query with its own
+            ``X-Request-ID`` sent during the delay: the dashboard's
+            ``/debug/traces?fleet=1&trace_id=`` holds its
+            ``server.request`` and ``batch.device_dispatch`` spans. (d)
+            The dashboard's ``up`` is 1 for the three; the Event Server
+            stopped, ``up{instance="event"}`` reads 0 within two scrape
+            intervals and ``event_up`` fires. (f) The admin server's
+            ``/models``, ``/jobs``, ``/online`` and ``/rollout`` equal
+            ``console models list``, ``jobs list``, ``online cursors`` and
+            ``rollout status`` over the same storage; ``/tenants`` and
+            ``/evals`` 404 not ported yet. (g) The phase's top-k launches
+            = select launches = the device batches the query server
+            booked. (h) Every server stopped and the dashboard child
+            exited 0 on SIGINT: no sampler, engine, scraper or collector
+            thread left. Prints each figure, the alert times, the phase's
+            wall and card-busy share, each line with the card's name and
+            power limit.
+29. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -460,6 +499,7 @@ import json
 import os
 import queue
 import re
+import shlex
 import shutil
 import signal
 import statistics
@@ -557,7 +597,11 @@ try:
         OnlineConsumerConfig,
         ServerApplyHost,
     )
-    from predictionio_tpu_torch.deploy.registry import ModelRegistry
+    from predictionio_tpu_torch.deploy.registry import LifecycleRecordStore, ModelRegistry
+    from predictionio_tpu_torch.obs.monitor import AlertNotifier, SLOSpec, get_monitor
+    from predictionio_tpu_torch.obs.monitor import THREAD_NAMES as MONITOR_THREAD_NAMES
+    from predictionio_tpu_torch.online.consumer import CURSOR_ENTITY
+    from predictionio_tpu_torch.tools.admin import AdminServer
     from predictionio_tpu_torch.deploy.rollout import sticky_candidate
     from predictionio_tpu_torch.resilience import faults
     from predictionio_tpu_torch.deploy.scheduler import (
@@ -1743,15 +1787,15 @@ class _Console:
     process of its own, as an operator starts it; stopped (and killed if
     it must be) on exit."""
 
-    BANNER = re.compile(r"(?:^serving .* on |Event Server is listening at http://)"
-                        r"[^\s:]+:(\d+)")
+    BANNER = re.compile(r"(?:^serving .* on |Event Server is listening at http://"
+                        r"|Dashboard is listening at http://)[^\s:]+:(\d+)")
 
-    def __init__(self, args, log_path):
+    def __init__(self, args, log_path, env=None):
         self.log = open(log_path, "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "predictionio_tpu_torch.tools.console", *args],
             cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
-            stderr=self.log, text=True,
+            stderr=self.log, text=True, env=env,
         )
         self.lines: queue.Queue = queue.Queue()
         threading.Thread(target=self._read, daemon=True).start()
@@ -1776,6 +1820,15 @@ class _Console:
                 return int(m.group(1))
         raise PhaseError(f"{self.proc.args[3]} not serving after {timeout} s; "
                          f"see {self.log.name}")
+
+    def interrupt(self, timeout=30.0):
+        """Ctrl-C, as an operator stops it; returns its exit code."""
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            raise PhaseError(f"{self.proc.args[3]} did not stop within {timeout} s "
+                             f"of SIGINT; see {self.log.name}") from None
 
     def __enter__(self):
         return self
@@ -6526,6 +6579,469 @@ def _rollout_feedback(storage, live, bodies, queries, inst_live, booked, smi):
           flush=True)
     return {"events": len(events), "shed_status": shed}
 
+MONITOR_DIR = Path(__file__).resolve().parent / "build" / "monitor"
+MONITOR_ENGINE = "ml20m-monitor"
+MONITOR_TICK_S, MONITOR_SCRAPE_S = 0.25, 0.5  # sampler and SLO engine; fleet scrape
+MONITOR_CHECKED = 20  # quiet answers held to the CPU plain version's
+MONITOR_ALERT_CLIENTS = 8
+MONITOR_RATE_S = 5.0  # the window of the device-seconds rate read during (b)
+MONITOR_FAULT = "dispatch.device:delay:1.0:0.4"  # every device batch 400 ms late
+# the latency SLO of the query server (0.25 s is a request-histogram edge)
+MONITOR_SLO = {"name": "query_p250", "kind": "latency", "objective": 0.99,
+               "threshold_ms": 250.0, "fast_window_s": 2.0, "window_s": 6.0,
+               "burn_threshold": 2.0, "for_s": 0.5, "resolve_s": 1.0}
+# the dashboard's SLO on the Event Server's scrape target
+MONITOR_EVENT_SLO = {"name": "event_up", "kind": "up", "instance": "event",
+                     "objective": 0.9, "fast_window_s": 1.0, "window_s": 2.0,
+                     "burn_threshold": 2.0}
+# an alert notification's keys in the JAX package (obs/monitor/slo.py
+# AlertStatus.to_dict, plus the transition); the evidence keys are optional
+NOTIFY_KEYS = frozenset({"slo", "state", "since", "fast_burn", "slow_burn", "fast_samples",
+                         "burn_threshold", "error_budget", "transitions", "last_eval",
+                         "pairs", "spec", "transition"})
+NOTIFY_EVIDENCE = frozenset({"exemplars", "fleet_traces"})
+# the exec alert sink: appends the alert JSON it reads on stdin to a file
+MONITOR_SINK = "import sys; open(sys.argv[1], 'a').write(sys.stdin.read() + '\\n')"
+
+
+def _wait_for(pred, timeout, what, poll=0.05):
+    """Poll `pred()` until it returns a truthy value; returns (value,
+    seconds waited)."""
+    t0 = time.monotonic()
+    while True:
+        got = pred()
+        if got:
+            return got, time.monotonic() - t0
+        if time.monotonic() - t0 > timeout:
+            raise PhaseError(f"{what}: not within {timeout} s")
+        time.sleep(poll)
+
+
+def _tsdb(port, **qs):
+    from urllib.parse import urlencode
+
+    status, body = _call(port, "GET", "/debug/tsdb?" + urlencode(qs))
+    check(status == 200 and body.get("enabled"), f"/debug/tsdb?{qs}: {status} {body}")
+    return body
+
+
+def _latest(port, name, labels=""):
+    """The newest (t, value) across the series of `name` matching `labels`
+    (k:v,...) in a server's TSDB, None without one."""
+    rows = _tsdb(port, name=name, labels=labels)["series"] if labels else _tsdb(
+        port, name=name)["series"]
+    pts = [tuple(p) for r in rows for p in r["points"][-1:]]
+    return max(pts) if pts else None
+
+
+def _monitor_clients(port, bodies, n_clients, stop=None):
+    out, lock = [], threading.Lock()
+    work = list(enumerate(bodies))
+    threads = [threading.Thread(target=_rollout_client,
+                                args=(port, work[c::n_clients], stop, out, lock))
+               for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    return out, threads
+
+
+def _monitor_seed(storage):
+    """What the admin server lists: a live and a trained version, a
+    queued train job, an online consumer's cursor record."""
+    now = datetime.datetime.now(datetime.timezone.utc)
+    registry, versions = ModelRegistry(storage), []
+    for _ in range(2):
+        inst = EngineInstance(
+            id=str(uuid.uuid4()), status="COMPLETED", start_time=now, end_time=now,
+            engine_id=MONITOR_ENGINE, engine_version="0", engine_variant=MONITOR_ENGINE,
+            engine_factory=ROLLOUT_FACTORY,
+            algorithms_params=json.dumps([{"name": "als", "params": {"rank": RANK}}]))
+        inst.id = storage.get_meta_data_engine_instances().insert(inst)
+        versions.append(registry.register(inst))
+    registry.promote(versions[0].id)
+    job = JobQueue(storage).submit({"id": MONITOR_ENGINE, "engineFactory": ROLLOUT_FACTORY,
+                                    "datasource": {"params": {"app_name": MONITOR_ENGINE}}})
+    LifecycleRecordStore(storage).append(CURSOR_ENTITY, "server:monitor", {
+        "cursor": {"0": 500}, "events_consumed": 500, "events_folded": 480,
+        "users_folded": 120, "items_folded": 3, "ticks": 40, "app_id": 1})
+    return versions, job
+
+
+def phase_monitor(report, shared):
+    t_phase, p_phase = time.perf_counter(), devprof.snapshot()
+    smi = report["nvidia_smi"]
+    shutil.rmtree(MONITOR_DIR, ignore_errors=True)
+    (MONITOR_DIR / "store").mkdir(parents=True)
+    factors = shared["factors"]  # phase 6: ML-20M width
+    rng = np.random.default_rng(SEED + 280)
+    queries = _queries(rng, N_USERS)
+    bodies = [json.dumps(q).encode() for q in queries]
+    cpu_alg = ALSAlgorithm(ALSAlgorithmParams(rank=RANK))
+    cpu_model = ALSModel(factors, device="cpu")
+    want = [_to_jsonable(cpu_alg.predict(cpu_model, Query(**q)))
+            for q in queries[:MONITOR_CHECKED]]
+    mon = get_monitor()
+    saved = (mon.sampler_interval_s, mon.slo_interval_s, list(mon._slos), mon.notifier)
+    sink = MONITOR_DIR / "alerts.jsonl"
+    mo: dict = {"tick_s": MONITOR_TICK_S, "scrape_s": MONITOR_SCRAPE_S, "slo": MONITOR_SLO,
+                "event_slo": MONITOR_EVENT_SLO, "fault": MONITOR_FAULT}
+    quiet, l0 = _Quiet(), _launch_counts()
+    saved_admin = os.environ.get("PIO_FAULTS_ADMIN")
+    os.environ["PIO_FAULTS_ADMIN"] = "1"
+    servers, dash, booked = [], None, 0
+    try:
+        # (a) the servers, the monitor's settings and the dashboard child
+        mon.sampler_interval_s = mon.slo_interval_s = MONITOR_TICK_S
+        mon.notifier = AlertNotifier(exec_cmd=" ".join(
+            shlex.quote(a) for a in (sys.executable, "-c", MONITOR_SINK, str(sink))))
+        with _loop_storage(MONITOR_DIR / "store"):
+            storage = Storage()
+            seeded = _monitor_seed(storage)
+            with quiet.block():
+                model = ALSModel(factors)
+                qsrv = QueryServer(ALSAlgorithm(ALSAlgorithmParams(rank=RANK)), model,
+                                   QueryServerConfig(ip="127.0.0.1", port=0))
+                qport = qsrv.start()
+            servers.append(qsrv)
+            check(str(model.device).startswith("cuda"), f"the model is on {model.device}")
+            esrv = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0))
+            eport = esrv.start()
+            servers.append(esrv)
+            asrv = AdminServer(storage, ip="127.0.0.1", port=0)
+            aport = asrv.start()
+            servers.append(asrv)
+            check(mon.attached_count == 3,
+                  f"the monitor has {mon.attached_count} servers attached, not 3")
+            mon.set_slos([SLOSpec.from_dict(MONITOR_SLO)])
+            check(mon.engine is not None and mon.engine.interval_s == MONITOR_TICK_S
+                  and mon._sampler.interval_s == MONITOR_TICK_S,
+                  "the monitor's sampler and SLO engine do not run at the phase's tick")
+            root = Path(__file__).resolve().parent
+            env = dict(os.environ, PIO_TRACE_COLLECT="1",
+                       PIO_MONITOR_TARGETS=",".join(
+                           f"{n}=http://127.0.0.1:{p}" for n, p in
+                           (("query", qport), ("event", eport), ("admin", aport))),
+                       PIO_SCRAPE_INTERVAL_S=str(MONITOR_SCRAPE_S),
+                       PIO_SLOS=json.dumps([MONITOR_EVENT_SLO]),
+                       PIO_SLO_INTERVAL_S=str(MONITOR_TICK_S),
+                       PIO_TSDB_INTERVAL_S=str(MONITOR_TICK_S),
+                       PYTHONPATH=os.pathsep.join(
+                           [str(root)] + ([os.environ["PYTHONPATH"]]
+                                          if os.environ.get("PYTHONPATH") else [])))
+            t0 = time.perf_counter()
+            dash = _Console(["dashboard", "--ip", "127.0.0.1", "--port", "0"],
+                            MONITOR_DIR / "dashboard.log", env=env)
+            dport = dash.port(timeout=60)
+            mo["dashboard_start_s"] = time.perf_counter() - t0
+            print(f"[monitor] {smi} | (a) query server, Event Server and admin server in "
+                  f"this process, {mon.attached_count} attached to the monitor (sampler and "
+                  f"SLO engine every {MONITOR_TICK_S} s); dashboard child serving in "
+                  f"{mo['dashboard_start_s']:.2f} s, scraping the three every "
+                  f"{MONITOR_SCRAPE_S} s", flush=True)
+            mo["quiet"] = _monitor_quiet(qport, queries, bodies, want, smi)
+            mo["alert"] = _monitor_alert(qport, bodies, sink, smi)
+            mo["traces"] = _monitor_traces(dport, mo["alert"]["trace_id"], smi)
+            mo["fleet"] = _monitor_fleet(dport, esrv, smi)
+            mo["admin"] = _monitor_admin(aport, qport, seeded, smi)
+            booked = qsrv.status()["batches"]
+    finally:
+        if saved_admin is None:
+            os.environ.pop("PIO_FAULTS_ADMIN", None)
+        else:
+            os.environ["PIO_FAULTS_ADMIN"] = saved_admin
+        faults.clear()
+        for srv in servers:
+            srv.stop()
+        rc = None
+        if dash is not None:
+            try:
+                rc = dash.interrupt()
+            finally:
+                dash.__exit__(None, None, None)
+        mon.sampler_interval_s, mon.slo_interval_s = saved[0], saved[1]
+        mon.set_slos(saved[2])
+        mon.notifier = saved[3]
+    # (g) every launch of the phase is a device batch the server booked
+    l1 = _launch_counts()
+    launches = l1[0] - l0[0] - quiet.launches
+    selects = l1[1] - l0[1] - quiet.selects
+    check(launches > 0 and launches == selects == booked,
+          f"monitor: {launches} top-k launches, {selects} on the select route, outside the "
+          f"build's {quiet.launches}; the query server booked {booked} device batches")
+    mo.update(launches=launches, select_launches=selects, booked_batches=booked,
+              build_launches=quiet.launches)
+    print(f"[monitor] {smi} | (g) {launches} top-k launches = {selects} select launches = "
+          f"{booked} device batches booked by the query server ({quiet.launches} more in "
+          "the build's warmup)", flush=True)
+    # (h) the clean shutdown
+    check(rc == 0, f"the dashboard child exited with {rc}")
+    left = sorted(t.name for t in threading.enumerate() if t.name in MONITOR_THREAD_NAMES)
+    check(not left and mon.attached_count == 0,
+          f"after every server stopped: monitor threads {left}, "
+          f"{mon.attached_count} servers attached")
+    wall = time.perf_counter() - t_phase
+    busy = devprof.snapshot().card_seconds - p_phase.card_seconds
+    mo["phase_s"], mo["device_s"] = wall, busy
+    report["monitor"] = mo
+    print(f"[monitor] {smi} | (h) every server stopped, the dashboard child exited 0, no "
+          f"{'/'.join(MONITOR_THREAD_NAMES)} thread left; phase {wall:.1f} s, {busy:.3f} card s, "
+          f"busy {busy / wall:.1%}", flush=True)
+
+
+def _monitor_quiet(qport, queries, bodies, want, smi):
+    """(b): 500 queries from 16 clients, no fault: answers, no alert, the
+    TSDB's request counter, device and memory series."""
+    lbl = "server:query,path:/queries.json,status:200"
+    status, body = _call(qport, "POST", "/queries.json", queries[0])
+    check(status == 200, f"warm query: {status} {body}")
+    # the series (shared with earlier phases' query servers, whose counts
+    # it holds) reads 1 before the traffic: the increase over a window
+    # that starts after that point and before the traffic counts the
+    # traffic alone
+    t_warm = time.perf_counter()
+    (t_one, _), _ = _wait_for(
+        lambda: (lambda pt: pt if pt and pt[1] == 1.0 else None)(
+            _latest(qport, "http_requests_total", lbl)),
+        10, "the warm query's 200 in the TSDB")
+    # the card idle for the 5 s before the traffic (the build and the warm
+    # query before them): the rate over 5 s and devprof's own device
+    # seconds then cover the same work
+    time.sleep(max(2 * MONITOR_TICK_S, MONITOR_RATE_S + 0.1 - (time.perf_counter() - t_warm)))
+    p0, t0 = devprof.snapshot(), time.perf_counter()
+    res, threads = _monitor_clients(qport, bodies, N_CLIENTS)
+    while any(t.is_alive() for t in threads) and time.perf_counter() - t0 < MONITOR_TICK_S + 0.05:
+        time.sleep(0.01)
+    during = any(t.is_alive() for t in threads)
+    rate_rows = _tsdb(qport, expr=f"rate(devprof_device_seconds_total[{MONITOR_RATE_S:g}s])"
+                      )["result"]
+    p1, t1 = devprof.snapshot(), time.perf_counter()
+    _joined(threads)
+    wall = time.perf_counter() - t0
+    check(len(res) == len(bodies), f"(b) {len(res)} of {len(bodies)} answered")
+    by_n = {n: (st, body) for n, st, body, _, _ in res}
+    check(all(st == 200 for st, _ in by_n.values()), "(b) a quiet query failed")
+    for n in range(MONITOR_CHECKED):
+        check(by_n[n][1] == want[n], f"(b) query {n} is not the CPU plain version's answer")
+    status, alerts = _call(qport, "GET", "/alerts")
+    check(status == 200 and alerts["firing"] == [], f"(b) firing after quiet traffic: {alerts}")
+    t_end = time.time()
+    _wait_for(lambda: (_latest(qport, "http_requests_total", lbl) or (0, 0))[0]
+              >= t_end + 2 * MONITOR_TICK_S, 10, "two sampler ticks after the traffic")
+    inc = _tsdb(qport, name="http_requests_total", labels=lbl, agg="increase",
+                window_s=str(time.time() - t_one - MONITOR_TICK_S / 5))["value"]
+    check(inc == len(bodies), f"(b) the TSDB's increase of 200s on /queries.json is {inc}, "
+          f"not {len(bodies)}")
+    inv = _latest(qport, "devprof_invocations_total")[1]
+    rep_inv = devprof.report()["totals"]["invocations"]
+    check(inv == rep_inv, f"(b) devprof_invocations_total {inv} != devprof's report {rep_inv}")
+    (alloc,), _ = _wait_for(
+        lambda: (lambda v: (v,) if v == torch.cuda.memory_allocated() else None)(
+            _latest(qport, "cuda_memory_allocated_bytes")[1]), 2.0,
+        "the TSDB's allocated bytes equal to torch.cuda.memory_allocated()")
+    rate = rate_rows[0]["value"] if rate_rows else None
+    # the gauge reads devprof's device seconds: the same field here
+    busy = (p1.device_seconds - p0.device_seconds) / (t1 - t0)
+    window_share = (p1.device_seconds - p0.device_seconds) / MONITOR_RATE_S
+    out = {"queries": len(bodies), "clients": N_CLIENTS, "wall_s": wall,
+           "qps": len(bodies) / wall, "increase_200": inc, "devprof_invocations": inv,
+           "allocated_bytes": alloc, "rate_device_seconds_5s": rate,
+           "rate_read_during_traffic": during, "devprof_busy_share": busy,
+           "devprof_share_over_rate_window": window_share}
+    print(f"[monitor] {smi} | (b) {len(bodies)} queries from {N_CLIENTS} clients in "
+          f"{wall:.2f} s ({out['qps']:.1f} qps), {MONITOR_CHECKED} answers equal to the CPU "
+          "plain version's, nothing firing", flush=True)
+    print(f"[monitor] {smi} | (b) /debug/tsdb: increase of 200s on /queries.json {inc:g} "
+          f"(exactly {len(bodies)}); devprof_invocations_total {inv:g} = devprof's report; "
+          f"cuda_memory_allocated_bytes {alloc:g} = torch.cuda.memory_allocated()", flush=True)
+    print(f"[monitor] {smi} | (b) rate(devprof_device_seconds_total[{MONITOR_RATE_S:g}s]) "
+          f"read {'during' if during else 'just after'} the traffic: {rate}; devprof's own "
+          f"device seconds over the same {MONITOR_RATE_S:g} s (the card idle before the "
+          f"traffic), a second: {window_share:.6f}; devprof's busy share over the traffic "
+          f"so far: {busy:.2%}", flush=True)
+    return out
+
+
+def _alert_states(qport):
+    status, body = _call(qport, "GET", "/alerts")
+    check(status == 200, f"/alerts: {status} {body}")
+    return {r["slo"]: r["state"] for r in body["slos"]}, body
+
+
+def _monitor_alert(qport, bodies, sink, smi):
+    """(c): a 400 ms device delay under 8 clients: query_p250 pending,
+    firing, one firing notification; cleared: resolved, one resolve
+    notification; console alerts agrees with GET /alerts. The tagged slow
+    query of (e) goes out during the delay."""
+    name = MONITOR_SLO["name"]
+    status, body = _call(qport, "POST", "/debug/faults", {"set": MONITOR_FAULT})
+    check(status == 200 and body["faults"] and body["faults"][0]["mode"] == "delay",
+          f"(c) POST /debug/faults: {status} {body}")
+    t_fault = time.monotonic()
+    stop = threading.Event()
+    res, threads = _monitor_clients(qport, bodies, MONITOR_ALERT_CLIENTS, stop)
+    trace_id = f"monitor-slow-{uuid.uuid4().hex[:8]}"
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", qport, timeout=60)
+        t0 = time.perf_counter()
+        conn.request("POST", "/queries.json", body=bodies[1],
+                     headers={"Content-Type": "application/json", "X-Request-ID": trace_id})
+        resp = conn.getresponse()
+        resp.read()
+        slow_s = time.perf_counter() - t0
+        conn.close()
+        check(resp.status == 200 and slow_s >= 0.4,
+              f"(e) the tagged query: {resp.status} in {slow_s:.3f} s")
+        seen: dict = {}
+
+        def state_is(want_state):
+            states, _ = _alert_states(qport)
+            seen.setdefault(states[name], time.monotonic())
+            return states[name] == want_state
+
+        _wait_for(lambda: state_is("firing"), 30, f"(c) {name} firing")
+        check("pending" in seen and seen["pending"] <= seen["firing"],
+              f"(c) {name} did not go pending before firing: {seen}")
+        to_pending, to_firing = seen["pending"] - t_fault, seen["firing"] - t_fault
+
+        def lines():
+            return [json.loads(x) for x in sink.read_text().splitlines()] \
+                if sink.exists() else []
+
+        _wait_for(lambda: any(r["transition"] == "pending->firing" for r in lines()), 15,
+                  "(c) the firing notification")
+        status, body = _call(qport, "POST", "/debug/faults", {"clear": True})
+        check(status == 200 and body["faults"] == [], f"(c) clearing: {status} {body}")
+        t_clear = time.monotonic()
+        seen.clear()
+        _wait_for(lambda: state_is("resolved"), 60, f"(c) {name} resolved")
+        to_resolved = seen["resolved"] - t_clear
+    finally:
+        stop.set()
+        _joined(threads)
+    _wait_for(lambda: any(r["transition"] == "firing->resolved" for r in lines()), 15,
+              "(c) the resolve notification")
+    rows = [r for r in lines() if r["slo"] == name]
+    check([r["transition"] for r in rows] == ["pending->firing", "firing->resolved"],
+          f"(c) the sink holds {[r['transition'] for r in rows]}")
+    for r in rows:
+        keys = set(r)
+        check(NOTIFY_KEYS <= keys <= NOTIFY_KEYS | NOTIFY_EVIDENCE,
+              f"(c) a notification's keys {sorted(keys)} are not the JAX notifier's")
+    check(all(st == 200 for _, st, _, _, _ in res), "(c) a query under the delay failed")
+    states, payload = _alert_states(qport)
+    rc, text = _console_out(["alerts", "list", "--url", f"http://127.0.0.1:{qport}"])
+    printed = dict(re.findall(r"\[INFO\]   (\S+): (\S+)  fast=", text))
+    check(rc == 0 and printed == states, f"(c) console alerts {printed} != GET /alerts {states}")
+    check(payload["firing"] == [] and states[name] == "resolved",
+          f"(c) after the clear: {payload['firing']}")
+    out = {"queries": len(res), "clients": MONITOR_ALERT_CLIENTS,
+           "fault_to_pending_s": to_pending, "fault_to_firing_s": to_firing,
+           "clear_to_resolved_s": to_resolved, "notifications": len(rows),
+           "firing_keys": sorted(rows[0]), "trace_id": trace_id, "tagged_query_s": slow_s}
+    print(f"[monitor] {smi} | (c) {MONITOR_FAULT} under {MONITOR_ALERT_CLIENTS} clients: "
+          f"{name} pending {to_pending:.2f} s and firing {to_firing:.2f} s after the fault "
+          f"was set; resolved {to_resolved:.2f} s after it was cleared; {len(res)} queries "
+          "all 200", flush=True)
+    print(f"[monitor] {smi} | (c) the exec sink got one firing and one resolve "
+          f"notification, keys the JAX notifier's ({len(rows[0])} in the firing one); "
+          f"console alerts list printed GET /alerts' states {states}", flush=True)
+    return out
+
+
+def _monitor_traces(dport, trace_id, smi):
+    """(e): the dashboard's collector stitched the tagged slow query."""
+    def spans():
+        status, body = _call(dport, "GET", f"/debug/traces?fleet=1&trace_id={trace_id}")
+        names = {s["name"] for s in body.get("spans", [])} if status == 200 else set()
+        return names if {"server.request", "batch.device_dispatch"} <= names else None
+
+    names, waited = _wait_for(spans, 20, "(e) the tagged query's trace on the dashboard")
+    status, body = _call(dport, "GET", "/debug/traces?fleet=1&limit=0")
+    row = next((t for t in body["traces"] if t["trace_id"] == trace_id), {})
+    out = {"trace_id": trace_id, "spans": sorted(names), "kept": row.get("kept"),
+           "duration_ms": row.get("duration_ms"), "collector": body.get("collector")}
+    print(f"[monitor] {smi} | (e) the dashboard's /debug/traces?fleet=1&trace_id={trace_id}: "
+          f"{', '.join(sorted(names))} (kept {row.get('kept')}, "
+          f"{row.get('duration_ms')} ms), found {waited:.2f} s after the check began",
+          flush=True)
+    return out
+
+
+def _monitor_fleet(dport, esrv, smi):
+    """(d): up 1 for the three targets; the Event Server stopped, its up 0
+    within two scrape intervals and event_up firing on the dashboard."""
+    def all_up():
+        status, body = _call(dport, "GET", "/debug/tsdb?name=up")
+        latest = {r["labels"]["instance"]: r["points"][-1][1]
+                  for r in body.get("series", []) if r["points"]}
+        return latest if latest == {"query": 1.0, "event": 1.0, "admin": 1.0} else None
+
+    ups, _ = _wait_for(all_up, 15, "(d) up 1 for the three targets")
+    esrv.stop()
+    t_stop, t_stop_wall = time.monotonic(), time.time()
+
+    def event_down():
+        pt = _latest(dport, "up", "instance:event")
+        return pt if pt and pt[0] > t_stop_wall and pt[1] == 0.0 else None
+
+    _, to_down = _wait_for(event_down, 10, "(d) up{instance=\"event\"} 0")
+    check(to_down <= 2 * MONITOR_SCRAPE_S,
+          f"(d) up{{instance=\"event\"}} read 0 {to_down:.2f} s after the stop, more than "
+          f"two scrape intervals")
+
+    def event_up_firing():
+        status, body = _call(dport, "GET", "/alerts")
+        return "event_up" in body.get("firing", [])
+
+    _wait_for(event_up_firing, 15, "(d) event_up firing on the dashboard")
+    to_firing = time.monotonic() - t_stop
+    out = {"up": ups, "stop_to_up0_s": to_down, "stop_to_event_up_firing_s": to_firing}
+    print(f"[monitor] {smi} | (d) the dashboard's up: {ups}; the Event Server stopped: "
+          f"up{{instance=\"event\"}} 0 after {to_down:.2f} s (scrape every "
+          f"{MONITOR_SCRAPE_S} s), event_up firing after {to_firing:.2f} s", flush=True)
+    return out
+
+
+def _monitor_admin(aport, qport, seeded, smi):
+    """(f): the admin server's JSON routes against the console's listings
+    over the same storage; the routes not ported."""
+    versions, job = seeded
+
+    def rows(text):
+        return set(re.findall(r"\[INFO\]   (\S+) \[(\w+)\]", text))
+
+    _, models = _call(aport, "GET", "/models")
+    rc, text = _console_out(["models", "list"])
+    check(rc == 0 and {(v["id"], v["status"]) for v in models} == rows(text)
+          and len(models) == len(versions), f"(f) /models {models} vs console {text}")
+    _, jobs = _call(aport, "GET", "/jobs")
+    rc, text = _console_out(["jobs", "list"])
+    check(rc == 0 and {(j["id"], j["status"]) for j in jobs} == rows(text)
+          and [j["id"] for j in jobs] == [job.id], f"(f) /jobs {jobs} vs console {text}")
+    _, online = _call(aport, "GET", "/online")
+    rc, text = _console_out(["online", "cursors"])
+    printed = re.findall(r"\[INFO\] (\S+):\n\[INFO\]   cursor: (.*)\n", text)
+    check(rc == 0 and [(c["cursor_id"], str(c["cursor"])) for c in online["consumers"]]
+          == printed, f"(f) /online {online} vs console {text}")
+    _, rollout = _call(aport, "GET", "/rollout")
+    rc, text = _console_out(["rollout", "status", "--url", f"http://127.0.0.1:{qport}"])
+    live = {v for v, st in rows(_console_out(["models", "list"])[1]) if st == "live"}
+    check(rc == 0 and "rollout state: none" in text and rollout["canary"] == []
+          and {v["id"] for v in rollout["live"]} == live == {versions[0].id},
+          f"(f) /rollout {rollout} vs console {text}")
+    refused = {}
+    for path in ("/tenants", "/evals"):
+        status, body = _call(aport, "GET", path)
+        check(status == 404 and "not ported yet" in body["message"],
+              f"(f) {path}: {status} {body}")
+        refused[path] = body["message"]
+    print(f"[monitor] {smi} | (f) the admin server's /models ({len(models)}), /jobs "
+          f"({len(jobs)}), /online ({len(online['consumers'])}) and /rollout equal console "
+          "models list, jobs list, online cursors and rollout status over the same storage; "
+          "/tenants and /evals 404 not ported yet", flush=True)
+    return {"models": len(models), "jobs": len(jobs), "consumers": len(online["consumers"]),
+            "refused": refused}
+
 
 def main() -> int:
     if _IMPORT_ERROR is not None:
@@ -6557,7 +7073,8 @@ def main() -> int:
                         ("ur sweep", phase_ur_sweep), ("ur data", phase_ur_data),
                         ("ur train", phase_ur_train), ("ur serve", phase_ur_serve),
                         ("ur times", phase_ur_times), ("classify", phase_classify),
-                        ("observe", phase_observe), ("rollout", phase_rollout)):
+                        ("observe", phase_observe), ("rollout", phase_rollout),
+                        ("monitor", phase_monitor)):
         p0, t0 = devprof.snapshot(), time.perf_counter()
         try:
             phase(report, shared)
@@ -6589,7 +7106,8 @@ def main() -> int:
                                  "online": report["online"]["launches"]["topk"],
                                  "similar": sim["serve_topk"],
                                  "templates": tml[1]["serve_topk"],
-                                 "rollout": report["rollout"]["launches"]},
+                                 "rollout": report["rollout"]["launches"],
+                                 "monitor": report["monitor"]["launches"]},
         **{which: {"train": report["train"]["launches"][which],
                    "loop": report["loop"]["launches"][which],
                    "eval dense": evd[which], "lifecycle jobs": lc[which],

@@ -14,7 +14,12 @@ data/.../api/EventServer.scala:52-640). Routes:
   POST/GET /webhooks/<name>.json → JSON connectors
   POST/GET /webhooks/<name>.form → form connectors
   GET    /metrics                → Prometheus text (requests, events)
-  GET    /debug/traces           → retained request traces
+  GET    /debug/traces           → retained request traces (?fleet=1:
+                                   the process's fleet trace collector)
+  GET    /debug/tsdb             → the process monitor's time-series history
+  GET    /alerts                 → the process monitor's alert states (the
+                                   JAX Event Server leaves this route out;
+                                   the port mounts it as its other servers do)
   GET    /debug/profile          → the device profile (empty here)
   GET/POST /debug/faults         → the fault specs; POST installs or clears
                                    them (403 without PIO_FAULTS_ADMIN=1)
@@ -37,7 +42,8 @@ JAX package spills a failed write into its write-ahead log and answers
 expired POST is always shed. The WAL spill (it serves only backends that
 can be unreachable, none of them ported), ``/segments/*``, the other
 ``/debug/*`` routes and log shipping are not ported: those routes answer
-404 saying so.
+404 saying so. The server's registry is sampled by the process monitor
+while it serves (``utils/http.py``).
 """
 
 from __future__ import annotations
@@ -230,6 +236,10 @@ class _Handler(JsonHandler):
                 self._serve_metrics()
             elif path == "/debug/traces" and method == "GET":
                 self._serve_debug_traces()
+            elif path == "/debug/tsdb" and method == "GET":
+                self._serve_debug_tsdb()
+            elif path == "/alerts" and method == "GET":
+                self._serve_alerts()
             elif path == "/debug/profile" and method == "GET":
                 self._serve_debug_profile()
             elif path == "/debug/faults" and method == "GET":

@@ -496,6 +496,11 @@ class EvaluationInstances(abc.ABC):
     @abc.abstractmethod
     def get_all(self) -> list[EvaluationInstance]: ...
 
+    def get_completed(self) -> list[EvaluationInstance]:
+        """EVALCOMPLETED rows, newest start first (the dashboard's list)."""
+        done = [i for i in self.get_all() if i.status == "EVALCOMPLETED"]
+        return sorted(done, key=lambda i: i.start_time, reverse=True)
+
     @abc.abstractmethod
     def update(self, i: EvaluationInstance) -> bool: ...
 

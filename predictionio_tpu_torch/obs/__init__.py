@@ -1,9 +1,10 @@
 """Observability of the port: the metrics registry and its Prometheus
 exposition (``registry.py``), request tracing (``tracing.py``),
 hierarchical spans with tail sampling (``spans.py``), the device
-profiler (``devprof.py``, its work counts in ``costs.py``) and the CUDA
-runtime gauges with the kernel-build counter (``cudamon.py``).
-Importing it loads no torch."""
+profiler (``devprof.py``, its work counts in ``costs.py``), the CUDA
+runtime gauges with the kernel-build counter (``cudamon.py``), and the
+monitoring plane (``monitor/``: the time-series history, SLO alerts,
+fleet scrape and the trace collector). Importing it loads no torch."""
 
 from predictionio_tpu_torch.obs.cudamon import install_cuda_gauges
 from predictionio_tpu_torch.obs.devprof import install_devprof_gauges

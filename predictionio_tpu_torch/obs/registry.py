@@ -107,6 +107,13 @@ class MetricFamily:
             )
         return tuple(str(labels[n]) for n in self.labelnames)
 
+    def remove(self, **labels: Any) -> bool:
+        """Drop one label set's child (an open-ended label value, such as
+        a resolved external alert's name, must not leave a dead series on
+        /metrics); returns whether it existed."""
+        with self._lock:
+            return self._children.pop(self._values(**labels), None) is not None
+
     def value(self, **labels: Any) -> float:
         with self._lock:
             child = self._children.get(self._values(**labels))

@@ -22,10 +22,13 @@ thread a consumer; each tick:
    re-solve is state-based, so the replay is idempotent) and the
    counters count each event once.
 
-The consumer tails the app's default channel. The tenant host, the
-replica-scoped cursor names (and their one-time migration from the
-unscoped record) and the monitor alert of the JAX package are not
-ported; a drift pause shows in `status()` and the `online_paused` gauge.
+The consumer tails the app's default channel. A drift pause shows in
+`status()` and the `online_paused` gauge, and raises the process
+monitor's external alert ``online_drift_pause/<cursor id>`` (shown at
+``GET /alerts`` and pushed through the alert sinks); `resume` resolves
+it. The tenant host and the replica-scoped cursor names (and their
+one-time migration from the unscoped record) of the JAX package are not
+ported.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from predictionio_tpu_torch.utils.env import ONLINE_KEYS, env_float
 log = logging.getLogger(__name__)
 
 CURSOR_ENTITY = "pio_online_cursor"
+DRIFT_ALERT = "online_drift_pause"
 
 _COUNTERS = ("events_consumed", "events_folded", "users_folded",
              "items_folded", "ticks")
@@ -204,15 +208,41 @@ class OnlineConsumer:
         self._paused_gauge.set(1.0, scope=self.cursor_id)
         log.warning("online fold-in paused: %s", reason)
 
+    @property
+    def alert_name(self) -> str:
+        """This consumer's drift-alert id: two consumers must not share
+        one alert (resuming one would resolve the other's page)."""
+        return f"{DRIFT_ALERT}/{self.cursor_id}"
+
     def resume(self) -> None:
         """Clear a pause; the cursor did not move, so the paused window
-        folds next (idempotent)."""
+        folds next (idempotent). Resolves the drift alert."""
         with self._lock:
             self._paused = None
             self._drift_paused = False
             self._retrain_seen_at = None
         self._paused_gauge.set(0.0, scope=self.cursor_id)
+        try:
+            from predictionio_tpu_torch.obs.monitor import get_monitor
+
+            get_monitor().resolve_alert(self.alert_name)
+        except Exception:
+            log.debug("drift alert resolve failed", exc_info=True)
         log.info("online fold-in resumed")
+
+    def _raise_drift_alert(self, drift: float) -> None:
+        try:
+            from predictionio_tpu_torch.obs.monitor import get_monitor
+
+            get_monitor().raise_alert(self.alert_name, {
+                "scope": getattr(self.host, "scope", "server"),
+                "drift": round(drift, 4),
+                "threshold": self.guard.threshold,
+                "cursor_id": self.cursor_id,
+                "hint": "fold-in paused; retrain or POST /online/resume",
+            })
+        except Exception:
+            log.exception("drift alert raise failed")
 
     # -- one tick -----------------------------------------------------------
     def _observe_runtime(self, runtime) -> None:
@@ -334,6 +364,7 @@ class OnlineConsumer:
             reason = (f"score drift {drift:.3f} > threshold "
                       f"{self.guard.threshold:.3f}")
             self.pause(reason, by_drift=True)
+            self._raise_drift_alert(drift)
             return {"paused": reason, "drift": drift}
         if not self.host.swap(runtime, new_runtime):
             # a reload swapped mid-tick: fold again on it next tick

@@ -24,14 +24,18 @@ def create_app(
     name: str,
     description: Optional[str] = None,
     access_key: Optional[str] = None,
+    app_id: int = 0,
 ) -> tuple[App, str]:
-    """Create the app, its default event namespace and its default access
-    key (`access_key`, else a generated one); returns (app, key). A key
-    that is taken rolls the app back."""
+    """Create the app (with `app_id` when it is positive, else the next
+    id), its default event namespace and its default access key
+    (`access_key`, else a generated one); returns (app, key). A key that
+    is taken rolls the app back."""
     apps = storage.get_meta_data_apps()
     if apps.get_by_name(name) is not None:
         raise CommandError(f"App {name!r} already exists.")
-    new_id = apps.insert(App(id=0, name=name, description=description))
+    new_id = apps.insert(App(id=app_id, name=name, description=description))
+    if new_id is None:
+        raise CommandError(f"App id {app_id} is already taken.")
     storage.get_events().init_app(new_id)
     key = access_key or secrets.token_urlsafe(32)
     if storage.get_meta_data_access_keys().insert(
@@ -74,9 +78,15 @@ def delete_app(storage: Storage, app: App) -> None:
     storage.get_meta_data_apps().delete(app.id)
 
 
-def delete_app_data(storage: Storage, app: App,
-                    channel_id: Optional[int] = None) -> None:
-    """Empty one channel's events, or the default channel's."""
+def delete_app_data(storage: Storage, app: App, channel_id: Optional[int] = None,
+                    all_channels: bool = False) -> None:
+    """Empty one channel's events, the default channel's, or (with
+    `all_channels`) every channel's and the default's."""
     events = storage.get_events()
+    if all_channels:
+        for ch in storage.get_meta_data_channels().get_by_app_id(app.id):
+            events.remove_app(app.id, ch.id)
+            events.init_app(app.id, ch.id)
+        channel_id = None
     events.remove_app(app.id, channel_id)
     events.init_app(app.id, channel_id)

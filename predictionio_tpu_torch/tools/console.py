@@ -46,7 +46,7 @@
     python -m predictionio_tpu_torch.tools.console metrics [--url URL] \
         [--summary]
     python -m predictionio_tpu_torch.tools.console trace list|show|export \
-        [TRACE] [--url http://localhost:8000] [--limit N] [--output F]
+        [TRACE] [--url http://localhost:8000] [--fleet] [--limit N] [--output F]
     python -m predictionio_tpu_torch.tools.console profile list|show|capture \
         [NAME] [--url http://localhost:8000] [--dir D] [--seconds S]
     python -m predictionio_tpu_torch.tools.console rollout start \
@@ -58,6 +58,17 @@
         [--url URL]
     python -m predictionio_tpu_torch.tools.console faults set SPEC \
         [--seed N] [--url URL]
+    python -m predictionio_tpu_torch.tools.console adminserver [--ip ADDR] \
+        [--port 7071]
+    python -m predictionio_tpu_torch.tools.console dashboard [--ip ADDR] \
+        [--port 9000] [--monitor-targets name=url[,name=url]]
+    python -m predictionio_tpu_torch.tools.console monitor [--targets T] \
+        [--interval S] [--duration S] [--slos JSON|@FILE] [--expr EXPR]
+    python -m predictionio_tpu_torch.tools.console alerts list|show [NAME] \
+        [--url URL]
+    python -m predictionio_tpu_torch.tools.console tsdb query [EXPR] \
+        [--name N] [--labels k:v,...] [--window S] \
+        [--agg rate|increase|quantile] [--q Q] [--last N] [--url URL]
 
     python -m predictionio_tpu_torch.tools.console train --ratings FILE \\
         --out blob.npz [--rank 10] [--iterations 20] [--lambda 0.01] \\
@@ -104,7 +115,20 @@ registered version (the newest ``trained`` one by default), print its
 state and verdict windows, or abort it. ``faults list|set|clear`` read
 and change the fault-injection specs of this process, or of a running
 server with ``--url`` (its ``POST /debug/faults`` needs
-``PIO_FAULTS_ADMIN=1`` on the server). ``deploy --feedback`` posts each
+``PIO_FAULTS_ADMIN=1`` on the server). ``adminserver`` serves the admin
+REST API (``tools/admin.py``) and ``dashboard`` the evaluation dashboard
+with the fleet monitor's panels (``tools/dashboard.py``; it scrapes
+``--monitor-targets`` or ``PIO_MONITOR_TARGETS`` and, unless
+``PIO_TRACE_COLLECT=0``, collects their traces), each until interrupted.
+``monitor`` scrapes the targets into this process's TSDB every
+``--interval``, runs the trace collector and the SLO engine over it and
+prints the fleet, each ``--expr`` and each SLO a pass. ``alerts
+list|show`` print the SLO alert states of a server (``--url``: its ``GET
+/alerts``) or of this process; ``tsdb query`` prints a server's or this
+process's time-series history (the series, one series' points or an
+aggregate, or an expression's rows); ``trace ... --fleet`` reads the
+assembled cross-process traces of a process that runs a collector.
+``deploy --feedback`` posts each
 answer to the Event Server at ``--event-server-url`` with
 ``--access-key`` as a ``predict`` event. Not ported, and refused with
 exit code 1: the fleet evaluation (an EvalSpec file as the target,
@@ -314,14 +338,19 @@ def _parser() -> argparse.ArgumentParser:
     s = tr.add_parser("list", help="list retained trace summaries")
     s.add_argument("--url", help="server base URL, e.g. http://127.0.0.1:8000")
     s.add_argument("--limit", type=int, default=20)
+    s.add_argument("--fleet", action="store_true", help="assembled cross-process "
+                   "traces (the fleet collector on a dashboard/monitor)")
     s = tr.add_parser("show", help="print one trace's span tree")
     s.add_argument("trace_id")
     s.add_argument("--url", help="server base URL")
+    s.add_argument("--fleet", action="store_true",
+                   help="look the trace up in the fleet collector")
     s = tr.add_parser("export", help="write Chrome trace-event JSON "
                       "(open at ui.perfetto.dev)")
     s.add_argument("trace_id", nargs="?", default=None,
                    help="one trace (default: all retained)")
     s.add_argument("--url", help="server base URL")
+    s.add_argument("--fleet", action="store_true", help="export assembled fleet traces")
     s.add_argument("--output", required=True)
 
     pr = sub.add_parser("profile", help="per-function device profiling: device "
@@ -375,6 +404,60 @@ def _parser() -> argparse.ArgumentParser:
     s = fa.add_parser("clear", help="clear one fault point, or all")
     s.add_argument("point", nargs="?", default=None,
                    help="fault point to clear (default: all)")
+    s.add_argument("--url", help="server base URL")
+
+    s = sub.add_parser("adminserver", help="run the admin REST API")
+    s.add_argument("--ip", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=7071)
+    s = sub.add_parser("dashboard", help="run the evaluation dashboard (+ fleet "
+                       "monitor panels when scrape targets are configured)")
+    s.add_argument("--monitor-targets", dest="monitor_targets", default=None,
+                   help="fleet scrape targets instance=url[,...] "
+                        "(default: PIO_MONITOR_TARGETS)")
+    s.add_argument("--ip", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=9000)
+
+    s = sub.add_parser("monitor", help="standalone fleet monitor: scrape /metrics "
+                       "from a target list into the TSDB and run SLO burn-rate "
+                       "alerting")
+    s.add_argument("--targets", default=None,
+                   help="instance=url[,instance=url] (default: PIO_MONITOR_TARGETS)")
+    s.add_argument("--interval", type=float, default=10.0,
+                   help="scrape/evaluate period in seconds")
+    s.add_argument("--duration", type=float, default=None,
+                   help="stop after this many seconds (default: forever)")
+    s.add_argument("--slos", default=None,
+                   help="SLO specs: JSON array or @/path.json (default: PIO_SLOS)")
+    s.add_argument("--expr", action="append", default=None, metavar="EXPR",
+                   help="series-algebra expression to evaluate and print each "
+                        "pass (repeatable)")
+
+    al = sub.add_parser("alerts", help="SLO alert states (local engine, or a "
+                        "server via --url)").add_subparsers(
+        dest="alerts_action", required=True)
+    al.add_parser("list", help="list SLOs with their alert state").add_argument(
+        "--url", help="server base URL, e.g. http://127.0.0.1:8000")
+    s = al.add_parser("show", help="one SLO's full status")
+    s.add_argument("name")
+    s.add_argument("--url", help="server base URL")
+
+    ts = sub.add_parser("tsdb", help="query the in-process time-series history "
+                        "(local, or a server via --url)").add_subparsers(
+        dest="tsdb_action", required=True)
+    s = ts.add_parser("query", help="list series, or one series' points/aggregates, "
+                      "or evaluate a series-algebra expression")
+    s.add_argument("expr", nargs="?", default=None,
+                   help="expression to evaluate, e.g. "
+                        "'sum by (instance) (rate(errors_total[5m]))' "
+                        "(omit for the series listing / --name forms)")
+    s.add_argument("--name", default=None, help="series name (omit to list all)")
+    s.add_argument("--labels", default=None, help="label filter, k:v[,k:v...]")
+    s.add_argument("--window", type=float, default=None,
+                   help="window seconds (default: full ring)")
+    s.add_argument("--agg", choices=("rate", "increase", "quantile"), default=None)
+    s.add_argument("--q", type=float, default=None,
+                   help="quantile for --agg quantile (default 0.99)")
+    s.add_argument("--last", type=int, default=20, help="points to print per series")
     s.add_argument("--url", help="server base URL")
     return ap
 
@@ -482,17 +565,11 @@ def accesskey_cmd(args: argparse.Namespace) -> int:
     return 0
 
 
-def eventserver(args: argparse.Namespace) -> int:
-    """Serve the Event Server until interrupted; the banner names the
-    bound port (with --port 0, a free one)."""
-    from predictionio_tpu_torch.data.api.server import EventServer, EventServerConfig
-
-    if args.log_url:
-        return _not_ported("eventserver --log-url (log shipping)")
-    server = EventServer(Storage(), EventServerConfig(ip=args.ip, port=args.port,
-                                                      stats=args.stats))
+def _serve_until_interrupt(server, banner: str) -> int:
+    """Start a server, print the banner with its bound port, and serve
+    until interrupted."""
     port = server.start()
-    print(f"[INFO] Event Server is listening at http://{args.ip}:{port}.", flush=True)
+    print(banner.format(port=port), flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:
@@ -500,6 +577,19 @@ def eventserver(args: argparse.Namespace) -> int:
     finally:
         server.stop()
     return 0
+
+
+def eventserver(args: argparse.Namespace) -> int:
+    """Serve the Event Server until interrupted; the banner names the
+    bound port (with --port 0, a free one)."""
+    from predictionio_tpu_torch.data.api.server import EventServer, EventServerConfig
+
+    if args.log_url:
+        return _not_ported("eventserver --log-url (log shipping)")
+    return _serve_until_interrupt(
+        EventServer(Storage(), EventServerConfig(ip=args.ip, port=args.port,
+                                                 stats=args.stats)),
+        f"[INFO] Event Server is listening at http://{args.ip}:{{port}}.")
 
 
 def status(args: argparse.Namespace) -> int:
@@ -1026,24 +1116,48 @@ def _traces_or_none(url: str, params: str) -> Optional[dict]:
         raise
 
 
+def _fleet_collector():
+    """This process's fleet trace collector, or None (after the error)
+    when no dashboard or monitor in this process runs one."""
+    from predictionio_tpu_torch.obs.monitor import get_monitor
+
+    col = get_monitor().collector
+    if col is None:
+        print("[ERROR] no fleet trace collector in this process — pass --url "
+              "pointing at a gateway started with PIO_TRACE_COLLECT=1", file=sys.stderr)
+    return col
+
+
 def trace_cmd(args: argparse.Namespace) -> int:
     """`trace list|show|export`: the retained (tail-sampled) traces of a
-    running server (--url) or of this process."""
+    running server (--url) or of this process; with --fleet, the
+    assembled cross-process traces of a fleet trace collector."""
     import json
 
     from predictionio_tpu_torch.obs.spans import get_default_recorder
 
-    url, action = args.url, args.trace_action
+    url, action, fleet = args.url, args.trace_action, args.fleet
+    pre = "fleet=1&" if fleet else ""
     if action == "list":
         if url:
-            data = _server_call(url, f"/debug/traces?limit={args.limit}")
-            summaries, cfg = data["traces"], data.get("sampling", {})
+            data = _server_call(url, f"/debug/traces?{pre}limit={args.limit}")
+            summaries = data["traces"]
+            cfg = data.get("collector" if fleet else "sampling", {})
+        elif fleet:
+            col = _fleet_collector()
+            if col is None:
+                return 1
+            summaries, cfg = col.summaries(limit=args.limit), col.status()
         else:
             rec = get_default_recorder()
             summaries, cfg = rec.summaries(limit=args.limit), rec.config()
-        print(f"[INFO] {len(summaries)} retained trace(s) (sampling: {cfg})")
+        kind = "assembled fleet" if fleet else "retained"
+        print(f"[INFO] {len(summaries)} {kind} trace(s) "
+              f"({'collector' if fleet else 'sampling'}: {cfg})")
         for s in summaries:
-            where = f" {s['server']}" if s.get("server") else ""
+            # a fleet row names every server the trace crossed
+            servers = s.get("servers") or ([s["server"]] if s.get("server") else [])
+            where = f" {','.join(servers)}" if servers else ""
             path = f" {s['path']}" if s.get("path") else ""
             err = " ERROR" if s["error"] else ""
             print(f"[INFO]   {s['trace_id']}  {s['root']}{where}{path}  "
@@ -1052,8 +1166,13 @@ def trace_cmd(args: argparse.Namespace) -> int:
         return 0
     if action == "show":
         if url:
-            spans = _traces_or_none(url, f"trace_id={args.trace_id}")
+            spans = _traces_or_none(url, f"{pre}trace_id={args.trace_id}")
             spans = spans["spans"] if spans else []
+        elif fleet:
+            col = _fleet_collector()
+            if col is None:
+                return 1
+            spans = col.get_trace(args.trace_id)
         else:
             spans = [s.to_dict() for s in get_default_recorder().get_trace(args.trace_id)]
         if not spans:
@@ -1066,7 +1185,12 @@ def trace_cmd(args: argparse.Namespace) -> int:
         params = "format=perfetto"
         if args.trace_id:
             params = f"trace_id={args.trace_id}&" + params
-        export = _traces_or_none(url, params) or {}
+        export = _traces_or_none(url, pre + params) or {}
+    elif fleet:
+        col = _fleet_collector()
+        if col is None:
+            return 1
+        export = col.perfetto_export(args.trace_id)
     else:
         export = get_default_recorder().perfetto_export(args.trace_id)
     if not export.get("traceEvents"):
@@ -1140,12 +1264,223 @@ def profile_cmd(args: argparse.Namespace) -> int:
     return 0
 
 
+def adminserver(args: argparse.Namespace) -> int:
+    from predictionio_tpu_torch.tools.admin import AdminServer
+
+    return _serve_until_interrupt(
+        AdminServer(Storage(), ip=args.ip, port=args.port),
+        f"[INFO] Admin server is listening at http://{args.ip}:{{port}}.")
+
+
+def dashboard(args: argparse.Namespace) -> int:
+    from predictionio_tpu_torch.tools.dashboard import Dashboard
+
+    return _serve_until_interrupt(
+        Dashboard(Storage(), ip=args.ip, port=args.port,
+                  monitor_targets=args.monitor_targets),
+        f"[INFO] Dashboard is listening at http://{args.ip}:{{port}}.")
+
+
+def _expr_rows(tsdb, text: str) -> None:
+    """One `monitor --expr` pass: the expression's rows over the TSDB."""
+    from predictionio_tpu_torch.obs.monitor.expr import ExprError, evaluate_rows
+
+    try:
+        rows = evaluate_rows(tsdb, text)
+    except ExprError as exc:
+        print(f"[WARN]   expr {text}: {exc}")
+        return
+    if not rows:
+        print(f"[INFO]   expr {text} = (no data)")
+        return
+    for row in rows:
+        lbls = ",".join(f"{k}={v}" for k, v in sorted(row["labels"].items()))
+        where = f"{{{lbls}}}" if lbls else ""
+        print(f"[INFO]   expr {text}{where} = {row['value']:g}")
+
+
+def monitor_cmd(args: argparse.Namespace) -> int:
+    """`monitor`: a standalone fleet-aggregation process: scrape the
+    targets' /metrics into this process's TSDB, run the trace collector
+    and the SLO engine over it, and print the fleet and alert state each
+    pass."""
+    import time
+
+    from predictionio_tpu_torch.obs.monitor import (
+        FleetScraper,
+        SLOEngine,
+        TraceCollector,
+        get_monitor,
+        load_slos,
+        parse_targets,
+    )
+    from predictionio_tpu_torch.obs.monitor.expr import ExprError, parse
+    from predictionio_tpu_torch.utils.env import monitor_knob
+
+    targets = parse_targets(args.targets or monitor_knob("PIO_MONITOR_TARGETS"))
+    if not targets:
+        print("[ERROR] no scrape targets: pass --targets name=url[,name=url] or "
+              "set PIO_MONITOR_TARGETS", file=sys.stderr)
+        return 1
+    monitor = get_monitor()
+    scraper = FleetScraper(monitor.tsdb, targets, interval_s=args.interval)
+    collector = None
+    if monitor_knob("PIO_TRACE_COLLECT"):
+        collector = TraceCollector(targets=list(targets), interval_s=args.interval)
+        monitor.set_collector(collector)
+    exprs = list(args.expr or [])
+    for e in exprs:  # a typo fails before the first scrape pass
+        try:
+            parse(e)
+        except ExprError as exc:
+            print(f"[ERROR] bad --expr {e!r}: {exc}", file=sys.stderr)
+            return 1
+    specs = load_slos(args.slos) if args.slos else load_slos()
+    engine = (SLOEngine(monitor.tsdb, specs, interval_s=max(args.interval, 1.0))
+              if specs else None)
+    deadline = time.monotonic() + args.duration if args.duration else None
+    try:
+        while True:
+            ups = scraper.scrape_once()
+            if collector is not None:
+                collector.collect_once()
+            if engine is not None:
+                engine.evaluate_once()
+            fleet = " ".join(f"{inst}={'up' if ok else 'DOWN'}"
+                             for inst, ok in sorted(ups.items()))
+            traces = (f"  traces={collector.status()['assembled']}"
+                      if collector is not None else "")
+            print(f"[INFO] {time.strftime('%H:%M:%S')} fleet: {fleet}{traces}",
+                  flush=True)
+            for e in exprs:
+                _expr_rows(monitor.tsdb, e)
+            if engine is not None:
+                for row in engine.payload()["slos"]:
+                    fast = row["fast_burn"]
+                    print(f"[INFO]   slo {row['slo']}: {row['state']} (fast burn "
+                          f"{'-' if fast is None else f'{fast:.2f}'} / threshold "
+                          f"{row['burn_threshold']})", flush=True)
+            if deadline is not None and time.monotonic() >= deadline:
+                return 0
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        if collector is not None and monitor.collector is collector:
+            monitor.set_collector(None)
+
+
+def alerts_cmd(args: argparse.Namespace) -> int:
+    """`alerts list|show`: the SLO alert states of this process, or of a
+    running server via --url (its GET /alerts)."""
+    from predictionio_tpu_torch.obs.monitor import get_monitor
+
+    try:
+        payload = (_server_call(args.url, "/alerts") if args.url
+                   else get_monitor().alerts_payload())
+    except CommandError as e:
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
+    rows = payload.get("slos", [])
+    if args.alerts_action == "list":
+        if not rows:
+            print(f"[INFO] no SLOs configured ({payload.get('message', 'set PIO_SLOS')})")
+            return 0
+        print(f"[INFO] {len(rows)} SLO(s), firing: {payload.get('firing') or 'none'}")
+        for r in rows:
+            fast, slow = r.get("fast_burn"), r.get("slow_burn")
+            print(f"[INFO]   {r['slo']}: {r['state']}  fast="
+                  f"{'-' if fast is None else f'{fast:.2f}'} slow="
+                  f"{'-' if slow is None else f'{slow:.2f}'} "
+                  f"threshold={r.get('burn_threshold')} "
+                  f"samples={r.get('fast_samples')}")
+        return 0
+    row = next((r for r in rows if r["slo"] == args.name), None)
+    if row is None:
+        print(f"[ERROR] no SLO {args.name!r}", file=sys.stderr)
+        return 1
+    print(f"[INFO] {row['slo']}:")
+    for k, v in row.items():
+        if k != "slo":
+            print(f"[INFO]   {k}: {v}")
+    return 0
+
+
+def tsdb_cmd(args: argparse.Namespace) -> int:
+    """`tsdb query`: the time-series history of this process, or of a
+    running server via --url (its GET /debug/tsdb)."""
+    from urllib.parse import urlencode
+
+    from predictionio_tpu_torch.obs.monitor import get_monitor
+
+    qs: dict = {}
+    if args.expr:
+        qs["expr"] = args.expr
+    if args.name:
+        qs["name"] = args.name
+    if args.labels:
+        qs["labels"] = args.labels
+    if args.window is not None:
+        qs["window_s"] = str(args.window)
+    if args.agg:
+        qs["agg"] = args.agg
+        if args.q is not None:
+            qs["q"] = str(args.q)
+    try:
+        payload = (_server_call(args.url, "/debug/tsdb"
+                                + (f"?{urlencode(qs)}" if qs else ""))
+                   if args.url else get_monitor().tsdb_payload(qs))
+    except CommandError as e:
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
+    if not payload.get("enabled", True):
+        print("[INFO] monitoring disabled (PIO_TSDB=0)")
+        return 0
+    if "expr" in payload:
+        if "error" in payload:
+            print(f"[ERROR] expression error: {payload['error']}", file=sys.stderr)
+            return 1
+        rows = payload.get("result") or []
+        print(f"[INFO] {payload['expr']}")
+        if not rows:
+            print("[INFO]   (no data)")
+            return 0
+        for row in rows:
+            labels = ",".join(f"{k}={v}" for k, v in sorted(row["labels"].items()))
+            print(f"[INFO]   {{{labels}}} = {row['value']:g}")
+        return 0
+    if "value" in payload:
+        print(f"[INFO] {payload['agg']}({payload['name']}"
+              + (f", window={payload.get('window_s')}s" if payload.get("window_s") else "")
+              + f") = {payload['value']}")
+        return 0
+    series = payload.get("series", [])
+    if not args.name:
+        print(f"[INFO] {payload.get('series_count', len(series))} series "
+              f"(capacity {payload.get('capacity')} pts, "
+              f"{payload.get('dropped_series', 0)} dropped at the cardinality cap)")
+        for s in series:
+            labels = ",".join(f"{k}={v}" for k, v in s["labels"].items())
+            where = f"{s['name']}{{{labels}}}" if labels else s["name"]
+            print(f"[INFO]   {where} [{s['kind']}] {s['points']} pts last={s['last']}")
+        return 0
+    for s in series:
+        labels = ",".join(f"{k}={v}" for k, v in s["labels"].items())
+        where = f"{s['name']}{{{labels}}}" if labels else s["name"]
+        print(f"[INFO] {where} [{s['kind']}] {len(s['points'])} pts:")
+        for t, v in s["points"][-(args.last or len(s["points"])):]:
+            print(f"[INFO]   {t:.3f}  {v:g}")
+    return 0
+
+
 def _run(args: argparse.Namespace) -> int:
     commands = {"app": app_cmd, "channel": channel_cmd, "accesskey": accesskey_cmd,
                 "eventserver": eventserver, "status": status, "online": online,
                 "jobs": jobs_cmd, "models": models_cmd, "metrics": metrics_cmd,
                 "trace": trace_cmd, "profile": profile_cmd,
-                "rollout": rollout_cmd, "faults": faults_cmd}
+                "rollout": rollout_cmd, "faults": faults_cmd,
+                "adminserver": adminserver, "dashboard": dashboard,
+                "monitor": monitor_cmd, "alerts": alerts_cmd, "tsdb": tsdb_cmd}
     if args.cmd in commands:
         return commands[args.cmd](args)
     if args.cmd in ("import", "export") and args.format == "parquet":

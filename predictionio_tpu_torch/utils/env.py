@@ -5,8 +5,11 @@ that it needs: the dense-ALS gate (``PIO_DENSE_ALS`` and
 ``PIO_DENSE_ALS_BYTES``), the storage base directory
 (``PIO_FS_BASEDIR``), the online consumer's knobs (``ONLINE_KEYS``), the
 canary rollout's verdict knobs (``ROLLOUT_KEYS``), fault injection
-(``FAULT_KEYS``) and the observability knobs (``PIO_DEVPROF``, the peak
-overrides, the trace sampling).
+(``FAULT_KEYS``), the observability knobs (``PIO_DEVPROF``, the peak
+overrides, the trace sampling) and the monitoring plane's
+(``MONITOR_KEYS``, read through ``monitor_knob``; the durable tier's
+``DURABLE_TSDB_KEYS`` are declared, and a set ``PIO_TSDB_DIR`` is
+refused by the monitor).
 A missing or empty value gives the caller's default; a malformed number
 gives the default with a warning, as in the JAX package. Every reader
 takes an optional `env` mapping to read instead of the process
@@ -65,6 +68,78 @@ FAULT_KEYS = {
     # set 1 to enable the guarded POST /debug/faults admin endpoint
     "PIO_FAULTS_ADMIN": "",
 }
+
+# the monitoring plane (obs/monitor/) and its defaults
+MONITOR_KEYS = {
+    # in-process monitoring plane; 0 disables sampler, TSDB and SLO engine
+    "PIO_TSDB": True,
+    # ring-buffer points retained per TSDB series
+    "PIO_TSDB_POINTS": 720,
+    # TSDB series-cardinality cap (adds beyond are dropped and counted)
+    "PIO_TSDB_MAX_SERIES": 4096,
+    # seconds between metrics-sampler snapshots into the TSDB
+    "PIO_TSDB_INTERVAL_S": 5.0,
+    # seconds between SLO burn-rate evaluation passes
+    "PIO_SLO_INTERVAL_S": 15.0,
+    # SLO specs: a JSON array of spec objects, or @/path/to/slos.json
+    "PIO_SLOS": "",
+    # comma-separated name=url /metrics scrape targets of the fleet
+    # scraper (dashboard, console monitor)
+    "PIO_MONITOR_TARGETS": "",
+    # seconds between fleet-scraper /metrics polls
+    "PIO_SCRAPE_INTERVAL_S": 10.0,
+    # cap (s) on the fleet scraper's backoff for a down target
+    "PIO_SCRAPE_BACKOFF_MAX_S": 60.0,
+    # recording rules: a JSON array of rule objects, or @/path/to/rules
+    "PIO_RECORDING_RULES": "",
+    # path persisting the TSDB rings across restarts (empty: off)
+    "PIO_TSDB_SNAPSHOT": "",
+    # seconds between TSDB snapshot writes
+    "PIO_TSDB_SNAPSHOT_INTERVAL_S": 60.0,
+    # URL POSTed one JSON alert per alert transition
+    "PIO_ALERT_WEBHOOK": "",
+    # command run per alert transition (JSON on stdin and $PIO_ALERT_JSON)
+    "PIO_ALERT_EXEC": "",
+    # set by the exec alert sink for its child: the alert payload
+    "PIO_ALERT_JSON": "",
+    # fleet trace collector on a process that scrapes targets; 0 disables it
+    "PIO_TRACE_COLLECT": True,
+    # seconds between trace-collector /debug/traces polls
+    "PIO_TRACE_COLLECT_INTERVAL_S": 2.0,
+    # seconds an orphan span fragment is held for a late root
+    "PIO_TRACE_COLLECT_HOLD_S": 15.0,
+    # assembled cross-process traces the collector retains
+    "PIO_TRACE_COLLECT_MAX": 256,
+    # slowest exemplars retained per histogram family
+    "PIO_TRACE_EXEMPLARS": 4,
+}
+
+# the durable TSDB tier's knobs: declared, and refused when PIO_TSDB_DIR
+# is set (the durable tier and its compactor are not ported)
+DURABLE_TSDB_KEYS = {
+    "PIO_TSDB_DIR": "",
+    "PIO_TSDB_FLUSH_S": 2.0,
+    "PIO_TSDB_SEAL_POINTS": 50000,
+    "PIO_TSDB_SEAL_AGE_S": 300.0,
+    "PIO_TSDB_COMPACT_S": 30.0,
+    "PIO_TSDB_CKPT_POINTS": 50000,
+    "PIO_TSDB_RETENTION_RAW": 6 * 3600.0,
+    "PIO_TSDB_RETENTION_5M": 3 * 86400.0,
+    "PIO_TSDB_RETENTION_1H": 14 * 86400.0,
+}
+
+
+def monitor_knob(name: str, env: Optional[Mapping[str, str]] = None):
+    """A monitoring-plane knob read with its declared default, typed as
+    the default is (bool, int, float or str)."""
+    default = MONITOR_KEYS[name]
+    if isinstance(default, bool):
+        return env_bool(name, default, env)
+    if isinstance(default, int):
+        return env_int(name, default, env)
+    if isinstance(default, float):
+        return env_float(name, default, env)
+    return env_str(name, default, env)
 
 
 def _get(name: str, env: Optional[Mapping[str, str]]) -> Optional[str]:

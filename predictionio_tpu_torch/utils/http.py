@@ -23,7 +23,16 @@ routes every server mounts (the JAX package's ``utils/http.py``):
   the next request on a kept-alive connection;
 - ``GET /debug/faults`` (the process's fault specs) and ``POST
   /debug/faults`` (install or clear specs; 403 unless
-  ``PIO_FAULTS_ADMIN=1`` is set on the server).
+  ``PIO_FAULTS_ADMIN=1`` is set on the server);
+- ``GET /debug/tsdb`` (the process monitor's time-series history),
+  ``GET /alerts`` (its SLO and external alert states) and ``GET
+  /debug/traces?fleet=1`` (the assembled cross-process traces of the
+  process's fleet trace collector; 503 where none runs).
+
+``ServerProcess.start`` attaches the server's registry to the process
+monitor (``obs/monitor``), whose sampler runs while a server is
+attached, and ``stop`` detaches it; the last detach joins the monitor's
+threads.
 
 Servers opt into the counters by setting `metrics` (a MetricsRegistry)
 and `metrics_label` on their ThreadedServer; trace ids and spans
@@ -43,6 +52,7 @@ from typing import Any, Optional
 from urllib.parse import parse_qsl, urlsplit
 
 from predictionio_tpu_torch.obs import devprof as _devprof
+from predictionio_tpu_torch.obs import monitor as _monitor
 from predictionio_tpu_torch.obs import registry as _obs_registry
 from predictionio_tpu_torch.obs import spans as _obs_spans
 from predictionio_tpu_torch.obs import tracing as _obs_tracing
@@ -188,7 +198,7 @@ class JsonHandler(BaseHTTPRequestHandler):
         `?trace_id=` one trace's spans, `&format=perfetto` Chrome
         trace-event JSON; `?capture=` a capture's traces; `?spans=1`
         the raw recent spans; `?min_duration_ms=` / `?error=1` filter
-        the listing."""
+        the listing; `?fleet=1` the fleet collector's assembled traces."""
         qs = dict(parse_qsl(urlsplit(self.path).query))
         recorder = _obs_spans.get_default_recorder()
         if qs.get("spans") in ("1", "true", "yes"):
@@ -198,6 +208,9 @@ class JsonHandler(BaseHTTPRequestHandler):
                 since = 0.0
             self._respond(200, {"now": time.time(),
                                 "spans": [s.to_dict() for s in recorder.recent(since)]})
+            return
+        if qs.get("fleet") in ("1", "true", "yes"):
+            self._serve_fleet_traces(qs)
             return
         capture_id = qs.get("capture")
         if capture_id:
@@ -241,6 +254,53 @@ class JsonHandler(BaseHTTPRequestHandler):
         else:
             summaries = recorder.summaries(limit=limit)
         self._respond(200, {"traces": summaries, "sampling": recorder.config()})
+
+    def _serve_fleet_traces(self, qs: dict) -> None:
+        """GET /debug/traces?fleet=1: the assembled cross-process traces
+        of this process's fleet trace collector: summaries, one stitched
+        tree by `&trace_id=`, `&format=perfetto` for the Chrome
+        trace-event export. 503 in a process that runs no collector."""
+        collector = _monitor.get_monitor().collector
+        if collector is None:
+            self._respond(503, {
+                "message": "no fleet trace collector runs in this process "
+                           "(gateways, dashboards and `pio monitor` own one)"})
+            return
+        trace_id = qs.get("trace_id")
+        if qs.get("format") == "perfetto":
+            export = collector.perfetto_export(trace_id)
+            if trace_id and not export["traceEvents"]:
+                self._respond(404, {"message": f"no trace {trace_id}"})
+            else:
+                self._respond(200, export)
+            return
+        if trace_id:
+            spans = collector.get_trace(trace_id)
+            if not spans:
+                self._respond(404, {"message": f"no trace {trace_id}"})
+            else:
+                self._respond(200, {"trace_id": trace_id, "spans": spans})
+            return
+        try:
+            limit = int(qs.get("limit", "50"))
+        except ValueError:
+            limit = 50
+        self._respond(200, {"traces": collector.summaries(limit=limit),
+                            "collector": collector.status()})
+
+    def _serve_debug_tsdb(self) -> None:
+        """GET /debug/tsdb: the process monitor's time-series history. No
+        parameters lists the series; `?name=` gives points (with
+        `labels=k:v,...`, `window_s=`, `agg=rate|increase|quantile&q=`),
+        `?expr=` evaluates an expression."""
+        qs = dict(parse_qsl(urlsplit(self.path).query))
+        self._respond(200, _monitor.get_monitor().tsdb_payload(qs))
+
+    def _serve_alerts(self) -> None:
+        """GET /alerts: the SLO engine's alert states (pending, firing,
+        resolved per declared SLO, with live burn rates) and the external
+        alerts."""
+        self._respond(200, _monitor.get_monitor().alerts_payload())
 
     def _serve_traces_capture(self) -> None:
         """POST /debug/traces/capture {"n": N}: the dispatcher keeps the
@@ -390,6 +450,7 @@ class ServerProcess:
     def __init__(self):
         self._server: Optional[ThreadedServer] = None
         self._thread: Optional[threading.Thread] = None
+        self._monitor_token: Optional[int] = None
 
     def _make_server(self) -> ThreadedServer:
         raise NotImplementedError
@@ -406,9 +467,19 @@ class ServerProcess:
             target=self._server.serve_forever, name=self._name, daemon=True
         )
         self._thread.start()
+        # the process monitor samples this server's registry while it
+        # serves: its sampler starts with the first attached server and
+        # is joined when the last one stops
+        registry = getattr(self._server, "metrics", None)
+        if registry is not None and self._monitor_token is None:
+            self._monitor_token = _monitor.get_monitor().attach(
+                getattr(self._server, "metrics_label", self._name), registry)
         return self.port
 
     def stop(self) -> None:
+        if self._monitor_token is not None:
+            _monitor.get_monitor().detach(self._monitor_token)
+            self._monitor_token = None
         if self._server is not None:
             self._server.shutdown()
             self._server.server_close()

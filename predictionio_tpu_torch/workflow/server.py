@@ -65,7 +65,9 @@ Observability (the JAX package's): the server binds a registry
 ``batch_device_seconds`` and ``batch_queue_wait_seconds`` (fed by the
 dispatcher's queue-wait spans through the span recorder's bridge, set
 on start and removed on stop); ``GET /debug/traces`` and ``GET
-/debug/profile`` read the process's span recorder and device profiler;
+/debug/profile`` read the process's span recorder and device profiler,
+``GET /debug/tsdb`` and ``GET /alerts`` the process monitor's history
+and alert states (the server's registry is sampled while it serves);
 ``POST /debug/traces/capture`` keeps the next N batches' traces (409
 without a dispatcher) and ``POST /debug/profile/capture`` opens a
 ``torch.profiler`` window on the dispatcher's thread, which runs the
@@ -77,8 +79,7 @@ that carried it.
 
 Counterpart of the JAX package's ``workflow/server.py``, cut to these
 routes: no tenancy (its fair queue, ``admission_cap`` and
-``tenant_drain``), replicas or log shipping; ``/debug/tsdb`` and
-``/alerts`` answer 404 saying they are not ported.
+``tenant_drain``), replicas or log shipping.
 """
 
 from __future__ import annotations
@@ -770,14 +771,16 @@ class _Handler(JsonHandler):
             self._reload()
         elif path == "/metrics":
             self._serve_metrics()
+        elif path == "/alerts":
+            self._serve_alerts()
         elif path == "/debug/traces":
             self._serve_debug_traces()
+        elif path == "/debug/tsdb":
+            self._serve_debug_tsdb()
         elif path == "/debug/profile":
             self._serve_debug_profile()
         elif path == "/debug/faults":
             self._serve_debug_faults()
-        elif path in NOT_PORTED_ROUTES:
-            self._respond(404, {"message": f"{path} is not ported yet to the PyTorch port"})
         else:
             self._respond(404, {"message": f"no route {path}"})
 
@@ -869,8 +872,6 @@ class _Handler(JsonHandler):
         elif path in ("/debug/traces/capture", "/debug/profile/capture",
                       "/debug/faults"):
             self._debug_post(path)
-        elif path in NOT_PORTED_ROUTES:
-            self._respond(404, {"message": f"{path} is not ported yet to the PyTorch port"})
         else:
             self._respond(404, {"message": f"no route {path}"})
 
@@ -953,9 +954,6 @@ class _Handler(JsonHandler):
                 owner.bookkeep_variant(variant, time.perf_counter() - t0, error=True)
             self._respond(500, {"message": str(e)})
 
-
-# the JAX package's routes that the port does not serve yet
-NOT_PORTED_ROUTES = ("/debug/tsdb", "/alerts")
 
 
 class _Server(ThreadedServer):

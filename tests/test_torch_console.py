@@ -13,6 +13,8 @@ server, import, export and status, against the JAX package's console.
 - The left-out parts exit 1 saying "not ported".
 - ``eventserver`` in a process of its own serves events authenticated by
   the key ``app new`` printed.
+- ``alerts``, ``tsdb``, ``monitor`` and ``trace --fleet`` over a port
+  server print what the JAX console prints over it.
 """
 
 import json
@@ -236,3 +238,110 @@ def test_eventserver_process_takes_the_app_new_key(base, capsys):
     [app] = Storage().get_meta_data_apps().get_all()
     event = Storage().get_events().get(eid, app.id)
     assert (event.entity_id, event.properties) == ("u1", {"rating": 5})
+
+
+@pytest.fixture
+def monitored_event_server(base):
+    """A port Event Server with the process monitor's sampler and SLO
+    engine on hour-long ticks (the test samples by hand), an SLO set and
+    an external alert; the monitor's settings come back after."""
+    from predictionio_tpu_torch.data.api.server import EventServer, EventServerConfig
+    from predictionio_tpu_torch.obs.monitor import SLOSpec, get_monitor
+
+    base("store")
+    mon = get_monitor()
+    saved = mon.sampler_interval_s, mon.slo_interval_s, list(mon._slos)
+    mon.sampler_interval_s = mon.slo_interval_s = 3600.0
+    srv = EventServer(Storage(), EventServerConfig(ip="127.0.0.1", port=0))
+    port = srv.start()
+    mon.set_slos([SLOSpec(name="event_avail", server="event", route="/events.json"),
+                  SLOSpec(name="ev_up", kind="up", instance="ev")])
+    mon.raise_alert("online_drift_pause/test", {"drift": 2.0})
+    try:
+        for _ in range(3):
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=10).read()
+        mon._sampler.sample_once()
+        yield f"http://127.0.0.1:{port}", mon
+    finally:
+        mon.resolve_alert("online_drift_pause/test")
+        mon.set_slos(saved[2])
+        srv.stop()
+        mon.sampler_interval_s, mon.slo_interval_s = saved[0], saved[1]
+
+
+@pytest.mark.parametrize("argv", [
+    ["alerts", "list"], ["alerts", "show", "event_avail"], ["alerts", "show", "nope"],
+    ["tsdb", "query"], ["tsdb", "query", "--name", "http_requests_total"],
+    ["tsdb", "query", "--name", "http_requests_total", "--labels", "server:event,path:/",
+     "--last", "2"],
+    ["tsdb", "query", "--name", "cuda_memory_allocated_bytes", "--agg", "quantile",
+     "--q", "0.5"],
+    ["tsdb", "query", "sum by (path) (http_requests_total)"],
+    ["tsdb", "query", "rate(http_requests_total[5m]"],
+])
+def test_alerts_and_tsdb_over_a_server_match_jax(monitored_event_server, capsys, argv):
+    """Both consoles read the port server's /alerts and /debug/tsdb and
+    print the same lines and exit codes."""
+    url, _mon = monitored_event_server
+    got = _run(console.main, argv + ["--url", url], capsys)
+    want = _run(_jax_console(), argv + ["--url", url], capsys)
+    assert got == want
+    if argv == ["alerts", "list"]:
+        assert "'online_drift_pause/test'" in got[1].splitlines()[0]
+        assert "event_avail: inactive" in got[1]
+
+
+def test_alerts_and_tsdb_of_this_process(monitored_event_server, capsys):
+    _url, mon = monitored_event_server
+    code, out, _ = _run(console.main, ["alerts", "list"], capsys)
+    first = out.splitlines()[0]
+    assert code == 0 and "2 SLO(s), firing: [" in first
+    assert "'online_drift_pause/test'" in first
+    code, out, _ = _run(console.main, ["tsdb", "query", "--name", "http_requests_total",
+                                       "--labels", "server:event", "--agg", "increase"],
+                        capsys)
+    assert code == 0 and out.startswith("[INFO] increase(http_requests_total, window=300.0s)")
+    code, _, err = _run(console.main, ["trace", "list", "--fleet"], capsys)
+    assert code == 1 and "no fleet trace collector" in err
+
+
+def test_monitor_and_fleet_traces_match_jax(monitored_event_server, capsys):
+    """`monitor` scrapes a live and a dead target for one pass in each
+    console; `trace list --fleet --url` reads a collector's traces."""
+    from predictionio_tpu_torch.obs.monitor import TraceCollector
+
+    url, mon = monitored_event_server
+    slos = json.dumps([{"name": "ev_up", "kind": "up", "instance": "ev"}])
+    argv = ["monitor", "--targets", f"ev={url},dead=http://127.0.0.1:1", "--interval",
+            "0.2", "--duration", "0.01", "--slos", slos, "--expr", 'up{instance="ev"}',
+            "--expr", 'sum(up{instance="dead"})']
+    from predictionio_tpu.obs.monitor import get_monitor as jax_monitor
+
+    outs = []
+    try:
+        for main in (console.main, _jax_console()):
+            code, out, err = _run(main, argv, capsys)
+            assert code == 0, err
+            # the clock, and the traces each collector assembled from its
+            # own process's recorder, which earlier tests filled
+            outs.append([re.sub(r"traces=\d+", "traces=N",
+                                re.sub(r"\d\d:\d\d:\d\d", "T", line))
+                         for line in out.splitlines()])
+    finally:
+        jax_monitor().set_collector(None)  # the JAX console leaves its collector set
+    assert outs[0] == outs[1]
+    assert outs[0][0] == "[INFO] T fleet: dead=DOWN ev=up  traces=N"
+    assert '[INFO]   expr up{instance="ev"}{instance=ev} = 1' in outs[0]
+    assert mon.collector is None
+    col = TraceCollector(targets=[("ev", url)], interval_s=1.0, slow_ms=0.0)
+    mon.set_collector(col)
+    try:
+        col.collect_once()
+        for argv in (["trace", "list", "--fleet"], ["trace", "show", "--fleet", "nope"]):
+            got = _run(console.main, argv + ["--url", url], capsys)
+            assert got[0] == (0 if argv[1] == "list" else 1)
+            if argv[1] == "list":
+                assert got == _run(_jax_console(), argv + ["--url", url], capsys)
+                assert "assembled fleet trace(s)" in got[1]
+    finally:
+        mon.set_collector(None)

@@ -12,7 +12,8 @@
   the order they first appear, and the servers' own clocks
   (creationTime of events posted without one, stats' startTime) are
   blanked.
-- The routes the port leaves out answer 404 saying so.
+- The routes the port leaves out answer 404 saying so; the monitor's
+  ``/debug/tsdb`` and ``/alerts`` are served.
 """
 
 import base64
@@ -28,6 +29,7 @@ from predictionio_tpu_torch.data.api.plugins import INPUT_BLOCKER
 from predictionio_tpu_torch.data.api.server import EventServer, EventServerConfig
 from predictionio_tpu_torch.data.storage import base as tbase
 from predictionio_tpu_torch.data.storage import registry as treg
+from predictionio_tpu_torch.obs.monitor import get_monitor
 
 
 def req(port, path, method="GET", body=None, form=False, raw=None, headers=None):
@@ -263,17 +265,22 @@ def test_webhooks_mailchimp_form(server):
 
 @pytest.mark.parametrize("path", ["/metrics", "/debug/traces", "/segments/stats"])
 def test_left_out_routes_say_not_ported(server, path):
-    """The routes still left out answer 404 saying so: /segments/* and
-    /debug/tsdb. /metrics and /debug/traces are served now
-    (tests/test_torch_observability.py), and so is /debug/faults
-    (tests/test_torch_resilience.py), so for those the case asks the
-    unported neighbour."""
-    left_out = {"/metrics": "/debug/tsdb", "/debug/traces": "/debug/tsdb"}.get(path, path)
-    status, body = req(server, left_out + "?accessKey=KEY")
+    """The routes still left out answer 404 saying so: /segments/*. The
+    observability routes are served: /metrics and /debug/traces
+    (tests/test_torch_observability.py), /debug/faults
+    (tests/test_torch_resilience.py), and the process monitor's
+    /debug/tsdb and /alerts; the cases of the served routes check them
+    and the unported neighbour."""
+    status, body = req(server, "/segments/stats?accessKey=KEY")
     assert status == 404 and "not ported" in body["message"]
-    if path != left_out:
-        r = urllib.request.urlopen(f"http://127.0.0.1:{server}{path}", timeout=10)
-        assert r.status == 200 and r.read()
+    if path == "/segments/stats":
+        return
+    r = urllib.request.urlopen(f"http://127.0.0.1:{server}{path}", timeout=10)
+    assert r.status == 200 and r.read()
+    status, body = req(server, "/debug/tsdb")
+    assert status == 200 and body["enabled"] and "series" in body
+    status, body = req(server, "/alerts")
+    assert status == 200 and body["firing"] == get_monitor().alerts_payload()["firing"]
 
 
 def test_stats_off_by_default():

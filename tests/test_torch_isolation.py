@@ -70,14 +70,17 @@ OBS_MODULES = ["predictionio_tpu_torch.obs", "predictionio_tpu_torch.obs.tracing
                "predictionio_tpu_torch.obs.cudamon", "predictionio_tpu_torch.obs.costs",
                "predictionio_tpu_torch.obs.registry", "predictionio_tpu_torch.utils.http",
                "predictionio_tpu_torch.resilience.deadline",
-               "predictionio_tpu_torch.resilience.faults"]
+               "predictionio_tpu_torch.resilience.faults",
+               "predictionio_tpu_torch.obs.monitor", "predictionio_tpu_torch.obs.monitor.expr",
+               "predictionio_tpu_torch.tools.admin", "predictionio_tpu_torch.tools.dashboard"]
 
 
 @pytest.mark.parametrize("module", OBS_MODULES)
 def test_observability_modules_load_neither_jax_nor_torch(module):
-    """The observability and resilience modules, their registries' text
-    and the device profiler's report load no jax, nothing of the JAX
-    package and no torch: the Event Server mounts them without torch."""
+    """The observability, resilience and monitoring modules and the
+    operator servers, their registries' text and the device profiler's
+    report load no jax, nothing of the JAX package and no torch: the
+    Event Server mounts them without torch."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"

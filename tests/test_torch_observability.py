@@ -13,7 +13,8 @@ against the JAX package.
   counters equal the JAX Event Server's after the same requests; the
   query server's request histogram, the traces' filters and the
   Perfetto export, the trace capture (409 without a dispatcher), the
-  routes left out saying so.
+  process monitor's ``/debug/tsdb`` and ``/alerts``, the routes left out
+  saying so.
 - The console's ``metrics``, ``trace`` and ``profile`` over a running
   port server print what the JAX console prints over it.
 """
@@ -171,9 +172,20 @@ def test_event_server_metrics_equal_the_jax_servers(tmp_path):
         assert status == 200 and json.loads(body)["totals"]["invocations"] >= 0
         status, body, _ = _request(ports[1], "/debug/traces")
         assert status == 200 and "sampling" in json.loads(body)
-        for left_out in ("/debug/tsdb", "/segments/stats"):
-            status, body, _ = _request(ports[1], left_out)
-            assert status == 404 and "not ported" in json.loads(body)["message"]
+        # the process monitor samples the server's registry: one tick now,
+        # then /debug/tsdb holds the requests counted above
+        from predictionio_tpu_torch.obs.monitor import get_monitor
+
+        get_monitor()._sampler.sample_once()
+        status, body, _ = _request(
+            ports[1], "/debug/tsdb?name=http_requests_total&labels=server:event,status:201")
+        rows = json.loads(body)["series"]
+        assert status == 200 and [r["points"][-1][1] for r in rows] == [3.0]
+        status, body, _ = _request(ports[1], "/alerts")
+        assert status == 200 and json.loads(body)["firing"] == \
+            get_monitor().alerts_payload()["firing"]
+        status, body, _ = _request(ports[1], "/segments/stats")
+        assert status == 404 and "not ported" in json.loads(body)["message"]
         status, body, _ = _request(ports[1], "/debug/faults")
         assert status == 200 and json.loads(body) == {"faults": []}
     finally:
@@ -270,9 +282,21 @@ def test_query_server_routes(query_server):
     status, body, _ = _request(port, "/debug/profile")
     rows = {r["name"]: r for r in json.loads(body)["executables"]}
     assert rows["als.recommend_serving"]["invocations"] >= 6
-    for left_out in ("/debug/tsdb", "/alerts"):
-        status, body, _ = _request(port, left_out)
-        assert status == 404 and "not ported" in json.loads(body)["message"]
+    # /debug/tsdb and /alerts read the process monitor, which samples the
+    # server's registry while it serves
+    from predictionio_tpu_torch.obs.monitor import get_monitor
+
+    get_monitor()._sampler.sample_once()
+    status, body, _ = _request(port, "/debug/tsdb?name=http_requests_total"
+                                     "&labels=server:query,path:/queries.json,status:200")
+    rows = json.loads(body)["series"]
+    assert status == 200 and [r["points"][-1][1] for r in rows] == [6.0]
+    status, body, _ = _request(port, "/debug/tsdb?expr=sum(http_request_seconds_count"
+                                     "{server=\"query\",path=\"/queries.json\"})")
+    assert status == 200 and json.loads(body)["result"] == [{"labels": {}, "value": 7.0}]
+    status, body, _ = _request(port, "/alerts")
+    assert status == 200 and json.loads(body)["firing"] == \
+        get_monitor().alerts_payload()["firing"]
     status, body, _ = _request(port, "/debug/faults")
     assert status == 200 and json.loads(body) == {"faults": []}
 

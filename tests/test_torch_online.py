@@ -22,7 +22,9 @@
 - The consumer's mechanics (the JAX tests/test_online.py:366-527 cases
   on the port): exact resume, ``from_latest``, crash before the persist
   replayed once, compaction, pause and resume; ``status()`` reads its
-  tick and drift figures from the metrics registry.
+  tick and drift figures from the metrics registry; a drift pause raises
+  the monitor alert ``online_drift_pause/<cursor>`` with the JAX
+  consumer's payload and ``resume`` resolves it.
 - ``find_edges`` (the fold's one-call history read) equals per-id reads
   of the JAX stores, and the sqlite store's one-step JSON reads
   (``find_edges``, ``find_since``) equal its row-by-row reads field for
@@ -748,3 +750,43 @@ def test_metrics_registry_matches_jax():
     assert g.value(scope="x") == 2.5 and t.gauge("g", "", ("scope",)) is g
     with pytest.raises(ValueError):
         g.set(1.0, other="x")  # undeclared label
+
+
+def test_drift_pause_raises_the_jax_alert_and_resume_resolves_it(monkeypatch):
+    """A drift breach pauses fold-in and raises `online_drift_pause/<cursor>`
+    on the process monitor with the JAX consumer's payload; `resume`
+    resolves it (dropped from /alerts, its firing gauge removed)."""
+    from types import SimpleNamespace
+
+    from predictionio_tpu.obs.monitor import get_monitor as jax_monitor
+    from predictionio_tpu.online import consumer as jconsumer
+    from predictionio_tpu_torch.obs import get_default_registry
+    from predictionio_tpu_torch.obs.monitor import get_monitor
+
+    c = _consumer(_mem_storage(), drift_threshold=0.5)
+    monkeypatch.setattr(c.guard, "check", lambda factors: 2.345678)
+    out = c._guard_and_publish(object(), object(), SimpleNamespace(factors=None), None)
+    assert out == {"paused": "score drift 2.346 > threshold 0.500", "drift": 2.345678}
+    assert c.alert_name == f"online_drift_pause/{c.cursor_id}"
+    payload = get_monitor().alerts_payload()
+    row = next(r for r in payload["alerts"] if r["slo"] == c.alert_name)
+    assert c.alert_name in payload["firing"]
+    gauge = get_default_registry().gauge("alerts_firing", "", ("slo",))
+    assert gauge.value(slo=c.alert_name) == 1.0
+    # the JAX consumer's alert for the same figures, on the JAX monitor
+    stub = SimpleNamespace(alert_name=c.alert_name, host=c.host, guard=c.guard,
+                           cursor_id=c.cursor_id)
+    jconsumer.OnlineConsumer._raise_drift_alert(stub, 2.345678)
+    jmon = jax_monitor()
+    try:
+        jrow = next(r for r in jmon.alerts_payload()["alerts"] if r["slo"] == c.alert_name)
+    finally:
+        jmon.resolve_alert(c.alert_name)
+    assert {k: v for k, v in row.items() if k != "since"} == {
+        k: v for k, v in jrow.items() if k != "since"}
+    assert row["drift"] == 2.3457 and row["state"] == "firing" and row["external"]
+    c.resume()
+    payload = get_monitor().alerts_payload()
+    assert c.alert_name not in payload["firing"]
+    assert all(r["slo"] != c.alert_name for r in payload["alerts"])
+    assert gauge.value(slo=c.alert_name) == 0.0 and not gauge.remove(slo=c.alert_name)
