@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ALS train (dense, windowed, scatter) and
 serve paths, the storage-backed train → deploy → query loop, the grid
-evaluation over the same storage, the Event Server feeding train →
+evaluation over the same storage, the fleet evaluation and ``tune`` with
+their shard children, the Universal Recommender's self-cleaning, the
+Event Server feeding train →
 deploy, the online fold-in of live events into the served model, and
 the model lifecycle (train jobs, checkpoints, warm starts, versions),
 item properties with the similar-product and e-commerce templates, the
@@ -128,6 +130,44 @@ Phases, in order; any failure prints what failed and exits non-zero:
             ``batch_predict`` seconds per model, metric seconds,
             eval_wall_sec, each point's score and the best point, each
             line with the card's name and power limit.
+10b. fleet eval  phase 10's grid as a fleet evaluation over the loop's
+            storage, with its shard children on the card. (a) ``console
+            eval run`` of an EvalSpec (the template's variant reading
+            through the data view, EVAL_GRID's axes in its order, 5 folds,
+            the template's Precision@10 by its class) with
+            ``--local-workers 2``: one grid group, so 5 shard
+            jobs (one a fold), each child on the card with 2 x the
+            iterations of all 8 points of block_partials and of the
+            combine, one select a point, no dense pass (its log's launch
+            line); every point's combined score within 1e-5 of phase 10's
+            MetricEvaluator score, the same winner; ``eval list``, ``eval
+            status`` and an ``AdminServer``'s ``GET /evals/<run>`` (the
+            driver's status). (b) ``console tune`` of the same space with
+            folds 0: one shard of all folds, its scores and winner (a)'s,
+            the winner parked as engine ml1m-tune's preset; a periodic
+            train job of (a)'s worst point through ``jobs worker --once``,
+            then its next run, which carries the preset and the run's
+            marker, in a child on the card: the winner's params trained,
+            a dense pass an iteration, its version linked to the run; the
+            dashboard's fleet-evaluation panel shows both runs and the
+            link. (c) The offline prior: the preset's model live behind a
+            ``QueryServer`` on the card, a canary of the worst point's
+            model, linked to a completed one-point run with (a)'s score
+            for it: the bake stretched 2x; with ``PIO_TUNE_PRIOR=0``
+            unchanged. The phase's jobs, versions, rollout records and
+            preset are then purged. (d) The UR configuration's events
+            (phase 21's generator, from UR_SEED, in a memory store of their
+            own) with 2,000 items' ``$set``/``$unset``/``$delete``
+            histories, 5,000 exact duplicates and 3,000 events 90 days
+            before the window: ``URDataSource``'s event window cleans them,
+            and its counters and surviving buys and views equal a plain
+            numpy cleaning's, the items' properties unchanged; the UR
+            trained on the card on the cleaned store holds its tables to
+            a card train on the plainly cleaned events (the LLR bar of
+            phase 22), and 64 queries, one masked select launch, equal
+            the plain version on the CPU. Prints the runs' and shards'
+            seconds, the jobs', the bakes and the cleaning's, each line
+            with the card's name and power limit.
 11. lifecycle the model lifecycle over the loop's storage and app, with
             the train job's child on the card: ``jobs submit`` of the
             template's variant with checkpoint_every 5 and ``jobs worker
@@ -335,6 +375,11 @@ Phases, in order; any failure prints what failed and exits non-zero:
             ``torch.topk`` over
             ``torch.where(mask, NEG_INF, scores)`` as a yardstick the port
             never calls, the bound, and the history scoring outside it.
+            Then batch invariance on the card: 64 real users' rows of
+            ``history_scores`` at B = 64 bit-equal to each user scored
+            alone, the masked select's values and indices likewise, and
+            the UR's answers through ``batch_predict`` to 64 queries equal
+            to each query answered alone, scores bit for bit.
 25. classify the classification and regression templates (no kernel of
             the five runs here; their models are torch ops). (a) UCI
             Covertype's shape from CLASSIFY_SEED: 581,012 cells in the 7
@@ -356,7 +401,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             float64 numpy ridge, test RMSE within 0.1 % of its; the l2
             grid {1e-6, 1e-3, 1e-1} equal to its per-point trains (rtol
             1e-4). (c) Through storage under ``build/classify/``: the
-            first 60,000 cells and 30,000 songs as ``$set`` events
+            first 12,000 cells and 6,000 songs as ``$set`` events
             (``console import``), read back exactly by the trains'
             ``aggregate_properties``; the classification variant
             (``randomforest``, ``logreg``, ``naive``; FirstServing) and
@@ -474,8 +519,9 @@ Phases, in order; any failure prints what failed and exits non-zero:
             intervals and ``event_up`` fires. (f) The admin server's
             ``/models``, ``/jobs``, ``/online`` and ``/rollout`` equal
             ``console models list``, ``jobs list``, ``online cursors`` and
-            ``rollout status`` over the same storage; ``/tenants`` and
-            ``/evals`` 404 not ported yet. (g) The phase's top-k launches
+            ``rollout status`` over the same storage, ``/evals`` (no run)
+            ``eval list``; ``/tenants`` 404 not ported yet. (g) The
+            phase's top-k launches
             = select launches = the device batches the query server
             booked. (h) Every server stopped and the dashboard child
             exited 0 on SIGINT: no sampler, engine, scraper or collector
@@ -598,6 +644,8 @@ try:
         ServerApplyHost,
     )
     from predictionio_tpu_torch.deploy.registry import LifecycleRecordStore, ModelRegistry
+    from predictionio_tpu_torch.evalfleet import EvalDriver, EvalRecordStore, PresetStore
+    from predictionio_tpu_torch.data.aggregator import aggregate_properties
     from predictionio_tpu_torch.obs.monitor import AlertNotifier, SLOSpec, get_monitor
     from predictionio_tpu_torch.obs.monitor import THREAD_NAMES as MONITOR_THREAD_NAMES
     from predictionio_tpu_torch.online.consumer import CURSOR_ENTITY
@@ -765,7 +813,7 @@ YEAR_ATTRS = (tuple(f"timbre_avg_{i}" for i in range(1, 13))
               + tuple(f"timbre_cov_{i}" for i in range(1, 79)))
 RIDGE_L2, RIDGE_GRID = 1e-6, (1e-6, 1e-3, 1e-1)
 # the store path: entities cut to fit the script's time limit
-CLASSIFY_ENTITIES, REGRESS_ENTITIES, CLASSIFY_FOLDS = 60_000, 30_000, 5
+CLASSIFY_ENTITIES, REGRESS_ENTITIES, CLASSIFY_FOLDS = 12_000, 6_000, 5
 NB_GRID = (0.5, 1.0, 2.0, 4.0)
 LR_GRID = ((0.5, 1e-4), (0.3, 1e-3), (0.8, 1e-2))  # (lr, l2)
 CLASSIFY_T0_MS = 1_262_304_000_000  # 2010-01-01, epoch ms
@@ -2327,6 +2375,486 @@ def _windowed_held(staged_w, k, rng, tally, label):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 10b: the fleet evaluation, `tune`, the offline prior, UR self-cleaning
+# ---------------------------------------------------------------------------
+
+
+FLEET_ENGINE, TUNE_ENGINE = "ml1m-fleet", "ml1m-tune"
+FLEET_WORKERS = 2
+FLEET_FACTORY = "predictionio_tpu_torch.engines.recommendation.RecommendationEngine"
+FLEET_METRIC = {"class": "predictionio_tpu_torch.engines.recommendation.engine.PrecisionAtK",
+                "params": {"k": EVAL_PRECISION_K}}
+FLEET_BAKE_S = 60.0  # the canary's asked bake in (c); the prior doubles it
+UR_CLEAN_PROPERTY_ITEMS = 2_000  # items given $set/$unset/$delete histories
+UR_CLEAN_DUPLICATES, UR_CLEAN_OLD = 5_000, 3_000  # copies; events past the window
+UR_CLEAN_QUERIES = 64
+_SHARD_LAUNCHES = re.compile(
+    r"kernel launches: dense row (\d+), col (\d+); windowed partials (\d+), combine "
+    r"(\d+); top-k (\d+) \(select (\d+), sort (\d+)\) on (\S+)")
+
+
+def _children_import_this_checkout():
+    """Job children run `python -m predictionio_tpu_torch...`: they import
+    this checkout wherever the script was started from."""
+    root = str(Path(__file__).resolve().parent)
+    paths = [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+    if root not in paths:
+        os.environ["PYTHONPATH"] = os.pathsep.join([root] + paths)
+
+
+def _als_variant(engine, rank, iterations, lam, **datasource):
+    """The template's variant at one point; its children read the loop's
+    events through the data view (`use_data_view`): the first child
+    folds the store into the view's npz, the others load that frame."""
+    return {"id": engine, "engineFactory": FLEET_FACTORY,
+            "datasource": {"params": {"app_name": LOOP_APP, "event_names": ["rate"],
+                                      "use_data_view": True, **datasource}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": rank, "num_iterations": iterations, "lambda_": lam}}]}
+
+
+def _fleet_spec(engine, folds):
+    """Phase 10's grid as an EvalSpec: its read_eval params (and the data
+    view, whose frame is the store's), its axes in EVAL_GRID's order,
+    Precision@k by the template's own metric class."""
+    return {"variant": _als_variant(engine, *EVAL_GRID[0], eval_k=EVAL_FOLDS,
+                                    goal_threshold=EVAL_THRESHOLD, eval_num=EVAL_NUM),
+            "axes": [{"path": f"algorithms.0.params.{name}",
+                      "values": sorted({p[n] for p in EVAL_GRID})}
+                     for n, name in enumerate(("rank", "num_iterations", "lambda_"))],
+            "metric": FLEET_METRIC, "folds": folds}
+
+
+def _shard_launches(queue, run):
+    """Each shard job of `run`: completed, and the kernel launches its
+    child's log names, on the card; returns {job id: counts}."""
+    out = {}
+    for job_id, meta in run.shards.items():
+        job = queue.get(job_id)
+        check(job is not None and job.kind == "eval" and job.status == "completed",
+              f"shard {job_id}: {job and (job.kind, job.status, job.last_error)}")
+        m = _SHARD_LAUNCHES.search(_job_log(job, job.attempt))
+        check(m is not None, f"shard {job_id}: no launch line in its log")
+        *counts, device = m.groups()
+        check(device == "cuda:0", f"shard {job_id} ran on {device}, not the card")
+        row, col, partials, combine, topk, select, sort = map(int, counts)
+        points = meta["point_indices"]
+        folds = EVAL_FOLDS if meta["fold"] is None else 1  # a fold, or all of them
+        want_pass = folds * 2 * sum(EVAL_GRID[i][1] for i in points)
+        check(partials == combine == want_pass and row == col == 0,
+              f"shard {job_id}: launches row/col {row}/{col}, partials/combine "
+              f"{partials}/{combine} != 2 x iterations x folds ({want_pass}) on the "
+              "windowed route")
+        check(topk == select == folds * len(points) and sort == 0,
+              f"shard {job_id}: top-k {topk} (select {select}, sort {sort}) != one "
+              f"select a (fold, point) ({folds * len(points)})")
+        wall = (datetime.datetime.fromisoformat(job.finished_at)
+                - datetime.datetime.fromisoformat(job.started_at)).total_seconds()
+        out[job_id] = {"worker": job.worker_id, "attempt": job.attempt,
+                       "partials": partials, "combine": combine, "topk": topk,
+                       "select": select, "wall_s": wall}
+    return out
+
+
+def phase_fleet_eval(report, shared):
+    """Phase 10b: phase 10's grid as a fleet evaluation over the loop's
+    storage (shard children on the card), `tune` and its preset retrain,
+    the offline prior, and the UR's self-cleaning."""
+    t_phase = time.perf_counter()
+    _children_import_this_checkout()
+    fl: dict = {}
+    with _loop_storage():
+        storage = Storage()
+        queue = JobQueue(storage)
+        fl["a"] = _fleet_run(report, storage, queue)
+        fl["b"] = _fleet_tune(report, storage, queue, fl["a"])
+        fl["c"] = _fleet_prior(storage, fl["b"])
+        _fleet_cleanup(storage, queue)
+    fl["d"] = _ur_self_cleaning()
+    fl["phase_s"] = time.perf_counter() - t_phase
+    fl["nvidia_smi"] = smi = report["nvidia_smi"]
+    report["fleet_eval"] = fl
+    a, b, c, d = fl["a"], fl["b"], fl["c"], fl["d"]
+    print(f"[fleet eval] {smi} | (a) eval run {a['run']}: {a['points']} points, "
+          f"{a['groups']} group x {a['folds']} folds = {len(a['shards'])} shard children "
+          f"on the card under {FLEET_WORKERS} local workers in {a['wall_s']:.2f} s (shard "
+          f"s {', '.join(f'{v['wall_s']:.2f}' for v in a['shards'].values())}); every "
+          f"point within {a['max_abs_diff']:.3g} of phase 10's MetricEvaluator, winner "
+          f"point {a['winner']}; launches partials/combine {a['launches']['partials']}/"
+          f"{a['launches']['combine']}, select {a['launches']['topk']}", flush=True)
+    print(f"[fleet eval] {smi} | (b) tune run {b['run']}: 1 shard of all folds in "
+          f"{b['wall_s']:.2f} s, winner point {b['winner']} parked; periodic job {b['job_a']} "
+          f"trained point {b['point_a']} in {b['job_a_s']:.2f} s, its next run "
+          f"{b['job_n']} the preset in {b['job_n_s']:.2f} s (dense launches "
+          f"{b['launches_n']['row']}/{b['launches_n']['col']}), version {b['version_n']} "
+          f"linked to the run; the dashboard shows both", flush=True)
+    print(f"[fleet eval] {smi} | (c) offline prior: candidate {c['candidate']} "
+          f"({c['candidate_score']:.6g}) below live {c['live']} ({c['live_score']:.6g}): "
+          f"bake {c['bake_stretched']:g} s for {FLEET_BAKE_S:g} asked; with "
+          f"PIO_TUNE_PRIOR=0 {c['bake_off']:g} s", flush=True)
+    print(f"[fleet eval] {smi} | (d) UR self-cleaning of {d['events']} events: "
+          f"{d['counters']} in {d['clean_s']:.2f} s (as the plain numpy cleaning "
+          f"predicts); tables of the card train on the cleaned store vs on the plainly "
+          f"cleaned events: max |dv| {d['max_abs_diff']:.3g}, {d['index_mismatches']} "
+          f"index mismatches (atol {d['atol']:.3g}); {UR_CLEAN_QUERIES} queries through "
+          f"masked_select ({d['launches']} launches) equal to the plain version; phase "
+          f"{fl['phase_s']:.1f} s", flush=True)
+
+
+def _fleet_run(report, storage, queue):
+    """(a) `eval run spec.json --local-workers 2`: every point's score held
+    to phase 10's MetricEvaluator score (1e-5), the same winner, each
+    shard child's launches; `eval list`, `eval status`, GET /evals/<run>."""
+    spec_path = LOOP_DIR / "fleet_spec.json"
+    spec_path.write_text(json.dumps(_fleet_spec(FLEET_ENGINE, EVAL_FOLDS)))
+    t0 = time.perf_counter()
+    rc, out = _console_out(["eval", "run", str(spec_path), "--local-workers",
+                            str(FLEET_WORKERS), "--timeout", "900"])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"eval run exited {rc}")
+    run_id = re.search(r"eval-[0-9a-f]{12}", out).group()
+    driver = EvalDriver(storage)
+    run = driver.records.get_run(run_id)
+    check(run.status == "completed" and run.num_points == len(EVAL_GRID)
+          and run.num_groups == 1 and run.num_folds == EVAL_FOLDS
+          and len(run.shards) == run.num_groups * EVAL_FOLDS,
+          f"run {run_id}: {run.status}, {run.num_points} points, {run.num_groups} groups, "
+          f"{len(run.shards)} shards ({run.last_error})")
+    scores = driver.scores(run)
+    check([tuple(s["params"]["algorithms"][0]["params"][k] for k in
+                 ("rank", "num_iterations", "lambda_")) for s in scores] == list(EVAL_GRID),
+          "the fleet's points are not phase 10's grid in its order")
+    ev = report["eval"]
+    diffs = [abs(s["score"] - want) for s, want in zip(scores, ev["scores"])]
+    check(all(s["complete"] for s in scores) and max(diffs) <= 1e-5,
+          f"fleet scores {[s['score'] for s in scores]} vs MetricEvaluator "
+          f"{ev['scores']}: largest difference {max(diffs):.3g} > 1e-5")
+    check(run.winner_index == ev["best_index"],
+          f"fleet winner {run.winner_index} != MetricEvaluator's {ev['best_index']}")
+    shards = _shard_launches(queue, run)
+    launches = {k: sum(v[k] for v in shards.values())
+                for k in ("partials", "combine", "topk")}
+    n_it = sum(it for _, it, _ in EVAL_GRID)
+    check(launches["partials"] == EVAL_FOLDS * 2 * n_it
+          and launches["topk"] == EVAL_FOLDS * len(EVAL_GRID),
+          f"fleet launches {launches}")
+    rc, listing = _console_out(["eval", "list", "--status", "completed"])
+    check(rc == 0 and run_id in listing, f"eval list lacks {run_id}")
+    rc, status_out = _console_out(["eval", "status", run_id])
+    check(rc == 0 and f"progress   {len(EVAL_GRID)}/{len(EVAL_GRID)} points" in status_out
+          and status_out.count("completed") == 1 + len(run.shards),
+          "eval status does not show every point and shard done")
+    admin = AdminServer(storage, ip="127.0.0.1", port=0)
+    port = admin.start()
+    try:
+        code, body = _call(port, "GET", f"/evals/{run_id}")
+        code_all, listing_body = _call(port, "GET", "/evals")
+    finally:
+        admin.stop()
+    check(code == 200 and body == json.loads(json.dumps(driver.status(run_id))),
+          f"GET /evals/{run_id}: {code}, not the eval driver's status")
+    check(code_all == 200 and run_id in [r["id"] for r in listing_body], "GET /evals")
+    return {"run": run_id, "points": run.num_points, "groups": run.num_groups,
+            "folds": run.num_folds, "wall_s": wall, "scores": [s["score"] for s in scores],
+            "max_abs_diff": max(diffs), "winner": run.winner_index,
+            "winner_score": run.winner_score, "shards": shards, "launches": launches,
+            "workers": sorted({v["worker"] for v in shards.values()})}
+
+
+def _fleet_tune(report, storage, queue, a):
+    """(b) `tune` with folds 0 (one shard of all folds): the winner parked
+    as ml1m-tune's preset; a periodic job of the worst point trains, its
+    next run trains the preset in a child on the card and links its
+    version to the run; the dashboard's panel shows the run and the link."""
+    spec_path = LOOP_DIR / "tune_spec.json"
+    spec_path.write_text(json.dumps(_fleet_spec(TUNE_ENGINE, 0)))
+    t0 = time.perf_counter()
+    rc, out = _console_out(["tune", str(spec_path), "--local-workers", "1",
+                            "--timeout", "900"])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"tune exited {rc}")
+    run_id = re.search(r"eval-[0-9a-f]{12}", out).group()
+    records = EvalRecordStore(storage)
+    run = records.get_run(run_id)
+    check(run.status == "completed" and len(run.shards) == 1 and run.num_folds == 1,
+          f"tune run {run_id}: {run.status}, {len(run.shards)} shards")
+    shards = _shard_launches(queue, run)
+    tuned = [s["score"] for s in EvalDriver(storage).scores(run)]
+    check(max(abs(x - y) for x, y in zip(tuned, a["scores"])) <= 1e-5
+          and run.winner_index == a["winner"],
+          f"tune scores {tuned} / winner {run.winner_index} differ from (a)'s")
+    preset = PresetStore(storage).get(TUNE_ENGINE)
+    check(preset is not None and preset.run_id == run_id
+          and preset.params == run.winner_params, f"preset {preset}")
+    # a periodic retrain of the engine, at (a)'s worst point
+    worst = int(np.argmin(a["scores"]))
+    check(worst != run.winner_index, "the grid has no point worse than its winner")
+    variant_a = LOOP_DIR / "tune_periodic.json"
+    variant_a.write_text(json.dumps(_als_variant(TUNE_ENGINE, *EVAL_GRID[worst])))
+    rc, out = _console_out(["jobs", "submit", "--variant", str(variant_a),
+                            "--period", "3600"])
+    check(rc == 0, f"jobs submit exited {rc}")
+    job_a_id = re.search(r"job-[0-9a-f]{12}", out).group()
+    t0 = time.perf_counter()
+    rc, out = _console_out(["jobs", "worker", "--once", "--log-dir", str(LOOP_DIR / "jobs")])
+    job_a_s = time.perf_counter() - t0
+    check(rc == 0 and "ran 1 pending job(s)" in out, f"jobs worker exited {rc}: {out}")
+    job_a, _inst_a, version_a = _finished_job(storage, job_a_id, 1)
+    [nxt] = [j for j in queue.list(status="queued") if j.engine_id == TUNE_ENGINE]
+    check(nxt.variant.get("evalRun") == run_id
+          and nxt.variant["algorithms"] == run.winner_params["algorithms"]
+          and nxt.not_before > time.time() + 3000,
+          f"the next periodic run does not carry the preset: {nxt.variant}")
+    queue.update(nxt.id, not_before=0.0)  # its period, elapsed
+    t0 = time.perf_counter()
+    rc, out = _console_out(["jobs", "worker", "--once", "--log-dir", str(LOOP_DIR / "jobs")])
+    job_n_s = time.perf_counter() - t0
+    check(rc == 0 and "ran 1 pending job(s)" in out, f"jobs worker exited {rc}: {out}")
+    job_n, inst_n, version_n = _finished_job(storage, nxt.id, 1)
+    launches_n, _segments, _dtype = _job_launches(job_n, 1)
+    rank, iterations, lam = EVAL_GRID[run.winner_index]
+    check(launches_n[:2] == (iterations, iterations) and launches_n[2:] == (0, 0),
+          f"the preset retrain's launches {launches_n} != {iterations} a pass")
+    trained = json.loads(inst_n.algorithms_params)[0]["params"]
+    check((trained["rank"], trained["num_iterations"], trained["lambda_"])
+          == (rank, iterations, lam), f"the preset retrain trained {trained}")
+    linked = records.get_run(run_id)
+    check(version_n.id in linked.links and linked.winner_model_version == version_n.id
+          and linked.links[version_n.id]["job_id"] == nxt.id,
+          f"run {run_id} links {linked.links}")
+    from predictionio_tpu_torch.tools.dashboard import Dashboard
+
+    dash = Dashboard(storage, ip="127.0.0.1", port=0)
+    port = dash.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/")
+        page = conn.getresponse().read().decode()
+        conn.close()
+    finally:
+        dash.stop()
+    panel = page[page.index("<h1>Fleet evaluations</h1>"):page.index("<h1>Tenants</h1>")]
+    check(run_id in panel and version_n.id in panel and a["run"] in panel,
+          "the dashboard's fleet-evaluation panel lacks the runs or the lineage link")
+    return {"run": run_id, "wall_s": wall, "winner": run.winner_index, "shards": shards,
+            "launches": {k: sum(v[k] for v in shards.values())
+                         for k in ("partials", "combine", "topk")},
+            "point_a": worst, "job_a": job_a_id, "job_a_s": job_a_s,
+            "version_a": version_a.id, "instance_a": job_a.instance_id,
+            "launches_a": dict(zip(("row", "col", "partials", "combine"),
+                                   _job_launches(job_a, 1)[0])),
+            "job_n": nxt.id, "job_n_s": job_n_s, "version_n": version_n.id,
+            "instance_n": inst_n.id,
+            "launches_n": dict(zip(("row", "col", "partials", "combine"), launches_n)),
+            "score_a": a["scores"][worst], "score_n": run.winner_score,
+            "metric_header": run.metric_header}
+
+
+def _fleet_prior(storage, b):
+    """(c) The offline prior through a canary on a query server of the
+    preset's model (live): a candidate of (b)'s worst point, linked to a
+    completed one-point run with that point's score from (a), gets its
+    bake doubled (PIO_TUNE_STRICT_BAKE's default); with PIO_TUNE_PRIOR=0
+    it keeps the bake it asked for."""
+    registry = ModelRegistry(storage)
+    registry.promote(b["version_n"])
+    records = EvalRecordStore(storage)
+    low = records.create_run(TUNE_ENGINE, {"metric": FLEET_METRIC}, 1, 1, 1,
+                             b["metric_header"])
+    records.update_run(low.id, status="completed", finished_at=time.time(),
+                       winner_index=0, winner_score=b["score_a"])
+    inst_a = storage.get_meta_data_engine_instances().get(b["instance_a"])
+    inst_n = storage.get_meta_data_engine_instances().get(b["instance_n"])
+    server = QueryServer(runtime=build_runtime(storage, inst_n), storage=storage,
+                         config=QueryServerConfig(ip="127.0.0.1", port=0))
+    port = server.start()
+    bakes, candidates = [], []
+    saved = os.environ.get("PIO_TUNE_PRIOR")
+    try:
+        for prior in ("1", "0"):
+            os.environ["PIO_TUNE_PRIOR"] = prior
+            candidate = registry.register(inst_a)  # a fresh trained version
+            candidates.append(candidate.id)
+            records.link_model_version(low.id, candidate.id)
+            code, body = _call(port, "POST", "/rollout/start", {
+                "version": candidate.id, "fraction": 0.1, "bake_s": FLEET_BAKE_S})
+            check(code == 200, f"rollout start: {code} {body}")
+            code, status = _call(port, "GET", "/rollout/status")
+            bakes.append(status["config"]["bake_s"])
+            code, body = _call(port, "POST", "/rollout/abort", {"reason": "prior check"})
+            check(code == 200, f"rollout abort: {code} {body}")
+    finally:
+        if saved is None:
+            os.environ.pop("PIO_TUNE_PRIOR", None)
+        else:
+            os.environ["PIO_TUNE_PRIOR"] = saved
+        server.stop()
+    check(b["score_a"] < b["score_n"] and bakes == [2 * FLEET_BAKE_S, FLEET_BAKE_S],
+          f"bakes {bakes} (candidate {b['score_a']}, live {b['score_n']})")
+    return {"candidate": candidates[0], "candidates": candidates,
+            "candidate_score": b["score_a"],
+            "live": b["version_n"], "live_score": b["score_n"],
+            "bake_stretched": bakes[0], "bake_off": bakes[1], "low_run": low.id}
+
+
+def _fleet_cleanup(storage, queue):
+    """The phase's jobs, versions, rollout records and preset go, so that
+    the lifecycle phase's queue and registry checks see only their own."""
+    for job in queue.list():
+        if job.engine_id in (FLEET_ENGINE, TUNE_ENGINE):
+            queue.purge(job.id)
+    records = LifecycleRecordStore(storage)
+    for v in ModelRegistry(storage).list(engine_id=TUNE_ENGINE):
+        records.purge("pio_model_version", v.id)
+    for scope in list(records.fold("pio_rollout")):
+        if scope.startswith(TUNE_ENGINE):
+            records.purge("pio_rollout", scope)
+    PresetStore(storage).clear(TUNE_ENGINE)
+
+
+def _ur_dirt(rng, n_base):
+    """Dirt for the UR configuration's events, from `rng`: $set/$unset/
+    $delete histories of UR_CLEAN_PROPERTY_ITEMS items (1-4 events each,
+    equal times among them), UR_CLEAN_DUPLICATES exact copies of base
+    events after them, UR_CLEAN_OLD buys and views 90 days before UR_T0.
+    Returns (special events, duplicate base indices, old (event, user,
+    item) rows)."""
+    special = []
+    items = rng.choice(UR_ITEMS, UR_CLEAN_PROPERTY_ITEMS, replace=False)
+    for n, item in enumerate(items.tolist()):
+        for k in range(int(rng.integers(1, 5))):
+            kind = ("$set", "$set", "$unset", "$delete")[int(rng.integers(4))]
+            props = ({} if kind == "$delete" else
+                     {"price": None} if kind == "$unset" else
+                     {"category": f"c{int(rng.integers(20))}",
+                      "price": int(rng.integers(1, 500))})
+            special.append(Event(
+                event=kind, entity_type="item", entity_id=f"i{item}", properties=props,
+                event_time=UR_T0 + datetime.timedelta(milliseconds=n_base + 2 * n + k // 2),
+                event_id=f"p{n:05d}{k}"))
+    dups = rng.integers(0, n_base, UR_CLEAN_DUPLICATES)
+    old = [(("buy", "view")[int(rng.integers(2))], int(rng.integers(UR_USERS)),
+            int(rng.integers(UR_ITEMS))) for _ in range(UR_CLEAN_OLD)]
+    return special, dups, old
+
+
+def _ur_self_cleaning():
+    """(d) The UR configuration's events (phase 21's, from UR_SEED, in a
+    store of their own) with dirt added, cleaned by `URDataSource`'s
+    event window, then trained on the card: the counters and survivors
+    against a plain numpy cleaning, the tables against a card train on
+    the plainly cleaned events, and answers through masked_select
+    against the plain version."""
+    t0 = time.perf_counter()
+    arrays = _ur_arrays()
+    rows = _ur_rows(*arrays)
+    n_base = len(rows)
+    special, dups, old = _ur_dirt(np.random.default_rng(UR_SEED + 7), n_base)
+    events = [Event(event=e, entity_type="user", entity_id=f"u{u}",
+                    target_entity_type="item", target_entity_id=f"i{i}",
+                    event_time=UR_T0 + datetime.timedelta(milliseconds=n),
+                    event_id=f"e{n:08d}") for n, (e, u, i) in enumerate(rows)]
+    first_dup = n_base + 2 * UR_CLEAN_PROPERTY_ITEMS + 10
+    events += [Event(event=events[j].event, entity_type="user",
+                     entity_id=events[j].entity_id, target_entity_type="item",
+                     target_entity_id=events[j].target_entity_id,
+                     event_time=UR_T0 + datetime.timedelta(milliseconds=first_dup + k),
+                     event_id=f"d{k:07d}") for k, j in enumerate(dups.tolist())]
+    events += [Event(event=e, entity_type="user", entity_id=f"u{u}",
+                     target_entity_type="item", target_entity_id=f"i{i}",
+                     event_time=UR_T0 - datetime.timedelta(days=90, milliseconds=k),
+                     event_id=f"o{k:07d}") for k, (e, u, i) in enumerate(old)]
+    storage, app_id = _ur_store()
+    storage.get_events().insert_batch(events + special, app_id)
+    build_s = time.perf_counter() - t0
+
+    # the plain numpy cleaning of the same events
+    now = datetime.datetime.now(datetime.timezone.utc)
+    days = (now - UR_T0).days + 30
+    cutoff_ms = ((now - datetime.timedelta(days=days)) - UR_T0).total_seconds() * 1e3
+    code = np.array([e.event == "view" for e in events], np.int64)
+    user = np.array([int(e.entity_id[1:]) for e in events], np.int64)
+    item = np.array([int(e.target_entity_id[1:]) for e in events], np.int64)
+    t_ms = np.array([(e.event_time - UR_T0).total_seconds() * 1e3 for e in events])
+    check(len(np.unique(t_ms)) == len(events), "event times are not distinct")
+    order = np.argsort(t_ms, kind="stable")
+    key = (code * UR_USERS + user) * UR_ITEMS + item
+    _, first = np.unique(key[order], return_index=True)
+    keep = np.zeros(len(events), bool)
+    keep[order[first]] = True
+    aged = keep & (t_ms < cutoff_ms)
+    survivors = keep & ~aged
+    per_item = np.unique([e.entity_id for e in special], return_counts=True)[1]
+    want = {"compacted": int(per_item[per_item > 1].sum()),
+            "deduplicated": int(len(events) - len(first)), "aged_out": int(aged.sum())}
+    props_before = aggregate_properties(special)
+
+    window = {"duration": f"{days} days", "remove_duplicates": True,
+              "compress_properties": True}
+    source = URDataSource(URDataSourceParams(UR_APP, ("buy", "view"), event_window=window))
+    ctx = RuntimeContext(storage=storage)
+    t0 = time.perf_counter()
+    counters = source.clean_persisted_events(ctx)
+    clean_s = time.perf_counter() - t0
+    check(counters == want, f"self-cleaning counters {counters} != the plain cleaning's {want}")
+    left = list(storage.get_events().find(EventQuery(app_id=app_id)))
+    regular = {e.event_id for e in left if not e.event.startswith("$")}
+    check(regular == {events[n].event_id for n in np.flatnonzero(survivors)},
+          "the surviving buys and views are not the plain cleaning's")
+    props_after = aggregate_properties(e for e in left if e.event.startswith("$"))
+    check({k: v.to_dict() for k, v in props_after.items()}
+          == {k: v.to_dict() for k, v in props_before.items()}
+          and sum(e.event.startswith("$") for e in left) <= len(per_item),
+          "the compaction changed an item's properties or left a history")
+    check(source.clean_persisted_events(ctx) == dict.fromkeys(want, 0),
+          "a second clean found more to do")
+
+    # the card train on the cleaned store, and on the plainly cleaned events
+    params = URAlgorithmParams(app_name=UR_APP)
+    model = URAlgorithm(params).train(ctx, source.read_training(ctx))
+    plain_storage, plain_app = _ur_store()
+    plain_storage.get_events().insert_batch(
+        [events[n] for n in np.flatnonzero(survivors)], plain_app)
+    plain_ctx = RuntimeContext(storage=plain_storage)
+    plain_td = URDataSource(URDataSourceParams(UR_APP, ("buy", "view"))).read_training(plain_ctx)
+    plain = URAlgorithm(params).train(plain_ctx, plain_td)
+    check(model.device.type == "cuda" and plain.device.type == "cuda",
+          f"the UR models are on {model.device} and {plain.device}")
+    check(model.item_vocab.to_dict() == plain.item_vocab.to_dict(), "item vocabularies differ")
+    dv_max, bad_all = 0.0, 0
+    for m, p in zip(model.indicator_models, plain.indicator_models):
+        check(m.target_vocab.to_dict() == p.target_vocab.to_dict(), f"{m.name}: vocabularies")
+        dv, bad, atol, _ = _correlators_close((p.correlator_scores, p.correlator_idx),
+                                              (m.correlator_scores, m.correlator_idx),
+                                              plain_td.n_users)
+        check(dv <= atol and bad == 0, f"{m.name}: tables beyond the LLR bar ({dv}, {bad})")
+        dv_max, bad_all = max(dv_max, dv), bad_all + bad
+
+    # a few queries on the card through masked_select, held to the plain version
+    qrng = np.random.default_rng(UR_SEED + 8)
+    queries = [URQuery(user=f"u{int(u)}", num=int(qrng.choice([5, 10, 50])),
+                       exclude_seen=bool(qrng.random() < 0.9))
+               for u in qrng.integers(0, UR_USERS, UR_CLEAN_QUERIES)]
+    algo = URAlgorithm(params)
+    rec.MASKED_LAUNCHES = 0  # counts from 0 around the served queries
+    rec.MASKED_ROUTE_LAUNCHES.update(select=0, sort=0)
+    got = algo._predict_batch(RuntimeContext(storage=storage, mode="serve"), model, queries)
+    launches, select = rec.MASKED_LAUNCHES, rec.MASKED_ROUTE_LAUNCHES["select"]
+    cpu_model = URModel(model.item_vocab, model.indicator_models, model.primary_indicator,
+                        device="cpu")
+    want_answers = algo._predict_batch(RuntimeContext(storage=storage, mode="serve",
+                                                      device="cpu"), cpu_model, queries)
+    check([_to_jsonable(p) for p in got] == [_to_jsonable(p) for p in want_answers],
+          "the cleaned UR's answers differ from the plain version on the CPU")
+    check(launches == select == 1 and sum(bool(p.item_scores) for p in got) > 0,
+          f"masked launches {launches} (select {select}) for one batch")
+    return {"events": len(events) + len(special), "build_s": build_s, "clean_s": clean_s,
+            "counters": counters, "max_abs_diff": dv_max, "index_mismatches": bad_all,
+            "atol": atol, "launches": launches, "select": select,
+            "items": len(model.item_vocab), "users": plain_td.n_users}
+
+
 def _lifecycle_variant(**als_params):
     return {"id": LIFECYCLE_ENGINE,
             "engineFactory": "predictionio_tpu_torch.engines.recommendation."
@@ -2497,10 +3025,7 @@ def phase_lifecycle(report, shared):
     the card), checkpointed and warm-started, a kill and resume, a worker
     crash, promotion, serving of the newest instance and GC."""
     t_phase = time.perf_counter()
-    # the job children run `python -m predictionio_tpu_torch.deploy.worker`:
-    # they import this checkout wherever the script was started from
-    os.environ["PYTHONPATH"] = os.pathsep.join(
-        filter(None, (str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH"))))
+    _children_import_this_checkout()
     users, items, _ratings = shared["loop"]
     params = ALSAlgorithmParams()
     ap = _als_params(params)
@@ -4858,21 +5383,11 @@ def phase_ur_data(report, shared):
     secondary view indicator, 30 views per user drawn the same way from
     its own stream. Loaded into the port's MemoryEventStore."""
     t0 = time.perf_counter()
-    rng = np.random.default_rng(UR_SEED)
-    buy_users = np.concatenate([rng.integers(0, UR_USERS, UR_ITEMS),
-                                np.repeat(np.arange(UR_USERS), UR_PER_USER)])
-    buy_items = np.concatenate([np.arange(UR_ITEMS),
-                                rng.zipf(UR_ZIPF, UR_USERS * UR_PER_USER) % UR_ITEMS])
-    vrng = np.random.default_rng(UR_SEED + 1)
-    view_users = np.repeat(np.arange(UR_USERS), UR_PER_USER)
-    view_items = vrng.zipf(UR_ZIPF, UR_USERS * UR_PER_USER) % UR_ITEMS
-    rows = ([("buy", u, i) for u, i in zip(buy_users.tolist(), buy_items.tolist())]
-            + [("view", u, i) for u, i in zip(view_users.tolist(), view_items.tolist())])
-    storage = Storage(StorageConfig.memory())
-    app_id = storage.get_meta_data_apps().insert(App(0, UR_APP))
-    storage.get_events().init_app(app_id)
+    buy_users, buy_items, view_users, view_items = _ur_arrays()
+    rows = _ur_rows(buy_users, buy_items, view_users, view_items)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    storage, app_id = _ur_store()
     _ur_insert(storage, app_id, [(e, f"u{u}", f"i{i}") for e, u, i in rows], 0)
     load_s = time.perf_counter() - t0
     shared["ur"] = {"storage": storage, "app_id": app_id, "n_events": len(rows)}
@@ -4889,6 +5404,33 @@ def phase_ur_data(report, shared):
           f"({d['distinct_viewed']} items), zipf({UR_ZIPF}); generated in "
           f"{gen_s:.2f} s, {len(rows)} events into MemoryEventStore in "
           f"{load_s:.2f} s", flush=True)
+
+
+def _ur_arrays():
+    """The UR configuration's (buy users, buy items, view users, view
+    items) from UR_SEED."""
+    rng = np.random.default_rng(UR_SEED)
+    buy_users = np.concatenate([rng.integers(0, UR_USERS, UR_ITEMS),
+                                np.repeat(np.arange(UR_USERS), UR_PER_USER)])
+    buy_items = np.concatenate([np.arange(UR_ITEMS),
+                                rng.zipf(UR_ZIPF, UR_USERS * UR_PER_USER) % UR_ITEMS])
+    vrng = np.random.default_rng(UR_SEED + 1)
+    view_users = np.repeat(np.arange(UR_USERS), UR_PER_USER)
+    view_items = vrng.zipf(UR_ZIPF, UR_USERS * UR_PER_USER) % UR_ITEMS
+    return buy_users, buy_items, view_users, view_items
+
+
+def _ur_rows(buy_users, buy_items, view_users, view_items):
+    return ([("buy", u, i) for u, i in zip(buy_users.tolist(), buy_items.tolist())]
+            + [("view", u, i) for u, i in zip(view_users.tolist(), view_items.tolist())])
+
+
+def _ur_store():
+    """A fresh memory store holding the UR app: (storage, app id)."""
+    storage = Storage(StorageConfig.memory())
+    app_id = storage.get_meta_data_apps().insert(App(0, UR_APP))
+    storage.get_events().init_app(app_id)
+    return storage, app_id
 
 
 def _ur_insert(storage, app_id, rows, first):
@@ -5240,8 +5782,45 @@ def phase_ur_times(report, shared):
               f"(bytes); history scoring (gather + chain, outside the kernel) "
               f"{scoring:.4f} ms", flush=True)
     report["ur_times"] = rows
+    report["ur_batch_invariance"] = _ur_batch_invariance(
+        ur, model, (idx_t, sc_t, j_sizes, i_p), hists, bits, users)
     del model, tables
     torch.cuda.empty_cache()
+
+
+def _ur_batch_invariance(ur, model, tables, hists, bits, users):
+    """On the card, as phase 3 holds the ALS selector: each of 64 real
+    users' rows of `history_scores` at B = 64 bit-equal to the user
+    scored alone (B = 1), the masked select's values and indices of the
+    batch equal to each row's alone, and the UR's answers through
+    `batch_predict` to 64 queries in one batch equal to each query
+    answered alone, scores bit for bit."""
+    idx_t, sc_t, j_sizes, i_p = tables
+    n_items = len(model.item_vocab)
+    full = cco.history_scores(idx_t, sc_t, hists, j_sizes, i_p)
+    vals, idx = rec.fused_masked_topk(full, bits, k=UR_TIMES_K, n_items=n_items)
+    for b in range(full.shape[0]):
+        one = cco.history_scores(idx_t, sc_t, tuple(h[b:b + 1] for h in hists), j_sizes, i_p)
+        check(torch.equal(one[0], full[b]),
+              f"history_scores: user {b}'s row at B=64 differs from B=1")
+        v1, i1 = rec.fused_masked_topk(one, bits[b:b + 1], k=UR_TIMES_K, n_items=n_items)
+        check(torch.equal(v1[0], vals[b]) and torch.equal(i1[0], idx[b]),
+              f"masked select: user {b}'s answer at B=64 differs from B=1")
+    algo = URAlgorithm(URAlgorithmParams(app_name=UR_APP))
+    algo.set_serving_context(RuntimeContext(storage=ur["storage"], mode="serve"))
+    queries = [URQuery(user=u, num=1 + n % 20, exclude_seen=n % 3 != 0)
+               for n, u in enumerate(users)]
+    batch = algo.batch_predict(None, model, list(enumerate(queries)))
+    same = sum(
+        [(s.item, s.score) for s in got.item_scores]
+        == [(s.item, s.score) for s in algo.batch_predict(None, model, [(0, q)])[0][1].item_scores]
+        for (_, got), q in zip(batch, queries))
+    check(same == len(queries), f"UR answers: {len(queries) - same} of {len(queries)} "
+          "differ between B=64 and B=1")
+    print(f"[ur times] batch invariance on the card: history_scores, the masked select and "
+          f"the served answers of {len(queries)} users at B=64 equal to B=1 bit for bit",
+          flush=True)
+    return {"users": len(queries), "bit_equal": True}
 
 
 # ---------------------------------------------------------------------------
@@ -7029,16 +7608,19 @@ def _monitor_admin(aport, qport, seeded, smi):
     check(rc == 0 and "rollout state: none" in text and rollout["canary"] == []
           and {v["id"] for v in rollout["live"]} == live == {versions[0].id},
           f"(f) /rollout {rollout} vs console {text}")
+    _, evals = _call(aport, "GET", "/evals")
+    rc, text = _console_out(["eval", "list"])
+    check(rc == 0 and evals == [] and len(text.splitlines()) == 1,
+          f"(f) /evals {evals} vs console {text}")
     refused = {}
-    for path in ("/tenants", "/evals"):
-        status, body = _call(aport, "GET", path)
-        check(status == 404 and "not ported yet" in body["message"],
-              f"(f) {path}: {status} {body}")
-        refused[path] = body["message"]
+    status, body = _call(aport, "GET", "/tenants")
+    check(status == 404 and "not ported yet" in body["message"],
+          f"(f) /tenants: {status} {body}")
+    refused["/tenants"] = body["message"]
     print(f"[monitor] {smi} | (f) the admin server's /models ({len(models)}), /jobs "
-          f"({len(jobs)}), /online ({len(online['consumers'])}) and /rollout equal console "
-          "models list, jobs list, online cursors and rollout status over the same storage; "
-          "/tenants and /evals 404 not ported yet", flush=True)
+          f"({len(jobs)}), /online ({len(online['consumers'])}), /rollout and /evals "
+          "equal console models list, jobs list, online cursors, rollout status and eval "
+          "list over the same storage; /tenants 404 not ported yet", flush=True)
     return {"models": len(models), "jobs": len(jobs), "consumers": len(online["consumers"]),
             "refused": refused}
 
@@ -7063,6 +7645,7 @@ def main() -> int:
                         ("serve", phase_serve), ("times", phase_times),
                         ("dense times", phase_dense_times),
                         ("loop", phase_loop), ("eval", phase_eval),
+                        ("fleet eval", phase_fleet_eval),
                         ("lifecycle", phase_lifecycle),
                         ("ingest", phase_ingest), ("online", phase_online),
                         ("templates", phase_templates),
@@ -7097,6 +7680,9 @@ def main() -> int:
     tpl = report["templates"]  # the similar-product deploy; the other templates
     sim, tml = tpl["similar"]["launches"], [tpl["ecommerce"]["launches"],
                                           tpl["recommendation"]["launches"]]
+    fle = report["fleet_eval"]  # the shard children of (a) and (b), its jobs, (d)
+    fl_shards = [fle["a"]["launches"], fle["b"]["launches"]]
+    fl_jobs = [fle["b"]["launches_a"], fle["b"]["launches_n"]]
     paths = {  # each main path's launches, counted from 0 around it
         "fused_recommend_topk": {"serve": report["serve"]["launches"],
                                  "loop": report["loop"]["launches"]["serve_topk"],
@@ -7107,20 +7693,26 @@ def main() -> int:
                                  "similar": sim["serve_topk"],
                                  "templates": tml[1]["serve_topk"],
                                  "rollout": report["rollout"]["launches"],
-                                 "monitor": report["monitor"]["launches"]},
+                                 "monitor": report["monitor"]["launches"],
+                                 "fleet eval shards": sum(x["topk"] for x in fl_shards)},
         **{which: {"train": report["train"]["launches"][which],
                    "loop": report["loop"]["launches"][which],
                    "eval dense": evd[which], "lifecycle jobs": lc[which],
                    "lifecycle kill/resume": lckr[which], "similar": sim[which],
-                   "templates": sum(t[which] for t in tml)} for which in ("row", "col")},
+                   "templates": sum(t[which] for t in tml),
+                   "fleet eval jobs": sum(j[which] for j in fl_jobs)}
+            for which in ("row", "col")},
         "block_partials": {"windowed train": report["windowed_train"]["launches"]["partials"],
                            "eval": ev["partials"], "ingest": ing["partials"],
                            "similar": sim["partials"],
-                           "templates": sum(t["partials"] for t in tml)},
+                           "templates": sum(t["partials"] for t in tml),
+                           "fleet eval shards": sum(x["partials"] for x in fl_shards)},
         "combine": {"windowed train": report["windowed_train"]["launches"]["combine"],
                     "eval": ev["combine"], "ingest": ing["combine"],
-                    "similar": sim["combine"], "templates": sum(t["combine"] for t in tml)},
-        "fused_masked_topk": {"ur serve": report["ur_serve"]["launches"]},
+                    "similar": sim["combine"], "templates": sum(t["combine"] for t in tml),
+                    "fleet eval shards": sum(x["combine"] for x in fl_shards)},
+        "fused_masked_topk": {"ur serve": report["ur_serve"]["launches"],
+                              "fleet eval ur": fle["d"]["launches"]},
     }
     kernels = [{
         "name": "fused_recommend_topk", "route": "cuda", "source": SOURCE,

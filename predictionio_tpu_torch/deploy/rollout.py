@@ -21,12 +21,13 @@ marks the version ``rolled_back``. Each rollout persists its state as a
 bake (``resume_rollout``).
 
 Counterpart of the JAX package's ``deploy/rollout.py``, with the same
-knobs (``PIO_ROLLOUT_*``), verdicts and records. Two differences: the
-candidate is built on the live model's device, as ``reload`` builds;
-and the JAX package's offline prior (a candidate whose lineage-linked
-evaluation scores below live's gets a longer bake) is left out, with
-the fleet evaluation it reads. The JAX package's tenant rollout scopes
-come with tenancy.
+knobs (``PIO_ROLLOUT_*``), verdicts and records, and the same offline
+prior: a candidate whose lineage-linked fleet evaluation scores below
+live's gets its bake stretched by ``PIO_TUNE_STRICT_BAKE``
+(``evalfleet/tuning.py``; never a veto, off with ``PIO_TUNE_PRIOR=0``).
+One difference: the candidate is built on the live model's device, as
+``reload`` builds. The JAX package's tenant rollout scopes come with
+tenancy.
 """
 
 from __future__ import annotations
@@ -344,6 +345,7 @@ class RolloutController:
             self.server.complete_rollout(self, promote=False)
             raise
         self.st.state = "canary"
+        self._apply_offline_prior()
         now_wall = time.time()
         if (resume_started_wall is not None
                 and 0 < resume_started_wall <= now_wall):
@@ -365,6 +367,25 @@ class RolloutController:
         log.info("canary started: version %s at %.0f%% traffic%s",
                  self.st.version.id, self.config.fraction * 100,
                  " (shadow)" if self.config.shadow else "")
+
+    def _apply_offline_prior(self) -> None:
+        """Stretch the bake when the candidate's lineage-linked eval
+        score is worse than live's: the online verdict gets more evidence
+        before it promotes a model the fleet evaluation ranked lower.
+        Never blocking: any failure leaves the bake as it is."""
+        try:
+            from predictionio_tpu_torch.evalfleet.tuning import offline_prior_multiplier
+
+            v = self.st.version
+            live = self.registry.live_version(v.engine_id, v.engine_variant)
+            mult, why = offline_prior_multiplier(
+                self.server.storage, v.engine_id, v.id,
+                live.id if live is not None else None)
+            if mult > 1.0:
+                self.config.bake_s *= mult
+                log.info("%s; bake now %.0fs", why, self.config.bake_s)
+        except Exception:  # noqa: BLE001 — the canary goes on unchanged
+            log.debug("offline prior unavailable", exc_info=True)
 
     def stop(self) -> None:
         self._stop.set()

@@ -1,10 +1,12 @@
-"""The train-job queue and its worker.
+"""The job queue and its worker: train jobs and eval shards.
 
 Counterpart of the JAX package's ``deploy/scheduler.py``. A train is a
 job in a queue kept in the lifecycle records (``registry.py``), so the
 queue outlives any process and every worker over the same storage sees
 it. ``TrainScheduler`` claims queued jobs and supervises each in a
-subprocess (``python -m predictionio_tpu_torch.deploy.worker``):
+subprocess (``python -m predictionio_tpu_torch.deploy.worker`` for a
+train job, ``python -m predictionio_tpu_torch.evalfleet.worker`` for an
+eval shard of the fleet evaluation):
 
 - the child runs ``run_train`` on ``SchedulerConfig.device`` (None: the
   first CUDA device), so a crash in engine code cannot take the
@@ -17,25 +19,29 @@ subprocess (``python -m predictionio_tpu_torch.deploy.worker``):
   train raised; retrying would repeat it) fails the job at once, any
   other non-zero code re-queues it with the ``retry_delay`` backoff
   until ``max_attempts``;
-- a job with ``period_s`` enqueues its next run when it ends.
+- a job with ``period_s`` enqueues its next run when it ends; a train
+  job's next run carries the engine's parked tuning preset
+  (``evalfleet/tuning.py apply_preset``), and a completed train whose
+  variant names an ``evalRun`` stamps the lineage link of its model
+  version onto that eval run.
 
 Claims are compare-and-set. A claim appends a bid to the job's claim
 record (``pio_job_claim``); the first bid for a generation in the
 record's total order wins, and every queued↔running transition bumps
 ``generation``. An owner's heartbeats and its terminal writes are
 fenced by its (claim token, generation), so two workers never supervise
-one job, and a re-queue of a stale job is a bid like any other. Jobs of
-one engine run one at a time. A worker resolves its bid at once: the
-settle window of a fleet of workers comes with the fleet coordinator,
-which is not ported.
+one job, and a re-queue of a stale job is a bid like any other. A
+worker with live fleet peers (``peer_probe``, wired by
+``fleet/coordinator.py``) waits ``claim_settle_s`` before it resolves a
+bid, so that concurrent bids are visible; a lone worker resolves at
+once. Train jobs of one engine run one at a time across the fleet; eval
+shards run side by side.
 
 Record fields and their meanings are the JAX package's, so either
 package's queue lists the other's jobs. This package's worker claims
-only the train jobs whose engine factory it can load: a job submitted
-with the JAX package's factory stays queued for that package's worker.
-Left out: job kinds other than ``"train"`` (the fleet evaluation's
-shards), the push telemetry spools, the evaluation-run lineage stamp
-and the tuning preset overlay of a periodic retrain.
+only the jobs whose engine factory it can load: a job submitted with the
+JAX package's factory stays queued for that package's worker. Left out:
+the push telemetry spools.
 """
 
 from __future__ import annotations
@@ -80,7 +86,10 @@ EXIT_TRAIN_FAILED = 3
 EXIT_INFRA_FAILED = 4
 
 # job kind → the subprocess's module
-WORKER_MODULES = {"train": "predictionio_tpu_torch.deploy.worker"}
+WORKER_MODULES = {
+    "train": "predictionio_tpu_torch.deploy.worker",
+    "eval": "predictionio_tpu_torch.evalfleet.worker",
+}
 
 
 # the re-queue backoff after an infrastructure failure (the JAX
@@ -221,8 +230,7 @@ class JobQueue:
             if key not in variant:
                 raise ValueError(f"engine variant is missing {key!r}")
         if kind not in WORKER_MODULES:
-            raise ValueError(f"job kind {kind!r} is not ported yet to the "
-                             f"PyTorch port (ported: {sorted(WORKER_MODULES)})")
+            raise ValueError(f"unknown job kind {kind!r} (known: {sorted(WORKER_MODULES)})")
         job = TrainJob(
             id=f"job-{uuid.uuid4().hex[:12]}",
             variant=dict(variant),
@@ -293,19 +301,23 @@ class JobQueue:
         intent: str = "run",
         generation: Optional[int] = None,
         fields: Optional[dict] = None,
+        settle_s: float = 0.0,
     ) -> Optional[str]:
         """Bid for the job's next transition (generation `job.generation`
         + 1, or `generation`) and resolve it: this worker's claim token
         when its bid is the first, else None; None too when the record
         has already moved past the generation (`job` was a stale read).
-        The winner writes `fields` (its post-transition record) right
-        after the check."""
+        `settle_s` > 0 waits out the storage's write-visibility skew
+        before resolving (a fleet with live peers). The winner writes
+        `fields` (its post-transition record) right after the check."""
         gen = generation if generation is not None else job.generation + 1
         token = uuid.uuid4().hex
         self._store.append(CLAIM_ENTITY, f"{job.id}#claim", {
             "job_id": job.id, "generation": gen, "claim_token": token,
             "worker_id": worker_id, "intent": intent, "bid_at": time.time(),
         })
+        if settle_s > 0:
+            time.sleep(settle_s)
         if self.claim_winner(job.id, gen) != token:
             return None
         cur = self.get(job.id)
@@ -371,6 +383,11 @@ class SchedulerConfig:
     # a `running` job whose heartbeat is older than this is an orphan of
     # a dead worker, and is re-queued
     stale_after_s: float = 15.0
+    # with live fleet peers, a bidder waits this long before it resolves
+    # its claim, so that concurrent bids are visible and every worker
+    # computes the same winner; it must exceed the storage's
+    # write-visibility skew (fleet/coordinator.py adapts it at start)
+    claim_settle_s: float = 0.25
     log_dir: Optional[str] = None
     # extra environment of the child (tests add PYTHONPATH)
     child_env: dict[str, str] = field(default_factory=dict)
@@ -380,7 +397,7 @@ class SchedulerConfig:
 
 
 class TrainScheduler:
-    """Claims queued train jobs and supervises their subprocesses."""
+    """Claims queued jobs and supervises their subprocesses."""
 
     def __init__(self, storage: Storage,
                  config: Optional[SchedulerConfig] = None):
@@ -388,6 +405,9 @@ class TrainScheduler:
         self.config = config or SchedulerConfig()
         self.queue = JobQueue(storage)
         self.worker_id = f"worker-{os.getpid()}-{uuid.uuid4().hex[:6]}"
+        # the live-peer probe (fleet/coordinator.py wires it to the worker
+        # records): > 0 live peers make claims wait out the settle window
+        self.peer_probe: Optional[Any] = None
         self._stop = threading.Event()
         self._abandon = False  # a simulated crash: no bookkeeping
         self._thread: Optional[threading.Thread] = None
@@ -435,6 +455,15 @@ class TrainScheduler:
             self._pool.shutdown(wait=True)
             self._pool = None
 
+    def _claim_settle(self) -> float:
+        """The settle wait of a claim: paid only while live fleet peers
+        could bid at the same time; a lone worker resolves at once."""
+        try:
+            peers = int(self.peer_probe()) if self.peer_probe else 0
+        except Exception:  # noqa: BLE001 — a broken probe: assume peers
+            peers = 1
+        return self.config.claim_settle_s if peers > 0 else 0.0
+
     def _claimable(self) -> list[TrainJob]:
         """Queued jobs this worker can run: of a ported kind, and of an
         engine this package can load. A job whose engine factory names
@@ -456,7 +485,8 @@ class TrainScheduler:
                 continue
             if job.attempt >= job.max_attempts:
                 token = self.queue.claim(
-                    job, self.worker_id, intent="steal", fields=dict(
+                    job, self.worker_id, intent="steal",
+                    settle_s=self._claim_settle(), fields=dict(
                         status="failed", finished_at=_now_iso(),
                         claim_token=None, worker_id=None,
                         last_error="worker crashed mid-train; attempts "
@@ -469,7 +499,8 @@ class TrainScheduler:
                 self._schedule_next_period(job)
                 continue
             token = self.queue.claim(
-                job, self.worker_id, intent="steal", fields=dict(
+                job, self.worker_id, intent="steal",
+                settle_s=self._claim_settle(), fields=dict(
                     status="queued", worker_id=None, claim_token=None,
                     last_error="worker crashed mid-train; re-queued"))
             if token is None:
@@ -489,7 +520,7 @@ class TrainScheduler:
                 continue  # a live claimant is mid-protocol
             token = self.queue.claim(
                 job, self.worker_id, intent="unwedge", generation=top_gen + 1,
-                fields=dict(
+                settle_s=self._claim_settle(), fields=dict(
                     status="queued", worker_id=None, claim_token=None,
                     last_error="claim wedged by a dead bid; generation "
                                "bumped"))
@@ -525,20 +556,23 @@ class TrainScheduler:
                 self._stop.wait(self.config.poll_interval_s)
 
     def _dispatch(self, job: TrainJob) -> bool:
-        """Run `job` on the supervision pool if there is room and no job
-        of its engine runs here."""
+        """Run `job` on the supervision pool if there is room and, for a
+        train job, no job of its engine runs here (the shards of an eval
+        run side by side)."""
+        engine_key = job.engine_id if job.kind == "train" else None
         with self._claim_lock:
             if (len(self._running_ids) >= max(1, int(self.config.max_concurrent))
                     or job.id in self._running_ids
-                    or job.engine_id in self._running_engines):
+                    or engine_key in self._running_engines):
                 return False
             self._running_ids.add(job.id)
-            self._running_engines.add(job.engine_id)
+            if engine_key is not None:
+                self._running_engines.add(engine_key)
 
         def release() -> None:
             with self._claim_lock:
                 self._running_ids.discard(job.id)
-                self._running_engines.discard(job.engine_id)
+                self._running_engines.discard(engine_key)
 
         def run() -> None:
             try:
@@ -566,7 +600,10 @@ class TrainScheduler:
 
     # -- one job ---------------------------------------------------------
     def _rivals(self, job: TrainJob) -> list[TrainJob]:
-        """Other running train jobs of `job`'s engine, on any worker."""
+        """Other running train jobs of a train job's engine, on any
+        worker (an eval shard has none)."""
+        if job.kind != "train":
+            return []
         return [j for j in self.queue.list(status="running")
                 if j.engine_id == job.engine_id and j.id != job.id
                 and j.kind == "train"]
@@ -582,7 +619,7 @@ class TrainScheduler:
         os.makedirs(self._log_dir, mode=0o700, exist_ok=True)
         log_path = os.path.join(self._log_dir, f"{job.id}.log")
         token = self.queue.claim(
-            job, self.worker_id,
+            job, self.worker_id, settle_s=self._claim_settle(),
             fields=dict(status="running", worker_id=self.worker_id,
                         started_at=_now_iso(), heartbeat_at=time.time(),
                         log_path=log_path, attempt=job.attempt + 1))
@@ -595,7 +632,11 @@ class TrainScheduler:
         job.attempt += 1
         # across workers, the senior running job of an engine (earliest
         # started_at, then id) goes on; a junior yields to the queue
-        # without spending its attempt
+        # without spending its attempt. With live peers the check waits
+        # out the settle window, so that concurrent claimants see each other
+        settle = self._claim_settle() if job.kind == "train" else 0.0
+        if settle:
+            time.sleep(settle)
         try:
             rivals = self._rivals(job)
         except Exception:  # noqa: BLE001 — the in-process guard holds
@@ -722,6 +763,7 @@ class TrainScheduler:
                 model_version=result.get("model_version"),
                 last_error=None, claim_token=None)
             self._jobs_counter.inc(outcome="completed")
+            self._link_eval_run(job, result)
             self._schedule_next_period(job)
         elif rc == EXIT_TRAIN_FAILED:
             self.queue.update(
@@ -754,12 +796,42 @@ class TrainScheduler:
         log.warning("job %s infra failure (%s); retry %d/%d in %.1fs",
                     job.id, error, job.attempt, job.max_attempts, backoff)
 
+    def _link_eval_run(self, job: TrainJob, result: dict) -> None:
+        """The lineage stamp: a completed train whose variant carries an
+        `evalRun` marker (the preset overlay put it there) links its model
+        version onto that eval run. Best effort: lineage never fails a
+        completed train."""
+        run_id = (job.variant or {}).get("evalRun")
+        version = result.get("model_version")
+        if not run_id or not version:
+            return
+        try:
+            from predictionio_tpu_torch.evalfleet.records import EvalRecordStore
+
+            EvalRecordStore(self.storage).link_model_version(run_id, version,
+                                                             job_id=job.id)
+            log.info("job %s: linked model version %s to eval run %s",
+                     job.id, version, run_id)
+        except Exception:  # noqa: BLE001 — the train stays completed
+            log.debug("eval-run lineage stamp failed", exc_info=True)
+
     def _schedule_next_period(self, job: TrainJob) -> None:
-        """A periodic job's next run, `period_s` after this one ended."""
+        """A periodic job's next run, `period_s` after this one ended. A
+        train job's next run trains the engine's parked tuning preset
+        (the job's tenant's first, else the global one) when there is one."""
         if not job.period_s:
             return
+        variant = job.variant
+        if job.kind == "train":
+            try:
+                from predictionio_tpu_torch.evalfleet.tuning import apply_preset
+
+                variant = apply_preset(self.storage, variant, job.engine_id,
+                                       tenant=job.tenant)
+            except Exception:  # noqa: BLE001 — the retrain goes on as it was
+                log.debug("retrain preset lookup failed", exc_info=True)
         nxt = self.queue.submit(
-            job.variant, engine_id=job.engine_id, timeout_s=job.timeout_s,
+            variant, engine_id=job.engine_id, timeout_s=job.timeout_s,
             period_s=job.period_s, max_attempts=job.max_attempts,
             not_before=time.time() + job.period_s, kind=job.kind,
             tenant=job.tenant)

@@ -6,7 +6,8 @@ actionml/template-scala-parallel-universal-recommendation).
 
 - ``URDataSource`` reads one EventFrame per indicator event type from
   the event store (the first indicator is the PRIMARY: its targets are
-  the item space).
+  the item space), after cleaning the app's events by its
+  ``event_window`` (``core/self_cleaning.py``) when it has one.
 - ``URAlgorithm.train`` computes, per indicator, each item's top
   correlators by CCO + LLR on the device (``models/cco.py``).
 - ``URModel`` keeps the correlator tables on the device.
@@ -17,8 +18,7 @@ actionml/template-scala-parallel-universal-recommendation).
 
 ``UniversalRecommenderEngine`` is the factory an engine.json names, so
 the UR trains and deploys by variant too. A model pickles without its
-device; deploy binds it to the deploy's device. Not ported:
-self-cleaning (``event_window``).
+device; deploy binds it to the deploy's device.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from predictionio_tpu_torch.controller import (
     SanityCheck,
 )
 from predictionio_tpu_torch.core.base import RuntimeContext
+from predictionio_tpu_torch.core.self_cleaning import EventWindow, SelfCleaningDataSource
 from predictionio_tpu_torch.data.store.bimap import BiMap
 from predictionio_tpu_torch.data.store.event_store import EventStoreFacade
 from predictionio_tpu_torch.device import resolve_device
@@ -76,7 +77,7 @@ class DataSourceParams:
     app_name: str
     # indicator event names, PRIMARY first (UR's eventNames)
     indicators: tuple[str, ...] = ("buy", "view")
-    # self-cleaning window: not ported, must stay None
+    # optional self-cleaning window: {"duration": "30 days", ...}
     event_window: Optional[dict] = None
 
 
@@ -99,15 +100,16 @@ class TrainingData(SanityCheck):
             raise ValueError("no primary indicator events found")
 
 
-class URDataSource(DataSource):
+class URDataSource(DataSource, SelfCleaningDataSource):
     def __init__(self, params: DataSourceParams):
-        if params.event_window is not None:
-            raise NotImplementedError(
-                "self-cleaning (event_window) is not ported yet"
-            )
         self.params = params
+        self.app_name = params.app_name
+        self.event_window = (
+            EventWindow(**params.event_window) if params.event_window else None
+        )
 
     def read_training(self, ctx: RuntimeContext) -> TrainingData:
+        self.clean_persisted_events(ctx)
         frame = EventStoreFacade(ctx.storage).find_frame(
             app_name=self.params.app_name,
             entity_type="user",

@@ -26,13 +26,14 @@ server over the shared stores sees the same queue and registry:
                                  server: {"url", "action", ...} (403
                                  unless PIO_ROLLOUT_PROXY=1)
   GET    /online               → every online consumer's cursor record
+  GET    /evals                → fleet eval runs (?engine=&status=&tenant=)
+  GET    /evals/{run}          → one run's live status (points, shards)
 
 and the routes every server shares (``/metrics``, ``/alerts``,
 ``/debug/traces``, ``/debug/tsdb``, ``/debug/profile``,
 ``/debug/faults``, ``POST /debug/profile/capture``). The multi-tenant
-routes (``/tenants*``) and the fleet evaluation's (``/evals*``) need
-modules the port does not have yet and answer 404 saying so. Standard
-library only: the server loads no torch.
+routes (``/tenants*``) need modules the port does not have yet and
+answer 404 saying so. Standard library only: the server loads no torch.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ from predictionio_tpu_torch.data.storage.base import App
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.deploy.registry import LifecycleRecordStore, ModelRegistry
 from predictionio_tpu_torch.deploy.scheduler import JobQueue
+from predictionio_tpu_torch.evalfleet.driver import EvalDriver
+from predictionio_tpu_torch.evalfleet.records import EvalRecordStore
 from predictionio_tpu_torch.obs import server_registry
 from predictionio_tpu_torch.tools import common
 from predictionio_tpu_torch.tools.common import CommandError
@@ -59,8 +62,7 @@ from predictionio_tpu_torch.utils.http import (
 )
 
 # route prefixes of the JAX admin server whose modules are not ported
-NOT_PORTED_PREFIXES = {"tenants": "the multi-tenant control plane",
-                       "evals": "the fleet evaluation"}
+NOT_PORTED_PREFIXES = {"tenants": "the multi-tenant control plane"}
 
 
 def _not_ported(parts: list[str]) -> None:
@@ -101,6 +103,8 @@ class _Handler(JsonHandler):
                 self._get_jobs(parts)
             elif parts[:1] == ["models"]:
                 self._get_models(parts)
+            elif parts[:1] == ["evals"]:
+                self._get_evals(parts)
             elif parts[:1] and parts[0] in NOT_PORTED_PREFIXES:
                 _not_ported(parts)
             elif path == "/rollout":
@@ -210,6 +214,21 @@ class _Handler(JsonHandler):
         except (ValueError, TypeError) as e:
             raise HttpError(400, str(e))
         self._respond(201, job.to_dict())
+
+    def _get_evals(self, parts: list[str]) -> None:
+        """The fleet evaluation's runs, newest first, or one run's
+        status recomputed from the durable records."""
+        if len(parts) == 1:
+            q = self._query_params()
+            self._respond(200, [r.to_dict() for r in self.server.eval_records.list_runs(
+                engine_id=q.get("engine"), status=q.get("status"), tenant=q.get("tenant"))])
+        elif len(parts) == 2:
+            try:
+                self._respond(200, EvalDriver(self.storage).status(parts[1]))
+            except KeyError:
+                raise HttpError(404, f"no eval run {parts[1]!r}")
+        else:
+            raise HttpError(404, "Not Found")
 
     def _get_models(self, parts: list[str]) -> None:
         registry = self.server.model_registry
@@ -331,6 +350,7 @@ class _Server(ThreadedServer):
         # memoization (a storage round trip) lives on them
         self.model_registry = ModelRegistry(storage)
         self.job_queue = JobQueue(storage)
+        self.eval_records = EvalRecordStore(storage)
         self.metrics = server_registry()
         self.metrics_label = "admin"
 

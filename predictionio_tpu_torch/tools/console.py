@@ -26,6 +26,17 @@
 
     python -m predictionio_tpu_torch.tools.console eval run EVALUATION \\
         [GENERATOR] [--device cpu]
+    python -m predictionio_tpu_torch.tools.console eval run SPEC.json \\
+        [--local-workers N] [--no-wait] [--timeout S] [--tenant T] [--device cpu]
+    python -m predictionio_tpu_torch.tools.console eval list \\
+        [--engine E] [--status S] [--tenant T]
+    python -m predictionio_tpu_torch.tools.console eval show|status RUN
+    python -m predictionio_tpu_torch.tools.console eval gc [--keep N] [--now]
+    python -m predictionio_tpu_torch.tools.console tune SPEC.json \\
+        [--local-workers N] [--timeout S] [--tenant T] [--device cpu]
+    python -m predictionio_tpu_torch.tools.console fleet status
+    python -m predictionio_tpu_torch.tools.console fleet worker \\
+        [--log-dir D] [--max-concurrent N] [--device cpu]
     python -m predictionio_tpu_torch.tools.console online \\
         status|pause|resume [--url http://localhost:8000] [--reason R]
     python -m predictionio_tpu_torch.tools.console online cursors
@@ -92,7 +103,17 @@ interrupted. ``eval run`` evaluates an ``Evaluation`` named by its
 import path (``module.Class``) over the grid of an
 ``EngineParamsGenerator`` (or the evaluation's own
 ``engine_params_list``) and stores an evaluation instance; it exits 0
-only when that instance is EVALCOMPLETED. ``online status|pause|resume``
+only when that instance is EVALCOMPLETED. ``eval run SPEC.json`` runs
+an EvalSpec (the JAX package's JSON: a variant, axes, metrics, folds)
+as the fleet evaluation: one ``eval`` job a (grid group x fold) on the
+job queue, which any worker claims (``--local-workers N`` starts N
+fleet members in this process, each a child at a time on ``--device``),
+then waits for the run and prints its points; ``eval list|show|status|gc``
+read and prune the eval runs. ``tune SPEC.json`` runs the space the same
+way and parks the winner as the engine's retrain preset, which the next
+periodic retrain of the engine trains. ``fleet status`` prints the
+workers and the queue; ``fleet worker`` runs one fleet member until
+interrupted. ``online status|pause|resume``
 ask a running query server (``--url``) for its fold-in consumer's state,
 or pause or resume it; ``online cursors`` prints the consumers' durable
 cursor records from storage. ``jobs submit`` queues a train job of
@@ -131,9 +152,8 @@ assembled cross-process traces of a process that runs a collector.
 ``deploy --feedback`` posts each
 answer to the Event Server at ``--event-server-url`` with
 ``--access-key`` as a ``predict`` event. Not ported, and refused with
-exit code 1: the fleet evaluation (an EvalSpec file as the target,
-``eval list/show/status/gc``), ``tune``, ``eventserver --log-url`` and
-the parquet format of ``import`` and ``export``. An operator error (an
+exit code 1: ``eventserver --log-url``, the parquet format of ``import``
+and ``export``, and the multi-host flags of ``fleet worker``. An operator error (an
 app, channel or key that does not exist or is taken) exits 1 with
 ``[ERROR]`` and the reason.
 
@@ -162,9 +182,6 @@ from predictionio_tpu_torch.tools.common import CommandError
 # The model, kernel and workflow modules are imported inside the
 # commands that train, serve or evaluate, so that the others (the event
 # server above all) start without torch.
-
-# the JAX package's fleet-evaluation commands, which the port refuses
-NOT_PORTED_EVAL = ("list", "show", "status", "gc")
 
 
 def _not_ported(what: str) -> int:
@@ -256,19 +273,48 @@ def _parser() -> argparse.ArgumentParser:
     dep.add_argument("--event-server-url", help="with --feedback: the Event Server")
     dep.add_argument("--access-key", help="with --feedback: the app's access key")
 
-    ev = sub.add_parser("eval", help="run an evaluation").add_subparsers(
+    ev = sub.add_parser("eval", help="run and inspect evaluations").add_subparsers(
         dest="eval_cmd", required=True)
-    run = ev.add_parser("run", help="evaluate an Evaluation over a params grid")
-    run.add_argument("target", help="import path of the Evaluation")
+    run = ev.add_parser("run", help="run an EvalSpec JSON on the fleet, or evaluate "
+                        "an Evaluation over a params grid in this process")
+    run.add_argument("target", help="EvalSpec JSON path, or import path of the "
+                     "Evaluation")
     run.add_argument("params_generator", nargs="?",
                      help="import path of an EngineParamsGenerator")
     run.add_argument("--device", default=None,
                      help="torch device (default: the first CUDA device)")
-    for name in NOT_PORTED_EVAL:
-        ev.add_parser(name, help="not ported").add_argument(
-            "rest", nargs=argparse.REMAINDER)
-    sub.add_parser("tune", help="not ported").add_argument(
-        "rest", nargs=argparse.REMAINDER)
+    _fleet_run_args(run)
+    run.add_argument("--no-wait", action="store_true",
+                     help="queue the shards and return at once")
+    s = ev.add_parser("list", help="list eval runs")
+    s.add_argument("--engine", default=None)
+    s.add_argument("--status", default=None, choices=("running", "completed", "failed"))
+    s.add_argument("--tenant", default=None)
+    ev.add_parser("show", help="one run's record and point scores").add_argument("run_id")
+    ev.add_parser("status", help="a run's shard jobs and partial folds").add_argument(
+        "run_id")
+    s = ev.add_parser("gc", help="purge old terminal eval runs")
+    s.add_argument("--keep", type=int, default=None,
+                   help="terminal runs to keep (default PIO_EVAL_RETENTION)")
+    s.add_argument("--now", action="store_true",
+                   help="compact without the quiescence age gate")
+    tu = sub.add_parser("tune", help="evaluate a param space on the fleet and park "
+                        "the winner as the engine's retrain preset")
+    tu.add_argument("spec", help="EvalSpec JSON path")
+    tu.add_argument("--device", default=None,
+                    help="the local workers' torch device (default: the first CUDA "
+                         "device)")
+    _fleet_run_args(tu)
+
+    fl = sub.add_parser("fleet", help="the training worker fleet").add_subparsers(
+        dest="fleet_action", required=True)
+    fl.add_parser("status", help="workers and the queue, as JSON")
+    s = fl.add_parser("worker", help="run one fleet member until interrupted")
+    s.add_argument("--log-dir", default=None, help="per-job log directory")
+    s.add_argument("--max-concurrent", type=int, default=None,
+                   help="jobs supervised at once")
+    s.add_argument("--device", default=None,
+                   help="the jobs' torch device (default: the first CUDA device)")
 
     on = sub.add_parser("online", help="the streaming fold-in consumer"
                         ).add_subparsers(dest="online_action", required=True)
@@ -460,6 +506,14 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--last", type=int, default=20, help="points to print per series")
     s.add_argument("--url", help="server base URL")
     return ap
+
+
+def _fleet_run_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--tenant", default=None, help="tenant scope recorded on the run")
+    p.add_argument("--local-workers", type=int, default=0,
+                   help="start N fleet members in this process for the run")
+    p.add_argument("--timeout", type=float, default=None,
+                   help="longest wait, in seconds, for the run to converge")
 
 
 def _get_app(storage: Storage, name: str) -> App:
@@ -719,10 +773,7 @@ def eval_run(args: argparse.Namespace) -> int:
     from predictionio_tpu_torch.workflow.evaluation import run_evaluation
 
     if os.path.isfile(args.target):
-        print(f"[ERROR] {args.target} is a file: an EvalSpec runs on the fleet "
-              f"evaluation, which is not ported yet to the PyTorch port; name "
-              f"an Evaluation import path", file=sys.stderr)
-        return 1
+        return fleet_eval_run(args)
     try:
         evaluation = _instance(load_symbol(args.target))
         params_list = None
@@ -740,6 +791,179 @@ def eval_run(args: argparse.Namespace) -> int:
     print(f"[INFO] Evaluation {inst.status}: {result.to_one_liner()} "
           f"(instance {inst.id})", flush=True)
     return 0 if inst.status == "EVALCOMPLETED" else 1
+
+
+def _fail(message: str) -> int:
+    print(f"[ERROR] {message}", file=sys.stderr)
+    return 1
+
+
+def _local_fleet(storage: Storage, n: int, device: Optional[str]) -> list:
+    """Start n fleet members in this process, so that `eval run` and
+    `tune` work without a standing fleet (each member supervises real
+    shard subprocesses on `device`)."""
+    from predictionio_tpu_torch.deploy.scheduler import SchedulerConfig
+    from predictionio_tpu_torch.fleet.coordinator import FleetMember
+
+    members = [FleetMember(storage, SchedulerConfig(device=device))
+               for _ in range(max(0, n))]
+    for m in members:
+        m.start()
+    return members
+
+
+def _print_eval_run(run: dict, points: list) -> None:
+    """A run's record and its points, as the JAX console prints them."""
+    import json
+
+    print(f"run        {run['id']}")
+    print(f"engine     {run.get('engine_id')}"
+          + (f"  tenant {run['tenant']}" if run.get("tenant") else ""))
+    print(f"status     {run.get('status')}")
+    print(f"metric     {run.get('metric_header')}"
+          f" ({'higher' if run.get('higher_is_better', True) else 'lower'} is better)")
+    if run.get("winner_index") is not None:
+        print(f"winner     point {run['winner_index']}  score {run.get('winner_score')}")
+    if run.get("winner_model_version"):
+        print(f"lineage    model version {run['winner_model_version']}")
+    if points:
+        print(f"{'POINT':>5s}  {'DONE':4s}  {'SCORE':>12s}  PARAMS")
+        for pt in points:
+            score = "-" if pt["score"] is None else f"{pt['score']:.6g}"
+            mark = "yes" if pt["complete"] else f"{len(pt['folds_done'])}f"
+            print(f"{pt['point_index']:>5d}  {mark:4s}  {score:>12s}  "
+                  f"{json.dumps(pt.get('params') or {})[:80]}")
+
+
+def fleet_eval_run(args: argparse.Namespace) -> int:
+    """`eval run SPEC.json`: queue the spec's shard jobs, wait for the
+    run (unless --no-wait) and print its points; 0 only when it
+    completed."""
+    from predictionio_tpu_torch.evalfleet.driver import EvalDriver
+    from predictionio_tpu_torch.evalfleet.specs import EvalSpec
+
+    try:
+        spec = EvalSpec.load(args.target)
+    except (OSError, ValueError, KeyError) as e:
+        return _fail(f"bad eval spec: {e}")
+    storage = Storage()
+    driver = EvalDriver(storage)
+    members = _local_fleet(storage, args.local_workers, args.device)
+    try:
+        run = driver.submit(spec, tenant=args.tenant)
+        print(f"[INFO] Eval run {run.id}: {run.num_points} points, "
+              f"{len(run.shards)} shard jobs queued.", flush=True)
+        if args.no_wait:
+            return 0
+        run = driver.wait(run.id, timeout_s=args.timeout)
+    finally:
+        for m in members:
+            m.stop()
+    status = driver.status(run.id)
+    _print_eval_run(status["run"], status["points"])
+    return 0 if run.status == "completed" else 1
+
+
+def eval_records(args: argparse.Namespace) -> int:
+    """`eval list|show|status|gc` over the eval-run records."""
+    from predictionio_tpu_torch.evalfleet.driver import EvalDriver
+    from predictionio_tpu_torch.evalfleet.records import EvalRecordStore
+    from predictionio_tpu_torch.utils.env import eval_knob
+
+    storage = Storage()
+    store = EvalRecordStore(storage)
+    action = args.eval_cmd
+    if action == "list":
+        runs = store.list_runs(engine_id=args.engine, status=args.status,
+                               tenant=args.tenant)
+        print(f"{'RUN':24s} {'ENGINE':12s} {'STATUS':10s} {'POINTS':>6s} "
+              f"{'METRIC':14s} {'WINNER':>8s}")
+        for r in runs:
+            winner = "-" if r.winner_score is None else f"{r.winner_score:.4g}"
+            print(f"{r.id:24s} {r.engine_id:12s} {r.status:10s} "
+                  f"{r.num_points:>6d} {r.metric_header:14s} {winner:>8s}")
+        return 0
+    if action in ("show", "status"):
+        try:
+            status = EvalDriver(storage).status(args.run_id)
+        except KeyError as e:
+            return _fail(str(e.args[0]))
+        _print_eval_run(status["run"], status["points"])
+        if action == "status":
+            print(f"progress   {status['points_done']}/{status['points_total']} points")
+            for sh in status["shards"]:
+                fold = "all" if sh["fold"] is None else sh["fold"]
+                print(f"  shard {sh['job_id']}  group {sh['group']} fold {fold}  "
+                      f"{sh['status']}"
+                      + (f"  worker {sh['worker_id']}" if sh.get("worker_id") else ""))
+        return 0
+    removed = store.gc(keep=args.keep if args.keep is not None
+                       else eval_knob("PIO_EVAL_RETENTION"))
+    removed += store.compact(min_age_s=0.0 if args.now else 60.0)
+    print(f"[INFO] Eval GC: {removed} events removed.")
+    return 0
+
+
+def tune_cmd(args: argparse.Namespace) -> int:
+    """`tune SPEC.json`: run the space on the fleet, wait, and park the
+    winner as the engine's retrain preset."""
+    from predictionio_tpu_torch.evalfleet.specs import EvalSpec
+    from predictionio_tpu_torch.evalfleet.tuning import tune
+
+    try:
+        spec = EvalSpec.load(args.spec)
+    except (OSError, ValueError, KeyError) as e:
+        return _fail(f"bad eval spec: {e}")
+    storage = Storage()
+    members = _local_fleet(storage, args.local_workers, args.device)
+    try:
+        run, preset = tune(storage, spec, tenant=args.tenant, timeout_s=args.timeout)
+    finally:
+        for m in members:
+            m.stop()
+    if preset is None:
+        return _fail(f"tune: run {run.id} ended {run.status} without a winner")
+    scope = f"tenant {preset.tenant}" if preset.tenant else "global"
+    print(f"[INFO] Eval run {run.id} completed: winner point "
+          f"{run.winner_index} ({run.metric_header}={run.winner_score}).")
+    print(f"[INFO] Winner parked as {scope} retrain preset for engine "
+          f"{preset.engine_id} — the next periodic retrain trains it.", flush=True)
+    return 0
+
+
+def fleet_cmd(args: argparse.Namespace) -> int:
+    """`fleet status`: the workers and the queue as JSON; `fleet
+    worker`: one fleet member (a CAS-claiming scheduler with a
+    heartbeating worker record) until interrupted."""
+    import json
+    import time
+
+    from predictionio_tpu_torch.deploy.scheduler import SchedulerConfig
+    from predictionio_tpu_torch.fleet import FleetMember, fleet_status
+
+    storage = Storage()
+    if args.fleet_action == "status":
+        print(json.dumps(fleet_status(storage), indent=2))
+        return 0
+    config = SchedulerConfig(device=args.device)
+    if args.log_dir:
+        config.log_dir = args.log_dir
+    if args.max_concurrent:
+        config.max_concurrent = args.max_concurrent
+    try:
+        member = FleetMember(storage, scheduler_config=config)
+    except NotImplementedError as e:
+        return _fail(str(e))
+    member.start()
+    print(f"[INFO] fleet worker {member.worker_id} running (Ctrl-C to stop)",
+          flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        print("[INFO] stopping fleet worker (in-flight jobs finish)")
+        member.stop()
+        return 0
 
 
 def _server_call(base: str, path: str, body: Optional[dict] = None,
@@ -1480,7 +1704,8 @@ def _run(args: argparse.Namespace) -> int:
                 "trace": trace_cmd, "profile": profile_cmd,
                 "rollout": rollout_cmd, "faults": faults_cmd,
                 "adminserver": adminserver, "dashboard": dashboard,
-                "monitor": monitor_cmd, "alerts": alerts_cmd, "tsdb": tsdb_cmd}
+                "monitor": monitor_cmd, "alerts": alerts_cmd, "tsdb": tsdb_cmd,
+                "tune": tune_cmd, "fleet": fleet_cmd}
     if args.cmd in commands:
         return commands[args.cmd](args)
     if args.cmd in ("import", "export") and args.format == "parquet":
@@ -1493,11 +1718,8 @@ def _run(args: argparse.Namespace) -> int:
         n = export_events(args)
         print(f"[INFO] Exported {n} events to {args.output}", flush=True)
         return 0
-    if args.cmd == "tune" or (args.cmd == "eval" and args.eval_cmd != "run"):
-        what = "tune" if args.cmd == "tune" else f"eval {args.eval_cmd}"
-        return _not_ported(f"{what} (the fleet evaluation)")
     if args.cmd == "eval":
-        return eval_run(args)
+        return eval_run(args) if args.eval_cmd == "run" else eval_records(args)
     if args.cmd == "train" and args.engine_json is not None:
         from predictionio_tpu_torch.workflow.core import (
             load_variant, run_train, stage_timings)

@@ -9,9 +9,11 @@ alerts (each SLO's state with a burn-rate sparkline), fleet (each scrape
 target's up state and scrape time), fleet traces (the collector's
 assembled traces), the TSDB explorer (``?series=&match=`` plots any
 retained series as a sparkline, ``?expr=`` evaluates an expression),
-the model lifecycle and online learning. The tenants and fleet
-evaluation panels and ``POST /telemetry/push`` need modules the port
-does not have yet and say so. The routes every server shares
+the model lifecycle, the fleet evaluations (eval runs newest first: the
+space, convergence, the winner and the lineage link to the model
+version its params trained) and online learning. The tenants panel and
+``POST /telemetry/push`` need modules the port does not have yet and
+say so. The routes every server shares
 (``/metrics``, ``/alerts``, ``/debug/*``) are mounted too.
 
 With scrape targets (an argument or ``PIO_MONITOR_TARGETS``), `start`
@@ -114,7 +116,7 @@ class _Handler(JsonHandler):
 {self._traces_html()}
 {self._tsdb_html(qs or {})}
 {self._lifecycle_html()}
-<h1>Fleet evaluations</h1><p>(the fleet evaluation {NOT_PORTED})</p>
+{self._evals_html()}
 <h1>Tenants</h1><p>(the multi-tenant control plane {NOT_PORTED})</p>
 {self._online_html()}
 </body></html>"""
@@ -364,6 +366,39 @@ fragment(s), {st['polls']} poll(s)</p>
         return f"""<h1>Model lifecycle</h1>
 <table border="1" cellpadding="4">
 <tr><th>Version</th><th>Engine</th><th>Status</th><th>Created</th><th>Params hash</th><th>Note</th></tr>
+{rows}
+</table>"""
+
+
+    def _evals_html(self) -> str:
+        """The fleet evaluation's runs newest first: the space, the
+        convergence, the winner and the lineage link to the model version
+        the winning params trained."""
+        from predictionio_tpu_torch.evalfleet.records import EvalRecordStore
+
+        try:
+            runs = EvalRecordStore(self.server.storage).list_runs()
+        except Exception:
+            return "<h1>Fleet evaluations</h1><p>(eval store unavailable)</p>"
+        if not runs:
+            return "<h1>Fleet evaluations</h1><p>(no eval runs recorded)</p>"
+        rows = "".join(
+            f"<tr><td>{html.escape(r.id)}</td>"
+            f"<td>{html.escape(r.engine_id)}</td>"
+            f"<td>{html.escape(r.tenant or '-')}</td>"
+            f"<td>{r.status}</td>"
+            f"<td>{r.num_points} pts / {r.num_groups} grp "
+            f"&times; {r.num_folds} folds</td>"
+            f"<td>{html.escape(r.metric_header)}</td>"
+            f"<td>{'-' if r.winner_score is None else f'{r.winner_score:.6g}'}"
+            f"{'' if r.winner_index is None else f' (p{r.winner_index})'}</td>"
+            f"<td>{html.escape(r.winner_model_version or '-')}</td></tr>"
+            for r in runs[:50]
+        )
+        return f"""<h1>Fleet evaluations</h1>
+<table border="1" cellpadding="4">
+<tr><th>Run</th><th>Engine</th><th>Tenant</th><th>Status</th>
+<th>Space</th><th>Metric</th><th>Winner</th><th>Model version</th></tr>
 {rows}
 </table>"""
 

@@ -9,7 +9,9 @@ canary rollout's verdict knobs (``ROLLOUT_KEYS``), fault injection
 overrides, the trace sampling) and the monitoring plane's
 (``MONITOR_KEYS``, read through ``monitor_knob``; the durable tier's
 ``DURABLE_TSDB_KEYS`` are declared, and a set ``PIO_TSDB_DIR`` is
-refused by the monitor).
+refused by the monitor), and the fleet evaluation's and the fleet
+members' (``EVAL_KEYS`` and ``FLEET_KEYS``, read through
+``eval_knob``).
 A missing or empty value gives the caller's default; a malformed number
 gives the default with a warning, as in the JAX package. Every reader
 takes an optional `env` mapping to read instead of the process
@@ -129,10 +131,42 @@ DURABLE_TSDB_KEYS = {
 }
 
 
-def monitor_knob(name: str, env: Optional[Mapping[str, str]] = None):
-    """A monitoring-plane knob read with its declared default, typed as
-    the default is (bool, int, float or str)."""
-    default = MONITOR_KEYS[name]
+# the fleet evaluation and the tuning loop (evalfleet/) and their defaults
+EVAL_KEYS = {
+    # eval-driver poll cadence (s): partial-result folds and re-dispatch
+    "PIO_EVAL_POLL_S": 0.5,
+    # wall-clock timeout (s) of one eval shard job
+    "PIO_EVAL_SHARD_TIMEOUT_S": 600.0,
+    # the queue's retry budget of an eval shard job (infra failures)
+    "PIO_EVAL_MAX_ATTEMPTS": 3,
+    # extra driver re-submissions of an exhausted shard before the run fails
+    "PIO_EVAL_REDISPATCH": 2,
+    # terminal eval runs (with their results) the eval GC keeps
+    "PIO_EVAL_RETENTION": 20,
+    # 0 disables the canary's offline prior from the eval records
+    "PIO_TUNE_PRIOR": True,
+    # bake multiplier when the candidate's linked offline score is worse
+    # than live's (<= 1 disables)
+    "PIO_TUNE_STRICT_BAKE": 2.0,
+}
+
+# a fleet member's knobs (fleet/coordinator.py) and their defaults; the
+# multi-host keys (PIO_FLEET_COORDINATOR, _NUM_PROCESSES, _PROCESS_ID)
+# belong to the distributed wiring, which is not ported
+FLEET_KEYS = {
+    # operator-pinned CAS claim settle window (s); empty: adapt from the
+    # storage's measured write-visibility skew when a member starts
+    "PIO_CAS_SETTLE_S": "",
+    # floor and ceiling (s) of the adaptive settle window
+    "PIO_CAS_SETTLE_MIN_S": 0.02,
+    "PIO_CAS_SETTLE_MAX_S": 2.0,
+    # the /metrics URL a worker advertises on its record (fleet status
+    # scrapes its device gauges)
+    "PIO_WORKER_METRICS_URL": "",
+}
+
+
+def _typed(name: str, default, env: Optional[Mapping[str, str]]):
     if isinstance(default, bool):
         return env_bool(name, default, env)
     if isinstance(default, int):
@@ -140,6 +174,18 @@ def monitor_knob(name: str, env: Optional[Mapping[str, str]] = None):
     if isinstance(default, float):
         return env_float(name, default, env)
     return env_str(name, default, env)
+
+
+def monitor_knob(name: str, env: Optional[Mapping[str, str]] = None):
+    """A monitoring-plane knob read with its declared default, typed as
+    the default is (bool, int, float or str)."""
+    return _typed(name, MONITOR_KEYS[name], env)
+
+
+def eval_knob(name: str, env: Optional[Mapping[str, str]] = None):
+    """A fleet-evaluation or fleet-member knob read with its declared
+    default, typed as the default is."""
+    return _typed(name, {**EVAL_KEYS, **FLEET_KEYS}[name], env)
 
 
 def _get(name: str, env: Optional[Mapping[str, str]]) -> Optional[str]:

@@ -6,7 +6,8 @@
   rollback), `/online`, `/rollout` and the refusals (`POST /rollout`
   without PIO_ROLLOUT_PROXY, malformed app bodies, unknown routes) with
   equal statuses and bodies; app creation and deletion alike.
-- `/tenants*` and `/evals*` answer 404 saying they are not ported.
+- `/tenants*` answer 404 saying they are not ported; `/evals*` answer
+  as the JAX admin server does.
 - The dashboard renders every section: the completed evaluation
   instances with their reports, alerts, fleet (scraping the admin
   server), fleet traces, the TSDB explorer (`?series=`, `?expr=`, a bad
@@ -176,13 +177,22 @@ def test_admin_app_routes_alike(tmp_path):
 
 @pytest.mark.parametrize("method, path", [
     ("GET", "/tenants"), ("GET", "/tenants/t1"), ("POST", "/tenants"),
-    ("POST", "/tenants/t1/quota"), ("DELETE", "/tenants/t1"), ("GET", "/evals"),
-    ("GET", "/evals/run-1"),
+    ("POST", "/tenants/t1/quota"), ("DELETE", "/tenants/t1"),
 ])
 def test_tenants_and_evals_are_not_ported(admins, method, path):
     (_jport, tport), _seeded, _ts = admins
     status, raw = req(tport, path, method, {} if method == "POST" else None)
     assert status == 404 and "not ported" in json.loads(raw)["message"]
+
+
+@pytest.mark.parametrize("path", ["/evals", "/evals?status=completed", "/evals/run-1",
+                                  "/evals/run-1/x"])
+def test_evals_answer_as_the_jax_admin_server(admins, path):
+    """`GET /evals*` is ported: both servers over the same records give
+    the same status and body (an empty listing, a 404 for an unknown
+    run)."""
+    (jport, tport), _seeded, _ts = admins
+    assert req(tport, path) == req(jport, path)
 
 
 def test_dashboard_sections_render(admins, tmp_path, monkeypatch):
@@ -213,7 +223,8 @@ def test_dashboard_sections_render(admins, tmp_path, monkeypatch):
             assert section in page, section
         assert "ev1" in page and "ev2" not in page and "Precision@10 0.25" in page
         assert "avail_&lt;b&gt;" in page and "<b>up</b>" in page and "server:1" in page
-        assert page.count("not ported yet") == 2
+        assert page.count("not ported yet") == 1  # the tenants panel
+        assert "(no eval runs recorded)" in page
         assert req(port, "/engine_instances/ev1.html") == (200, "<p>report</p>")
         assert req(port, "/engine_instances/ev1.json") == (200, '{"best": 1}')
         assert req(port, "/engine_instances/nope.html")[0] == 404

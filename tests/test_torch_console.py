@@ -189,7 +189,6 @@ def test_export_import_round_trip_matches_jax(base, tmp_path, capsys):
     ["eventserver", "--log-url", "http://collector"],
     ["import", "--app", "A", "--input", "x.parquet", "--format", "parquet"],
     ["export", "--app", "A", "--output", "x.parquet", "--format", "parquet"],
-    ["eval", "gc"],
 ])
 def test_left_out_parts_say_not_ported(base, capsys, argv):
     base("store")

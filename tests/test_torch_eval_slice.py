@@ -15,8 +15,9 @@ them the same way) go into both packages' sqlite storage.
   runs (one ``train_grid`` per fold), and its instance row is
   EVALCOMPLETED with the evaluator's results.
 - ``console eval run`` on the port's sqlite storage (PIO_FS_BASEDIR)
-  exits 0 with an EVALCOMPLETED row and best.json, and 1 for a spec
-  file, a JAX import path, an Evaluation missing or not an Evaluation.
+  exits 0 with an EVALCOMPLETED row and best.json, and 1 for a
+  malformed spec file (for `eval run` and `tune`), an unknown eval run,
+  a JAX import path, an Evaluation missing or not an Evaluation.
 """
 
 import dataclasses
@@ -212,10 +213,9 @@ def test_console_eval_run(tmp_path, monkeypatch, capsys):
     spec = tmp_path / "spec.json"
     spec.write_text("{}")
     for argv, says in (
-        (["eval", "run", str(spec)], "not ported"),
-        (["eval", "list"], "not ported"),
-        (["eval", "status", "r1"], "not ported"),
-        (["tune", str(spec)], "not ported"),
+        (["eval", "run", str(spec)], "bad eval spec"),
+        (["eval", "status", "r1"], "no such eval run"),
+        (["tune", str(spec)], "bad eval spec"),
         (["eval", "run", "predictionio_tpu.controller.Evaluation"], "JAX package"),
         (["eval", "run", f"{here}.NoSuchEvaluation"], "no symbol"),
         (["eval", "run", f"{here}.ConsoleGrid", "--device", "cpu"], "not an Evaluation"),

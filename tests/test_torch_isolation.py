@@ -65,6 +65,49 @@ def test_no_jax_import_in_source(path):
         assert top not in ("jax", "jaxlib", "predictionio_tpu"), (path, name)
 
 
+# the fleet evaluation, the fleet coordinator and the self-cleaning data
+# source: control-plane modules (the eval shard's worker imports its
+# device modules inside main)
+FLEET_MODULES = ["predictionio_tpu_torch.evalfleet", "predictionio_tpu_torch.evalfleet.specs",
+                 "predictionio_tpu_torch.evalfleet.records",
+                 "predictionio_tpu_torch.evalfleet.driver",
+                 "predictionio_tpu_torch.evalfleet.tuning",
+                 "predictionio_tpu_torch.evalfleet.worker", "predictionio_tpu_torch.fleet",
+                 "predictionio_tpu_torch.fleet.coordinator",
+                 "predictionio_tpu_torch.core.self_cleaning"]
+
+
+def test_the_walk_covers_the_fleet_modules():
+    """The source walk above and the import test cover every file of
+    evalfleet/, fleet/ and core/self_cleaning.py."""
+    walked = {str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")}
+    for f in ("__init__", "specs", "records", "driver", "worker", "tuning"):
+        assert f"predictionio_tpu_torch/evalfleet/{f}.py" in walked
+    for f in ("predictionio_tpu_torch/fleet/__init__.py",
+              "predictionio_tpu_torch/fleet/coordinator.py",
+              "predictionio_tpu_torch/core/self_cleaning.py"):
+        assert f in walked
+    assert set(FLEET_MODULES) <= set(_port_modules())
+
+
+@pytest.mark.parametrize("module", FLEET_MODULES)
+def test_fleet_modules_load_neither_jax_nor_torch(module):
+    """Importing a fleet-evaluation or coordinator module (as the
+    console, the admin server and a driver host do) loads no jax,
+    nothing of the JAX package and no torch."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'torch', 'predictionio_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 OBS_MODULES = ["predictionio_tpu_torch.obs", "predictionio_tpu_torch.obs.tracing",
                "predictionio_tpu_torch.obs.spans", "predictionio_tpu_torch.obs.devprof",
                "predictionio_tpu_torch.obs.cudamon", "predictionio_tpu_torch.obs.costs",

@@ -434,8 +434,10 @@ class TestJobQueue:
         assert JobQueue(storage).get(j.id).variant == VARIANT
 
     def test_other_kinds_are_not_ported(self, storage):
-        with pytest.raises(ValueError, match="not ported"):
-            JobQueue(storage).submit(VARIANT, kind="eval")
+        """"train" and "eval" are the job kinds, as in the JAX package."""
+        with pytest.raises(ValueError, match="unknown job kind 'serve'"):
+            JobQueue(storage).submit(VARIANT, kind="serve")
+        assert JobQueue(storage).submit(VARIANT, kind="eval").kind == "eval"
 
 
 def test_jobs_are_listed_alike_by_both_queues(tmp_path):
@@ -447,10 +449,14 @@ def test_jobs_are_listed_alike_by_both_queues(tmp_path):
     assert {j.id: j.to_dict() for j in jq.list()} == {j.id: j.to_dict() for j in q.list()}
     assert jq.get(mine.id).to_dict() == q.get(mine.id).to_dict()
     assert q.get(theirs.id).tenant == "t1" and q.get(theirs.id).kind == "train"
-    # a JAX eval shard stays in the queue for a JAX worker
-    jq.submit(dict(VARIANT, id="shard"), kind="eval")
+    # an eval shard of the port's engine is claimable here; one of the JAX
+    # package's engine stays in the queue for a JAX worker
+    shard = jq.submit(dict(VARIANT, id="shard"), kind="eval")
+    jq.submit(dict(VARIANT, id="jshard", engineFactory="predictionio_tpu.engines."
+                   "recommendation.RecommendationEngine"), kind="eval")
     sched = TrainScheduler(ts, SchedulerConfig(device="cpu"))
-    assert {j.kind for j in sched._claimable()} == {"train"}
+    assert {j.id: j.kind for j in sched._claimable()} == {
+        theirs.id: "train", shard.id: "eval"}  # `mine` is running
 
 
 def test_jax_engine_jobs_stay_queued_for_a_jax_worker(tmp_path):

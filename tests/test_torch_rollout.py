@@ -527,3 +527,45 @@ def test_console_rollout_verbs_print_what_the_jax_console_prints(served, capsys)
     assert got == want and got[0] == 1 and "(409)" in got[2][0]
     assert console.main(["rollout", "abort", "--reason", "console", *url]) == 0
     assert "verdict: wait — console" in capsys.readouterr().out
+
+
+def test_offline_prior_stretches_the_bake_of_a_worse_candidate(served, monkeypatch):
+    """The JAX package's offline prior (deploy/rollout.py's start): a
+    candidate whose lineage-linked eval score is below live's gets its
+    bake stretched by PIO_TUNE_STRICT_BAKE (2 by default); a better one,
+    or any with PIO_TUNE_PRIOR=0, keeps the bake it asked for."""
+    from predictionio_tpu_torch.evalfleet.records import EvalRecordStore
+
+    storage, srv, port, version_b, inst_a, _ = served
+    monkeypatch.delenv("PIO_TUNE_PRIOR", raising=False)
+    monkeypatch.delenv("PIO_TUNE_STRICT_BAKE", raising=False)
+    registry = ModelRegistry(storage)
+    live = registry.register(inst_a)
+    registry.promote(live.id)
+    rec = EvalRecordStore(storage)
+
+    def linked(version_id, score):
+        run = rec.create_run(live.engine_id, {"metric": "map@5"}, 1, 1, 1, "MAPAtK@5")
+        rec.update_run(run.id, status="completed", winner_score=score)
+        rec.link_model_version(run.id, version_id)
+        time.sleep(0.01)
+
+    def bake_of(version_id):
+        status, body = _post(port, "/rollout/start", {
+            "version": version_id, "fraction": 0.2, "bake_s": 300.0})
+        assert status == 200, body
+        bake = _get(port, "/rollout/status")[1]["config"]["bake_s"]
+        assert _post(port, "/rollout/abort", {})[0] == 200
+        return bake
+
+    linked(live.id, 0.8)
+    linked(version_b.id, 0.2)
+    assert bake_of(version_b.id) == 600.0
+    monkeypatch.setenv("PIO_TUNE_PRIOR", "0")
+    worse = registry.register(inst_a)
+    linked(worse.id, 0.1)
+    assert bake_of(worse.id) == 300.0
+    monkeypatch.delenv("PIO_TUNE_PRIOR")
+    better = registry.register(inst_a)
+    linked(better.id, 0.9)
+    assert bake_of(better.id) == 300.0

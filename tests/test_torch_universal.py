@@ -246,9 +246,64 @@ def test_model_pickles_without_device_state(pair):
     assert clone.device == torch.device("cpu")
 
 
-def test_self_cleaning_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        teng.URDataSource(teng.DataSourceParams(APP, event_window={"duration": "1 day"}))
+def test_event_window_cleans_then_trains_like_jax():
+    """The event window is ported (tests/test_universal.py's
+    `test_self_cleaning_window_wired`, held to the JAX package): both
+    packages' stores get the same events plus duplicates and events older
+    than the window; each data source cleans, then reads, then trains.
+    The counters, the surviving events, the training data and the tables
+    must be the JAX package's."""
+    p = _Pair.__new__(_Pair)
+    p.jstorage = JStorage(StorageConfig(
+        sources={"MEM": SourceConfig("MEM", "memory", {})},
+        repositories={"METADATA": "MEM", "EVENTDATA": "MEM", "MODELDATA": "MEM"}))
+    p.tstorage = Storage(TStorageConfig.memory())
+    p.japp = p.jstorage.get_meta_data_apps().insert(JApp(0, APP))
+    p.tapp = p.tstorage.get_meta_data_apps().insert(App(0, APP))
+    p.jstorage.get_events().init_app(p.japp)
+    p.tstorage.get_events().init_app(p.tapp)
+    rows = _events()
+    p.add(rows, 0)
+    p.add(rows[::7], 500)  # exact duplicates, later
+    # the window reaches back to T0 - 30 days; these are older
+    now = dt.datetime.now(dt.timezone.utc)
+    window = {"duration": f"{(now - T0).days + 30} days", "remove_duplicates": True}
+    old = [("buy", f"u{u}", f"gone{u}") for u in range(0, 20, 3)]
+    for store, app_id, make in ((p.jstorage.get_events(), p.japp, JEvent),
+                                (p.tstorage.get_events(), p.tapp, Event)):
+        store.insert_batch([
+            make(event=e, entity_type="user", entity_id=u, target_entity_type="item",
+                 target_entity_id=t, event_time=T0 - dt.timedelta(days=90, seconds=n),
+                 event_id=f"old{n:03d}")
+            for n, (e, u, t) in enumerate(old)], app_id)
+    jds = jeng.URDataSource(jeng.DataSourceParams(APP, ("buy", "view"), event_window=window))
+    tds = teng.URDataSource(teng.DataSourceParams(APP, ("buy", "view"), event_window=window))
+    assert tds.event_window == teng.EventWindow(**window)
+    jtd = jds.read_training(JContext(storage=p.jstorage))
+    ttd = tds.read_training(RuntimeContext(storage=p.tstorage))
+
+    def left(storage, app_id):
+        from predictionio_tpu_torch.data.storage.base import EventQuery
+
+        return sorted(e.event_id for e in storage.get_events().find(EventQuery(app_id=app_id)))
+
+    from predictionio_tpu.data.storage.base import EventQuery as JQuery
+
+    jleft = sorted(e.event_id for e in p.jstorage.get_events().find(JQuery(app_id=p.japp)))
+    assert left(p.tstorage, p.tapp) == jleft
+    assert len(jleft) == len(set(rows)) and not any(i.startswith("old") for i in jleft)
+    p.jtd, p.ttd = jtd, ttd
+    test_training_data_matches(p)
+    params = dict(app_name=APP, max_correlators_per_item=10)
+    p.jalg = jeng.URAlgorithm(jeng.URAlgorithmParams(**params))
+    p.talg = teng.URAlgorithm(teng.URAlgorithmParams(**params))
+    p.jmodel = p.jalg.train(JContext(storage=p.jstorage), jtd)
+    p.tmodel = p.talg.train(RuntimeContext(storage=p.tstorage, device="cpu"), ttd)
+    test_tables_match(p)
+    # a second clean finds nothing left to do in either package
+    assert tds.clean_persisted_events(RuntimeContext(storage=p.tstorage)) == \
+        jds.clean_persisted_events(JContext(storage=p.jstorage)) == \
+        {"compacted": 0, "deduplicated": 0, "aged_out": 0}
 
 
 def test_model_without_device_needs_the_card(pair):
@@ -256,3 +311,76 @@ def test_model_without_device_needs_the_card(pair):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         teng.URModel(pair.tmodel.item_vocab, pair.tmodel.indicator_models, "buy")
+
+
+def _random_tables(rng, n_items=300, sizes=((300, 12), (150, 7))):
+    """Per indicator: (I, T) correlator ids (-1 padded at random) and
+    LLR-like scores, and its target-vocab size."""
+    tables = []
+    for j, t in sizes:
+        idx = rng.randint(0, j, size=(n_items, t)).astype(np.int32)
+        idx[rng.rand(n_items, t) < 0.2] = -1
+        sc = (rng.rand(n_items, t) * 30).astype(np.float32)
+        tables.append((idx, sc, j))
+    return tables
+
+
+def test_history_scores_do_not_depend_on_the_batch():
+    """models/cco.py `history_scores`: each query's row of a B = 64 batch
+    is bit-equal to the same query scored alone (B = 1), at the padded
+    width and at n_items."""
+    from predictionio_tpu_torch.models import cco
+
+    rng = np.random.RandomState(31)
+    tables = _random_tables(rng)
+    hists = []
+    for j, h in ((300, 20), (150, 9)):
+        x = rng.randint(0, j, size=(64, h)).astype(np.int32)
+        x[rng.rand(64, h) < 0.3] = -1
+        x[5] = -1  # a user with no history in this indicator
+        hists.append(x)
+    idx = tuple(torch.from_numpy(t[0]) for t in tables)
+    sc = tuple(torch.from_numpy(t[1]) for t in tables)
+    js = tuple(t[2] for t in tables)
+    for width in (300, cco.pad_items(300)):
+        full = cco.history_scores(idx, sc, tuple(torch.from_numpy(h) for h in hists),
+                                  js, width)
+        assert full.shape == (64, width)
+        for b in range(64):
+            one = cco.history_scores(idx, sc, tuple(torch.from_numpy(h[b:b + 1])
+                                                    for h in hists), js, width)
+            assert torch.equal(one[0], full[b]), b
+    # the host reference of one query agrees within f32 rounding
+    want = sum(cco.score_history(t[0], t[1], h[3][h[3] >= 0]) for t, h in zip(tables, hists))
+    np.testing.assert_allclose(full[3, :300].numpy(), want, rtol=1e-6)
+
+
+def test_served_scores_do_not_depend_on_the_batch(pair):
+    """The UR's answers through `batch_predict`: 64 queries in one batch
+    (B = 64 on the device path) equal each query answered alone (B = 1),
+    scores bit for bit, on the CPU; `batch_score_topk` the same."""
+    from predictionio_tpu_torch.models import cco
+
+    users = [f"u{n}" for n in range(20)] + ["lurker", "ghost"]
+    queries = [teng.Query(user=users[n % len(users)], num=1 + n % 9,
+                          blacklist=["i1", "i6"] if n % 5 == 0 else None,
+                          exclude_seen=n % 3 != 0) for n in range(64)]
+    batch = pair.talg.batch_predict(None, pair.tmodel, list(enumerate(queries)))
+    assert len(batch) == 64
+    for (n, got), q in zip(batch, queries):
+        alone = pair.talg.batch_predict(None, pair.tmodel, [(0, q)])[0][1]
+        assert [(s.item, s.score) for s in got.item_scores] == \
+            [(s.item, s.score) for s in alone.item_scores], n
+
+    rng = np.random.RandomState(5)
+    tables = _random_tables(rng)
+    hists = [np.where(rng.rand(64, 10) < 0.3, -1,
+                      rng.randint(0, j, size=(64, 10))).astype(np.int32)
+             for _, _, j in tables]
+    exclude = np.where(rng.rand(64, 6) < 0.5, -1,
+                       rng.randint(0, 300, size=(64, 6))).astype(np.int32)
+    vals, idx = cco.batch_score_topk(tables, hists, exclude, k=16, device="cpu")
+    for b in range(64):
+        v1, i1 = cco.batch_score_topk(tables, [h[b:b + 1] for h in hists],
+                                      exclude[b:b + 1], k=16, device="cpu")
+        assert np.array_equal(v1[0], vals[b]) and np.array_equal(i1[0], idx[b]), b
