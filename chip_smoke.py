@@ -4,7 +4,8 @@ serve paths, the storage-backed train → deploy → query loop, the grid
 evaluation over the same storage, the fleet evaluation and ``tune`` with
 their shard children, the Universal Recommender's self-cleaning, the
 Event Server feeding train →
-deploy, the online fold-in of live events into the served model, and
+deploy, the same over the storage daemon through its outage (the
+write-ahead spill, the breaker, the replay), the online fold-in of live events into the served model, and
 the model lifecycle (train jobs, checkpoints, warm starts, versions),
 item properties with the similar-product and e-commerce templates, the
 Universal Recommender's train and serve path, the classification
@@ -135,7 +136,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             eval run`` of an EvalSpec (the template's variant reading
             through the data view, EVAL_GRID's axes in its order, 5 folds,
             the template's Precision@10 by its class) with
-            ``--local-workers 2``: one grid group, so 5 shard
+            ``--local-workers 3``: one grid group, so 5 shard
             jobs (one a fold), each child on the card with 2 x the
             iterations of all 8 points of block_partials and of the
             combine, one select a point, no dense pass (its log's launch
@@ -170,7 +171,8 @@ Phases, in order; any failure prints what failed and exits non-zero:
             with the card's name and power limit.
 11. lifecycle the model lifecycle over the loop's storage and app, with
             the train job's child on the card: ``jobs submit`` of the
-            template's variant with checkpoint_every 5 and ``jobs worker
+            template's variant with checkpoint_every 5 (reading through
+            the data view, which phase 10b filled) and ``jobs worker
             --once`` (job 1): completed at attempt 1, its instance
             COMPLETED with no ``ckpt:`` blob left, version v1 ``trained``
             with the job's id, the child's log showing 4 segments each
@@ -234,6 +236,37 @@ Phases, in order; any failure prints what failed and exits non-zero:
             Prints events/s, the POST latencies, the train's stages,
             deploy to ready and query p50/p99/qps, each line with the
             card's name and power limit.
+12b. remote the same quick start over the storage daemon, through its
+            outage, under ``build/remote/``: ``console storageserver`` in
+            a process of its own over sqlite and model files there; every
+            other process reaches it through a ``remote`` source (app new
+            and train here, ``console eventserver`` with ``PIO_WAL_DIR``
+            there, deploy). (b) Four writers POST phase 12's 100,000
+            events in batches of 50; the daemon is SIGKILLed once a third
+            of the POSTs are answered and restarted on its port over the
+            same files once two thirds are. Every event is answered 201
+            or 202 (none 5xx); while it is down the Event Server's
+            ``/metrics`` reads the events breaker at 1 (open) and
+            ``event_wal_pending`` above 0; after the restart the WAL
+            drains to 0, ``event_wal_replayed_total`` equals the 202s,
+            the breaker's transitions hold open, half_open and closed,
+            and the daemon's paged ``find`` reads back every
+            acknowledged id once, 100,000 in all. (c)
+            ``event.insert:error:1.0`` through ``POST /debug/faults`` for
+            120 ``buy`` events: each a 202 with a walId; cleared, each
+            replayed and read back once. (d) ``train --engine-json`` over
+            the daemon: its frame equal column for column to the frame
+            read directly from the daemon's sqlite file (the same train
+            run there), block_partials and the combine launched 2 x 20
+            times, held to their plain versions on its plans, the factors
+            bit-equal to the direct train's. (e) ``deploy --engine-json``
+            over the daemon in its own process on the card, 500 queries
+            from 16 threads: top-k launches equal its batches, all on the
+            select route, every answer the plain top-k on the CPU.
+            Prints kill to the first 202, restart to drained, the ingest
+            events/s beside phase 12's, the reads' seconds, p50/p99/qps,
+            each line with the card's name and power limit. The phase
+            stops its children on any failure and deletes its WAL.
 13. online the online fold-in over phase 12's app and instance: the
             variant's newest COMPLETED runtime built here on the card
             (``latest_completed_runtime``) behind a ``QueryServer`` in this
@@ -505,7 +538,10 @@ Phases, in order; any failure prints what failed and exits non-zero:
             ``/queries.json`` exactly 500, its latest
             ``devprof_invocations_total`` devprof's report and its
             allocated bytes ``torch.cuda.memory_allocated()``; the rate
-            of ``devprof_device_seconds_total`` beside devprof's share.
+            of ``devprof_device_seconds_total`` over 5 s, read during the
+            traffic, within one tick's share of devprof's own device
+            seconds over the same window (devprof snapshotted at the
+            sampler's two points the rate spans).
             (c) ``dispatch.device:delay:1.0:0.4`` through ``POST
             /debug/faults`` under 8 clients: ``query_p250`` pending, then
             firing, one firing notification with the JAX notifier's keys;
@@ -542,6 +578,7 @@ import gc
 import http.client
 import io
 import json
+import math
 import os
 import queue
 import re
@@ -820,6 +857,11 @@ CLASSIFY_T0_MS = 1_262_304_000_000  # 2010-01-01, epoch ms
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 LOOP_DIR = Path(__file__).resolve().parent / "build" / "loop"
 CLASSIFY_DIR = Path(__file__).resolve().parent / "build" / "classify"
+REMOTE_DIR = Path(__file__).resolve().parent / "build" / "remote"
+REMOTE_KILL_AT, REMOTE_RESTART_AT = 1 / 3, 2 / 3  # of the ingest's POSTs answered
+REMOTE_FAULT_SINGLES, REMOTE_FAULT_BATCHES = 20, 2  # the event.insert burst's POSTs
+REMOTE_ENGINE, REMOTE_DIRECT_ENGINE = "ml100k-remote", "ml100k-direct"
+REMOTE_POLL_S, REMOTE_DRAIN_S = 0.1, 300.0
 
 
 class PhaseError(RuntimeError):
@@ -849,8 +891,32 @@ def phase_device(report, shared):
     report["device"] = torch.cuda.get_device_name(0)
     report["torch"] = torch.__version__
     report["cuda"] = torch.version.cuda
+    # the host's CPU: the CPU plain versions' float32 math differs between
+    # hosts (the UR train's CPU check is held to a tolerance that assumes
+    # a log within a few ulps): torch's vectorized log against the
+    # correctly rounded one at the UR's sizes
+    xs = torch.arange(2900, 3100, dtype=torch.float32)
+    want = torch.tensor([math.log(x) for x in xs.tolist()], dtype=torch.float64)
+    ulp = (torch.log(xs).double() - want).abs() / (2.0 ** -21)  # ulps of [4, 8)
+    report["host_cpu"] = {"capability": torch.backends.cpu.get_cpu_capability(),
+                          "model": _cpu_model(), "cores": os.cpu_count(),
+                          "log_max_ulp": float(ulp.max())}
     print(f"[device] {report['device']} | {report['nvidia_smi']} | torch "
-          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+          f"{torch.__version__} cuda {torch.version.cuda} | host CPU "
+          f"{report['host_cpu']['model']} ({report['host_cpu']['cores']} cores, torch "
+          f"{report['host_cpu']['capability']}, float32 log within "
+          f"{report['host_cpu']['log_max_ulp']:.2f} ulp)", flush=True)
+
+
+def _cpu_model():
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return "unknown"
 
 
 def phase_build(report, shared):
@@ -1033,20 +1099,27 @@ def _pairs_with_degrees(rng, d_user, d_item, max_rounds=500):
     it = rng.permutation(np.repeat(np.arange(n_items, dtype=np.int64), d_item))
     key = u * n_items + it
     order = np.argsort(key, kind="stable")
+    sorted_key = key[order]
+    same = sorted_key[1:] == sorted_key[:-1]
     repeat = np.zeros(len(key), bool)
-    repeat[order[1:]] = key[order[1:]] == key[order[:-1]]
+    repeat[order[1:]] = same
     pending = np.flatnonzero(repeat)  # edges whose pair an earlier edge holds
     # the pairs held: the sorted initial set, less `removed`, plus `added`
     # (both sorted, disjoint from it and small), so that a round costs
     # O(pending) and not a rewrite of the whole set
-    base = np.unique(key)
+    base = sorted_key[np.concatenate(([True], ~same))]  # np.unique(key), one sort
     added = removed = np.zeros(0, np.int64)
-    del order, repeat
+    del order, repeat, sorted_key, same
 
     def held(keys, table):
         if not len(table):
             return np.zeros(len(keys), bool)
-        pos = np.searchsorted(table, keys)
+        # the keys searched in sorted order: the same positions, found
+        # along nearby paths of the table (random probes of a table of
+        # tens of millions of keys miss the cache at every step)
+        order = np.argsort(keys)
+        pos = np.empty(len(keys), np.intp)
+        pos[order] = np.searchsorted(table, keys[order])
         return table[np.minimum(pos, len(table) - 1)] == keys
 
     def present(keys):
@@ -1836,7 +1909,8 @@ class _Console:
     it must be) on exit."""
 
     BANNER = re.compile(r"(?:^serving .* on |Event Server is listening at http://"
-                        r"|Dashboard is listening at http://)[^\s:]+:(\d+)")
+                        r"|Dashboard is listening at http://"
+                        r"|Storage server is listening at http://)[^\s:]+:(\d+)")
 
     def __init__(self, args, log_path, env=None):
         self.log = open(log_path, "w")
@@ -1891,24 +1965,31 @@ class _Console:
         self.log.close()
 
 
+def _store_env(store):
+    """sqlite events and metadata and model files under `store`, as
+    PIO_FS_BASEDIR and the PIO_STORAGE_* variables name them."""
+    return {"PIO_FS_BASEDIR": str(store),
+            "PIO_STORAGE_SOURCES_LOOPDB_TYPE": "sqlite",
+            "PIO_STORAGE_SOURCES_LOOPDB_PATH": str(store / "pio.db"),
+            "PIO_STORAGE_SOURCES_LOOPFS_TYPE": "localfs",
+            "PIO_STORAGE_SOURCES_LOOPFS_PATH": str(store),
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "LOOPDB",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOOPDB",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "LOOPFS"}
+
+
 class _loop_storage:
     """The loop's storage under ``build/loop/store`` (sqlite events and
     metadata, model files), or under `store`, named by PIO_FS_BASEDIR and
-    the PIO_STORAGE_* variables while the block runs."""
+    the PIO_STORAGE_* variables while the block runs; or the variables
+    `env` while it runs."""
 
-    def __init__(self, store=None):
+    def __init__(self, store=None, env=None):
         self.store = LOOP_DIR / "store" if store is None else store
+        self.env = env
 
     def __enter__(self):
-        store = self.store
-        env = {"PIO_FS_BASEDIR": str(store),
-               "PIO_STORAGE_SOURCES_LOOPDB_TYPE": "sqlite",
-               "PIO_STORAGE_SOURCES_LOOPDB_PATH": str(store / "pio.db"),
-               "PIO_STORAGE_SOURCES_LOOPFS_TYPE": "localfs",
-               "PIO_STORAGE_SOURCES_LOOPFS_PATH": str(store),
-               "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "LOOPDB",
-               "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOOPDB",
-               "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "LOOPFS"}
+        env = self.env if self.env is not None else _store_env(self.store)
         self.saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         return self
@@ -2381,7 +2462,7 @@ def _windowed_held(staged_w, k, rng, tally, label):
 
 
 FLEET_ENGINE, TUNE_ENGINE = "ml1m-fleet", "ml1m-tune"
-FLEET_WORKERS = 2
+FLEET_WORKERS = 3
 FLEET_FACTORY = "predictionio_tpu_torch.engines.recommendation.RecommendationEngine"
 FLEET_METRIC = {"class": "predictionio_tpu_torch.engines.recommendation.engine.PrecisionAtK",
                 "params": {"k": EVAL_PRECISION_K}}
@@ -2503,7 +2584,7 @@ def phase_fleet_eval(report, shared):
 
 
 def _fleet_run(report, storage, queue):
-    """(a) `eval run spec.json --local-workers 2`: every point's score held
+    """(a) `eval run spec.json --local-workers 3`: every point's score held
     to phase 10's MetricEvaluator score (1e-5), the same winner, each
     shard child's launches; `eval list`, `eval status`, GET /evals/<run>."""
     spec_path = LOOP_DIR / "fleet_spec.json"
@@ -2859,7 +2940,11 @@ def _lifecycle_variant(**als_params):
     return {"id": LIFECYCLE_ENGINE,
             "engineFactory": "predictionio_tpu_torch.engines.recommendation."
                              "RecommendationEngine",
-            "datasource": {"params": {"app_name": LOOP_APP, "event_names": ["rate"]}},
+            # the data view: a child reads the frame phase 10b's eval
+            # children cached, or the one job 2's read (after the delta)
+            # cached for job 3's attempts, instead of the whole app
+            "datasource": {"params": {"app_name": LOOP_APP, "event_names": ["rate"],
+                                      "use_data_view": True}},
             "algorithms": [{"name": "als", "params": {
                 "checkpoint_every": LIFECYCLE_CHECKPOINT_EVERY, **als_params}}]}
 
@@ -3444,6 +3529,7 @@ def phase_ingest(report, shared):
         INGEST_ITEM_DEGREES, INGEST_T0_MS)
     events = _rate_json(users, items, ratings, times)
     shared["ingest"] = (users, items, ratings)  # the online phase's base
+    shared["ingest_events"] = events  # the remote phase posts them again
     with _loop_storage():
         rc, out = _console_out(["app", "new", INGEST_APP])
         key = re.search(r"^\[INFO\] Access key: (\S+)$", out, re.M)
@@ -3460,6 +3546,8 @@ def phase_ingest(report, shared):
             port = es.port(timeout=120)
             ingest = _ingest_posts(port, key, events, rng)
             ids = ingest.pop("ids")
+            for k in ("first_202", "outage", "spilled"):
+                ingest.pop(k)
             checks = _ingest_checks(port, key, rate_key, events, ids, users, times, rng)
         check(es.proc.returncode is not None, "eventserver still running")
         report["ingest"] = {**ingest, "checks": checks}
@@ -3487,12 +3575,15 @@ def phase_ingest(report, shared):
           f"{ing['launches']['serve_select']}); phase {ing['phase_s']:.1f} s", flush=True)
 
 
-def _ingest_posts(port, key, events, rng):
+def _ingest_posts(port, key, events, rng, outage=None):
     """The timed ingest: the events in a shuffled order, all but the last
     INGEST_SINGLES as /batch/events.json POSTs of INGEST_BATCH, those one
     by one, dealt round-robin to INGEST_WRITERS threads (batches first);
-    every event must come back 201. Returns the times and each event's
-    id."""
+    every event must come back 201, or 201 or 202 (spilled) when
+    `outage(out, n_posts)` runs beside the writers (it returns once they
+    are done). Returns the times, each event's id (a 202 names the id it
+    will be stored under beside its walId), the 202s and the first 202's
+    host time."""
     order = rng.permutation(len(events))
     n_batched = len(events) - INGEST_SINGLES
     work = []
@@ -3512,30 +3603,37 @@ def _ingest_posts(port, key, events, rng):
     t0 = time.perf_counter()
     for t in threads:
         t.start()
+    seen = outage(out, len(work), threads) if outage is not None else None
     for t in threads:
         t.join(timeout=900)
-    wall = time.perf_counter() - t0
     check(not any(t.is_alive() for t in threads), "ingest writers hung")
     check(len(out) == len(work), f"{len(out)} of {len(work)} POSTs answered")
+    wall = max(answer[3] for answer in out.values()) - t0  # to the last answer
+    ok = (201, 202) if outage is not None else (201,)
     ids = np.empty(len(events), object)
+    spilled, t_spilled = 0, []
     for j, (chunk, _, _) in enumerate(work):
-        status, body, *_ = out[j]
-        if j < n_batches:
-            check(status == 200 and [r["status"] for r in body] == [201] * len(chunk),
-                  f"batch POST {j}: HTTP {status} {str(body)[:200]}")
-            ids[chunk] = [r["eventId"] for r in body]
-        else:
-            check(status == 201, f"single POST {j}: HTTP {status} {body}")
-            ids[chunk[0]] = body["eventId"]
+        status, body, _, t_answer = out[j]
+        rows = body if j < n_batches else [body]
+        statuses = [r["status"] for r in body] if j < n_batches else [status]
+        check((status == 200 if j < n_batches else True) and len(statuses) == len(chunk)
+              and all(st in ok for st in statuses),
+              f"{'batch' if j < n_batches else 'single'} POST {j}: HTTP {status} "
+              f"{str(body)[:200]}")
+        ids[chunk] = [r["eventId"] for r in rows]  # a 202's too: the id it is stored under
+        n202 = statuses.count(202)
+        spilled += n202
+        if n202:
+            t_spilled.append(t_answer)
     check(len(set(ids)) == len(events), "event ids are not unique")
     batch_s = [out[j][2] for j in range(n_batches)]
     single_s = [out[j][2] for j in range(n_batches, len(work))]
     return {"events": len(events), "writers": INGEST_WRITERS, "batch_posts": n_batches,
             "single_posts": len(single_s), "ingest_s": wall,
-            "events_per_s": len(events) / wall,
+            "events_per_s": len(events) / wall, "spilled": spilled,
             "batch_p50_ms": _pct(batch_s, 0.5), "batch_p99_ms": _pct(batch_s, 0.99),
             "single_p50_ms": _pct(single_s, 0.5), "single_p99_ms": _pct(single_s, 0.99),
-            "ids": ids}
+            "ids": ids, "first_202": min(t_spilled) if t_spilled else None, "outage": seen}
 
 
 def _ingest_checks(port, key, rate_key, events, ids, users, times, rng):
@@ -3676,11 +3774,27 @@ def _ingest_train_deploy(report, users, items, ratings):
                    "ingest plan")
     del staged, stage
 
-    rng = np.random.default_rng(INGEST_SEED + 2)
+    served = _deploy_queries(engine_json, LOOP_DIR / "deploy_ml100k.log", inst, model,
+                             params, np.random.default_rng(INGEST_SEED + 2))
+    report["ingest"].update({
+        "stages": stage_timings(inst), "staging": "StagedWindowedTrain",
+        "launches": {**launches, "serve_topk": served.pop("served"),
+                     "serve_select": served.pop("select")},
+        "corr_users": cu, "corr_items": ci, "held": held, **served,
+        "nvidia_smi": report["nvidia_smi"],
+    })
+
+
+def _deploy_queries(engine_json, log_path, inst, model, params, rng):
+    """`deploy --engine-json` in a process of its own on the card, 500
+    queries of ML-100K's users from N_CLIENTS threads: the deploy serves
+    `inst`, its scored top-k launches equal its batches, all on the
+    select route, and every answer equals the plain top-k on the CPU over
+    `model`'s factors."""
     queries = _loop_queries(rng, INGEST_USERS, INGEST_ITEMS, unknown=0)
     t0 = time.perf_counter()
     with _Console(["deploy", "--engine-json", str(engine_json), "--ip", "127.0.0.1",
-                   "--port", "0"], LOOP_DIR / "deploy_ml100k.log") as dep:
+                   "--port", "0"], log_path) as dep:
         port = dep.port(timeout=300)
         before = _status(port)
         ready_s = time.perf_counter() - t0
@@ -3714,17 +3828,360 @@ def _ingest_train_deploy(report, users, items, ratings):
         check(body == _to_jsonable(cpu_alg.predict(model, Query(**q))),
               f"query {n} ({q}) differs from the CPU plain top-k")
     lat = [out[n][2] for n in range(len(queries))]
-    report["ingest"].update({
-        "stages": stage_timings(inst), "staging": "StagedWindowedTrain",
-        "launches": {**launches, "serve_topk": served, "serve_select": select},
-        "corr_users": cu, "corr_items": ci, "held": held,
-        "deploy_ready_s": ready_s, "wall_s": wall, "qps": len(queries) / wall,
-        "p50_ms": _pct(lat, 0.5), "p99_ms": _pct(lat, 0.99),
-        "batches": batches, "mean_batch": len(queries) / batches,
-        "batch_predict_ms": 1e3 * (after["batch_predict_seconds"]
-                                   - before["batch_predict_seconds"]) / batches,
-        "nvidia_smi": report["nvidia_smi"],
-    })
+    return {"deploy_ready_s": ready_s, "wall_s": wall, "qps": len(queries) / wall,
+            "p50_ms": _pct(lat, 0.5), "p99_ms": _pct(lat, 0.99), "served": served,
+            "select": select, "batches": batches, "mean_batch": len(queries) / batches,
+            "batch_predict_ms": 1e3 * (after["batch_predict_seconds"]
+                                       - before["batch_predict_seconds"]) / batches}
+
+
+# ---------------------------------------------------------------------------
+# phase 13b: the main path over the storage daemon, through its outage
+# ---------------------------------------------------------------------------
+
+
+def _remote_env(port):
+    """Every repository through the storage daemon on `port`."""
+    return {"PIO_FS_BASEDIR": str(REMOTE_DIR / "client"),
+            "PIO_STORAGE_SOURCES_PIOREMOTE_TYPE": "remote",
+            "PIO_STORAGE_SOURCES_PIOREMOTE_HOST": "127.0.0.1",
+            "PIO_STORAGE_SOURCES_PIOREMOTE_PORT": str(port),
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "PIOREMOTE",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PIOREMOTE",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "PIOREMOTE"}
+
+
+class _StorageDaemon:
+    """`console storageserver` over the phase's sqlite and model files, in
+    a process of its own; SIGKILLed and restarted on its port over the
+    same files."""
+
+    def __init__(self):
+        self.console, self.port, self.starts = None, 0, 0
+
+    def start(self):
+        self.close()
+        self.starts += 1
+        env = {k: v for k, v in os.environ.items() if not k.startswith("PIO_STORAGE_")}
+        env.update(_store_env(REMOTE_DIR / "store"))
+        self.console = _Console(["storageserver", "--ip", "127.0.0.1", "--port", str(self.port)],
+                                REMOTE_DIR / f"storageserver{self.starts}.log", env=env)
+        port = self.console.port(timeout=60)
+        check(self.port in (0, port), f"the daemon came back on {port}, not {self.port}")
+        self.port = port
+        return time.perf_counter()
+
+    def kill(self):
+        self.console.proc.kill()
+        self.console.proc.wait(timeout=30)
+        return time.perf_counter()
+
+    def close(self):
+        if self.console is not None:
+            self.console.__exit__(None, None, None)
+            self.console = None
+
+
+def _es_metrics(port):
+    """The Event Server's outage series: the events breaker's state, its
+    transitions by state, the WAL's pending, spilled and replayed."""
+    status, text = _get(port, "/metrics")
+    check(status == 200, f"Event Server /metrics: HTTP {status}")
+    samples = _prometheus(text)
+
+    def total(name, **labels):
+        want = [f'{k}="{v}"' for k, v in labels.items()]
+        return sum(v for (n, lbl), v in samples.items()
+                   if n == name and all(w in lbl for w in want))
+
+    return {"state": total("resilience_breaker_state", dao="events"),
+            "transitions": {st: total("resilience_breaker_transitions_total", dao="events",
+                                      state=st) for st in ("open", "half_open", "closed")},
+            "pending": total("event_wal_pending"),
+            "spilled": total("event_wal_spilled_total"),
+            "replayed": total("event_wal_replayed_total")}
+
+
+def _remote_outage(daemon, es_port):
+    """The outage beside the writers: SIGKILL the daemon once a third of
+    the POSTs are answered, read the Event Server's breaker and WAL while
+    it is down, restart it on its port once two thirds are, and read the
+    WAL until it has drained (the last time its pending reached 0)."""
+    def run(out, n_posts, threads):
+        seen = {"breaker_open": False, "pending_max": 0.0, "outage_polls": 0}
+        t_kill = t_restart = t_drained = None
+        while True:
+            alive = any(t.is_alive() for t in threads)
+            n = len(out)
+            if t_kill is None:
+                if n >= n_posts * REMOTE_KILL_AT:
+                    t_kill = daemon.kill()
+                    seen["posts_at_kill"] = n
+                elif alive:
+                    time.sleep(0.01)
+                    continue
+            m = _es_metrics(es_port)
+            if t_restart is None:
+                seen["outage_polls"] += 1
+                seen["breaker_open"] |= m["state"] == 1.0
+                seen["pending_max"] = max(seen["pending_max"], m["pending"])
+                if n >= n_posts * REMOTE_RESTART_AT or not alive:
+                    t_restart = daemon.start()
+                    seen["posts_at_restart"] = n
+            elif m["pending"] == 0:
+                t_drained = t_drained or time.perf_counter()
+                if not alive:
+                    break
+            else:
+                t_drained = None
+            check(t_restart is None or time.perf_counter() - t_restart < REMOTE_DRAIN_S,
+                  f"the WAL still holds {m['pending']:g} events {REMOTE_DRAIN_S} s after "
+                  "the daemon's restart")
+            time.sleep(REMOTE_POLL_S)
+        return {**seen, "t_kill": t_kill, "t_restart": t_restart, "t_drained": t_drained}
+    return run
+
+
+def _frames_equal(got, want):
+    """Column for column: codes, rows, times, values and vocabularies."""
+    return (len(got) == len(want)
+            and all(np.array_equal(getattr(got, c), getattr(want, c))
+                    for c in ("event_code", "entity_idx", "target_idx", "time_ms", "value"))
+            and all(getattr(got, v).to_dict() == getattr(want, v).to_dict()
+                    for v in ("event_vocab", "entity_vocab", "target_vocab")))
+
+
+def _variant(engine_id, path):
+    path.write_text(json.dumps({
+        "id": engine_id,
+        "engineFactory": "predictionio_tpu_torch.engines.recommendation.RecommendationEngine",
+        "datasource": {"params": {"app_name": INGEST_APP, "event_names": ["rate"]}},
+        "algorithms": [{"name": "als", "params": {}}],  # the template's defaults
+    }))
+    return path
+
+
+def _train_variant(engine_json, engine_id, frames):
+    """`console train --engine-json` here over the storage the environment
+    names; its instance, its model and the frame its read gave."""
+    frame_of = RecommendationDataSource._frame
+
+    def kept_frame(self, ctx):
+        frames.append(frame_of(self, ctx))
+        return frames[-1]
+
+    RecommendationDataSource._frame = kept_frame
+    try:
+        rc = console.main(["train", "--engine-json", str(engine_json)])
+    finally:
+        RecommendationDataSource._frame = frame_of
+    check(rc == 0, f"train --engine-json {engine_json.name}")
+    storage = Storage()
+    [inst] = [i for i in storage.get_meta_data_engine_instances().get_all()
+              if i.engine_id == engine_id]
+    check(inst.status == "COMPLETED", f"{engine_id}'s instance {inst.status}")
+    [model] = deserialize_models(storage.get_model_data_models().get(inst.id).models)
+    check(type(model) is ALSModel, f"{engine_id}'s MODELDATA holds {type(model).__name__}")
+    return inst, model
+
+
+def phase_remote(report, shared):
+    """The main path over the storage daemon (the JDBC role): ML-100K's
+    events POSTed through an Event Server whose every repository is the
+    daemon, which is SIGKILLed mid-ingest and restarted on its port (the
+    WAL spill, the breaker, the replay); the ``event.insert`` fault; then
+    train and deploy over the daemon, held to the same train over the
+    daemon's sqlite file read directly."""
+    t_phase = time.perf_counter()
+    smi = report["nvidia_smi"]
+    users, items, ratings = shared["ingest"]
+    events = shared["ingest_events"]
+    rng = np.random.default_rng(INGEST_SEED + 10)
+    shutil.rmtree(REMOTE_DIR, ignore_errors=True)
+    (REMOTE_DIR / "store").mkdir(parents=True)
+    wal_dir = REMOTE_DIR / "wal"
+    daemon = _StorageDaemon()
+    rm: dict = {}
+    with contextlib.ExitStack() as stack:
+        stack.callback(daemon.close)  # a failed phase leaves no daemon on the port
+        t0 = time.perf_counter()
+        daemon.start()
+        rm["daemon_start_s"] = time.perf_counter() - t0
+        stack.enter_context(_loop_storage(env=_remote_env(daemon.port)))
+        rc, out = _console_out(["app", "new", INGEST_APP])
+        key = re.search(r"^\[INFO\] Access key: (\S+)$", out, re.M)
+        check(rc == 0 and key is not None, "app new over the daemon printed no access key")
+        key = key.group(1)
+        es_env = dict(os.environ, PIO_WAL_DIR=str(wal_dir), PIO_FAULTS_ADMIN="1")
+        es = stack.enter_context(_Console(["eventserver", "--ip", "127.0.0.1", "--port", "0"],
+                                          REMOTE_DIR / "eventserver.log", env=es_env))
+        es_port = es.port(timeout=120)
+        ingest = _ingest_posts(es_port, key, events, rng, _remote_outage(daemon, es_port))
+        rm["outage"] = _remote_ingest_checks(ingest, es_port, daemon, smi)
+        rm["ingest"] = {k: v for k, v in ingest.items() if k not in ("ids", "outage")}
+        rm["fault"] = _remote_fault(es_port, key, ingest["spilled"], rng, smi)
+        es.interrupt()
+        rm["train"] = _remote_train(report, users, items, ratings, smi)
+        rm["serve"] = _deploy_queries(
+            REMOTE_DIR / "engine_remote.json", REMOTE_DIR / "deploy.log",
+            rm["train"].pop("inst"), rm["train"].pop("model"), ALSAlgorithmParams(),
+            np.random.default_rng(INGEST_SEED + 2))
+    check(daemon.console is None, "the daemon is still running")
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    sv = rm["serve"]
+    rm["launches"] = {**rm["train"]["launches"], "serve_topk": sv.pop("served"),
+                      "serve_select": sv.pop("select")}
+    rm["phase_s"] = time.perf_counter() - t_phase
+    rm["nvidia_smi"] = smi
+    report["remote"] = rm
+    print(f"[remote] {smi} | deploy over the daemon: ready in {sv['deploy_ready_s']:.2f} s; "
+          f"{N_QUERIES} queries from {N_CLIENTS} clients: p50 {sv['p50_ms']:.3f} ms, p99 "
+          f"{sv['p99_ms']:.3f} ms, {sv['qps']:.1f} qps, scored top-k launches "
+          f"{rm['launches']['serve_topk']} in {sv['batches']} batches (select "
+          f"{rm['launches']['serve_select']}), every answer the CPU plain top-k's; phase "
+          f"{rm['phase_s']:.1f} s", flush=True)
+
+
+def _remote_ingest_checks(ingest, es_port, daemon, smi):
+    """(b): no event lost or doubled across the killed daemon; the breaker
+    opened, and closed through its probe; the WAL drained, replaying as
+    many events as were answered 202."""
+    seen = ingest["outage"]
+    check(seen["breaker_open"], "the events breaker never read 1 (open) while the daemon "
+          f"was down ({seen['outage_polls']} polls)")
+    check(seen["pending_max"] > 0, "event_wal_pending never rose while the daemon was down")
+    check(ingest["spilled"] > 0 and ingest["first_202"] is not None, "no POST answered 202")
+    m = _es_metrics(es_port)
+    check(m["pending"] == 0 and m["replayed"] == m["spilled"] == ingest["spilled"],
+          f"the WAL: pending {m['pending']:g}, replayed {m['replayed']:g}, spilled "
+          f"{m['spilled']:g}; {ingest['spilled']} events answered 202")
+    check(all(m["transitions"][st] >= 1 for st in ("open", "half_open", "closed")),
+          f"the events breaker's transitions {m['transitions']}")
+    storage = Storage()
+    app_id = storage.get_meta_data_apps().get_by_name(INGEST_APP).id
+    stored = [e.event_id for e in storage.get_events().find(EventQuery(app_id=app_id))]
+    check(len(stored) == len(set(stored)) == INGEST_EDGES
+          and set(stored) == set(ingest["ids"]),
+          f"read back through the daemon: {len(stored)} events, {len(set(stored))} ids, "
+          f"{len(set(stored) ^ set(ingest['ids']))} differ from the {INGEST_EDGES} acknowledged")
+    out = {"spilled": ingest["spilled"], "replayed": m["replayed"],
+           "pending_max": seen["pending_max"], "transitions": m["transitions"],
+           "posts_at_kill": seen["posts_at_kill"], "posts_at_restart": seen["posts_at_restart"],
+           "kill_to_first_202_s": ingest["first_202"] - seen["t_kill"],
+           "outage_s": seen["t_restart"] - seen["t_kill"],
+           "restart_to_drained_s": seen["t_drained"] - seen["t_restart"],
+           "daemon_starts": daemon.starts, "read_back": len(stored)}
+    print(f"[remote] {smi} | {INGEST_EDGES} ML-100K-shaped events from {INGEST_WRITERS} writers "
+          f"through the Event Server over the daemon: {ingest['ingest_s']:.2f} s, "
+          f"{ingest['events_per_s']:.1f} events/s (phase 12, direct: see its line); daemon "
+          f"SIGKILLed after {seen['posts_at_kill']} POSTs, down "
+          f"{out['outage_s']:.2f} s, restarted after {seen['posts_at_restart']}", flush=True)
+    print(f"[remote] {smi} | kill to the first 202 {out['kill_to_first_202_s']:.3f} s; "
+          f"{out['spilled']} events answered 202 (WAL pending up to {out['pending_max']:g}, "
+          f"the events breaker read open), restart to drained "
+          f"{out['restart_to_drained_s']:.2f} s, replayed {out['replayed']:g}; breaker "
+          f"transitions {out['transitions']}; read back through the daemon's paged find: "
+          f"{len(stored)} events, every acknowledged id once", flush=True)
+    return out
+
+
+def _remote_fault(es_port, key, spilled, rng, smi):
+    """(c): `event.insert:error:1.0` through the fault admin route for a
+    burst of buy events: each a 202 with a walId; cleared, each replayed
+    and read back once."""
+    t0 = time.perf_counter()
+    status, body = _call(es_port, "POST", "/debug/faults", {"set": "event.insert:error:1.0"})
+    check(status == 200 and [f["point"] for f in body["faults"]] == ["event.insert"],
+          f"fault admin: {status} {body}")
+    n = REMOTE_FAULT_SINGLES + REMOTE_FAULT_BATCHES * INGEST_BATCH
+    buys = [{"event": "buy", "entityType": "user", "entityId": f"u{int(u)}",
+             "targetEntityType": "item", "targetEntityId": f"i{int(i)}"}
+            for u, i in zip(rng.integers(0, INGEST_USERS, n), rng.integers(0, INGEST_ITEMS, n))]
+    acked = []
+    for ev in buys[:REMOTE_FAULT_SINGLES]:
+        status, body = _call(es_port, "POST", f"/events.json?accessKey={key}", ev)
+        check(status == 202 and body.get("walId"), f"a POST under the fault: {status} {body}")
+        acked.append(body["eventId"])
+    for b in range(REMOTE_FAULT_SINGLES, n, INGEST_BATCH):
+        status, body = _call(es_port, "POST", f"/batch/events.json?accessKey={key}",
+                             buys[b:b + INGEST_BATCH])
+        check(status == 200 and all(r["status"] == 202 and r.get("walId") for r in body),
+              f"a batch under the fault: {status} {str(body)[:200]}")
+        acked += [r["eventId"] for r in body]
+    check(_call(es_port, "POST", "/debug/faults", {"clear": True}) == (200, {"faults": []}),
+          "the fault was not cleared")
+    m, _ = _wait_for(lambda: (lambda m: m if m["pending"] == 0 else None)(_es_metrics(es_port)),
+                     60, "the fault burst's replay")
+    check(m["replayed"] == m["spilled"] == spilled + n,
+          f"after the burst: replayed {m['replayed']:g}, spilled {m['spilled']:g}, "
+          f"not {spilled + n}")
+    storage = Storage()
+    app_id = storage.get_meta_data_apps().get_by_name(INGEST_APP).id
+    got = [e.event_id for e in storage.get_events().find(
+        EventQuery(app_id=app_id, event_names=["buy"]))]
+    check(len(got) == len(set(got)) == n and set(got) == set(acked),
+          f"the burst read back: {len(got)} buy events, {len(set(got) ^ set(acked))} ids "
+          f"differ from the {n} acknowledged")
+    print(f"[remote] {smi} | (c) event.insert:error:1.0 through POST /debug/faults: {n} events "
+          f"({REMOTE_FAULT_SINGLES} single, {REMOTE_FAULT_BATCHES} batches) each a 202 with a "
+          f"walId; cleared, replayed and read back once each; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return {"events": n, "seconds": time.perf_counter() - t0}
+
+
+def _remote_train(report, users, items, ratings, smi):
+    """(d): `train --engine-json` over the daemon, its frame column for
+    column the one read directly from the daemon's sqlite file, the
+    windowed kernels launched as phase 12's train launches them and held
+    to their plain versions on its plans, its factors bit-equal to the
+    same train over the direct store."""
+    remote_json = _variant(REMOTE_ENGINE, REMOTE_DIR / "engine_remote.json")
+    direct_json = _variant(REMOTE_DIRECT_ENGINE, REMOTE_DIR / "engine_direct.json")
+    frames: list = []
+    wf.BLOCK_LAUNCHES.update(partials=0, combine=0)  # every count to 0 just before
+    df.PASS_LAUNCHES.update(row=0, col=0)
+    with _Spy(als, "stage_windowed") as stage:
+        inst, model = _train_variant(remote_json, REMOTE_ENGINE, frames)
+    launches = {**wf.BLOCK_LAUNCHES, **df.PASS_LAUNCHES}
+    params = ALSAlgorithmParams()
+    want = 2 * params.num_iterations
+    check(launches["partials"] == launches["combine"] == want
+          and launches["row"] == launches["col"] == 0,
+          f"the train over the daemon launched {launches}, not {want} windowed passes")
+    staged = [out for *_, out in stage.calls]
+    check(len(staged) == 1 and isinstance(staged[0], als.StagedWindowedTrain),
+          f"the train over the daemon staged {len(staged)} windowed trains")
+    with _loop_storage(REMOTE_DIR / "store"):
+        inst_d, model_d = _train_variant(direct_json, REMOTE_DIRECT_ENGINE, frames)
+    remote_frame, direct_frame = frames
+    check(len(remote_frame) == INGEST_EDGES and _frames_equal(remote_frame, direct_frame),
+          "the frame read through the daemon differs from the one read from its sqlite file")
+    uid, iid = _ids(remote_frame.entity_vocab, "u"), _ids(remote_frame.target_vocab, "i")
+    key = uid[remote_frame.entity_idx] * INGEST_ITEMS + iid[remote_frame.target_idx]
+    order, gen = np.argsort(key), np.argsort(users * INGEST_ITEMS + items)
+    check(np.array_equal(key[order], (users * INGEST_ITEMS + items)[gen])
+          and np.array_equal(remote_frame.value[order], ratings[gen].astype(np.float32)),
+          "the frame read through the daemon differs from the generated triples")
+    f, fd = model.factors, model_d.factors
+    check(_finite(f) and f.user_factors.shape == (INGEST_USERS, RANK), "factors")
+    check(np.array_equal(f.user_factors, fd.user_factors)
+          and np.array_equal(f.item_factors, fd.item_factors)
+          and f.user_vocab.to_dict() == fd.user_vocab.to_dict()
+          and f.item_vocab.to_dict() == fd.item_vocab.to_dict(),
+          "the factors trained over the daemon are not bit-equal to the direct store's")
+    held = {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
+            "combined_max_abs_err": 0.0, "combined_max_ratio": 0.0}
+    _windowed_held(staged[0], RANK, np.random.default_rng(INGEST_SEED + 11), held,
+                   "remote plan")
+    st, std = stage_timings(inst), stage_timings(inst_d)
+    print(f"[remote] {smi} | (d) train over the daemon: read {st['read']:.3f} s (direct from "
+          f"its sqlite file {std['read']:.3f} s), train {st['train']:.3f} s, persist "
+          f"{st['persist']:.4f} s; the frames equal column for column; launches "
+          f"block_partials {launches['partials']}, combine {launches['combine']}, held to "
+          f"the plain versions (max |err| {held['max_abs_err']:.3g}); factors bit-equal to "
+          "the direct store's train", flush=True)
+    return {"stages": st, "direct_stages": std, "launches": launches, "held": held,
+            "inst": inst, "model": model}
 
 
 # ---------------------------------------------------------------------------
@@ -7116,7 +7573,7 @@ def _rollout_feedback(storage, live, bodies, queries, inst_live, booked, smi):
     app_id = storage.get_meta_data_apps().insert(App(id=0, name=ROLLOUT_FEEDBACK_APP))
     storage.get_events().init_app(app_id)
     key = storage.get_meta_data_access_keys().insert(AccessKey(key="", app_id=app_id))
-    es = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0))
+    es = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0, wal_dir=None))
     es_port = es.start()
     try:
         fb = QueryServer(runtime=live.runtime, storage=storage, config=QueryServerConfig(
@@ -7283,7 +7740,7 @@ def phase_monitor(report, shared):
                 qport = qsrv.start()
             servers.append(qsrv)
             check(str(model.device).startswith("cuda"), f"the model is on {model.device}")
-            esrv = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0))
+            esrv = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0, wal_dir=None))
             eport = esrv.start()
             servers.append(esrv)
             asrv = AdminServer(storage, ip="127.0.0.1", port=0)
@@ -7367,6 +7824,80 @@ def phase_monitor(report, shared):
           f"busy {busy / wall:.1%}", flush=True)
 
 
+RATE_EXPR = f"rate(devprof_device_seconds_total[{MONITOR_RATE_S:g}s])"
+
+
+@contextlib.contextmanager
+def _sampler_ticks(sampler, ticks):
+    """Record (point time, devprof device seconds just before the
+    sampler's read, just after) at every sampler tick while the block
+    runs: devprof's own counter at the TSDB's point times."""
+    orig = sampler.sample_once
+
+    def sample_once(now=None):
+        now = time.time() if now is None else now
+        before = devprof.snapshot().device_seconds
+        written = orig(now=now)
+        ticks.append((now, before, devprof.snapshot().device_seconds))
+        return written
+
+    sampler.sample_once = sample_once
+    try:
+        yield ticks
+    finally:
+        del sampler.sample_once  # the class's method again
+
+
+def _window_rate(points, now, drop):
+    """The TSDB's rate over MONITOR_RATE_S at `now` (tsdb.series_increase
+    over the window, from the last point before it, divided by the
+    window) on the points a reader at `now` sees: those at or before it,
+    less the `drop` newest (a tick stamped but not yet written); with
+    the two points it spans."""
+    vis = [p for p in points if p[0] <= now]
+    vis = vis[:len(vis) - drop]
+    inwin = [p for p in vis if p[0] >= now - MONITOR_RATE_S]
+    if not inwin:
+        return None
+    start = vis[len(vis) - len(inwin) - 1] if len(vis) > len(inwin) else inwin[0]
+    return (inwin[-1][1] - start[1]) / MONITOR_RATE_S, start[0], inwin[-1][0]
+
+
+def _rate_over_one_window(tsdb, rate, t_a, t_b, ticks):
+    """The TSDB's rate and devprof's own device seconds over one window.
+    The route evaluated the rate at some `now` in [t_a, t_b], on the
+    points written by then; the same rate recomputed here from the
+    series' points (the route's arithmetic, held to the JAX TSDB's by
+    tests/test_torch_monitor.py) at t_a or t_b names the two sampler
+    points it spans. devprof's snapshots at those two ticks bracket the
+    TSDB's values, so the rate must lie in the bracket, and within one
+    tick's share (the most the card did in one tick, over the window) of
+    the bracket's middle."""
+    found = [w for series in tsdb.matching("devprof_device_seconds_total")
+             for now in (t_b, t_a) for drop in (0, 1)
+             for w in [_window_rate(tsdb.points(series), now, drop)]
+             if w is not None and w[0] == rate]
+    check(rate is not None and found,
+          f"(b) the route's rate {rate} is the TSDB's rate at neither {t_a} nor {t_b}")
+    _, t_start, t_last = found[0]
+    at = {round(k[0], 6): k for k in ticks}
+    check(round(t_start, 6) in at and round(t_last, 6) in at,
+          f"(b) the window's points {t_start:.3f}, {t_last:.3f} are not recorded ticks "
+          f"({len(ticks)} recorded, {ticks[0][0] if ticks else 0:.3f} to "
+          f"{ticks[-1][0] if ticks else 0:.3f})")
+    (tb, b0, b1), (tl, l0, l1) = at[round(t_start, 6)], at[round(t_last, 6)]
+    lo, hi = (l0 - b1) / MONITOR_RATE_S, (l1 - b0) / MONITOR_RATE_S
+    mid = (lo + hi) / 2
+    inside = [k for k in ticks if tb <= k[0] <= tl]
+    share = max((b[2] - a[1] for a, b in zip(inside, inside[1:])), default=0.0) / MONITOR_RATE_S
+    check(lo - 1e-12 <= rate <= hi + 1e-12 and abs(rate - mid) <= share + 1e-12,
+          f"(b) rate {rate} vs devprof over the same window {lo}-{hi} (one tick's share "
+          f"{share})")
+    return {"window_points": (tb, tl), "devprof_rate": mid, "devprof_rate_lo": lo,
+            "devprof_rate_hi": hi, "rate_difference": abs(rate - mid), "tick_share": share,
+            "sampler_ticks": len(ticks)}
+
+
 def _monitor_quiet(qport, queries, bodies, want, smi):
     """(b): 500 queries from 16 clients, no fault: answers, no alert, the
     TSDB's request counter, device and memory series."""
@@ -7377,24 +7908,27 @@ def _monitor_quiet(qport, queries, bodies, want, smi):
     # it holds) reads 1 before the traffic: the increase over a window
     # that starts after that point and before the traffic counts the
     # traffic alone
-    t_warm = time.perf_counter()
     (t_one, _), _ = _wait_for(
         lambda: (lambda pt: pt if pt and pt[1] == 1.0 else None)(
             _latest(qport, "http_requests_total", lbl)),
         10, "the warm query's 200 in the TSDB")
-    # the card idle for the 5 s before the traffic (the build and the warm
-    # query before them): the rate over 5 s and devprof's own device
-    # seconds then cover the same work
-    time.sleep(max(2 * MONITOR_TICK_S, MONITOR_RATE_S + 0.1 - (time.perf_counter() - t_warm)))
-    p0, t0 = devprof.snapshot(), time.perf_counter()
-    res, threads = _monitor_clients(qport, bodies, N_CLIENTS)
-    while any(t.is_alive() for t in threads) and time.perf_counter() - t0 < MONITOR_TICK_S + 0.05:
-        time.sleep(0.01)
-    during = any(t.is_alive() for t in threads)
-    rate_rows = _tsdb(qport, expr=f"rate(devprof_device_seconds_total[{MONITOR_RATE_S:g}s])"
-                      )["result"]
-    p1, t1 = devprof.snapshot(), time.perf_counter()
-    _joined(threads)
+    ticks = []
+    with _sampler_ticks(get_monitor()._sampler, ticks):
+        # the card idle for the window before the traffic (the build and
+        # the warm query before it), every tick of it recorded: the rate
+        # read during the traffic spans a point from before it
+        time.sleep(MONITOR_RATE_S + 2 * MONITOR_TICK_S)
+        p0, t0 = devprof.snapshot(), time.perf_counter()
+        res, threads = _monitor_clients(qport, bodies, N_CLIENTS)
+        while (any(t.is_alive() for t in threads)
+               and time.perf_counter() - t0 < MONITOR_TICK_S + 0.05):
+            time.sleep(0.01)
+        during = any(t.is_alive() for t in threads)
+        t_a = time.time()
+        rate_rows = _tsdb(qport, expr=RATE_EXPR)["result"]
+        t_b = time.time()
+        p1, t1 = devprof.snapshot(), time.perf_counter()
+        _joined(threads)
     wall = time.perf_counter() - t0
     check(len(res) == len(bodies), f"(b) {len(res)} of {len(bodies)} answered")
     by_n = {n: (st, body) for n, st, body, _, _ in res}
@@ -7418,25 +7952,26 @@ def _monitor_quiet(qport, queries, bodies, want, smi):
             _latest(qport, "cuda_memory_allocated_bytes")[1]), 2.0,
         "the TSDB's allocated bytes equal to torch.cuda.memory_allocated()")
     rate = rate_rows[0]["value"] if rate_rows else None
-    # the gauge reads devprof's device seconds: the same field here
+    one = _rate_over_one_window(get_monitor().tsdb, rate, t_a, t_b, ticks)
     busy = (p1.device_seconds - p0.device_seconds) / (t1 - t0)
-    window_share = (p1.device_seconds - p0.device_seconds) / MONITOR_RATE_S
     out = {"queries": len(bodies), "clients": N_CLIENTS, "wall_s": wall,
            "qps": len(bodies) / wall, "increase_200": inc, "devprof_invocations": inv,
            "allocated_bytes": alloc, "rate_device_seconds_5s": rate,
-           "rate_read_during_traffic": during, "devprof_busy_share": busy,
-           "devprof_share_over_rate_window": window_share}
+           "rate_read_during_traffic": during, "devprof_busy_share": busy, **one}
     print(f"[monitor] {smi} | (b) {len(bodies)} queries from {N_CLIENTS} clients in "
           f"{wall:.2f} s ({out['qps']:.1f} qps), {MONITOR_CHECKED} answers equal to the CPU "
           "plain version's, nothing firing", flush=True)
     print(f"[monitor] {smi} | (b) /debug/tsdb: increase of 200s on /queries.json {inc:g} "
           f"(exactly {len(bodies)}); devprof_invocations_total {inv:g} = devprof's report; "
           f"cuda_memory_allocated_bytes {alloc:g} = torch.cuda.memory_allocated()", flush=True)
-    print(f"[monitor] {smi} | (b) rate(devprof_device_seconds_total[{MONITOR_RATE_S:g}s]) "
-          f"read {'during' if during else 'just after'} the traffic: {rate}; devprof's own "
-          f"device seconds over the same {MONITOR_RATE_S:g} s (the card idle before the "
-          f"traffic), a second: {window_share:.6f}; devprof's busy share over the traffic "
-          f"so far: {busy:.2%}", flush=True)
+    print(f"[monitor] {smi} | (b) {RATE_EXPR} read {'during' if during else 'just after'} "
+          f"the traffic: {rate}; devprof's own device seconds over the same window (its "
+          f"snapshots at the sampler's points {one['window_points'][0]:.3f} and "
+          f"{one['window_points'][1]:.3f}), a second: {one['devprof_rate']:.6f} "
+          f"(bracket {one['devprof_rate_lo']:.6f}-{one['devprof_rate_hi']:.6f}), "
+          f"|difference| {one['rate_difference']:.3g} <= one tick's share "
+          f"{one['tick_share']:.3g}; devprof's busy share over the traffic so far: "
+          f"{busy:.2%}", flush=True)
     return out
 
 
@@ -7638,6 +8173,8 @@ def main() -> int:
     # a call the device profiler cannot time fails its phase (and this
     # process's children inherit it)
     os.environ["PIO_DEVPROF_STRICT"] = "1"
+    # the Event Server children's write-ahead logs stay in the checkout
+    os.environ["PIO_WAL_DIR"] = str(Path(__file__).resolve().parent / "build" / "wal")
     t_start = time.perf_counter()
     for name, phase in (("device", phase_device), ("build", phase_build),
                         ("sweep", phase_sweep), ("data", phase_data),
@@ -7647,7 +8184,8 @@ def main() -> int:
                         ("loop", phase_loop), ("eval", phase_eval),
                         ("fleet eval", phase_fleet_eval),
                         ("lifecycle", phase_lifecycle),
-                        ("ingest", phase_ingest), ("online", phase_online),
+                        ("ingest", phase_ingest), ("remote", phase_remote),
+                        ("online", phase_online),
                         ("templates", phase_templates),
                         ("data25", phase_data25), ("windowed", phase_windowed),
                         ("windowed train", phase_windowed_train),
@@ -7680,6 +8218,7 @@ def main() -> int:
     tpl = report["templates"]  # the similar-product deploy; the other templates
     sim, tml = tpl["similar"]["launches"], [tpl["ecommerce"]["launches"],
                                           tpl["recommendation"]["launches"]]
+    rmt = report["remote"]["launches"]  # over the storage daemon: train, deploy
     fle = report["fleet_eval"]  # the shard children of (a) and (b), its jobs, (d)
     fl_shards = [fle["a"]["launches"], fle["b"]["launches"]]
     fl_jobs = [fle["b"]["launches_a"], fle["b"]["launches_n"]]
@@ -7687,7 +8226,7 @@ def main() -> int:
         "fused_recommend_topk": {"serve": report["serve"]["launches"],
                                  "loop": report["loop"]["launches"]["serve_topk"],
                                  "eval": ev["topk"], "eval dense": evd["topk"],
-                                 "ingest": ing["serve_topk"],
+                                 "ingest": ing["serve_topk"], "remote": rmt["serve_topk"],
                                  "lifecycle": lc["serve_topk"],
                                  "online": report["online"]["launches"]["topk"],
                                  "similar": sim["serve_topk"],
@@ -7704,11 +8243,12 @@ def main() -> int:
             for which in ("row", "col")},
         "block_partials": {"windowed train": report["windowed_train"]["launches"]["partials"],
                            "eval": ev["partials"], "ingest": ing["partials"],
+                           "remote": rmt["partials"],
                            "similar": sim["partials"],
                            "templates": sum(t["partials"] for t in tml),
                            "fleet eval shards": sum(x["partials"] for x in fl_shards)},
         "combine": {"windowed train": report["windowed_train"]["launches"]["combine"],
-                    "eval": ev["combine"], "ingest": ing["combine"],
+                    "eval": ev["combine"], "ingest": ing["combine"], "remote": rmt["combine"],
                     "similar": sim["combine"], "templates": sum(t["combine"] for t in tml),
                     "fleet eval shards": sum(x["combine"] for x in fl_shards)},
         "fused_masked_topk": {"ur serve": report["ur_serve"]["launches"],
@@ -7747,6 +8287,7 @@ def main() -> int:
         "max_abs_err": max(report["windowed_sweep"]["max_abs_err"],
                            held["windowed"]["max_abs_err"],
                            report["ingest"]["held"]["max_abs_err"],
+                           report["remote"]["train"]["held"]["max_abs_err"],
                            tpl["similar"]["held"]["max_abs_err"]),
         "ms": users_side["ms"], "plain_ms": users_side["plain_ms"],
         "bound_ms": users_side["bound_ms"], "bound_by": users_side["bound_by"],

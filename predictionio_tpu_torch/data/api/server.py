@@ -35,15 +35,29 @@ with ``events_ingested_total``.
 
 An event POST (``/events.json``, ``/batch/events.json``, a webhook) whose
 ``X-PIO-Deadline`` already expired is shed before auth and storage: 503
-with ``Retry-After`` and ``events_shed_total{reason="deadline"}``. The
-``event.insert`` fault point fires before each storage write; where the
-JAX package spills a failed write into its write-ahead log and answers
-202, the port has no WAL and answers 503 (per event in a batch), so an
-expired POST is always shed. The WAL spill (it serves only backends that
-can be unreachable, none of them ported), ``/segments/*``, the other
-``/debug/*`` routes and log shipping are not ported: those routes answer
-404 saying so. The server's registry is sampled by the process monitor
-while it serves (``utils/http.py``).
+with ``Retry-After`` and ``events_shed_total{reason="deadline"}``, except
+while the write-ahead log holds spilled events (the POST would land in
+it as a 202: one fsync'd append, cheaper than a client's retries).
+
+Storage outages (the JAX server's write-ahead spill): when the store is
+unreachable (``StorageUnreachableError``, a remote source's breaker open
+or its retries spent) or the ``event.insert`` fault fires before the
+write, the admitted event is appended to the ``EventWAL`` under
+``wal_dir`` (``PIO_WAL_DIR``) and answered 202 with its ``walId`` and
+the ``eventId`` it will be stored under (per event in a batch; the JAX
+server answers the walId alone and stores the event under it, so a
+write applied before a daemon's crash and then spilled lands twice
+there, once here); with ``wal_dir`` None it is a 503 and nothing is
+stored. The ``event-wal-replay`` thread replays the log in arrival
+order once the store answers, batched under stable request ids (each
+spilled event lands once), and counts ``event_wal_spilled_total``,
+``event_wal_replayed_total`` and the ``event_wal_pending`` gauge. Access
+keys and channel lists that were read once are served from a cache
+while the store is unreachable, so that auth does not fail before the
+spill; a key never seen is a 503. ``/segments/*``, the other
+``/debug/*`` routes and log shipping are not ported: those routes
+answer 404 saying so. The server's registry is sampled by the process
+monitor while it serves (``utils/http.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ from __future__ import annotations
 import base64
 import datetime as _dt
 import logging
+import threading
 from dataclasses import dataclass, field
 from typing import Optional
 from urllib.parse import parse_qsl, urlsplit
@@ -62,12 +77,19 @@ from predictionio_tpu_torch.data.api.webhooks import (
     JSON_CONNECTORS,
     ConnectorException,
 )
-from predictionio_tpu_torch.data.event import Event, EventValidation, ValidationError
-from predictionio_tpu_torch.data.storage.base import EventQuery
+from predictionio_tpu_torch.data.event import (
+    Event,
+    EventValidation,
+    ValidationError,
+    new_event_id,
+)
+from predictionio_tpu_torch.data.storage.base import EventQuery, StorageUnreachableError
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.obs import server_registry
 from predictionio_tpu_torch.resilience import deadline as _deadline
 from predictionio_tpu_torch.resilience import faults as _faults
+from predictionio_tpu_torch.resilience.wal import EventWAL
+from predictionio_tpu_torch.utils.env import storage_knob
 from predictionio_tpu_torch.utils.http import (
     HttpError,
     JsonHandler,
@@ -79,6 +101,19 @@ log = logging.getLogger(__name__)
 
 MAX_EVENTS_PER_BATCH = 50  # reference EventServer.scala:68
 
+# spilled events a replay RPC carries (the JAX server's replay sends 50):
+# a replay competes with live ingest for the store, and its per-call cost
+# (a commit, an ack fsync) is what bounds a drain after an outage
+REPLAY_CHUNK = 500
+
+# a storage write that fails so spills into the write-ahead log
+_SPILLED = (StorageUnreachableError, _faults.FaultInjected)
+_SPILL_MESSAGE = "storage unavailable; event accepted for replay"
+
+
+def _default_wal_dir() -> str:
+    return storage_knob("PIO_WAL_DIR")
+
 
 @dataclass
 class EventServerConfig:
@@ -86,6 +121,9 @@ class EventServerConfig:
     port: int = 7070
     stats: bool = False
     plugins: list = field(default_factory=list)
+    # the write-ahead spill's directory; None: an outage is a 503
+    wal_dir: Optional[str] = field(default_factory=_default_wal_dir)
+    wal_replay_interval_s: float = 0.5
 
 
 @dataclass
@@ -118,15 +156,14 @@ class _Handler(JsonHandler):
                     key = None
         if not key:
             raise HttpError(401, "Missing accessKey.")
-        storage = self.server.storage
-        access_key = storage.get_meta_data_access_keys().get(key)
+        access_key = self.server.lookup_access_key(key)
         if access_key is None:
             raise HttpError(401, "Invalid accessKey.")
         channel_id: Optional[int] = None
         channel = query.get("channel")
         if channel:
-            match = [c for c in storage.get_meta_data_channels().get_by_app_id(
-                access_key.app_id) if c.name == channel]
+            match = [c for c in self.server.lookup_channels(access_key.app_id)
+                     if c.name == channel]
             if not match:
                 raise HttpError(401, "Invalid channel.")
             channel_id = match[0].id
@@ -136,7 +173,11 @@ class _Handler(JsonHandler):
     def _admit_event(self, auth: AuthData, obj: dict) -> Event:
         """Validation, the key's whitelist and the input blockers:
         everything before the store, shared by the single and batch
-        paths."""
+        paths. An event the client sent without an id gets one here, so
+        that a write the store applied but could not acknowledge (the
+        daemon killed mid-call) and then spilled lands on the same row
+        when replayed: the JAX server leaves the id to the store and
+        the spill, and stores such an event twice."""
         try:
             event = Event.from_json_dict(obj)
             EventValidation.validate(event)
@@ -149,7 +190,7 @@ class _Handler(JsonHandler):
                 obj, {"appId": auth.app_id, "channelId": auth.channel_id})
         except Exception as e:
             raise HttpError(403, f"event rejected: {e}")
-        return event
+        return event if event.event_id else event.with_id(new_event_id())
 
     def _after_insert(self, auth: AuthData, obj: dict, event: Event) -> None:
         self.server.plugin_context.run_sniffers(
@@ -160,22 +201,28 @@ class _Handler(JsonHandler):
             self.server.stats.update(auth.app_id, 201, event)
 
     def _insert_event(self, auth: AuthData, obj: dict) -> None:
+        """Admit and store one event: 201 with its eventId, or 202 with
+        its WAL receipt when the store is unreachable or the
+        ``event.insert`` fault fires (accepted means durable: replayed
+        in order once the store answers)."""
         event = self._admit_event(auth, obj)
         try:
             _faults.fire("event.insert")
-        except _faults.FaultInjected as e:
-            # no write-ahead log to spill into: the event is not stored
-            raise HttpError(503, f"storage unavailable; event not stored ({e})")
-        event_id = self.server.storage.get_events().insert(
-            event, auth.app_id, auth.channel_id)
+            event_id = self.server.storage.get_events().insert(
+                event, auth.app_id, auth.channel_id)
+        except _SPILLED as e:
+            wal_id = self.server.spill(event, auth.app_id, auth.channel_id, e)
+            self._respond(202, {"message": _SPILL_MESSAGE, "walId": wal_id,
+                                "eventId": event.event_id})
+            return
         self._after_insert(auth, obj, event)
         self._respond(201, {"eventId": event_id})
 
     def _maybe_shed_ingest(self, method: str, path: str) -> bool:
         """Shed an event POST whose X-PIO-Deadline already expired: 503 +
-        Retry-After before auth, validation and storage are touched. The
-        JAX package keeps such a POST while its WAL holds spilled events;
-        the port has no WAL, so it always sheds."""
+        Retry-After before auth, validation and storage are touched;
+        except while the WAL holds spilled events, when the store is (or
+        just was) down and the POST would land in the WAL as a 202."""
         if method != "POST" or not (
             path in ("/events.json", "/batch/events.json")
             or path.startswith("/webhooks/")
@@ -183,6 +230,9 @@ class _Handler(JsonHandler):
             return False
         if not _deadline.expired():
             return False
+        wal = self.server.wal
+        if wal is not None and wal.pending():
+            return False  # spill mode: never shed what the WAL absorbs
         self.server.metrics.counter(
             "events_shed_total",
             "ingest POSTs refused before storage work, by reason",
@@ -258,8 +308,9 @@ class _Handler(JsonHandler):
 
     def _post_batch(self, auth: AuthData) -> None:
         """Per-event statuses in a 200 after one `insert_batch` of the
-        admitted events; a batch over MAX_EVENTS_PER_BATCH is a 400 for
-        the whole (reference EventServer.scala:374-440)."""
+        admitted events (202 with a walId each when the batch spills); a
+        batch over MAX_EVENTS_PER_BATCH is a 400 for the whole (reference
+        EventServer.scala:374-440)."""
         objs = self._json_body()
         if not isinstance(objs, list):
             raise HttpError(400, "batch events must be a JSON array")
@@ -280,6 +331,18 @@ class _Handler(JsonHandler):
                 _faults.fire("event.insert")
                 ids = self.server.storage.get_events().insert_batch(
                     [e for _, _, e in admitted], auth.app_id, auth.channel_id)
+            except _SPILLED as e:
+                # a whole outage: every admitted event into the WAL under one
+                # fsync, a 202 each (accepted and durable, not failed)
+                try:
+                    wal_ids = self.server.spill_batch(
+                        [ev for _, _, ev in admitted], auth.app_id, auth.channel_id, e)
+                    for (pos, _, event), wal_id in zip(admitted, wal_ids):
+                        results[pos] = {"status": 202, "message": _SPILL_MESSAGE,
+                                        "walId": wal_id, "eventId": event.event_id}
+                except HttpError as he:
+                    for pos, _, _ in admitted:
+                        results[pos] = {"status": he.status, "message": he.message}
             except Exception as e:
                 for pos, _, _ in admitted:
                     results[pos] = {"status": 503, "message": str(e)}
@@ -380,11 +443,76 @@ class _Server(ThreadedServer):
         self.plugin_context = PluginContext(config.plugins)
         self.metrics = server_registry()
         self.metrics_label = "event"
+        # the stale-credential cache: keys and channel lists read once are
+        # served while the store is unreachable (refreshed on every good
+        # read); a key never seen stays a 503, since granting it unchecked
+        # would bypass auth
+        self._auth_cache_lock = threading.Lock()
+        self._key_cache: dict = {}  # access key → AccessKey row
+        self._channel_cache: dict[int, list] = {}  # app id → [Channel]
+        self.wal: Optional[EventWAL] = EventWAL(config.wal_dir) if config.wal_dir else None
+        if self.wal is not None:
+            wal = self.wal
+            self.metrics.gauge_callback(
+                "event_wal_pending", "events spilled to the WAL and not yet replayed",
+                lambda: float(wal.pending()))
+
+    def lookup_access_key(self, key: str):
+        """The key's row, through the stale-credential cache."""
+        try:
+            ak = self.storage.get_meta_data_access_keys().get(key)
+        except _SPILLED as e:
+            with self._auth_cache_lock:
+                cached = self._key_cache.get(key)
+            if cached is not None:
+                return cached
+            raise HttpError(503, f"storage unavailable, cannot authenticate: {e}")
+        with self._auth_cache_lock:
+            if ak is not None:
+                self._key_cache[key] = ak
+            else:
+                self._key_cache.pop(key, None)  # a revocation wins
+        return ak
+
+    def lookup_channels(self, app_id: int) -> list:
+        try:
+            channels = self.storage.get_meta_data_channels().get_by_app_id(app_id)
+        except _SPILLED as e:
+            with self._auth_cache_lock:
+                cached = self._channel_cache.get(app_id)
+            if cached is not None:
+                return cached
+            raise HttpError(503, f"storage unavailable, cannot resolve channel: {e}")
+        with self._auth_cache_lock:
+            self._channel_cache[app_id] = channels
+        return channels
+
+    def spill(self, event: Event, app_id: int, channel_id: Optional[int],
+              cause: Exception) -> str:
+        """Spill one accepted event durably; returns its WAL receipt. A
+        503 when spilling is off: an outage is then a loud one."""
+        return self.spill_batch([event], app_id, channel_id, cause)[0]
+
+    def spill_batch(self, events: list, app_id: int, channel_id: Optional[int],
+                    cause: Exception) -> list[str]:
+        """Spill a batch's accepted events durably, in order, under one
+        fsync; their WAL receipts."""
+        if self.wal is None:
+            raise HttpError(503, f"storage unavailable: {cause}")
+        wal_ids = self.wal.append_batch(events, app_id, channel_id)
+        self.metrics.counter(
+            "event_wal_spilled_total",
+            "events spilled to the local WAL during storage outages").inc(len(wal_ids))
+        log.warning("storage unreachable (%s); %d event(s) spilled to WAL as %s%s", cause,
+                    len(wal_ids), wal_ids[0], " ..." if len(wal_ids) > 1 else "")
+        return wal_ids
 
 
 class EventServer(ServerProcess):
     """Start and stop the ingestion server (reference EventServerActor
-    and Run, EventServer.scala:580-640); port 0 binds a free port."""
+    and Run, EventServer.scala:580-640); port 0 binds a free port. With a
+    WAL, the ``event-wal-replay`` thread replays the spill every
+    `wal_replay_interval_s` once the store answers."""
 
     _name = "event-server"
 
@@ -393,6 +521,64 @@ class EventServer(ServerProcess):
         super().__init__()
         self.storage = storage or Storage()
         self.config = config or EventServerConfig()
+        self._replay_stop: Optional[threading.Event] = None
+        self._replay_thread: Optional[threading.Thread] = None
 
     def _make_server(self) -> _Server:
         return _Server((self.config.ip, self.config.port), self.storage, self.config)
+
+    def start(self) -> int:
+        port = super().start()
+        if self._server is not None and self._server.wal is not None:
+            self._replay_stop = threading.Event()
+            self._replay_thread = threading.Thread(
+                target=self._replay_loop, name="event-wal-replay", daemon=True)
+            self._replay_thread.start()
+        return port
+
+    def stop(self) -> None:
+        if self._replay_stop is not None:
+            self._replay_stop.set()
+            if self._replay_thread is not None:
+                self._replay_thread.join(timeout=5)
+            self._replay_stop = None
+            self._replay_thread = None
+        server = self._server
+        super().stop()
+        if server is not None and server.wal is not None:
+            server.wal.close()
+
+    def _replay_loop(self) -> None:
+        stop = self._replay_stop
+        while not stop.wait(self.config.wal_replay_interval_s):
+            try:
+                self.replay_wal_once()
+            except Exception:
+                log.exception("WAL replay pass failed; will retry")
+
+    def replay_wal_once(self) -> int:
+        """One ordered replay pass; returns the events that landed.
+        Consecutive spills of one namespace land as bulk writes of up to
+        REPLAY_CHUNK events: a remote store dedupes each on its stable
+        request id, an embedded one overwrites by the event ids."""
+        server = self._server
+        if server is None or server.wal is None or not server.wal.pending():
+            return 0
+        store = self.storage.get_events()
+        with_req_id = getattr(store, "insert_batch_with_req_id", None)
+
+        def _insert_batch(events, app_id, channel_id, batch_req_id):
+            if with_req_id is not None:
+                with_req_id(events, app_id, channel_id, batch_req_id)
+            else:
+                store.insert_batch(events, app_id, channel_id)
+
+        replayed, err = server.wal.replay_batched(_insert_batch, max_batch=REPLAY_CHUNK)
+        if replayed:
+            server.metrics.counter(
+                "event_wal_replayed_total",
+                "spilled events successfully replayed into storage").inc(replayed)
+            log.info("WAL replay: %d event(s) landed", replayed)
+        if err is not None:
+            log.debug("WAL replay stopped (storage still down?): %s", err)
+        return replayed

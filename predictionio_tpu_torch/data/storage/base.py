@@ -4,12 +4,15 @@ Counterpart of the JAX package's ``data/storage/base.py``, cut to what
 the port's train → deploy, eval and event-server paths call: the
 ``EventQuery`` filters by app, channel, time range, entity type and id,
 event names, target entity type and id, with a limit, the reversed
-order and the absent-target filter (no keyset cursor or shards); the
-records ``App``, ``AccessKey``, ``Channel``, ``EngineInstance``,
-``EvaluationInstance``, ``EngineManifest`` and ``Model`` are the JAX
-package's field for field; the DAO interfaces are those of events
-(one namespace per app and channel), apps, access keys, channels,
-engine instances, evaluation instances and models. The event store
+order, the absent-target filter and the keyset cursor ``start_after``
+(no shards); the records ``App``, ``AccessKey``, ``Channel``,
+``EngineInstance``, ``EvaluationInstance``, ``EngineManifest`` and
+``Model`` are the JAX package's field for field; the DAO interfaces are
+those of events (one namespace per app and channel), apps, access keys,
+channels, engine instances, evaluation instances, engine manifests and
+models. ``StorageUnreachableError`` (and ``StorageCircuitOpenError``
+under it) is the one storage failure that retry layers and the Event
+Server's write-ahead spill treat as transient. The event store
 tails by insert revision (``latest_revision``, ``find_since``,
 ``revision_streams``: the online consumer's read) over one stream a
 store, since no ported store shards. The derived reads are the JAX
@@ -41,12 +44,31 @@ class StorageError(RuntimeError):
     pass
 
 
+class StorageUnreachableError(StorageError):
+    """A connectivity failure (the daemon down, a socket error): the only
+    StorageError that retry layers treat as transient. Failures of the
+    application (auth refused, a malformed query, a bug on the server)
+    stay plain StorageErrors: deterministic, not worth a backoff, and no
+    evidence that the store is down."""
+
+
+class StorageCircuitOpenError(StorageUnreachableError):
+    """A fail-fast refusal: the endpoint's circuit breaker is open. A
+    StorageUnreachableError, so that every handler of the transient
+    failure (the Event Server's spill) treats it as the outage it stands
+    for, without a round trip."""
+
+
 @dataclass(frozen=True)
 class EventQuery:
     """Filter set of a find (reference LEvents.futureFind:164): events of
     the (app, channel) namespace with event time in [start_time,
     until_time), ordered by (event_time, event_id), descending when
-    `reversed`, cut to `limit` (None or negative: all)."""
+    `reversed`, cut to `limit` (None or negative: all). `start_after` is
+    a keyset cursor: only events strictly after that (event_time,
+    event_id) in scan order (greater for a forward scan, less for a
+    reversed one), so that pages are O(page) and stable under concurrent
+    writes (the remote store's paged find)."""
 
     app_id: int
     channel_id: Optional[int] = None
@@ -62,8 +84,13 @@ class EventQuery:
     # True: only events with neither target field (the target filters
     # are then ignored)
     filter_target_absent: bool = False
+    start_after: Optional[tuple[_dt.datetime, str]] = None
 
     def matches(self, e: Event) -> bool:
+        if self.start_after is not None:
+            key = (e.event_time, e.event_id or "")
+            if (key >= self.start_after) if self.reversed else (key <= self.start_after):
+                return False
         if self.start_time is not None and e.event_time < self.start_time:
             return False
         if self.until_time is not None and e.event_time >= self.until_time:
@@ -140,9 +167,14 @@ class EventStore(abc.ABC):
         entity_ids: Sequence[str],
         event_names: Optional[Sequence[str]] = None,
         limit_per_entity: Optional[int] = None,
+        channel_id: Optional[int] = None,
+        reversed: bool = True,
     ) -> dict[str, list[Event]]:
-        """{entity_id: [events]} newest first, cut to `limit_per_entity`:
-        a serving micro-batch's history read in one store call."""
+        """{entity_id: [events]} newest first (oldest first when not
+        `reversed`), cut to `limit_per_entity`: a serving micro-batch's
+        history read in one store call. `channel_id` and `reversed` take
+        the JAX package's names, so that its remote client's call reaches
+        a port store through the daemon."""
 
     def find_edges(
         self,
@@ -503,6 +535,27 @@ class EvaluationInstances(abc.ABC):
 
     @abc.abstractmethod
     def update(self, i: EvaluationInstance) -> bool: ...
+
+
+class EngineManifests(abc.ABC):
+    """Registered engine builds, keyed by (id, version)."""
+
+    @abc.abstractmethod
+    def insert(self, m: EngineManifest) -> None: ...
+
+    @abc.abstractmethod
+    def get(self, mid: str, version: str) -> Optional[EngineManifest]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EngineManifest]: ...
+
+    @abc.abstractmethod
+    def update(self, m: EngineManifest, upsert: bool = False) -> None:
+        """Replace the row; a missing one is a StorageError unless
+        `upsert`."""
+
+    @abc.abstractmethod
+    def delete(self, mid: str, version: str) -> None: ...
 
 
 class Models(abc.ABC):

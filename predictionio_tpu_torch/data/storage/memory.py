@@ -1,15 +1,16 @@
 """In-memory event store, app registry, access keys, channels, engine
-and evaluation instances and models.
+and evaluation instances, engine manifests and models.
 
 Counterpart of the JAX package's ``data/storage/memory.py``, cut to what
 the port calls: the event store's namespaces per app and channel with
 ``insert``, ``insert_batch``, ``get``, ``delete``, ``remove_app``,
-``find``, ``find_entities_batch``, the tail read by insert revision
+``find`` (with the keyset cursor ``start_after``),
+``find_entities_batch``, the tail read by insert revision
 (``latest_revision``, ``find_since``) and ``data_signature`` (count +
 a write version bumped at every insert and delete), and the metadata
 rows. One RLock per store; events are kept per namespace with a
 per-entity index for history reads. A channel id of 0 is the default channel, as in the
-sqlite store. Engine manifests are not ported.
+sqlite store.
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ from predictionio_tpu_torch.data.storage.base import (
     App,
     Channel,
     EngineInstance,
+    EngineManifest,
     EvaluationInstance,
     EventQuery,
     Model,
+    StorageError,
 )
 
 
@@ -115,14 +118,17 @@ class MemoryEventStore(base.EventStore):
         entity_ids,
         event_names=None,
         limit_per_entity=None,
+        channel_id=None,
+        reversed=True,
     ) -> dict:
         """{entity_id: [events]} for many entities in one lock pass,
-        each list newest first by (event_time, event_id), cut to
-        `limit_per_entity`."""
+        each list newest first by (event_time, event_id) unless
+        `reversed` is false, cut to `limit_per_entity`."""
         ev_set = set(event_names) if event_names is not None else None
+        key = _ns(app_id, channel_id)
         with self._lock:
-            table = self._ns.get(_ns(app_id, None), {})
-            index = self._by_entity.get(_ns(app_id, None), {})
+            table = self._ns.get(key, {})
+            index = self._by_entity.get(key, {})
             raw = {
                 eid: [table[i] for i in index.get(eid, ()) if i in table]
                 for eid in dict.fromkeys(entity_ids)
@@ -134,7 +140,7 @@ class MemoryEventStore(base.EventStore):
                 if e.entity_type == entity_type
                 and (ev_set is None or e.event in ev_set)
             ]
-            events.sort(key=_order_key, reverse=True)
+            events.sort(key=_order_key, reverse=reversed)
             out[eid] = (
                 events[:limit_per_entity]
                 if limit_per_entity is not None else events
@@ -347,6 +353,32 @@ class MemoryEvaluationInstances(base.EvaluationInstances):
                 return False
             self._instances[i.id] = i
             return True
+
+
+class MemoryEngineManifests(base.EngineManifests):
+    def __init__(self, config: Optional[dict] = None):
+        self._lock = threading.RLock()
+        self._manifests: dict[tuple[str, str], EngineManifest] = {}
+
+    def insert(self, m: EngineManifest) -> None:
+        with self._lock:
+            self._manifests[(m.id, m.version)] = m
+
+    def get(self, mid: str, version: str) -> Optional[EngineManifest]:
+        return self._manifests.get((mid, version))
+
+    def get_all(self) -> list[EngineManifest]:
+        return list(self._manifests.values())
+
+    def update(self, m: EngineManifest, upsert: bool = False) -> None:
+        with self._lock:
+            if (m.id, m.version) not in self._manifests and not upsert:
+                raise StorageError(f"manifest {m.id} {m.version} not found")
+            self._manifests[(m.id, m.version)] = m
+
+    def delete(self, mid: str, version: str) -> None:
+        with self._lock:
+            self._manifests.pop((mid, version), None)
 
 
 class MemoryModels(base.Models):

@@ -7,10 +7,13 @@ Storage.scala:114-403): sources come from ``PIO_STORAGE_SOURCES_<NAME>_TYPE``
 MODELDATA, the same variables as the JAX package's. With none set, the
 development wiring: sqlite metadata and events in
 ``$PIO_FS_BASEDIR/pio.db`` and model files under ``$PIO_FS_BASEDIR``
-(default ``~/.pio_store``). The port's backends are memory, sqlite and
-localfs; a repository resolves to the backend's DAO, one client per
-sqlite source. The process singleton and the storage self-check are not
-ported.
+(default ``~/.pio_store``). The port's backends are memory, sqlite,
+localfs and remote (every DAO through a storage daemon,
+``data/api/storage_server.py``; its ``HOST``, ``PORT``, ``AUTH_KEY`` and
+``TIMEOUT`` settings); a repository resolves to the backend's DAO, with
+one client a source where the backend has clients (sqlite's connection,
+remote's ``CLIENT_FACTORY``). The process singleton and the storage
+self-check are not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ BACKENDS: dict[str, tuple[str, str]] = {
     "memory": ("predictionio_tpu_torch.data.storage.memory", "Memory"),
     "sqlite": ("predictionio_tpu_torch.data.storage.sqlite", "Sqlite"),
     "localfs": ("predictionio_tpu_torch.data.storage.localfs", "LocalFS"),
+    # every DAO proxied to a storage daemon (the reference's JDBC client
+    # role, Storage.scala:140-142)
+    "remote": ("predictionio_tpu_torch.data.storage.remote", "Remote"),
 }
 
 # DAO → class suffix
@@ -42,6 +48,7 @@ _DAO_SUFFIXES = {
     "channels": "Channels",
     "engine_instances": "EngineInstances",
     "evaluation_instances": "EvaluationInstances",
+    "engine_manifests": "EngineManifests",
     "models": "Models",
 }
 
@@ -155,7 +162,8 @@ class Storage:
                     f"{_DAO_SUFFIXES[dao]} in the port"
                 )
             kwargs: dict[str, Any] = {"config": dict(src.settings)}
-            client_factory = getattr(module, "SqliteClient", None)
+            client_factory = (getattr(module, "CLIENT_FACTORY", None)
+                              or getattr(module, "SqliteClient", None))
             if client_factory is not None:
                 if src.name not in self._clients:
                     self._clients[src.name] = client_factory(dict(src.settings))
@@ -181,6 +189,9 @@ class Storage:
 
     def get_meta_data_evaluation_instances(self) -> base.EvaluationInstances:
         return self._get_dao("METADATA", "evaluation_instances")
+
+    def get_meta_data_engine_manifests(self) -> base.EngineManifests:
+        return self._get_dao("METADATA", "engine_manifests")
 
     def get_model_data_models(self) -> base.Models:
         return self._get_dao("MODELDATA", "models")

@@ -1,5 +1,5 @@
 """SQLite storage: events, apps, access keys, channels, engine and
-evaluation instances.
+evaluation instances, engine manifests.
 
 Counterpart of the JAX package's ``data/storage/sqlite.py`` (reference
 jdbc/JDBCLEvents.scala, JDBCPEvents.scala, JDBCApps, JDBCAccessKeys,
@@ -9,12 +9,13 @@ tables, their columns and the revision bookkeeping are the JAX
 package's, so a ``pio.db`` written by either package reads in the
 other: one events table per app and channel,
 ``events_<appId>[_<channelId>]`` (reference JDBCUtils.eventTableName),
-and the ``apps``, ``accesskeys``, ``channels``, ``engineinstances`` and
-``evaluationinstances`` tables. The tail read by insert revision
+and the ``apps``, ``accesskeys``, ``channels``, ``engineinstances``,
+``evaluationinstances`` and ``enginemanifests`` tables. A find's keyset
+cursor (``start_after``) is an indexed range clause on (eventTime, id). The tail read by insert revision
 (``find_since``, ``latest_revision``) goes through the table's
 ``idx_<table>_rev`` index and the ``pio_insert_revisions`` counter;
 ``data_signature`` is the row count with the ``pio_data_versions``
-write version. Engine manifests, model blobs and shard filters are not ported.
+write version. Model blobs and shard filters are not ported.
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ from predictionio_tpu_torch.data.storage.base import (
     App,
     Channel,
     EngineInstance,
+    EngineManifest,
     EvaluationInstance,
     EventQuery,
+    StorageError,
 )
 
 
@@ -282,6 +285,11 @@ class SqliteEventStore(base.EventStore):
             if query.target_entity_id is not None:
                 clauses.append("targetEntityId = ?")
                 params.append(query.target_entity_id)
+        if query.start_after is not None:
+            t, eid = query.start_after
+            op = "<" if query.reversed else ">"
+            clauses.append(f"(eventTime {op} ? OR (eventTime = ? AND id {op} ?))")
+            params.extend([_ms(t), _ms(t), eid])
         return ("WHERE " + " AND ".join(clauses)) if clauses else "", params
 
     def find(self, query: EventQuery) -> Iterator[Event]:
@@ -336,18 +344,22 @@ class SqliteEventStore(base.EventStore):
         entity_ids: Sequence[str],
         event_names: Optional[Sequence[str]] = None,
         limit_per_entity: Optional[int] = None,
+        channel_id: Optional[int] = None,
+        reversed: bool = True,
     ) -> dict[str, list[Event]]:
-        """One indexed SELECT per entity, newest first (the JAX package's
-        per-entity `find_single_entity` loop)."""
-        name = self._ensure_table(app_id)
+        """One indexed SELECT per entity, newest first unless `reversed`
+        is false (the JAX package's per-entity `find_single_entity`
+        loop)."""
+        name = self._ensure_table(app_id, channel_id)
         clause, extra = "", []
         if event_names is not None:
             clause = f" AND event IN ({','.join('?' for _ in event_names)})"
             extra = list(event_names)
         limit = (f" LIMIT {int(limit_per_entity)}"
                  if limit_per_entity is not None and limit_per_entity >= 0 else "")
+        order = "DESC" if reversed else "ASC"
         sql = (f"SELECT * FROM {name} WHERE entityType = ? AND entityId = ?"
-               f"{clause} ORDER BY eventTime DESC, id DESC{limit}")
+               f"{clause} ORDER BY eventTime {order}, id {order}{limit}")
         out: dict[str, list[Event]] = {}
         with self._client.lock:
             for eid in dict.fromkeys(entity_ids):
@@ -692,3 +704,39 @@ class SqliteEvaluationInstances(_MetaBase, base.EvaluationInstances):
             return False
         self.insert(i)
         return True
+
+
+class SqliteEngineManifests(_MetaBase, base.EngineManifests):
+    DDL = """CREATE TABLE IF NOT EXISTS enginemanifests (
+        id TEXT, version TEXT, name TEXT, description TEXT, files TEXT,
+        engineFactory TEXT, PRIMARY KEY (id, version))"""
+
+    def insert(self, m: EngineManifest) -> None:
+        self._exec(
+            "INSERT OR REPLACE INTO enginemanifests VALUES (?,?,?,?,?,?)",
+            (m.id, m.version, m.name, m.description, json.dumps(list(m.files)),
+             m.engine_factory),
+        )
+
+    @staticmethod
+    def _to_manifest(r) -> EngineManifest:
+        return EngineManifest(
+            id=r[0], version=r[1], name=r[2], description=r[3],
+            files=tuple(json.loads(r[4] or "[]")), engine_factory=r[5],
+        )
+
+    def get(self, mid: str, version: str) -> Optional[EngineManifest]:
+        rows = self._query("SELECT * FROM enginemanifests WHERE id=? AND version=?",
+                           (mid, version))
+        return self._to_manifest(rows[0]) if rows else None
+
+    def get_all(self) -> list[EngineManifest]:
+        return [self._to_manifest(r) for r in self._query("SELECT * FROM enginemanifests")]
+
+    def update(self, m: EngineManifest, upsert: bool = False) -> None:
+        if not upsert and self.get(m.id, m.version) is None:
+            raise StorageError(f"manifest {m.id} {m.version} not found")
+        self.insert(m)
+
+    def delete(self, mid: str, version: str) -> None:
+        self._exec("DELETE FROM enginemanifests WHERE id=? AND version=?", (mid, version))

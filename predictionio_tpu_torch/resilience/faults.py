@@ -12,9 +12,9 @@ Named fault points sit at the boundaries the chaos tests need to break:
   ``model.load``      ``build_runtime``, before the model is rehydrated
   ``online.fold``     the fold-in, after each row solve (``corrupt``
                       scrambles the solved rows)
-  ``storage.rpc``     no site in the port (the JAX package's remote
-                      storage client); accepted so that one spec string
-                      configures either package
+  ``storage.rpc``     the remote storage client (``data/storage/
+                      remote.py``), before each attempt of an RPC
+                      (``corrupt`` garbles the daemon's answer)
   ==================  =====================================================
 
 Each point carries at most one :class:`FaultSpec` per scope: mode

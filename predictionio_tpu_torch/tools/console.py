@@ -13,6 +13,8 @@
     python -m predictionio_tpu_torch.tools.console accesskey delete KEY
     python -m predictionio_tpu_torch.tools.console eventserver [--ip ADDR] \\
         [--port 7070] [--stats]
+    python -m predictionio_tpu_torch.tools.console storageserver \\
+        [--ip 127.0.0.1] [--port 7077] [--auth-key KEY]
     python -m predictionio_tpu_torch.tools.console import --app NAME \\
         [--channel C] --input events.jsonl
     python -m predictionio_tpu_torch.tools.console export --app NAME \\
@@ -94,7 +96,12 @@ app and prints its default access key; ``app``, ``channel`` and
 ``accesskey`` list, show and delete what the JAX package's verbs do.
 ``eventserver`` serves the Event Server (``data/api/server.py``) until
 interrupted; it makes no device call, and neither imports the model and
-kernel modules nor touches CUDA. ``import`` writes events from JSON
+kernel modules nor touches CUDA. ``storageserver`` (also
+``storage-server``, the JAX name) serves the storage daemon
+(``data/api/storage_server.py``) over the configured storage until
+interrupted: any other process, every verb here included, then reaches
+it through a ``remote`` source (``PIO_STORAGE_SOURCES_<NAME>_TYPE=remote``
+with ``_HOST``, ``_PORT`` and ``_AUTH_KEY``). ``import`` writes events from JSON
 lines (one event object a line, as ``pio import`` reads them) and
 ``export`` writes them so. ``train --engine-json`` trains the engine
 variant into an engine instance and its MODELDATA blob, and ``deploy
@@ -226,6 +233,11 @@ def _parser() -> argparse.ArgumentParser:
     es.add_argument("--port", type=int, default=7070)
     es.add_argument("--stats", action="store_true")
     es.add_argument("--log-url", help="not ported")
+    ss = sub.add_parser("storageserver", aliases=["storage-server"],
+                        help="serve the shared storage daemon")
+    ss.add_argument("--ip", default="127.0.0.1")
+    ss.add_argument("--port", type=int, default=7077)
+    ss.add_argument("--auth-key", default=None)
     sub.add_parser("status", help="the storage and the device")
     for name, what, io in (("import", "write an app's events from JSON lines", "--input"),
                            ("export", "write an app's events as JSON lines", "--output")):
@@ -644,6 +656,25 @@ def eventserver(args: argparse.Namespace) -> int:
         EventServer(Storage(), EventServerConfig(ip=args.ip, port=args.port,
                                                  stats=args.stats)),
         f"[INFO] Event Server is listening at http://{args.ip}:{{port}}.")
+
+
+def storageserver(args: argparse.Namespace) -> int:
+    """Serve the storage daemon over this process's configured storage
+    until interrupted; the banner names the bound port (with --port 0,
+    a free one). The process loads no torch."""
+    from predictionio_tpu_torch.data.api.storage_server import StorageServer
+
+    server = StorageServer(Storage(), host=args.ip, port=args.port,
+                           auth_key=args.auth_key).start()
+    print(f"[INFO] Storage server is listening at http://{args.ip}:{server.port}.",
+          flush=True)
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+    return 0
 
 
 def status(args: argparse.Namespace) -> int:
@@ -1699,7 +1730,8 @@ def tsdb_cmd(args: argparse.Namespace) -> int:
 
 def _run(args: argparse.Namespace) -> int:
     commands = {"app": app_cmd, "channel": channel_cmd, "accesskey": accesskey_cmd,
-                "eventserver": eventserver, "status": status, "online": online,
+                "eventserver": eventserver, "storageserver": storageserver,
+                "storage-server": storageserver, "status": status, "online": online,
                 "jobs": jobs_cmd, "models": models_cmd, "metrics": metrics_cmd,
                 "trace": trace_cmd, "profile": profile_cmd,
                 "rollout": rollout_cmd, "faults": faults_cmd,

@@ -11,7 +11,10 @@ overrides, the trace sampling) and the monitoring plane's
 ``DURABLE_TSDB_KEYS`` are declared, and a set ``PIO_TSDB_DIR`` is
 refused by the monitor), and the fleet evaluation's and the fleet
 members' (``EVAL_KEYS`` and ``FLEET_KEYS``, read through
-``eval_knob``).
+``eval_knob``), and the storage outage path's (``STORAGE_KEYS``: the
+Event Server's write-ahead spill directory and the remote client's
+retry and breaker knobs, read through ``storage_knob``; a remote
+source's own settings and their defaults in ``REMOTE_SOURCE_KEYS``).
 A missing or empty value gives the caller's default; a malformed number
 gives the default with a warning, as in the JAX package. Every reader
 takes an optional `env` mapping to read instead of the process
@@ -164,6 +167,43 @@ FLEET_KEYS = {
     # scrapes its device gauges)
     "PIO_WORKER_METRICS_URL": "",
 }
+
+
+# the storage outage path and its defaults (the JAX package's registry
+# entries): the remote client's retry and breaker (a source's
+# RETRY_ATTEMPTS, RETRY_BASE_DELAY, BREAKER_THRESHOLD and
+# BREAKER_COOLDOWN settings override them) and the Event Server's spill
+STORAGE_KEYS = {
+    # storage RPC attempts in all
+    "PIO_STORAGE_RETRY_ATTEMPTS": 3,
+    # base delay (s) of the storage RPC's exponential backoff
+    "PIO_STORAGE_RETRY_BASE_DELAY": 0.05,
+    # storage failures in a row before a breaker opens
+    "PIO_BREAKER_THRESHOLD": 5,
+    # seconds an open breaker waits before its recovery probe
+    "PIO_BREAKER_COOLDOWN": 10.0,
+    # the Event Server's write-ahead spill directory (~ expanded)
+    "PIO_WAL_DIR": "~/.predictionio_tpu/event-wal",
+}
+
+# a remote source's settings, PIO_STORAGE_SOURCES_<NAME>_<KEY>, and their
+# defaults (data/storage/remote.py)
+REMOTE_SOURCE_KEYS = {
+    "HOST": "127.0.0.1",
+    "PORT": "7077",
+    # the daemon's shared secret, sent as X-PIO-Storage-Key (none: no auth)
+    "AUTH_KEY": "",
+    # seconds a pooled data connection waits on the daemon
+    "TIMEOUT": "30",
+}
+
+
+def storage_knob(name: str, env: Optional[Mapping[str, str]] = None):
+    """A storage-outage knob read with its declared default, typed as the
+    default is (``PIO_WAL_DIR`` with ~ expanded)."""
+    if name == "PIO_WAL_DIR":
+        return env_path(name, STORAGE_KEYS[name], env)
+    return _typed(name, STORAGE_KEYS[name], env)
 
 
 def _typed(name: str, default, env: Optional[Mapping[str, str]]):

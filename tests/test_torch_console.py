@@ -210,7 +210,7 @@ def test_eventserver_process_takes_the_app_new_key(base, capsys):
     path = base("store")
     code, out, _ = _run(console.main, ["app", "new", "A"], capsys)
     key = re.search(r"Access key: (\S+)", out).group(1)
-    env = {**os.environ, "PIO_FS_BASEDIR": str(path)}
+    env = {**os.environ, "PIO_FS_BASEDIR": str(path), "PIO_WAL_DIR": str(path / "wal")}
     proc = subprocess.Popen(
         [sys.executable, "-m", "predictionio_tpu_torch.tools.console", "eventserver",
          "--ip", "127.0.0.1", "--port", "0"],
@@ -251,7 +251,7 @@ def monitored_event_server(base):
     mon = get_monitor()
     saved = mon.sampler_interval_s, mon.slo_interval_s, list(mon._slos)
     mon.sampler_interval_s = mon.slo_interval_s = 3600.0
-    srv = EventServer(Storage(), EventServerConfig(ip="127.0.0.1", port=0))
+    srv = EventServer(Storage(), EventServerConfig(ip="127.0.0.1", port=0, wal_dir=None))
     port = srv.start()
     mon.set_slos([SLOSpec(name="event_avail", server="event", route="/events.json"),
                   SLOSpec(name="ev_up", kind="up", instance="ev")])

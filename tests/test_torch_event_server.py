@@ -89,7 +89,7 @@ def server(request, tmp_path):
     storage = treg.Storage(_config(request.param, tmp_path, treg))
     _seed(storage, tbase)
     srv = EventServer(storage, EventServerConfig(
-        ip="127.0.0.1", port=0, stats=True, plugins=[RejectBlocker()]))
+        ip="127.0.0.1", port=0, stats=True, wal_dir=None, plugins=[RejectBlocker()]))
     port = srv.start()
     yield port
     srv.stop()
@@ -286,7 +286,7 @@ def test_left_out_routes_say_not_ported(server, path):
 def test_stats_off_by_default():
     storage = treg.Storage(treg.StorageConfig.memory())
     _seed(storage, tbase)
-    srv = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0))
+    srv = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0, wal_dir=None))
     port = srv.start()
     try:
         status, body = req(port, "/stats.json?accessKey=KEY")
@@ -427,7 +427,7 @@ def test_script_matches_the_jax_server(tmp_path, kind):
     jsrv = JServer(jstorage, JConfig(ip="127.0.0.1", port=0, stats=True, wal_dir=None,
                                      plugins=[RejectBlocker()]))
     tsrv = EventServer(tstorage, EventServerConfig(ip="127.0.0.1", port=0, stats=True,
-                                                   plugins=[RejectBlocker()]))
+                                                   wal_dir=None, plugins=[RejectBlocker()]))
     jport, tport = jsrv.start(), tsrv.start()
     try:
         script = _script()

@@ -119,7 +119,7 @@ def _ingest_and_train(base, paths):
     key = re.search(r"Access key: (\S+)", out.getvalue()).group(1)
     users, items, ratings, times = _data()
     events = [_event(*row) for row in zip(users, items, ratings, times)]
-    server = EventServer(Storage(), EventServerConfig(ip="127.0.0.1", port=0))
+    server = EventServer(Storage(), EventServerConfig(ip="127.0.0.1", port=0, wal_dir=None))
     port = server.start()
     try:
         statuses = []

@@ -108,6 +108,47 @@ def test_fleet_modules_load_neither_jax_nor_torch(module):
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+# the storage outage path's data plane: the retry, the breaker, the
+# write-ahead log, the wire codec, the remote client and the storage
+# daemon, which the Event Server and the daemon's process import
+STORAGE_MODULES = ["predictionio_tpu_torch.resilience",
+                   "predictionio_tpu_torch.resilience.retry",
+                   "predictionio_tpu_torch.resilience.breaker",
+                   "predictionio_tpu_torch.resilience.wal",
+                   "predictionio_tpu_torch.data.storage.wire",
+                   "predictionio_tpu_torch.data.storage.remote",
+                   "predictionio_tpu_torch.data.api.storage_server"]
+
+
+def test_the_walk_covers_the_storage_modules():
+    """The source walk and the import test cover every file of the
+    storage outage path."""
+    walked = {str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")}
+    for f in ("resilience/retry.py", "resilience/breaker.py", "resilience/wal.py",
+              "data/storage/wire.py", "data/storage/remote.py",
+              "data/api/storage_server.py"):
+        assert f"predictionio_tpu_torch/{f}" in walked
+    assert set(STORAGE_MODULES) <= set(_port_modules())
+
+
+@pytest.mark.parametrize("module", STORAGE_MODULES)
+def test_storage_modules_load_neither_jax_nor_torch(module):
+    """Importing a module of the storage outage path loads no jax,
+    nothing of the JAX package and no torch: the daemon and the Event
+    Server run without torch, as the JAX package's run without jax."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'torch', 'predictionio_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 OBS_MODULES = ["predictionio_tpu_torch.obs", "predictionio_tpu_torch.obs.tracing",
                "predictionio_tpu_torch.obs.spans", "predictionio_tpu_torch.obs.devprof",
                "predictionio_tpu_torch.obs.cudamon", "predictionio_tpu_torch.obs.costs",
@@ -239,9 +280,34 @@ def test_event_server_starts_without_torch_or_the_models(tmp_path):
         "print(json.dumps([rc, sorted(m for m in sys.modules\n"
         "                  if m.split('.')[0] == 'torch' or m.startswith(heavy))]))\n"
     )
-    env = {**os.environ, "PIO_FS_BASEDIR": str(tmp_path)}
+    env = {**os.environ, "PIO_FS_BASEDIR": str(tmp_path), "PIO_WAL_DIR": str(tmp_path / "wal")}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr
     assert "Event Server is listening" in out.stdout
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [0, []]
+
+
+def test_storage_server_starts_without_torch(tmp_path):
+    """`console storageserver` serves the daemon over sqlite and model
+    files without loading torch or the model, kernel, engine or workflow
+    modules."""
+    code = (
+        "import json, sys, types\n"
+        "from predictionio_tpu_torch.tools import console\n"
+        "class Stop:\n"
+        "    def wait(self):\n"
+        "        raise KeyboardInterrupt\n"
+        "console.threading = types.SimpleNamespace(Event=Stop)\n"
+        "rc = console.main(['storageserver', '--ip', '127.0.0.1', '--port', '0'])\n"
+        "heavy = ('predictionio_tpu_torch.models', 'predictionio_tpu_torch.ops',\n"
+        "         'predictionio_tpu_torch.engines', 'predictionio_tpu_torch.workflow')\n"
+        "print(json.dumps([rc, sorted(m for m in sys.modules\n"
+        "                  if m.split('.')[0] == 'torch' or m.startswith(heavy))]))\n"
+    )
+    env = {**os.environ, "PIO_FS_BASEDIR": str(tmp_path)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "Storage server is listening at http://127.0.0.1:" in out.stdout
     assert json.loads(out.stdout.strip().splitlines()[-1]) == [0, []]

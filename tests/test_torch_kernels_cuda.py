@@ -825,7 +825,7 @@ def test_train_from_event_server_posts_equals_plain_pass_train(card):
                "properties": {"rating": int(rng.integers(1, 6))},
                "eventTime": f"2024-01-01T00:00:00.{k % 1000:03d}Z"}
               for k, c in enumerate(cells)]
-    server = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0))
+    server = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0, wal_dir=None))
     port = server.start()
     try:
         for b in range(0, n, 50):

@@ -133,6 +133,37 @@ def test_tsdb_queries_equal_the_jax_tsdb():
     assert dbs[1].summary(limit=3) == dbs[0].summary(limit=3)
 
 
+def test_device_seconds_rate_equals_the_jax_tsdb_over_one_window():
+    """The device-seconds counter as the sampler writes it (a point a
+    0.25 s tick, idle, then busy, then idle), read as a route reads it:
+    at a `now` between two ticks, the newer one not written yet.
+    `rate(...[5s])` is the JAX TSDB's at every such `now`, and is (the
+    newest point - the last point before now - 5 s) / 5: the window over
+    which a reader holds devprof's own counter (chip_smoke.py's monitor
+    phase, (b))."""
+    rng = np.random.default_rng(28)
+    dbs = [(tsdb_mod.TSDB(capacity=720), expr_mod) for tsdb_mod, expr_mod, _ in PKGS]
+    text = "rate(devprof_device_seconds_total[5s])"
+    points, v = [], 0.0
+    for i in range(120):
+        t = T0 + 0.25 * i + float(rng.uniform(0, 0.002))  # tick jitter
+        if 30 <= i < 70:
+            v += float(rng.uniform(0.0, 0.03))
+        points.append((t, v))
+        for db, _ in dbs:
+            db.add("devprof_device_seconds_total", {}, v, "counter", t)
+        now = t + float(rng.uniform(0.01, 0.24))  # before the next tick
+        got = [expr.evaluate_rows(db, text, now=now) for db, expr in dbs]
+        assert got[1] == got[0], now
+        assert [db.rate("devprof_device_seconds_total", None, 5.0, now)
+                for db, _ in dbs] == [got[0][0]["value"]] * 2
+        base = [val for tp, val in points if tp < now - 5.0]
+        want = (v - base[-1]) / 5.0 if base else v / 5.0
+        assert got[1][0]["value"] == pytest.approx(want, rel=1e-12, abs=1e-15), i
+    assert max(r for r in [(points[k][1] - points[k - 20][1]) / 5.0
+                           for k in range(20, 120)]) > 0.05  # the busy stretch
+
+
 def test_tsdb_ring_capacity_and_reset_semantics():
     """The ring keeps the newest `capacity` points and the reset-aware
     increase reads a restart's post-reset value as the delta, in both."""

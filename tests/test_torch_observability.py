@@ -127,7 +127,8 @@ def _event_servers(tmp_path):
     servers = []
     for name, reg, base, server, config in (
             ("jax", jreg, jbase, JServer, JConfig(ip="127.0.0.1", port=0, wal_dir=None)),
-            ("port", treg, tbase, EventServer, EventServerConfig(ip="127.0.0.1", port=0))):
+            ("port", treg, tbase, EventServer,
+             EventServerConfig(ip="127.0.0.1", port=0, wal_dir=None))):
         storage = reg.Storage(reg.StorageConfig(
             sources={"S": reg.SourceConfig("S", "memory", {})},
             repositories={"METADATA": "S", "EVENTDATA": "S", "MODELDATA": "S"}))

@@ -185,7 +185,7 @@ def test_new_user_personalized_without_retrain(served):
     served.server.attach_online(
         served.app_id, OnlineConsumerConfig(tick_s=0.05, from_latest=True))
     assert _query(served.port, "newbie") == []  # unknown before the fold
-    es = EventServer(served.storage, EventServerConfig(ip="127.0.0.1", port=0))
+    es = EventServer(served.storage, EventServerConfig(ip="127.0.0.1", port=0, wal_dir=None))
     es_port = es.start()
     try:
         body = [e.to_json_dict() for e in _rate("newbie", ["i5", "i6", "i7"], first=10_000)]
@@ -447,7 +447,7 @@ def test_slice_matches_the_jax_slice(served, tmp_path):
                           metrics=JMetrics())
 
     events = _tick_events()
-    es = EventServer(served.storage, EventServerConfig(ip="127.0.0.1", port=0))
+    es = EventServer(served.storage, EventServerConfig(ip="127.0.0.1", port=0, wal_dir=None))
     es_port = es.start()
     try:
         status, out = _post(es_port, f"/batch/events.json?accessKey={served.key}",

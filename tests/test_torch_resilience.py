@@ -15,7 +15,10 @@
   with ``Retry-After`` and ``events_shed_total{reason="deadline"}`` in
   both packages, and stores no row; the next request on the same
   kept-alive connection carries no deadline. The ``event.insert``
-  fault: 503 (per event in a batch) and no row, the port having no WAL.
+  fault without a write-ahead log (``wal_dir=None``): 503 (per event in
+  a batch) and no row in both packages; with one, 202 with a ``walId``
+  in both, each spilled event replayed once, and an expired POST kept
+  (not shed) while the log holds pending events.
 - The ``online.fold`` seam: ``corrupt`` scrambles the folded rows as the
   JAX fold does, ``error`` fails the fold.
 - ``console faults list|set|clear``, on this process's registry and on a
@@ -211,7 +214,7 @@ def _event_servers():
     store with app 1 and access key KEY."""
     out = []
     for reg, base, module, cfg in (
-            (jreg, jbase, jes, {"wal_dir": None}), (treg, tbase, tes, {})):
+            (jreg, jbase, jes, {"wal_dir": None}), (treg, tbase, tes, {"wal_dir": None})):
         storage = reg.Storage(reg.StorageConfig(
             sources={"S": reg.SourceConfig("S", "memory", {})},
             repositories={"METADATA": "S", "EVENTDATA": "S", "MODELDATA": "S"}))
@@ -358,16 +361,131 @@ def test_event_server_sheds_expired_posts_like_jax(event_servers):
 
 
 def test_event_insert_fault_stores_nothing(event_servers):
-    (_, _, _), (tsrv, storage, app_id) = event_servers
-    faults.install(faults.FaultSpec("event.insert", "error", 1.0))
-    status, body, _ = _request(tsrv.port, "/events.json?accessKey=KEY", "POST", EVENT)
-    assert status == 503 and "not stored" in body["message"]
-    status, body, _ = _request(tsrv.port, "/batch/events.json?accessKey=KEY", "POST",
-                               [EVENT, dict(EVENT, event="$bad")])
-    assert status == 200 and [r["status"] for r in body] == [503, 400]
-    assert list(storage.get_events().find(tbase.EventQuery(app_id=app_id))) == []
-    faults.clear()
-    assert _request(tsrv.port, "/events.json?accessKey=KEY", "POST", EVENT)[0] == 201
+    """Without a write-ahead log the fault is a 503, per event in a
+    batch, and no row: the JAX server's answers."""
+    results = []
+    for srv, storage, app_id in event_servers:
+        for module in (faults, jfaults):
+            module.install(module.FaultSpec("event.insert", "error", 1.0))
+        single = _request(srv.port, "/events.json?accessKey=KEY", "POST", EVENT)[:2]
+        batch = _request(srv.port, "/batch/events.json?accessKey=KEY", "POST",
+                         [EVENT, dict(EVENT, event="$bad")])[:2]
+        query = (jbase if srv.__class__ is jes.EventServer else tbase).EventQuery
+        rows = list(storage.get_events().find(query(app_id=app_id)))
+        for module in (faults, jfaults):
+            module.clear()
+        after = _request(srv.port, "/events.json?accessKey=KEY", "POST", EVENT)[0]
+        results.append((single, batch, rows, after))
+    assert results[1] == results[0]
+    (status, body), (bstatus, bbody), rows, after = results[1]
+    assert status == 503 and body["message"].startswith("storage unavailable")
+    assert bstatus == 200 and [r["status"] for r in bbody] == [503, 400]
+    assert rows == [] and after == 201
+
+
+def _wal_servers(tmp_path):
+    """Both packages' Event Servers with a write-ahead log under
+    `tmp_path` (replayed only when a test says so), each over a memory
+    store with app 1 and access key KEY."""
+    out = []
+    for name, reg, base, module in (("jax", jreg, jbase, jes), ("port", treg, tbase, tes)):
+        storage = reg.Storage(reg.StorageConfig(
+            sources={"S": reg.SourceConfig("S", "memory", {})},
+            repositories={"METADATA": "S", "EVENTDATA": "S", "MODELDATA": "S"}))
+        app_id = storage.get_meta_data_apps().insert(base.App(id=0, name="walapp"))
+        storage.get_events().init_app(app_id)
+        storage.get_meta_data_access_keys().insert(
+            base.AccessKey(key="KEY", app_id=app_id, events=()))
+        srv = module.EventServer(storage, module.EventServerConfig(
+            ip="127.0.0.1", port=0, wal_dir=str(tmp_path / name / "wal"),
+            wal_replay_interval_s=3600.0))
+        srv.start()
+        out.append((srv, storage, app_id, base))
+    return out
+
+
+def _metric(port, name):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+        for line in r.read().decode().splitlines():
+            if line.startswith(name + " "):
+                return float(line.split()[1])
+    return None
+
+
+def test_event_insert_fault_spills_and_replays_once(tmp_path):
+    """With a write-ahead log the fault is a 202 with a walId (per event
+    in a batch), in both packages; once cleared, one replay pass lands
+    every spilled event once, under its walId as the event id, and a
+    second pass lands nothing."""
+    servers = _wal_servers(tmp_path)
+    try:
+        results = []
+        for srv, storage, app_id, base in servers:
+            for module in (faults, jfaults):
+                module.install(module.FaultSpec("event.insert", "error", 1.0))
+            answers = [_request(srv.port, "/events.json?accessKey=KEY", "POST",
+                                dict(EVENT, entityId=f"u{n}"))[:2] for n in range(3)]
+            answers.append(_request(srv.port, "/batch/events.json?accessKey=KEY", "POST",
+                                    [dict(EVENT, entityId="u3"), dict(EVENT, event="$bad"),
+                                     dict(EVENT, entityId="u4")])[:2])
+            pending = _metric(srv.port, "event_wal_pending")
+            stored = list(storage.get_events().find(base.EventQuery(app_id=app_id)))
+            for module in (faults, jfaults):
+                module.clear()
+            first, second = srv.replay_wal_once(), srv.replay_wal_once()
+            rows = list(storage.get_events().find(base.EventQuery(app_id=app_id)))
+            # the id a 202 acknowledges: the port answers the id it stores the
+            # event under, the JAX server the walId it stores it under
+            acked = [b.get("eventId", b["walId"]) for _, b in answers[:3]]
+            acked += [r.get("eventId", r["walId"]) for r in answers[3][1] if r["status"] == 202]
+            results.append({
+                "statuses": [s for s, _ in answers[:3]] + [[r["status"] for r in answers[3][1]]],
+                "messages": [b["message"] for _, b in answers[:3]],
+                "pending": pending, "stored": len(stored), "replayed": (first, second),
+                "ids": sorted(e.event_id for e in rows) == sorted(acked),
+                "entities": sorted(e.entity_id for e in rows),
+                "spilled": _metric(srv.port, "event_wal_spilled_total"),
+                "replayed_total": _metric(srv.port, "event_wal_replayed_total"),
+                "left": _metric(srv.port, "event_wal_pending"),
+            })
+        assert results[1] == results[0]
+        got = results[1]
+        assert got["statuses"] == [202, 202, 202, [202, 400, 202]]
+        assert got["pending"] == 5 and got["stored"] == 0
+        assert got["replayed"] == (5, 0) and got["ids"]
+        assert got["entities"] == [f"u{n}" for n in range(5)]
+        assert got["spilled"] == got["replayed_total"] == 5 and got["left"] == 0
+    finally:
+        for srv, *_ in servers:
+            srv.stop()
+
+
+def test_expired_post_is_kept_while_the_wal_is_pending(tmp_path):
+    """An expired POST is shed, except while the write-ahead log holds
+    spilled events: then it is spilled too (202), as in the JAX server."""
+    servers = _wal_servers(tmp_path)
+    try:
+        results = []
+        for srv, storage, app_id, base in servers:
+            for module in (faults, jfaults):
+                module.install(module.FaultSpec("event.insert", "error", 1.0))
+            seen = [_request(srv.port, "/events.json?accessKey=KEY", "POST", EVENT)[0]]
+            seen.append(_request(srv.port, "/events.json?accessKey=KEY", "POST", EVENT,
+                                 {"X-PIO-Deadline": "0"})[0])
+            for module in (faults, jfaults):
+                module.clear()
+            seen.append(srv.replay_wal_once())
+            seen.append(_request(srv.port, "/events.json?accessKey=KEY", "POST", EVENT,
+                                 {"X-PIO-Deadline": "0"})[0])
+            rows = list(storage.get_events().find(base.EventQuery(app_id=app_id)))
+            results.append((seen, len(rows), _shed_lines(srv.port)))
+        assert results[1] == results[0]
+        seen, rows, lines = results[1]
+        assert seen == [202, 202, 2, 503] and rows == 2
+        assert 'events_shed_total{reason="deadline"} 1' in lines
+    finally:
+        for srv, *_ in servers:
+            srv.stop()
 
 
 # ---------------------------------------------------------------------------

@@ -432,7 +432,7 @@ def test_feedback_events_carry_the_jax_fields(tmp_path):
     storage.get_events().init_app(app_id)
     storage.get_meta_data_access_keys().insert(
         tbase.AccessKey(key="FBKEY", app_id=app_id, events=()))
-    es = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0))
+    es = EventServer(storage, EventServerConfig(ip="127.0.0.1", port=0, wal_dir=None))
     es_port = es.start()
     url = f"http://127.0.0.1:{es_port}"
     srv = _server(_factors(), feedback=True, event_server_url=url, access_key="FBKEY")
