@@ -6,12 +6,14 @@ their shard children, the Universal Recommender's self-cleaning, the
 Event Server feeding train →
 deploy, the same over the storage daemon through its outage (the
 write-ahead spill, the breaker, the replay), the online fold-in of live events into the served model, and
-the model lifecycle (train jobs, checkpoints, warm starts, versions),
+the model lifecycle (train jobs, checkpoints, warm starts, versions,
+their children's push telemetry),
 item properties with the similar-product and e-commerce templates, the
 Universal Recommender's train and serve path, the classification
 and regression templates, the query server's canary rollout,
 deadlines, fault points and pipelined batching, and the monitoring
-plane with the operator servers, on one CUDA card.
+plane with the operator servers and the durable TSDB tier, on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -200,8 +202,24 @@ Phases, in order; any failure prints what failed and exits non-zero:
             from 8 threads (new users and movies among them), each equal
             to the plain top-k on the CPU, top-k launches equal to
             batches, all on the select route. ``models gc --keep 1``
-            keeps v1 and v3, ``jobs gc --keep 2`` jobs 2 and 3. The
-            children import this checkout through PYTHONPATH. Prints
+            keeps v1 and v3, ``jobs gc --keep 2`` jobs 2 and 3. Push
+            telemetry: a port ``Dashboard`` in this process (no scrape
+            targets, ``PIO_PUSH_INGEST=1``, a ``PIO_PUSH_TOKEN``, a
+            monitor of its own) is the children's ``PIO_PUSH_URL``
+            (``PIO_PUSH_INTERVAL_S`` 0.25): each job's child pushes a
+            devprof report with ``push_status`` devprof true, whose
+            ``als.train_dense`` covers as many iterations (its work over
+            one iteration's) as the child's launch line has row and col
+            passes (20 + 20 for job 1), in one call a segment; job 1's
+            ``train.*`` spans on the dashboard's ``/debug/traces?fleet=1``
+            (no poll); a ``telemetry_last_push_age_seconds{instance}`` for
+            each child. Job 3's first attempt pushes into a refusing
+            ingest (``PIO_PUSH_INGEST`` unset), and is killed once its
+            spool took its first segment's report; with the ingest back,
+            the in-process scheduler ships that spool after the kill,
+            every payload once and before the retry's first push, and
+            the spool directory is gone; a push with a wrong token 403.
+            The children import this checkout through PYTHONPATH. Prints
             each job's queue wait, worker and stage seconds and
             segments, from its log the child's start and each segment's
             set-up and run seconds, the kill to the retry's claim, the
@@ -250,8 +268,9 @@ Phases, in order; any failure prints what failed and exits non-zero:
             ``event_wal_pending`` above 0; after the restart the WAL
             drains to 0, ``event_wal_replayed_total`` equals the 202s,
             the breaker's transitions hold open, half_open and closed,
-            and the daemon's paged ``find`` reads back every
-            acknowledged id once, 100,000 in all. (c)
+            and the daemon's sqlite file holds every acknowledged id
+            once, 100,000 in all (the app is read through the daemon's
+            paged ``find`` once, by (d)'s train). (c)
             ``event.insert:error:1.0`` through ``POST /debug/faults`` for
             120 ``buy`` events: each a 202 with a walId; cleared, each
             replayed and read back once. (d) ``train --engine-json`` over
@@ -393,8 +412,12 @@ Phases, in order; any failure prints what failed and exits non-zero:
             events): every table finite, and equal to the same block train
             on the CPU for three blocks of 1,024 items per indicator
             within the LLR tolerance (atol = 16 eps N ln N; indices equal
-            outside tie groups). Prints read, indicator build, counts and
-            LLR + top-n seconds.
+            outside tie groups). A row where the card and the host CPU
+            disagree beyond it (a host with a poor float32 ``log``) is
+            held instead to the float64 LLR of the same counts, at the
+            same atol, its indices as sets inside tie groups; the row is
+            reported as disputed. Prints read, indicator build, counts
+            and LLR + top-n seconds.
 23. ur serve the card-trained model behind the port's ``QueryServer``;
             16 client threads send 500 UR queries (mostly exclude_seen,
             20 % blacklists, unknown users, view-only users added after
@@ -532,7 +555,9 @@ Phases, in order; any failure prints what failed and exits non-zero:
             and an exec notifier appending each alert to a file; ``console
             dashboard`` in a process of its own scraping the three every
             0.5 s, collecting their traces, with an ``up`` SLO
-            ``event_up`` on the Event Server. (b) 500 queries from 16
+            ``event_up`` on the Event Server, and a durable TSDB tier
+            under ``build/monitor/tsdb`` (WAL flush 0.25 s, seal 2 s,
+            checkpoint every 2,000 points). (b) 500 queries from 16
             clients: 20 answers equal the plain version's on the CPU,
             nothing firing; ``/debug/tsdb``'s increase of 200s on
             ``/queries.json`` exactly 500, its latest
@@ -541,7 +566,10 @@ Phases, in order; any failure prints what failed and exits non-zero:
             of ``devprof_device_seconds_total`` over 5 s, read during the
             traffic, within one tick's share of devprof's own device
             seconds over the same window (devprof snapshotted at the
-            sampler's two points the rate spans).
+            sampler's two points the rate spans). Then the dashboard
+            child is SIGKILLed and started again on the same directory
+            and targets: ``/debug/tsdb`` reports ``durable`` with replayed
+            points and its pre-kill query 200s.
             (c) ``dispatch.device:delay:1.0:0.4`` through ``POST
             /debug/faults`` under 8 clients: ``query_p250`` pending, then
             firing, one firing notification with the JAX notifier's keys;
@@ -556,14 +584,24 @@ Phases, in order; any failure prints what failed and exits non-zero:
             ``/models``, ``/jobs``, ``/online`` and ``/rollout`` equal
             ``console models list``, ``jobs list``, ``online cursors`` and
             ``rollout status`` over the same storage, ``/evals`` (no run)
-            ``eval list``; ``/tenants`` 404 not ported yet. (g) The
+            ``eval list``; ``/tenants`` 404 not ported yet. Durable: the
+            dashboard's increase of the query server's ``/queries.json``
+            200s over the whole phase equals the query server's own count
+            less the first scraped value (the warm query's 1) and its
+            own TSDB's increase (no phantom reset at the restart);
+            ``devprof_device_seconds_total{instance="query"}`` never falls;
+            a sealed raw block; ``console tsdb`` and the dashboard's
+            durable panel list the tiers. (g) The
             phase's top-k launches
             = select launches = the device batches the query server
             booked. (h) Every server stopped and the dashboard child
             exited 0 on SIGINT: no sampler, engine, scraper or collector
-            thread left. Prints each figure, the alert times, the phase's
-            wall and card-busy share, each line with the card's name and
-            power limit.
+            thread left. A copy of the dashboard's directory, its WAL
+            sealed, compacted with ``now`` pinned 10 min past the phase:
+            a 5m tier whose increase of the query 200s over the buckets it
+            spans equals the raw tier's (and the device seconds'). Prints
+            each figure, the alert times, the phase's wall and card-busy
+            share, each line with the card's name and power limit.
 29. report  one ``{"kernels": [...]}`` line, then the device line last.
 
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -585,6 +623,7 @@ import re
 import shlex
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -683,7 +722,16 @@ try:
     from predictionio_tpu_torch.deploy.registry import LifecycleRecordStore, ModelRegistry
     from predictionio_tpu_torch.evalfleet import EvalDriver, EvalRecordStore, PresetStore
     from predictionio_tpu_torch.data.aggregator import aggregate_properties
-    from predictionio_tpu_torch.obs.monitor import AlertNotifier, SLOSpec, get_monitor
+    from predictionio_tpu_torch.obs import monitor as obs_monitor
+    from predictionio_tpu_torch.obs.monitor import (
+        AlertNotifier,
+        SLOSpec,
+        get_monitor,
+        parse_prometheus_text,
+    )
+    from predictionio_tpu_torch.obs.monitor import push as obs_push
+    from predictionio_tpu_torch.obs.monitor.compact import Compactor
+    from predictionio_tpu_torch.obs.monitor.durable import TIER_BUCKETS, DurableTSDB
     from predictionio_tpu_torch.obs.monitor import THREAD_NAMES as MONITOR_THREAD_NAMES
     from predictionio_tpu_torch.online.consumer import CURSOR_ENTITY
     from predictionio_tpu_torch.tools.admin import AdminServer
@@ -797,6 +845,11 @@ LIFECYCLE_NEW_USERS, LIFECYCLE_NEW_USER_RATINGS = 200, 20  # on existing movies
 LIFECYCLE_NEW_ITEMS, LIFECYCLE_NEW_ITEM_RATINGS = 100, 30  # by existing users
 LIFECYCLE_OLD_USERS, LIFECYCLE_OLD_USER_RATINGS = 300, 10  # new pairs
 LIFECYCLE_QUERIES, LIFECYCLE_CLIENTS = 200, 8
+# push telemetry: the children's spool-and-ship period (short enough that
+# job 3's killed attempt spooled its first segment's devprof report), and
+# the ingest's secret
+LIFECYCLE_PUSH_INTERVAL_S = 0.25
+LIFECYCLE_PUSH_TOKEN = "chip-smoke-push-secret"
 TEMPLATES_SEED = 16
 # ML-1M's 18 genres (its README); each movie gets 1-3 as "categories"
 ML1M_GENRES = ("Action", "Adventure", "Animation", "Children's", "Comedy", "Crime",
@@ -3105,6 +3158,212 @@ def _train_arrays(td):
     return (td.rows, td.cols, td.vals, td.n_users, td.n_items)
 
 
+class _PushSink:
+    """Phase 11's push ingest: a port ``Dashboard`` in this process with no
+    scrape targets, ``PIO_PUSH_INGEST=1`` and a ``PIO_PUSH_TOKEN``, over a
+    monitor of its own (the process monitor is put back on exit). Its URL
+    goes to the job children through ``PIO_PUSH_URL``. Every payload the
+    route ingests is recorded: (instance, job id, sampled_at, arrival), and
+    every ship of a spool from this process (the scheduler's): (spool, its
+    payload files, how many shipped). `hold` makes those ships wait."""
+
+    ENV = ("PIO_PUSH_URL", "PIO_PUSH_TOKEN", "PIO_PUSH_INTERVAL_S", "PIO_PUSH_INGEST")
+
+    def __init__(self, storage):
+        from predictionio_tpu_torch.tools.dashboard import Dashboard
+
+        self.saved_env = {k: os.environ.get(k) for k in self.ENV}
+        self.saved_monitor, self.orig_ingest = obs_monitor._monitor, obs_push.ingest
+        self.orig_ship = obs_push.ship_spool
+        self.received: list = []
+        self.ships: list = []
+        self.lock = threading.Lock()
+        self.hold = threading.Event()
+        self.hold.set()
+        obs_monitor._monitor = self.monitor = obs_monitor.Monitor()
+
+        def ingest(payload, monitor=None, now=None, token=None):
+            out = self.orig_ingest(payload, monitor, now, token)
+            with self.lock:
+                self.received.append((out["instance"], payload.get("job_id"),
+                                      payload.get("sampled_at"), time.time()))
+            return out
+
+        def ship_spool(spool_dir, url, *args, **kwargs):
+            check(self.hold.wait(timeout=120), "a spool ship held for 120 s")
+            files = sorted(p.name for p in Path(spool_dir).glob("*.json"))
+            n = self.orig_ship(spool_dir, url, *args, **kwargs)
+            with self.lock:
+                self.ships.append((str(spool_dir), files, n))
+            return n
+
+        obs_push.ingest, obs_push.ship_spool = ingest, ship_spool
+        os.environ.update(PIO_PUSH_INGEST="1", PIO_PUSH_TOKEN=LIFECYCLE_PUSH_TOKEN,
+                          PIO_PUSH_INTERVAL_S=str(LIFECYCLE_PUSH_INTERVAL_S))
+        self.dash = Dashboard(storage, ip="127.0.0.1", port=0, monitor_targets="")
+        self.port = self.dash.start()
+        os.environ["PIO_PUSH_URL"] = f"http://127.0.0.1:{self.port}"
+
+    def close(self):
+        self.dash.stop()
+        self.hold.set()
+        obs_push.ingest, obs_push.ship_spool = self.orig_ingest, self.orig_ship
+        obs_monitor._monitor = self.saved_monitor
+        for k, v in self.saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def instances(self, job_id):
+        with self.lock:
+            return sorted({r[0] for r in self.received if r[1] == job_id})
+
+    def arrivals(self, instance):
+        with self.lock:
+            return [r[3] for r in self.received if r[0] == instance]
+
+    def post(self, payload, token):
+        """POST a payload to the route with `token` as its push token."""
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=30)
+        try:
+            conn.request("POST", obs_push.PUSH_ROUTE, body=json.dumps(payload),
+                         headers={"Content-Type": "application/json",
+                                  obs_push.TOKEN_HEADER: token})
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read().decode() or "null")
+        finally:
+            conn.close()
+
+
+def _spooled_train_report(spool, seen):
+    """True once a payload new to `seen` in the spool carries a devprof
+    report with a finished call of the dense train (the child's first
+    segment). Polled often, a new file is one the child has just renamed
+    into place: it is then shipping (into the refusing ingest), not
+    writing, so a kill leaves no torn spool file."""
+    for f in sorted(Path(spool).glob("*.json")) if Path(spool).is_dir() else ():
+        if f.name in seen:
+            continue
+        seen.add(f.name)
+        try:
+            payload = json.loads(f.read_text())
+        except (OSError, ValueError):
+            continue  # shipped (and unlinked) meanwhile
+        rows = (payload.get("devprof") or {}).get("executables") or []
+        if any(r.get("name") == "als.train_dense" and r.get("invocations", 0) >= 1
+               for r in rows):
+            return True
+    return False
+
+
+def _push_refusals(port):
+    """POST /telemetry/push requests the dashboard answered 403, from its
+    /metrics."""
+    return _own_count(port, match={"path": "/telemetry/push", "status": "403"})
+
+
+def _pushed_train(sink, instance):
+    """The pushed devprof report's dense train: (calls, iterations), the
+    iterations its work total over one iteration's (each iteration is one
+    row and one col pass launch)."""
+    rep = sink.monitor.push_reports.get(instance) or {}
+    row = {r["name"]: r for r in rep.get("executables", [])}.get("als.train_dense")
+    check(row is not None and row["flops_per_call"] > 0,
+          f"{instance}: the pushed devprof report has no als.train_dense")
+    return row["invocations"], round(row["flops_total"] / row["flops_per_call"], 6)
+
+
+def _lifecycle_push_checks(sink, jobs, killed, smi):
+    """Phase 11's push gates: each job's children pushed a devprof report
+    whose dense train matches its launch line, job 1's train spans are on
+    the dashboard, each child has a push-age series; the killed attempt's
+    spool shipped once by the scheduler, before the retry pushed; a wrong
+    token 403."""
+    mon = sink.monitor
+    status = {r["instance"]: r for r in mon.push_status()}
+    out = {}
+    for name, (job, launches, segments) in jobs.items():
+        insts = sink.instances(job.id)
+        want = 2 if name == "job3" else 1
+        check(len(insts) == want, f"{name}: pushes from {insts}, not {want} child(ren)")
+        for inst in insts:
+            check(status.get(inst, {}).get("devprof") is True,
+                  f"{name}: push_status of {inst} is {status.get(inst)}")
+            series = _tsdb(sink.port, name="telemetry_last_push_age_seconds",
+                           labels=f"instance:{inst}")["series"]
+            check(len(series) == 1 and series[0]["points"],
+                  f"{name}: no telemetry_last_push_age_seconds{{instance={inst}}}")
+        done = [i for i in insts if i != killed["instance"]]
+        calls, iterations = _pushed_train(sink, done[0])
+        check(calls == segments and iterations == launches[0] == launches[1],
+              f"{name}: the pushed report's als.train_dense {calls} calls over {iterations} "
+              f"iterations; the launch line row {launches[0]}, col {launches[1]}, "
+              f"{segments} segments")
+        out[name] = {"instances": insts, "calls": calls, "iterations": iterations,
+                     "payloads": {i: len(sink.arrivals(i)) for i in insts}}
+    # job 1's train.* spans, assembled by the dashboard's collector
+    job1_inst = jobs["job1"][0].instance_id
+    status_code, body = _call(sink.port, "GET", "/debug/traces?fleet=1&limit=0")
+    check(status_code == 200 and body["collector"]["polls"] == 0,
+          f"/debug/traces?fleet=1: {status_code} {body.get('collector')}")
+    names = set()
+    for t in body["traces"]:
+        if t["root"] != "train":
+            continue
+        _, tr = _call(sink.port, "GET", f"/debug/traces?fleet=1&trace_id={t['trace_id']}")
+        spans = tr.get("spans", [])
+        if any(sp["name"] == "train" and sp["attrs"].get("instance_id") == job1_inst
+               for sp in spans):
+            names = {sp["name"] for sp in spans}
+            break
+    stages = {"train", "train.read", "train.prepare", "train.train", "train.persist"}
+    check(stages <= names, f"job 1's pushed train spans on the dashboard: {sorted(names)}")
+    # the killed attempt: nothing of it arrived while the ingest refused;
+    # its spool shipped by the scheduler once the ingest was back, every
+    # payload once, all before the retry's first push
+    with sink.lock:
+        keys = [(r[0], r[2]) for r in sink.received]
+        ships = [(files, n) for spool, files, n in sink.ships
+                 if spool == str(killed["spool"])]
+    check(len(keys) == len(set(keys)), "a pushed payload was ingested twice")
+    arrived = sink.arrivals(killed["instance"])
+    retry = [i for i in out["job3"]["instances"] if i != killed["instance"]][0]
+    check(arrived and min(arrived) > killed["at"] and max(arrived) < min(sink.arrivals(retry)),
+          f"the killed attempt's {len(arrived)} payload(s) did not all arrive after the "
+          "ingest came back and before the retry's first push")
+    check(ships and ships[0][1] == len(ships[0][0]) == len(arrived),
+          f"the scheduler's first ship of the orphaned spool: {ships[:1]}; "
+          f"{len(arrived)} payload(s) of the killed attempt arrived")
+    late = arrived
+    calls, iterations = _pushed_train(sink, killed["instance"])
+    check(1 <= calls < jobs["job3"][2], f"the killed attempt's report: {calls} train calls")
+    check(not killed["spool"].exists() and killed["orphans_after"] == 0,
+          f"the spool {killed['spool']} left, or {killed['orphans_after']} shipped again")
+    bad, answer = sink.post({"v": 1, "instance": "chip-smoke", "series": [], "spans": []},
+                            "not-the-token")
+    check(bad == 403, f"a push with a wrong token: {bad} {answer}")
+    out["killed"] = {"instance": killed["instance"], "shipped_after_kill": len(late),
+                     "report_calls": calls, "report_iterations": iterations,
+                     "refused_403": killed["refused"]}
+    out["job1_spans"] = sorted(names)
+    out["wrong_token"] = bad
+    print(f"[lifecycle] {smi} | push: a Dashboard in this process (no scrape targets, "
+          f"PIO_PUSH_INGEST=1, a token) took {len(keys)} payloads from the job children "
+          f"(every {LIFECYCLE_PUSH_INTERVAL_S} s and at exit), none twice, no poll; "
+          + "; ".join(f"{n}: {len(d['instances'])} child(ren), devprof als.train_dense "
+                      f"{d['calls']} calls over {d['iterations']:g} iterations = its launch "
+                      "line" for n, d in out.items() if n in jobs)
+          + f"; job 1's spans {sorted(names)}", flush=True)
+    print(f"[lifecycle] {smi} | push: job 3's first attempt pushed into a refusing ingest "
+          f"({killed['refused']} POSTs answered 403) and was SIGKILLed once it had spooled "
+          f"its first segment's report; the scheduler shipped its spool ({len(late)} "
+          f"payloads, report {calls} train call(s), {iterations:g} iterations) before the "
+          f"retry's first push, the spool is gone and a sweep shipped nothing again; a "
+          f"wrong token {bad}", flush=True)
+    return out
+
+
 def phase_lifecycle(report, shared):
     """Phase 11: train jobs through the queue and its worker (the child on
     the card), checkpointed and warm-started, a kill and resume, a worker
@@ -3118,11 +3377,16 @@ def phase_lifecycle(report, shared):
     v1_path, v2_path = LOOP_DIR / "lifecycle.json", LOOP_DIR / "lifecycle_warm.json"
     v1_path.write_text(json.dumps(_lifecycle_variant()))
     v2_path.write_text(json.dumps(_lifecycle_variant(warm_start=True)))
-    ds = RecommendationDataSource(DataSourceParams(app_name=LOOP_APP, event_names=("rate",)))
+    # the in-process reads go through the data view, as the children's do
+    # (phase 10b and job 2 fill it), not through a whole scan of the app
+    ds = RecommendationDataSource(DataSourceParams(app_name=LOOP_APP, event_names=("rate",),
+                                                   use_data_view=True))
     lc: dict = {"checkpoint_every": LIFECYCLE_CHECKPOINT_EVERY}
-    with _loop_storage():
+    with _loop_storage(), contextlib.ExitStack() as stack:
         storage = Storage()
         registry = ModelRegistry(storage)
+        sink = _PushSink(storage)
+        stack.callback(sink.close)
 
         # 1. a checkpointed cold train through the queue
         job1, inst1, v1, worker1_s = _run_job(storage, v1_path)
@@ -3247,25 +3511,43 @@ def phase_lifecycle(report, shared):
                       "dense_dtype": staged_post.dense_dtype, "rank": ap.rank}
         del dense_spy, staged_post
 
-        # 6. a worker crash: the child killed once the train started
+        # 6. a worker crash: the child killed once the train started. The
+        # push ingest refuses its first attempt (an ingest outage), so the
+        # child's payloads stay in its spool; the ingest is back just before
+        # the kill, and the scheduler ships the orphaned spool
         rc, out = _console_out(["jobs", "submit", "--variant", str(v2_path)])
         job3_id = re.search(r"job-[0-9a-f]{12}", out).group()
         sched = TrainScheduler(storage, SchedulerConfig(log_dir=str(jobs_dir)))
         queue = JobQueue(storage)
+        spool3, spooled = jobs_dir / f"{job3_id}.spool", set()
         t0 = time.perf_counter()
+        os.environ.pop("PIO_PUSH_INGEST")
         sched.start()
         try:
             killed_pid = None
             deadline = time.monotonic() + 300
             while killed_pid is None and time.monotonic() < deadline:
                 job3 = queue.get(job3_id)
-                # killed once its first segment's checkpoint is saved
-                if (job3.status == "running" and job3.log_path
+                fresh = _spooled_train_report(spool3, spooled)
+                # killed once its first segment's checkpoint is saved and
+                # its spool has just taken that segment's devprof report
+                if (fresh and job3.status == "running" and job3.log_path
                         and "checkpoint saved at iteration" in Path(
                             job3.log_path).read_text(errors="replace")):
                     [killed_pid] = _pids_naming(f"{job3_id}.spec.json")
+                    # the scheduler's ship of the orphaned spool waits for
+                    # the ingest to come back, after the child is gone and
+                    # its last POST (if one was on the wire) refused
+                    sink.hold.clear()
                     os.kill(killed_pid, signal.SIGKILL)
                     killed_at = datetime.datetime.now(datetime.timezone.utc)
+                    _wait_for(lambda: not _pids_naming(f"{job3_id}.spec.json"), 30,
+                              "job 3's killed child to be reaped")
+                    time.sleep(0.2)
+                    refused = _push_refusals(sink.port)
+                    os.environ["PIO_PUSH_INGEST"] = "1"
+                    killed_wall = time.time()
+                    sink.hold.set()
                 time.sleep(0.02)
             check(killed_pid is not None, "job 3's train never started")
             while time.monotonic() < deadline:
@@ -3273,8 +3555,13 @@ def phase_lifecycle(report, shared):
                     break
                 time.sleep(0.2)
         finally:
+            os.environ["PIO_PUSH_INGEST"] = "1"
+            sink.hold.set()
             sched.stop()
         crash_s = time.perf_counter() - t0
+        killed_push = {"instance": f"{socket.gethostname()}:{killed_pid}", "at": killed_wall,
+                       "spool": spool3, "refused": refused,
+                       "orphans_after": sched.ship_orphan_spools()}
         job3, inst3, v3 = _finished_job(storage, job3_id, attempts=2)
         kill_to_claim = (datetime.datetime.fromisoformat(job3.started_at)
                          - killed_at).total_seconds()
@@ -3318,6 +3605,10 @@ def phase_lifecycle(report, shared):
                                    "train_dense_calls": td_row["invocations"],
                                    "train_dense_device_s": td_row["device_seconds"],
                                    "train_dense_mfu_raw": td_row.get("mfu_raw")}
+
+        lc["push"] = _lifecycle_push_checks(
+            sink, {"job1": (job1, launches1, segments1), "job2": (job2, launches2, segments2),
+                   "job3": (job3, launches3, segments3)}, killed_push, report["nvidia_smi"])
 
         # 8. GC
         rc, out = _console_out(["models", "gc", "--keep", "1"])
@@ -4057,12 +4348,16 @@ def _remote_ingest_checks(ingest, es_port, daemon, smi):
           f"{m['spilled']:g}; {ingest['spilled']} events answered 202")
     check(all(m["transitions"][st] >= 1 for st in ("open", "half_open", "closed")),
           f"the events breaker's transitions {m['transitions']}")
-    storage = Storage()
-    app_id = storage.get_meta_data_apps().get_by_name(INGEST_APP).id
-    stored = [e.event_id for e in storage.get_events().find(EventQuery(app_id=app_id))]
+    # read back from the daemon's sqlite file: the app is read through the
+    # daemon's paged find once, by the train in (d), whose frame is held
+    # to this file's and to the generated triples
+    with _loop_storage(REMOTE_DIR / "store"):
+        storage = Storage()
+        app_id = storage.get_meta_data_apps().get_by_name(INGEST_APP).id
+        stored = [e.event_id for e in storage.get_events().find(EventQuery(app_id=app_id))]
     check(len(stored) == len(set(stored)) == INGEST_EDGES
           and set(stored) == set(ingest["ids"]),
-          f"read back through the daemon: {len(stored)} events, {len(set(stored))} ids, "
+          f"read back from the daemon's file: {len(stored)} events, {len(set(stored))} ids, "
           f"{len(set(stored) ^ set(ingest['ids']))} differ from the {INGEST_EDGES} acknowledged")
     out = {"spilled": ingest["spilled"], "replayed": m["replayed"],
            "pending_max": seen["pending_max"], "transitions": m["transitions"],
@@ -4080,7 +4375,7 @@ def _remote_ingest_checks(ingest, es_port, daemon, smi):
           f"{out['spilled']} events answered 202 (WAL pending up to {out['pending_max']:g}, "
           f"the events breaker read open), restart to drained "
           f"{out['restart_to_drained_s']:.2f} s, replayed {out['replayed']:g}; breaker "
-          f"transitions {out['transitions']}; read back through the daemon's paged find: "
+          f"transitions {out['transitions']}; read back from the daemon's sqlite file: "
           f"{len(stored)} events, every acknowledged id once", flush=True)
     return out
 
@@ -5933,46 +6228,95 @@ class _TimedCco:
             setattr(cco, n, fn)
 
 
+def _llr_atol(n_users):
+    """The LLR tolerance: 16 eps N ln N."""
+    return 16 * float(np.finfo(np.float32).eps) * n_users * np.log(n_users)
+
+
+def _row_mismatches(rv, ri, gi, atol):
+    """Index mismatches of one CCO row outside tie groups: indices exactly
+    except in runs of values (the reference's) within atol of each other
+    or of 0, and in the run reaching the list's end."""
+    bad, start, n = 0, 0, len(rv)
+    while start < n:
+        end = start + 1
+        while end < n and abs(rv[end] - rv[end - 1]) <= atol:
+            end += 1
+        if rv[start] > atol and end < n:
+            bad += sorted(ri[start:end]) != sorted(gi[start:end])
+        start = end
+    return bad
+
+
 def _correlators_close(ref, got, n_users):
     """(max |dv|, index mismatches outside tie groups, atol, the worst
     (row, position)) of two CCO tables under the LLR tolerance atol =
-    16 eps N ln N: values position by position; indices exactly except
-    in runs of values within atol of each other or of 0, and in the run
-    reaching the list's end."""
+    16 eps N ln N: values position by position, indices as
+    `_row_mismatches` compares them."""
     (rv, ri), (gv, gi) = ref, got
-    atol = 16 * float(np.finfo(np.float32).eps) * n_users * np.log(n_users)
+    atol = _llr_atol(n_users)
     diff = np.abs(rv - gv)
     dv = float(diff.max())
     worst = np.unravel_index(int(diff.argmax()), diff.shape)
-    bad = 0
-    n = rv.shape[1]
-    for row in range(rv.shape[0]):
-        v = rv[row]
-        start = 0
-        while start < n:
-            end = start + 1
-            while end < n and abs(v[end] - v[end - 1]) <= atol:
-                end += 1
-            if v[start] > atol and end < n:
-                bad += sorted(ri[row, start:end]) != sorted(gi[row, start:end])
-            start = end
+    bad = sum(_row_mismatches(rv[row], ri[row], gi[row], atol) for row in range(rv.shape[0]))
     return dv, bad, atol, worst
 
 
-def _llr_f64(p, s, item, thing, n_users):
-    """The LLR of one (item, thing) pair in float64 from the 0/1 CPU
-    matrices: the reference a card/CPU disagreement is judged by."""
-    k11 = float((p[:, item] * s[:, thing]).sum())
+def _llr_f64_row(p, s, item, n_users, top_n, exclude_diagonal):
+    """One item's correlator row in float64 from the 0/1 CPU matrices,
+    masked and ordered as `cco.llr_topn` does it (pairs that never
+    co-occur and the diagonal at NEG_INF, value descending then index
+    ascending, index -1 where the value is not > 0)."""
+    # the counts are integers below 2^24: exact in float32, then widened
+    k11 = (p[:, item] @ s).double().numpy()
     k12 = float(p[:, item].sum()) - k11
-    k21 = float(s[:, thing].sum()) - k11
+    k21 = s.sum(dim=0).double().numpy() - k11
     k22 = n_users - k11 - k12 - k21
 
     def xl(x):
-        return x * np.log(x) if x > 0 else 0.0
+        x = np.asarray(x, np.float64)
+        return np.where(x > 0, x * np.log(np.where(x > 0, x, 1.0)), 0.0)
 
-    llr = 2 * (xl(k11) + xl(k12) + xl(k21) + xl(k22) - xl(k11 + k12)
-               - xl(k21 + k22) - xl(k11 + k21) - xl(k12 + k22) + xl(n_users))
-    return max(llr, 0.0), (k11, k12, k21, k22)
+    llr = 2.0 * (xl(k11) + xl(k12) + xl(k21) + xl(k22) - xl(k11 + k12) - xl(k21 + k22)
+                 - xl(k11 + k21) - xl(k12 + k22) + xl(float(n_users)))
+    llr = np.maximum(llr, 0.0)
+    masked = float(np.float32(cco.NEG_INF))  # as the float32 tables hold it
+    llr[k11 <= 0] = masked
+    if exclude_diagonal:
+        llr[item] = masked
+    order = np.lexsort((np.arange(len(llr)), -llr))[:top_n]
+    v = llr[order]
+    return v, np.where(v > 0.0, order, -1)
+
+
+def _hold_ur_block(p_cpu, s_cpu, lo, cpu, card, n_users, exclude_diagonal):
+    """One block of a card-trained CCO table held to the same block
+    trained on the host CPU in float32, row by row, at the LLR tolerance.
+    Where the card and the CPU disagree on a row beyond it (a host whose
+    float32 log is worse than the card's), the float64 LLR of the same
+    counts decides: the card's row is held to it at the same atol, its
+    indices as sets inside tie groups. Returns (max |card - CPU| over the
+    rows they agree on, index mismatches there, the disputed rows)."""
+    (cv, ci), (gv, gi) = cpu, card
+    atol = _llr_atol(n_users)
+    agreed_dv, disputed = 0.0, []
+    for r in range(cv.shape[0]):
+        dv = float(np.abs(cv[r] - gv[r]).max())
+        if dv <= atol and _row_mismatches(cv[r], ci[r], gi[r], atol) == 0:
+            agreed_dv = max(agreed_dv, dv)
+            continue
+        fv, fi = _llr_f64_row(p_cpu, s_cpu, lo + r, n_users, cv.shape[1], exclude_diagonal)
+        card_dv = float(np.abs(fv - gv[r]).max())
+        card_bad = _row_mismatches(fv, fi, gi[r], atol)
+        row = {"item": lo + r, "card_vs_cpu": dv, "card_vs_f64": card_dv,
+               "cpu_vs_f64": float(np.abs(fv - cv[r]).max()),
+               "card_index_mismatches_vs_f64": card_bad,
+               "cpu_index_mismatches_vs_f64": _row_mismatches(fv, fi, ci[r], atol)}
+        check(card_dv <= atol and card_bad == 0,
+              f"item {lo + r}: the card's correlators are off the float64 LLR ({row}, "
+              f"atol {atol:.4g})")
+        disputed.append(row)
+    return agreed_dv, disputed
 
 
 def phase_ur_train(report, shared):
@@ -6018,34 +6362,20 @@ def phase_ur_train(report, shared):
     for ind, m in zip(td.indicators, model.indicator_models):
         s_cpu = (p_cpu if ind.name == primary.name else cco.edges_to_indicator(
             ind.rows, ind.cols, td.n_users, len(ind.target_vocab), device="cpu"))
-        worst = {"max_abs_diff": 0.0, "index_mismatches": 0, "rows": 0}
+        worst = {"max_abs_diff": 0.0, "rows": 0, "disputed": []}
+        atol = _llr_atol(td.n_users)
         for lo in UR_CPU_BLOCKS:
             hi = lo + UR_CPU_BLOCK_ROWS
             v, i = cco._cco_topn(p_cpu[:, lo:hi], s_cpu, td.n_users, lo,
                                  top_n=UR_CORRELATORS,
                                  exclude_diagonal=ind.name == primary.name)
-            cpu_v, cpu_i = v.numpy(), i.numpy()
-            dv, bad, atol, (r, t) = _correlators_close(
-                (cpu_v, cpu_i),
-                (m.correlator_scores[lo:hi], m.correlator_idx[lo:hi]), td.n_users)
-            if dv > worst["max_abs_diff"]:
-                card_j = int(m.correlator_idx[lo + r, t])
-                cpu_j = int(cpu_i[r, t])
-                worst["worst"] = {
-                    "item": lo + int(r), "position": int(t),
-                    "card": [float(m.correlator_scores[lo + r, t]), card_j],
-                    "cpu": [float(cpu_v[r, t]), cpu_j],
-                    "f64_card_pair": _llr_f64(p_cpu, s_cpu, lo + int(r), card_j,
-                                              td.n_users) if card_j >= 0 else None,
-                    "f64_cpu_pair": _llr_f64(p_cpu, s_cpu, lo + int(r), cpu_j,
-                                             td.n_users) if cpu_j >= 0 else None,
-                }
+            dv, disputed = _hold_ur_block(
+                p_cpu, s_cpu, lo, (v.numpy(), i.numpy()),
+                (m.correlator_scores[lo:hi], m.correlator_idx[lo:hi]), td.n_users,
+                exclude_diagonal=ind.name == primary.name)
             worst["max_abs_diff"] = max(worst["max_abs_diff"], dv)
-            worst["index_mismatches"] += bad
+            worst["disputed"] += disputed
             worst["rows"] += hi - lo
-        check(worst["max_abs_diff"] <= atol and worst["index_mismatches"] == 0,
-              f"{ind.name}: card vs CPU beyond the LLR tolerance ({worst}, atol "
-              f"{atol:.4g})")
         compare[ind.name] = worst
     cpu_s = time.perf_counter() - t0
     del p_cpu, s_cpu
@@ -7638,6 +7968,12 @@ NOTIFY_KEYS = frozenset({"slo", "state", "since", "fast_burn", "slow_burn", "fas
 NOTIFY_EVIDENCE = frozenset({"exemplars", "fleet_traces"})
 # the exec alert sink: appends the alert JSON it reads on stdin to a file
 MONITOR_SINK = "import sys; open(sys.argv[1], 'a').write(sys.stdin.read() + '\\n')"
+# the dashboard child's durable tier: a WAL flush every tick, a segment
+# sealed into a raw block every 2 s, a checkpoint every 2,000 points; its
+# own compactor idle for the phase (the compaction runs on a copy here)
+MONITOR_TSDB_ENV = {"PIO_TSDB_FLUSH_S": "0.25", "PIO_TSDB_SEAL_AGE_S": "2",
+                    "PIO_TSDB_CKPT_POINTS": "2000", "PIO_TSDB_COMPACT_S": "3600"}
+MONITOR_QUERY_200 = {"instance": "query", "path": "/queries.json", "status": "200"}
 
 
 def _wait_for(pred, timeout, what, poll=0.05):
@@ -7754,6 +8090,7 @@ def phase_monitor(report, shared):
                   "the monitor's sampler and SLO engine do not run at the phase's tick")
             root = Path(__file__).resolve().parent
             env = dict(os.environ, PIO_TRACE_COLLECT="1",
+                       PIO_TSDB_DIR=str(MONITOR_DIR / "tsdb"), **MONITOR_TSDB_ENV,
                        PIO_MONITOR_TARGETS=",".join(
                            f"{n}=http://127.0.0.1:{p}" for n, p in
                            (("query", qport), ("event", eport), ("admin", aport))),
@@ -7764,7 +8101,7 @@ def phase_monitor(report, shared):
                        PYTHONPATH=os.pathsep.join(
                            [str(root)] + ([os.environ["PYTHONPATH"]]
                                           if os.environ.get("PYTHONPATH") else [])))
-            t0 = time.perf_counter()
+            t0, t_dash = time.perf_counter(), time.time()
             dash = _Console(["dashboard", "--ip", "127.0.0.1", "--port", "0"],
                             MONITOR_DIR / "dashboard.log", env=env)
             dport = dash.port(timeout=60)
@@ -7775,10 +8112,12 @@ def phase_monitor(report, shared):
                   f"{mo['dashboard_start_s']:.2f} s, scraping the three every "
                   f"{MONITOR_SCRAPE_S} s", flush=True)
             mo["quiet"] = _monitor_quiet(qport, queries, bodies, want, smi)
+            dash, dport, mo["restart"] = _monitor_restart(dash, dport, env, smi)
             mo["alert"] = _monitor_alert(qport, bodies, sink, smi)
             mo["traces"] = _monitor_traces(dport, mo["alert"]["trace_id"], smi)
             mo["fleet"] = _monitor_fleet(dport, esrv, smi)
             mo["admin"] = _monitor_admin(aport, qport, seeded, smi)
+            mo["durable"] = _monitor_durable(dport, qport, t_dash, mo["quiet"]["t_one"], smi)
             booked = qsrv.status()["batches"]
     finally:
         if saved_admin is None:
@@ -7811,6 +8150,7 @@ def phase_monitor(report, shared):
           "the build's warmup)", flush=True)
     # (h) the clean shutdown
     check(rc == 0, f"the dashboard child exited with {rc}")
+    mo["compacted"] = _monitor_compact(mo["durable"], smi)
     left = sorted(t.name for t in threading.enumerate() if t.name in MONITOR_THREAD_NAMES)
     check(not left and mon.attached_count == 0,
           f"after every server stopped: monitor threads {left}, "
@@ -7822,6 +8162,186 @@ def phase_monitor(report, shared):
     print(f"[monitor] {smi} | (h) every server stopped, the dashboard child exited 0, no "
           f"{'/'.join(MONITOR_THREAD_NAMES)} thread left; phase {wall:.1f} s, {busy:.3f} card s, "
           f"busy {busy / wall:.1%}", flush=True)
+
+
+def _own_count(port, name="http_requests_total", match=None):
+    """A server's own counter, summed over the children of `name` whose
+    labels hold `match`, from its /metrics text."""
+    want = {k: v for k, v in (match or {}).items() if k != "instance"}
+    return sum(value for fam_name, labels, value in
+               parse_prometheus_text(_get(port, "/metrics")[1])
+               if fam_name == name and all(labels.get(k) == v for k, v in want.items()))
+
+
+def _monitor_restart(dash, dport, env, smi):
+    """After (b): the dashboard child SIGKILLed and started again on the
+    same durable directory and targets; it replays its history."""
+    before = _tsdb(dport, name="http_requests_total",
+                   labels=",".join(f"{k}:{v}" for k, v in MONITOR_QUERY_200.items()))
+    check(before["series"] and before["series"][0]["points"],
+          "the dashboard scraped no 200s of the query server before the restart")
+    t_kill = time.time()
+    dash.proc.kill()
+    dash.proc.wait(timeout=30)
+    dash.__exit__(None, None, None)
+    t0 = time.perf_counter()
+    dash = _Console(["dashboard", "--ip", "127.0.0.1", "--port", "0"],
+                    MONITOR_DIR / "dashboard_restarted.log", env=env)
+    try:
+        dport = dash.port(timeout=60)
+        start_s = time.perf_counter() - t0
+        durable = _tsdb(dport)["durable"]
+        check(durable["replayed_points"] > 0 and durable["replayed_series"] > 0,
+              f"the restarted dashboard replayed {durable['replayed_points']} points")
+        kept = _tsdb(dport, name="http_requests_total", labels=",".join(
+            f"{k}:{v}" for k, v in MONITOR_QUERY_200.items()))["series"]
+        check(kept and kept[0]["points"] and kept[0]["points"][0][0] < t_kill,
+              "the restarted dashboard has no query 200s from before the kill")
+    except BaseException:
+        dash.__exit__(None, None, None)  # the phase's own stop no longer reaches it
+        raise
+    out = {"restart_s": start_s, "replayed_points": durable["replayed_points"],
+           "replayed_series": durable["replayed_series"],
+           "ckpt_seeded_points": durable["ckpt_seeded_points"],
+           "raw_blocks_at_restart": durable["tiers"]["raw"]["blocks"],
+           "wal_segments_at_restart": durable["wal"]["segments"]}
+    print(f"[monitor] {smi} | the dashboard child SIGKILLed after (b) and started again on "
+          f"its durable directory in {start_s:.2f} s: replayed {out['replayed_points']} "
+          f"points of {out['replayed_series']} series ({out['ckpt_seeded_points']} from "
+          f"its checkpoint; {out['raw_blocks_at_restart']} raw blocks, "
+          f"{out['wal_segments_at_restart']} WAL segments)", flush=True)
+    return dash, dport, out
+
+
+def _monitor_durable(dport, qport, t_dash, t_one, smi):
+    """The dashboard's history across the restart: its increase of the
+    query server's /queries.json 200s over the whole phase equals the
+    query server's own count less the series' first scraped value (the
+    warm query's 1, (b)), and the query server's own TSDB's increase from
+    that point on; devprof_device_seconds_total{instance="query"} never
+    falls; sealed raw blocks; console tsdb and the durable panel list the
+    tiers."""
+    labels = ",".join(f"{k}:{v}" for k, v in MONITOR_QUERY_200.items())
+    own = _own_count(qport, match=MONITOR_QUERY_200)
+
+    def caught_up():
+        pt = _latest(dport, "http_requests_total", labels)
+        return pt if pt and pt[1] == own else None
+
+    _wait_for(caught_up, 10, "the dashboard's scrape of the query server's last 200")
+    window = time.time() - t_dash + 1.0
+    series = _tsdb(dport, name="http_requests_total", labels=labels,
+                   window_s=str(window))["series"]
+    check(len(series) == 1, f"{len(series)} query 200 series on the dashboard")
+    first = series[0]["points"][0][1]
+    inc = _tsdb(dport, name="http_requests_total", labels=labels, agg="increase",
+                window_s=str(window))["value"]
+    own_inc = _tsdb(qport, name="http_requests_total",
+                    labels="server:query,path:/queries.json,status:200", agg="increase",
+                    window_s=str(time.time() - t_one - MONITOR_TICK_S / 5))["value"]
+    check(first == 1.0 and inc == own - first == own_inc,
+          f"the dashboard's increase of query 200s over the phase {inc}, the query server's "
+          f"own count {own} less the first scraped value {first}, its own TSDB's {own_inc}")
+    dev = _tsdb(dport, name="devprof_device_seconds_total", labels="instance:query",
+                window_s=str(window))["series"]
+    pts = dev[0]["points"] if len(dev) == 1 else []
+    falls = [(a, b) for a, b in zip(pts, pts[1:]) if b[1] < a[1]]
+    check(len(pts) > 2 and not falls,
+          f"devprof_device_seconds_total{{instance=query}}: {len(pts)} points, falls {falls[:3]}")
+    durable = _tsdb(dport)["durable"]
+    tiers = durable["tiers"]
+    check(tiers["raw"]["blocks"] >= 1, f"no sealed raw block: {tiers}")
+
+    def blocks_now():
+        return {t: st["blocks"] for t, st in _tsdb(dport)["durable"]["tiers"].items()}
+
+    def listed_alike(listed, before, after):
+        # the child seals a raw block every 2 s meanwhile: each count
+        # lies between the dashboard's reads just before and just after
+        return (set(listed) == set(before) == set(after)
+                and all(before[t] <= int(listed[t]) <= after[t] for t in before))
+
+    before = blocks_now()
+    buf = io.StringIO()  # the listing of every series is long: echo the tiers only
+    with contextlib.redirect_stdout(buf):
+        rc = console.main(["tsdb", "query", "--url", f"http://127.0.0.1:{dport}"])
+    after = blocks_now()
+    text = buf.getvalue()
+    print("".join(line for line in text.splitlines(keepends=True)
+                  if "durable tier at" in line or "   tier " in line), end="", flush=True)
+    listed = dict(re.findall(r"\[INFO\]   tier (\w+): (\d+) block", text))
+    check(rc == 0 and "durable tier at" in text and listed_alike(listed, before, after),
+          f"console tsdb listed the tiers {listed}, the dashboard {before} then {after}")
+    before = blocks_now()
+    status, page = _get(dport, "/")
+    after = blocks_now()
+    panel = page[page.find("<h2>Durable tiers</h2>"):page.find("</table>",
+                                                               page.find("<h2>Durable tiers</h2>"))]
+    shown = dict(re.findall(r"<tr><td>(\w+)</td><td>(\d+)</td>", panel))
+    check(status == 200 and "<h2>Durable tiers</h2>" in page
+          and listed_alike(shown, before, after),
+          f"the dashboard's durable panel lists {shown}, /debug/tsdb {before} then {after}")
+    out = {"dir": durable["dir"], "window_s": window, "increase_200": inc, "own_count": own,
+           "first_scraped": first, "own_tsdb_increase": own_inc,
+           "device_seconds_points": len(pts), "tiers": tiers, "wal": durable["wal"],
+           "labels": dict(MONITOR_QUERY_200)}
+    print(f"[monitor] {smi} | durable: over the whole phase ({window:.1f} s, across the "
+          f"restart) the dashboard's increase of the query server's /queries.json 200s "
+          f"{inc:g} = its own count {own:g} less the first scraped {first:g} = its own TSDB's "
+          f"{own_inc:g}; devprof_device_seconds_total{{instance=\"query\"}} never fell over "
+          f"{len(pts)} points; tiers {{{', '.join(f'{t}: {st['blocks']} blocks' for t, st in tiers.items())}}}"
+          f", listed alike by console tsdb and the durable panel", flush=True)
+    return out
+
+
+def _monitor_compact(durable, smi):
+    """The dashboard's directory, copied once its child stopped: its WAL
+    sealed into raw blocks, then `Compactor.run_once` with `now` past the
+    phase writes the 5m tier, whose increase of the query 200s and of the
+    device seconds over the buckets it spans equals the raw tier's."""
+    copy = MONITOR_DIR / "tsdb_copy"
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(durable["dir"], copy)
+    db = DurableTSDB(str(copy), flush_interval_s=9999.0, seal_age_s=9999.0, ckpt_points=0)
+    try:
+        db.flush_once(seal=True)
+        t_end = time.time()
+        t0 = time.perf_counter()
+        res = Compactor(db, interval_s=9999.0, grace_s=0.0).run_once(now=t_end + 600.0)
+        compact_s = time.perf_counter() - t0
+        st = {t: db.tiers[t].stats() for t in ("raw", "5m", "1h")}
+        check(res["buckets"] > 0 and st["5m"]["blocks"] >= 1,
+              f"the compaction wrote {res} ({st['5m']['blocks']} 5m blocks)")
+        bucket = TIER_BUCKETS["5m"]
+        rows = {}
+        for name, match in (("http_requests_total", durable["labels"]),
+                            ("devprof_device_seconds_total", {"instance": "query"})):
+            [s] = db.matching(name, match)
+            key = (s.name, s.labels)
+            lo = math.floor(st["raw"]["min_t"] / bucket) * bucket
+            hi = (math.floor(st["raw"]["max_t"] / bucket) + 1) * bucket
+            raw, _ = db._disk_increase(key, lo, hi, hi - lo, tier="raw")
+            five, _ = db._disk_increase(key, lo, hi, hi - lo, tier="5m")
+            # the request counter's integer steps sum exactly; the device
+            # seconds' float steps sum bucket by bucket in another order
+            same = (five == raw if name == "http_requests_total"
+                    else math.isclose(five, raw, rel_tol=1e-12))
+            check(same and raw > 0, f"{name}: the 5m tier's increase {five} != the raw "
+                                    f"tier's {raw} over [{lo}, {hi})")
+            rows[name] = {"raw": raw, "5m": five, "buckets": int((hi - lo) // bucket)}
+        check(rows["http_requests_total"]["raw"] == durable["increase_200"],
+              f"the copy's raw increase {rows['http_requests_total']['raw']} != the "
+              f"dashboard's {durable['increase_200']}")
+    finally:
+        db.stop()
+    out = {"now": t_end + 600.0, "buckets": res["buckets"], "tiers": st, "increase": rows,
+           "compact_s": compact_s}
+    print(f"[monitor] {smi} | compaction of a copy of the dashboard's directory, now pinned "
+          f"10 min past the phase: {res['buckets']} 5m/1h buckets in {compact_s:.3f} s; over "
+          f"the {rows['http_requests_total']['buckets']} 5m bucket(s) it spans the 5m tier's "
+          f"increase equals the raw tier's: query 200s {rows['http_requests_total']['5m']:g}, "
+          f"device seconds {rows['devprof_device_seconds_total']['5m']:.6f}", flush=True)
+    return out
 
 
 RATE_EXPR = f"rate(devprof_device_seconds_total[{MONITOR_RATE_S:g}s])"
@@ -7955,7 +8475,7 @@ def _monitor_quiet(qport, queries, bodies, want, smi):
     one = _rate_over_one_window(get_monitor().tsdb, rate, t_a, t_b, ticks)
     busy = (p1.device_seconds - p0.device_seconds) / (t1 - t0)
     out = {"queries": len(bodies), "clients": N_CLIENTS, "wall_s": wall,
-           "qps": len(bodies) / wall, "increase_200": inc, "devprof_invocations": inv,
+           "qps": len(bodies) / wall, "increase_200": inc, "t_one": t_one, "devprof_invocations": inv,
            "allocated_bytes": alloc, "rate_device_seconds_5s": rate,
            "rate_read_during_traffic": during, "devprof_busy_share": busy, **one}
     print(f"[monitor] {smi} | (b) {len(bodies)} queries from {N_CLIENTS} clients in "

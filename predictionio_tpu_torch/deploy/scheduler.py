@@ -40,8 +40,14 @@ shards run side by side.
 Record fields and their meanings are the JAX package's, so either
 package's queue lists the other's jobs. This package's worker claims
 only the jobs whose engine factory it can load: a job submitted with the
-JAX package's factory stays queued for that package's worker. Left out:
-the push telemetry spools.
+JAX package's factory stays queued for that package's worker.
+
+Push telemetry: with ``PIO_PUSH_URL`` set (and no ``PIO_PUSH_SPOOL``
+pinned by the operator), each child gets a spool directory of its own,
+``<log_dir>/<job>.spool``, and the push secret ``PIO_PUSH_TOKEN``. What
+a child killed before its exit flush left spooled is shipped from here:
+after the child exits, and by ``ship_orphan_spools`` at each
+``resume_orphans`` for the spools of children of a dead scheduler.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from predictionio_tpu_torch.data.storage.registry import (
 )
 from predictionio_tpu_torch.deploy.registry import LifecycleRecordStore
 from predictionio_tpu_torch.obs import get_default_registry
+from predictionio_tpu_torch.utils.env import push_knob
 
 log = logging.getLogger(__name__)
 
@@ -413,6 +420,9 @@ class TrainScheduler:
         self._thread: Optional[threading.Thread] = None
         self._children: dict[str, subprocess.Popen] = {}
         self._child_lock = threading.Lock()
+        # one spool ship at a time: a dead child's residue ship and the
+        # orphan sweep would otherwise post the same files twice
+        self._spool_lock = threading.Lock()
         self._pool: Optional[ThreadPoolExecutor] = None
         self._claim_lock = threading.Lock()
         self._running_ids: set[str] = set()
@@ -528,7 +538,67 @@ class TrainScheduler:
                 log.warning("job %s: dead claim bid at generation %d; "
                             "un-wedged", job.id, job.generation + 1)
                 self._jobs_counter.inc(outcome="unwedged")
+        # a child killed with SIGKILL never ran its exit flush: what it
+        # spooled is still under log_dir, so ship it now
+        try:
+            self.ship_orphan_spools()
+        except Exception:  # noqa: BLE001
+            log.debug("orphan spool sweep failed", exc_info=True)
         return requeued
+
+    # -- push-telemetry spools -------------------------------------------
+    def _push_spool_dir(self, job_id: str, env: dict[str, str]) -> Optional[str]:
+        """The child's own spool directory, or None when pushing is not
+        configured. A PIO_PUSH_SPOOL the operator pinned is left alone (a
+        shared spool: the children own it, the supervisor stays out)."""
+        if not push_knob("PIO_PUSH_URL", env).strip():
+            return None
+        if push_knob("PIO_PUSH_SPOOL", env).strip():
+            return None
+        return os.path.join(self._log_dir, f"{job_id}.spool")
+
+    def _ship_spool_residue(self, spool_dir: str, url: str) -> int:
+        """Ship what is left in `spool_dir` and remove the directory once
+        it is empty, one spool at a time. Never raises: an ingest that is
+        down keeps the files for the next sweep."""
+        from predictionio_tpu_torch.obs.monitor import push as _push
+
+        if not url:
+            return 0
+        with self._spool_lock:
+            try:
+                shipped = _push.ship_spool(spool_dir, url)
+            except Exception:  # noqa: BLE001
+                log.debug("spool ship failed: %s", spool_dir, exc_info=True)
+                return 0
+            try:
+                os.rmdir(spool_dir)  # succeeds only once drained
+            except OSError:
+                pass
+        return shipped
+
+    def ship_orphan_spools(self) -> int:
+        """Ship every `<log_dir>/<job>.spool` a dead child left, skipping
+        the jobs whose child still runs under this scheduler (a live child
+        ships its own). Returns the payloads shipped."""
+        env = dict(os.environ, **self.config.child_env)
+        url = push_knob("PIO_PUSH_URL", env).strip()
+        if not url:
+            return 0
+        try:
+            entries = sorted(os.listdir(self._log_dir))
+        except OSError:
+            return 0
+        shipped = 0
+        for entry in entries:
+            if not entry.endswith(".spool"):
+                continue
+            with self._child_lock:
+                live = entry[:-len(".spool")] in self._children
+            if live:
+                continue
+            shipped += self._ship_spool_residue(os.path.join(self._log_dir, entry), url)
+        return shipped
 
     # -- main loop -------------------------------------------------------
     def _loop(self) -> None:
@@ -680,6 +750,17 @@ class TrainScheduler:
     def _supervise(self, job: TrainJob, spec_path: str, result_path: str,
                    log_path: str) -> None:
         env = dict(os.environ, **self.config.child_env)
+        # push telemetry: a spool of the child's own under log_dir (unless
+        # the operator pinned one), so that what a child killed with
+        # SIGKILL left unsent survives as files this supervisor ships
+        spool_dir = self._push_spool_dir(job.id, env)
+        if spool_dir is not None:
+            env["PIO_PUSH_SPOOL"] = spool_dir
+        # the push secret, from which the child's shipper derives the
+        # token of its instance (HMAC(secret, instance))
+        push_secret = push_knob("PIO_PUSH_TOKEN", env).strip()
+        if push_secret:
+            env["PIO_PUSH_TOKEN"] = push_secret
         timeout_s = job.timeout_s or DEFAULT_TIMEOUT_S
         deadline = time.monotonic() + timeout_s
         timed_out = False
@@ -741,6 +822,11 @@ class TrainScheduler:
                 self._children.pop(job.id, None)
         if self._abandon:
             return
+        if spool_dir is not None:
+            # the exit flush usually leaves the spool empty; a child
+            # killed before it cannot flush, so its spooled payloads ship
+            # from here
+            self._ship_spool_residue(spool_dir, push_knob("PIO_PUSH_URL", env))
         if not self.queue.is_owner(job):
             log.warning("job %s: claim superseded before bookkeeping; "
                         "dropping outcome", job.id)

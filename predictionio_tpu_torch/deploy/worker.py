@@ -14,6 +14,13 @@ train made. The version carries the device profiler's report of the
 train (``devprof``: each executable's invocations, device seconds and
 roofline) when the train ran an instrumented function.
 
+Push telemetry: with ``PIO_PUSH_URL`` or ``PIO_PUSH_SPOOL`` set, a
+``TelemetryShipper`` (``obs/monitor/push.py``) spools this process's
+series, ``train.*`` spans and devprof report every interval and ships
+them; the ``finally`` of ``main`` stops it, which spools and ships one
+last time. A child killed with SIGKILL leaves its spool for the
+scheduler to ship.
+
 Exit codes, the scheduler's retry contract:
 - 0                  trained and registered (or adopted);
 - EXIT_TRAIN_FAILED  the train raised or did not complete (a retry
@@ -47,20 +54,34 @@ def main(argv: list[str]) -> int:
         print("usage: python -m predictionio_tpu_torch.deploy.worker <spec.json>",
               file=sys.stderr)
         return 2
-    from predictionio_tpu_torch.data.storage.base import StorageError
     from predictionio_tpu_torch.data.storage.registry import Storage
-    from predictionio_tpu_torch.deploy.registry import ModelRegistry
-    from predictionio_tpu_torch.deploy.scheduler import (
-        EXIT_INFRA_FAILED,
-        EXIT_TRAIN_FAILED,
-        storage_config_from_json,
-    )
-    from predictionio_tpu_torch.ops import dense_fused, windowed_fused
-    from predictionio_tpu_torch.workflow.core import run_train
+    from predictionio_tpu_torch.deploy.scheduler import storage_config_from_json
 
     with open(argv[1]) as f:
         spec = json.load(f)
     storage = Storage(storage_config_from_json(spec["storage"]))
+    shipper = None
+    try:
+        from predictionio_tpu_torch.obs.monitor.push import TelemetryShipper
+
+        shipper = TelemetryShipper.from_env(job_id=spec.get("job_id"))
+        if shipper is not None:
+            shipper.start()
+    except Exception:  # noqa: BLE001 — telemetry never fails a train
+        log.debug("telemetry shipper unavailable", exc_info=True)
+    try:
+        return _run(spec, storage)
+    finally:
+        if shipper is not None:
+            shipper.stop()  # joins, then spools and ships one last time
+
+
+def _run(spec: dict, storage) -> int:
+    from predictionio_tpu_torch.data.storage.base import StorageError
+    from predictionio_tpu_torch.deploy.registry import ModelRegistry
+    from predictionio_tpu_torch.deploy.scheduler import EXIT_INFRA_FAILED, EXIT_TRAIN_FAILED
+    from predictionio_tpu_torch.ops import dense_fused, windowed_fused
+    from predictionio_tpu_torch.workflow.core import run_train
 
     # a retried job whose earlier attempt registered a version (and lost
     # only its receipt) adopts that version

@@ -10,7 +10,10 @@ A fleet member wraps a ``TrainScheduler`` with what N workers need:
   while live peers could be bidding (``deploy/scheduler.py``);
 - the **adaptive settle**: at start the member measures the record
   store's write-visibility latency and sets the claim settle window
-  from it (``PIO_CAS_SETTLE_S`` pins it instead).
+  from it (``PIO_CAS_SETTLE_S`` pins it instead);
+- **push telemetry**: with ``PIO_PUSH_URL`` or ``PIO_PUSH_SPOOL`` set,
+  the member runs a ``TelemetryShipper`` (``obs/monitor/push.py``) as
+  ``fleet-<worker id>``, since a monitor may not reach it to scrape.
 
 There is no elected coordinator: the queue (compare-and-set claims,
 fenced heartbeats, the stale steal) is the point of coordination. A
@@ -20,8 +23,7 @@ them.
 Not ported, and refused when asked for: the multi-host wiring (the JAX
 package's ``fleet/distributed.py``: a ``distributed`` config, or
 ``PIO_FLEET_COORDINATOR`` / ``PIO_FLEET_NUM_PROCESSES`` > 1 in the
-environment) and the push telemetry (``PIO_PUSH_URL``,
-``PIO_PUSH_SPOOL``).
+environment).
 """
 
 from __future__ import annotations
@@ -45,9 +47,8 @@ log = logging.getLogger(__name__)
 
 WORKER_ENTITY = "pio_fleet_worker"
 
-# the multi-host and push settings of the JAX fleet member, refused here
+# the multi-host settings of the JAX fleet member, refused here
 MULTI_HOST_KEYS = ("PIO_FLEET_COORDINATOR", "PIO_FLEET_NUM_PROCESSES")
-PUSH_KEYS = ("PIO_PUSH_URL", "PIO_PUSH_SPOOL")
 
 
 def _utcnow_iso() -> str:
@@ -185,8 +186,8 @@ class WorkerRegistry:
 
 
 def refuse_unported(config: "FleetConfig") -> None:
-    """Raise for the multi-host and push settings a JAX fleet member
-    would act on: the port runs none of them, and never ignores them."""
+    """Raise for the multi-host settings a JAX fleet member would act
+    on: the port runs none of them, and never ignores them."""
     if config.distributed is not None:
         raise NotImplementedError(
             "a multi-host fleet (the distributed config) is not ported yet "
@@ -195,11 +196,6 @@ def refuse_unported(config: "FleetConfig") -> None:
         raise NotImplementedError(
             f"a multi-host fleet ({', '.join(k for k in MULTI_HOST_KEYS if env_str(k))})"
             f" is not ported yet to the PyTorch port")
-    pushed = [k for k in PUSH_KEYS if env_str(k)]
-    if pushed:
-        raise NotImplementedError(
-            f"push telemetry ({', '.join(pushed)}) is not ported yet to the "
-            f"PyTorch port")
 
 
 class FleetMember:
@@ -224,6 +220,7 @@ class FleetMember:
         # period so that a claim does not pay one
         self._peer_cache: tuple[float, int] = (0.0, 0)
         self._peer_lock = threading.Lock()
+        self._shipper = None  # push telemetry, armed in start()
 
     # -- liveness --------------------------------------------------------
     def live_peer_count(self) -> int:
@@ -271,6 +268,17 @@ class FleetMember:
         self._hb_thread = threading.Thread(
             target=self._hb_loop, name="fleet-worker-heartbeat", daemon=True)
         self._hb_thread.start()
+        # push telemetry: a fleet worker may sit where the monitor cannot
+        # scrape it, so it ships its series and spans out instead (none
+        # unless PIO_PUSH_URL or PIO_PUSH_SPOOL is set)
+        try:
+            from predictionio_tpu_torch.obs.monitor.push import TelemetryShipper
+
+            self._shipper = TelemetryShipper.from_env(instance=f"fleet-{self.worker_id}")
+            if self._shipper is not None:
+                self._shipper.start()
+        except Exception:  # noqa: BLE001 — telemetry never blocks a start
+            log.debug("telemetry shipper unavailable", exc_info=True)
         self._adapt_claim_settle()
         self.scheduler.resume_orphans()
         self.scheduler.start()
@@ -311,6 +319,12 @@ class FleetMember:
         """Stop the scheduler and the heartbeat, then deregister.
         `kill_child=True` is a crash: the children die and the worker
         record is left to go stale, as a real death leaves it."""
+        if self._shipper is not None:
+            try:
+                self._shipper.stop()  # joins, then the final flush
+            except Exception:  # noqa: BLE001
+                log.debug("telemetry shipper stop failed", exc_info=True)
+            self._shipper = None
         self.scheduler.stop(kill_child=kill_child)
         self._stop.set()
         if self._hb_thread is not None:

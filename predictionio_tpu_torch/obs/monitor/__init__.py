@@ -19,12 +19,16 @@ Knobs (read when the monitor is created; attributes after):
   PIO_MONITOR_TARGETS    fleet scrape targets (dashboard, console monitor)
   PIO_RECORDING_RULES    derived-series recording rules
   PIO_TSDB_SNAPSHOT      path persisting the rings across restarts
+  PIO_TSDB_DIR           the durable on-disk tier: WAL, sealed blocks and
+                         5m/1h downsampled tiers, replayed at start
+                         (``durable.py``, ``compact.py``; tuned by
+                         PIO_TSDB_{FLUSH_S,SEAL_*,COMPACT_S,CKPT_POINTS,
+                         RETENTION_*}); it supersedes PIO_TSDB_SNAPSHOT
+  PIO_PUSH_*             push telemetry's shipper and ingest (``push.py``)
   PIO_ALERT_WEBHOOK, PIO_ALERT_EXEC   the alert notification sinks
 
-Not ported: the durable on-disk tier and its compactor (a set
-``PIO_TSDB_DIR`` is refused), push telemetry (``note_push``,
-``push_status``, ``push_reports``) and the per-tenant SLO presets.
-Standard library only: importing it loads no torch.
+Not ported: the per-tenant SLO presets. Standard library only: importing
+it loads no torch.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import time
 from typing import Any, Optional
 
 from predictionio_tpu_torch.obs.monitor.collector import TraceCollector
+from predictionio_tpu_torch.obs.monitor.compact import Compactor
+from predictionio_tpu_torch.obs.monitor.durable import DurableTSDB
 from predictionio_tpu_torch.obs.monitor.notify import AlertNotifier
 from predictionio_tpu_torch.obs.monitor.scrape import (
     FleetScraper,
@@ -58,11 +64,13 @@ from predictionio_tpu_torch.obs.monitor.tsdb import (
     sample_families,
     save_snapshot,
 )
-from predictionio_tpu_torch.utils.env import env_path, monitor_knob
+from predictionio_tpu_torch.utils.env import durable_knob, env_path, monitor_knob
 
 __all__ = [
     "TSDB",
     "AlertNotifier",
+    "Compactor",
+    "DurableTSDB",
     "MetricsSampler",
     "FleetScraper",
     "RecordingRule",
@@ -88,7 +96,8 @@ __all__ = [
 # the thread names of the plane, for checks that none is left running
 THREAD_NAMES = (MetricsSampler.thread_name, SLOEngine.thread_name,
                 FleetScraper.thread_name, TraceCollector.thread_name,
-                SnapshotWriter.thread_name)
+                SnapshotWriter.thread_name, DurableTSDB.thread_name,
+                Compactor.thread_name)
 
 
 def enabled() -> bool:
@@ -105,17 +114,28 @@ class Monitor:
     renders, so history and scrape agree."""
 
     def __init__(self):
-        if env_path("PIO_TSDB_DIR"):
-            raise RuntimeError(
-                "PIO_TSDB_DIR (the durable TSDB tier and its compactor) is not "
-                "ported yet to the PyTorch port; unset it to keep history in memory")
         self.sampler_interval_s = monitor_knob("PIO_TSDB_INTERVAL_S")
         self.slo_interval_s = monitor_knob("PIO_SLO_INTERVAL_S")
-        self.tsdb = TSDB(capacity=monitor_knob("PIO_TSDB_POINTS"),
-                         max_series=monitor_knob("PIO_TSDB_MAX_SERIES"))
+        # the durable tier: with a directory, the rings are backed by a
+        # WAL and sealed blocks, and the constructor replays the durable
+        # tail, so a restarted process alerts on the burn before its
+        # restart. It supersedes the JSON snapshot.
+        self.durable_dir = durable_knob("PIO_TSDB_DIR") or None
+        if self.durable_dir and enabled():
+            self.tsdb: TSDB = DurableTSDB(
+                self.durable_dir,
+                capacity=monitor_knob("PIO_TSDB_POINTS"),
+                max_series=monitor_knob("PIO_TSDB_MAX_SERIES"),
+                flush_interval_s=durable_knob("PIO_TSDB_FLUSH_S"),
+                seal_points=durable_knob("PIO_TSDB_SEAL_POINTS"),
+                seal_age_s=durable_knob("PIO_TSDB_SEAL_AGE_S"))
+        else:
+            self.tsdb = TSDB(capacity=monitor_knob("PIO_TSDB_POINTS"),
+                             max_series=monitor_knob("PIO_TSDB_MAX_SERIES"))
         # snapshot persistence: with a path configured, history survives
         # restarts: reloaded here, written periodically and on last detach
-        self.snapshot_path = env_path("PIO_TSDB_SNAPSHOT") or None
+        self.snapshot_path = (None if self.durable_dir
+                              else env_path("PIO_TSDB_SNAPSHOT") or None)
         self.snapshot_interval_s = monitor_knob("PIO_TSDB_SNAPSHOT_INTERVAL_S")
         if self.snapshot_path and enabled():
             restored = load_snapshot(self.tsdb, self.snapshot_path)
@@ -130,6 +150,7 @@ class Monitor:
         self._sampler: Optional[MetricsSampler] = None
         self._engine: Optional[SLOEngine] = None
         self._snapshotter: Optional[SnapshotWriter] = None
+        self._compactor: Optional[Compactor] = None
         self._slos: list[SLOSpec] = load_slos()
         # recording rules, evaluated on the sampler tick
         # (MetricsSampler.post_sample): no extra thread
@@ -144,6 +165,14 @@ class Monitor:
         # (family, label set), so a slow route cannot evict another's
         self._exemplars: dict[str, dict[tuple, dict[str, tuple[float, float]]]] = {}
         self._exemplar_cap = max(16, 4 * monitor_knob("PIO_TRACE_EXEMPLARS"))
+        # push telemetry: the last receipt's wall time and the newest
+        # devprof report of each pushed instance. The sampler tick
+        # rewrites telemetry_last_push_age_seconds from _push_last, so the
+        # series ages between pushes and a silent process trips a
+        # threshold alert as up{instance} == 0 does
+        self._push_last: dict[str, float] = {}
+        self.push_reports: dict[str, dict] = {}
+        self._push_reports_cap = 64
         # webhook/exec sinks, fired on pending→firing (and resolve)
         # transitions: SLO alerts and the external ones below
         self.notifier: AlertNotifier = AlertNotifier.from_env()
@@ -191,13 +220,16 @@ class Monitor:
     def detach(self, token: Optional[int]) -> None:
         if token is None:
             return
-        stop_sampler = stop_engine = stop_snapshotter = None
+        stop_sampler = stop_engine = stop_snapshotter = stop_compactor = None
+        stop_flusher = False
         with self._lock:
             self._attached = [row for row in self._attached if row[0] != token]
             if not self._attached:
                 stop_sampler, self._sampler = self._sampler, None
                 stop_engine, self._engine = self._engine, None
                 stop_snapshotter, self._snapshotter = self._snapshotter, None
+                stop_compactor, self._compactor = self._compactor, None
+                stop_flusher = isinstance(self.tsdb, DurableTSDB)
         # join outside the lock: the threads' loops call back into us
         if stop_engine is not None:
             stop_engine.stop()
@@ -205,6 +237,10 @@ class Monitor:
             stop_sampler.stop()
         if stop_snapshotter is not None:
             stop_snapshotter.stop()  # also writes the final snapshot
+        if stop_compactor is not None:
+            stop_compactor.stop()
+        if stop_flusher:
+            self.tsdb.stop()  # the last WAL drain and fsync
         if stop_engine is not None or stop_sampler is not None:
             # the last detach joins in-flight alert deliveries too: no
             # notification thread outlives the plane
@@ -231,17 +267,30 @@ class Monitor:
                 self._snapshotter = SnapshotWriter(self.tsdb, self.snapshot_path,
                                                    interval_s=self.snapshot_interval_s)
                 self._snapshotter.start()
+            if self._compactor is None and isinstance(self.tsdb, DurableTSDB):
+                self.tsdb.start()  # the tsdb-wal flusher
+                self._compactor = Compactor(
+                    self.tsdb, interval_s=durable_knob("PIO_TSDB_COMPACT_S"),
+                    retention={"raw": durable_knob("PIO_TSDB_RETENTION_RAW"),
+                               "5m": durable_knob("PIO_TSDB_RETENTION_5M"),
+                               "1h": durable_knob("PIO_TSDB_RETENTION_1H")})
+                self._compactor.start()
 
     def _post_sample(self, tsdb: TSDB, now: float) -> None:
         """The recording pass, on the sampler thread right after each raw
         snapshot: the user's recording rules, then the per-SLO ratio
-        series the engine's fast path reads."""
+        series the engine's fast path reads, then each pushed instance's
+        push age."""
         if self.recording_rules:
             evaluate_rules(tsdb, self.recording_rules, now)
         with self._lock:
             specs = list(self._slos)
+            push_last = dict(self._push_last)
         if specs:
             record_slo_ratios(tsdb, specs, now)
+        for instance, last in push_last.items():
+            tsdb.add("telemetry_last_push_age_seconds", {"instance": instance},
+                     max(0.0, now - last), "gauge", now)
 
     # -- SLOs --------------------------------------------------------------
     def set_slos(self, specs: list[SLOSpec]) -> None:
@@ -319,6 +368,35 @@ class Monitor:
             if len(out) >= max(1, limit):
                 break
         return out
+
+    # -- push telemetry ----------------------------------------------------
+    def note_push(self, instance: str, sampled_at: float,
+                  devprof: Optional[dict] = None,
+                  now: Optional[float] = None) -> None:
+        """The bookkeeping of one ingested push: its freshness (the sampler
+        rewrites telemetry_last_push_age_seconds from it) and the
+        instance's newest devprof report. Writes an age point at once, so
+        that the series exists before the next sampler tick."""
+        now = time.time() if now is None else now
+        with self._lock:
+            self._push_last[instance] = now
+            if devprof is not None:
+                self.push_reports[instance] = devprof
+                while len(self.push_reports) > self._push_reports_cap:
+                    self.push_reports.pop(next(iter(self.push_reports)))
+        self.tsdb.add("telemetry_last_push_age_seconds", {"instance": instance},
+                      max(0.0, now - float(sampled_at)), "gauge", now)
+
+    def push_status(self) -> list[dict]:
+        """Each pushed instance's push age and whether it sent a devprof
+        report, for the dashboard and the console."""
+        now = time.time()
+        with self._lock:
+            rows = [{"instance": instance, "age_s": round(max(0.0, now - last), 3),
+                     "devprof": instance in self.push_reports}
+                    for instance, last in self._push_last.items()]
+        rows.sort(key=lambda r: r["instance"])
+        return rows
 
     def _enrich_alert(self, payload: dict) -> dict:
         """Attach evidence to a firing alert: the slowest exemplar trace

@@ -19,8 +19,8 @@ The owning process (the dashboard, ``console monitor``) starts and stops
 it; `stop()` joins the ``trace-collector`` thread, and it registers on
 the process :class:`Monitor` so that ``/debug/traces?fleet=1`` and
 ``console trace --fleet`` reach the assembled store. Spans pushed by a
-process that died (the JAX package's ``POST /telemetry/push``) are not
-ported.
+process that may since have died (``POST /telemetry/push``, through
+``obs/monitor/push.py``) arrive through :meth:`TraceCollector.ingest_spans`.
 """
 
 from __future__ import annotations
@@ -92,6 +92,7 @@ class TraceCollector:
         self._polls = 0
         self._poll_errors = 0
         self._expired_orphans = 0
+        self._pushed_spans = 0  # spans that came by POST /telemetry/push
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -130,6 +131,43 @@ class TraceCollector:
                 float(payload.get("now", now)) - self.interval_s
             )
         self._settle(now)
+        return ingested
+
+    def ingest_spans(self, spans: list, now: Optional[float] = None) -> int:
+        """Pushed span batches (``POST /telemetry/push``) from a process
+        that may be gone before any poll reaches it. A rooted pushed trace
+        is kept at once, with reason "pushed" when nothing else keeps it:
+        waiting for the poll loop to decide would only expire it. Unrooted
+        fragments keep the usual ``hold_s`` grace for a late root."""
+        now = time.time() if now is None else now
+        ingested = 0
+        tids: set = set()
+        for sp in spans or []:
+            if not isinstance(sp, dict):
+                continue
+            n = self._ingest(sp, now)
+            ingested += n
+            if n and sp.get("trace_id"):
+                tids.add(sp["trace_id"])
+        if not ingested:
+            return 0
+        with self._lock:
+            self._pushed_spans += ingested
+            for tid in tids:
+                frag = self._frags.get(tid)
+                if frag is None:
+                    continue
+                spans_by_id = frag["spans"]
+                if not any(not s.get("parent_span_id") for s in spans_by_id.values()):
+                    continue
+                del self._frags[tid]
+                self._traces[tid] = {
+                    "spans": spans_by_id,
+                    "reason": self._keep_reason(spans_by_id.values()) or "pushed",
+                    "assembled_at": now,
+                }
+            while len(self._traces) > self.max_traces:
+                self._traces.popitem(last=False)
         return ingested
 
     def _ingest(self, sp: dict, now: float) -> int:
@@ -334,6 +372,7 @@ class TraceCollector:
             "polls": self._polls,
             "poll_errors": self._poll_errors,
             "expired_orphans": self._expired_orphans,
+            "pushed_spans": self._pushed_spans,
         }
 
     # -- lifecycle ---------------------------------------------------------

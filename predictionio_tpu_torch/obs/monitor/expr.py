@@ -17,8 +17,10 @@ language evaluated against the ring buffers:
 - offset modifier          ``rate(http_requests_total[5m] offset 1h)``
                            shifts a selector's evaluation time into the
                            past, so that a binary operator compares one
-                           window at two points in time; the shifted
-                           window reads the in-memory ring.
+                           window at two points in time. With a durable
+                           tier the shifted window reads through to disk,
+                           from the picked tier's points (reset-aware; a
+                           downsampled tier gives each bucket's `last`).
 
 Values are vectors (lists of ``(labels, value)`` samples) or scalars.
 Division by zero drops the sample: a ratio with no denominator traffic

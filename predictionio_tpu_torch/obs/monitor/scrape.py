@@ -17,6 +17,12 @@ Targets parse from ``PIO_MONITOR_TARGETS`` (or an argument):
 ``instance=url`` pairs, comma-separated:
 ``query=http://host:8000,event=http://host:7070``. A bare url gets its
 ``host:port`` as the instance name.
+
+With a durable tier (``PIO_TSDB_DIR``) the scraped series write through
+:class:`~.durable.DurableTSDB` as every other writer does: the fleet's
+history, ``up`` included, survives a monitor restart and ages through the
+5m and 1h tiers, so multi-window burn-rate SLOs over scraped series keep
+working across restarts.
 """
 
 from __future__ import annotations

@@ -32,9 +32,10 @@ Spec fields (JSON; `PIO_SLOS` holds a JSON array or ``@/path.json``):
   extra_pairs   more (fast, slow) window pairs judged beside the primary
                 one: a list of {"fast_window_s", "window_s",
                 "burn_threshold"} objects; a breach on any pair (both of
-                its windows over its threshold) trips the alert. The
-                windows read the in-memory ring (the durable tier is not
-                ported), so a pair longer than the ring sees only it
+                its windows over its threshold) trips the alert. Long
+                windows read through to the durable tier when
+                PIO_TSDB_DIR is set, so a restarted process still alerts
+                on the burn before its restart
   aggregate     fleet scope: judge the scraper's `instance`-tagged series
                 instead of this process's own. "sum" pools bad/total
                 across every instance; "mean" averages each instance's

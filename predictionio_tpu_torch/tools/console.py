@@ -154,7 +154,8 @@ prints the fleet, each ``--expr`` and each SLO a pass. ``alerts
 list|show`` print the SLO alert states of a server (``--url``: its ``GET
 /alerts``) or of this process; ``tsdb query`` prints a server's or this
 process's time-series history (the series, one series' points or an
-aggregate, or an expression's rows); ``trace ... --fleet`` reads the
+aggregate, or an expression's rows; with a durable tier, each tier's
+blocks, series, bytes and span); ``trace ... --fleet`` reads the
 assembled cross-process traces of a process that runs a collector.
 ``deploy --feedback`` posts each
 answer to the Event Server at ``--event-server-url`` with
@@ -1714,6 +1715,18 @@ def tsdb_cmd(args: argparse.Namespace) -> int:
         print(f"[INFO] {payload.get('series_count', len(series))} series "
               f"(capacity {payload.get('capacity')} pts, "
               f"{payload.get('dropped_series', 0)} dropped at the cardinality cap)")
+        durable = payload.get("durable")
+        if durable:
+            wal = durable.get("wal", {})
+            print(f"[INFO] durable tier at {durable.get('dir')}: "
+                  f"{wal.get('segments', 0)} wal segment(s), "
+                  f"{wal.get('pending', 0)} pending pts, replayed "
+                  f"{durable.get('replayed_points', 0)} pts at attach")
+            for tier, st in (durable.get("tiers") or {}).items():
+                span = (f"{st['max_t'] - st['min_t']:.0f}s span"
+                        if st.get("min_t") is not None else "empty")
+                print(f"[INFO]   tier {tier}: {st.get('blocks', 0)} block(s), "
+                      f"{st.get('series', 0)} series, {st.get('bytes', 0)} bytes, {span}")
         for s in series:
             labels = ",".join(f"{k}={v}" for k, v in s["labels"].items())
             where = f"{s['name']}{{{labels}}}" if labels else s["name"]

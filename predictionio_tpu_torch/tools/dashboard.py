@@ -11,16 +11,21 @@ assembled traces), the TSDB explorer (``?series=&match=`` plots any
 retained series as a sparkline, ``?expr=`` evaluates an expression),
 the model lifecycle, the fleet evaluations (eval runs newest first: the
 space, convergence, the winner and the lineage link to the model
-version its params trained) and online learning. The tenants panel and
-``POST /telemetry/push`` need modules the port does not have yet and
-say so. The routes every server shares
-(``/metrics``, ``/alerts``, ``/debug/*``) are mounted too.
+version its params trained) and online learning. With a durable TSDB
+tier (``PIO_TSDB_DIR``) the explorer also lists each tier's blocks,
+series, bytes and span. ``POST /telemetry/push`` (403 unless
+``PIO_PUSH_INGEST=1``) lands a pushed payload in the process monitor.
+The tenants panel needs a module the port does not have yet and says
+so. The routes every server shares (``/metrics``, ``/alerts``,
+``/debug/*``) are mounted too.
 
 With scrape targets (an argument or ``PIO_MONITOR_TARGETS``), `start`
 runs a FleetScraper feeding every target's ``/metrics`` into the process
 TSDB under an ``instance`` label, and, unless ``PIO_TRACE_COLLECT=0``, a
 TraceCollector over the same targets that backs
-``/debug/traces?fleet=1``. Standard library only: no torch is loaded.
+``/debug/traces?fleet=1``. With ``PIO_PUSH_INGEST=1`` and no trace
+collector of its own it mounts an unstarted one, so that pushed spans
+have a place to land. Standard library only: no torch is loaded.
 """
 
 from __future__ import annotations
@@ -83,7 +88,7 @@ class _Handler(JsonHandler):
             if path == "/debug/faults":
                 self._serve_debug_faults_set()
             elif path == "/telemetry/push":
-                raise HttpError(404, f"/telemetry/push (push telemetry) {NOT_PORTED}")
+                self._serve_telemetry_push()
             else:
                 raise HttpError(404, "Not Found")
         except HttpError as e:
@@ -307,7 +312,8 @@ fragment(s), {st['polls']} poll(s)</p>
 </table>"""
         if not name:
             return (f"<h1>TSDB explorer</h1>{form}"
-                    f"<p>({tsdb.series_count()} series retained)</p>")
+                    f"<p>({tsdb.series_count()} series retained)</p>"
+                    f"{self._durable_html(tsdb)}")
         match = None
         if match_raw:
             match = dict(p.split("=", 1) for p in match_raw.split(",") if "=" in p)
@@ -338,6 +344,33 @@ fragment(s), {st['polls']} poll(s)</p>
 <th>History</th></tr>
 {''.join(rows)}
 </table>{extra}"""
+
+    @staticmethod
+    def _durable_html(tsdb) -> str:
+        """The durable tiers: blocks, series, bytes and span of each, so
+        an operator sees how far back a query reaches past the ring."""
+        if not hasattr(tsdb, "durable_stats"):
+            return ""
+        ds = tsdb.durable_stats()
+        rows = "".join(
+            f"<tr><td>{html.escape(t)}</td>"
+            f"<td>{st['blocks']}</td><td>{st['series']}</td>"
+            f"<td>{st['bytes']}</td>"
+            + (f"<td>{st['max_t'] - st['min_t']:.0f}s</td>"
+               if st["min_t"] is not None else "<td>-</td>")
+            + "</tr>"
+            for t, st in ds.get("tiers", {}).items()
+        )
+        return f"""<h2>Durable tiers</h2>
+<p><code>{html.escape(str(ds.get('dir')))}</code> —
+wal {ds['wal']['segments']} segment(s), {ds['wal']['pending']} pending;
+replayed {ds.get('replayed_points', 0)} pts /
+{ds.get('replayed_series', 0)} series at attach</p>
+<table border="1" cellpadding="4">
+<tr><th>Tier</th><th>Blocks</th><th>Series</th><th>Bytes</th>
+<th>Span</th></tr>
+{rows}
+</table>"""
 
     def _lifecycle_html(self) -> str:
         """Model versions newest first with their rollout state, active
@@ -446,10 +479,17 @@ class Dashboard(ServerProcess):
             enabled,
             parse_targets,
         )
-        from predictionio_tpu_torch.utils.env import monitor_knob
+        from predictionio_tpu_torch.utils.env import monitor_knob, push_knob
 
         port = super().start()
         targets = parse_targets(self.monitor_targets)
+        push_ingest = push_knob("PIO_PUSH_INGEST")
+        if push_ingest and enabled() and not targets:
+            # a push-ingest sink: pushed spans need a collector to land
+            # in, and with no targets there is nothing to poll, so its
+            # thread is not started
+            self._collector = TraceCollector(targets=[], interval_s=3600)
+            get_monitor().set_collector(self._collector)
         if targets and enabled():
             interval = (self.scrape_interval_s if self.scrape_interval_s is not None
                         else monitor_knob("PIO_SCRAPE_INTERVAL_S"))
@@ -462,6 +502,11 @@ class Dashboard(ServerProcess):
                                                  interval_s=interval)
                 get_monitor().set_collector(self._collector)
                 self._collector.start()
+            elif push_ingest:
+                # scraping without polling traces: pushed spans still
+                # need an (unstarted) collector
+                self._collector = TraceCollector(targets=[], interval_s=3600)
+                get_monitor().set_collector(self._collector)
         return port
 
     def stop(self) -> None:

@@ -8,8 +8,9 @@ canary rollout's verdict knobs (``ROLLOUT_KEYS``), fault injection
 (``FAULT_KEYS``), the observability knobs (``PIO_DEVPROF``, the peak
 overrides, the trace sampling) and the monitoring plane's
 (``MONITOR_KEYS``, read through ``monitor_knob``; the durable tier's
-``DURABLE_TSDB_KEYS`` are declared, and a set ``PIO_TSDB_DIR`` is
-refused by the monitor), and the fleet evaluation's and the fleet
+``DURABLE_TSDB_KEYS``, read through ``durable_knob``; push telemetry's
+``PUSH_KEYS``, read through ``push_knob``), and the fleet evaluation's
+and the fleet
 members' (``EVAL_KEYS`` and ``FLEET_KEYS``, read through
 ``eval_knob``), and the storage outage path's (``STORAGE_KEYS``: the
 Event Server's write-ahead spill directory and the remote client's
@@ -119,18 +120,51 @@ MONITOR_KEYS = {
     "PIO_TRACE_EXEMPLARS": 4,
 }
 
-# the durable TSDB tier's knobs: declared, and refused when PIO_TSDB_DIR
-# is set (the durable tier and its compactor are not ported)
+# the durable TSDB tier (obs/monitor/durable.py, compact.py) and its
+# defaults (the JAX package's registry entries)
 DURABLE_TSDB_KEYS = {
+    # directory of the durable tier (WAL, sealed blocks, 5m/1h tiers);
+    # empty keeps history in memory only (~ expanded)
     "PIO_TSDB_DIR": "",
+    # seconds between WAL flush and fsync passes
     "PIO_TSDB_FLUSH_S": 2.0,
+    # points in the active WAL segment that seal it into a block
     "PIO_TSDB_SEAL_POINTS": 50000,
+    # age (s) of a non-empty active WAL segment that seals it
     "PIO_TSDB_SEAL_AGE_S": 300.0,
+    # seconds between compactor passes (downsampling and retention)
     "PIO_TSDB_COMPACT_S": 30.0,
+    # flushed WAL points between replay checkpoints (0: none)
     "PIO_TSDB_CKPT_POINTS": 50000,
+    # retention (s) of the raw, 5-minute and 1-hour tiers
     "PIO_TSDB_RETENTION_RAW": 6 * 3600.0,
     "PIO_TSDB_RETENTION_5M": 3 * 86400.0,
     "PIO_TSDB_RETENTION_1H": 14 * 86400.0,
+}
+
+# push telemetry (obs/monitor/push.py) and its defaults (the JAX
+# package's registry entries)
+PUSH_KEYS = {
+    # base URL of a push ingest (POST /telemetry/push); empty: no shipping
+    "PIO_PUSH_URL": "",
+    # the shipper's fsync'd spool directory (~ expanded); the train
+    # scheduler gives each child <log_dir>/<job>.spool
+    "PIO_PUSH_SPOOL": "",
+    # set 1 to enable the guarded POST /telemetry/push on a server
+    "PIO_PUSH_INGEST": False,
+    # seconds between the shipper's spool and ship passes
+    "PIO_PUSH_INTERVAL_S": 10.0,
+    # wall-clock budget (s) of one ship pass's retries
+    "PIO_PUSH_DEADLINE_S": 5.0,
+    # bound of the spool directory's size; the oldest files drop first
+    "PIO_PUSH_SPOOL_MAX_BYTES": 8 * 1024 * 1024,
+    # shared secret: a shipper sends X-PIO-Push-Token =
+    # HMAC-SHA256(secret, instance); empty: no auth
+    "PIO_PUSH_TOKEN": "",
+    # pushed spans admitted per instance (spans/s token bucket; <= 0: all)
+    "PIO_PUSH_SPAN_RATE": 50.0,
+    # burst capacity (spans) of that bucket
+    "PIO_PUSH_SPAN_BURST": 200.0,
 }
 
 
@@ -220,6 +254,25 @@ def monitor_knob(name: str, env: Optional[Mapping[str, str]] = None):
     """A monitoring-plane knob read with its declared default, typed as
     the default is (bool, int, float or str)."""
     return _typed(name, MONITOR_KEYS[name], env)
+
+
+def durable_knob(name: str, env: Optional[Mapping[str, str]] = None):
+    """A durable-tier knob read with its declared default, typed as the
+    default is (``PIO_TSDB_DIR`` with ~ expanded)."""
+    if name == "PIO_TSDB_DIR":
+        return env_path(name, DURABLE_TSDB_KEYS[name], env)
+    return _typed(name, DURABLE_TSDB_KEYS[name], env)
+
+
+def push_knob(name: str, env: Optional[Mapping[str, str]] = None):
+    """A push-telemetry knob read with its declared default, typed as the
+    default is (``PIO_PUSH_SPOOL`` with ~ expanded; ``PIO_PUSH_INGEST`` a
+    presence gate, as ``env_flag`` reads it)."""
+    if name == "PIO_PUSH_SPOOL":
+        return env_path(name, PUSH_KEYS[name], env)
+    if name == "PIO_PUSH_INGEST":
+        return env_flag(name, env)
+    return _typed(name, PUSH_KEYS[name], env)
 
 
 def eval_knob(name: str, env: Optional[Mapping[str, str]] = None):

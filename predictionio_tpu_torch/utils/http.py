@@ -24,6 +24,10 @@ routes every server mounts (the JAX package's ``utils/http.py``):
 - ``GET /debug/faults`` (the process's fault specs) and ``POST
   /debug/faults`` (install or clear specs; 403 unless
   ``PIO_FAULTS_ADMIN=1`` is set on the server);
+- ``POST /telemetry/push`` (a push payload of ``obs/monitor/push.py``
+  into the process monitor; 403 unless ``PIO_PUSH_INGEST=1`` is set on
+  the server, 403 for a bad ``X-PIO-Push-Token``, 400 for a bad
+  payload), on the servers that route it (the dashboard);
 - ``GET /debug/tsdb`` (the process monitor's time-series history),
   ``GET /alerts`` (its SLO and external alert states) and ``GET
   /debug/traces?fleet=1`` (the assembled cross-process traces of the
@@ -58,7 +62,7 @@ from predictionio_tpu_torch.obs import spans as _obs_spans
 from predictionio_tpu_torch.obs import tracing as _obs_tracing
 from predictionio_tpu_torch.resilience import deadline as _deadline
 from predictionio_tpu_torch.resilience import faults as _faults
-from predictionio_tpu_torch.utils.env import env_flag, env_path
+from predictionio_tpu_torch.utils.env import env_flag, env_path, push_knob
 
 log = logging.getLogger(__name__)
 
@@ -394,6 +398,30 @@ class JsonHandler(BaseHTTPRequestHandler):
         for spec in specs:
             _faults.install(spec)
         self._respond(200, {"faults": _faults.specs()})
+
+    def _serve_telemetry_push(self) -> None:
+        """POST /telemetry/push: one pushed payload from a short-lived
+        process (series, spans and its devprof report) into the process
+        monitor's TSDB, tagged ``instance`` and ``job_id``, and its trace
+        collector. Guarded like /debug/faults: 403 unless the operator set
+        PIO_PUSH_INGEST=1 on this server, so that a public server cannot
+        be fed made-up series; 403 for a token that does not fit the
+        payload's instance, 400 for a malformed payload."""
+        from predictionio_tpu_torch.obs.monitor import push as _push
+
+        if not push_knob("PIO_PUSH_INGEST"):
+            self._respond(403, {
+                "message": "telemetry push ingest is disabled: set "
+                           "PIO_PUSH_INGEST=1 on this server to enable it"})
+            return
+        body = self._json_body()
+        try:
+            result = _push.ingest(body, token=self.headers.get(_push.TOKEN_HEADER))
+        except _push.PushAuthError as e:
+            raise HttpError(403, str(e))
+        except _push.PushError as e:
+            raise HttpError(400, str(e))
+        self._respond(200, result)
 
     # -- bodies and responses ----------------------------------------------
     def _drain_body(self) -> bytes:

@@ -11,8 +11,9 @@
 - The dashboard renders every section: the completed evaluation
   instances with their reports, alerts, fleet (scraping the admin
   server), fleet traces, the TSDB explorer (`?series=`, `?expr=`, a bad
-  expression), the model lifecycle, online learning, and the sections
-  not ported saying so; its sparklines are the JAX dashboard's.
+  expression), the model lifecycle, online learning, and the tenants
+  section saying it is not ported; `POST /telemetry/push` answers 403
+  without PIO_PUSH_INGEST; its sparklines are the JAX dashboard's.
 """
 
 import datetime as dt
@@ -237,8 +238,9 @@ def test_dashboard_sections_render(admins, tmp_path, monkeypatch):
         assert status == 200 and "expression error" in page
         status, page = req(port, "/?series=nothing_here")
         assert "no series named" in page
+        monkeypatch.delenv("PIO_PUSH_INGEST", raising=False)
         status, raw = req(port, "/telemetry/push", "POST", {})
-        assert status == 404 and "not ported" in json.loads(raw)["message"]
+        assert status == 403 and "PIO_PUSH_INGEST" in json.loads(raw)["message"]
         status, raw = req(port, "/debug/traces?fleet=1")
         assert status == 200 and json.loads(raw)["collector"]["targets"] == 1
         status, raw = req(port, "/alerts")

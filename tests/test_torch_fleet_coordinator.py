@@ -5,6 +5,7 @@ of the parts not ported and the worker records read across packages.
 No torch is loaded by the modules under test; the supervisions here are
 faked, so no job runs."""
 
+import tempfile
 import threading
 import time
 
@@ -352,13 +353,15 @@ class TestWorkerDeviceInfo:
 @pytest.mark.parametrize("env", [
     {"PIO_FLEET_COORDINATOR": "10.0.0.1:1234"},
     {"PIO_FLEET_NUM_PROCESSES": "4"},
-    {"PIO_PUSH_URL": "http://collector/telemetry/push"},
+    {"PIO_PUSH_URL": "http://127.0.0.1:1/telemetry/push"},
     {"PIO_PUSH_SPOOL": "/var/spool/pio"},
 ])
-def test_multi_host_and_push_settings_are_refused(storage, monkeypatch, env):
-    """The member refuses the JAX package's multi-host and push settings
-    rather than ignore them; one process of one (the single-host
-    default) is no multi-host setting."""
+def test_multi_host_and_push_settings_are_refused(storage, monkeypatch, env, tmp_path):
+    """The member refuses the JAX package's multi-host settings rather
+    than ignore them; one process of one (the single-host default) is no
+    multi-host setting. The push settings are honoured: the started
+    member runs a telemetry shipper as `fleet-<worker id>`, which its
+    stop joins."""
     for k in ("PIO_FLEET_COORDINATOR", "PIO_FLEET_NUM_PROCESSES", "PIO_PUSH_URL",
               "PIO_PUSH_SPOOL"):
         monkeypatch.delenv(k, raising=False)
@@ -366,8 +369,24 @@ def test_multi_host_and_push_settings_are_refused(storage, monkeypatch, env):
     FleetMember(storage)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        FleetMember(storage)
+    if not any(k.startswith("PIO_PUSH_") for k in env):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            FleetMember(storage)
+        return
+    if "PIO_PUSH_SPOOL" in env:
+        monkeypatch.setenv("PIO_PUSH_SPOOL", str(tmp_path / "spool"))
+    else:  # the shipper's default spool lies under the temporary directory
+        monkeypatch.setenv("TMPDIR", str(tmp_path))
+        monkeypatch.setattr(tempfile, "tempdir", None)
+    m = FleetMember(storage, fleet_config=FleetConfig(heartbeat_interval_s=0.05))
+    m.start()
+    try:
+        assert m._shipper is not None and m._shipper.instance == f"fleet-{m.worker_id}"
+        assert any(t.name == "telemetry-shipper" for t in threading.enumerate())
+    finally:
+        m.stop()
+    assert m._shipper is None
+    assert not any(t.name == "telemetry-shipper" for t in threading.enumerate())
 
 
 def test_a_distributed_config_is_refused(storage):

@@ -156,7 +156,20 @@ OBS_MODULES = ["predictionio_tpu_torch.obs", "predictionio_tpu_torch.obs.tracing
                "predictionio_tpu_torch.resilience.deadline",
                "predictionio_tpu_torch.resilience.faults",
                "predictionio_tpu_torch.obs.monitor", "predictionio_tpu_torch.obs.monitor.expr",
+               "predictionio_tpu_torch.obs.monitor.durable",
+               "predictionio_tpu_torch.obs.monitor.compact",
+               "predictionio_tpu_torch.obs.monitor.push",
                "predictionio_tpu_torch.tools.admin", "predictionio_tpu_torch.tools.dashboard"]
+
+
+def test_the_walk_covers_the_telemetry_modules():
+    """The source walk and the import test cover the durable tier, its
+    compactor and push telemetry."""
+    walked = {str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")}
+    for f in ("durable", "compact", "push"):
+        assert f"predictionio_tpu_torch/obs/monitor/{f}.py" in walked
+        assert f"predictionio_tpu_torch.obs.monitor.{f}" in OBS_MODULES
+    assert set(OBS_MODULES) <= set(_port_modules())
 
 
 @pytest.mark.parametrize("module", OBS_MODULES)

@@ -525,10 +525,13 @@ def test_disabled_plane_and_the_refused_durable_tier(monkeypatch, tmp_path):
     assert mon.attach("q", tregistry.MetricsRegistry()) is None
     assert mon.tsdb_payload({}) == {"enabled": False, "series": []}
     assert mon.alerts_payload()["message"] == "monitoring disabled (PIO_TSDB=0)"
+    # a set PIO_TSDB_DIR is no longer refused: it builds the durable tier
     monkeypatch.delenv("PIO_TSDB")
     monkeypatch.setenv("PIO_TSDB_DIR", str(tmp_path))
-    with pytest.raises(RuntimeError, match="not ported yet"):
-        tmon.Monitor()
+    mon = tmon.Monitor()
+    assert isinstance(mon.tsdb, tmon.DurableTSDB) and mon.snapshot_path is None
+    assert mon.tsdb_payload({})["durable"]["dir"] == str(tmp_path)
+    mon.tsdb.stop()
 
 
 def test_notifier_drops_past_its_inflight_bound():
