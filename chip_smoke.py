@@ -100,6 +100,43 @@ Phases, in order; any failure prints what failed and exits non-zero:
             import, read, prepare, train and persist seconds (the
             instance's stage timings), deploy to ready, p50/p99 and qps,
             each line with the card's name and power limit.
+9b. segments the loop's ML-1M events again, over segmentfs events (the
+            JAX defaults: SEAL_EVENTS 8192, FSYNC 1), docfs metadata and
+            localfs models under ``build/segments/``: no sqlite file. (a)
+            ``console app new`` and ``import`` of the loop's
+            ``events.jsonl`` in this process, the sealer left to seal the
+            import, then ``status``: its segmentfs line shows sealed
+            segments and all 1,000,209 rows, none dead. (b) ``train
+            --engine-json`` with the loop's params reading through the data
+            view's segment branch (one miss, no npz file): the frame equals
+            ``EventFrame.from_events(store.find(q))`` bit for bit and holds
+            exactly the generated (user, item, rating, time) rows; each
+            pass kernel launches once an iteration, and both are held to
+            their plain versions on the train's int8 R at K = 10 (1e-5 S);
+            the factors correlate > 0.9999 with the loop's. (c) In process
+            against the train's store (the sealer's poll stretched to 3,600
+            s so that the tail stays a tail): ``SegmentStager`` on cuda:0,
+            20,000 new ratings of known users and items inserted, the
+            retrain (a data view hit and a store cache hit; launches again
+            one a pass and iteration), the stager again: the sealed prefix
+            reused, only the tail's 240,000 bytes copied, every staged
+            tensor equal to the frame's column and the prefix unchanged;
+            the store closed and a cold read of a fresh store equal to the
+            retrain's frame. (d) ``eventserver`` in a process of its own on
+            the JAX cadence: 4 writers batch-POST 20,000 more ratings with
+            their own ids, the server SIGKILLed once a third of the batches
+            are acknowledged and restarted on its port, every unacknowledged
+            batch resent; ``POST /segments/seal``, ``GET /segments/stats``,
+            ``POST /segments/compact`` answer the JAX server's keys and add
+            up; then, the server stopped, ``find_since`` from 0 in pages
+            gives each revision once, 1,040,209 distinct ids, every
+            acknowledged and resent event as posted. (e) ``deploy
+            --engine-json`` in its own process on the card and 500 queries
+            from 16 clients: every answer the plain top-k on the CPU, each
+            batch one scored top-k launch on the select route. Prints the
+            import's s and events/s, the status line, the reads, stager and
+            Event Server figures, each line with the card's name and power
+            limit.
 10. eval    ``pio eval`` over the loop's storage and app, in this process
             on the card: ``console eval run`` of EvalML1M over EvalGrid,
             the recommendation template's tuning example (5 folds,
@@ -138,7 +175,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             eval run`` of an EvalSpec (the template's variant reading
             through the data view, EVAL_GRID's axes in its order, 5 folds,
             the template's Precision@10 by its class) with
-            ``--local-workers 3``: one grid group, so 5 shard
+            ``--local-workers 5``: one grid group, so 5 shard
             jobs (one a fold), each child on the card with 2 x the
             iterations of all 8 points of block_partials and of the
             combine, one select a point, no dense pass (its log's launch
@@ -752,7 +789,11 @@ try:
         CheckpointManager,
         train_als_checkpointed,
     )
+    from predictionio_tpu_torch.workflow import core as wcore
     from predictionio_tpu_torch.workflow.core import stage_timings
+    from predictionio_tpu_torch.data.storage import segmentfs
+    from predictionio_tpu_torch.data.store.columnar import EventFrame
+    from predictionio_tpu_torch.parallel.loader import SegmentStager
     from predictionio_tpu_torch.workflow.server import (
         QueryServer,
         QueryServerConfig,
@@ -2070,8 +2111,9 @@ def phase_loop(report, shared):
     data_s = time.perf_counter() - t0
     (LOOP_DIR / "store").mkdir()
     with _loop_storage():
-        _loop_run(report, users, items, ratings, events_path, data_s)
+        factors = _loop_run(report, users, items, ratings, events_path, data_s)
     shared["loop"] = (users, items, ratings)  # the lifecycle phase's base
+    shared["loop_times"], shared["loop_factors"] = times, factors  # the segments phase's
     report["loop"]["phase_s"] = time.perf_counter() - t_phase
     loop = report["loop"]
     smi = report["nvidia_smi"]
@@ -2225,6 +2267,513 @@ def _loop_run(report, users, items, ratings, events_path, data_s):
         "batch_predict_ms": 1e3 * (after["batch_predict_seconds"]
                                    - before["batch_predict_seconds"]) / batches,
         "nvidia_smi": report["nvidia_smi"],
+    }
+    return f
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: the loop over segmentfs events and docfs metadata
+# ---------------------------------------------------------------------------
+
+
+SEGMENTS_DIR = Path(__file__).resolve().parent / "build" / "segments"
+SEGMENTS_SEED = 24
+SEGMENTS_APP = "ml1m-seg"
+SEGMENTS_ENGINE = "ml1m-seg-als"
+SEGMENTS_TAIL = 20_000  # (c): new ratings inserted in process after the train
+SEGMENTS_POSTED = 20_000  # (d): new ratings POSTed to the Event Server
+SEGMENTS_WRITERS = 4
+SEGMENTS_BATCH = 50  # the Event Server's batch limit
+SEGMENTS_KILL_AT = 1 / 3  # the share of (d)'s batches acknowledged before the SIGKILL
+SEGMENTS_PAGE = 100_000  # find_since's page in (d)'s read-back
+
+
+def _segments_env(sealer_s="0.25"):
+    """segmentfs events (the JAX defaults: SEAL_EVENTS 8192, FSYNC 1;
+    the sealer's poll `sealer_s`), docfs metadata and localfs models
+    under SEGMENTS_DIR: a storage with no sqlite file."""
+    base = {"PIO_FS_BASEDIR": str(SEGMENTS_DIR)}
+    for name, kind, sub in (("SEGEV", "segmentfs", "events"), ("SEGMETA", "docfs", "meta"),
+                            ("SEGFS", "localfs", "models")):
+        base[f"PIO_STORAGE_SOURCES_{name}_TYPE"] = kind
+        base[f"PIO_STORAGE_SOURCES_{name}_PATH"] = str(SEGMENTS_DIR / sub)
+    base.update({"PIO_STORAGE_SOURCES_SEGEV_SEAL_EVENTS": "8192",
+                 "PIO_STORAGE_SOURCES_SEGEV_FSYNC": "1",
+                 "PIO_STORAGE_SOURCES_SEGEV_SEAL_INTERVAL_S": str(sealer_s),
+                 "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SEGMETA",
+                 "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SEGEV",
+                 "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SEGFS"})
+    return base
+
+
+class _SegmentStores:
+    """Every segmentfs store this process opens while the block runs, in
+    `opened`: one writer process a PATH, so the phase closes each (its
+    sealer stopped, its tail sealed, the writer lock released) before a
+    child opens the PATH, and none is left polling in later phases."""
+
+    def __enter__(self):
+        self.opened, self.init = [], segmentfs.SegmentFSEventStore.__init__
+        opened, init = self.opened, self.init
+
+        def recording(store, *args, **kwargs):
+            init(store, *args, **kwargs)
+            opened.append(store)
+
+        segmentfs.SegmentFSEventStore.__init__ = recording
+        return self
+
+    def close(self):
+        while self.opened:
+            self.opened.pop().close()
+
+    def __exit__(self, *exc):
+        segmentfs.SegmentFSEventStore.__init__ = self.init
+        self.close()
+
+
+def _segments_ratings(rng, users, items, times):
+    """SEGMENTS_TAIL + SEGMENTS_POSTED new (user, item) pairs of the
+    loop's users and items, integer ratings 1-5, distinct times after the
+    loop's last."""
+    n = SEGMENTS_TAIL + SEGMENTS_POSTED
+    have = users * LOOP_ITEMS + items
+    draw = np.unique(rng.integers(0, LOOP_USERS * LOOP_ITEMS, 3 * n))
+    draw = rng.permutation(draw[~np.isin(draw, have)])[:n]
+    check(len(draw) == n, f"{len(draw)} new pairs drawn, not {n}")
+    t = int(times.max()) + 1000 * (1 + np.arange(n, dtype=np.int64))
+    return draw // LOOP_ITEMS, draw % LOOP_ITEMS, rng.integers(1, 6, n), t
+
+
+def _same_frame(a, b):
+    """Two EventFrames bit for bit: columns, dtypes, vocabularies, types."""
+    cols = ("event_code", "entity_idx", "target_idx", "time_ms", "value")
+    return (all(getattr(a, c).dtype == getattr(b, c).dtype
+                and getattr(a, c).tobytes() == getattr(b, c).tobytes() for c in cols)
+            and all(getattr(a, v).to_dict() == getattr(b, v).to_dict()
+                    for v in ("event_vocab", "entity_vocab", "target_vocab"))
+            and (a.entity_type, a.target_entity_type) == (b.entity_type, b.target_entity_type))
+
+
+def _frame_rows_equal(frame, users, items, ratings, times):
+    """The frame holds exactly the (user, item, rating, time) rows given,
+    compared sorted as the loop compares its read-back."""
+    uid, iid = _ids(frame.entity_vocab, "u"), _ids(frame.target_vocab, "i")
+    key = uid[frame.entity_idx] * LOOP_ITEMS + iid[frame.target_idx]
+    got, want = np.argsort(key), np.argsort(users * LOOP_ITEMS + items)
+    return (len(frame) == len(users)
+            and np.array_equal(key[got], (users * LOOP_ITEMS + items)[want])
+            and np.array_equal(frame.value[got], ratings[want].astype(np.float32))
+            and np.array_equal(frame.time_ms[got], times[want]))
+
+
+def _aligned_corr(f, g):
+    """corrcoef of two ALS factor sets over the same ids, row for row by
+    their vocabularies."""
+    out = []
+    for fx, gx, fv, gv in ((f.user_factors, g.user_factors, f.user_vocab, g.user_vocab),
+                           (f.item_factors, g.item_factors, f.item_vocab, g.item_vocab)):
+        fmap = fv.to_dict()
+        rows = np.asarray([gv(k) for k in sorted(fmap, key=fmap.get)])
+        out.append(_corr(fx, gx[rows]))
+    return out
+
+
+def _staged_equal(staged, frame, label):
+    torch.cuda.synchronize()
+    for name in ("entity_idx", "target_idx", "value"):
+        t = staged[name]
+        check(t.device.type == "cuda", f"{label}: {name} staged on {t.device}")
+        check(t.cpu().numpy().tobytes() == np.asarray(getattr(frame, name)).tobytes(),
+              f"{label}: staged {name} differs from the frame's column")
+    check(float(staged["valid"].sum()) == len(frame), f"{label}: valid mask")
+
+
+def phase_segments(report, shared):
+    """The loop's ML-1M events over segmentfs events, docfs metadata and
+    localfs models under build/segments/: import, train through the data
+    view's segment branch, a tail in process with the stager on the card,
+    the Event Server SIGKILLed mid-ingest, deploy and 500 queries."""
+    t_phase = time.perf_counter()
+    users, items, ratings = shared["loop"]
+    times = shared["loop_times"]
+    check((LOOP_DIR / "events.jsonl").exists(), "the loop's events.jsonl is missing")
+    new = _segments_ratings(np.random.default_rng(SEGMENTS_SEED), users, items, times)
+    shutil.rmtree(SEGMENTS_DIR, ignore_errors=True)
+    SEGMENTS_DIR.mkdir(parents=True)
+    seg = report["segments"] = {"nvidia_smi": report["nvidia_smi"]}
+    with _SegmentStores() as stores:
+        with _loop_storage(env=_segments_env()):
+            app_id, key = _segments_import(seg, stores)
+        # (b)-(c) in this process: the sealer's poll stretched so that
+        # (c)'s tail stays a tail through the retrain and the stager
+        with _loop_storage(env=_segments_env(sealer_s=3600)):
+            run = _segments_train(seg, stores, app_id, (users, items, ratings, times),
+                                  shared["loop_factors"])
+            _segments_tail(seg, stores, app_id, run, [a[:SEGMENTS_TAIL] for a in new],
+                           (users, items, ratings, times))
+        with _loop_storage(env=_segments_env()):
+            _segments_event_server(seg, stores, app_id, key,
+                                   [a[SEGMENTS_TAIL:] for a in new])
+            served = _deploy_queries(run["engine_json"], SEGMENTS_DIR / "deploy.log",
+                                     run["retrain"], run["model"], ALSAlgorithmParams(),
+                                     np.random.default_rng(SEGMENTS_SEED + 2),
+                                     LOOP_USERS, LOOP_ITEMS)
+    seg["launches"]["serve_topk"] = served.pop("served")
+    seg["launches"]["serve_select"] = served.pop("select")
+    seg.update(served)
+    seg["phase_s"] = time.perf_counter() - t_phase
+    smi = report["nvidia_smi"]
+    print(f"[segments] {smi} | import of {LOOP_EDGES} events {seg['import_s']:.2f} s "
+          f"({LOOP_EDGES / seg['import_s']:.1f} events/s), sealed by the sealer "
+          f"{seg['seal_wait_s']:.2f} s later; {seg['status_line']}", flush=True)
+    print(f"[segments] {smi} | train: read {seg['stages']['read']:.3f} s (data view "
+          f"miss), train {seg['stages']['train']:.3f} s, row path "
+          f"{seg['row_path_s']:.2f} s; retrain after {SEGMENTS_TAIL} tail events: read "
+          f"{seg['retrain_stages']['read']:.3f} s (hit), train "
+          f"{seg['retrain_stages']['train']:.3f} s; cold read "
+          f"{seg['cold_read_s']:.3f} s; launches row {seg['launches']['row']}, col "
+          f"{seg['launches']['col']}; corrcoef vs the loop users "
+          f"{seg['corr_users']:.8f} items {seg['corr_items']:.8f}", flush=True)
+    print(f"[segments] {smi} | stager on cuda:0: {seg['stager'][0]} in "
+          f"{seg['stage_s'][0]:.3f} s, then {seg['stager'][1]} in "
+          f"{seg['stage_s'][1]:.3f} s", flush=True)
+    es = seg["event_server"]
+    print(f"[segments] {smi} | Event Server: {SEGMENTS_POSTED} events from "
+          f"{SEGMENTS_WRITERS} writers, SIGKILLed after {es['acked_before_kill']} of "
+          f"{es['batches']} batches, restarted in {es['restart_s']:.2f} s, "
+          f"{es['resent']} batches resent; seal {es['seal']}, compact {es['compact']}, "
+          f"stats {es['stats']}; find_since read {es['find_since_events']} events in "
+          f"{es['find_since_s']:.2f} s, each revision once", flush=True)
+    print(f"[segments] {smi} | deploy to ready {seg['deploy_ready_s']:.2f} s; "
+          f"{N_QUERIES} queries from {N_CLIENTS} clients: p50 {seg['p50_ms']:.3f} ms, "
+          f"p99 {seg['p99_ms']:.3f} ms, {seg['qps']:.1f} qps, top-k launches "
+          f"{seg['launches']['serve_topk']} in {seg['batches']} batches (select "
+          f"{seg['launches']['serve_select']}); phase {seg['phase_s']:.1f} s", flush=True)
+
+
+def _segments_import(seg, stores):
+    """(a) `app new` and `import` of the loop's file in this process, the
+    sealer left to seal the import's tail, then `status`."""
+    rc, text = _console_out(["app", "new", SEGMENTS_APP])
+    m = re.search(r"App created: ID=(\d+).*\n\[INFO\] Access key: (\S+)", text)
+    check(rc == 0 and m is not None, "app new printed no app id and access key")
+    app_id, key = int(m.group(1)), m.group(2)
+    stores.close()
+    t0 = time.perf_counter()
+    check(console.main(["import", "--app", SEGMENTS_APP, "--input",
+                        str(LOOP_DIR / "events.jsonl")]) == 0, "import")
+    seg["import_s"] = time.perf_counter() - t0
+    [store] = stores.opened
+    t0 = time.perf_counter()
+    while store.segment_stats(app_id)["tail_rows"]:
+        check(time.perf_counter() - t0 < 300, "the sealer left the import's tail unsealed")
+        time.sleep(0.05)
+    seg["seal_wait_s"] = time.perf_counter() - t0
+    seg["after_import"] = store.segment_stats(app_id)
+    stores.close()
+    rc, text = _console_out(["status"])
+    stores.close()
+    line = re.search(rf"\[INFO\]   segmentfs app {app_id} \({SEGMENTS_APP}\): (\d+) "
+                     r"segment\(s\), (\d+) sealed \+ (\d+) tail row\(s\), (\d+) dead, "
+                     r"rev (\d+)", text)
+    check(rc == 0 and line is not None, "status printed no segmentfs line for the app")
+    n_seg, sealed, tail, dead, rev = map(int, line.groups())
+    check(n_seg >= 1 and sealed + tail == LOOP_EDGES and dead == 0 and rev == LOOP_EDGES,
+          f"status: {line.group(0)} (rows lost, or none sealed)")
+    seg["status_line"] = line.group(0).strip()
+    return app_id, key
+
+
+def _segments_train(seg, stores, app_id, loop_rows, loop_factors):
+    """(b) `train --engine-json` (the loop's params, reading through the
+    data view) in this process; its store is kept open for (c)."""
+    engine_json = SEGMENTS_DIR / "engine.json"
+    variant = {
+        "id": SEGMENTS_ENGINE,
+        "engineFactory": "predictionio_tpu_torch.engines.recommendation.RecommendationEngine",
+        "datasource": {"params": {"app_name": SEGMENTS_APP, "event_names": ["rate"],
+                                  "use_data_view": True}},
+        "algorithms": [{"name": "als", "params": {}}],  # the template's defaults
+    }
+    engine_json.write_text(json.dumps(variant))
+    frames = []
+    frame_of = RecommendationDataSource._frame
+
+    def kept_frame(self, ctx):
+        frames.append(frame_of(self, ctx))
+        return frames[-1]
+
+    RecommendationDataSource._frame = kept_frame
+    DataView.stats.update(hits=0, misses=0)
+    df.PASS_LAUNCHES.update(row=0, col=0)  # every count to 0 just before the main path
+    try:
+        with _Spy(als, "stage_dense") as stage, _Spy(wcore, "run_train") as run:
+            rc = console.main(["train", "--engine-json", str(engine_json)])
+    finally:
+        RecommendationDataSource._frame = frame_of
+    launches = dict(df.PASS_LAUNCHES)
+    check(rc == 0, "train --engine-json")
+    [(_, (storage, *_), inst)] = run.calls
+    [store] = stores.opened
+    check(storage.get_events() is store, "the train read another store")
+    check(inst.status == "COMPLETED", f"instance {inst.status}")
+    check(DataView.stats == {"hits": 0, "misses": 1}
+          and store.frame_cache_stats == {"hits": 0, "misses": 1},
+          f"data view {DataView.stats}, store cache {store.frame_cache_stats}: not one miss")
+    check(not (SEGMENTS_DIR / "view").exists(), "the data view wrote npz files")
+    params = ALSAlgorithmParams()
+    check(launches["row"] == launches["col"] == params.num_iterations,
+          f"pass kernel launches {launches} != one row and one col pass per iteration")
+    staged = [out for *_, out in stage.calls]
+    check(len(staged) == 1, f"the train staged a dense train {len(staged)} times")
+    [frame] = frames
+    # the train's frame is the row path's, bit for bit
+    q = EventQuery(app_id=app_id, entity_type="user", target_entity_type="item",
+                   event_names=["rate"])
+    t0 = time.perf_counter()
+    ref = EventFrame.from_events(store.find(q), value_prop="rating", default_value=1.0)
+    seg["row_path_s"] = time.perf_counter() - t0
+    check(_same_frame(frame, ref), "the train's frame differs from from_events(find(q))")
+    del ref
+    check(_frame_rows_equal(frame, *loop_rows),
+          "the frame differs from the generated (user, item, rating, time) rows")
+    [model] = deserialize_models(storage.get_model_data_models().get(inst.id).models)
+    check(type(model) is ALSModel, f"MODELDATA holds {type(model).__name__}")
+    check(_finite(model.factors), "non-finite factors")
+    cu, ci = _aligned_corr(model.factors, loop_factors)
+    check(cu > 0.9999 and ci > 0.9999,
+          f"the factors vs the loop's (sqlite) train: corrcoef users {cu}, items {ci}")
+    held = {w: {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0} for w in ("row", "col")}
+    _dense_held(staged[0], RANK, np.random.default_rng(SEGMENTS_SEED + 1), held,
+                "segments ML-1M")
+    seg.update({"stages": stage_timings(inst), "launches": launches, "held": held,
+                "dense_dtype": staged[0].dense_dtype, "corr_users": cu, "corr_items": ci})
+    return {"storage": storage, "store": store, "variant": variant, "query": q,
+            "engine_json": engine_json, "frame": frame}
+
+
+def _segments_tail(seg, stores, app_id, run, new, loop_rows):
+    """(c) In process, against the train's store: the stager on cuda:0,
+    a tail of SEGMENTS_TAIL new ratings, the retrain (a data view hit),
+    the stager again (only the tail copied), then the store closed and a
+    cold read by a fresh store."""
+    storage, store, q = run["storage"], run["store"], run["query"]
+    stager = SegmentStager("cuda:0")
+    stats, stage_s = [], []
+    t0 = time.perf_counter()
+    frame1, staged1 = stager.stage(store, q, value_prop="rating", default_value=1.0)
+    torch.cuda.synchronize()
+    stage_s.append(time.perf_counter() - t0)
+    stats.append(dict(stager.stats))
+    check(stats[0] == {"sealed_restage": 1, "sealed_reuse": 0,
+                       "bytes_staged": 12 * LOOP_EDGES}, f"the first stage: {stats[0]}")
+    _staged_equal(staged1, frame1, "stage 1")
+    users, items, ratings, times = new
+    stamps = times.astype("datetime64[ms]").astype(object)
+    tail = [Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                  target_entity_type="item", target_entity_id=f"i{i}",
+                  properties={"rating": int(r)},
+                  event_time=t.replace(tzinfo=datetime.timezone.utc),
+                  event_id=f"tail-{n:05d}")
+            for n, (u, i, r, t) in enumerate(zip(users.tolist(), items.tolist(),
+                                                 ratings.tolist(), stamps))]
+    t0 = time.perf_counter()
+    check(len(store.insert_batch(tail, app_id)) == SEGMENTS_TAIL, "tail insert")
+    seg["tail_insert_s"] = time.perf_counter() - t0
+    check(store.segment_stats(app_id)["tail_rows"] == SEGMENTS_TAIL, "the tail was sealed")
+    # the retrain: in process, the same storage and store
+    frames = []
+    frame_of = RecommendationDataSource._frame
+
+    def kept_frame(self, ctx):
+        frames.append(frame_of(self, ctx))
+        return frames[-1]
+
+    hits = (DataView.stats["hits"], store.frame_cache_stats["hits"])
+    RecommendationDataSource._frame = kept_frame
+    df.PASS_LAUNCHES.update(row=0, col=0)  # every count to 0 just before the main path
+    try:
+        inst = wcore.run_train(storage, run["variant"])
+    finally:
+        RecommendationDataSource._frame = frame_of
+    for which, n in df.PASS_LAUNCHES.items():
+        seg["launches"][which] += n
+    check(df.PASS_LAUNCHES["row"] == df.PASS_LAUNCHES["col"]
+          == ALSAlgorithmParams().num_iterations, f"retrain launches {df.PASS_LAUNCHES}")
+    check(inst.status == "COMPLETED", f"retrain instance {inst.status}")
+    check(DataView.stats["hits"] == hits[0] + 1 and store.frame_cache_stats["hits"] > hits[1],
+          f"the retrain missed: data view {DataView.stats}, store {store.frame_cache_stats}")
+    [frame] = frames
+    check(_frame_rows_equal(frame, *(np.concatenate([a, b]) for a, b in zip(loop_rows, new))),
+          "the retrain's frame differs from the generated rows and the tail")
+    t0 = time.perf_counter()
+    frame2, staged2 = stager.stage(store, q, value_prop="rating", default_value=1.0)
+    torch.cuda.synchronize()
+    stage_s.append(time.perf_counter() - t0)
+    stats.append(dict(stager.stats))
+    check(stats[1] == {"sealed_restage": 1, "sealed_reuse": 1,
+                       "bytes_staged": 12 * (LOOP_EDGES + SEGMENTS_TAIL)},
+          f"the second stage copied more than the tail: {stats[1]}")
+    _staged_equal(staged2, frame2, "stage 2")
+    for name in ("entity_idx", "target_idx", "value"):
+        check(torch.equal(staged2[name][:LOOP_EDGES], staged1[name]),
+              f"the sealed prefix's {name} moved under tail-only growth")
+    del staged1, staged2, frame1, frame2
+    [model] = deserialize_models(storage.get_model_data_models().get(inst.id).models)
+    check(_finite(model.factors), "non-finite factors after the retrain")
+    store.close()  # seals the tail; releases the PATH for the children
+    stores.opened.remove(store)
+    fresh = Storage().get_events()
+    t0 = time.perf_counter()
+    cold = fresh.find_frame(q, value_prop="rating", default_value=1.0)
+    seg["cold_read_s"] = time.perf_counter() - t0
+    check(_same_frame(frame, cold), "the retrain's frame differs from a cold read")
+    stores.close()
+    seg.update({"stager": stats, "stage_s": stage_s,
+                "retrain_stages": stage_timings(inst)})
+    run.update(retrain=inst, model=model)
+
+
+def _segments_event_server(seg, stores, app_id, key, new):
+    """(d) `eventserver` in a process of its own over the PATH: four
+    writers batch-POST SEGMENTS_POSTED events with their own ids; the
+    server is SIGKILLed a third of the way in and restarted on its port;
+    each writer resends every batch not acknowledged. Then seal, stats
+    and compact over HTTP, the server stopped, and a find_since read."""
+    users, items, ratings, times = new
+    stamps = np.datetime_as_string(times.astype("datetime64[ms]"), unit="ms")
+    events = [{"event": "rate", "entityType": "user", "entityId": f"u{u}",
+               "targetEntityType": "item", "targetEntityId": f"i{i}",
+               "properties": {"rating": int(r)}, "eventTime": f"{t}Z",
+               "eventId": f"posted-{n:05d}"}
+              for n, (u, i, r, t) in enumerate(zip(users.tolist(), items.tolist(),
+                                                   ratings.tolist(), stamps))]
+    batches = [events[n:n + SEGMENTS_BATCH] for n in range(0, len(events), SEGMENTS_BATCH)]
+    lock, restarted = threading.Lock(), threading.Event()
+    acked: list = []
+    resent: list = []
+    errors: list = []
+
+    def writer(port, mine):
+        """POST each batch; one that fails on the wire (the server
+        killed) waits for the restart and goes again."""
+        try:
+            for b in mine:
+                while True:
+                    try:
+                        status, body = _call(port, "POST",
+                                             f"/batch/events.json?accessKey={key}", batches[b])
+                    except (OSError, http.client.HTTPException):
+                        with lock:
+                            resent.append(b)
+                        check(restarted.wait(timeout=300), "the Event Server was not restarted")
+                        continue
+                    check(status == 200 and all(r.get("status") == 201 for r in body),
+                          f"batch POST: HTTP {status} {str(body)[:200]}")
+                    with lock:
+                        acked.append(b)
+                    break
+        except Exception as e:  # noqa: BLE001 — fails the phase below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    with _Console(["eventserver", "--ip", "127.0.0.1", "--port", "0"],
+                  SEGMENTS_DIR / "eventserver.log") as es:
+        port = es.port(timeout=120)
+        threads = [threading.Thread(target=writer, args=(port, range(w, len(batches),
+                                                                      SEGMENTS_WRITERS)))
+                   for w in range(SEGMENTS_WRITERS)]
+        for t in threads:
+            t.start()
+        while len(acked) < SEGMENTS_KILL_AT * len(batches):
+            check(not errors and time.perf_counter() - t0 < 300, f"ingest stalled: {errors}")
+            time.sleep(0.005)
+        es.proc.kill()  # SIGKILL
+        es.proc.wait(timeout=30)
+        with lock:
+            before_kill = set(acked)
+    t_kill = time.perf_counter()
+    with _Console(["eventserver", "--ip", "127.0.0.1", "--port", str(port)],
+                  SEGMENTS_DIR / "eventserver_restarted.log") as es:
+        check(es.port(timeout=120) == port, "restarted on another port")
+        restart_s = time.perf_counter() - t_kill
+        restarted.set()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads) and not errors,
+              f"writers: {errors or 'hung'}")
+        ingest_s = time.perf_counter() - t0
+        check(sorted(acked) == list(range(len(batches))), "a batch was never acknowledged")
+        # the segment surface, as the JAX server answers it. The server's
+        # sealer runs meanwhile (a seal it has in hand makes ours answer
+        # 0), so the tail is waited out before the compaction, and every
+        # answer must keep each live row: sealed - dead + tail
+        ops = {}
+
+        def segments_call(name, method, path):
+            status, body = _call(port, method, f"{path}?accessKey={key}")
+            check(status == 200, f"{method} {path}: HTTP {status} {body}")
+            ops[name] = body
+
+        want_n = LOOP_EDGES + SEGMENTS_TAIL + SEGMENTS_POSTED
+        segments_call("stats_before", "GET", "/segments/stats")
+        segments_call("seal", "POST", "/segments/seal")
+        t_seal = time.perf_counter()
+        while True:
+            segments_call("stats_sealed", "GET", "/segments/stats")
+            if not ops["stats_sealed"]["tail_rows"]:
+                break
+            check(time.perf_counter() - t_seal < 60, f"the tail stayed unsealed: {ops}")
+            time.sleep(0.05)
+        segments_call("compact", "POST", "/segments/compact")
+        segments_call("stats", "GET", "/segments/stats")
+        keys = {"segments", "sealed_rows", "dead_rows", "tail_rows", "max_revision",
+                "tombstones"}
+        stats = [ops[k] for k in ("stats_before", "stats_sealed", "stats")]
+        check(set(ops["seal"]) == {"sealedRows"} and set(ops["compact"]) == {"segmentsMerged"}
+              and all(set(st) == keys for st in stats), f"segment answers {ops}")
+        check(0 <= ops["seal"]["sealedRows"] <= ops["stats_before"]["tail_rows"]
+              and ops["compact"]["segmentsMerged"] >= 0
+              and ops["stats"]["segments"] <= ops["stats_sealed"]["segments"]
+              - ops["compact"]["segmentsMerged"]
+              and all(st["sealed_rows"] - st["dead_rows"] + st["tail_rows"] == want_n
+                      for st in stats),
+              f"seal and compaction do not add up: {ops}")
+        check(es.interrupt() == 0, "eventserver did not stop on SIGINT")
+    # each revision once from 0, the acknowledged and resent ids once each
+    fresh = Storage().get_events()
+    t0 = time.perf_counter()
+    cursor, n_read, ids, got = 0, 0, set(), {}
+    while True:
+        page = fresh.find_since(app_id, cursor, limit=SEGMENTS_PAGE)
+        if not page:
+            break
+        revs = [e.revision for e in page]
+        check(revs[0] > cursor and all(a < b for a, b in zip(revs, revs[1:])),
+              "find_since gave a revision twice or out of order")
+        cursor = revs[-1]
+        n_read += len(page)
+        ids.update(e.event_id for e in page)
+        got.update((e.event_id, (e.entity_id, e.target_entity_id, e.properties["rating"]))
+                   for e in page if e.event_id.startswith("posted-"))
+    find_since_s = time.perf_counter() - t0
+    check(n_read == len(ids) == want_n, f"find_since read {n_read} events, {len(ids)} ids, "
+                                        f"not {want_n}")
+    for b in sorted(before_kill) + sorted(set(resent)):
+        for e in batches[b]:
+            check(got.get(e["eventId"]) == (e["entityId"], e["targetEntityId"],
+                                            e["properties"]["rating"]),
+                  f"acknowledged event {e['eventId']} missing or changed")
+    check(cursor == fresh.latest_revision(app_id), "the cursor stopped short of the head")
+    final = fresh.segment_stats(app_id)
+    stores.close()
+    seg["event_server"] = {
+        "batches": len(batches), "acked_before_kill": len(before_kill),
+        "resent": len(set(resent)), "restart_s": restart_s, "ingest_s": ingest_s,
+        "seal": ops["seal"], "compact": ops["compact"], "stats": ops["stats"],
+        "stats_before": ops["stats_before"], "final": final,
+        "find_since_events": n_read, "find_since_s": find_since_s,
     }
 
 
@@ -2515,7 +3064,7 @@ def _windowed_held(staged_w, k, rng, tally, label):
 
 
 FLEET_ENGINE, TUNE_ENGINE = "ml1m-fleet", "ml1m-tune"
-FLEET_WORKERS = 3
+FLEET_WORKERS = 5  # one a fold shard: the five children in one wave
 FLEET_FACTORY = "predictionio_tpu_torch.engines.recommendation.RecommendationEngine"
 FLEET_METRIC = {"class": "predictionio_tpu_torch.engines.recommendation.engine.PrecisionAtK",
                 "params": {"k": EVAL_PRECISION_K}}
@@ -2637,7 +3186,7 @@ def phase_fleet_eval(report, shared):
 
 
 def _fleet_run(report, storage, queue):
-    """(a) `eval run spec.json --local-workers 3`: every point's score held
+    """(a) `eval run spec.json --local-workers 5`: every point's score held
     to phase 10's MetricEvaluator score (1e-5), the same winner, each
     shard child's launches; `eval list`, `eval status`, GET /evals/<run>."""
     spec_path = LOOP_DIR / "fleet_spec.json"
@@ -4076,13 +4625,14 @@ def _ingest_train_deploy(report, users, items, ratings):
     })
 
 
-def _deploy_queries(engine_json, log_path, inst, model, params, rng):
+def _deploy_queries(engine_json, log_path, inst, model, params, rng,
+                    n_users=INGEST_USERS, n_items=INGEST_ITEMS):
     """`deploy --engine-json` in a process of its own on the card, 500
-    queries of ML-100K's users from N_CLIENTS threads: the deploy serves
-    `inst`, its scored top-k launches equal its batches, all on the
-    select route, and every answer equals the plain top-k on the CPU over
-    `model`'s factors."""
-    queries = _loop_queries(rng, INGEST_USERS, INGEST_ITEMS, unknown=0)
+    queries of the app's users (ML-100K's by default) from N_CLIENTS
+    threads: the deploy serves `inst`, its scored top-k launches equal
+    its batches, all on the select route, and every answer equals the
+    plain top-k on the CPU over `model`'s factors."""
+    queries = _loop_queries(rng, n_users, n_items, unknown=0)
     t0 = time.perf_counter()
     with _Console(["deploy", "--engine-json", str(engine_json), "--ip", "127.0.0.1",
                    "--port", "0"], log_path) as dep:
@@ -8701,7 +9251,8 @@ def main() -> int:
                         ("dense", phase_dense), ("train", phase_train),
                         ("serve", phase_serve), ("times", phase_times),
                         ("dense times", phase_dense_times),
-                        ("loop", phase_loop), ("eval", phase_eval),
+                        ("loop", phase_loop), ("segments", phase_segments),
+                        ("eval", phase_eval),
                         ("fleet eval", phase_fleet_eval),
                         ("lifecycle", phase_lifecycle),
                         ("ingest", phase_ingest), ("remote", phase_remote),
@@ -8742,9 +9293,11 @@ def main() -> int:
     fle = report["fleet_eval"]  # the shard children of (a) and (b), its jobs, (d)
     fl_shards = [fle["a"]["launches"], fle["b"]["launches"]]
     fl_jobs = [fle["b"]["launches_a"], fle["b"]["launches_n"]]
+    sgl = report["segments"]["launches"]  # segmentfs: train, retrain, deploy
     paths = {  # each main path's launches, counted from 0 around it
         "fused_recommend_topk": {"serve": report["serve"]["launches"],
                                  "loop": report["loop"]["launches"]["serve_topk"],
+                                 "segments": sgl["serve_topk"],
                                  "eval": ev["topk"], "eval dense": evd["topk"],
                                  "ingest": ing["serve_topk"], "remote": rmt["serve_topk"],
                                  "lifecycle": lc["serve_topk"],
@@ -8756,7 +9309,7 @@ def main() -> int:
                                  "fleet eval shards": sum(x["topk"] for x in fl_shards)},
         **{which: {"train": report["train"]["launches"][which],
                    "loop": report["loop"]["launches"][which],
-                   "eval dense": evd[which], "lifecycle jobs": lc[which],
+                   "segments": sgl[which], "eval dense": evd[which], "lifecycle jobs": lc[which],
                    "lifecycle kill/resume": lckr[which], "similar": sim[which],
                    "templates": sum(t[which] for t in tml),
                    "fleet eval jobs": sum(j[which] for j in fl_jobs)}
@@ -8793,6 +9346,7 @@ def main() -> int:
             "launches": sum(paths[which].values()), "launches_by_path": paths[which],
             "max_abs_err": max(report["dense_sweep"][which]["max_abs_err"],
                                held["dense"][which]["max_abs_err"],
+                               report["segments"]["held"][which]["max_abs_err"],
                                report["lifecycle"]["held"]["dense"][which]["max_abs_err"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

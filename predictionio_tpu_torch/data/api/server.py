@@ -11,6 +11,10 @@ data/.../api/EventServer.scala:52-640). Routes:
   DELETE /events/<id>.json       → delete it
   POST   /batch/events.json      → at most 50 events, per-event statuses
   GET    /stats.json             → hourly counts (with stats on)
+  POST   /segments/seal          → {"sealedRows"}: seal the key's tail now
+  POST   /segments/compact       → {"segmentsMerged"}: merge small segments
+  GET    /segments/stats         → the segment store's shape (404 on a store
+                                   without segments, 503 when it fails)
   POST/GET /webhooks/<name>.json → JSON connectors
   POST/GET /webhooks/<name>.form → form connectors
   GET    /metrics                → Prometheus text (requests, events)
@@ -54,9 +58,8 @@ spilled event lands once), and counts ``event_wal_spilled_total``,
 ``event_wal_replayed_total`` and the ``event_wal_pending`` gauge. Access
 keys and channel lists that were read once are served from a cache
 while the store is unreachable, so that auth does not fail before the
-spill; a key never seen is a 503. ``/segments/*``, the other
-``/debug/*`` routes and log shipping are not ported: those routes
-answer 404 saying so. The server's registry is sampled by the process
+spill; a key never seen is a 503. Any other ``/debug/*`` path answers
+404 saying it is not ported; log shipping is not ported. The server's registry is sampled by the process
 monitor while it serves (``utils/http.py``).
 """
 
@@ -296,7 +299,13 @@ class _Handler(JsonHandler):
                 self._serve_debug_faults()
             elif path == "/debug/faults" and method == "POST":
                 self._serve_debug_faults_set()
-            elif path.startswith(("/debug/", "/segments/")):
+            elif path == "/segments/seal" and method == "POST":
+                self._segments_op("seal", self._auth(query))
+            elif path == "/segments/compact" and method == "POST":
+                self._segments_op("compact", self._auth(query))
+            elif path == "/segments/stats" and method == "GET":
+                self._segments_stats(self._auth(query))
+            elif path.startswith("/debug/"):
                 raise HttpError(404, f"{path} is not ported yet to the PyTorch port")
             else:
                 raise HttpError(404, "Not Found")
@@ -305,6 +314,37 @@ class _Handler(JsonHandler):
         except Exception:
             log.exception("internal error on %s %s", method, self.path)
             self._respond(500, {"message": "internal server error"})
+
+    def _segments_store(self):
+        """The segment store behind this server, or a 404: the surface
+        exists only over segmentfs events."""
+        events = self.server.storage.get_events()
+        if not hasattr(events, "segment_stats"):
+            raise HttpError(404, "event store backend has no segment surface (these "
+                                 "endpoints need source type 'segmentfs')")
+        return events
+
+    def _segments_op(self, op: str, auth: AuthData) -> None:
+        """POST /segments/seal|compact: seal the key's app and channel's
+        tail now, or merge its small adjacent segments (the sealer runs on
+        its own cadence); 200 {"sealedRows"} or {"segmentsMerged"}, 503
+        when the operation fails."""
+        events = self._segments_store()
+        try:
+            n = getattr(events, op)(auth.app_id, auth.channel_id)
+        except Exception as e:  # noqa: BLE001 — answered as a 503
+            raise HttpError(503, f"{op} failed: {e}")
+        self._respond(200, {"sealedRows" if op == "seal" else "segmentsMerged": int(n)})
+
+    def _segments_stats(self, auth: AuthData) -> None:
+        """GET /segments/stats: the store's `segment_stats` for the key's
+        app and channel (`console status --event-url` prints it)."""
+        events = self._segments_store()
+        try:
+            st = events.segment_stats(auth.app_id, auth.channel_id)
+        except Exception as e:  # noqa: BLE001 — answered as a 503
+            raise HttpError(503, f"segment stats failed: {e}")
+        self._respond(200, st)
 
     def _post_batch(self, auth: AuthData) -> None:
         """Per-event statuses in a 200 after one `insert_batch` of the

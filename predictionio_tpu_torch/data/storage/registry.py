@@ -8,9 +8,11 @@ MODELDATA, the same variables as the JAX package's. With none set, the
 development wiring: sqlite metadata and events in
 ``$PIO_FS_BASEDIR/pio.db`` and model files under ``$PIO_FS_BASEDIR``
 (default ``~/.pio_store``). The port's backends are memory, sqlite,
-localfs and remote (every DAO through a storage daemon,
+localfs, remote (every DAO through a storage daemon,
 ``data/api/storage_server.py``; its ``HOST``, ``PORT``, ``AUTH_KEY`` and
-``TIMEOUT`` settings); a repository resolves to the backend's DAO, with
+``TIMEOUT`` settings), segmentfs (columnar events only; ``PATH`` and
+the seal settings) and docfs (JSON metadata documents and model files;
+``PATH``); a repository resolves to the backend's DAO, with
 one client a source where the backend has clients (sqlite's connection,
 remote's ``CLIENT_FACTORY``). The process singleton and the storage
 self-check are not ported.
@@ -38,6 +40,11 @@ BACKENDS: dict[str, tuple[str, str]] = {
     # every DAO proxied to a storage daemon (the reference's JDBC client
     # role, Storage.scala:140-142)
     "remote": ("predictionio_tpu_torch.data.storage.remote", "Remote"),
+    # metadata as JSON documents (the reference's Elasticsearch role)
+    "docfs": ("predictionio_tpu_torch.data.storage.docfs", "DocFS"),
+    # columnar events: an fsync'd WAL sealed into column segments;
+    # EVENTDATA only, paired with another source for metadata
+    "segmentfs": ("predictionio_tpu_torch.data.storage.segmentfs", "SegmentFS"),
 }
 
 # DAO → class suffix

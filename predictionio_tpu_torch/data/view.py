@@ -10,9 +10,11 @@ with ``data_signature``, which changes at every insert and delete of
 the namespace, so a hit is the frame the store would give now. A miss
 folds the store once, writes ``frame_<query>_<signature>.npz``
 atomically and evicts the same query's older versions. ``stats``
-counts hits and misses in the process. The JAX package's branch for a
-segment-backed store (``find_frame_parts``) is not ported with that
-store.
+counts hits and misses in the process. A segment-backed store (one
+with ``find_frame_parts``, segmentfs) keeps its own cache of the sealed
+rows under the segment ids and folds only the unsealed tail a read, so
+the view delegates to it, writes no npz file and counts the store's hit
+or miss in ``stats``.
 """
 
 from __future__ import annotations
@@ -117,7 +119,26 @@ class DataView:
         returned."""
         facade = EventStoreFacade(storage)
         app_id, channel_id = facade.app_name_to_id(app_name, channel_name)
-        signature = storage.get_events().data_signature(app_id, channel_id)
+        store = storage.get_events()
+        frame_kwargs = dict(
+            app_name=app_name, channel_name=channel_name,
+            event_names=event_names, entity_type=entity_type,
+            target_entity_type=target_entity_type, start_time=start_time,
+            until_time=until_time, value_prop=value_prop,
+            default_value=default_value,
+        )
+        if hasattr(store, "find_frame_parts"):
+            # a second layer of npz files over the store's own cache
+            # would rewrite the whole frame at every retrain and save no
+            # read
+            before = store.frame_cache_stats["hits"]
+            frame = facade.find_frame(**frame_kwargs)
+            hit = store.frame_cache_stats["hits"] > before
+            DataView.stats["hits" if hit else "misses"] += 1
+            log.info("DataView segment-cache %s: %d events",
+                     "hit" if hit else "miss", len(frame))
+            return frame
+        signature = store.data_signature(app_id, channel_id)
         query_key = hashlib.sha1(json.dumps({
             "app_id": app_id,
             "channel_id": channel_id,
@@ -144,13 +165,7 @@ class DataView:
                 log.info("DataView hit: %s (%d events)", key[:12], len(frame))
                 return frame
         DataView.stats["misses"] += 1
-        frame = facade.find_frame(
-            app_name=app_name, channel_name=channel_name,
-            event_names=event_names, entity_type=entity_type,
-            target_entity_type=target_entity_type, start_time=start_time,
-            until_time=until_time, value_prop=value_prop,
-            default_value=default_value,
-        )
+        frame = facade.find_frame(**frame_kwargs)
         try:
             os.makedirs(self.view_dir, exist_ok=True)
             _save_frame(path, frame)

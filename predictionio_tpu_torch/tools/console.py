@@ -19,7 +19,8 @@
         [--channel C] --input events.jsonl
     python -m predictionio_tpu_torch.tools.console export --app NAME \\
         [--channel C] --output events.jsonl
-    python -m predictionio_tpu_torch.tools.console status
+    python -m predictionio_tpu_torch.tools.console status \\
+        [--event-url http://localhost:7070 --access-key KEY]
     python -m predictionio_tpu_torch.tools.console train --engine-json F \\
         [--engine-version V] [--device cpu]
     python -m predictionio_tpu_torch.tools.console deploy --engine-json F \\
@@ -239,7 +240,11 @@ def _parser() -> argparse.ArgumentParser:
     ss.add_argument("--ip", default="127.0.0.1")
     ss.add_argument("--port", type=int, default=7077)
     ss.add_argument("--auth-key", default=None)
-    sub.add_parser("status", help="the storage and the device")
+    st = sub.add_parser("status", help="the storage and the device")
+    st.add_argument("--event-url",
+                    help="also read a running Event Server's GET /segments/stats")
+    st.add_argument("--access-key",
+                    help="the access key for --event-url (its app and channel)")
     for name, what, io in (("import", "write an app's events from JSON lines", "--input"),
                            ("export", "write an app's events as JSON lines", "--output")):
         s = sub.add_parser(name, help=what)
@@ -680,7 +685,9 @@ def storageserver(args: argparse.Namespace) -> int:
 
 def status(args: argparse.Namespace) -> int:
     """The storage each repository resolves to, every metadata DAO and the
-    event store touched, and the device the trains and deploys take."""
+    event store touched, the device the trains and deploys take; over
+    segmentfs each app's segment line, and with `--event-url` a running
+    Event Server's."""
     import torch
 
     storage = Storage()
@@ -700,6 +707,38 @@ def status(args: argparse.Namespace) -> int:
                    storage.get_meta_data_evaluation_instances,
                    storage.get_model_data_models, storage.get_events):
         print(f"[INFO]   OK {type(getter()).__name__}")
+    events = storage.get_events()
+    if hasattr(events, "segment_stats"):
+        # segmentfs: each app's sealed segments, tail depth and dead rows
+        try:
+            for app in storage.get_meta_data_apps().get_all():
+                st = events.segment_stats(app.id)
+                print(f"[INFO]   segmentfs app {app.id} ({app.name}): "
+                      f"{st['segments']} segment(s), "
+                      f"{st['sealed_rows']} sealed + {st['tail_rows']} tail "
+                      f"row(s), {st['dead_rows']} dead, "
+                      f"rev {st['max_revision']}")
+        except Exception as e:  # noqa: BLE001 — a warning, as the JAX console's
+            print(f"[WARN] segmentfs stats unavailable: {e}")
+    if getattr(args, "event_url", None):
+        # a running Event Server's segment surface
+        import json
+        import urllib.parse
+        import urllib.request
+
+        try:
+            url = (args.event_url.rstrip("/") + "/segments/stats?accessKey="
+                   + urllib.parse.quote(args.access_key or ""))
+            with urllib.request.urlopen(url, timeout=5) as resp:
+                st = json.loads(resp.read().decode())
+            print(f"[INFO] event server {args.event_url}: "
+                  f"{st.get('segments')} segment(s), "
+                  f"{st.get('sealed_rows')} sealed + "
+                  f"{st.get('tail_rows')} tail row(s), "
+                  f"{st.get('dead_rows')} dead, "
+                  f"rev {st.get('max_revision')}")
+        except Exception as e:  # noqa: BLE001 — a warning, as the JAX console's
+            print(f"[WARN] event-server segment stats unavailable: {e}")
     print(f"[INFO] {len(storage.get_meta_data_apps().get_all())} app(s). "
           "Your system is all ready to go.", flush=True)
     return 0

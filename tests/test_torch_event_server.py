@@ -1,7 +1,8 @@
 """The port's Event Server against the JAX package's.
 
 - Each case of tests/test_event_server.py but the two segments cases
-  (segmentfs is not ported) runs against the port's in-process server,
+  (tests/test_torch_segmentfs.py runs those) runs against the port's
+  in-process server,
   on memory and on sqlite storage: status, auth, roundtrip, reserved
   names, malformed JSON, the whitelist, channels, the batch limit, the
   GET filters, stats, input blockers, keep-alive after an error, and the
@@ -12,7 +13,7 @@
   the order they first appear, and the servers' own clocks
   (creationTime of events posted without one, stats' startTime) are
   blanked.
-- The routes the port leaves out answer 404 saying so; the monitor's
+- A ``/debug/*`` route the port leaves out answers 404 saying so; the monitor's
   ``/debug/tsdb`` and ``/alerts`` are served.
 """
 
@@ -265,15 +266,20 @@ def test_webhooks_mailchimp_form(server):
 
 @pytest.mark.parametrize("path", ["/metrics", "/debug/traces", "/segments/stats"])
 def test_left_out_routes_say_not_ported(server, path):
-    """The routes still left out answer 404 saying so: /segments/*. The
+    """A ``/debug/*`` path the port does not serve answers 404 saying so
+    (here the query server's capture route). /segments/* is served: over
+    a store without segments it is the JAX server's 404 naming segmentfs
+    (tests/test_torch_segmentfs.py runs it over segmentfs). The
     observability routes are served: /metrics and /debug/traces
     (tests/test_torch_observability.py), /debug/faults
     (tests/test_torch_resilience.py), and the process monitor's
     /debug/tsdb and /alerts; the cases of the served routes check them
     and the unported neighbour."""
-    status, body = req(server, "/segments/stats?accessKey=KEY")
+    status, body = req(server, "/debug/profile/capture")
     assert status == 404 and "not ported" in body["message"]
     if path == "/segments/stats":
+        status, body = req(server, "/segments/stats?accessKey=KEY")
+        assert status == 404 and "segmentfs" in body["message"]
         return
     r = urllib.request.urlopen(f"http://127.0.0.1:{server}{path}", timeout=10)
     assert r.status == 200 and r.read()

@@ -110,14 +110,17 @@ def test_fleet_modules_load_neither_jax_nor_torch(module):
 
 # the storage outage path's data plane: the retry, the breaker, the
 # write-ahead log, the wire codec, the remote client and the storage
-# daemon, which the Event Server and the daemon's process import
+# daemon, which the Event Server and the daemon's process import; the
+# segmentfs and docfs stores, which they open
 STORAGE_MODULES = ["predictionio_tpu_torch.resilience",
                    "predictionio_tpu_torch.resilience.retry",
                    "predictionio_tpu_torch.resilience.breaker",
                    "predictionio_tpu_torch.resilience.wal",
                    "predictionio_tpu_torch.data.storage.wire",
                    "predictionio_tpu_torch.data.storage.remote",
-                   "predictionio_tpu_torch.data.api.storage_server"]
+                   "predictionio_tpu_torch.data.api.storage_server",
+                   "predictionio_tpu_torch.data.storage.segmentfs",
+                   "predictionio_tpu_torch.data.storage.docfs"]
 
 
 def test_the_walk_covers_the_storage_modules():
@@ -126,7 +129,8 @@ def test_the_walk_covers_the_storage_modules():
     walked = {str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")}
     for f in ("resilience/retry.py", "resilience/breaker.py", "resilience/wal.py",
               "data/storage/wire.py", "data/storage/remote.py",
-              "data/api/storage_server.py"):
+              "data/api/storage_server.py", "data/storage/segmentfs.py",
+              "data/storage/docfs.py", "parallel/loader.py"):
         assert f"predictionio_tpu_torch/{f}" in walked
     assert set(STORAGE_MODULES) <= set(_port_modules())
 

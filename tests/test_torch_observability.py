@@ -185,8 +185,12 @@ def test_event_server_metrics_equal_the_jax_servers(tmp_path):
         status, body, _ = _request(ports[1], "/alerts")
         assert status == 200 and json.loads(body)["firing"] == \
             get_monitor().alerts_payload()["firing"]
-        status, body, _ = _request(ports[1], "/segments/stats")
-        assert status == 404 and "not ported" in json.loads(body)["message"]
+        # /segments/* answers as the JAX server's: 401 without a key, and
+        # over a store without segments a 404 naming segmentfs
+        got = [[_request(port, path)[:2] for port in ports]
+               for path in ("/segments/stats", "/segments/stats?accessKey=KEY")]
+        assert [[status for status, _ in row] for row in got] == [[401, 401], [404, 404]]
+        assert all(a == b for a, b in got) and "segmentfs" in json.loads(got[1][1][1])["message"]
         status, body, _ = _request(ports[1], "/debug/faults")
         assert status == 200 and json.loads(body) == {"faults": []}
     finally:

@@ -311,6 +311,44 @@ def test_storage_config_from_env_matches_jax(tmp_path):
         bad.get_meta_data_apps()
 
 
+def test_storage_config_segmentfs_docfs_matches_jax(tmp_path):
+    """`TYPE=segmentfs` and `TYPE=docfs` sources (with their settings)
+    parse to the JAX package's configuration and resolve to the port's
+    stores: events on segmentfs, metadata and models on docfs."""
+    from predictionio_tpu_torch.data.storage import docfs as tdocfs
+    from predictionio_tpu_torch.data.storage import segmentfs as tsegfs
+
+    env = {
+        "PIO_STORAGE_SOURCES_SEG_TYPE": "segmentfs",
+        "PIO_STORAGE_SOURCES_SEG_PATH": str(tmp_path / "seg"),
+        "PIO_STORAGE_SOURCES_SEG_SEAL_EVENTS": "8192",
+        "PIO_STORAGE_SOURCES_SEG_FSYNC": "1",
+        "PIO_STORAGE_SOURCES_DOC_TYPE": "docfs",
+        "PIO_STORAGE_SOURCES_DOC_PATH": str(tmp_path / "meta"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DOC",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SEG",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DOC",
+    }
+    got, want = treg.StorageConfig.from_env(env), jreg.StorageConfig.from_env(env)
+    assert {k: vars(v) for k, v in got.sources.items()} == \
+        {k: vars(v) for k, v in want.sources.items()}
+    assert got.repositories == want.repositories
+    assert treg.BACKENDS["segmentfs"][1] == jreg.BACKENDS["segmentfs"][1] == "SegmentFS"
+    assert treg.BACKENDS["docfs"][1] == jreg.BACKENDS["docfs"][1] == "DocFS"
+    assert "segmentfs-replica" not in treg.BACKENDS
+    storage = treg.Storage(got)
+    events = storage.get_events()
+    assert isinstance(events, tsegfs.SegmentFSEventStore)
+    assert (events.seal_events, events.fsync, events.seal_interval_s) == (8192, True, 0.25)
+    assert isinstance(storage.get_meta_data_apps(), tdocfs.DocFSApps)
+    assert isinstance(storage.get_model_data_models(), tdocfs.DocFSModels)
+    assert storage.get_meta_data_apps()._client is storage.get_model_data_models()._client
+    with pytest.raises(tbase.StorageError, match="does not implement Apps"):
+        treg.Storage(treg.StorageConfig(sources=got.sources,
+                                        repositories={"METADATA": "SEG"})).get_meta_data_apps()
+    events.close()
+
+
 def test_storage_defaults_to_pio_fs_basedir(tmp_path, monkeypatch):
     for key in list(__import__("os").environ):
         if key.startswith("PIO_STORAGE_"):
