@@ -5,7 +5,9 @@ evaluation over the same storage, the fleet evaluation and ``tune`` with
 their shard children, the Universal Recommender's self-cleaning, the
 Event Server feeding train →
 deploy, the same over the storage daemon through its outage (the
-write-ahead spill, the breaker, the replay), the online fold-in of live events into the served model, and
+write-ahead spill, the breaker, the replay), the replicated event store
+(segment shipping, WAL frames, a fenced failover, fold-in from a
+follower), the online fold-in of live events into the served model, and
 the model lifecycle (train jobs, checkpoints, warm starts, versions,
 their children's push telemetry),
 item properties with the similar-product and e-commerce templates, the
@@ -137,6 +139,47 @@ Phases, in order; any failure prints what failed and exits non-zero:
             import's s and events/s, the status line, the reads, stager and
             Event Server figures, each line with the card's name and power
             limit.
+9c. replication  phase 9b's store (1,040,209 sealed rows) replicated:
+            two follower storage daemons in this process over
+            ``segmentfs-replica`` PATHs under ``build/replication/``, and
+            ``python -m predictionio_tpu_torch.data.api.storage_server``
+            in a process of its own as the primary over 9b's event PATH
+            (PIO_REPL_FOLLOWERS both, MIN_ACKS 1, ship interval 0.05 s,
+            epoch 1, SEAL_EVENTS 2,000). (a) The initial sync: each
+            follower's segments carry the primary's content hashes, both
+            reach its revision, and follower A's ``find_frame`` is
+            bit-equal to the PATH's frame read before the daemon opened
+            it. (b) A ``QueryServer`` in this process on 9b's retrain,
+            reading its instance and model through a control storage
+            (9b's docfs and localfs, events in a sqlite file of its own),
+            with an ``OnlineConsumer`` over ``ReplicaReadStorage(control,
+            follower A)`` (``name`` online/<app>/replica-a,
+            ``from_latest``); 4 writers insert 12,000 ratings of 1,000 new
+            users (12 ML-1M movies each, from REPLICATION_SEED) in batches
+            of 50 through a ``remote`` storage on the primary; one
+            acknowledged batch is read back on A after
+            ``wait_for_revision`` through the remote client, the primary's
+            ``/metrics`` shows ``replication_ship_total`` of kind wal and
+            segment, ``replication_lag`` answers through the client. (c)
+            The primary SIGKILLed once a third is acknowledged; both
+            followers stand at once through ``elect_and_promote`` (peers:
+            the other and the dead primary) over the control store's
+            records: one winner at generation 2, role primary, epoch 2;
+            every acknowledged id on it once (``find_since`` from the head
+            before the writes), every row it holds one the dead primary
+            wrote (its PATH opened in this process, the WAL replayed); the
+            winner takes a write; a ``SegmentShipper`` of epoch 2 brings
+            the loser to its head at epoch 2; an epoch-1 frame is refused
+            by both (``replication_fenced_total`` >= 1). (d) The consumer
+            drained: events consumed and folded equal the live events past
+            its start, every fold on cuda:0, no fold error; a second
+            consumer of the same name consumes 0; 500 queries from 16
+            clients for folded and known users: each the plain top-k on
+            the CPU over the served factors, one ``recommend_select`` a
+            device batch by the route and by the profiler, the served slab
+            held to the plain version. Prints the sync seconds, bytes and
+            MB/s, the failover seconds, the consumer's catch-up, p50/p99
+            and qps, each line with the card's name and power limit.
 10. eval    ``pio eval`` over the loop's storage and app, in this process
             on the card: ``console eval run`` of EvalML1M over EvalGrid,
             the recommendation template's tuning example (5 folds,
@@ -181,9 +224,10 @@ Phases, in order; any failure prints what failed and exits non-zero:
             combine, one select a point, no dense pass (its log's launch
             line); every point's combined score within 1e-5 of phase 10's
             MetricEvaluator score, the same winner; ``eval list``, ``eval
-            status`` and an ``AdminServer``'s ``GET /evals/<run>`` (the
-            driver's status). (b) ``console tune`` of the same space with
-            folds 0: one shard of all folds, its scores and winner (a)'s,
+            status`` and an ``AdminServer``'s ``GET /evals/<run>``
+            (``EvalDriver.status``). (b) ``console tune`` with folds 0 over the
+            space that (a)'s winner and worst point span (2 points here):
+            one shard of all folds, its scores and winner (a)'s,
             the winner parked as engine ml1m-tune's preset; a periodic
             train job of (a)'s worst point through ``jobs worker --once``,
             then its next run, which carries the preset and the run's
@@ -227,7 +271,8 @@ Phases, in order; any failure prints what failed and exits non-zero:
             had not rated); job 2 with warm_start: v2's parent v1, ``models
             show`` its lineage, the log's warm start from v1, its factors
             bit-equal to a train from ``warm_start_factors`` of v1 and
-            unequal to a cold one. Job 3 under an in-process
+            unequal to a cold one. Job 3 (job 2's variant, a checkpoint
+            every 2 iterations: ten segments) under an in-process
             ``TrainScheduler``: its child (found by its spec path in
             /proc, as ``pgrep -f`` finds it) SIGKILLed once its first
             checkpoint is saved; completed at attempt 2 with one version,
@@ -792,6 +837,16 @@ try:
     from predictionio_tpu_torch.workflow import core as wcore
     from predictionio_tpu_torch.workflow.core import stage_timings
     from predictionio_tpu_torch.data.storage import segmentfs
+    from predictionio_tpu_torch.data.storage.base import StorageError
+    from predictionio_tpu_torch.data.storage.replication import (
+        FollowerLink,
+        ReplicaReadStorage,
+        ReplicationConfig,
+        SegmentShipper,
+        elect_and_promote,
+    )
+    from predictionio_tpu_torch.data.api.storage_server import StorageServer
+    from predictionio_tpu_torch.obs.registry import get_default_registry
     from predictionio_tpu_torch.data.store.columnar import EventFrame
     from predictionio_tpu_torch.parallel.loader import SegmentStager
     from predictionio_tpu_torch.workflow.server import (
@@ -882,6 +937,10 @@ ONLINE_SAMPLE_PERIOD_S = 0.02
 LIFECYCLE_SEED = 15
 LIFECYCLE_ENGINE = "ml1m-lc"
 LIFECYCLE_CHECKPOINT_EVERY = 5
+# job 3's cadence: ten 2-iteration segments, so that its train is still
+# running once its first segment's report is spooled and it is killed
+# (at 5, the whole train can end inside one push period)
+LIFECYCLE_CRASH_CHECKPOINT_EVERY = 2
 LIFECYCLE_NEW_USERS, LIFECYCLE_NEW_USER_RATINGS = 200, 20  # on existing movies
 LIFECYCLE_NEW_ITEMS, LIFECYCLE_NEW_ITEM_RATINGS = 100, 30  # by existing users
 LIFECYCLE_OLD_USERS, LIFECYCLE_OLD_USER_RATINGS = 300, 10  # new pairs
@@ -2413,12 +2472,14 @@ def phase_segments(report, shared):
             _segments_tail(seg, stores, app_id, run, [a[:SEGMENTS_TAIL] for a in new],
                            (users, items, ratings, times))
         with _loop_storage(env=_segments_env()):
-            _segments_event_server(seg, stores, app_id, key,
-                                   [a[SEGMENTS_TAIL:] for a in new])
+            handoff = _segments_event_server(seg, stores, app_id, key,
+                                             [a[SEGMENTS_TAIL:] for a in new])
             served = _deploy_queries(run["engine_json"], SEGMENTS_DIR / "deploy.log",
                                      run["retrain"], run["model"], ALSAlgorithmParams(),
                                      np.random.default_rng(SEGMENTS_SEED + 2),
                                      LOOP_USERS, LOOP_ITEMS)
+    shared["segments"] = {**handoff, "app_id": app_id, "query": run["query"],
+                          "instance": run["retrain"].id}
     seg["launches"]["serve_topk"] = served.pop("served")
     seg["launches"]["serve_select"] = served.pop("select")
     seg.update(served)
@@ -2767,6 +2828,10 @@ def _segments_event_server(seg, stores, app_id, key, new):
                   f"acknowledged event {e['eventId']} missing or changed")
     check(cursor == fresh.latest_revision(app_id), "the cursor stopped short of the head")
     final = fresh.segment_stats(app_id)
+    # phase 9c's reference: this PATH's frame, read before its daemon opens it
+    frame = fresh.find_frame(EventQuery(app_id=app_id, entity_type="user",
+                                        target_entity_type="item", event_names=["rate"]),
+                             value_prop="rating", default_value=1.0)
     stores.close()
     seg["event_server"] = {
         "batches": len(batches), "acked_before_kill": len(before_kill),
@@ -2775,6 +2840,495 @@ def _segments_event_server(seg, stores, app_id, key, new):
         "stats_before": ops["stats_before"], "final": final,
         "find_since_events": n_read, "find_since_s": find_since_s,
     }
+    return {"frame": frame, "head": cursor, "t_end_ms": int(times.max())}
+
+
+# ---------------------------------------------------------------------------
+# phase 9c: the replicated event store over phase 9b's segmentfs store
+# ---------------------------------------------------------------------------
+
+REPLICATION_DIR = Path(__file__).resolve().parent / "build" / "replication"
+REPLICATION_SEED = 26
+REPL_NEW_USERS, REPL_USER_RATINGS = 1_000, 12  # (b): new users, ML-1M movies each
+REPL_WRITERS, REPL_BATCH = 4, 50
+REPL_KILL_AT = 1 / 3  # the share of (b)'s events acknowledged before the SIGKILL
+REPL_SEAL_EVENTS = 2_000  # the primary's seal size: segments ship as well as frames
+REPL_WAIT_S = 120.0  # each wait's own deadline
+_LISTENING = re.compile(r"storage server listening on [^\s:]+:(\d+)")
+
+
+def _storage_of(sources, repositories):
+    """A Storage of its own from `sources` {name: (type, settings)}: no
+    process variable takes part."""
+    env = {}
+    for name, (kind, settings) in sources.items():
+        env[f"PIO_STORAGE_SOURCES_{name}_TYPE"] = kind
+        env.update({f"PIO_STORAGE_SOURCES_{name}_{k}": v for k, v in settings.items()})
+    env.update({f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": s for r, s in repositories.items()})
+    return Storage(StorageConfig.from_env(env))
+
+
+def _follower_storage(name):
+    """A follower's storage: its events a segmentfs-replica store under
+    REPLICATION_DIR/<name> (never sealed locally), no other repository."""
+    return _storage_of({"REP": ("segmentfs-replica", {"PATH": str(REPLICATION_DIR / name),
+                                                      "SEAL_INTERVAL_S": "3600"}),
+                        "MEM": ("memory", {})},
+                       {"METADATA": "MEM", "EVENTDATA": "REP", "MODELDATA": "MEM"})
+
+
+def _control_storage():
+    """Phase 9b's metadata (docfs) and models (localfs), with events (the
+    lifecycle records: cursors, election bids) in a sqlite file of their
+    own under REPLICATION_DIR: nothing of it opens 9b's event PATH."""
+    return _storage_of({"SEGMETA": ("docfs", {"PATH": str(SEGMENTS_DIR / "meta")}),
+                        "SEGFS": ("localfs", {"PATH": str(SEGMENTS_DIR / "models")}),
+                        "CTL": ("sqlite", {"PATH": str(REPLICATION_DIR / "control.db")})},
+                       {"METADATA": "SEGMETA", "EVENTDATA": "CTL", "MODELDATA": "SEGFS"})
+
+
+def _remote_events(port):
+    """The events DAO of the storage daemon on `port`."""
+    return _storage_of({"RMT": ("remote", {"HOST": "127.0.0.1", "PORT": str(port),
+                                           "RETRY_ATTEMPTS": "2",
+                                           "RETRY_BASE_DELAY": "0.01"})},
+                       {"METADATA": "RMT", "EVENTDATA": "RMT",
+                        "MODELDATA": "RMT"}).get_events()
+
+
+class _PrimaryDaemon:
+    """`python -m predictionio_tpu_torch.data.api.storage_server` over
+    phase 9b's event PATH, its shipper on (PIO_REPL_*), in a process of
+    its own; SIGKILLed by the phase, killed on exit if it still runs."""
+
+    def __init__(self, followers):
+        root = Path(__file__).resolve().parent
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("PIO_STORAGE_", "PIO_REPL_"))}
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(root)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        env.update({"PIO_STORAGE_SOURCES_SEGEV_TYPE": "segmentfs",
+                    "PIO_STORAGE_SOURCES_SEGEV_PATH": str(SEGMENTS_DIR / "events"),
+                    "PIO_STORAGE_SOURCES_SEGEV_SEAL_EVENTS": str(REPL_SEAL_EVENTS),
+                    "PIO_STORAGE_SOURCES_SEGEV_FSYNC": "1",
+                    "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+                    "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+                    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SEGEV",
+                    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM",
+                    "PIO_REPL_FOLLOWERS": ",".join(f"127.0.0.1:{p}" for p in followers),
+                    "PIO_REPL_MIN_ACKS": "1", "PIO_REPL_SHIP_INTERVAL_S": "0.05",
+                    "PIO_REPL_EPOCH": "1"})
+        self.log_path = REPLICATION_DIR / "primary.log"
+        self.log = open(self.log_path, "w")
+        self.t_start = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.data.api.storage_server",
+             "--host", "127.0.0.1", "--port", "0"],
+            env=env, cwd=root, stdout=self.log, stderr=subprocess.STDOUT)
+
+    def port(self, timeout=REPL_WAIT_S):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            m = _LISTENING.search(self.log_path.read_text())
+            if m:
+                return int(m.group(1))
+            check(self.proc.poll() is None, f"the primary daemon exited: "
+                                            f"{self.log_path.read_text()[-2000:]}")
+            time.sleep(0.05)
+        raise PhaseError("the primary daemon never listened")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+        self.log.close()
+
+
+def _wait_until(pred, what, timeout=REPL_WAIT_S, poll=0.02):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        check(time.monotonic() < deadline, f"{what} within {timeout} s")
+        time.sleep(poll)
+    return time.perf_counter()
+
+
+def _replication_events(rng, users_n, t0_ms):
+    """(b)'s traffic: REPL_NEW_USERS new users, each rating
+    REPL_USER_RATINGS distinct ML-1M movies 1-5, in a random order a
+    second apart after `t0_ms`, with their own ids."""
+    rows = [(users_n + u, int(i), int(rng.integers(1, 6)))
+            for u in range(REPL_NEW_USERS)
+            for i in rng.choice(LOOP_ITEMS, REPL_USER_RATINGS, replace=False)]
+    order = rng.permutation(len(rows)).tolist()
+    return [Event(event="rate", entity_type="user", entity_id=f"u{rows[j][0]}",
+                  target_entity_type="item", target_entity_id=f"i{rows[j][1]}",
+                  properties={"rating": rows[j][2]},
+                  event_time=datetime.datetime.fromtimestamp(
+                      (t0_ms + 1000 * n) / 1e3, datetime.timezone.utc),
+                  event_id=f"repl-{n:05d}")
+            for n, j in enumerate(order)]
+
+
+def _fields(e):
+    return (e.event_id, e.entity_id, e.target_entity_id, e.properties.get("rating"))
+
+
+def phase_replication(report, shared):
+    """Phase 9c: phase 9b's store replicated to two followers in this
+    process by a primary daemon, serving and fold-in from a follower,
+    the primary SIGKILLed mid-ingest, a fenced failover, exactly-once."""
+    t_phase = time.perf_counter()
+    sg = shared["segments"]
+    shutil.rmtree(REPLICATION_DIR, ignore_errors=True)
+    REPLICATION_DIR.mkdir(parents=True)
+    smi = report["nvidia_smi"]
+    rp = report["replication"] = {"nvidia_smi": smi}
+    fstores, daemons = {}, {}
+    try:
+        for name in ("a", "b"):
+            st = _follower_storage(name)
+            fstores[name] = st.get_events()
+            fstores[name].init_app(sg["app_id"])
+            daemons[name] = StorageServer(st, host="127.0.0.1", port=0).start()
+        ports = {n: d.port for n, d in daemons.items()}
+        with _PrimaryDaemon([ports["a"], ports["b"]]) as primary:
+            _replication_run(rp, sg, primary, fstores, ports)
+    finally:
+        for d in daemons.values():
+            d.shutdown()
+        for s in fstores.values():
+            s.close()
+    rp["phase_s"] = time.perf_counter() - t_phase
+    a, b, c, d = rp["a"], rp["b"], rp["c"], rp["d"]
+    print(f"[replication] {smi} | (a) {a['rows']} sealed rows in {a['segments']} segments "
+          f"synced to both followers in {a['sync_s']:.2f} s: "
+          f"replication_ship_bytes_total {a['ship_bytes']:.0f} ({a['mb_s']:.1f} MB/s); "
+          f"content hashes equal; follower A's frame bit-equal to the primary's", flush=True)
+    print(f"[replication] {smi} | (b) {b['acked']} of {b['events']} events acknowledged "
+          f"(MIN_ACKS 1) from {REPL_WRITERS} writers before the SIGKILL; read-your-writes on "
+          f"A in {b['ryw_s']:.3f} s; ships {b['ships']}", flush=True)
+    print(f"[replication] {smi} | (c) failover: kill to promoted {c['promote_s']:.3f} s "
+          f"(winner {c['winner']} at epoch {c['epoch']}), to the loser caught up "
+          f"{c['caught_up_s']:.3f} s; every acked id once on the winner; the dead primary "
+          f"wrote every row the winner holds ({c['dead_rows']} rows past the head); zombie "
+          f"frame fenced on both (replication_fenced_total {c['fenced']:.0f})", flush=True)
+    print(f"[replication] {smi} | (d) consumer on A: {d['consumed']} events consumed "
+          f"once, {d['folded']} folded on cuda:0, caught up {d['caught_up_s']:.3f} s after "
+          f"the kill; a restarted consumer consumed 0; {N_QUERIES} queries from "
+          f"{N_CLIENTS} clients: p50 {d['p50_ms']:.3f} ms, p99 {d['p99_ms']:.3f} ms, "
+          f"{d['qps']:.1f} qps, {d['batches']} batches, top-k launches "
+          f"{rp['launches']['topk']} (select {rp['launches']['select']}, profiler "
+          f"{d['profiled']}); every answer the CPU plain top-k's; phase {rp['phase_s']:.1f} s",
+          flush=True)
+
+
+def _replication_run(rp, sg, primary, fstores, ports):
+    app_id, q = sg["app_id"], sg["query"]
+    store_a, store_b = fstores["a"], fstores["b"]
+    # (a) the primary takes 9b's PATH; the initial sync ships its segments
+    t0 = primary.t_start
+    pport = primary.port()
+    premote = _remote_events(pport)
+    head0 = premote.latest_revision(app_id)
+    check(head0 == sg["head"], f"the primary opened at revision {head0}, not {sg['head']}")
+    # the shipper syncs A, then B: A's frame is read while B syncs
+    t_a = _wait_until(lambda: store_a.latest_revision(app_id) == head0,
+                      f"follower a caught up with revision {head0}")
+    frame = store_a.find_frame(q, value_prop="rating", default_value=1.0)
+    check(_same_frame(frame, sg["frame"]),
+          "follower A's frame differs from the primary's, read before the daemon started")
+    del frame
+    t_b = _wait_until(lambda: store_b.latest_revision(app_id) == head0,
+                      f"follower b caught up with revision {head0}")
+    sync_s = max(t_a, t_b) - t0
+    m = _prometheus(_get(pport, "/metrics")[1])
+    ship_bytes = m.get(("replication_ship_bytes_total", ""), 0.0)
+    seg_dir = SEGMENTS_DIR / "events" / f"app_{app_id}"
+    want = {}
+    for p in sorted(seg_dir.glob("seg-*")):
+        want[p.name] = json.loads((p / "footer.json").read_text())["content_hash"]
+    for n, s in fstores.items():
+        got = {p.name: segmentfs.segment_content_hash(str(p))
+               for p in sorted((Path(s.base) / f"app_{app_id}").glob("seg-*"))}
+        check(got == want, f"follower {n}'s segments {got} differ from the primary's {want}")
+        check(s.segment_stats(app_id)["tail_rows"] == 0, f"follower {n} holds a tail")
+    rows = store_a.segment_stats(app_id)["sealed_rows"]
+    rp["a"] = {"sync_s": sync_s, "sync_a_s": t_a - t0, "ship_bytes": ship_bytes,
+               "mb_s": ship_bytes / 1e6 / sync_s, "segments": len(want), "rows": rows,
+               "head": head0}
+
+    # (b) a query server on 9b's retrain, its consumer on follower A
+    ctl = _control_storage()
+    inst = ctl.get_meta_data_engine_instances().get(sg["instance"])
+    runtime = build_runtime(ctl, inst)
+    model0 = runtime.models[0]
+    check(str(model0.device) == "cuda:0", f"the model is on {model0.device}")
+    events = _replication_events(np.random.default_rng(REPLICATION_SEED), LOOP_USERS,
+                                 sg["t_end_ms"] + 1000)
+    batches = [events[n:n + REPL_BATCH] for n in range(0, len(events), REPL_BATCH)]
+    fold_devices = []
+    fold_of = als.fold_in_rows
+
+    def fold(fixed, edges, params, device=None):
+        fold_devices.append(str(device))
+        return fold_of(fixed, edges, params, device=device)
+
+    rec.LAUNCHES = 0  # every count to 0 just before the main path
+    rec.ROUTE_LAUNCHES.update(select=0, sort=0)
+    srv = QueryServer(runtime=runtime, storage=ctl,
+                      config=QueryServerConfig(ip="127.0.0.1", port=0))
+    port = srv.start()
+    als.fold_in_rows = fold
+    name = f"online/{app_id}/replica-a"
+    try:
+        consumer = OnlineConsumer(ReplicaReadStorage(ctl, store_a, [app_id]),
+                                  ServerApplyHost(srv), app_id,
+                                  OnlineConsumerConfig(tick_s=ONLINE_TICK_S, name=name,
+                                                       from_latest=True))
+        check(consumer.cursor == {"0": head0}, f"the consumer starts at {consumer.cursor}")
+        srv.attach_online(app_id, consumer=consumer)
+        rp["b"], acked, t_kill = _replication_writes(premote, primary, ports, app_id, batches,
+                                                     pport)
+        rp["c"] = _replication_failover(fstores, ports, pport, app_id, head0, acked, batches,
+                                        t_kill)
+        rp["d"] = _replication_serve(srv, port, consumer, store_a, ctl, app_id, head0,
+                                     t_kill, name)
+    finally:
+        als.fold_in_rows = fold_of
+        srv.stop()
+    rp["launches"] = {"topk": rp["d"].pop("topk"), "select": rp["d"].pop("select")}
+    check(fold_devices and set(fold_devices) == {"cuda:0"},
+          f"folds ran on {sorted(set(fold_devices))}")
+    rp["d"]["folds"] = len(fold_devices)
+    tally = {"cases": 0, "max_abs_err": 0.0}
+    _select_held(srv.runtime.models[0]._serving_state, np.random.default_rng(REPLICATION_SEED),
+                 tally, "replication slab")
+    rp["held"] = tally
+
+
+def _replication_writes(premote, primary, ports, app_id, batches, pport):
+    """(b) REPL_WRITERS threads insert the batches through the primary's
+    events DAO (batch 0 from this thread: read-your-writes on A); the
+    primary SIGKILLed once REPL_KILL_AT of the events are acknowledged.
+    Returns the figures, the acknowledged ids and the kill's time."""
+    lock, stop = threading.Lock(), threading.Event()
+    acked: list = []
+    errors: list = []
+
+    def writer(mine):
+        store = _remote_events(pport)
+        for b in mine:
+            if stop.is_set():
+                return
+            try:
+                ids = store.insert_batch(batches[b], app_id)
+            except Exception as e:  # noqa: BLE001 — the primary is gone, or under-replicated
+                errors.append(repr(e))
+                return
+            if ids != [e.event_id for e in batches[b]]:
+                errors.append(f"batch {b} acknowledged as ids {ids[:3]}")
+                return
+            with lock:
+                acked.extend(ids)
+
+    threads = [threading.Thread(target=writer, args=(range(1 + w, len(batches), REPL_WRITERS),))
+               for w in range(REPL_WRITERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    # read-your-writes: an acknowledged batch, then A's watermark, then A
+    ids0 = premote.insert_batch(batches[0], app_id)
+    with lock:
+        acked.extend(ids0)
+    rev = premote.latest_revision(app_id)
+    a_remote = _remote_events(ports["a"])
+    t_ryw = time.perf_counter()
+    check(a_remote.wait_for_revision(app_id, rev, timeout_s=30.0),
+          f"follower A did not reach revision {rev}")
+    ryw_s = time.perf_counter() - t_ryw
+    for e in batches[0]:
+        got = a_remote.get(e.event_id, app_id)
+        check(got is not None and _fields(got) == _fields(e),
+              f"follower A lacks acknowledged event {e.event_id}")
+    lag = a_remote.replication_lag(app_id)
+    check(set(lag) == {"watermark", "head", "lag", "epoch", "role"} and lag["epoch"] == 1
+          and lag["role"] == "replica", f"replication_lag through the client: {lag}")
+    n_events = sum(map(len, batches))
+    _wait_until(lambda: len(acked) >= REPL_KILL_AT * n_events or errors,
+                f"{REPL_KILL_AT:.2f} of the events acknowledged")
+    check(not errors, f"a write failed before the kill: {errors[:3]}")
+    m = _prometheus(_get(pport, "/metrics")[1])
+    ships = {k: m.get(("replication_ship_total", f'{{kind="{k}"}}'), 0.0)
+             for k in ("wal", "segment")}
+    check(ships["wal"] > 0 and ships["segment"] > 0,
+          f"the primary's /metrics shows replication_ship_total {ships}")
+    primary.proc.kill()  # SIGKILL, the writers still writing
+    t_kill = time.perf_counter()
+    primary.proc.wait(timeout=30)
+    stop.set()
+    for t in threads:
+        t.join(timeout=REPL_WAIT_S)
+    check(not any(t.is_alive() for t in threads), "a writer hung after the kill")
+    with lock:
+        acked = list(acked)
+    return ({"events": n_events, "acked": len(acked), "write_s": t_kill - t0,
+             "ryw_s": ryw_s, "ryw_revision": rev, "lag": lag, "ships": ships},
+            acked, t_kill)
+
+
+def _replication_failover(fstores, ports, pport, app_id, head0, acked, batches, t_kill):
+    """(c) Both followers stand at once through `elect_and_promote`
+    (peers: the other follower and the dead primary); the checks on the
+    winner, the dead primary's own rows, the winner's write, the loser's
+    catch-up at epoch 2, the zombie frame."""
+    records = LifecycleRecordStore(_control_storage())
+    links = {n: FollowerLink(f"127.0.0.1:{p}", timeout_s=30.0) for n, p in ports.items()}
+    dead = FollowerLink(f"127.0.0.1:{pport}", timeout_s=5.0)
+    results, barrier = {}, threading.Barrier(2)
+
+    def stand(name, other):
+        barrier.wait()
+        results[name] = elect_and_promote(records, fstores[name], f"replica-{name}",
+                                          peers=[links[other], dead], settle_s=0.3)
+
+    threads = [threading.Thread(target=stand, args=a) for a in (("a", "b"), ("b", "a"))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=REPL_WAIT_S)
+    check(not any(t.is_alive() for t in threads), "an election hung")
+    t_promoted = time.perf_counter()
+    winners = [n for n, g in results.items() if g is not None]
+    check(len(winners) == 1, f"not one winner: {results}")
+    wname = winners[0]
+    lname = "b" if wname == "a" else "a"
+    winner, loser = fstores[wname], fstores[lname]
+    check(results[wname] == 2 and winner.role == "primary" and winner.epoch == 2,
+          f"the winner: generation {results[wname]}, role {winner.role}, epoch {winner.epoch}")
+    # every acknowledged id once, read from the head before the writes
+    after = winner.find_since(app_id, head0)
+    ids = [e.event_id for e in after]
+    check(len(ids) == len(set(ids)), "the winner holds an event twice")
+    sent = {e.event_id: _fields(e) for b in batches for e in b}
+    missing = set(acked) - set(ids)
+    check(not missing, f"{len(missing)} acknowledged events lost, e.g. {sorted(missing)[:3]}")
+    check(all(_fields(e) == sent.get(e.event_id) for e in after),
+          "the winner holds an event that no writer sent as stored")
+    # the dead primary's PATH, opened in this process (its WAL replays):
+    # every row the winner holds past the head is the primary's own
+    dead_store = segmentfs.SegmentFSEventStore({"PATH": str(SEGMENTS_DIR / "events"),
+                                                "SEAL_INTERVAL_S": "3600"})
+    try:
+        wrote = {e.revision: _fields(e) for e in dead_store.find_since(app_id, head0)}
+    finally:
+        dead_store.close()
+    check(all(wrote.get(e.revision) == _fields(e) for e in after),
+          "the winner holds a row the dead primary never wrote")
+    # the winner takes a write; a shipper of epoch 2 brings the loser to it
+    winner.insert_batch([Event(event="rate", entity_type="user", entity_id=f"u{LOOP_USERS}",
+                               target_entity_type="item", target_entity_id="i1",
+                               properties={"rating": 5}, event_id="post-failover")], app_id)
+    sh2 = SegmentShipper(winner, ReplicationConfig(followers=(f"127.0.0.1:{ports[lname]}",),
+                                                   timeout_s=30.0), epoch=2)
+
+    def caught_up():
+        sh2.pass_once()
+        return (loser.latest_revision(app_id) == winner.latest_revision(app_id)
+                and loser.replication_lag(app_id)["lag"] == 0)
+
+    t_caught = _wait_until(caught_up, "the loser caught up with the winner", poll=0.05)
+    check(loser.epoch == 2, f"the loser's epoch {loser.epoch} after the epoch-2 frames")
+    check([e.event_id for e in loser.find_since(app_id, head0)]
+          == [e.event_id for e in winner.find_since(app_id, head0)],
+          "the loser's events past the head differ from the winner's")
+    # a zombie's epoch-1 frame: the winner refuses frames, the loser fences
+    zombie = (app_id, None, 1, 0, [1], [["z", "rate", "user", "z", "item", "i1", {}, 0, None,
+                                          None, 0]], 1)
+    for store, want in ((winner, "promoted"), (loser, "fenced")):
+        try:
+            store.replication_apply_wal(*zombie)
+        except StorageError as e:
+            check(want in str(e), f"the zombie frame refused with {e}")
+        else:
+            raise PhaseError(f"a zombie frame was applied ({want})")
+    fenced = _prometheus(get_default_registry().render()).get(("replication_fenced_total", ""),
+                                                              0.0)
+    check(fenced >= 1, f"replication_fenced_total {fenced}")
+    return {"winner": wname, "epoch": winner.epoch, "promote_s": t_promoted - t_kill,
+            "caught_up_s": t_caught - t_kill, "acked_on_winner": len(acked),
+            "dead_rows": len(wrote), "winner_rows": len(after), "fenced": fenced}
+
+
+def _replication_serve(srv, port, consumer, store_a, ctl, app_id, head0, t_kill, name):
+    """(d) The consumer drained on A, exactly once; a second consumer of
+    the same name consumes nothing; 500 queries for folded and known
+    users, each the plain top-k on the CPU, one select a device batch."""
+    t_caught = _wait_until(
+        lambda: (consumer.cursor.get("0", 0) == store_a.latest_revision(app_id)
+                 and not consumer.foldin.pending_items),
+        "the consumer on A caught up")
+    srv.online.stop()
+    check(consumer.stopped(), "the consumer did not stop")
+    live = store_a.find_since(app_id, head0)
+    c = dict(consumer.counters)
+    check(c["events_consumed"] == len(live),
+          f"events_consumed {c['events_consumed']} != {len(live)} live events past the start")
+    check(c["events_folded"] == len(live),
+          f"events_folded {c['events_folded']} != {len(live)}: {consumer.status()}")
+    check(consumer.status()["last_error"] is None, f"a fold failed: {consumer.status()}")
+    again = OnlineConsumer(ReplicaReadStorage(ctl, store_a, [app_id]), ServerApplyHost(srv),
+                           app_id, OnlineConsumerConfig(tick_s=3600, name=name,
+                                                        from_latest=True))
+    check(again.cursor == consumer.cursor and again.tick() == {"idle": "no new events"}
+          and again.counters == c, f"a restarted consumer: {again.cursor} {again.counters}")
+    model = srv.runtime.models[0]
+    check(str(model.device) == "cuda:0", f"the folded model is on {model.device}")
+    f = model.factors
+    folded = sorted({e.entity_id for e in live})
+    check(all(f.user_vocab.contains(u) for u in folded), "a folded user is not served")
+    rng = np.random.default_rng(REPLICATION_SEED + 1)
+    picks = rng.choice(folded, N_QUERIES // 2, replace=False).tolist()
+    queries = ([{"user": u, "num": int(rng.choice([5, 10, 20, 50]))} for u in picks]
+               + [{"user": f"u{int(u)}", "num": int(rng.choice([5, 10, 20, 50]))}
+                  for u in rng.integers(0, LOOP_USERS, N_QUERIES - len(picks))])
+    queries = [queries[n] for n in rng.permutation(len(queries)).tolist()]
+    st0, prof0 = _status(port), _exec_totals("als.recommend_serving")
+    l0, s0 = rec.LAUNCHES, rec.ROUTE_LAUNCHES["select"]
+    out, lock = {}, threading.Lock()
+    work = list(enumerate(queries))
+    threads = [threading.Thread(target=_client, args=(port, work[k::N_CLIENTS], out, lock))
+               for k in range(N_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "clients hung")
+    st1, prof1 = _status(port), _exec_totals("als.recommend_serving")
+    batches = st1["batches"] - st0["batches"]
+    served, select = rec.LAUNCHES - l0, rec.ROUTE_LAUNCHES["select"] - s0
+    profiled = prof1[0] - prof0[0]
+    check(batches > 0 and served == select == batches == profiled
+          and st1["kernel_launches"] - st0["kernel_launches"] == batches,
+          f"top-k launches {served} (select {select}, profiler {profiled}) != batches {batches}")
+    check(srv.runtime.models[0] is model, "the model changed during the queries")
+    cpu_model = ALSModel(f, device="cpu")
+    cpu_alg = ALSAlgorithm(ALSAlgorithmParams())
+    for n, qy in enumerate(queries):
+        status, body, _ = out[n]
+        check(status == 200, f"query {n}: HTTP {status} {body}")
+        check(body == _to_jsonable(cpu_alg.predict(cpu_model, Query(**qy))),
+              f"query {n} ({qy}) differs from the CPU plain top-k")
+    lat = [out[n][2] for n in range(len(queries))]
+    return {"consumed": c["events_consumed"], "folded": c["events_folded"],
+            "users_folded": c["users_folded"], "caught_up_s": t_caught - t_kill,
+            "p50_ms": _pct(lat, 0.5), "p99_ms": _pct(lat, 0.99), "qps": len(queries) / wall,
+            "batches": batches, "profiled": profiled, "topk": rec.LAUNCHES,
+            "select": rec.ROUTE_LAUNCHES["select"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3097,21 +3651,29 @@ def _als_variant(engine, rank, iterations, lam, **datasource):
                 "rank": rank, "num_iterations": iterations, "lambda_": lam}}]}
 
 
-def _fleet_spec(engine, folds):
+def _fleet_spec(engine, folds, points=EVAL_GRID):
     """Phase 10's grid as an EvalSpec: its read_eval params (and the data
-    view, whose frame is the store's), its axes in EVAL_GRID's order,
-    Precision@k by the template's own metric class."""
+    view, whose frame is the store's), the axes that span `points` in
+    EVAL_GRID's order, Precision@k by the template's own metric class."""
     return {"variant": _als_variant(engine, *EVAL_GRID[0], eval_k=EVAL_FOLDS,
                                     goal_threshold=EVAL_THRESHOLD, eval_num=EVAL_NUM),
             "axes": [{"path": f"algorithms.0.params.{name}",
-                      "values": sorted({p[n] for p in EVAL_GRID})}
+                      "values": sorted({p[n] for p in points})}
                      for n, name in enumerate(("rank", "num_iterations", "lambda_"))],
             "metric": FLEET_METRIC, "folds": folds}
 
 
-def _shard_launches(queue, run):
-    """Each shard job of `run`: completed, and the kernel launches its
-    child's log names, on the card; returns {job id: counts}."""
+def _spec_points(points):
+    """The grid an EvalSpec of `points` runs: the product of its axes, in
+    the spec's order (EVAL_GRID's own for all of it)."""
+    axes = [sorted({p[n] for p in points}) for n in range(3)]
+    return [(r, it, lam) for r in axes[0] for it in axes[1] for lam in axes[2]]
+
+
+def _shard_launches(queue, run, grid=EVAL_GRID):
+    """Each shard job of `run` (over `grid`): completed, and the kernel
+    launches its child's log names, on the card; returns {job id:
+    counts}."""
     out = {}
     for job_id, meta in run.shards.items():
         job = queue.get(job_id)
@@ -3124,7 +3686,7 @@ def _shard_launches(queue, run):
         row, col, partials, combine, topk, select, sort = map(int, counts)
         points = meta["point_indices"]
         folds = EVAL_FOLDS if meta["fold"] is None else 1  # a fold, or all of them
-        want_pass = folds * 2 * sum(EVAL_GRID[i][1] for i in points)
+        want_pass = folds * 2 * sum(grid[i][1] for i in points)
         check(partials == combine == want_pass and row == col == 0,
               f"shard {job_id}: launches row/col {row}/{col}, partials/combine "
               f"{partials}/{combine} != 2 x iterations x folds ({want_pass}) on the "
@@ -3147,14 +3709,26 @@ def phase_fleet_eval(report, shared):
     t_phase = time.perf_counter()
     _children_import_this_checkout()
     fl: dict = {}
+    parts, t0 = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        parts[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
     with _loop_storage():
         storage = Storage()
         queue = JobQueue(storage)
         fl["a"] = _fleet_run(report, storage, queue)
+        part("a")
         fl["b"] = _fleet_tune(report, storage, queue, fl["a"])
+        part("b")
         fl["c"] = _fleet_prior(storage, fl["b"])
+        part("c")
         _fleet_cleanup(storage, queue)
+        part("cleanup")
     fl["d"] = _ur_self_cleaning()
+    part("d")
+    fl["parts_s"] = parts
     fl["phase_s"] = time.perf_counter() - t_phase
     fl["nvidia_smi"] = smi = report["nvidia_smi"]
     report["fleet_eval"] = fl
@@ -3166,7 +3740,8 @@ def phase_fleet_eval(report, shared):
           f"point within {a['max_abs_diff']:.3g} of phase 10's MetricEvaluator, winner "
           f"point {a['winner']}; launches partials/combine {a['launches']['partials']}/"
           f"{a['launches']['combine']}, select {a['launches']['topk']}", flush=True)
-    print(f"[fleet eval] {smi} | (b) tune run {b['run']}: 1 shard of all folds in "
+    print(f"[fleet eval] {smi} | (b) tune run {b['run']}: {b['points']} points (the space "
+          f"of (a)'s winner and worst point), 1 shard of all folds in "
           f"{b['wall_s']:.2f} s, winner point {b['winner']} parked; periodic job {b['job_a']} "
           f"trained point {b['point_a']} in {b['job_a_s']:.2f} s, its next run "
           f"{b['job_n']} the preset in {b['job_n_s']:.2f} s (dense launches "
@@ -3182,7 +3757,8 @@ def phase_fleet_eval(report, shared):
           f"cleaned events: max |dv| {d['max_abs_diff']:.3g}, {d['index_mismatches']} "
           f"index mismatches (atol {d['atol']:.3g}); {UR_CLEAN_QUERIES} queries through "
           f"masked_select ({d['launches']} launches) equal to the plain version; phase "
-          f"{fl['phase_s']:.1f} s", flush=True)
+          f"{fl['phase_s']:.1f} s (s by part: "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in fl['parts_s'].items())})", flush=True)
 
 
 def _fleet_run(report, storage, queue):
@@ -3246,12 +3822,18 @@ def _fleet_run(report, storage, queue):
 
 
 def _fleet_tune(report, storage, queue, a):
-    """(b) `tune` with folds 0 (one shard of all folds): the winner parked
-    as ml1m-tune's preset; a periodic job of the worst point trains, its
-    next run trains the preset in a child on the card and links its
-    version to the run; the dashboard's panel shows the run and the link."""
+    """(b) `tune` with folds 0 (one shard of all folds) over the space
+    that (a)'s winner and worst point span: its scores (a)'s, its winner
+    (a)'s and parked as ml1m-tune's preset; a periodic job of the worst
+    point trains, its next run trains the preset in a child on the card
+    and links its version to the run; the dashboard's panel shows the run
+    and the link."""
+    worst = int(np.argmin(a["scores"]))
+    check(worst != a["winner"], "the grid has no point worse than its winner")
+    span = [EVAL_GRID[a["winner"]], EVAL_GRID[worst]]
+    grid = _spec_points(span)
     spec_path = LOOP_DIR / "tune_spec.json"
-    spec_path.write_text(json.dumps(_fleet_spec(TUNE_ENGINE, 0)))
+    spec_path.write_text(json.dumps(_fleet_spec(TUNE_ENGINE, 0, span)))
     t0 = time.perf_counter()
     rc, out = _console_out(["tune", str(spec_path), "--local-workers", "1",
                             "--timeout", "900"])
@@ -3260,19 +3842,24 @@ def _fleet_tune(report, storage, queue, a):
     run_id = re.search(r"eval-[0-9a-f]{12}", out).group()
     records = EvalRecordStore(storage)
     run = records.get_run(run_id)
-    check(run.status == "completed" and len(run.shards) == 1 and run.num_folds == 1,
-          f"tune run {run_id}: {run.status}, {len(run.shards)} shards")
-    shards = _shard_launches(queue, run)
-    tuned = [s["score"] for s in EvalDriver(storage).scores(run)]
-    check(max(abs(x - y) for x, y in zip(tuned, a["scores"])) <= 1e-5
-          and run.winner_index == a["winner"],
-          f"tune scores {tuned} / winner {run.winner_index} differ from (a)'s")
+    check(run.status == "completed" and len(run.shards) == 1 and run.num_folds == 1
+          and run.num_points == len(grid),
+          f"tune run {run_id}: {run.status}, {len(run.shards)} shards, {run.num_points} points")
+    shards = _shard_launches(queue, run, grid)
+    scores = EvalDriver(storage).scores(run)
+    check([tuple(s["params"]["algorithms"][0]["params"][k] for k in
+                 ("rank", "num_iterations", "lambda_")) for s in scores] == grid,
+          "the tune's points are not the spanned space in EVAL_GRID's order")
+    tuned = [s["score"] for s in scores]
+    want = [a["scores"][EVAL_GRID.index(p)] for p in grid]
+    check(max(abs(x - y) for x, y in zip(tuned, want)) <= 1e-5
+          and grid[run.winner_index] == EVAL_GRID[a["winner"]],
+          f"tune scores {tuned} / winner {grid[run.winner_index]} differ from (a)'s "
+          f"{want} / {EVAL_GRID[a['winner']]}")
     preset = PresetStore(storage).get(TUNE_ENGINE)
     check(preset is not None and preset.run_id == run_id
           and preset.params == run.winner_params, f"preset {preset}")
     # a periodic retrain of the engine, at (a)'s worst point
-    worst = int(np.argmin(a["scores"]))
-    check(worst != run.winner_index, "the grid has no point worse than its winner")
     variant_a = LOOP_DIR / "tune_periodic.json"
     variant_a.write_text(json.dumps(_als_variant(TUNE_ENGINE, *EVAL_GRID[worst])))
     rc, out = _console_out(["jobs", "submit", "--variant", str(variant_a),
@@ -3296,7 +3883,7 @@ def _fleet_tune(report, storage, queue, a):
     check(rc == 0 and "ran 1 pending job(s)" in out, f"jobs worker exited {rc}: {out}")
     job_n, inst_n, version_n = _finished_job(storage, nxt.id, 1)
     launches_n, _segments, _dtype = _job_launches(job_n, 1)
-    rank, iterations, lam = EVAL_GRID[run.winner_index]
+    rank, iterations, lam = grid[run.winner_index]
     check(launches_n[:2] == (iterations, iterations) and launches_n[2:] == (0, 0),
           f"the preset retrain's launches {launches_n} != {iterations} a pass")
     trained = json.loads(inst_n.algorithms_params)[0]["params"]
@@ -3320,7 +3907,8 @@ def _fleet_tune(report, storage, queue, a):
     panel = page[page.index("<h1>Fleet evaluations</h1>"):page.index("<h1>Tenants</h1>")]
     check(run_id in panel and version_n.id in panel and a["run"] in panel,
           "the dashboard's fleet-evaluation panel lacks the runs or the lineage link")
-    return {"run": run_id, "wall_s": wall, "winner": run.winner_index, "shards": shards,
+    return {"run": run_id, "wall_s": wall, "winner": EVAL_GRID.index(grid[run.winner_index]),
+            "points": len(grid), "shards": shards,
             "launches": {k: sum(v[k] for v in shards.values())
                          for k in ("partials", "combine", "topk")},
             "point_a": worst, "job_a": job_a_id, "job_a_s": job_a_s,
@@ -3924,8 +4512,11 @@ def phase_lifecycle(report, shared):
     ap = _als_params(params)
     jobs_dir = LOOP_DIR / "jobs"
     v1_path, v2_path = LOOP_DIR / "lifecycle.json", LOOP_DIR / "lifecycle_warm.json"
+    v3_path = LOOP_DIR / "lifecycle_crash.json"
     v1_path.write_text(json.dumps(_lifecycle_variant()))
     v2_path.write_text(json.dumps(_lifecycle_variant(warm_start=True)))
+    v3_path.write_text(json.dumps(_lifecycle_variant(
+        warm_start=True, checkpoint_every=LIFECYCLE_CRASH_CHECKPOINT_EVERY)))
     # the in-process reads go through the data view, as the children's do
     # (phase 10b and job 2 fill it), not through a whole scan of the app
     ds = RecommendationDataSource(DataSourceParams(app_name=LOOP_APP, event_names=("rate",),
@@ -4064,7 +4655,7 @@ def phase_lifecycle(report, shared):
         # push ingest refuses its first attempt (an ingest outage), so the
         # child's payloads stay in its spool; the ingest is back just before
         # the kill, and the scheduler ships the orphaned spool
-        rc, out = _console_out(["jobs", "submit", "--variant", str(v2_path)])
+        rc, out = _console_out(["jobs", "submit", "--variant", str(v3_path)])
         job3_id = re.search(r"job-[0-9a-f]{12}", out).group()
         sched = TrainScheduler(storage, SchedulerConfig(log_dir=str(jobs_dir)))
         queue = JobQueue(storage)
@@ -4115,7 +4706,8 @@ def phase_lifecycle(report, shared):
         kill_to_claim = (datetime.datetime.fromisoformat(job3.started_at)
                          - killed_at).total_seconds()
         launches3, segments3, _ = _job_launches(job3, 2)
-        check(launches3 == (it, it, 0, 0), f"job 3 launches {launches3}")
+        check(launches3 == (it, it, 0, 0) and segments3 == it // LIFECYCLE_CRASH_CHECKPOINT_EVERY,
+              f"job 3 launches {launches3} in {segments3} segments")
         mine = [v.id for v in registry.list() if v.job_id == job3_id]
         check(mine == [v3.id], f"job 3 registered {mine}")
         lc_insts = [i for i in storage.get_meta_data_engine_instances().get_all()
@@ -9252,6 +9844,7 @@ def main() -> int:
                         ("serve", phase_serve), ("times", phase_times),
                         ("dense times", phase_dense_times),
                         ("loop", phase_loop), ("segments", phase_segments),
+                        ("replication", phase_replication),
                         ("eval", phase_eval),
                         ("fleet eval", phase_fleet_eval),
                         ("lifecycle", phase_lifecycle),
@@ -9298,6 +9891,7 @@ def main() -> int:
         "fused_recommend_topk": {"serve": report["serve"]["launches"],
                                  "loop": report["loop"]["launches"]["serve_topk"],
                                  "segments": sgl["serve_topk"],
+                                 "replication": report["replication"]["launches"]["topk"],
                                  "eval": ev["topk"], "eval dense": evd["topk"],
                                  "ingest": ing["serve_topk"], "remote": rmt["serve_topk"],
                                  "lifecycle": lc["serve_topk"],

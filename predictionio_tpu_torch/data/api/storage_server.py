@@ -25,9 +25,14 @@ once. A find with paging arguments answers one page by keyset
 (``_paged_find``). One thread a connection; the stores serialize their
 own writes, so writes from every process serialize once, here.
 
-The JAX daemon's ``replication`` DAO and its replication shipper are
-not ported (they come with the replication backend). Standard library
-only: the daemon loads no torch.
+The ``replication`` DAO is the shipper's RPC surface on a follower
+daemon, whose events store is a ``ReplicaEventStore``
+(``data/storage/replication.py``); it routes through the events getter.
+``main`` with ``PIO_REPL_FOLLOWERS`` set makes this daemon a primary: it
+starts a ``SegmentShipper`` to those followers (inserts ack through
+them at ``PIO_REPL_MIN_ACKS`` > 0) and stops it on shutdown.
+``console storageserver`` starts no shipper. Standard library only: the
+daemon loads no torch.
 """
 
 from __future__ import annotations
@@ -71,6 +76,13 @@ _DAO_TABLE: dict[str, tuple[str, frozenset[str]]] = {
     "engine_manifests": ("get_meta_data_engine_manifests", frozenset({
         "insert", "get", "get_all", "update", "delete"})),
     "models": ("get_model_data_models", frozenset({"insert", "get", "delete"})),
+    # the shipper's RPCs on a follower: routed through the events getter
+    # (the replica is the events store)
+    "replication": ("get_events", frozenset({
+        "replication_status", "replication_lag", "wait_for_revision",
+        "replication_apply_wal", "replication_apply_tombstones",
+        "replication_segment_manifest", "replication_segment_file",
+        "replication_commit_segment", "promote"})),
 }
 
 
@@ -291,11 +303,31 @@ def main(argv: Optional[list[str]] = None) -> int:
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     server = StorageServer(host=args.host, port=args.port, auth_key=args.auth_key)
+    # a primary: with PIO_REPL_FOLLOWERS set, this daemon ships its event
+    # store to the follower daemons (and acks inserts through them at
+    # PIO_REPL_MIN_ACKS > 0)
+    from predictionio_tpu_torch.data.storage.replication import (
+        ReplicationConfig,
+        SegmentShipper,
+    )
+    from predictionio_tpu_torch.utils.env import repl_knob
+
+    shipper = None
+    repl_cfg = ReplicationConfig.from_env(auth_key=args.auth_key)
+    if repl_cfg.followers:
+        shipper = SegmentShipper(server.storage.get_events(), repl_cfg,
+                                 epoch=repl_knob("PIO_REPL_EPOCH"))
+        shipper.start()
+        log.info("replication shipper started: %d follower(s), min_acks=%d",
+                 len(repl_cfg.followers), repl_cfg.min_acks)
     log.info("storage server listening on %s:%d", args.host, server.port)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         server.shutdown()
+    finally:
+        if shipper is not None:
+            shipper.stop()
     return 0
 
 

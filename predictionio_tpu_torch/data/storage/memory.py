@@ -43,6 +43,15 @@ def _ns(app_id: int, channel_id: Optional[int]) -> tuple[int, Optional[int]]:
     return (app_id, channel_id or None)
 
 
+def _stored(event: Event, eid: str, rev: int) -> Event:
+    """`event` with its id and revision, as `dataclasses.replace` gives
+    it (a constructed Event's fields are normalized and validated
+    already), without running the constructor again for each."""
+    out = object.__new__(Event)
+    out.__dict__.update(event.__dict__, event_id=eid, revision=rev)
+    return out
+
+
 class MemoryEventStore(base.EventStore):
     def __init__(self, config: Optional[dict] = None):
         self._lock = threading.RLock()
@@ -78,7 +87,7 @@ class MemoryEventStore(base.EventStore):
                 index.get(prev.entity_id, set()).discard(eid)
             rev = self._revisions.get(key, 0) + 1
             self._revisions[key] = rev
-            table[eid] = event.with_id(eid).with_revision(rev)
+            table[eid] = _stored(event, eid, rev)
             index.setdefault(event.entity_id, set()).add(eid)
             self._versions[key] = self._versions.get(key, 0) + 1
             return eid

@@ -11,8 +11,9 @@ development wiring: sqlite metadata and events in
 localfs, remote (every DAO through a storage daemon,
 ``data/api/storage_server.py``; its ``HOST``, ``PORT``, ``AUTH_KEY`` and
 ``TIMEOUT`` settings), segmentfs (columnar events only; ``PATH`` and
-the seal settings) and docfs (JSON metadata documents and model files;
-``PATH``); a repository resolves to the backend's DAO, with
+the seal settings), segmentfs-replica (a segmentfs follower fed by a
+primary's shipper, ``data/storage/replication.py``) and docfs (JSON
+metadata documents and model files; ``PATH``); a repository resolves to the backend's DAO, with
 one client a source where the backend has clients (sqlite's connection,
 remote's ``CLIENT_FACTORY``). The process singleton and the storage
 self-check are not ported.
@@ -45,6 +46,10 @@ BACKENDS: dict[str, tuple[str, str]] = {
     # columnar events: an fsync'd WAL sealed into column segments;
     # EVENTDATA only, paired with another source for metadata
     "segmentfs": ("predictionio_tpu_torch.data.storage.segmentfs", "SegmentFS"),
+    # a segmentfs follower: read-only, fed by a primary's shipper over the
+    # storage daemon's transport, promotable by a fenced election;
+    # EVENTDATA only
+    "segmentfs-replica": ("predictionio_tpu_torch.data.storage.replication", "Replica"),
 }
 
 # DAO → class suffix

@@ -21,12 +21,12 @@ Transport: keep-alive HTTP connections of the standard library, one per
 thread; ``ping`` takes a connection of its own. Every call is a
 ``storage.rpc`` span (``X-Request-ID`` and ``X-Parent-Span`` to the
 daemon, whose server span parents under it) and the ``storage.rpc``
-fault point (``corrupt`` garbles the answer). Left out: the replication
-RPCs (``replication_status``, ``replication_lag``,
-``wait_for_revision``), which come with the replication backend, and
-the JAX package's lock-sanitizer hook on the blocking call
-(``analysis/tsan.py``), which the port does not have. Standard library
-only.
+fault point (``corrupt`` garbles the answer). The events client also
+reads a follower daemon's replica state (``replication_status``,
+``replication_lag``, ``wait_for_revision``) through the ``replication``
+DAO. Left out: the JAX package's lock-sanitizer hook on the blocking
+call (``analysis/tsan.py``), which the port does not have. Standard
+library only.
 """
 
 from __future__ import annotations
@@ -320,6 +320,20 @@ class RemoteEventStore(_RemoteDao, base.EventStore):
 
     def data_signature(self, app_id: int, channel_id: Optional[int] = None) -> str:
         return self._call("data_signature", app_id, channel_id)
+
+    # -- a follower daemon's replica state --------------------------------
+    def replication_status(self) -> dict:
+        return self._client.call("replication", "replication_status")
+
+    def replication_lag(self, app_id: int, channel_id: Optional[int] = None) -> dict:
+        return self._client.call("replication", "replication_lag", app_id, channel_id)
+
+    def wait_for_revision(self, app_id: int, revision: int, timeout_s: float = 5.0,
+                          channel_id: Optional[int] = None) -> bool:
+        """Read-your-writes against a follower daemon: wait (on the
+        daemon) until its watermark reaches `revision`."""
+        return self._client.call("replication", "wait_for_revision", app_id, revision,
+                                 timeout_s, channel_id)
 
     def find_entities_batch(self, app_id: int, entity_type: str, entity_ids: Sequence[str],
                             event_names: Optional[Sequence[str]] = None,

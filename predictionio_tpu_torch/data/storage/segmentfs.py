@@ -65,8 +65,8 @@ Configure::
 and point PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE at it: segmentfs
 stores events only, so METADATA and MODELDATA stay on another source
 (docfs, sqlite, localfs). No ported store shards: ``find_since`` refuses
-a ``shard``. The JAX store's replication seam (``set_commit_hook``, the
-``ship_*`` methods) waits for the replication store.
+a ``shard``. The replication seam (``set_commit_hook`` and the ``ship_*``
+methods) is what ``replication.py``'s shipper reads a primary through.
 """
 
 from __future__ import annotations
@@ -521,13 +521,14 @@ class _Namespace:
         max_rev = 0
         for sx, seg in enumerate(self.segments):
             max_rev = max(max_rev, seg.max_rev)
-            revs = seg.col("rev")
-            for i, eid in enumerate(seg.ids()):
+            # one conversion of the column: a memmap's item reads are a
+            # Python call each
+            for i, (eid, rev) in enumerate(zip(seg.ids(), seg.col("rev").tolist())):
                 prev = where.get(eid)
                 if prev is not None:
                     self.segments[prev[0]].dead.add(prev[1])
                 where[eid] = (sx, i)
-                self.id_rev[eid] = int(revs[i])
+                self.id_rev[eid] = rev
         # WAL replay: a record at or below the last sealed revision was
         # sealed before a crash kept its WAL file from being reclaimed
         self.tail_base = max_rev + 1
@@ -696,6 +697,11 @@ class SegmentFSEventStore(base.EventStore):
         self.segments_scanned = 0  # segments a pruned read opened
         self._stop = threading.Event()
         self._sealer: Optional[threading.Thread] = None
+        # the replication seam: when set (a shipper at MIN_ACKS > 0),
+        # called under the store lock after the WAL append and the state
+        # update with (app_id, channel_id, first_rev, rows, head); its
+        # raise reaches the caller, so that an ack means replicated
+        self._commit_hook = None
 
     # -- the writer guard --------------------------------------------------
     def _acquire_writer_lock(self):
@@ -873,6 +879,13 @@ class SegmentFSEventStore(base.EventStore):
                 ns._tail_append(row, first + i)
             if was_empty:
                 ns.tail_since = time.monotonic()
+            hook = self._commit_hook
+            if hook is not None:
+                # still under the store lock, so that frames reach the
+                # followers in revision order. On a raise the rows stay
+                # durable here (the WAL is fsync'd) and the background
+                # pass ships them again, but the caller sees the failure
+                hook(app_id, channel_id, first, rows, ns.next_rev - 1)
             return [row[_ROW_ID] for row in rows]
 
     def delete(self, event_id: str, app_id: int, channel_id: Optional[int] = None) -> bool:
@@ -978,6 +991,52 @@ class SegmentFSEventStore(base.EventStore):
                 reversed=reversed))
             for eid in dict.fromkeys(entity_ids)
         }
+
+    def find_edges(self, app_id: int, entity_type: str, target_entity_type: str,
+                   event_names: Sequence[str], entity_ids: Optional[Sequence[str]] = None,
+                   target_ids: Optional[Sequence[str]] = None,
+                   channel_id: Optional[int] = None) -> list[tuple[str, str, str, dict]]:
+        """The online fold's history read (the base class gives the
+        contract) in one pass: each segment's rows of the wanted ids by
+        one compare of its code column against their footer codes, and
+        the tail read once, where a `find` an id would decode the whole
+        tail for every id."""
+        by_target = target_ids is not None
+        if by_target == (entity_ids is not None):
+            raise ValueError("find_edges takes entity_ids or target_ids")
+        keys = list(dict.fromkeys(target_ids if by_target else entity_ids))
+        want = set(keys)
+        names = set(event_names)
+        groups: dict[str, list[Event]] = {k: [] for k in keys}
+        vocab_key, col, at = (("target_ids", "target_idx", _ROW_TID) if by_target
+                              else ("entity_ids", "entity_idx", _ROW_EID))
+
+        def add(e: Event) -> None:
+            if (e.event in names and e.entity_type == entity_type
+                    and e.target_entity_type == target_entity_type
+                    and e.target_entity_id is not None):
+                groups[e.target_entity_id if by_target else e.entity_id].append(e)
+
+        with self._lock:
+            ns = self._namespace(app_id, channel_id)
+            for seg in ns.segments:
+                codes = [j for j, v in enumerate(seg.footer[vocab_key]) if v in want]
+                if not codes:
+                    continue
+                rows = np.nonzero(np.isin(seg.col(col), codes))[0]
+                if seg.dead:
+                    rows = rows[~np.isin(rows, np.fromiter(seg.dead, np.int64))]
+                for lo in range(0, len(rows), _PAGE_ROWS):
+                    for e in seg.events_page(rows[lo : lo + _PAGE_ROWS]):
+                        add(e)
+            for rev, row in ns.live_tail():
+                if row[at] in want:
+                    add(_row_event(row, rev))
+        out = []
+        for k in keys:
+            group = sorted(groups[k], key=lambda e: (e.event_time, e.event_id or ""))
+            out.extend((e.entity_id, e.target_entity_id, e.event, e.properties) for e in group)
+        return out
 
     # -- revisions (the online consumer's tail) ----------------------------
     def latest_revision(self, app_id: int, channel_id: Optional[int] = None) -> int:
@@ -1178,6 +1237,87 @@ class SegmentFSEventStore(base.EventStore):
                 "max_revision": ns.next_rev - 1,
                 "tombstones": len(ns.tombstones),
             }
+
+    # -- the replication seam ----------------------------------------------
+    def set_commit_hook(self, hook) -> None:
+        """Install (or clear, with None) the synchronous replication
+        hook; `insert_batch` gives its calling contract."""
+        with self._lock:
+            self._commit_hook = hook
+
+    def ship_namespaces(self) -> list[tuple[int, Optional[int]]]:
+        """Every (app_id, channel_id) the store holds: the opened ones and
+        the directories on disk not opened yet in this process."""
+        with self._lock:
+            keys = set(self._ns)
+        try:
+            names = os.listdir(self.base)
+        except FileNotFoundError:
+            names = []
+        for n in names:
+            if not n.startswith("app_"):
+                continue
+            parts = n.split("_")
+            try:
+                app = int(parts[1])
+                ch = int(parts[2]) if len(parts) > 2 else None
+            except (IndexError, ValueError):
+                continue
+            keys.add((app, ch))
+        return sorted(keys, key=lambda k: (k[0], k[1] is not None, k[1] or 0))
+
+    def ship_state(self, app_id: int, channel_id: Optional[int] = None) -> dict[str, Any]:
+        """One namespace as a shipper sees it: the watermark, the sealed
+        floor, the segments by name with their revision ranges, and the
+        delete counter."""
+        with self._lock:
+            ns = self._namespace(app_id, channel_id)
+            return {
+                "watermark": ns.next_rev - 1,
+                "tail_floor": ns.tail_base - 1,
+                "segments": {os.path.basename(s.path): [s.min_rev, s.max_rev]
+                             for s in ns.segments},
+                "tombstone_ops": ns.delete_ops,
+            }
+
+    def ship_tail_after(self, app_id: int, channel_id: Optional[int], after_rev: int,
+                        limit: int) -> dict[str, Any]:
+        """At most `limit` live unsealed rows with revision > after_rev,
+        in revision order. `floor` is the last sealed revision: above
+        after_rev, the follower lacks sealed rows that only a segment
+        ship gives. A tail row is never mutated once appended (a
+        supersede nulls its slot), so the references are safe to
+        serialize outside the lock."""
+        with self._lock:
+            ns = self._namespace(app_id, channel_id)
+            revs: list[int] = []
+            rows: list[list] = []
+            for rev, row in ns.live_tail():
+                if rev <= after_rev:
+                    continue
+                revs.append(rev)
+                rows.append(row)
+                if len(revs) >= limit:
+                    break
+            return {"revs": revs, "rows": rows, "head": ns.next_rev - 1,
+                    "floor": ns.tail_base - 1}
+
+    def ship_segment_path(self, app_id: int, channel_id: Optional[int],
+                          name: str) -> Optional[str]:
+        """A sealed segment's path by name, or None once compaction took
+        it (the next pass ships the merged segment)."""
+        with self._lock:
+            ns = self._namespace(app_id, channel_id)
+            for seg in ns.segments:
+                if os.path.basename(seg.path) == name:
+                    return seg.path
+        return None
+
+    def ship_tombstones(self, app_id: int,
+                        channel_id: Optional[int] = None) -> tuple[dict[str, int], int]:
+        with self._lock:
+            ns = self._namespace(app_id, channel_id)
+            return dict(ns.tombstones), ns.delete_ops
 
     # -- the columnar training read ----------------------------------------
     @staticmethod

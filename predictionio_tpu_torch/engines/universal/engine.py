@@ -123,7 +123,10 @@ class URDataSource(DataSource, SelfCleaningDataSource):
             # each indicator gets its own compact target vocabulary, in
             # the order of the frame's target ids
             raw_targets = sub.target_idx[mask]
-            uniq = np.unique(raw_targets)
+            # np.unique's values by a sort (numpy 2.3's np.unique hashes,
+            # much slower than a sort; see models/als.py dense_eligible)
+            ordered = np.sort(raw_targets)
+            uniq = ordered[np.concatenate(([True], ordered[1:] != ordered[:-1]))[:len(ordered)]]
             vocab = BiMap({inv_frame(int(t)): i for i, t in enumerate(uniq)})
             indicators.append(
                 IndicatorData(

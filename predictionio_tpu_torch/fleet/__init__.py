@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``fleet/`` cut to its coordinator
 (``coordinator.py``): N ``TrainScheduler`` workers over one shared job
 queue, with compare-and-set claims, heartbeating worker records and
-``fleet status``. The JAX package's multi-host wiring
+``fleet status``, and the compare-and-set election the replicated
+event store fails over through (``election.py``). The JAX package's
+multi-host wiring
 (``distributed.py``) and its sharded serving runtime (``runtime.py``)
 are not ported. Importing the package loads no torch.
 """

@@ -54,8 +54,9 @@ Error-rate sources (counter series the sampler records):
   up            1 - mean(up{instance}): a dead scrape target burns its
                 availability budget directly
 
-The per-tenant and replication presets of the JAX package wait for the
-tenancy and replication modules that call them.
+``replication_slo_presets`` gives the replicated event store's lag
+objective. The per-tenant presets of the JAX package wait for the
+tenancy module that calls them.
 """
 
 from __future__ import annotations
@@ -245,6 +246,25 @@ class SLOSpec:
                 for f, w, t in self.extra_pairs
             ]
         return out
+
+
+def replication_slo_presets(max_lag_revisions: Optional[int] = None) -> list[SLOSpec]:
+    """The replication-lag preset: an expression objective on the
+    ``replication_lag_revisions`` gauge the replicas keep per namespace.
+    Its error fraction is the window's p99 lag over the
+    ``PIO_REPL_MAX_LAG_REVISIONS`` budget, so at objective 0.5 and burn
+    threshold 2.0 the alert fires when sustained lag reaches the budget
+    (fraction >= 1.0 is burn >= 2.0 x the 0.5 budget) on both windows."""
+    if max_lag_revisions is None:
+        from predictionio_tpu_torch.utils.env import repl_knob
+
+        max_lag_revisions = repl_knob("PIO_REPL_MAX_LAG_REVISIONS")
+    budget = max(1, int(max_lag_revisions))
+    return [SLOSpec(
+        name="replication:lag", kind="expr", objective=0.5, burn_threshold=2.0,
+        expr=("max(quantile_over_time(0.99, "
+              f"replication_lag_revisions[$window])) / {budget}"),
+    )]
 
 
 def load_slos(text: Optional[str] = None) -> list[SLOSpec]:

@@ -26,9 +26,11 @@ The consumer tails the app's default channel. A drift pause shows in
 `status()` and the `online_paused` gauge, and raises the process
 monitor's external alert ``online_drift_pause/<cursor id>`` (shown at
 ``GET /alerts`` and pushed through the alert sinks); `resume` resolves
-it. The tenant host and the replica-scoped cursor names (and their
-one-time migration from the unscoped record) of the JAX package are not
-ported.
+it. A consumer beside a follower of the replicated event store names
+its own cursor record (``OnlineConsumerConfig.name``, one a replica, on
+the shared control storage) and may adopt, once, the record of an older
+name (``migrate_from``; the adopted record carries ``migrated_from``).
+The tenant host of the JAX package is not ported.
 """
 
 from __future__ import annotations
@@ -71,6 +73,13 @@ class OnlineConsumerConfig:
     # with no persisted cursor, start at the store's latest revision
     # instead of its head (the history is already in the trained model)
     from_latest: bool = False
+    # the cursor record's id, for one consumer a replica (default
+    # online/<app>/<scope>)
+    name: Optional[str] = None
+    # a one-shot migration: with no record under this consumer's id,
+    # adopt the record at this older id and persist it under the new one
+    # with a `migrated_from` marker; later starts find the new record
+    migrate_from: Optional[str] = None
 
 
 class ServerApplyHost:
@@ -111,8 +120,10 @@ class OnlineConsumer:
         self.foldin = ALSFoldIn(self.config.foldin)
         self.guard = DriftGuard(threshold=self.config.drift_threshold)
         self._records = LifecycleRecordStore(storage)
-        # one writer a record: a restarted consumer resumes the same one
-        self.cursor_id = f"online/{app_id}/{getattr(host, 'scope', 'server')}"
+        # one writer a record: a restarted consumer resumes the same one,
+        # and each replica of a replicated tier names its own
+        self.cursor_id = (self.config.name
+                          or f"online/{app_id}/{getattr(host, 'scope', 'server')}")
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -128,6 +139,15 @@ class OnlineConsumer:
 
         rec = self._records.fold(CURSOR_ENTITY, self.cursor_id).get(
             self.cursor_id) or {}
+        self.migrated_from: Optional[str] = rec.get("migrated_from") or None
+        adopt_legacy = False
+        legacy_id = self.config.migrate_from
+        if not rec and legacy_id and legacy_id != self.cursor_id:
+            legacy = self._records.fold(CURSOR_ENTITY, legacy_id).get(legacy_id) or {}
+            if legacy:
+                rec, adopt_legacy, self.migrated_from = legacy, True, legacy_id
+                log.info("adopting online cursor %s as %s (one-shot migration)",
+                         legacy_id, self.cursor_id)
         self.cursor: dict[str, int] = {
             k: int(v) for k, v in (rec.get("cursor") or {}).items()}
         if not rec and self.config.from_latest:
@@ -143,6 +163,19 @@ class OnlineConsumer:
         self._baseline_cursor: Optional[dict[str, int]] = {
             k: int(v) for k, v in (rec.get("baseline_cursor") or {}).items()
         } or None
+        if adopt_legacy:
+            # persisted under the new id at once: the next start finds it
+            # and never reads the old id again (which stays for replicas
+            # yet to migrate)
+            self._records.append(CURSOR_ENTITY, self.cursor_id, {
+                "cursor": dict(self.cursor), **self.counters,
+                "scope": getattr(self.host, "scope", "server"),
+                "app_id": self.app_id,
+                "baseline_instance": self._baseline_instance,
+                "baseline_cursor": dict(self._baseline_cursor or {}),
+                "migrated_from": legacy_id,
+                "updated_at": time.time(),
+            })
 
         # the tick, drift and pause figures live here and `status()`
         # reads them back; the cumulative counts are `self.counters`,
@@ -426,6 +459,7 @@ class OnlineConsumer:
             "drift_threshold": self.guard.threshold,
             "drift_cooldown_s": self.config.drift_cooldown_s,
             "cooling_down": self._retrain_seen_at is not None,
+            "migrated_from": self.migrated_from,
             "tick_s": self.config.tick_s,
             "ticks_timed": self._tick_hist.count_of(scope=scope),
             "tick_seconds_p50": self._tick_hist.quantile(0.5, scope=scope),

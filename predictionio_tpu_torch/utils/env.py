@@ -15,7 +15,9 @@ members' (``EVAL_KEYS`` and ``FLEET_KEYS``, read through
 ``eval_knob``), and the storage outage path's (``STORAGE_KEYS``: the
 Event Server's write-ahead spill directory and the remote client's
 retry and breaker knobs, read through ``storage_knob``; a remote
-source's own settings and their defaults in ``REMOTE_SOURCE_KEYS``).
+source's own settings and their defaults in ``REMOTE_SOURCE_KEYS``),
+and the replicated event store's (``REPL_KEYS``, read through
+``repl_knob``).
 A missing or empty value gives the caller's default; a malformed number
 gives the default with a warning, as in the JAX package. Every reader
 takes an optional `env` mapping to read instead of the process
@@ -230,6 +232,33 @@ REMOTE_SOURCE_KEYS = {
     # seconds a pooled data connection waits on the daemon
     "TIMEOUT": "30",
 }
+
+
+# the replicated event store and its defaults (the JAX package's registry
+# entries; data/storage/replication.py)
+REPL_KEYS = {
+    # comma-separated host:port follower storage daemons the primary's
+    # shipper streams segments and the WAL tail to (empty: no replication)
+    "PIO_REPL_FOLLOWERS": "",
+    # followers that must apply a frame before an insert acks (0: the
+    # shipping is asynchronous only)
+    "PIO_REPL_MIN_ACKS": 0,
+    # seconds between the shipper's background passes
+    "PIO_REPL_SHIP_INTERVAL_S": 0.25,
+    # live-tail rows a catch-up frame at most
+    "PIO_REPL_WAL_BATCH": 512,
+    # the lag budget (revisions) of the replication_lag SLO preset
+    "PIO_REPL_MAX_LAG_REVISIONS": 1000,
+    # the epoch a primary daemon stamps into its frames at boot (a
+    # promoted follower's comes from the election's generation)
+    "PIO_REPL_EPOCH": 1,
+}
+
+
+def repl_knob(name: str, env: Optional[Mapping[str, str]] = None):
+    """A replication knob read with its declared default, typed as the
+    default is."""
+    return _typed(name, REPL_KEYS[name], env)
 
 
 def storage_knob(name: str, env: Optional[Mapping[str, str]] = None):

@@ -111,7 +111,8 @@ def test_fleet_modules_load_neither_jax_nor_torch(module):
 # the storage outage path's data plane: the retry, the breaker, the
 # write-ahead log, the wire codec, the remote client and the storage
 # daemon, which the Event Server and the daemon's process import; the
-# segmentfs and docfs stores, which they open
+# segmentfs and docfs stores, which they open; the replicated store and
+# its election, which a follower or a primary daemon runs
 STORAGE_MODULES = ["predictionio_tpu_torch.resilience",
                    "predictionio_tpu_torch.resilience.retry",
                    "predictionio_tpu_torch.resilience.breaker",
@@ -120,7 +121,9 @@ STORAGE_MODULES = ["predictionio_tpu_torch.resilience",
                    "predictionio_tpu_torch.data.storage.remote",
                    "predictionio_tpu_torch.data.api.storage_server",
                    "predictionio_tpu_torch.data.storage.segmentfs",
-                   "predictionio_tpu_torch.data.storage.docfs"]
+                   "predictionio_tpu_torch.data.storage.docfs",
+                   "predictionio_tpu_torch.data.storage.replication",
+                   "predictionio_tpu_torch.fleet.election"]
 
 
 def test_the_walk_covers_the_storage_modules():
@@ -130,7 +133,8 @@ def test_the_walk_covers_the_storage_modules():
     for f in ("resilience/retry.py", "resilience/breaker.py", "resilience/wal.py",
               "data/storage/wire.py", "data/storage/remote.py",
               "data/api/storage_server.py", "data/storage/segmentfs.py",
-              "data/storage/docfs.py", "parallel/loader.py"):
+              "data/storage/docfs.py", "parallel/loader.py",
+              "data/storage/replication.py", "fleet/election.py"):
         assert f"predictionio_tpu_torch/{f}" in walked
     assert set(STORAGE_MODULES) <= set(_port_modules())
 

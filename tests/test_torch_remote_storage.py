@@ -573,9 +573,14 @@ def test_auth_key_and_allow_list(tmp_path):
         assert _store(daemon.port, AUTH_KEY="s3cret").init_app(1) is True
         client = tremote.RemoteClient({"HOST": "127.0.0.1", "PORT": str(daemon.port),
                                        "AUTH_KEY": "s3cret"})
-        for dao, method in (("events", "close"), ("replication", "promote"), ("x", "get")):
+        for dao, method in (("events", "close"), ("replication", "close"), ("x", "get")):
             with pytest.raises(tbase.StorageError, match=f"unknown rpc {dao}.{method}"):
                 client.call(dao, method)
+        # the replication DAO routes through the events getter, as the JAX
+        # daemon's does: a sqlite store has no replica method to run
+        with pytest.raises(tbase.StorageError,
+                           match="rpc replication.promote failed: AttributeError"):
+            client.call("replication", "promote", 2)
         assert client.ping()
         with urllib.request.urlopen(f"http://127.0.0.1:{daemon.port}/metrics", timeout=5) as r:
             text = r.read().decode()

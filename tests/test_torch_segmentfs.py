@@ -206,6 +206,40 @@ def test_find_entities_batch_is_a_find_per_entity(tmp_path):
     assert len(got["u1"]) == 4 and got["u1"][0].target_entity_id == "i7"
 
 
+@pytest.mark.parametrize("side", ["entity_ids", "target_ids"])
+def test_find_edges_is_the_find_an_id_read(tmp_path, side):
+    """segmentfs's one-pass fold history read equals the base class's
+    `find` an id over sealed segments, dead rows, a compaction, a
+    superseded and a deleted row, the unsealed tail, other event names
+    and entity types, and events without a target; on a replica too."""
+    rng = np.random.RandomState(7)
+    s = _open("port", tmp_path / "edges")
+    s.init_app(APP)
+    s.insert_batch(_make("port", _mixed(rng)), APP)
+    s.seal(APP)
+    s.insert_batch(_make("port", [_spec("view", f"u{k % 4}", t=k, target=f"i{k % 3}", n=100 + k)
+                                  for k in range(10)]), APP)
+    s.insert_batch(_make("port", [_spec("rate", "u1", t=k, etype="admin", target="i1",
+                                        props={"rating": 5.0}, n=120 + k)
+                                  for k in range(3)]), APP)
+    s.seal(APP)
+    s.compact(APP)
+    s.insert_batch(_make("port", [dict(_rate("u2", "i9", 1, t=50, n=200), event_id="e00004")]),
+                   APP)  # supersedes a sealed row by id
+    s.delete("e00006", APP)
+    s.insert_batch(_make("port", [_rate(f"u{k % 6}", f"i{k % 9}", 2, t=60 + k, n=300 + k)
+                                  for k in range(12)]), APP)  # the tail
+    ids = (["u1", "u0", "zz", "u5", "u1", "u3"] if side == "entity_ids"
+           else ["i1", "i9", "i0", "nope", "i4"])
+    for names in (["rate"], ["rate", "buy", "view"]):
+        got = s.find_edges(APP, "user", "item", names, **{side: ids})
+        assert got == tbase.EventStore.find_edges(s, APP, "user", "item", names, **{side: ids})
+        assert got
+    with pytest.raises(ValueError, match="entity_ids or target_ids"):
+        s.find_edges(APP, "user", "item", ["rate"])
+    s.close()
+
+
 # ---------------------------------------------------------------------------
 # crash recovery
 # ---------------------------------------------------------------------------

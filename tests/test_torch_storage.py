@@ -335,7 +335,11 @@ def test_storage_config_segmentfs_docfs_matches_jax(tmp_path):
     assert got.repositories == want.repositories
     assert treg.BACKENDS["segmentfs"][1] == jreg.BACKENDS["segmentfs"][1] == "SegmentFS"
     assert treg.BACKENDS["docfs"][1] == jreg.BACKENDS["docfs"][1] == "DocFS"
-    assert "segmentfs-replica" not in treg.BACKENDS
+    # the follower backend maps to the port's replication module, with
+    # the JAX registry's class prefix
+    assert treg.BACKENDS["segmentfs-replica"] == (
+        "predictionio_tpu_torch.data.storage.replication", "Replica")
+    assert jreg.BACKENDS["segmentfs-replica"][1] == "Replica"
     storage = treg.Storage(got)
     events = storage.get_events()
     assert isinstance(events, tsegfs.SegmentFSEventStore)
