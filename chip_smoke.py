@@ -5,7 +5,9 @@ evaluation over the same storage, the fleet evaluation and ``tune`` with
 their shard children, the Universal Recommender's self-cleaning, the
 Event Server feeding train →
 deploy, the same over the storage daemon through its outage (the
-write-ahead spill, the breaker, the replay), the replicated event store
+write-ahead spill, the breaker, the replay), the sharded event store
+over three storage daemons (partitioned reads, a successor failover, a
+partial outage), the replicated event store
 (segment shipping, WAL frames, a fenced failover, fold-in from a
 follower), the online fold-in of live events into the served model, and
 the model lifecycle (train jobs, checkpoints, warm starts, versions,
@@ -110,9 +112,11 @@ Phases, in order; any failure prints what failed and exits non-zero:
             import, then ``status``: its segmentfs line shows sealed
             segments and all 1,000,209 rows, none dead. (b) ``train
             --engine-json`` with the loop's params reading through the data
-            view's segment branch (one miss, no npz file): the frame equals
-            ``EventFrame.from_events(store.find(q))`` bit for bit and holds
-            exactly the generated (user, item, rating, time) rows; each
+            view's segment branch (one miss, no npz file): the frame holds
+            exactly the generated (user, item, rating, time) rows, and the
+            store's columnar frame of entity partition 0 of 4
+            (``EventQuery.shard``) equals ``EventFrame.from_events(
+            store.find(q))`` of that partition bit for bit; each
             pass kernel launches once an iteration, and both are held to
             their plain versions on the train's int8 R at K = 10 (1e-5 S);
             the factors correlate > 0.9999 with the loop's. (c) In process
@@ -239,9 +243,9 @@ Phases, in order; any failure prints what failed and exits non-zero:
             model, linked to a completed one-point run with (a)'s score
             for it: the bake stretched 2x; with ``PIO_TUNE_PRIOR=0``
             unchanged. The phase's jobs, versions, rollout records and
-            preset are then purged. (d) The UR configuration's events
-            (phase 21's generator, from UR_SEED, in a memory store of their
-            own) with 2,000 items' ``$set``/``$unset``/``$delete``
+            preset are then purged. (d) The UR configuration's buys and
+            views of its first 1,000 of 3,000 users (phase 21's generator,
+            from UR_SEED, in a memory store of their own) with 2,000 items' ``$set``/``$unset``/``$delete``
             histories, 5,000 exact duplicates and 3,000 events 90 days
             before the window: ``URDataSource``'s event window cleans them,
             and its counters and surviving buys and views equal a plain
@@ -341,8 +345,10 @@ Phases, in order; any failure prints what failed and exits non-zero:
             a process of its own over sqlite and model files there; every
             other process reaches it through a ``remote`` source (app new
             and train here, ``console eventserver`` with ``PIO_WAL_DIR``
-            there, deploy). (b) Four writers POST phase 12's 100,000
-            events in batches of 50; the daemon is SIGKILLed once a third
+            there, deploy; the breaker's cooldown 2 s). (b) Four writers
+            POST a seeded 30,000 of phase 12's 100,000 events in batches
+            of 50; the daemon is
+            SIGKILLed once a third
             of the POSTs are answered and restarted on its port over the
             same files once two thirds are. Every event is answered 201
             or 202 (none 5xx); while it is down the Event Server's
@@ -351,7 +357,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             drains to 0, ``event_wal_replayed_total`` equals the 202s,
             the breaker's transitions hold open, half_open and closed,
             and the daemon's sqlite file holds every acknowledged id
-            once, 100,000 in all (the app is read through the daemon's
+            once, 30,000 in all (the app is read through the daemon's
             paged ``find`` once, by (d)'s train). (c)
             ``event.insert:error:1.0`` through ``POST /debug/faults`` for
             120 ``buy`` events: each a 202 with a walId; cleared, each
@@ -368,6 +374,35 @@ Phases, in order; any failure prints what failed and exits non-zero:
             events/s beside phase 12's, the reads' seconds, p50/p99/qps,
             each line with the card's name and power limit. The phase
             stops its children on any failure and deletes its WAL.
+12c. sharded phase 12's 100,000 events over a ``sharded`` source of three
+            ``console storageserver`` daemons (each over its own sqlite
+            file under ``build/sharded/``) at REPLICAS=2; metadata and
+            models on one unsharded local source. (a) ``console import``:
+            each daemon, asked through a plain ``remote`` source, holds
+            its home events and its predecessor's copies exactly, 200,000
+            rows in all. (b) ``shard=(i, 3)`` reads through the sharded
+            store: each moves daemon i's ``storage_rpc_total`` finds and
+            no other's, the three are disjoint and their union is the
+            file's events. (c) ``console status`` prints three ``OK
+            shard`` lines; a train (windowed: block_partials and the
+            combine 2 x 20 times); a ``QueryServer`` on its instance here
+            and a consumer at each shard stream's head; daemon 1
+            SIGKILLed: ``status`` exits 1 naming shard 1, and the same
+            train reads through the successor failover: its frame equal
+            and its factors bit-equal to the first's, the kernels held to
+            their plain versions on its plans. (d) ``console eventserver``
+            over the source, daemon 1 still down: 10,000 new ratings of
+            1,000 new users from 4 writers, each answered 201 where its
+            home shard is up and 503 "storage shard unavailable" where
+            not; daemon 1 restarted on its file and the 503s re-POSTed
+            until each is a 201; every event once on its home. (e) The
+            consumer folds (d)'s events from the three shard streams,
+            each once, on the card; a second consumer at its persisted
+            cursor consumes none; 500 queries from 16 threads: every
+            answer the plain top-k on the CPU, top-k launches equal the
+            batches by the route and by devprof, the served slab held to
+            the plain select. Each line has the card's name and power
+            limit; the phase stops its children on any failure.
 13. online the online fold-in over phase 12's app and instance: the
             variant's newest COMPLETED runtime built here on the card
             (``latest_completed_runtime``) behind a ``QueryServer`` in this
@@ -691,6 +726,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import datetime
@@ -729,6 +765,7 @@ try:
         EngineInstance,
         EventQuery,
         Model,
+        shard_of,
     )
     from predictionio_tpu_torch.controller import (
         EngineParams,
@@ -1015,6 +1052,8 @@ REMOTE_KILL_AT, REMOTE_RESTART_AT = 1 / 3, 2 / 3  # of the ingest's POSTs answer
 REMOTE_FAULT_SINGLES, REMOTE_FAULT_BATCHES = 20, 2  # the event.insert burst's POSTs
 REMOTE_ENGINE, REMOTE_DIRECT_ENGINE = "ml100k-remote", "ml100k-direct"
 REMOTE_POLL_S, REMOTE_DRAIN_S = 0.1, 300.0
+REMOTE_EVENTS = 30_000  # of phase 12's 100,000 events: the seeded sample 12b posts
+REMOTE_BREAKER_COOLDOWN_S = 2.0  # the remote source's breaker: a probe 2 s after it opens
 
 
 class PhaseError(RuntimeError):
@@ -2345,6 +2384,7 @@ SEGMENTS_WRITERS = 4
 SEGMENTS_BATCH = 50  # the Event Server's batch limit
 SEGMENTS_KILL_AT = 1 / 3  # the share of (d)'s batches acknowledged before the SIGKILL
 SEGMENTS_PAGE = 100_000  # find_since's page in (d)'s read-back
+SEGMENTS_ROW_SHARDS = 4  # (b): the row path is held on one of these entity partitions
 
 
 def _segments_env(sealer_s="0.25"):
@@ -2489,8 +2529,8 @@ def phase_segments(report, shared):
           f"({LOOP_EDGES / seg['import_s']:.1f} events/s), sealed by the sealer "
           f"{seg['seal_wait_s']:.2f} s later; {seg['status_line']}", flush=True)
     print(f"[segments] {smi} | train: read {seg['stages']['read']:.3f} s (data view "
-          f"miss), train {seg['stages']['train']:.3f} s, row path "
-          f"{seg['row_path_s']:.2f} s; retrain after {SEGMENTS_TAIL} tail events: read "
+          f"miss), train {seg['stages']['train']:.3f} s, row path of partition 0 of "
+          f"{SEGMENTS_ROW_SHARDS} {seg['row_path_s']:.2f} s; retrain after {SEGMENTS_TAIL} tail events: read "
           f"{seg['retrain_stages']['read']:.3f} s (hit), train "
           f"{seg['retrain_stages']['train']:.3f} s; cold read "
           f"{seg['cold_read_s']:.3f} s; launches row {seg['launches']['row']}, col "
@@ -2589,14 +2629,18 @@ def _segments_train(seg, stores, app_id, loop_rows, loop_factors):
     staged = [out for *_, out in stage.calls]
     check(len(staged) == 1, f"the train staged a dense train {len(staged)} times")
     [frame] = frames
-    # the train's frame is the row path's, bit for bit
+    # the columnar read is the row path's, bit for bit, on one of
+    # SEGMENTS_ROW_SHARDS partitions (sealed segments and the tail alike)
     q = EventQuery(app_id=app_id, entity_type="user", target_entity_type="item",
                    event_names=["rate"])
+    q_part = dataclasses.replace(q, shard=(0, SEGMENTS_ROW_SHARDS))
     t0 = time.perf_counter()
-    ref = EventFrame.from_events(store.find(q), value_prop="rating", default_value=1.0)
+    ref = EventFrame.from_events(store.find(q_part), value_prop="rating", default_value=1.0)
     seg["row_path_s"] = time.perf_counter() - t0
-    check(_same_frame(frame, ref), "the train's frame differs from from_events(find(q))")
-    del ref
+    part = store.find_frame(q_part, value_prop="rating", default_value=1.0)
+    check(len(ref) > 0 and _same_frame(part, ref),
+          "the columnar frame of partition 0 differs from from_events(find(q))")
+    del ref, part
     check(_frame_rows_equal(frame, *loop_rows),
           "the frame differs from the generated (user, item, rating, time) rows")
     [model] = deserialize_models(storage.get_model_data_models().get(inst.id).models)
@@ -3626,6 +3670,7 @@ FLEET_BAKE_S = 60.0  # the canary's asked bake in (c); the prior doubles it
 UR_CLEAN_PROPERTY_ITEMS = 2_000  # items given $set/$unset/$delete histories
 UR_CLEAN_DUPLICATES, UR_CLEAN_OLD = 5_000, 3_000  # copies; events past the window
 UR_CLEAN_QUERIES = 64
+UR_CLEAN_USERS = 1_000  # (d)'s store: the buys and views of the first 1,000 of the 3,000 users
 _SHARD_LAUNCHES = re.compile(
     r"kernel launches: dense row (\d+), col (\d+); windowed partials (\d+), combine "
     r"(\d+); top-k (\d+) \(select (\d+), sort (\d+)\) on (\S+)")
@@ -4011,15 +4056,17 @@ def _ur_dirt(rng, n_base):
 
 
 def _ur_self_cleaning():
-    """(d) The UR configuration's events (phase 21's, from UR_SEED, in a
-    store of their own) with dirt added, cleaned by `URDataSource`'s
+    """(d) The UR configuration's buys and views of its first
+    UR_CLEAN_USERS users (phase 21's, from UR_SEED, in a store of their
+    own) with dirt added, cleaned by `URDataSource`'s
     event window, then trained on the card: the counters and survivors
     against a plain numpy cleaning, the tables against a card train on
     the plainly cleaned events, and answers through masked_select
     against the plain version."""
     t0 = time.perf_counter()
-    arrays = _ur_arrays()
-    rows = _ur_rows(*arrays)
+    buy_users, buy_items, view_users, view_items = _ur_arrays()
+    buys, views = buy_users < UR_CLEAN_USERS, view_users < UR_CLEAN_USERS
+    rows = _ur_rows(buy_users[buys], buy_items[buys], view_users[views], view_items[views])
     n_base = len(rows)
     special, dups, old = _ur_dirt(np.random.default_rng(UR_SEED + 7), n_base)
     events = [Event(event=e, entity_type="user", entity_id=f"u{u}",
@@ -4106,7 +4153,7 @@ def _ur_self_cleaning():
     qrng = np.random.default_rng(UR_SEED + 8)
     queries = [URQuery(user=f"u{int(u)}", num=int(qrng.choice([5, 10, 50])),
                        exclude_seen=bool(qrng.random() < 0.9))
-               for u in qrng.integers(0, UR_USERS, UR_CLEAN_QUERIES)]
+               for u in qrng.integers(0, UR_CLEAN_USERS, UR_CLEAN_QUERIES)]
     algo = URAlgorithm(params)
     rec.MASKED_LAUNCHES = 0  # counts from 0 around the served queries
     rec.MASKED_ROUTE_LAUNCHES.update(select=0, sort=0)
@@ -5279,30 +5326,42 @@ def _remote_env(port):
             "PIO_STORAGE_SOURCES_PIOREMOTE_TYPE": "remote",
             "PIO_STORAGE_SOURCES_PIOREMOTE_HOST": "127.0.0.1",
             "PIO_STORAGE_SOURCES_PIOREMOTE_PORT": str(port),
+            "PIO_STORAGE_SOURCES_PIOREMOTE_BREAKER_COOLDOWN": str(REMOTE_BREAKER_COOLDOWN_S),
             "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "PIOREMOTE",
             "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PIOREMOTE",
             "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "PIOREMOTE"}
 
 
 class _StorageDaemon:
-    """`console storageserver` over the phase's sqlite and model files, in
-    a process of its own; SIGKILLed and restarted on its port over the
-    same files."""
+    """`console storageserver` over sqlite and model files under `store`
+    (phase 12b's by default), in a process of its own, its logs under
+    `log_dir`; SIGKILLed and restarted on its port over the same files.
+    `spawn` starts the process and `wait` reads its port, so that several
+    daemons start at once."""
 
-    def __init__(self):
+    def __init__(self, store=None, log_dir=None, name="storageserver"):
         self.console, self.port, self.starts = None, 0, 0
+        self.store = REMOTE_DIR / "store" if store is None else store
+        self.log_dir = REMOTE_DIR if log_dir is None else log_dir
+        self.name = name
 
-    def start(self):
+    def spawn(self):
         self.close()
         self.starts += 1
         env = {k: v for k, v in os.environ.items() if not k.startswith("PIO_STORAGE_")}
-        env.update(_store_env(REMOTE_DIR / "store"))
+        env.update(_store_env(self.store))
         self.console = _Console(["storageserver", "--ip", "127.0.0.1", "--port", str(self.port)],
-                                REMOTE_DIR / f"storageserver{self.starts}.log", env=env)
+                                self.log_dir / f"{self.name}{self.starts}.log", env=env)
+
+    def wait(self):
         port = self.console.port(timeout=60)
         check(self.port in (0, port), f"the daemon came back on {port}, not {self.port}")
         self.port = port
         return time.perf_counter()
+
+    def start(self):
+        self.spawn()
+        return self.wait()
 
     def kill(self):
         self.console.proc.kill()
@@ -5427,8 +5486,10 @@ def phase_remote(report, shared):
     daemon's sqlite file read directly."""
     t_phase = time.perf_counter()
     smi = report["nvidia_smi"]
-    users, items, ratings = shared["ingest"]
-    events = shared["ingest_events"]
+    pick = np.sort(np.random.default_rng(INGEST_SEED + 12).choice(
+        INGEST_EDGES, REMOTE_EVENTS, replace=False))
+    users, items, ratings = (a[pick] for a in shared["ingest"])
+    events = [shared["ingest_events"][n] for n in pick.tolist()]
     rng = np.random.default_rng(INGEST_SEED + 10)
     shutil.rmtree(REMOTE_DIR, ignore_errors=True)
     (REMOTE_DIR / "store").mkdir(parents=True)
@@ -5497,10 +5558,10 @@ def _remote_ingest_checks(ingest, es_port, daemon, smi):
         storage = Storage()
         app_id = storage.get_meta_data_apps().get_by_name(INGEST_APP).id
         stored = [e.event_id for e in storage.get_events().find(EventQuery(app_id=app_id))]
-    check(len(stored) == len(set(stored)) == INGEST_EDGES
+    check(len(stored) == len(set(stored)) == REMOTE_EVENTS
           and set(stored) == set(ingest["ids"]),
           f"read back from the daemon's file: {len(stored)} events, {len(set(stored))} ids, "
-          f"{len(set(stored) ^ set(ingest['ids']))} differ from the {INGEST_EDGES} acknowledged")
+          f"{len(set(stored) ^ set(ingest['ids']))} differ from the {REMOTE_EVENTS} acknowledged")
     out = {"spilled": ingest["spilled"], "replayed": m["replayed"],
            "pending_max": seen["pending_max"], "transitions": m["transitions"],
            "posts_at_kill": seen["posts_at_kill"], "posts_at_restart": seen["posts_at_restart"],
@@ -5508,7 +5569,7 @@ def _remote_ingest_checks(ingest, es_port, daemon, smi):
            "outage_s": seen["t_restart"] - seen["t_kill"],
            "restart_to_drained_s": seen["t_drained"] - seen["t_restart"],
            "daemon_starts": daemon.starts, "read_back": len(stored)}
-    print(f"[remote] {smi} | {INGEST_EDGES} ML-100K-shaped events from {INGEST_WRITERS} writers "
+    print(f"[remote] {smi} | {REMOTE_EVENTS} ML-100K-shaped events from {INGEST_WRITERS} writers "
           f"through the Event Server over the daemon: {ingest['ingest_s']:.2f} s, "
           f"{ingest['events_per_s']:.1f} events/s (phase 12, direct: see its line); daemon "
           f"SIGKILLed after {seen['posts_at_kill']} POSTs, down "
@@ -5591,7 +5652,7 @@ def _remote_train(report, users, items, ratings, smi):
     with _loop_storage(REMOTE_DIR / "store"):
         inst_d, model_d = _train_variant(direct_json, REMOTE_DIRECT_ENGINE, frames)
     remote_frame, direct_frame = frames
-    check(len(remote_frame) == INGEST_EDGES and _frames_equal(remote_frame, direct_frame),
+    check(len(remote_frame) == REMOTE_EVENTS and _frames_equal(remote_frame, direct_frame),
           "the frame read through the daemon differs from the one read from its sqlite file")
     uid, iid = _ids(remote_frame.entity_vocab, "u"), _ids(remote_frame.target_vocab, "i")
     key = uid[remote_frame.entity_idx] * INGEST_ITEMS + iid[remote_frame.target_idx]
@@ -5619,6 +5680,470 @@ def _remote_train(report, users, items, ratings, smi):
           "the direct store's train", flush=True)
     return {"stages": st, "direct_stages": std, "launches": launches, "held": held,
             "inst": inst, "model": model}
+
+
+# ---------------------------------------------------------------------------
+# phase 12c: the sharded event store over three storage daemons
+# ---------------------------------------------------------------------------
+
+
+SHARDED_DIR = Path(__file__).resolve().parent / "build" / "sharded"
+SHARDED_N, SHARDED_REPLICAS = 3, 2  # three daemons, each event on its home and successor
+SHARDED_KILLED = 1  # the shard whose daemon (c) SIGKILLs
+SHARDED_SEED = 27
+SHARDED_NEW_USERS, SHARDED_USER_RATINGS = 1_000, 10  # (d): 10,000 new ratings
+SHARDED_ENGINES = ("ml100k-sharded", "ml100k-sharded-failover")
+SHARDED_RETRY_ROUNDS = 40  # (d): re-POSTs of the 503s after the restart, 0.25 s apart
+SHARDED_WAIT_S = 120.0
+
+
+def _sharded_env(ports):
+    """EVENTDATA a `sharded` source over the daemons on `ports` at
+    SHARDED_REPLICAS; METADATA and MODELDATA on one unsharded local source
+    (sqlite and model files under SHARDED_DIR/meta)."""
+    meta = SHARDED_DIR / "meta"
+    return {"PIO_FS_BASEDIR": str(meta),
+            "PIO_STORAGE_SOURCES_SHARDS_TYPE": "sharded",
+            "PIO_STORAGE_SOURCES_SHARDS_SHARDS": ",".join(f"127.0.0.1:{p}" for p in ports),
+            "PIO_STORAGE_SOURCES_SHARDS_REPLICAS": str(SHARDED_REPLICAS),
+            # a shard's bulk write carries a third of the import in one RPC
+            "PIO_STORAGE_SOURCES_SHARDS_TIMEOUT": "120",
+            # the restarted daemon's breaker probes after half a second
+            "PIO_STORAGE_SOURCES_SHARDS_BREAKER_COOLDOWN": "0.5",
+            "PIO_STORAGE_SOURCES_META_TYPE": "sqlite",
+            "PIO_STORAGE_SOURCES_META_PATH": str(meta / "pio.db"),
+            "PIO_STORAGE_SOURCES_MODELS_TYPE": "localfs",
+            "PIO_STORAGE_SOURCES_MODELS_PATH": str(meta),
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SHARDS",
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "META",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MODELS"}
+
+
+def _rpc_finds(port):
+    """The daemon's storage_rpc_total{dao="events",method="find"}."""
+    status, text = _get(port, "/metrics")
+    check(status == 200, f"daemon :{port} /metrics: HTTP {status}")
+    return sum(v for (n, lbl), v in _prometheus(text).items()
+               if n == "storage_rpc_total" and 'dao="events"' in lbl
+               and 'method="find"' in lbl)
+
+
+def _rating_keys(events):
+    """(user * INGEST_ITEMS + item, rating) arrays of rate events, sorted
+    by key."""
+    key = np.fromiter((int(e.entity_id[1:]) * INGEST_ITEMS + int(e.target_entity_id[1:])
+                       for e in events), np.int64, count=len(events))
+    val = np.fromiter((e.properties.get("rating") for e in events), np.float64,
+                      count=len(events))
+    order = np.argsort(key, kind="stable")
+    return key[order], val[order]
+
+
+def _console_err(argv):
+    """console.main(argv)'s exit code, stdout and stderr (echoed)."""
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = console.main(argv)
+    finally:
+        print(out.getvalue(), end="", flush=True)
+        print(err.getvalue(), end="", file=sys.stderr, flush=True)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def phase_sharded(report, shared):
+    """Phase 12c: phase 12's ML-100K events over a `sharded` source of
+    three `console storageserver` daemons at REPLICAS=2: the import, the
+    partitioned reads, the self-check, a daemon SIGKILLed and the train
+    through the successor failover, a partial outage through the Event
+    Server, the fold-in over the per-shard streams and 500 queries."""
+    t_phase = time.perf_counter()
+    smi = report["nvidia_smi"]
+    users, items, ratings = shared["ingest"]
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    (SHARDED_DIR / "meta").mkdir(parents=True)
+    daemons = [_StorageDaemon(SHARDED_DIR / f"shard{i}", SHARDED_DIR, f"shard{i}-")
+               for i in range(SHARDED_N)]
+    home_of_user = np.array([shard_of(f"u{u}", SHARDED_N)
+                             for u in range(INGEST_USERS + SHARDED_NEW_USERS)])
+    home = home_of_user[users]
+    want = {}  # shard → its home events' sorted (key, rating)
+    for i in range(SHARDED_N):
+        k = users[home == i] * INGEST_ITEMS + items[home == i]
+        order = np.argsort(k, kind="stable")
+        want[i] = (k[order], ratings[home == i][order].astype(np.float64))
+    sh: dict = {"nvidia_smi": smi}
+    with contextlib.ExitStack() as stack:
+        for d in daemons:
+            d.store.mkdir(parents=True)
+            stack.callback(d.close)  # a failed phase leaves no daemon running
+        t0 = time.perf_counter()
+        for d in daemons:  # the three start at once
+            d.spawn()
+        for d in daemons:
+            d.wait()
+        sh["daemons_start_s"] = time.perf_counter() - t0
+        ports = [d.port for d in daemons]
+        stack.enter_context(_loop_storage(env=_sharded_env(ports)))
+        app_id, key = _sharded_import(sh, shared["ingest_events"], ports, want)
+        _sharded_reads(sh, app_id, ports, want)
+        _sharded_failover(sh, stack, app_id, ports, daemons, users, items, ratings)
+        _sharded_outage(sh, stack, app_id, key, ports, daemons, home_of_user)
+        _sharded_serve(sh, app_id)
+    check(all(d.console is None for d in daemons), "a daemon is still running")
+    sh["phase_s"] = time.perf_counter() - t_phase
+    report["sharded"] = sh
+    a, b, c, d, e = sh["a"], sh["b"], sh["c"], sh["d"], sh["e"]
+    print(f"[sharded] {smi} | (a) {INGEST_EDGES} ML-100K events imported through a sharded "
+          f"source of {SHARDED_N} daemons at REPLICAS={SHARDED_REPLICAS} in "
+          f"{a['import_s']:.2f} s ({INGEST_EDGES / a['import_s']:.1f} events/s); the daemons "
+          f"hold {a['rows']} rows (home + copies {a['held']}), each its predecessor's copies "
+          f"exactly (read through plain remote sources in {a['copies_read_s']:.2f} s)",
+          flush=True)
+    print(f"[sharded] {smi} | (b) shard=(i, {SHARDED_N}) reads: {b['rows']} events in "
+          f"{b['read_s']} s, each answered by daemon i alone (storage_rpc_total finds "
+          f"{b['finds']}), disjoint, their union the file's {INGEST_EDGES}", flush=True)
+    print(f"[sharded] {smi} | (c) status: {SHARDED_N} OK shard lines; shard {SHARDED_KILLED} "
+          f"SIGKILLed: status exit {c['status_rc']}, naming it; train before the kill: read "
+          f"{c['before']['read']:.3f} s, train {c['before']['train']:.3f} s; through the "
+          f"failover: read {c['after']['read']:.3f} s, train {c['after']['train']:.3f} s; "
+          f"frames equal, factors bit-equal; launches block_partials {c['launches']['partials']}"
+          f", combine {c['launches']['combine']}, held to the plain versions (max |err| "
+          f"{c['held']['max_abs_err']:.3g})", flush=True)
+    print(f"[sharded] {smi} | (d) {d['events']} new ratings from {INGEST_WRITERS} writers with "
+          f"shard {SHARDED_KILLED} down: {d['ingest_s']:.2f} s, {d['n201']} answered 201 and "
+          f"{d['n503']} 503 by position; restarted in {d['restart_s']:.2f} s, the 503s "
+          f"re-POSTed in {d['retry_rounds']} rounds ({d['retry_s']:.2f} s), every event once on "
+          f"its home", flush=True)
+    print(f"[sharded] {smi} | (e) consumer over {SHARDED_N} shard streams: {e['consumed']} "
+          f"events consumed and {e['folded']} folded once on cuda:0 in {e['ticks']} ticks "
+          f"({e['fold_s']:.2f} s); {N_QUERIES} queries from {N_CLIENTS} clients: p50 "
+          f"{e['p50_ms']:.3f} ms, p99 {e['p99_ms']:.3f} ms, {e['qps']:.1f} qps, {e['batches']} "
+          f"batches, top-k launches {sh['launches']['serve_topk']} (select "
+          f"{sh['launches']['serve_select']}, profiler {e['profiled']}); every answer the CPU "
+          f"plain top-k's; phase {sh['phase_s']:.1f} s", flush=True)
+
+
+def _sharded_import(sh, events, ports, want):
+    """(a) `app new` and `import` into the sharded source; each daemon,
+    asked through a plain remote source, holds its home events and its
+    predecessor's copies exactly, 2 x INGEST_EDGES rows in all."""
+    rc, out = _console_out(["app", "new", INGEST_APP])
+    key = re.search(r"^\[INFO\] Access key: (\S+)$", out, re.M)
+    check(rc == 0 and key is not None, "app new over the sharded source printed no access key")
+    path = SHARDED_DIR / "events.jsonl"
+    path.write_text("".join(json.dumps(e) + "\n" for e in events))
+    t0 = time.perf_counter()
+    check(console.main(["import", "--app", INGEST_APP, "--input", str(path)]) == 0,
+          "import into the sharded source")
+    import_s = time.perf_counter() - t0
+    app_id = Storage().get_meta_data_apps().get_by_name(INGEST_APP).id
+    def copies_of(i):  # daemon i's rows and its predecessor's copies, through it
+        direct = _remote_events(ports[i])
+        return (int(direct.data_signature(app_id).split(":")[0]), list(direct.find(
+            EventQuery(app_id=app_id, shard=((i - 1) % SHARDED_N, SHARDED_N)))))
+
+    held, t0 = [], time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(SHARDED_N) as pool:  # the daemons at once
+        answers = list(pool.map(copies_of, range(SHARDED_N)))
+    for i, (rows, copies) in enumerate(answers):
+        prev = (i - 1) % SHARDED_N
+        k, v = _rating_keys(copies)
+        check(np.array_equal(k, want[prev][0]) and np.array_equal(v, want[prev][1]),
+              f"daemon {i}'s copies differ from shard {prev}'s events in the file")
+        check(rows == len(want[i][0]) + len(want[prev][0]),
+              f"daemon {i} holds {rows} rows, not its {len(want[i][0])} home events and "
+              f"{len(want[prev][0])} copies")
+        held.append(rows)
+    check(sum(held) == SHARDED_REPLICAS * INGEST_EDGES, f"the daemons hold {held}")
+    sh["a"] = {"import_s": import_s, "rows": sum(held), "held": held,
+               "copies_read_s": time.perf_counter() - t0}
+    return app_id, key.group(1)
+
+
+def _sharded_reads(sh, app_id, ports, want):
+    """(b) shard=(i, N) through the sharded store: each answered by
+    daemon i alone, disjoint, their union the file's events."""
+    store = Storage().get_events()
+    check(type(store).__name__ == "ShardedEventStore" and store.n_shards == SHARDED_N
+          and store.replicas == SHARDED_REPLICAS,
+          f"EVENTDATA is {type(store).__name__}, not a {SHARDED_N}-shard sharded store")
+    ids, finds, secs, rows = set(), [], [], 0
+    for i in range(SHARDED_N):
+        before = [_rpc_finds(p) for p in ports]
+        t0 = time.perf_counter()
+        part = list(store.find(EventQuery(app_id=app_id, shard=(i, SHARDED_N))))
+        secs.append(round(time.perf_counter() - t0, 3))
+        moved = [_rpc_finds(p) - b for p, b in zip(ports, before)]
+        check(moved[i] > 0 and all(m == 0 for j, m in enumerate(moved) if j != i),
+              f"shard=({i}, {SHARDED_N}) moved the daemons' find counts by {moved}")
+        finds.append(moved)
+        k, v = _rating_keys(part)
+        check(np.array_equal(k, want[i][0]) and np.array_equal(v, want[i][1]),
+              f"shard=({i}, {SHARDED_N}) differs from shard {i}'s events in the file")
+        part_ids = {e.event_id for e in part}
+        check(len(part_ids) == len(part) and not part_ids & ids,
+              f"shard {i}'s read repeats an id or meets another shard's")
+        ids |= part_ids
+        rows += len(part)
+    check(rows == len(ids) == INGEST_EDGES, f"the shard reads hold {rows} events")
+    sh["b"] = {"rows": rows, "read_s": secs, "finds": finds}
+
+
+def _sharded_status(ports, down=None):
+    """`console status`: one OK line a shard, or exit 1 naming `down`."""
+    rc, out, err = _console_err(["status"])
+    for i, port in enumerate(ports):
+        line = f"shard {i} @ 127.0.0.1:{port}"
+        if i == down:
+            check(f"DOWN {line}" in err, f"status did not name shard {i} down: {err[-500:]}")
+        else:
+            check(f"OK {line}" in (out if down is None else err),
+                  f"status printed no OK line for shard {i}")
+    if down is None:
+        check(rc == 0, f"status exited {rc} with every daemon up")
+    else:
+        check(rc == 1 and f"event store shards down: {down} (127.0.0.1:{ports[down]})" in err,
+              f"status exited {rc} with shard {down} down: {err[-500:]}")
+    return rc
+
+
+def _sharded_train(engine_id, frames):
+    """`train --engine-json` over the sharded source: its instance, model,
+    stage timings, windowed launches and staged train."""
+    engine_json = _variant(engine_id, SHARDED_DIR / f"engine_{engine_id}.json")
+    wf.BLOCK_LAUNCHES.update(partials=0, combine=0)  # every count to 0 just before
+    df.PASS_LAUNCHES.update(row=0, col=0)
+    with _Spy(als, "stage_windowed") as stage:
+        inst, model = _train_variant(engine_json, engine_id, frames)
+    launches = {**wf.BLOCK_LAUNCHES, **df.PASS_LAUNCHES}
+    want = 2 * ALSAlgorithmParams().num_iterations
+    check(launches["partials"] == launches["combine"] == want
+          and launches["row"] == launches["col"] == 0,
+          f"the train over the sharded source launched {launches}, not {want} windowed passes")
+    staged = [out for *_, out in stage.calls]
+    check(len(staged) == 1 and isinstance(staged[0], als.StagedWindowedTrain),
+          f"the train staged {len(staged)} windowed trains")
+    return inst, model, launches, staged[0]
+
+
+def _sharded_failover(sh, stack, app_id, ports, daemons, users, items, ratings):
+    """(c) status with every daemon up; a train; the query server and its
+    consumer (cursors at each stream's head); shard SHARDED_KILLED
+    SIGKILLed; status fails naming it; the same train through the
+    successor failover: frames equal, factors bit-equal, kernels held."""
+    _sharded_status(ports)
+    frames: list = []
+    inst_a, model_a, la, _ = _sharded_train(SHARDED_ENGINES[0], frames)
+    frame = frames[0]
+    check(len(frame) == INGEST_EDGES, f"the train read {len(frame)} events")
+    uid, iid = _ids(frame.entity_vocab, "u"), _ids(frame.target_vocab, "i")
+    key = uid[frame.entity_idx] * INGEST_ITEMS + iid[frame.target_idx]
+    order, gen = np.argsort(key), np.argsort(users * INGEST_ITEMS + items)
+    check(np.array_equal(key[order], (users * INGEST_ITEMS + items)[gen])
+          and np.array_equal(frame.value[order], ratings[gen].astype(np.float32)),
+          "the frame read through the sharded source differs from the generated triples")
+    # the query server on the first train, its consumer seeded at every
+    # stream's head before the kill
+    storage = Storage()
+    runtime = build_runtime(storage, inst_a)
+    check(str(runtime.models[0].device) == "cuda:0",
+          f"the model is on {runtime.models[0].device}")
+    rec.LAUNCHES = 0  # every count to 0 just before the main path's serving
+    rec.ROUTE_LAUNCHES.update(select=0, sort=0)
+    srv = QueryServer(runtime=runtime, storage=storage,
+                      config=QueryServerConfig(ip="127.0.0.1", port=0))
+    sh["port"] = srv.start()
+    stack.callback(srv.stop)
+    consumer = OnlineConsumer(storage, ServerApplyHost(srv), app_id,
+                              OnlineConsumerConfig(tick_s=3600, from_latest=True))
+    check(sorted(consumer.cursor) == [f"shard{i}" for i in range(SHARDED_N)],
+          f"the consumer's cursor {consumer.cursor} is not one a shard stream")
+    sh["srv"], sh["consumer"], sh["cursor0"] = srv, consumer, dict(consumer.cursor)
+    t_kill = daemons[SHARDED_KILLED].kill()
+    rc = _sharded_status(ports, down=SHARDED_KILLED)
+    inst_b, model_b, lb, staged_b = _sharded_train(SHARDED_ENGINES[1], frames)
+    check(_frames_equal(frames[1], frames[0]),
+          "the frame read through the failover differs from the one read before the kill")
+    fa, fb = model_a.factors, model_b.factors
+    check(_finite(fb) and _bit_equal(fa, fb) and fa.user_vocab.to_dict() == fb.user_vocab.to_dict()
+          and fa.item_vocab.to_dict() == fb.item_vocab.to_dict(),
+          "the factors trained through the failover are not bit-equal to those before the kill")
+    held = {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
+            "combined_max_abs_err": 0.0, "combined_max_ratio": 0.0}
+    _windowed_held(staged_b, RANK, np.random.default_rng(SHARDED_SEED), held, "sharded plan")
+    sh["c"] = {"status_rc": rc, "before": stage_timings(inst_a), "after": stage_timings(inst_b),
+               "launches": {k: la[k] + lb[k] for k in la}, "held": held,
+               "kill_to_trained_s": time.perf_counter() - t_kill}
+
+
+def _sharded_events(rng):
+    """(d)'s traffic: SHARDED_NEW_USERS new users, each rating
+    SHARDED_USER_RATINGS distinct ML-100K movies 1-5, in a random order
+    a second apart after every earlier time, as Event Server JSON."""
+    rows = [(INGEST_USERS + u, int(i), int(rng.integers(1, 6)))
+            for u in range(SHARDED_NEW_USERS)
+            for i in rng.choice(INGEST_ITEMS, SHARDED_USER_RATINGS, replace=False)]
+    t0 = INGEST_T0_MS + 1000 * (INGEST_EDGES + 50_000)
+    return [{"event": "rate", "entityType": "user", "entityId": f"u{rows[j][0]}",
+             "targetEntityType": "item", "targetEntityId": f"i{rows[j][1]}",
+             "properties": {"rating": rows[j][2]}, "eventTime": _ms_iso(t0 + 1000 * n)}
+            for n, j in enumerate(rng.permutation(len(rows)).tolist())], t0
+
+
+def _post_all(port, key, bodies):
+    """Batches of INGEST_BATCH of `bodies` from INGEST_WRITERS threads:
+    each body's (status, answer) by position, and the wall seconds."""
+    work = [(j, f"/batch/events.json?accessKey={key}",
+             json.dumps(bodies[b:b + INGEST_BATCH]))
+            for j, b in enumerate(range(0, len(bodies), INGEST_BATCH))]
+    out: dict = {}
+    lock = threading.Lock()
+    threads = [threading.Thread(target=_post_work, args=(port, work[w::INGEST_WRITERS], out,
+                                                         lock))
+               for w in range(INGEST_WRITERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "writers hung")
+    answers = []
+    for j in range(len(work)):
+        status, body, _, _ = out[j]
+        check(status == 200, f"batch POST {j}: HTTP {status} {str(body)[:200]}")
+        answers += body
+    check(len(answers) == len(bodies), f"{len(answers)} answers for {len(bodies)} events")
+    return answers, time.perf_counter() - t0
+
+
+def _sharded_outage(sh, stack, app_id, key, ports, daemons, home_of_user):
+    """(d) `eventserver` over the sharded source with shard SHARDED_KILLED
+    still down: new ratings from INGEST_WRITERS writers, 201 where the
+    home shard is up and 503 where it is down, by position; the daemon
+    restarted on its file and the 503s re-POSTed; every event once on its
+    home."""
+    events, t0_ms = _sharded_events(np.random.default_rng(SHARDED_SEED))
+    es = stack.enter_context(_Console(["eventserver", "--ip", "127.0.0.1", "--port", "0"],
+                                      SHARDED_DIR / "eventserver.log"))
+    es_port = es.port(timeout=120)
+    homes = [int(home_of_user[int(e["entityId"][1:])]) for e in events]
+    answers, ingest_s = _post_all(es_port, key, events)
+    for n, (a, h) in enumerate(zip(answers, homes)):
+        check((a["status"], a.get("message")) == (
+            (503, "storage shard unavailable") if h == SHARDED_KILLED else (201, None)),
+            f"event {n} (home shard {h}) answered {a}")
+    ids = {n: a["eventId"] for n, a in enumerate(answers) if a["status"] == 201}
+    t0 = time.perf_counter()
+    daemons[SHARDED_KILLED].start()
+    restart_s = time.perf_counter() - t0
+    pending, rounds, t0 = [n for n, h in enumerate(homes) if h == SHARDED_KILLED], 0, \
+        time.perf_counter()
+    while pending:
+        check(rounds < SHARDED_RETRY_ROUNDS, f"{len(pending)} events still refused after "
+                                              f"{rounds} rounds of re-POSTs")
+        if rounds:
+            time.sleep(0.25)
+        rounds += 1
+        again, _ = _post_all(es_port, key, [events[n] for n in pending])
+        left = []
+        for n, a in zip(pending, again):
+            check(a["status"] in (201, 503), f"a re-POST of event {n} answered {a}")
+            if a["status"] == 201:
+                ids[n] = a["eventId"]
+            else:
+                left.append(n)
+        pending = left
+    retry_s = time.perf_counter() - t0
+    check(es.interrupt() is not None, "eventserver did not stop")
+    since = datetime.datetime.fromtimestamp(t0_ms / 1e3, datetime.timezone.utc)
+    for i, port in enumerate(ports):
+        got = [e.event_id for e in _remote_events(port).find(
+            EventQuery(app_id=app_id, start_time=since, shard=(i, SHARDED_N)))]
+        mine = {ids[n] for n, h in enumerate(homes) if h == i}
+        check(len(got) == len(set(got)) == len(mine) and set(got) == mine,
+              f"shard {i} holds {len(got)} of (d)'s events ({len(set(got) ^ mine)} differ "
+              f"from the {len(mine)} answered 201 for it)")
+    n503 = sum(h == SHARDED_KILLED for h in homes)
+    sh["d"] = {"events": len(events), "ingest_s": ingest_s, "n201": len(events) - n503,
+               "n503": n503, "restart_s": restart_s, "retry_rounds": rounds,
+               "retry_s": retry_s}
+
+
+def _sharded_serve(sh, app_id):
+    """(e) The consumer over the per-shard streams folds (d)'s events
+    once each; a second consumer at its persisted cursor consumes none;
+    500 queries for folded and known users, each the plain top-k on the
+    CPU, one select a device batch by the route and by devprof."""
+    srv, consumer, port = sh.pop("srv"), sh.pop("consumer"), sh.pop("port")
+    n_events = sh["d"]["events"]
+    fold_devices = []
+    fold_of = als.fold_in_rows
+
+    def fold(fixed, edges, params, device=None):
+        fold_devices.append(str(device))
+        return fold_of(fixed, edges, params, device=device)
+
+    als.fold_in_rows = fold
+    t0, ticks = time.perf_counter(), 0
+    try:
+        while True:
+            check(time.perf_counter() - t0 < SHARDED_WAIT_S, f"the consumer did not drain (d) "
+                                                            f"within {SHARDED_WAIT_S} s")
+            out = consumer.tick()
+            ticks += 1
+            if "idle" in out and not consumer.foldin.pending_items:
+                break
+    finally:
+        als.fold_in_rows = fold_of
+    fold_s = time.perf_counter() - t0
+    c = dict(consumer.counters)
+    check(c["events_consumed"] == c["events_folded"] == n_events,
+          f"the consumer consumed {c['events_consumed']} and folded {c['events_folded']} of "
+          f"{n_events} events")
+    check(c["users_folded"] >= SHARDED_NEW_USERS and consumer.status()["last_error"] is None,
+          f"the consumer: {consumer.status()}")
+    check(fold_devices and set(fold_devices) == {"cuda:0"},
+          f"folds ran on {sorted(set(fold_devices))}")
+    storage = Storage()
+    again = OnlineConsumer(storage, ServerApplyHost(srv), app_id,
+                           OnlineConsumerConfig(tick_s=3600, from_latest=True))
+    check(again.cursor == consumer.cursor and again.tick() == {"idle": "no new events"}
+          and again.counters == c, f"a restarted consumer: {again.cursor} {again.counters}")
+    model = srv.runtime.models[0]
+    check(str(model.device) == "cuda:0", f"the folded model is on {model.device}")
+    f = model.factors
+    new = [f"u{INGEST_USERS + u}" for u in range(SHARDED_NEW_USERS)]
+    check(all(f.user_vocab.contains(u) for u in new), "a folded user is not served")
+    rng = np.random.default_rng(SHARDED_SEED + 1)
+    picks = rng.choice(new, N_QUERIES // 2, replace=False).tolist()
+    queries = ([{"user": u, "num": int(rng.choice([5, 10, 20, 50]))} for u in picks]
+               + [{"user": f"u{int(u)}", "num": int(rng.choice([5, 10, 20, 50]))}
+                  for u in rng.integers(0, INGEST_USERS, N_QUERIES - len(picks))])
+    queries = [queries[n] for n in rng.permutation(len(queries)).tolist()]
+    st0, prof0 = _status(port), _exec_totals("als.recommend_serving")
+    l0, s0 = rec.LAUNCHES, rec.ROUTE_LAUNCHES["select"]
+    out, wall = _serve_load(port, queries)
+    st1, prof1 = _status(port), _exec_totals("als.recommend_serving")
+    batches = st1["batches"] - st0["batches"]
+    served, select = rec.LAUNCHES - l0, rec.ROUTE_LAUNCHES["select"] - s0
+    profiled = prof1[0] - prof0[0]
+    check(batches > 0 and served == select == batches == profiled
+          and st1["kernel_launches"] - st0["kernel_launches"] == batches,
+          f"top-k launches {served} (select {select}, profiler {profiled}) != batches {batches}")
+    check(srv.runtime.models[0] is model, "the model changed during the queries")
+    cpu_model = ALSModel(f, device="cpu")
+    cpu_alg = ALSAlgorithm(ALSAlgorithmParams())
+    for n, qy in enumerate(queries):
+        check(out[n][1] == _to_jsonable(cpu_alg.predict(cpu_model, Query(**qy))),
+              f"query {n} ({qy}) differs from the CPU plain top-k")
+    tally = {"cases": 0, "max_abs_err": 0.0}
+    _select_held(model._serving_state, rng, tally, "sharded slab")
+    sh["launches"] = {**sh["c"]["launches"], "serve_topk": served, "serve_select": select}
+    sh["e"] = {"consumed": c["events_consumed"], "folded": c["events_folded"],
+               "users_folded": c["users_folded"], "ticks": ticks, "fold_s": fold_s,
+               "cursor": dict(consumer.cursor), **_latency(out, wall, len(queries)),
+               "batches": batches, "profiled": profiled, "held": tally}
 
 
 # ---------------------------------------------------------------------------
@@ -9849,7 +10374,7 @@ def main() -> int:
                         ("fleet eval", phase_fleet_eval),
                         ("lifecycle", phase_lifecycle),
                         ("ingest", phase_ingest), ("remote", phase_remote),
-                        ("online", phase_online),
+                        ("sharded", phase_sharded), ("online", phase_online),
                         ("templates", phase_templates),
                         ("data25", phase_data25), ("windowed", phase_windowed),
                         ("windowed train", phase_windowed_train),
@@ -9883,6 +10408,7 @@ def main() -> int:
     sim, tml = tpl["similar"]["launches"], [tpl["ecommerce"]["launches"],
                                           tpl["recommendation"]["launches"]]
     rmt = report["remote"]["launches"]  # over the storage daemon: train, deploy
+    shd = report["sharded"]["launches"]  # the sharded source: two trains, the served queries
     fle = report["fleet_eval"]  # the shard children of (a) and (b), its jobs, (d)
     fl_shards = [fle["a"]["launches"], fle["b"]["launches"]]
     fl_jobs = [fle["b"]["launches_a"], fle["b"]["launches_n"]]
@@ -9894,6 +10420,7 @@ def main() -> int:
                                  "replication": report["replication"]["launches"]["topk"],
                                  "eval": ev["topk"], "eval dense": evd["topk"],
                                  "ingest": ing["serve_topk"], "remote": rmt["serve_topk"],
+                                 "sharded": shd["serve_topk"],
                                  "lifecycle": lc["serve_topk"],
                                  "online": report["online"]["launches"]["topk"],
                                  "similar": sim["serve_topk"],
@@ -9910,12 +10437,13 @@ def main() -> int:
             for which in ("row", "col")},
         "block_partials": {"windowed train": report["windowed_train"]["launches"]["partials"],
                            "eval": ev["partials"], "ingest": ing["partials"],
-                           "remote": rmt["partials"],
+                           "remote": rmt["partials"], "sharded": shd["partials"],
                            "similar": sim["partials"],
                            "templates": sum(t["partials"] for t in tml),
                            "fleet eval shards": sum(x["partials"] for x in fl_shards)},
         "combine": {"windowed train": report["windowed_train"]["launches"]["combine"],
                     "eval": ev["combine"], "ingest": ing["combine"], "remote": rmt["combine"],
+                    "sharded": shd["combine"],
                     "similar": sim["combine"], "templates": sum(t["combine"] for t in tml),
                     "fleet eval shards": sum(x["combine"] for x in fl_shards)},
         "fused_masked_topk": {"ur serve": report["ur_serve"]["launches"],
@@ -9925,7 +10453,8 @@ def main() -> int:
         "name": "fused_recommend_topk", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": sum(paths["fused_recommend_topk"].values()),
         "launches_by_path": paths["fused_recommend_topk"],
-        "max_abs_err": report["sweep"]["max_abs_err"],
+        "max_abs_err": max(report["sweep"]["max_abs_err"],
+                           report["sharded"]["e"]["held"]["max_abs_err"]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "device_ms": main_row["device_ms"],
@@ -9956,6 +10485,7 @@ def main() -> int:
                            held["windowed"]["max_abs_err"],
                            report["ingest"]["held"]["max_abs_err"],
                            report["remote"]["train"]["held"]["max_abs_err"],
+                           report["sharded"]["c"]["held"]["max_abs_err"],
                            tpl["similar"]["held"]["max_abs_err"]),
         "ms": users_side["ms"], "plain_ms": users_side["plain_ms"],
         "bound_ms": users_side["bound_ms"], "bound_by": users_side["bound_by"],

@@ -51,16 +51,21 @@ write, the admitted event is appended to the ``EventWAL`` under
 the ``eventId`` it will be stored under (per event in a batch; the JAX
 server answers the walId alone and stores the event under it, so a
 write applied before a daemon's crash and then spilled lands twice
-there, once here); with ``wal_dir`` None it is a 503 and nothing is
-stored. The ``event-wal-replay`` thread replays the log in arrival
+there, once here; over a sharded store the id is left to the store,
+as the JAX server leaves it); with ``wal_dir`` None it is a 503 and
+nothing is stored. The ``event-wal-replay`` thread replays the log in arrival
 order once the store answers, batched under stable request ids (each
 spilled event lands once), and counts ``event_wal_spilled_total``,
 ``event_wal_replayed_total`` and the ``event_wal_pending`` gauge. Access
 keys and channel lists that were read once are served from a cache
 while the store is unreachable, so that auth does not fail before the
-spill; a key never seen is a 503. Any other ``/debug/*`` path answers
-404 saying it is not ported; log shipping is not ported. The server's registry is sampled by the process
-monitor while it serves (``utils/http.py``).
+spill; a key never seen is a 503. A batch that a sharded store lands
+on some shards only (``PartialBatchWriteError``: a home shard down) is
+answered by position, 201 with its ``eventId`` where it persisted and
+503 "storage shard unavailable" where not, with nothing spilled (the
+JAX server's answer). Any other ``/debug/*`` path answers 404 saying
+it is not ported; log shipping is not ported. The server's registry is
+sampled by the process monitor while it serves (``utils/http.py``).
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ from predictionio_tpu_torch.data.event import (
 )
 from predictionio_tpu_torch.data.storage.base import EventQuery, StorageUnreachableError
 from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.data.storage.sharded import PartialBatchWriteError
 from predictionio_tpu_torch.obs import server_registry
 from predictionio_tpu_torch.resilience import deadline as _deadline
 from predictionio_tpu_torch.resilience import faults as _faults
@@ -180,7 +186,12 @@ class _Handler(JsonHandler):
         that a write the store applied but could not acknowledge (the
         daemon killed mid-call) and then spilled lands on the same row
         when replayed: the JAX server leaves the id to the store and
-        the spill, and stores such an event twice."""
+        the spill, and stores such an event twice. Over a store that
+        evicts an explicit id from its other shards before the write
+        (the sharded store: a broadcast a write, and a down shard
+        would fail every batch) the id is left to the store, as the
+        JAX server leaves it; such a store answers a shard outage with
+        503s and spills nothing, so no write can land twice."""
         try:
             event = Event.from_json_dict(obj)
             EventValidation.validate(event)
@@ -193,7 +204,10 @@ class _Handler(JsonHandler):
                 obj, {"appId": auth.app_id, "channelId": auth.channel_id})
         except Exception as e:
             raise HttpError(403, f"event rejected: {e}")
-        return event if event.event_id else event.with_id(new_event_id())
+        if event.event_id or getattr(self.server.storage.get_events(),
+                                     "EVICTS_EXPLICIT_IDS", False):
+            return event
+        return event.with_id(new_event_id())
 
     def _after_insert(self, auth: AuthData, obj: dict, event: Event) -> None:
         self.server.plugin_context.run_sniffers(
@@ -348,7 +362,8 @@ class _Handler(JsonHandler):
 
     def _post_batch(self, auth: AuthData) -> None:
         """Per-event statuses in a 200 after one `insert_batch` of the
-        admitted events (202 with a walId each when the batch spills); a
+        admitted events (202 with a walId each when the batch spills; 201
+        or 503 by position when a sharded store's batch is partial); a
         batch over MAX_EVENTS_PER_BATCH is a 400 for the whole (reference
         EventServer.scala:374-440)."""
         objs = self._json_body()
@@ -371,6 +386,18 @@ class _Handler(JsonHandler):
                 _faults.fire("event.insert")
                 ids = self.server.storage.get_events().insert_batch(
                     [e for _, _, e in admitted], auth.app_id, auth.channel_id)
+            except PartialBatchWriteError as e:
+                # a sharded store with a home shard down: a 201 for each
+                # event that persisted and a 503 for the others, nothing
+                # spilled (a blanket answer would invite a retry of the
+                # whole batch, which duplicates the persisted events)
+                for (pos, obj, event), eid in zip(admitted, e.ids):
+                    if eid is None:
+                        results[pos] = {"status": 503,
+                                        "message": "storage shard unavailable"}
+                    else:
+                        results[pos] = {"status": 201, "eventId": eid}
+                        self._after_insert(auth, obj, event)
             except _SPILLED as e:
                 # a whole outage: every admitted event into the WAL under one
                 # fsync, a 202 each (accepted and durable, not failed)
@@ -600,7 +627,8 @@ class EventServer(ServerProcess):
         """One ordered replay pass; returns the events that landed.
         Consecutive spills of one namespace land as bulk writes of up to
         REPLAY_CHUNK events: a remote store dedupes each on its stable
-        request id, an embedded one overwrites by the event ids."""
+        request id, a sharded one each shard's group on an id derived
+        from it, an embedded one overwrites by the event ids."""
         server = self._server
         if server is None or server.wal is None or not server.wal.pending():
             return 0

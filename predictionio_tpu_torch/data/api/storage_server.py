@@ -22,8 +22,11 @@ A write carries a ``req_id``: the answer is kept (the last 4,096), and a
 retry of an applied request replays it; a retry that arrives while the
 first attempt still runs waits for it, so that a request id applies
 once. A find with paging arguments answers one page by keyset
-(``_paged_find``). One thread a connection; the stores serialize their
-own writes, so writes from every process serialize once, here.
+(``_paged_find``). A partitioned read (``EventQuery.shard``,
+``find_since``'s ``shard``) is filtered by the daemon's store, so only
+that partition's events cross the wire. One thread a connection; the
+stores serialize their own writes, so writes from every process
+serialize once, here.
 
 The ``replication`` DAO is the shipper's RPC surface on a follower
 daemon, whose events store is a ``ReplicaEventStore``

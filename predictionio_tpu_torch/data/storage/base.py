@@ -4,8 +4,10 @@ Counterpart of the JAX package's ``data/storage/base.py``, cut to what
 the port's train → deploy, eval and event-server paths call: the
 ``EventQuery`` filters by app, channel, time range, entity type and id,
 event names, target entity type and id, with a limit, the reversed
-order, the absent-target filter and the keyset cursor ``start_after``
-(no shards); the records ``App``, ``AccessKey``, ``Channel``,
+order, the absent-target filter, the keyset cursor ``start_after`` and
+the partitioned read ``shard`` (``shard_of``: crc32 of the entity id
+mod n, the hash every store and the storage daemon agree on); the
+records ``App``, ``AccessKey``, ``Channel``,
 ``EngineInstance``, ``EvaluationInstance``, ``EngineManifest`` and
 ``Model`` are the JAX package's field for field; the DAO interfaces are
 those of events (one namespace per app and channel), apps, access keys,
@@ -15,8 +17,8 @@ under it) is the one storage failure that retry layers and the Event
 Server's write-ahead spill treat as transient. The event store
 tails by insert revision (``latest_revision``, ``find_since``,
 ``revision_streams``: the online consumer's read) over one stream a
-store, since no ported store shards. The derived reads are the JAX
-package's: ``find_single_entity`` (newest first by default), the
+plain store (the sharded store has one a shard). The derived reads are
+the JAX package's: ``find_single_entity`` (newest first by default), the
 property folds ``aggregate_properties`` (with ``required``) and
 ``aggregate_properties_of_entity`` over ``find``'s (event_time,
 event_id) order, and ``data_signature``, the fingerprint that keys the
@@ -38,6 +40,15 @@ from predictionio_tpu_torch.data.aggregator import (
 )
 from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
+
+
+def shard_of(entity_id: str, n_shards: int) -> int:
+    """The entity's shard: crc32 of its id mod `n_shards`. Every store,
+    the storage daemon and the JAX package agree on it, so partitioned
+    readers are disjoint."""
+    import zlib
+
+    return zlib.crc32(entity_id.encode()) % n_shards
 
 
 class StorageError(RuntimeError):
@@ -68,7 +79,10 @@ class EventQuery:
     a keyset cursor: only events strictly after that (event_time,
     event_id) in scan order (greater for a forward scan, less for a
     reversed one), so that pages are O(page) and stable under concurrent
-    writes (the remote store's paged find)."""
+    writes (the remote store's paged find). `shard` = (i, n) keeps the
+    events whose entity is in partition i of n (`shard_of`): the n
+    partitions are disjoint and complete, and each entity's events land
+    in one of them."""
 
     app_id: int
     channel_id: Optional[int] = None
@@ -85,8 +99,17 @@ class EventQuery:
     # are then ignored)
     filter_target_absent: bool = False
     start_after: Optional[tuple[_dt.datetime, str]] = None
+    shard: Optional[tuple[int, int]] = None
+
+    def shard_matches(self, entity_id: str) -> bool:
+        if self.shard is None:
+            return True
+        idx, n = self.shard
+        return shard_of(entity_id, n) == idx
 
     def matches(self, e: Event) -> bool:
+        if not self.shard_matches(e.entity_id):
+            return False
         if self.start_after is not None:
             key = (e.event_time, e.event_id or "")
             if (key >= self.start_after) if self.reversed else (key <= self.start_after):
@@ -228,11 +251,12 @@ class EventStore(abc.ABC):
         """Events with revision strictly above `after_revision`, in
         revision order, cut to `limit` (None or negative: all). Revisions
         are assigned at insert, so no client-supplied event time can
-        reorder the tail. `shard` must be None: no ported store shards.
+        reorder the tail. `shard` = (i, n) keeps partition i's events
+        (the consumer's filter against a sharded store's replica copies).
         Default: a scan and a sort; the ported stores override it."""
-        _no_shard(shard)
         out = sorted(
-            (e for e in self.find(EventQuery(app_id=app_id, channel_id=channel_id))
+            (e for e in self.find(EventQuery(app_id=app_id, channel_id=channel_id,
+                                             shard=shard))
              if e.revision is not None and e.revision > after_revision),
             key=lambda e: e.revision)
         return out[:limit] if limit is not None and limit >= 0 else out
@@ -241,8 +265,8 @@ class EventStore(abc.ABC):
         self,
     ) -> list[tuple[str, "EventStore", Optional[tuple[int, int]]]]:
         """The independently tailable revision streams as (key, store,
-        shard filter) rows: one for every ported store, so a consumer's
-        cursor is {"0": revision}."""
+        shard filter) rows: one for a plain store, so a consumer's cursor
+        is {"0": revision}; the sharded store has one a shard."""
         return [("0", self, None)]
 
     def data_signature(self, app_id: int,
@@ -325,11 +349,6 @@ class EventStore(abc.ABC):
             entity_id=entity_id, event_names=list(SPECIAL_EVENTS),
         )))
 
-
-
-def _no_shard(shard) -> None:
-    if shard is not None:
-        raise ValueError("no ported event store shards: shard must be None")
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,11 @@ and evaluation instances, engine manifests and models.
 Counterpart of the JAX package's ``data/storage/memory.py``, cut to what
 the port calls: the event store's namespaces per app and channel with
 ``insert``, ``insert_batch``, ``get``, ``delete``, ``remove_app``,
-``find`` (with the keyset cursor ``start_after``),
-``find_entities_batch``, the tail read by insert revision
-(``latest_revision``, ``find_since``) and ``data_signature`` (count +
-a write version bumped at every insert and delete), and the metadata
+``find`` (with the keyset cursor ``start_after`` and the partition
+filter ``shard``), ``find_entities_batch``, the tail read by insert
+revision (``latest_revision``, ``find_since``, which takes a ``shard``
+too) and ``data_signature`` (count + a write version bumped at every
+insert and delete), and the metadata
 rows. One RLock per store; events are kept per namespace with a
 per-entity index for history reads. A channel id of 0 is the default channel, as in the
 sqlite store.
@@ -165,13 +166,14 @@ class MemoryEventStore(base.EventStore):
                    channel_id: Optional[int] = None,
                    limit: Optional[int] = None,
                    shard: Optional[tuple[int, int]] = None) -> list[Event]:
-        """The namespace's events above the cursor in revision order: an
-        overwritten event carries its newest revision, a deleted one
-        none."""
-        base._no_shard(shard)
+        """The namespace's events above the cursor in revision order, of
+        partition `shard` only when one is given: an overwritten event
+        carries its newest revision, a deleted one none."""
         with self._lock:
             out = [e for e in self._ns.get(_ns(app_id, channel_id), {}).values()
-                   if e.revision > after_revision]
+                   if e.revision > after_revision and (
+                       shard is None
+                       or base.shard_of(e.entity_id, shard[1]) == shard[0])]
         out.sort(key=lambda e: e.revision)
         return out[:limit] if limit is not None and limit >= 0 else out
 

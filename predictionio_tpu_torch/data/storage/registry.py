@@ -12,11 +12,17 @@ localfs, remote (every DAO through a storage daemon,
 ``data/api/storage_server.py``; its ``HOST``, ``PORT``, ``AUTH_KEY`` and
 ``TIMEOUT`` settings), segmentfs (columnar events only; ``PATH`` and
 the seal settings), segmentfs-replica (a segmentfs follower fed by a
-primary's shipper, ``data/storage/replication.py``) and docfs (JSON
-metadata documents and model files; ``PATH``); a repository resolves to the backend's DAO, with
-one client a source where the backend has clients (sqlite's connection,
-remote's ``CLIENT_FACTORY``). The process singleton and the storage
-self-check are not ported.
+primary's shipper, ``data/storage/replication.py``), sharded (events
+over N storage daemons by entity hash, ``data/storage/sharded.py``;
+``SHARDS``, ``REPLICAS``, ``ALLOW_PARTIAL``, ``RETRIES``,
+``HEDGED_READS``; EVENTDATA only) and docfs (JSON metadata documents
+and model files; ``PATH``); a repository resolves to the backend's DAO,
+with one client a source where the backend has clients (sqlite's
+connection, remote's ``CLIENT_FACTORY``). ``Storage.get_instance`` and
+``set_instance`` hold the process's Storage; ``verify_all_data_objects``
+is the storage self-check of ``console status`` (reference
+Storage.verifyAllDataObjects:335): every DAO, each shard's health, and
+a write/read/delete probe event.
 """
 
 from __future__ import annotations
@@ -50,6 +56,9 @@ BACKENDS: dict[str, tuple[str, str]] = {
     # storage daemon's transport, promotable by a fenced election;
     # EVENTDATA only
     "segmentfs-replica": ("predictionio_tpu_torch.data.storage.replication", "Replica"),
+    # events over N storage daemons, routed by entity hash (the
+    # reference's HBase region-server role); EVENTDATA only
+    "sharded": ("predictionio_tpu_torch.data.storage.sharded", "Sharded"),
 }
 
 # DAO → class suffix
@@ -132,6 +141,9 @@ class Storage:
     """DAO factory bound to a StorageConfig: the environment's, else the
     development wiring."""
 
+    _instance: Optional["Storage"] = None
+    _instance_lock = threading.Lock()
+
     def __init__(self, config: Optional[StorageConfig] = None):
         if config is None:
             config = StorageConfig.from_env()
@@ -141,6 +153,20 @@ class Storage:
         self._clients: dict[str, Any] = {}
         self._daos: dict[tuple[str, str], Any] = {}
         self._lock = threading.RLock()
+
+    @classmethod
+    def get_instance(cls) -> "Storage":
+        """The process's Storage, made from the environment at the first
+        call."""
+        with cls._instance_lock:
+            if cls._instance is None:
+                cls._instance = Storage()
+            return cls._instance
+
+    @classmethod
+    def set_instance(cls, storage: Optional["Storage"]) -> None:
+        with cls._instance_lock:
+            cls._instance = storage
 
     def _source_for_repo(self, repo: str) -> SourceConfig:
         src_name = self.config.repositories.get(repo)
@@ -207,3 +233,46 @@ class Storage:
 
     def get_model_data_models(self) -> base.Models:
         return self._get_dao("MODELDATA", "models")
+
+    # -- the self-check (reference Storage.verifyAllDataObjects:335) ---------
+    def verify_all_data_objects(self) -> list[str]:
+        """Touch every DAO, ping every shard of a sharded event store, and
+        write, read and delete a probe event in app 0. Returns one line a
+        check; raises a StorageError naming the down shards (with every
+        line so far) or a failed probe."""
+        results = []
+        for getter in (
+            self.get_meta_data_apps,
+            self.get_meta_data_access_keys,
+            self.get_meta_data_channels,
+            self.get_meta_data_engine_instances,
+            self.get_meta_data_evaluation_instances,
+            self.get_meta_data_engine_manifests,
+            self.get_model_data_models,
+        ):
+            results.append(f"OK {type(getter()).__name__}")
+        events = self.get_events()
+        if hasattr(events, "health"):
+            down = []
+            for h in events.health():
+                line = f"{'OK' if h['alive'] else 'DOWN'} shard {h['shard']} @ {h['address']}"
+                if h["error"]:
+                    line += f" — {h['error']}"
+                results.append(line)
+                if not h["alive"]:
+                    down.append(f"{h['shard']} ({h['address']})")
+            if down:
+                # the raise drops `results`: the operator needs these lines
+                raise StorageError("event store shards down: " + ", ".join(down)
+                                   + "\n" + "\n".join(f"  {r}" for r in results))
+        events.init_app(0)
+        from predictionio_tpu_torch.data.event import Event
+
+        eid = events.insert(Event(event="$set", entity_type="storage_probe",
+                                  entity_id="0", properties={"probe": True}), 0)
+        if events.get(eid, 0) is None:
+            raise StorageError("event store probe write/read failed")
+        events.delete(eid, 0)
+        events.remove_app(0)
+        results.append(f"OK {type(events).__name__} (write/read/delete probe)")
+        return results

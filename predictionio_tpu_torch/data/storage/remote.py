@@ -267,6 +267,10 @@ class RemoteEventStore(_RemoteDao, base.EventStore):
     # on either side (the reference's DAOs stream for the same reason)
     FIND_PAGE = 10_000
 
+    # a write waits on the network with the interpreter lock released, so
+    # a sharded store fans its per-shard writes out to its pool
+    IO_PARALLEL_WRITES = True
+
     def init_app(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         return self._call("init_app", app_id, channel_id)
 
@@ -313,10 +317,10 @@ class RemoteEventStore(_RemoteDao, base.EventStore):
                    limit: Optional[int] = None,
                    shard: Optional[tuple[int, int]] = None) -> list[Event]:
         """The revision tail, read by the daemon's store (sqlite's indexed
-        range read); only the page crosses the wire."""
-        base._no_shard(shard)
+        range read, filtered to partition `shard` there when one is
+        given); only the page crosses the wire."""
         return self._call("find_since", app_id, after_revision, channel_id=channel_id,
-                          limit=limit, shard=None)
+                          limit=limit, shard=list(shard) if shard is not None else None)
 
     def data_signature(self, app_id: int, channel_id: Optional[int] = None) -> str:
         return self._call("data_signature", app_id, channel_id)

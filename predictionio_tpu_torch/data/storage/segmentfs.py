@@ -64,9 +64,11 @@ Configure::
 
 and point PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE at it: segmentfs
 stores events only, so METADATA and MODELDATA stay on another source
-(docfs, sqlite, localfs). No ported store shards: ``find_since`` refuses
-a ``shard``. The replication seam (``set_commit_hook`` and the ``ship_*``
-methods) is what ``replication.py``'s shipper reads a primary through.
+(docfs, sqlite, localfs). A partitioned read (``EventQuery.shard``,
+``find_since``'s ``shard``) filters the sealed rows through each
+segment's entity vocabulary and the tail row by row. The replication
+seam (``set_commit_hook`` and the ``ship_*`` methods) is what
+``replication.py``'s shipper reads a primary through.
 """
 
 from __future__ import annotations
@@ -320,6 +322,15 @@ class _Segment:
                 "event_id": all_ids[i], "revision": rev})
             out.append(e)
         return out
+
+
+def _in_shard(seg: _Segment, shard: tuple[int, int]) -> np.ndarray:
+    """Whether each of the segment's distinct entities is in partition
+    `shard` = (i, n): one hash an entity, looked up by a row's code."""
+    sidx, n = shard
+    vocab = seg.footer["entity_ids"]
+    return np.fromiter((base.shard_of(eid, n) == sidx for eid in vocab),
+                       dtype=bool, count=len(vocab))
 
 
 def _rank_first_seen(sel: np.ndarray) -> tuple[list[str], np.ndarray]:
@@ -958,6 +969,8 @@ class SegmentFSEventStore(base.EventStore):
                 rows = np.arange(seg.n_rows)
             if dead:
                 rows = rows[~np.isin(rows, np.fromiter(dead, np.int64))]
+            if query.shard is not None:  # a partition's rows only become Events
+                rows = rows[_in_shard(seg, query.shard)[seg.col("entity_idx")[rows]]]
             for lo in range(0, len(rows), _PAGE_ROWS):
                 yield from seg.events_page(rows[lo : lo + _PAGE_ROWS])
         for rev, row in ns.live_tail():
@@ -1052,8 +1065,8 @@ class SegmentFSEventStore(base.EventStore):
         shard: Optional[tuple[int, int]] = None,
     ) -> list[Event]:
         """An indexed tail read: segments are keyed by revision range, so
-        the cursor finds its segment by a binary search and reads on."""
-        base._no_shard(shard)
+        the cursor finds its segment by a binary search and reads on; a
+        `shard` keeps that partition's events only."""
         with self._lock:
             ns = self._namespace(app_id, channel_id)
             out: list[Event] = []
@@ -1077,16 +1090,24 @@ class SegmentFSEventStore(base.EventStore):
                 while lo < len(rows) and not full():
                     chunk = _PAGE_ROWS
                     if limit is not None and limit >= 0:
-                        chunk = max(64, min(_PAGE_ROWS, limit - len(out)))
+                        # a shard passes about 1/n of the rows
+                        need = (limit - len(out)) * (shard[1] if shard else 1)
+                        chunk = max(64, min(_PAGE_ROWS, need))
                     for e in seg.events_page(rows[lo : lo + chunk]):
                         if full():
                             break
+                        if shard is not None and base.shard_of(
+                                e.entity_id, shard[1]) != shard[0]:
+                            continue
                         out.append(e)
                     lo += chunk
             for rev, row in ns.live_tail():
                 if full():
                     break
                 if rev <= after_revision:
+                    continue
+                if shard is not None and base.shard_of(
+                        row[_ROW_EID], shard[1]) != shard[0]:
                     continue
                 out.append(_row_event(row, rev))
         return out
@@ -1323,13 +1344,12 @@ class SegmentFSEventStore(base.EventStore):
     @staticmethod
     def _frame_key(query: EventQuery, value_prop: Optional[str],
                    default_value: float) -> tuple:
-        # the JAX key's `shard` slot is None here: no ported store shards
         return (
             (query.app_id, query.channel_id),
             query.start_time, query.until_time, query.entity_type,
             tuple(query.event_names) if query.event_names else None,
             query.target_entity_type, query.filter_target_absent,
-            None, value_prop, default_value,
+            query.shard, value_prop, default_value,
         )
 
     @staticmethod
@@ -1372,6 +1392,8 @@ class SegmentFSEventStore(base.EventStore):
                 except ValueError:
                     mask[:] = False
             ent = seg.col("entity_idx")
+            if query.shard is not None:
+                mask &= _in_shard(seg, query.shard)[ent]
             idx = np.nonzero(mask)[0]
             if not len(idx):
                 continue
@@ -1432,6 +1454,8 @@ class SegmentFSEventStore(base.EventStore):
                     continue
             elif (query.target_entity_type is not None
                   and r[_ROW_TTYPE] != query.target_entity_type):
+                continue
+            if not query.shard_matches(r[_ROW_EID]):
                 continue
             sel.append(r)
         if not sel:

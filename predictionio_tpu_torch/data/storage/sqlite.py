@@ -15,7 +15,9 @@ cursor (``start_after``) is an indexed range clause on (eventTime, id). The tail
 (``find_since``, ``latest_revision``) goes through the table's
 ``idx_<table>_rev`` index and the ``pio_insert_revisions`` counter;
 ``data_signature`` is the row count with the ``pio_data_versions``
-write version. Model blobs and shard filters are not ported.
+write version. A partitioned read (``EventQuery.shard``, ``find_since``'s
+``shard``) filters in SQL through the ``pio_shard(entityId, n)``
+function, the JAX package's. Model blobs are not ported.
 """
 
 from __future__ import annotations
@@ -71,6 +73,10 @@ class SqliteClient:
         self.conn.execute("PRAGMA synchronous=NORMAL")
         self.conn.execute("PRAGMA cache_size=-262144")  # KiB
         self.conn.execute("PRAGMA temp_store=MEMORY")
+        # the partitioned read's filter in SQL: crc32(entityId) % n, the
+        # hash every store agrees on
+        self.conn.create_function("pio_shard", 2, base.shard_of,
+                                  deterministic=True)
         self.lock = threading.RLock()
 
 
@@ -290,6 +296,10 @@ class SqliteEventStore(base.EventStore):
             op = "<" if query.reversed else ">"
             clauses.append(f"(eventTime {op} ? OR (eventTime = ? AND id {op} ?))")
             params.extend([_ms(t), _ms(t), eid])
+        if query.shard is not None:
+            idx, n = query.shard
+            clauses.append("pio_shard(entityId, ?) = ?")
+            params.extend([int(n), int(idx)])
         return ("WHERE " + " AND ".join(clauses)) if clauses else "", params
 
     def find(self, query: EventQuery) -> Iterator[Event]:
@@ -434,16 +444,19 @@ class SqliteEventStore(base.EventStore):
         limit: Optional[int] = None,
         shard: Optional[tuple[int, int]] = None,
     ) -> list[Event]:
-        """Indexed tail read: revision above the cursor, in revision
-        order, one page through idx_<table>_rev, folded into one row
-        (`_one_step`)."""
-        base._no_shard(shard)
+        """Indexed tail read: revision above the cursor (of partition
+        `shard` only when one is given), in revision order, one page
+        through idx_<table>_rev, folded into one row (`_one_step`)."""
         name = self._ensure_table(app_id, channel_id)
         lim = f" LIMIT {int(limit)}" if limit is not None and limit >= 0 else ""
+        where, params = "revision > ?", [int(after_revision)]
+        if shard is not None:
+            where += " AND pio_shard(entityId, ?) = ?"
+            params.extend([int(shard[1]), int(shard[0])])
         rows = self._one_step(
             f"SELECT json_group_array(json_array({self._COLUMNS})) FROM "
-            f"(SELECT {self._COLUMNS} FROM {name} WHERE revision > ? "
-            f"ORDER BY revision ASC{lim})", (int(after_revision),))
+            f"(SELECT {self._COLUMNS} FROM {name} WHERE {where} "
+            f"ORDER BY revision ASC{lim})", params)
         rows.sort(key=lambda r: r[-1])
         return [self._to_event(r) for r in rows]
 

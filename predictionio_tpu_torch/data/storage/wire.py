@@ -4,7 +4,7 @@ Counterpart of the JAX package's ``data/storage/wire.py``, tag for tag,
 so that either package's client talks to the other's daemon: tagged
 JSON for every value that crosses the storage RPC boundary, which are
 events (with datetimes to the microsecond), queries (with the keyset
-cursor; a shard filter is refused, as the port's stores refuse it), the seven metadata record types, model
+cursor and the shard filter), the seven metadata record types, model
 blobs, datetimes and bytes. The protocol takes the role of the
 reference's JDBC/HBase client stacks (data/.../storage/jdbc/
 JDBCLEvents.scala:34, hbase/HBEventsUtil.scala:47): the Event Server,
@@ -78,7 +78,7 @@ def encode(obj: Any) -> Any:
                 "limit": obj.limit,
                 "reversed": obj.reversed,
                 "filter_target_absent": obj.filter_target_absent,
-                "shard": None,  # the JAX field; no ported store shards
+                "shard": list(obj.shard) if obj.shard is not None else None,
                 "start_after": (
                     [_enc_dt(obj.start_after[0]), obj.start_after[1]]
                     if obj.start_after is not None
@@ -158,8 +158,6 @@ def decode(obj: Any) -> Any:
         if tag == "$event":
             return Event.from_json_dict(val)
         if tag == "$query":
-            if val.get("shard") is not None:
-                raise ValueError("no ported event store shards: shard must be None")
             return EventQuery(
                 app_id=val["app_id"],
                 channel_id=val["channel_id"],
@@ -173,6 +171,8 @@ def decode(obj: Any) -> Any:
                 limit=val["limit"],
                 reversed=val["reversed"],
                 filter_target_absent=val["filter_target_absent"],
+                shard=(tuple(val["shard"]) if val.get("shard") is not None
+                       else None),
                 start_after=(
                     (_dec_dt(val["start_after"][0]), val["start_after"][1])
                     if val.get("start_after") is not None

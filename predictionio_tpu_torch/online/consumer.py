@@ -4,8 +4,10 @@ cursor.
 Counterpart of the JAX package's ``online/consumer.py``. One background
 thread a consumer; each tick:
 
-1. **tail**: `find_since` on the store's revision stream (one: no
-   ported store shards) from the durable cursor. Revisions are assigned
+1. **tail**: `find_since` on each of the store's revision streams (one
+   a plain store; one a shard of a sharded store, filtered to that
+   shard's primaries, so that a successor's copies fold once) from the
+   durable cursor, one entry a stream. Revisions are assigned
    at insert, so no client-supplied event time reorders the fold.
 2. **fold**: `ALSFoldIn.apply` re-solves every dirty user's (and new
    item's) row against the fixed opposite side into a new model and

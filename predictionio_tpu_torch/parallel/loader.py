@@ -87,7 +87,7 @@ class SegmentStager:
         key = (query.app_id, query.channel_id,
                tuple(query.event_names) if query.event_names else None,
                query.entity_type, query.target_entity_type,
-               query.start_time, query.until_time,
+               query.start_time, query.until_time, query.shard,
                value_prop, default_value, token, n_sealed)
         cols = {"entity_idx": np.asarray(frame.entity_idx, np.int32),
                 "target_idx": np.asarray(frame.target_idx, np.int32),

@@ -684,10 +684,11 @@ def storageserver(args: argparse.Namespace) -> int:
 
 
 def status(args: argparse.Namespace) -> int:
-    """The storage each repository resolves to, every metadata DAO and the
-    event store touched, the device the trains and deploys take; over
-    segmentfs each app's segment line, and with `--event-url` a running
-    Event Server's."""
+    """The storage each repository resolves to, its self-check
+    (`Storage.verify_all_data_objects`: every DAO, each shard of a
+    sharded event store, a probe event; a down shard fails the command),
+    the device the trains and deploys take; over segmentfs each app's
+    segment line, and with `--event-url` a running Event Server's."""
     import torch
 
     storage = Storage()
@@ -701,12 +702,12 @@ def status(args: argparse.Namespace) -> int:
         src = storage.config.sources[name]
         where = src.settings.get("PATH", "")
         print(f"[INFO] {repo}: source {name} ({src.type}) {where}".rstrip())
-    for getter in (storage.get_meta_data_apps, storage.get_meta_data_access_keys,
-                   storage.get_meta_data_channels,
-                   storage.get_meta_data_engine_instances,
-                   storage.get_meta_data_evaluation_instances,
-                   storage.get_model_data_models, storage.get_events):
-        print(f"[INFO]   OK {type(getter()).__name__}")
+    print("[INFO] Verifying storage backend connections...")
+    try:
+        for line in storage.verify_all_data_objects():
+            print(f"[INFO]   {line}")
+    except Exception as e:  # noqa: BLE001 — reported, as the JAX console does
+        return _fail(f"storage verification failed: {e}")
     events = storage.get_events()
     if hasattr(events, "segment_stats"):
         # segmentfs: each app's sealed segments, tail depth and dead rows

@@ -112,7 +112,8 @@ def test_fleet_modules_load_neither_jax_nor_torch(module):
 # write-ahead log, the wire codec, the remote client and the storage
 # daemon, which the Event Server and the daemon's process import; the
 # segmentfs and docfs stores, which they open; the replicated store and
-# its election, which a follower or a primary daemon runs
+# its election, which a follower or a primary daemon runs; the sharded
+# store over storage daemons, which the Event Server opens
 STORAGE_MODULES = ["predictionio_tpu_torch.resilience",
                    "predictionio_tpu_torch.resilience.retry",
                    "predictionio_tpu_torch.resilience.breaker",
@@ -123,7 +124,8 @@ STORAGE_MODULES = ["predictionio_tpu_torch.resilience",
                    "predictionio_tpu_torch.data.storage.segmentfs",
                    "predictionio_tpu_torch.data.storage.docfs",
                    "predictionio_tpu_torch.data.storage.replication",
-                   "predictionio_tpu_torch.fleet.election"]
+                   "predictionio_tpu_torch.fleet.election",
+                   "predictionio_tpu_torch.data.storage.sharded"]
 
 
 def test_the_walk_covers_the_storage_modules():
@@ -134,7 +136,8 @@ def test_the_walk_covers_the_storage_modules():
               "data/storage/wire.py", "data/storage/remote.py",
               "data/api/storage_server.py", "data/storage/segmentfs.py",
               "data/storage/docfs.py", "parallel/loader.py",
-              "data/storage/replication.py", "fleet/election.py"):
+              "data/storage/replication.py", "fleet/election.py",
+              "data/storage/sharded.py"):
         assert f"predictionio_tpu_torch/{f}" in walked
     assert set(STORAGE_MODULES) <= set(_port_modules())
 

@@ -146,8 +146,16 @@ def test_find_since_and_latest_revision_match_the_jax_stores(kind, tmp_path):
         port.find_since(1, 2, limit=2))
     assert base.EventStore.latest_revision(port, 1) == 6
     assert port.revision_streams() == [("0", port, None)]
-    with pytest.raises(ValueError, match="shard"):
-        port.find_since(1, 0, shard=(0, 2))
+    # a shard keeps that partition's events, as the JAX stores keep them
+    for n in (2, 3):
+        for i in range(n):
+            for after, limit in ((0, None), (2, 1), (0, 2)):
+                got = port.find_since(1, after, limit=limit, shard=(i, n))
+                want = jax_store.find_since(1, after, limit=limit, shard=(i, n))
+                assert _tail(got) == _tail(want), (i, n, after, limit)
+                assert all(base.shard_of(e.entity_id, n) == i for e in got)
+    assert _tail(base.EventStore.find_since(port, 1, 0, shard=(1, 2))) == _tail(
+        port.find_since(1, 0, shard=(1, 2)))
 
 
 def test_sqlite_tail_survives_a_reopen_and_reads_across_packages(tmp_path):

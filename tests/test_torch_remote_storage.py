@@ -166,7 +166,7 @@ def _plain(v):
         d = {f.name: _plain(getattr(v, f.name)) for f in dataclasses.fields(v)}
         if "properties" in d and hasattr(v.properties, "to_dict"):
             d["properties"] = v.properties.to_dict()
-        d.pop("shard", None)  # the JAX query's field; None throughout here
+        d.pop("shard", None)  # None throughout the records here
         return d
     if isinstance(v, dict):
         return {k: _plain(x) for k, x in v.items()}
@@ -185,8 +185,12 @@ def test_wire_round_trips_and_crosses_packages():
         assert _plain(jwire.decode(enc)) == _plain(j_rec)  # ours decoded there
     ev = wire.decode(wire.encode(mine[0]))
     assert ev.event_time.microsecond == 123456 and ev.creation_time == mine[0].creation_time
-    with pytest.raises(ValueError, match="no ported event store shards"):
-        wire.decode(jwire.encode(jbase.EventQuery(app_id=1, shard=(0, 2))))
+    # the shard filter crosses in both directions
+    q = wire.decode(jwire.encode(jbase.EventQuery(app_id=1, shard=(0, 2))))
+    assert q.shard == (0, 2)
+    assert jwire.decode(wire.encode(q)).shard == (0, 2)
+    assert json.dumps(wire.encode(q)) == json.dumps(jwire.encode(
+        jbase.EventQuery(app_id=1, shard=(0, 2))))
     with pytest.raises(TypeError, match="cannot encode"):
         wire.encode(object())
 

@@ -576,8 +576,31 @@ def test_cas_election_across_packages_on_one_record_store(tmp_path):
     """A JAX and a port candidate bid for one generation over one sqlite
     record store: exactly one wins, and both read the same state."""
     db = tmp_path / "records.db"
-    tel = telect.CasElection(tlife.LifecycleRecordStore(_sqlite_storage("port", db)), "g")
-    jel = jelect.CasElection(jlife.LifecycleRecordStore(_sqlite_storage("jax", db)), "g")
+    bids_landed = threading.Barrier(2)
+
+    def bids_seen_together(records):
+        # a candidate resolves only once both generation-2 bids are in the
+        # store: otherwise a bid built (and timed) before the other's but
+        # written after that one resolved makes both win, or neither
+        append = records.append
+
+        def wrapped(entity_type, entity_id, props):
+            out = append(entity_type, entity_id, props)
+            if entity_type == "pio_election_bid" and props.get("generation") == 2:
+                bids_landed.wait(timeout=30)
+            return out
+
+        records.append = wrapped
+        return records
+
+    tel = telect.CasElection(bids_seen_together(
+        tlife.LifecycleRecordStore(_sqlite_storage("port", db))), "g")
+    jel = jelect.CasElection(bids_seen_together(
+        jlife.LifecycleRecordStore(_sqlite_storage("jax", db))), "g")
+    # each package opens its connection here, one after the other: two
+    # first connections switching one new file to WAL at once can find
+    # it locked
+    assert _state(tel) == _state(jel) == (None, 0, None, 0.0)
     results = {}
     barrier = threading.Barrier(2)
 

@@ -395,9 +395,19 @@ def test_revision_streams_one_and_shard_refused(tmp_path):
         s = st["port"]
         [(key, store, shard)] = s.revision_streams()
         assert key == "0" and store is s and shard is None
-        s.insert(_make("port", [_rate("u1", "i1", 1)])[0], APP)
-        with pytest.raises(ValueError, match="shard"):
-            s.find_since(APP, 0, shard=(0, 2))
+        # the one stream's tail takes a shard filter (the sharded store's
+        # streams pass one), read as the JAX store reads it, across a seal
+        rows = [_rate(f"u{k}", f"i{k % 3}", 1 + k % 5, n=k) for k in range(12)]
+        for pkg, store in st.items():
+            store.insert_batch(_make(pkg, rows[:7]), APP)
+            store.seal(APP)
+            store.insert_batch(_make(pkg, rows[7:]), APP)
+        for shard in ((0, 2), (1, 2), (2, 3)):
+            for after, limit in ((0, None), (3, 2), (0, 1)):
+                got = s.find_since(APP, after, limit=limit, shard=shard)
+                want = st["jax"].find_since(APP, after, limit=limit, shard=shard)
+                assert _keys(got) == _keys(want), (shard, after, limit)
+                assert all(tbase.shard_of(e.entity_id, shard[1]) == shard[0] for e in got)
 
 
 def test_online_consumer_tails_a_segmentfs_store(tmp_path):
