@@ -7,7 +7,8 @@ Event Server feeding train →
 deploy, the same over the storage daemon through its outage (the
 write-ahead spill, the breaker, the replay), the sharded event store
 over three storage daemons (partitioned reads, a successor failover, a
-partial outage), the replicated event store
+partial outage), the parquetfs and postgres event stores with parquet
+export/import and log shipping, the replicated event store
 (segment shipping, WAL frames, a fenced failover, fold-in from a
 follower), the online fold-in of live events into the served model, and
 the model lifecycle (train jobs, checkpoints, warm starts, versions,
@@ -403,6 +404,34 @@ Phases, in order; any failure prints what failed and exits non-zero:
             batches by the route and by devprof, the served slab held to
             the plain select. Each line has the card's name and power
             limit; the phase stops its children on any failure.
+12d. backends phase 12's 100,000 events over the parquetfs and the
+            postgres event stores. (a) ``console export --format parquet``
+            of the app from the loop's sqlite file and ``console import``
+            of the file into an app whose EVENTDATA is a parquetfs source
+            (metadata in sqlite, models in files, under
+            ``build/backends/``), both children, running beside (b); a
+            ``train --engine-json`` over it here: block_partials and the
+            combine 2 x 20 times and no dense pass, the staged plan held to
+            the plain versions, the frame the generated triples, and,
+            where it equals phase 12's sqlite frame column for column (it
+            prints whether), the factors bit-equal to phase 12's train;
+            ``deploy --log-url`` to a collector in this process answers
+            500 queries from 16 threads: one select a batch by the route
+            and by the child's ``/debug/profile``, every answer the plain
+            top-k on the CPU, and after its Ctrl-C the collector holds the
+            JAX ``RemoteLogHandler`` fields, one access record a query
+            with its trace id. (b) A plain ``type=postgres`` source fails
+            with the named driver error (or a connect error where a driver
+            imports; it prints which); then every repository on one
+            postgres source whose client is ``_PGClient(conn=...)`` over
+            ``tests/fake_pg.py`` (sqlite 3.35 or newer, printed): ``app
+            new``, the 100,000 events read from the loop's file through
+            ``insert_batch``, a train here (the checks of (a); its read in
+            11 keyset pages of ``FIND_PAGE``), ``console status`` listing
+            the train's engine manifest, and a ``QueryServer`` here with
+            ``log_url`` answering 500 queries (the checks of (a), devprof
+            in this process). Prints each part's seconds with the card's
+            name and power limit.
 13. online the online fold-in over phase 12's app and instance: the
             variant's newest COMPLETED runtime built here on the card
             (``latest_completed_runtime``) behind a ``QueryServer`` in this
@@ -527,7 +556,8 @@ Phases, in order; any failure prints what failed and exits non-zero:
 22. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
             the card at the template defaults (50 correlators, 100 query
             events): every table finite, and equal to the same block train
-            on the CPU for three blocks of 1,024 items per indicator
+            on the CPU for three blocks of 256 items per indicator (the
+            first, a middle and the last)
             within the LLR tolerance (atol = 16 eps N ln N; indices equal
             outside tie groups). A row where the card and the host CPU
             disagree beyond it (a host with a poor float32 ``log``) is
@@ -777,7 +807,11 @@ try:
         serialize_models,
     )
     from predictionio_tpu_torch.controller.params import params_to_json
-    from predictionio_tpu_torch.data.storage.registry import Storage, StorageConfig
+    from predictionio_tpu_torch.data.storage.registry import (
+        SourceConfig,
+        Storage,
+        StorageConfig,
+    )
     from predictionio_tpu_torch.data.store.bimap import BiMap
     from predictionio_tpu_torch.data.store.event_store import EventStoreFacade
     from predictionio_tpu_torch.data.view import DataView
@@ -935,7 +969,8 @@ UR_NEW_USERS = 50  # view-only users added after the train
 UR_SWEEP_WIDTHS = ((1_024, 1_000), (12_416, 12_345), (100_096, 100_000))
 # up to the select route's limit, and the first k above it
 UR_K_LADDER = (1, 10, 64, 1_023, 1_024, 1_025)
-UR_CPU_BLOCKS, UR_CPU_BLOCK_ROWS = (0, 49_920, 98_976), 1_024
+# the first, a middle and the last 256 items
+UR_CPU_BLOCKS, UR_CPU_BLOCK_ROWS = (0, 49_920, 99_744), 256
 UR_TIMES_K = 64
 MASKED_REPLACES = "predictionio_tpu/ops/recommend_pallas.py:468"
 LOOP_SEED = 1
@@ -1678,6 +1713,18 @@ def _client(port, bodies, out, lock):
                 out[n] = (resp.status, json.loads(payload), dt)
     finally:
         conn.close()
+
+
+def _profiled_calls(port, name):
+    """A server's device-profiler invocations of `name` (its GET
+    /debug/profile)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", "/debug/profile")
+        rows = json.loads(conn.getresponse().read())["executables"]
+    finally:
+        conn.close()
+    return sum(r["invocations"] for r in rows if r["name"] == name)
 
 
 def _status(port):
@@ -5030,7 +5077,7 @@ def phase_ingest(report, shared):
             checks = _ingest_checks(port, key, rate_key, events, ids, users, times, rng)
         check(es.proc.returncode is not None, "eventserver still running")
         report["ingest"] = {**ingest, "checks": checks}
-        _ingest_train_deploy(report, users, items, ratings)
+        _ingest_train_deploy(report, shared, users, items, ratings)
     ing = report["ingest"]
     ing["phase_s"] = time.perf_counter() - t_phase
     smi = report["nvidia_smi"]
@@ -5175,10 +5222,11 @@ def _ms_iso(ms):
     return f"{np.datetime_as_string(np.datetime64(int(ms), 'ms'), unit='ms')}Z"
 
 
-def _ingest_train_deploy(report, users, items, ratings):
+def _ingest_train_deploy(report, shared, users, items, ratings):
     """`train --engine-json` over the ingested app, the checks of its
     frame, staging, launches and factors, the kernels held at its plans'
-    shapes; then the deploy and its 500 queries."""
+    shapes; then the deploy and its 500 queries. Its frame and factors
+    stay in `shared` for phase 12d's trains over other stores."""
     engine_json = LOOP_DIR / "engine_ml100k.json"
     engine_json.write_text(json.dumps({
         "id": "ml100k-als",
@@ -5232,6 +5280,7 @@ def _ingest_train_deploy(report, users, items, ratings):
     check(np.array_equal(key[order], (users * INGEST_ITEMS + items)[gen])
           and np.array_equal(frame.value[order], ratings[gen].astype(np.float32)),
           "the frame read back differs from the generated (user, item, rating) triples")
+    shared["ingest_train"] = {"frame": frame, "factors": f}
     del frames, frame
 
     urow = np.empty(INGEST_USERS, np.int64)
@@ -5265,18 +5314,24 @@ def _ingest_train_deploy(report, users, items, ratings):
 
 
 def _deploy_queries(engine_json, log_path, inst, model, params, rng,
-                    n_users=INGEST_USERS, n_items=INGEST_ITEMS):
-    """`deploy --engine-json` in a process of its own on the card, 500
-    queries of the app's users (ML-100K's by default) from N_CLIENTS
-    threads: the deploy serves `inst`, its scored top-k launches equal
-    its batches, all on the select route, and every answer equals the
-    plain top-k on the CPU over `model`'s factors."""
+                    n_users=INGEST_USERS, n_items=INGEST_ITEMS, extra_args=(),
+                    profiled=False):
+    """`deploy --engine-json` (and `extra_args`) in a process of its own on
+    the card, 500 queries of the app's users (ML-100K's by default) from
+    N_CLIENTS threads: the deploy serves `inst`, its scored top-k launches
+    equal its batches, all on the select route (`profiled`: and so do its
+    device profiler's `als.recommend_serving` calls, read from its
+    `/debug/profile`, and the deploy is stopped by Ctrl-C, as an operator
+    stops it), and every answer equals the plain top-k on the CPU over
+    `model`'s factors."""
     queries = _loop_queries(rng, n_users, n_items, unknown=0)
     t0 = time.perf_counter()
     with _Console(["deploy", "--engine-json", str(engine_json), "--ip", "127.0.0.1",
-                   "--port", "0"], log_path) as dep:
+                   "--port", "0", *extra_args], log_path) as dep:
         port = dep.port(timeout=300)
         before = _status(port)
+        if profiled:
+            before["profiled"] = _profiled_calls(port, "als.recommend_serving")
         ready_s = time.perf_counter() - t0
         out: dict = {}
         lock = threading.Lock()
@@ -5291,6 +5346,9 @@ def _deploy_queries(engine_json, log_path, inst, model, params, rng,
         wall = time.perf_counter() - t0
         check(not any(t.is_alive() for t in threads), "clients hung")
         after = _status(port)
+        if profiled:
+            after["profiled"] = _profiled_calls(port, "als.recommend_serving")
+            check(dep.interrupt() == 0, f"deploy exited {dep.proc.returncode} on Ctrl-C")
     check(dep.proc.returncode is not None, "deploy still running")
     check(before["engine_instance"] == inst.id, "deploy serves another instance")
     check(after["device"] == "cuda:0", f"deploy serves on {after['device']}")
@@ -5300,6 +5358,9 @@ def _deploy_queries(engine_json, log_path, inst, model, params, rng,
     select = after["select_launches"] - before["select_launches"]
     check(batches > 0 and served == select == batches,
           f"deploy top-k launches {served} (select {select}) != its batches {batches}")
+    check(not profiled or after["profiled"] - before["profiled"] == batches,
+          f"the deploy's profiler counted {after.get('profiled')} recommend_serving calls "
+          f"for {batches} batches")
     model.bind_device("cpu")
     cpu_alg = ALSAlgorithm(params)
     for n, q in enumerate(queries):
@@ -5312,7 +5373,8 @@ def _deploy_queries(engine_json, log_path, inst, model, params, rng,
             "p50_ms": _pct(lat, 0.5), "p99_ms": _pct(lat, 0.99), "served": served,
             "select": select, "batches": batches, "mean_batch": len(queries) / batches,
             "batch_predict_ms": 1e3 * (after["batch_predict_seconds"]
-                                       - before["batch_predict_seconds"]) / batches}
+                                       - before["batch_predict_seconds"]) / batches,
+            **({"profiled": after["profiled"] - before["profiled"]} if profiled else {})}
 
 
 # ---------------------------------------------------------------------------
@@ -5392,6 +5454,22 @@ def _es_metrics(port):
             "pending": total("event_wal_pending"),
             "spilled": total("event_wal_spilled_total"),
             "replayed": total("event_wal_replayed_total")}
+
+
+def _wal_settled(es_port, what, timeout=60.0):
+    """The Event Server's WAL series once a replay pass has ended: nothing
+    pending and the replayed counter at the spilled one. A pass acks its
+    chunks as they land and adds them to the counter when it returns, so
+    a read between the two sees pending 0 with the counter short of it."""
+    t0 = time.monotonic()
+    while True:
+        m = _es_metrics(es_port)
+        if m["pending"] == 0 and m["replayed"] == m["spilled"]:
+            return m
+        check(time.monotonic() - t0 < timeout,
+              f"{what}: pending {m['pending']:g}, replayed {m['replayed']:g}, spilled "
+              f"{m['spilled']:g} after {timeout} s")
+        time.sleep(REMOTE_POLL_S)
 
 
 def _remote_outage(daemon, es_port):
@@ -5545,7 +5623,7 @@ def _remote_ingest_checks(ingest, es_port, daemon, smi):
           f"was down ({seen['outage_polls']} polls)")
     check(seen["pending_max"] > 0, "event_wal_pending never rose while the daemon was down")
     check(ingest["spilled"] > 0 and ingest["first_202"] is not None, "no POST answered 202")
-    m = _es_metrics(es_port)
+    m = _wal_settled(es_port, "the WAL after the outage")
     check(m["pending"] == 0 and m["replayed"] == m["spilled"] == ingest["spilled"],
           f"the WAL: pending {m['pending']:g}, replayed {m['replayed']:g}, spilled "
           f"{m['spilled']:g}; {ingest['spilled']} events answered 202")
@@ -5608,8 +5686,7 @@ def _remote_fault(es_port, key, spilled, rng, smi):
         acked += [r["eventId"] for r in body]
     check(_call(es_port, "POST", "/debug/faults", {"clear": True}) == (200, {"faults": []}),
           "the fault was not cleared")
-    m, _ = _wait_for(lambda: (lambda m: m if m["pending"] == 0 else None)(_es_metrics(es_port)),
-                     60, "the fault burst's replay")
+    m = _wal_settled(es_port, "the fault burst's replay")
     check(m["replayed"] == m["spilled"] == spilled + n,
           f"after the burst: replayed {m['replayed']:g}, spilled {m['spilled']:g}, "
           f"not {spilled + n}")
@@ -6144,6 +6221,445 @@ def _sharded_serve(sh, app_id):
                "users_folded": c["users_folded"], "ticks": ticks, "fold_s": fold_s,
                "cursor": dict(consumer.cursor), **_latency(out, wall, len(queries)),
                "batches": batches, "profiled": profiled, "held": tally}
+
+
+# ---------------------------------------------------------------------------
+# phase 12d: the parquetfs and postgres event stores
+# ---------------------------------------------------------------------------
+
+
+BACKENDS_DIR = Path(__file__).resolve().parent / "build" / "backends"
+BACKENDS_SEED = 28
+PARQUET_ENGINE, POSTGRES_ENGINE = "ml100k-parquetfs", "ml100k-postgres"
+LOG_FIELDS = ("ts", "level", "logger", "message")  # the JAX RemoteLogHandler's
+
+
+def _parquetfs_env():
+    """EVENTDATA a parquetfs source; metadata in sqlite and models in files
+    beside it, under build/backends/parquetfs/."""
+    d = BACKENDS_DIR / "parquetfs"
+    return {"PIO_FS_BASEDIR": str(d),
+            "PIO_STORAGE_SOURCES_PQMETA_TYPE": "sqlite",
+            "PIO_STORAGE_SOURCES_PQMETA_PATH": str(d / "pio.db"),
+            "PIO_STORAGE_SOURCES_PQEVENTS_TYPE": "parquetfs",
+            "PIO_STORAGE_SOURCES_PQEVENTS_PATH": str(d / "events"),
+            "PIO_STORAGE_SOURCES_PQFS_TYPE": "localfs",
+            "PIO_STORAGE_SOURCES_PQFS_PATH": str(d),
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "PQMETA",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PQEVENTS",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "PQFS"}
+
+
+def _postgres_config(port):
+    """Every repository on one postgres source at 127.0.0.1:`port`."""
+    return StorageConfig(
+        sources={"PGSQL": SourceConfig("PGSQL", "postgres", {
+            "HOST": "127.0.0.1", "PORT": str(port), "DBNAME": "pio"})},
+        repositories={"METADATA": "PGSQL", "EVENTDATA": "PGSQL", "MODELDATA": "PGSQL"})
+
+
+def _console_child(argv, env, log_path):
+    """`console argv` in a process of its own over `env` (this process's
+    PIO_STORAGE_* variables left out): its exit code, its output and its
+    seconds."""
+    full = {k: v for k, v in os.environ.items() if not k.startswith("PIO_STORAGE_")}
+    full.update(env)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "predictionio_tpu_torch.tools.console", *argv],
+                         cwd=Path(__file__).resolve().parent, env=full, capture_output=True,
+                         text=True, timeout=600)
+    log_path.write_text(out.stdout + out.stderr)
+    return out.returncode, out.stdout, time.perf_counter() - t0
+
+
+class _LogCollector:
+    """A `--log-url` collector in this process: the JSON lines POSTed to
+    it, with each POST's content type."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.records: list = []
+        self.types: set = set()
+        lock = threading.Lock()
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                rows = [json.loads(x) for x in body.decode().splitlines() if x.strip()]
+                with lock:
+                    outer.records.extend(rows)
+                    outer.types.add(self.headers.get("Content-Type"))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/logs"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+    def checked(self, n_queries, label):
+        """The records shipped by a server that answered `n_queries`
+        queries and stopped: each has the JAX fields; the access log holds
+        one 200 a query, each record with its request's trace id."""
+        recs = list(self.records)
+        check(recs and all(all(k in r for k in LOG_FIELDS) for r in recs),
+              f"{label}: shipped records lack the RemoteLogHandler fields: {recs[:2]}")
+        check(self.types == {"application/x-ndjson"}, f"{label}: POSTed as {self.types}")
+        access = [r for r in recs if r["logger"] == "predictionio_tpu_torch.access"]
+        lines = [json.loads(r["message"]) for r in access]
+        queries = [a for a in lines if a["path"] == "/queries.json"]
+        check(len(queries) == n_queries and {a["status"] for a in queries} == {200},
+              f"{label}: {len(queries)} query access records shipped for {n_queries}")
+        check(all(r.get("trace_id") == a["trace_id"] and a["trace_id"]
+                  for r, a in zip(access, lines)), f"{label}: a record without its trace id")
+        return {"records": len(recs), "access": len(access), "queries": len(queries)}
+
+
+def _triples_equal(frame, users, items, ratings):
+    uid, iid = _ids(frame.entity_vocab, "u"), _ids(frame.target_vocab, "i")
+    key = uid[frame.entity_idx] * INGEST_ITEMS + iid[frame.target_idx]
+    order, gen = np.argsort(key), np.argsort(users * INGEST_ITEMS + items)
+    return (len(frame) == INGEST_EDGES
+            and np.array_equal(key[order], (users * INGEST_ITEMS + items)[gen])
+            and np.array_equal(frame.value[order], ratings[gen].astype(np.float32)))
+
+
+def _backend_train_checks(label, launches, stage, frame, model, shared, seed):
+    """The checks of a train over a backend: the windowed kernels 2 x
+    iterations and no dense pass, one staged windowed train held to the
+    plain versions, the frame the generated triples, and the factors
+    bit-equal to phase 12's sqlite train where the frame equals its frame
+    column for column (printed either way)."""
+    want = 2 * ALSAlgorithmParams().num_iterations
+    check(launches["partials"] == launches["combine"] == want
+          and launches["row"] == launches["col"] == 0,
+          f"{label}: the train launched {launches}, not {want} windowed passes")
+    staged = [out for *_, out in stage.calls]
+    check(len(staged) == 1 and isinstance(staged[0], als.StagedWindowedTrain),
+          f"{label}: the train staged {len(staged)} windowed trains")
+    users, items, ratings = shared["ingest"]
+    check(_triples_equal(frame, users, items, ratings),
+          f"{label}: the frame differs from the generated (user, item, rating) triples")
+    f = model.factors
+    check(_finite(f) and f.user_factors.shape == (INGEST_USERS, RANK)
+          and f.item_factors.shape == (INGEST_ITEMS, RANK), f"{label}: factors")
+    base = shared["ingest_train"]
+    same_frame = _frames_equal(frame, base["frame"])
+    bit_equal = (np.array_equal(f.user_factors, base["factors"].user_factors)
+                 and np.array_equal(f.item_factors, base["factors"].item_factors)
+                 and f.user_vocab.to_dict() == base["factors"].user_vocab.to_dict()
+                 and f.item_vocab.to_dict() == base["factors"].item_vocab.to_dict())
+    check(bit_equal or not same_frame,
+          f"{label}: the frame equals phase 12's sqlite frame but the factors differ")
+    held = {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0,
+            "combined_max_abs_err": 0.0, "combined_max_ratio": 0.0}
+    _windowed_held(staged[0], RANK, np.random.default_rng(seed), held, f"{label} plan")
+    return {"launches": launches, "held": held, "same_frame": same_frame,
+            "bit_equal": bit_equal}
+
+
+def phase_backends(report, shared):
+    """Phase 12d: phase 12's ML-100K events over the parquetfs and the
+    postgres event stores, each feeding a windowed train and a deploy on
+    the card, with the parquet export/import, log shipping to a collector
+    and the engine manifests."""
+    t_phase = time.perf_counter()
+    smi = report["nvidia_smi"]
+    shutil.rmtree(BACKENDS_DIR, ignore_errors=True)
+    (BACKENDS_DIR / "parquetfs").mkdir(parents=True)
+    bk: dict = {"nvidia_smi": smi}
+    collector = _LogCollector()
+    try:
+        # (a)'s export and import children run beside (b), which reads
+        # the loop's sqlite file itself and runs in this process
+        with _loop_storage(env=_parquetfs_env()):
+            rc, text = _console_out(["app", "new", INGEST_APP])
+        check(rc == 0 and "Access key: " in text, "app new over parquetfs")
+        children = _Background(_backends_export_import)
+        bk["postgres"] = _backends_postgres(report, shared, collector)
+        collector.records.clear()
+        bk["parquetfs"] = _backends_parquetfs(report, shared, collector.url, children.result())
+        bk["parquetfs"]["shipped"] = collector.checked(N_QUERIES, "parquetfs deploy")
+    finally:
+        collector.close()
+    pq, pg = bk["parquetfs"], bk["postgres"]
+    bk["launches"] = {k: pq["train"]["launches"][k] + pg["train"]["launches"][k]
+                      for k in ("partials", "combine", "row", "col")}
+    bk["launches"].update(serve_topk=pq["serve"]["served"] + pg["serve"]["served"],
+                          serve_select=pq["serve"]["select"] + pg["serve"]["select"])
+    bk["held"] = {"max_abs_err": max(pq["train"]["held"]["max_abs_err"],
+                                     pg["train"]["held"]["max_abs_err"])}
+    bk["phase_s"] = time.perf_counter() - t_phase
+    report["backends"] = bk
+    print(f"[backends] {smi} | phase 12d {bk['phase_s']:.1f} s: parquetfs "
+          f"{pq['phase_s']:.1f} s, postgres {pg['phase_s']:.1f} s; launches "
+          f"block_partials {bk['launches']['partials']}, combine {bk['launches']['combine']}, "
+          f"scored top-k {bk['launches']['serve_topk']} (select "
+          f"{bk['launches']['serve_select']})", flush=True)
+
+
+class _Background:
+    """`fn()` on a thread of its own; `result()` joins it and returns its
+    value, or raises what it raised."""
+
+    def __init__(self, fn):
+        self.value, self.error = None, None
+
+        def run():
+            try:
+                self.value = fn()
+            except BaseException as e:  # noqa: BLE001 — raised again by result()
+                self.error = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def result(self, timeout=900):
+        self.thread.join(timeout)
+        check(not self.thread.is_alive(), f"a background step ran past {timeout} s")
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
+def _backends_export_import():
+    """(a)'s console children: `export --format parquet` of phase 12's app
+    from the loop's sqlite store, then `import` of the file (its .parquet
+    suffix names the codec) into the parquetfs app."""
+    path = BACKENDS_DIR / "ml100k.parquet"
+    out: dict = {}
+    rc, text, out["export_s"] = _console_child(
+        ["export", "--app", INGEST_APP, "--output", str(path), "--format", "parquet"],
+        _store_env(LOOP_DIR / "store"), BACKENDS_DIR / "export.log")
+    check(rc == 0 and f"Exported {INGEST_EDGES} events" in text, f"export: {rc} {text}")
+    rc, text, out["import_s"] = _console_child(
+        ["import", "--app", INGEST_APP, "--input", str(path)], _parquetfs_env(),
+        BACKENDS_DIR / "import.log")
+    check(rc == 0 and f"Imported {INGEST_EDGES} events" in text, f"import: {rc} {text}")
+    return out
+
+
+def _backends_parquetfs(report, shared, log_url, children):
+    """(a) Over the parquetfs app that `children` (the export and import
+    children) filled: `train --engine-json` here; `deploy --log-url` in
+    its own process and 500 queries."""
+    smi = report["nvidia_smi"]
+    t0 = time.perf_counter()
+    out: dict = dict(children)
+    env = _parquetfs_env()
+    with _loop_storage(env=env):
+        segs = sorted((BACKENDS_DIR / "parquetfs" / "events").glob("app_*/seg-*.parquet"))
+        check(segs, "the import wrote no parquet segment")
+        out["segments"] = len(segs)
+        engine_json = _variant(PARQUET_ENGINE, BACKENDS_DIR / "engine_parquetfs.json")
+        frames: list = []
+        wf.BLOCK_LAUNCHES.update(partials=0, combine=0)  # every count to 0 just before
+        df.PASS_LAUNCHES.update(row=0, col=0)
+        with _Spy(als, "stage_windowed") as stage:
+            inst, model = _train_variant(engine_json, PARQUET_ENGINE, frames)
+        launches = {**wf.BLOCK_LAUNCHES, **df.PASS_LAUNCHES}
+        out["stages"] = stage_timings(inst)
+        out["train"] = _backend_train_checks("parquetfs", launches, stage, frames[0], model,
+                                             shared, BACKENDS_SEED)
+        del frames, stage
+        out["serve"] = _deploy_queries(
+            engine_json, BACKENDS_DIR / "deploy_parquetfs.log", inst, model,
+            ALSAlgorithmParams(), np.random.default_rng(BACKENDS_SEED + 1),
+            extra_args=("--log-url", log_url), profiled=True)
+    out["phase_s"] = time.perf_counter() - t0
+    st, sv, tr = out["stages"], out["serve"], out["train"]
+    print(f"[backends] {smi} | (a) parquetfs: export {out['export_s']:.2f} s, import "
+          f"{out['import_s']:.2f} s ({out['segments']} segment(s)), both console children "
+          f"beside (b); "
+          f"train read {st['read']:.3f} s, train {st['train']:.3f} s; the frame equals phase "
+          f"12's sqlite frame column for column: {tr['same_frame']}; factors bit-equal to "
+          f"its train: {tr['bit_equal']}; launches block_partials {tr['launches']['partials']}, "
+          f"combine {tr['launches']['combine']}, held to the plain versions (max |err| "
+          f"{tr['held']['max_abs_err']:.3g})", flush=True)
+    print(f"[backends] {smi} | (a) deploy --log-url: ready in {sv['deploy_ready_s']:.2f} s; "
+          f"{N_QUERIES} queries from {N_CLIENTS} clients: p50 {sv['p50_ms']:.3f} ms, p99 "
+          f"{sv['p99_ms']:.3f} ms, {sv['qps']:.1f} qps, scored top-k launches {sv['served']} "
+          f"in {sv['batches']} batches (select {sv['select']}, profiler {sv['profiled']}), "
+          f"every answer the CPU plain top-k's; part after the children "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def _backends_postgres(report, shared, collector):
+    """(b) Every repository on one postgres source whose client is
+    `_PGClient(conn=...)` over the sqlite-backed fake driver of
+    tests/fake_pg.py (the host has no postgres server): the named driver
+    error of a plain source first; `app new`, phase 12's 100,000 events
+    (read from the loop's sqlite file, ids and times as stored) through
+    `insert_batch`, a train here (its read through keyset pages),
+    `status` listing its engine manifest, and a query server here with
+    `--log-url`'s config answering 500 queries."""
+    import sqlite3
+
+    from predictionio_tpu_torch.data.storage import postgres as pgmod
+
+    tests_dir = str(Path(__file__).resolve().parent / "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
+    import fake_pg
+
+    smi = report["nvidia_smi"]
+    t0 = time.perf_counter()
+    out: dict = {"sqlite_version": sqlite3.sqlite_version}
+    check(sqlite3.sqlite_version_info >= (3, 35),
+          f"the fake driver needs sqlite >= 3.35 (RETURNING, ON CONFLICT); this host has "
+          f"{sqlite3.sqlite_version}")
+    with socket.socket() as sock:  # a local port with no server behind it
+        sock.bind(("127.0.0.1", 0))
+        free = sock.getsockname()[1]
+    try:
+        Storage(_postgres_config(free)).get_meta_data_apps()
+        raise PhaseError("a plain postgres source with no server connected")
+    except StorageError as e:
+        out["plain_source"] = str(e)
+    check("psycopg2 or pg8000" in out["plain_source"] or "cannot connect" in out["plain_source"],
+          f"a plain postgres source failed with {out['plain_source']!r}")
+    which = ("named driver error" if "psycopg2 or pg8000" in out["plain_source"]
+             else "connect error")
+    storage = Storage(_postgres_config(free))
+    client = storage._clients["PGSQL"] = pgmod._PGClient(conn=fake_pg.connect())
+    pages = []
+    query_of = client.query
+
+    def counted(sql, params=()):
+        if "ORDER BY eventTime ASC, id ASC LIMIT" in sql:
+            pages.append(len(sql))
+        return query_of(sql, params)
+
+    client.query = counted
+    app, _ = console.common.create_app(storage, INGEST_APP)
+    t1 = time.perf_counter()
+    loop = Storage(StorageConfig.from_env(_store_env(LOOP_DIR / "store")))
+    loop_app = loop.get_meta_data_apps().get_by_name(INGEST_APP)
+    events = list(loop.get_events().find(EventQuery(app_id=loop_app.id)))
+    check(len(events) == INGEST_EDGES, f"{len(events)} events read from the loop's store")
+    del loop
+    out["decode_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    storage.get_events().insert_batch(events, app.id)
+    out["insert_s"] = time.perf_counter() - t1
+    check(storage.get_events().latest_revision(app.id) == INGEST_EDGES,
+          "the postgres store's revision after the insert")
+    del events
+    variant = json.loads(_variant(POSTGRES_ENGINE,
+                                  BACKENDS_DIR / "engine_postgres.json").read_text())
+    frames: list = []
+    frame_of = RecommendationDataSource._frame
+
+    def kept_frame(self, ctx):
+        frames.append(frame_of(self, ctx))
+        return frames[-1]
+
+    RecommendationDataSource._frame = kept_frame
+    wf.BLOCK_LAUNCHES.update(partials=0, combine=0)  # every count to 0 just before
+    df.PASS_LAUNCHES.update(row=0, col=0)
+    pages.clear()
+    try:
+        with _Spy(als, "stage_windowed") as stage:
+            inst = wcore.run_train(storage, variant)
+    finally:
+        RecommendationDataSource._frame = frame_of
+    launches = {**wf.BLOCK_LAUNCHES, **df.PASS_LAUNCHES}
+    out["pages"] = len(pages)
+    check(inst.status == "COMPLETED", f"the train over postgres: {inst.status}")
+    check(out["pages"] == INGEST_EDGES // pgmod.PostgresEventStore.FIND_PAGE + 1,
+          f"the train's read took {out['pages']} keyset pages")
+    [model] = deserialize_models(storage.get_model_data_models().get(inst.id).models)
+    check(type(model) is ALSModel, f"the postgres MODELDATA holds {type(model).__name__}")
+    out["stages"] = stage_timings(inst)
+    out["train"] = _backend_train_checks("postgres", launches, stage, frames[0], model,
+                                         shared, BACKENDS_SEED + 2)
+    del frames, stage
+    # `console status` over the same source lists the registered manifest
+    make_storage = console.Storage
+    console.Storage = lambda: storage
+    try:
+        rc, text = _console_out(["status"])
+    finally:
+        console.Storage = make_storage
+    line = re.search(rf"^\[INFO\]   {POSTGRES_ENGINE} v0: "
+                     r"predictionio_tpu_torch\.engines\.recommendation\.RecommendationEngine",
+                     text, re.M)
+    check(rc == 0 and "OK PostgresEventStore" in text and line is not None,
+          "status over postgres lists no engine manifest of the train")
+    out["manifest_line"] = line.group(0)
+    out["serve"] = _backends_serve(storage, inst, model, collector)
+    out["phase_s"] = time.perf_counter() - t0
+    st, sv, tr = out["stages"], out["serve"], out["train"]
+    print(f"[backends] {smi} | (b) postgres: a plain source fails with the {which} "
+          f"({out['plain_source']}); over tests/fake_pg.py on sqlite {out['sqlite_version']}: "
+          f"{INGEST_EDGES} events read from the loop's store in {out['decode_s']:.2f} s, "
+          f"insert_batch "
+          f"{out['insert_s']:.2f} s; train read {st['read']:.3f} s in {out['pages']} keyset "
+          f"pages of {pgmod.PostgresEventStore.FIND_PAGE}, train {st['train']:.3f} s; the "
+          f"frame equals phase 12's sqlite frame column for column: {tr['same_frame']}; "
+          f"factors bit-equal to its train: {tr['bit_equal']}; launches block_partials "
+          f"{tr['launches']['partials']}, combine {tr['launches']['combine']}, held to the "
+          f"plain versions (max |err| {tr['held']['max_abs_err']:.3g}); status: "
+          f"{out['manifest_line'].strip()}", flush=True)
+    print(f"[backends] {smi} | (b) query server with log_url: {N_QUERIES} queries from "
+          f"{N_CLIENTS} clients: p50 {sv['p50_ms']:.3f} ms, p99 {sv['p99_ms']:.3f} ms, "
+          f"{sv['qps']:.1f} qps, scored top-k launches {sv['served']} in {sv['batches']} "
+          f"batches (select {sv['select']}, profiler {sv['profiled']}), every answer the "
+          f"CPU plain top-k's; {sv['shipped']['records']} records shipped; part "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def _backends_serve(storage, inst, model, collector):
+    """A QueryServer here on the postgres instance, shipping its log to the
+    collector: 500 queries, one select a device batch by the route and by
+    devprof, every answer the plain top-k on the CPU."""
+    runtime = latest_completed_runtime(storage, POSTGRES_ENGINE, "0", POSTGRES_ENGINE)
+    check(runtime.instance.id == inst.id, "the runtime serves another instance")
+    import logging
+
+    pkg_logger = logging.getLogger("predictionio_tpu_torch")
+    level = pkg_logger.level  # the shipper lowers it to INFO; later phases get it back
+    srv = QueryServer(runtime=runtime, storage=storage, config=QueryServerConfig(
+        ip="127.0.0.1", port=0, log_url=collector.url))
+    port = srv.start()
+    try:
+        served_model = srv.runtime.models[0]
+        check(str(served_model.device) == "cuda:0",
+              f"the postgres model serves on {served_model.device}")
+        queries = _loop_queries(np.random.default_rng(BACKENDS_SEED + 3), INGEST_USERS,
+                                INGEST_ITEMS, unknown=0)
+        st0, prof0 = _status(port), _exec_totals("als.recommend_serving")
+        l0, s0 = rec.LAUNCHES, rec.ROUTE_LAUNCHES["select"]
+        answers, wall = _serve_load(port, queries)
+        st1, prof1 = _status(port), _exec_totals("als.recommend_serving")
+    finally:
+        srv.stop()  # the shipper flushes what it holds
+        pkg_logger.setLevel(level)
+    batches = st1["batches"] - st0["batches"]
+    served, select = rec.LAUNCHES - l0, rec.ROUTE_LAUNCHES["select"] - s0
+    profiled = prof1[0] - prof0[0]
+    check(batches > 0 and served == select == batches == profiled
+          and st1["kernel_launches"] - st0["kernel_launches"] == batches,
+          f"top-k launches {served} (select {select}, profiler {profiled}) != batches {batches}")
+    cpu_model = ALSModel(model.factors, device="cpu")
+    cpu_alg = ALSAlgorithm(ALSAlgorithmParams())
+    for n, q in enumerate(queries):
+        check(answers[n][1] == _to_jsonable(cpu_alg.predict(cpu_model, Query(**q))),
+              f"query {n} ({q}) differs from the CPU plain top-k")
+    return {**_latency(answers, wall, len(queries)), "batches": batches, "served": served,
+            "select": select, "profiled": profiled,
+            "shipped": collector.checked(len(queries), "postgres query server")}
 
 
 # ---------------------------------------------------------------------------
@@ -10362,6 +10878,12 @@ def main() -> int:
     os.environ["PIO_DEVPROF_STRICT"] = "1"
     # the Event Server children's write-ahead logs stay in the checkout
     os.environ["PIO_WAL_DIR"] = str(Path(__file__).resolve().parent / "build" / "wal")
+    # the card's host runs Python with PYTHONDONTWRITEBYTECODE and its
+    # torch ships no bytecode, so every child compiled torch's sources
+    # anew (~11 s an `import torch`): the children write their bytecode
+    # under build/pycache in the checkout once and read it after
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(Path(__file__).resolve().parent / "build" / "pycache")
     t_start = time.perf_counter()
     for name, phase in (("device", phase_device), ("build", phase_build),
                         ("sweep", phase_sweep), ("data", phase_data),
@@ -10374,7 +10896,8 @@ def main() -> int:
                         ("fleet eval", phase_fleet_eval),
                         ("lifecycle", phase_lifecycle),
                         ("ingest", phase_ingest), ("remote", phase_remote),
-                        ("sharded", phase_sharded), ("online", phase_online),
+                        ("sharded", phase_sharded), ("backends", phase_backends),
+                        ("online", phase_online),
                         ("templates", phase_templates),
                         ("data25", phase_data25), ("windowed", phase_windowed),
                         ("windowed train", phase_windowed_train),
@@ -10409,6 +10932,7 @@ def main() -> int:
                                           tpl["recommendation"]["launches"]]
     rmt = report["remote"]["launches"]  # over the storage daemon: train, deploy
     shd = report["sharded"]["launches"]  # the sharded source: two trains, the served queries
+    bkl = report["backends"]["launches"]  # parquetfs and postgres: two trains, two deploys
     fle = report["fleet_eval"]  # the shard children of (a) and (b), its jobs, (d)
     fl_shards = [fle["a"]["launches"], fle["b"]["launches"]]
     fl_jobs = [fle["b"]["launches_a"], fle["b"]["launches_n"]]
@@ -10421,6 +10945,7 @@ def main() -> int:
                                  "eval": ev["topk"], "eval dense": evd["topk"],
                                  "ingest": ing["serve_topk"], "remote": rmt["serve_topk"],
                                  "sharded": shd["serve_topk"],
+                                 "backends": bkl["serve_topk"],
                                  "lifecycle": lc["serve_topk"],
                                  "online": report["online"]["launches"]["topk"],
                                  "similar": sim["serve_topk"],
@@ -10438,12 +10963,13 @@ def main() -> int:
         "block_partials": {"windowed train": report["windowed_train"]["launches"]["partials"],
                            "eval": ev["partials"], "ingest": ing["partials"],
                            "remote": rmt["partials"], "sharded": shd["partials"],
+                           "backends": bkl["partials"],
                            "similar": sim["partials"],
                            "templates": sum(t["partials"] for t in tml),
                            "fleet eval shards": sum(x["partials"] for x in fl_shards)},
         "combine": {"windowed train": report["windowed_train"]["launches"]["combine"],
                     "eval": ev["combine"], "ingest": ing["combine"], "remote": rmt["combine"],
-                    "sharded": shd["combine"],
+                    "sharded": shd["combine"], "backends": bkl["combine"],
                     "similar": sim["combine"], "templates": sum(t["combine"] for t in tml),
                     "fleet eval shards": sum(x["combine"] for x in fl_shards)},
         "fused_masked_topk": {"ur serve": report["ur_serve"]["launches"],
@@ -10486,6 +11012,7 @@ def main() -> int:
                            report["ingest"]["held"]["max_abs_err"],
                            report["remote"]["train"]["held"]["max_abs_err"],
                            report["sharded"]["c"]["held"]["max_abs_err"],
+                           report["backends"]["held"]["max_abs_err"],
                            tpl["similar"]["held"]["max_abs_err"]),
         "ms": users_side["ms"], "plain_ms": users_side["plain_ms"],
         "bound_ms": users_side["bound_ms"], "bound_by": users_side["bound_by"],

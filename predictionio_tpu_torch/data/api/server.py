@@ -130,6 +130,8 @@ class EventServerConfig:
     port: int = 7070
     stats: bool = False
     plugins: list = field(default_factory=list)
+    # remote log shipping (reference CreateServer.scala:441-452 --log-url)
+    log_url: Optional[str] = None
     # the write-ahead spill's directory; None: an outage is a 503
     wal_dir: Optional[str] = field(default_factory=_default_wal_dir)
     wal_replay_interval_s: float = 0.5

@@ -182,7 +182,6 @@ class EventStore(abc.ABC):
         """Delete each id; returns how many existed."""
         return sum(self.delete(eid, app_id, channel_id) for eid in event_ids)
 
-    @abc.abstractmethod
     def find_entities_batch(
         self,
         app_id: int,
@@ -197,7 +196,13 @@ class EventStore(abc.ABC):
         `reversed`), cut to `limit_per_entity`: a serving micro-batch's
         history read in one store call. `channel_id` and `reversed` take
         the JAX package's names, so that its remote client's call reaches
-        a port store through the daemon."""
+        a port store through the daemon. Default: one
+        `find_single_entity` an id (the JAX package's), which the
+        postgres and parquetfs stores keep."""
+        return {eid: list(self.find_single_entity(
+            app_id, entity_type, eid, channel_id=channel_id,
+            event_names=event_names, limit=limit_per_entity, reversed=reversed))
+            for eid in dict.fromkeys(entity_ids)}
 
     def find_edges(
         self,

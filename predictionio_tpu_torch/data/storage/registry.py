@@ -8,7 +8,9 @@ MODELDATA, the same variables as the JAX package's. With none set, the
 development wiring: sqlite metadata and events in
 ``$PIO_FS_BASEDIR/pio.db`` and model files under ``$PIO_FS_BASEDIR``
 (default ``~/.pio_store``). The port's backends are memory, sqlite,
-localfs, remote (every DAO through a storage daemon,
+localfs, parquetfs (events in parquet segments; ``PATH``), postgres
+(every DAO; ``HOST``, ``PORT``, ``DBNAME``, ``USERNAME``, ``PASSWORD`` or
+``URL``, with a psycopg2 or pg8000 driver), remote (every DAO through a storage daemon,
 ``data/api/storage_server.py``; its ``HOST``, ``PORT``, ``AUTH_KEY`` and
 ``TIMEOUT`` settings), segmentfs (columnar events only; ``PATH`` and
 the seal settings), segmentfs-replica (a segmentfs follower fed by a
@@ -18,7 +20,7 @@ over N storage daemons by entity hash, ``data/storage/sharded.py``;
 ``HEDGED_READS``; EVENTDATA only) and docfs (JSON metadata documents
 and model files; ``PATH``); a repository resolves to the backend's DAO,
 with one client a source where the backend has clients (sqlite's
-connection, remote's ``CLIENT_FACTORY``). ``Storage.get_instance`` and
+connection, remote's and postgres's ``CLIENT_FACTORY``). ``Storage.get_instance`` and
 ``set_instance`` hold the process's Storage; ``verify_all_data_objects``
 is the storage self-check of ``console status`` (reference
 Storage.verifyAllDataObjects:335): every DAO, each shard's health, and
@@ -44,9 +46,14 @@ BACKENDS: dict[str, tuple[str, str]] = {
     "memory": ("predictionio_tpu_torch.data.storage.memory", "Memory"),
     "sqlite": ("predictionio_tpu_torch.data.storage.sqlite", "Sqlite"),
     "localfs": ("predictionio_tpu_torch.data.storage.localfs", "LocalFS"),
+    # events in parquet segments (EVENTDATA only)
+    "parquetfs": ("predictionio_tpu_torch.data.storage.parquetfs", "ParquetFS"),
     # every DAO proxied to a storage daemon (the reference's JDBC client
     # role, Storage.scala:140-142)
     "remote": ("predictionio_tpu_torch.data.storage.remote", "Remote"),
+    # the reference's JDBC Postgres role; a psycopg2 or pg8000 driver at
+    # run time
+    "postgres": ("predictionio_tpu_torch.data.storage.postgres", "Postgres"),
     # metadata as JSON documents (the reference's Elasticsearch role)
     "docfs": ("predictionio_tpu_torch.data.storage.docfs", "DocFS"),
     # columnar events: an fsync'd WAL sealed into column segments;

@@ -7,6 +7,8 @@ interned to contiguous int32 indices so factor matrices row-align with them.
 
 from __future__ import annotations
 
+from collections.abc import Sized
+from itertools import repeat
 from typing import Generic, Hashable, Iterable, Iterator, Mapping, Optional, TypeVar
 
 import numpy as np
@@ -67,18 +69,22 @@ class BiMap(Generic[K, V]):
     def string_int(keys: Iterable[str]) -> "BiMap[str, int]":
         """Build string → dense contiguous int index (first-seen order,
         duplicates collapsed)."""
-        fwd: dict[str, int] = {}
-        for k in keys:
-            if k not in fwd:
-                fwd[k] = len(fwd)
-        return BiMap(fwd)
+        return BiMap.dense(dict.fromkeys(keys))
 
     string_long = string_int  # parity alias
 
+    @staticmethod
+    def dense(keys: Iterable[K]) -> "BiMap[K, int]":
+        """Distinct keys → 0, 1, 2, ... in the order given (the interning
+        of `string_int` once the duplicates are gone; C-level dict builds,
+        no per-key Python step)."""
+        keys = list(keys)
+        n = range(len(keys))
+        return BiMap(dict(zip(keys, n)), _rev=dict(zip(n, keys)))
+
     def map_array(self, keys: Iterable[str]) -> np.ndarray:
         """Vectorized translate: iterable of keys → int32 array (-1 if absent)."""
-        fwd = self._fwd
-        return np.fromiter(
-            (fwd.get(k, -1) for k in keys), dtype=np.int32
-        )
+        count = len(keys) if isinstance(keys, Sized) else -1
+        return np.fromiter(map(self._fwd.get, keys, repeat(-1)), dtype=np.int32,
+                           count=count)
 

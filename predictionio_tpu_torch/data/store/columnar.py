@@ -106,15 +106,13 @@ class EventFrame:
         read's path)."""
         event_vocab = BiMap.string_int(event_names)
         entity_vocab = BiMap.string_int(entity_ids)
-        target_vocab = BiMap.string_int(t for t in target_ids if t is not None)
+        targets = dict.fromkeys(target_ids)
+        targets.pop(None, None)  # an absent target is -1, not a vocabulary entry
+        target_vocab = BiMap.dense(targets)
         return EventFrame(
             event_code=event_vocab.map_array(event_names),
             entity_idx=entity_vocab.map_array(entity_ids),
-            target_idx=np.fromiter(
-                (target_vocab.get(t, -1) if t is not None else -1
-                 for t in target_ids),
-                dtype=np.int32, count=len(target_ids),
-            ),
+            target_idx=target_vocab.map_array(target_ids),
             time_ms=np.asarray(time_ms, dtype=np.int64),
             value=np.asarray(values, dtype=np.float32),
             event_vocab=event_vocab,

@@ -12,20 +12,23 @@
     python -m predictionio_tpu_torch.tools.console accesskey list [APP]
     python -m predictionio_tpu_torch.tools.console accesskey delete KEY
     python -m predictionio_tpu_torch.tools.console eventserver [--ip ADDR] \\
-        [--port 7070] [--stats]
+        [--port 7070] [--stats] [--log-url URL]
     python -m predictionio_tpu_torch.tools.console storageserver \\
         [--ip 127.0.0.1] [--port 7077] [--auth-key KEY]
     python -m predictionio_tpu_torch.tools.console import --app NAME \\
-        [--channel C] --input events.jsonl
+        [--channel C] --input events.jsonl|events.parquet [--format json|parquet]
     python -m predictionio_tpu_torch.tools.console export --app NAME \\
-        [--channel C] --output events.jsonl
+        [--channel C] --output F [--format json|parquet]
     python -m predictionio_tpu_torch.tools.console status \\
         [--event-url http://localhost:7070 --access-key KEY]
     python -m predictionio_tpu_torch.tools.console train --engine-json F \\
         [--engine-version V] [--device cpu]
     python -m predictionio_tpu_torch.tools.console deploy --engine-json F \\
         [--engine-version V] [--ip ADDR] [--port N] [--device cpu] \\
-        [--feedback --event-server-url URL --access-key KEY]
+        [--feedback --event-server-url URL --access-key KEY] [--log-url URL]
+    python -m predictionio_tpu_torch.tools.console template list
+    python -m predictionio_tpu_torch.tools.console template get NAME DIR \\
+        [--package PKG]
 
     python -m predictionio_tpu_torch.tools.console eval run EVALUATION \\
         [GENERATOR] [--device cpu]
@@ -104,7 +107,18 @@ interrupted: any other process, every verb here included, then reaches
 it through a ``remote`` source (``PIO_STORAGE_SOURCES_<NAME>_TYPE=remote``
 with ``_HOST``, ``_PORT`` and ``_AUTH_KEY``). ``import`` writes events from JSON
 lines (one event object a line, as ``pio import`` reads them) and
-``export`` writes them so. ``train --engine-json`` trains the engine
+``export`` writes them so; with ``--format parquet`` both use the
+parquetfs store's schema (``data/storage/parquetfs.py``), and ``import``
+reads an ``--input`` ending in ``.parquet`` as parquet unless ``--format
+json`` says otherwise (a row that does not decode or validate is a
+warning naming its row, and the import then exits 1). ``eventserver
+--log-url`` and ``deploy --log-url`` ship the server's log records,
+access log included, to a collector as JSON lines
+(``utils/logship.py``). ``status`` lists the engine manifests that
+completed trains registered. ``template list`` prints the template
+gallery and ``template get NAME DIR`` scaffolds one of the port's engine
+families into DIR as a package of its own (``tools/template.py``); a
+family the port lacks is listed and refused. ``train --engine-json`` trains the engine
 variant into an engine instance and its MODELDATA blob, and ``deploy
 --engine-json`` serves the variant's newest completed instance until
 interrupted. ``eval run`` evaluates an ``Evaluation`` named by its
@@ -161,8 +175,8 @@ assembled cross-process traces of a process that runs a collector.
 ``deploy --feedback`` posts each
 answer to the Event Server at ``--event-server-url`` with
 ``--access-key`` as a ``predict`` event. Not ported, and refused with
-exit code 1: ``eventserver --log-url``, the parquet format of ``import``
-and ``export``, and the multi-host flags of ``fleet worker``. An operator error (an
+exit code 1: the multi-host flags of ``fleet worker`` and the template
+families the port lacks. An operator error (an
 app, channel or key that does not exist or is taken) exits 1 with
 ``[ERROR]`` and the reason.
 
@@ -234,7 +248,8 @@ def _parser() -> argparse.ArgumentParser:
     es.add_argument("--ip", default="0.0.0.0")
     es.add_argument("--port", type=int, default=7070)
     es.add_argument("--stats", action="store_true")
-    es.add_argument("--log-url", help="not ported")
+    es.add_argument("--log-url", default=None,
+                    help="ship the server's log records to this collector URL")
     ss = sub.add_parser("storageserver", aliases=["storage-server"],
                         help="serve the shared storage daemon")
     ss.add_argument("--ip", default="127.0.0.1")
@@ -245,14 +260,25 @@ def _parser() -> argparse.ArgumentParser:
                     help="also read a running Event Server's GET /segments/stats")
     st.add_argument("--access-key",
                     help="the access key for --event-url (its app and channel)")
-    for name, what, io in (("import", "write an app's events from JSON lines", "--input"),
-                           ("export", "write an app's events as JSON lines", "--output")):
+    for name, what, io, fmt in (
+            ("import", "write an app's events from JSON lines or parquet", "--input",
+             "input codec (default: parquet for a .parquet file, else json)"),
+            ("export", "write an app's events as JSON lines or parquet", "--output",
+             "output codec")):
         s = sub.add_parser(name, help=what)
         s.add_argument("--app", required=True)
         s.add_argument("--channel")
         s.add_argument(io, required=True, type=Path)
-        s.add_argument("--format", choices=("json", "parquet"), default="json",
-                       help="parquet is not ported")
+        s.add_argument("--format", choices=("json", "parquet"),
+                       default=None if name == "import" else "json", help=fmt)
+    tp = sub.add_parser("template", help="scaffold engines from the gallery"
+                        ).add_subparsers(dest="template_cmd", required=True)
+    tp.add_parser("list", help="list the gallery's templates")
+    s = tp.add_parser("get", help="copy a template into a directory")
+    s.add_argument("name", help="template name (see `template list`)")
+    s.add_argument("directory", help="destination directory")
+    s.add_argument("--package", default=None,
+                   help="package name of the scaffolded engine (default my_<name>)")
 
     tr = sub.add_parser("train", help="train an engine variant, or ALS factors "
                                       "from a ratings file")
@@ -290,6 +316,8 @@ def _parser() -> argparse.ArgumentParser:
                      help="post each answer to the Event Server as a predict event")
     dep.add_argument("--event-server-url", help="with --feedback: the Event Server")
     dep.add_argument("--access-key", help="with --feedback: the app's access key")
+    dep.add_argument("--log-url", default=None,
+                     help="ship the server's log records to this collector URL")
 
     ev = sub.add_parser("eval", help="run and inspect evaluations").add_subparsers(
         dest="eval_cmd", required=True)
@@ -656,11 +684,9 @@ def eventserver(args: argparse.Namespace) -> int:
     bound port (with --port 0, a free one)."""
     from predictionio_tpu_torch.data.api.server import EventServer, EventServerConfig
 
-    if args.log_url:
-        return _not_ported("eventserver --log-url (log shipping)")
     return _serve_until_interrupt(
         EventServer(Storage(), EventServerConfig(ip=args.ip, port=args.port,
-                                                 stats=args.stats)),
+                                                 stats=args.stats, log_url=args.log_url)),
         f"[INFO] Event Server is listening at http://{args.ip}:{{port}}.")
 
 
@@ -740,6 +766,16 @@ def status(args: argparse.Namespace) -> int:
                   f"rev {st.get('max_revision')}")
         except Exception as e:  # noqa: BLE001 — a warning, as the JAX console's
             print(f"[WARN] event-server segment stats unavailable: {e}")
+    try:
+        manifests = storage.get_meta_data_engine_manifests().get_all()
+    except Exception as e:  # noqa: BLE001 — a warning, as the JAX console's
+        manifests = []
+        print(f"[WARN] could not list engine manifests: {e}")
+    if manifests:
+        print("[INFO] Registered engines (trained at least once):")
+        for m in manifests:
+            print(f"[INFO]   {m.id} v{m.version}: {m.engine_factory}"
+                  + (f" — {m.description}" if m.description else ""))
     print(f"[INFO] {len(storage.get_meta_data_apps().get_all())} app(s). "
           "Your system is all ready to go.", flush=True)
     return 0
@@ -757,29 +793,117 @@ def _read_events(path: Path):
                 raise SystemExit(f"[ERROR] {path} line {i}: {e}")
 
 
-def import_events(args: argparse.Namespace) -> int:
-    """Validate every line's event and write them through the store's
-    bulk write into the app's default channel or `--channel`; a
-    malformed line is an error naming its line, and nothing after it is
-    written."""
+def _is_parquet(args: argparse.Namespace) -> bool:
+    """`import`'s codec: `--format`, else the input's .parquet suffix."""
+    return args.format == "parquet" or (
+        args.format is None and str(args.input).endswith(".parquet"))
+
+
+def _read_parquet_events(path: Path) -> tuple[list[Event], int]:
+    """The parquet file's events (the parquetfs schema, as `export
+    --format parquet` writes it) and the count of rows skipped: a row
+    that does not decode or validate is a warning naming its row (0-based,
+    physical), as in the JAX console."""
+    import pyarrow.parquet as pq
+
+    from predictionio_tpu_torch.data.event import EventValidation
+    from predictionio_tpu_torch.data.storage.parquetfs import table_to_events
+
+    errors = 0
+
+    def bad_row(i, exc):
+        nonlocal errors
+        errors += 1
+        print(f"[WARN] row {i}: {exc}", file=sys.stderr)
+
+    try:
+        table = pq.read_table(path)
+    except Exception as exc:  # noqa: BLE001 — any unreadable file, as the JAX console
+        raise CommandError(f"{path} is not a readable parquet file: {exc}") from None
+    events = []
+    for i, e in table_to_events(table, on_error=bad_row, with_index=True):
+        try:
+            EventValidation.validate(e)
+            events.append(e)
+        except Exception as exc:  # noqa: BLE001 — a skipped row, as the JAX console
+            bad_row(i, exc)
+    return events, errors
+
+
+def import_events(args: argparse.Namespace) -> tuple[int, int]:
+    """Write the input's events through the store's bulk write into the
+    app's default channel or `--channel`; returns (written, skipped).
+    JSON lines: a malformed line is an error naming its line, and nothing
+    after it is written. Parquet: `_read_parquet_events`."""
     storage = Storage()
     app = _get_app(storage, args.app)
-    return storage.get_events().write(
-        _read_events(args.input), app.id, _channel_id(storage, app, args.channel))
+    channel_id = _channel_id(storage, app, args.channel)
+    if _is_parquet(args):
+        events, errors = _read_parquet_events(args.input)
+        return storage.get_events().write(events, app.id, channel_id), errors
+    return storage.get_events().write(_read_events(args.input), app.id, channel_id), 0
+
+
+# events a parquet row group of `export --format parquet`
+PARQUET_EXPORT_BATCH = 50_000
 
 
 def export_events(args: argparse.Namespace) -> int:
-    """The channel's events as JSON lines, in (event time, id) order."""
+    """The channel's events in (event time, id) order, as JSON lines or,
+    with `--format parquet`, through one parquet writer in batches of
+    PARQUET_EXPORT_BATCH (reference EventsToFile.scala:42)."""
     storage = Storage()
     app = _get_app(storage, args.app)
     events = storage.get_events().find(
         EventQuery(app_id=app.id, channel_id=_channel_id(storage, app, args.channel)))
     n = 0
+    if args.format == "parquet":
+        import pyarrow.parquet as pq
+
+        from predictionio_tpu_torch.data.storage.parquetfs import (
+            _SCHEMA, events_to_table)
+
+        writer = pq.ParquetWriter(args.output, _SCHEMA)
+        batch: list = []
+        try:
+            for e in events:
+                batch.append(e)
+                n += 1
+                if len(batch) >= PARQUET_EXPORT_BATCH:
+                    writer.write_table(events_to_table(batch))
+                    batch.clear()
+            if batch:
+                writer.write_table(events_to_table(batch))
+        finally:
+            writer.close()
+        return n
     with open(args.output, "w") as f:
         for e in events:
             f.write(e.to_json() + "\n")
             n += 1
     return n
+
+
+def template_cmd(args: argparse.Namespace) -> int:
+    """`template list|get`: the gallery, or a scaffold of one of its
+    templates; a family the port lacks is refused as not ported."""
+    from predictionio_tpu_torch.tools.template import (
+        NotPortedTemplate, list_templates, scaffold)
+
+    if args.template_cmd == "list":
+        for t in list_templates():
+            print(f"{t.name:16s} {t.description}"
+                  + ("" if t.ported else " (not ported yet)"))
+        return 0
+    try:
+        dest = scaffold(args.name, args.directory, args.package)
+    except NotPortedTemplate:
+        return _not_ported(f"template {args.name!r}")
+    except (ValueError, FileExistsError) as e:
+        return _fail(str(e))
+    print(f"[INFO] Engine template '{args.name}' scaffolded at {dest}.")
+    print("[INFO] Next: edit engine.json, then `train` from that directory.")
+    return 0
 
 
 def build_server(args: argparse.Namespace):
@@ -798,6 +922,7 @@ def build_server(args: argparse.Namespace):
     config = QueryServerConfig(
         ip=args.ip, port=args.port, feedback=args.feedback,
         event_server_url=args.event_server_url, access_key=args.access_key,
+        log_url=args.log_url,
     )
     if args.engine_json is not None:
         variant = load_variant(str(args.engine_json))
@@ -1790,15 +1915,14 @@ def _run(args: argparse.Namespace) -> int:
                 "rollout": rollout_cmd, "faults": faults_cmd,
                 "adminserver": adminserver, "dashboard": dashboard,
                 "monitor": monitor_cmd, "alerts": alerts_cmd, "tsdb": tsdb_cmd,
-                "tune": tune_cmd, "fleet": fleet_cmd}
+                "tune": tune_cmd, "fleet": fleet_cmd, "template": template_cmd}
     if args.cmd in commands:
         return commands[args.cmd](args)
-    if args.cmd in ("import", "export") and args.format == "parquet":
-        return _not_ported(f"{args.cmd} --format parquet")
     if args.cmd == "import":
-        n = import_events(args)
-        print(f"[INFO] Imported {n} events into {args.app}", flush=True)
-        return 0
+        n, skipped = import_events(args)
+        print(f"[INFO] Imported {n} events into {args.app}"
+              + (f" ({skipped} malformed rows skipped)" if skipped else ""), flush=True)
+        return 0 if skipped == 0 else 1
     if args.cmd == "export":
         n = export_events(args)
         print(f"[INFO] Exported {n} events to {args.output}", flush=True)

@@ -479,6 +479,7 @@ class ServerProcess:
         self._server: Optional[ThreadedServer] = None
         self._thread: Optional[threading.Thread] = None
         self._monitor_token: Optional[int] = None
+        self._log_shipper = None
 
     def _make_server(self) -> ThreadedServer:
         raise NotImplementedError
@@ -502,12 +503,25 @@ class ServerProcess:
         if registry is not None and self._monitor_token is None:
             self._monitor_token = _monitor.get_monitor().attach(
                 getattr(self._server, "metrics_label", self._name), registry)
+        # remote log shipping (reference CreateServer.scala:441-452
+        # --log-url): a server whose config carries log_url ships the
+        # port's log records to the collector while it serves
+        log_url = getattr(getattr(self, "config", None), "log_url", None)
+        if log_url and self._log_shipper is None:
+            from predictionio_tpu_torch.utils.logship import attach_log_shipper
+
+            self._log_shipper = attach_log_shipper(
+                log_url, logging.getLogger("predictionio_tpu_torch"))
         return self.port
 
     def stop(self) -> None:
         if self._monitor_token is not None:
             _monitor.get_monitor().detach(self._monitor_token)
             self._monitor_token = None
+        if self._log_shipper is not None:
+            logging.getLogger("predictionio_tpu_torch").removeHandler(self._log_shipper)
+            self._log_shipper.close()
+            self._log_shipper = None
         if self._server is not None:
             self._server.shutdown()
             self._server.server_close()

@@ -7,8 +7,10 @@ CreateServer.createServerActorWithEngine:206). The JAX mesh becomes a
 device: the train runs on the caller's device (None is the first CUDA
 device), and deploy serves on the device it is given, never the one the
 model was trained on. The train's root span, its persist stage span
-and ``train_runs_total`` are the JAX package's; the ``profile_dir``
-trace window and engine-manifest registration are not ported.
+and ``train_runs_total`` are the JAX package's, and so is the engine
+manifest that every completed train registers (``_register_manifest``,
+non-fatal; ``console status`` lists them). The ``profile_dir`` trace
+window is not ported.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from predictionio_tpu_torch.core.base import (
     StopAfterReadInterruption,
     WorkflowParams,
 )
-from predictionio_tpu_torch.data.storage.base import EngineInstance, Model
+from predictionio_tpu_torch.data.storage.base import EngineInstance, EngineManifest, Model
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.obs import get_default_registry, span
@@ -163,12 +165,38 @@ def run_train(
                     )
                 ctx.stage_timings["persist"] = persist_sp.duration
         finish("COMPLETED")
+        _register_manifest(storage, instance, variant)
         log.info("training completed: instance %s (stages: %s)", instance.id,
                  {k: round(v, 3) for k, v in ctx.stage_timings.items()})
         return instance
     except Exception:
         finish("ABORTED")  # partial timings show where the failed run spent time
         raise
+
+
+def _register_manifest(storage: Storage, instance: EngineInstance, variant: dict) -> None:
+    """Upsert the EngineManifest row of a completed train (the JAX
+    package's). Reference RegisterEngine.scala:32 writes it at `pio
+    build`; with no build step (an engine is a Python entry point named
+    in engine.json) it is written at each completed train, once the
+    factory provably resolves and runs. A failure is logged, never
+    raised."""
+    try:
+        factory = load_symbol(instance.engine_factory)
+        description = (factory.__doc__ or "").strip().splitlines()
+        storage.get_meta_data_engine_manifests().update(
+            EngineManifest(
+                id=instance.engine_id,
+                version=instance.engine_version,
+                name=variant.get("id", instance.engine_id),
+                description=description[0] if description else None,
+                files=(instance.engine_factory.rsplit(".", 1)[0],),
+                engine_factory=instance.engine_factory,
+            ),
+            upsert=True,
+        )
+    except Exception:
+        log.exception("engine manifest registration failed (non-fatal)")
 
 
 def stage_timings(instance: EngineInstance) -> dict:

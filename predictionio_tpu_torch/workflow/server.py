@@ -150,6 +150,9 @@ class QueryServerConfig:
     # "continuous": arrivals join the assembling batch until a batch in
     # flight retires; "windowed": it lingers up to max_window_ms
     batching: str = "continuous"
+    # remote log shipping (reference CreateServer.scala:441-452 --log-url):
+    # server log records POST to this collector as JSON lines, best-effort
+    log_url: Optional[str] = None
 
 
 @dataclass

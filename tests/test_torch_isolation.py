@@ -125,7 +125,9 @@ STORAGE_MODULES = ["predictionio_tpu_torch.resilience",
                    "predictionio_tpu_torch.data.storage.docfs",
                    "predictionio_tpu_torch.data.storage.replication",
                    "predictionio_tpu_torch.fleet.election",
-                   "predictionio_tpu_torch.data.storage.sharded"]
+                   "predictionio_tpu_torch.data.storage.sharded",
+                   "predictionio_tpu_torch.data.storage.postgres",
+                   "predictionio_tpu_torch.data.storage.parquetfs"]
 
 
 def test_the_walk_covers_the_storage_modules():
@@ -137,7 +139,8 @@ def test_the_walk_covers_the_storage_modules():
               "data/api/storage_server.py", "data/storage/segmentfs.py",
               "data/storage/docfs.py", "parallel/loader.py",
               "data/storage/replication.py", "fleet/election.py",
-              "data/storage/sharded.py"):
+              "data/storage/sharded.py", "data/storage/postgres.py",
+              "data/storage/parquetfs.py"):
         assert f"predictionio_tpu_torch/{f}" in walked
     assert set(STORAGE_MODULES) <= set(_port_modules())
 
@@ -170,7 +173,8 @@ OBS_MODULES = ["predictionio_tpu_torch.obs", "predictionio_tpu_torch.obs.tracing
                "predictionio_tpu_torch.obs.monitor.durable",
                "predictionio_tpu_torch.obs.monitor.compact",
                "predictionio_tpu_torch.obs.monitor.push",
-               "predictionio_tpu_torch.tools.admin", "predictionio_tpu_torch.tools.dashboard"]
+               "predictionio_tpu_torch.tools.admin", "predictionio_tpu_torch.tools.dashboard",
+               "predictionio_tpu_torch.utils.logship"]
 
 
 def test_the_walk_covers_the_telemetry_modules():

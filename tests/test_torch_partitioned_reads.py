@@ -2,9 +2,10 @@
 CPU, against the JAX package's stores.
 
 The unit layer of the JAX tests/test_partitioned_reads.py over the
-port's memory, sqlite, segmentfs (sealed rows and the tail) and remote
-(the port's client and daemon; the JAX client and daemon beside them)
-stores, each fed the same seeded events with explicit ids as its JAX
+port's memory, sqlite, segmentfs (sealed rows and the tail), remote
+(the port's client and daemon; the JAX client and daemon beside them),
+postgres (over the sqlite-backed fake driver, tests/fake_pg.py) and
+parquetfs stores, each fed the same seeded events with explicit ids as its JAX
 counterpart:
 
 - n shards partition ``find`` exactly, each entity's events land in one
@@ -34,11 +35,13 @@ from predictionio_tpu.data import event as jevent  # noqa: E402
 from predictionio_tpu.data.storage import base as jbase  # noqa: E402
 from predictionio_tpu.data.storage import registry as jreg  # noqa: E402
 from predictionio_tpu.data.storage import wire as jwire  # noqa: E402
+from predictionio_tpu.data.storage.postgres import _PGClient as JPGClient  # noqa: E402
 from predictionio_tpu.data.store.columnar import EventFrame as JFrame  # noqa: E402
 from predictionio_tpu_torch.data import event as tevent  # noqa: E402
 from predictionio_tpu_torch.data.storage import base as tbase  # noqa: E402
 from predictionio_tpu_torch.data.storage import registry as treg  # noqa: E402
 from predictionio_tpu_torch.data.storage import wire  # noqa: E402
+from predictionio_tpu_torch.data.storage.postgres import _PGClient as PGClient  # noqa: E402
 from predictionio_tpu_torch.data.storage.memory import MemoryEventStore  # noqa: E402
 from predictionio_tpu_torch.data.storage.replication import ReplicaReadStorage  # noqa: E402
 from predictionio_tpu_torch.data.store.columnar import EventFrame  # noqa: E402
@@ -46,7 +49,7 @@ from predictionio_tpu_torch.data.store.columnar import EventFrame  # noqa: E402
 from test_torch_remote_storage import _daemon  # noqa: E402
 
 PKG = {"port": (tevent, tbase, treg, EventFrame), "jax": (jevent, jbase, jreg, JFrame)}
-KINDS = ["memory", "sqlite", "segmentfs", "remote"]
+KINDS = ["memory", "sqlite", "segmentfs", "remote", "postgres", "parquetfs"]
 T0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
 
 
@@ -57,6 +60,8 @@ def _config(pkg, kind, path, daemon_port=None):
         "sqlite": ("sqlite", {"PATH": str(path / "s.db")}),
         "segmentfs": ("segmentfs", {"PATH": str(path / "seg"), "SEAL_INTERVAL_S": "3600"}),
         "remote": ("remote", {"HOST": "127.0.0.1", "PORT": str(daemon_port)}),
+        "postgres": ("postgres", {}),  # its client injected by _storage
+        "parquetfs": ("parquetfs", {"PATH": str(path / "pq")}),
     }[kind]
     return reg.StorageConfig(
         sources={"S": reg.SourceConfig("S", *src), "M": reg.SourceConfig("M", "memory", {})},
@@ -75,6 +80,18 @@ def _rows(n=90):
             for i in range(n)]
 
 
+def _storage(pkg, kind, path, daemon_port=None):
+    """The package's Storage of `kind`; a postgres source's client is
+    the package's `_PGClient` over a fake driver connection of its own."""
+    storage = PKG[pkg][2].Storage(_config(pkg, kind, path, daemon_port))
+    if kind == "postgres":
+        import fake_pg
+
+        client = (PGClient if pkg == "port" else JPGClient)(conn=fake_pg.connect())
+        storage._clients["S"] = client
+    return storage
+
+
 @contextlib.contextmanager
 def _stores(kind, tmp_path):
     """{pkg: event store} of `kind`, each seeded with `_rows()` (over
@@ -88,7 +105,7 @@ def _stores(kind, tmp_path):
             if kind == "remote":
                 daemons.append(_daemon(pkg, path / "daemon"))
                 port = daemons[-1].port
-            store = PKG[pkg][2].Storage(_config(pkg, kind, path, port)).get_events()
+            store = _storage(pkg, kind, path, port).get_events()
             store.init_app(1)
             events = [PKG[pkg][0].Event(**r) for r in _rows()]
             store.insert_batch(events[:45], 1)

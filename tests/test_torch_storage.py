@@ -28,6 +28,7 @@ pytest.importorskip("jax")
 from predictionio_tpu.data import event as jevent  # noqa: E402
 from predictionio_tpu.data.storage import base as jbase  # noqa: E402
 from predictionio_tpu.data.storage import localfs as jlocalfs  # noqa: E402
+from predictionio_tpu.data.storage import postgres as jpostgres  # noqa: E402
 from predictionio_tpu.data.storage import registry as jreg  # noqa: E402
 from predictionio_tpu.data.storage import sqlite as jsqlite  # noqa: E402
 from predictionio_tpu.data.store.bimap import BiMap as JBiMap  # noqa: E402
@@ -36,6 +37,7 @@ from predictionio_tpu.data.store.event_store import EventStoreFacade as JFacade 
 from predictionio_tpu_torch.data import event as tevent  # noqa: E402
 from predictionio_tpu_torch.data.storage import base as tbase  # noqa: E402
 from predictionio_tpu_torch.data.storage import localfs as tlocalfs  # noqa: E402
+from predictionio_tpu_torch.data.storage import postgres as tpostgres  # noqa: E402
 from predictionio_tpu_torch.data.storage import registry as treg  # noqa: E402
 from predictionio_tpu_torch.data.storage import sqlite as tsqlite  # noqa: E402
 from predictionio_tpu_torch.data.store.bimap import BiMap  # noqa: E402
@@ -302,8 +304,9 @@ def test_storage_config_from_env_matches_jax(tmp_path):
     assert {k: vars(v) for k, v in dev_t.sources.items()} == \
         {k: vars(v) for k, v in dev_j.sources.items()}
     assert dev_t.repositories == dev_j.repositories
+    # a type the port lacks (postgres is ported: tests/test_torch_postgres.py)
     bad = treg.Storage(treg.StorageConfig(
-        sources={"P": treg.SourceConfig("P", "postgres")},
+        sources={"P": treg.SourceConfig("P", "elasticsearch")},
         repositories={"EVENTDATA": "P"}))
     with pytest.raises(tbase.StorageError, match="not in the port"):
         bad.get_events()
@@ -414,15 +417,28 @@ def test_bulk_write_builds_the_same_indexes(tmp_path, monkeypatch):
 # -- channels, the full filter set, get / delete / remove_app, access keys ---
 
 def _stores(kind, tmp_path):
-    """(JAX, port) event stores and metadata DAOs of one backend kind."""
+    """(JAX, port) event stores and metadata DAOs of one backend kind: a
+    postgres source over a fake driver connection a package
+    (tests/fake_pg.py), parquetfs events beside memory metadata."""
     def make(reg, sub):
         settings = {}
+        (tmp_path / sub).mkdir(exist_ok=True)
         if kind == "sqlite":
-            (tmp_path / sub).mkdir(exist_ok=True)
             settings = {"PATH": str(tmp_path / sub / "pio.db")}
-        return reg.Storage(reg.StorageConfig(
-            sources={"S": reg.SourceConfig("S", kind, settings)},
-            repositories={"METADATA": "S", "EVENTDATA": "S", "MODELDATA": "S"}))
+        if kind == "parquetfs":
+            settings = {"PATH": str(tmp_path / sub / "pq")}
+        storage = reg.Storage(reg.StorageConfig(
+            sources={"S": reg.SourceConfig("S", kind, settings),
+                     "M": reg.SourceConfig("M", "memory", {})},
+            repositories={"METADATA": "M" if kind == "parquetfs" else "S",
+                          "EVENTDATA": "S",
+                          "MODELDATA": "M" if kind == "parquetfs" else "S"}))
+        if kind == "postgres":
+            import fake_pg
+
+            client = (jpostgres if reg is jreg else tpostgres)._PGClient
+            storage._clients["S"] = client(conn=fake_pg.connect())
+        return storage
 
     return make(jreg, "jax"), make(treg, "port")
 
@@ -468,7 +484,7 @@ FILTERS = {
 
 
 @pytest.mark.parametrize("case", sorted(FILTERS))
-@pytest.mark.parametrize("kind", ["memory", "sqlite"])
+@pytest.mark.parametrize("kind", ["memory", "sqlite", "postgres", "parquetfs"])
 def test_event_query_filters_match_jax(tmp_path, kind, case):
     js, ts = _stores(kind, tmp_path)
     for storage, mod in ((js, jevent), (ts, tevent)):
@@ -476,10 +492,15 @@ def test_event_query_filters_match_jax(tmp_path, kind, case):
         storage.get_events().insert_batch(_channel_events(mod, 1), 1, 1)
     kw = FILTERS[case]
     jkw = dict(kw)
-    if kind == "memory" and case == "channel_zero_is_default":
-        # the JAX memory store keeps a channel 0 apart from the default
-        # one; its sqlite store and both of the port's stores do not
+    if kind in ("memory", "parquetfs") and case == "channel_zero_is_default":
+        # the JAX memory and parquetfs stores keep a channel 0 apart from
+        # the default one; its sqlite and postgres stores and the port's
+        # stores do not
         jkw["channel_id"] = None
+    if kind == "parquetfs" and case == "limit_all":
+        # the JAX parquetfs find slices by a negative limit; every other
+        # store, the port's parquetfs too, reads a negative limit as none
+        jkw["limit"] = None
     want = [e.to_json_dict() for e in js.get_events().find(jbase.EventQuery(app_id=1, **jkw))]
     got = [e.to_json_dict() for e in ts.get_events().find(tbase.EventQuery(app_id=1, **kw))]
     assert got == want and (got or case == "target_absent")
@@ -491,7 +512,7 @@ def test_event_query_filters_match_jax(tmp_path, kind, case):
         assert [e.event_id for e in every if q.matches(e)] == [g["eventId"] for g in got]
 
 
-@pytest.mark.parametrize("kind", ["memory", "sqlite"])
+@pytest.mark.parametrize("kind", ["memory", "sqlite", "postgres", "parquetfs"])
 def test_get_delete_remove_app_match_jax(tmp_path, kind):
     js, ts = _stores(kind, tmp_path)
     outcomes = []
@@ -524,7 +545,7 @@ def test_get_delete_remove_app_match_jax(tmp_path, kind):
 EVENTQ = {jevent: jbase.EventQuery, tevent: tbase.EventQuery}
 
 
-@pytest.mark.parametrize("kind", ["memory", "sqlite"])
+@pytest.mark.parametrize("kind", ["memory", "sqlite", "postgres"])
 def test_access_keys_and_channels_match_jax(tmp_path, kind):
     js, ts = _stores(kind, tmp_path)
     outcomes = []
