@@ -16,9 +16,10 @@ their children's push telemetry),
 item properties with the similar-product and e-commerce templates, the
 Universal Recommender's train and serve path, the classification
 and regression templates, the query server's canary rollout,
-deadlines, fault points and pipelined batching, and the monitoring
-plane with the operator servers and the durable TSDB tier, on one CUDA
-card.
+deadlines, fault points and pipelined batching, multi-tenant serving
+(tenants, the fair queue, quotas, the model cache, the mux), and the
+monitoring plane with the operator servers and the durable TSDB tier, on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -115,7 +116,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             --engine-json`` with the loop's params reading through the data
             view's segment branch (one miss, no npz file): the frame holds
             exactly the generated (user, item, rating, time) rows, and the
-            store's columnar frame of entity partition 0 of 4
+            store's columnar frame of entity partition 0 of 16
             (``EventQuery.shard``) equals ``EventFrame.from_events(
             store.find(q))`` of that partition bit for bit; each
             pass kernel launches once an iteration, and both are held to
@@ -182,9 +183,22 @@ Phases, in order; any failure prints what failed and exits non-zero:
             clients for folded and known users: each the plain top-k on
             the CPU over the served factors, one ``recommend_select`` a
             device batch by the route and by the profiler, the served slab
-            held to the plain version. Prints the sync seconds, bytes and
-            MB/s, the failover seconds, the consumer's catch-up, p50/p99
-            and qps, each line with the card's name and power limit.
+            held to the plain version. (e) A retrain over the promoted
+            winner: ``run_train`` of 9b's variant twice on cuda:0 through
+            ``ReplicaReadStorage(control, winner)`` (the data view, the
+            winner's segmentfs ``find_frame``): the frame holds 9b's rows
+            plus every row past the head (each acknowledged id once), its
+            entity partition 0 of 128 equals ``EventFrame.from_events`` of
+            the winner's ``find`` column for column, each train takes the
+            dense path with one row and one col pass launch an iteration
+            (both passes held to the plain passes on its int8 R within
+            1e-5 S after the counted path), the second train's factors
+            bit-equal to the first's; the server reloads the retrain and
+            100 queries are each the CPU plain top-k, one select a device
+            batch. Prints the sync seconds, bytes and MB/s, the failover
+            seconds, the consumer's catch-up, p50/p99 and qps, the
+            retrain's read, train and launches, each line with the card's
+            name and power limit.
 10. eval    ``pio eval`` over the loop's storage and app, in this process
             on the card: ``console eval run`` of EvalML1M over EvalGrid,
             the recommendation template's tuning example (5 folds,
@@ -245,7 +259,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             for it: the bake stretched 2x; with ``PIO_TUNE_PRIOR=0``
             unchanged. The phase's jobs, versions, rollout records and
             preset are then purged. (d) The UR configuration's buys and
-            views of its first 1,000 of 3,000 users (phase 21's generator,
+            views of its first 500 of 3,000 users (phase 21's generator,
             from UR_SEED, in a memory store of their own) with 2,000 items' ``$set``/``$unset``/``$delete``
             histories, 5,000 exact duplicates and 3,000 events 90 days
             before the window: ``URDataSource``'s event window cleans them,
@@ -556,7 +570,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
 22. ur train ``URDataSource.read_training`` and ``URAlgorithm.train`` on
             the card at the template defaults (50 correlators, 100 query
             events): every table finite, and equal to the same block train
-            on the CPU for three blocks of 256 items per indicator (the
+            on the CPU for three blocks of 128 items per indicator (the
             first, a middle and the last)
             within the LLR tolerance (atol = 16 eps N ln N; indices equal
             outside tie groups). A row where the card and the host CPU
@@ -604,7 +618,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             float64 numpy ridge, test RMSE within 0.1 % of its; the l2
             grid {1e-6, 1e-3, 1e-1} equal to its per-point trains (rtol
             1e-4). (c) Through storage under ``build/classify/``: the
-            first 12,000 cells and 6,000 songs as ``$set`` events
+            first 6,000 cells and 3,000 songs as ``$set`` events
             (``console import``), read back exactly by the trains'
             ``aggregate_properties``; the classification variant
             (``randomforest``, ``logreg``, ``naive``; FirstServing) and
@@ -692,6 +706,47 @@ Phases, in order; any failure prints what failed and exits non-zero:
             each figure, the verdict times, the shed latency, the phase's
             wall and card-busy share, each line with the card's name and
             power limit.
+27b. tenancy multi-tenant serving on one query server on cuda:0 with a
+            ``TenantMux`` over the loop's storage: phase 6's factors
+            persisted as ``ml20m-wide``, both it and the loop's
+            ``ml1m-als`` instance registered and promoted, a candidate of
+            ``ml1m-als`` (the loop's factors, item rows scaled by up to
+            10 %) registered. (a) Tenants ``wide`` and ``hog`` (on
+            ``ml20m-wide``) and ``ml1m`` made by ``console tenants
+            new|set-quota``, listed alike by ``console tenants list`` and
+            the admin server's ``GET /tenants``; the three runtimes warm.
+            (b) 500 queries from 16 clients over the three, by
+            ``/tenants/<id>/queries.json`` and by ``X-PIO-Tenant``: each
+            the CPU plain top-k of its tenant's factors, one
+            ``recommend_select`` a device group by the route and by
+            devprof, every group one tenant's. (c) ml1m's p50/p99 from 2
+            clients alone and under 16 hog clients (equal weights); 80
+            hog and 8 ml1m queries queued at once on the dispatcher: the
+            last ml1m answer before the hog's median. (d) hog at qps 2: 10
+            back-to-back queries, the over-quota ones 429 with
+            ``Retry-After`` and counted by ``tenant_quota_rejected_total``
+            and ``queries_shed_total{reason="quota"}``; an expired
+            deadline on ml1m a 503; hog at 0.001 device s/s: queries until
+            a 429, the charge equal to the dispatcher's CUDA-event
+            readings and to the rise of ``tenant_device_seconds_total``.
+            (e) A second server whose mux has ``PIO_TENANT_CACHE_HBM_BYTES``
+            at 0.9 x wide's and ml1m's resident bytes: 4 alternating
+            queries, each a load and an eviction, reloaded answers
+            bit-equal, the ``tenant_cache_*_total`` series what happened,
+            each load's ``torch.cuda.memory_allocated()`` change within
+            1 % + 64 KiB of its resident bytes. (f) A canary of ml1m's
+            candidate through ``/tenants/ml1m/rollout/start`` (0.5,
+            bake 1 s) promoted under traffic: candidate-routed answers the
+            candidate's, wide's answers and live version unchanged; then
+            ``dispatch.device@tenant/hog`` fails hog's queries (500) and
+            no other's. (g) 800 ratings of 100 new users folded into ml1m's
+            cached runtime through ``TenantApplyHost`` on cuda:0: their
+            answers the CPU plain top-k of the folded factors, wide's
+            unchanged. The phase's top-k launches outside the loads =
+            select launches = devprof's card calls = the device groups the
+            servers booked; each tenant's slab held to the plain version.
+            Prints each part's figures and seconds, each line with the
+            card's name and power limit.
 28. monitor the monitoring plane and the operator servers at ML-20M width,
             on phase 6's factors, over storage under ``build/monitor/``.
             (a) A ``QueryServer`` on the card, an Event Server and an
@@ -731,7 +786,7 @@ Phases, in order; any failure prints what failed and exits non-zero:
             ``/models``, ``/jobs``, ``/online`` and ``/rollout`` equal
             ``console models list``, ``jobs list``, ``online cursors`` and
             ``rollout status`` over the same storage, ``/evals`` (no run)
-            ``eval list``; ``/tenants`` 404 not ported yet. Durable: the
+            ``eval list``, ``/tenants`` (none) ``tenants list``. Durable: the
             dashboard's increase of the query server's ``/queries.json``
             200s over the whole phase equals the query server's own count
             less the first scraped value (the warm query's 1) and its
@@ -927,6 +982,9 @@ try:
         build_runtime,
         latest_completed_runtime,
     )
+    from predictionio_tpu_torch.workflow import server as wserver
+    from predictionio_tpu_torch.tenancy import TenantMux
+    from predictionio_tpu_torch.tenancy.cache import estimate_runtime_device_bytes
 except ImportError as exc:  # run outside a checkout of the repository
     _IMPORT_ERROR: ImportError | None = exc
 else:
@@ -969,8 +1027,8 @@ UR_NEW_USERS = 50  # view-only users added after the train
 UR_SWEEP_WIDTHS = ((1_024, 1_000), (12_416, 12_345), (100_096, 100_000))
 # up to the select route's limit, and the first k above it
 UR_K_LADDER = (1, 10, 64, 1_023, 1_024, 1_025)
-# the first, a middle and the last 256 items
-UR_CPU_BLOCKS, UR_CPU_BLOCK_ROWS = (0, 49_920, 99_744), 256
+# the first, a middle and the last 128 items
+UR_CPU_BLOCKS, UR_CPU_BLOCK_ROWS = (0, 49_920, 99_872), 128
 UR_TIMES_K = 64
 MASKED_REPLACES = "predictionio_tpu/ops/recommend_pallas.py:468"
 LOOP_SEED = 1
@@ -1075,7 +1133,7 @@ YEAR_ATTRS = (tuple(f"timbre_avg_{i}" for i in range(1, 13))
               + tuple(f"timbre_cov_{i}" for i in range(1, 79)))
 RIDGE_L2, RIDGE_GRID = 1e-6, (1e-6, 1e-3, 1e-1)
 # the store path: entities cut to fit the script's time limit
-CLASSIFY_ENTITIES, REGRESS_ENTITIES, CLASSIFY_FOLDS = 12_000, 6_000, 5
+CLASSIFY_ENTITIES, REGRESS_ENTITIES, CLASSIFY_FOLDS = 6_000, 3_000, 5
 NB_GRID = (0.5, 1.0, 2.0, 4.0)
 LR_GRID = ((0.5, 1e-4), (0.3, 1e-3), (0.8, 1e-2))  # (lr, l2)
 CLASSIFY_T0_MS = 1_262_304_000_000  # 2010-01-01, epoch ms
@@ -2431,7 +2489,7 @@ SEGMENTS_WRITERS = 4
 SEGMENTS_BATCH = 50  # the Event Server's batch limit
 SEGMENTS_KILL_AT = 1 / 3  # the share of (d)'s batches acknowledged before the SIGKILL
 SEGMENTS_PAGE = 100_000  # find_since's page in (d)'s read-back
-SEGMENTS_ROW_SHARDS = 4  # (b): the row path is held on one of these entity partitions
+SEGMENTS_ROW_SHARDS = 16  # (b): the row path is held on one of these entity partitions
 
 
 def _segments_env(sealer_s="0.25"):
@@ -2566,7 +2624,7 @@ def phase_segments(report, shared):
                                      np.random.default_rng(SEGMENTS_SEED + 2),
                                      LOOP_USERS, LOOP_ITEMS)
     shared["segments"] = {**handoff, "app_id": app_id, "query": run["query"],
-                          "instance": run["retrain"].id}
+                          "instance": run["retrain"].id, "variant": run["variant"]}
     seg["launches"]["serve_topk"] = served.pop("served")
     seg["launches"]["serve_select"] = served.pop("select")
     seg.update(served)
@@ -2945,6 +3003,8 @@ REPL_WRITERS, REPL_BATCH = 4, 50
 REPL_KILL_AT = 1 / 3  # the share of (b)'s events acknowledged before the SIGKILL
 REPL_SEAL_EVENTS = 2_000  # the primary's seal size: segments ship as well as frames
 REPL_WAIT_S = 120.0  # each wait's own deadline
+REPL_ROW_SHARDS = 128  # (e): find() is held on one of these entity partitions
+REPL_RETRAIN_QUERIES = 100  # (e): queries to the reloaded retrain
 _LISTENING = re.compile(r"storage server listening on [^\s:]+:(\d+)")
 
 
@@ -3111,9 +3171,21 @@ def phase_replication(report, shared):
           f"the kill; a restarted consumer consumed 0; {N_QUERIES} queries from "
           f"{N_CLIENTS} clients: p50 {d['p50_ms']:.3f} ms, p99 {d['p99_ms']:.3f} ms, "
           f"{d['qps']:.1f} qps, {d['batches']} batches, top-k launches "
-          f"{rp['launches']['topk']} (select {rp['launches']['select']}, profiler "
-          f"{d['profiled']}); every answer the CPU plain top-k's; phase {rp['phase_s']:.1f} s",
+          f"{d['batches']} (profiler {d['profiled']}); every answer the CPU plain top-k's",
           flush=True)
+    e, eh = rp["e"], rp["retrain_held"]
+    print(f"[replication] {smi} | (e) retrain over the promoted winner {c['winner']}: "
+          f"{e['rows']} rows read through the data view in {e['read_s']:.3f} s (hit "
+          f"{e['read_hit_s']:.3f} s), = 9b's {e['rows_9b']} + {e['rows_live']} past the "
+          f"head, each once; partition 0 of {REPL_ROW_SHARDS} equal to from_events(find) "
+          f"({e['part_rows']} rows, {e['part_s']:.2f} s); train {e['train_s']:.3f} s on "
+          f"cuda:0, launches row {e['launches']['row']}, col {e['launches']['col']} for "
+          f"2 x {e['iterations']} iterations, held to the plain passes (max |err| row "
+          f"{eh['row']['max_abs_err']:.3g}, col {eh['col']['max_abs_err']:.3g}, largest "
+          f"/ (1e-5 S) {max(eh['row']['max_ratio'], eh['col']['max_ratio']):.3g}); the "
+          f"second train bit-equal; reloaded, {REPL_RETRAIN_QUERIES} queries each the CPU "
+          f"plain top-k's, select launches {e['select']} = batches {e['batches']}; "
+          f"retrain {e['phase_s']:.1f} s; phase {rp['phase_s']:.1f} s", flush=True)
 
 
 def _replication_run(rp, sg, primary, fstores, ports):
@@ -3187,17 +3259,155 @@ def _replication_run(rp, sg, primary, fstores, ports):
                                         t_kill)
         rp["d"] = _replication_serve(srv, port, consumer, store_a, ctl, app_id, head0,
                                      t_kill, name)
+        topk, select = rp["d"].pop("topk"), rp["d"].pop("select")
+        folded = srv.runtime.models[0]._serving_state  # (d)'s served slab
+        rp["e"] = _replication_retrain(srv, port, ctl, fstores[rp["c"]["winner"]], sg,
+                                       head0, acked)
     finally:
         als.fold_in_rows = fold_of
         srv.stop()
-    rp["launches"] = {"topk": rp["d"].pop("topk"), "select": rp["d"].pop("select")}
+    held = rp["e"].pop("held")
+    rp["launches"] = {"topk": topk + rp["e"]["topk"], "select": select + rp["e"]["select"],
+                      "row": rp["e"]["launches"]["row"], "col": rp["e"]["launches"]["col"]}
     check(fold_devices and set(fold_devices) == {"cuda:0"},
           f"folds ran on {sorted(set(fold_devices))}")
     rp["d"]["folds"] = len(fold_devices)
     tally = {"cases": 0, "max_abs_err": 0.0}
+    _select_held(folded, np.random.default_rng(REPLICATION_SEED), tally, "replication slab")
     _select_held(srv.runtime.models[0]._serving_state, np.random.default_rng(REPLICATION_SEED),
-                 tally, "replication slab")
+                 tally, "replication retrain slab")
     rp["held"] = tally
+    # the retrain's passes on its int8 R, held to the plain passes: after
+    # the counted path, so that these launches count nowhere
+    rp["retrain_held"] = {w: {"cases": 0, "max_abs_err": 0.0, "max_ratio": 0.0}
+                          for w in ("row", "col")}
+    _dense_held(held, RANK, np.random.default_rng(REPLICATION_SEED + 2), rp["retrain_held"],
+                "replication retrain")
+
+
+def _decoded_rows(frame):
+    """(user, item, time ms, value) rows of an EventFrame by the ints of
+    its ids, sorted: a multiset of the frame's rows."""
+    rows = np.stack([_ids(frame.entity_vocab, "u")[frame.entity_idx],
+                     _ids(frame.target_vocab, "i")[frame.target_idx],
+                     np.asarray(frame.time_ms, np.int64),
+                     np.asarray(frame.value, np.float64).view(np.int64)])
+    return rows[:, np.lexsort(rows[::-1])]
+
+
+def _replication_retrain(srv, port, ctl, winner, sg, head0, acked):
+    """(e) Two trains over the promoted winner through ``run_train``
+    (9b's variant: the data view, segmentfs ``find_frame``) on cuda:0,
+    the frame and the launches checked, the second train's factors
+    bit-equal to the first's; the server reloads the retrain and
+    REPL_RETRAIN_QUERIES queries are held to the CPU plain top-k."""
+    t_e = time.perf_counter()
+    app_id, q = sg["app_id"], sg["query"]
+    storage = ReplicaReadStorage(ctl, winner, [app_id])
+    frames, frame_of = [], RecommendationDataSource._frame
+
+    def kept_frame(self, ctx):
+        frames.append(frame_of(self, ctx))
+        return frames[-1]
+
+    RecommendationDataSource._frame = kept_frame
+    df.PASS_LAUNCHES.update(row=0, col=0)  # every count to 0 just before the main path
+    insts, train_s = [], []
+    try:
+        with _Spy(als, "stage_dense") as stage, _Spy(DataView, "find_frame") as reads:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                insts.append(wcore.run_train(storage, sg["variant"]))
+                train_s.append(time.perf_counter() - t0)
+    finally:
+        RecommendationDataSource._frame = frame_of
+    launches = dict(df.PASS_LAUNCHES)
+    iterations = ALSAlgorithmParams().num_iterations
+    check(all(i.status == "COMPLETED" for i in insts), f"retrain {[i.status for i in insts]}")
+    check(launches["row"] == launches["col"] == 2 * iterations,
+          f"retrain pass launches {launches} != one row and one col a pass and iteration")
+    staged = [out for *_, out in stage.calls]
+    check(len(staged) == 2 and all(type(s).__name__ == "StagedDenseTrain" for s in staged),
+          f"the retrains staged {[type(s).__name__ for s in staged]}, not two dense trains")
+    # the frame: 9b's rows plus every row past the head (the acknowledged
+    # live ratings among them), each once, the same for both trains
+    frame = frames[0]
+    check(_same_frame(frames[1], frame), "the second train read another frame")
+    after = winner.find_since(app_id, head0)
+    ids = [e.event_id for e in after]
+    check(len(ids) == len(set(ids)) and set(acked) <= set(ids),
+          "the winner's rows past the head lack an acknowledged id or hold one twice")
+    live = EventFrame.from_events(after, value_prop="rating", default_value=1.0)
+    want = np.concatenate([_decoded_rows(sg["frame"]), _decoded_rows(live)], axis=1)
+    want = want[:, np.lexsort(want[::-1])]
+    check(len(frame) == len(sg["frame"]) + len(after)
+          and np.array_equal(_decoded_rows(frame), want),
+          "the retrain's frame is not 9b's rows plus the rows past the head")
+    # the columnar read equals from_events(find) column for column, on one
+    # entity partition (a whole find decodes each of ~1.05 M events)
+    t0 = time.perf_counter()
+    q_part = dataclasses.replace(q, shard=(0, REPL_ROW_SHARDS))
+    ref = EventFrame.from_events(winner.find(q_part), value_prop="rating", default_value=1.0)
+    part_s = time.perf_counter() - t0
+    part = winner.find_frame(q_part, value_prop="rating", default_value=1.0)
+    check(len(ref) > 0 and _same_frame(part, ref),
+          "the winner's columnar frame of partition 0 differs from from_events(find(q))")
+    in_part = np.array([shard_of(k, REPL_ROW_SHARDS) == 0
+                        for k, _ in sorted(frame.entity_vocab.to_dict().items(),
+                                           key=lambda kv: kv[1])])
+    sub = dataclasses.replace(frame, **{c: getattr(frame, c)[in_part[frame.entity_idx]]
+                                        for c in ("event_code", "entity_idx", "target_idx",
+                                                  "time_ms", "value")})
+    check(np.array_equal(_decoded_rows(sub), _decoded_rows(ref)),
+          "the retrain frame's partition-0 rows differ from from_events(find(q))")
+    # the two trains' factors, bit for bit
+    models = [deserialize_models(ctl.get_model_data_models().get(i.id).models)[0] for i in insts]
+    f0, f1 = models[0].factors, models[1].factors
+    check(np.array_equal(f0.user_factors, f1.user_factors)
+          and np.array_equal(f0.item_factors, f1.item_factors)
+          and f0.user_vocab.to_dict() == f1.user_vocab.to_dict(),
+          "a second train of the same frame gave other factors")
+    check(_finite(f0), "non-finite retrain factors")
+    # the server reloads the newest COMPLETED instance: the second retrain
+    srv.reload()
+    check(srv.runtime.instance.id == insts[-1].id
+          and str(srv.runtime.models[0].device) == "cuda:0",
+          f"the server reloaded {srv.runtime.instance.id} on {srv.runtime.models[0].device}")
+    rng = np.random.default_rng(REPLICATION_SEED + 3)
+    users = rng.choice(len(f0.user_vocab), REPL_RETRAIN_QUERIES, replace=False)
+    inv = {v: k for k, v in f0.user_vocab.to_dict().items()}
+    queries = [{"user": inv[int(u)], "num": int(rng.choice([5, 10, 20, 50]))} for u in users]
+    st0, prof0 = _status(port), _exec_totals("als.recommend_serving")
+    l0, s0 = rec.LAUNCHES, rec.ROUTE_LAUNCHES["select"]
+    out, lock = {}, threading.Lock()
+    work = list(enumerate(queries))
+    threads = [threading.Thread(target=_client, args=(port, work[k::N_CLIENTS], out, lock))
+               for k in range(N_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "clients hung")
+    st1, prof1 = _status(port), _exec_totals("als.recommend_serving")
+    batches = st1["batches"] - st0["batches"]
+    served, select = rec.LAUNCHES - l0, rec.ROUTE_LAUNCHES["select"] - s0
+    check(batches > 0 and served == select == batches == prof1[0] - prof0[0],
+          f"retrain top-k launches {served} (select {select}, profiler "
+          f"{prof1[0] - prof0[0]}) != batches {batches}")
+    cpu_model = ALSModel(f1, device="cpu")
+    cpu_alg = ALSAlgorithm(ALSAlgorithmParams())
+    for n, qy in enumerate(queries):
+        status, body, _ = out[n]
+        check(status == 200 and body == _to_jsonable(cpu_alg.predict(cpu_model, Query(**qy))),
+              f"retrain query {n} ({qy}): HTTP {status}, not the CPU plain top-k")
+    read_s = [c[0] for c in reads.calls]
+    return {"rows": len(frame), "rows_9b": len(sg["frame"]), "rows_live": len(after),
+            "part_rows": len(ref), "part_s": part_s, "read_s": read_s[0],
+            "read_hit_s": read_s[1], "train_s": train_s[0], "train_s_2": train_s[1],
+            "stages": stage_timings(insts[0]), "launches": launches,
+            "iterations": iterations, "instances": [i.id for i in insts],
+            "batches": batches, "topk": served, "select": select, "held": staged[0],
+            "phase_s": time.perf_counter() - t_e}
 
 
 def _replication_writes(premote, primary, ports, app_id, batches, pport):
@@ -3717,7 +3927,7 @@ FLEET_BAKE_S = 60.0  # the canary's asked bake in (c); the prior doubles it
 UR_CLEAN_PROPERTY_ITEMS = 2_000  # items given $set/$unset/$delete histories
 UR_CLEAN_DUPLICATES, UR_CLEAN_OLD = 5_000, 3_000  # copies; events past the window
 UR_CLEAN_QUERIES = 64
-UR_CLEAN_USERS = 1_000  # (d)'s store: the buys and views of the first 1,000 of the 3,000 users
+UR_CLEAN_USERS = 500  # (d)'s store: the buys and views of the first 500 of the 3,000 users
 _SHARD_LAUNCHES = re.compile(
     r"kernel launches: dense row (\d+), col (\d+); windowed partials (\d+), combine "
     r"(\d+); top-k (\d+) \(select (\d+), sort (\d+)\) on (\S+)")
@@ -9555,14 +9765,14 @@ ROLLOUT_SHED_DEADLINE_MS, ROLLOUT_DELAY_S, ROLLOUT_SHED_BAR_S = 50, 0.2, 0.15
 ROLLOUT_POLL_S = 0.05
 
 
-def _rollout_persist(storage, factors):
-    """A COMPLETED instance of the recommendation template at rank 10
-    holding `factors`, persisted as ``run_train`` persists one
+def _rollout_persist(storage, factors, engine_id=ROLLOUT_ENGINE):
+    """A COMPLETED instance of the recommendation template at rank 10 of
+    `engine_id` holding `factors`, persisted as ``run_train`` persists one
     (``make_serializable_models`` → ``serialize_models`` → the MODELDATA
     blob); no train runs."""
     engine = resolve_engine(RecommendationEngine)
-    variant = {"id": ROLLOUT_ENGINE, "engineFactory": ROLLOUT_FACTORY,
-               "datasource": {"params": {"app_name": ROLLOUT_ENGINE}},
+    variant = {"id": engine_id, "engineFactory": ROLLOUT_FACTORY,
+               "datasource": {"params": {"app_name": engine_id}},
                "algorithms": [{"name": "als", "params": {"rank": RANK}}]}
     ep = engine.params_from_variant_json(variant)
 
@@ -9574,7 +9784,7 @@ def _rollout_persist(storage, factors):
     now = datetime.datetime.now(datetime.timezone.utc)
     inst = EngineInstance(
         id=str(uuid.uuid4()), status="COMPLETED", start_time=now, end_time=now,
-        engine_id=ROLLOUT_ENGINE, engine_version="0", engine_variant=ROLLOUT_ENGINE,
+        engine_id=engine_id, engine_version="0", engine_variant=engine_id,
         engine_factory=ROLLOUT_FACTORY, data_source_params=stage(ep.data_source_params),
         preparator_params=stage(ep.preparator_params),
         algorithms_params=json.dumps([{"name": n, "params": json.loads(params_to_json(p))}
@@ -9636,21 +9846,29 @@ def _launch_counts():
     return rec.LAUNCHES, rec.ROUTE_LAUNCHES["select"]
 
 
+def _card_calls(name):
+    """The device profiler's calls of `name` on the card: the calls on
+    the host (the CPU plain versions answers are held to) left out."""
+    row = devprof.get_profiler().executable(name) or {}
+    return row.get("devices", {}).get("cuda", {}).get("invocations", 0)
+
+
 class _Quiet:
     """Counts the launches of a block that runs with no client traffic
     (a runtime's build and its warmup ladder): they are no booked
     device batch of a server."""
 
     def __init__(self):
-        self.launches = self.selects = 0
+        self.launches = self.selects = self.profiled = 0
 
     @contextlib.contextmanager
     def block(self):
-        a = _launch_counts()
+        a, pa = _launch_counts(), _card_calls("als.recommend_serving")
         yield
-        b = _launch_counts()
+        b, pb = _launch_counts(), _card_calls("als.recommend_serving")
         self.launches += b[0] - a[0]
         self.selects += b[1] - a[1]
+        self.profiled += pb - pa
 
 
 def _rollout_start(port, quiet, version, **knobs):
@@ -10127,6 +10345,697 @@ def _rollout_feedback(storage, live, bodies, queries, inst_live, booked, smi):
           f"query and answer; an event POST with X-PIO-Deadline 0: {shed}, no row",
           flush=True)
     return {"events": len(events), "shed_status": shed}
+
+# ---------------------------------------------------------------------------
+# phase 27b: multi-tenant serving
+# ---------------------------------------------------------------------------
+
+TENANCY_SEED = 28
+WIDE, ML1M, HOG = "wide", "ml1m", "hog"  # the tenants
+TENANCY_WIDE_ENGINE, TENANCY_ML1M_ENGINE = "ml20m-wide", "ml1m-als"  # the loop's engine
+TENANCY_GOOD_CLIENTS, TENANCY_HOG_CLIENTS = 2, 16  # (c): the hog at 8 x ml1m's concurrency
+TENANCY_GOOD_QUERIES = 30  # (c): each good client's queries, alone and under the hog
+TENANCY_GATE_HOG, TENANCY_GATE_GOOD = 80, 8  # (c): the JAX test's queued order
+TENANCY_QPS, TENANCY_BURST = 2.0, 10  # (d): hog's qps quota, the back-to-back queries sent
+TENANCY_DEVICE_S = 0.001  # (d): hog's device seconds a second (a 0.5 s post-paid burst)
+TENANCY_DEVICE_MAX = 1000  # (d): queries sent before the device-seconds 429 must come
+TENANCY_ALTERNATIONS = 4  # (e): loads alternating wide and ml1m under the byte budget
+TENANCY_BUDGET_SHARE = 0.9  # (e): the budget, of wide's and ml1m's resident bytes
+TENANCY_MEM_TOL = (0.01, 64 << 10)  # (e): |allocated change - resident bytes| <= r*b + a
+TENANCY_KNOBS = {"fraction": 0.5, "window_s": 5.0, "interval_s": 0.25, "min_requests": 30,
+                 "bake_s": 1.0}  # (f): ml1m's canary
+TENANCY_CHECKED = 20  # (f), (g): answers held a tenant per check
+TENANCY_FOLD_USERS, TENANCY_FOLD_RATINGS = 100, 8  # (g): new users, ratings each
+TENANCY_FOLD_FIRST_USER = LOOP_USERS + 10_000  # (g): past every user the loop's app holds
+
+
+def _tenant_query(rng, n_users, n_items):
+    q = {"user": f"u{int(rng.integers(n_users))}", "num": int(rng.choice([5, 10, 20, 50]))}
+    if rng.random() < 0.2:
+        q["blacklist"] = [f"i{int(x)}" for x in rng.integers(0, n_items, 5)]
+    return q
+
+
+def _tenant_post(conn, tenant, form, body, extra=None):
+    """One tenant query on `conn`: form "path" to /tenants/<t>/queries.json,
+    "header" to /queries.json with X-PIO-Tenant; (status, body, seconds,
+    headers, t sent)."""
+    path = f"/tenants/{tenant}/queries.json" if form == "path" else "/queries.json"
+    headers = {"Content-Type": "application/json", **(extra or {})}
+    if form == "header":
+        headers["X-PIO-Tenant"] = tenant
+    t0 = time.perf_counter()
+    conn.request("POST", path, body=json.dumps(body), headers=headers)
+    resp = conn.getresponse()
+    payload = json.loads(resp.read())
+    return resp.status, payload, time.perf_counter() - t0, dict(resp.getheaders()), t0
+
+
+def _tenant_clients(port, work, n_clients=N_CLIENTS, stop=None):
+    """`n_clients` keep-alive clients over `work` [(n, tenant, form, body)],
+    each item once (cycling until `stop` is set, with `stop`); returns
+    ({n: answer} or [(n, answer)] when cycling, the started threads)."""
+    out, lock = ([] if stop is not None else {}), threading.Lock()
+
+    def client(mine):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            i = 0
+            while mine and (i < len(mine) if stop is None else not stop.is_set()):
+                n, tenant, form, body = mine[i % len(mine)]
+                i += 1
+                res = _tenant_post(conn, tenant, form, body)
+                with lock:
+                    if stop is None:
+                        out[n] = res
+                    else:
+                        out.append((n, res))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(work[k::n_clients],))
+               for k in range(n_clients)]
+    for t in threads:
+        t.start()
+    return out, threads
+
+
+def _tenant_load(port, work, n_clients=N_CLIENTS):
+    out, threads = _tenant_clients(port, work, n_clients)
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "tenant clients hung")
+    return out
+
+
+def _blob_model(storage, instance_id):
+    return deserialize_models(storage.get_model_data_models().get(instance_id).models)[0]
+
+
+class _GroupTenants:
+    """The tenants of each device group a dispatcher runs, while the block
+    runs: a group is one runtime's, so one tenant's."""
+
+    def __init__(self, dispatcher):
+        self.d, self.groups = dispatcher, []
+
+    def __enter__(self):
+        run = self.d._run_group
+
+        def spy(rt, group):
+            self.groups.append({p.tenant for p in group})
+            return run(rt, group)
+
+        self.d._run_group = spy
+        return self
+
+    def __exit__(self, *exc):
+        del self.d._run_group
+
+
+def phase_tenancy(report, shared):
+    """Phase 27b: one query server on cuda:0 with a TenantMux over the
+    loop's storage: tenants wide (phase 6's ML-20M-width factors), ml1m
+    (the loop's ML-1M instance) and hog (wide's engine); answers, fair
+    queueing, quotas, the model cache under a byte budget, a per-tenant
+    rollout and fault, and a tenant's online fold-in."""
+    t_phase, p_phase = time.perf_counter(), devprof.snapshot()
+    smi = report["nvidia_smi"]
+    tn = report["tenancy"] = {"nvidia_smi": smi, "parts_s": {}}
+    quiet, l0 = _Quiet(), _launch_counts()
+    p0 = _card_calls("als.recommend_serving")
+    booked, servers = {}, []
+    try:
+        with _loop_storage():
+            storage = Storage()
+            t0 = time.perf_counter()
+            setup = _tenancy_setup(storage, shared, quiet, servers, tn)
+            tn["parts_s"]["a"] = time.perf_counter() - t0
+            srv, port, mux = setup["srv"], setup["port"], setup["mux"]
+            with _GroupTenants(srv.dispatcher) as groups:
+                for key, step in (("b", _tenancy_answers), ("c", _tenancy_fairness),
+                                  ("d", _tenancy_quotas), ("e", _tenancy_cache),
+                                  ("f", _tenancy_rollout), ("g", _tenancy_fold)):
+                    t0 = time.perf_counter()
+                    tn[key] = step(setup, quiet, servers)
+                    tn["parts_s"][key] = time.perf_counter() - t0
+            check(groups.groups and all(len(g) == 1 and None not in g for g in groups.groups),
+                  "a device group held more than one tenant, or an untenanted query")
+            tn["groups"] = {t: sum(1 for g in groups.groups if g == {t})
+                            for t in (WIDE, ML1M, HOG)}
+    finally:
+        faults.clear()
+        for s in servers:
+            booked[id(s)] = s.status()["batches"]
+            s.stop()
+    check(all(s.tenancy._thread is None for s in servers), "a mux's sync thread lives on")
+    l1, p1 = _launch_counts(), _card_calls("als.recommend_serving")
+    launches, selects = l1[0] - l0[0] - quiet.launches, l1[1] - l0[1] - quiet.selects
+    profiled, batches = p1 - p0 - quiet.profiled, sum(booked.values())
+    check(launches > 0 and launches == selects == batches == profiled,
+          f"tenancy: {launches} top-k launches, {selects} select, {profiled} by devprof, "
+          f"outside the builds' {quiet.launches}; the servers booked {batches} groups")
+    tn.update(launches=launches, select_launches=selects, profiled=profiled,
+              booked_groups=batches, build_launches=quiet.launches)
+    # every tenant's served slab against its plain version (uncounted)
+    tally = {"cases": 0, "max_abs_err": 0.0}
+    for name, sv in setup["slabs"].items():
+        _select_held(sv, np.random.default_rng(TENANCY_SEED + 9), tally, f"tenancy {name} slab")
+    tn["held"] = tally
+    wall = time.perf_counter() - t_phase
+    busy = devprof.snapshot().card_seconds - p_phase.card_seconds
+    tn["phase_s"], tn["device_s"] = wall, busy
+    parts = ", ".join(f"({k}) {v:.2f}" for k, v in tn["parts_s"].items())
+    print(f"[tenancy] {smi} | {launches} top-k launches = {selects} select = {profiled} by "
+          f"devprof = {batches} device groups booked (by tenant {tn['groups']}; "
+          f"{quiet.launches} more in the loads' warmups); each tenant's slab held to the "
+          f"plain version ({tally['cases']} cases); parts s: {parts}; phase {wall:.1f} s, "
+          f"{busy:.3f} card s", flush=True)
+
+
+def _tenancy_setup(storage, shared, quiet, servers, tn):
+    """(a) The instances and versions, the tenants through the console,
+    their listing by the console and the admin server, the server and the
+    warm cache."""
+    registry = ModelRegistry(storage)
+    loop_inst = storage.get_meta_data_engine_instances().get_latest_completed(
+        TENANCY_ML1M_ENGINE, "0", TENANCY_ML1M_ENGINE)
+    check(loop_inst is not None, "the loop's ML-1M instance is missing")
+    wide_inst = _rollout_persist(storage, shared["factors"], engine_id=TENANCY_WIDE_ENGINE)
+    ml1m_f = _blob_model(storage, loop_inst.id).factors
+    rng = np.random.default_rng(TENANCY_SEED)
+    # the canary of (f): the loop's factors, item rows scaled by up to 10 %
+    cand_f = dataclasses.replace(ml1m_f, item_factors=(
+        ml1m_f.item_factors * rng.uniform(0.9, 1.1, (len(ml1m_f.item_factors), 1))
+    ).astype(np.float32))
+    cand_inst = _rollout_persist(storage, cand_f, engine_id=TENANCY_ML1M_ENGINE)
+    versions = {}
+    for name, inst in (("wide", wide_inst), ("ml1m", loop_inst)):
+        versions[name] = registry.register(inst)
+        registry.promote(versions[name].id)
+    versions["cand"] = registry.register(cand_inst)
+    for argv in (["tenants", "new", WIDE, "--engine", TENANCY_WIDE_ENGINE],
+                 ["tenants", "new", ML1M, "--engine", TENANCY_ML1M_ENGINE, "--weight", "2"],
+                 ["tenants", "new", HOG, "--engine", TENANCY_WIDE_ENGINE,
+                  "--description", "the hog"],
+                 ["tenants", "set-quota", ML1M, "--weight", "1"]):  # equal weights
+        rc, _ = _console_out(argv)
+        check(rc == 0, f"console {' '.join(argv)}")
+    rc, text = _console_out(["tenants", "list"])
+    listed = re.findall(r"\[INFO\]   (\S+) engine=(\S+)/\S+ weight=(\S+) quota=\[(.*)\]", text)
+    admin = AdminServer(storage, ip="127.0.0.1", port=0)
+    aport = admin.start()
+    try:
+        status, rows = _call(aport, "GET", "/tenants")
+    finally:
+        admin.stop()
+    check(rc == 0 and status == 200
+          and [(r["id"], r["engine_id"], str(r["weight"])) for r in rows]
+          == [(t, e, w) for t, e, w, _ in listed] == [
+              (HOG, TENANCY_WIDE_ENGINE, "1.0"), (ML1M, TENANCY_ML1M_ENGINE, "1.0"),
+              (WIDE, TENANCY_WIDE_ENGINE, "1.0")],
+          f"console tenants list {listed} vs GET /tenants {rows}")
+    with quiet.block():
+        runtime = build_runtime(storage, wide_inst)
+        srv = QueryServer(runtime=runtime, storage=storage,
+                          config=QueryServerConfig(ip="127.0.0.1", port=0))
+        mux = TenantMux(storage, metrics=srv.metrics, refresh_s=0.25, sync_s=3600.0)
+        srv.attach_tenancy(mux)
+        servers.append(srv)
+        port = srv.start()
+        for tid in (WIDE, ML1M, HOG):
+            mux.cache.acquire_and_release(mux.tenant(tid))
+    cache = mux.cache.stats()
+    check(cache["resident"] == 3 and cache["misses"] == 3, f"the warm cache: {cache}")
+    slabs = {}
+    for tid in (WIDE, ML1M, HOG):
+        model = mux.cache.peek_runtime(tid).models[0]
+        check(str(model.device) == "cuda:0", f"tenant {tid}'s model is on {model.device}")
+        slabs[tid] = model._serving_state
+    cpu_alg = ALSAlgorithm(ALSAlgorithmParams(rank=RANK))
+    cpu = {"wide": ALSModel(shared["factors"], device="cpu"),
+           "ml1m": ALSModel(ml1m_f, device="cpu"), "cand": ALSModel(cand_f, device="cpu")}
+    tn["a"] = {"tenants": [t for t, *_ in listed], "versions": {k: v.id for k, v in
+                                                                  versions.items()}}
+    answers: dict = {}
+
+    def want(which, q):
+        """The CPU plain top-k of `which`'s factors for query `q`, once a
+        query."""
+        key = (which, json.dumps(q, sort_keys=True))
+        if key not in answers:
+            answers[key] = _to_jsonable(cpu_alg.predict(cpu[which], Query(**q)))
+        return answers[key]
+
+    print(f"[tenancy] {tn['nvidia_smi']} | (a) tenants {tn['a']['tenants']} made by console "
+          f"tenants new/set-quota and listed alike by console tenants list and the admin "
+          f"server's GET /tenants; {WIDE} and {HOG} on {TENANCY_WIDE_ENGINE} (phase 6's "
+          f"{N_USERS} x {N_ITEMS} factors), {ML1M} on the loop's instance {loop_inst.id}; "
+          f"three runtimes resident on cuda:0", flush=True)
+    return {"storage": storage, "registry": registry, "srv": srv, "port": port, "mux": mux,
+            "versions": versions, "slabs": slabs, "wide_inst": wide_inst,
+            "want": want, "cpu_alg": cpu_alg, "tn": tn}
+
+
+def _tenancy_plan(rng, n, tenants, first=0):
+    """`n` queries over `tenants` in turn, path and header forms in turn:
+    [(n, tenant, form, body)]."""
+    plan = []
+    for k in range(n):
+        tenant = tenants[k % len(tenants)]
+        dims = (LOOP_USERS, LOOP_ITEMS) if tenant == ML1M else (N_USERS, N_ITEMS)
+        plan.append((first + k, tenant, ("path", "header")[(k // len(tenants)) % 2],
+                     _tenant_query(rng, *dims)))
+    return plan
+
+
+def _model_of(tenant):
+    return "ml1m" if tenant == ML1M else "wide"
+
+
+def _counted(srv, fn):
+    """fn()'s result and its counts: (result, groups booked, launches,
+    select launches, devprof invocations)."""
+    st0, l0 = srv.status()["batches"], _launch_counts()
+    p0 = _card_calls("als.recommend_serving")
+    out = fn()
+    st1, l1 = srv.status()["batches"], _launch_counts()
+    return out, st1 - st0, l1[0] - l0[0], l1[1] - l0[1], _card_calls(
+        "als.recommend_serving") - p0
+
+
+def _tenancy_answers(setup, quiet, servers):
+    """(b) N_QUERIES from N_CLIENTS over the three tenants by path and by
+    header: each the CPU plain top-k of its tenant's factors, one select
+    a device group by the route and by devprof."""
+    srv, port, want = setup["srv"], setup["port"], setup["want"]
+    plan = _tenancy_plan(np.random.default_rng(TENANCY_SEED + 1), N_QUERIES, (WIDE, ML1M, HOG))
+    t0 = time.perf_counter()
+    out, groups, launches, selects, profiled = _counted(srv, lambda: _tenant_load(port, plan))
+    wall = time.perf_counter() - t0
+    check(groups > 0 and launches == selects == groups == profiled,
+          f"(b) {launches} top-k launches ({selects} select, {profiled} by devprof) for "
+          f"{groups} device groups")
+    for n, tenant, form, body in plan:
+        status, got, *_ = out[n]
+        check(status == 200 and got == want(_model_of(tenant), body),
+              f"(b) query {n} of {tenant} ({form}): HTTP {status}, not the CPU plain top-k")
+    lat = [out[n][2] for n, *_ in plan]
+    res = {"groups": groups, "qps": len(plan) / wall, "p50_ms": _pct(lat, 0.5),
+           "p99_ms": _pct(lat, 0.99)}
+    print(f"[tenancy] {setup['tn']['nvidia_smi']} | (b) {N_QUERIES} queries from "
+          f"{N_CLIENTS} clients over {WIDE}, {ML1M}, {HOG} (path and X-PIO-Tenant): each the "
+          f"CPU plain top-k of its tenant's factors; {groups} device groups, one select "
+          f"launch each by the route and by devprof; p50 {res['p50_ms']:.3f} ms, p99 "
+          f"{res['p99_ms']:.3f} ms, {res['qps']:.1f} qps", flush=True)
+    return res
+
+
+def _tenancy_fairness(setup, quiet, servers):
+    """(c) ml1m's latency alone and under a hog at 8 x its concurrency,
+    then the JAX test's order on the server's dispatcher with the real
+    runtimes: every good query answered before the hog's median."""
+    srv, port, mux, want = setup["srv"], setup["port"], setup["mux"], setup["want"]
+    rng = np.random.default_rng(TENANCY_SEED + 2)
+    n_good = TENANCY_GOOD_CLIENTS * TENANCY_GOOD_QUERIES
+    good = _tenancy_plan(rng, n_good, (ML1M,))
+    hog = _tenancy_plan(rng, 4 * TENANCY_HOG_CLIENTS, (HOG,), first=n_good)
+    alone = _tenant_load(port, good, TENANCY_GOOD_CLIENTS)
+    stop = threading.Event()
+    hog_out, hog_threads = _tenant_clients(port, hog, TENANCY_HOG_CLIENTS, stop)
+    try:
+        under = _tenant_load(port, good, TENANCY_GOOD_CLIENTS)
+    finally:
+        stop.set()
+        for t in hog_threads:
+            t.join(timeout=600)
+    check(not any(t.is_alive() for t in hog_threads), "(c) hog clients hung")
+    for out in (alone, under):
+        for n, tenant, _, body in good:
+            check(out[n][0] == 200 and out[n][1] == want("ml1m", body),
+                  f"(c) ml1m query {n}: not the CPU plain top-k")
+    bodies = {n: body for n, _, _, body in hog}
+    check(hog_out and all(r[0] == 200 and r[1] == want("wide", bodies[n])
+                          for n, r in hog_out[:TENANCY_CHECKED]), "(c) a hog answer")
+    # the JAX test's order, on the dispatcher with the tenants' runtimes:
+    # the hog's queries, then the good ones, queued at once by a call on
+    # the dispatcher's own thread (no batch in flight), so that its next
+    # drain finds all of them
+    d = srv.dispatcher
+    rts = {t: mux.cache.peek_runtime(t) for t in (ML1M, HOG)}
+    done, t_start, queued, futs = {}, [0.0], [], []
+    for tenant, i, body in ([(HOG, i, hog[i % len(hog)][3]) for i in range(TENANCY_GATE_HOG)]
+                            + [(ML1M, i, good[i][3]) for i in range(TENANCY_GATE_GOOD)]):
+        fut = concurrent.futures.Future()
+        fut.add_done_callback(lambda _f, k=(tenant, i): done.setdefault(
+            k, time.perf_counter() - t_start[0]))
+        rt = rts[tenant]
+        queued.append(wserver._Pending(wserver.read_query(rt, body), rt, fut,
+                                       time.perf_counter(), (None, None), None, tenant))
+        futs.append((fut, body))
+
+    def queue_all():
+        t_start[0] = time.perf_counter()
+        for p in queued:
+            d._queue.put(p)
+
+    d.call(queue_all, timeout=60)
+    for (fut, body), tenant in zip(futs, [HOG] * TENANCY_GATE_HOG + [ML1M] * TENANCY_GATE_GOOD):
+        check(_to_jsonable(fut.result(timeout=120)) == want(_model_of(tenant), body),
+              f"(c) a queued {tenant} answer is not the CPU plain top-k")
+    good_last = max(done[(ML1M, i)] for i in range(TENANCY_GATE_GOOD))
+    hog_median = sorted(done[(HOG, i)] for i in range(TENANCY_GATE_HOG))[TENANCY_GATE_HOG // 2]
+    check(good_last < hog_median,
+          f"(c) ml1m's last queued answer at {good_last:.4f} s, after the hog's median "
+          f"{hog_median:.4f} s: starved")
+    la, lu = [alone[n][2] for n, *_ in good], [under[n][2] for n, *_ in good]
+    res = {"alone_p50_ms": _pct(la, 0.5), "alone_p99_ms": _pct(la, 0.99),
+           "under_p50_ms": _pct(lu, 0.5), "under_p99_ms": _pct(lu, 0.99),
+           "hog_answers": len(hog_out), "good_last_s": good_last, "hog_median_s": hog_median}
+    print(f"[tenancy] {setup['tn']['nvidia_smi']} | (c) {ML1M} ({TENANCY_GOOD_CLIENTS} "
+          f"clients x {TENANCY_GOOD_QUERIES}) alone p50 {res['alone_p50_ms']:.3f} ms, p99 "
+          f"{res['alone_p99_ms']:.3f} ms; under {HOG} ({TENANCY_HOG_CLIENTS} clients, "
+          f"{len(hog_out)} answers, equal weights) p50 {res['under_p50_ms']:.3f} ms, p99 "
+          f"{res['under_p99_ms']:.3f} ms; {TENANCY_GATE_HOG} hog and {TENANCY_GATE_GOOD} "
+          f"{ML1M} queries queued at once: the last {ML1M} answer at {good_last * 1e3:.2f} "
+          f"ms, before the hog's median {hog_median * 1e3:.2f} ms", flush=True)
+    return res
+
+
+def _tenancy_metric(srv, name, **labels):
+    m = _prometheus(srv.metrics.render())
+    key = "{" + ",".join(f'{k}="{v}"' for k, v in labels.items()) + "}" if labels else ""
+    return m.get((name, key), 0.0)
+
+
+def _tenancy_quotas(setup, quiet, servers):
+    """(d) A qps quota's 429 with Retry-After, a deadline shed's 503, and
+    a device-seconds quota charged from CUDA-event seconds."""
+    srv, port, mux, want = setup["srv"], setup["port"], setup["mux"], setup["want"]
+    body = {"user": "u1", "num": 10}
+    rc, _ = _console_out(["tenants", "set-quota", HOG, "--qps", str(TENANCY_QPS)])
+    check(rc == 0, "console tenants set-quota --qps")
+    mux.refresh(force=True)
+    rejected0 = _tenancy_metric(srv, "tenant_quota_rejected_total", tenant=HOG, resource="qps")
+    shed0 = _tenancy_metric(srv, "queries_shed_total", reason="quota")
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        burst = [_tenant_post(conn, HOG, "path", body) for _ in range(TENANCY_BURST)]
+        deadline = _tenant_post(conn, ML1M, "path", body, {"X-PIO-Deadline": "0"})
+    finally:
+        conn.close()
+    ok = [r for r in burst if r[0] == 200]
+    over = [r for r in burst if r[0] == 429]
+    check(ok and over and len(ok) + len(over) == len(burst)
+          and all(r[1] == want("wide", body) for r in ok)
+          and all(int(r[3].get("Retry-After", "0")) >= 1 and "qps quota" in r[1]["message"]
+                  for r in over), f"(d) the qps burst: {[r[0] for r in burst]}")
+    check(deadline[0] == 503 and deadline[3].get("Retry-After") == "1",
+          f"(d) the expired deadline answered {deadline[0]}")
+    check(_tenancy_metric(srv, "tenant_quota_rejected_total", tenant=HOG, resource="qps")
+          - rejected0 == len(over)
+          and _tenancy_metric(srv, "queries_shed_total", reason="quota") - shed0 == len(over),
+          "(d) tenant_quota_rejected_total / queries_shed_total do not count the 429s")
+    rc, _ = _console_out(["tenants", "set-quota", HOG, "--qps", "0", "--device-seconds",
+                          str(TENANCY_DEVICE_S)])
+    check(rc == 0, "console tenants set-quota --device-seconds")
+    mux.refresh(force=True)
+    readings, seconds_of = [], wserver._DeviceClock.seconds
+
+    def reading(clock):
+        s = seconds_of(clock)
+        readings.append((clock._stream is not None, s))
+        return s
+
+    dev0 = _tenancy_metric(srv, "tenant_device_seconds_total", tenant=HOG)
+    counter0 = srv.metrics.counter("tenant_device_seconds_total",
+                                   labelnames=("tenant",)).value(tenant=HOG)
+    # one client back to back (a group a query, so that each query is
+    # charged a whole group's seconds) until the budget is spent
+    wserver._DeviceClock.seconds = reading
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        sent = []
+        while len(sent) < TENANCY_DEVICE_MAX and (not sent or sent[-1][0] == 200):
+            sent.append(_tenant_post(conn, HOG, "header", body))
+    finally:
+        conn.close()
+        wserver._DeviceClock.seconds = seconds_of
+    over_dev = [r for r in sent if r[0] != 200]
+    check(over_dev and all(r[0] == 429 and "device_seconds quota" in r[1]["message"]
+                           and int(r[3].get("Retry-After", "0")) >= 1 for r in over_dev)
+          and all(r[1] == want("wide", body) for r in sent if r[0] == 200),
+          f"(d) {len(sent)} queries under the device-seconds quota: "
+          f"{sorted({r[0] for r in sent})}")
+    charged = srv.metrics.counter("tenant_device_seconds_total",
+                                  labelnames=("tenant",)).value(tenant=HOG) - counter0
+    check(readings and all(cuda for cuda, _ in readings)
+          and math.isclose(charged, sum(s for _, s in readings), rel_tol=1e-9)
+          and math.isclose(_tenancy_metric(srv, "tenant_device_seconds_total", tenant=HOG)
+                           - dev0, charged, rel_tol=1e-6),
+          f"(d) charged {charged} s against CUDA-event readings {readings[:3]}...")
+    check(_tenancy_metric(srv, "tenant_quota_rejected_total", tenant=HOG,
+                          resource="device_seconds") == len(over_dev),
+          "(d) the device-seconds 429 count")
+    rc, _ = _console_out(["tenants", "set-quota", HOG, "--device-seconds", "0"])
+    check(rc == 0, "console tenants set-quota --device-seconds 0")
+    mux.refresh(force=True)
+    res = {"qps_ok": len(ok), "qps_429": len(over),
+           "retry_after": sorted({int(r[3]["Retry-After"]) for r in over}),
+           "device_queries": len(sent) - len(over_dev), "device_429": len(over_dev),
+           "device_charged_s": charged,
+           "device_readings": len(readings)}
+    print(f"[tenancy] {setup['tn']['nvidia_smi']} | (d) {HOG} at qps {TENANCY_QPS:g}: "
+          f"{len(ok)} of {TENANCY_BURST} back-to-back queries 200, {len(over)} 429 with "
+          f"Retry-After {res['retry_after']} (tenant_quota_rejected_total and "
+          f"queries_shed_total{{reason=quota}} +{len(over)}); an expired X-PIO-Deadline "
+          f"on {ML1M} 503 + Retry-After 1; at {TENANCY_DEVICE_S:g} device s/s: "
+          f"{res['device_queries']} queries, {charged:.4f} s "
+          f"charged from {len(readings)} CUDA-event readings (= tenant_device_seconds_total's "
+          f"rise), then {len(over_dev)} 429", flush=True)
+    return res
+
+
+def _tenancy_cache(setup, quiet, servers):
+    """(e) A second server whose mux caches by measured device bytes
+    (PIO_TENANT_CACHE_HBM_BYTES below wide's plus ml1m's): alternating
+    queries evict and reload, bit-equal, each load's resident bytes
+    against the change of torch.cuda.memory_allocated()."""
+    storage, srv, mux, want = setup["storage"], setup["srv"], setup["mux"], setup["want"]
+    sizes = {t: estimate_runtime_device_bytes(mux.cache.peek_runtime(t)) for t in (WIDE, ML1M)}
+    budget = TENANCY_BUDGET_SHARE * (sizes[WIDE] + sizes[ML1M])
+    saved = os.environ.get("PIO_TENANT_CACHE_HBM_BYTES")
+    os.environ["PIO_TENANT_CACHE_HBM_BYTES"] = repr(budget)
+    try:
+        with quiet.block():
+            srv_e = QueryServer(runtime=srv.runtime, storage=storage,
+                                config=QueryServerConfig(ip="127.0.0.1", port=0))
+            mux_e = TenantMux(storage, metrics=srv_e.metrics, refresh_s=0.25, sync_s=3600.0)
+            srv_e.attach_tenancy(mux_e)
+            servers.append(srv_e)
+            port_e = srv_e.start()
+    finally:
+        if saved is None:
+            os.environ.pop("PIO_TENANT_CACHE_HBM_BYTES", None)
+        else:
+            os.environ["PIO_TENANT_CACHE_HBM_BYTES"] = saved
+    check(mux_e.cache.hbm_bytes == budget, f"(e) the budget {mux_e.cache.hbm_bytes}")
+    loads, build = [], mux_e.cache._build
+
+    def measured(instance):
+        # collected before and after: only the new runtime's tensors in the
+        # difference, not an evicted runtime or the warmup's freed by the
+        # cycle collector meanwhile
+        gc.collect()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        with quiet.block():  # one query at a time: no traffic beside the load
+            rt = build(instance)
+        gc.collect()
+        torch.cuda.synchronize()
+        loads.append((torch.cuda.memory_allocated() - m0, estimate_runtime_device_bytes(rt)))
+        return rt
+
+    mux_e.cache._build = measured
+    queries = {WIDE: {"user": "u7", "num": 20}, ML1M: {"user": "u7", "num": 20}}
+    answers = {WIDE: [], ML1M: []}
+    conn = http.client.HTTPConnection("127.0.0.1", port_e, timeout=120)
+    try:
+        for k in range(TENANCY_ALTERNATIONS):
+            tenant = (WIDE, ML1M)[k % 2]
+            status, body, *_ = _tenant_post(conn, tenant, "path", queries[tenant])
+            check(status == 200, f"(e) load {k} of {tenant}: HTTP {status}")
+            answers[tenant].append(body)
+    finally:
+        conn.close()
+    for tenant, got in answers.items():
+        check(got[0] == want(_model_of(tenant), queries[tenant])
+              and all(b == got[0] for b in got[1:]),
+              f"(e) {tenant}'s reloaded answers are not the first's bits")
+    n = TENANCY_ALTERNATIONS
+    st = mux_e.cache.stats()
+    check((st["misses"], st["reloads"], st["evictions"], st["hits"], st["resident"])
+          == (n, n - 2, n - 1, 0, 1), f"(e) cache stats {st}")
+    m = _prometheus(srv_e.metrics.render())
+    gauges = {k: m.get((f"tenant_cache_{k}_total", ""), -1.0)
+              for k in ("hits", "misses", "reloads", "evictions")}
+    check(gauges == {k: float(st[k]) for k in gauges}, f"(e) /metrics {gauges} vs {st}")
+    rel, extra = TENANCY_MEM_TOL
+    check(len(loads) == n and all(abs(d - b) <= rel * b + extra for d, b in loads),
+          f"(e) allocated change vs resident bytes at each load: {loads}")
+    res = {"budget": budget, "sizes": sizes, "loads": loads, "stats": {
+        k: st[k] for k in ("hits", "misses", "reloads", "evictions")}}
+    print(f"[tenancy] {setup['tn']['nvidia_smi']} | (e) budget {budget:.0f} B "
+          f"({TENANCY_BUDGET_SHARE:g} x {WIDE} {sizes[WIDE]:.0f} + {ML1M} "
+          f"{sizes[ML1M]:.0f} B): {n} alternating queries, misses {st['misses']}, reloads "
+          f"{st['reloads']}, evictions {st['evictions']}, hits {st['hits']} (= /metrics); "
+          f"reloaded answers bit-equal; memory_allocated change vs resident bytes a load: "
+          f"{[(int(d), int(b)) for d, b in loads]}", flush=True)
+    return res
+
+
+def _tenancy_rollout(setup, quiet, servers):
+    """(f) A canary of ml1m's candidate through /tenants/ml1m/rollout,
+    promoted under traffic while wide's live version and answers stay;
+    then dispatch.device@tenant/hog fails only hog."""
+    srv, port, mux, registry = setup["srv"], setup["port"], setup["mux"], setup["registry"]
+    want, versions = setup["want"], setup["versions"]
+    wide_live = registry.live_version(TENANCY_WIDE_ENGINE, TENANCY_WIDE_ENGINE).id
+    rng = np.random.default_rng(TENANCY_SEED + 3)
+    plan = _tenancy_plan(rng, 200, (ML1M, WIDE))
+    with quiet.block():
+        status, st = _call(port, "POST", f"/tenants/{ML1M}/rollout/start",
+                           {"version": versions["cand"].id, **TENANCY_KNOBS})
+    t_start = time.monotonic()
+    check(status == 200 and st["state"] == "canary", f"(f) rollout start: {status} {st}")
+    stop = threading.Event()
+    out, threads = _tenant_clients(port, plan, N_CLIENTS, stop)
+    try:
+        t_end = time.monotonic() + 60.0
+        while True:
+            _, st = _call(port, "GET", f"/tenants/{ML1M}/rollout/status")
+            if st["state"] != "canary":
+                break
+            check(time.monotonic() < t_end, "(f) the canary did not end within 60 s")
+            time.sleep(0.05)
+        took, t_seen = time.monotonic() - t_start, time.perf_counter()
+        check(st["state"] == "promoted", f"(f) the canary ended {st['state']}: {st['reason']}")
+        time.sleep(0.3)  # traffic across the promote
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=600)
+    bodies = {n: (tenant, body) for n, tenant, _, body in plan}
+    routed = {"live": 0, "candidate": 0, "wide": 0}
+    for n, (status, body, _, _, t_sent) in out:
+        tenant, q = bodies[n]
+        check(status == 200, f"(f) query {n} of {tenant}: HTTP {status} {body}")
+        if tenant == WIDE:
+            check(body == want("wide", q), f"(f) {WIDE} query {n} changed")
+            routed["wide"] += 1
+        elif sticky_candidate(json.dumps(q).encode(), TENANCY_KNOBS["fraction"]):
+            check(body == want("cand", q), f"(f) candidate-routed {ML1M} query {n}")
+            routed["candidate"] += 1
+        else:
+            check(body == want("ml1m", q) or (t_sent > t_seen - 1.0 and body == want("cand", q)),
+                  f"(f) live-routed {ML1M} query {n}")
+            routed["live"] += 1
+    check(routed["candidate"] >= TENANCY_KNOBS["min_requests"] and routed["live"] > 0
+          and routed["wide"] > 0, f"(f) routed {routed}")
+    check(registry.get(versions["cand"].id).status == "live"
+          and registry.live_version(TENANCY_WIDE_ENGINE, TENANCY_WIDE_ENGINE).id == wide_live
+          and mux.cache.stats()["entries"][ML1M]["version"] == versions["cand"].id,
+          "(f) the promote did not land on ml1m alone")
+    after = _tenant_load(port, plan[:2 * TENANCY_CHECKED])
+    for n, tenant, _, q in plan[:2 * TENANCY_CHECKED]:
+        check(after[n][0] == 200 and after[n][1] == want(
+            "cand" if tenant == ML1M else "wide", q), f"(f) query {n} after the promote")
+    # the tenant fault scope: hog's groups fail, the others serve
+    faults.install(faults.FaultSpec("dispatch.device", "error", 1.0, scope=f"tenant/{HOG}"))
+    try:
+        faulted = _tenant_load(port, _tenancy_plan(rng, 3 * TENANCY_CHECKED, (HOG, WIDE, ML1M)))
+    finally:
+        faults.clear()
+    for n, (status, body, *_) in faulted.items():
+        tenant = (HOG, WIDE, ML1M)[n % 3]
+        check((status == 500 and "injected" in body["message"]) if tenant == HOG
+              else status == 200, f"(f) under the {HOG} fault, {tenant}'s query {n}: {status}")
+    res = {"start_to_promote_s": took, "routed": routed, "reason": st["reason"]}
+    print(f"[tenancy] {setup['tn']['nvidia_smi']} | (f) canary of {ML1M}'s candidate at "
+          f"{TENANCY_KNOBS['fraction']:g}: promoted {took:.2f} s after the start "
+          f"({st['reason']}); {routed['candidate']} candidate-routed and {routed['live']} "
+          f"live-routed {ML1M} answers, {routed['wide']} {WIDE} answers unchanged; {WIDE}'s "
+          f"live version unchanged; dispatch.device@tenant/{HOG}: {TENANCY_CHECKED} {HOG} "
+          f"queries 500, the others 200", flush=True)
+    return res
+
+
+def _tenancy_fold(setup, quiet, servers):
+    """(g) A rating stream of new users folded into ml1m's cached runtime
+    through TenantApplyHost on cuda:0; wide's answers unchanged."""
+    storage, srv, port, mux, want = (setup[k] for k in ("storage", "srv", "port", "mux",
+                                                        "want"))
+    app = storage.get_meta_data_apps().get_by_name(LOOP_APP)
+    rng = np.random.default_rng(TENANCY_SEED + 4)
+    now = datetime.datetime.now(datetime.timezone.utc)
+    events = [Event(event="rate", entity_type="user", entity_id=f"u{TENANCY_FOLD_FIRST_USER + u}",
+                    target_entity_type="item", target_entity_id=f"i{int(i)}",
+                    properties={"rating": int(rng.integers(1, 6))},
+                    event_time=now + datetime.timedelta(milliseconds=u * 100 + j))
+              for u in range(TENANCY_FOLD_USERS)
+              for j, i in enumerate(rng.choice(LOOP_ITEMS, TENANCY_FOLD_RATINGS, replace=False))]
+    wide_plan = _tenancy_plan(rng, TENANCY_CHECKED, (WIDE,))
+    before = _tenant_load(port, wide_plan)
+    fold_devices, fold_of = [], als.fold_in_rows
+
+    def fold(fixed, edges, params, device=None):
+        fold_devices.append(str(device))
+        return fold_of(fixed, edges, params, device=device)
+
+    als.fold_in_rows = fold
+    t0 = time.perf_counter()
+    try:
+        consumer = mux.attach_online(ML1M, app.id, config=OnlineConsumerConfig(
+            tick_s=ONLINE_TICK_S, from_latest=True))
+        storage.get_events().insert_batch(events, app.id)
+        t_end = time.monotonic() + ONLINE_WAIT_S
+        while consumer.counters["events_folded"] < len(events):
+            check(time.monotonic() < t_end and consumer.status()["last_error"] is None,
+                  f"(g) the tenant's consumer: {consumer.status()}")
+            time.sleep(0.02)
+        fold_s = time.perf_counter() - t0
+        check(mux.detach_online(ML1M) and consumer.stopped(), "(g) the consumer did not stop")
+    finally:
+        als.fold_in_rows = fold_of
+    check(consumer.cursor_id == f"online/{app.id}/tenant/{ML1M}"
+          and consumer.counters["events_consumed"] == len(events),
+          f"(g) consumer {consumer.cursor_id}: {consumer.counters}")
+    check(fold_devices and set(fold_devices) == {"cuda:0"}, f"(g) folds on {fold_devices}")
+    model = mux.cache.peek_runtime(ML1M).models[0]
+    check(str(model.device) == "cuda:0", f"(g) the folded model is on {model.device}")
+    f = model.factors
+    new = [f"u{TENANCY_FOLD_FIRST_USER + u}" for u in range(TENANCY_FOLD_USERS)]
+    check(all(f.user_vocab.contains(u) for u in new), "(g) a folded user is not served")
+    folded = ALSModel(f, device="cpu")
+    queries = [(n, ML1M, "path", {"user": new[n], "num": 10}) for n in range(TENANCY_CHECKED)]
+    out = _tenant_load(port, queries)
+    for n, _, _, q in queries:
+        check(out[n][0] == 200 and out[n][1] == _to_jsonable(
+            setup["cpu_alg"].predict(folded, Query(**q))),
+              f"(g) folded user query {n}: not the CPU plain top-k of the folded factors")
+    after = _tenant_load(port, wide_plan)
+    check(all(after[n][:2] == before[n][:2] and before[n][1] == want("wide", q)
+              for n, _, _, q in wide_plan), f"(g) {WIDE}'s answers changed over the fold")
+    setup["slabs"][ML1M] = model._serving_state
+    res = {"events": len(events), "folds": len(fold_devices), "fold_s": fold_s,
+           "users_folded": consumer.counters["users_folded"]}
+    print(f"[tenancy] {setup['tn']['nvidia_smi']} | (g) {len(events)} ratings of "
+          f"{TENANCY_FOLD_USERS} new users folded into {ML1M}'s cached runtime through "
+          f"TenantApplyHost in {fold_s:.2f} s ({len(fold_devices)} folds on cuda:0); "
+          f"{TENANCY_CHECKED} folded users' answers the CPU plain top-k of the folded "
+          f"factors; {WIDE}'s answers unchanged", flush=True)
+    return res
+
 
 MONITOR_DIR = Path(__file__).resolve().parent / "build" / "monitor"
 MONITOR_ENGINE = "ml20m-monitor"
@@ -10821,7 +11730,7 @@ def _monitor_fleet(dport, esrv, smi):
 
 def _monitor_admin(aport, qport, seeded, smi):
     """(f): the admin server's JSON routes against the console's listings
-    over the same storage; the routes not ported."""
+    over the same storage."""
     versions, job = seeded
 
     def rows(text):
@@ -10850,17 +11759,16 @@ def _monitor_admin(aport, qport, seeded, smi):
     rc, text = _console_out(["eval", "list"])
     check(rc == 0 and evals == [] and len(text.splitlines()) == 1,
           f"(f) /evals {evals} vs console {text}")
-    refused = {}
-    status, body = _call(aport, "GET", "/tenants")
-    check(status == 404 and "not ported yet" in body["message"],
-          f"(f) /tenants: {status} {body}")
-    refused["/tenants"] = body["message"]
+    status, tenants = _call(aport, "GET", "/tenants")
+    rc, text = _console_out(["tenants", "list"])
+    check(status == 200 and tenants == [] and rc == 0 and text == "[INFO] no tenants\n",
+          f"(f) /tenants {status} {tenants} vs console {text}")
     print(f"[monitor] {smi} | (f) the admin server's /models ({len(models)}), /jobs "
-          f"({len(jobs)}), /online ({len(online['consumers'])}), /rollout and /evals "
-          "equal console models list, jobs list, online cursors, rollout status and eval "
-          "list over the same storage; /tenants 404 not ported yet", flush=True)
+          f"({len(jobs)}), /online ({len(online['consumers'])}), /rollout, /evals and "
+          "/tenants equal console models list, jobs list, online cursors, rollout status, "
+          "eval list and tenants list over the same storage", flush=True)
     return {"models": len(models), "jobs": len(jobs), "consumers": len(online["consumers"]),
-            "refused": refused}
+            "tenants": len(tenants)}
 
 
 def main() -> int:
@@ -10907,7 +11815,7 @@ def main() -> int:
                         ("ur train", phase_ur_train), ("ur serve", phase_ur_serve),
                         ("ur times", phase_ur_times), ("classify", phase_classify),
                         ("observe", phase_observe), ("rollout", phase_rollout),
-                        ("monitor", phase_monitor)):
+                        ("tenancy", phase_tenancy), ("monitor", phase_monitor)):
         p0, t0 = devprof.snapshot(), time.perf_counter()
         try:
             phase(report, shared)
@@ -10951,11 +11859,14 @@ def main() -> int:
                                  "similar": sim["serve_topk"],
                                  "templates": tml[1]["serve_topk"],
                                  "rollout": report["rollout"]["launches"],
+                                 "tenancy": report["tenancy"]["launches"],
                                  "monitor": report["monitor"]["launches"],
                                  "fleet eval shards": sum(x["topk"] for x in fl_shards)},
         **{which: {"train": report["train"]["launches"][which],
                    "loop": report["loop"]["launches"][which],
-                   "segments": sgl[which], "eval dense": evd[which], "lifecycle jobs": lc[which],
+                   "segments": sgl[which],
+                   "replication retrain": report["replication"]["launches"][which],
+                   "eval dense": evd[which], "lifecycle jobs": lc[which],
                    "lifecycle kill/resume": lckr[which], "similar": sim[which],
                    "templates": sum(t[which] for t in tml),
                    "fleet eval jobs": sum(j[which] for j in fl_jobs)}
@@ -10996,6 +11907,7 @@ def main() -> int:
             "max_abs_err": max(report["dense_sweep"][which]["max_abs_err"],
                                held["dense"][which]["max_abs_err"],
                                report["segments"]["held"][which]["max_abs_err"],
+                               report["replication"]["retrain_held"][which]["max_abs_err"],
                                report["lifecycle"]["held"]["dense"][which]["max_abs_err"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

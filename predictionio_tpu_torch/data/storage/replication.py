@@ -851,6 +851,15 @@ class _ReplicaReadEvents:
             return self._replica.replication_lag(app_id, channel_id)
         return {"watermark": 0, "head": 0, "lag": 0}
 
+    @property
+    def frame_cache_stats(self) -> dict:
+        # the data view's segment branch reads the sealed-rows cache's
+        # counts around a read: the replica's, which serves the
+        # replicated apps' frames (the JAX facade passes this to the
+        # control store, which has none, and a train through the data
+        # view over it fails)
+        return getattr(self._replica, "frame_cache_stats", {"hits": 0, "misses": 0})
+
     # everything else (writes, app admin) goes to control
     def __getattr__(self, name: str) -> Any:
         return getattr(self._control, name)

@@ -26,8 +26,11 @@ prior: a candidate whose lineage-linked fleet evaluation scores below
 live's gets its bake stretched by ``PIO_TUNE_STRICT_BAKE``
 (``evalfleet/tuning.py``; never a veto, off with ``PIO_TUNE_PRIOR=0``).
 One difference: the candidate is built on the live model's device, as
-``reload`` builds. The JAX package's tenant rollout scopes come with
-tenancy.
+``reload`` builds. A tenant's rollout (``tenancy/mux.py``) persists
+under the scope ``tenant/<id>`` and drives a host adapter whose promote
+puts the candidate into the model cache; in such a scope a version that
+another tenant already made live stays live at the start, and a resume
+is refused only for a version rolled back or archived.
 """
 
 from __future__ import annotations
@@ -339,7 +342,16 @@ class RolloutController:
         # detaches, or traffic would reach a candidate nobody judges
         self.server.attach_rollout(self, candidate)
         try:
-            self.registry.set_status(self.st.version.id, "canary")
+            # tenant scopes only: a version another tenant already
+            # promoted stays "live" (tenants of one engine canary the same
+            # trained version by default, and flipping the shared record
+            # back would erase the variant's live pointer under the
+            # tenants serving it). The default scope always flips: its
+            # resume is strict (the status must be "canary")
+            cur = (self.registry.get(self.st.version.id)
+                   if self.scope.startswith("tenant/") else None)
+            if cur is None or cur.status != "live":
+                self.registry.set_status(self.st.version.id, "canary")
         except Exception:
             self.st.state = "failed"
             self.server.complete_rollout(self, promote=False)
@@ -537,7 +549,18 @@ def resume_rollout(server, scope: Optional[str] = None):
     version = ModelRegistry(storage).get(rec.get("version_id") or "")
     if version is None:
         stale = "version record missing from the registry"
+    elif scope.startswith("tenant/"):
+        # tenant scopes share version records, so the global status does
+        # not say whether THIS scope's rollout finished: another tenant
+        # promoting the shared version makes it "live" mid-bake. Only
+        # the globally disqualifying states stop a tenant resume:
+        # rolled_back (judged bad somewhere) and archived (its blob may
+        # be collected)
+        stale = (f"version {version.id} is {version.status}"
+                 if version.status in ("rolled_back", "archived") else None)
     else:
+        # the default scope is the variant's one serving scope: any move
+        # off "canary" means this rollout finished elsewhere
         stale = (f"version {version.id} is {version.status}"
                  if version.status != "canary" else None)
     if stale is not None:

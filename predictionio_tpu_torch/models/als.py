@@ -1037,10 +1037,14 @@ class ServingFactors:
         return self.items.device
 
     def device_nbytes(self) -> float:
+        """The state's resident bytes, each storage once: tables that
+        are views of one storage are charged that storage's bytes once."""
         tensors = [self.users, self.items, self.item_inv_norm]
         if self.user_scale is not None:
             tensors += [self.user_scale, self.item_scale]
-        return float(sum(t.nelement() * t.element_size() for t in tensors))
+        storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                    for t in tensors}
+        return float(sum(storages.values()))
 
 
 def stage_serving(

@@ -27,8 +27,10 @@ Knobs (read when the monitor is created; attributes after):
   PIO_PUSH_*             push telemetry's shipper and ingest (``push.py``)
   PIO_ALERT_WEBHOOK, PIO_ALERT_EXEC   the alert notification sinks
 
-Not ported: the per-tenant SLO presets. Standard library only: importing
-it loads no torch.
+  PIO_TENANT_SLO_PRESETS derive per-tenant SLOs at mux attach
+                         (``apply_tenant_presets``)
+
+Standard library only: importing it loads no torch.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from predictionio_tpu_torch.obs.monitor.slo import (
     SLOSpec,
     load_slos,
     record_slo_ratios,
+    tenant_slo_presets,
 )
 from predictionio_tpu_torch.obs.monitor.tsdb import (
     TSDB,
@@ -91,6 +94,7 @@ __all__ = [
     "record_slo_ratios",
     "sample_families",
     "save_snapshot",
+    "tenant_slo_presets",
 ]
 
 # the thread names of the plane, for checks that none is left running
@@ -152,6 +156,9 @@ class Monitor:
         self._snapshotter: Optional[SnapshotWriter] = None
         self._compactor: Optional[Compactor] = None
         self._slos: list[SLOSpec] = load_slos()
+        # per-tenant presets, installed by the mux and kept apart from the
+        # operator's specs: an operator spec of the same name wins
+        self._presets: list[SLOSpec] = []
         # recording rules, evaluated on the sampler tick
         # (MetricsSampler.post_sample): no extra thread
         self.recording_rules: list[RecordingRule] = load_recording_rules()
@@ -255,7 +262,7 @@ class Monitor:
                                                self.sampler_interval_s,
                                                post_sample=self._post_sample)
                 self._sampler.start()
-            specs = list(self._slos)
+            specs = self._slo_union_locked()
             if self._engine is None and specs:
                 self._engine = SLOEngine(self.tsdb, specs, self.slo_interval_s,
                                          on_transition=self._on_transition)
@@ -284,7 +291,7 @@ class Monitor:
         if self.recording_rules:
             evaluate_rules(tsdb, self.recording_rules, now)
         with self._lock:
-            specs = list(self._slos)
+            specs = self._slo_union_locked()
             push_last = dict(self._push_last)
         if specs:
             record_slo_ratios(tsdb, specs, now)
@@ -300,7 +307,26 @@ class Monitor:
         with self._lock:
             self._slos = list(specs)
             if self._engine is not None:
-                self._engine.set_specs(list(self._slos))
+                self._engine.set_specs(self._slo_union_locked())
+        self._ensure_threads()
+
+    def _slo_union_locked(self) -> list[SLOSpec]:
+        """The operator's specs, then the tenant presets an operator
+        spec of the same name does not shadow."""
+        names = {s.name for s in self._slos}
+        return self._slos + [p for p in self._presets if p.name not in names]
+
+    def apply_tenant_presets(self, tenant_ids) -> None:
+        """Install the per-tenant SLO presets of `tenant_ids` (the mux
+        calls this at each refresh when PIO_TENANT_SLO_PRESETS is set); a
+        no-op while the tenant set is unchanged."""
+        specs = tenant_slo_presets(tenant_ids)
+        with self._lock:
+            if [s.name for s in specs] == [s.name for s in self._presets]:
+                return
+            self._presets = specs
+            if self._engine is not None:
+                self._engine.set_specs(self._slo_union_locked())
         self._ensure_threads()
 
     # -- trace collector and exemplars -----------------------------------

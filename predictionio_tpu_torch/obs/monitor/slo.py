@@ -55,8 +55,8 @@ Error-rate sources (counter series the sampler records):
                 availability budget directly
 
 ``replication_slo_presets`` gives the replicated event store's lag
-objective. The per-tenant presets of the JAX package wait for the
-tenancy module that calls them.
+objective; ``tenant_slo_presets`` an availability and a latency
+objective a tenant (the mux installs them with PIO_TENANT_SLO_PRESETS).
 """
 
 from __future__ import annotations
@@ -246,6 +246,21 @@ class SLOSpec:
                 for f, w, t in self.extra_pairs
             ]
         return out
+
+
+def tenant_slo_presets(tenant_ids) -> list[SLOSpec]:
+    """Per-tenant SLO presets derived from the tenant records: a 99 %
+    availability objective and a 95 % sub-500 ms latency objective a
+    tenant, judged only once the tenant shows traffic (min_samples
+    keeps quiet tenants out)."""
+    specs: list[SLOSpec] = []
+    for tid in sorted(set(tenant_ids)):
+        specs.append(SLOSpec(name=f"tenant:{tid}:availability", kind="availability",
+                             objective=0.99, tenant=str(tid), min_samples=10))
+        specs.append(SLOSpec(name=f"tenant:{tid}:latency", kind="latency",
+                             objective=0.95, tenant=str(tid), threshold_ms=500.0,
+                             min_samples=10))
+    return specs
 
 
 def replication_slo_presets(max_lag_revisions: Optional[int] = None) -> list[SLOSpec]:

@@ -8,7 +8,8 @@ and new item's factor row against the fixed opposite side
 (``models/als.py:fold_in_rows``) and publishes only those rows into the
 staged serving state; a drift guard (``drift.py``) holds the folded
 model to the last-trained baseline. The new runtime swaps in under the
-query server's swap lock. The tenant host is not ported.
+query server's swap lock, or, for one tenant of a multi-tenant server,
+through the model cache's conditional swap (``TenantApplyHost``).
 """
 
 from predictionio_tpu_torch.online.consumer import (
@@ -16,6 +17,7 @@ from predictionio_tpu_torch.online.consumer import (
     OnlineConsumer,
     OnlineConsumerConfig,
     ServerApplyHost,
+    TenantApplyHost,
 )
 from predictionio_tpu_torch.online.drift import DriftGuard, score_drift
 from predictionio_tpu_torch.online.foldin import ALSFoldIn, FoldInConfig
@@ -28,5 +30,6 @@ __all__ = [
     "OnlineConsumer",
     "OnlineConsumerConfig",
     "ServerApplyHost",
+    "TenantApplyHost",
     "score_drift",
 ]

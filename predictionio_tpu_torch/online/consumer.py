@@ -16,9 +16,11 @@ thread a consumer; each tick:
    last-trained baseline BEFORE they publish; a breach pauses fold-in
    and the last-good model keeps serving (the cursor stays, nothing is
    lost).
-4. **publish**: the new runtime swaps in under the query server's swap
-   lock, only if the runtime is still the one the tick folded from (a
-   reload that landed mid-tick wins; the tick runs again on it).
+4. **publish**: the new runtime swaps in under the host's discipline
+   (the query server's swap lock, or the tenant cache's conditional
+   swap), only if the runtime is still the one the tick folded from (a
+   reload or promote that landed mid-tick wins; the tick runs again on
+   it).
 5. **persist**: the cursor AND the cumulative counters go in ONE
    lifecycle-record append. A crash before it replays the tick (the
    re-solve is state-based, so the replay is idempotent) and the
@@ -32,7 +34,9 @@ it. A consumer beside a follower of the replicated event store names
 its own cursor record (``OnlineConsumerConfig.name``, one a replica, on
 the shared control storage) and may adopt, once, the record of an older
 name (``migrate_from``; the adopted record carries ``migrated_from``).
-The tenant host of the JAX package is not ported.
+A consumer of one tenant of a multi-tenant server publishes through
+`TenantApplyHost`: the model cache's conditional swap of that tenant's
+runtime (its cursor record ``online/<app>/tenant/<id>``).
 """
 
 from __future__ import annotations
@@ -102,6 +106,24 @@ class ServerApplyHost:
                 return False
             self.server.runtime = new_runtime
             return True
+
+
+class TenantApplyHost:
+    """One tenant's publish seam in a `TenantMux`: the swap is
+    ``ModelCache.swap_runtime``, conditional on the tenant still serving
+    the runtime the tick folded from, lease-safe (queries in flight
+    drain on the old entry) and unseen by the other tenants."""
+
+    def __init__(self, mux, tenant_id: str):
+        self.mux = mux
+        self.tenant_id = tenant_id
+        self.scope = f"tenant/{tenant_id}"
+
+    def current(self):
+        return self.mux.cache.peek_runtime(self.tenant_id)
+
+    def swap(self, expected, new_runtime) -> bool:
+        return self.mux.cache.swap_runtime(self.tenant_id, expected, new_runtime)
 
 
 class OnlineConsumer:

@@ -29,11 +29,20 @@ server over the shared stores sees the same queue and registry:
   GET    /evals                → fleet eval runs (?engine=&status=&tenant=)
   GET    /evals/{run}          → one run's live status (points, shards)
 
+The multi-tenant control plane: tenant records are storage-backed too,
+so every query server's multiplexer sees an edit within its refresh:
+
+  GET    /tenants              → list tenants
+  POST   /tenants              → create or update {"id", "engine_id", ...}
+  GET    /tenants/{id}         → one tenant record
+  POST   /tenants/{id}/quota   → set weight, qps, concurrency, device
+                                 quota, deadline floor
+  DELETE /tenants/{id}         → delete a tenant
+
 and the routes every server shares (``/metrics``, ``/alerts``,
 ``/debug/traces``, ``/debug/tsdb``, ``/debug/profile``,
-``/debug/faults``, ``POST /debug/profile/capture``). The multi-tenant
-routes (``/tenants*``) need modules the port does not have yet and
-answer 404 saying so. Standard library only: the server loads no torch.
+``/debug/faults``, ``POST /debug/profile/capture``). Standard library
+only: the server loads no torch.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from predictionio_tpu_torch.deploy.scheduler import JobQueue
 from predictionio_tpu_torch.evalfleet.driver import EvalDriver
 from predictionio_tpu_torch.evalfleet.records import EvalRecordStore
 from predictionio_tpu_torch.obs import server_registry
+from predictionio_tpu_torch.tenancy.tenants import QUOTA_FIELDS, Tenant, TenantStore
 from predictionio_tpu_torch.tools import common
 from predictionio_tpu_torch.tools.common import CommandError
 from predictionio_tpu_torch.utils.env import env_flag
@@ -60,15 +70,6 @@ from predictionio_tpu_torch.utils.http import (
     ServerProcess,
     ThreadedServer,
 )
-
-# route prefixes of the JAX admin server whose modules are not ported
-NOT_PORTED_PREFIXES = {"tenants": "the multi-tenant control plane"}
-
-
-def _not_ported(parts: list[str]) -> None:
-    raise HttpError(404, f"/{'/'.join(parts)} ({NOT_PORTED_PREFIXES[parts[0]]}) is "
-                         "not ported yet to the PyTorch port")
-
 
 class _Handler(JsonHandler):
     server: "_Server"  # type: ignore[assignment]
@@ -105,8 +106,8 @@ class _Handler(JsonHandler):
                 self._get_models(parts)
             elif parts[:1] == ["evals"]:
                 self._get_evals(parts)
-            elif parts[:1] and parts[0] in NOT_PORTED_PREFIXES:
-                _not_ported(parts)
+            elif parts[:1] == ["tenants"]:
+                self._get_tenants(parts)
             elif path == "/rollout":
                 self._get_rollout()
             elif path == "/online":
@@ -145,8 +146,10 @@ class _Handler(JsonHandler):
                 self._respond(201, {"name": app.name, "id": app.id, "accessKey": key})
             elif path == "/jobs":
                 self._post_job()
-            elif parts[:1] and parts[0] in NOT_PORTED_PREFIXES:
-                _not_ported(parts)
+            elif path == "/tenants":
+                self._post_tenant()
+            elif path.startswith("/tenants/"):
+                self._post_tenant_quota(parts)
             elif path.startswith("/models/"):
                 self._post_model(parts)
             elif path == "/rollout":
@@ -171,8 +174,8 @@ class _Handler(JsonHandler):
                     self._delete_data(parts[2])
                 else:
                     raise HttpError(404, "Not Found")
-            elif parts[:1] and parts[0] in NOT_PORTED_PREFIXES:
-                _not_ported(parts)
+            elif len(parts) == 2 and parts[0] == "tenants":
+                self._delete_tenant(parts[1])
             else:
                 raise HttpError(404, "Not Found")
         except HttpError as e:
@@ -258,6 +261,53 @@ class _Handler(JsonHandler):
         except KeyError as e:
             raise HttpError(404, str(e.args[0] if e.args else e))
         self._respond(200, version.to_dict())
+
+    # -- the multi-tenant control plane --------------------------------------
+    def _get_tenants(self, parts: list[str]) -> None:
+        store = self.server.tenant_store
+        if len(parts) == 1:
+            self._respond(200, [t.to_dict() for t in store.list()])
+            return
+        if len(parts) != 2:
+            raise HttpError(404, "Not Found")
+        tenant = store.get(parts[1])
+        if tenant is None:
+            raise HttpError(404, f"no tenant {parts[1]!r}")
+        self._respond(200, tenant.to_dict())
+
+    def _post_tenant(self) -> None:
+        obj = self._json_body()
+        if not isinstance(obj, dict):
+            raise HttpError(400, "tenant body must be a JSON object")
+        try:
+            tenant = Tenant.from_dict(obj)
+        except (TypeError, ValueError) as e:
+            raise HttpError(400, str(e))
+        existed = self.server.tenant_store.get(tenant.id) is not None
+        self.server.tenant_store.upsert(tenant)
+        self._respond(200 if existed else 201, tenant.to_dict())
+
+    def _post_tenant_quota(self, parts: list[str]) -> None:
+        if len(parts) != 3 or parts[2] != "quota":
+            raise HttpError(404, "Not Found")
+        obj = self._json_body()
+        if not isinstance(obj, dict):
+            raise HttpError(400, "quota body must be a JSON object")
+        fields = {k: obj[k] for k in QUOTA_FIELDS if k in obj}
+        if not fields:
+            raise HttpError(400, f"quota body needs at least one of {', '.join(QUOTA_FIELDS)}")
+        try:
+            tenant = self.server.tenant_store.set_quota(parts[1], **fields)
+        except KeyError:
+            raise HttpError(404, f"no tenant {parts[1]!r}")
+        except (TypeError, ValueError) as e:
+            raise HttpError(400, str(e))
+        self._respond(200, tenant.to_dict())
+
+    def _delete_tenant(self, tenant_id: str) -> None:
+        if not self.server.tenant_store.delete(tenant_id):
+            raise HttpError(404, f"no tenant {tenant_id!r}")
+        self._respond(200, {"message": f"tenant {tenant_id!r} deleted"})
 
     def _get_rollout(self) -> None:
         """The registry's rollout view: what is live and what is baking,
@@ -350,6 +400,7 @@ class _Server(ThreadedServer):
         # memoization (a storage round trip) lives on them
         self.model_registry = ModelRegistry(storage)
         self.job_queue = JobQueue(storage)
+        self.tenant_store = TenantStore(storage)
         self.eval_records = EvalRecordStore(storage)
         self.metrics = server_registry()
         self.metrics_label = "admin"

@@ -60,6 +60,13 @@
         [--reason R]
     python -m predictionio_tpu_torch.tools.console models gc [--keep N] \
         [--delete-blobs]
+    python -m predictionio_tpu_torch.tools.console tenants list
+    python -m predictionio_tpu_torch.tools.console tenants show|delete TENANT
+    python -m predictionio_tpu_torch.tools.console tenants new TENANT \
+        --engine E [--engine-version V] [--variant V] [--weight W] [--qps Q] \
+        [--max-concurrency N] [--device-seconds S] [--description D]
+    python -m predictionio_tpu_torch.tools.console tenants set-quota TENANT \
+        [--weight W] [--qps Q] [--max-concurrency N] [--device-seconds S]
     python -m predictionio_tpu_torch.tools.console metrics [--url URL] \
         [--summary]
     python -m predictionio_tpu_torch.tools.console trace list|show|export \
@@ -416,6 +423,31 @@ def _parser() -> argparse.ArgumentParser:
                    help="versions kept per engine variant besides live/canary")
     s.add_argument("--delete-blobs", action="store_true",
                    help="also delete the collected versions' MODELDATA blobs")
+
+    tn = sub.add_parser("tenants", help="multi-tenant serving control plane"
+                        ).add_subparsers(dest="tenants_action", required=True)
+    tn.add_parser("list", help="list tenants")
+    tn.add_parser("show", help="one tenant's full record").add_argument("tenant_id")
+    s = tn.add_parser("new", help="create or update a tenant")
+    s.add_argument("tenant_id")
+    s.add_argument("--engine", required=True, help="engine id to serve")
+    s.add_argument("--engine-version", dest="engine_version", default="0")
+    s.add_argument("--variant", default=None,
+                   help="engine variant (default: the engine id)")
+    s.add_argument("--weight", type=float, default=1.0,
+                   help="fair-share weight in the batch scheduler")
+    s.add_argument("--qps", type=float, default=None)
+    s.add_argument("--max-concurrency", dest="max_concurrency", type=int, default=None)
+    s.add_argument("--device-seconds", dest="device_seconds", type=float, default=None,
+                   help="device-seconds budget per second")
+    s.add_argument("--description", default=None)
+    s = tn.add_parser("set-quota", help="update fair share / quotas")
+    s.add_argument("tenant_id")
+    s.add_argument("--weight", type=float, default=None)
+    s.add_argument("--qps", type=float, default=None)
+    s.add_argument("--max-concurrency", dest="max_concurrency", type=int, default=None)
+    s.add_argument("--device-seconds", dest="device_seconds", type=float, default=None)
+    tn.add_parser("delete", help="delete a tenant record").add_argument("tenant_id")
 
     s = sub.add_parser("metrics", help="print Prometheus metrics: this process's "
                        "registry, or a running server's /metrics via --url")
@@ -1453,6 +1485,71 @@ def models_cmd(args: argparse.Namespace) -> int:
     return 0
 
 
+def tenants_cmd(args: argparse.Namespace) -> int:
+    """`tenants list|show|new|set-quota|delete`: the multi-tenant serving
+    control plane. Storage-backed: every query server's multiplexer
+    picks an edit up within its refresh."""
+    import json
+
+    from predictionio_tpu_torch.tenancy.tenants import Tenant, TenantStore
+
+    store = TenantStore(Storage())
+    action = args.tenants_action
+    if action == "list":
+        tenants = store.list()
+        if not tenants:
+            print("[INFO] no tenants")
+            return 0
+        print(f"[INFO] {len(tenants)} tenant(s):")
+        for t in tenants:
+            quota = ", ".join(
+                f"{k}={v}" for k, v in (("qps", t.qps), ("conc", t.max_concurrency),
+                                        ("dev_s/s", t.device_seconds_per_s))
+                if v is not None) or "unlimited"
+            print(f"[INFO]   {t.id} engine={t.engine_id}/{t.engine_variant} "
+                  f"weight={t.weight} quota=[{quota}]" + ("" if t.enabled else " DISABLED"))
+        return 0
+    if action == "new":
+        try:
+            tenant = store.upsert(Tenant(
+                id=args.tenant_id, engine_id=args.engine,
+                engine_version=args.engine_version,
+                engine_variant=args.variant or args.engine, weight=args.weight,
+                qps=args.qps, max_concurrency=args.max_concurrency,
+                device_seconds_per_s=args.device_seconds,
+                description=args.description or ""))
+        except ValueError as e:
+            return _fail(str(e))
+        print(f"[INFO] tenant {tenant.id} -> {tenant.engine_id}/{tenant.engine_variant}")
+        return 0
+    if action == "delete":
+        if not store.delete(args.tenant_id):
+            return _fail(f"no tenant {args.tenant_id!r}")
+        print(f"[INFO] tenant {args.tenant_id} deleted")
+        return 0
+    tenant = store.get(args.tenant_id)
+    if tenant is None:
+        return _fail(f"no tenant {args.tenant_id!r}")
+    if action == "show":
+        print(json.dumps(tenant.to_dict(), indent=2))
+        return 0
+    fields = {k: v for k, v in (("weight", args.weight), ("qps", args.qps),
+                                ("max_concurrency", args.max_concurrency),
+                                ("device_seconds_per_s", args.device_seconds))
+              if v is not None}
+    if not fields:
+        return _fail("set-quota needs at least one of --weight/--qps/"
+                     "--max-concurrency/--device-seconds")
+    try:
+        tenant = store.set_quota(args.tenant_id, **fields)
+    except (KeyError, ValueError) as e:
+        return _fail(str(e))
+    print(f"[INFO] tenant {tenant.id} quota updated: weight={tenant.weight}"
+          f" qps={tenant.qps} conc={tenant.max_concurrency}"
+          f" dev_s/s={tenant.device_seconds_per_s}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     try:
@@ -1910,7 +2007,8 @@ def _run(args: argparse.Namespace) -> int:
     commands = {"app": app_cmd, "channel": channel_cmd, "accesskey": accesskey_cmd,
                 "eventserver": eventserver, "storageserver": storageserver,
                 "storage-server": storageserver, "status": status, "online": online,
-                "jobs": jobs_cmd, "models": models_cmd, "metrics": metrics_cmd,
+                "jobs": jobs_cmd, "models": models_cmd, "tenants": tenants_cmd,
+                "metrics": metrics_cmd,
                 "trace": trace_cmd, "profile": profile_cmd,
                 "rollout": rollout_cmd, "faults": faults_cmd,
                 "adminserver": adminserver, "dashboard": dashboard,

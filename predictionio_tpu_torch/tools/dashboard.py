@@ -11,12 +11,12 @@ assembled traces), the TSDB explorer (``?series=&match=`` plots any
 retained series as a sparkline, ``?expr=`` evaluates an expression),
 the model lifecycle, the fleet evaluations (eval runs newest first: the
 space, convergence, the winner and the lineage link to the model
-version its params trained) and online learning. With a durable TSDB
+version its params trained), the tenants (who shares the serving fleet,
+with weights and quotas) and online learning. With a durable TSDB
 tier (``PIO_TSDB_DIR``) the explorer also lists each tier's blocks,
 series, bytes and span. ``POST /telemetry/push`` (403 unless
 ``PIO_PUSH_INGEST=1``) lands a pushed payload in the process monitor.
-The tenants panel needs a module the port does not have yet and says
-so. The routes every server shares (``/metrics``, ``/alerts``,
+The routes every server shares (``/metrics``, ``/alerts``,
 ``/debug/*``) are mounted too.
 
 With scrape targets (an argument or ``PIO_MONITOR_TARGETS``), `start`
@@ -43,9 +43,6 @@ from predictionio_tpu_torch.utils.http import (
     ServerProcess,
     ThreadedServer,
 )
-
-NOT_PORTED = "is not ported yet to the PyTorch port"
-
 
 class _Handler(JsonHandler):
     server: "_Server"  # type: ignore[assignment]
@@ -122,9 +119,45 @@ class _Handler(JsonHandler):
 {self._tsdb_html(qs or {})}
 {self._lifecycle_html()}
 {self._evals_html()}
-<h1>Tenants</h1><p>(the multi-tenant control plane {NOT_PORTED})</p>
+{self._tenants_html()}
 {self._online_html()}
 </body></html>"""
+
+    # -- tenants -----------------------------------------------------------
+    def _tenants_html(self) -> str:
+        """Who shares the serving fleet, with weights and quotas; the
+        descriptions are the operators', so everything is escaped."""
+        from predictionio_tpu_torch.tenancy.tenants import TenantStore
+
+        try:
+            store = getattr(self.server, "tenant_store", None)
+            if store is None:
+                store = self.server.tenant_store = TenantStore(self.server.storage)
+            tenants = store.list()
+        except Exception:  # noqa: BLE001 — the page renders without it
+            return "<h1>Tenants</h1><p>(tenant store unavailable)</p>"
+        if not tenants:
+            return "<h1>Tenants</h1><p>(no tenants registered)</p>"
+
+        def fmt(v):
+            return "∞" if v is None else html.escape(str(v))
+
+        rows = "".join(
+            f"<tr><td>{html.escape(t.id)}</td>"
+            f"<td>{html.escape(t.engine_id)}/{html.escape(t.engine_variant)}</td>"
+            f"<td>{t.weight:g}</td>"
+            f"<td>{fmt(t.qps)}</td><td>{fmt(t.max_concurrency)}</td>"
+            f"<td>{fmt(t.device_seconds_per_s)}</td>"
+            f"<td>{'yes' if t.enabled else 'no'}</td>"
+            f"<td>{html.escape(t.description)}</td></tr>"
+            for t in tenants
+        )
+        return f"""<h1>Tenants</h1>
+<table border="1" cellpadding="4">
+<tr><th>Tenant</th><th>Engine</th><th>Weight</th><th>QPS</th>
+<th>Concurrency</th><th>Device s/s</th><th>Enabled</th><th>Note</th></tr>
+{rows}
+</table>"""
 
     # -- online learning ---------------------------------------------------
     def _online_html(self) -> str:
@@ -444,6 +477,7 @@ class _Server(ThreadedServer):
         self.metrics_label = "dashboard"
         self.fleet_scraper = None
         self.model_registry = None
+        self.tenant_store = None
 
 
 class Dashboard(ServerProcess):

@@ -17,7 +17,8 @@ Event Server's write-ahead spill directory and the remote client's
 retry and breaker knobs, read through ``storage_knob``; a remote
 source's own settings and their defaults in ``REMOTE_SOURCE_KEYS``),
 and the replicated event store's (``REPL_KEYS``, read through
-``repl_knob``).
+``repl_knob``), and multi-tenant serving's (``TENANT_KEYS``, read
+through ``tenant_knob``).
 A missing or empty value gives the caller's default; a malformed number
 gives the default with a warning, as in the JAX package. Every reader
 takes an optional `env` mapping to read instead of the process
@@ -253,6 +254,35 @@ REPL_KEYS = {
     # promoted follower's comes from the election's generation)
     "PIO_REPL_EPOCH": 1,
 }
+
+
+# multi-tenant serving (tenancy/) and its defaults (the JAX package's
+# registry entries)
+TENANT_KEYS = {
+    # resident model-cache entries a query server (LRU beyond)
+    "PIO_TENANT_CACHE_SIZE": 4,
+    # model-cache budget in measured device bytes (0: by entry count)
+    "PIO_TENANT_CACHE_HBM_BYTES": 0.0,
+    # seconds the admission path's tenant records are cached
+    "PIO_TENANT_REFRESH_S": 5.0,
+    # seconds between the mux's background syncs (records, rollouts,
+    # prefetch)
+    "PIO_TENANT_SYNC_S": 10.0,
+    # distinct tenant label values before metrics fold into "(other)"
+    "PIO_TENANT_METRIC_MAX": 50,
+    # set 1 to derive per-tenant availability and latency SLO presets
+    # from the tenant records (a presence gate)
+    "PIO_TENANT_SLO_PRESETS": "",
+}
+
+
+def tenant_knob(name: str, env: Optional[Mapping[str, str]] = None):
+    """A multi-tenant serving knob read with its declared default, typed
+    as the default is (``PIO_TENANT_SLO_PRESETS`` a presence gate, as
+    ``env_flag`` reads it)."""
+    if name == "PIO_TENANT_SLO_PRESETS":
+        return env_flag(name, env)
+    return _typed(name, TENANT_KEYS[name], env)
 
 
 def repl_knob(name: str, env: Optional[Mapping[str, str]] = None):

@@ -77,9 +77,27 @@ and set the fault specs. Each query's trace holds its
 ``batch.assemble`` and the ``batch.device_dispatch`` span of the batch
 that carried it.
 
+Multi-tenant serving (``attach_tenancy`` with a ``tenancy.TenantMux``):
+``POST /tenants/<id>/queries.json`` (or ``/queries.json`` with an
+``X-PIO-Tenant`` header) admits the query against the tenant's quotas
+(429 + Retry-After when over one, apart from the deadline 503s; the
+tenant's deadline floor clamps the request's deadline), routes it to the
+tenant's runtime in the model cache under a lease (or to its canary) and
+books it under the tenant's bounded label; ``GET /tenants``,
+``/tenants/<id>``, ``/tenants/<id>/rollout[/status]`` and ``POST
+/tenants/<id>/rollout/start|abort`` are the mux's surface. The
+dispatcher's queue is a ``FairQueue`` (deficit round robin over the
+tenants' sub-queues, a FIFO with one stream); in continuous mode a
+tenant takes at most ``admission_cap`` slots of the assembling batch
+while others are active (0: max_batch / active streams), and in windowed
+mode ``tenant_drain`` ends the linger once every backlogged tenant has a
+group. A group is one tenant's (groups are per runtime): its
+``dispatch.device@tenant/<id>`` fault scope fires at the device call and
+in the per-query retry, and its device seconds (CUDA events on a card,
+the host clock on the CPU) are charged to the tenant's post-paid quota.
+
 Counterpart of the JAX package's ``workflow/server.py``, cut to these
-routes: no tenancy (its fair queue, ``admission_cap`` and
-``tenant_drain``), replicas or log shipping.
+routes: no replicas (``/replica/*``, the gateway's) or log shipping.
 """
 
 from __future__ import annotations
@@ -150,6 +168,14 @@ class QueryServerConfig:
     # "continuous": arrivals join the assembling batch until a batch in
     # flight retires; "windowed": it lingers up to max_window_ms
     batching: str = "continuous"
+    # continuous mode with more than one stream active: a tenant takes at
+    # most this many slots of the assembling batch (0: max_batch //
+    # active streams, at least 1), so that a hog's backlog cannot fill it
+    # ahead of other tenants' arrivals. Untenanted traffic is one stream
+    admission_cap: int = 0
+    # windowed mode with tenants active: stop lingering once every
+    # backlogged tenant has a group in the assembling batch
+    tenant_drain: bool = True
     # remote log shipping (reference CreateServer.scala:441-452 --log-url):
     # server log records POST to this collector as JSON lines, best-effort
     log_url: Optional[str] = None
@@ -349,12 +375,15 @@ class _Pending:
     """One queued query. `deadline` is an absolute ``time.monotonic()``
     bound (None: unbounded); `cancelled` is set by the submitting handler
     once it stopped waiting, so the dispatcher skips the entry instead of
-    spending a device call on an answer nobody reads."""
+    spending a device call on an answer nobody reads. `tenant` puts the
+    entry in its tenant's sub-queue of the fair queue and names whom its
+    device seconds are charged to (None: untenanted)."""
 
     __slots__ = ("query", "runtime", "fut", "t_submit", "tctx", "deadline",
-                 "cancelled")
+                 "cancelled", "tenant")
 
-    def __init__(self, query, runtime, fut, t_submit, tctx, deadline=None):
+    def __init__(self, query, runtime, fut, t_submit, tctx, deadline=None,
+                 tenant=None):
         self.query = query
         self.runtime = runtime  # the runtime the query was read against
         self.fut = fut
@@ -362,6 +391,31 @@ class _Pending:
         self.tctx = tctx  # (trace id, span id) of the submitting request
         self.deadline = deadline
         self.cancelled = False
+        self.tenant = tenant
+
+
+class _DeviceClock:
+    """The seconds of device work from its creation to `seconds()`: CUDA
+    events on the device's current stream for a runtime on a card, the
+    host clock for one on the CPU."""
+
+    def __init__(self, device: Optional[str]):
+        self._stream = None
+        if device is not None and device.startswith("cuda"):
+            import torch
+
+            self._stream = torch.cuda.current_stream(torch.device(device))
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._start.record(self._stream)
+        self._t0 = time.perf_counter()
+
+    def seconds(self) -> float:
+        if self._stream is None:
+            return time.perf_counter() - self._t0
+        self._end.record(self._stream)
+        self._end.synchronize()
+        return self._start.elapsed_time(self._end) / 1e3
 
 
 class _Call:
@@ -408,6 +462,14 @@ class _BatchDispatcher:
     batch's time). A group that fails is retried query by query, so each
     waiter gets its own answer or its own error.
 
+    The queue is a ``FairQueue``: one sub-queue a tenant, drained by
+    deficit round robin with the owner's `tenant_weight`, so that one
+    tenant's backlog cannot starve the others (a FIFO with one stream).
+    In continuous mode each tenant takes at most `admission_cap` slots of
+    the assembling batch while more than one stream is active; in
+    windowed mode `tenant_drain` ends the linger once every backlogged
+    tenant has a group.
+
     All groups launch on the current CUDA stream of their worker, the
     default one: the kernels' wrappers read it, and a tensor crossing
     workers needs no stream bookkeeping. A ``torch.profiler`` window
@@ -417,8 +479,11 @@ class _BatchDispatcher:
     def __init__(
         self, owner: "QueryServer", window_ms: float, max_batch: int,
         max_window_ms: Optional[float] = None, pipeline_depth: int = 4,
-        batching: str = "continuous",
+        batching: str = "continuous", tenant_drain: bool = True,
+        admission_cap: int = 0,
     ):
+        from predictionio_tpu_torch.tenancy.fair import FairQueue
+
         if batching not in ("continuous", "windowed"):
             raise ValueError(
                 f"batching must be continuous|windowed, got {batching!r}")
@@ -427,6 +492,8 @@ class _BatchDispatcher:
         self.max_window_s = max(max_window_ms or window_ms, window_ms) / 1000.0
         self.max_batch = max(1, int(max_batch))
         self.batching = batching
+        self.tenant_drain = tenant_drain
+        self.admission_cap = max(0, int(admission_cap))
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.last_batch_sec = 0.0
         self._last_dispatch = 0.0
@@ -439,7 +506,7 @@ class _BatchDispatcher:
         self._inflight = threading.BoundedSemaphore(self.pipeline_depth)
         self._active_cond = threading.Condition()
         self._active = 0  # guarded-by: _active_cond
-        self._queue: queue.Queue = queue.Queue()
+        self._queue = FairQueue(weight_of=getattr(owner, "tenant_weight", None))
         self._stop = threading.Event()
         self._thread = threading.Thread(
             target=self._loop, name="query-batcher", daemon=True
@@ -447,15 +514,17 @@ class _BatchDispatcher:
         self._thread.start()
 
     def submit(self, query: Any, runtime: "EngineRuntime",
-               timeout: float = 30.0, deadline: Optional[float] = None) -> Any:
-        """Queue `query` against the runtime it was read against and wait
-        for its answer. The wait ends at `timeout` or at `deadline` (an
-        absolute ``time.monotonic()``), whichever is first: the entry is
-        then marked cancelled, so the dispatcher skips it, and
-        DeadlineExceeded is raised (a 503 at the handler)."""
+               timeout: float = 30.0, deadline: Optional[float] = None,
+               tenant: Optional[str] = None) -> Any:
+        """Queue `query` against the runtime it was read against (in
+        `tenant`'s sub-queue) and wait for its answer. The wait ends at
+        `timeout` or at `deadline` (an absolute ``time.monotonic()``),
+        whichever is first: the entry is then marked cancelled, so the
+        dispatcher skips it, and DeadlineExceeded is raised (a 503 at the
+        handler)."""
         fut: Future = Future()
         tctx = (_tracing.current_trace_id(), _spans.current_span_id())
-        p = _Pending(query, runtime, fut, time.perf_counter(), tctx, deadline)
+        p = _Pending(query, runtime, fut, time.perf_counter(), tctx, deadline, tenant)
         self._queue.put(p)
         wait = timeout
         if deadline is not None:
@@ -525,7 +594,7 @@ class _BatchDispatcher:
                 (calls if isinstance(item, _Call) else batch).append(item)
 
             retired_mark = self._retired
-            now = time.monotonic()
+            now = round_t0 = time.monotonic()
             hard_deadline = now + max(self.max_window_s, self.last_batch_sec * 1.2)
             # continuous mode's backstop for a wedged batch in flight: before
             # the first batch retires there is no batch time yet, so an
@@ -533,8 +602,9 @@ class _BatchDispatcher:
             wedge_deadline = now + max(10.0 * self.max_window_s,
                                        self.last_batch_sec * 1.2)
             while len(batch) < self.max_batch:
+                skip = self._admission_skip(batch)
                 try:
-                    take(self._queue.get_nowait())
+                    take(self._queue.get_nowait(skip=skip))
                     continue
                 except queue.Empty:
                     pass
@@ -549,7 +619,9 @@ class _BatchDispatcher:
                     if time.monotonic() - self._last_dispatch < 1.0:
                         patience = max(patience, min(0.1 * self.last_batch_sec, 0.02))
                     try:
-                        take(self._queue.get(timeout=patience))
+                        # a capped tenant's overflow waits for the next
+                        # batch even when the pipeline just went idle
+                        take(self._queue.get(timeout=patience, skip=skip))
                         continue
                     except queue.Empty:
                         break
@@ -559,10 +631,18 @@ class _BatchDispatcher:
                     if time.monotonic() >= wedge_deadline:
                         break
                     try:
-                        take(self._queue.get(timeout=0.002))
+                        take(self._queue.get(timeout=0.002, skip=skip))
                     except queue.Empty:
                         pass
                     continue
+                if self.tenant_drain and time.monotonic() - round_t0 >= self.min_window_s:
+                    # after the base window only: closing on a queue dry
+                    # for a moment would ship one-tenant rounds before the
+                    # other tenants' arrivals land
+                    backlog = self._queue.backlogged()
+                    present = {p.tenant for p in batch}
+                    if (present | backlog) - {None} and backlog <= present:
+                        break  # every backlogged tenant has a group
                 remaining = hard_deadline - time.monotonic()
                 if remaining <= 0:
                     break
@@ -582,6 +662,22 @@ class _BatchDispatcher:
                 self._dispatch(rt, group)
             for call in calls:
                 self._run_call(call)
+
+    def _admission_skip(self, batch: list) -> Optional[set]:
+        """The tenants whose slots in the assembling batch are used up:
+        continuous mode only, and only with more than one stream active
+        (a solo tenant, or untenanted traffic alone, keeps the whole
+        batch). The cap is `admission_cap`, else max_batch // streams."""
+        if self.batching != "continuous":
+            return None
+        counts: dict = {}
+        for p in batch:
+            counts[p.tenant] = counts.get(p.tenant, 0) + 1
+        active = set(counts) | self._queue.backlogged()
+        if len(active) <= 1 or not (active - {None}):
+            return None
+        cap = self.admission_cap or max(1, self.max_batch // len(active))
+        return {t for t, c in counts.items() if c >= cap} or None
 
     def _dispatch(self, rt: "EngineRuntime", group: list) -> None:
         """Take a pipeline slot (polling, so that stop() is seen) and run
@@ -692,6 +788,12 @@ class _BatchDispatcher:
         # dispatch.device@candidate fails a canary's batches only
         variant_of = getattr(owner, "variant_of", None)
         variant = variant_of(runtime) if variant_of is not None else "live"
+        # a group is one runtime's, so one tenant's at most: its id scopes
+        # the fault point and names whom the device seconds are charged to
+        group_tenant = batch[0].tenant
+        charge = getattr(owner, "charge_device_seconds", None)
+        if group_tenant is None:
+            charge = None
         rep = next((i for i, d in enumerate(dev_ids) if d), None)
         tok_t = tok_s = None
         if rep is not None:
@@ -700,7 +802,22 @@ class _BatchDispatcher:
         try:
             try:
                 _faults.fire("dispatch.device", scope=variant)
+                if group_tenant:
+                    # a chaos run fails one tenant's batches
+                    # (dispatch.device@tenant/<id>) while the others serve
+                    _faults.fire("dispatch.device", scope=f"tenant/{group_tenant}",
+                                 scoped_only=True)
+                clock = _DeviceClock(runtime_device(runtime)) if charge else None
                 supplemented, per_algo = _device_stage(runtime, [p.query for p in batch])
+                if clock is not None:
+                    # each tenant of the group pays its queries' share
+                    per_query = clock.seconds() / len(batch)
+                    counts: dict[str, int] = {}
+                    for p in batch:
+                        if p.tenant:
+                            counts[p.tenant] = counts.get(p.tenant, 0) + 1
+                    for tid, n in counts.items():
+                        charge(tid, per_query * n)
             except Exception as e:  # noqa: BLE001 — retried per query below
                 if isinstance(e, _faults.FaultInjected):  # a chaos run's: no trace
                     log.warning("batch predict failed (%s); retrying query by query", e)
@@ -713,11 +830,16 @@ class _BatchDispatcher:
                     if p.cancelled:  # its waiter is gone: no retry
                         continue
                     t1 = time.perf_counter()
+                    clock = (_DeviceClock(runtime_device(runtime))
+                             if charge is not None and p.tenant else None)
                     try:
                         # scoped specs only: a scope-less spec fails the
                         # batch and lets this retry through; a variant's
                         # fails its queries, the canary verdict's input
                         _faults.fire("dispatch.device", scope=variant, scoped_only=True)
+                        if p.tenant:
+                            _faults.fire("dispatch.device", scope=f"tenant/{p.tenant}",
+                                         scoped_only=True)
                         one, algo_one = _device_stage(runtime, [p.query])
                         result = _serve(runtime, one, algo_one, 0)
                         owner.count_batch(time.perf_counter() - t1, 1)
@@ -725,6 +847,11 @@ class _BatchDispatcher:
                     except Exception as e:  # noqa: BLE001 — the waiter's error
                         if not p.fut.done():
                             p.fut.set_exception(e)
+                    finally:
+                        # the retry is device work too: a tenant whose
+                        # queries fail every batch pays for it all the same
+                        if clock is not None:
+                            charge(p.tenant, clock.seconds())
                 return
             # a serve failure is its query's alone
             results: list = []
@@ -770,6 +897,8 @@ class _Handler(JsonHandler):
             self._respond(200, owner.rollout_status())
         elif path == "/online/status":
             self._respond(200, owner.online_status())
+        elif path == "/tenants" or path.startswith("/tenants/"):
+            self._tenants_get(path)
         elif path == "/reload":
             self._reload()
         elif path == "/metrics":
@@ -865,7 +994,11 @@ class _Handler(JsonHandler):
         self._drain_body()
         path = self._path()
         if path == "/queries.json":
-            self._queries()
+            # the header form of a tenant's query (the path form is
+            # canonical); an empty value is untenanted, not tenant ""
+            self._queries(tenant_id=self.headers.get("X-PIO-Tenant") or None)
+        elif path.startswith("/tenants/"):
+            self._tenants_post(path)
         elif path == "/reload":
             self._reload()
         elif path in ("/online/pause", "/online/resume"):
@@ -878,7 +1011,96 @@ class _Handler(JsonHandler):
         else:
             self._respond(404, {"message": f"no route {path}"})
 
-    def _queries(self) -> None:
+    # -- the multi-tenant surface ---------------------------------------------
+    def _tenants_get(self, path: str) -> None:
+        from predictionio_tpu_torch.tenancy import UnknownTenant
+
+        mux = self.server.owner.tenancy
+        if mux is None:
+            self._respond(404, {"message": "multi-tenant serving is not enabled"})
+            return
+        parts = [p for p in path.split("/") if p]
+        try:
+            if len(parts) == 1:
+                self._respond(200, mux.status())
+            elif len(parts) == 2:
+                self._respond(200, mux.tenant_status(parts[1]))
+            elif len(parts) in (3, 4) and parts[2] == "rollout" and (
+                    len(parts) == 3 or parts[3] == "status"):
+                self._respond(200, mux.rollout_status(parts[1]))
+            else:
+                self._respond(404, {"message": "Not Found"})
+        except UnknownTenant:
+            self._respond(404, {"message": f"no tenant {parts[1]!r}"})
+
+    def _tenants_post(self, path: str) -> None:
+        from predictionio_tpu_torch.tenancy import UnknownTenant
+
+        mux = self.server.owner.tenancy
+        parts = [p for p in path.split("/") if p]
+        if mux is None:
+            self._respond(404, {"message": "multi-tenant serving is not enabled"})
+            return
+        if len(parts) == 3 and parts[2] == "queries.json":
+            self._queries(tenant_id=parts[1])
+            return
+        if len(parts) == 4 and parts[2] == "rollout" and parts[3] in ("start", "abort"):
+            try:
+                body = self._json_body()
+                if not isinstance(body, dict):
+                    body = {}
+                if parts[3] == "start":
+                    self._respond(200, mux.start_rollout(parts[1], body))
+                else:
+                    self._respond(200, mux.abort_rollout(
+                        parts[1], body.get("reason") or "operator abort"))
+            except HttpError as e:
+                self._respond(e.status, {"message": e.message})
+            except UnknownTenant:
+                self._respond(404, {"message": f"no tenant {parts[1]!r}"})
+            except RolloutConflict as e:
+                self._respond(409, {"message": str(e)})
+            except ValueError as e:
+                self._respond(400, {"message": str(e)})
+            except Exception as e:  # noqa: BLE001 — the server keeps serving
+                log.exception("tenant rollout request failed")
+                self._respond(500, {"message": str(e)})
+            return
+        self._respond(404, {"message": "Not Found"})
+
+    def _admit_tenant(self, owner, tenant_id: str):
+        """A tenant's admission before parsing: (tenant, the deadline
+        token to reset), or None once it answered 404 or 429. Over a quota
+        is the tenant's doing: a 429 with Retry-After, apart from the
+        deadline 503s. The tenant's deadline floor clamps the ambient
+        deadline here, so that a request with none (or a longer one)
+        holds no dispatcher slot past it."""
+        from predictionio_tpu_torch.tenancy import QuotaExceeded, UnknownTenant
+
+        mux = owner.tenancy
+        if mux is None:
+            self._respond(404, {"message": "multi-tenant serving is not enabled"})
+            return None
+        try:
+            tenant = mux.admit(tenant_id)
+        except UnknownTenant:
+            self._respond(404, {"message": f"no tenant {tenant_id!r}"})
+            return None
+        except QuotaExceeded as e:
+            owner.count_shed("quota")
+            self._respond(429, {"message": str(e)},
+                          headers={"Retry-After": str(max(1, int(e.retry_after_s + 0.999)))})
+            return None
+        token = None
+        floor_ms = getattr(tenant, "deadline_floor_ms", None)
+        if floor_ms:
+            cap = time.monotonic() + floor_ms / 1000.0
+            cur = _deadline.current()
+            if cur is None or cur > cap:
+                token = _deadline.set_deadline(cap)
+        return tenant, token
+
+    def _queries(self, tenant_id: Optional[str] = None) -> None:
         """The serving path (reference CreateServer.scala:490-613)."""
         owner = self.server.owner
         t0 = time.perf_counter()
@@ -898,19 +1120,44 @@ class _Handler(JsonHandler):
             self._respond(503, {"message": "deadline expired; request shed"},
                           headers={"Retry-After": "1"})
             return
+        mux = tenant = lease = dl_token = None
+        if tenant_id is not None:
+            admitted = self._admit_tenant(owner, tenant_id)
+            if admitted is None:
+                return
+            mux = owner.tenancy
+            tenant, dl_token = admitted
         variant: Optional[str] = None  # set once routing lands
         booked = False
+
+        def book(seconds: float, error: bool) -> None:
+            if tenant is not None:
+                mux.bookkeep(tenant_id, variant, seconds, error)
+            else:
+                owner.bookkeep_variant(variant, seconds, error)
+
         try:
             try:
                 obj = json.loads(self._raw_body.decode() or "null")
             except (UnicodeDecodeError, json.JSONDecodeError) as e:
                 raise HttpError(400, f"invalid query JSON: {e}")
             # one runtime reads, answers and renders the query, even if a
-            # swap lands while it is in flight
-            rt, variant = owner.pick_runtime(self._raw_body, bucket=bucket)
+            # swap lands while it is in flight; a tenant's query routes
+            # through the model cache (a miss is a load) and its lease
+            # keeps the runtime resident until the bookkeeping is done
+            if tenant is not None:
+                from predictionio_tpu_torch.tenancy import ModelLoadError
+
+                try:
+                    rt, variant, lease = mux.route(tenant, self._raw_body, bucket=bucket)
+                except ModelLoadError as e:
+                    raise HttpError(503, str(e))
+            else:
+                rt, variant = owner.pick_runtime(self._raw_body, bucket=bucket)
             query = read_query(rt, obj)
             try:
-                prediction = owner.predict(query, rt, deadline=_deadline.current())
+                prediction = owner.predict(query, rt, deadline=_deadline.current(),
+                                           tenant=tenant_id if tenant is not None else None)
             except ValueError as e:
                 # query-level contract violations (e.g. a category
                 # filter without category data)
@@ -923,10 +1170,13 @@ class _Handler(JsonHandler):
                 result = plugin.process(obj, result, {})
             seconds = time.perf_counter() - t0
             owner.serve_hist.observe(seconds)
-            owner.bookkeep_variant(variant, seconds, error=False)
+            book(seconds, error=False)
             booked = True
-            owner.maybe_shadow(self._raw_body, obj, shadow_reference, bucket=bucket)
-            owner.feedback_async(obj, result)
+            if tenant is None:
+                # the server's shadow mirror and feedback loop are
+                # single-tenant surfaces: no tenant's traffic reaches them
+                owner.maybe_shadow(self._raw_body, obj, shadow_reference, bucket=bucket)
+                owner.feedback_async(obj, result)
             for plugin in owner.output_sniffers:
                 try:
                     plugin.process(obj, result, {})
@@ -938,13 +1188,13 @@ class _Handler(JsonHandler):
             # that refuses what live serves must show as an error delta.
             # A failure before routing reached no variant and books none
             if variant is not None:
-                owner.bookkeep_variant(variant, time.perf_counter() - t0, error=True)
+                book(time.perf_counter() - t0, error=True)
             self._respond(e.status, {"message": e.message})
         except DeadlineExceeded as e:
             # expired in the queue: "retry later", and the shed counts
             # against its variant (the dispatcher counted the shed)
             if variant is not None:
-                owner.bookkeep_variant(variant, time.perf_counter() - t0, error=True)
+                book(time.perf_counter() - t0, error=True)
             self._respond(503, {"message": str(e)}, headers={"Retry-After": "1"})
         except Exception as e:  # noqa: BLE001 — the server keeps serving
             if isinstance(e, _faults.FaultInjected):
@@ -954,8 +1204,15 @@ class _Handler(JsonHandler):
             # a failure after the success was booked (writing the 200)
             # must not book the request twice
             if variant is not None and not booked:
-                owner.bookkeep_variant(variant, time.perf_counter() - t0, error=True)
+                book(time.perf_counter() - t0, error=True)
             self._respond(500, {"message": str(e)})
+        finally:
+            if dl_token is not None:
+                _deadline.reset(dl_token)
+            if tenant is not None:
+                # the cache lease (the runtime is evictable again) and the
+                # tenant's concurrency slot go back
+                mux.done(tenant_id, lease)
 
 
 
@@ -1007,6 +1264,10 @@ class QueryServer(ServerProcess):
         self.candidate: Optional[EngineRuntime] = None  # guarded-by: _swap_lock
         self.rollout = None  # Optional[RolloutController]; guarded-by: _swap_lock
         self.online = None  # Optional[OnlineConsumer]
+        self.tenancy = None  # Optional[TenantMux]
+        # tenant-prefetch warm threads in flight: stop() joins them
+        self._prefetch_lock = threading.Lock()
+        self._prefetch_threads: set[threading.Thread] = set()  # guarded-by: _prefetch_lock
         self._count_lock = threading.Lock()
         self._requests = 0  # guarded-by: _count_lock
         self._batches = 0  # guarded-by: _count_lock
@@ -1069,7 +1330,8 @@ class QueryServer(ServerProcess):
             self.dispatcher = _BatchDispatcher(
                 self, self.config.batch_window_ms, self.config.max_batch,
                 self.config.max_window_ms, self.config.pipeline_depth,
-                self.config.batching,
+                self.config.batching, tenant_drain=self.config.tenant_drain,
+                admission_cap=self.config.admission_cap,
             )
         port = super().start()
         # a restart mid-canary re-adopts the persisted bake
@@ -1085,6 +1347,8 @@ class QueryServer(ServerProcess):
             self.online.stop()  # the consumer thread joins with the server
         if self.rollout is not None:
             self.rollout.stop()
+        if self.tenancy is not None:
+            self.tenancy.stop()  # its sync thread, consumers and verdict loops
         super().stop()
         if self.dispatcher is not None:
             self.dispatcher.stop()
@@ -1094,6 +1358,10 @@ class QueryServer(ServerProcess):
             pending = list(self._feedback_threads)
         for t in pending:
             t.join(timeout=11)  # the POST's timeout is 10 s
+        with self._prefetch_lock:
+            warming = list(self._prefetch_threads)
+        for t in warming:
+            t.join(timeout=30)
 
     def _make_server(self) -> _Server:
         server = _Server((self.config.ip, self.config.port), _Handler)
@@ -1111,17 +1379,26 @@ class QueryServer(ServerProcess):
         return [_serve(rt, supplemented, per_algo, i) for i in range(len(queries))]
 
     def predict(self, query: Any, runtime: Optional[EngineRuntime] = None,
-                deadline: Optional[float] = None) -> Any:
+                deadline: Optional[float] = None, tenant: Optional[str] = None) -> Any:
         """The answer to `query` of `runtime` (the current runtime when
         None: one snapshot per query), through the dispatcher, which sheds
-        it once `deadline` (absolute ``time.monotonic()``) passes."""
+        it once `deadline` (absolute ``time.monotonic()``) passes. A
+        `tenant`'s query queues in its sub-queue and its device seconds
+        are charged to it."""
         with self._count_lock:
             self._requests += 1
         if runtime is None:
             runtime = self.runtime
         if self.dispatcher is not None:
-            return self.dispatcher.submit(query, runtime, deadline=deadline)
-        return self._predict_inline(query, runtime)
+            return self.dispatcher.submit(query, runtime, deadline=deadline, tenant=tenant)
+        if tenant is None:
+            return self._predict_inline(query, runtime)
+        # no dispatcher, so no batch to charge: the inline call is charged
+        clock = _DeviceClock(runtime_device(runtime))
+        try:
+            return self._predict_inline(query, runtime)
+        finally:
+            self.charge_device_seconds(tenant, clock.seconds())
 
     def _predict_inline(self, query: Any, runtime: EngineRuntime) -> Any:
         t0 = time.perf_counter()
@@ -1177,7 +1454,12 @@ class QueryServer(ServerProcess):
         return self.runtime, "live"
 
     def variant_of(self, rt: EngineRuntime) -> str:
-        return "candidate" if rt is self.candidate else "live"
+        if rt is self.candidate:
+            return "candidate"
+        mux = self.tenancy
+        if mux is not None and mux.is_candidate(rt):
+            return "candidate"
+        return "live"
 
     def bookkeep_variant(self, variant: str, seconds: float, error: bool) -> None:
         self._variant_serve_hist.observe(seconds, variant=variant)
@@ -1301,6 +1583,66 @@ class QueryServer(ServerProcess):
         if rollout is None:
             return {"state": "none"}
         return rollout.status()
+
+    # -- multi-tenant serving -------------------------------------------------
+    def attach_tenancy(self, mux) -> None:
+        """Attach a TenantMux: the /tenants routes go live, tenants'
+        queries flow through the fair queue and the model cache, and the
+        mux's background sync (record refresh, rollout re-adoption,
+        prefetch on promote) starts."""
+        if not self.config.micro_batch:
+            log.warning("tenancy attached with micro-batching disabled: weighted-fair "
+                        "scheduling is unavailable (quotas and the model cache still "
+                        "enforce)")
+        self.tenancy = mux
+        mux.start()
+
+    def tenant_weight(self, tenant_id: Optional[str]) -> float:
+        """The fair queue's weight of a tenant."""
+        mux = self.tenancy
+        return 1.0 if mux is None else mux.tenant_weight(tenant_id)
+
+    def charge_device_seconds(self, tenant_id: str, seconds: float) -> None:
+        """The dispatcher's post-paid device-time debit of a tenant."""
+        mux = self.tenancy
+        if mux is not None:
+            mux.charge_device_seconds(tenant_id, seconds)
+
+    def prefetch_tenants(self, tenant_ids: list[str]) -> list[str]:
+        """Warm the tenants' runtimes in the model cache off the serving
+        path (at most 64; a scale-up hint). Best effort: unknown tenants
+        and failed loads are skipped. Returns the ids taken."""
+        mux = self.tenancy
+        if mux is None or not tenant_ids:
+            return []
+        accepted = [str(t) for t in tenant_ids[:64]]
+
+        def warm():
+            try:
+                for tid in accepted:
+                    try:
+                        tenant = mux.admit(tid)
+                    except Exception:  # noqa: BLE001 — skipped
+                        log.debug("prefetch warm of tenant %r failed", tid, exc_info=True)
+                        continue
+                    # an admit holds a concurrency slot until done: a failed
+                    # load releases it too
+                    lease = None
+                    try:
+                        _rt, _variant, lease = mux.route(tenant, b"")
+                    except Exception:  # noqa: BLE001 — skipped
+                        log.debug("prefetch warm of tenant %r failed", tid, exc_info=True)
+                    finally:
+                        mux.done(tid, lease)
+            finally:
+                with self._prefetch_lock:
+                    self._prefetch_threads.discard(threading.current_thread())
+
+        t = threading.Thread(target=warm, name="tenant-prefetch", daemon=True)
+        with self._prefetch_lock:
+            self._prefetch_threads.add(t)
+        t.start()
+        return accepted
 
     # -- the feedback loop (reference CreateServer.scala:534-596) -----------
     def feedback_async(self, query_json: Any, result: Any) -> None:

@@ -6,13 +6,15 @@
   rollback), `/online`, `/rollout` and the refusals (`POST /rollout`
   without PIO_ROLLOUT_PROXY, malformed app bodies, unknown routes) with
   equal statuses and bodies; app creation and deletion alike.
-- `/tenants*` answer 404 saying they are not ported; `/evals*` answer
-  as the JAX admin server does.
+- `/tenants*` (list, one tenant, create or update, quota, delete, and
+  the 404s for an unknown tenant and the 400s for malformed bodies)
+  answer as the JAX admin server does over a store seeded alike, and
+  leave the same records; `/evals*` answer as the JAX admin server does.
 - The dashboard renders every section: the completed evaluation
   instances with their reports, alerts, fleet (scraping the admin
   server), fleet traces, the TSDB explorer (`?series=`, `?expr=`, a bad
   expression), the model lifecycle, online learning, and the tenants
-  section saying it is not ported; `POST /telemetry/push` answers 403
+  panel (escaped); `POST /telemetry/push` answers 403
   without PIO_PUSH_INGEST; its sparklines are the JAX dashboard's.
 """
 
@@ -29,6 +31,7 @@ from predictionio_tpu.data.storage.registry import SourceConfig as JSourceConfig
 from predictionio_tpu.data.storage.registry import Storage as JStorage  # noqa: E402
 from predictionio_tpu.data.storage.registry import StorageConfig as JStorageConfig  # noqa: E402
 from predictionio_tpu.tools import admin as jadmin  # noqa: E402
+from predictionio_tpu.tenancy import tenants as jtenants  # noqa: E402
 from predictionio_tpu.tools import dashboard as jdashboard  # noqa: E402
 
 from predictionio_tpu_torch.data.storage.base import EngineInstance, EvaluationInstance  # noqa: E402,E501
@@ -41,6 +44,8 @@ from predictionio_tpu_torch.deploy.registry import LifecycleRecordStore, ModelRe
 from predictionio_tpu_torch.deploy.scheduler import JobQueue  # noqa: E402
 from predictionio_tpu_torch.obs.monitor import SLOSpec, get_monitor  # noqa: E402
 from predictionio_tpu_torch.online.consumer import CURSOR_ENTITY  # noqa: E402
+from predictionio_tpu_torch.tenancy import tenants  # noqa: E402
+from predictionio_tpu_torch.tenancy.tenants import Tenant, TenantStore  # noqa: E402
 from predictionio_tpu_torch.tools import admin, common, dashboard  # noqa: E402
 
 REC = "predictionio_tpu_torch.engines.recommendation.RecommendationEngine"
@@ -176,14 +181,46 @@ def test_admin_app_routes_alike(tmp_path):
     assert out[0][0][0] == 201 and out[0][1][0] == 409
 
 
-@pytest.mark.parametrize("method, path", [
-    ("GET", "/tenants"), ("GET", "/tenants/t1"), ("POST", "/tenants"),
-    ("POST", "/tenants/t1/quota"), ("DELETE", "/tenants/t1"),
+def _untimed(raw):
+    """A tenant answer without its write times."""
+    body = json.loads(raw)
+    for row in body if isinstance(body, list) else [body]:
+        if isinstance(row, dict):
+            row.pop("created_at", None)
+            row.pop("updated_at", None)
+    return body
+
+
+@pytest.mark.parametrize("method, path, body", [
+    ("GET", "/tenants", None), ("GET", "/tenants/t1", None),
+    ("GET", "/tenants/ghost", None), ("GET", "/tenants/t1/x", None),
+    ("POST", "/tenants", {"id": "t2", "engine_id": "rec", "qps": 3, "weight": 2}),
+    ("POST", "/tenants", {"id": "t1", "engine_id": "rec", "description": "again"}),
+    ("POST", "/tenants", {"id": "bad/id", "engine_id": "rec"}), ("POST", "/tenants", [1]),
+    ("POST", "/tenants/t1/quota", {"qps": 9, "max_concurrency": 2, "other": 1}),
+    ("POST", "/tenants/t1/quota", {"weight": 0}), ("POST", "/tenants/t1/quota", {}),
+    ("POST", "/tenants/ghost/quota", {"qps": 1}), ("POST", "/tenants/t1/x", {}),
+    ("DELETE", "/tenants/t1", None), ("DELETE", "/tenants/ghost", None),
 ])
-def test_tenants_and_evals_are_not_ported(admins, method, path):
-    (_jport, tport), _seeded, _ts = admins
-    status, raw = req(tport, path, method, {} if method == "POST" else None)
-    assert status == 404 and "not ported" in json.loads(raw)["message"]
+def test_tenants_and_evals_are_not_ported(tmp_path, method, path, body):
+    """The tenant routes, ported: each answers as the JAX admin server
+    does over a store seeded alike, and both leave the same records."""
+    out = []
+    for pkg, which in ((jadmin, "jax"), (admin, "port")):
+        ts, js = _storages(tmp_path / which)
+        records = jtenants if pkg is jadmin else tenants
+        store = records.TenantStore(ts if pkg is admin else js)
+        store.upsert(records.Tenant(id="t1", engine_id="rec", qps=5.0,
+                                    description="<b>one</b>"))
+        store.upsert(records.Tenant(id="t0", engine_id="other", max_concurrency=4))
+        srv = pkg.AdminServer(ts if pkg is admin else js, ip="127.0.0.1", port=0)
+        port = srv.start()
+        try:
+            status, raw = req(port, path, method, body)
+            out.append((status, _untimed(raw), _untimed(req(port, "/tenants")[1])))
+        finally:
+            srv.stop()
+    assert out[0] == out[1]
 
 
 @pytest.mark.parametrize("path", ["/evals", "/evals?status=completed", "/evals/run-1",
@@ -213,6 +250,10 @@ def test_dashboard_sections_render(admins, tmp_path, monkeypatch):
                                scrape_interval_s=30.0)
     port = dash.start()
     try:
+        status, page = req(port, "/")
+        assert "(no tenants registered)" in page
+        TenantStore(ts).upsert(Tenant(id="acme", engine_id="rec", qps=5.0,
+                                      description="<i>acme</i>"))
         mon.set_slos([SLOSpec(name="avail_<b>", objective=0.99)])
         dash._scraper.scrape_once()
         status, page = req(port, "/")
@@ -224,7 +265,9 @@ def test_dashboard_sections_render(admins, tmp_path, monkeypatch):
             assert section in page, section
         assert "ev1" in page and "ev2" not in page and "Precision@10 0.25" in page
         assert "avail_&lt;b&gt;" in page and "<b>up</b>" in page and "server:1" in page
-        assert page.count("not ported yet") == 1  # the tenants panel
+        assert "not ported" not in page
+        assert ("<td>acme</td><td>rec/rec</td><td>1</td><td>5.0</td><td>∞</td><td>∞</td>"
+                "<td>yes</td><td>&lt;i&gt;acme&lt;/i&gt;</td>") in page
         assert "(no eval runs recorded)" in page
         assert req(port, "/engine_instances/ev1.html") == (200, "<p>report</p>")
         assert req(port, "/engine_instances/ev1.json") == (200, '{"best": 1}')

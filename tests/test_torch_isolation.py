@@ -212,6 +212,40 @@ def test_observability_modules_load_neither_jax_nor_torch(module):
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+# the multi-tenant serving plane: the admin server, the dashboard and the
+# console import its records without torch, as the JAX package's do
+# without jax
+TENANCY_MODULES = ["predictionio_tpu_torch.tenancy", "predictionio_tpu_torch.tenancy.tenants",
+                   "predictionio_tpu_torch.tenancy.quota", "predictionio_tpu_torch.tenancy.fair",
+                   "predictionio_tpu_torch.tenancy.cache", "predictionio_tpu_torch.tenancy.mux"]
+
+
+def test_the_walk_covers_the_tenancy_modules():
+    """The source walk and the import test cover every file of the
+    tenancy package."""
+    walked = {str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")}
+    for f in ("__init__", "tenants", "quota", "fair", "cache", "mux"):
+        assert f"predictionio_tpu_torch/tenancy/{f}.py" in walked
+    assert set(TENANCY_MODULES) <= set(_port_modules())
+
+
+@pytest.mark.parametrize("module", TENANCY_MODULES)
+def test_tenancy_modules_load_neither_jax_nor_torch(module):
+    """Importing a tenancy module loads no jax, nothing of the JAX
+    package and no torch."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'torch', 'predictionio_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_resolve_device_defaults_to_the_card():
     from predictionio_tpu_torch.device import resolve_device
 

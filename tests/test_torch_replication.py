@@ -881,3 +881,155 @@ def test_consumer_name_and_migration_records_match_jax(tmp_path):
     assert recs[f"online/{APP}/replica-b"]["cursor"] == {"0": 5}
     assert f"online/{APP}/replica-a" not in recs
     assert out["port"]["cursors"][0] == {} and out["port"]["cursors"][1] == {"0": 5}
+
+
+# ---------------------------------------------------------------------------
+# a retrain over a promoted replica store
+# ---------------------------------------------------------------------------
+
+
+def _promoted_storage(pkg, tmp, rows):
+    """`pkg`'s primary segmentfs store holds the first 70 % of `rows`
+    (sealed, then a tail), ships them to a replica, and the replica is
+    promoted at epoch 2 and takes the rest as acknowledged live writes;
+    then a Storage over the promoted replica's PATH (its role survives
+    the reopen) with the app registered as APP."""
+    from test_torch_workflow import _events
+
+    p = PKG[pkg]
+    events = _events(p.event.Event, rows)
+    cut = int(0.7 * len(events))
+    primary, replica = _primary(pkg, tmp), _replica(pkg, tmp)
+    primary.insert_batch(events[:cut // 2], APP)
+    primary.seal(APP)
+    primary.insert_batch(events[cut // 2:cut], APP)
+    _shipper(pkg, primary, replica).pass_once()
+    assert replica.latest_revision(APP) == cut
+    assert replica.promote(2) is not None
+    for n in range(cut, len(events), 7):
+        assert replica.insert_batch(events[n:n + 7], APP) == [
+            e.event_id for e in events[n:n + 7]]
+    primary.close()
+    replica.close()
+    r = p.reg
+    storage = r.Storage(r.StorageConfig(
+        sources={"REP": r.SourceConfig("REP", "segmentfs-replica",
+                                       {"PATH": str(tmp / "replica"), "SEAL_INTERVAL_S": "3600"}),
+                 "M": r.SourceConfig("M", "memory", {})},
+        repositories={"METADATA": "M", "EVENTDATA": "REP", "MODELDATA": "M"}))
+    assert storage.get_meta_data_apps().insert(p.base.App(APP, "wfapp")) == APP
+    store = storage.get_events()
+    assert store.role == "primary" and store.epoch == 2
+    return storage, store, events
+
+
+def test_retrain_over_a_promoted_replica_store(tmp_path):
+    """A train over a promoted replica: the data view's frame (segmentfs
+    `find_frame`: the sealed rows' cache and the tail) equals
+    `EventFrame.from_events` of the winner's own `find`, column for
+    column, holding every shipped and every acknowledged live event once;
+    from the same initial factors, the port's factors correlate > 0.9999
+    with the JAX package's retrain over its own promoted replica."""
+    import numpy as np
+
+    from predictionio_tpu.data.store import columnar as jcolumnar
+    from predictionio_tpu.data.view import DataView as JDataView
+    from predictionio_tpu.workflow import core as jcore
+    from predictionio_tpu_torch.data.store import columnar as tcolumnar
+    from predictionio_tpu_torch.data.view import DataView as TDataView
+    from predictionio_tpu_torch.workflow import core as tcore
+    from test_torch_workflow import J_VARIANT, VARIANT, _same_start
+
+    # a 40-item app (whole dense trains are held on 40 items: on 8-24
+    # the implicit solves amplify f32 rounding past the bar)
+    rng = np.random.RandomState(7)
+    rows = [("rate", f"u{u}", f"i{i}", float(rng.randint(1, 6)))
+            for u in range(60) for i in rng.choice(40, 12, replace=False)]
+    kwargs = dict(app_name="wfapp", entity_type="user", target_entity_type="item",
+                  event_names=["rate", "buy"], value_prop="rating", default_value=1.0)
+    factors = {}
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("PIO_DENSE_ALS", "1")  # the dense path, as the card's retrain takes
+        mp.setenv("PIO_PALLAS_DENSE", "interpret")  # the JAX dense kernel itself
+        paths = _same_start(mp)
+        for pkg, view, columnar, core, variant in (
+                ("port", TDataView, tcolumnar, tcore, VARIANT),
+                ("jax", JDataView, jcolumnar, jcore, J_VARIANT)):
+            storage, store, events = _promoted_storage(pkg, tmp_path / pkg, rows)
+            frame = view(str(tmp_path / pkg / "view")).find_frame(storage, **kwargs)
+            q = PKG[pkg].base.EventQuery(app_id=APP, entity_type="user",
+                                         target_entity_type="item", event_names=["rate", "buy"])
+            found = list(store.find(q))
+            ref = columnar.EventFrame.from_events(found, value_prop="rating", default_value=1.0)
+            for col in ("event_code", "entity_idx", "target_idx", "time_ms", "value"):
+                a, b = getattr(frame, col), getattr(ref, col)
+                assert a.dtype == b.dtype and np.array_equal(a, b), (pkg, col)
+            for voc in ("event_vocab", "entity_vocab", "target_vocab"):
+                assert getattr(frame, voc).to_dict() == getattr(ref, voc).to_dict(), (pkg, voc)
+            ids = [e.event_id for e in found]
+            assert sorted(ids) == sorted(e.event_id for e in events) and len(set(ids)) == len(ids)
+            variant = dict(variant)
+            variant["datasource"] = {"params": {**variant["datasource"]["params"],
+                                                "use_data_view": True,
+                                                "data_view_dir": str(tmp_path / pkg / "view")}}
+            if pkg == "port":
+                inst = core.run_train(storage, variant, device="cpu")
+                [model] = tcore.prepare_deploy_models(storage, inst, device="cpu")[2]
+            else:
+                inst = core.run_train(storage, variant)
+                [model] = core.prepare_deploy_models(storage, inst)[2]
+            assert inst.status == "COMPLETED"
+            factors[pkg] = model.factors
+    finally:
+        mp.undo()
+    assert paths == ["_train_dense"]
+    t, j = factors["port"], factors["jax"]
+    assert t.user_vocab.to_dict() == j.user_vocab.to_dict()
+    assert t.item_vocab.to_dict() == j.item_vocab.to_dict()
+    for side in ("user_factors", "item_factors"):
+        got, want = np.asarray(getattr(t, side)), np.asarray(getattr(j, side))
+        assert np.all(np.isfinite(got))
+        assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.9999, side
+
+
+def test_data_view_reads_a_replicated_app_through_replica_read_storage(tmp_path):
+    """The data view's segment branch over `ReplicaReadStorage` counts the
+    replica's sealed-rows cache (a miss, then a hit) and gives the
+    replica's frame; the JAX facade passes `frame_cache_stats` to the
+    control store, which has none, so the same read raises there (a
+    fault of the JAX package the port does not keep)."""
+    from predictionio_tpu.data.view import DataView as JDataView
+    from predictionio_tpu_torch.data.view import DataView as TDataView
+
+    out = {}
+    for pkg, view in (("port", TDataView), ("jax", JDataView)):
+        p = PKG[pkg]
+        (tmp_path / pkg).mkdir()
+        control = _sqlite_storage(pkg, tmp_path / pkg / "ctl.db")
+        assert control.get_meta_data_apps().insert(p.base.App(APP, "replapp")) == APP
+        replica = _replica(pkg, tmp_path / pkg)
+        primary = _primary(pkg, tmp_path / pkg)
+        primary.insert_batch([_ev(pkg, k) for k in range(40)], APP)
+        primary.seal(APP)
+        primary.insert_batch([_ev(pkg, k, u=f"t{k}") for k in range(5)], APP)
+        _shipper(pkg, primary, replica).pass_once()
+        storage = p.repl.ReplicaReadStorage(control, replica, [APP])
+        kwargs = dict(app_name="replapp", entity_type="user", target_entity_type="item",
+                      value_prop="rating")
+        dv = view(str(tmp_path / pkg / "view"))
+        if pkg == "jax":
+            with pytest.raises(AttributeError, match="frame_cache_stats"):
+                dv.find_frame(storage, **kwargs)
+            continue
+        view.stats.update(hits=0, misses=0)
+        frames = [dv.find_frame(storage, **kwargs) for _ in range(2)]
+        assert view.stats == {"hits": 1, "misses": 1}
+        q = p.base.EventQuery(app_id=APP, entity_type="user", target_entity_type="item")
+        want = replica.find_frame(q, value_prop="rating")
+        for f in frames:
+            assert len(f) == 45
+            for col in ("event_code", "entity_idx", "target_idx", "time_ms", "value"):
+                assert getattr(f, col).tobytes() == getattr(want, col).tobytes(), col
+        out[pkg] = len(frames[0])
+    assert out == {"port": 45}
